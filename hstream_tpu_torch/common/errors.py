@@ -1,0 +1,41 @@
+"""Exception classes the engine raises (a copy of the part of
+hstream_tpu/common/errors.py the engine needs, without the gRPC status
+table, which belongs to the server), plus the port's own two errors.
+"""
+
+from __future__ import annotations
+
+
+class HStreamError(Exception):
+    def __init__(self, message: str = ""):
+        super().__init__(message)
+        self.message = message
+
+
+class SQLError(HStreamError):
+    def __init__(self, message: str, pos: tuple[int, int] | None = None):
+        super().__init__(message)
+        self.pos = pos  # (line, column), 1-based
+
+    def __str__(self) -> str:
+        if self.pos:
+            return f"{self.message} at line {self.pos[0]}, column {self.pos[1]}"
+        return self.message
+
+
+class SQLCodegenError(SQLError):
+    pass
+
+
+class NotPortedError(SQLCodegenError, NotImplementedError):
+    """A plan feature whose port has not landed yet; the message names
+    the ROADMAP queue item that carries it (e.g. A6)."""
+
+    def __init__(self, what: str, item: str):
+        super().__init__(f"{what} is not ported yet (ROADMAP {item})")
+        self.item = item
+
+
+class DeviceUnavailable(HStreamError, RuntimeError):
+    """The caller asked for the card and there is none. The port never
+    carries on on the CPU in its place."""

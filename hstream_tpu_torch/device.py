@@ -1,0 +1,30 @@
+"""Device resolution: the port runs on the card unless told otherwise.
+
+`resolve(None)` is `cuda`. Only an explicit `"cpu"` (what the CPU tests
+pass) selects the plain PyTorch versions of the kernels. Asking for the
+card where there is none raises; nothing falls back to the CPU.
+The kernels themselves are built on first CUDA use by
+engine/kernels/build.py.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hstream_tpu_torch.common.errors import DeviceUnavailable
+
+
+def resolve(device: str | torch.device | None = None) -> torch.device:
+    """The torch device an entry point runs on (default: the card)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise DeviceUnavailable(
+                "hstream_tpu_torch runs on a CUDA card and none is "
+                "available; pass device='cpu' to run the plain PyTorch "
+                "versions of the kernels")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,51 @@
+"""The continuous-query engine on PyTorch + CUDA (the port of
+hstream_tpu.engine).
+
+Records are staged into columnar micro-batches, bit-packed on the host
+(transport), copied to the card, decoded and scattered into a dense
+window-state lattice `[keys, window-slots, accumulators]` by
+hand-written Hopper kernels (lattice, kernels/), and closed by a
+host-side watermark with one fused close launch per close cycle.
+Timestamps on the device are int32 milliseconds relative to a per-query
+epoch, rebased on the host before the int32 range runs out.
+"""
+
+from hstream_tpu_torch.engine.types import ColumnType, Schema, HostBatch
+from hstream_tpu_torch.engine.window import (
+    TumblingWindow,
+    HoppingWindow,
+    SessionWindow,
+)
+from hstream_tpu_torch.engine.plan import (
+    AggKind,
+    AggSpec,
+    PlanNode,
+    SourceNode,
+    FilterNode,
+    ProjectNode,
+    AggregateNode,
+    JoinNode,
+    SinkNode,
+)
+from hstream_tpu_torch.engine.executor import QueryExecutor
+from hstream_tpu_torch.engine.pipeline import IngestPipeline
+
+__all__ = [
+    "ColumnType",
+    "Schema",
+    "HostBatch",
+    "TumblingWindow",
+    "HoppingWindow",
+    "SessionWindow",
+    "AggKind",
+    "AggSpec",
+    "PlanNode",
+    "SourceNode",
+    "FilterNode",
+    "ProjectNode",
+    "AggregateNode",
+    "JoinNode",
+    "SinkNode",
+    "QueryExecutor",
+    "IngestPipeline",
+]

@@ -1,0 +1,60 @@
+"""ctypes binding for the native wire-encode kernels (cpp/encode.cpp; a
+copy of hstream_tpu/engine/codec_native.py).
+
+Build-on-demand; `load()` returns
+None when no toolchain is available and the transport falls back to its
+pure-numpy packer.
+"""
+
+from __future__ import annotations
+
+import ctypes as C
+import os
+import threading
+
+from hstream_tpu_torch.common.nativebuild import build_so
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(_DIR, "cpp", "encode.cpp")
+SO = os.path.join(_DIR, "cpp", "libencode.so")
+
+_lock = threading.Lock()
+_lib: C.CDLL | None = None
+_tried = False
+
+_i64 = C.c_int64
+_p_i64 = C.POINTER(C.c_int64)
+_p_i32 = C.POINTER(C.c_int32)
+_p_u32 = C.POINTER(C.c_uint32)
+_p_u8 = C.POINTER(C.c_uint8)
+_p_f32 = C.POINTER(C.c_float)
+
+
+def load() -> C.CDLL | None:
+    """The native codec library, built on first use; None if unbuildable."""
+    global _lib, _tried
+    with _lock:
+        if _tried:
+            return _lib
+        _tried = True
+        try:
+            lib = C.CDLL(build_so(SRC, SO, opt="-O3"))
+        except Exception:
+            return None
+        lib.enc_pack_i64.argtypes = [_p_i64, _i64, _i64, C.c_int,
+                                     _p_u32, _i64]
+        lib.enc_pack_i32.argtypes = [_p_i32, _i64, _i64, C.c_int,
+                                     _p_u32, _i64]
+        lib.enc_pack_diff_i64.argtypes = [_p_i64, _i64, C.c_int,
+                                          _p_u32, _i64]
+        lib.enc_pack_bool.argtypes = [_p_u8, _i64, _p_u32, _i64]
+        lib.enc_minmax_i64.argtypes = [_p_i64, _i64, _p_i64, _p_i64]
+        lib.enc_minmax_i32.argtypes = [_p_i32, _i64, _p_i64, _p_i64]
+        lib.enc_diff_stats_i64.argtypes = [_p_i64, _i64, _p_i64]
+        lib.enc_diff_stats_i64.restype = C.c_int32
+        lib.enc_quantize_f32.argtypes = [_p_f32, _i64, C.c_float,
+                                         C.c_float, _i64, _p_i32,
+                                         _p_i64, _p_i64]
+        lib.enc_quantize_f32.restype = C.c_int32
+        _lib = lib
+        return _lib

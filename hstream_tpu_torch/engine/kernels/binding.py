@@ -1,0 +1,114 @@
+"""ctypes binding of the kernels' C interface (csrc/hs_kernels.h).
+
+The structures below mirror the header field for field (ctypes lays them
+out with the same C alignment rules). `lib()` builds and loads the
+library on first use; `check()` turns a launch's cudaError_t into an
+exception, the counterpart of C10_CUDA_KERNEL_LAUNCH_CHECK for a library
+bound without PyTorch's headers.
+"""
+
+from __future__ import annotations
+
+import ctypes as C
+import threading
+
+import torch
+
+MAX_STREAMS = 16
+MAX_AGGS = 16
+
+ENC_CODES = {"bp": 0, "bpd": 1, "bool1": 2, "dec": 3, "rawf": 4, "rawi": 5}
+AGG_COUNT_ALL, AGG_SUM, AGG_AVG, AGG_MIN, AGG_MAX, AGG_HLL = range(6)
+CLOSE_EXTRACT_RESET, CLOSE_EXTRACT, CLOSE_RESET = range(3)  # close modes
+VTYPES = {torch.float32: 0, torch.int32: 1, torch.bool: 2}
+
+
+class Stream(C.Structure):
+    _fields_ = [("word_off", C.c_int64), ("enc", C.c_int32),
+                ("bits", C.c_int32), ("base", C.c_int32),
+                ("inv_scale", C.c_float), ("out", C.c_void_p)]
+
+
+class DecodeArgs(C.Structure):
+    _fields_ = [("words", C.c_void_p), ("cap", C.c_int32),
+                ("n", C.c_int32), ("n_streams", C.c_int32),
+                ("valid_stream", C.c_int32), ("delta_stream", C.c_int32),
+                ("valid_out", C.c_void_p), ("block_sums", C.c_void_p),
+                ("s", Stream * MAX_STREAMS)]
+
+
+class ScatterAgg(C.Structure):
+    _fields_ = [("kind", C.c_int32), ("vtype", C.c_int32),
+                ("values", C.c_void_p), ("plane", C.c_void_p),
+                ("plane_n", C.c_void_p)]
+
+
+class ScatterArgs(C.Structure):
+    _fields_ = [("key", C.c_void_p), ("ts", C.c_void_p),
+                ("valid", C.c_void_p), ("cap", C.c_int32),
+                ("n_keys", C.c_int32), ("n_slots", C.c_int32),
+                ("n_per", C.c_int32), ("advance", C.c_int32),
+                ("size_grace", C.c_int32), ("watermark", C.c_int32),
+                ("track_touched", C.c_int32), ("hll_p", C.c_int32),
+                ("count", C.c_void_p), ("slot_start", C.c_void_p),
+                ("touched", C.c_void_p), ("n_aggs", C.c_int32),
+                ("a", ScatterAgg * MAX_AGGS)]
+
+
+class CloseAgg(C.Structure):
+    _fields_ = [("kind", C.c_int32), ("plane", C.c_void_p),
+                ("plane_n", C.c_void_p), ("init", C.c_float)]
+
+
+class CloseArgs(C.Structure):
+    _fields_ = [("n_keys", C.c_int32), ("n_slots", C.c_int32),
+                ("n_sel", C.c_int32), ("mode", C.c_int32),
+                ("hll_p", C.c_int32), ("hll_am2", C.c_float),
+                ("slots", C.c_void_p), ("count", C.c_void_p),
+                ("slot_start", C.c_void_p), ("touched", C.c_void_p),
+                ("out", C.c_void_p), ("done", C.c_void_p),
+                ("n_aggs", C.c_int32), ("a", CloseAgg * MAX_AGGS)]
+
+
+_lock = threading.Lock()
+_lib: C.CDLL | None = None
+
+
+def lib() -> C.CDLL:
+    """The kernel library, built (engine/kernels/build.py) on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            from hstream_tpu_torch.engine.kernels.build import build
+
+            dll = C.CDLL(build().path)
+            for fn, args in (("hs_decode", [C.POINTER(DecodeArgs)]),
+                             ("hs_scatter", [C.POINTER(ScatterArgs)]),
+                             ("hs_close", [C.POINTER(CloseArgs)])):
+                getattr(dll, fn).argtypes = args + [C.c_void_p]
+                getattr(dll, fn).restype = C.c_int
+            dll.hs_rebase.argtypes = [C.c_void_p, C.c_int32, C.c_int32,
+                                      C.c_void_p]
+            dll.hs_rebase.restype = C.c_int
+            dll.hs_error_string.argtypes = [C.c_int]
+            dll.hs_error_string.restype = C.c_char_p
+            _lib = dll
+        return _lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on t's device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(err: int, kernel: str) -> None:
+    if err != 0:
+        msg = lib().hs_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({err})")
+
+
+def ptr(t: torch.Tensor) -> int:
+    """Device pointer of a contiguous CUDA tensor."""
+    if not t.is_cuda or not t.is_contiguous():
+        raise ValueError("kernel arguments must be contiguous CUDA tensors")
+    return t.data_ptr()

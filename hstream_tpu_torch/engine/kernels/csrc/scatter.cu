@@ -1,0 +1,197 @@
+// Scatter-aggregate: fold one decoded micro-batch into the window-state
+// lattice, in place.
+//
+// Replaces the scatter half of the fused step the JAX package jits
+// (hstream_tpu/engine/lattice.py:138-255 build_step_fn, with
+// sketches.py:35-86 hash_u32 / clz32 / hll_update_indices), for COUNT(*),
+// SUM, AVG, MIN, MAX and APPROX_COUNT_DISTINCT.
+//
+// Bound on the H100: bytes of the decoded columns (13 B/record for the
+// headline query) plus atomics. The state (3 MiB of HLL registers and
+// 12 KiB planes at K=1024, W=3) stays in the 50 MB L2, so the atomics are
+// L2 atomics; the few-tens of integer operations per record for the hash
+// are far below the card's operation rate.
+//
+// Design: one thread per (record, window). Semantics follow the
+// reference exactly:
+//  * floor division and modulo (jnp.mod, //), not C's truncation, so a
+//    record older than the epoch gets a negative window start and is
+//    dropped by `start >= 0` instead of landing in window 0;
+//  * a window is late when start + size + grace <= watermark (int32
+//    wrap-around arithmetic, as in the reference);
+//  * keys outside [0, K) are dropped; NULL-free inputs that are not
+//    finite are masked per aggregate.
+// There is no float atomic min/max: MIN/MAX use the sign-split integer
+// trick (non-negative floats order like signed ints, negative ones in
+// reverse like unsigned ints), which keeps them exact. There is no int8
+// atomic: HLL registers stay int8 [K, W, m] (so state carries across
+// unchanged) and a CAS on the aligned 32-bit word raises only the target
+// byte. slot_start takes an atomicMax from every record into W addresses,
+// the contention hot spot: each block first reduces into shared memory,
+// then issues one global atomic per slot (W <= 1024; wider lattices use
+// global atomics directly). SUM/AVG use float atomicAdd, so their last
+// bits depend on the order the atomics land in.
+
+#include <cuda_runtime.h>
+
+#include "hs_kernels.h"
+
+namespace {
+
+constexpr int kBlock = 256;
+constexpr int kSmemSlots = 1024;
+
+__device__ __forceinline__ int floor_mod(int a, int b) {
+    int r = a % b;
+    return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+    return (a - floor_mod(a, b)) / b;
+}
+
+__device__ __forceinline__ void atomic_min_float(float *addr, float v) {
+    if (__float_as_int(v) >= 0)
+        atomicMin((int *)addr, __float_as_int(v));
+    else
+        atomicMax((unsigned int *)addr, __float_as_uint(v));
+}
+
+__device__ __forceinline__ void atomic_max_float(float *addr, float v) {
+    if (__float_as_int(v) >= 0)
+        atomicMax((int *)addr, __float_as_int(v));
+    else
+        atomicMin((unsigned int *)addr, __float_as_uint(v));
+}
+
+// raise one int8 register to `rank` with a CAS on its aligned word
+__device__ __forceinline__ void atomic_max_i8(int8_t *addr, int rank) {
+    uintptr_t p = (uintptr_t)addr;
+    unsigned int *word = (unsigned int *)(p & ~(uintptr_t)3);
+    int shift = (int)(p & 3) * 8;
+    unsigned int old = *(volatile unsigned int *)word;
+    while (true) {
+        int cur = (int)(int8_t)((old >> shift) & 0xFFu);
+        if (cur >= rank) return;
+        unsigned int nw = (old & ~(0xFFu << shift)) |
+                          ((unsigned int)(rank & 0xFF) << shift);
+        unsigned int seen = atomicCAS(word, old, nw);
+        if (seen == old) return;
+        old = seen;
+    }
+}
+
+__device__ __forceinline__ uint32_t mix32(uint32_t h) {
+    h ^= h >> 16;
+    h *= 0x85EBCA6Bu;
+    h ^= h >> 13;
+    h *= 0xC2B2AE35u;
+    h ^= h >> 16;
+    return h;
+}
+
+__global__ void __launch_bounds__(kBlock)
+scatter_kernel(const HsScatterArgs a, int use_smem) {
+    extern __shared__ int s_start[];
+    if (use_smem) {
+        for (int w = threadIdx.x; w < a.n_slots; w += kBlock)
+            s_start[w] = HS_EMPTY_START;
+        __syncthreads();
+    }
+    int64_t tid = (int64_t)blockIdx.x * kBlock + threadIdx.x;
+    int64_t total = (int64_t)a.cap * a.n_per;
+    if (tid < total) {
+        int i = (int)(tid / a.n_per);
+        int j = (int)(tid % a.n_per);
+        int start = 0;
+        bool in_range = true;
+        if (a.advance > 0) {
+            int t = a.ts[i];
+            int latest = (int)((unsigned)t - (unsigned)floor_mod(t, a.advance));
+            start = (int)((unsigned)latest - (unsigned)j * (unsigned)a.advance);
+            int end = (int)((unsigned)start + (unsigned)a.size_grace);
+            in_range = !(end <= a.watermark) && start >= 0;
+        }
+        bool ok_slot = a.valid[i] && in_range;
+        if (ok_slot) {
+            int slot = a.advance > 0
+                ? floor_mod(floor_div(start, a.advance), a.n_slots) : 0;
+            if (use_smem)
+                atomicMax(&s_start[slot], start);
+            else
+                atomicMax(&a.slot_start[slot], start);
+            int k = a.key[i];
+            if (k >= 0 && k < a.n_keys) {
+                int64_t cell = (int64_t)k * a.n_slots + slot;
+                atomicAdd(&a.count[cell], 1);
+                if (a.track_touched) a.touched[cell] = 1;
+                for (int g = 0; g < a.n_aggs; ++g) {
+                    const HsScatterAgg ag = a.a[g];
+                    float v;
+                    uint32_t bits;
+                    bool ok = true;
+                    if (ag.vtype == HS_T_F32) {
+                        v = ((const float *)ag.values)[i];
+                        ok = isfinite(v);
+                        float c = v == 0.0f ? 0.0f : v;  // -0.0 -> 0.0
+                        bits = __float_as_uint(c);
+                    } else if (ag.vtype == HS_T_I32) {
+                        int x = ((const int *)ag.values)[i];
+                        v = __int2float_rn(x);
+                        bits = (uint32_t)x;
+                    } else {
+                        bits = ((const uint8_t *)ag.values)[i] ? 1u : 0u;
+                        v = (float)bits;
+                    }
+                    if (!ok) continue;
+                    switch (ag.kind) {
+                    case HS_AGG_SUM:
+                        atomicAdd((float *)ag.plane + cell, v);
+                        break;
+                    case HS_AGG_AVG:
+                        atomicAdd((float *)ag.plane + cell, v);
+                        atomicAdd(ag.plane_n + cell, 1);
+                        break;
+                    case HS_AGG_MIN:
+                        atomic_min_float((float *)ag.plane + cell, v);
+                        break;
+                    case HS_AGG_MAX:
+                        atomic_max_float((float *)ag.plane + cell, v);
+                        break;
+                    case HS_AGG_HLL: {
+                        uint32_t h = mix32(bits);
+                        int p = a.hll_p;
+                        uint32_t reg = h >> (32 - p);
+                        uint32_t rest = h << p;
+                        int rank = min(__clz((int)rest) + 1, 33 - p);
+                        int8_t *regs = (int8_t *)ag.plane + (cell << p);
+                        atomic_max_i8(regs + reg, rank);
+                        break;
+                    }
+                    default:
+                        break;
+                    }
+                }
+            }
+        }
+    }
+    if (use_smem) {
+        __syncthreads();
+        for (int w = threadIdx.x; w < a.n_slots; w += kBlock)
+            if (s_start[w] != HS_EMPTY_START)
+                atomicMax(&a.slot_start[w], s_start[w]);
+    }
+}
+
+}  // namespace
+
+extern "C" int hs_scatter(const HsScatterArgs *args, void *stream) {
+    int64_t total = (int64_t)args->cap * args->n_per;
+    if (total == 0) return 0;
+    int use_smem = args->n_slots <= kSmemSlots;
+    size_t smem = use_smem ? (size_t)args->n_slots * sizeof(int) : 0;
+    unsigned blocks = (unsigned)((total + kBlock - 1) / kBlock);
+    scatter_kernel<<<blocks, kBlock, smem, (cudaStream_t)stream>>>(
+        *args, use_smem);
+    return (int)cudaGetLastError();
+}

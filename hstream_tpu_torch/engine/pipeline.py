@@ -1,0 +1,255 @@
+"""Overlapped ingest pipeline (a copy of hstream_tpu/engine/pipeline.py):
+a pool of host-encode workers feeding a bounded staging ring, stepped in
+strict batch order on the caller's thread. The workers call the port's
+QueryExecutor.stage_columnar (encode + H2D copy on a side stream).
+
+The executor's hot loop has three host-side phases per micro-batch:
+  1. wire-encode (numpy/native bit-packing)
+  2. host->device upload (pinned copy on a side stream, bounded)
+  3. decode + scatter kernel launches + window bookkeeping
+Phases 1-2 are pure w.r.t. engine state (the wire codec's adaptive
+state tolerates out-of-order planning — every batch's combo/bases/words
+triple is self-consistent; see transport.BitpackTransport) and launch
+no kernel, so N encode workers overlap with the ordered step launches
+of earlier batches: batch i+2 encodes on one worker while batch i+1's
+upload rides the link and batch i's scatter runs on the device. Order
+is restored by sequence tags: workers deposit staged batches into a
+reorder ring and the caller consumes them strictly in submission
+order, so watermarks, window closes, and emitted rows are identical to
+the synchronous path.
+
+Usage:
+    pipe = IngestPipeline(executor, depth=4, workers=2)
+    emitted += pipe.submit(kids, ts_ms, cols)   # may return earlier
+    emitted += pipe.flush()                     # barrier: all batches
+    pipe.stats()                                # per-stage occupancy
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Any, Mapping
+
+import numpy as np
+
+from hstream_tpu_torch.common.columnar import extend_rows
+
+
+class IngestPipeline:
+    """Pipelines stage_columnar (worker pool) with process_staged
+    (caller thread) for one QueryExecutor. Not thread-safe itself: one
+    producer calls submit()/flush()."""
+
+    def __init__(self, executor, depth: int = 4, workers: int = 1):
+        self._ex = executor
+        self.depth = max(int(depth), 1)
+        self.workers = max(int(workers), 1)
+        # bounded staging ring: (seq, batch) items; blocking put() is the
+        # backpressure when encode falls `depth` behind
+        self._in: queue.Queue = queue.Queue(maxsize=self.depth)
+        # reorder buffer: seq -> StagedBatch | _WorkerError; the caller
+        # pops strictly in sequence order
+        self._ready: dict[int, Any] = {}
+        self._cond = threading.Condition()
+        self._next_seq = 0         # next sequence tag to assign
+        self._take_seq = 0         # next sequence the caller processes
+        self._live_workers = self.workers
+        self._dead = False         # a worker error was delivered
+        self._closed = False
+        # per-stage busy-seconds (encode is summed across workers; wall
+        # starts at construction) — bench/tracing read stats()
+        self._t0 = time.perf_counter()
+        self._stat_lock = threading.Lock()
+        self._busy = {"encode_s": 0.0, "step_s": 0.0}
+        self._threads = [
+            threading.Thread(target=self._encode_loop, daemon=True,
+                             name=f"ingest-enc-{i}")
+            for i in range(self.workers)
+        ]
+        for t in self._threads:
+            t.start()
+
+    # ---- encode workers ----------------------------------------------------
+
+    def _encode_loop(self) -> None:
+        while True:
+            try:
+                item = self._in.get(timeout=0.5)
+            except queue.Empty:
+                if self._closed:
+                    break
+                continue
+            if item is None:  # wake-up sentinel from close()
+                break
+            seq, (kids, ts, cols, nulls) = item
+            try:
+                t0 = time.perf_counter()
+                staged = self._ex.stage_columnar(kids, ts, cols, nulls)
+                with self._stat_lock:
+                    self._busy["encode_s"] += time.perf_counter() - t0
+            except BaseException as e:  # surfaced in order on the caller
+                staged = _WorkerError(e)
+            with self._cond:
+                self._ready[seq] = staged
+                self._cond.notify_all()
+        with self._cond:
+            self._live_workers -= 1
+            self._cond.notify_all()
+
+    # ---- ordered consumption (caller thread) -------------------------------
+
+    @property
+    def pending(self) -> int:
+        """Batches submitted but not yet processed."""
+        return self._next_seq - self._take_seq
+
+    def _process_one(self, block: bool) -> list[dict[str, Any]] | None:
+        """Process the next staged batch in sequence order; None when it
+        is not staged yet (non-blocking mode) or nothing is pending."""
+        if self._take_seq >= self._next_seq:
+            return None
+        seq = self._take_seq
+        with self._cond:
+            while seq not in self._ready:
+                if not block:
+                    return None
+                if self._live_workers <= 0:
+                    raise RuntimeError(
+                        "ingest pipeline workers died with batches "
+                        "pending")
+                self._cond.wait(0.5)
+            staged = self._ready.pop(seq)
+        self._take_seq = seq + 1
+        if isinstance(staged, _WorkerError):
+            self._dead = True
+            raise staged.err
+        t0 = time.perf_counter()
+        rows = self._ex.process_staged(staged)
+        with self._stat_lock:
+            self._busy["step_s"] += time.perf_counter() - t0
+        return rows
+
+    def submit(self, key_ids: np.ndarray, ts_ms: np.ndarray,
+               cols: Mapping[str, np.ndarray],
+               nulls: Mapping[str, np.ndarray] | None = None,
+               ) -> list[dict[str, Any]]:
+        """Enqueue one micro-batch; processes any batches whose encode
+        already finished and returns their emitted rows (rows therefore
+        lag submission by the pipeline depth — call flush() for a
+        barrier)."""
+        if self._dead or self._closed:
+            raise RuntimeError("ingest pipeline worker has exited")
+        # rows accumulate via extend_rows so a lone columnar close
+        # batch (engine ColumnarEmit) reaches the sink unmaterialized
+        out: Any = None
+        # backpressure: when the encoders are depth behind, block for one
+        block = self._in.full()
+        while True:
+            rows = self._process_one(block)
+            if rows is None:
+                break
+            out = extend_rows(out, rows)
+            block = False
+        key_ids = np.asarray(key_ids)
+        if len(key_ids) and self._ex.epoch is None:
+            # anchor the epoch HERE, in submission order: with several
+            # encode workers the first batch to finish staging is not
+            # necessarily the first submitted, and an epoch anchored to
+            # a later batch would push earlier records negative-relative
+            self._ex._ensure_epoch(int(np.min(np.asarray(ts_ms))))
+        cap = self._ex.batch_capacity
+        for i in range(0, len(key_ids), cap):
+            sl = slice(i, i + cap)
+            item = (key_ids[sl], np.asarray(ts_ms)[sl],
+                    {k: np.asarray(v)[sl] for k, v in cols.items()},
+                    None if nulls is None else
+                    {k: np.asarray(v)[sl] for k, v in nulls.items()})
+            seq = self._next_seq
+            self._next_seq = seq + 1
+            while True:
+                try:
+                    self._in.put((seq, item), timeout=0.5)
+                    break
+                except queue.Full:
+                    # ring full AND nothing staged yet: keep draining so
+                    # a stalled worker cannot deadlock the producer
+                    rows = self._process_one(block=False)
+                    if rows is not None:
+                        out = extend_rows(out, rows)
+        return out if out is not None else []
+
+    def flush(self) -> list[dict[str, Any]]:
+        """Barrier: wait until every submitted batch is staged and
+        processed; returns their emitted rows."""
+        if self._dead:
+            raise RuntimeError("ingest pipeline worker has exited")
+        out: Any = None
+        while self.pending > 0:
+            rows = self._process_one(block=True)
+            if rows is not None:
+                out = extend_rows(out, rows)
+        return out if out is not None else []
+
+    def stats(self) -> dict[str, float]:
+        """Per-stage busy seconds + occupancy since construction.
+        encode: worker-pool time in stage_columnar (wire pack + upload
+        dispatch, summed over workers); step: caller time in
+        process_staged (step dispatch + window bookkeeping + inline
+        drains). The executor contributes upload-wait and change-drain
+        counters when it tracks them (executor.stage_stats)."""
+        wall = max(time.perf_counter() - self._t0, 1e-9)
+        with self._stat_lock:
+            out = dict(self._busy)
+        for k, v in getattr(self._ex, "stage_stats", {}).items():
+            out[k] = out.get(k, 0.0) + v
+        out["wall_s"] = wall
+        out["encode_occupancy"] = min(
+            out.get("encode_s", 0.0) / (wall * self.workers), 1.0)
+        out["step_occupancy"] = min(out.get("step_s", 0.0) / wall, 1.0)
+        if "drain_s" in out:
+            out["drain_occupancy"] = min(out["drain_s"] / wall, 1.0)
+        return out
+
+    def reset_stats(self) -> None:
+        """Zero the per-stage counters and restart the wall clock (call
+        after warmup so occupancies reflect the steady state only)."""
+        with self._stat_lock:
+            self._busy = {"encode_s": 0.0, "step_s": 0.0}
+        ex_stats = getattr(self._ex, "stage_stats", None)
+        if ex_stats is not None:
+            lock = getattr(self._ex, "_stats_lock", None)
+            if lock is not None:
+                with lock:
+                    for k in ex_stats:
+                        ex_stats[k] = 0.0
+            else:
+                for k in ex_stats:
+                    ex_stats[k] = 0.0
+        self._t0 = time.perf_counter()
+
+    def close(self) -> None:
+        """Teardown, not a flush barrier: workers exit after their
+        current batch. The _closed flag is the authoritative stop
+        signal (workers poll it on an idle queue); the None sentinels
+        are best-effort wake-ups only, so a full queue cannot strand a
+        worker."""
+        if self._closed:
+            return
+        self._closed = True
+        for _ in self._threads:
+            try:
+                self._in.put_nowait(None)
+            except queue.Full:
+                break  # workers notice _closed within their poll tick
+        for t in self._threads:
+            t.join(timeout=5)
+
+
+class _WorkerError:
+    """A worker exception, delivered at its batch's turn so errors
+    surface in submission order."""
+
+    def __init__(self, err: BaseException):
+        self.err = err

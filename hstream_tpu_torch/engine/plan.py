@@ -1,0 +1,101 @@
+"""Logical query plans (a copy of hstream_tpu/engine/plan.py).
+
+The reference's SQL codegen lowers SELECT into a processor-DAG builder
+(hstream-sql Codegen.hs:532-567: source -> filter -> map/groupBy -> window
+aggregate -> having -> sink). Here the DAG survives only as this logical
+plan; the physical form is the lattice step (engine/lattice.py).
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+
+from hstream_tpu_torch.engine.expr import Expr
+from hstream_tpu_torch.engine.types import Schema
+from hstream_tpu_torch.engine.window import WindowSpec
+
+
+class AggKind(enum.Enum):
+    COUNT_ALL = "count_all"        # COUNT(*)
+    COUNT = "count"                # COUNT(col) — non-null count
+    SUM = "sum"
+    AVG = "avg"
+    MIN = "min"
+    MAX = "max"
+    APPROX_COUNT_DISTINCT = "approx_count_distinct"  # HLL sketch
+    APPROX_QUANTILE = "approx_quantile"              # log-binned histogram
+    TOPK = "topk"                  # top-k values per group/window
+    TOPK_DISTINCT = "topk_distinct"
+
+
+@dataclass(frozen=True)
+class AggSpec:
+    kind: AggKind
+    out_name: str
+    input: Expr | None = None      # None for COUNT(*)
+    quantile: float | None = None  # for APPROX_QUANTILE
+    k: int | None = None           # for TOPK
+
+
+@dataclass
+class PlanNode:
+    pass
+
+
+@dataclass
+class SourceNode(PlanNode):
+    stream: str
+    schema: Schema
+
+
+@dataclass
+class FilterNode(PlanNode):
+    child: PlanNode
+    predicate: Expr
+
+
+@dataclass
+class ProjectNode(PlanNode):
+    """SELECT expressions for non-aggregating queries (host-evaluated on
+    the emitted rows; device path forwards source columns)."""
+    child: PlanNode
+    exprs: list[tuple[str, Expr]]  # (output name, expr)
+
+
+@dataclass
+class AggregateNode(PlanNode):
+    child: PlanNode
+    group_keys: list[Expr]         # grouping columns
+    window: WindowSpec | None      # None = global group-by
+    aggs: list[AggSpec]
+    having: Expr | None = None
+    # host-side projections over aggregate outputs, e.g. SUM(x)/2 AS y
+    post_projections: list[tuple[str, Expr]] = field(default_factory=list)
+
+
+@dataclass
+class JoinNode(PlanNode):
+    left: PlanNode
+    right: PlanNode
+    left_key: Expr
+    right_key: Expr
+    window_ms: int                 # |ts_l - ts_r| <= window_ms (JOIN WITHIN)
+    left_name: str = "l"
+    right_name: str = "r"
+
+
+@dataclass
+class SinkNode(PlanNode):
+    child: PlanNode
+    stream: str
+
+
+def plan_source(node: PlanNode) -> SourceNode:
+    """The (single) source under a linear plan chain."""
+    while not isinstance(node, SourceNode):
+        if isinstance(node, (FilterNode, ProjectNode, AggregateNode, SinkNode)):
+            node = node.child
+        else:
+            raise ValueError(f"no single source under {type(node).__name__}")
+    return node

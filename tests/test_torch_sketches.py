@@ -1,0 +1,65 @@
+"""Parity of the port's plain sketch functions with hstream_tpu's.
+
+Hash, register index and rank are integer functions and must match
+exactly, for float32 (with -0.0 canonicalized), int32 and bool inputs.
+The HLL estimate sums the registers' 2^-r terms exactly in the port and
+in float32 in the reference: held to rel 1e-6, in both the
+linear-counting and the harmonic-mean regime.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from hstream_tpu.engine import sketches as js
+from hstream_tpu_torch.engine import sketches as ts
+
+
+def _values(kind: str, rng) -> np.ndarray:
+    n = 4096
+    if kind == "f32":
+        v = rng.normal(0, 1e3, n).astype(np.float32)
+        v[:4] = (0.0, -0.0, np.float32(1e-45), -np.float32(3.4e38))
+        return v
+    if kind == "i32":
+        return rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
+    return rng.integers(0, 2, n).astype(np.bool_)
+
+
+@pytest.mark.parametrize("kind", ["f32", "i32", "bool"])
+@pytest.mark.parametrize("p", [4, 10, 14])
+def test_hash_register_and_rank_match(kind, p):
+    v = _values(kind, np.random.default_rng(p))
+    jh = np.asarray(js.hash_u32(v))
+    th = ts.hash_u32(torch.from_numpy(v)).numpy()
+    np.testing.assert_array_equal(th, jh.astype(np.int64))
+    jr, jk = js.hll_update_indices(v, js.HLLConfig(p))
+    tr, tk = ts.hll_update_indices(torch.from_numpy(v), ts.HLLConfig(p))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    assert tk.max() <= ts.HLLConfig(p).max_rank
+
+
+def test_clz_matches_on_edges():
+    x = np.array([0, 1, 2, 3, 0x80000000, 0xFFFFFFFF, 0x00010000],
+                 np.uint32)
+    np.testing.assert_array_equal(
+        ts.clz32(torch.from_numpy(x.astype(np.int64))).numpy(),
+        np.asarray(js.clz32(x)))
+
+
+@pytest.mark.parametrize("distinct", [0, 5, 300, 5000, 200_000])
+def test_estimate_matches_in_both_regimes(distinct):
+    rng = np.random.default_rng(distinct)
+    cfg_j, cfg_t = js.HLLConfig(), ts.HLLConfig()
+    regs = np.zeros((3, cfg_j.m), np.int8)
+    for row in range(3):
+        v = rng.normal(0, 1e6, distinct).astype(np.float32)
+        reg, rank = js.hll_update_indices(v, cfg_j)
+        np.maximum.at(regs[row], np.asarray(reg), np.asarray(rank))
+    want = np.asarray(js.hll_estimate(regs, cfg_j))
+    got = ts.hll_estimate(torch.from_numpy(regs), cfg_t).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)

@@ -5,7 +5,11 @@ Records are staged into columnar micro-batches, bit-packed on the host
 (transport), copied to the card, decoded and scattered into a dense
 window-state lattice `[keys, window-slots, accumulators]` by
 hand-written Hopper kernels (lattice, kernels/), and closed by a
-host-side watermark with one fused close launch per close cycle.
+host-side watermark with one fused close launch per close cycle. An
+EMIT CHANGES query (the default) emits one changelog row per touched
+(key, window) per batch, extracted on the card, and resets at each
+window end. Non-aggregating queries run on the host (stateless), as do
+the host-side keyed stores (statestore).
 Timestamps on the device are int32 milliseconds relative to a per-query
 epoch, rebased on the host before the int32 range runs out.
 """
@@ -29,6 +33,11 @@ from hstream_tpu_torch.engine.plan import (
 )
 from hstream_tpu_torch.engine.executor import QueryExecutor
 from hstream_tpu_torch.engine.pipeline import IngestPipeline
+from hstream_tpu_torch.engine.stateless import StatelessExecutor
+from hstream_tpu_torch.engine.statestore import (
+    LastValueStore,
+    TimestampedKVStore,
+)
 
 __all__ = [
     "ColumnType",
@@ -48,4 +57,7 @@ __all__ = [
     "SinkNode",
     "QueryExecutor",
     "IngestPipeline",
+    "StatelessExecutor",
+    "TimestampedKVStore",
+    "LastValueStore",
 ]

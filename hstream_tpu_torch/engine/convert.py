@@ -16,16 +16,14 @@ from typing import Iterable, Mapping
 import numpy as np
 import torch
 
-
-
-
 _DTYPES = (np.int8, np.bool_, np.int32, np.float32)
 
 
 def state_from_numpy(arrays: Mapping[str, np.ndarray],
                      device: str | torch.device) -> dict[str, torch.Tensor]:
-    """Numpy planes (int8 HLL registers, bool touched, int32 counts and
-    slot_start, float32 accumulators) -> the port's state on `device`."""
+    """Numpy planes (int8 HLL registers, bool touched, int32 counts,
+    COUNT(col) planes, quantile bins and slot_start, float32 accumulators
+    and TOPK values) -> the port's state on `device`."""
     out = {}
     for name, arr in arrays.items():
         arr = np.asarray(arr)

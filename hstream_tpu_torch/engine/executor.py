@@ -11,17 +11,25 @@ Responsibilities, as in the reference:
   * when the watermark passes win_end + grace: one fused close launch
     (extract + finalize + reset) and one fetch per close cycle, then
     decode keys and apply HAVING + projections
+  * EMIT CHANGES mode (the default, as in the reference): after each
+    batch, one changelog extract of the touched (key, window) pairs
+    (one change per touched pair per micro-batch), and at each window
+    end a reset-only close with no fetch
 
-Each micro-batch costs one wire-decode and one scatter launch on the card
-(lattice.step_encoded) after an H2D copy of its wire words: pinned host
-buffers, a copy on a side stream and a CUDA event the step waits on, at
-most `upload_slots` copies in flight. Entry points run on the card unless
-the caller passes device="cpu", which runs the plain PyTorch versions.
+Each micro-batch costs, on the card, one wire decode, one expression
+launch when the query has a WHERE clause or a computed aggregate input,
+one scatter, one top-k fold when it has TOPK, and in EMIT CHANGES mode
+one touched extract (lattice.step_encoded, lattice.extract_touched),
+after an H2D copy of its wire words: pinned host buffers, a copy on a
+side stream and a CUDA event the step waits on, at most `upload_slots`
+copies in flight. SQL NULLs travel as the reference's `__null_a{i}` flag
+streams; a NULL in a WHERE column clears the record's valid bit on the
+host. Entry points run on the card unless the caller passes
+device="cpu", which runs the plain PyTorch versions.
 
-Not ported yet, each raising NotPortedError that names its ROADMAP item:
-EMIT CHANGES (A6), WHERE and computed aggregate inputs (A6), NULL
-aggregate inputs (A6). The reference's degrade path after a failed fused
-close (per-slot reference close) is not ported: a failed launch raises.
+Session windows raise NotPortedError (ROADMAP A7). The reference's
+degrade path after a failed fused close (per-slot reference close) is
+not ported: a failed launch raises.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import itertools
 import threading
 import time
 from collections import deque
+from concurrent import futures
 from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
 
@@ -40,8 +49,15 @@ from hstream_tpu_torch import device as devmod
 from hstream_tpu_torch.common.columnar import ColumnarEmit, extend_rows
 from hstream_tpu_torch.common.errors import NotPortedError, SQLCodegenError
 from hstream_tpu_torch.engine import lattice, transport
-from hstream_tpu_torch.engine.expr import Col, encode_strings, eval_host, \
-    eval_host_vec
+from hstream_tpu_torch.engine.expr import (
+    BinOp,
+    Col,
+    Expr,
+    columns_of,
+    encode_strings,
+    eval_host,
+    eval_host_vec,
+)
 from hstream_tpu_torch.engine.plan import AggKind, AggregateNode, AggSpec
 from hstream_tpu_torch.engine.types import (
     ColumnType,
@@ -54,12 +70,42 @@ from hstream_tpu_torch.engine.window import FixedWindow, SessionWindow
 
 REBASE_THRESHOLD = 1 << 30  # re-anchor epoch when relative time passes this
 
+# Shared device->host change-drain workers: ONE small pool for every
+# executor in the process, so concurrent queries batch their blocking
+# D2H fetches onto drain threads instead of each stalling its own loop.
+_DRAIN_POOL: futures.ThreadPoolExecutor | None = None
+_DRAIN_POOL_LOCK = threading.Lock()
+
+
+def _change_drain_pool() -> futures.ThreadPoolExecutor:
+    global _DRAIN_POOL
+    with _DRAIN_POOL_LOCK:
+        if _DRAIN_POOL is None:
+            _DRAIN_POOL = futures.ThreadPoolExecutor(
+                max_workers=2, thread_name_prefix="change-drain")
+        return _DRAIN_POOL
+
 _LAYOUT_TAGS = {ColumnType.FLOAT: "f32", ColumnType.INT: "i32",
                 ColumnType.BOOL: "bool", ColumnType.STRING: "i32"}
 
 
 def _align_down(ts: int, step: int) -> int:
     return ts - (ts % step)
+
+
+_INT_KINDS = (AggKind.COUNT_ALL, AggKind.COUNT, AggKind.APPROX_COUNT_DISTINCT)
+
+
+def _agg_column(agg: AggSpec, v: np.ndarray) -> np.ndarray:
+    """An aggregate's emitted column from its finalized float32 values:
+    counts as int64, TOPK as lists of the finite values, else float64."""
+    if agg.kind in (AggKind.TOPK, AggKind.TOPK_DISTINCT):
+        vals = np.empty(len(v), object)
+        vals[:] = [[float(x) for x in row[np.isfinite(row)]] for row in v]
+        return vals
+    if agg.kind in _INT_KINDS:
+        return np.rint(v).astype(np.int64)
+    return np.asarray(v, np.float64)
 
 
 # Per-instance read-version nonces: a rebuilt executor must never alias a
@@ -103,15 +149,13 @@ class QueryExecutor:
         node: AggregateNode,
         schema: Schema,
         *,
-        emit_changes: bool = False,
+        emit_changes: bool = True,
         initial_keys: int = 1024,
         batch_capacity: int = 4096,
         device: str | torch.device | None = None,
     ):
         if isinstance(node.window, SessionWindow):
             raise NotPortedError("session windows", "A7")
-        if emit_changes:
-            raise NotPortedError("EMIT CHANGES (extract_touched)", "A6")
         self.device = devmod.resolve(device)
         self.node = node
         self.schema = schema
@@ -142,20 +186,39 @@ class QueryExecutor:
                                                    self.dicts),
                               quantile=agg.quantile, k=agg.k)
             encoded_aggs.append(agg)
-        self._check_child()
+        self._filter_expr = self._extract_filter()
+        if self._filter_expr is not None:
+            self._filter_expr = encode_strings(
+                self._filter_expr, schema, self.dicts)
+
+        # columns the device step actually needs
+        needed: set[str] = set()
+        for agg in encoded_aggs:
+            if agg.input is not None:
+                needed |= columns_of(agg.input)
+        if self._filter_expr is not None:
+            needed |= columns_of(self._filter_expr)
+        self._needed_cols = sorted(needed)
 
         self.spec = lattice.LatticeSpec(
             n_keys=initial_keys, window=self.window,
             aggs=tuple(encoded_aggs), track_touched=emit_changes)
+        # the WHERE mask and computed inputs, as expression programs
+        self._progs = lattice.step_programs(self.spec, schema,
+                                            self._filter_expr)
         self.state = lattice.init_state(self.spec, self.device)
-        # the column each aggregate reads, in schema layout order
-        self._agg_cols = lattice.agg_input_columns(self.spec)
-        self._needed_cols = sorted({c for c in self._agg_cols if c})
         self._layout = tuple((name, _LAYOUT_TAGS[schema.type_of(name)])
                              for name in self._needed_cols)
+        # (null-flag stream name, referenced columns) per aggregate input
+        self._null_specs = [
+            (lattice.null_key(i), sorted(columns_of(agg.input)))
+            for i, agg in enumerate(self.spec.aggs) if agg.input is not None]
         # sticky adaptive wire codec; its encode() runs unlocked on
-        # several pipeline workers (transport.BitpackTransport)
+        # several pipeline workers (transport.BitpackTransport). Null
+        # streams, once seen, stay on the wire so the combo converges.
         self._transport = transport.BitpackTransport()
+        self._transport_lock = threading.Lock()
+        self._null_sticky: set[str] = set()
 
         self.epoch: int | None = None        # absolute ms anchor, advance-aligned
         self.watermark_abs: int = -1
@@ -174,6 +237,17 @@ class QueryExecutor:
         # fetches and decodes them later, in one fetch per buffer shape.
         self.defer_close_decode = False
         self._pending_closes: list[tuple[list[int], torch.Tensor]] = []
+        # Deferred CHANGE decode (EMIT CHANGES): keep the touched extract
+        # on the device and decode it later, so the blocking fetch
+        # overlaps the next batches' work; change_drain_depth extracts
+        # queue before one batched fetch; async_change_drain moves that
+        # fetch and its decode onto the shared drain pool, collected
+        # strictly in submission order. flush_changes() drains the tail.
+        self.defer_change_decode = False
+        self.change_drain_depth = 1
+        self.async_change_drain = False
+        self._pending_changes: list[tuple[int | None, torch.Tensor]] = []
+        self._drain_futs: deque = deque()
         # the close contract: ONE close launch and (when not deferred)
         # ONE device->host fetch per close cycle, however many windows
         # are due
@@ -190,7 +264,8 @@ class QueryExecutor:
         self._copy_stream = (torch.cuda.Stream(device=self.device)
                              if self.device.type == "cuda" else None)
         # per-stage busy-seconds shared with IngestPipeline.stats()
-        self.stage_stats: dict[str, float] = {"upload_wait_s": 0.0}
+        self.stage_stats: dict[str, float] = {"upload_wait_s": 0.0,
+                                              "drain_s": 0.0}
         self._stats_lock = threading.Lock()
         self.late_drops = 0
         self.transfer_stats = {"h2d_bytes": 0, "d2h_bytes": 0}
@@ -199,29 +274,75 @@ class QueryExecutor:
         self.read_epoch = 0
         self._read_nonce = next(_READ_NONCE)
 
-    def _check_child(self) -> None:
+    def _extract_filter(self) -> Expr | None:
+        """AND of every FilterNode predicate down to the source; any other
+        child node raises, so a plan cannot silently skip a filter."""
         from hstream_tpu_torch.engine.plan import FilterNode, SourceNode
 
+        pred: Expr | None = None
         child = self.node.child
         while not isinstance(child, SourceNode):
             if isinstance(child, FilterNode):
-                raise NotPortedError("WHERE on the device", "A6")
-            raise SQLCodegenError(
-                f"aggregate over unsupported child node "
-                f"{type(child).__name__}")
+                pred = child.predicate if pred is None else \
+                    BinOp("AND", pred, child.predicate)
+                child = child.child
+            else:
+                raise SQLCodegenError(
+                    f"aggregate over unsupported child node "
+                    f"{type(child).__name__}")
+        return pred
 
     def device_plane_bytes(self) -> dict[str, int]:
         """Exact per-plane device bytes of the live lattice state."""
         return {k: int(v.nbytes) for k, v in self.state.items()}
 
-    def _run_step(self, n: int, key_ids, ts_rel, cols, wm_rel: int) -> None:
+    def _run_step(self, n: int, key_ids, ts_rel, cols, nulls,
+                  wm_rel: int) -> None:
         """Encode one micro-batch with the wire codec, upload it, and
-        launch the decode + scatter kernels. The wire is sized to the
-        batch (cap = n): kernels take any size, so nothing pads."""
-        combo, bases, words = self._transport.encode(
-            n, n, key_ids, ts_rel, cols, self._layout)
+        launch the step's kernels. The wire is sized to the batch
+        (cap = n): kernels take any size, so nothing pads."""
+        combo, bases, words = self._encode(n, key_ids, ts_rel, cols, nulls)
         staged_words, ready = self._device_stage(words)
         self._launch_step(combo, bases, staged_words, ready, n, wm_rel)
+
+    def _encode(self, n: int, key_ids, ts_rel, cols, nulls):
+        """Wire-encode one batch with its valid bits (a NULL in a WHERE
+        column makes the predicate not true) and null-flag streams. Only
+        the sticky-null merge holds the lock; the encode runs unlocked on
+        the pipeline's workers."""
+        valid, null_streams = self._null_valid_streams(n, nulls)
+        with self._transport_lock:
+            self._null_sticky.update(null_streams)
+            sticky = tuple(self._null_sticky)
+        for nk in sticky:
+            if nk not in null_streams:
+                null_streams[nk] = np.zeros(n, dtype=np.bool_)
+        return self._transport.encode(n, n, key_ids, ts_rel, cols,
+                                      self._layout, valid=valid,
+                                      null_streams=null_streams)
+
+    def _null_valid_streams(self, n: int, nulls):
+        """(valid | None, {__null_a{i}: mask}) from a batch's per-column
+        null masks (executor.py:817-835 in the reference)."""
+        null_streams: dict[str, np.ndarray] = {}
+        if nulls is None:
+            return None, null_streams
+        for nk, refs in self._null_specs:
+            nm = np.zeros(n, dtype=np.bool_)
+            for c in refs:
+                if c in nulls:
+                    nm |= np.asarray(nulls[c][:n], np.bool_)
+            if nm.any():
+                null_streams[nk] = nm
+        valid = None
+        if self._filter_expr is not None:
+            fm = np.zeros(n, dtype=np.bool_)
+            for c in columns_of(self._filter_expr):
+                if c in nulls:
+                    fm |= np.asarray(nulls[c][:n], np.bool_)
+            if fm.any():
+                valid = ~fm
+        return valid, null_streams
 
     def _launch_step(self, combo, bases, words, ready, n: int,
                      wm_rel: int) -> None:
@@ -234,14 +355,7 @@ class QueryExecutor:
             words.record_stream(cur)
         self.read_epoch += 1
         lattice.step_encoded(self.spec, self.state, int(wm_rel), n, bases,
-                             words, combo, n)
-
-    def _check_nulls(self, n: int, nulls) -> None:
-        if nulls is None:
-            return
-        for c in self._needed_cols:
-            if c in nulls and np.asarray(nulls[c][:n]).any():
-                raise NotPortedError(f"NULL inputs in column {c!r}", "A6")
+                             words, combo, n, self._progs)
 
     # ---- keys --------------------------------------------------------------
 
@@ -435,7 +549,6 @@ class QueryExecutor:
         n = len(rows)
         batch = HostBatch.from_rows(self.schema, rows, ts_ms, self.dicts,
                                     capacity=n)
-        self._check_nulls(n, batch.nulls)
         self._ensure_epoch(min(ts_ms))
         self._maybe_rebase(max(ts_ms))
 
@@ -451,7 +564,7 @@ class QueryExecutor:
         wm_rel = (max(self.watermark_abs - self.epoch, -1)
                   if self.watermark_abs >= 0 else -1)
         self._note_late(np.asarray(ts_ms, dtype=np.int64))
-        self._run_step(n, key_ids, ts_rel64, batch.cols, wm_rel)
+        self._run_step(n, key_ids, ts_rel64, batch.cols, batch.nulls, wm_rel)
 
         # host window bookkeeping
         if self.window is not None:
@@ -460,7 +573,16 @@ class QueryExecutor:
         new_wm = max(ts_ms)
         if new_wm > self.watermark_abs:
             self.watermark_abs = new_wm
-        return self.close_due_windows()
+        return self._emit()
+
+    def _emit(self) -> list[dict[str, Any]]:
+        """After a step: the changelog (EMIT CHANGES), then the closes;
+        a lone columnar batch stays columnar all the way to the caller."""
+        out = None
+        if self.emit_changes:
+            out = extend_rows(out, self._drain_changes())
+        out = extend_rows(out, self.close_due_windows())
+        return out if out is not None else []
 
     def _note_late(self, ts_arr: np.ndarray) -> None:
         """Host mirror of the device's late mask: a record
@@ -527,7 +649,6 @@ class QueryExecutor:
                     None if nulls is None else
                     {k: v[sl] for k, v in nulls.items()}))
             return out
-        self._check_nulls(n, nulls)
 
         ts_list = np.asarray(ts_ms, dtype=np.int64)
         min_ts, max_ts = int(ts_list.min()), int(ts_list.max())
@@ -554,13 +675,13 @@ class QueryExecutor:
         wm_rel = (max(self.watermark_abs - self.epoch, -1)
                   if self.watermark_abs >= 0 else -1)
         self._note_late(ts_list)
-        self._run_step(n, key_ids, ts_rel64, cols, wm_rel)
+        self._run_step(n, key_ids, ts_rel64, cols, nulls, wm_rel)
 
         if self.window is not None:
             self._track_windows(ts_list, batch_starts)
         if max_ts > self.watermark_abs:
             self.watermark_abs = max_ts
-        return self.close_due_windows()
+        return self._emit()
 
     # ---- pipelined ingest (stage on one thread, step on another) ----------
 
@@ -611,7 +732,6 @@ class QueryExecutor:
         if n > self.batch_capacity:
             raise ValueError("stage_columnar: batch exceeds capacity; "
                              "split upstream")
-        self._check_nulls(n, nulls)
         ts = np.asarray(ts_ms, dtype=np.int64)
         self._ensure_epoch(int(ts.min()))
         # single epoch read: a concurrent rebase on the caller thread
@@ -625,8 +745,7 @@ class QueryExecutor:
             key_ids=key_ids, ts_ms=ts, cols=cols, nulls=nulls)
         if int(ts_rel64.max()) >= (1 << 31):
             return staged  # combo=None -> synchronous fallback (rebases)
-        combo, bases, words = self._transport.encode(
-            n, n, key_ids, ts_rel64, cols, self._layout)
+        combo, bases, words = self._encode(n, key_ids, ts_rel64, cols, nulls)
         staged.combo = combo
         staged.bases = bases
         staged.words, staged.ready = self._device_stage(words)
@@ -678,7 +797,7 @@ class QueryExecutor:
             self._track_windows(ts_list, batch_starts)
         if staged.ts_max > self.watermark_abs:
             self.watermark_abs = staged.ts_max
-        return self.close_due_windows()
+        return self._emit()
 
     def key_id_for(self, key: tuple) -> int:
         """Dense id for a group-key tuple (columnar-path key dictionary).
@@ -714,8 +833,10 @@ class QueryExecutor:
     def _close_windows(self, starts: list[int]) -> list[dict[str, Any]]:
         """Pop + close every window in `starts` with ONE fused close
         launch (extract + finalize + reset) and, unless deferred, ONE
-        device->host fetch, however many windows are due. A failed
-        launch raises: there is no degraded per-slot path."""
+        device->host fetch, however many windows are due. In EMIT CHANGES
+        mode the launch only resets and nothing is fetched: the changelog
+        already carried the final values. A failed launch raises: there
+        is no degraded per-slot path."""
         if not starts:
             return []
         ows = [(s, self._open.pop(s).slot) for s in starts]
@@ -723,12 +844,16 @@ class QueryExecutor:
         self.close_stats["close_cycles"] += 1
         slots = lattice.pad_slots([slot for _s, slot in ows])
         self.close_stats["close_dispatches"] += 1
-        packed = lattice.close_slots(self.spec, self.state, slots)
-        if self.defer_close_decode:
+        rows: Any = []
+        if self.emit_changes:
+            lattice.reset_slots(self.spec, self.state, slots)
+        elif self.defer_close_decode:
             # keep the packed batch on the device; no host sync
-            self._pending_closes.append((list(starts), packed))
-            rows = []
+            self._pending_closes.append(
+                (list(starts), lattice.close_slots(self.spec, self.state,
+                                                   slots)))
         else:
+            packed = lattice.close_slots(self.spec, self.state, slots)
             self.close_stats["close_fetches"] += 1
             packed_host = packed.cpu().numpy()
             self.transfer_stats["d2h_bytes"] += packed_host.nbytes
@@ -761,6 +886,117 @@ class QueryExecutor:
                     out, self._decode_extract_batch(packed, starts))
         self._pending_closes.clear()  # only after every decode succeeded
         return out if out is not None else []
+
+    # ---- the changelog (EMIT CHANGES) --------------------------------------
+
+    def _drain_changes(self) -> "ColumnarEmit | list[dict[str, Any]]":
+        """One changelog extract of this batch's touched (key, window)
+        pairs (one launch). Decoded now, or kept on the device when
+        defer_change_decode is set: more than change_drain_depth pending
+        extracts are fetched together, on the shared drain pool when
+        async_change_drain is set (the newest stays pending)."""
+        packed = lattice.extract_touched(
+            self.spec, self.state,
+            lattice.touched_max_out(self.spec, self.batch_capacity))
+        if not self.defer_change_decode:
+            host = packed.cpu().numpy()
+            self.transfer_stats["d2h_bytes"] += host.nbytes
+            return self._decode_changes(host, self.epoch)
+        # the epoch is captured WITH the extract: a rebase between the
+        # extract and the deferred decode must not shift window bounds
+        self._pending_changes.append((self.epoch, packed))
+        out = self._collect_drained(block=False)
+        if len(self._pending_changes) <= max(self.change_drain_depth, 1):
+            return out if out is not None else []
+        keep = self._pending_changes.pop()
+        batch = self._pending_changes
+        self._pending_changes = [keep]
+        if self.async_change_drain:
+            self._drain_futs.append(
+                _change_drain_pool().submit(self._drain_job, batch))
+            out = extend_rows(out, self._collect_drained(block=False))
+        else:
+            out = extend_rows(out, self._decode_pending(batch))
+        return out if out is not None else []
+
+    def _drain_job(self, batch: list) -> "ColumnarEmit | list":
+        """One async drain unit (drain-pool thread). Reads only
+        append-only or immutable executor state: _key_rev only grows,
+        spec.aggs never changes, and no kernel writes the packed
+        extracts after they were made."""
+        t0 = time.perf_counter()
+        try:
+            return self._decode_pending(batch)
+        finally:
+            with self._stats_lock:
+                self.stage_stats["drain_s"] += time.perf_counter() - t0
+
+    def _collect_drained(self, block: bool):
+        """Finished async drains, strictly in submission order (a done
+        future behind an unfinished one waits); block=True takes all."""
+        rows = None
+        while self._drain_futs:
+            f = self._drain_futs[0]
+            if not block and not f.done():
+                break
+            self._drain_futs.popleft()
+            rows = extend_rows(rows, f.result())
+        return rows
+
+    def flush_changes(self) -> list[dict[str, Any]]:
+        """Decode every deferred changelog extract (the async drain queue
+        first, then the still-pending tail)."""
+        rows = extend_rows(self._collect_drained(block=True),
+                           self._decode_pending(self._pending_changes))
+        self._pending_changes = []
+        return rows if rows is not None else []
+
+    def has_pending_changes(self) -> bool:
+        """True when deferred change extracts still hold rows."""
+        return bool(self._pending_changes or self._drain_futs)
+
+    def _decode_pending(self, pending: list
+                        ) -> "ColumnarEmit | list[dict[str, Any]]":
+        """Decode deferred change extracts, fetching them in ONE
+        device->host copy per buffer shape (key growth changes it)."""
+        if not pending:
+            return []
+        if len(pending) == 1:
+            epoch, buf = pending[0]
+            host = buf.cpu().numpy()
+            self.transfer_stats["d2h_bytes"] += host.nbytes
+            return self._decode_changes(host, epoch)
+        rows = None
+        by_shape: dict[tuple, list] = {}
+        for ep, buf in pending:
+            by_shape.setdefault(tuple(buf.shape), []).append((ep, buf))
+        for group in by_shape.values():
+            stacked = lattice.stack_pow2([b for _, b in group]).cpu().numpy()
+            self.transfer_stats["d2h_bytes"] += stacked.nbytes
+            for (ep, _), buf in zip(group, stacked):
+                rows = extend_rows(rows, self._decode_changes(buf, ep))
+        return rows if rows is not None else []
+
+    def _decode_changes(self, packed: np.ndarray, epoch: int | None
+                        ) -> "ColumnarEmit | list[dict[str, Any]]":
+        """Columnar changelog decode: unpack the touched extract, gather
+        the group-key columns through the cached reverse index, finalize
+        the aggregate columns, then HAVING and projections."""
+        n, kidx, win_start_rel, outs = lattice.unpack_touched_rows(
+            self.spec, packed)
+        if n == 0:
+            return []
+        cols: dict[str, Any] = {}
+        kidx = kidx.astype(np.int64)
+        for name, arr in zip(self.group_cols, self._key_rev_columns()):
+            cols[name] = arr[kidx]
+        for agg in self.spec.aggs:
+            cols[agg.out_name] = _agg_column(agg, outs[agg.out_name])
+        if self.window is not None:
+            ws = win_start_rel.astype(np.int64) + epoch
+            cols["winStart"] = ws
+            cols["winEnd"] = ws + self.window.size_ms
+        return self._postprocess_cols(cols, n)
 
     def close_due_windows(self) -> list[dict[str, Any]]:
         """Extract + reset every open window past end+grace: one fused
@@ -805,12 +1041,7 @@ class QueryExecutor:
             cols[name] = arr[kids]
         outs = lattice.gather_extract_batch(self.spec, packed, widx, kids)
         for agg in self.spec.aggs:
-            v = outs[agg.out_name]
-            if agg.kind in (AggKind.COUNT_ALL, AggKind.COUNT,
-                              AggKind.APPROX_COUNT_DISTINCT):
-                cols[agg.out_name] = np.rint(v).astype(np.int64)
-            else:
-                cols[agg.out_name] = v
+            cols[agg.out_name] = _agg_column(agg, outs[agg.out_name])
         if self.window is not None and starts and starts[0] is not None:
             ws = np.asarray(starts, np.int64)[widx]
             cols["winStart"] = ws

@@ -1,21 +1,37 @@
-"""Scalar expressions (a copy of hstream_tpu/engine/expr.py without its
-device compiler, which is ROADMAP A6: `compile_device` raises).
+"""Scalar expressions: one AST, two evaluators (the port of
+hstream_tpu/engine/expr.py).
 
 The reference interprets scalar expressions over Aeson JSON values per
 record (hstream-sql Internal/Codegen.hs:76-250, op enums AST.hs:87-105).
-Here the AST is evaluated on the host by `eval_host(expr, row)` and its
-columnwise twin `eval_host_vec`, used for HAVING and SELECT projections
-over emitted aggregate rows, which are tiny compared to the ingest
-stream. `encode_strings` rewrites string literals to dictionary ids.
+Here the same AST is evaluated two ways:
+
+  * `compile_device(expr, schema)` lowers it into a DeviceProgram, a
+    postfix program over 32-bit stack words that the expression kernel
+    (kernels/csrc/expr.cu) runs per record for WHERE masks and computed
+    aggregate inputs, with jnp's type rules resolved at compile time into
+    explicit conversions (the reference traces jnp code into its step,
+    expr.py:122-183). `DeviceProgram.__call__` is the plain PyTorch
+    version that runs the same ops; `eval_programs` is the kernel's
+    wrapper;
+  * `eval_host(expr, row)` and its columnwise twin `eval_host_vec` run on
+    the host for HAVING and SELECT projections over emitted aggregate
+    rows, which are tiny compared to the ingest stream.
+
+`encode_strings` rewrites string literals to dictionary ids.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+import struct
 from dataclasses import dataclass
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, Sequence
+
+import torch
 
 from hstream_tpu_torch.common.errors import NotPortedError, SQLCodegenError
+from hstream_tpu_torch.engine.kernels import binding as kb
 from hstream_tpu_torch.engine.types import ColumnType, Schema, StringDictionary
 
 
@@ -95,11 +111,349 @@ def encode_strings(expr: Expr, schema: Schema,
     return expr
 
 
-def compile_device(expr: Expr, schema: Schema):
-    """Device evaluation of WHERE predicates and computed aggregate
-    inputs is not ported yet: the lattice step reads bare columns."""
-    raise NotPortedError("device expression evaluation (WHERE, computed "
-                         "aggregate inputs)", "A6")
+# opcodes of the expression kernel (HS_OP_* in kernels/csrc/hs_kernels.h)
+(OP_COL, OP_LIT, OP_B2I, OP_B2F, OP_I2F,
+ OP_ADD_I, OP_ADD_F, OP_SUB_I, OP_SUB_F, OP_MUL_I, OP_MUL_F, OP_DIV_F,
+ OP_MOD_I, OP_MOD_F, OP_OR_B, OP_AND_B, OP_OR_I, OP_AND_I,
+ OP_EQ_I, OP_NE_I, OP_LT_I, OP_LE_I, OP_GT_I, OP_GE_I,
+ OP_EQ_F, OP_NE_F, OP_LT_F, OP_LE_F, OP_GT_F, OP_GE_F,
+ OP_NOT_B, OP_NOT_I, OP_NEG_I, OP_NEG_F, OP_ABS_I, OP_ABS_F,
+ OP_SEL_L, OP_SEL_R) = range(38)
+_BINARY = frozenset(range(OP_ADD_I, OP_GE_F + 1)) | {OP_SEL_L, OP_SEL_R}
+
+MAX_OPS = 64     # per program
+MAX_DEPTH = 16   # stack slots (HS_EXPR_MAX_DEPTH)
+
+_COL_DTYPE = {ColumnType.FLOAT: "f32", ColumnType.INT: "i32",
+              ColumnType.BOOL: "bool", ColumnType.STRING: "i32"}
+_TORCH = {"f32": torch.float32, "i32": torch.int32, "bool": torch.bool}
+_CMP = {"=": (OP_EQ_I, OP_EQ_F), "<>": (OP_NE_I, OP_NE_F),
+        "<": (OP_LT_I, OP_LT_F), "<=": (OP_LE_I, OP_LE_F),
+        ">": (OP_GT_I, OP_GT_F), ">=": (OP_GE_I, OP_GE_F)}
+_ARITH = {"+": (OP_ADD_I, OP_ADD_F), "-": (OP_SUB_I, OP_SUB_F),
+          "*": (OP_MUL_I, OP_MUL_F), "%": (OP_MOD_I, OP_MOD_F)}
+# the reference's device unaries beyond NEG/ABS (hstream_tpu/engine/
+# expr.py:70-79 _NUM_UNARY): not in the expression kernel yet
+_UNPORTED_UNARY = frozenset({
+    "CEIL", "FLOOR", "ROUND", "SQRT", "SIGN", "SIN", "COS", "TAN", "ASIN",
+    "ACOS", "ATAN", "SINH", "COSH", "TANH", "ASINH", "ACOSH", "ATANH",
+    "LOG", "LOG2", "LOG10", "EXP"})
+
+
+@dataclass(frozen=True)
+class DeviceProgram:
+    """A postfix program over a record's columns: `ops` are (opcode, arg)
+    pairs, arg the index into `cols` for OP_COL and the literal's 32 bits
+    for OP_LIT; `dtype` ("f32" | "i32" | "bool") is the result's type,
+    jnp's for the same expression."""
+
+    ops: tuple[tuple[int, int], ...]
+    types: tuple[str, ...]  # the type each op leaves on top of the stack
+    cols: tuple[str, ...]
+    dtype: str
+
+    def __call__(self, cols: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The plain PyTorch version: the same ops, one tensor op each."""
+        return _run_plain(self, cols)
+
+
+def _lit(v: Any) -> tuple[int, int, str]:
+    if isinstance(v, str):
+        raise SQLCodegenError(
+            "string literal not pre-encoded (see encode_strings)")
+    if v is None:
+        raise SQLCodegenError("NULL literal unsupported on device")
+    if isinstance(v, bool):
+        return OP_LIT, int(v), "bool"
+    if isinstance(v, float):
+        return OP_LIT, struct.unpack("<i", struct.pack("<f", v))[0], "f32"
+    if isinstance(v, int):
+        if not -(1 << 31) <= v < (1 << 31):
+            raise SQLCodegenError(f"integer literal {v} exceeds int32")
+        return OP_LIT, int(v), "i32"
+    raise SQLCodegenError(f"literal {v!r} unsupported on device")
+
+
+Op = tuple[int, int, str]  # (opcode, arg, the type it leaves on top)
+
+
+def _cvt(src: str, dst: str) -> list[Op]:
+    if src == dst:
+        return []
+    return [({("bool", "i32"): OP_B2I, ("bool", "f32"): OP_B2F,
+              ("i32", "f32"): OP_I2F}[(src, dst)], 0, dst)]
+
+
+def _promote(a: str, b: str) -> str:
+    return "f32" if "f32" in (a, b) else "i32"
+
+
+def compile_device(expr: Expr, schema: Schema) -> DeviceProgram:
+    """Lower `expr` into a DeviceProgram. String literals must be
+    pre-encoded via encode_strings. Types follow jnp on float32 / int32 /
+    bool: int32 arithmetic stays int32 and wraps, int with float gives
+    float32, `/` always gives float32, `%` is floored, bool `+`/`*` are
+    OR/AND, a number times a bool is the number or 0 (XLA's select, so
+    NaN * false is 0), AND/OR/NOT on ints are bitwise. Raises
+    SQLCodegenError for what the reference refuses (host-only ops, NULL
+    literals, `-` of two bools, float operands of AND/OR/NOT) and
+    NotPortedError for the reference's other device unaries."""
+    cols: list[str] = []
+
+    def col_index(name: str) -> int:
+        if name not in cols:
+            cols.append(name)
+        return cols.index(name)
+
+    def build(e: Expr) -> tuple[list[Op], str]:
+        if isinstance(e, Col):
+            if schema is None or not schema.has(e.name):
+                raise SQLCodegenError(f"unknown column {e.name}")
+            t = _COL_DTYPE[schema.type_of(e.name)]
+            return [(OP_COL, col_index(e.name), t)], t
+        if isinstance(e, Lit):
+            op = _lit(e.value)
+            return [op], op[2]
+        if isinstance(e, BinOp):
+            op = e.op
+            lops, lt = build(e.left)
+            rops, rt = build(e.right)
+
+            def both(t: str, code: int, out: str) -> tuple[list[Op], str]:
+                return (lops + _cvt(lt, t) + rops + _cvt(rt, t)
+                        + [(code, 0, out)]), out
+
+            if op in ("+", "*") and lt == rt == "bool":
+                return both("bool", OP_OR_B if op == "+" else OP_AND_B,
+                            "bool")
+            if op == "*" and "bool" in (lt, rt):
+                # XLA rewrites x * convert(b) into select(b, x, 0)
+                t = rt if lt == "bool" else lt
+                return lops + rops + [(OP_SEL_L if lt == "bool"
+                                       else OP_SEL_R, 0, t)], t
+            if op in _ARITH:
+                if op == "-" and lt == rt == "bool":
+                    raise SQLCodegenError("`-` of two booleans")
+                t = _promote(lt, rt)
+                return both(t, _ARITH[op][t == "f32"], t)
+            if op == "/":
+                return both("f32", OP_DIV_F, "f32")
+            if op in _CMP:
+                t = _promote(lt, rt)
+                return both(t, _CMP[op][t == "f32"], "bool")
+            if op in ("AND", "OR"):
+                if "f32" in (lt, rt):
+                    raise SQLCodegenError(f"{op} of a float operand")
+                if lt == rt == "bool":
+                    return both("bool", OP_AND_B if op == "AND"
+                                else OP_OR_B, "bool")
+                return both("i32", OP_AND_I if op == "AND" else OP_OR_I,
+                            "i32")
+            raise SQLCodegenError(f"unsupported device op {op}")
+        if isinstance(e, UnOp):
+            ops, t = build(e.operand)
+            if e.op == "NOT":
+                if t == "f32":
+                    raise SQLCodegenError("NOT of a float operand")
+                return ops + [(OP_NOT_B if t == "bool" else OP_NOT_I, 0, t)], t
+            if e.op == "NEG":
+                if t == "bool":
+                    raise SQLCodegenError("NEG of a boolean")
+                return ops + [(OP_NEG_F if t == "f32" else OP_NEG_I, 0, t)], t
+            if e.op == "ABS":
+                if t == "bool":
+                    return ops, t
+                return ops + [(OP_ABS_F if t == "f32" else OP_ABS_I, 0, t)], t
+            if e.op in _UNPORTED_UNARY:
+                raise NotPortedError(f"device function {e.op}", "A6b")
+            raise SQLCodegenError(f"op {e.op} is host-only")
+        raise SQLCodegenError(f"unknown expr {e!r}")
+
+    ops, dtype = build(expr)
+    if len(ops) > MAX_OPS:
+        raise SQLCodegenError(
+            f"expression of {len(ops)} ops exceeds the device's {MAX_OPS}")
+    depth = peak = 0
+    for code, _, _ in ops:
+        depth += 1 if code in (OP_COL, OP_LIT) else \
+            -1 if code in _BINARY else 0
+        peak = max(peak, depth)
+    if peak > MAX_DEPTH:
+        raise SQLCodegenError(
+            f"expression needs {peak} stack slots, the device has "
+            f"{MAX_DEPTH}")
+    return DeviceProgram(ops=tuple((c, a) for c, a, _ in ops),
+                         types=tuple(t for _, _, t in ops),
+                         cols=tuple(cols), dtype=dtype)
+
+
+# ---- the plain version of the expression kernel -----------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _wrap(x: torch.Tensor) -> torch.Tensor:
+    """int64 values taken mod 2^32 -> int32 (int32 wrap-around)."""
+    x = x & _M32
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _int_op(code: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = a.long(), b.long()
+    if code == OP_ADD_I:
+        return _wrap(a + b)
+    if code == OP_SUB_I:
+        return _wrap(a - b)
+    if code == OP_MUL_I:
+        return _wrap(a * b)
+    if code == OP_MOD_I:  # floored; a divisor of 0 is taken as 1
+        return _wrap(torch.remainder(a, torch.where(b == 0, 1, b)))
+    if code == OP_AND_I:
+        return _wrap(a & b)
+    return _wrap(a | b)   # OP_OR_I
+
+
+def _float_op(code: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if code == OP_ADD_F:
+        return a + b
+    if code == OP_SUB_F:
+        return a - b
+    if code == OP_MUL_F:
+        return a * b
+    if code == OP_DIV_F:
+        return a / b
+    r = torch.fmod(a, b)  # OP_MOD_F, as jnp.remainder
+    return torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
+
+
+_CMP_FN = {OP_EQ_I: torch.eq, OP_NE_I: torch.ne, OP_LT_I: torch.lt,
+           OP_LE_I: torch.le, OP_GT_I: torch.gt, OP_GE_I: torch.ge}
+
+
+def _run_plain(prog: DeviceProgram, cols: Mapping[str, torch.Tensor]
+               ) -> torch.Tensor:
+    ref = cols[prog.cols[0]] if prog.cols else next(iter(cols.values()))
+    dev, n = ref.device, ref.shape[0]
+    st: list[torch.Tensor] = []
+    for (code, arg), t in zip(prog.ops, prog.types):
+        if code == OP_COL:
+            st.append(cols[prog.cols[arg]])
+            continue
+        if code == OP_LIT:
+            lit = torch.tensor(arg, dtype=torch.int32, device=dev)
+            st.append(lit.view(torch.float32) if t == "f32"
+                      else lit != 0 if t == "bool" else lit)
+            continue
+        if code in (OP_B2I, OP_B2F, OP_I2F, OP_NOT_B, OP_NOT_I, OP_NEG_I,
+                    OP_NEG_F, OP_ABS_I, OP_ABS_F):
+            x = st.pop()
+            if code == OP_B2I:
+                x = x.to(torch.int32)
+            elif code in (OP_B2F, OP_I2F):
+                x = x.to(torch.float32)
+            elif code == OP_NOT_B:
+                x = ~x
+            elif code == OP_NOT_I:
+                x = ~x
+            elif code == OP_NEG_I:
+                x = _wrap(-x.long())
+            elif code == OP_NEG_F:
+                x = -x
+            elif code == OP_ABS_I:
+                x = _wrap(x.long().abs())
+            else:
+                x = x.abs()
+            st.append(x)
+            continue
+        b, a = st.pop(), st.pop()
+        if code == OP_SEL_L:
+            st.append(torch.where(a, b, torch.zeros_like(b)))
+        elif code == OP_SEL_R:
+            st.append(torch.where(b, a, torch.zeros_like(a)))
+        elif code in (OP_OR_B, OP_AND_B):
+            st.append(a | b if code == OP_OR_B else a & b)
+        elif code in _CMP_FN:
+            st.append(_CMP_FN[code](a, b))
+        elif OP_EQ_F <= code <= OP_GE_F:
+            st.append(_CMP_FN[code - (OP_EQ_F - OP_EQ_I)](a, b))
+        elif code in (OP_ADD_F, OP_SUB_F, OP_MUL_F, OP_DIV_F, OP_MOD_F):
+            st.append(_float_op(code, a, b))
+        else:
+            st.append(_int_op(code, a, b))
+    return st[0].expand(n).contiguous()
+
+
+def eval_programs(progs: Sequence[tuple[DeviceProgram, str | None]],
+                  cols: dict[str, torch.Tensor], valid: torch.Tensor) -> None:
+    """Run a step's programs over one decoded batch, in place: a program
+    paired with a name adds that computed column to `cols`; the one
+    paired with None is the WHERE mask, ANDed into `valid`. The
+    expression kernel on the card, one launch for all programs; the
+    plain versions for a batch on the CPU."""
+    if not progs:
+        return
+    if valid.device.type == "cpu":
+        for prog, name in progs:
+            r = prog(cols)
+            if name is None:
+                valid.logical_and_(r)
+            else:
+                cols[name] = r
+        return
+    _expr_cuda(progs, cols, valid)
+    eval_programs.launches += 1
+
+
+eval_programs.launches = 0  # wrapper calls that launched the kernel
+
+
+def _expr_cuda(progs, cols: dict[str, torch.Tensor],
+               valid: torch.Tensor) -> None:
+    n = valid.shape[0]
+    if len(progs) > kb.EXPR_MAX_PROGS:
+        raise ValueError(f"more than {kb.EXPR_MAX_PROGS} programs")
+    args = kb.ExprArgs()
+    args.n, args.n_progs = n, len(progs)
+    args.valid = kb.ptr(valid)
+    table: list[str] = []
+    outs: dict[str, torch.Tensor] = {}
+    first = 0
+    for p, (prog, name) in enumerate(progs):
+        if first + len(prog.ops) > kb.EXPR_MAX_OPS:
+            raise ValueError(f"more than {kb.EXPR_MAX_OPS} ops in a launch")
+        for i, ((code, arg), t) in enumerate(zip(prog.ops, prog.types)):
+            if code == OP_COL:
+                c = prog.cols[arg]
+                if c not in table:
+                    col = cols[c]
+                    if col.dtype != _TORCH[t] or col.shape[0] != n:
+                        raise ValueError(f"expression: column {c} is not "
+                                         f"{t} [{n}]")
+                    if len(table) == kb.EXPR_MAX_COLS:
+                        raise ValueError(
+                            f"more than {kb.EXPR_MAX_COLS} columns")
+                    args.cols[len(table)] = kb.ptr(col)
+                    args.col_type[len(table)] = kb.VTYPES[col.dtype]
+                    table.append(c)
+                arg = table.index(c)
+            args.ops[first + i].op, args.ops[first + i].arg = code, arg
+        pr = args.progs[p]
+        pr.first, pr.n_ops = first, len(prog.ops)
+        pr.out_type = kb.VTYPES[_TORCH[prog.dtype]]
+        if name is None:
+            if prog.dtype != "bool":
+                raise ValueError("a WHERE program must give bool")
+            pr.where = 1
+        else:
+            out = torch.empty(n, dtype=_TORCH[prog.dtype],
+                              device=valid.device)
+            pr.out = out.data_ptr()
+            outs[name] = out
+        first += len(prog.ops)
+    args.n_cols = len(table)
+    kb.check(kb.lib().hs_expr(ctypes.byref(args), kb.stream_of(valid)),
+             "expression")
+    cols.update(outs)
 
 
 # ---- host interpreter ------------------------------------------------------

@@ -18,9 +18,13 @@ MAX_STREAMS = 16
 MAX_AGGS = 16
 
 ENC_CODES = {"bp": 0, "bpd": 1, "bool1": 2, "dec": 3, "rawf": 4, "rawi": 5}
-AGG_COUNT_ALL, AGG_SUM, AGG_AVG, AGG_MIN, AGG_MAX, AGG_HLL = range(6)
+(AGG_COUNT_ALL, AGG_SUM, AGG_AVG, AGG_MIN, AGG_MAX, AGG_HLL, AGG_COUNT,
+ AGG_QUANT, AGG_TOPK, AGG_TOPK_DISTINCT) = range(10)
 CLOSE_EXTRACT_RESET, CLOSE_EXTRACT, CLOSE_RESET = range(3)  # close modes
 VTYPES = {torch.float32: 0, torch.int32: 1, torch.bool: 2}
+EXPR_MAX_COLS = 16
+EXPR_MAX_PROGS = MAX_AGGS + 1
+EXPR_MAX_OPS = 256
 
 
 class Stream(C.Structure):
@@ -37,10 +41,31 @@ class DecodeArgs(C.Structure):
                 ("s", Stream * MAX_STREAMS)]
 
 
+class ExprOp(C.Structure):
+    _fields_ = [("op", C.c_int32), ("arg", C.c_int32)]
+
+
+class ExprProg(C.Structure):
+    _fields_ = [("first", C.c_int32), ("n_ops", C.c_int32),
+                ("out_type", C.c_int32), ("where", C.c_int32),
+                ("out", C.c_void_p)]
+
+
+class ExprArgs(C.Structure):
+    _fields_ = [("n", C.c_int32), ("n_cols", C.c_int32),
+                ("n_progs", C.c_int32),
+                ("col_type", C.c_int32 * EXPR_MAX_COLS),
+                ("cols", C.c_void_p * EXPR_MAX_COLS),
+                ("valid", C.c_void_p),
+                ("progs", ExprProg * EXPR_MAX_PROGS),
+                ("ops", ExprOp * EXPR_MAX_OPS)]
+
+
 class ScatterAgg(C.Structure):
     _fields_ = [("kind", C.c_int32), ("vtype", C.c_int32),
-                ("values", C.c_void_p), ("plane", C.c_void_p),
-                ("plane_n", C.c_void_p)]
+                ("values", C.c_void_p), ("nulls", C.c_void_p),
+                ("plane", C.c_void_p), ("plane_n", C.c_void_p),
+                ("width", C.c_int32)]
 
 
 class ScatterArgs(C.Structure):
@@ -50,24 +75,43 @@ class ScatterArgs(C.Structure):
                 ("n_per", C.c_int32), ("advance", C.c_int32),
                 ("size_grace", C.c_int32), ("watermark", C.c_int32),
                 ("track_touched", C.c_int32), ("hll_p", C.c_int32),
+                ("q_min", C.c_float), ("q_gamma", C.c_float),
                 ("count", C.c_void_p), ("slot_start", C.c_void_p),
-                ("touched", C.c_void_p), ("n_aggs", C.c_int32),
-                ("a", ScatterAgg * MAX_AGGS)]
+                ("touched", C.c_void_p), ("locks", C.c_void_p),
+                ("n_aggs", C.c_int32), ("a", ScatterAgg * MAX_AGGS)]
 
 
 class CloseAgg(C.Structure):
-    _fields_ = [("kind", C.c_int32), ("plane", C.c_void_p),
-                ("plane_n", C.c_void_p), ("init", C.c_float)]
+    _fields_ = [("kind", C.c_int32), ("width", C.c_int32),
+                ("plane_width", C.c_int32), ("init", C.c_float),
+                ("q", C.c_float), ("plane", C.c_void_p),
+                ("plane_n", C.c_void_p)]
+
+
+class Finalize(C.Structure):
+    _fields_ = [("hll_p", C.c_int32), ("hll_am2", C.c_float),
+                ("q_min", C.c_float), ("q_gamma", C.c_float),
+                ("q_half_gamma", C.c_float), ("n_aggs", C.c_int32),
+                ("a", CloseAgg * MAX_AGGS)]
 
 
 class CloseArgs(C.Structure):
     _fields_ = [("n_keys", C.c_int32), ("n_slots", C.c_int32),
                 ("n_sel", C.c_int32), ("mode", C.c_int32),
-                ("hll_p", C.c_int32), ("hll_am2", C.c_float),
+                ("out_rows", C.c_int32),
                 ("slots", C.c_void_p), ("count", C.c_void_p),
                 ("slot_start", C.c_void_p), ("touched", C.c_void_p),
                 ("out", C.c_void_p), ("done", C.c_void_p),
-                ("n_aggs", C.c_int32), ("a", CloseAgg * MAX_AGGS)]
+                ("f", Finalize)]
+
+
+class TouchedArgs(C.Structure):
+    _fields_ = [("n_keys", C.c_int32), ("n_slots", C.c_int32),
+                ("max_out", C.c_int32), ("out_rows", C.c_int32),
+                ("count", C.c_void_p), ("slot_start", C.c_void_p),
+                ("touched", C.c_void_p), ("out", C.c_void_p),
+                ("block_counts", C.c_void_p), ("cells", C.c_void_p),
+                ("f", Finalize)]
 
 
 _lock = threading.Lock()
@@ -83,13 +127,18 @@ def lib() -> C.CDLL:
 
             dll = C.CDLL(build().path)
             for fn, args in (("hs_decode", [C.POINTER(DecodeArgs)]),
+                             ("hs_expr", [C.POINTER(ExprArgs)]),
                              ("hs_scatter", [C.POINTER(ScatterArgs)]),
-                             ("hs_close", [C.POINTER(CloseArgs)])):
+                             ("hs_topk", [C.POINTER(ScatterArgs)]),
+                             ("hs_close", [C.POINTER(CloseArgs)]),
+                             ("hs_touched", [C.POINTER(TouchedArgs)])):
                 getattr(dll, fn).argtypes = args + [C.c_void_p]
                 getattr(dll, fn).restype = C.c_int
             dll.hs_rebase.argtypes = [C.c_void_p, C.c_int32, C.c_int32,
                                       C.c_void_p]
             dll.hs_rebase.restype = C.c_int
+            dll.hs_touched_blocks.argtypes = [C.c_int32]
+            dll.hs_touched_blocks.restype = C.c_int
             dll.hs_error_string.argtypes = [C.c_int]
             dll.hs_error_string.restype = C.c_char_p
             _lib = dll

@@ -25,8 +25,9 @@ from typing import NamedTuple
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
-SOURCES = ("decode.cu", "scatter.cu", "close.cu", "rebase.cu")
-HEADERS = ("hs_kernels.h",)
+SOURCES = ("decode.cu", "expr.cu", "scatter.cu", "topk.cu", "close.cu",
+           "touched.cu", "rebase.cu")
+HEADERS = ("hs_kernels.h", "record.cuh", "finalize.cuh")
 # sm_90a: Hopper. --fmad=false: no multiply-add contraction anywhere, so
 # the dec decode and the finalize arithmetic round exactly like the
 # plain PyTorch versions.

@@ -14,9 +14,10 @@
 enum { HS_ENC_BP = 0, HS_ENC_BPD = 1, HS_ENC_BOOL = 2, HS_ENC_DEC = 3,
        HS_ENC_RAWF = 4, HS_ENC_RAWI = 5 };
 
-// aggregate kinds the scatter and close kernels take
+// aggregate kinds the scatter, top-k, close and touched kernels take
 enum { HS_AGG_COUNT_ALL = 0, HS_AGG_SUM = 1, HS_AGG_AVG = 2, HS_AGG_MIN = 3,
-       HS_AGG_MAX = 4, HS_AGG_HLL = 5 };
+       HS_AGG_MAX = 4, HS_AGG_HLL = 5, HS_AGG_COUNT = 6, HS_AGG_QUANT = 7,
+       HS_AGG_TOPK = 8, HS_AGG_TOPK_DISTINCT = 9 };
 
 // decoded column types: float32, int32, bool (one byte)
 enum { HS_T_F32 = 0, HS_T_I32 = 1, HS_T_BOOL = 2 };
@@ -47,12 +48,66 @@ struct HsDecodeArgs {
     HsStream s[HS_MAX_STREAMS];
 };
 
+// ---- expression interpreter (expr.cu) ----------------------------------
+
+#define HS_EXPR_MAX_COLS 16
+#define HS_EXPR_MAX_PROGS (HS_MAX_AGGS + 1)
+#define HS_EXPR_MAX_OPS 256     // all programs together
+#define HS_EXPR_MAX_DEPTH 16    // stack slots per program
+
+// opcodes (engine/expr.py OP_*); values on the stack are 32-bit words:
+// float32 bits, int32, or a bool as 0/1
+enum {
+    HS_OP_COL = 0, HS_OP_LIT, HS_OP_B2I, HS_OP_B2F, HS_OP_I2F,
+    HS_OP_ADD_I, HS_OP_ADD_F, HS_OP_SUB_I, HS_OP_SUB_F, HS_OP_MUL_I,
+    HS_OP_MUL_F, HS_OP_DIV_F, HS_OP_MOD_I, HS_OP_MOD_F,
+    HS_OP_OR_B, HS_OP_AND_B, HS_OP_OR_I, HS_OP_AND_I,
+    HS_OP_EQ_I, HS_OP_NE_I, HS_OP_LT_I, HS_OP_LE_I, HS_OP_GT_I, HS_OP_GE_I,
+    HS_OP_EQ_F, HS_OP_NE_F, HS_OP_LT_F, HS_OP_LE_F, HS_OP_GT_F, HS_OP_GE_F,
+    HS_OP_NOT_B, HS_OP_NOT_I, HS_OP_NEG_I, HS_OP_NEG_F, HS_OP_ABS_I,
+    HS_OP_ABS_F,
+    // a number times a bool: the number where the bool is true, else 0
+    // (+0.0), as XLA computes it (select(pred, x, 0)); L: the bool is
+    // the left operand
+    HS_OP_SEL_L, HS_OP_SEL_R
+};
+
+struct HsExprOp {
+    int32_t op;            // HS_OP_*
+    int32_t arg;           // COL: column index; LIT: the value's 32 bits
+};
+
+struct HsExprProg {
+    int32_t first;         // index of its first op in HsExprArgs.ops
+    int32_t n_ops;
+    int32_t out_type;      // HS_T_* of the result
+    int32_t where;         // 1: AND the result into valid, out unused
+    void *out;             // [n] column of out_type
+};
+
+struct HsExprArgs {
+    int32_t n;
+    int32_t n_cols;
+    int32_t n_progs;
+    int32_t col_type[HS_EXPR_MAX_COLS];
+    const void *cols[HS_EXPR_MAX_COLS];
+    uint8_t *valid;        // [n]
+    HsExprProg progs[HS_EXPR_MAX_PROGS];
+    HsExprOp ops[HS_EXPR_MAX_OPS];
+};
+
+// ---- scatter-aggregate (scatter.cu) and top-k fold (topk.cu) -----------
+
 struct HsScatterAgg {
-    int32_t kind;          // HS_AGG_SUM..HS_AGG_HLL
+    int32_t kind;          // HS_AGG_*
     int32_t vtype;         // HS_T_* of the input column
     const void *values;    // [cap]
-    void *plane;           // [K, W] float32, or [K, W, m] int8 for HLL
+    const uint8_t *nulls;  // [cap] 1 = SQL NULL input, NULL = none
+    void *plane;           // [K, W] f32 / i32 (COUNT), [K, W, m] int8
+                           // (HLL), [K, W, bins] i32 (QUANT),
+                           // [K, W, k] f32 (TOPK*)
     int32_t *plane_n;      // AVG: [K, W] non-null count, else NULL
+    int32_t width;         // values per cell: m, bins, k, or 1
 };
 
 struct HsScatterArgs {
@@ -68,18 +123,36 @@ struct HsScatterArgs {
     int32_t watermark;     // relative ms, -1 = none yet
     int32_t track_touched;
     int32_t hll_p;         // HLL precision p (m = 2^p)
+    float q_min;           // quantile bins: float32(min_value)
+    float q_gamma;         // float32(gamma_log)
     int32_t *count;        // [K, W]
     int32_t *slot_start;   // [W]
     uint8_t *touched;      // [K, W]
+    int32_t *locks;        // top-k: [K, W] zeroed, left zeroed
     int32_t n_aggs;
     HsScatterAgg a[HS_MAX_AGGS];
 };
 
+// ---- finalize (close.cu, touched.cu) -----------------------------------
+
 struct HsCloseAgg {
     int32_t kind;          // HS_AGG_*
+    int32_t width;         // output rows (k for TOPK*, else 1) ...
+    int32_t plane_width;   // ... and plane values per cell
+    float init;            // reset value of the plane
+    float q;               // APPROX_QUANTILE: float32(quantile)
     void *plane;           // as in HsScatterAgg; NULL for COUNT(*)
     int32_t *plane_n;      // AVG only
-    float init;            // reset value of the plane
+};
+
+struct HsFinalize {
+    int32_t hll_p;
+    float hll_am2;         // float32(alpha(m) * m * m), from the host
+    float q_min;           // float32(min_value)
+    float q_gamma;         // float32(gamma_log)
+    float q_half_gamma;    // float32(0.5 * gamma_log)
+    int32_t n_aggs;
+    HsCloseAgg a[HS_MAX_AGGS];
 };
 
 struct HsCloseArgs {
@@ -87,22 +160,39 @@ struct HsCloseArgs {
     int32_t n_slots;
     int32_t n_sel;         // P, the padded slot vector's length
     int32_t mode;          // HS_CLOSE_*
-    int32_t hll_p;
-    float hll_am2;         // float32(alpha(m) * m * m), from the host
+    int32_t out_rows;      // 2 + sum of the aggregates' widths
     const int32_t *slots;  // [P], < 0 = padding
     int32_t *count;
     int32_t *slot_start;
     uint8_t *touched;
-    int32_t *out;          // [P, 2 + n_aggs, K]; NULL in reset-only mode
+    int32_t *out;          // [P, out_rows, K]; NULL in reset-only mode
     uint32_t *done;        // [P] zeroed: key tiles finished per slot
-    int32_t n_aggs;
-    HsCloseAgg a[HS_MAX_AGGS];
+    HsFinalize f;
+};
+
+struct HsTouchedArgs {
+    int32_t n_keys;
+    int32_t n_slots;
+    int32_t max_out;
+    int32_t out_rows;      // 3 + sum of the aggregates' widths
+    int32_t *count;
+    int32_t *slot_start;
+    uint8_t *touched;      // [K, W], cleared
+    int32_t *out;          // [out_rows, max_out]
+    int32_t *block_counts; // [blocks] scratch (more than one block)
+    int32_t *cells;        // [max_out + 1] scratch: the compacted cells,
+                           // then n
+    HsFinalize f;
 };
 
 extern "C" {
 int hs_decode(const HsDecodeArgs *args, void *stream);
+int hs_expr(const HsExprArgs *args, void *stream);
 int hs_scatter(const HsScatterArgs *args, void *stream);
+int hs_topk(const HsScatterArgs *args, void *stream);
 int hs_close(const HsCloseArgs *args, void *stream);
+int hs_touched(const HsTouchedArgs *args, void *stream);
+int hs_touched_blocks(int32_t n_cells);
 int hs_rebase(int32_t *slot_start, int32_t n_slots, int32_t delta,
               void *stream);
 const char *hs_error_string(int err);

@@ -3,8 +3,10 @@
 //
 // Replaces the scatter half of the fused step the JAX package jits
 // (hstream_tpu/engine/lattice.py:138-255 build_step_fn, with
-// sketches.py:35-86 hash_u32 / clz32 / hll_update_indices), for COUNT(*),
-// SUM, AVG, MIN, MAX and APPROX_COUNT_DISTINCT.
+// sketches.py:35-86 hash_u32 / clz32 / hll_update_indices and
+// sketches.py:130-139 quantile_bin), for COUNT(*), COUNT(col), SUM, AVG,
+// MIN, MAX, APPROX_COUNT_DISTINCT and APPROX_QUANTILE. TOPK and
+// TOPK_DISTINCT fold in their own kernel (topk.cu).
 //
 // Bound on the H100: bytes of the decoded columns (13 B/record for the
 // headline query) plus atomics. The state (3 MiB of HLL registers and
@@ -12,15 +14,13 @@
 // L2 atomics; the few-tens of integer operations per record for the hash
 // are far below the card's operation rate.
 //
-// Design: one thread per (record, window). Semantics follow the
-// reference exactly:
-//  * floor division and modulo (jnp.mod, //), not C's truncation, so a
-//    record older than the epoch gets a negative window start and is
-//    dropped by `start >= 0` instead of landing in window 0;
-//  * a window is late when start + size + grace <= watermark (int32
-//    wrap-around arithmetic, as in the reference);
-//  * keys outside [0, K) are dropped; NULL-free inputs that are not
-//    finite are masked per aggregate.
+// Design: one thread per (record, window), with the reference's window,
+// late, key-range and input-validity semantics (record.cuh).
+// APPROX_QUANTILE bins a value as the reference does, one float32
+// operation at a time (max(v, 0), max(., min), / min, logf, / gamma,
+// floor, +1, clip; values below min_value go to bin 0) and adds 1 to its
+// int32 bin; logf is the same libdevice function PyTorch's CUDA log
+// calls, so the plain version bins identically on the card.
 // There is no float atomic min/max: MIN/MAX use the sign-split integer
 // trick (non-negative floats order like signed ints, negative ones in
 // reverse like unsigned ints), which keeps them exact. There is no int8
@@ -35,20 +35,12 @@
 #include <cuda_runtime.h>
 
 #include "hs_kernels.h"
+#include "record.cuh"
 
 namespace {
 
 constexpr int kBlock = 256;
 constexpr int kSmemSlots = 1024;
-
-__device__ __forceinline__ int floor_mod(int a, int b) {
-    int r = a % b;
-    return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
-}
-
-__device__ __forceinline__ int floor_div(int a, int b) {
-    return (a - floor_mod(a, b)) / b;
-}
 
 __device__ __forceinline__ void atomic_min_float(float *addr, float v) {
     if (__float_as_int(v) >= 0)
@@ -90,8 +82,18 @@ __device__ __forceinline__ uint32_t mix32(uint32_t h) {
     return h;
 }
 
+// sketches.py:130-139 quantile_bin
+__device__ __forceinline__ int quantile_bin(float x, float qmin, float gamma,
+                                            int bins) {
+    float v = fmaxf(x, 0.0f);
+    float safe = fmaxf(v, qmin);
+    float b = floorf(__fdiv_rn(logf(__fdiv_rn(safe, qmin)), gamma));
+    int bi = min(max((int)b + 1, 1), bins - 1);
+    return v < qmin ? 0 : bi;
+}
+
 __global__ void __launch_bounds__(kBlock)
-scatter_kernel(const HsScatterArgs a, int use_smem) {
+scatter_kernel(const __grid_constant__ HsScatterArgs a, int use_smem) {
     extern __shared__ int s_start[];
     if (use_smem) {
         for (int w = threadIdx.x; w < a.n_slots; w += kBlock)
@@ -103,19 +105,8 @@ scatter_kernel(const HsScatterArgs a, int use_smem) {
     if (tid < total) {
         int i = (int)(tid / a.n_per);
         int j = (int)(tid % a.n_per);
-        int start = 0;
-        bool in_range = true;
-        if (a.advance > 0) {
-            int t = a.ts[i];
-            int latest = (int)((unsigned)t - (unsigned)floor_mod(t, a.advance));
-            start = (int)((unsigned)latest - (unsigned)j * (unsigned)a.advance);
-            int end = (int)((unsigned)start + (unsigned)a.size_grace);
-            in_range = !(end <= a.watermark) && start >= 0;
-        }
-        bool ok_slot = a.valid[i] && in_range;
-        if (ok_slot) {
-            int slot = a.advance > 0
-                ? floor_mod(floor_div(start, a.advance), a.n_slots) : 0;
+        int start, slot;
+        if (hs::record_window(a, i, j, start, slot)) {
             if (use_smem)
                 atomicMax(&s_start[slot], start);
             else
@@ -126,25 +117,14 @@ scatter_kernel(const HsScatterArgs a, int use_smem) {
                 atomicAdd(&a.count[cell], 1);
                 if (a.track_touched) a.touched[cell] = 1;
                 for (int g = 0; g < a.n_aggs; ++g) {
-                    const HsScatterAgg ag = a.a[g];
+                    const HsScatterAgg &ag = a.a[g];
                     float v;
                     uint32_t bits;
-                    bool ok = true;
-                    if (ag.vtype == HS_T_F32) {
-                        v = ((const float *)ag.values)[i];
-                        ok = isfinite(v);
-                        float c = v == 0.0f ? 0.0f : v;  // -0.0 -> 0.0
-                        bits = __float_as_uint(c);
-                    } else if (ag.vtype == HS_T_I32) {
-                        int x = ((const int *)ag.values)[i];
-                        v = __int2float_rn(x);
-                        bits = (uint32_t)x;
-                    } else {
-                        bits = ((const uint8_t *)ag.values)[i] ? 1u : 0u;
-                        v = (float)bits;
-                    }
-                    if (!ok) continue;
+                    if (!hs::agg_input(ag, i, v, bits)) continue;
                     switch (ag.kind) {
+                    case HS_AGG_COUNT:
+                        atomicAdd((int32_t *)ag.plane + cell, 1);
+                        break;
                     case HS_AGG_SUM:
                         atomicAdd((float *)ag.plane + cell, v);
                         break;
@@ -168,7 +148,13 @@ scatter_kernel(const HsScatterArgs a, int use_smem) {
                         atomic_max_i8(regs + reg, rank);
                         break;
                     }
-                    default:
+                    case HS_AGG_QUANT: {
+                        int b = quantile_bin(v, a.q_min, a.q_gamma, ag.width);
+                        atomicAdd((int32_t *)ag.plane + cell * ag.width + b,
+                                  1);
+                        break;
+                    }
+                    default:  // TOPK*: topk.cu
                         break;
                     }
                 }

@@ -1,17 +1,19 @@
-"""The window-state lattice: device state, the micro-batch step and the
-fused window close (the port of hstream_tpu/engine/lattice.py).
+"""The window-state lattice: device state, the micro-batch step, the
+fused window close and the changelog extract (the port of
+hstream_tpu/engine/lattice.py).
 
     state[plane][key_id, slot, ...]     slot = (win_start // advance) % W
 
 State is a dict[str, torch.Tensor] with the reference's plane names and
 layouts (count i32 [K,W], slot_start i32 [W], touched bool [K,W],
-a{i}_{kind} planes, HLL registers int8 [K,W,m]), so a state read out of
-the JAX executor carries across unchanged (engine/convert.py).
+a{i}_{kind} planes: f32 / i32 [K,W], HLL registers int8 [K,W,m],
+quantile bins i32 [K,W,n_bins], TOPK values f32 [K,W,k]), so a state read
+out of the JAX executor carries across unchanged (engine/convert.py).
 
 Where the reference's jitted programs donated the state buffer
 (lattice.py:805-829), the port updates the state tensors IN PLACE: the
-step, the close's reset and the rebase mutate the dict's tensors and
-return nothing new.
+step, the close's reset, the changelog extract's clear and the rebase
+mutate the dict's tensors.
 
 Each device program of the reference is a hand-written Hopper kernel
 here (engine/kernels/csrc), reached through a wrapper that launches it
@@ -19,30 +21,41 @@ when the state lies on the card and counts the launch, and runs the
 plain PyTorch version in this module only when the state lies on the
 CPU:
 
-  scatter_step  <- build_step_fn            (kernels/csrc/scatter.cu)
-  close_slots   <- build_extract_reset_slots / build_extract_slots /
-                   build_reset_slots        (kernels/csrc/close.cu)
-  rebase        <- rebase                   (kernels/csrc/rebase.cu)
+  expr.eval_programs <- the step's filter / value fns (kernels/csrc/expr.cu)
+  scatter_step    <- build_step_fn            (kernels/csrc/scatter.cu)
+  topk_step       <- _topk_step               (kernels/csrc/topk.cu)
+  close_slots     <- build_extract_reset_slots / build_extract_slots
+                                              (kernels/csrc/close.cu)
+  reset_slots     <- build_reset_slots        (close.cu, reset-only mode)
+  extract_touched <- build_extract_touched    (kernels/csrc/touched.cu)
+  rebase          <- rebase                   (kernels/csrc/rebase.cu)
 
 and transport.decode_batch for the wire decode (kernels/csrc/decode.cu).
-
-Aggregates of this slice: COUNT(*), SUM, AVG, MIN, MAX and
-APPROX_COUNT_DISTINCT over bare columns. COUNT(col), APPROX_QUANTILE,
-TOPK, TOPK_DISTINCT and computed inputs raise NotPortedError (A6).
+Every aggregate kind of the reference's fixed-window lattice is here:
+COUNT(*), COUNT(col), SUM, AVG, MIN, MAX, APPROX_COUNT_DISTINCT,
+APPROX_QUANTILE, TOPK and TOPK_DISTINCT, over bare columns or computed
+inputs, with SQL NULL and non-finite inputs masked per aggregate.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
-from hstream_tpu_torch.common.errors import NotPortedError
+from hstream_tpu_torch.common.errors import SQLCodegenError
 from hstream_tpu_torch.engine import transport
-from hstream_tpu_torch.engine.expr import Col, compile_device
+from hstream_tpu_torch.engine.expr import (
+    Col,
+    DeviceProgram,
+    Expr,
+    compile_device,
+    eval_programs,
+)
 from hstream_tpu_torch.engine.kernels import binding as kb
 from hstream_tpu_torch.engine.kernels.binding import (
     CLOSE_EXTRACT,
@@ -56,16 +69,23 @@ from hstream_tpu_torch.engine.sketches import (
     _alpha,
     hll_estimate,
     hll_update_indices,
+    quantile_bin,
+    quantile_estimate,
 )
 from hstream_tpu_torch.engine.window import FixedWindow, num_slots
 
 EMPTY_START = -(1 << 31)  # slot_start sentinel for "slot unoccupied"
 
-# the aggregate kinds of this slice, and their codes in the kernels
+# the aggregate kinds and their codes in the kernels
 _KERNEL_KIND = {AggKind.COUNT_ALL: kb.AGG_COUNT_ALL, AggKind.SUM: kb.AGG_SUM,
                 AggKind.AVG: kb.AGG_AVG, AggKind.MIN: kb.AGG_MIN,
                 AggKind.MAX: kb.AGG_MAX,
-                AggKind.APPROX_COUNT_DISTINCT: kb.AGG_HLL}
+                AggKind.APPROX_COUNT_DISTINCT: kb.AGG_HLL,
+                AggKind.COUNT: kb.AGG_COUNT,
+                AggKind.APPROX_QUANTILE: kb.AGG_QUANT,
+                AggKind.TOPK: kb.AGG_TOPK,
+                AggKind.TOPK_DISTINCT: kb.AGG_TOPK_DISTINCT}
+_TOPK_KINDS = (AggKind.TOPK, AggKind.TOPK_DISTINCT)
 
 
 @dataclass(frozen=True)
@@ -94,21 +114,30 @@ def _plane_name(i: int, agg: AggSpec) -> str:
     return f"a{i}_{agg.kind.value}"
 
 
-def _check_kind(agg: AggSpec) -> None:
-    if agg.kind not in _KERNEL_KIND:
-        raise NotPortedError(f"aggregate {agg.kind.value.upper()}", "A6")
-
-
 def agg_width(agg: AggSpec) -> int:
-    """Values per key this aggregate emits (1 for every ported kind)."""
-    _check_kind(agg)
+    """Values per key this aggregate emits (k for TOPK, else 1)."""
+    if agg.kind not in _KERNEL_KIND:
+        raise NotImplementedError(f"agg {agg.kind}")
+    if agg.kind in _TOPK_KINDS:
+        if agg.k is None or agg.k < 1:
+            raise ValueError(f"{agg.kind.value} needs k >= 1, got {agg.k}")
+        return agg.k
     return 1
+
+
+def _plane_width(spec: LatticeSpec, agg: AggSpec) -> int:
+    """Values per (key, slot) cell of the aggregate's plane."""
+    if agg.kind == AggKind.APPROX_COUNT_DISTINCT:
+        return spec.hll.m
+    if agg.kind == AggKind.APPROX_QUANTILE:
+        return spec.qcfg.n_bins
+    return agg_width(agg)
 
 
 def init_value(agg: AggSpec) -> float:
     if agg.kind == AggKind.MIN:
         return float("inf")
-    if agg.kind == AggKind.MAX:
+    if agg.kind in (AggKind.MAX,) + _TOPK_KINDS:
         return float("-inf")
     return 0.0
 
@@ -123,40 +152,76 @@ def init_state(spec: LatticeSpec, device: torch.device | str
         "touched": torch.zeros((K, W), dtype=torch.bool, **z),
     }
     for i, agg in enumerate(spec.aggs):
-        _check_kind(agg)
+        agg_width(agg)
         name = _plane_name(i, agg)
         if agg.kind == AggKind.COUNT_ALL:
             continue  # aliases the built-in `count` plane (same mask)
-        if agg.kind == AggKind.APPROX_COUNT_DISTINCT:
+        if agg.kind == AggKind.COUNT:
+            state[name] = torch.zeros((K, W), dtype=torch.int32, **z)
+        elif agg.kind == AggKind.APPROX_COUNT_DISTINCT:
             state[name] = torch.zeros((K, W, spec.hll.m), dtype=torch.int8,
                                       **z)
-            continue
-        state[name] = torch.full((K, W), init_value(agg),
-                                 dtype=torch.float32, **z)
-        if agg.kind == AggKind.AVG:
-            state[name + "_n"] = torch.zeros((K, W), dtype=torch.int32, **z)
+        elif agg.kind == AggKind.APPROX_QUANTILE:
+            state[name] = torch.zeros((K, W, spec.qcfg.n_bins),
+                                      dtype=torch.int32, **z)
+        elif agg.kind in _TOPK_KINDS:
+            # the k largest values, sorted descending, -inf padded
+            state[name] = torch.full((K, W, agg_width(agg)),
+                                     float("-inf"), dtype=torch.float32, **z)
+        else:
+            state[name] = torch.full((K, W), init_value(agg),
+                                     dtype=torch.float32, **z)
+            if agg.kind == AggKind.AVG:
+                state[name + "_n"] = torch.zeros((K, W), dtype=torch.int32,
+                                                 **z)
     return state
 
 
 def agg_input_columns(spec: LatticeSpec) -> tuple[str | None, ...]:
-    """The column each aggregate reads (None for COUNT(*)). Computed
-    inputs need the device expression compiler, which raises (A6)."""
-    cols: list[str | None] = []
-    for agg in spec.aggs:
-        if agg.input is None:
-            cols.append(None)
-        elif isinstance(agg.input, Col):
-            cols.append(agg.input.name)
-        else:
-            compile_device(agg.input, None)
-    return tuple(cols)
+    """The column each aggregate reads: None for COUNT(*), the column's
+    name for a bare column, and "__in_a{i}" for a computed input (the
+    column the step's expression program writes, step_programs)."""
+    return tuple(None if agg.input is None
+                 else agg.input.name if isinstance(agg.input, Col)
+                 else f"__in_a{i}"
+                 for i, agg in enumerate(spec.aggs))
+
+
+def null_key(i: int) -> str:
+    """The decoded column that flags aggregate i's SQL NULL inputs (the
+    reference's `__null_a{i}` wire stream; absent = no NULLs)."""
+    return f"__null_a{i}"
+
+
+StepPrograms = tuple[tuple[DeviceProgram, "str | None"], ...]
+
+
+def step_programs(spec: LatticeSpec, schema,
+                  filter_expr: Expr | None) -> StepPrograms:
+    """The expression programs of a query's step: the WHERE mask (paired
+    with None) and one program per computed aggregate input (paired with
+    its "__in_a{i}" column), compiled once (the reference traces the same
+    functions into its step, lattice.py:759-789 compile_agg_inputs)."""
+    progs = []
+    if filter_expr is not None:
+        prog = compile_device(filter_expr, schema)
+        if prog.dtype != "bool":
+            raise SQLCodegenError("WHERE predicate is not boolean")
+        progs.append((prog, None))
+    for i, agg in enumerate(spec.aggs):
+        if isinstance(agg.input, Col):
+            if not schema.has(agg.input.name):
+                raise SQLCodegenError(f"unknown column {agg.input.name}")
+        elif agg.input is not None:
+            progs.append((compile_device(agg.input, schema),
+                          f"__in_a{i}"))
+    return tuple(progs)
 
 
 def plane_merge_kinds(spec: LatticeSpec) -> dict[str, str]:
-    """Monoid merge op per state plane ("sum" | "min" | "max")."""
+    """Monoid merge op per state plane ("sum" | "min" | "max" | "topk")."""
     kinds = {"count": "sum", "touched": "max", "slot_start": "max"}
     for i, agg in enumerate(spec.aggs):
-        _check_kind(agg)
         name = _plane_name(i, agg)
         if agg.kind == AggKind.COUNT_ALL:
             continue  # no own plane
@@ -164,6 +229,9 @@ def plane_merge_kinds(spec: LatticeSpec) -> dict[str, str]:
             kinds[name] = "min"
         elif agg.kind in (AggKind.MAX, AggKind.APPROX_COUNT_DISTINCT):
             kinds[name] = "max"
+        elif agg.kind in _TOPK_KINDS:
+            # NOT elementwise: merging two top-k planes needs concat+sort
+            kinds[name] = "topk"
         else:
             kinds[name] = "sum"
             if agg.kind == AggKind.AVG:
@@ -176,38 +244,27 @@ def grow_keys(state: dict[str, torch.Tensor], spec: LatticeSpec,
     """Pad every keyed plane from K to new_n_keys with its identity
     (host-driven, rare: an eager pad, as in the reference)."""
     extra = new_n_keys - spec.n_keys
+    fills = {_plane_name(i, a): init_value(a)
+             for i, a in enumerate(spec.aggs)}
     out = {}
     for k, v in state.items():
         if k == "slot_start":
             out[k] = v
             continue
-        fill = (float("inf") if k.endswith("_min")
-                else float("-inf") if k.endswith("_max") else 0)
-        pad = torch.full((extra,) + tuple(v.shape[1:]), fill, dtype=v.dtype,
-                         device=v.device)
+        pad = torch.full((extra,) + tuple(v.shape[1:]), fills.get(k, 0),
+                         dtype=v.dtype, device=v.device)
         out[k] = torch.cat([v, pad])
     return out
 
 
-# ---- the micro-batch step ----------------------------------------------------
+# ---- the micro-batch step ---------------------------------------------------
 
-def _aggs_with_planes(spec: LatticeSpec):
-    """(name, agg, input column) for every aggregate with its own plane."""
-    cols = agg_input_columns(spec)
-    for i, agg in enumerate(spec.aggs):
-        if agg.kind != AggKind.COUNT_ALL:
-            yield _plane_name(i, agg), agg, cols[i]
-
-
-def scatter_step_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
-                     watermark: int, key_ids: torch.Tensor, ts: torch.Tensor,
-                     valid: torch.Tensor,
-                     cols: Mapping[str, torch.Tensor]) -> None:
-    """Plain PyTorch step (build_step_fn semantics, lattice.py:138-255 in
-    the reference), in place: per record its `n_per` window starts, the
-    late mask, the slot; then count-add, slot_start-max, touched-set and
-    the aggregate updates. Rows are walked in record-major order, so the
-    float sums on the CPU add in the reference's order."""
+def _record_cells(spec: LatticeSpec, watermark: int, key_ids: torch.Tensor,
+                  ts: torch.Tensor, valid: torch.Tensor):
+    """(starts [B, n_per], slots [B, n_per], ok_slot [B, n_per], cell [M],
+    rec [M]): each record's windows, and the (record, window) pairs that
+    land in a cell of the lattice, record-major (build_step_fn's masks,
+    lattice.py:175-196 in the reference)."""
     K, W = spec.n_keys, spec.n_slots
     n_per = spec.windows_per_record
     win = spec.window
@@ -229,48 +286,81 @@ def scatter_step_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
     ok_slot = valid[:, None] & in_range
     keys = key_ids[:, None].expand(B, starts.shape[1])
     ok = (ok_slot & (keys >= 0) & (keys < K)).reshape(-1)
+    cell = (keys.long() * W + slots).reshape(-1)[ok]
+    rec = torch.arange(B, device=dev)[:, None].expand(B, starts.shape[1])
+    return starts, slots, ok_slot, cell, rec.reshape(-1)[ok]
 
+
+def _agg_values(i: int, col: torch.Tensor, cols, rec: torch.Tensor):
+    """(values, counts-mask) of aggregate i's input over the records
+    `rec`: an input counts when it is not SQL NULL and, for float32,
+    finite (lattice.py:213-222)."""
+    v = col[rec]
+    iok = (torch.isfinite(v) if v.dtype == torch.float32
+           else torch.ones_like(v, dtype=torch.bool))
+    nulls = cols.get(null_key(i))
+    if nulls is not None:
+        iok = iok & ~nulls[rec]
+    return v, iok
+
+
+def scatter_step_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
+                     watermark: int, key_ids: torch.Tensor, ts: torch.Tensor,
+                     valid: torch.Tensor,
+                     cols: Mapping[str, torch.Tensor]) -> None:
+    """Plain PyTorch step (build_step_fn semantics, lattice.py:138-255 in
+    the reference) for every aggregate but TOPK (topk_step_ref), in
+    place: per record its `n_per` window starts, the late mask, the
+    slot; then count-add, slot_start-max, touched-set and the aggregate
+    updates. Rows are walked in record-major order, so the float sums on
+    the CPU add in the reference's order."""
+    starts, slots, ok_slot, cell, rec = _record_cells(
+        spec, watermark, key_ids, ts, valid)
     sel = ok_slot.reshape(-1)
     state["slot_start"].scatter_reduce_(
         0, slots.reshape(-1)[sel], starts.reshape(-1)[sel], "amax")
-    cell = (keys.long() * W + slots).reshape(-1)[ok]
     state["count"].view(-1).index_put_(
         (cell,), torch.ones_like(cell, dtype=torch.int32), accumulate=True)
     if spec.track_touched:
         state["touched"].view(-1)[cell] = True
-    rec = torch.arange(B, device=dev)[:, None].expand(B, starts.shape[1])
-    rec = rec.reshape(-1)[ok]
-    for name, agg, col in _aggs_with_planes(spec):
-        v = cols[col][rec]
-        iok = (torch.isfinite(v) if v.dtype == torch.float32
-               else torch.ones_like(v, dtype=torch.bool))
+    in_cols = agg_input_columns(spec)
+    for i, agg in enumerate(spec.aggs):
+        if agg.kind == AggKind.COUNT_ALL or agg.kind in _TOPK_KINDS:
+            continue
+        v, iok = _agg_values(i, cols[in_cols[i]], cols, rec)
         c, v = cell[iok], v[iok]
-        plane = state[name].view(-1)
-        if agg.kind == AggKind.APPROX_COUNT_DISTINCT:
+        plane = state[_plane_name(i, agg)].view(-1)
+        ones = torch.ones_like(c, dtype=torch.int32)
+        if agg.kind == AggKind.COUNT:
+            plane.index_put_((c,), ones, accumulate=True)
+        elif agg.kind == AggKind.APPROX_COUNT_DISTINCT:
             reg, rank = hll_update_indices(v, spec.hll)
             plane.scatter_reduce_(0, c * spec.hll.m + reg,
                                   rank.to(torch.int8), "amax")
-            continue
-        vf = v.to(torch.float32)
-        if agg.kind in (AggKind.SUM, AggKind.AVG):
-            plane.index_put_((c,), vf, accumulate=True)
+        elif agg.kind == AggKind.APPROX_QUANTILE:
+            b = quantile_bin(v, spec.qcfg).long()
+            plane.index_put_((c * spec.qcfg.n_bins + b,), ones,
+                             accumulate=True)
+        elif agg.kind in (AggKind.SUM, AggKind.AVG):
+            plane.index_put_((c,), v.to(torch.float32), accumulate=True)
             if agg.kind == AggKind.AVG:
-                state[name + "_n"].view(-1).index_put_(
-                    (c,), torch.ones_like(c, dtype=torch.int32),
-                    accumulate=True)
+                state[_plane_name(i, agg) + "_n"].view(-1).index_put_(
+                    (c,), ones, accumulate=True)
         else:
             plane.scatter_reduce_(
-                0, c, vf, "amin" if agg.kind == AggKind.MIN else "amax")
+                0, c, v.to(torch.float32),
+                "amin" if agg.kind == AggKind.MIN else "amax")
 
 
-def _scatter_cuda(spec: LatticeSpec, state, watermark: int, key_ids, ts,
-                  valid, cols) -> None:
+def _step_args(spec: LatticeSpec, state, watermark: int, key_ids, ts, valid,
+               cols, aggs: Sequence[int]) -> kb.ScatterArgs:
+    """The scatter / top-k kernels' arguments for the aggregates `aggs`."""
     win = spec.window
-    args = kb.ScatterArgs()
-    args.key, args.ts, args.valid = kb.ptr(key_ids), kb.ptr(ts), kb.ptr(valid)
     if not (key_ids.dtype == ts.dtype == torch.int32
             and valid.dtype == torch.bool):
-        raise ValueError("scatter: key/ts must be int32, valid bool")
+        raise ValueError("step: key/ts must be int32, valid bool")
+    args = kb.ScatterArgs()
+    args.key, args.ts, args.valid = kb.ptr(key_ids), kb.ptr(ts), kb.ptr(valid)
     args.cap = key_ids.shape[0]
     args.n_keys, args.n_slots = spec.n_keys, spec.n_slots
     args.n_per = spec.windows_per_record
@@ -282,58 +372,178 @@ def _scatter_cuda(spec: LatticeSpec, state, watermark: int, key_ids, ts,
     args.watermark = int(watermark)
     args.track_touched = int(spec.track_touched)
     args.hll_p = spec.hll.precision
+    args.q_min, args.q_gamma = spec.qcfg.min_value, spec.qcfg.gamma_log
     for name in ("count", "slot_start", "touched"):
         if state[name].device != key_ids.device:
             raise ValueError(f"state plane {name} is not on {key_ids.device}")
     args.count = kb.ptr(state["count"])
     args.slot_start = kb.ptr(state["slot_start"])
     args.touched = kb.ptr(state["touched"])
-    g = 0
-    for name, agg, col in _aggs_with_planes(spec):
-        if g == kb.MAX_AGGS:
-            raise ValueError(f"more than {kb.MAX_AGGS} aggregates")
-        v = cols[col]
+    if len(aggs) > kb.MAX_AGGS:
+        raise ValueError(f"more than {kb.MAX_AGGS} aggregates")
+    in_cols = agg_input_columns(spec)
+    for g, i in enumerate(aggs):
+        agg = spec.aggs[i]
+        v = cols[in_cols[i]]
         if v.dtype not in kb.VTYPES or v.shape[0] != args.cap:
-            raise ValueError(f"scatter: unsupported input column {col}")
+            raise ValueError(f"step: unsupported input column {in_cols[i]}")
         a = args.a[g]
         a.kind, a.vtype = _KERNEL_KIND[agg.kind], kb.VTYPES[v.dtype]
         a.values = kb.ptr(v)
+        nulls = cols.get(null_key(i))
+        if nulls is not None:
+            if nulls.dtype != torch.bool or nulls.shape[0] != args.cap:
+                raise ValueError(f"step: bad null mask {null_key(i)}")
+            a.nulls = kb.ptr(nulls)
+        name = _plane_name(i, agg)
         a.plane = kb.ptr(state[name])
         if agg.kind == AggKind.AVG:
             a.plane_n = kb.ptr(state[name + "_n"])
-        g += 1
-    args.n_aggs = g
-    kb.check(kb.lib().hs_scatter(ctypes.byref(args), kb.stream_of(ts)),
-             "scatter_aggregate")
+        a.width = _plane_width(spec, agg)
+    args.n_aggs = len(aggs)
+    return args
 
 
 def scatter_step(spec: LatticeSpec, state: dict[str, torch.Tensor],
                  watermark: int, key_ids: torch.Tensor, ts: torch.Tensor,
                  valid: torch.Tensor,
                  cols: Mapping[str, torch.Tensor]) -> None:
-    """Fold one decoded batch into the state, in place: the
-    scatter-aggregate kernel on the card, scatter_step_ref on the CPU."""
+    """Fold one decoded batch into the state (every aggregate but TOPK),
+    in place: the scatter-aggregate kernel on the card, scatter_step_ref
+    on the CPU."""
     if key_ids.device.type == "cpu":
         scatter_step_ref(spec, state, watermark, key_ids, ts, valid, cols)
         return
-    _scatter_cuda(spec, state, watermark, key_ids, ts, valid, cols)
+    aggs = [i for i, a in enumerate(spec.aggs)
+            if a.kind != AggKind.COUNT_ALL and a.kind not in _TOPK_KINDS]
+    args = _step_args(spec, state, watermark, key_ids, ts, valid, cols, aggs)
+    kb.check(kb.lib().hs_scatter(ctypes.byref(args), kb.stream_of(ts)),
+             "scatter_aggregate")
     scatter_step.launches += 1
 
 
 scatter_step.launches = 0  # wrapper calls that launched the kernel
 
 
+def _order_key(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> int64 keys in the total order the reference's sort uses
+    (-0.0 below +0.0)."""
+    bits = v.contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+
+
+def topk_fold(plane: torch.Tensor, cell: torch.Tensor, vals: torch.Tensor,
+              distinct: bool) -> torch.Tensor:
+    """The plain top-k fold: the plane [K, W, k] after adding `vals` at
+    the flat cells `cell`. One sort of (cell ascending, value descending)
+    over the batch and the stored values, then each cell's first k
+    (TOPK) or first k distinct values (TOPK_DISTINCT; distinct by float
+    ==, keeping the first of a run: +0.0 before -0.0), as
+    _topk_step, lattice.py:258-301 in the reference, gives."""
+    K, W, k = plane.shape
+    dev = plane.device
+    cand_cell = torch.cat([cell.long(), torch.arange(
+        K * W, device=dev).repeat_interleave(k)])
+    cand_val = torch.cat([vals.to(torch.float32), plane.reshape(-1)])
+    desc = (1 << 31) - 1 - _order_key(cand_val)          # in [0, 2^32)
+    order = torch.sort((cand_cell << 32) | desc).indices
+    sc, sv = cand_cell[order], cand_val[order]
+    idx = torch.arange(sc.shape[0], device=dev)
+    first = torch.ones_like(sc, dtype=torch.bool)
+    first[1:] = sc[1:] != sc[:-1]
+    if distinct:
+        newv = first.clone()
+        newv[1:] |= sv[1:] != sv[:-1]
+        c = torch.cumsum(newv.long(), 0)
+        base = torch.cummax(torch.where(first, c - newv.long(), 0), 0).values
+        rank = torch.where(newv, c - 1 - base, k)
+    else:
+        rank = idx - torch.cummax(torch.where(first, idx, 0), 0).values
+    keep = rank < k
+    out = torch.full_like(plane, float("-inf"))
+    out.view(-1)[sc[keep] * k + rank[keep]] = sv[keep]
+    return out
+
+
+def topk_step_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
+                  watermark: int, key_ids: torch.Tensor, ts: torch.Tensor,
+                  valid: torch.Tensor,
+                  cols: Mapping[str, torch.Tensor]) -> None:
+    """Plain TOPK / TOPK_DISTINCT step, in place (topk_fold per plane)."""
+    _, _, _, cell, rec = _record_cells(spec, watermark, key_ids, ts, valid)
+    in_cols = agg_input_columns(spec)
+    for i, agg in enumerate(spec.aggs):
+        if agg.kind not in _TOPK_KINDS:
+            continue
+        v, iok = _agg_values(i, cols[in_cols[i]], cols, rec)
+        name = _plane_name(i, agg)
+        state[name].copy_(topk_fold(state[name], cell[iok], v[iok],
+                                    agg.kind == AggKind.TOPK_DISTINCT))
+
+
+_locks: dict[tuple, torch.Tensor] = {}
+_locks_mutex = threading.Lock()
+
+
+def _cell_locks(device: torch.device, n_cells: int) -> torch.Tensor:
+    """A zeroed int32 lock per cell for the top-k kernel, which leaves
+    every lock released, so one buffer per device and size serves every
+    launch."""
+    with _locks_mutex:
+        t = _locks.get((device, n_cells))
+        if t is None:
+            t = _locks[(device, n_cells)] = torch.zeros(
+                n_cells, dtype=torch.int32, device=device)
+        return t
+
+
+def topk_step(spec: LatticeSpec, state: dict[str, torch.Tensor],
+              watermark: int, key_ids: torch.Tensor, ts: torch.Tensor,
+              valid: torch.Tensor,
+              cols: Mapping[str, torch.Tensor]) -> None:
+    """Fold one decoded batch into the TOPK / TOPK_DISTINCT planes, in
+    place: the top-k kernel on the card, topk_step_ref on the CPU."""
+    aggs = [i for i, a in enumerate(spec.aggs) if a.kind in _TOPK_KINDS]
+    if not aggs:
+        return
+    if key_ids.device.type == "cpu":
+        topk_step_ref(spec, state, watermark, key_ids, ts, valid, cols)
+        return
+    args = _step_args(spec, state, watermark, key_ids, ts, valid, cols, aggs)
+    args.locks = kb.ptr(_cell_locks(key_ids.device,
+                                    spec.n_keys * spec.n_slots))
+    kb.check(kb.lib().hs_topk(ctypes.byref(args), kb.stream_of(ts)),
+             "topk_fold")
+    topk_step.launches += 1
+
+
+topk_step.launches = 0  # wrapper calls that launched the kernel
+
+
+def step_decoded(spec: LatticeSpec, state: dict[str, torch.Tensor],
+                 watermark: int, key_ids, ts, valid,
+                 cols: dict[str, torch.Tensor],
+                 progs: StepPrograms = ()) -> None:
+    """One decoded micro-batch, in place: the WHERE mask and computed
+    inputs `progs` (step_programs; the expression kernel, launched only
+    when there are any), then the scatter, then the top-k fold (only when
+    the query has TOPK)."""
+    eval_programs(progs, cols, valid)
+    scatter_step(spec, state, watermark, key_ids, ts, valid, cols)
+    topk_step(spec, state, watermark, key_ids, ts, valid, cols)
+
+
 def step_encoded(spec: LatticeSpec, state: dict[str, torch.Tensor],
-                 watermark: int, n: int, bases, words: torch.Tensor,
-                 combo, cap: int) -> None:
-    """One micro-batch from the wire: decode, then scatter, in place
+                 watermark: int, n: int, bases, words: torch.Tensor, combo,
+                 cap: int, progs: StepPrograms = ()) -> None:
+    """One micro-batch from the wire: decode, then step_decoded, in place
     (compiled_encoded_step, lattice.py:805-829 in the reference)."""
     key_ids, ts, valid, cols = transport.decode_batch(words, combo, cap, n,
                                                       bases)
-    scatter_step(spec, state, watermark, key_ids, ts, valid, cols)
+    step_decoded(spec, state, watermark, key_ids, ts, valid, cols, progs)
 
 
-# ---- the fused close ---------------------------------------------------------
+# ---- finalize and pack ------------------------------------------------------
 
 
 def pad_slots(slots) -> np.ndarray:
@@ -357,23 +567,16 @@ def stack_pow2(bufs: list[torch.Tensor]) -> torch.Tensor:
     return torch.stack(bufs)
 
 
-def pack_extract_rows(spec: LatticeSpec, count: torch.Tensor,
-                      win_start: torch.Tensor,
-                      outs: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """Stack (count, win_start, finalized agg outputs) into ONE int32
-    buffer [2 + rows, ...] (float outputs bitcast), so a close is one
-    fetch."""
-    rows = [count.to(torch.int32),
-            win_start.to(torch.int32).expand_as(count)]
-    rows.extend(outs[agg.out_name].to(torch.float32).view(torch.int32)
-                for agg in spec.aggs)
-    return torch.stack(rows)
+def out_rows(spec: LatticeSpec) -> int:
+    """Rows the aggregates take in a packed buffer (k for TOPK)."""
+    return sum(agg_width(a) for a in spec.aggs)
 
 
 def finalize_column(spec: LatticeSpec, cols: Mapping[str, torch.Tensor]
                     ) -> dict[str, torch.Tensor]:
-    """Finalize slot columns {plane: [K, P, ...]} -> {out_name: [K, P]
-    float32} (finalize_column, lattice.py:411-436 in the reference)."""
+    """Finalize cell columns {plane: [..., width]} -> {out_name: [...]
+    float32, or [..., k] for TOPK} (finalize_column, lattice.py:411-436
+    in the reference)."""
     outs = {}
     count = cols["count"]
     for i, agg in enumerate(spec.aggs):
@@ -385,12 +588,87 @@ def finalize_column(spec: LatticeSpec, cols: Mapping[str, torch.Tensor]
             outs[agg.out_name] = cols[name] / torch.clamp(n, min=1.0)
         elif agg.kind == AggKind.APPROX_COUNT_DISTINCT:
             outs[agg.out_name] = hll_estimate(cols[name], spec.hll)
+        elif agg.kind == AggKind.APPROX_QUANTILE:
+            outs[agg.out_name] = quantile_estimate(
+                cols[name], agg.quantile or 0.5, spec.qcfg)
         elif agg.kind in (AggKind.MIN, AggKind.MAX):
             outs[agg.out_name] = torch.where(count > 0, cols[name],
                                              torch.zeros_like(cols[name]))
+        elif agg.kind in _TOPK_KINDS:
+            outs[agg.out_name] = cols[name]  # [..., k] pass-through
         else:
-            outs[agg.out_name] = cols[name]
+            outs[agg.out_name] = cols[name].to(torch.float32)
     return outs
+
+
+def _agg_out_rows(spec: LatticeSpec, outs) -> list[torch.Tensor]:
+    """Finalized outputs as bitcast int32 rows, k rows for a width-k
+    aggregate (_agg_out_rows, lattice.py:439-448); the inverse is
+    _unpack_agg_rows."""
+    rows = []
+    for agg in spec.aggs:
+        o = outs[agg.out_name].to(torch.float32)
+        if agg.kind in _TOPK_KINDS:
+            rows.extend(o[..., j].contiguous().view(torch.int32)
+                        for j in range(agg_width(agg)))
+        else:
+            rows.append(o.contiguous().view(torch.int32))
+    return rows
+
+
+def _unpack_agg_rows(spec: LatticeSpec, rows2d: np.ndarray):
+    """int32 rows -> {name: [N] or [N, k] f32} (lattice.py:451-465)."""
+    outs = {}
+    row = 0
+    for agg in spec.aggs:
+        w = agg_width(agg)
+        if agg.kind in _TOPK_KINDS:
+            outs[agg.out_name] = np.stack(
+                [rows2d[row + j].view(np.float32) for j in range(w)],
+                axis=1)
+        else:
+            outs[agg.out_name] = rows2d[row].view(np.float32)
+        row += w
+    return outs
+
+
+def pack_extract_rows(spec: LatticeSpec, count: torch.Tensor,
+                      win_start: torch.Tensor,
+                      outs: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """Stack (count, win_start, finalized agg rows) into ONE int32 buffer
+    [2 + rows, ...] (float outputs bitcast), so a close is one fetch."""
+    rows = [count.to(torch.int32),
+            win_start.to(torch.int32).expand_as(count)]
+    rows.extend(_agg_out_rows(spec, outs))
+    return torch.stack(rows)
+
+
+def _finalize_args(spec: LatticeSpec, state) -> kb.Finalize:
+    """The finalize half of the close and changelog kernels' arguments."""
+    if spec.hll.precision < 2:
+        raise ValueError("finalize kernels need HLL precision >= 2")
+    if len(spec.aggs) > kb.MAX_AGGS:
+        raise ValueError(f"more than {kb.MAX_AGGS} aggregates")
+    f = kb.Finalize()
+    m = spec.hll.m
+    f.hll_p, f.hll_am2 = spec.hll.precision, _alpha(m) * m * m
+    q = spec.qcfg
+    f.q_min, f.q_gamma, f.q_half_gamma = (q.min_value, q.gamma_log,
+                                          0.5 * q.gamma_log)
+    for g, agg in enumerate(spec.aggs):
+        a = f.a[g]
+        a.kind, a.init = _KERNEL_KIND[agg.kind], init_value(agg)
+        a.width, a.plane_width = agg_width(agg), _plane_width(spec, agg)
+        a.q = agg.quantile or 0.5
+        if agg.kind != AggKind.COUNT_ALL:
+            a.plane = kb.ptr(state[_plane_name(g, agg)])
+        if agg.kind == AggKind.AVG:
+            a.plane_n = kb.ptr(state[_plane_name(g, agg) + "_n"])
+    f.n_aggs = len(spec.aggs)
+    return f
+
+
+# ---- the fused close --------------------------------------------------------
 
 
 def extract_slots_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
@@ -430,32 +708,18 @@ def reset_slots_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
 def _close_cuda(spec: LatticeSpec, state, slots: torch.Tensor, mode: int
                 ) -> torch.Tensor | None:
     K, P = spec.n_keys, slots.shape[0]
-    if spec.hll.precision < 2:
-        raise ValueError("close kernel needs HLL precision >= 2")
     args = kb.CloseArgs()
     args.n_keys, args.n_slots, args.n_sel, args.mode = \
         K, spec.n_slots, P, mode
-    args.hll_p = spec.hll.precision
-    m = spec.hll.m
-    args.hll_am2 = _alpha(m) * m * m
+    args.out_rows = 2 + out_rows(spec)
+    args.f = _finalize_args(spec, state)
     args.slots = kb.ptr(slots)
     args.count = kb.ptr(state["count"])
     args.slot_start = kb.ptr(state["slot_start"])
     args.touched = kb.ptr(state["touched"])
-    if len(spec.aggs) > kb.MAX_AGGS:
-        raise ValueError(f"more than {kb.MAX_AGGS} aggregates")
-    for g, agg in enumerate(spec.aggs):
-        _check_kind(agg)
-        a = args.a[g]
-        a.kind, a.init = _KERNEL_KIND[agg.kind], init_value(agg)
-        if agg.kind != AggKind.COUNT_ALL:
-            a.plane = kb.ptr(state[_plane_name(g, agg)])
-        if agg.kind == AggKind.AVG:
-            a.plane_n = kb.ptr(state[_plane_name(g, agg) + "_n"])
-    args.n_aggs = len(spec.aggs)
     out = None
     if mode != CLOSE_RESET:
-        out = torch.empty((P, 2 + len(spec.aggs), K), dtype=torch.int32,
+        out = torch.empty((P, args.out_rows, K), dtype=torch.int32,
                           device=slots.device)
         args.out = out.data_ptr()
     done = torch.zeros(P, dtype=torch.int32, device=slots.device)
@@ -465,15 +729,7 @@ def _close_cuda(spec: LatticeSpec, state, slots: torch.Tensor, mode: int
     return out
 
 
-def close_slots(spec: LatticeSpec, state: dict[str, torch.Tensor],
-                slots: np.ndarray, mode: int = CLOSE_EXTRACT_RESET
-                ) -> torch.Tensor | None:
-    """The fused close over a padded slot vector (host int32 [P], < 0 =
-    padding), one launch: CLOSE_EXTRACT_RESET returns the packed int32
-    [P, 2+rows, K] buffer and resets those slots in place, from pre-reset
-    values; CLOSE_EXTRACT only extracts (peek); CLOSE_RESET only resets
-    and returns None. The close kernel on the card, the plain versions
-    on the CPU."""
+def _slot_tensor(spec: LatticeSpec, state, slots, mode: int) -> torch.Tensor:
     slots = np.asarray(slots, np.int32)
     live = slots[slots >= 0]
     if (live >= spec.n_slots).any():
@@ -481,12 +737,24 @@ def close_slots(spec: LatticeSpec, state: dict[str, torch.Tensor],
     if mode != CLOSE_EXTRACT and len(np.unique(live)) != len(live):
         raise ValueError("close: a slot named twice would be read after "
                          "its reset")
-    dev = state["count"].device
-    slots_t = torch.from_numpy(slots).to(dev)
-    if dev.type == "cpu":
-        packed = None
-        if mode != CLOSE_RESET:
-            packed = extract_slots_ref(spec, state, slots_t)
+    return torch.from_numpy(slots).to(state["count"].device)
+
+
+def close_slots(spec: LatticeSpec, state: dict[str, torch.Tensor],
+                slots: np.ndarray, mode: int = CLOSE_EXTRACT_RESET
+                ) -> torch.Tensor | None:
+    """The fused close over a padded slot vector (host int32 [P], < 0 =
+    padding), one launch: CLOSE_EXTRACT_RESET returns the packed int32
+    [P, 2+rows, K] buffer and resets those slots in place, from pre-reset
+    values; CLOSE_EXTRACT only extracts (peek); CLOSE_RESET is
+    reset_slots. The close kernel on the card, the plain versions on the
+    CPU."""
+    if mode == CLOSE_RESET:
+        reset_slots(spec, state, slots)
+        return None
+    slots_t = _slot_tensor(spec, state, slots, mode)
+    if slots_t.device.type == "cpu":
+        packed = extract_slots_ref(spec, state, slots_t)
         if mode != CLOSE_EXTRACT:
             reset_slots_ref(spec, state, slots_t)
         return packed
@@ -498,25 +766,143 @@ def close_slots(spec: LatticeSpec, state: dict[str, torch.Tensor],
 close_slots.launches = 0  # wrapper calls that launched the kernel
 
 
+def reset_slots(spec: LatticeSpec, state: dict[str, torch.Tensor],
+                slots: np.ndarray) -> None:
+    """Reset the slots of a padded slot vector without extracting, in
+    place (build_reset_slots, lattice.py:654-664: an EMIT CHANGES close,
+    whose changelog already carried the final values): the close kernel's
+    reset-only mode on the card, reset_slots_ref on the CPU."""
+    slots_t = _slot_tensor(spec, state, slots, CLOSE_RESET)
+    if slots_t.device.type == "cpu":
+        reset_slots_ref(spec, state, slots_t)
+        return
+    _close_cuda(spec, state, slots_t, CLOSE_RESET)
+    reset_slots.launches += 1
+
+
+reset_slots.launches = 0  # wrapper calls that launched the kernel
+
+
 def unpack_extract_rows(spec: LatticeSpec, packed: np.ndarray):
-    """(count [K], win_start [K], {name: [K] f32}) from one slot's
-    packed rows."""
-    outs = {agg.out_name: packed[2 + i].view(np.float32)
-            for i, agg in enumerate(spec.aggs)}
-    return packed[0], packed[1], outs
+    """(count [K], win_start [K], {name: [K] or [K, k] f32}) from one
+    slot's packed rows."""
+    return packed[0], packed[1], _unpack_agg_rows(spec, packed[2:])
 
 
 def gather_extract_batch(spec: LatticeSpec, packed: np.ndarray,
                          widx: np.ndarray, kids: np.ndarray):
     """Columnar gather over a fetched extract buffer [P, 2+rows, K]: for
-    the selected (window, key) pairs, {out_name: [n] f64}."""
-    return {agg.out_name: np.ascontiguousarray(
-                packed[widx, 2 + i, kids]).view(np.float32).astype(
-                np.float64)
-            for i, agg in enumerate(spec.aggs)}
+    the selected (window, key) pairs, {out_name: [n] f64 or [n, k] f32}
+    (gather_extract_batch, lattice.py:506-526)."""
+    outs: dict[str, np.ndarray] = {}
+    row = 2
+    for agg in spec.aggs:
+        w = agg_width(agg)
+        if agg.kind in _TOPK_KINDS:
+            outs[agg.out_name] = np.stack(
+                [np.ascontiguousarray(packed[widx, row + j, kids])
+                 .view(np.float32) for j in range(w)], axis=1)
+        else:
+            outs[agg.out_name] = np.ascontiguousarray(
+                packed[widx, row, kids]).view(np.float32).astype(np.float64)
+        row += w
+    return outs
 
 
-# ---- rebase ------------------------------------------------------------------
+# ---- the changelog extract (EMIT CHANGES) -----------------------------------
+
+
+def touched_max_out(spec: LatticeSpec, batch_capacity: int) -> int:
+    """Columns of a changelog extract: the touched-pair space, capped by
+    what one batch can touch (the reference's executor.py:313-314)."""
+    return min(batch_capacity * spec.windows_per_record,
+               spec.n_keys * spec.n_slots)
+
+
+def pack_touched_rows(spec: LatticeSpec, n, kidx: torch.Tensor,
+                      win_start: torch.Tensor, outs, max_out: int
+                      ) -> torch.Tensor:
+    """ONE int32 buffer [3 + rows, max_out]: row0 col0 = n, row1 = key
+    ids, row2 = win starts, rows 3+ = bitcast float agg outputs, k rows
+    for a width-k aggregate (pack_touched_rows, lattice.py:675-683)."""
+    row0 = torch.zeros(max_out, dtype=torch.int32, device=kidx.device)
+    row0[0] = n
+    rows = [row0, kidx.to(torch.int32), win_start.to(torch.int32)]
+    rows.extend(_agg_out_rows(spec, outs))
+    return torch.stack(rows)
+
+
+def unpack_touched_rows(spec: LatticeSpec, packed: np.ndarray):
+    """(n, kidx [n], win_start [n], {name: [n] or [n, k] f32})."""
+    n = int(packed[0, 0])
+    outs = _unpack_agg_rows(spec, packed[3:, :n])
+    return n, packed[1, :n], packed[2, :n], outs
+
+
+def extract_touched_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
+                        max_out: int) -> torch.Tensor:
+    """Plain changelog extract (build_extract_touched, lattice.py:
+    693-720): every touched (key, slot) cell in jnp.nonzero's order,
+    finalized and packed; columns past n hold the nonzero fill (cell
+    (0, 0)). Clears `touched` in place."""
+    K, W = spec.n_keys, spec.n_slots
+    flat = state["touched"].reshape(-1)
+    hit = torch.nonzero(flat).reshape(-1)
+    n = int(hit.shape[0])
+    cells = torch.zeros(max_out, dtype=torch.int64, device=flat.device)
+    cells[:min(n, max_out)] = hit[:max_out]
+    col = {k: v.reshape((K * W,) + tuple(v.shape[2:]))[cells]
+           for k, v in state.items() if k not in ("slot_start", "touched")}
+    outs = finalize_column(spec, col)
+    valid = torch.arange(max_out, device=flat.device) < n
+    win = torch.where(valid, state["slot_start"][cells % W],
+                      torch.zeros_like(cells, dtype=torch.int32))
+    packed = pack_touched_rows(spec, n, cells // W, win, outs, max_out)
+    state["touched"].zero_()
+    return packed
+
+
+def _touched_cuda(spec: LatticeSpec, state, max_out: int) -> torch.Tensor:
+    dev = state["count"].device
+    args = kb.TouchedArgs()
+    args.n_keys, args.n_slots, args.max_out = \
+        spec.n_keys, spec.n_slots, max_out
+    args.out_rows = 3 + out_rows(spec)
+    args.f = _finalize_args(spec, state)
+    args.count = kb.ptr(state["count"])
+    args.slot_start = kb.ptr(state["slot_start"])
+    args.touched = kb.ptr(state["touched"])
+    out = torch.empty((args.out_rows, max_out), dtype=torch.int32,
+                      device=dev)
+    args.out = out.data_ptr()
+    blocks = kb.lib().hs_touched_blocks(spec.n_keys * spec.n_slots)
+    scratch = torch.empty(max_out + 1 + blocks, dtype=torch.int32,
+                          device=dev)
+    args.cells = scratch.data_ptr()
+    args.block_counts = scratch[max_out + 1:].data_ptr()
+    kb.check(kb.lib().hs_touched(ctypes.byref(args), kb.stream_of(out)),
+             "touched_extract")
+    return out
+
+
+def extract_touched(spec: LatticeSpec, state: dict[str, torch.Tensor],
+                    max_out: int) -> torch.Tensor:
+    """The changelog extract: packed int32 [3 + rows, max_out] of every
+    (key, slot) cell touched since the last call, with `touched` cleared,
+    in one wrapper call: the touched-extract kernels on the card (a
+    compaction and a finalize; a count first for a lattice of more than
+    4096 cells), extract_touched_ref on the CPU."""
+    if state["count"].device.type == "cpu":
+        return extract_touched_ref(spec, state, max_out)
+    out = _touched_cuda(spec, state, max_out)
+    extract_touched.launches += 1
+    return out
+
+
+extract_touched.launches = 0  # wrapper calls that launched the kernel
+
+
+# ---- rebase -----------------------------------------------------------------
 
 def rebase_ref(state: dict[str, torch.Tensor], delta: int) -> None:
     """Plain rebase, in place: slot_start -= delta where occupied."""

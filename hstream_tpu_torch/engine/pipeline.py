@@ -6,7 +6,7 @@ QueryExecutor.stage_columnar (encode + H2D copy on a side stream).
 The executor's hot loop has three host-side phases per micro-batch:
   1. wire-encode (numpy/native bit-packing)
   2. host->device upload (pinned copy on a side stream, bounded)
-  3. decode + scatter kernel launches + window bookkeeping
+  3. the step's kernel launches + window bookkeeping + change drain
 Phases 1-2 are pure w.r.t. engine state (the wire codec's adaptive
 state tolerates out-of-order planning — every batch's combo/bases/words
 triple is self-consistent; see transport.BitpackTransport) and launch
@@ -182,7 +182,10 @@ class IngestPipeline:
 
     def flush(self) -> list[dict[str, Any]]:
         """Barrier: wait until every submitted batch is staged and
-        processed; returns their emitted rows."""
+        processed; returns their emitted rows, the executor's deferred
+        changelog rows included (flush_changes, after the last batch's,
+        so rows stay in submission order). The reference's flush leaves
+        those to its caller."""
         if self._dead:
             raise RuntimeError("ingest pipeline worker has exited")
         out: Any = None
@@ -190,6 +193,7 @@ class IngestPipeline:
             rows = self._process_one(block=True)
             if rows is not None:
                 out = extend_rows(out, rows)
+        out = extend_rows(out, self._ex.flush_changes())
         return out if out is not None else []
 
     def stats(self) -> dict[str, float]:

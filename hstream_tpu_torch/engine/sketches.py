@@ -23,8 +23,14 @@ the kernels do it:
   (the reference sums float32 in XLA's order; the parity tests hold the
   two within rel 1e-6).
 
-APPROX_QUANTILE's log-binned histogram (QuantileConfig) is ROADMAP A6;
-its config is kept so LatticeSpec has the reference's fields.
+APPROX_QUANTILE (sketches.py:114-155): a log-binned int32 histogram
+[..., n_bins]. The bin is the reference's float32 arithmetic, one
+operation at a time, which the scatter kernel repeats (logf there and
+torch.log here are the same libdevice function on the card). The
+estimate scans the CDF as exact integers and compares it as float32 (the
+reference's float32 cumsum is exact while a cell holds fewer than 2^24
+values), then takes the bin's geometric midpoint in float32, as the close
+and changelog kernels do.
 """
 
 from __future__ import annotations
@@ -125,7 +131,8 @@ def hll_estimate(registers: torch.Tensor, cfg: HLLConfig) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class QuantileConfig:
-    """Geometric buckets over [min_value, max_value] (ROADMAP A6)."""
+    """Geometric buckets over [min_value, max_value]; values below
+    min_value (incl. zero/negatives) land in bucket 0."""
 
     n_bins: int = 512
     min_value: float = 1e-6
@@ -134,3 +141,36 @@ class QuantileConfig:
     @property
     def gamma_log(self) -> float:
         return math.log(self.max_value / self.min_value) / (self.n_bins - 1)
+
+
+def _f32(v: float, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def quantile_bin(values: torch.Tensor, cfg: QuantileConfig) -> torch.Tensor:
+    """Bucket index int32 [...] for the values (as float32)."""
+    v = values.to(torch.float32)
+    lo = _f32(cfg.min_value, v.device)
+    v = torch.maximum(v, _f32(0.0, v.device))
+    safe = torch.maximum(v, lo)
+    b = torch.floor(torch.log(safe / lo) / _f32(cfg.gamma_log, v.device))
+    b = torch.clamp(b.to(torch.int32) + 1, 1, cfg.n_bins - 1)
+    return torch.where(v < lo, torch.zeros_like(b), b)
+
+
+def quantile_estimate(hist: torch.Tensor, q: float,
+                      cfg: QuantileConfig) -> torch.Tensor:
+    """q-quantile from histogram counts [..., n_bins] -> float32 [...]:
+    the geometric midpoint of the first bucket whose CDF reaches
+    q * max(total, 1) (bucket 0 -> 0.0)."""
+    dev = hist.device
+    counts = hist.to(torch.int64)
+    total = counts.sum(-1, keepdim=True).to(torch.float32)
+    cdf = torch.cumsum(counts, -1).to(torch.float32)
+    target = _f32(q, dev) * torch.clamp(total, min=1.0)
+    idx = (cdf < target).sum(-1)
+    idx = torch.clamp(idx, 0, cfg.n_bins - 1)
+    log_lo = (idx.to(torch.float32) - 1.0) * _f32(cfg.gamma_log, dev)
+    mid = _f32(cfg.min_value, dev) * torch.exp(
+        log_lo + _f32(0.5 * cfg.gamma_log, dev))
+    return torch.where(idx == 0, torch.zeros_like(mid), mid)

@@ -5,7 +5,8 @@ The port imports torch and numpy, never jax and nothing of hstream_tpu
 unless the caller asks for the CPU: without a card, an entry point that
 was not given device="cpu" raises instead of carrying on on the CPU.
 Plan features whose port has not landed raise NotPortedError naming
-their ROADMAP item.
+their ROADMAP item (session windows, A7); the ones that landed give the
+JAX executor's rows.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,14 +28,14 @@ from hstream_tpu_torch.engine import (
     AggregateNode,
     AggSpec,
     ColumnType,
-    FilterNode,
     QueryExecutor,
     Schema,
     SessionWindow,
     SourceNode,
     TumblingWindow,
 )
-from hstream_tpu_torch.engine.expr import BinOp, Col, Lit
+from hstream_tpu_torch.engine.expr import Col
+from torch_parity import BASE, drive, pair
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "hstream_tpu_torch"
@@ -102,33 +104,82 @@ def test_executor_without_a_device_needs_the_card(monkeypatch):
     assert all(v.device.type == "cpu" for v in ex.state.values())
 
 
-@pytest.mark.parametrize("make", [
-    lambda: (_node([AggSpec(AggKind.COUNT, "c", input=Col("temp"))]), {}),
-    lambda: (_node([AggSpec(AggKind.APPROX_QUANTILE, "q",
-                            input=Col("temp"), quantile=0.5)]), {}),
-    lambda: (_node([AggSpec(AggKind.TOPK, "t", input=Col("temp"), k=3)]),
-             {}),
-    lambda: (_node([AggSpec(AggKind.TOPK_DISTINCT, "t", input=Col("temp"),
-                            k=3)]), {}),
-    lambda: (_node([AggSpec(AggKind.SUM, "s", input=BinOp(
-        "*", Col("temp"), Lit(2.0)))]), {}),
-    lambda: (_node([COUNT], child=FilterNode(SourceNode("s", SCHEMA), BinOp(
-        ">", Col("temp"), Lit(0.0)))), {}),
-    lambda: (_node([COUNT]), {"emit_changes": True}),
-], ids=["count_col", "quantile", "topk", "topk_distinct", "computed_input",
-        "where", "emit_changes"])
-def test_unported_plan_features_name_their_roadmap_item(make):
-    node, kw = make()
-    with pytest.raises(NotPortedError, match=r"ROADMAP A6") as e:
-        QueryExecutor(node, SCHEMA, device="cpu", **kw)
-    assert isinstance(e.value, NotImplementedError)
+def _recipe(aggs, where=False):
+    """A plan over (device, temp), in either package's namespace."""
+    def recipe(m):
+        schema = m.Schema.of(device=m.ColumnType.STRING,
+                             temp=m.ColumnType.FLOAT)
+        child = m.SourceNode("s", schema)
+        if where:
+            child = m.FilterNode(child, m.BinOp(">", m.Col("temp"),
+                                                m.Lit(0.0)))
+        return m.AggregateNode(
+            child=child, group_keys=[m.Col("device")],
+            window=m.TumblingWindow(10_000, grace_ms=0),
+            aggs=aggs(m)), schema
+    return recipe
+
+
+def _seeded_rows(seed: int):
+    """Three row batches over four keys, the last closing the first
+    window; temps from a numpy seed, some negative, some missing."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b, off in enumerate((0, 4_000, 12_000)):
+        n = 40
+        temps = np.rint(rng.normal(3, 4, n) * 10) / 10
+        rows = [{"device": f"d{rng.integers(0, 4)}", "temp": float(t)}
+                for t in temps]
+        for r in rows[::9]:
+            del r["temp"]
+        out.append((rows, [BASE + off + 50 * i for i in range(n)]))
+    return out
+
+
+_FEATURES = {
+    "count_col": (_recipe(lambda m: [m.AggSpec(m.AggKind.COUNT, "c",
+                                               input=m.Col("temp"))]), {}),
+    "quantile": (_recipe(lambda m: [m.AggSpec(
+        m.AggKind.APPROX_QUANTILE, "q", input=m.Col("temp"),
+        quantile=0.5)]), {}),
+    "topk": (_recipe(lambda m: [m.AggSpec(m.AggKind.TOPK, "t",
+                                          input=m.Col("temp"), k=3)]), {}),
+    "topk_distinct": (_recipe(lambda m: [m.AggSpec(
+        m.AggKind.TOPK_DISTINCT, "t", input=m.Col("temp"), k=3)]), {}),
+    "computed_input": (_recipe(lambda m: [m.AggSpec(
+        m.AggKind.SUM, "s", input=m.BinOp("*", m.Col("temp"),
+                                          m.Lit(2.0)))]), {}),
+    "where": (_recipe(lambda m: [m.AggSpec(m.AggKind.COUNT_ALL, "cnt")],
+                      where=True), {}),
+    "emit_changes": (_recipe(lambda m: [m.AggSpec(m.AggKind.COUNT_ALL,
+                                                  "cnt")]),
+                     {"emit_changes": True}),
+}
+
+
+@pytest.mark.parametrize("feature", list(_FEATURES))
+def test_unported_plan_features_name_their_roadmap_item(feature):
+    """The plan features ROADMAP A6 carried (once refused with
+    NotPortedError naming A6) now build on device="cpu" and give the JAX
+    executor's rows on a small seeded input (close-only unless the case
+    is EMIT CHANGES itself; tolerances: tests/torch_parity.py)."""
+    recipe, kw = _FEATURES[feature]
+    mode = "changes" if kw.get("emit_changes") else "close"
+    jex, tex = pair(recipe, mode)
+    assert tex.device.type == "cpu"
+    rows = drive(jex, tex, _seeded_rows(len(feature)),
+                 quantiles=("q",))
+    assert rows
 
 
 def test_session_windows_and_null_inputs_are_not_ported():
+    """Session windows still raise (A7); NULL aggregate inputs, once
+    refused (A6), now match the JAX executor's rows."""
     with pytest.raises(NotPortedError, match="A7"):
         QueryExecutor(_node([COUNT], window=SessionWindow(5_000)), SCHEMA,
                       device="cpu")
-    ex = QueryExecutor(_node([AggSpec(AggKind.SUM, "s", input=Col("temp"))]),
-                       SCHEMA, device="cpu")
-    with pytest.raises(NotPortedError, match="A6"):
-        ex.process([{"device": "a"}], [1_700_000_000_000])
+    jex, tex = pair(_recipe(lambda m: [m.AggSpec(
+        m.AggKind.SUM, "s", input=m.Col("temp"))]))
+    drive(jex, tex, [([{"device": "a"}], [BASE]),
+                     ([{"device": "a", "temp": 2.5}, {"device": "b"}],
+                      [BASE + 10, BASE + 20])])

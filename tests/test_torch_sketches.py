@@ -5,6 +5,12 @@ exactly, for float32 (with -0.0 canonicalized), int32 and bool inputs.
 The HLL estimate sums the registers' 2^-r terms exactly in the port and
 in float32 in the reference: held to rel 1e-6, in both the
 linear-counting and the harmonic-mean regime.
+
+APPROX_QUANTILE: the bin is float32 arithmetic in both and must match
+exactly, over values <= 0, in (0, min_value), on and past the range's
+ends and non-finite; the estimate is the bin's geometric midpoint, whose
+exp may differ in its last bit between XLA's and PyTorch's CPU code:
+held to rel 1e-6, for q = 0, 0.5, 0.99 and 1 and an empty histogram.
 """
 
 from __future__ import annotations
@@ -61,5 +67,42 @@ def test_estimate_matches_in_both_regimes(distinct):
         np.maximum.at(regs[row], np.asarray(reg), np.asarray(rank))
     want = np.asarray(js.hll_estimate(regs, cfg_j))
     got = ts.hll_estimate(torch.from_numpy(regs), cfg_t).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+def _quantile_values(rng) -> np.ndarray:
+    v = np.concatenate([
+        rng.lognormal(0, 6, 20_000), -rng.random(100),
+        rng.random(100) * 1e-6, rng.lognormal(25, 3, 200),
+        np.rint(rng.normal(20, 5, 2000) * 10) / 10]).astype(np.float32)
+    edges = np.float32(1e-6) * np.exp(
+        np.arange(0, 512) * ts.QuantileConfig().gamma_log)
+    return np.concatenate([v, edges.astype(np.float32), np.array(
+        [0.0, -0.0, 1e-6, 1e9, 3.4e38, np.nan, np.inf, -np.inf],
+        np.float32)])
+
+
+def test_quantile_bins_match():
+    v = _quantile_values(np.random.default_rng(3))
+    want = np.asarray(js.quantile_bin(v, js.QuantileConfig()))
+    got = ts.quantile_bin(torch.from_numpy(v), ts.QuantileConfig()).numpy()
+    finite = np.isfinite(v)           # non-finite inputs never count
+    np.testing.assert_array_equal(got[finite], want[finite])
+    assert got.dtype == np.int32
+    assert {0, 1, 511} <= set(got[finite].tolist())
+
+
+@pytest.mark.parametrize("q", [0.0, 0.5, 0.99, 1.0])
+def test_quantile_estimate_matches(q):
+    rng = np.random.default_rng(int(q * 100))
+    cfg_j, cfg_t = js.QuantileConfig(), ts.QuantileConfig()
+    hist = np.zeros((6, cfg_j.n_bins), np.int32)
+    for row in range(1, 6):          # row 0: an empty histogram
+        b = np.asarray(js.quantile_bin(
+            rng.lognormal(row, 2, 1000 * row).astype(np.float32), cfg_j))
+        np.add.at(hist[row], b, 1)
+    want = np.asarray(js.quantile_estimate(hist, q, cfg_j))
+    got = ts.quantile_estimate(torch.from_numpy(hist), q, cfg_t).numpy()
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)

@@ -15,7 +15,12 @@ Phases, each of which asserts (any failure exits non-zero):
    (all three modes), rebase, and the changelog query's kernels (the
    expression interpreter over every op and type mix; NULL masks,
    COUNT(col) and quantile bins in the scatter and estimates in the
-   close; the top-k fold; the touched extract; the reset-only close);
+   close; the top-k fold; the touched extract; the reset-only close),
+   and the session kernels (the step and the merge over every aggregate
+   kind, out-of-order records gap and gap + 1 apart, equal starts,
+   evicted and retired arena entries, a non-zero delta, NULLs, NaN,
+   +-inf and +-0.0; the extract with pads, empty histograms and HLL
+   estimates near .5; the remap with codes at and above the table);
 4. main path, config 1 (BASELINE 1/3): COUNT(*), SUM(temp),
    APPROX_COUNT_DISTINCT(temp) GROUP BY device, TUMBLE(10s) over 1000
    keys, 2^20-record batches through IngestPipeline past two window
@@ -31,7 +36,20 @@ Phases, each of which asserts (any failure exits non-zero):
    changelog row against a numpy reference of the running values, and
    the launch contract (per batch one decode, expression, scatter, top-k
    and touched extract; per close cycle one reset-only close, no fetch);
-7. a {"kernels": [...]} line (each kernel's launches on the main paths,
+7. the session path, BASELINE config 4 (bench.py:340-356): SELECT
+   user, APPROX_QUANTILE(lat, 0.5), APPROX_QUANTILE(lat, 0.99) FROM s
+   GROUP BY user, SESSION(5 s) through SessionExecutor.process_columnar
+   in record mode with deferred closes drained every 8 batches, over
+   48 x 2^20 records from 100,000 user slots (on 8 s, off 8 s, fresh
+   ids at 3/4 of the on-phases, so the key dictionary passes 2^18 and
+   the code remap runs); every closed session against a numpy
+   reference (user, bounds exact, p50/p99 bucket), the launch contract
+   (one step per batch, one extract per close cycle, one fetch per
+   drain and buffer shape, a remap, no move to the host engine); then
+   the first 12 batches in segment mode (the merge kernel); a profiled
+   window of 8 more batches; each session kernel timed at the path's
+   shapes;
+8. a {"kernels": [...]} line (each kernel's launches on the main paths,
    its error against the plain version and its times), the card line,
    and last {"ok": true, "device": {...}}.
 
@@ -44,11 +62,16 @@ terms differ by at most 2*n*2^-24*sum|x|, the bound each SUM cell (and
 each AVG cell's sum) is held to. The changelog path's quantile estimates
 may sit one bucket from numpy's only for a key whose data holds a value
 within one float32 ulp of a bin edge (numpy's log is not the card's);
-the run reports how many. Details go to smoke_out/chip_smoke.json.
+the run reports how many; the session path's p50/p99 likewise. The
+session kernels' code, t0, t1, integer planes, HLL registers, histograms
+and extract rows are exact, MIN/MAX by value, SUM/AVG within the same
+order bound per slot (n the terms folded into it). Details go to
+smoke_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -150,6 +173,7 @@ def card_line() -> str:
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose .launches counts its launches."""
     from hstream_tpu_torch.engine import expr, lattice, transport
+    from hstream_tpu_torch.engine import session_lattice as sl
 
     return {"wire_decode": transport.decode_batch,
             "expression": expr.eval_programs,
@@ -158,7 +182,11 @@ def _wrappers() -> dict:
             "fused_close": lattice.close_slots,
             "reset_close": lattice.reset_slots,
             "touched_extract": lattice.extract_touched,
-            "rebase": lattice.rebase}
+            "rebase": lattice.rebase,
+            "session_step": sl.session_step,
+            "session_merge": sl.session_merge,
+            "session_extract": sl.session_extract,
+            "session_remap": sl.session_remap}
 
 
 def launch_counts() -> dict[str, int]:
@@ -718,6 +746,8 @@ def main_path(cfg: int, dev) -> dict:
     # launches per batch
     assert counts["expression"] == counts["topk_fold"] == \
         counts["touched_extract"] == counts["reset_close"] == 0, counts
+    assert all(counts[k] == 0 for k in counts if k.startswith("session")), \
+        counts
     eps = MAIN_BATCHES * BATCH / wall
     return dict(config=cfg, events_per_sec=eps, wall_s=wall,
                 windows_checked=n_windows, rows=len(rows),
@@ -1449,6 +1479,8 @@ def changelog_path(dev) -> dict:
         counts["reset_close"] == 2, (stats, counts)
     assert stats["close_fetches"] == 0 and counts["fused_close"] == 0, \
         (stats, counts)
+    assert all(counts[k] == 0 for k in counts if k.startswith("session")), \
+        counts
     quant = check_changelog_rows(rows, ref, spec.qcfg)
     profile = profile_changelog(ex, src, masks)
     return dict(config="changelog", events_per_sec=MAIN_BATCHES * BATCH / wall,
@@ -1501,6 +1533,862 @@ def profile_changelog(ex, src, masks) -> dict:
                 device_ms_per_batch=per, device_busy_share=busy)
 
 
+# ---- phase 3 (sessions): the session kernels against their plain versions --
+
+SESS_GAP = 5000
+
+
+def session_spec_all():
+    """Every session aggregate kind over a float, an int, a bool and a
+    computed input; p50/p99 share one histogram plane."""
+    from hstream_tpu_torch.engine import AggKind as A, AggSpec
+    from hstream_tpu_torch.engine import ColumnType, Schema
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.engine.expr import BinOp, Col, Lit
+
+    v, w, b = Col("v"), Col("w"), Col("b")
+    aggs = (AggSpec(A.COUNT_ALL, "c"), AggSpec(A.COUNT, "n", input=v),
+            AggSpec(A.SUM, "s", input=v), AggSpec(A.AVG, "a", input=v),
+            AggSpec(A.MIN, "lo", input=v), AggSpec(A.MAX, "hi", input=v),
+            AggSpec(A.APPROX_COUNT_DISTINCT, "d", input=v),
+            AggSpec(A.APPROX_QUANTILE, "p50", input=v, quantile=0.5),
+            AggSpec(A.APPROX_QUANTILE, "p99", input=v, quantile=0.99),
+            AggSpec(A.COUNT, "nw", input=w), AggSpec(A.MIN, "wlo", input=w),
+            AggSpec(A.MAX, "whi", input=w),
+            AggSpec(A.SUM, "sx",
+                    input=BinOp("+", BinOp("*", v, Lit(2.0)), w)),
+            AggSpec(A.APPROX_COUNT_DISTINCT, "db", input=b),
+            AggSpec(A.AVG, "ab", input=b))
+    schema = Schema.of(v=ColumnType.FLOAT, w=ColumnType.INT,
+                       b=ColumnType.BOOL)
+    spec = sl.SessionSpec(aggs=aggs)
+    layout = (("b", "bool"), ("v", "f32"), ("w", "i32"))
+    return spec, schema, layout, sl.session_programs(spec, schema)
+
+
+def session_batch(dev, spec, layout, seed: int, n: int, n_codes: int,
+                  t_lo: int):
+    """An awkward packed batch: out of order, consecutive records of a
+    key exactly gap and gap + 1 apart, equal starts, invalid records,
+    NULL masks, NaN, +-inf, +-0.0, int extremes."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.engine.expr import columns_of
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, n_codes, n).astype(np.int64)
+    steps = np.array([0, 0, 1, 7, SESS_GAP, SESS_GAP, SESS_GAP + 1,
+                      SESS_GAP + 1, 3 * SESS_GAP], np.int64)
+    # per key, in sorted position: a random start, then records the
+    # chosen steps apart (equal, 1, 7, gap, gap + 1, 3 gap)
+    order = np.argsort(codes, kind="stable")
+    sc = codes[order]
+    first = np.ones(n, bool)
+    first[1:] = sc[1:] != sc[:-1]
+    step = steps[rng.integers(0, len(steps), n)]
+    step[first] = rng.integers(0, 4 * SESS_GAP, int(first.sum()))
+    csum = np.cumsum(step)
+    base = np.maximum.accumulate(np.where(first, csum - step, 0))
+    ts = np.empty(n, np.int64)
+    ts[order] = t_lo + csum - base
+    perm = rng.permutation(n)                        # out of order
+    codes, ts = codes[perm], ts[perm]
+    pool = np.array([1.5, -2.0, 0.0, -0.0, np.inf, -np.inf, np.nan, 1e30,
+                     -1e30, 3.25, 1e-7, 7e8, 2e9], np.float32)
+    v = (rng.normal(40, 25, n)).astype(np.float32)
+    sel = rng.random(n) < 0.05
+    v[sel] = pool[rng.integers(0, len(pool), int(sel.sum()))]
+    w = rng.integers(-1000, 1000, n).astype(np.int32)
+    w[::101] = np.iinfo(np.int32).max
+    w[::103] = np.iinfo(np.int32).min
+    bcol = rng.random(n) < 0.5
+    valid = rng.random(n) > 0.02
+    nv, nw_, nb_ = (rng.random(n) < 0.03 for _ in range(3))
+    masks = []
+    for a in spec.aggs:
+        if a.input is None:
+            continue
+        cs = columns_of(a.input)
+        m = np.zeros(n, bool)
+        m |= nv if "v" in cs else False
+        m |= nw_ if "w" in cs else False
+        m |= nb_ if "b" in cs else False
+        masks.append(m)
+    buf = sl.pack_batch_host(n, n, codes.astype(np.int32), ts, valid,
+                             {"v": v, "w": w, "b": bcol}, masks, layout)
+    return torch.from_numpy(buf).to(dev)
+
+
+def session_seg(dev, spec, seed: int, nseg: int, n_codes: int, t_lo: int):
+    """Random segment planes in the arena's layout: sentinel pads,
+    overlapping and gap-apart intervals, +-inf MIN/MAX identities,
+    sparse HLL registers and histograms."""
+    from hstream_tpu_torch.engine import AggKind as A
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    rng = np.random.default_rng(seed)
+    seg = sl.session_plane_np(spec, nseg)
+    seg["code"][:] = rng.integers(0, n_codes, nseg)
+    seg["code"][rng.random(nseg) < 0.05] = sl.SESSION_SENT_CODE
+    t0 = t_lo + rng.integers(0, 40 * SESS_GAP, nseg)
+    seg["t0"][:] = t0
+    seg["t1"][:] = t0 + rng.choice([0, 1, SESS_GAP, 2 * SESS_GAP], nseg)
+    for _i, name, agg in sl._owners(spec):
+        p = seg[name]
+        if agg.kind in (A.COUNT_ALL, A.COUNT):
+            p[:] = rng.integers(0, 50, nseg)
+        elif agg.kind in (A.SUM, A.AVG):
+            p[:] = rng.normal(0, 100, nseg)
+            if agg.kind == A.AVG:
+                seg[name + "_n"][:] = rng.integers(0, 50, nseg)
+        elif agg.kind in (A.MIN, A.MAX):
+            p[:] = rng.normal(0, 100, nseg)
+            p[rng.random(nseg) < 0.1] = np.inf if agg.kind == A.MIN \
+                else -np.inf
+            p[rng.random(nseg) < 0.05] = -0.0
+        elif agg.kind == A.APPROX_COUNT_DISTINCT:
+            hit = rng.random(p.shape) < 0.02
+            p[hit] = rng.integers(1, 23, int(hit.sum()))
+        else:
+            hit = rng.random(p.shape) < 0.05
+            p[hit] = rng.integers(1, 9, int(hit.sum()))
+    return {k: torch.from_numpy(v).to(dev) for k, v in seg.items()}
+
+
+def _abs_planes(spec, arena):
+    """The arena with its SUM/AVG planes made |x| (for the order bound)."""
+    from hstream_tpu_torch.engine import AggKind as A
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    out = {k: v.clone() for k, v in arena.items()}
+    for _i, name, agg in sl._owners(spec):
+        if agg.kind in (A.SUM, A.AVG):
+            out[name] = out[name].abs()
+    return out
+
+
+def check_session_arenas(spec, got, want, terms, absw, what) -> float:
+    """got vs want: code, t0, t1, integer planes, HLL and histograms
+    exact, MIN/MAX by value, SUM/AVG within 2*n*2^-24*sum|x| per slot
+    (n the slot's folded terms); returns the largest SUM/AVG error."""
+    from hstream_tpu_torch.engine import AggKind as A
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    sums = {name for _i, name, agg in sl._owners(spec)
+            if agg.kind in (A.SUM, A.AVG)}
+    err = 0.0
+    for k in want:
+        a, b = got[k], want[k]
+        if k in sums:
+            d = (a.double() - b.double()).abs()
+            lim = 2 * terms.double() * U * absw[k].double() + 1e-30
+            bad = int((d > lim).sum())
+            assert bad == 0, f"{what}: {k} beyond the order bound " \
+                f"({bad} slots, max err {float(d.max())})"
+            err = max(err, float(d.max()))
+        elif k.endswith(("_min", "_max")):
+            assert torch.equal(a, b), f"{what}: {k} differs"
+        else:
+            assert same_bits(a, b, k), f"{what}: {k} differs"
+    return err
+
+
+def _terms(dest: torch.Tensor, cap: int) -> torch.Tensor:
+    d = dest[dest < cap]
+    return torch.bincount(d, minlength=cap)[:cap]
+
+
+def step_vs_plain(spec, arena, packed, inputs, gap, close_cut, delta,
+                  what):
+    """The step kernel and its plain version on the same inputs, each
+    into its own fresh arena; asserts they agree (check_session_arenas)
+    and returns (largest SUM/AVG error, the plain version's arena)."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    dev, cap = arena["code"].device, arena["code"].shape[0]
+    before = sl.session_step.launches
+    got = sl.init_session_arena(spec, cap, dev)
+    sl.session_step(spec, arena, got, packed, inputs, gap, close_cut, delta)
+    assert sl.session_step.launches == before + 1
+    want = sl.init_session_arena(spec, cap, dev)
+    sl.session_step_ref(spec, arena, want, packed, inputs, gap, close_cut,
+                        delta)
+    absw = sl.init_session_arena(spec, cap, dev)
+    sl.session_step_ref(spec, _abs_planes(spec, arena), absw, packed,
+                        tuple(None if x is None else
+                              (x.abs() if x.dtype == torch.float32 else x)
+                              for x in inputs),
+                        gap, close_cut, delta)
+    acode, at0, at1 = sl._retired(arena, close_cut, delta)
+    valid = (packed[2] & 1) != 0
+    bcode = torch.where(valid, packed[0].long(), sl.SESSION_SENT_CODE)
+    ts = packed[1].long()
+    dest = sl.chain_slots(torch.cat([acode, bcode]), torch.cat([at0, ts]),
+                          torch.cat([at1, ts]), gap, cap)
+    torch.cuda.synchronize()
+    err = check_session_arenas(spec, got, want, _terms(dest, cap), absw,
+                               what)
+    return err, want
+
+
+def merge_vs_plain(spec, arena, seg, gap, close_cut, delta, what):
+    """The merge kernel and its plain version on the same inputs, each
+    into its own fresh arena; asserts they agree and returns (largest
+    SUM/AVG error, the plain version's arena)."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    dev, cap = arena["code"].device, arena["code"].shape[0]
+    before = sl.session_merge.launches
+    got = sl.init_session_arena(spec, cap, dev)
+    sl.session_merge(spec, arena, got, seg, gap, close_cut, delta)
+    assert sl.session_merge.launches == before + 1
+    want = sl.init_session_arena(spec, cap, dev)
+    sl.session_merge_ref(spec, arena, want, seg, gap, close_cut, delta)
+    absw = sl.init_session_arena(spec, cap, dev)
+    sl.session_merge_ref(spec, _abs_planes(spec, arena), absw,
+                         _abs_planes(spec, seg), gap, close_cut, delta)
+    acode, at0, at1 = sl._retired(arena, close_cut, delta)
+    dest = sl.chain_slots(torch.cat([acode, seg["code"].long()]),
+                          torch.cat([at0, seg["t0"].long()]),
+                          torch.cat([at1, seg["t1"].long()]), gap, cap)
+    torch.cuda.synchronize()
+    err = check_session_arenas(spec, got, want, _terms(dest, cap), absw,
+                               what)
+    return err, want
+
+
+def check_session_step(dev, results):
+    """B11 on awkward inputs: an arena made by the plain step from a first
+    batch, then evicted (sentinel) and retired (t1 <= close_cut) entries
+    between live ones, a non-zero delta, and a second batch."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    spec, _schema, layout, progs = session_spec_all()
+    cap, n = 1 << 16, 1 << 16
+    arena = sl.init_session_arena(spec, cap, dev)
+    p1 = session_batch(dev, spec, layout, 60, n, 400, 0)
+    base = sl.init_session_arena(spec, cap, dev)
+    sl.session_step_ref(spec, arena, base,
+                        p1, sl.session_inputs(spec, layout, p1, progs),
+                        SESS_GAP, -(1 << 30), 0)
+    rng = np.random.default_rng(61)
+    live = (base["code"] < sl.SESSION_SENT_CODE).cpu().numpy()
+    hole = np.nonzero(live & (rng.random(cap) < 0.05))[0]
+    base["code"][torch.from_numpy(hole).to(dev)] = sl.SESSION_SENT_CODE
+    t1 = torch.sort(base["t1"][torch.from_numpy(live).to(dev)]).values
+    close_cut = int(t1[len(t1) // 5])     # an entry's own t1: retired
+    delta = 1234
+    p2 = session_batch(dev, spec, layout, 62, n, 400, 30 * SESS_GAP)
+    inputs = sl.session_inputs(spec, layout, p2, progs)
+    err, want = step_vs_plain(spec, base, p2, inputs, SESS_GAP, close_cut,
+                              delta, "session_step")
+    retired = int(((base["code"] < sl.SESSION_SENT_CODE)
+                   & (base["t1"] <= close_cut)).sum())
+    n_live = int((want["code"] < sl.SESSION_SENT_CODE).sum())
+    results["session_step"] = dict(
+        route="cuda",
+        source="hstream_tpu_torch/engine/kernels/csrc/session_step.cu",
+        replaces="hstream_tpu/engine/lattice.py:1327",
+        max_abs_err=err)
+    log(f"session_step: every aggregate kind, {len(hole)} evicted and "
+        f"{retired} retired arena entries, delta {delta}, {n} records "
+        f"(out of order, gap/gap+1 apart, equal starts, NULLs, NaN, "
+        f"+-inf, +-0.0) -> {n_live} sessions: exact, SUM/AVG within "
+        f"their bound (max err {err:.3g})")
+
+
+def check_session_merge(dev, results):
+    """B12: the same arena shape merged with random segment planes."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    spec, _schema, layout, _progs = session_spec_all()
+    cap, nseg = 1 << 14, 5000
+    empty = sl.init_session_arena(spec, cap, dev)
+    base = sl.init_session_arena(spec, cap, dev)
+    sl.session_merge_ref(spec, empty, base,
+                         session_seg(dev, spec, 70, 3000, 500, 0),
+                         SESS_GAP, -(1 << 30), 0)
+    base["code"][::37] = sl.SESSION_SENT_CODE
+    close_cut, delta = 15 * SESS_GAP, 777
+    seg = session_seg(dev, spec, 71, nseg, 500, 10 * SESS_GAP)
+    err, _want = merge_vs_plain(spec, base, seg, SESS_GAP, close_cut, delta,
+                                "session_merge")
+    results["session_merge"] = dict(
+        route="cuda",
+        source="hstream_tpu_torch/engine/kernels/csrc/session_merge.cu",
+        replaces="hstream_tpu/engine/lattice.py:1432",
+        max_abs_err=err)
+    log(f"session_merge: {nseg} segments (sentinel pads, +-inf and -0.0 "
+        f"MIN/MAX) into an arena with evicted and retired entries, delta "
+        f"{delta}: exact, SUM/AVG within their bound (max err {err:.3g})")
+
+
+def check_session_extract(dev, results):
+    """B13: -1 pads, empty histograms, HLL estimates near .5, +-inf
+    MIN/MAX, AVG with n = 0; every row bit-exact."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.engine.lattice import pad_slots
+    from hstream_tpu_torch.engine.sketches import hll_estimate
+
+    spec, _schema, _layout, _progs = session_spec_all()
+    cap = 1 << 12
+    seg = session_seg(dev, spec, 80, cap, 1 << 20, 0)
+    arena = {k: v.clone() for k, v in seg.items()}
+    arena["code"].copy_(torch.arange(cap, dtype=torch.int32, device=dev))
+    rng = np.random.default_rng(81)
+    regs = arena["a6_approx_count_distinct"]
+    fill = torch.from_numpy(rng.random(cap)).to(dev)[:, None]
+    regs.copy_(torch.where(torch.rand(regs.shape, device=dev) < fill,
+                           torch.randint(1, 12, regs.shape, device=dev,
+                                         dtype=torch.int8),
+                           torch.zeros_like(regs)))
+    est = hll_estimate(regs, spec.hll).double()
+    frac = (est - est.floor() - 0.5).abs().cpu().numpy()
+    near = np.argsort(frac)[:64]
+    empty = rng.choice(cap, 64, replace=False)
+    arena["a7_approx_quantile"][torch.from_numpy(empty).to(dev)] = 0
+    arena["a3_avg_n"][::5] = 0
+    pick = np.unique(np.concatenate([near, empty, rng.choice(cap, 700)]))
+    slots = pad_slots(rng.permutation(pick).astype(np.int32))
+    before = sl.session_extract.launches
+    got = sl.session_extract(spec, arena, slots)
+    assert sl.session_extract.launches == before + 1
+    want = sl.session_extract_ref(spec, arena,
+                                  torch.from_numpy(slots).to(dev))
+    torch.cuda.synchronize()
+    assert (slots < 0).any(), "no pad in the slot vector"
+    assert torch.equal(got, want), "session_extract differs"
+    results["session_extract"] = dict(
+        route="cuda",
+        source="hstream_tpu_torch/engine/kernels/csrc/session_extract.cu",
+        replaces="hstream_tpu/engine/lattice.py:1504",
+        max_abs_err=0.0)
+    log(f"session_extract: {len(pick)} slots + {int((slots < 0).sum())} "
+        f"pads, 64 empty histograms, HLL estimates within "
+        f"{float(frac[near].max()):.2g} of .5, +-inf MIN/MAX, AVG n = 0: "
+        f"bit-exact")
+
+
+def check_session_remap(dev, results):
+    """B14: codes below, at and above lcap, the sentinel, a table that
+    evicts (maps to the sentinel)."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    rng = np.random.default_rng(90)
+    cap, lcap = 1 << 12, 1024
+    code = rng.integers(0, 2 * lcap, cap).astype(np.int32)
+    code[::7] = lcap
+    code[::11] = sl.SESSION_SENT_CODE
+    lut = rng.permutation(lcap).astype(np.int32)
+    lut[rng.random(lcap) < 0.2] = sl.SESSION_SENT_CODE
+    a = {"code": torch.from_numpy(code).to(dev)}
+    b = {"code": a["code"].clone()}
+    lut_t = torch.from_numpy(lut).to(dev)
+    before = sl.session_remap.launches
+    sl.session_remap(a, lut_t)
+    assert sl.session_remap.launches == before + 1
+    sl.session_remap_ref(b, lut_t)
+    torch.cuda.synchronize()
+    assert torch.equal(a["code"], b["code"]), "session_remap differs"
+    results["session_remap"] = dict(
+        route="cuda",
+        source="hstream_tpu_torch/engine/kernels/csrc/session_remap.cu",
+        replaces="hstream_tpu/engine/lattice.py:1553",
+        max_abs_err=0.0)
+    log("session_remap: codes below, at and above lcap and the sentinel, "
+        "an evicting table: exact")
+
+
+# ---- phase 7: the session path (BASELINE config 4) --------------------------
+
+SESS_USERS = 100_000
+SESS_BATCHES = 48
+SESS_SEG_BATCHES = 12
+SESS_DRAIN_EVERY = 8
+SESS_PROFILE_BATCHES = 8
+
+
+def session_plan():
+    """bench.py:340-356: SELECT user, APPROX_QUANTILE(lat, 0.5) AS p50,
+    APPROX_QUANTILE(lat, 0.99) AS p99 FROM s GROUP BY user, SESSION(5 s),
+    grace 0."""
+    from hstream_tpu_torch.engine import (
+        AggKind as A, AggregateNode, AggSpec, ColumnType, Schema,
+        SessionWindow, SourceNode)
+    from hstream_tpu_torch.engine.expr import Col
+
+    schema = Schema.of(user=ColumnType.STRING, lat=ColumnType.FLOAT)
+    node = AggregateNode(
+        child=SourceNode("s", schema), group_keys=[Col("user")],
+        window=SessionWindow(SESS_GAP, grace_ms=0),
+        aggs=[AggSpec(A.APPROX_QUANTILE, "p50", input=Col("lat"),
+                      quantile=0.5),
+              AggSpec(A.APPROX_QUANTILE, "p99", input=Col("lat"),
+                      quantile=0.99)])
+    return node, schema
+
+
+class SessionStream:
+    """The session path's stream from a seed: batch b covers stream ms
+    [BASE + 1000 b, + 1000), shuffled; user slot s is active in batch b
+    iff (b + s) mod 16 < 8 and takes a fresh user id with probability
+    3/4 at the start of each on-phase; lat = |normal(50, 20)|."""
+
+    def __init__(self, seed: int, n_batches: int):
+        rng = np.random.default_rng(seed)
+        slots = np.arange(SESS_USERS)
+        ids = slots.copy()
+        nxt = SESS_USERS
+        self.uids, self.ts, self.lats = [], [], []
+        for b in range(n_batches):
+            start = (b + slots) % 16 == 0
+            fresh = start & (rng.random(SESS_USERS) < 0.75) & (b > 0)
+            k = int(fresh.sum())
+            ids[fresh] = np.arange(nxt, nxt + k)
+            nxt += k
+            active = slots[(b + slots) % 16 < 8]
+            self.uids.append(ids[active[rng.integers(0, len(active),
+                                                     BATCH)]])
+            self.ts.append(BASE_TS + 1000 * b
+                           + rng.integers(0, 1000, BATCH))
+            self.lats.append(np.abs(rng.normal(50, 20, BATCH))
+                             .astype(np.float32))
+        self.names = np.char.add("u", np.char.zfill(
+            np.arange(nxt).astype(str), 7))
+
+    def get(self, b: int):
+        return self.ts[b], {"user": self.names[self.uids[b]],
+                            "lat": self.lats[b]}
+
+
+def session_reference(src: SessionStream, n_batches: int, qcfg):
+    """numpy: per user id, records sorted by ts, split where the gap
+    exceeds 5000 ms; a session closes once the watermark (the last
+    batch's max ts) reaches t1 + 10000. Per closed session: the user,
+    t0, t1 and the p50/p99 bucket of its lat values, and whether it holds
+    a value within one float32 ulp of a bin edge."""
+    uid = np.concatenate(src.uids[:n_batches]).astype(np.int64)
+    ts = np.concatenate(src.ts[:n_batches]).astype(np.int64)
+    lat = np.concatenate(src.lats[:n_batches])
+    wm = int(ts.max())
+    order = np.argsort(uid * (1 << 20) + (ts - BASE_TS), kind="stable")
+    u, t = uid[order], ts[order]
+    brk = np.ones(len(u), bool)
+    brk[1:] = (u[1:] != u[:-1]) | (t[1:] - t[:-1] > SESS_GAP)
+    sid = np.cumsum(brk) - 1
+    starts = np.nonzero(brk)[0]
+    ends = np.append(starts[1:], len(u)) - 1
+    t0, t1 = t[starts], t[ends]
+    closed = t1 + 2 * SESS_GAP <= wm
+    bins, edge = np_quantile_bins(lat[order], qcfg)
+    counts = ends - starts + 1
+    srt = np.argsort(sid * qcfg.n_bins + bins, kind="stable")
+    sb = bins[srt]
+    out = {}
+    for q in (0.5, 0.99):
+        target = np.float32(q) * counts.astype(np.float32)
+        k = np.ceil(target.astype(np.float64)).astype(np.int64)
+        out[q] = sb[starts + np.maximum(k, 1) - 1]
+    has_edge = np.bincount(sid[edge], minlength=len(starts)) > 0
+    c = closed
+    return dict(user=src.names[u[starts][c]], t0=t0[c], t1=t1[c],
+                b50=out[0.5][c], b99=out[0.99][c], edge=has_edge[c],
+                open=int((~closed).sum()), wm=wm)
+
+
+def check_session_rows(rows, ref, qcfg) -> dict:
+    """Every emitted row against the reference: the same set of (user,
+    winStart), winEnd = t1 + gap, p50/p99 in the reference's bucket (one
+    bucket apart only for a session holding a bin-edge value)."""
+    n = len(ref["user"])
+    assert len(rows) == n, f"session rows: {len(rows)} != {n}"
+    users = np.array([r["user"] for r in rows])
+    w0 = np.array([r["winStart"] for r in rows], np.int64)
+    w1 = np.array([r["winEnd"] for r in rows], np.int64)
+    got = np.lexsort((w0, users))
+    want = np.lexsort((ref["t0"], ref["user"]))
+    assert (users[got] == ref["user"][want]).all(), "session users differ"
+    assert (w0[got] == ref["t0"][want]).all(), "winStart differs"
+    assert (w1[got] == ref["t1"][want] + SESS_GAP).all(), "winEnd differs"
+    mids = np_quantile_estimate(
+        np.eye(qcfg.n_bins, dtype=np.int64), 1.0, qcfg)[0]
+    m1 = mids[1:]                        # increasing
+    off = 0
+    for name, key in (("p50", "b50"), ("p99", "b99")):
+        v = np.array([r[name] for r in rows], np.float32)[got]
+        pos = np.clip(np.searchsorted(m1, v), 1, len(m1) - 1)
+        gidx = np.where(np.abs(m1[pos - 1] - v) <= np.abs(m1[pos] - v),
+                        pos - 1, pos) + 1
+        gidx = np.where(v == 0, 0, gidx)
+        assert (np.abs(v - mids[gidx]) <= 2 * np.spacing(mids[gidx])
+                ).all(), f"{name}: not a bucket midpoint"
+        wb = ref[key][want]
+        bad = gidx != wb
+        if bad.any():
+            assert (np.abs(gidx[bad] - wb[bad]) == 1).all(), \
+                f"{name}: more than one bucket apart"
+            assert ref["edge"][want][bad].all(), \
+                f"{name}: differs away from a bin edge"
+            off += int(bad.sum())
+    return dict(sessions_checked=n, one_bucket_apart=off,
+                sessions_with_edge_values=int(ref["edge"].sum()),
+                still_open=ref["open"])
+
+
+SESS_KERNELS = ("session_step", "session_merge", "session_extract",
+                "session_remap")
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_clone(v) for v in x)
+    return x
+
+
+class _Capture:
+    """A session wrapper called through a hook that keeps a clone of the
+    arguments of its first call made while armed[0] is true (the remap's
+    first call whenever it comes); the fresh `out` arena of the step and
+    the merge is not kept. The wrapper counts its launches through its
+    module name, which names this hook while it is installed, so
+    `launches` reads and writes the wrapper's own count."""
+
+    def __init__(self, name, fn, store, armed):
+        self._name, self._fn, self._store, self._armed = (name, fn, store,
+                                                          armed)
+
+    def __call__(self, *args):
+        name = self._name
+        if name not in self._store and (self._armed[0]
+                                        or name == "session_remap"):
+            self._store[name] = tuple(
+                None if i == 2 and name in ("session_step", "session_merge")
+                else _clone(a) for i, a in enumerate(args))
+        return self._fn(*args)
+
+    @property
+    def launches(self) -> int:
+        return self._fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self._fn.launches = n
+
+
+@contextlib.contextmanager
+def capturing(store: dict, armed: list):
+    """For the block's duration each session wrapper is called through a
+    _Capture hook; the wrappers are restored on exit."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    orig = {n: getattr(sl, n) for n in SESS_KERNELS}
+    for n, fn in orig.items():
+        setattr(sl, n, _Capture(n, fn, store, armed))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(sl, n, fn)
+
+
+def session_run(src, n_batches, mode, captured=None):
+    """Drive the session query through SessionExecutor.process_columnar
+    (deferred close decode, a drain every 8 batches). With a `captured`
+    dict, the arguments of one call of each session kernel over the last
+    4 batches (of the remap, its first) are kept there, so that the
+    kernels can be held against their plain versions at the path's own
+    inputs."""
+    from hstream_tpu_torch.engine import SessionExecutor
+
+    node, schema = session_plan()
+    ex = SessionExecutor(node, schema)
+    ex.defer_close_decode = True
+    ex.device_session_mode = mode
+    rows, fresh = [], []
+    fetches = 0           # one per drain per buffer shape
+    armed = [False]
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with (capturing(captured, armed) if captured is not None
+          else contextlib.nullcontext()):
+        for b in range(n_batches):
+            armed[0] = b >= n_batches - 4
+            ts, cols = src.get(b)
+            t_sub = time.perf_counter()
+            cycles = ex.session_stats["close_cycles"]
+            rows.extend(ex.process_columnar(ts, cols))
+            if (b + 1) % SESS_DRAIN_EVERY == 0 or b == n_batches - 1:
+                fetches += len({tuple(p[3].shape)
+                                for p in ex._pending_closes})
+                rows.extend(ex.drain_closed())
+                if len(fresh) < 4 and \
+                        ex.session_stats["close_cycles"] > cycles:
+                    # freshness: this batch closed sessions; submit to
+                    # rows
+                    fresh.append((time.perf_counter() - t_sub) * 1e3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    assert ex.session_stats["close_fetches"] == fetches, \
+        (ex.session_stats, fetches)
+    return ex, rows, wall, counts, fresh
+
+
+def session_path(dev, results) -> dict:
+    """BASELINE config 4 at full width: 48 x 2^20 records over 100,000
+    user slots in record mode, rows against numpy; then the first 12
+    batches in segment mode (the merge kernel on a path)."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.engine.sketches import QuantileConfig
+
+    qcfg = QuantileConfig()
+    t_gen = time.perf_counter()
+    src = SessionStream(seed=11,
+                        n_batches=SESS_BATCHES + SESS_PROFILE_BATCHES)
+    ref = session_reference(src, SESS_BATCHES, qcfg)
+    ref_seg = session_reference(src, SESS_SEG_BATCHES, qcfg)
+    t_gen = time.perf_counter() - t_gen
+    captured: dict = {}
+    ex, rows, wall, counts, fresh = session_run(src, SESS_BATCHES,
+                                                "record", captured)
+    st = dict(ex.session_stats)
+    assert ex.device_fallbacks == 0, ex.device_fallbacks
+    assert st["batches"] == st["step_dispatches"] == SESS_BATCHES, st
+    assert counts["session_step"] == SESS_BATCHES, counts
+    assert st["close_cycles"] == st["close_dispatches"] == \
+        counts["session_extract"], (st, counts)
+    assert counts["session_remap"] == st["remap_dispatches"] >= 1, \
+        (st, counts)
+    assert counts["session_merge"] == 0, counts
+    for k in ("wire_decode", "scatter_aggregate", "fused_close"):
+        assert counts[k] == 0, counts
+    check = check_session_rows(rows, ref, qcfg)
+    arena_bytes = sum(ex.device_plane_bytes().values())
+    stages = dict(ex.stage_stats)
+    # the same stream's first 12 batches in segment mode
+    exs, rows_s, wall_s, counts_s, _ = session_run(src, SESS_SEG_BATCHES,
+                                                   "segment", captured)
+    assert exs.device_fallbacks == 0
+    assert counts_s["session_merge"] == SESS_SEG_BATCHES >= 1, counts_s
+    assert counts_s["session_step"] == 0, counts_s
+    check_s = check_session_rows(rows_s, ref_seg, qcfg)
+    launches = {k: counts[k] + counts_s[k] for k in counts}
+    prof = profile_session(ex, src)
+    time_session_kernels(dev, results, captured)
+    return dict(config="session (BASELINE 4)",
+                events_per_sec=SESS_BATCHES * BATCH / wall, wall_s=wall,
+                rows=len(rows), check=check, session_stats=st,
+                launches=launches, record_launches=counts,
+                freshness_ms=fresh, arena_bytes=arena_bytes,
+                host_stage_s=stages, transfer_stats=ex.transfer_stats,
+                segment=dict(events_per_sec=SESS_SEG_BATCHES * BATCH
+                             / wall_s, rows=len(rows_s), check=check_s,
+                             session_stats=dict(exs.session_stats),
+                             launches=counts_s),
+                profile=prof, stream_and_reference_s=t_gen)
+
+
+# device events of the session kernels, by stage; the step is the sum of
+# the first six
+_SESSION_EVENTS = {"prep_kernel": "sort", "radix_": "sort",
+                   "scan_": "scan", "init_kernel": "init",
+                   "fold_rows": "fold", "record_scatter": "scatter",
+                   "fixup_kernel": "fixup", "extract_kernel": "extract",
+                   "remap_kernel": "remap", "Memcpy HtoD": "h2d_copy",
+                   "Memcpy DtoH": "d2h_copy"}
+_STEP_STAGES = ("sort", "scan", "init", "fold", "scatter", "fixup")
+
+
+def profile_session(ex, src) -> dict:
+    """The checked record run's executor over the stream's next
+    SESS_PROFILE_BATCHES batches under torch.profiler: device ms per
+    batch by stage, per step and per extract, and the device busy share
+    of the window."""
+    before = dict(ex.session_stats)
+
+    def window():
+        t0 = time.perf_counter()
+        for b in range(SESS_BATCHES, SESS_BATCHES + SESS_PROFILE_BATCHES):
+            ts, cols = src.get(b)
+            ex.process_columnar(ts, cols)
+        ex.drain_closed()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall, devt = profiled(window)
+    per = {}
+    for name, us in devt.items():
+        k = next((v for e, v in _SESSION_EVENTS.items() if e in name),
+                 "other")
+        per[k] = per.get(k, 0.0) + us / 1e3
+    steps = ex.session_stats["step_dispatches"] - before["step_dispatches"]
+    extracts = (ex.session_stats["close_dispatches"]
+                - before["close_dispatches"])
+    return dict(batches=SESS_PROFILE_BATCHES, wall_s=wall,
+                device_ms_per_batch={k: v / SESS_PROFILE_BATCHES
+                                     for k, v in per.items()},
+                step_ms_per_call=sum(per.get(k, 0.0) for k in _STEP_STAGES)
+                / max(steps, 1),
+                extract_ms_per_call=per.get("extract", 0.0)
+                / max(extracts, 1),
+                device_busy_share=sum(devt.values()) / 1e6 / wall)
+
+
+def sort_keys(code: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """The (code, start) keys the session sort orders, as int64."""
+    return (code.long() << 32) | (start.long() + (1 << 31))
+
+
+def stage_ms(fn, iters: int) -> dict:
+    """Device ms per call of fn by stage of the session kernels (their
+    CUDA kernels' names, _SESSION_EVENTS), from torch.profiler."""
+    _, devt = profiled(lambda: [fn() for _ in range(iters)])
+    out: dict[str, float] = {}
+    for name, us in devt.items():
+        k = next((v for e, v in _SESSION_EVENTS.items() if e in name),
+                 "other")
+        out[k] = out.get(k, 0.0) + us / 1e3 / iters
+    return out
+
+
+def _arena_bytes(arena) -> int:
+    return sum(int(v.nbytes) for v in arena.values())
+
+
+def time_session_kernels(dev, results, captured):
+    """Each session kernel on the path's own inputs (one call of each,
+    kept by session_run: a step of the record run's last batches, a
+    close cycle's extract, the compaction's remap, a merge of the
+    segment run's last batches), held against its plain version on them
+    (each into its own output) and timed beside it, its bound and a
+    PyTorch yardstick."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    missing = [k for k in SESS_KERNELS if k not in captured]
+    assert not missing, f"the path made no call of {missing}"
+
+    # step: the path's arena and 2^20-record batch
+    spec, arena, _, packed, inputs, gap, close_cut, delta = \
+        captured["session_step"]
+    cap, nb = arena["code"].shape[0], packed.shape[1]
+    err, _want = step_vs_plain(spec, arena, packed, inputs, gap, close_cut,
+                               delta, "session_step at the path's shapes")
+    out = sl.init_session_arena(spec, cap, dev)
+
+    def step():
+        sl.session_step(spec, arena, out, packed, inputs, gap, close_cut,
+                        delta)
+
+    ms, call, srcm = kernel_ms(step, 10)
+    stages = stage_ms(step, 10)
+    plain = kernel_ms(lambda: sl.session_step_ref(
+        spec, arena, out, packed, inputs, gap, close_cut, delta), 2)[0]
+    m = cap + nb
+    keys = torch.cat([sort_keys(arena["code"], arena["t0"]),
+                      sort_keys(packed[0], packed[1])])
+    lib = kernel_ms(lambda: torch.sort(keys), 10)[0]
+    nbytes = 2 * _arena_bytes(arena) + int(packed.nbytes)
+    b_ms, b_by = bound(nbytes, m)
+    r = results["session_step"]
+    r.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+             library_ms=lib, call_ms=call, ms_source=srcm, cap=cap, nb=nb,
+             stages_ms=stages, path_max_abs_err=err)
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    log(f"session_step at the path's cap {cap}, {nb} records, close_cut "
+        f"{close_cut}, delta {delta}: kernel and plain agree (SUM/AVG max "
+        f"err {err:.3g}); {ms:.4f} ms (plain {plain:.4f}, torch.sort of "
+        f"{m} keys {lib:.4f}, bound {b_ms:.4f} by {b_by}; by stage "
+        f"{json.dumps(stages)})")
+    del out, _want
+
+    # merge: the segment run's arena and one batch's segments
+    sspec, sarena, _, seg, gap, close_cut, delta = captured["session_merge"]
+    scap, ns = sarena["code"].shape[0], seg["code"].shape[0]
+    err, _want = merge_vs_plain(sspec, sarena, seg, gap, close_cut, delta,
+                                "session_merge at the path's shapes")
+    sout = sl.init_session_arena(sspec, scap, dev)
+
+    def merge():
+        sl.session_merge(sspec, sarena, sout, seg, gap, close_cut, delta)
+
+    ms, call, srcm = kernel_ms(merge, 10)
+    stages = stage_ms(merge, 10)
+    plain = kernel_ms(lambda: sl.session_merge_ref(
+        sspec, sarena, sout, seg, gap, close_cut, delta), 2)[0]
+    mkeys = torch.cat([sort_keys(sarena["code"], sarena["t0"]),
+                       sort_keys(seg["code"], seg["t0"])])
+    lib = kernel_ms(lambda: torch.sort(mkeys), 10)[0]
+    nbytes = 2 * _arena_bytes(sarena) + _arena_bytes(seg)
+    b_ms, b_by = bound(nbytes, scap + ns)
+    r = results["session_merge"]
+    r.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+             library_ms=lib, call_ms=call, ms_source=srcm, cap=scap,
+             nseg=ns, stages_ms=stages, path_max_abs_err=err)
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    log(f"session_merge at the path's cap {scap}, {ns} segments, "
+        f"close_cut {close_cut}, delta {delta}: kernel and plain agree "
+        f"(SUM/AVG max err {err:.3g}); {ms:.4f} ms (plain {plain:.4f}, "
+        f"torch.sort {lib:.4f}, bound {b_ms:.4f} by {b_by}; by stage "
+        f"{json.dumps(stages)})")
+    del sout, _want
+
+    # extract: a close cycle's slots of the path's arena
+    spec, earena, slots = captured["session_extract"]
+    ecap = earena["code"].shape[0]
+    n_sel = int((slots >= 0).sum())
+    got = sl.session_extract(spec, earena, slots)
+    slots_t = torch.from_numpy(slots).to(dev)
+    want = sl.session_extract_ref(spec, earena, slots_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), \
+        "session_extract differs at the path's shapes"
+    ms, call, srcm = kernel_ms(lambda: sl.session_extract(spec, earena,
+                                                          slots), 30)
+    plain = kernel_ms(lambda: sl.session_extract_ref(spec, earena,
+                                                     slots_t), 5)[0]
+    per_slot = _arena_bytes(earena) // ecap
+    nbytes = n_sel * per_slot + slots.nbytes \
+        + (1 + len(spec.aggs)) * len(slots) * 4
+    b_ms, b_by = bound(nbytes, n_sel * 2 * spec.qcfg.n_bins)
+    results["session_extract"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, call_ms=call, ms_source=srcm, slots=n_sel,
+        padded=len(slots))
+    log(f"session_extract of the path's {n_sel} closing slots (padded "
+        f"{len(slots)}) at cap {ecap}: bit-exact against plain; "
+        f"{ms:.4f} ms (plain {plain:.4f}, bound {b_ms:.5f} by {b_by})")
+    del earena, got, want
+
+    # remap: the compaction's code plane and table
+    rarena, lut = captured["session_remap"]
+    rcap, lcap = rarena["code"].shape[0], lut.shape[0]
+    a, b = {"code": rarena["code"].clone()}, {"code": rarena["code"].clone()}
+    sl.session_remap(a, lut)
+    sl.session_remap_ref(b, lut)
+    torch.cuda.synchronize()
+    assert torch.equal(a["code"], b["code"]), \
+        "session_remap differs at the path's shapes"
+    code_arena = {"code": rarena["code"].clone()}
+    ms, call, srcm = kernel_ms(lambda: sl.session_remap(code_arena, lut),
+                               100)
+    plain = kernel_ms(lambda: sl.session_remap_ref(code_arena, lut), 20)[0]
+    code = code_arena["code"]
+    lib = kernel_ms(lambda: lut[code.clamp(0, lcap - 1).long()], 20)[0]
+    b_ms, b_by = bound(3 * rcap * 4, rcap)
+    results["session_remap"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib, call_ms=call, ms_source=srcm, cap=rcap, lcap=lcap)
+    log(f"session_remap of the path's cap {rcap} codes through its lcap "
+        f"{lcap} table: exact against plain; {ms:.4f} ms (plain "
+        f"{plain:.4f}, indexing {lib:.4f}, bound {b_ms:.6f})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1519,6 +2407,7 @@ def main() -> int:
             log("  " + line.strip())
 
     results: dict[str, dict] = {}
+    paths = []
     head = headline_batch(dev, make_spec(1))
     check_decode(dev, results, head)
     states = check_scatter(dev, results, head)
@@ -1531,16 +2420,19 @@ def main() -> int:
     check_touched(dev, results, k2_state, chg)
     time_reset_close(dev, results, chg)
     time_changelog_step(dev, results, chg)
+    check_session_step(dev, results)
+    check_session_merge(dev, results)
+    check_session_extract(dev, results)
+    check_session_remap(dev, results)
 
-    paths = []
     for cfg in (1, 2):
         r = main_path(cfg, dev)
         paths.append(r)
-        log(f"main path config {cfg}: {r['events_per_sec']:.0f} events/s "
-            f"over {MAIN_BATCHES} x 2^20 records, close latency median "
-            f"{r['close_latency_ms_median']:.2f} ms "
-            f"({', '.join(f'{x:.2f}' for x in r['close_latency_ms'])}), "
-            f"{r['windows_checked']} windows checked, launches "
+        log(f"main path config {cfg}: {r['events_per_sec']:.0f} "
+            f"events/s over {MAIN_BATCHES} x 2^20 records, close "
+            f"latency median {r['close_latency_ms_median']:.2f} ms "
+            f"({', '.join(f'{x:.2f}' for x in r['close_latency_ms'])}"
+            f"), {r['windows_checked']} windows checked, launches "
             f"{r['launches']}, close_stats {r['close_stats']}, host "
             f"stages {json.dumps(r['pipeline_stages'])} [{card}]")
 
@@ -1561,6 +2453,22 @@ def main() -> int:
         f"{sum(per_batch.values()):.4f}), host stages "
         f"{json.dumps(r['pipeline_stages'])}; profiled window "
         f"{json.dumps(r['profile'])} [{card}]")
+
+    r = session_path(dev, results)
+    paths.append(r)
+    log(f"session path (BASELINE 4): {r['events_per_sec']:.0f} events/s "
+        f"over {SESS_BATCHES} x 2^20 records, {r['rows']} sessions "
+        f"checked {json.dumps(r['check'])}, close freshness ms "
+        f"{[round(x, 2) for x in r['freshness_ms']]}, step "
+        f"{r['profile']['step_ms_per_call']:.4f} ms and extract "
+        f"{r['profile']['extract_ms_per_call']:.4f} ms device per call, "
+        f"device busy {r['profile']['device_busy_share']:.4f} over "
+        f"{SESS_PROFILE_BATCHES} batches, arena bytes {r['arena_bytes']}, "
+        f"session_stats {r['session_stats']}, host stage s "
+        f"{json.dumps(r['host_stage_s'])}; segment run "
+        f"{r['segment']['events_per_sec']:.0f} events/s over "
+        f"{SESS_SEG_BATCHES} batches, {r['segment']['rows']} sessions "
+        f"checked, launches {r['segment']['launches']} [{card}]")
 
     kernels = []
     for name, r in results.items():

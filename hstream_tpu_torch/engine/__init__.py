@@ -32,6 +32,7 @@ from hstream_tpu_torch.engine.plan import (
     SinkNode,
 )
 from hstream_tpu_torch.engine.executor import QueryExecutor
+from hstream_tpu_torch.engine.session import SessionExecutor
 from hstream_tpu_torch.engine.pipeline import IngestPipeline
 from hstream_tpu_torch.engine.stateless import StatelessExecutor
 from hstream_tpu_torch.engine.statestore import (
@@ -56,6 +57,7 @@ __all__ = [
     "JoinNode",
     "SinkNode",
     "QueryExecutor",
+    "SessionExecutor",
     "IngestPipeline",
     "StatelessExecutor",
     "TimestampedKVStore",

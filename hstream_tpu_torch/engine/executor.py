@@ -27,9 +27,10 @@ streams; a NULL in a WHERE column clears the record's valid bit on the
 host. Entry points run on the card unless the caller passes
 device="cpu", which runs the plain PyTorch versions.
 
-Session windows raise NotPortedError (ROADMAP A7). The reference's
-degrade path after a failed fused close (per-slot reference close) is
-not ported: a failed launch raises.
+Session windows run in engine/session.py's SessionExecutor; this
+executor refuses them as the reference does. The reference's degrade
+path after a failed fused close (per-slot reference close) is not
+ported: a failed launch raises.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ import torch
 
 from hstream_tpu_torch import device as devmod
 from hstream_tpu_torch.common.columnar import ColumnarEmit, extend_rows
-from hstream_tpu_torch.common.errors import NotPortedError, SQLCodegenError
+from hstream_tpu_torch.common.errors import SQLCodegenError
 from hstream_tpu_torch.engine import lattice, transport
 from hstream_tpu_torch.engine.expr import (
     BinOp,
@@ -155,7 +156,7 @@ class QueryExecutor:
         device: str | torch.device | None = None,
     ):
         if isinstance(node.window, SessionWindow):
-            raise NotPortedError("session windows", "A7")
+            raise SQLCodegenError("session windows use SessionExecutor")
         self.device = devmod.resolve(device)
         self.node = node
         self.schema = schema

@@ -114,6 +114,39 @@ class TouchedArgs(C.Structure):
                 ("f", Finalize)]
 
 
+SESSION_SENT = 1 << 22
+SESS_RECORD, SESS_SEGMENT = range(2)  # session fold modes
+
+
+class SessPlane(C.Structure):
+    _fields_ = [("kind", C.c_int32), ("width", C.c_int32),
+                ("src", C.c_void_p), ("src_n", C.c_void_p),
+                ("out", C.c_void_p), ("out_n", C.c_void_p),
+                ("seg", C.c_void_p), ("seg_n", C.c_void_p),
+                ("vtype", C.c_int32), ("null_bit", C.c_int32),
+                ("values", C.c_void_p)]
+
+
+class SessionArgs(C.Structure):
+    _fields_ = [("cap", C.c_int32), ("nb", C.c_int32), ("mode", C.c_int32),
+                ("gap", C.c_int32), ("close_cut", C.c_int32),
+                ("delta", C.c_int32), ("hll_p", C.c_int32),
+                ("q_min", C.c_float), ("q_gamma", C.c_float),
+                ("code", C.c_void_p), ("t0", C.c_void_p),
+                ("t1", C.c_void_p), ("b_code", C.c_void_p),
+                ("b_t0", C.c_void_p), ("b_t1", C.c_void_p),
+                ("b_flags", C.c_void_p), ("out_code", C.c_void_p),
+                ("out_t0", C.c_void_p), ("out_t1", C.c_void_p),
+                ("scratch", C.c_void_p), ("n_planes", C.c_int32),
+                ("p", SessPlane * MAX_AGGS)]
+
+
+class SessExtractArgs(C.Structure):
+    _fields_ = [("cap", C.c_int32), ("n_sel", C.c_int32),
+                ("slots", C.c_void_p), ("code", C.c_void_p),
+                ("out", C.c_void_p), ("f", Finalize)]
+
+
 _lock = threading.Lock()
 _lib: C.CDLL | None = None
 
@@ -131,12 +164,22 @@ def lib() -> C.CDLL:
                              ("hs_scatter", [C.POINTER(ScatterArgs)]),
                              ("hs_topk", [C.POINTER(ScatterArgs)]),
                              ("hs_close", [C.POINTER(CloseArgs)]),
-                             ("hs_touched", [C.POINTER(TouchedArgs)])):
+                             ("hs_touched", [C.POINTER(TouchedArgs)]),
+                             ("hs_session_step", [C.POINTER(SessionArgs)]),
+                             ("hs_session_merge", [C.POINTER(SessionArgs)]),
+                             ("hs_session_extract",
+                              [C.POINTER(SessExtractArgs)])):
                 getattr(dll, fn).argtypes = args + [C.c_void_p]
                 getattr(dll, fn).restype = C.c_int
             dll.hs_rebase.argtypes = [C.c_void_p, C.c_int32, C.c_int32,
                                       C.c_void_p]
             dll.hs_rebase.restype = C.c_int
+            dll.hs_session_remap.argtypes = [C.c_void_p, C.c_int32,
+                                             C.c_void_p, C.c_int32,
+                                             C.c_void_p]
+            dll.hs_session_remap.restype = C.c_int
+            dll.hs_session_scratch_bytes.argtypes = [C.c_int32, C.c_int32]
+            dll.hs_session_scratch_bytes.restype = C.c_int64
             dll.hs_touched_blocks.argtypes = [C.c_int32]
             dll.hs_touched_blocks.restype = C.c_int
             dll.hs_error_string.argtypes = [C.c_int]

@@ -26,8 +26,10 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = ("decode.cu", "expr.cu", "scatter.cu", "topk.cu", "close.cu",
-           "touched.cu", "rebase.cu")
-HEADERS = ("hs_kernels.h", "record.cuh", "finalize.cuh")
+           "touched.cu", "rebase.cu", "session_step.cu", "session_merge.cu",
+           "session_extract.cu", "session_remap.cu")
+HEADERS = ("hs_kernels.h", "record.cuh", "finalize.cuh",
+           "session_chain.cuh")
 # sm_90a: Hopper. --fmad=false: no multiply-add contraction anywhere, so
 # the dec decode and the finalize arithmetic round exactly like the
 # plain PyTorch versions.

@@ -72,10 +72,11 @@ __device__ inline float hll_warp(const HsFinalize &f, const HsCloseAgg &g,
     return use_lin ? lin : raw;
 }
 
-// q-quantile of an int32 histogram [bins]; the result on every lane
+// q-quantile of an int32 histogram [bins]; the result on every lane,
+// and the histogram's total in *total_out where that is given
 __device__ inline float quant_warp(const HsFinalize &f,
                                    const HsCloseAgg &g, int64_t cell,
-                                   int lane) {
+                                   int lane, long long *total_out = nullptr) {
     const int bins = g.plane_width;
     const int32_t *h = (const int32_t *)g.plane + cell * bins;
     const int per = (bins + 31) / 32;
@@ -88,6 +89,7 @@ __device__ inline float quant_warp(const HsFinalize &f,
         if (lane >= d) incl += t;
     }
     const long long total = __shfl_sync(0xFFFFFFFFu, incl, 31);
+    if (total_out != nullptr) *total_out = total;
     const float target = __fmul_rn(g.q, fmaxf(__ll2float_rn(total), 1.0f));
     long long cdf = incl - own;
     int below = 0;

@@ -185,6 +185,64 @@ struct HsTouchedArgs {
     HsFinalize f;
 };
 
+// ---- session windows (session_chain.cuh and the four session_*.cu) -----
+
+#define HS_SESSION_SENT (1 << 22)      // code of an empty or evicted slot
+#define HS_SESSION_NEG (-(1 << 30))    // the scan's "minus infinity"
+
+// one arena plane: the fold of the step (record mode) and the merge
+// (segment mode) updates it from the old arena's rows and from the
+// batch's records or segments
+struct HsSessPlane {
+    int32_t kind;          // HS_AGG_* of the aggregate that owns it
+    int32_t width;         // values per slot: 1, m (HLL) or bins (QUANT)
+    const void *src;       // old arena [cap, width]: i32 / f32 / int8
+    const int32_t *src_n;  // AVG: the old arena's _n plane, else NULL
+    void *out;             // fresh arena [cap, width]
+    int32_t *out_n;        // AVG
+    const void *seg;       // segment mode: the segments' plane [nb, width]
+    const int32_t *seg_n;  // segment mode, AVG
+    int32_t vtype;         // record mode: HS_T_* of `values`
+    int32_t null_bit;      // record mode: flag bit of its NULL mask, 0 none
+    const void *values;    // record mode: the input column [nb]
+};
+
+enum { HS_SESS_RECORD = 0, HS_SESS_SEGMENT = 1 };
+
+struct HsSessionArgs {
+    int32_t cap;           // arena slots
+    int32_t nb;            // batch records (record mode) or segments
+    int32_t mode;          // HS_SESS_*
+    int32_t gap;           // ms
+    int32_t close_cut;     // retire arena entries with t1 <= close_cut
+    int32_t delta;         // then shift live arena times by -delta
+    int32_t hll_p;
+    float q_min;           // float32(min_value)
+    float q_gamma;         // float32(gamma_log)
+    const int32_t *code;   // old arena [cap]
+    const int32_t *t0;
+    const int32_t *t1;
+    const int32_t *b_code; // record: packed rows 0 (codes), 1 (ts), 1,
+    const int32_t *b_t0;   // 2 (flags); segment: the segments' code, t0,
+    const int32_t *b_t1;   // t1 and NULL
+    const int32_t *b_flags;
+    int32_t *out_code;     // fresh arena [cap]
+    int32_t *out_t0;
+    int32_t *out_t1;
+    void *scratch;         // hs_session_scratch_bytes(cap, nb) bytes
+    int32_t n_planes;
+    HsSessPlane p[HS_MAX_AGGS];
+};
+
+struct HsSessExtractArgs {
+    int32_t cap;
+    int32_t n_sel;         // P, the padded slot vector's length
+    const int32_t *slots;  // [P], < 0 = padding
+    const int32_t *code;   // arena [cap]
+    int32_t *out;          // [1 + n_aggs, P]
+    HsFinalize f;          // a[g].plane: the arena plane agg g reads
+};
+
 extern "C" {
 int hs_decode(const HsDecodeArgs *args, void *stream);
 int hs_expr(const HsExprArgs *args, void *stream);
@@ -195,5 +253,11 @@ int hs_touched(const HsTouchedArgs *args, void *stream);
 int hs_touched_blocks(int32_t n_cells);
 int hs_rebase(int32_t *slot_start, int32_t n_slots, int32_t delta,
               void *stream);
+int64_t hs_session_scratch_bytes(int32_t cap, int32_t nb);
+int hs_session_step(const HsSessionArgs *args, void *stream);
+int hs_session_merge(const HsSessionArgs *args, void *stream);
+int hs_session_extract(const HsSessExtractArgs *args, void *stream);
+int hs_session_remap(int32_t *code, int32_t cap, const int32_t *lut,
+                     int32_t lcap, void *stream);
 const char *hs_error_string(int err);
 }

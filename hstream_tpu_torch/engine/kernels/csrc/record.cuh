@@ -9,6 +9,14 @@
 //  * keys outside [0, K) are dropped;
 //  * an input counts for its aggregate only when it is not SQL NULL and,
 //    for a float32 input, finite (lattice.py:213-222).
+// Also the update primitives the scatter (scatter.cu) and the session
+// fold (session_chain.cuh, session_step.cu) share: there is no float
+// atomic min/max, so MIN/MAX use the sign-split integer trick
+// (non-negative floats order like signed ints, negative ones in reverse
+// like unsigned ints), which keeps them exact; there is no int8 atomic,
+// so an HLL register is raised with a CAS on its aligned 32-bit word;
+// the HLL hash (sketches.py:35-86) and the quantile bin
+// (sketches.py:130-139).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,6 +73,67 @@ __device__ __forceinline__ bool agg_input(const HsScatterAgg &ag, int i,
     bits = ((const uint8_t *)ag.values)[i] ? 1u : 0u;
     v = (float)bits;
     return true;
+}
+
+__device__ __forceinline__ void atomic_min_float(float *addr, float v) {
+    if (__float_as_int(v) >= 0)
+        atomicMin((int *)addr, __float_as_int(v));
+    else
+        atomicMax((unsigned int *)addr, __float_as_uint(v));
+}
+
+__device__ __forceinline__ void atomic_max_float(float *addr, float v) {
+    if (__float_as_int(v) >= 0)
+        atomicMax((int *)addr, __float_as_int(v));
+    else
+        atomicMin((unsigned int *)addr, __float_as_uint(v));
+}
+
+// raise one int8 register to `rank` with a CAS on its aligned word
+__device__ __forceinline__ void atomic_max_i8(int8_t *addr, int rank) {
+    uintptr_t p = (uintptr_t)addr;
+    unsigned int *word = (unsigned int *)(p & ~(uintptr_t)3);
+    int shift = (int)(p & 3) * 8;
+    unsigned int old = *(volatile unsigned int *)word;
+    while (true) {
+        int cur = (int)(int8_t)((old >> shift) & 0xFFu);
+        if (cur >= rank) return;
+        unsigned int nw = (old & ~(0xFFu << shift)) |
+                          ((unsigned int)(rank & 0xFF) << shift);
+        unsigned int seen = atomicCAS(word, old, nw);
+        if (seen == old) return;
+        old = seen;
+    }
+}
+
+__device__ __forceinline__ uint32_t mix32(uint32_t h) {
+    h ^= h >> 16;
+    h *= 0x85EBCA6Bu;
+    h ^= h >> 13;
+    h *= 0xC2B2AE35u;
+    h ^= h >> 16;
+    return h;
+}
+
+// raise the register the 32-bit value `bits` hashes to in one HLL
+// register set [2^p] (sketches.py:62-86 hll_update_indices)
+__device__ __forceinline__ void hll_update(int8_t *regs, uint32_t bits,
+                                           int p) {
+    uint32_t h = mix32(bits);
+    uint32_t reg = h >> (32 - p);
+    uint32_t rest = h << p;
+    int rank = min(__clz((int)rest) + 1, 33 - p);
+    atomic_max_i8(regs + reg, rank);
+}
+
+// sketches.py:130-139 quantile_bin
+__device__ __forceinline__ int quantile_bin(float x, float qmin, float gamma,
+                                            int bins) {
+    float v = fmaxf(x, 0.0f);
+    float safe = fmaxf(v, qmin);
+    float b = floorf(__fdiv_rn(logf(__fdiv_rn(safe, qmin)), gamma));
+    int bi = min(max((int)b + 1, 1), bins - 1);
+    return v < qmin ? 0 : bi;
 }
 
 }  // namespace hs

@@ -15,7 +15,8 @@
 // are far below the card's operation rate.
 //
 // Design: one thread per (record, window), with the reference's window,
-// late, key-range and input-validity semantics (record.cuh).
+// late, key-range and input-validity semantics and the update
+// primitives below (record.cuh).
 // APPROX_QUANTILE bins a value as the reference does, one float32
 // operation at a time (max(v, 0), max(., min), / min, logf, / gamma,
 // floor, +1, clip; values below min_value go to bin 0) and adds 1 to its
@@ -41,56 +42,6 @@ namespace {
 
 constexpr int kBlock = 256;
 constexpr int kSmemSlots = 1024;
-
-__device__ __forceinline__ void atomic_min_float(float *addr, float v) {
-    if (__float_as_int(v) >= 0)
-        atomicMin((int *)addr, __float_as_int(v));
-    else
-        atomicMax((unsigned int *)addr, __float_as_uint(v));
-}
-
-__device__ __forceinline__ void atomic_max_float(float *addr, float v) {
-    if (__float_as_int(v) >= 0)
-        atomicMax((int *)addr, __float_as_int(v));
-    else
-        atomicMin((unsigned int *)addr, __float_as_uint(v));
-}
-
-// raise one int8 register to `rank` with a CAS on its aligned word
-__device__ __forceinline__ void atomic_max_i8(int8_t *addr, int rank) {
-    uintptr_t p = (uintptr_t)addr;
-    unsigned int *word = (unsigned int *)(p & ~(uintptr_t)3);
-    int shift = (int)(p & 3) * 8;
-    unsigned int old = *(volatile unsigned int *)word;
-    while (true) {
-        int cur = (int)(int8_t)((old >> shift) & 0xFFu);
-        if (cur >= rank) return;
-        unsigned int nw = (old & ~(0xFFu << shift)) |
-                          ((unsigned int)(rank & 0xFF) << shift);
-        unsigned int seen = atomicCAS(word, old, nw);
-        if (seen == old) return;
-        old = seen;
-    }
-}
-
-__device__ __forceinline__ uint32_t mix32(uint32_t h) {
-    h ^= h >> 16;
-    h *= 0x85EBCA6Bu;
-    h ^= h >> 13;
-    h *= 0xC2B2AE35u;
-    h ^= h >> 16;
-    return h;
-}
-
-// sketches.py:130-139 quantile_bin
-__device__ __forceinline__ int quantile_bin(float x, float qmin, float gamma,
-                                            int bins) {
-    float v = fmaxf(x, 0.0f);
-    float safe = fmaxf(v, qmin);
-    float b = floorf(__fdiv_rn(logf(__fdiv_rn(safe, qmin)), gamma));
-    int bi = min(max((int)b + 1, 1), bins - 1);
-    return v < qmin ? 0 : bi;
-}
 
 __global__ void __launch_bounds__(kBlock)
 scatter_kernel(const __grid_constant__ HsScatterArgs a, int use_smem) {
@@ -133,23 +84,18 @@ scatter_kernel(const __grid_constant__ HsScatterArgs a, int use_smem) {
                         atomicAdd(ag.plane_n + cell, 1);
                         break;
                     case HS_AGG_MIN:
-                        atomic_min_float((float *)ag.plane + cell, v);
+                        hs::atomic_min_float((float *)ag.plane + cell, v);
                         break;
                     case HS_AGG_MAX:
-                        atomic_max_float((float *)ag.plane + cell, v);
+                        hs::atomic_max_float((float *)ag.plane + cell, v);
                         break;
-                    case HS_AGG_HLL: {
-                        uint32_t h = mix32(bits);
-                        int p = a.hll_p;
-                        uint32_t reg = h >> (32 - p);
-                        uint32_t rest = h << p;
-                        int rank = min(__clz((int)rest) + 1, 33 - p);
-                        int8_t *regs = (int8_t *)ag.plane + (cell << p);
-                        atomic_max_i8(regs + reg, rank);
+                    case HS_AGG_HLL:
+                        hs::hll_update((int8_t *)ag.plane + (cell << a.hll_p),
+                                       bits, a.hll_p);
                         break;
-                    }
                     case HS_AGG_QUANT: {
-                        int b = quantile_bin(v, a.q_min, a.q_gamma, ag.width);
+                        int b = hs::quantile_bin(v, a.q_min, a.q_gamma,
+                                                 ag.width);
                         atomicAdd((int32_t *)ag.plane + cell * ag.width + b,
                                   1);
                         break;

@@ -5,8 +5,9 @@ The port imports torch and numpy, never jax and nothing of hstream_tpu
 unless the caller asks for the CPU: without a card, an entry point that
 was not given device="cpu" raises instead of carrying on on the CPU.
 Plan features whose port has not landed raise NotPortedError naming
-their ROADMAP item (session windows, A7); the ones that landed give the
-JAX executor's rows.
+their ROADMAP item; the ones that landed give the JAX executor's rows,
+and a session window is refused by QueryExecutor as the reference
+refuses it (SessionExecutor runs it).
 """
 
 from __future__ import annotations
@@ -21,7 +22,11 @@ import numpy as np
 import pytest
 import torch
 
-from hstream_tpu_torch.common.errors import DeviceUnavailable, NotPortedError
+from hstream_tpu_torch.common.errors import (
+    DeviceUnavailable,
+    NotPortedError,
+    SQLCodegenError,
+)
 from hstream_tpu_torch import device as devmod
 from hstream_tpu_torch.engine import (
     AggKind,
@@ -30,6 +35,7 @@ from hstream_tpu_torch.engine import (
     ColumnType,
     QueryExecutor,
     Schema,
+    SessionExecutor,
     SessionWindow,
     SourceNode,
     TumblingWindow,
@@ -173,11 +179,18 @@ def test_unported_plan_features_name_their_roadmap_item(feature):
 
 
 def test_session_windows_and_null_inputs_are_not_ported():
-    """Session windows still raise (A7); NULL aggregate inputs, once
-    refused (A6), now match the JAX executor's rows."""
-    with pytest.raises(NotPortedError, match="A7"):
-        QueryExecutor(_node([COUNT], window=SessionWindow(5_000)), SCHEMA,
-                      device="cpu")
+    """A session window is refused by QueryExecutor as the reference
+    refuses it (it belongs to SessionExecutor, which builds on the CPU;
+    once refused with NotPortedError naming A7); NULL aggregate inputs,
+    once refused (A6), now match the JAX executor's rows."""
+    node = _node([COUNT], window=SessionWindow(5_000))
+    with pytest.raises(SQLCodegenError,
+                       match="session windows use SessionExecutor") as err:
+        QueryExecutor(node, SCHEMA, device="cpu")
+    assert not isinstance(err.value, NotPortedError)
+    sex = SessionExecutor(node, SCHEMA, device="cpu")
+    assert sex.device.type == "cpu"
+    assert list(sex.process([{"device": "a"}], [BASE])) == []
     jex, tex = pair(_recipe(lambda m: [m.AggSpec(
         m.AggKind.SUM, "s", input=m.Col("temp"))]))
     drive(jex, tex, [([{"device": "a"}], [BASE]),

@@ -20,7 +20,14 @@ Phases, each of which asserts (any failure exits non-zero):
    kind, out-of-order records gap and gap + 1 apart, equal starts,
    evicted and retired arena entries, a non-zero delta, NULLs, NaN,
    +-inf and +-0.0; the extract with pads, empty histograms and HLL
-   estimates near .5; the remap with codes at and above the table);
+   estimates near .5; the remap with codes at and above the table), and
+   the join kernels (the probe + merge-insert and the probe alone at a
+   match_cap below and above the total; the fused probe + window step
+   over feed sources m, o, both and both_o with null and present bits
+   on both sides, filter-NULL columns and a WHERE; the two-sided
+   eviction with delta 0, > 0 and < 0; equal (code, ts) runs across
+   store and batch, sentinels that kept their columns, entries below the
+   cutoff, negative times, n = 0; the remap kernel's sentinel flag);
 4. main path, config 1 (BASELINE 1/3): COUNT(*), SUM(temp),
    APPROX_COUNT_DISTINCT(temp) GROUP BY device, TUMBLE(10s) over 1000
    keys, 2^20-record batches through IngestPipeline past two window
@@ -49,7 +56,20 @@ Phases, each of which asserts (any failure exits non-zero):
    the first 12 batches in segment mode (the merge kernel); a profiled
    window of 8 more batches; each session kernel timed at the path's
    shapes;
-8. a {"kernels": [...]} line (each kernel's launches on the main paths,
+8. the join path, BASELINE config 5 (bench.py:453-567): SELECT l.k,
+   COUNT(*) FROM l INNER JOIN r WITHIN (1 s) ON l.k = r.k GROUP BY l.k,
+   TUMBLING (10 s) EMIT CHANGES through JoinExecutor.process_columnar
+   with bench.py's knobs, 14 warm-up and 20 timed batches of 2^20
+   records over 512,000 keys (sides alternating, 500 ms of stream each);
+   every final change per (key, window) against a numpy count of the
+   pairs, the launch contract (one fused probe wrapper call per device
+   batch, no match fetch, an eviction, the device path kept); freshness
+   samples and a profiled window of 8 batches; then (8b) the match-fetch
+   path, SUM(l.x) over WITHIN 10 s and TUMBLE(1 s) at 2^16-record
+   batches, match buffers fetched stacked; and each join kernel held
+   against its plain version on one call kept from these paths and
+   timed there;
+9. a {"kernels": [...]} line (each kernel's launches on the main paths,
    its error against the plain version and its times), the card line,
    and last {"ok": true, "device": {...}}.
 
@@ -65,8 +85,11 @@ within one float32 ulp of a bin edge (numpy's log is not the card's);
 the run reports how many; the session path's p50/p99 likewise. The
 session kernels' code, t0, t1, integer planes, HLL registers, histograms
 and extract rows are exact, MIN/MAX by value, SUM/AVG within the same
-order bound per slot (n the terms folded into it). Details go to
-smoke_out/chip_smoke.json.
+order bound per slot (n the terms folded into it). The join kernels'
+match buffers, stores and live counts are exact, and so are the fused
+step's state planes (its phase-3 inputs are multiples of 1/4, its path
+holds counts only); the join paths' counts are exact, 8b's SUM within
+the order bound. Details go to smoke_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -173,6 +196,7 @@ def card_line() -> str:
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose .launches counts its launches."""
     from hstream_tpu_torch.engine import expr, lattice, transport
+    from hstream_tpu_torch.engine import join_lattice as jl
     from hstream_tpu_torch.engine import session_lattice as sl
 
     return {"wire_decode": transport.decode_batch,
@@ -186,7 +210,11 @@ def _wrappers() -> dict:
             "session_step": sl.session_step,
             "session_merge": sl.session_merge,
             "session_extract": sl.session_extract,
-            "session_remap": sl.session_remap}
+            "session_remap": sl.session_remap,
+            "join_probe_insert": jl.join_probe_insert,
+            "join_probe_only": jl.join_probe_only,
+            "join_probe_step": jl.join_probe_insert_step,
+            "join_evict": jl.join_evict}
 
 
 def launch_counts() -> dict[str, int]:
@@ -2051,25 +2079,27 @@ def _clone(x):
 
 
 class _Capture:
-    """A session wrapper called through a hook that keeps a clone of the
-    arguments of its first call made while armed[0] is true (the remap's
-    first call whenever it comes); the fresh `out` arena of the step and
-    the merge is not kept. The wrapper counts its launches through its
-    module name, which names this hook while it is installed, so
-    `launches` reads and writes the wrapper's own count."""
+    """A kernel wrapper called through a hook that keeps a clone of the
+    positional arguments of its first call made while armed[0] is true
+    (or, for the wrapper named `always`, its first call whenever it
+    comes); the positions in `drop` (a fresh output) are kept as None,
+    keyword arguments (an `out` store) not at all. The wrapper counts its
+    launches through its module name, which names this hook while it is
+    installed, so `launches` reads and writes the wrapper's own count."""
 
-    def __init__(self, name, fn, store, armed):
+    def __init__(self, name, fn, store, armed, always: str, drop=()):
         self._name, self._fn, self._store, self._armed = (name, fn, store,
                                                           armed)
+        self._always, self._drop = always, drop
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
         name = self._name
         if name not in self._store and (self._armed[0]
-                                        or name == "session_remap"):
+                                        or name == self._always):
             self._store[name] = tuple(
-                None if i == 2 and name in ("session_step", "session_merge")
-                else _clone(a) for i, a in enumerate(args))
-        return self._fn(*args)
+                None if i in self._drop else _clone(a)
+                for i, a in enumerate(args))
+        return self._fn(*args, **kw)
 
     @property
     def launches(self) -> int:
@@ -2081,19 +2111,25 @@ class _Capture:
 
 
 @contextlib.contextmanager
-def capturing(store: dict, armed: list):
-    """For the block's duration each session wrapper is called through a
-    _Capture hook; the wrappers are restored on exit."""
+def capturing(store: dict, armed: list, joins: bool = False):
+    """For the block's duration each session wrapper (each join wrapper,
+    with `joins`) is called through a _Capture hook; the wrappers are
+    restored on exit. The remap's and the eviction's first calls are
+    kept whenever they come; the step's and merge's fresh arena not."""
+    from hstream_tpu_torch.engine import join_lattice as jl
     from hstream_tpu_torch.engine import session_lattice as sl
 
-    orig = {n: getattr(sl, n) for n in SESS_KERNELS}
+    mod, names, always = ((jl, JOIN_KERNELS, "join_evict") if joins
+                          else (sl, SESS_KERNELS, "session_remap"))
+    orig = {n: getattr(mod, n) for n in names}
     for n, fn in orig.items():
-        setattr(sl, n, _Capture(n, fn, store, armed))
+        drop = (2,) if n in ("session_step", "session_merge") else ()
+        setattr(mod, n, _Capture(n, fn, store, armed, always, drop))
     try:
         yield
     finally:
         for n, fn in orig.items():
-            setattr(sl, n, fn)
+            setattr(mod, n, fn)
 
 
 def session_run(src, n_batches, mode, captured=None):
@@ -2389,6 +2425,841 @@ def time_session_kernels(dev, results, captured):
         f"{plain:.4f}, indexing {lib:.4f}, bound {b_ms:.6f})")
 
 
+# ---- phase 3 (joins): the join kernels against their plain versions -----
+
+JOIN_SENT = 1 << 22
+JOIN_WITHIN = 25
+
+
+def join_values(rng, n_cols: int, n: int) -> np.ndarray:
+    """int32 [n_cols, n] column planes of f32 bits: column 0 multiples of
+    1/4 (a few NaN and inf), column 1 small integers, column 2 0.0 / 1.0,
+    so every float sum is exact in any order."""
+    out = np.zeros((n_cols, n), np.int32)
+    for c in range(n_cols):
+        if c % 3 == 0:
+            v = (rng.integers(-8, 24, n) / 4).astype(np.float32)
+            v[rng.random(n) < 0.03] = np.nan
+            v[rng.random(n) < 0.02] = np.inf
+        elif c % 3 == 1:
+            v = rng.integers(-50, 50, n).astype(np.float32)
+        else:
+            v = rng.integers(0, 2, n).astype(np.float32)
+        out[c] = v.view(np.int32)
+    return out
+
+
+def join_store(dev, rng, cap: int, n_cols: int, n_live: int,
+               codes: int = 6) -> dict:
+    """A sorted store on the card: n_live entries over few codes and a
+    narrow ts range (equal (code, ts) runs, negative relative times),
+    then sentinel slots that keep random flags and columns, as evicted
+    entries do."""
+    code = np.full(cap, JOIN_SENT, np.int32)
+    ts = np.zeros(cap, np.int32)
+    c = rng.integers(0, codes, n_live)
+    t = rng.integers(-60, 120, n_live)
+    o = np.lexsort((t, c))
+    code[:n_live], ts[:n_live] = c[o], t[o]
+    flags = rng.integers(0, 1 << 28, cap).astype(np.int32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in (
+        ("code", code), ("ts", ts), ("flags", flags),
+        ("cols", join_values(rng, n_cols, cap)))}
+
+
+def join_batch(dev, rng, bcap: int, n: int, n_cols: int, codes: int = 6,
+               n_keys: int = 8) -> torch.Tensor:
+    """A batch sorted by (code, ts), padded with (sentinel, 0)."""
+    buf = np.zeros((4 + n_cols, bcap), np.int32)
+    c = rng.integers(0, codes, n)
+    t = rng.integers(-60, 150, n)
+    o = np.lexsort((t, c))
+    buf[0, :n], buf[1, :n] = c[o], t[o]
+    buf[0, n:] = JOIN_SENT
+    buf[2, :n] = rng.integers(0, n_keys, n)
+    buf[3, :n] = rng.integers(0, 1 << 28, n)
+    buf[4:, :n] = join_values(rng, n_cols, n)
+    return torch.from_numpy(buf).to(dev)
+
+
+def stores_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in ("code", "ts", "flags",
+                                                 "cols"))
+
+
+# (cap, bcap, n, n_cols mine, n_cols other, match_cap, cutoff)
+JOIN_CASES = [(64, 16, 10, 3, 3, 256, -(1 << 31)),
+              (64, 16, 16, 3, 3, 8, -(1 << 31)),     # truncated
+              (256, 64, 50, 3, 0, 512, 0),           # dead below cutoff
+              (256, 64, 0, 0, 3, 64, -10),           # n = 0
+              (1 << 16, 5000, 5000, 2, 1, 1 << 20, -30)]
+
+
+def check_join_probe(dev, results):
+    """B15 (probe in pack mode + merge-insert) and B16 (probe only, at a
+    match_cap below the total and then above it), exact."""
+    from hstream_tpu_torch.engine import join_lattice as jl
+
+    for i, (cap, bcap, n, nm, no, mc, cutoff) in enumerate(JOIN_CASES):
+        rng = np.random.default_rng(100 + i)
+        mine = join_store(dev, rng, cap, nm, cap // 3)
+        other = join_store(dev, rng, cap, no, cap // 2)
+        bt = join_batch(dev, rng, bcap, n, nm)
+        want_m, want_p = jl.join_probe_insert_ref(mine, other, bt, n,
+                                                  JOIN_WITHIN, cutoff, mc, nm)
+        before = jl.join_probe_insert.launches
+        got_m, got_p = jl.join_probe_insert(
+            mine, other, bt, n, JOIN_WITHIN, cutoff, mc, nm,
+            out=jl.empty_join_store(cap, nm, dev))
+        torch.cuda.synchronize()
+        assert jl.join_probe_insert.launches == before + 1
+        assert torch.equal(want_p, got_p), f"join probe differs, case {i}"
+        assert stores_equal(want_m, got_m), f"join insert differs, case {i}"
+        assert jl.store_sorted(got_m)
+        total = int(want_p[0, 0])
+        for width in (max(total // 2, 1), max(total, 1) * 2):
+            want = jl.join_probe_ref(other, bt, n, JOIN_WITHIN, cutoff,
+                                     width, nm)
+            got = jl.join_probe_only(other, bt, n, JOIN_WITHIN, cutoff,
+                                     width, nm)
+            torch.cuda.synchronize()
+            assert torch.equal(want, got), f"join probe-only differs, {i}"
+            assert int(got[0, 0]) == total
+    src = "hstream_tpu_torch/engine/kernels/csrc/"
+    results["join_probe_insert"] = dict(
+        route="cuda", source=src + "join_probe.cu",
+        sources=[src + "join_core.cuh", src + "join_probe.cu",
+                 src + "join_insert.cu"],
+        replaces="hstream_tpu/engine/lattice.py:984", max_abs_err=0.0)
+    results["join_probe_only"] = dict(
+        route="cuda", source=src + "join_probe.cu",
+        replaces="hstream_tpu/engine/lattice.py:1001", max_abs_err=0.0)
+    log("join_probe_insert / join_probe_only: equal (code, ts) runs across "
+        "store and batch, sentinels that kept flags and columns, dead "
+        "entries below the cutoff, negative times, n = 0, a match_cap "
+        "below the total (true total in the header) and above it: exact")
+
+
+def join_inner(dev, where: bool):
+    """An inner window executor on the card over the joined columns a, b,
+    c: COUNT(*), SUM(a), MIN(b), MAX(c), COUNT(c) by k over TUMBLE(100
+    ms), WHERE a > 0 optionally (the expression kernel)."""
+    from hstream_tpu_torch.engine import (AggKind, AggregateNode, AggSpec,
+                                          ColumnType, FilterNode,
+                                          QueryExecutor, Schema, SourceNode,
+                                          TumblingWindow)
+    from hstream_tpu_torch.engine.expr import BinOp, Col, Lit
+
+    schema = Schema.of(k=ColumnType.STRING, a=ColumnType.FLOAT,
+                       b=ColumnType.FLOAT, c=ColumnType.FLOAT)
+    child = SourceNode("s", schema)
+    if where:
+        child = FilterNode(child, BinOp(">", Col("a"), Lit(0.0)))
+    node = AggregateNode(
+        child=child, group_keys=[Col("k")],
+        window=TumblingWindow(100, grace_ms=0),
+        aggs=[AggSpec(AggKind.COUNT_ALL, "n"),
+              AggSpec(AggKind.SUM, "s", input=Col("a")),
+              AggSpec(AggKind.MIN, "lo", input=Col("b")),
+              AggSpec(AggKind.MAX, "hi", input=Col("c")),
+              AggSpec(AggKind.COUNT, "nc", input=Col("c"))])
+    return QueryExecutor(node, schema, initial_keys=8, device=dev)
+
+
+# feed plans: a from the probing batch, b from the store, c a bare name
+# whose SQL left side is the batch ("both") or the store ("both_o")
+JOIN_FEEDS = {
+    "left": (("a", "f32", "m", 0, -1), ("b", "f32", "o", -1, 1),
+             ("c", "f32", "both", 2, 2)),
+    "right": (("a", "f32", "o", -1, 0), ("b", "f32", "m", 1, -1),
+              ("c", "f32", "both_o", 2, 2)),
+}
+
+
+def join_feed(name: str, ex, where: bool):
+    feed = JOIN_FEEDS[name]
+    src = {f[0]: f[2:] for f in feed}
+    nulls = tuple((key, tuple(src[c] for c in refs))
+                  for key, refs in ex._null_specs)
+    return feed, nulls, ((src["a"],) if where else ())
+
+
+def step_vs_plain_join(args: tuple, what: str) -> int:
+    """One fused join call (join_probe_insert_step's positional `args`)
+    with the kernels and with the plain version, each on its own clone of
+    the inner state (args[9]) and into its own store: the store, the
+    total and every state plane exact (SUM within its order bound, which
+    is exact on these inputs: multiples of 1/4, or counts only on the
+    path). Returns the match total."""
+    from hstream_tpu_torch.engine import join_lattice as jl
+
+    mine, batch, state = args[0], args[2], args[9]
+    runs = []
+    for fn in (jl.join_probe_insert_step, jl.join_probe_insert_step_ref):
+        st = {k: v.clone() for k, v in state.items()}
+        kw = ({"out": jl.empty_join_store(mine["code"].shape[0],
+                                          mine["cols"].shape[0],
+                                          batch.device)}
+              if fn is jl.join_probe_insert_step else {})
+        new, total = fn(*args[:9], st, *args[10:], **kw)
+        runs.append((new, int(total), st))
+    torch.cuda.synchronize()
+    (got_m, got_t, st_k), (want_m, want_t, st_p) = runs
+    assert got_t == want_t, f"{what}: totals differ"
+    assert stores_equal(want_m, got_m), f"{what}: the insert differs"
+    for k, v in st_p.items():
+        assert torch.equal(st_k[k], v), f"{what}: {k} differs"
+    return want_t
+
+
+def check_join_step(dev, results):
+    """B17: the probe in feed mode, the window step's kernels on its
+    columns (the expression kernel with a WHERE, the scatter) and the
+    insert, against the plain version: both feed layouts, null and
+    present bits on both sides, filter-NULL columns, a truncating
+    match_cap and n = 0."""
+    from hstream_tpu_torch.engine import join_lattice as jl
+
+    cases = [(256, 64, 50, 512, -30), (64, 16, 16, 4, -(1 << 31)),
+             (64, 16, 0, 64, 0), (1 << 16, 5000, 5000, 1 << 20, -30)]
+    n_checked = 0
+    for i, (cap, bcap, n, mc, cutoff) in enumerate(cases):
+        for feed_name in JOIN_FEEDS:
+            for where in (False, True):
+                rng = np.random.default_rng(200 + i * 4 + where)
+                ex = join_inner(dev, where)
+                args = (join_store(dev, rng, cap, 3, cap // 3),
+                        join_store(dev, rng, cap, 3, cap // 2),
+                        join_batch(dev, rng, bcap, n, 3), n, JOIN_WITHIN,
+                        cutoff, mc, 3, ex.spec, ex.state, 120, 300,
+                        ex._progs, join_feed(feed_name, ex, where))
+                step_vs_plain_join(args, f"join_probe_step case {i} "
+                                   f"{feed_name} where={where}")
+                n_checked += 1
+    results["join_probe_step"] = dict(
+        route="cuda",
+        source="hstream_tpu_torch/engine/kernels/csrc/join_probe.cu",
+        sources=["join_probe.cu (feed mode)", "expr.cu", "scatter.cu",
+                 "join_insert.cu"],
+        replaces="hstream_tpu/engine/lattice.py:1082", max_abs_err=0.0)
+    log(f"join_probe_step: {n_checked} fused calls (feed sources m, o, both, "
+        "both_o; null and present bits on both sides; filter-NULL and "
+        "WHERE; truncating match_cap; n = 0) against the plain version: "
+        "store and every state plane exact")
+
+
+def check_join_evict(dev, results):
+    """B18: both sides at once, delta 0, > 0 and < 0, dead entries below
+    the cutoff and sentinels that kept their columns; and the remap
+    kernel's sentinel flag (the join's code remap)."""
+    from hstream_tpu_torch.engine import join_lattice as jl
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    for i, (cap, cutoff, delta) in enumerate(
+            [(256, 0, 0), (256, 40, 37), (256, -20, -100),
+             (1 << 16, 30, 0), (1 << 16, -(1 << 31), 5)]):
+        rng = np.random.default_rng(300 + i)
+        left = join_store(dev, rng, cap, 3, 2 * cap // 3)
+        right = join_store(dev, rng, cap, 1, cap // 3)
+        wl, wr, wn = jl.join_evict_ref(left, right, cutoff, delta)
+        before = jl.join_evict.launches
+        gl, gr, gn = jl.join_evict(left, right, cutoff, delta, out=[
+            jl.empty_join_store(cap, 3, dev), jl.empty_join_store(cap, 1, dev)])
+        torch.cuda.synchronize()
+        assert jl.join_evict.launches == before + 1
+        assert stores_equal(wl, gl) and stores_equal(wr, gr), \
+            f"join_evict differs, case {i}"
+        assert torch.equal(wn, gn) and jl.store_sorted(gl) and \
+            jl.store_sorted(gr)
+    results["join_evict"] = dict(
+        route="cuda",
+        source="hstream_tpu_torch/engine/kernels/csrc/join_evict.cu",
+        replaces="hstream_tpu/engine/lattice.py:1131", max_abs_err=0.0)
+    # the remap's sentinel flag: codes below, at and above the table
+    rng = np.random.default_rng(390)
+    code = np.sort(rng.integers(0, 3000, 4096)).astype(np.int32)
+    code[-300:] = JOIN_SENT
+    table = np.cumsum(rng.random(2048) < 0.7).astype(np.int32)
+    a = {"code": torch.from_numpy(code).to(dev)}
+    b = {"code": a["code"].clone()}
+    lut = torch.from_numpy(table).to(dev)
+    sl.session_remap(a, lut, sent_above=True)
+    sl.session_remap_ref(b, lut, sent_above=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a["code"], b["code"]), "the join remap differs"
+    assert int((a["code"] == JOIN_SENT).sum()) == int((code >= 2048).sum())
+    log("join_evict: both sides, delta 0, > 0 and < 0, dead entries and "
+        "sentinels with columns: exact; the remap kernel's sentinel flag "
+        "(codes at and above the table map to the sentinel): exact")
+
+
+# ---- phase 8: the join path, BASELINE config 5 ------------------------------
+
+JOIN_SQL = ("SELECT l.k, COUNT(*) AS c FROM l INNER JOIN r "
+            "WITHIN (INTERVAL 1 SECOND) ON l.k = r.k "
+            "GROUP BY l.k, TUMBLING (INTERVAL 10 SECOND) "
+            "GRACE BY INTERVAL 0 SECOND EMIT CHANGES;")
+# phase 8b: WITHIN 10 s over TUMBLE(1 s) spans more windows than the
+# lattice's slots, so no batch fuses; a 4 s grace keeps the pairs that
+# the deferred (depth 4) and coalesced match drains step late in time
+JOIN_FETCH_SQL = ("SELECT l.k, COUNT(*) AS c, SUM(l.x) AS s FROM l INNER "
+                  "JOIN r WITHIN (INTERVAL 10 SECOND) ON l.k = r.k "
+                  "GROUP BY l.k, TUMBLING (INTERVAL 1 SECOND) "
+                  "GRACE BY INTERVAL 4 SECOND EMIT CHANGES;")
+JOIN_BATCH = 1 << 20
+JOIN_KEYS = 512_000          # bench.py's 8192 records / 4000 keys, scaled
+JOIN_WARM = 14               # bench.py's warm-up and timed batches
+JOIN_TIMED = 20
+JOIN_PROFILE = 8
+JOIN_FRESH = 4
+JOIN_MS_PER_BATCH = 500
+FETCH_BATCH = 1 << 16
+FETCH_KEYS = 32_000
+FETCH_WARM = 4
+FETCH_TIMED = 8
+
+
+def _join_plan(sql: str, within_s: int, size_ms: int, grace_ms: int,
+               sum_x: bool):
+    from hstream_tpu_torch.engine.expr import BinOp, Col
+    from hstream_tpu_torch.engine.plan import (AggKind, AggregateNode,
+                                               AggSpec, SourceNode)
+    from hstream_tpu_torch.engine.types import ColumnType
+    from hstream_tpu_torch.engine.window import TumblingWindow
+    from hstream_tpu_torch.sql import ast, plans
+
+    aggs = [AggSpec(AggKind.COUNT_ALL, "COUNT(*)")]
+    post = [("l.k", Col("l.k")), ("c", Col("COUNT(*)"))]
+    inferred = {"l.k": ColumnType.FLOAT}
+    if sum_x:
+        aggs.append(AggSpec(AggKind.SUM, "SUM(l.x)", input=Col("l.x")))
+        post.append(("s", Col("SUM(l.x)")))
+        inferred["l.x"] = ColumnType.FLOAT
+    node = AggregateNode(child=SourceNode("l", None),
+                         group_keys=[Col("l.k")],
+                         window=TumblingWindow(size_ms, grace_ms=grace_ms),
+                         aggs=aggs, having=None, post_projections=post)
+    return plans.SelectPlan(
+        sql=sql, source="l", node=node,
+        schema_req=plans.SchemaRequirement(inferred=inferred),
+        emit_changes=True,
+        join=ast.JoinClause(join_type="INNER",
+                            right=ast.StreamRef(name="r", alias=None),
+                            within=ast.Interval(within_s, "SECOND"),
+                            on=BinOp("=", Col("k", "l"), Col("k", "r")),
+                            table=False),
+        source_alias=None)
+
+
+def join_plan():
+    """BASELINE config 5's plan (bench.py:453-567), built from the port's
+    dataclasses as the reference's codegen lowers JOIN_SQL (a CPU test
+    holds the two equal)."""
+    return _join_plan(JOIN_SQL, 1, 10_000, 0, False)
+
+
+def join_fetch_plan():
+    return _join_plan(JOIN_FETCH_SQL, 10, 1_000, 4_000, True)
+
+
+class JoinStream:
+    """bench.py's config-5 stream (bench.py:466-486), scaled: batches of
+    `n` records over `n_keys` keys k{i}, 8 pre-generated key columns
+    cycled, batch b spanning ts base + 500 b + sort(randint(0, 500)),
+    sides alternating r, l; x = normal(1, 1) for the fetch path."""
+
+    def __init__(self, seed: int, n: int, n_keys: int, with_x: bool):
+        rng = np.random.default_rng(seed)
+        self.n, self.seed = n, seed
+        self.keys = np.array([f"k{i}" for i in range(n_keys)], object)
+        self.kidx = [rng.integers(0, n_keys, n) for _ in range(8)]
+        self.xs = ([rng.normal(1, 1, n) for _ in range(8)] if with_x
+                   else None)
+
+    def ts(self, b: int) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, b))
+        return (BASE_TS + b * JOIN_MS_PER_BATCH
+                + np.sort(rng.integers(0, JOIN_MS_PER_BATCH, self.n))
+                .astype(np.int64))
+
+    def side(self, b: int) -> str:
+        return "l" if b % 2 else "r"
+
+    def get(self, b: int):
+        cols = {"k": self.keys[self.kidx[b % 8]]}
+        cols["x"] = (self.xs[b % 8] if self.xs is not None
+                     else np.ones(self.n, np.float32))
+        return self.ts(b), cols, self.side(b)
+
+
+def join_reference(src: JoinStream, batches: int, size_ms: int,
+                   within: int) -> dict:
+    """Per (key index, winStart) with pairs, in (key, window) order: the
+    count, sum of left x and sum of |x| of the joined pairs of the first
+    `batches` batches, by numpy alone. A pair's joined
+    ts is max of the two; with this stream no pair is late or hidden by
+    retention, so the pairs in [S, E) are C(E) - C(S), where C(X) counts
+    (and sums the left x of) equal-key pairs with |dt| <= within and both
+    ts < X: one searchsorted pair per left record."""
+    sides = {"l": [], "r": []}
+    for b in range(batches):
+        ts, _cols, side = src.get(b)
+        x = src.xs[b % 8] if src.xs is not None else np.ones(src.n)
+        sides[side].append((src.kidx[b % 8].astype(np.int64), ts - BASE_TS,
+                            x.astype(np.float64)))
+    lk, lt, lx = (np.concatenate([p[i] for p in sides["l"]])
+                  for i in range(3))
+    rk, rt = (np.concatenate([p[i] for p in sides["r"]]) for i in range(2))
+    span = 1 << 40
+    rkey = np.sort(rk * span + rt)
+    # left records in (key, ts) order: the searches below then run over
+    # ascending queries (numpy narrows each search from the last)
+    order = np.argsort(lk * span + lt, kind="stable")
+    lk, lt, lx = lk[order], lt[order], lx[order]
+    lo = np.searchsorted(rkey, lk * span + lt - within, "left")
+    t_end = batches * JOIN_MS_PER_BATCH
+    bounds = list(range(0, t_end + size_ms, size_ms))
+
+    def c_of(x_ms: int):
+        sel = lt < x_ms
+        hi = np.searchsorted(rkey, lk[sel] * span
+                             + np.minimum(lt[sel] + within, x_ms - 1),
+                             "right")
+        cnt = np.maximum(hi - lo[sel], 0)
+        n_k = len(src.keys)
+        return (np.bincount(lk[sel], weights=cnt, minlength=n_k),
+                np.bincount(lk[sel], weights=cnt * lx[sel], minlength=n_k),
+                np.bincount(lk[sel], weights=cnt * np.abs(lx[sel]),
+                            minlength=n_k))
+
+    cs = [c_of(x) for x in bounds]
+    parts = []
+    for w in range(len(bounds) - 1):
+        c = cs[w + 1][0] - cs[w][0]
+        keys = np.nonzero(c > 0)[0]
+        parts.append((keys, np.full(len(keys), BASE_TS + bounds[w]),
+                      np.rint(c[keys]).astype(np.int64),
+                      (cs[w + 1][1] - cs[w][1])[keys],
+                      (cs[w + 1][2] - cs[w][2])[keys]))
+    k, w, c, s, a = (np.concatenate([p[i] for p in parts])
+                     for i in range(5))
+    order = np.argsort(k * (1 << 44) + (w - BASE_TS), kind="stable")
+    return dict(key=k[order], win=w[order], count=c[order], sum=s[order],
+                abs=a[order])
+
+
+class ChangeLog:
+    """The final change per (key, window) of a changelog run, kept as
+    numpy columns batch by batch (not as row dicts)."""
+
+    def __init__(self, keys: np.ndarray):
+        self.index = {k: i for i, k in enumerate(keys.tolist())}
+        self.parts: list[tuple] = []
+        self.rows = 0
+
+    def add(self, out) -> None:
+        from hstream_tpu_torch.common.columnar import ColumnarEmit
+
+        n = len(out)
+        if not n:
+            return
+        self.rows += n
+        if isinstance(out, ColumnarEmit):
+            c = out.cols
+            k = np.fromiter((self.index[v] for v in c["l.k"].tolist()),
+                            np.int64, n)
+            self.parts.append((k, np.asarray(c["winStart"], np.int64),
+                               np.asarray(c["c"], np.int64),
+                               np.asarray(c.get("s", np.zeros(n)),
+                                          np.float64)))
+            return
+        idx = self.index
+        self.parts.append((
+            np.fromiter((idx[r["l.k"]] for r in out), np.int64, n),
+            np.fromiter((r["winStart"] for r in out), np.int64, n),
+            np.fromiter((r["c"] for r in out), np.int64, n),
+            np.fromiter((r.get("s", 0.0) for r in out), np.float64, n)))
+
+    def final(self):
+        """(key, winStart, count, sum) of the last change of each (key,
+        window), in (key, window) order."""
+        k, w, c, s = (np.concatenate([p[i] for p in self.parts])
+                      for i in range(4))
+        comp = k * (1 << 44) + (w - BASE_TS)
+        _u, first_rev = np.unique(comp[::-1], return_index=True)
+        last = len(comp) - 1 - first_rev
+        return k[last], w[last], c[last], s[last]
+
+
+def check_join_changes(log_: ChangeLog, ref: dict, with_sum: bool) -> dict:
+    """Every (key, window) with pairs got a change, its final count is
+    exact and its SUM within 2 * n * 2^-24 * sum|x|; no change for a
+    (key, window) without pairs."""
+    k, w, c, s = log_.final()
+    assert len(k) == len(ref["key"]), (len(k), len(ref["key"]))
+    same = (k == ref["key"]) & (w == ref["win"])
+    assert same.all(), ("changes for (key, window)s without pairs",
+                        k[~same][:5], w[~same][:5])
+    bad = c != ref["count"]
+    assert not bad.any(), ("counts differ", k[bad][:5], w[bad][:5],
+                           c[bad][:5], ref["count"][bad][:5])
+    worst = 0.0
+    if with_sum:
+        lim = 2 * ref["count"] * U * ref["abs"] + 1e-30
+        ratio = np.abs(s - ref["sum"]) / lim
+        assert (ratio <= 1).all(), ("SUM beyond the order bound",
+                                    float(ratio.max()))
+        worst = float(ratio.max())
+    return dict(windows=len(k), change_rows=log_.rows,
+                worst_sum_err_over_bound=worst)
+
+
+# the join wrappers (engine/join_lattice.py attributes)
+JOIN_KERNELS = ("join_probe_insert", "join_probe_only",
+                "join_probe_insert_step", "join_evict")
+
+
+def _join_executor(plan, batch: int, dev):
+    from hstream_tpu_torch.engine import JoinExecutor
+    from hstream_tpu_torch.sql import make_executor
+
+    ex = make_executor(plan, sample_rows=[{"k": "k0", "x": 1.0}],
+                       batch_capacity=4 * batch)
+    assert isinstance(ex, JoinExecutor) and ex.device == dev, ex.device
+    # bench.py's knobs (bench.py:488-499)
+    ex.defer_change_decode = True
+    ex.change_drain_depth = 8
+    ex.async_change_drain = True
+    return ex
+
+
+# device events of the join path, by stage
+_JOIN_EVENTS = {"bounds_kernel": "probe", "scan_tiles_kernel": "probe",
+                "ccnt_kernel": "probe", "feed_kernel": "probe",
+                "pack_kernel": "probe", "merge_kernel": "insert",
+                "count_kernel": "evict", "move_kernel": "evict",
+                "scatter_kernel": "scatter", "expr_kernel": "expression",
+                "touched_": "touched_extract", "close_kernel": "close",
+                "Memcpy HtoD": "h2d_copy", "Memcpy DtoH": "d2h_copy"}
+
+
+def _by_stage(devt: dict, batches: int) -> dict:
+    per: dict[str, float] = {}
+    for name, us in devt.items():
+        k = next((v for e, v in _JOIN_EVENTS.items() if e in name), "other")
+        per[k] = per.get(k, 0.0) + us / 1e3 / batches
+    return per
+
+
+def join_path(dev, results, captured) -> dict:
+    """BASELINE config 5 at full width: 14 warm-up and 20 timed batches of
+    2^20 records over 512,000 keys (bench.py's knobs), every final change
+    per (key, window) against numpy; then freshness samples and a
+    profiled window of 8 batches. events/s and change rows/s take the
+    executor's time (its calls and the final flush), as bench.py's loop
+    does, not the check's bookkeeping of the rows."""
+    t_gen = time.perf_counter()
+    src = JoinStream(5, JOIN_BATCH, JOIN_KEYS, with_x=False)
+    t_gen = time.perf_counter() - t_gen
+    ex = _join_executor(join_plan(), JOIN_BATCH, dev)
+    log_ = ChangeLog(src.keys)
+    armed = [False]
+    zero_counts()
+    host_batches_s = []
+    with capturing(captured, armed, joins=True):
+        for b in range(JOIN_WARM):
+            ts, cols, side = src.get(b)
+            t0 = time.perf_counter()
+            log_.add(ex.process_columnar(ts, cols, stream=side))
+            if ex._dev is None or b < 3:
+                host_batches_s.append(time.perf_counter() - t0)
+            if b == 1:
+                ex.coalesce_rows = 1 << 15
+        log_.add(ex.flush_changes())
+        torch.cuda.synchronize()
+        assert ex._dev is not None, "the device path did not activate"
+        stats0 = dict(ex.join_stats)
+        counts0 = launch_counts()
+        call_ms = []
+        rows0 = log_.rows
+        for b in range(JOIN_WARM, JOIN_WARM + JOIN_TIMED):
+            armed[0] = b == JOIN_WARM + JOIN_TIMED - 1
+            ts, cols, side = src.get(b)
+            t1 = time.perf_counter()
+            out = ex.process_columnar(ts, cols, stream=side)
+            call_ms.append((time.perf_counter() - t1) * 1e3)
+            log_.add(out)
+            assert ex._dev is not None
+        t1 = time.perf_counter()
+        out = ex.flush_changes()
+        torch.cuda.synchronize()
+        # the executor's time: its calls and the final flush (the rows'
+        # numpy bookkeeping for the check is left out)
+        wall = sum(call_ms) / 1e3 + time.perf_counter() - t1
+        log_.add(out)
+        armed[0] = False
+    js = {k: ex.join_stats[k] - stats0[k] for k in stats0}
+    counts = launch_counts()
+    d = {k: counts[k] - counts0[k] for k in counts}
+    timed_rows = log_.rows - rows0
+    if js["fused_batches"] != JOIN_TIMED:
+        log(f"join path: {JOIN_TIMED - js['fused_batches']} timed batches "
+            f"refused by _fuse_ok")
+    assert js["probe_batches"] == js["probe_dispatches"] == \
+        js["fused_batches"] == JOIN_TIMED, js
+    assert js["probe_fetches"] == 0 and js["match_redispatches"] == 0, js
+    assert d["join_probe_step"] == d["scatter_aggregate"] == \
+        d["touched_extract"] == JOIN_TIMED, d
+    assert d["join_probe_insert"] == d["join_probe_only"] == \
+        d["wire_decode"] == 0, d
+    # freshness: submit -> changelog rows decoded (the flush forces the
+    # deferred change drains), then a profiled window
+    fresh = []
+    b = JOIN_WARM + JOIN_TIMED
+    for _ in range(JOIN_FRESH):
+        ts, cols, side = src.get(b)
+        t1 = time.perf_counter()
+        log_.add(ex.process_columnar(ts, cols, stream=side))
+        log_.add(ex.flush_changes())
+        fresh.append((time.perf_counter() - t1) * 1e3)
+        b += 1
+
+    def window():
+        t1 = time.perf_counter()
+        for bb in range(b, b + JOIN_PROFILE):
+            ts, cols, side = src.get(bb)
+            log_.add(ex.process_columnar(ts, cols, stream=side))
+        log_.add(ex.flush_changes())
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    pwall, devt = profiled(window)
+    b += JOIN_PROFILE
+    assert ex._dev is not None and ex.device_fallbacks == 0
+    counts = launch_counts()
+    assert ex.join_stats["evict_dispatches"] >= 1, ex.join_stats
+    assert counts["join_evict"] == ex.join_stats["evict_dispatches"], \
+        (counts, ex.join_stats)
+    assert counts["join_probe_step"] == ex.join_stats["fused_batches"], \
+        (counts, ex.join_stats)
+    t_ref = time.perf_counter()
+    check = check_join_changes(
+        log_, join_reference(src, b, 10_000, 1000), with_sum=False)
+    t_ref = time.perf_counter() - t_ref
+    per = _by_stage(devt, JOIN_PROFILE)
+    return dict(config="join (BASELINE 5)", batches=b,
+                events_per_sec=JOIN_TIMED * JOIN_BATCH / wall, wall_s=wall,
+                change_rows_per_sec=timed_rows / wall,
+                change_rows_timed=timed_rows,
+                p50_call_ms=float(np.percentile(call_ms, 50)),
+                p99_call_ms=float(np.percentile(call_ms, 99)),
+                freshness_ms=fresh, host_warmup_batches_s=host_batches_s,
+                stage_s=dict(ex.stage_stats), join_stats=dict(ex.join_stats),
+                timed_join_stats=js, launches=counts, check=check,
+                store_cap=ex._dev["cap"], match_cap=ex._dev["match_cap"],
+                inner_keys=ex._inner.spec.n_keys,
+                device_plane_bytes=sum(ex.device_plane_bytes().values()),
+                profile=dict(batches=JOIN_PROFILE, wall_s=pwall,
+                             device_ms_per_batch=per,
+                             device_busy_share=sum(devt.values()) / 1e6
+                             / pwall),
+                stream_s=t_gen, reference_s=t_ref)
+
+
+def join_fetch_path(dev, results, captured) -> dict:
+    """Phase 8b, the match-fetch path (B15) at a smaller depth: SUM(l.x)
+    over WITHIN 10 s and TUMBLE(1 s), whose joined span no batch can fuse;
+    2^16-record batches over 32,000 keys, 4 warm-up and 8 timed, match
+    buffers fetched four batches at a time (stacked) and decoded
+    columnar; every final change against numpy."""
+    src = JoinStream(7, FETCH_BATCH, FETCH_KEYS, with_x=True)
+    ex = _join_executor(join_fetch_plan(), FETCH_BATCH, dev)
+    ex.match_drain_depth = 4
+    log_ = ChangeLog(src.keys)
+    armed = [False]
+    zero_counts()
+    n_batches = FETCH_WARM + FETCH_TIMED
+    with capturing(captured, armed, joins=True):
+        for b in range(FETCH_WARM):
+            ts, cols, side = src.get(b)
+            log_.add(ex.process_columnar(ts, cols, stream=side))
+            if b == 1:
+                ex.coalesce_rows = 1 << 15
+        log_.add(ex.flush_changes())
+        torch.cuda.synchronize()
+        assert ex._dev is not None, "the device path did not activate"
+        stats0 = dict(ex.join_stats)
+        t0 = time.perf_counter()
+        for b in range(FETCH_WARM, n_batches):
+            armed[0] = b == n_batches - 1
+            ts, cols, side = src.get(b)
+            log_.add(ex.process_columnar(ts, cols, stream=side))
+        log_.add(ex.flush_changes())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        armed[0] = False
+    js = dict(ex.join_stats)
+    counts = launch_counts()
+    assert js["fused_batches"] == 0 and js["probe_fetches"] >= 1, js
+    assert js["probe_batches"] == js["probe_dispatches"] == \
+        counts["join_probe_insert"], (js, counts)
+    assert js["probe_fetches"] < js["probe_batches"], js   # stacked
+    assert js["probe_batches"] - stats0["probe_batches"] == FETCH_TIMED
+    assert counts["join_probe_step"] == 0 and ex._dev is not None
+    check = check_join_changes(
+        log_, join_reference(src, n_batches, 1000, 10_000), with_sum=True)
+    return dict(config="join match-fetch (8b)", batches=n_batches,
+                events_per_sec=FETCH_TIMED * FETCH_BATCH / wall,
+                wall_s=wall, join_stats=js, launches=counts, check=check,
+                stage_s=dict(ex.stage_stats), match_cap=ex._dev["match_cap"],
+                store_cap=ex._dev["cap"])
+
+
+def _store_bytes(st: dict) -> int:
+    return sum(int(v.nbytes) for v in st.values())
+
+
+def _query_keys(other: dict, batch: torch.Tensor, n: int, within: int):
+    """The store's (code, ts) keys and the batch's 2n query keys as int64,
+    for torch.searchsorted (the probe's bounds in one library call)."""
+    def key(c, t):
+        return (c.long() << 32) | (t.long() + (1 << 31))
+
+    skey = key(other["code"], other["ts"])
+    c, t = batch[0, :n], batch[1, :n]
+    return skey, torch.cat([key(c, t - within), key(c, t + within)])
+
+
+def time_join_kernels(dev, results, captured):
+    """Each join kernel on the path's own inputs (one call of each, kept
+    by the join paths: the fused call of phase 8's last timed batch, its
+    first eviction, the probe + insert of phase 8b's last timed batch and
+    the probe-only on the same arguments), held against its plain version
+    on them (each into its own output) and timed beside it, its bound and
+    a PyTorch yardstick."""
+    from hstream_tpu_torch.engine import join_lattice as jl
+
+    missing = [k for k in ("join_probe_insert_step", "join_evict",
+                           "join_probe_insert") if k not in captured]
+    assert not missing, f"the join paths made no call of {missing}"
+
+    # B17: the fused call of phase 8
+    args = captured["join_probe_insert_step"]
+    (mine, other, batch, n, within, cutoff, match_cap, nm, spec, state,
+     wm_rel, ts_off, progs, feed) = args
+    total = step_vs_plain_join(args, "join_probe_step at the path's shapes")
+    cap = mine["code"].shape[0]
+    out = jl.empty_join_store(cap, nm, dev)
+    st = {k: v.clone() for k, v in state.items()}
+
+    def fused():
+        jl.join_probe_insert_step(mine, other, batch, n, within, cutoff,
+                                  match_cap, nm, spec, st, wm_rel, ts_off,
+                                  progs, feed, out=out)
+
+    ms, call, srcm = kernel_ms(fused, 10)
+    stages = _by_stage(profiled(lambda: [fused() for _ in range(5)])[1], 5)
+    plain = kernel_ms(lambda: jl.join_probe_insert_step_ref(
+        mine, other, batch, n, within, cutoff, match_cap, nm, spec, st,
+        wm_rel, ts_off, progs, feed), 2)[0]
+    skey, qkey = _query_keys(other, batch, n, within)
+    lib = kernel_ms(lambda: torch.searchsorted(skey, qkey), 10)[0]
+    state_bytes = sum(int(v.nbytes) for v in state.values())
+    nbytes = 2 * _store_bytes(mine) + _store_bytes(other) + \
+        int(batch.nbytes) + 2 * state_bytes
+    ops = 2 * n * np.log2(cap) + total * (np.log2(batch.shape[1]) + 1)
+    b_ms, b_by = bound(nbytes, ops)
+    results["join_probe_step"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        call_ms=call, ms_source=srcm, cap=cap, n=n, matches=total,
+        match_cap=match_cap, stages_ms=stages)
+    log(f"join_probe_step at the path's shapes (store cap {cap}, {n} "
+        f"records, {total} matches, match_cap {match_cap}): kernel and "
+        f"plain agree; {ms:.4f} ms (plain {plain:.4f}, torch.searchsorted "
+        f"of the {2 * n} bounds {lib:.4f}, bound {b_ms:.4f} by {b_by}; by "
+        f"stage {json.dumps(stages)})")
+    del out, st
+
+    # B18: phase 8's first eviction
+    left, right, e_cutoff, delta = captured["join_evict"]
+    ecap = left["code"].shape[0]
+    nl, nr = left["cols"].shape[0], right["cols"].shape[0]
+    outs = [jl.empty_join_store(ecap, nl, dev),
+            jl.empty_join_store(ecap, nr, dev)]
+    gl, gr, gn = jl.join_evict(left, right, e_cutoff, delta, out=outs)
+    wl, wr, wn = jl.join_evict_ref(left, right, e_cutoff, delta)
+    torch.cuda.synchronize()
+    assert stores_equal(wl, gl) and stores_equal(wr, gr) and \
+        torch.equal(wn, gn), "join_evict differs at the path's shapes"
+    ms, call, srcm = kernel_ms(lambda: jl.join_evict(
+        left, right, e_cutoff, delta, out=outs), 10)
+    plain = kernel_ms(lambda: jl.join_evict_ref(left, right, e_cutoff,
+                                                delta), 2)[0]
+    keys = torch.stack([(s["code"].long() << 32) | (s["ts"].long()
+                                                    + (1 << 31))
+                        for s in (left, right)])
+    lib = kernel_ms(lambda: torch.sort(keys, dim=1, stable=True), 10)[0]
+    b_ms, b_by = bound(2 * (_store_bytes(left) + _store_bytes(right)),
+                       2 * ecap)
+    results["join_evict"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        call_ms=call, ms_source=srcm, cap=ecap, cutoff=e_cutoff,
+        delta=delta, live=gn.tolist())
+    log(f"join_evict of the path's two {ecap}-slot stores (live "
+        f"{gn.tolist()}, delta {delta}): exact against plain; {ms:.4f} ms "
+        f"(plain {plain:.4f}, torch.sort of both sides' keys {lib:.4f}, "
+        f"bound {b_ms:.4f} by {b_by})")
+    del outs, gl, gr, wl, wr
+
+    # B15 and B16: phase 8b's probe + insert and its probe alone
+    (mine, other, batch, n, within, cutoff, match_cap,
+     nm) = captured["join_probe_insert"]
+    cap = mine["code"].shape[0]
+    out = jl.empty_join_store(cap, nm, dev)
+    got_m, got_p = jl.join_probe_insert(mine, other, batch, n, within,
+                                        cutoff, match_cap, nm, out=out)
+    want_m, want_p = jl.join_probe_insert_ref(mine, other, batch, n,
+                                              within, cutoff, match_cap, nm)
+    torch.cuda.synchronize()
+    assert torch.equal(got_p, want_p) and stores_equal(got_m, want_m), \
+        "join_probe_insert differs at the path's shapes"
+    total = int(want_p[0, 0])
+    ms, call, srcm = kernel_ms(lambda: jl.join_probe_insert(
+        mine, other, batch, n, within, cutoff, match_cap, nm, out=out), 10)
+    plain = kernel_ms(lambda: jl.join_probe_insert_ref(
+        mine, other, batch, n, within, cutoff, match_cap, nm), 2)[0]
+    skey, qkey = _query_keys(other, batch, n, within)
+    lib = kernel_ms(lambda: torch.searchsorted(skey, qkey), 10)[0]
+    nbytes = 2 * _store_bytes(mine) + _store_bytes(other) + \
+        int(batch.nbytes) + int(want_p.nbytes)
+    b_ms, b_by = bound(nbytes, 2 * n * np.log2(cap)
+                       + total * np.log2(batch.shape[1]))
+    results["join_probe_insert"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        call_ms=call, ms_source=srcm, cap=cap, n=n, matches=total,
+        match_cap=match_cap)
+    log(f"join_probe_insert at phase 8b's shapes (cap {cap}, {n} records, "
+        f"{total} matches, match_cap {match_cap}): exact against plain; "
+        f"{ms:.4f} ms (plain {plain:.4f}, torch.searchsorted {lib:.4f}, "
+        f"bound {b_ms:.4f} by {b_by})")
+    got = jl.join_probe_only(other, batch, n, within, cutoff, match_cap, nm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want_p), "join_probe_only differs on the path"
+    ms, call, srcm = kernel_ms(lambda: jl.join_probe_only(
+        other, batch, n, within, cutoff, match_cap, nm), 10)
+    plain = kernel_ms(lambda: jl.join_probe_ref(
+        other, batch, n, within, cutoff, match_cap, nm), 2)[0]
+    b_ms, b_by = bound(_store_bytes(other) + int(batch.nbytes)
+                       + int(want_p.nbytes), 2 * n * np.log2(cap)
+                       + total * np.log2(batch.shape[1]))
+    results["join_probe_only"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        call_ms=call, ms_source=srcm, cap=cap, n=n, matches=total,
+        match_cap=match_cap)
+    log(f"join_probe_only on the same arguments: exact; {ms:.4f} ms (plain "
+        f"{plain:.4f}, bound {b_ms:.4f} by {b_by})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2424,6 +3295,9 @@ def main() -> int:
     check_session_merge(dev, results)
     check_session_extract(dev, results)
     check_session_remap(dev, results)
+    check_join_probe(dev, results)
+    check_join_step(dev, results)
+    check_join_evict(dev, results)
 
     for cfg in (1, 2):
         r = main_path(cfg, dev)
@@ -2469,6 +3343,30 @@ def main() -> int:
         f"{r['segment']['events_per_sec']:.0f} events/s over "
         f"{SESS_SEG_BATCHES} batches, {r['segment']['rows']} sessions "
         f"checked, launches {r['segment']['launches']} [{card}]")
+
+    captured: dict = {}
+    r = join_path(dev, results, captured)
+    paths.append(r)
+    log(f"join path (BASELINE 5): {r['events_per_sec']:.0f} events/s and "
+        f"{r['change_rows_per_sec']:.0f} change rows/s over {JOIN_TIMED} "
+        f"timed x 2^20 records ({JOIN_KEYS} keys), process_columnar p50 "
+        f"{r['p50_call_ms']:.1f} ms p99 {r['p99_call_ms']:.1f} ms, "
+        f"freshness ms {[round(x, 1) for x in r['freshness_ms']]}, host "
+        f"join warm-up batches s "
+        f"{[round(x, 2) for x in r['host_warmup_batches_s']]}, stage s "
+        f"{json.dumps(r['stage_s'])}, {r['check']['windows']} (key, "
+        f"window) finals checked of {r['check']['change_rows']} change "
+        f"rows, timed join_stats {r['timed_join_stats']}, store cap "
+        f"{r['store_cap']}, match_cap {r['match_cap']}, device bytes "
+        f"{r['device_plane_bytes']}; profiled window "
+        f"{json.dumps(r['profile'])} [{card}]")
+    r = join_fetch_path(dev, results, captured)
+    paths.append(r)
+    log(f"join match-fetch path (8b): {r['events_per_sec']:.0f} events/s "
+        f"over {FETCH_TIMED} timed x 2^16 records, join_stats "
+        f"{r['join_stats']}, check {json.dumps(r['check'])}, stage s "
+        f"{json.dumps(r['stage_s'])} [{card}]")
+    time_join_kernels(dev, results, captured)
 
     kernels = []
     for name, r in results.items():

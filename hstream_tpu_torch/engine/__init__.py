@@ -9,7 +9,10 @@ host-side watermark with one fused close launch per close cycle. An
 EMIT CHANGES query (the default) emits one changelog row per touched
 (key, window) per batch, extracted on the card, and resets at each
 window end. Non-aggregating queries run on the host (stateless), as do
-the host-side keyed stores (statestore).
+the host-side keyed stores (statestore). Stream-stream interval joins
+keep both sides' sorted stores on the card and step matched pairs
+straight into the downstream lattice (join, join_lattice);
+stream-table joins keep their table on the host.
 Timestamps on the device are int32 milliseconds relative to a per-query
 epoch, rebased on the host before the int32 range runs out.
 """
@@ -39,6 +42,8 @@ from hstream_tpu_torch.engine.statestore import (
     LastValueStore,
     TimestampedKVStore,
 )
+from hstream_tpu_torch.engine.join import JoinExecutor, TableJoinExecutor
+from hstream_tpu_torch.sql.codegen import make_executor
 
 __all__ = [
     "ColumnType",
@@ -62,4 +67,7 @@ __all__ = [
     "StatelessExecutor",
     "TimestampedKVStore",
     "LastValueStore",
+    "JoinExecutor",
+    "TableJoinExecutor",
+    "make_executor",
 ]

@@ -14,6 +14,13 @@ values — the arena planes, the interval mirror, the code and string
 dictionaries, the epoch, the watermark and the last close cycle's
 watermark — without importing either package, and `adopt_session` /
 `session_from` install it into a port SessionExecutor.
+
+For the interval join, `join_state` reads a device-mode JoinExecutor's
+position (both sides' stores, the join epoch, live counts, match width,
+eviction mark, the join-key code dictionary and its key-id table, both
+host shadows, the watermark, the observed fields and the inner window
+executor's position), and `adopt_join` / `join_from` install it into a
+port JoinExecutor.
 """
 
 from __future__ import annotations
@@ -157,4 +164,122 @@ def session_from(src, node, schema, *, device=None, **kw):
 
     ex = SessionExecutor(node, schema, device=device, **kw)
     adopt_session(ex, session_state(src))
+    return ex
+
+
+def _host(v) -> np.ndarray:
+    """A JAX array, a tensor or an array-like as a numpy copy."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy().copy()
+    return np.array(v, copy=True)
+
+
+def join_state(src) -> dict:
+    """The position of a device-mode JoinExecutor (the JAX package's or
+    the port's) as numpy and Python values. Staged matches, deferred
+    match buffers and deferred changes must be flushed first
+    (`src.flush_changes()`): they are the only copy of those rows."""
+    dev = getattr(src, "_dev", None)
+    if dev is None:
+        raise ValueError("join_state: the executor is not in device mode")
+    if src.has_pending_changes():
+        raise ValueError("join_state: flush the pending changes first")
+    src._refresh_counts()
+    inner = src._inner
+    shadows = {}
+    for side, sh in dev["shadow"].items():
+        shadows[side] = {"code": np.array(sh.code, np.int64),
+                         "ts": np.array(sh.ts, np.int64), "t0": sh.t0}
+    return {
+        "stores": {side: {k: _host(v) for k, v in st.items()}
+                   for side, st in dev["stores"].items()},
+        "lay": {side: [tuple(e) for e in dev["lay"][side]]
+                for side in ("l", "r")},
+        "cap": int(dev["cap"]), "t0": dev["t0"], "n": dict(dev["n"]),
+        "match_cap": int(dev["match_cap"]),
+        "evict_cutoff": int(dev["evict_cutoff"]),
+        "shadow": shadows,
+        "jcode_rev": list(src._jcode_rev),
+        "kid_lut": np.array(src._kid_lut, np.int32),
+        "watermark": int(src.watermark),
+        "fields": {side: sorted(f) for side, f in src._fields.items()},
+        "join_stats": dict(src.join_stats),
+        "inner": {
+            "state": {k: _host(v) for k, v in inner.state.items()},
+            "schema": [(name, t.name) for name, t in inner.schema.fields],
+            "strings": {name: [d.decode(i) for i in range(len(d))]
+                        for name, d in inner.dicts.items()},
+            "epoch": inner.epoch,
+            "watermark_abs": int(inner.watermark_abs),
+            "open_windows": {int(s): int(w.slot)
+                             for s, w in inner._open.items()},
+            "keys": list(inner._key_rev),
+        },
+    }
+
+
+def adopt_join(ex, state: Mapping) -> None:
+    """Install a join's position (join_state) into a fresh port
+    JoinExecutor `ex` built from the same plan: its inner window executor
+    is built over the carried schema, and its device path activates with
+    the carried stores and shadows."""
+    from hstream_tpu_torch.engine.executor import QueryExecutor
+    from hstream_tpu_torch.engine.join import _FlatIntervalStore
+    from hstream_tpu_torch.engine.types import ColumnType, Schema
+
+    if ex._dev is not None or ex._inner is not None:
+        raise ValueError("adopt_join: the executor is not fresh")
+    ist = state["inner"]
+    schema = Schema(tuple((name, ColumnType[t]) for name, t in ist["schema"]))
+    plan = ex._inner_plan
+    inner = QueryExecutor(plan.node, schema, emit_changes=plan.emit_changes,
+                          initial_keys=ex._initial_keys,
+                          batch_capacity=ex._batch_capacity,
+                          device=ex.device)
+    for name, values in ist["strings"].items():
+        for v in values:
+            inner.dicts[name].encode(v)
+    adopt(inner, ist["state"], epoch=ist["epoch"],
+          watermark_abs=ist["watermark_abs"],
+          open_windows=ist["open_windows"], keys=ist["keys"])
+    ex._inner = inner
+    ex._apply_inner_tuning()
+    ex._fields = {side: set(f) for side, f in state["fields"].items()}
+    ex._jcode_rev[:] = [tuple(k) for k in state["jcode_rev"]]
+    ex._jcode.clear()
+    ex._jcode.update({k: i for i, k in enumerate(ex._jcode_rev)})
+    ex._kid_lut = np.array(state["kid_lut"], np.int32)
+    ex.watermark = state["watermark"]
+    fast = ex._fast_info()
+    if fast is None or not ex._activate_device(fast):
+        raise ValueError("adopt_join: this plan stays on the host path")
+    dev = ex._dev
+    if {s: [tuple(e) for e in v] for s, v in dev["lay"].items()} \
+            != state["lay"]:
+        raise ValueError("adopt_join: the column layouts differ")
+    dev["cap"] = state["cap"]
+    dev["t0"] = state["t0"]
+    dev["n"] = dict(state["n"])
+    dev["match_cap"] = state["match_cap"]
+    dev["evict_cutoff"] = state["evict_cutoff"]
+    dev["stores"] = {side: {k: torch.from_numpy(np.array(v, np.int32))
+                            .to(ex.device) for k, v in st.items()}
+                     for side, st in state["stores"].items()}
+    for side, sh in state["shadow"].items():
+        st = _FlatIntervalStore(ex._jcode_rev)
+        st.code, st.ts, st.t0 = sh["code"].copy(), sh["ts"].copy(), sh["t0"]
+        st.rows = np.empty(len(st.code), object)
+        if st.t0 is not None:
+            st.comp = st.code * st.SPAN + (st.ts - st.t0)
+        dev["shadow"][side] = st
+    ex.join_stats.update(state["join_stats"])
+
+
+def join_from(src, plan, *, device=None, **kw):
+    """A port JoinExecutor for the port plan `plan` that continues where
+    the device-mode join `src` stands (flush its changes first)."""
+    from hstream_tpu_torch.engine.join import JoinExecutor
+
+    ex = JoinExecutor(plan, device=device, **kw)
+    adopt_join(ex, join_state(src))
     return ex

@@ -145,6 +145,11 @@ class StagedBatch:
 class QueryExecutor:
     """Executes one windowed/global GROUP BY aggregation plan."""
 
+    # the deferred-change knobs (defer_change_decode, change_drain_depth,
+    # async_change_drain) apply; a join proxies them onto its inner
+    # executor only when this is set
+    supports_deferred_changes = True
+
     def __init__(
         self,
         node: AggregateNode,

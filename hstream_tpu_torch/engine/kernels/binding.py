@@ -147,6 +147,68 @@ class SessExtractArgs(C.Structure):
                 ("out", C.c_void_p), ("f", Finalize)]
 
 
+JOIN_SENT = 1 << 22
+JOIN_MAX_FEED = 16
+JOIN_MAX_NULLS = 16
+JOIN_MAX_REFS = 64
+JOIN_PACK, JOIN_FEED = range(2)                      # probe modes
+JOIN_SRC = {"m": 0, "o": 1, "both": 2, "both_o": 3}  # feed sources
+JOIN_TAG = {"f32": 0, "i32": 1, "bool": 2}           # feed column types
+
+
+class JoinRef(C.Structure):
+    _fields_ = [("src", C.c_int32), ("jm", C.c_int32), ("jo", C.c_int32)]
+
+
+class JoinFeedCol(C.Structure):
+    _fields_ = [("ref", JoinRef), ("tag", C.c_int32), ("out", C.c_void_p)]
+
+
+class JoinNull(C.Structure):
+    _fields_ = [("first", C.c_int32), ("count", C.c_int32),
+                ("out", C.c_void_p)]
+
+
+class JoinProbeArgs(C.Structure):
+    _fields_ = [("cap", C.c_int32), ("bcap", C.c_int32), ("n", C.c_int32),
+                ("within", C.c_int32), ("cutoff", C.c_int32),
+                ("match_cap", C.c_int32), ("mode", C.c_int32),
+                ("n_cols_mine", C.c_int32), ("n_cols_other", C.c_int32),
+                ("batch", C.c_void_p), ("o_code", C.c_void_p),
+                ("o_ts", C.c_void_p), ("o_flags", C.c_void_p),
+                ("o_cols", C.c_void_p), ("packed", C.c_void_p),
+                ("ts_off", C.c_int32), ("kid", C.c_void_p),
+                ("ts", C.c_void_p), ("valid", C.c_void_p),
+                ("n_feed", C.c_int32),
+                ("feed", JoinFeedCol * JOIN_MAX_FEED),
+                ("n_nulls", C.c_int32), ("nulls", JoinNull * JOIN_MAX_NULLS),
+                ("filter_first", C.c_int32), ("filter_count", C.c_int32),
+                ("refs", JoinRef * JOIN_MAX_REFS), ("scratch", C.c_void_p)]
+
+
+class JoinInsertArgs(C.Structure):
+    _fields_ = [("cap", C.c_int32), ("bcap", C.c_int32), ("n", C.c_int32),
+                ("n_cols", C.c_int32), ("code", C.c_void_p),
+                ("ts", C.c_void_p), ("flags", C.c_void_p),
+                ("cols", C.c_void_p), ("batch", C.c_void_p),
+                ("out_code", C.c_void_p), ("out_ts", C.c_void_p),
+                ("out_flags", C.c_void_p), ("out_cols", C.c_void_p)]
+
+
+class JoinEvictSide(C.Structure):
+    _fields_ = [("n_cols", C.c_int32), ("code", C.c_void_p),
+                ("ts", C.c_void_p), ("flags", C.c_void_p),
+                ("cols", C.c_void_p), ("out_code", C.c_void_p),
+                ("out_ts", C.c_void_p), ("out_flags", C.c_void_p),
+                ("out_cols", C.c_void_p)]
+
+
+class JoinEvictArgs(C.Structure):
+    _fields_ = [("cap", C.c_int32), ("cutoff", C.c_int32),
+                ("delta", C.c_int32), ("s", JoinEvictSide * 2),
+                ("n_out", C.c_void_p), ("scratch", C.c_void_p)]
+
+
 _lock = threading.Lock()
 _lib: C.CDLL | None = None
 
@@ -168,7 +230,10 @@ def lib() -> C.CDLL:
                              ("hs_session_step", [C.POINTER(SessionArgs)]),
                              ("hs_session_merge", [C.POINTER(SessionArgs)]),
                              ("hs_session_extract",
-                              [C.POINTER(SessExtractArgs)])):
+                              [C.POINTER(SessExtractArgs)]),
+                             ("hs_join_probe", [C.POINTER(JoinProbeArgs)]),
+                             ("hs_join_insert", [C.POINTER(JoinInsertArgs)]),
+                             ("hs_join_evict", [C.POINTER(JoinEvictArgs)])):
                 getattr(dll, fn).argtypes = args + [C.c_void_p]
                 getattr(dll, fn).restype = C.c_int
             dll.hs_rebase.argtypes = [C.c_void_p, C.c_int32, C.c_int32,
@@ -176,10 +241,14 @@ def lib() -> C.CDLL:
             dll.hs_rebase.restype = C.c_int
             dll.hs_session_remap.argtypes = [C.c_void_p, C.c_int32,
                                              C.c_void_p, C.c_int32,
-                                             C.c_void_p]
+                                             C.c_int32, C.c_void_p]
             dll.hs_session_remap.restype = C.c_int
             dll.hs_session_scratch_bytes.argtypes = [C.c_int32, C.c_int32]
             dll.hs_session_scratch_bytes.restype = C.c_int64
+            for fn in ("hs_join_probe_scratch_bytes",
+                       "hs_join_evict_scratch_bytes"):
+                getattr(dll, fn).argtypes = [C.c_int32]
+                getattr(dll, fn).restype = C.c_int64
             dll.hs_touched_blocks.argtypes = [C.c_int32]
             dll.hs_touched_blocks.restype = C.c_int
             dll.hs_error_string.argtypes = [C.c_int]

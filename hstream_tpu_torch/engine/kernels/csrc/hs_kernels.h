@@ -243,6 +243,109 @@ struct HsSessExtractArgs {
     HsFinalize f;          // a[g].plane: the arena plane agg g reads
 };
 
+// ---- the interval join (join_core.cuh and the three join_*.cu) --------
+
+#define HS_JOIN_SENT (1 << 22)         // code of an empty or evicted slot
+#define HS_JOIN_MAX_COLS 14            // columns per side (2 flag bits each)
+#define HS_JOIN_MAX_FEED 16            // inner-step columns the feed writes
+#define HS_JOIN_MAX_NULLS 16           // __null_a{i} masks the feed writes
+#define HS_JOIN_MAX_REFS 64            // column references of masks + filter
+
+enum { HS_JOIN_PACK = 0, HS_JOIN_FEED = 1 };            // probe modes
+enum { HS_JOIN_M = 0, HS_JOIN_O = 1, HS_JOIN_BOTH = 2,  // feed sources
+       HS_JOIN_BOTH_O = 3 };
+enum { HS_JOIN_F32 = 0, HS_JOIN_I32 = 1, HS_JOIN_BOOL = 2 };  // feed tags
+
+// one column reference of the feed: which side holds it and its index in
+// the probing side's layout (jm) and the probed store's (jo), -1 = none
+struct HsJoinRef {
+    int32_t src;           // HS_JOIN_M / _O / _BOTH / _BOTH_O
+    int32_t jm;
+    int32_t jo;
+};
+
+// one inner-step column the feed resolves
+struct HsJoinFeedCol {
+    HsJoinRef ref;
+    int32_t tag;           // HS_JOIN_F32 / _I32 / _BOOL
+    void *out;             // [match_cap]: f32 bits / int32 / bool bytes
+};
+
+// one aggregate's NULL mask: the OR of refs[first .. first + count)
+struct HsJoinNull {
+    int32_t first;
+    int32_t count;
+    uint8_t *out;          // [match_cap] bool
+};
+
+struct HsJoinProbeArgs {
+    int32_t cap;           // probed store slots
+    int32_t bcap;          // batch columns
+    int32_t n;             // records in the batch (the rest is padding)
+    int32_t within;        // ms
+    int32_t cutoff;        // entries with ts < cutoff are invisible
+    int32_t match_cap;     // match columns written
+    int32_t mode;          // HS_JOIN_PACK / HS_JOIN_FEED
+    int32_t n_cols_mine;   // probing side's stored columns
+    int32_t n_cols_other;  // probed store's stored columns
+    const int32_t *batch;  // [4 + n_cols_mine, bcap]: code, ts, kid, flags,
+                           // cols; sorted by (code, ts)
+    const int32_t *o_code; // probed store [cap], sorted by (code, ts)
+    const int32_t *o_ts;
+    const int32_t *o_flags;
+    const int32_t *o_cols; // [n_cols_other, cap]
+    int32_t *packed;       // pack: [5 + n_cols_mine + n_cols_other, match_cap]
+    int32_t ts_off;        // feed: added to the joined ts (int32 wrap)
+    int32_t *kid;          // feed: [match_cap]
+    int32_t *ts;
+    uint8_t *valid;
+    int32_t n_feed;
+    HsJoinFeedCol feed[HS_JOIN_MAX_FEED];
+    int32_t n_nulls;
+    HsJoinNull nulls[HS_JOIN_MAX_NULLS];
+    int32_t filter_first;  // filter-NULL refs: refs[first .. first + count)
+    int32_t filter_count;
+    HsJoinRef refs[HS_JOIN_MAX_REFS];
+    void *scratch;         // hs_join_probe_scratch_bytes(bcap) bytes
+};
+
+struct HsJoinInsertArgs {
+    int32_t cap;           // store slots (in and out)
+    int32_t bcap;
+    int32_t n;
+    int32_t n_cols;
+    const int32_t *code;   // the store [cap], sorted by (code, ts)
+    const int32_t *ts;
+    const int32_t *flags;
+    const int32_t *cols;   // [n_cols, cap]
+    const int32_t *batch;  // [4 + n_cols, bcap], sorted by (code, ts)
+    int32_t *out_code;     // the other store [cap]
+    int32_t *out_ts;
+    int32_t *out_flags;
+    int32_t *out_cols;
+};
+
+struct HsJoinEvictSide {
+    int32_t n_cols;
+    const int32_t *code;   // [cap], sorted by (code, ts)
+    const int32_t *ts;
+    const int32_t *flags;
+    const int32_t *cols;   // [n_cols, cap]
+    int32_t *out_code;
+    int32_t *out_ts;
+    int32_t *out_flags;
+    int32_t *out_cols;
+};
+
+struct HsJoinEvictArgs {
+    int32_t cap;           // slots of each side
+    int32_t cutoff;        // live: code < SENT and ts >= cutoff
+    int32_t delta;         // survivors' ts -= delta (int32 wrap)
+    HsJoinEvictSide s[2];  // left, right
+    int32_t *n_out;        // [2] live counts
+    void *scratch;         // hs_join_evict_scratch_bytes(cap) bytes
+};
+
 extern "C" {
 int hs_decode(const HsDecodeArgs *args, void *stream);
 int hs_expr(const HsExprArgs *args, void *stream);
@@ -258,6 +361,11 @@ int hs_session_step(const HsSessionArgs *args, void *stream);
 int hs_session_merge(const HsSessionArgs *args, void *stream);
 int hs_session_extract(const HsSessExtractArgs *args, void *stream);
 int hs_session_remap(int32_t *code, int32_t cap, const int32_t *lut,
-                     int32_t lcap, void *stream);
+                     int32_t lcap, int32_t sent_above, void *stream);
+int64_t hs_join_probe_scratch_bytes(int32_t bcap);
+int64_t hs_join_evict_scratch_bytes(int32_t cap);
+int hs_join_probe(const HsJoinProbeArgs *args, void *stream);
+int hs_join_insert(const HsJoinInsertArgs *args, void *stream);
+int hs_join_evict(const HsJoinEvictArgs *args, void *stream);
 const char *hs_error_string(int err);
 }

@@ -481,13 +481,17 @@ def session_extract_ref(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
 
 
 def session_remap_ref(arena: dict[str, torch.Tensor],
-                      lut: torch.Tensor) -> None:
+                      lut: torch.Tensor, sent_above: bool = False) -> None:
     """Plain remap (session_remap_kernel, lattice.py:1553-1568), in place:
-    code < lcap ? lut[clip(code)] : code."""
+    code < lcap ? lut[clip(code)] : code. With `sent_above` (the interval
+    join's remap, join.py:2092-2108) a code at or above lcap becomes the
+    sentinel 2^22 instead."""
     code = arena["code"]
     lcap = lut.shape[0]
     mapped = lut[torch.clamp(code, 0, lcap - 1).to(torch.int64)]
-    code.copy_(torch.where(code < lcap, mapped, code))
+    above = (torch.full_like(code, kb.SESSION_SENT) if sent_above
+             else code)
+    code.copy_(torch.where(code < lcap, mapped, above))
 
 
 # ---- the kernels' wrappers --------------------------------------------------
@@ -681,20 +685,23 @@ def session_extract(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
 session_extract.launches = 0  # wrapper calls that launched the kernel
 
 
-def session_remap(arena: dict[str, torch.Tensor], lut: torch.Tensor) -> None:
-    """Remap the arena's codes through the pow2-padded `lut` (int32
-    [lcap], on the arena's device), in place: the remap kernel on the
+def session_remap(arena: dict[str, torch.Tensor], lut: torch.Tensor,
+                  sent_above: bool = False) -> None:
+    """Remap the arena's codes through `lut` (int32 [lcap], on the arena's
+    device), in place; with `sent_above`, codes at or above lcap become
+    the sentinel (the interval join's stores). The remap kernel on the
     card, session_remap_ref on the CPU."""
     code = arena["code"]
     if lut.dtype != torch.int32 or lut.device != code.device:
         raise ValueError("session_remap: lut must be int32 on the arena's "
                          "device")
     if code.device.type == "cpu":
-        session_remap_ref(arena, lut)
+        session_remap_ref(arena, lut, sent_above)
         return
     kb.check(kb.lib().hs_session_remap(kb.ptr(code), code.shape[0],
                                        kb.ptr(lut), lut.shape[0],
-                                       kb.stream_of(code)), "session_remap")
+                                       int(sent_above), kb.stream_of(code)),
+             "session_remap")
     session_remap.launches += 1
 
 

@@ -1,0 +1,171 @@
+"""Raw SQL AST produced by the parser.
+
+Mirrors the shape of the reference's BNFC-generated abstract syntax
+(hstream-sql AST before `Refine` — see AST.hs): statements, select
+structure, search conditions and value expressions. Scalar/aggregate
+expressions reuse the engine's Expr nodes (Col/Lit/BinOp/UnOp) directly,
+plus SQL-only wrappers defined here for aggregates and intervals.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+from typing import Any
+
+from hstream_tpu_torch.engine.expr import Expr
+
+
+# ---- aggregates (set functions) -------------------------------------------
+
+class SetFuncKind(enum.Enum):
+    COUNT_ALL = "COUNT(*)"
+    COUNT = "COUNT"
+    AVG = "AVG"
+    SUM = "SUM"
+    MAX = "MAX"
+    MIN = "MIN"
+    TOPK = "TOPK"
+    TOPKDISTINCT = "TOPKDISTINCT"
+    APPROX_COUNT_DISTINCT = "APPROX_COUNT_DISTINCT"
+    APPROX_QUANTILE = "APPROX_QUANTILE"
+
+
+@dataclass(frozen=True)
+class SetFunc(Expr):
+    """An aggregate call appearing inside a select-list expression."""
+
+    kind: SetFuncKind
+    arg: Expr | None = None       # None for COUNT(*)
+    arg2: Any = None              # k for TOPK / quantile for APPROX_QUANTILE
+    text: str = ""                # original SQL text, used as default name
+
+
+# ---- intervals & windows ---------------------------------------------------
+
+_UNIT_MS = {
+    "SECOND": 1000,
+    "MINUTE": 60_000,
+    "HOUR": 3_600_000,
+    "DAY": 86_400_000,
+    "WEEK": 7 * 86_400_000,
+    "MONTH": 30 * 86_400_000,
+    "YEAR": 365 * 86_400_000,
+}
+
+
+@dataclass(frozen=True)
+class Interval:
+    amount: int
+    unit: str  # SECOND/MINUTE/...
+
+    @property
+    def ms(self) -> int:
+        return self.amount * _UNIT_MS[self.unit]
+
+
+class WindowKind(enum.Enum):
+    TUMBLING = "TUMBLING"
+    HOPPING = "HOPPING"
+    SESSION = "SESSION"
+
+
+@dataclass(frozen=True)
+class WindowExpr:
+    kind: WindowKind
+    size: Interval
+    advance: Interval | None = None   # HOPPING only
+    grace: Interval | None = None     # extension: GRACE BY
+
+
+# ---- select ----------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SelectItem:
+    expr: Expr               # may contain SetFunc nodes
+    alias: str | None
+    text: str                # original SQL text
+
+
+@dataclass(frozen=True)
+class StreamRef:
+    name: str
+    alias: str | None = None
+
+
+@dataclass(frozen=True)
+class JoinClause:
+    join_type: str           # INNER / LEFT / OUTER
+    right: StreamRef
+    within: Interval | None  # None = stream-table join (JOIN TABLE(x))
+    on: Expr
+    table: bool = False      # right side is a keyed last-value table
+
+
+@dataclass(frozen=True)
+class Select:
+    items: list[SelectItem] | None     # None = SELECT *
+    source: StreamRef
+    join: JoinClause | None
+    where: Expr | None
+    group_by: list[Expr]
+    window: WindowExpr | None
+    having: Expr | None
+    emit_changes: bool                 # False = SelectView (pull query)
+
+
+# ---- statements ------------------------------------------------------------
+
+@dataclass(frozen=True)
+class CreateStream:
+    name: str
+    options: dict[str, Any] = field(default_factory=dict)
+    as_select: Select | None = None
+
+
+@dataclass(frozen=True)
+class CreateView:
+    name: str
+    select: Select
+
+
+@dataclass(frozen=True)
+class CreateConnector:
+    name: str
+    options: dict[str, Any]
+    if_not_exist: bool = False
+
+
+@dataclass(frozen=True)
+class Insert:
+    stream: str
+    fields: list[str] | None      # field-list form
+    values: list[Any] | None
+    json_payload: str | None      # INSERT ... VALUES '{"a": 1}'
+    binary_payload: str | None    # INSERT ... VALUES "raw"
+
+
+@dataclass(frozen=True)
+class Show:
+    what: str  # QUERIES STREAMS CONNECTORS VIEWS
+
+
+@dataclass(frozen=True)
+class Drop:
+    what: str  # STREAM VIEW CONNECTOR
+    name: str
+    if_exists: bool = False
+
+
+@dataclass(frozen=True)
+class Terminate:
+    query_id: str | None  # None = TERMINATE ALL
+
+
+@dataclass(frozen=True)
+class Explain:
+    stmt: "Statement"
+
+
+Statement = (Select | CreateStream | CreateView | CreateConnector | Insert
+             | Show | Drop | Terminate | Explain)

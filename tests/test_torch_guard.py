@@ -73,9 +73,25 @@ def test_port_imports_with_jax_blocked_and_loads_no_jax_package_module():
     assert int(out.stdout.strip()) >= 15  # every module of the slice
 
 
-@pytest.mark.parametrize("path", sorted(
-    [p for p in PKG.rglob("*.py")] + [REPO / "chip_smoke.py"]),
-    ids=lambda p: str(p.relative_to(REPO)))
+SOURCES = sorted([p for p in PKG.rglob("*.py")] + [REPO / "chip_smoke.py"])
+
+
+def test_the_source_guard_covers_every_slice():
+    """The import guard below reads every module of the port, the SQL
+    plan types and the join slice among them."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    for want in ("hstream_tpu_torch/sql/ast.py",
+                 "hstream_tpu_torch/sql/plans.py",
+                 "hstream_tpu_torch/sql/codegen.py",
+                 "hstream_tpu_torch/sql/__init__.py",
+                 "hstream_tpu_torch/engine/join.py",
+                 "hstream_tpu_torch/engine/join_lattice.py",
+                 "hstream_tpu_torch/engine/session.py", "chip_smoke.py"):
+        assert want in names, want
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_jax_package_import_in_source(path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):

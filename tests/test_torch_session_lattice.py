@@ -386,7 +386,12 @@ def test_binding_structs_mirror_the_header():
           "HsFinalize": kb.Finalize, "HsCloseArgs": kb.CloseArgs,
           "HsTouchedArgs": kb.TouchedArgs, "HsSessPlane": kb.SessPlane,
           "HsSessionArgs": kb.SessionArgs,
-          "HsSessExtractArgs": kb.SessExtractArgs}
+          "HsSessExtractArgs": kb.SessExtractArgs,
+          "HsJoinRef": kb.JoinRef, "HsJoinFeedCol": kb.JoinFeedCol,
+          "HsJoinNull": kb.JoinNull, "HsJoinProbeArgs": kb.JoinProbeArgs,
+          "HsJoinInsertArgs": kb.JoinInsertArgs,
+          "HsJoinEvictSide": kb.JoinEvictSide,
+          "HsJoinEvictArgs": kb.JoinEvictArgs}
     assert set(structs) == set(py)
     for cname, fields in structs.items():
         cls = py[cname]

@@ -118,3 +118,34 @@ def drive(jex, tex, batches, columnar=False, quantiles=()):
         assert not tex.has_pending_changes()
     assert_rows_equal(want_all, out, quantiles)
     return out
+
+
+def plan_from(obj):
+    """The port's twin of a JAX-package plan object, rebuilt recursively:
+    each dataclass or enum of `hstream_tpu.<mod>` becomes the class of
+    the same name in `hstream_tpu_torch.<mod>` (SelectPlan, the engine's
+    plan nodes, expressions, windows, schema types, the JOIN clause),
+    with lists, tuples and dicts rebuilt element by element."""
+    import dataclasses
+    import enum
+    import importlib
+
+    def twin(cls):
+        mod = cls.__module__
+        assert mod.startswith("hstream_tpu."), mod
+        return getattr(importlib.import_module(
+            "hstream_tpu_torch." + mod.split(".", 1)[1]), cls.__name__)
+
+    if isinstance(obj, enum.Enum):
+        return twin(type(obj))[obj.name]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        vals = {f.name: plan_from(getattr(obj, f.name))
+                for f in dataclasses.fields(obj) if f.init}
+        return twin(type(obj))(**vals)
+    if isinstance(obj, list):
+        return [plan_from(v) for v in obj]
+    if isinstance(obj, tuple):
+        return tuple(plan_from(v) for v in obj)
+    if isinstance(obj, dict):
+        return {plan_from(k): plan_from(v) for k, v in obj.items()}
+    return obj

@@ -27,7 +27,11 @@ Phases, each of which asserts (any failure exits non-zero):
    on both sides, filter-NULL columns and a WHERE; the two-sided
    eviction with delta 0, > 0 and < 0; equal (code, ts) runs across
    store and batch, sentinels that kept their columns, entries below the
-   cutoff, negative times, n = 0; the remap kernel's sentinel flag);
+   cutoff, negative times, n = 0; the remap kernel's sentinel flag),
+   and the packed transport's unpack (bool, i32 and f32 columns, NULL
+   masks behind a leading COUNT(*), padding past n, NaN and +-0.0) with
+   the whole packed step, and the per-slot extract and reset on every
+   slot of three lattices;
 4. main path, config 1 (BASELINE 1/3): COUNT(*), SUM(temp),
    APPROX_COUNT_DISTINCT(temp) GROUP BY device, TUMBLE(10s) over 1000
    keys, 2^20-record batches through IngestPipeline past two window
@@ -69,7 +73,26 @@ Phases, each of which asserts (any failure exits non-zero):
    batches, match buffers fetched stacked; and each join kernel held
    against its plain version on one call kept from these paths and
    timed there;
-9. a {"kernels": [...]} line (each kernel's launches on the main paths,
+9. (9a) config 1's stream packed by lattice.pack_batch_host into pinned
+   buffers, uploaded and stepped by compiled(...).step (the unpack
+   kernel, then the scatter), each due window closed by extract_slot then
+   reset_slot, rows against numpy; (9b) config 2 through IngestPipeline
+   with the per-slot close (`_fused_close_ok = False`), then a watermark
+   jump that closes the six windows still open, several in a cycle: rows
+   against numpy, two launches and one fetch per window;
+10. SQL text to a restored query: (a, b) CREATE STREAM ... AS SELECT
+   device, COUNT(*), SUM(temp), APPROX_COUNT_DISTINCT(temp) ... TUMBLING
+   (10 s) GRACE 0 EMIT CHANGES lowered by the port's stream_codegen and
+   built by make_executor, config 1's 101 batches through IngestPipeline;
+   at batch 25 the changelog is flushed, the executor captured, stepped
+   once more, serialized, sealed, opened and restored on the card, and
+   the restored one continues: its changelog equals an uninterrupted
+   run's row for row, every final change equals numpy; (c) a session
+   snapshot (config 4's query as a CREATE VIEW, cut to 10,000 user slots
+   and 8 batches) and a join snapshot (phase 8b's query and size), each
+   from SQL text, restored, re-activated on the card and equal to an
+   uninterrupted run;
+11. a {"kernels": [...]} line (each kernel's launches on the main paths,
    its error against the plain version and its times), the card line,
    and last {"ok": true, "device": {...}}.
 
@@ -89,7 +112,12 @@ order bound per slot (n the terms folded into it). The join kernels'
 match buffers, stores and live counts are exact, and so are the fused
 step's state planes (its phase-3 inputs are multiples of 1/4, its path
 holds counts only); the join paths' counts are exact, 8b's SUM within
-the order bound. Details go to smoke_out/chip_smoke.json.
+the order bound. The unpack, the packed step on its awkward batch (its
+sums are exact in any order), the per-slot extract and reset are exact;
+phase 10's restored changelog has exact counts and HLL estimates and
+SUMs within twice the order bound of the uninterrupted run's, its
+sessions and join finals are exact (the join's SUM within the order
+bound of numpy's). Details go to smoke_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -200,11 +228,14 @@ def _wrappers() -> dict:
     from hstream_tpu_torch.engine import session_lattice as sl
 
     return {"wire_decode": transport.decode_batch,
+            "unpack": lattice.unpack,
             "expression": expr.eval_programs,
             "scatter_aggregate": lattice.scatter_step,
             "topk_fold": lattice.topk_step,
             "fused_close": lattice.close_slots,
             "reset_close": lattice.reset_slots,
+            "extract_slot": lattice.extract_slot,
+            "reset_slot": lattice.reset_slot,
             "touched_extract": lattice.extract_touched,
             "rebase": lattice.rebase,
             "session_step": sl.session_step,
@@ -1961,15 +1992,15 @@ class SessionStream:
     iff (b + s) mod 16 < 8 and takes a fresh user id with probability
     3/4 at the start of each on-phase; lat = |normal(50, 20)|."""
 
-    def __init__(self, seed: int, n_batches: int):
+    def __init__(self, seed: int, n_batches: int, users: int = SESS_USERS):
         rng = np.random.default_rng(seed)
-        slots = np.arange(SESS_USERS)
+        slots = np.arange(users)
         ids = slots.copy()
-        nxt = SESS_USERS
+        nxt = users
         self.uids, self.ts, self.lats = [], [], []
         for b in range(n_batches):
             start = (b + slots) % 16 == 0
-            fresh = start & (rng.random(SESS_USERS) < 0.75) & (b > 0)
+            fresh = start & (rng.random(users) < 0.75) & (b > 0)
             k = int(fresh.sum())
             ids[fresh] = np.arange(nxt, nxt + k)
             nxt += k
@@ -3260,6 +3291,655 @@ def time_join_kernels(dev, results, captured):
         f"{plain:.4f}, bound {b_ms:.4f} by {b_by})")
 
 
+# ---- phase 3: the packed transport (B10) and the per-slot close (B9) --------
+
+PACK_LAYOUT = (("b", "bool"), ("i", "i32"), ("x", "f32"))
+
+
+def packed_case(dev):
+    """An awkward packed batch and its query: COUNT(*) first (so the
+    packer and the unpacker number the NULL masks differently, as the
+    reference does), SUM(x), MAX(i), COUNT(b), APPROX_COUNT_DISTINCT(x)
+    and TOPK(x, 3) WHERE x > -50 AND NOT b, over bool, i32 and f32
+    columns with NULL masks, NaN, +-inf and +-0.0, invalid rows and
+    padding past n. Values are multiples of 1/4 below 100, so every SUM
+    cell is exact in float32 in any order."""
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine.expr import BinOp, Col, Lit, UnOp
+    from hstream_tpu_torch.engine.plan import AggKind as A
+    from hstream_tpu_torch.engine.plan import AggSpec
+    from hstream_tpu_torch.engine.types import ColumnType, Schema
+    from hstream_tpu_torch.engine.window import TumblingWindow
+
+    schema = Schema.of(device=ColumnType.STRING, x=ColumnType.FLOAT,
+                       i=ColumnType.INT, b=ColumnType.BOOL)
+    aggs = (AggSpec(A.COUNT_ALL, "c"), AggSpec(A.SUM, "s", input=Col("x")),
+            AggSpec(A.MAX, "hi", input=Col("i")),
+            AggSpec(A.COUNT, "nb", input=Col("b")),
+            AggSpec(A.APPROX_COUNT_DISTINCT, "u", input=Col("x")),
+            AggSpec(A.TOPK, "t", input=Col("x"), k=TOPK_K))
+    where = BinOp("AND", BinOp(">", Col("x"), Lit(-50.0)),
+                  UnOp("NOT", Col("b")))
+    spec = lattice.LatticeSpec(n_keys=1024,
+                               window=TumblingWindow(10_000, grace_ms=0),
+                               aggs=aggs, track_touched=True)
+    progs = lattice.step_programs(spec, schema, where)
+    null_keys = lattice.compile_agg_inputs(spec, schema)[1]
+    rng = np.random.default_rng(31)
+    n = BATCH - 777
+    key = rng.integers(0, N_KEYS, n).astype(np.int32)
+    key[::997] = 1024 + 5
+    ts = (200_000 + np.sort(rng.integers(0, 30_000, n))).astype(np.int64)
+    ts[::1009] = -rng.integers(1, 25_000, ts[::1009].shape[0])
+    x = (np.rint(rng.normal(20, 20, n) * 4) / 4).astype(np.float32)
+    x = np.clip(x, -99.75, 99.75)
+    x[::3001] = np.nan
+    x[1::4001] = np.inf
+    x[2::5003] = -0.0
+    x[3::5009] = 0.0
+    cols = {"x": x, "i": rng.integers(-1000, 1000, n).astype(np.int32),
+            "b": rng.random(n) < 0.2}
+    masks = [None] + [rng.random(n) < 0.02 for _ in aggs[1:]]
+    valid = rng.integers(0, 50, n) > 0
+    buf = lattice.pack_batch_host(BATCH, n, key, ts, valid, cols, masks,
+                                  PACK_LAYOUT)
+    return spec, progs, null_keys, torch.from_numpy(buf).to(dev)
+
+
+def step_packed_plain(spec, state, wm, packed, layout, null_keys, progs):
+    """The plain versions of the packed step on the same tensors: the
+    plain unpack, the expression programs, the scatter and the top-k
+    fold."""
+    from hstream_tpu_torch.engine import lattice
+
+    key, ts, valid, cols = lattice.unpack_batch(packed, layout, null_keys)
+    valid = valid.clone()
+    for prog, name in progs:
+        r = prog(cols)
+        if name is None:
+            valid.logical_and_(r)
+        else:
+            cols[name] = r
+    lattice.scatter_step_ref(spec, state, wm, key, ts, valid, cols)
+    lattice.topk_step_ref(spec, state, wm, key, ts, valid, cols)
+
+
+def headline_packed(dev):
+    """Config 1's headline batch as the packed transport carries it:
+    int32 [4, 2^20] (key, ts, flags, temp), no NULLs."""
+    from hstream_tpu_torch.engine import lattice
+
+    rng = np.random.default_rng(3)
+    kids = rng.integers(0, N_KEYS, BATCH).astype(np.int32)
+    ts = 10_000 + (np.arange(BATCH, dtype=np.int64) * 200) // BATCH
+    temps = (np.rint(rng.normal(20, 5, BATCH) * 10).astype(np.float32)
+             * np.float32(0.1))
+    buf = lattice.pack_batch_host(BATCH, BATCH, kids, ts, None,
+                                  {"temp": temps}, [None, None, None],
+                                  (("temp", "f32"),))
+    return torch.from_numpy(buf).to(dev)
+
+
+def check_unpack(dev, results):
+    """B10: the unpack kernel against the plain unpack, and the packed
+    step (unpack, expression, scatter, top-k kernels) against the plain
+    versions, on the awkward batch; then both timed at config 1's
+    headline [4, 2^20]."""
+    from hstream_tpu_torch.engine import lattice
+
+    spec, progs, null_keys, packed = packed_case(dev)
+    assert null_keys == (None,) + tuple(f"__null_a{i}" for i in range(1, 6))
+    got = lattice.unpack(packed, PACK_LAYOUT, null_keys)
+    want = lattice.unpack_batch(packed, PACK_LAYOUT, null_keys)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got[:3], want[:3], ("key", "ts", "valid")):
+        assert torch.equal(g, w), f"unpack: {what} differs"
+    assert got[0].data_ptr() == packed[0].data_ptr()
+    assert set(got[3]) == set(want[3])
+    for k in want[3]:
+        assert same_bits(got[3][k], want[3][k]), f"unpack: {k} differs"
+    assert got[3]["x"].data_ptr() == packed[5].data_ptr()
+    assert not bool(got[2][BATCH - 777:].any()), "padding is valid"
+    # the reference's numbering: mask j lands in bit 1 + j, read from
+    # bit j; the last aggregate's mask is never read
+    assert torch.equal(got[3]["__null_a1"], ((packed[2] >> 1) & 1) != 0)
+    assert torch.equal(got[3]["__null_a2"], ((packed[2] >> 2) & 1) != 0)
+    wm = 205_000
+    state = lattice.init_state(spec, dev)
+    for rnd in range(2):
+        a, b = copy_state(state), copy_state(state)
+        lattice.step_packed(spec, a, wm, packed, PACK_LAYOUT, null_keys,
+                            progs)
+        step_packed_plain(spec, b, wm, packed, PACK_LAYOUT, null_keys, progs)
+        torch.cuda.synchronize()
+        for k in b:
+            assert same_bits(a[k], b[k], k), f"step_packed round {rnd}: {k}"
+        state = b
+    assert int(state["count"].sum()) > 0
+    # timed at the main path's shapes: config 1's headline batch
+    spec1 = make_spec(1)
+    head = headline_packed(dev)
+    lay1, nk1 = (("temp", "f32"),), (None, "__null_a1", "__null_a2")
+    h_got = lattice.unpack(head, lay1, nk1)
+    h_want = lattice.unpack_batch(head, lay1, nk1)
+    torch.cuda.synchronize()
+    assert torch.equal(h_got[2], h_want[2])
+    for k in h_want[3]:
+        assert same_bits(h_got[3][k], h_want[3][k]), f"headline unpack {k}"
+    ms, call, src = kernel_ms(lambda: lattice.unpack(head, lay1, nk1), 50)
+    plain = kernel_ms(lambda: lattice.unpack_batch(head, lay1, nk1), 50)[0]
+    flags = head[2]
+
+    def library():
+        return ((flags & 1) != 0, ((flags >> 1) & 1) != 0,
+                ((flags >> 2) & 1) != 0)
+
+    lib_ms = kernel_ms(library, 50)[0]
+    # reads the flags row once, writes valid and two one-byte masks
+    b_ms, b_by = bound(BATCH * (4 + 3), BATCH * 6)
+    st = lattice.init_state(spec1, dev)
+    step_ms, step_call, _ = kernel_ms(lambda: lattice.step_packed(
+        spec1, st, -1, head, lay1, nk1), 30)
+    results["unpack"] = dict(
+        route="cuda",
+        source="hstream_tpu_torch/engine/kernels/csrc/unpack.cu",
+        replaces="hstream_tpu/engine/lattice.py:374",
+        max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, call_ms=call, ms_source=src,
+        step_packed_ms=step_ms, step_packed_call_ms=step_call)
+    log(f"unpack: exact (bool, i32, f32, NULL masks behind COUNT(*), "
+        f"padding); step_packed exact on every plane; {ms:.4f} ms (plain "
+        f"{plain:.4f}, library {lib_ms:.4f}, bound {b_ms:.5f}); "
+        f"step_packed {step_ms:.4f} ms device, {step_call:.4f} ms call "
+        f"at [4, 2^20]")
+
+
+def check_slot_close(dev, results, states, chg):
+    """B9: the per-slot extract and reset against their plain versions on
+    every slot of config 1's, config 2's and the changelog query's
+    planes; then timed on one filled slot of config 1's headline
+    lattice."""
+    from hstream_tpu_torch.engine import lattice
+
+    cspec, progs, (key, ts, valid, cols), _ = chg
+    cstate = lattice.init_state(cspec, dev)
+    lattice.step_decoded(cspec, cstate, -1, key, ts, valid.clone(),
+                         dict(cols), progs)
+    cases = [(make_spec(1), states[1]), (make_spec(2), states[2]),
+             (cspec, cstate)]
+    n = 0
+    for spec, state in cases:
+        for slot in range(spec.n_slots):
+            got = lattice.extract_slot(spec, state, slot)
+            want = lattice.extract_slot_ref(spec, state, slot)
+            a, b = copy_state(state), copy_state(state)
+            lattice.reset_slot(spec, a, slot)
+            lattice.reset_slot_ref(spec, b, slot)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"extract_slot {slot} differs"
+            for k in b:
+                assert torch.equal(a[k], b[k]), f"reset_slot {slot}: {k}"
+            n += 1
+    # timed at the main path's shape: config 1, K = 1024, one filled slot
+    spec = make_spec(1)
+    st = lattice.init_state(spec, dev)
+    head = headline_packed(dev)
+    lattice.step_packed(spec, st, -1, head, (("temp", "f32"),),
+                        (None, "__null_a1", "__null_a2"))
+    slot = int(torch.nonzero(st["count"].sum(0))[0])
+    ms, call, src = kernel_ms(lambda: lattice.extract_slot(spec, st, slot),
+                              50)
+    plain = kernel_ms(lambda: lattice.extract_slot_ref(spec, st, slot),
+                      10)[0]
+    K = spec.n_keys
+    rows = 2 + lattice.out_rows(spec)
+    b_ms, b_by = bound(K * (4 + 4 + 1024) + 4 + rows * K * 4, K * 1024 * 4)
+    work = copy_state(st)
+    rms, rcall, rsrc = kernel_ms(lambda: lattice.reset_slot(spec, work,
+                                                            slot), 50)
+    rplain = kernel_ms(lambda: lattice.reset_slot_ref(spec, work, slot),
+                       10)[0]
+    rb_ms, rb_by = bound(K * (4 + 1 + 4 + 1024) + 4, 0)
+    results["extract_slot"] = dict(
+        route="cuda",
+        source="hstream_tpu_torch/engine/kernels/csrc/close.cu",
+        replaces="hstream_tpu/engine/lattice.py:529",
+        max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, call_ms=call, ms_source=src)
+    results["reset_slot"] = dict(
+        route="cuda",
+        source="hstream_tpu_torch/engine/kernels/csrc/close.cu",
+        replaces="hstream_tpu/engine/lattice.py:547",
+        max_abs_err=0.0, ms=rms, plain_ms=rplain, bound_ms=rb_ms,
+        bound_by=rb_by, library_ms=None, call_ms=rcall, ms_source=rsrc)
+    log(f"extract_slot / reset_slot: {n} slots of three lattices exact; "
+        f"extract {ms:.4f} ms (plain {plain:.4f}, bound {b_ms:.5f}), reset "
+        f"{rms:.4f} ms (plain {rplain:.4f}, bound {rb_ms:.5f})")
+
+
+# ---- phase 9: B10 + B9 through CompiledLattice and the executor -------------
+
+def compiled_path(dev) -> dict:
+    """Phase 9a: config 1's stream (1000 keys, 101 batches of 2^20) packed
+    by lattice.pack_batch_host into two pinned buffers, uploaded, stepped
+    by compiled(...).step (the unpack kernel, then the scatter), and each
+    window the watermark closes closed by extract_slot then reset_slot
+    (the legacy loop of tests/test_close_batched.py:75-90); rows against
+    phase 4's numpy reference."""
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine.types import ColumnType, Schema
+
+    spec = make_spec(1)
+    schema = Schema.of(device=ColumnType.STRING, temp=ColumnType.FLOAT)
+    layout = (("temp", "f32"),)
+    fns = lattice.compiled(spec, schema, None,
+                           lattice.touched_max_out(spec, BATCH), layout)
+    assert fns.null_keys == (None, "__null_a1", "__null_a2")
+    state = lattice.init_state(spec, dev)
+    size = adv = spec.window.advance_ms
+    W = spec.n_slots
+    epoch = BASE_TS - BASE_TS % adv - adv   # the executor's anchor
+    src = Batches(seed=1)
+    per_key = src.per_key()
+    pinned = [torch.empty((3 + len(layout), BATCH), dtype=torch.int32,
+                          pin_memory=True) for _ in range(2)]
+    copied: list = [None, None]
+    open_: set[int] = set()
+    rows: list = []
+    wm = -1
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(MAIN_BATCHES):
+        kids, ts, temps = src.get(b)
+        i = b % 2
+        if copied[i] is not None:
+            copied[i].synchronize()       # the buffer's last upload is done
+        lattice.pack_batch_host(BATCH, BATCH, kids, ts - epoch, None,
+                                {"temp": temps}, [None, None, None], layout,
+                                out=pinned[i].numpy())
+        packed = pinned[i].to(dev, non_blocking=True)
+        copied[i] = torch.cuda.Event()
+        copied[i].record()
+        state = fns.step(state, wm - epoch if wm >= 0 else -1, packed)
+        lo, hi = int(ts.min()), int(ts.max())
+        open_.update(range(lo - lo % adv, hi - hi % adv + 1, adv))
+        wm = max(wm, hi)
+        for start in sorted(s for s in open_ if s + size <= wm):
+            open_.discard(start)
+            slot = ((start - epoch) // adv) % W
+            out = fns.extract_slot(state, slot).cpu().numpy()
+            state = fns.reset_slot(state, slot)
+            count, ws, outs = lattice.unpack_extract_rows(spec, out)
+            assert (ws == start - epoch).all(), "slot_start differs"
+            for kid in np.nonzero(count > 0)[0]:
+                rows.append({"device": f"d{kid}", "winStart": start,
+                             "winEnd": start + size, "cnt": int(count[kid]),
+                             "total": float(outs["total"][kid]),
+                             "uniq": int(np.rint(outs["uniq"][kid]))})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n_windows = check_rows(1, spec, rows, per_key, dev)
+    assert counts["unpack"] == counts["scatter_aggregate"] == MAIN_BATCHES, \
+        counts
+    assert counts["extract_slot"] == counts["reset_slot"] == n_windows, \
+        counts
+    for k in ("wire_decode", "fused_close", "reset_close", "expression",
+              "topk_fold", "touched_extract"):
+        assert counts[k] == 0, counts
+    return dict(config="CompiledLattice, config 1 (9a)",
+                events_per_sec=MAIN_BATCHES * BATCH / wall, wall_s=wall,
+                windows_checked=n_windows, rows=len(rows), launches=counts)
+
+
+def per_slot_path(dev) -> dict:
+    """Phase 9b: config 2 (HOP(60 s, 10 s), several windows due per
+    cycle) through IngestPipeline with `_fused_close_ok = False`: every
+    close cycle takes the per-slot close (B9), two launches and one
+    fetch per window; rows against numpy."""
+    from hstream_tpu_torch.engine import (
+        AggregateNode,
+        ColumnType,
+        IngestPipeline,
+        QueryExecutor,
+        Schema,
+        SourceNode,
+    )
+    from hstream_tpu_torch.engine.expr import Col
+
+    spec = make_spec(2)
+    schema = Schema.of(device=ColumnType.STRING, temp=ColumnType.FLOAT)
+    node = AggregateNode(child=SourceNode("sensors", schema),
+                         group_keys=[Col("device")], window=spec.window,
+                         aggs=list(spec.aggs))
+    ex = QueryExecutor(node, schema, emit_changes=False, initial_keys=1024,
+                       batch_capacity=BATCH)
+    assert ex.device == dev, ex.device
+    ex._fused_close_ok = False
+    for k in range(N_KEYS):
+        ex.key_id_for((f"d{k}",))
+    src = Batches(seed=2)
+    per_key = src.per_key()
+    pipe = IngestPipeline(ex, depth=4, workers=2)
+    zero_counts()
+    rows: list = []
+    try:
+        t0 = time.perf_counter()
+        for b in range(MAIN_BATCHES):
+            kids, ts, temps = src.get(b)
+            rows.extend(pipe.submit(kids, ts, {"temp": temps}))
+        rows.extend(pipe.flush())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pipe.close()
+    # a watermark jump: the six windows still open fall due together
+    n = N_KEYS
+    rows.extend(ex.process_columnar(
+        np.arange(n, dtype=np.int32), np.full(n, BASE_TS + 200_000, np.int64),
+        {"temp": np.full(n, np.float32(21.5))}))
+    st = dict(ex.close_stats)
+    counts = launch_counts()
+    n_windows = check_rows(2, spec, rows, per_key, dev)
+    closed = counts["extract_slot"]
+    assert closed == counts["reset_slot"] >= n_windows, counts
+    assert st["close_dispatches"] == 2 * closed, (st, counts)
+    assert st["close_fetches"] == closed, (st, counts)
+    assert closed > st["close_cycles"] >= 1, st    # several due per cycle
+    assert counts["fused_close"] == counts["reset_close"] == 0, counts
+    assert ex._fused_close_ok is False and ex.device_fallbacks == 0
+    return dict(config="per-slot close, config 2 (9b)",
+                events_per_sec=MAIN_BATCHES * BATCH / wall, wall_s=wall,
+                windows_checked=n_windows, windows_closed=closed,
+                rows=len(rows), close_stats=st, launches=counts)
+
+
+# ---- phase 10: SQL text -> executor -> snapshot -> restore -> continue -------
+
+SNAP_SQL = ("CREATE STREAM agg AS SELECT device, COUNT(*), SUM(temp), "
+            "APPROX_COUNT_DISTINCT(temp) FROM sensors GROUP BY device, "
+            "TUMBLING (INTERVAL 10 SECOND) GRACE BY INTERVAL 0 SECOND "
+            "EMIT CHANGES;")
+SNAP_AT = 25                 # batches before the snapshot
+SESS_SNAP_SQL = ("CREATE VIEW sess AS SELECT user, APPROX_QUANTILE(lat, 0.5) "
+                 "AS p50, APPROX_QUANTILE(lat, 0.99) AS p99 FROM s GROUP BY "
+                 "user, SESSION (INTERVAL 5 SECOND) GRACE BY INTERVAL 0 "
+                 "SECOND;")
+SNAP_SESS_USERS = 10_000
+SNAP_SESS_BATCHES = 8
+SNAP_JOIN_BATCHES = 8
+SNAP_SIDE_AT = 4
+
+
+class WindowLog:
+    """Phase 10's changelog rows as numpy columns, in emission order."""
+
+    COLS = ("COUNT(*)", "SUM(temp)", "APPROX_COUNT_DISTINCT(temp)")
+
+    def __init__(self):
+        self.parts: list[tuple] = []
+
+    def add(self, out) -> None:
+        from hstream_tpu_torch.common.columnar import ColumnarEmit
+
+        if not len(out):
+            return
+        if not isinstance(out, ColumnarEmit):
+            out = ColumnarEmit({k: [r[k] for r in out] for k in out[0]},
+                               len(out))
+        c = out.cols
+        self.parts.append((
+            np.array([int(d[1:]) for d in c["device"]], np.int64),
+            np.asarray(c["winStart"], np.int64),
+            np.asarray(c[self.COLS[0]], np.int64),
+            np.asarray(c[self.COLS[1]], np.float64),
+            np.asarray(c[self.COLS[2]], np.int64)))
+
+    def columns(self):
+        return tuple(np.concatenate([p[i] for p in self.parts])
+                     for i in range(5))
+
+
+def snapshot_window_run(dev, plan, src, restore_at: int | None) -> dict:
+    """Phase 10 (a, b): the lowered plan's executor through IngestPipeline
+    over config 1's stream; with `restore_at`, the executor is captured
+    after that many batches (the changelog flushed first), stepped once
+    more (the capture must not follow), serialized, sealed, opened and
+    restored into a fresh executor on the card, which continues."""
+    from hstream_tpu_torch.engine import (IngestPipeline, capture_executor,
+                                          open_blob, restore_executor,
+                                          seal_blob, serialize_capture)
+    from hstream_tpu_torch.sql import make_executor
+
+    sample = [{"device": "d0", "temp": 1.0}]
+    ex = make_executor(plan, sample_rows=sample, initial_keys=1024,
+                       batch_capacity=BATCH)
+    assert ex.device == dev and ex.emit_changes, ex.device
+    for k in range(N_KEYS):
+        ex.key_id_for((f"d{k}",))
+    log_ = WindowLog()
+    timing: dict = {}
+    pipe = IngestPipeline(ex, depth=4, workers=2)
+    zero_counts()
+    try:
+        for b in range(MAIN_BATCHES):
+            if b == restore_at:
+                log_.add(pipe.flush())
+                pipe.close()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                meta, arrays = capture_executor(ex, {"batches": b})
+                torch.cuda.synchronize()
+                timing["capture_s"] = time.perf_counter() - t0
+                # the old executor steps on: its planes change in place,
+                # the capture's clones must not
+                kids, ts, temps = src.get(b)
+                ex.process_columnar(kids, ts, {"temp": temps})
+                t0 = time.perf_counter()
+                blob = serialize_capture(meta, arrays)
+                timing["serialize_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                sealed = seal_blob(blob)
+                timing["seal_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                ex, extra = restore_executor(plan, open_blob(sealed),
+                                             batch_capacity=BATCH)
+                torch.cuda.synchronize()
+                timing["restore_s"] = time.perf_counter() - t0
+                assert extra == {"batches": b} and ex.device == dev
+                timing["blob_bytes"] = len(sealed)
+                t0 = time.perf_counter()
+                log_.add(ex.process_columnar(kids, ts, {"temp": temps}))
+                torch.cuda.synchronize()
+                timing["first_batch_s"] = time.perf_counter() - t0
+                pipe = IngestPipeline(ex, depth=4, workers=2)
+                continue
+            kids, ts, temps = src.get(b)
+            log_.add(pipe.submit(kids, ts, {"temp": temps}))
+        log_.add(pipe.flush())
+        torch.cuda.synchronize()
+    finally:
+        pipe.close()
+    return dict(log=log_, timing=timing, launches=launch_counts(),
+                close_stats=dict(ex.close_stats), ex=ex)
+
+
+def snapshot_path(dev) -> dict:
+    """Phase 10 (a, b): SQL text -> stream_codegen -> make_executor at full
+    width; at batch 25, with the window open, flush_changes, capture,
+    serialize, seal, open, restore into a fresh executor, continue to
+    batch 101. The changelog after the restore equals an uninterrupted
+    run's row for row (counts and HLL exact, SUM within twice the order
+    bound: each side within it of the true sum); the final change of
+    every (key, window) against numpy."""
+    from hstream_tpu_torch.sql import plans, stream_codegen
+
+    plan = stream_codegen(SNAP_SQL)
+    assert isinstance(plan, plans.CreateBySelectPlan), type(plan)
+    plan = plan.select
+    src = Batches(seed=1)
+    per_key = src.per_key()
+    base = snapshot_window_run(dev, plan, src, None)
+    run = snapshot_window_run(dev, plan, src, SNAP_AT)
+    k0, w0, c0, s0, u0 = base["log"].columns()
+    k1, w1, c1, s1, u1 = run["log"].columns()
+    # one change per key per batch (each 200 ms batch lies in one window)
+    assert len(k0) == len(k1) == MAIN_BATCHES * N_KEYS, (len(k0), len(k1))
+    assert (k0 == k1).all() and (w0 == w1).all(), "rows out of order"
+    assert (c0 == c1).all(), "counts differ after the restore"
+    assert (u0 == u1).all(), "HLL estimates differ after the restore"
+    # batch b's changes are rows [1000 b, 1000 (b + 1)), keys ascending,
+    # all in one window; sum|x| of each running value from numpy
+    batch_of = np.arange(len(k0)) // N_KEYS
+    abs_cum = np.zeros(len(k0))
+    run_abs: dict = {}
+    for b in range(MAIN_BATCHES):
+        sel = slice(b * N_KEYS, (b + 1) * N_KEYS)
+        assert (k0[sel] == np.arange(N_KEYS)).all()
+        assert (w0[sel] == w0[sel][0]).all()
+        win = int(w0[sel][0])
+        run_abs[win] = run_abs.get(win, 0.0) + per_key[b % N_UNIQUE]["abs"]
+        abs_cum[sel] = run_abs[win]
+    # each run within 2 n 2^-24 sum|x| of the exact running sum
+    lim = 2 * (2 * c0 * U * abs_cum)
+    assert (np.abs(s0 - s1) <= lim).all(), "SUM beyond the order bound"
+    after = batch_of >= SNAP_AT
+    # the final change per (key, window) against numpy (phase 4's check)
+    last: dict = {}
+    for i in range(len(k1)):
+        last[(k1[i], w1[i])] = i
+    final = [{"device": f"d{k1[i]}", "winStart": int(w1[i]),
+              "winEnd": int(w1[i]) + 10_000, "cnt": int(c1[i]),
+              "total": float(s1[i]), "uniq": int(u1[i])}
+             for i in last.values()]
+    n_windows = check_rows(1, make_spec(1), final, per_key, dev)
+    counts = run["launches"]
+    for k in ("wire_decode", "scatter_aggregate", "touched_extract",
+              "reset_close"):
+        assert counts[k] > 0, counts
+    assert counts["fused_close"] == 0 and run["ex"].device_fallbacks == 0
+    return dict(config="SQL -> snapshot -> restore, config 1 (10a-b)",
+                rows_after_restore=int(after.sum()),
+                windows_checked=n_windows, snapshot=run["timing"],
+                close_stats=run["close_stats"], launches=counts,
+                uninterrupted_launches=base["launches"])
+
+
+def _session_rows(rows) -> list:
+    return sorted((r["user"], r["winStart"], r["winEnd"], r["p50"],
+                   r["p99"]) for r in rows)
+
+
+def session_snapshot_run(plan, src, restore_at: int | None):
+    from hstream_tpu_torch.engine import (open_blob, restore_executor,
+                                          seal_blob, snapshot_executor)
+    from hstream_tpu_torch.sql import make_executor
+
+    ex = make_executor(plan, sample_rows=[{"user": "u0", "lat": 1.0}])
+    rows: list = []
+    info: dict = {}
+    for b in range(SNAP_SESS_BATCHES):
+        if b == restore_at:
+            assert ex._dev is not None and not ex.has_pending_closes()
+            t0 = time.perf_counter()
+            blob = seal_blob(snapshot_executor(ex))
+            info["snapshot_s"] = time.perf_counter() - t0
+            info["blob_bytes"] = len(blob)
+            info["open_sessions"] = int(ex._dev["mir_live"].sum())
+            t0 = time.perf_counter()
+            ex, _ = restore_executor(plan, open_blob(blob))
+            info["restore_s"] = time.perf_counter() - t0
+            assert ex._dev is None   # the host view, migrated on next batch
+        ts, cols = src.get(b)
+        rows.extend(ex.process_columnar(ts, cols))
+        if b == restore_at:
+            assert ex._dev is not None, "the device path did not activate"
+    # a closer far past every session's end closes them all
+    ts_end = int(max(t.max() for t in src.ts[:SNAP_SESS_BATCHES]))
+    rows.extend(ex.process_columnar(
+        np.array([ts_end + 60_000], np.int64),
+        {"user": np.array(["closer"]), "lat": np.ones(1, np.float32)}))
+    rows.extend(ex.drain_closed())
+    assert ex._dev is not None and ex.device_fallbacks == 0
+    return rows, info
+
+
+def join_snapshot_run(plan, src, restore_at: int | None):
+    from hstream_tpu_torch.engine import (open_blob, restore_executor,
+                                          seal_blob, snapshot_executor)
+    from hstream_tpu_torch.sql import make_executor
+
+    ex = make_executor(plan, sample_rows=[{"k": "k0", "x": 1.0}],
+                       batch_capacity=4 * FETCH_BATCH)
+    log_ = ChangeLog(src.keys)
+    info: dict = {}
+    for b in range(SNAP_JOIN_BATCHES):
+        if b == restore_at:
+            log_.add(ex.flush_changes())
+            assert ex._dev is not None and not ex.has_pending_changes()
+            t0 = time.perf_counter()
+            blob = seal_blob(snapshot_executor(ex))
+            info["snapshot_s"] = time.perf_counter() - t0
+            info["blob_bytes"] = len(blob)
+            t0 = time.perf_counter()
+            ex, _ = restore_executor(plan, open_blob(blob),
+                                     batch_capacity=4 * FETCH_BATCH)
+            assert ex._dev is None   # host stores, migrated on activation
+            info["restore_s"] = time.perf_counter() - t0
+        ts, cols, side = src.get(b)
+        log_.add(ex.process_columnar(ts, cols, stream=side))
+    log_.add(ex.flush_changes())
+    torch.cuda.synchronize()
+    assert ex._dev is not None, "the join's device path did not re-activate"
+    assert ex.device_fallbacks == 0
+    return log_, info
+
+
+def snapshot_side_paths(dev) -> dict:
+    """Phase 10c: a session and a join snapshot, each from SQL text; the
+    restored executors re-activate on the card and their rows equal an
+    uninterrupted run's. Cut for the JSON meta's size (a session's 512
+    histogram bins, a join store's entry rows go into it as lists; at
+    config 4's and config 5's full widths that is hundreds of MB): the
+    session over 10,000 user slots (config 4: 100,000) for 8 batches of
+    2^20, snapshot after batch 4, then a closer; the join at phase 8b's
+    size (2^16-record batches over 32,000 keys, not config 5's 2^20 over
+    512,000), 8 batches, snapshot after batch 4."""
+    from hstream_tpu_torch.sql import plans, stream_codegen
+
+    plan = stream_codegen(SESS_SNAP_SQL)
+    assert isinstance(plan, plans.CreateViewPlan), type(plan)
+    plan = plan.select
+    src = SessionStream(seed=13, n_batches=SNAP_SESS_BATCHES,
+                        users=SNAP_SESS_USERS)
+    zero_counts()
+    want, _ = session_snapshot_run(plan, src, None)
+    got, sinfo = session_snapshot_run(plan, src, SNAP_SIDE_AT)
+    counts = launch_counts()
+    assert len(got) == len(want) > 0
+    assert _session_rows(got) == _session_rows(want), "session rows differ"
+    jplan = stream_codegen(JOIN_FETCH_SQL)
+    jsrc = JoinStream(7, FETCH_BATCH, FETCH_KEYS, with_x=True)
+    jwant, _ = join_snapshot_run(jplan, jsrc, None)
+    jgot, jinfo = join_snapshot_run(jplan, jsrc, SNAP_SIDE_AT)
+    jcounts = launch_counts()
+    kw, ww, cw, sw = jwant.final()
+    kg, wg, cg, sg = jgot.final()
+    assert (kw == kg).all() and (ww == wg).all() and (cw == cg).all(), \
+        "join finals differ"
+    check = check_join_changes(
+        jgot, join_reference(jsrc, SNAP_JOIN_BATCHES, 1000, 10_000),
+        with_sum=True)
+    # record mode on the card (the step kernel), a batch each
+    assert counts["session_step"] + counts["session_merge"] >= \
+        2 * SNAP_SESS_BATCHES and counts["session_extract"] > 0, counts
+    assert jcounts["join_probe_insert"] > 0, jcounts
+    return dict(config="session + join snapshots (10c)",
+                session=dict(sessions_checked=len(got), **sinfo),
+                join=dict(check=check, **jinfo), launches=jcounts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3298,6 +3978,8 @@ def main() -> int:
     check_join_probe(dev, results)
     check_join_step(dev, results)
     check_join_evict(dev, results)
+    check_unpack(dev, results)
+    check_slot_close(dev, results, states, chg)
 
     for cfg in (1, 2):
         r = main_path(cfg, dev)
@@ -3367,6 +4049,28 @@ def main() -> int:
         f"{r['join_stats']}, check {json.dumps(r['check'])}, stage s "
         f"{json.dumps(r['stage_s'])} [{card}]")
     time_join_kernels(dev, results, captured)
+
+    r = compiled_path(dev)
+    paths.append(r)
+    log(f"CompiledLattice path (9a): {r['events_per_sec']:.0f} events/s "
+        f"over {MAIN_BATCHES} packed x 2^20 records, {r['windows_checked']} "
+        f"windows checked by the per-slot close, launches {r['launches']} "
+        f"[{card}]")
+    r = per_slot_path(dev)
+    paths.append(r)
+    log(f"per-slot close path (9b): {r['events_per_sec']:.0f} events/s, "
+        f"{r['windows_closed']} windows closed, {r['windows_checked']} "
+        f"checked, close_stats {r['close_stats']} [{card}]")
+    r = snapshot_path(dev)
+    paths.append(r)
+    log(f"snapshot path (10a-b): {r['rows_after_restore']} changelog rows "
+        f"after the restore equal the uninterrupted run's, "
+        f"{r['windows_checked']} windows' finals checked; snapshot "
+        f"{json.dumps(r['snapshot'])} [{card}]")
+    r = snapshot_side_paths(dev)
+    paths.append(r)
+    log(f"session + join snapshots (10c): session {json.dumps(r['session'])}"
+        f"; join {json.dumps(r['join'])} [{card}]")
 
     kernels = []
     for name, r in results.items():

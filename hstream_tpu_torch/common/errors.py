@@ -1,6 +1,7 @@
-"""Exception classes the engine raises (a copy of the part of
-hstream_tpu/common/errors.py the engine needs, without the gRPC status
-table, which belongs to the server), plus the port's own two errors.
+"""Exception classes the engine and the SQL front end raise (a copy of
+the part of hstream_tpu/common/errors.py they need, with its hierarchy,
+without the gRPC status table, which belongs to the server), plus the
+port's own two errors.
 """
 
 from __future__ import annotations
@@ -12,6 +13,10 @@ class HStreamError(Exception):
         self.message = message
 
 
+class StoreError(HStreamError):
+    """A storage-layer error (a corrupt snapshot blob derives from it)."""
+
+
 class SQLError(HStreamError):
     def __init__(self, message: str, pos: tuple[int, int] | None = None):
         super().__init__(message)
@@ -21,6 +26,14 @@ class SQLError(HStreamError):
         if self.pos:
             return f"{self.message} at line {self.pos[0]}, column {self.pos[1]}"
         return self.message
+
+
+class SQLParseError(SQLError):
+    pass
+
+
+class SQLValidateError(SQLError):
+    pass
 
 
 class SQLCodegenError(SQLError):

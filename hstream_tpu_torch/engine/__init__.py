@@ -12,7 +12,9 @@ window end. Non-aggregating queries run on the host (stateless), as do
 the host-side keyed stores (statestore). Stream-stream interval joins
 keep both sides' sorted stores on the card and step matched pairs
 straight into the downstream lattice (join, join_lattice);
-stream-table joins keep their table on the host.
+stream-table joins keep their table on the host. A running query's
+whole state snapshots to one sealed blob and restores into a fresh
+executor (snapshot), byte-compatible with the reference's blobs.
 Timestamps on the device are int32 milliseconds relative to a per-query
 epoch, rebased on the host before the int32 range runs out.
 """
@@ -43,7 +45,15 @@ from hstream_tpu_torch.engine.statestore import (
     TimestampedKVStore,
 )
 from hstream_tpu_torch.engine.join import JoinExecutor, TableJoinExecutor
-from hstream_tpu_torch.sql.codegen import make_executor
+from hstream_tpu_torch.engine.snapshot import (
+    SnapshotCorrupt,
+    capture_executor,
+    open_blob,
+    restore_executor,
+    seal_blob,
+    serialize_capture,
+    snapshot_executor,
+)
 
 __all__ = [
     "ColumnType",
@@ -70,4 +80,21 @@ __all__ = [
     "JoinExecutor",
     "TableJoinExecutor",
     "make_executor",
+    "SnapshotCorrupt",
+    "capture_executor",
+    "serialize_capture",
+    "snapshot_executor",
+    "restore_executor",
+    "seal_blob",
+    "open_blob",
 ]
+
+
+def __getattr__(name: str):
+    # sql.codegen imports the engine (and the SQL AST imports the engine's
+    # expressions), so the factory resolves on first use
+    if name == "make_executor":
+        from hstream_tpu_torch.sql.codegen import make_executor
+
+        return make_executor
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -27,10 +27,16 @@ streams; a NULL in a WHERE column clears the record's valid bit on the
 host. Entry points run on the card unless the caller passes
 device="cpu", which runs the plain PyTorch versions.
 
+The close and changelog programs come from the shared compiled bundle
+(lattice.compiled), each close launch counted in `close_stats` at its
+call site. The per-slot close (`_close_windows_ref`: one extract and one
+reset launch and one fetch per window) runs only when a caller sets
+`_fused_close_ok` to False, as the reference's equivalence tests do; the
+reference's automatic degrade to it after a failed fused close is not
+ported: a failed launch raises and `_fused_close_ok` stays True.
+
 Session windows run in engine/session.py's SessionExecutor; this
-executor refuses them as the reference does. The reference's degrade
-path after a failed fused close (per-slot reference close) is not
-ported: a failed launch raises.
+executor refuses them as the reference does.
 """
 
 from __future__ import annotations
@@ -85,10 +91,6 @@ def _change_drain_pool() -> futures.ThreadPoolExecutor:
             _DRAIN_POOL = futures.ThreadPoolExecutor(
                 max_workers=2, thread_name_prefix="change-drain")
         return _DRAIN_POOL
-
-_LAYOUT_TAGS = {ColumnType.FLOAT: "f32", ColumnType.INT: "i32",
-                ColumnType.BOOL: "bool", ColumnType.STRING: "i32"}
-
 
 def _align_down(ts: int, step: int) -> int:
     return ts - (ts % step)
@@ -213,8 +215,9 @@ class QueryExecutor:
         self._progs = lattice.step_programs(self.spec, schema,
                                             self._filter_expr)
         self.state = lattice.init_state(self.spec, self.device)
-        self._layout = tuple((name, _LAYOUT_TAGS[schema.type_of(name)])
-                             for name in self._needed_cols)
+        self._layout = tuple(
+            (name, lattice.layout_tag(schema.type_of(name)))
+            for name in self._needed_cols)
         # (null-flag stream name, referenced columns) per aggregate input
         self._null_specs = [
             (lattice.null_key(i), sorted(columns_of(agg.input)))
@@ -259,6 +262,13 @@ class QueryExecutor:
         # are due
         self.close_stats = {"close_cycles": 0, "close_dispatches": 0,
                             "close_fetches": 0}
+        # False selects the per-slot close (_close_windows_ref); only a
+        # caller sets it, a failed fused close raises
+        self._fused_close_ok = True
+        # the reference's count of closes degraded to the per-slot path;
+        # the port raises instead, so it stays 0
+        self.device_fallbacks = 0
+        self._compile()
         # cached reverse key-index columns for vectorized key decode:
         # (len(_key_rev) when built, [object array per group column])
         self._key_cols_cache: tuple[int, list[np.ndarray]] = (0, [])
@@ -297,6 +307,32 @@ class QueryExecutor:
                     f"aggregate over unsupported child node "
                     f"{type(child).__name__}")
         return pred
+
+    def _compile(self) -> None:
+        """Take the query's programs from the shared compiled bundle
+        (executor.py:305-332 in the reference). The close programs are
+        wrapped so close_stats counts every launch at its call site: the
+        per-slot close shows two per window, the fused one one per cycle."""
+        fns = lattice.compiled(
+            self.spec, self.schema, self._filter_expr,
+            lattice.touched_max_out(self.spec, self.batch_capacity),
+            self._layout)
+        self._extract_slot = self._count_close_kernel(fns.extract_slot)
+        self._reset_slot = self._count_close_kernel(fns.reset_slot)
+        self._extract_reset_slots = self._count_close_kernel(
+            fns.extract_reset_slots)
+        self._extract_slots = fns.extract_slots  # peek: read path
+        self._reset_slots = self._count_close_kernel(fns.reset_slots)
+        self._extract_touched = fns.extract_touched
+
+    def _count_close_kernel(self, fn):
+        """Wrap a close program so each call bumps close_dispatches."""
+
+        def counted(*args):
+            self.close_stats["close_dispatches"] += 1
+            return fn(*args)
+
+        return counted
 
     def device_plane_bytes(self) -> dict[str, int]:
         """Exact per-plane device bytes of the live lattice state."""
@@ -375,6 +411,7 @@ class QueryExecutor:
             n_keys=new_k, window=self.spec.window, aggs=self.spec.aggs,
             hll=self.spec.hll, qcfg=self.spec.qcfg,
             track_touched=self.spec.track_touched)
+        self._compile()
 
     # ---- time --------------------------------------------------------------
 
@@ -842,24 +879,24 @@ class QueryExecutor:
         device->host fetch, however many windows are due. In EMIT CHANGES
         mode the launch only resets and nothing is fetched: the changelog
         already carried the final values. A failed launch raises: there
-        is no degraded per-slot path."""
+        is no automatic degrade to the per-slot close."""
         if not starts:
             return []
         ows = [(s, self._open.pop(s).slot) for s in starts]
         self.read_epoch += 1
         self.close_stats["close_cycles"] += 1
+        if not self._fused_close_ok:
+            return self._close_windows_ref(ows)
         slots = lattice.pad_slots([slot for _s, slot in ows])
-        self.close_stats["close_dispatches"] += 1
         rows: Any = []
         if self.emit_changes:
-            lattice.reset_slots(self.spec, self.state, slots)
+            self.state = self._reset_slots(self.state, slots)
         elif self.defer_close_decode:
             # keep the packed batch on the device; no host sync
-            self._pending_closes.append(
-                (list(starts), lattice.close_slots(self.spec, self.state,
-                                                   slots)))
+            self.state, packed = self._extract_reset_slots(self.state, slots)
+            self._pending_closes.append((list(starts), packed))
         else:
-            packed = lattice.close_slots(self.spec, self.state, slots)
+            self.state, packed = self._extract_reset_slots(self.state, slots)
             self.close_stats["close_fetches"] += 1
             packed_host = packed.cpu().numpy()
             self.transfer_stats["d2h_bytes"] += packed_host.nbytes
@@ -867,6 +904,25 @@ class QueryExecutor:
         for s in starts:
             self._no_close.discard(s)
         return rows
+
+    def _close_windows_ref(self, ows: list
+                           ) -> "ColumnarEmit | list[dict[str, Any]]":
+        """The per-slot close (executor.py:1213-1235 in the reference):
+        one extract and one reset launch per window and one fetch per
+        extracted window (counted in close_fetches, which the reference
+        leaves out here), each window decoded as a one-slot batch.
+        Reached only when a caller has set _fused_close_ok to False."""
+        out = None
+        for s, slot in ows:
+            if not self.emit_changes:
+                packed = self._extract_slot(self.state, slot).cpu().numpy()
+                self.close_stats["close_fetches"] += 1
+                self.transfer_stats["d2h_bytes"] += packed.nbytes
+                out = extend_rows(
+                    out, self._decode_extract_batch(packed[None], [s]))
+            self.state = self._reset_slot(self.state, slot)
+            self._no_close.discard(s)
+        return out if out is not None else []
 
     def drain_closed(self) -> list[dict[str, Any]]:
         """Decode every deferred window close. Pending close cycles fetch
@@ -901,9 +957,7 @@ class QueryExecutor:
         defer_change_decode is set: more than change_drain_depth pending
         extracts are fetched together, on the shared drain pool when
         async_change_drain is set (the newest stays pending)."""
-        packed = lattice.extract_touched(
-            self.spec, self.state,
-            lattice.touched_max_out(self.spec, self.batch_capacity))
+        self.state, packed = self._extract_touched(self.state)
         if not self.defer_change_decode:
             host = packed.cpu().numpy()
             self.transfer_stats["d2h_bytes"] += host.nbytes
@@ -1121,16 +1175,14 @@ class QueryExecutor:
         ONE extract-only close launch + ONE fetch covers every open
         window."""
         if self.window is None:
-            packed = lattice.close_slots(
-                self.spec, self.state, lattice.pad_slots([0]),
-                lattice.CLOSE_EXTRACT).cpu().numpy()
+            packed = self._extract_slots(
+                self.state, lattice.pad_slots([0])).cpu().numpy()
             return self._decode_extract_batch(packed, [None])
         starts = sorted(self._open)
         if not starts:
             return []
         slots = lattice.pad_slots([self._open[s].slot for s in starts])
-        packed = lattice.close_slots(self.spec, self.state, slots,
-                                     lattice.CLOSE_EXTRACT).cpu().numpy()
+        packed = self._extract_slots(self.state, slots).cpu().numpy()
         return self._decode_extract_batch(packed, starts)
 
     def block_until_ready(self) -> None:

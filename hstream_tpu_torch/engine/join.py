@@ -1135,7 +1135,7 @@ class JoinExecutor(_JoinBase):
         probe -> aggregate call. None when the inner executor is not a
         window lattice (stateless joins keep the match-fetch path)."""
         from hstream_tpu_torch.engine.expr import columns_of
-        from hstream_tpu_torch.engine.session_lattice import layout_tag
+        from hstream_tpu_torch.engine.lattice import layout_tag
 
         inner = self._inner
         if (getattr(inner, "spec", None) is None
@@ -1896,6 +1896,77 @@ class JoinExecutor(_JoinBase):
         lut = torch.from_numpy(new_of_old.astype(np.int32)).to(self.device)
         for s in ("l", "r"):
             sl.session_remap(self._dev["stores"][s], lut, sent_above=True)
+
+    def _host_store_view(self) -> dict[str, "_FlatIntervalStore"]:
+        """The two side stores as host _FlatIntervalStores (snapshot
+        serialization, equivalence tests; join.py:2117-2215 in the
+        reference, its single-chip branch). In device mode both stores
+        are fetched, the retention cutoff the probes apply is applied
+        (the device store evicts lazily), and each entry's row is rebuilt
+        from the packed needed columns: the only fields a future match
+        can emit on the fast path."""
+        if self._dev is None:
+            return self._stores
+        from hstream_tpu_torch.engine.types import ColumnType
+
+        self._refresh_counts()
+        out: dict[str, _FlatIntervalStore] = {}
+        inner = self._inner
+        cutoff = (self.watermark - self.retention_ms
+                  if self.watermark >= 0 else None)
+        for side in ("l", "r"):
+            st = _FlatIntervalStore(self._jcode_rev)
+            n = self._dev["n"][side]
+            if n:
+                arrs = {k: v.cpu().numpy()
+                        for k, v in self._dev["stores"][side].items()}
+                if cutoff is not None:
+                    keep = (arrs["ts"][:n].astype(np.int64)
+                            + self._dev["t0"]) >= cutoff
+                    arrs = {
+                        "code": arrs["code"][:n][keep],
+                        "ts": arrs["ts"][:n][keep],
+                        "flags": arrs["flags"][:n][keep],
+                        "cols": arrs["cols"][:, :n][:, keep],
+                    }
+                    n = int(keep.sum())
+                if n == 0:
+                    out[side] = st
+                    continue
+                decoded: list[tuple[str, list]] = []
+                flags = arrs["flags"][:n]
+                for j, (name, col) in enumerate(self._dev["lay"][side]):
+                    want = inner.schema.type_of(name)
+                    raw = arrs["cols"][j, :n]
+                    nullm = ((flags >> (2 * j)) & 1).astype(np.bool_)
+                    presm = ((flags >> (2 * j + 1)) & 1).astype(np.bool_)
+                    if want == ColumnType.FLOAT:
+                        vv = np.ascontiguousarray(raw).view(np.float32)
+                        py = [float(x) for x in vv]
+                    elif want == ColumnType.BOOL:
+                        py = [bool(x) for x in raw]
+                    elif want == ColumnType.STRING:
+                        dec = inner.dicts[name].decode
+                        py = [dec(int(x)) if not nl else None
+                              for x, nl in zip(raw, nullm)]
+                    else:
+                        py = [int(x) for x in raw]
+                    decoded.append((col, [
+                        (_MISS if not p else (None if nl else v))
+                        for v, nl, p in zip(py, nullm, presm)]))
+                rows = np.empty(n, object)
+                for i in range(n):
+                    row = {}
+                    for col, vals in decoded:
+                        if vals[i] is not _MISS:
+                            row[col] = vals[i]
+                    rows[i] = row
+                st.insert_sorted(
+                    arrs["code"][:n].astype(np.int64),
+                    arrs["ts"][:n].astype(np.int64) + self._dev["t0"],
+                    rows)
+            out[side] = st
+        return out
 
     def device_store_counts(self) -> dict[str, int] | None:
         """Live entries per device store side (tests/introspection)."""

@@ -1,10 +1,14 @@
 """The port's hand-written Hopper kernels (CUDA C++ for sm_90a).
 
 csrc/decode.cu           wire decode        (transport.decode_batch)
+csrc/unpack.cu           packed unpack      (lattice.unpack)
 csrc/expr.cu             expression interp. (expr.eval_programs)
 csrc/scatter.cu          scatter-aggregate  (lattice.scatter_step)
 csrc/topk.cu             top-k fold         (lattice.topk_step)
-csrc/close.cu            fused close        (lattice.close_slots)
+csrc/close.cu            fused close        (lattice.close_slots,
+                                             lattice.reset_slots) and
+                         per-slot close     (lattice.extract_slot,
+                                             lattice.reset_slot)
 csrc/touched.cu          changelog extract  (lattice.extract_touched)
 csrc/rebase.cu           rebase             (lattice.rebase)
 csrc/session_step.cu     session step       (session_lattice.session_step)

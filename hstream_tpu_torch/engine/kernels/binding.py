@@ -98,11 +98,20 @@ class Finalize(C.Structure):
 class CloseArgs(C.Structure):
     _fields_ = [("n_keys", C.c_int32), ("n_slots", C.c_int32),
                 ("n_sel", C.c_int32), ("mode", C.c_int32),
-                ("out_rows", C.c_int32),
+                ("out_rows", C.c_int32), ("slot", C.c_int32),
                 ("slots", C.c_void_p), ("count", C.c_void_p),
                 ("slot_start", C.c_void_p), ("touched", C.c_void_p),
                 ("out", C.c_void_p), ("done", C.c_void_p),
                 ("f", Finalize)]
+
+
+class UnpackArgs(C.Structure):
+    _fields_ = [("packed", C.c_void_p), ("cap", C.c_int32),
+                ("n_bool", C.c_int32), ("n_null", C.c_int32),
+                ("valid", C.c_void_p),
+                ("bool_row", C.c_int32 * EXPR_MAX_COLS),
+                ("bool_out", C.c_void_p * EXPR_MAX_COLS),
+                ("null_out", C.c_void_p * MAX_AGGS)]
 
 
 class TouchedArgs(C.Structure):
@@ -226,6 +235,8 @@ def lib() -> C.CDLL:
                              ("hs_scatter", [C.POINTER(ScatterArgs)]),
                              ("hs_topk", [C.POINTER(ScatterArgs)]),
                              ("hs_close", [C.POINTER(CloseArgs)]),
+                             ("hs_close_slot", [C.POINTER(CloseArgs)]),
+                             ("hs_unpack", [C.POINTER(UnpackArgs)]),
                              ("hs_touched", [C.POINTER(TouchedArgs)]),
                              ("hs_session_step", [C.POINTER(SessionArgs)]),
                              ("hs_session_merge", [C.POINTER(SessionArgs)]),

@@ -25,10 +25,10 @@ from typing import NamedTuple
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
-SOURCES = ("decode.cu", "expr.cu", "scatter.cu", "topk.cu", "close.cu",
-           "touched.cu", "rebase.cu", "session_step.cu", "session_merge.cu",
-           "session_extract.cu", "session_remap.cu", "join_probe.cu",
-           "join_insert.cu", "join_evict.cu")
+SOURCES = ("decode.cu", "unpack.cu", "expr.cu", "scatter.cu", "topk.cu",
+           "close.cu", "touched.cu", "rebase.cu", "session_step.cu",
+           "session_merge.cu", "session_extract.cu", "session_remap.cu",
+           "join_probe.cu", "join_insert.cu", "join_evict.cu")
 HEADERS = ("hs_kernels.h", "record.cuh", "finalize.cuh",
            "session_chain.cuh", "join_core.cuh")
 # sm_90a: Hopper. --fmad=false: no multiply-add contraction anywhere, so

@@ -26,6 +26,17 @@
 // tile of that slot, so only the last tile to finish (a per-slot
 // counter, __threadfence + atomicAdd) resets it. EMIT CHANGES closes
 // run mode 2 alone: the changelog already carried the final values.
+//
+// hs_close_slot is the per-slot close, modes 1 and 2 only, one launch
+// each, as the reference keeps two programs:
+//   mode 1: lattice.py:529-544 build_extract_slot -> [2 + rows, K], the
+//           layout of pack_extract_rows (one slot of the fused buffer);
+//   mode 2: lattice.py:547-563 build_reset_slot.
+// The slot comes by value in the arguments: no slot vector to upload,
+// no padding, and no per-slot counter, since mode 2 reads nothing the
+// other key tiles reset (block 0 resets slot_start). Its bound is the
+// fused close's for one slot: one slot column of every plane read, or
+// written, once.
 
 #include <cuda_runtime.h>
 
@@ -37,43 +48,28 @@ namespace {
 constexpr int kBlock = 256;
 constexpr int kTile = 64;
 
-__global__ void __launch_bounds__(kBlock)
-close_kernel(const __grid_constant__ HsCloseArgs a) {
-    const int p = blockIdx.x;
-    const int k0 = blockIdx.y * kTile;
-    const int kend = min(k0 + kTile, a.n_keys);
-    const int rows = a.out_rows;
-    const int slot = a.slots[p];
+// Finalize keys [k0, kend) of `slot` into out (rows of K values).
+__device__ __forceinline__ void extract_tile(const HsCloseArgs &a, int slot,
+                                             int s_start, int32_t *out,
+                                             int k0, int kend) {
     const int K = a.n_keys, W = a.n_slots;
-    const bool extract = a.mode != HS_CLOSE_RESET;
-    const bool reset = a.mode != HS_CLOSE_EXTRACT;
-    int32_t *out = extract ? a.out + (int64_t)p * rows * K : nullptr;
-    if (slot < 0) {
-        if (extract)
-            for (int r = 0; r < rows; ++r)
-                for (int k = k0 + threadIdx.x; k < kend; k += kBlock)
-                    out[(int64_t)r * K + k] = 0;
-        return;
-    }
-    __shared__ int s_start;
-    if (threadIdx.x == 0) s_start = a.slot_start[slot];
-    __syncthreads();
-
-    if (extract) {
-        const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-        for (int k = k0 + warp; k < kend; k += kBlock / 32) {
-            int64_t cell = (int64_t)k * W + slot;
-            int cnt = a.count[cell];
-            if (lane == 0) {
-                out[k] = cnt;
-                out[(int64_t)K + k] = s_start;
-            }
-            hs::finalize_cell(a.f, cell, cnt, out + (int64_t)2 * K + k, K,
-                              lane);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int k = k0 + warp; k < kend; k += kBlock / 32) {
+        int64_t cell = (int64_t)k * W + slot;
+        int cnt = a.count[cell];
+        if (lane == 0) {
+            out[k] = cnt;
+            out[(int64_t)K + k] = s_start;
         }
+        hs::finalize_cell(a.f, cell, cnt, out + (int64_t)2 * K + k, K, lane);
     }
-    if (!reset) return;
-    __syncthreads();  // every read of this tile precedes its reset
+}
+
+// Reset keys [k0, kend) of `slot` in every plane to its identity over the
+// plane's whole width (slot_start is the caller's).
+__device__ __forceinline__ void reset_tile(const HsCloseArgs &a, int slot,
+                                           int k0, int kend) {
+    const int W = a.n_slots;
     for (int k = k0 + threadIdx.x; k < kend; k += kBlock) {
         int64_t cell = (int64_t)k * W + slot;
         a.count[cell] = 0;
@@ -106,11 +102,55 @@ close_kernel(const __grid_constant__ HsCloseArgs a) {
             plane[((int64_t)k * W + slot) * wd + idx % wd] = fill;
         }
     }
+}
+
+__global__ void __launch_bounds__(kBlock)
+close_kernel(const __grid_constant__ HsCloseArgs a) {
+    const int p = blockIdx.x;
+    const int k0 = blockIdx.y * kTile;
+    const int kend = min(k0 + kTile, a.n_keys);
+    const int rows = a.out_rows;
+    const int slot = a.slots[p];
+    const int K = a.n_keys;
+    const bool extract = a.mode != HS_CLOSE_RESET;
+    const bool reset = a.mode != HS_CLOSE_EXTRACT;
+    int32_t *out = extract ? a.out + (int64_t)p * rows * K : nullptr;
+    if (slot < 0) {
+        if (extract)
+            for (int r = 0; r < rows; ++r)
+                for (int k = k0 + threadIdx.x; k < kend; k += kBlock)
+                    out[(int64_t)r * K + k] = 0;
+        return;
+    }
+    __shared__ int s_start;
+    if (threadIdx.x == 0) s_start = a.slot_start[slot];
+    __syncthreads();
+
+    if (extract) extract_tile(a, slot, s_start, out, k0, kend);
+    if (!reset) return;
+    __syncthreads();  // every read of this tile precedes its reset
+    reset_tile(a, slot, k0, kend);
     if (threadIdx.x == 0) {
         __threadfence();
         unsigned prev = atomicAdd(&a.done[p], 1u);
         if (prev == gridDim.y - 1) a.slot_start[slot] = HS_EMPTY_START;
     }
+}
+
+__global__ void __launch_bounds__(kBlock)
+close_slot_kernel(const __grid_constant__ HsCloseArgs a) {
+    const int k0 = blockIdx.x * kTile;
+    const int kend = min(k0 + kTile, a.n_keys);
+    if (a.mode == HS_CLOSE_EXTRACT) {
+        __shared__ int s_start;
+        if (threadIdx.x == 0) s_start = a.slot_start[a.slot];
+        __syncthreads();
+        extract_tile(a, a.slot, s_start, a.out, k0, kend);
+        return;
+    }
+    reset_tile(a, a.slot, k0, kend);
+    if (blockIdx.x == 0 && threadIdx.x == 0)
+        a.slot_start[a.slot] = HS_EMPTY_START;
 }
 
 }  // namespace
@@ -120,5 +160,16 @@ extern "C" int hs_close(const HsCloseArgs *args, void *stream) {
     dim3 grid((unsigned)args->n_sel,
               (unsigned)((args->n_keys + kTile - 1) / kTile));
     close_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(*args);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int hs_close_slot(const HsCloseArgs *args, void *stream) {
+    if (args->mode == HS_CLOSE_EXTRACT_RESET || args->slot < 0 ||
+        args->slot >= args->n_slots)
+        return (int)cudaErrorInvalidValue;
+    // at least one block: mode 2 resets slot_start even with no keys
+    const int tiles = (args->n_keys + kTile - 1) / kTile;
+    const unsigned grid = tiles > 1 ? (unsigned)tiles : 1u;
+    close_slot_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(*args);
     return (int)cudaGetLastError();
 }

@@ -161,13 +161,28 @@ struct HsCloseArgs {
     int32_t n_sel;         // P, the padded slot vector's length
     int32_t mode;          // HS_CLOSE_*
     int32_t out_rows;      // 2 + sum of the aggregates' widths
+    int32_t slot;          // hs_close_slot: the one slot (slots unused)
     const int32_t *slots;  // [P], < 0 = padding
     int32_t *count;
     int32_t *slot_start;
     uint8_t *touched;
     int32_t *out;          // [P, out_rows, K]; NULL in reset-only mode
+                           // (hs_close_slot: [out_rows, K])
     uint32_t *done;        // [P] zeroed: key tiles finished per slot
     HsFinalize f;
+};
+
+// ---- packed-transport unpack (unpack.cu) --------------------------------
+
+struct HsUnpackArgs {
+    const int32_t *packed;  // [3 + n_cols, cap]: key, ts, flags, columns
+    int32_t cap;
+    int32_t n_bool;         // bool columns to widen
+    int32_t n_null;         // NULL masks: bits 1 .. n_null of the flags
+    uint8_t *valid;         // [cap]
+    int32_t bool_row[HS_EXPR_MAX_COLS];   // packed row of each bool column
+    uint8_t *bool_out[HS_EXPR_MAX_COLS];  // [cap] each
+    uint8_t *null_out[HS_MAX_AGGS];       // [cap] each
 };
 
 struct HsTouchedArgs {
@@ -352,6 +367,8 @@ int hs_expr(const HsExprArgs *args, void *stream);
 int hs_scatter(const HsScatterArgs *args, void *stream);
 int hs_topk(const HsScatterArgs *args, void *stream);
 int hs_close(const HsCloseArgs *args, void *stream);
+int hs_close_slot(const HsCloseArgs *args, void *stream);
+int hs_unpack(const HsUnpackArgs *args, void *stream);
 int hs_touched(const HsTouchedArgs *args, void *stream);
 int hs_touched_blocks(int32_t n_cells);
 int hs_rebase(int32_t *slot_start, int32_t n_slots, int32_t delta,

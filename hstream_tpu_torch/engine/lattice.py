@@ -24,13 +24,21 @@ CPU:
   expr.eval_programs <- the step's filter / value fns (kernels/csrc/expr.cu)
   scatter_step    <- build_step_fn            (kernels/csrc/scatter.cu)
   topk_step       <- _topk_step               (kernels/csrc/topk.cu)
+  unpack          <- unpack_batch_device, the decode of build_step_packed
+                                              (kernels/csrc/unpack.cu)
   close_slots     <- build_extract_reset_slots / build_extract_slots
                                               (kernels/csrc/close.cu)
   reset_slots     <- build_reset_slots        (close.cu, reset-only mode)
+  extract_slot    <- build_extract_slot       (close.cu, hs_close_slot)
+  reset_slot      <- build_reset_slot         (close.cu, hs_close_slot)
   extract_touched <- build_extract_touched    (kernels/csrc/touched.cu)
   rebase          <- rebase                   (kernels/csrc/rebase.cu)
 
 and transport.decode_batch for the wire decode (kernels/csrc/decode.cu).
+`compiled()` bundles a query's programs as the reference's
+CompiledLattice does: `step` over the packed int32 transport
+(step_packed: unpack, then the step's kernels), the per-slot close and
+the fused close, reset and changelog extract.
 Every aggregate kind of the reference's fixed-window lattice is here:
 COUNT(*), COUNT(col), SUM, AVG, MIN, MAX, APPROX_COUNT_DISTINCT,
 APPROX_QUANTILE, TOPK and TOPK_DISTINCT, over bare columns or computed
@@ -40,9 +48,10 @@ inputs, with SQL NULL and non-finite inputs masked per aggregate.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from dataclasses import dataclass
-from typing import Mapping, Sequence
+from typing import Callable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -72,6 +81,7 @@ from hstream_tpu_torch.engine.sketches import (
     quantile_bin,
     quantile_estimate,
 )
+from hstream_tpu_torch.engine.types import ColumnType
 from hstream_tpu_torch.engine.window import FixedWindow, num_slots
 
 EMPTY_START = -(1 << 31)  # slot_start sentinel for "slot unoccupied"
@@ -543,6 +553,157 @@ def step_encoded(spec: LatticeSpec, state: dict[str, torch.Tensor],
     step_decoded(spec, state, watermark, key_ids, ts, valid, cols, progs)
 
 
+# ---- the packed batch transport (lattice.py:304-385) ------------------------
+#
+# One int32 buffer [3 + n_cols, B] per micro-batch:
+#   row 0: key ids        row 1: ts (relative ms)
+#   row 2: flag bits — bit 0 valid, bit 1+j = NULL mask of the j-th
+#          aggregate that has an input
+#   row 3+i: the i-th needed column (f32 bits / i32 / bool as 0-1)
+# The layout is a tuple of (column name, "f32" | "i32" | "bool"). The
+# host packer numbers the masks over every entry of `null_masks`, None
+# included, and the unpacker over the aggregates that have a mask only:
+# the two disagree when a maskless aggregate (COUNT(*)) comes before a
+# masked one. Both are the reference's loops, copied as they are.
+
+ColLayout = tuple[tuple[str, str], ...]
+
+_LAYOUT_TAG = {ColumnType.FLOAT: "f32", ColumnType.INT: "i32",
+               ColumnType.BOOL: "bool", ColumnType.STRING: "i32"}
+
+
+def layout_tag(ctype: ColumnType) -> str:
+    return _LAYOUT_TAG[ctype]
+
+
+def pack_batch_host(capacity: int, n: int, key_ids, ts_rel, valid,
+                    cols: Mapping[str, np.ndarray],
+                    null_masks: list[np.ndarray | None],
+                    layout: ColLayout, out: np.ndarray | None = None
+                    ) -> np.ndarray:
+    """Assemble the packed int32 batch on the host (vectorized copies).
+    `valid` may be None (all n records valid); `out`, when given, is the
+    int32 [3 + len(layout), capacity] buffer to fill (a pinned staging
+    buffer), else one is allocated."""
+    shape = (3 + len(layout), capacity)
+    if out is None:
+        buf = np.zeros(shape, dtype=np.int32)
+    else:
+        if out.shape != shape or out.dtype != np.int32:
+            raise ValueError("pack_batch_host: bad out buffer")
+        buf = out
+        buf[:, n:] = 0
+    buf[0, :n] = key_ids[:n]
+    buf[1, :n] = ts_rel[:n]
+    if valid is None:
+        flags = np.ones(n, dtype=np.int32)  # bit0: valid
+    else:
+        flags = valid[:n].astype(np.int32)
+    for j, nm in enumerate(null_masks):
+        if nm is not None:
+            flags |= nm[:n].astype(np.int32) << (1 + j)
+    buf[2, :n] = flags
+    for i, (name, tag) in enumerate(layout):
+        src = cols[name]
+        if tag == "f32":
+            buf[3 + i, :n] = src[:n].astype(np.float32, copy=False).view(
+                np.int32)
+        elif tag == "bool":
+            buf[3 + i, :n] = src[:n].astype(np.int32)
+        else:
+            buf[3 + i, :n] = src[:n]
+    return buf
+
+
+def unpack_batch(packed: torch.Tensor, layout: ColLayout, null_keys):
+    """Plain unpack: (key ids, ts, valid, cols) from a packed buffer,
+    views of its rows (f32 rows reinterpreted), bool columns and NULL
+    masks as bool tensors; `null_keys` names the mask of each aggregate
+    (None where it has no input), as unpack_batch_device does."""
+    flags = packed[2]
+    valid = (flags & 1) != 0
+    cols: dict[str, torch.Tensor] = {}
+    for i, (name, tag) in enumerate(layout):
+        row = packed[3 + i]
+        if tag == "f32":
+            cols[name] = row.view(torch.float32)
+        elif tag == "bool":
+            cols[name] = row != 0
+        else:
+            cols[name] = row
+    for j, nk in enumerate(nk for nk in null_keys if nk is not None):
+        cols[nk] = ((flags >> (1 + j)) & 1) != 0
+    return packed[0], packed[1], valid, cols
+
+
+def _unpack_cuda(packed: torch.Tensor, layout: ColLayout, null_keys):
+    cap = packed.shape[1]
+    args = kb.UnpackArgs()
+    args.packed, args.cap = kb.ptr(packed), cap
+
+    def byte_col() -> torch.Tensor:
+        return torch.empty(cap, dtype=torch.bool, device=packed.device)
+
+    valid = byte_col()
+    args.valid = valid.data_ptr()
+    cols: dict[str, torch.Tensor] = {}
+    n_bool = 0
+    for i, (name, tag) in enumerate(layout):
+        row = packed[3 + i]
+        if tag == "f32":
+            cols[name] = row.view(torch.float32)
+        elif tag == "i32":
+            cols[name] = row
+        else:
+            if n_bool == kb.EXPR_MAX_COLS:
+                raise ValueError(f"more than {kb.EXPR_MAX_COLS} bool "
+                                 "columns")
+            cols[name] = byte_col()
+            args.bool_row[n_bool] = 3 + i
+            args.bool_out[n_bool] = cols[name].data_ptr()
+            n_bool += 1
+    keys = [nk for nk in null_keys if nk is not None]
+    if len(keys) > kb.MAX_AGGS:
+        raise ValueError(f"more than {kb.MAX_AGGS} NULL masks")
+    for j, nk in enumerate(keys):
+        cols[nk] = byte_col()
+        args.null_out[j] = cols[nk].data_ptr()
+    args.n_bool, args.n_null = n_bool, len(keys)
+    kb.check(kb.lib().hs_unpack(ctypes.byref(args), kb.stream_of(packed)),
+             "unpack")
+    return packed[0], packed[1], valid, cols
+
+
+def unpack(packed: torch.Tensor, layout: ColLayout, null_keys):
+    """(key ids, ts, valid, cols) of a packed batch: key ids, times, f32
+    and i32 columns are views of its rows; valid, the bool columns and
+    the NULL masks are one-byte columns written by the unpack kernel on
+    the card, by unpack_batch on the CPU."""
+    if (packed.dtype != torch.int32 or packed.dim() != 2
+            or packed.shape[0] != 3 + len(layout)
+            or not packed.is_contiguous()):
+        raise ValueError("unpack: packed must be a contiguous int32 "
+                         "[3 + n_cols, B] buffer")
+    if packed.device.type == "cpu":
+        return unpack_batch(packed, layout, null_keys)
+    out = _unpack_cuda(packed, layout, null_keys)
+    unpack.launches += 1
+    return out
+
+
+unpack.launches = 0  # wrapper calls that launched the kernel
+
+
+def step_packed(spec: LatticeSpec, state: dict[str, torch.Tensor],
+                watermark: int, packed: torch.Tensor, layout: ColLayout,
+                null_keys, progs: StepPrograms = ()) -> None:
+    """One micro-batch over the packed transport, in place: unpack, then
+    step_decoded (build_step_packed, lattice.py:374-385 in the
+    reference)."""
+    key_ids, ts, valid, cols = unpack(packed, layout, null_keys)
+    step_decoded(spec, state, watermark, key_ids, ts, valid, cols, progs)
+
+
 # ---- finalize and pack ------------------------------------------------------
 
 
@@ -705,18 +866,24 @@ def reset_slots_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
     state["slot_start"][rs] = EMPTY_START
 
 
-def _close_cuda(spec: LatticeSpec, state, slots: torch.Tensor, mode: int
-                ) -> torch.Tensor | None:
-    K, P = spec.n_keys, slots.shape[0]
+def _close_args(spec: LatticeSpec, state, mode: int) -> kb.CloseArgs:
+    """The close kernels' arguments but the slots and the output."""
     args = kb.CloseArgs()
-    args.n_keys, args.n_slots, args.n_sel, args.mode = \
-        K, spec.n_slots, P, mode
+    args.n_keys, args.n_slots, args.mode = spec.n_keys, spec.n_slots, mode
     args.out_rows = 2 + out_rows(spec)
     args.f = _finalize_args(spec, state)
-    args.slots = kb.ptr(slots)
     args.count = kb.ptr(state["count"])
     args.slot_start = kb.ptr(state["slot_start"])
     args.touched = kb.ptr(state["touched"])
+    return args
+
+
+def _close_cuda(spec: LatticeSpec, state, slots: torch.Tensor, mode: int
+                ) -> torch.Tensor | None:
+    K, P = spec.n_keys, slots.shape[0]
+    args = _close_args(spec, state, mode)
+    args.n_sel = P
+    args.slots = kb.ptr(slots)
     out = None
     if mode != CLOSE_RESET:
         out = torch.empty((P, args.out_rows, K), dtype=torch.int32,
@@ -781,6 +948,90 @@ def reset_slots(spec: LatticeSpec, state: dict[str, torch.Tensor],
 
 
 reset_slots.launches = 0  # wrapper calls that launched the kernel
+
+
+# ---- the per-slot close ------------------------------------------------------
+
+
+def extract_slot_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
+                     slot: int) -> torch.Tensor:
+    """Plain extract of one slot column -> packed int32 [2+rows, K]
+    (build_extract_slot, lattice.py:529-544 in the reference)."""
+    col = {k: v[:, slot] for k, v in state.items()
+           if k not in ("slot_start", "touched")}
+    outs = finalize_column(spec, col)
+    return pack_extract_rows(spec, col["count"], state["slot_start"][slot],
+                             outs)
+
+
+def reset_slot_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
+                   slot: int) -> None:
+    """Plain reset of one slot column, in place (build_reset_slot,
+    lattice.py:547-563)."""
+    for i, agg in enumerate(spec.aggs):
+        if agg.kind == AggKind.COUNT_ALL:
+            continue  # no own plane; `count` below resets it
+        name = _plane_name(i, agg)
+        state[name][:, slot] = init_value(agg)
+        if agg.kind == AggKind.AVG:
+            state[name + "_n"][:, slot] = 0
+    state["count"][:, slot] = 0
+    state["touched"][:, slot] = False
+    state["slot_start"][slot] = EMPTY_START
+
+
+def _one_slot(spec: LatticeSpec, slot) -> int:
+    slot = int(slot)
+    if not 0 <= slot < spec.n_slots:
+        raise ValueError(f"slot {slot} out of range [0, {spec.n_slots})")
+    return slot
+
+
+def _close_slot_cuda(spec: LatticeSpec, state, slot: int, mode: int
+                     ) -> torch.Tensor | None:
+    args = _close_args(spec, state, mode)
+    args.n_sel, args.slot = 1, slot
+    out = None
+    if mode == CLOSE_EXTRACT:
+        out = torch.empty((args.out_rows, spec.n_keys), dtype=torch.int32,
+                          device=state["count"].device)
+        args.out = out.data_ptr()
+    kb.check(kb.lib().hs_close_slot(ctypes.byref(args),
+                                    kb.stream_of(state["count"])),
+             "close_slot")
+    return out
+
+
+def extract_slot(spec: LatticeSpec, state: dict[str, torch.Tensor],
+                 slot) -> torch.Tensor:
+    """Finalize one slot column -> packed int32 [2+rows, K] (the layout
+    of pack_extract_rows), one launch of the close kernel's per-slot
+    entry in extract mode; extract_slot_ref on the CPU."""
+    slot = _one_slot(spec, slot)
+    if state["count"].device.type == "cpu":
+        return extract_slot_ref(spec, state, slot)
+    out = _close_slot_cuda(spec, state, slot, CLOSE_EXTRACT)
+    extract_slot.launches += 1
+    return out
+
+
+extract_slot.launches = 0  # wrapper calls that launched the kernel
+
+
+def reset_slot(spec: LatticeSpec, state: dict[str, torch.Tensor],
+               slot) -> None:
+    """Reset one slot column of every plane, in place, one launch of the
+    close kernel's per-slot entry in reset mode; reset_slot_ref on the
+    CPU."""
+    slot = _one_slot(spec, slot)
+    if state["count"].device.type == "cpu":
+        reset_slot_ref(spec, state, slot)
+        return
+    _close_slot_cuda(spec, state, slot, CLOSE_RESET)
+    reset_slot.launches += 1
+
+
+reset_slot.launches = 0  # wrapper calls that launched the kernel
 
 
 def unpack_extract_rows(spec: LatticeSpec, packed: np.ndarray):
@@ -924,3 +1175,81 @@ def rebase(state: dict[str, torch.Tensor], delta: int) -> None:
 
 
 rebase.launches = 0  # wrapper calls that launched the kernel
+
+
+# ---- the compiled bundle (lattice.py:750-803) --------------------------------
+
+
+def compile_agg_inputs(spec: LatticeSpec, schema) -> tuple[
+        list[tuple[DeviceProgram | None, str | None]], tuple[str | None, ...]]:
+    """Each aggregate's input program and NULL-mask column key (None for
+    COUNT(*)), as compile_agg_inputs (lattice.py:750-765) gives them."""
+    agg_inputs: list[tuple[DeviceProgram | None, str | None]] = []
+    null_keys: list[str | None] = []
+    for i, agg in enumerate(spec.aggs):
+        if agg.input is None:
+            agg_inputs.append((None, None))
+            null_keys.append(None)
+        else:
+            key = null_key(i)
+            agg_inputs.append((compile_device(agg.input, schema), key))
+            null_keys.append(key)
+    return agg_inputs, tuple(null_keys)
+
+
+class CompiledLattice(NamedTuple):
+    """A query's lattice programs with the reference's signatures (state
+    in, state out). The port's programs update the state in place, so
+    each callable that returns a state returns the dict it was given,
+    updated; a bundle holds no state of its own."""
+
+    step: Callable                 # (state, watermark, packed) -> state
+    extract_slot: Callable         # (state, slot) -> [2+rows, K]
+    reset_slot: Callable           # (state, slot) -> state
+    extract_reset_slots: Callable  # (state, slots) -> (state, [P, 2+rows, K])
+    extract_slots: Callable        # (state, slots) -> [P, 2+rows, K] (peek)
+    reset_slots: Callable          # (state, slots) -> state
+    extract_touched: Callable      # (state) -> (state, [3+rows, max_out])
+    null_keys: tuple[str | None, ...]  # per agg: the __null_a{i} column
+
+
+@functools.lru_cache(maxsize=512)
+def compiled(spec: LatticeSpec, schema, filter_expr: Expr | None,
+             max_out: int, layout: ColLayout) -> CompiledLattice:
+    """Shared, cached compilation of a query's lattice programs for a
+    (spec, schema, filter, layout): executors of the same shape share
+    one bundle (compiled, lattice.py:768-803 in the reference). String
+    literals must be pre-encoded (expr.encode_strings)."""
+    _agg_inputs, null_keys = compile_agg_inputs(spec, schema)
+    progs = step_programs(spec, schema, filter_expr)
+
+    def step(state, watermark, packed):
+        step_packed(spec, state, watermark, packed, layout, null_keys,
+                    progs)
+        return state
+
+    def extract_slot_fn(state, slot):
+        return extract_slot(spec, state, slot)
+
+    def reset_slot_fn(state, slot):
+        reset_slot(spec, state, slot)
+        return state
+
+    def extract_reset_slots(state, slots):
+        return state, close_slots(spec, state, slots, CLOSE_EXTRACT_RESET)
+
+    def extract_slots(state, slots):
+        return close_slots(spec, state, slots, CLOSE_EXTRACT)
+
+    def reset_slots_fn(state, slots):
+        reset_slots(spec, state, slots)
+        return state
+
+    def extract_touched_fn(state):
+        return state, extract_touched(spec, state, max_out)
+
+    return CompiledLattice(
+        step=step, extract_slot=extract_slot_fn, reset_slot=reset_slot_fn,
+        extract_reset_slots=extract_reset_slots,
+        extract_slots=extract_slots, reset_slots=reset_slots_fn,
+        extract_touched=extract_touched_fn, null_keys=null_keys)

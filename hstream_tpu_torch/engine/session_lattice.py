@@ -1,6 +1,7 @@
-"""The session-window lattice: the packed record transport, the open-
-session arena and its four device programs (the port of the session half
-of hstream_tpu/engine/lattice.py, :305-371 and :1180-1568).
+"""The session-window lattice: the open-session arena and its four device
+programs (the port of the session half of hstream_tpu/engine/lattice.py,
+:1180-1568). Batches arrive over the packed record transport, which lives
+in engine/lattice.py as in the reference (:304-371).
 
 Open sessions live in an ARENA of slots (key code, t0, t1, accumulator
 planes) sorted by (code, t0); empty and evicted slots hold the sentinel
@@ -44,7 +45,14 @@ from hstream_tpu_torch.engine.expr import (
     eval_programs,
 )
 from hstream_tpu_torch.engine.kernels import binding as kb
-from hstream_tpu_torch.engine.lattice import _KERNEL_KIND, _plane_name
+from hstream_tpu_torch.engine.lattice import (  # noqa: F401 — the packed
+    _KERNEL_KIND,                                # transport, re-exported
+    ColLayout,
+    _plane_name,
+    layout_tag,
+    pack_batch_host,
+    unpack_batch,
+)
 from hstream_tpu_torch.engine.plan import AggKind, AggSpec
 from hstream_tpu_torch.engine.sketches import (
     HLLConfig,
@@ -55,86 +63,6 @@ from hstream_tpu_torch.engine.sketches import (
     quantile_bin,
     quantile_estimate,
 )
-from hstream_tpu_torch.engine.types import ColumnType
-
-# ---- packed batch transport (lattice.py:305-371) ----------------------------
-#
-# One int32 buffer [3 + n_cols, B] per micro-batch:
-#   row 0: key codes      row 1: ts (relative ms)
-#   row 2: flag bits — bit 0 valid, bit 1+j = NULL mask of the j-th
-#          aggregate that has an input
-#   row 3+i: the i-th needed column (f32 bits / i32 / bool as 0-1)
-# The layout is a tuple of (column name, "f32" | "i32" | "bool").
-
-ColLayout = tuple[tuple[str, str], ...]
-
-_LAYOUT_TAG = {ColumnType.FLOAT: "f32", ColumnType.INT: "i32",
-               ColumnType.BOOL: "bool", ColumnType.STRING: "i32"}
-
-
-def layout_tag(ctype: ColumnType) -> str:
-    return _LAYOUT_TAG[ctype]
-
-
-def pack_batch_host(capacity: int, n: int, key_ids, ts_rel, valid,
-                    cols: Mapping[str, np.ndarray],
-                    null_masks: list[np.ndarray | None],
-                    layout: ColLayout, out: np.ndarray | None = None
-                    ) -> np.ndarray:
-    """Assemble the packed int32 batch on the host (vectorized copies).
-    `valid` may be None (all n records valid); `out`, when given, is the
-    int32 [3 + len(layout), capacity] buffer to fill (a pinned staging
-    buffer), else one is allocated."""
-    shape = (3 + len(layout), capacity)
-    if out is None:
-        buf = np.zeros(shape, dtype=np.int32)
-    else:
-        if out.shape != shape or out.dtype != np.int32:
-            raise ValueError("pack_batch_host: bad out buffer")
-        buf = out
-        buf[:, n:] = 0
-    buf[0, :n] = key_ids[:n]
-    buf[1, :n] = ts_rel[:n]
-    if valid is None:
-        flags = np.ones(n, dtype=np.int32)  # bit0: valid
-    else:
-        flags = valid[:n].astype(np.int32)
-    for j, nm in enumerate(null_masks):
-        if nm is not None:
-            flags |= nm[:n].astype(np.int32) << (1 + j)
-    buf[2, :n] = flags
-    for i, (name, tag) in enumerate(layout):
-        src = cols[name]
-        if tag == "f32":
-            buf[3 + i, :n] = src[:n].astype(np.float32, copy=False).view(
-                np.int32)
-        elif tag == "bool":
-            buf[3 + i, :n] = src[:n].astype(np.int32)
-        else:
-            buf[3 + i, :n] = src[:n]
-    return buf
-
-
-def unpack_batch(packed: torch.Tensor, layout: ColLayout, null_keys):
-    """(key codes, ts, valid, cols) from a packed buffer: views of its
-    rows (f32 rows reinterpreted), bool columns and NULL masks as bool
-    tensors; `null_keys` names the mask of each aggregate (None where it
-    has no input), as unpack_batch_device does."""
-    flags = packed[2]
-    valid = (flags & 1) != 0
-    cols: dict[str, torch.Tensor] = {}
-    for i, (name, tag) in enumerate(layout):
-        row = packed[3 + i]
-        if tag == "f32":
-            cols[name] = row.view(torch.float32)
-        elif tag == "bool":
-            cols[name] = row != 0
-        else:
-            cols[name] = row
-    for j, nk in enumerate(nk for nk in null_keys if nk is not None):
-        cols[nk] = ((flags >> (1 + j)) & 1) != 0
-    return packed[0], packed[1], valid, cols
-
 
 # ---- the arena (lattice.py:1180-1296) ---------------------------------------
 

@@ -1,15 +1,22 @@
-"""The SQL layer's plan types and executor factory (the part of
-hstream_tpu.sql that the engine needs).
+"""SQL front end: lexer -> parser -> validate -> refine -> plan, and the
+executor factory (the port of hstream_tpu.sql).
 
-ast.py and plans.py are copies of the reference's dataclasses (the
-lowered SelectPlan and the JOIN clause it carries); codegen.py holds
-`make_executor` and `bind_schema`, which build a port executor from a
-lowered plan. The lexer, the parser, `refine` and the rest of codegen
-(SQL text to plan) are not ported yet (ROADMAP A4): a port plan is built
-from these dataclasses directly.
+lexer.py, parser.py, refine.py, ast.py and plans.py are copies of the
+reference's modules; codegen.py lowers a refined statement to a plan as
+the reference does (`stream_codegen`, `explain_text`) and builds the
+port's executors from a lowered SELECT (`make_executor`, `bind_schema`),
+which run on the card unless the caller passes device="cpu".
 """
 
 from hstream_tpu_torch.sql import ast, plans
-from hstream_tpu_torch.sql.codegen import bind_schema, make_executor
+from hstream_tpu_torch.sql.codegen import (
+    Plan,
+    bind_schema,
+    make_executor,
+    stream_codegen,
+)
+from hstream_tpu_torch.sql.parser import parse
+from hstream_tpu_torch.sql.refine import parse_and_refine, refine
 
-__all__ = ["ast", "plans", "bind_schema", "make_executor"]
+__all__ = ["parse", "refine", "parse_and_refine", "stream_codegen", "Plan",
+           "plans", "ast", "bind_schema", "make_executor"]

@@ -1,0 +1,588 @@
+"""Recursive-descent / Pratt parser for the HStream SQL surface (a copy
+of hstream_tpu/sql/parser.py; only its imports differ).
+
+Grammar parity with the reference's BNFC grammar (hstream-sql/etc/SQL.cf):
+statements SELECT / CREATE (STREAM [AS] | VIEW | SINK CONNECTOR) / INSERT
+(fields, 'json', "binary") / SHOW / DROP [IF EXISTS] / TERMINATE /
+EXPLAIN; SELECT with FROM + [JOIN ... WITHIN(...) ON ...] + WHERE +
+GROUP BY [, window] + HAVING + [EMIT CHANGES]; value expressions with
+|| && arithmetic, scalar functions, set functions, BETWEEN, NOT;
+search conditions with OR/AND/NOT. A select without EMIT CHANGES is a
+pull query against a view (SelectView in the reference).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from hstream_tpu_torch.common.errors import SQLParseError
+from hstream_tpu_torch.engine.expr import BinOp, Col, Expr, Lit, UnOp
+from hstream_tpu_torch.sql import ast
+from hstream_tpu_torch.sql.lexer import Token, tokenize
+
+# scalar function name -> engine UnOp/BinOp op name
+_UNARY_FUNCS = {
+    "SIN": "SIN", "SINH": "SINH", "ASIN": "ASIN", "ASINH": "ASINH",
+    "COS": "COS", "COSH": "COSH", "ACOS": "ACOS", "ACOSH": "ACOSH",
+    "TAN": "TAN", "TANH": "TANH", "ATAN": "ATAN", "ATANH": "ATANH",
+    "ABS": "ABS", "CEIL": "CEIL", "FLOOR": "FLOOR", "ROUND": "ROUND",
+    "SIGN": "SIGN", "SQRT": "SQRT", "LOG": "LOG", "LOG2": "LOG2",
+    "LOG10": "LOG10", "EXP": "EXP",
+    "IS_INT": "IS_INT", "IS_FLOAT": "IS_FLOAT", "IS_NUM": "IS_NUM",
+    "IS_BOOL": "IS_BOOL", "IS_STR": "IS_STR", "IS_ARRAY": "IS_ARRAY",
+    "TO_STR": "TO_STR", "TO_LOWER": "TO_LOWER", "TO_UPPER": "TO_UPPER",
+    "TRIM": "TRIM", "LEFT_TRIM": "LTRIM", "RIGHT_TRIM": "RTRIM",
+    "REVERSE": "REVERSE", "STRLEN": "STRLEN",
+    "ARRAY_DISTINCT": "ARR_DISTINCT", "ARRAY_LENGTH": "ARR_LENGTH",
+    "ARRAY_MAX": "ARR_MAX", "ARRAY_MIN": "ARR_MIN", "ARRAY_SORT": "ARR_SORT",
+}
+
+_BINARY_FUNCS = {
+    "IFNULL": "IFNULL",
+    "ARRAY_CONTAIN": "ARR_CONTAINS",
+    "ARRAY_JOIN": "ARR_JOIN",
+}
+
+_AGG_FUNCS = {
+    "COUNT": ast.SetFuncKind.COUNT,
+    "AVG": ast.SetFuncKind.AVG,
+    "SUM": ast.SetFuncKind.SUM,
+    "MAX": ast.SetFuncKind.MAX,
+    "MIN": ast.SetFuncKind.MIN,
+    "TOPK": ast.SetFuncKind.TOPK,
+    "TOPKDISTINCT": ast.SetFuncKind.TOPKDISTINCT,
+    "APPROX_COUNT_DISTINCT": ast.SetFuncKind.APPROX_COUNT_DISTINCT,
+    "APPROX_QUANTILE": ast.SetFuncKind.APPROX_QUANTILE,
+}
+
+_TIME_UNITS = {"SECOND", "MINUTE", "HOUR", "DAY", "WEEK", "MONTH", "YEAR"}
+
+
+class Parser:
+    def __init__(self, src: str):
+        self.src = src
+        self.toks = tokenize(src)
+        self.pos = 0
+
+    # ---- token helpers ----
+    def peek(self, ahead: int = 0) -> Token:
+        return self.toks[min(self.pos + ahead, len(self.toks) - 1)]
+
+    def next(self) -> Token:
+        t = self.toks[self.pos]
+        if t.kind != "EOF":
+            self.pos += 1
+        return t
+
+    def err(self, msg: str, tok: Token | None = None):
+        tok = tok or self.peek()
+        raise SQLParseError(msg, (tok.line, tok.col))
+
+    def at_kw(self, *kws: str) -> bool:
+        t = self.peek()
+        return t.kind == "IDENT" and t.upper in kws
+
+    def eat_kw(self, kw: str) -> Token:
+        if not self.at_kw(kw):
+            self.err(f"expected {kw}")
+        return self.next()
+
+    def try_kw(self, *kws: str) -> bool:
+        if self.at_kw(*kws):
+            self.next()
+            return True
+        return False
+
+    def at_sym(self, s: str) -> bool:
+        t = self.peek()
+        return t.kind == "SYM" and t.text == s
+
+    def peek2_sym(self, s: str) -> bool:
+        """The token AFTER the current one is the symbol `s` (lookahead
+        to disambiguate JOIN TABLE( from a stream named table)."""
+        t = self.peek(1)
+        return t.kind == "SYM" and t.text == s
+
+    def eat_sym(self, s: str) -> Token:
+        if not self.at_sym(s):
+            self.err(f"expected {s!r}")
+        return self.next()
+
+    def try_sym(self, s: str) -> bool:
+        if self.at_sym(s):
+            self.next()
+            return True
+        return False
+
+    def ident(self, what: str = "identifier") -> str:
+        t = self.peek()
+        if t.kind not in ("IDENT", "RAWCOL"):
+            self.err(f"expected {what}")
+        return self.next().text
+
+    def text_between(self, start: int, end: int) -> str:
+        # compact rendering: no spaces around ( ) , . so aggregate output
+        # names read like the SQL source ("SUM(temp)")
+        out: list[str] = []
+        for t in self.toks[start:end]:
+            if out and (t.text in (")", ",", ".", "(")
+                        or out[-1].endswith(("(", "."))):
+                out[-1] = out[-1] + t.text
+            else:
+                out.append(t.text)
+        return " ".join(out)
+
+    # ---- statements ----
+    def parse_stmt(self) -> ast.Statement:
+        if self.at_kw("SELECT"):
+            return self.parse_select()
+        if self.at_kw("CREATE"):
+            return self.parse_create()
+        if self.at_kw("INSERT"):
+            return self.parse_insert()
+        if self.at_kw("SHOW"):
+            self.next()
+            t = self.next()
+            what = t.upper
+            if what not in ("QUERIES", "STREAMS", "CONNECTORS", "VIEWS"):
+                self.err("expected QUERIES, STREAMS, CONNECTORS or VIEWS", t)
+            return ast.Show(what)
+        if self.at_kw("DROP"):
+            self.next()
+            t = self.next()
+            what = t.upper
+            if what not in ("STREAM", "VIEW", "CONNECTOR"):
+                self.err("expected STREAM, VIEW or CONNECTOR", t)
+            name = self.ident("name")
+            if_exists = False
+            if self.try_kw("IF"):
+                self.eat_kw("EXISTS")
+                if_exists = True
+            return ast.Drop(what, name, if_exists)
+        if self.at_kw("TERMINATE"):
+            self.next()
+            if self.try_kw("ALL"):
+                return ast.Terminate(None)
+            self.eat_kw("QUERY")
+            t = self.next()
+            if t.kind not in ("NUMBER", "IDENT", "SSTRING", "STRING"):
+                self.err("expected query id", t)
+            return ast.Terminate(str(t.value if t.kind == "NUMBER" else t.text))
+        if self.at_kw("EXPLAIN"):
+            self.next()
+            inner = self.parse_stmt()
+            if not isinstance(inner, (ast.Select, ast.CreateStream,
+                                      ast.CreateView)):
+                self.err("EXPLAIN expects SELECT or CREATE")
+            return ast.Explain(inner)
+        self.err("expected a statement (SELECT/CREATE/INSERT/SHOW/DROP/"
+                 "TERMINATE/EXPLAIN)")
+
+    def parse(self) -> ast.Statement:
+        stmt = self.parse_stmt()
+        self.try_sym(";")
+        if self.peek().kind != "EOF":
+            self.err("unexpected trailing input")
+        return stmt
+
+    # ---- CREATE ----
+    def parse_create(self) -> ast.Statement:
+        self.eat_kw("CREATE")
+        if self.try_kw("VIEW"):
+            name = self.ident("view name")
+            self.eat_kw("AS")
+            select = self.parse_select()
+            return ast.CreateView(name, select)
+        if self.try_kw("SINK"):
+            self.eat_kw("CONNECTOR")
+            name = self.ident("connector name")
+            if_not_exist = False
+            if self.try_kw("IF"):
+                self.eat_kw("NOT")
+                self.eat_kw("EXIST")
+                if_not_exist = True
+            self.eat_kw("WITH")
+            opts = self.parse_options()
+            return ast.CreateConnector(name, opts, if_not_exist)
+        self.eat_kw("STREAM")
+        name = self.ident("stream name")
+        as_select = None
+        options: dict[str, Any] = {}
+        if self.try_kw("AS"):
+            as_select = self.parse_select()
+        if self.try_kw("WITH"):
+            options = self.parse_options()
+        return ast.CreateStream(name, options, as_select)
+
+    def parse_options(self) -> dict[str, Any]:
+        self.eat_sym("(")
+        opts: dict[str, Any] = {}
+        while not self.at_sym(")"):
+            key = self.ident("option name").upper()
+            self.eat_sym("=")
+            t = self.next()
+            if t.kind in ("NUMBER", "STRING", "SSTRING"):
+                opts[key] = t.value
+            elif t.kind == "IDENT":
+                opts[key] = t.text
+            else:
+                self.err("expected option value", t)
+            if not self.try_sym(","):
+                break
+        self.eat_sym(")")
+        return opts
+
+    # ---- INSERT ----
+    def parse_insert(self) -> ast.Insert:
+        self.eat_kw("INSERT")
+        self.eat_kw("INTO")
+        stream = self.ident("stream name")
+        if self.try_sym("("):
+            fields = [self.ident("field")]
+            while self.try_sym(","):
+                fields.append(self.ident("field"))
+            self.eat_sym(")")
+            self.eat_kw("VALUES")
+            self.eat_sym("(")
+            values = [self.parse_literal()]
+            while self.try_sym(","):
+                values.append(self.parse_literal())
+            self.eat_sym(")")
+            if len(fields) != len(values):
+                self.err("INSERT field/value count mismatch")
+            return ast.Insert(stream, fields, values, None, None)
+        self.eat_kw("VALUES")
+        t = self.next()
+        if t.kind == "SSTRING":
+            return ast.Insert(stream, None, None, t.value, None)
+        if t.kind == "STRING":
+            return ast.Insert(stream, None, None, None, t.value)
+        self.err("expected (fields) VALUES (...), 'json' or \"binary\"", t)
+
+    def parse_literal(self) -> Any:
+        t = self.peek()
+        if t.kind == "NUMBER":
+            return self.next().value
+        if t.kind in ("STRING", "SSTRING"):
+            return self.next().value
+        if t.kind == "IDENT" and t.upper in ("TRUE", "FALSE"):
+            return self.next().upper == "TRUE"
+        if t.kind == "IDENT" and t.upper == "NULL":
+            self.next()
+            return None
+        if t.kind == "SYM" and t.text == "-":
+            self.next()
+            v = self.parse_literal()
+            if not isinstance(v, (int, float)):
+                self.err("expected number after -")
+            return -v
+        self.err("expected literal")
+
+    # ---- SELECT ----
+    def parse_select(self) -> ast.Select:
+        self.eat_kw("SELECT")
+        items: list[ast.SelectItem] | None
+        if self.try_sym("*"):
+            items = None
+        else:
+            items = [self.parse_select_item()]
+            while self.try_sym(","):
+                items.append(self.parse_select_item())
+        self.eat_kw("FROM")
+        source = self.parse_stream_ref()
+        join = None
+        if self.at_kw("INNER", "LEFT", "OUTER", "JOIN"):
+            join = self.parse_join()
+        where = None
+        if self.try_kw("WHERE"):
+            where = self.parse_cond()
+        group_by: list[Expr] = []
+        window = None
+        if self.try_kw("GROUP"):
+            self.eat_kw("BY")
+            while True:
+                if self.at_kw("TUMBLING", "HOPPING", "SESSION"):
+                    window = self.parse_window()
+                else:
+                    group_by.append(self.parse_colname())
+                if not self.try_sym(","):
+                    break
+        having = None
+        if self.try_kw("HAVING"):
+            having = self.parse_cond()
+        emit_changes = False
+        if self.try_kw("EMIT"):
+            self.eat_kw("CHANGES")
+            emit_changes = True
+        return ast.Select(items=items, source=source, join=join, where=where,
+                          group_by=group_by, window=window, having=having,
+                          emit_changes=emit_changes)
+
+    def parse_colname(self) -> Col:
+        t = self.next()
+        if t.kind not in ("IDENT", "RAWCOL"):
+            self.err("expected column name", t)
+        name = t.text
+        if self.at_sym(".") and self.peek(1).kind in ("IDENT", "RAWCOL"):
+            self.next()
+            field = self.ident("column")
+            return Col(field, stream=name)
+        return Col(name)
+
+    def parse_select_item(self) -> ast.SelectItem:
+        start = self.pos
+        expr = self.parse_expr()
+        text = self.text_between(start, self.pos)
+        alias = None
+        if self.try_kw("AS"):
+            alias = self.ident("alias")
+        return ast.SelectItem(expr, alias, text)
+
+    def parse_stream_ref(self) -> ast.StreamRef:
+        name = self.ident("stream name")
+        alias = None
+        if self.try_kw("AS"):
+            alias = self.ident("alias")
+        return ast.StreamRef(name, alias)
+
+    def parse_join(self) -> ast.JoinClause:
+        jt = "INNER"
+        if self.at_kw("INNER", "LEFT", "OUTER"):
+            jt = self.next().upper
+        self.eat_kw("JOIN")
+        # JOIN TABLE(s): the right side is a keyed last-value TABLE of
+        # the stream (reference stream-table join, Stream.hs:302-344);
+        # no WITHIN — table lookups are not time-bounded
+        if self.at_kw("TABLE") and self.peek2_sym("("):
+            self.next()
+            self.eat_sym("(")
+            right = self.parse_stream_ref()
+            self.eat_sym(")")
+            alias = None
+            if self.try_kw("AS"):
+                alias = self.ident("alias")
+                right = ast.StreamRef(right.name, alias)
+            self.eat_kw("ON")
+            on = self.parse_cond()
+            return ast.JoinClause(jt, right, None, on, table=True)
+        right = self.parse_stream_ref()
+        self.eat_kw("WITHIN")
+        self.eat_sym("(")
+        within = self.parse_interval()
+        self.eat_sym(")")
+        self.eat_kw("ON")
+        on = self.parse_cond()
+        return ast.JoinClause(jt, right, within, on)
+
+    def parse_window(self) -> ast.WindowExpr:
+        t = self.next()
+        kind = ast.WindowKind[t.upper]
+        self.eat_sym("(")
+        size = self.parse_interval()
+        advance = None
+        if kind == ast.WindowKind.HOPPING:
+            self.eat_sym(",")
+            advance = self.parse_interval()
+        self.eat_sym(")")
+        grace = None
+        if self.try_kw("GRACE"):   # extension: GRACE BY INTERVAL n unit
+            self.eat_kw("BY")
+            grace = self.parse_interval()
+        return ast.WindowExpr(kind, size, advance, grace)
+
+    def parse_interval(self) -> ast.Interval:
+        self.eat_kw("INTERVAL")
+        t = self.next()
+        if t.kind != "NUMBER" or not isinstance(t.value, int):
+            self.err("expected integer interval amount", t)
+        unit_t = self.next()
+        if unit_t.upper not in _TIME_UNITS:
+            self.err(f"expected time unit, got {unit_t.text}", unit_t)
+        return ast.Interval(t.value, unit_t.upper)
+
+    # ---- search conditions (OR/AND/NOT over comparisons) ----
+    def parse_cond(self) -> Expr:
+        left = self.parse_cond_and()
+        while self.at_kw("OR"):
+            self.next()
+            left = BinOp("OR", left, self.parse_cond_and())
+        return left
+
+    def parse_cond_and(self) -> Expr:
+        left = self.parse_cond_not()
+        while self.at_kw("AND"):
+            self.next()
+            left = BinOp("AND", left, self.parse_cond_not())
+        return left
+
+    def parse_cond_not(self) -> Expr:
+        if self.try_kw("NOT"):
+            return UnOp("NOT", self.parse_cond_not())
+        return self.parse_cond_cmp()
+
+    def parse_cond_cmp(self) -> Expr:
+        if self.at_sym("(") and self._paren_is_cond():
+            self.eat_sym("(")
+            c = self.parse_cond()
+            self.eat_sym(")")
+            return c
+        left = self.parse_expr()
+        t = self.peek()
+        if t.kind == "SYM" and t.text in ("=", "<>", "<", "<=", ">", ">="):
+            op = self.next().text
+            right = self.parse_expr()
+            return BinOp(op, left, right)
+        if self.at_kw("BETWEEN"):
+            self.next()
+            lo = self.parse_expr()
+            self.eat_kw("AND")
+            hi = self.parse_expr()
+            return BinOp("AND", BinOp(">=", left, lo), BinOp("<=", left, hi))
+        return left  # bare boolean expression
+
+    def _paren_is_cond(self) -> bool:
+        """Lookahead: does this parenthesized group contain a top-level
+        OR/AND/NOT/comparison (a condition) rather than a value expr?"""
+        depth = 0
+        i = self.pos
+        while i < len(self.toks):
+            t = self.toks[i]
+            if t.kind == "SYM" and t.text == "(":
+                depth += 1
+            elif t.kind == "SYM" and t.text == ")":
+                depth -= 1
+                if depth == 0:
+                    return False
+            elif depth == 1:
+                if t.kind == "IDENT" and t.upper in ("OR", "AND", "NOT",
+                                                     "BETWEEN"):
+                    return True
+                if t.kind == "SYM" and t.text in ("=", "<>", "<", "<=",
+                                                  ">", ">="):
+                    return True
+            i += 1
+        return False
+
+    # ---- value expressions (Pratt: || < && < +- < */% < unary) ----
+    def parse_expr(self) -> Expr:
+        return self.parse_or()
+
+    def parse_or(self) -> Expr:
+        left = self.parse_and()
+        while self.at_sym("||"):
+            self.next()
+            left = BinOp("OR", left, self.parse_and())
+        return left
+
+    def parse_and(self) -> Expr:
+        left = self.parse_add()
+        while self.at_sym("&&"):
+            self.next()
+            left = BinOp("AND", left, self.parse_add())
+        return left
+
+    def parse_add(self) -> Expr:
+        left = self.parse_mul()
+        while self.at_sym("+") or self.at_sym("-"):
+            op = self.next().text
+            left = BinOp(op, left, self.parse_mul())
+        return left
+
+    def parse_mul(self) -> Expr:
+        left = self.parse_unary()
+        while self.at_sym("*") or self.at_sym("/") or self.at_sym("%"):
+            op = self.next().text
+            left = BinOp(op, left, self.parse_unary())
+        return left
+
+    def parse_unary(self) -> Expr:
+        if self.at_sym("-"):
+            self.next()
+            return UnOp("NEG", self.parse_unary())
+        return self.parse_atom()
+
+    def parse_atom(self) -> Expr:
+        t = self.peek()
+        if t.kind == "SYM" and t.text == "(":
+            self.next()
+            e = self.parse_expr()
+            self.eat_sym(")")
+            return e
+        if t.kind == "NUMBER":
+            return Lit(self.next().value)
+        if t.kind in ("STRING", "SSTRING"):
+            return Lit(self.next().value)
+        if t.kind == "RAWCOL":
+            return Col(self.next().text)
+        if t.kind == "SYM" and t.text == "[":
+            self.next()
+            items = []
+            if not self.at_sym("]"):
+                items.append(self.parse_literal())
+                while self.try_sym(","):
+                    items.append(self.parse_literal())
+            self.eat_sym("]")
+            return Lit(items)
+        if t.kind == "IDENT":
+            upper = t.upper
+            if upper == "NULL":
+                self.next()
+                return Lit(None)
+            if upper in ("TRUE", "FALSE"):
+                self.next()
+                return Lit(upper == "TRUE")
+            if upper == "INTERVAL":
+                iv = self.parse_interval()
+                return Lit(iv.ms)
+            # function call?
+            if self.peek(1).kind == "SYM" and self.peek(1).text == "(":
+                return self.parse_call()
+            # column ref, possibly stream-qualified
+            name = self.next().text
+            if self.at_sym(".") and self.peek(1).kind in ("IDENT", "RAWCOL"):
+                self.next()
+                field = self.ident("column")
+                return Col(field, stream=name)
+            return Col(name)
+        self.err("expected expression")
+
+    def parse_call(self) -> Expr:
+        name_t = self.next()
+        fname = name_t.upper
+        start = self.pos - 1
+        self.eat_sym("(")
+        if fname == "COUNT" and self.try_sym("*"):
+            self.eat_sym(")")
+            return ast.SetFunc(ast.SetFuncKind.COUNT_ALL, None, None,
+                               "COUNT(*)")
+        args: list[Expr] = []
+        if not self.at_sym(")"):
+            args.append(self.parse_expr())
+            while self.try_sym(","):
+                args.append(self.parse_expr())
+        self.eat_sym(")")
+        text = self.text_between(start, self.pos)
+
+        if fname in _AGG_FUNCS:
+            kind = _AGG_FUNCS[fname]
+            if kind in (ast.SetFuncKind.TOPK, ast.SetFuncKind.TOPKDISTINCT,
+                        ast.SetFuncKind.APPROX_QUANTILE):
+                if len(args) != 2 or not isinstance(args[1], Lit):
+                    self.err(f"{fname} expects (expr, literal)", name_t)
+                return ast.SetFunc(kind, args[0], args[1].value, text)
+            if len(args) != 1:
+                self.err(f"{fname} expects 1 argument", name_t)
+            return ast.SetFunc(kind, args[0], None, text)
+        if fname in _UNARY_FUNCS:
+            if len(args) != 1:
+                self.err(f"{fname} expects 1 argument", name_t)
+            return UnOp(_UNARY_FUNCS[fname], args[0])
+        if fname in _BINARY_FUNCS:
+            if len(args) != 2:
+                self.err(f"{fname} expects 2 arguments", name_t)
+            return BinOp(_BINARY_FUNCS[fname], args[0], args[1])
+        self.err(f"unknown function {name_t.text}", name_t)
+
+
+def parse(sql: str) -> ast.Statement:
+    return Parser(sql).parse()

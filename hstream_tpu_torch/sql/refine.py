@@ -1,0 +1,253 @@
+"""Semantic validation of the raw AST (a copy of hstream_tpu/sql/refine.py;
+only its imports differ).
+
+The reference splits this into Validate.hs (~750 LoC of pre-refine
+checks: aggregate placement, alias uniqueness, join-condition shape,
+interval sanity, arity — Validate.hs:32-60) and AST.hs's `Refine`
+typeclass. Here the parser already produces typed nodes, so refine =
+validate + light normalization and returns the same AST. The
+stream-schema check (unknown columns vs sampled records) lives in the
+server at query creation (handlers._check_columns_against_stream),
+since only the server can see the data.
+"""
+
+from __future__ import annotations
+
+from hstream_tpu_torch.common.errors import SQLValidateError
+from hstream_tpu_torch.engine.expr import BinOp, Col, Expr, UnOp
+from hstream_tpu_torch.sql import ast
+from hstream_tpu_torch.sql.parser import parse
+
+# aggregates that require an argument (COUNT(*) is the only nullary)
+_NEEDS_ARG = {
+    ast.SetFuncKind.COUNT, ast.SetFuncKind.SUM, ast.SetFuncKind.AVG,
+    ast.SetFuncKind.MIN, ast.SetFuncKind.MAX,
+    ast.SetFuncKind.APPROX_COUNT_DISTINCT,
+    ast.SetFuncKind.APPROX_QUANTILE, ast.SetFuncKind.TOPK,
+    ast.SetFuncKind.TOPKDISTINCT,
+}
+
+
+def _set_funcs(e: Expr) -> list[ast.SetFunc]:
+    if isinstance(e, ast.SetFunc):
+        inner = _set_funcs(e.arg) if e.arg is not None else []
+        return [e] + inner
+    if isinstance(e, BinOp):
+        return _set_funcs(e.left) + _set_funcs(e.right)
+    if isinstance(e, UnOp):
+        return _set_funcs(e.operand)
+    return []
+
+
+def columns_outside_aggs(e: Expr) -> set[str]:
+    """Bare (non-aggregated) column names referenced by an expression.
+    Same traversal as engine.expr.columns_of, which treats SetFunc as a
+    leaf (it matches none of Col/BinOp/UnOp)."""
+    from hstream_tpu_torch.engine.expr import columns_of
+
+    return columns_of(e)
+
+
+def _validate_interval(iv, what: str) -> None:
+    if iv is not None and iv.ms <= 0:
+        raise SQLValidateError(f"{what} must be a positive interval")
+
+
+def _validate_window(w: ast.WindowExpr) -> None:
+    _validate_interval(w.size, "window size")
+    if w.grace is not None and w.grace.ms < 0:
+        raise SQLValidateError("GRACE BY must be non-negative")
+    if w.kind == ast.WindowKind.HOPPING:
+        if w.advance is None:
+            raise SQLValidateError("HOPPING window needs an advance")
+        _validate_interval(w.advance, "HOPPING advance")
+        if w.size.ms % w.advance.ms != 0:
+            # an advance larger than the size also fails this (size %
+            # advance == size != 0), so oversize advances are covered
+            raise SQLValidateError(
+                "HOPPING size must be a multiple of advance")
+
+
+def _validate_aggs(items: list[ast.SelectItem],
+                   having: Expr | None) -> None:
+    exprs = [i.expr for i in items]
+    if having is not None:
+        exprs.append(having)
+    for e in exprs:
+        for sf in _set_funcs(e):
+            if sf.arg is not None and _set_funcs(sf.arg):
+                raise SQLValidateError("nested aggregate functions")
+            if sf.kind in _NEEDS_ARG and sf.arg is None:
+                raise SQLValidateError(
+                    f"{sf.kind.value} requires an argument")
+            if sf.kind == ast.SetFuncKind.COUNT_ALL and sf.arg is not None:
+                raise SQLValidateError("COUNT(*) takes no argument")
+            if sf.kind == ast.SetFuncKind.APPROX_QUANTILE:
+                if not isinstance(sf.arg2, (int, float)) \
+                        or isinstance(sf.arg2, bool):
+                    raise SQLValidateError(
+                        "APPROX_QUANTILE(col, q) needs a numeric "
+                        "quantile literal")
+                q = float(sf.arg2)
+                if not (0.0 <= q <= 1.0):
+                    raise SQLValidateError(
+                        f"quantile must be in [0, 1], got {q}")
+            if sf.kind in (ast.SetFuncKind.TOPK,
+                           ast.SetFuncKind.TOPKDISTINCT):
+                if not isinstance(sf.arg2, int) \
+                        or isinstance(sf.arg2, bool) or sf.arg2 < 1:
+                    raise SQLValidateError(
+                        "TOPK needs an integer k >= 1")
+
+
+def _validate_group_consistency(sel: ast.Select) -> None:
+    """Non-aggregated select/HAVING columns must be group keys — the
+    check whose absence lets aggregates silently run on garbage
+    (SELECT city, temp ... GROUP BY city)."""
+    if not sel.group_by:
+        return
+    group_names = {g.name for g in sel.group_by if isinstance(g, Col)}
+    for idx, item in enumerate(sel.items or []):
+        bare = columns_outside_aggs(item.expr)
+        extra = bare - group_names
+        if extra:
+            raise SQLValidateError(
+                f"column(s) {sorted(extra)} in SELECT are neither "
+                "aggregated nor in GROUP BY")
+    if sel.having is not None:
+        extra = columns_outside_aggs(sel.having) - group_names
+        # HAVING may also reference select aliases of aggregates
+        aliases = {i.alias for i in (sel.items or []) if i.alias}
+        extra -= aliases
+        if extra:
+            raise SQLValidateError(
+                f"column(s) {sorted(extra)} in HAVING are neither "
+                "aggregated nor in GROUP BY")
+
+
+def _validate_join(sel: ast.Select) -> None:
+    join = sel.join
+    if not join.table:
+        _validate_interval(join.within, "JOIN WITHIN")
+    left_names = {sel.source.name, sel.source.alias} - {None}
+    right_names = {join.right.name, join.right.alias} - {None}
+    if join.right.name == sel.source.name:
+        # joined-row fields are qualified by STREAM name (genJoiner),
+        # so both sides of a self-join would collide
+        raise SQLValidateError(
+            "self-join (same stream on both sides) is not supported")
+    if not (left_names.isdisjoint(right_names)):
+        raise SQLValidateError(
+            "JOIN aliases collide with the other side's name")
+
+    def eqs(e: Expr) -> list[tuple[Expr, Expr]]:
+        if isinstance(e, BinOp) and e.op == "AND":
+            return eqs(e.left) + eqs(e.right)
+        if isinstance(e, BinOp) and e.op == "=":
+            return [(e.left, e.right)]
+        raise SQLValidateError(
+            "JOIN ON must be a conjunction of equality comparisons")
+
+    pairs = eqs(join.on)
+    if not pairs:
+        raise SQLValidateError("JOIN ON needs at least one equality")
+    for a, b in pairs:
+        for side in (a, b):
+            if isinstance(side, Col) and side.stream is None:
+                raise SQLValidateError(
+                    "JOIN ON columns must be stream-qualified (s.col)")
+        sa = _qualifiers(a)
+        sb = _qualifiers(b)
+        known = left_names | right_names
+        for s in (sa | sb):
+            if s not in known:
+                raise SQLValidateError(
+                    f"unknown stream qualifier {s!r} in JOIN ON")
+        if (sa <= left_names) == (sb <= left_names):
+            raise SQLValidateError(
+                "each JOIN ON equality must relate both sides")
+
+
+def _qualifiers(e: Expr) -> set[str]:
+    if isinstance(e, Col):
+        return {e.stream} - {None}
+    if isinstance(e, BinOp):
+        return _qualifiers(e.left) | _qualifiers(e.right)
+    if isinstance(e, UnOp):
+        return _qualifiers(e.operand)
+    return set()
+
+
+def _validate_select(sel: ast.Select) -> None:
+    # aggregates may not appear in WHERE or GROUP BY (Validate.hs)
+    if sel.where is not None and _set_funcs(sel.where):
+        raise SQLValidateError("aggregate function not allowed in WHERE")
+    for g in sel.group_by:
+        if not isinstance(g, Col):
+            raise SQLValidateError("GROUP BY supports only column names")
+        if _set_funcs(g):
+            raise SQLValidateError("aggregate function not allowed in "
+                                   "GROUP BY")
+    dup = {g.name for g in sel.group_by
+           if isinstance(g, Col)
+           and sum(1 for h in sel.group_by
+                   if isinstance(h, Col) and h.name == g.name) > 1}
+    if dup:
+        raise SQLValidateError(f"duplicate GROUP BY column(s) {sorted(dup)}")
+    items = sel.items or []
+    _validate_aggs(items, sel.having)
+    # alias uniqueness
+    aliases = [i.alias for i in items if i.alias]
+    if len(aliases) != len(set(aliases)):
+        raise SQLValidateError("duplicate column alias")
+    has_agg = any(_set_funcs(i.expr) for i in items)
+    if sel.window is not None and not (has_agg or sel.group_by):
+        raise SQLValidateError("time window requires GROUP BY / aggregates")
+    if has_agg and sel.items is None:
+        raise SQLValidateError("SELECT * cannot be combined with aggregates")
+    if sel.having is not None and not (has_agg or sel.group_by):
+        raise SQLValidateError("HAVING requires GROUP BY / aggregates")
+    if sel.group_by and not has_agg:
+        raise SQLValidateError(
+            "GROUP BY queries need at least one aggregate in SELECT")
+    _validate_group_consistency(sel)
+    if sel.window is not None:
+        _validate_window(sel.window)
+    if sel.join is not None:
+        _validate_join(sel)
+
+
+def _validate_insert(stmt: ast.Insert) -> None:
+    if stmt.fields is not None:
+        if len(stmt.fields) != len(stmt.values):
+            raise SQLValidateError(
+                f"INSERT has {len(stmt.fields)} column(s) but "
+                f"{len(stmt.values)} value(s)")
+        if len(set(stmt.fields)) != len(stmt.fields):
+            raise SQLValidateError("duplicate INSERT column")
+
+
+def refine(stmt: ast.Statement) -> ast.Statement:
+    """Validate; raises SQLValidateError on semantic errors."""
+    if isinstance(stmt, ast.Select):
+        _validate_select(stmt)
+    elif isinstance(stmt, ast.CreateStream) and stmt.as_select is not None:
+        _validate_select(stmt.as_select)
+    elif isinstance(stmt, ast.CreateView):
+        _validate_select(stmt.select)
+        sel = stmt.select
+        has_agg = any(_set_funcs(i.expr) for i in (sel.items or []))
+        if not has_agg and not sel.group_by:
+            raise SQLValidateError(
+                "CREATE VIEW requires an aggregation (materialized views "
+                "store grouped state)")
+    elif isinstance(stmt, ast.Insert):
+        _validate_insert(stmt)
+    elif isinstance(stmt, ast.Explain):
+        refine(stmt.stmt)
+    return stmt
+
+
+def parse_and_refine(sql: str) -> ast.Statement:
+    """parse -> validate -> refine (reference Parse.hs:19-30)."""
+    return refine(parse(sql))

@@ -78,12 +78,16 @@ SOURCES = sorted([p for p in PKG.rglob("*.py")] + [REPO / "chip_smoke.py"])
 
 def test_the_source_guard_covers_every_slice():
     """The import guard below reads every module of the port, the SQL
-    plan types and the join slice among them."""
+    front end, the snapshots and the join slice among them."""
     names = {str(p.relative_to(REPO)) for p in SOURCES}
     for want in ("hstream_tpu_torch/sql/ast.py",
                  "hstream_tpu_torch/sql/plans.py",
                  "hstream_tpu_torch/sql/codegen.py",
                  "hstream_tpu_torch/sql/__init__.py",
+                 "hstream_tpu_torch/sql/lexer.py",
+                 "hstream_tpu_torch/sql/parser.py",
+                 "hstream_tpu_torch/sql/refine.py",
+                 "hstream_tpu_torch/engine/snapshot.py",
                  "hstream_tpu_torch/engine/join.py",
                  "hstream_tpu_torch/engine/join_lattice.py",
                  "hstream_tpu_torch/engine/session.py", "chip_smoke.py"):

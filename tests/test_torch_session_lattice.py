@@ -384,7 +384,8 @@ def test_binding_structs_mirror_the_header():
           "HsExprArgs": kb.ExprArgs, "HsScatterAgg": kb.ScatterAgg,
           "HsScatterArgs": kb.ScatterArgs, "HsCloseAgg": kb.CloseAgg,
           "HsFinalize": kb.Finalize, "HsCloseArgs": kb.CloseArgs,
-          "HsTouchedArgs": kb.TouchedArgs, "HsSessPlane": kb.SessPlane,
+          "HsTouchedArgs": kb.TouchedArgs, "HsUnpackArgs": kb.UnpackArgs,
+          "HsSessPlane": kb.SessPlane,
           "HsSessionArgs": kb.SessionArgs,
           "HsSessExtractArgs": kb.SessExtractArgs,
           "HsJoinRef": kb.JoinRef, "HsJoinFeedCol": kb.JoinFeedCol,

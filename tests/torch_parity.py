@@ -149,3 +149,25 @@ def plan_from(obj):
     if isinstance(obj, dict):
         return {plan_from(k): plan_from(v) for k, v in obj.items()}
     return obj
+
+
+def plan_tuple(obj):
+    """Either package's plan as plain nested tuples, for comparing a JAX
+    plan with a port plan field by field: a dataclass becomes (class
+    name, (field, value), ...), an enum (class name, member name), lists
+    and tuples tuples, a dict a tuple of (key, value) pairs in order."""
+    import dataclasses
+    import enum
+
+    if isinstance(obj, enum.Enum):
+        return (type(obj).__name__, obj.name)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return (type(obj).__name__,) + tuple(
+            (f.name, plan_tuple(getattr(obj, f.name)))
+            for f in dataclasses.fields(obj))
+    if isinstance(obj, (list, tuple)):
+        return (type(obj).__name__,) + tuple(plan_tuple(v) for v in obj)
+    if isinstance(obj, dict):
+        return ("dict",) + tuple((plan_tuple(k), plan_tuple(v))
+                                 for k, v in obj.items())
+    return obj

@@ -16,7 +16,12 @@ Phases, each of which asserts (any failure exits non-zero):
    expression interpreter over every op and type mix; NULL masks,
    COUNT(col) and quantile bins in the scatter and estimates in the
    close; the top-k fold; the touched extract; the reset-only close),
-   and the session kernels (the step and the merge over every aggregate
+   the expression kernel's 21 unaries on every operand type the
+   reference takes (NaN, +-inf, +-0, x.5 and -x.5, inputs outside the
+   domains of SQRT, the logs, ASIN, ACOS, ACOSH and ATANH, large SIN,
+   COS and TAN arguments; CEIL, FLOOR, ROUND, SIGN and SQRT exact, the
+   rest within CARD_ULP), timed on phase 11's programs, and the session
+   kernels (the step and the merge over every aggregate
    kind, out-of-order records gap and gap + 1 apart, equal starts,
    evicted and retired arena entries, a non-zero delta, NULLs, NaN,
    +-inf and +-0.0; the extract with pads, empty histograms and HLL
@@ -92,7 +97,22 @@ Phases, each of which asserts (any failure exits non-zero):
    and 8 batches) and a join snapshot (phase 8b's query and size), each
    from SQL text, restored, re-activated on the card and equal to an
    uninterrupted run;
-11. a {"kernels": [...]} line (each kernel's launches on the main paths,
+11. from the durable log: a native store under a temporary directory
+   (open_store("file://...")), a stream `sensors`, config 1's stream as
+   columnar records of 2^16 rows, 16 to a 2^20-record batch, 56 batches
+   appended (~0.9 GB); read back by a CheckpointedReader over a
+   FileCheckpointStore, decoded (columnar.decode_columnar_nulls, a key id
+   per device string as the server's query task does) and stepped
+   through IngestPipeline by LOG_SQL (WHERE SQRT(ABS(temp)) > 4.0, SUM
+   of LOG10, AVG of EXP, MAX(ROUND), MIN(CEIL)); at batch 25 the
+   checkpoint is written and the query snapshotted, the store closed and
+   reopened, the query restored and the reader resumed; then 8 batches of
+   2^16 JSON records (records.build_record) through the store and the
+   native decoder (jsondec.decode_batch) into the same query, past the
+   second window's end. Closed rows equal an uninterrupted run's and
+   numpy's; append, read and decode seconds, events/s from the log to
+   rows and the device busy share are printed;
+12. a {"kernels": [...]} line (each kernel's launches on the main paths,
    its error against the plain version and its times), the card line,
    and last {"ok": true, "device": {...}}.
 
@@ -117,7 +137,9 @@ sums are exact in any order), the per-slot extract and reset are exact;
 phase 10's restored changelog has exact counts and HLL estimates and
 SUMs within twice the order bound of the uninterrupted run's, its
 sessions and join finals are exact (the join's SUM within the order
-bound of numpy's). Details go to smoke_out/chip_smoke.json.
+bound of numpy's). Phase 11's counts, MAX(ROUND) and MIN(CEIL) are
+exact, its SUM and AVG within the order bound plus CUDA's documented ULP
+bound of each term's function. Details go to smoke_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -249,12 +271,21 @@ def _wrappers() -> dict:
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Each kernel's launches; "expression_unaries" counts the expression
+    kernel's launches whose programs ran a unary (B1b')."""
+    from hstream_tpu_torch.engine import expr
+
+    out = {name: fn.launches for name, fn in _wrappers().items()}
+    out["expression_unaries"] = expr.eval_programs.unary_launches
+    return out
 
 
 def zero_counts() -> None:
+    from hstream_tpu_torch.engine import expr
+
     for fn in _wrappers().values():
         fn.launches = 0
+    expr.eval_programs.unary_launches = 0
 
 
 # ---- the two configurations -------------------------------------------------
@@ -915,7 +946,7 @@ def expr_cases():
         out += [B(op, b, c), B(op, i, j), B(op, b, i),
                 B(op, B(">", f, L(0.0)), c)]
     out += [U("NEG", b), B("-", b, c), B("AND", f, b), U("NOT", f),
-            U("SQRT", f)]                      # refused at compile
+            U("ROUND", b), U("SIGN", b)]       # refused at compile
     out += [U("NOT", b), U("NOT", i), U("NEG", i), U("NEG", f),
             U("ABS", i), U("ABS", f), U("ABS", b),
             B("+", B("*", f, L(1.8)), L(32)),          # the changelog's
@@ -1006,6 +1037,149 @@ def check_expr(dev, results, chg):
     log(f"expression: {len(progs)} programs bit-exact ({refused} refused "
         f"at compile); {ms:.4f} ms (plain {plain:.4f}, "
         f"bound {b_ms:.4f})")
+
+
+# CUDA's documented largest error of each single-precision function, in
+# ULP (CUDA C++ Programming Guide, "Mathematical Functions", single
+# precision); the kernel and the plain version on the card both call
+# CUDA's functions, so they may differ by twice that. CEIL, FLOOR,
+# ROUND, SIGN and SQRT (__fsqrt_rn, and the plain version's float64
+# sqrt rounded once) are exact.
+CUDA_ULP = {"SIN": 2, "COS": 2, "TAN": 4, "ASIN": 2, "ACOS": 2, "ATAN": 2,
+            "SINH": 3, "COSH": 2, "TANH": 2, "ASINH": 3, "ACOSH": 4,
+            "ATANH": 3, "LOG": 1, "LOG2": 1, "LOG10": 2, "EXP": 2}
+CARD_ULP = {k: 2 * v for k, v in CUDA_ULP.items()}
+EXACT_UNARY = ("CEIL", "FLOOR", "ROUND", "SIGN", "SQRT")
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in float32 units in the last place (ordered int bits)."""
+    ai, bi = (x.view(torch.int32).long() for x in (a, b))
+    ai = torch.where(ai < 0, -(ai & 0x7FFFFFFF), ai)
+    bi = torch.where(bi < 0, -(bi & 0x7FFFFFFF), bi)
+    return (ai - bi).abs()
+
+
+def unary_columns(dev, n: int, seed: int):
+    """f: normal(0, 10) with NaN, +-inf, +-0, halves (x.5, -x.5, 20.5,
+    -0.5), inputs outside the domains (negatives for SQRT and the logs,
+    |x| > 1 for ASIN, ACOS and ATANH, x < 1 for ACOSH, +-1 for ATANH),
+    large arguments (1e4 .. 3.4e38) and values past exp's and sinh's
+    overflow; i: int32 over its range and small; b: bools."""
+    rng = np.random.default_rng(seed)
+    f = rng.normal(0, 10, n).astype(np.float32)
+    f[::5] = np.rint(f[::5] * 2) / 2             # halves and integers
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 0.5, -0.5,
+                        1.5, -1.5, 2.5, -2.5, 20.5, -20.5, 1.0, -1.0, 0.99,
+                        -0.99, 1.01, -3.0, 0.25, 1e4, -1e4, 1e10, -1e20,
+                        1e30, 3.4e38, -3.4e38, 88.0, 89.0, -104.0, 710.0,
+                        16.0, 16.1, 15.9], np.float32)
+    f[: len(special)] = special
+    f[len(special)::97] = -np.abs(f[len(special)::97])
+    i = rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
+    i[::3] = rng.integers(-100, 100, i[::3].shape[0])
+    i[:6] = [0, 1, -1, -(1 << 31), (1 << 31) - 1, 2]
+    b = rng.integers(0, 2, n).astype(np.bool_)
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in dict(f=f, i=i, b=b).items()}
+
+
+def log_programs():
+    """Phase 11's step programs (LOG_SQL's WHERE and computed inputs),
+    from the port's SQL front end."""
+    from hstream_tpu_torch.engine import FilterNode, lattice
+    from hstream_tpu_torch.engine.types import ColumnType as CT, Schema
+    from hstream_tpu_torch.sql import stream_codegen
+
+    node = stream_codegen(LOG_SQL).select.node
+    assert isinstance(node.child, FilterNode), node.child
+    schema = Schema.of(device=CT.STRING, temp=CT.FLOAT)
+    spec = lattice.LatticeSpec(n_keys=1024, window=node.window,
+                               aggs=tuple(node.aggs), track_touched=False)
+    return lattice.step_programs(spec, schema, node.child.predicate)
+
+
+def check_unaries(dev, results):
+    """B1b': the expression kernel's unaries, each on every operand type
+    the reference takes (ROUND and SIGN of a bool are refused at
+    compile), against the plain version on the card: the exact ones bit
+    for bit (a NaN as a NaN), the rest NaN, +-inf and zero where the
+    plain version has them and within CARD_ULP elsewhere; then timed on
+    phase 11's programs over a 2^20-record batch."""
+    from hstream_tpu_torch.common.errors import SQLCodegenError
+    from hstream_tpu_torch.engine import expr as ex
+    from hstream_tpu_torch.engine.kernels import binding as kb
+    from hstream_tpu_torch.engine.types import ColumnType as CT, Schema
+
+    schema = Schema.of(f=CT.FLOAT, i=CT.INT, b=CT.BOOL)
+    ops = EXACT_UNARY + tuple(CARD_ULP)
+    cases, refused = [], []
+    for op in ops:
+        for col in "fib":
+            try:
+                cases.append((op, col, ex.compile_device(
+                    ex.UnOp(op, ex.Col(col)), schema)))
+            except SQLCodegenError:
+                refused.append(f"{op}({col})")
+    assert sorted(refused) == ["ROUND(b)", "SIGN(b)"], refused
+    cols = unary_columns(dev, 1 << 16, 41)
+    valid = torch.ones(1 << 16, dtype=torch.bool, device=dev)
+    worst: dict[str, int] = {}
+    max_abs = 0.0
+    step = kb.EXPR_MAX_PROGS
+    for k in range(0, len(cases), step):
+        chunk = cases[k:k + step]
+        got = dict(cols)
+        ex.eval_programs([(p, f"__u{k + m}") for m, (_, _, p) in
+                          enumerate(chunk)], got, valid)
+        torch.cuda.synchronize()
+        for m, (op, col, p) in enumerate(chunk):
+            g, w = got[f"__u{k + m}"], p(cols)
+            what = f"{op}({col})"
+            assert g.dtype == w.dtype, what
+            if g.dtype != torch.float32:
+                assert torch.equal(g, w), what
+                continue
+            gn, wn = torch.isnan(g), torch.isnan(w)
+            assert torch.equal(gn, wn), f"{what}: NaN positions differ"
+            odd = ~torch.isfinite(w) | (w == 0)
+            assert torch.equal(g[odd & ~wn], w[odd & ~wn]), \
+                f"{what}: inf or zero differs"
+            d = ulp_distance(g[~wn], w[~wn])
+            worst[op] = max(worst.get(op, 0), int(d.max().item()))
+            fin = torch.isfinite(w)
+            if fin.any():
+                max_abs = max(max_abs, float((g[fin] - w[fin]).abs().max()))
+            lim = 0 if op in EXACT_UNARY else CARD_ULP[op]
+            assert worst[op] <= lim, f"{what}: {worst[op]} ULP > {lim}"
+    # timed on phase 11's programs over one of its batches
+    progs = log_programs()
+    rng = np.random.default_rng(43)
+    temp = torch.from_numpy((np.rint(rng.normal(20, 5, BATCH) * 10)
+                             .astype(np.float32) * np.float32(0.1))).to(dev)
+    tcols = {"temp": temp}
+    vcopy = torch.ones(BATCH, dtype=torch.bool, device=dev)
+    ms, call, src = kernel_ms(lambda: ex.eval_programs(
+        progs, dict(tcols), vcopy), 50)
+    plain = kernel_ms(lambda: [p(tcols) for p, _ in progs], 20)[0]
+    lib = kernel_ms(lambda: torch.sqrt(temp), 50)[0]
+    n_out = sum(1 for _, name in progs if name is not None)
+    n_ops = sum(len(p.ops) for p, _ in progs)
+    # each record reads temp and valid and writes valid and the inputs
+    b_ms, b_by = bound(BATCH * (4 + 1 + 1 + 4 * n_out), BATCH * n_ops)
+    results["expression_unaries"] = dict(
+        route="cuda",
+        source="hstream_tpu_torch/engine/kernels/csrc/expr.cu",
+        replaces="hstream_tpu/engine/expr.py:70",
+        max_abs_err=max_abs, ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib, call_ms=call, ms_source=src,
+        max_ulp=worst, card_ulp=CARD_ULP, programs=len(progs),
+        ops=n_ops)
+    log(f"expression unaries: {len(cases)} programs ({len(refused)} "
+        f"refused at compile), largest ULP against the plain version "
+        f"{json.dumps(worst)}; phase 11's {len(progs)} programs "
+        f"({n_ops} ops) {ms:.4f} ms device, {call:.4f} ms a call (plain "
+        f"{plain:.4f}, torch.sqrt {lib:.4f}, bound {b_ms:.4f} by {b_by})")
 
 
 def k2_spec(n_keys: int = 1024):
@@ -3940,6 +4114,376 @@ def snapshot_side_paths(dev) -> dict:
                 join=dict(check=check, **jinfo), launches=jcounts)
 
 
+# ---- phase 11: from the durable log ------------------------------------------
+
+LOG_SQL = ("CREATE VIEW sensor_stats AS SELECT device, COUNT(*), "
+           "SUM(LOG10(ABS(temp) + 1)), AVG(EXP(temp / 50)), "
+           "MAX(ROUND(temp)), MIN(CEIL(temp)) FROM sensors WHERE "
+           "SQRT(ABS(temp)) > 4.0 GROUP BY device, TUMBLING (INTERVAL 10 "
+           "SECOND) GRACE BY INTERVAL 0 SECOND;")
+LOG_AGGS = ("COUNT(*)", "SUM(LOG10(ABS(temp) + 1))", "AVG(EXP(temp / 50))",
+            "MAX(ROUND(temp))", "MIN(CEIL(temp))")
+LOG_BLOCKS = 16              # columnar records of 2^16 rows per batch
+LOG_BATCHES = 56             # the first window closes at batch 50
+LOG_RESTART_AT = 25
+LOG_JSON_BATCHES = 8
+LOG_JSON_ROWS = 1 << 16
+LOG_JSON_MS = 1200           # the last JSON batch crosses the 20 s end
+LOG_PROFILE = (30, 38)       # the uninterrupted run's profiled batches
+
+
+class LogStream:
+    """Phase 11's producer: config 1's stream (Batches: 1000 keys,
+    one-decimal temps, 200 ms of stream per 2^20-record batch) as
+    columnar records, then JSON records (records.build_record) of the
+    next 9.6 s. Each unique batch's blocks are encoded once by
+    encode_columnar with their timestamps zeroed; a batch's payload is a
+    copy with its timestamps written in (the layout is MAGIC | u32
+    header length | header | ts i64[n] | columns), which init checks
+    against encode_columnar for one block."""
+
+    def __init__(self, seed: int):
+        from hstream_tpu_torch.common import columnar, records
+
+        self.src = Batches(seed)
+        self.names = np.array([f"d{k}" for k in range(N_KEYS)])
+        self.block = BATCH // LOG_BLOCKS
+        self.templates = []
+        for kids, temps in zip(self.src.kids, self.src.temps):
+            row = []
+            for q in range(LOG_BLOCKS):
+                sl = slice(q * self.block, (q + 1) * self.block)
+                p = columnar.encode_columnar(
+                    np.zeros(self.block, np.int64),
+                    {"device": self.names[kids[sl]], "temp": temps[sl]})
+                hlen = int(np.frombuffer(p, np.uint32, 1,
+                                         len(columnar.MAGIC))[0])
+                row.append((p, len(columnar.MAGIC) + 4 + hlen))
+            self.templates.append(row)
+        kids, ts, temps = self.src.get(3)
+        assert self.block_payload(3, 1, ts) == columnar.encode_columnar(
+            ts[self.block:2 * self.block],
+            {"device": self.names[kids[self.block:2 * self.block]],
+             "temp": temps[self.block:2 * self.block]})
+        rng = np.random.default_rng(seed + 100)
+        t0 = BASE_TS + LOG_BATCHES * STREAM_MS_PER_BATCH
+        self.json = []
+        for j in range(LOG_JSON_BATCHES):
+            kids = rng.integers(0, N_KEYS, LOG_JSON_ROWS).astype(np.int32)
+            temps = (np.rint(rng.normal(20.0, 5.0, LOG_JSON_ROWS) * 10)
+                     .astype(np.float32) * np.float32(0.1))
+            ts = (t0 + j * LOG_JSON_MS + (np.arange(
+                LOG_JSON_ROWS, dtype=np.int64) * LOG_JSON_MS)
+                // LOG_JSON_ROWS)
+            self.json.append((kids, ts, temps))
+        t = time.perf_counter()
+        self.json_records = [
+            [records.build_record({"device": self.names[k], "temp": float(v)},
+                                  publish_time_ms=int(s)).SerializeToString()
+             for k, s, v in zip(kids.tolist(), ts.tolist(), temps.tolist())]
+            for kids, ts, temps in self.json]
+        self.json_build_s = time.perf_counter() - t
+
+    def block_payload(self, b: int, q: int, ts: np.ndarray) -> bytes:
+        p, off = self.templates[b % N_UNIQUE][q]
+        buf = bytearray(p)
+        buf[off:off + 8 * self.block] = np.ascontiguousarray(
+            ts[q * self.block:(q + 1) * self.block], np.int64).tobytes()
+        return bytes(buf)
+
+
+def log_append(ls: LogStream, uri: str) -> dict:
+    """Append the stream: each batch one append of LOG_BLOCKS RAW records
+    (records.wrap_raw_record, the framed append's record shape) at the
+    batch's last timestamp, then each JSON batch one append."""
+    from hstream_tpu_torch.common import records
+    from hstream_tpu_torch.store import StreamApi, open_store
+
+    store = open_store(uri)
+    try:
+        sid = StreamApi(store).create_stream("sensors")
+        produce = append = 0.0
+        for b in range(LOG_BATCHES):
+            t = time.perf_counter()
+            _, ts, _ = ls.src.get(b)
+            recs = [records.wrap_raw_record(ls.block_payload(b, q, ts),
+                                            int(ts[(q + 1) * ls.block - 1]))
+                    for q in range(LOG_BLOCKS)]
+            t1 = time.perf_counter()
+            store.append_batch(sid, recs, append_time_ms=int(ts[-1]))
+            t2 = time.perf_counter()
+            produce += t1 - t
+            append += t2 - t1
+        t = time.perf_counter()
+        for recs, (_, ts, _) in zip(ls.json_records, ls.json):
+            store.append_batch(sid, recs, append_time_ms=int(ts[-1]))
+        json_append = time.perf_counter() - t
+    finally:
+        store.close()
+    root = uri[len("file://"):]
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(root) for f in fs)
+    return dict(sid=sid, produce_s=produce, append_s=append,
+                json_append_s=json_append, store_bytes=nbytes)
+
+
+def log_batch(ex, got, luts: dict):
+    """One appended batch read back -> (key ids, ts, {"temp"}): the
+    columnar records' blocks (columnar.decode_columnar_nulls) or the JSON
+    records (jsondec.decode_batch), a key id per distinct device string
+    through each block's dictionary, as the server's query task does
+    (hstream_tpu/server/tasks.py _columnar_key_ids, _device_columns)."""
+    from hstream_tpu_torch.common import columnar, jsondec, records
+
+    def keys(ids, names):
+        k = tuple(names)
+        lut = luts.get(k)
+        if lut is None:
+            lut = luts[k] = np.array([ex.key_id_for((s,)) for s in names],
+                                     np.int32)
+        return lut[ids]
+
+    views = [records.peek_columnar_payload(p) for p in got.payloads]
+    if all(v is not None for v in views):
+        parts = []
+        for v in views:
+            ts, cols, nulls = columnar.decode_columnar_nulls(v)
+            assert nulls is None and cols["temp"][0] == "f32"
+            parts.append((keys(cols["device"][1], cols["device"][2]), ts,
+                          cols["temp"][1]))
+        return tuple(np.concatenate([p[i] for p in parts]) for i in range(3))
+    dts = np.full(len(got.payloads), got.append_time_ms, np.int64)
+    ts, cls, cols, nulls = jsondec.decode_batch(list(got.payloads), dts)
+    assert (cls == jsondec.CLS_JSON).all() and not nulls["temp"].any()
+    kind, ids, names = cols["device"]
+    assert kind == "str"
+    return keys(ids, names), ts, np.asarray(cols["temp"][1], np.float32)
+
+
+def log_run(dev, uri: str, sid: int, ckp: str, name: str,
+            restart_at: int | None) -> dict:
+    """Read the stream back from `name`'s checkpoint into LOG_SQL's query
+    through IngestPipeline; with `restart_at`, flush, write the
+    checkpoint, snapshot the query, close and reopen the store, restore
+    and resume there; without it, profile the LOG_PROFILE batches."""
+    from hstream_tpu_torch.engine import (IngestPipeline, open_blob,
+                                          restore_executor, seal_blob,
+                                          snapshot_executor)
+    from hstream_tpu_torch.sql import make_executor, stream_codegen
+    from hstream_tpu_torch.store import (CheckpointedReader,
+                                         FileCheckpointStore, open_store)
+
+    plan = stream_codegen(LOG_SQL).select
+
+    def reader(store):
+        rd = CheckpointedReader(name, store.new_reader(),
+                                FileCheckpointStore(ckp))
+        rd.set_timeout(0)
+        rd.start_reading_from_checkpoint(sid)
+        return rd
+
+    store = open_store(uri)
+    ex = make_executor(plan, sample_rows=[{"device": "d0", "temp": 1.0}],
+                       initial_keys=1024, batch_capacity=BATCH)
+    assert ex.device == dev and not ex.emit_changes, ex.device
+    ex.defer_close_decode = True
+    rd, rows, luts = reader(store), [], {}
+    sec = dict(read_s=0.0, decode_s=0.0, json_decode_s=0.0)
+    pipe = IngestPipeline(ex, depth=4, workers=2)
+    timing: dict = {}
+    lsn = None
+
+    def step(b: int) -> None:
+        nonlocal lsn
+        t = time.perf_counter()
+        (got,) = rd.read(1)          # one append: readers count batches
+        t1 = time.perf_counter()
+        kids, ts, temps = log_batch(ex, got, luts)
+        t2 = time.perf_counter()
+        sec["read_s"] += t1 - t
+        key = "decode_s" if b < LOG_BATCHES else "json_decode_s"
+        sec[key] += t2 - t1
+        lsn = got.lsn
+        rows.extend(pipe.submit(kids, ts, {"temp": temps}))
+
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        for b in range(LOG_BATCHES + LOG_JSON_BATCHES):
+            if b == restart_at:
+                t = time.perf_counter()
+                rows.extend(pipe.flush())
+                rows.extend(ex.drain_closed())
+                pipe.close()
+                rd.write_checkpoints({sid: lsn})
+                sealed = seal_blob(snapshot_executor(ex, {"lsn": lsn}))
+                store.close()
+                store = open_store(uri)
+                ex, extra = restore_executor(plan, open_blob(sealed),
+                                             batch_capacity=BATCH)
+                assert extra == {"lsn": lsn} and ex.device == dev, extra
+                ex.defer_close_decode = True
+                rd = reader(store)
+                pipe = IngestPipeline(ex, depth=4, workers=2)
+                torch.cuda.synchronize()
+                timing.update(restart_s=time.perf_counter() - t,
+                              blob_bytes=len(sealed))
+            if restart_at is None and b == LOG_PROFILE[0]:
+                def window():
+                    t = time.perf_counter()
+                    for k in range(*LOG_PROFILE):
+                        step(k)
+                    rows.extend(pipe.flush())
+                    torch.cuda.synchronize()
+                    return time.perf_counter() - t
+
+                wall, devt = profiled(window)
+                timing.update(profile_batches=LOG_PROFILE[1] - LOG_PROFILE[0],
+                              profile_wall_s=wall,
+                              device_busy_share=sum(devt.values()) / 1e6
+                              / wall)
+            if restart_at is None and LOG_PROFILE[0] <= b < LOG_PROFILE[1]:
+                continue
+            step(b)
+            if b == LOG_BATCHES - 1:
+                rows.extend(pipe.flush())
+                torch.cuda.synchronize()
+                timing["columnar_wall_s"] = time.perf_counter() - t0
+        rows.extend(pipe.flush())
+        rows.extend(ex.drain_closed())
+        torch.cuda.synchronize()
+        timing["wall_s"] = time.perf_counter() - t0
+        assert rd.read(1) == [], "the log holds more than was appended"
+    finally:
+        pipe.close()
+        store.close()
+    return dict(rows=rows, launches=launch_counts(), **sec, **timing)
+
+
+def log_reference(ls: LogStream) -> dict:
+    """numpy: per window start, per key: count, sum of LOG10(|t| + 1) and
+    of EXP(t / 50) (float64 of the float32 arguments), MAX(rint t) and
+    MIN(ceil t) over the records with SQRT(|t|) > 4 (float32 sqrt, which
+    is correctly rounded in numpy as on the card)."""
+    def part(kids, temps):
+        keep = np.sqrt(np.abs(temps)) > np.float32(4.0)
+        k, t = kids[keep], temps[keep]
+        mx = np.full(N_KEYS, -np.inf)
+        mn = np.full(N_KEYS, np.inf)
+        np.maximum.at(mx, k, np.rint(t).astype(np.float64))
+        np.minimum.at(mn, k, np.ceil(t).astype(np.float64))
+        lg = np.log10((np.abs(t) + np.float32(1)).astype(np.float64))
+        ex = np.exp((t / np.float32(50)).astype(np.float64))
+        return dict(count=np.bincount(k, minlength=N_KEYS),
+                    log=np.bincount(k, lg, minlength=N_KEYS),
+                    exp=np.bincount(k, ex, minlength=N_KEYS), max=mx, min=mn)
+
+    per = [part(k, t) for k, t in zip(ls.src.kids, ls.src.temps)]
+    size = 10_000
+    edge = BASE_TS + size
+    wins: dict[int, list] = {BASE_TS: [], edge: []}
+    for b in range(LOG_BATCHES):
+        _, ts, _ = ls.src.get(b)
+        wins[BASE_TS if ts[-1] < edge else edge].append(per[b % N_UNIQUE])
+    for kids, ts, temps in ls.json:
+        sel = ts < edge + size
+        wins[edge].append(part(kids[sel], temps[sel]))
+
+    def fold(parts):
+        return dict(count=sum(p["count"] for p in parts),
+                    log=sum(p["log"] for p in parts),
+                    exp=sum(p["exp"] for p in parts),
+                    max=np.maximum.reduce([p["max"] for p in parts]),
+                    min=np.minimum.reduce([p["min"] for p in parts]))
+
+    return {w: fold(parts) for w, parts in wins.items()}
+
+
+def log_cells(rows) -> dict:
+    from hstream_tpu_torch.common.columnar import ColumnarEmit
+
+    out = {}
+    for r in rows if not isinstance(rows, ColumnarEmit) else list(rows):
+        assert r["winEnd"] == r["winStart"] + 10_000, r
+        out[(int(r["device"][1:]), r["winStart"])] = tuple(
+            float(r[a]) for a in LOG_AGGS)
+    return out
+
+
+def check_log_rows(cells: dict, ref: dict) -> int:
+    """Closed rows against numpy: COUNT, MAX(ROUND), MIN(CEIL) exact; SUM
+    within the order bound (n 2^-24 sum|term|, terms positive) plus
+    CUDA_ULP of LOG10 per term and the final rounding; AVG likewise over
+    its sum, plus its division."""
+    n_cells = 0
+    for w, r in ref.items():
+        for k in np.nonzero(r["count"])[0]:
+            got = cells.pop((int(k), w))
+            n = int(r["count"][k])
+            assert got[0] == n and got[3] == r["max"][k] \
+                and got[4] == r["min"][k], (k, w, got, n)
+            lim = (n + 2 * CUDA_ULP["LOG10"] + 1) * U * r["log"][k]
+            assert abs(got[1] - r["log"][k]) <= lim, (k, w, got[1], lim)
+            want = r["exp"][k] / n
+            lim = (n + 2 * CUDA_ULP["EXP"] + 2) * U * want
+            assert abs(got[2] - want) <= lim, (k, w, got[2], want, lim)
+            n_cells += 1
+    assert not cells, f"rows without a numpy cell: {list(cells)[:4]}"
+    return n_cells
+
+
+def log_path(dev) -> dict:
+    """Phase 11: from the durable log, through the restart, into rows."""
+    import tempfile
+
+    from hstream_tpu_torch.common import jsondec
+
+    assert jsondec.load() is not None, "the native JSON decoder is missing"
+    ls = LogStream(seed=11)
+    ref = log_reference(ls)
+    with tempfile.TemporaryDirectory(prefix="hstream_log_") as tmp:
+        uri = f"file://{tmp}/store"
+        app = log_append(ls, uri)
+        plain = log_run(dev, uri, app["sid"], f"{tmp}/ckp.json", "plain",
+                        None)
+        run = log_run(dev, uri, app["sid"], f"{tmp}/ckp.json", "stats",
+                      LOG_RESTART_AT)
+    cells, base = log_cells(run["rows"]), log_cells(plain["rows"])
+    assert sorted(cells) == sorted(base), "closed rows differ"
+    for key, got in cells.items():
+        want = base[key]
+        assert got[0] == want[0] and got[3:] == want[3:], (key, got, want)
+        n = got[0]
+        for i in (1, 2):  # two summation orders
+            assert abs(got[i] - want[i]) <= 2 * (n + 1) * U * abs(want[i]), \
+                (key, got, want)
+    n_cells = check_log_rows(dict(cells), ref)
+    assert {w for _, w in cells} == set(ref) and n_cells == len(cells)
+    counts = run["launches"]
+    steps = LOG_BATCHES + LOG_JSON_BATCHES
+    assert counts["wire_decode"] == counts["scatter_aggregate"] == \
+        counts["expression"] == counts["expression_unaries"] == steps, counts
+    assert counts["fused_close"] == 2, counts
+    events = LOG_BATCHES * BATCH + LOG_JSON_BATCHES * LOG_JSON_ROWS
+    return dict(config="from the durable log (11)", rows=len(cells),
+                windows=len(ref), launches=counts,
+                store_bytes=app["store_bytes"],
+                produce_s=app["produce_s"], append_s=app["append_s"],
+                json_build_s=ls.json_build_s,
+                json_append_s=app["json_append_s"],
+                read_s=run["read_s"], decode_s=run["decode_s"],
+                json_decode_s=run["json_decode_s"],
+                restart_s=run["restart_s"], blob_bytes=run["blob_bytes"],
+                wall_s=run["wall_s"],
+                events_per_sec=events / (run["wall_s"] - run["restart_s"]),
+                columnar_events_per_sec=LOG_BATCHES * BATCH
+                / (run["columnar_wall_s"] - run["restart_s"]),
+                uninterrupted_wall_s=plain["wall_s"],
+                device_busy_share=plain["device_busy_share"],
+                profile_batches=plain["profile_batches"],
+                uninterrupted_launches=plain["launches"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3966,6 +4510,7 @@ def main() -> int:
     check_rebase(dev, results)
     chg = changelog_batch(dev)
     check_expr(dev, results, chg)
+    check_unaries(dev, results)
     k2_state = check_sketch_aggs(dev, results)
     check_topk(dev, results, chg)
     check_touched(dev, results, k2_state, chg)
@@ -4071,6 +4616,20 @@ def main() -> int:
     paths.append(r)
     log(f"session + join snapshots (10c): session {json.dumps(r['session'])}"
         f"; join {json.dumps(r['join'])} [{card}]")
+    r = log_path(dev)
+    paths.append(r)
+    log(f"durable log path (11): {r['rows']} closed rows in {r['windows']} "
+        f"windows equal numpy and the uninterrupted run; log "
+        f"{r['store_bytes']} bytes, produce {r['produce_s']:.3f} s, append "
+        f"{r['append_s']:.3f} s (JSON: build {r['json_build_s']:.3f} s, "
+        f"append {r['json_append_s']:.3f} s); read {r['read_s']:.3f} s, "
+        f"decode {r['decode_s']:.3f} s (JSON {r['json_decode_s']:.3f} s), "
+        f"restart {r['restart_s']:.3f} s (blob {r['blob_bytes']} bytes); "
+        f"{r['events_per_sec']:.0f} events/s from the log to rows "
+        f"(columnar batches {r['columnar_events_per_sec']:.0f}), "
+        f"device busy {r['device_busy_share']:.4f} over "
+        f"{r['profile_batches']} batches, launches {r['launches']} "
+        f"[{card}]")
 
     kernels = []
     for name, r in results.items():

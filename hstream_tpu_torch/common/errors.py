@@ -1,7 +1,7 @@
-"""Exception classes the engine and the SQL front end raise (a copy of
-the part of hstream_tpu/common/errors.py they need, with its hierarchy,
-without the gRPC status table, which belongs to the server), plus the
-port's own two errors.
+"""Exception classes the engine, the SQL front end and the log store
+raise (a copy of the part of hstream_tpu/common/errors.py they need,
+with its hierarchy, without the gRPC status table, which belongs to the
+server), plus the port's own two errors.
 """
 
 from __future__ import annotations
@@ -15,6 +15,34 @@ class HStreamError(Exception):
 
 class StoreError(HStreamError):
     """A storage-layer error (a corrupt snapshot blob derives from it)."""
+
+
+class StreamNotFound(StoreError):
+    pass
+
+
+class StreamExists(StoreError):
+    pass
+
+
+class LogNotFound(StoreError):
+    pass
+
+
+class DuplicateAppend(StoreError):
+    """A producer-stamped append whose seq fell behind the bounded
+    dedup window: the original may already be stored, so re-appending
+    could duplicate — refused loudly instead."""
+
+
+class ServerError(HStreamError):
+    pass
+
+
+class InvalidFrame(ServerError):
+    """A framed columnar append block failed validation: bad magic or
+    version, truncated or overlong body, CRC mismatch, or an embedded
+    columnar block whose declared sizes don't fit its bytes."""
 
 
 class SQLError(HStreamError):

@@ -30,7 +30,7 @@ from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
-from hstream_tpu_torch.common.errors import NotPortedError, SQLCodegenError
+from hstream_tpu_torch.common.errors import SQLCodegenError
 from hstream_tpu_torch.engine.kernels import binding as kb
 from hstream_tpu_torch.engine.types import ColumnType, Schema, StringDictionary
 
@@ -118,7 +118,11 @@ def encode_strings(expr: Expr, schema: Schema,
  OP_EQ_I, OP_NE_I, OP_LT_I, OP_LE_I, OP_GT_I, OP_GE_I,
  OP_EQ_F, OP_NE_F, OP_LT_F, OP_LE_F, OP_GT_F, OP_GE_F,
  OP_NOT_B, OP_NOT_I, OP_NEG_I, OP_NEG_F, OP_ABS_I, OP_ABS_F,
- OP_SEL_L, OP_SEL_R) = range(38)
+ OP_SEL_L, OP_SEL_R,
+ OP_CEIL_F, OP_FLOOR_F, OP_ROUND_F, OP_SIGN_I, OP_SIGN_F, OP_SQRT_F,
+ OP_SIN_F, OP_COS_F, OP_TAN_F, OP_ASIN_F, OP_ACOS_F, OP_ATAN_F,
+ OP_SINH_F, OP_COSH_F, OP_TANH_F, OP_ASINH_F, OP_ACOSH_F, OP_ATANH_F,
+ OP_LOG_F, OP_LOG2_F, OP_LOG10_F, OP_EXP_F) = range(60)
 _BINARY = frozenset(range(OP_ADD_I, OP_GE_F + 1)) | {OP_SEL_L, OP_SEL_R}
 
 MAX_OPS = 64     # per program
@@ -133,11 +137,18 @@ _CMP = {"=": (OP_EQ_I, OP_EQ_F), "<>": (OP_NE_I, OP_NE_F),
 _ARITH = {"+": (OP_ADD_I, OP_ADD_F), "-": (OP_SUB_I, OP_SUB_F),
           "*": (OP_MUL_I, OP_MUL_F), "%": (OP_MOD_I, OP_MOD_F)}
 # the reference's device unaries beyond NEG/ABS (hstream_tpu/engine/
-# expr.py:70-79 _NUM_UNARY): not in the expression kernel yet
-_UNPORTED_UNARY = frozenset({
-    "CEIL", "FLOOR", "ROUND", "SQRT", "SIGN", "SIN", "COS", "TAN", "ASIN",
-    "ACOS", "ATAN", "SINH", "COSH", "TANH", "ASINH", "ACOSH", "ATANH",
-    "LOG", "LOG2", "LOG10", "EXP"})
+# expr.py:70-79 _NUM_UNARY) with jnp's result types: CEIL, FLOOR and
+# ROUND keep an int32 operand as it is (and CEIL/FLOOR a bool), SIGN of
+# an int32 is int32, the rest convert an int32 or bool operand to f32
+_KEEP_INT = {"CEIL": OP_CEIL_F, "FLOOR": OP_FLOOR_F, "ROUND": OP_ROUND_F,
+             "SIGN": OP_SIGN_F}
+_FLOAT_UNARY = {
+    "SQRT": OP_SQRT_F, "SIN": OP_SIN_F, "COS": OP_COS_F, "TAN": OP_TAN_F,
+    "ASIN": OP_ASIN_F, "ACOS": OP_ACOS_F, "ATAN": OP_ATAN_F,
+    "SINH": OP_SINH_F, "COSH": OP_COSH_F, "TANH": OP_TANH_F,
+    "ASINH": OP_ASINH_F, "ACOSH": OP_ACOSH_F, "ATANH": OP_ATANH_F,
+    "LOG": OP_LOG_F, "LOG2": OP_LOG2_F, "LOG10": OP_LOG10_F,
+    "EXP": OP_EXP_F}
 
 
 @dataclass(frozen=True)
@@ -194,10 +205,11 @@ def compile_device(expr: Expr, schema: Schema) -> DeviceProgram:
     bool: int32 arithmetic stays int32 and wraps, int with float gives
     float32, `/` always gives float32, `%` is floored, bool `+`/`*` are
     OR/AND, a number times a bool is the number or 0 (XLA's select, so
-    NaN * false is 0), AND/OR/NOT on ints are bitwise. Raises
+    NaN * false is 0), AND/OR/NOT on ints are bitwise, the unaries
+    follow jnp's result types (_KEEP_INT, _FLOAT_UNARY). Raises
     SQLCodegenError for what the reference refuses (host-only ops, NULL
-    literals, `-` of two bools, float operands of AND/OR/NOT) and
-    NotPortedError for the reference's other device unaries."""
+    literals, `-` of two bools, float operands of AND/OR/NOT, ROUND and
+    SIGN of a bool: jnp raises when the reference's step is traced)."""
     cols: list[str] = []
 
     def col_index(name: str) -> int:
@@ -264,8 +276,19 @@ def compile_device(expr: Expr, schema: Schema) -> DeviceProgram:
                 if t == "bool":
                     return ops, t
                 return ops + [(OP_ABS_F if t == "f32" else OP_ABS_I, 0, t)], t
-            if e.op in _UNPORTED_UNARY:
-                raise NotPortedError(f"device function {e.op}", "A6b")
+            if e.op in _KEEP_INT:
+                if t == "bool":
+                    if e.op in ("ROUND", "SIGN"):
+                        raise SQLCodegenError(f"{e.op} of a boolean")
+                    return ops, t
+                if t == "i32":
+                    if e.op == "SIGN":
+                        return ops + [(OP_SIGN_I, 0, t)], t
+                    return ops, t
+                return ops + [(_KEEP_INT[e.op], 0, t)], t
+            if e.op in _FLOAT_UNARY:
+                return (ops + _cvt(t, "f32")
+                        + [(_FLOAT_UNARY[e.op], 0, "f32")]), "f32"
             raise SQLCodegenError(f"op {e.op} is host-only")
         raise SQLCodegenError(f"unknown expr {e!r}")
 
@@ -330,6 +353,29 @@ _CMP_FN = {OP_EQ_I: torch.eq, OP_NE_I: torch.ne, OP_LT_I: torch.lt,
            OP_LE_I: torch.le, OP_GT_I: torch.gt, OP_GE_I: torch.ge}
 
 
+_UNARY_FN = {
+    OP_CEIL_F: torch.ceil, OP_FLOOR_F: torch.floor,
+    OP_ROUND_F: torch.round,  # half to even, as jnp.round
+    OP_SIN_F: torch.sin, OP_COS_F: torch.cos, OP_TAN_F: torch.tan,
+    OP_ASIN_F: torch.asin, OP_ACOS_F: torch.acos, OP_ATAN_F: torch.atan,
+    OP_SINH_F: torch.sinh, OP_COSH_F: torch.cosh, OP_TANH_F: torch.tanh,
+    OP_ASINH_F: torch.asinh, OP_ACOSH_F: torch.acosh,
+    OP_ATANH_F: torch.atanh, OP_LOG_F: torch.log, OP_LOG2_F: torch.log2,
+    OP_LOG10_F: torch.log10, OP_EXP_F: torch.exp}
+
+
+def _unary_plain(code: int, x: torch.Tensor) -> torch.Tensor:
+    if code == OP_SQRT_F:
+        # in float64, rounded once: correctly rounded, as XLA's and
+        # the kernel's sqrt are (PyTorch's vectorized CPU sqrt is not)
+        return x.double().sqrt().float()
+    if code == OP_SIGN_I:
+        return (x > 0).int() - (x < 0).int()
+    if code == OP_SIGN_F:  # jnp.sign: -0.0 stays -0.0, NaN stays NaN
+        return torch.where(x > 0, 1.0, torch.where(x < 0, -1.0, x))
+    return _UNARY_FN[code](x)
+
+
 def _run_plain(prog: DeviceProgram, cols: Mapping[str, torch.Tensor]
                ) -> torch.Tensor:
     ref = cols[prog.cols[0]] if prog.cols else next(iter(cols.values()))
@@ -343,6 +389,9 @@ def _run_plain(prog: DeviceProgram, cols: Mapping[str, torch.Tensor]
             lit = torch.tensor(arg, dtype=torch.int32, device=dev)
             st.append(lit.view(torch.float32) if t == "f32"
                       else lit != 0 if t == "bool" else lit)
+            continue
+        if code >= OP_CEIL_F:
+            st.append(_unary_plain(code, st.pop()))
             continue
         if code in (OP_B2I, OP_B2F, OP_I2F, OP_NOT_B, OP_NOT_I, OP_NEG_I,
                     OP_NEG_F, OP_ABS_I, OP_ABS_F):
@@ -402,9 +451,12 @@ def eval_programs(progs: Sequence[tuple[DeviceProgram, str | None]],
         return
     _expr_cuda(progs, cols, valid)
     eval_programs.launches += 1
+    if any(code >= OP_CEIL_F for prog, _ in progs for code, _ in prog.ops):
+        eval_programs.unary_launches += 1
 
 
 eval_programs.launches = 0  # wrapper calls that launched the kernel
+eval_programs.unary_launches = 0  # of those, launches that ran a unary
 
 
 def _expr_cuda(progs, cols: dict[str, torch.Tensor],

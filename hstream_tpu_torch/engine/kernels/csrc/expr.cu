@@ -25,9 +25,16 @@
 //  * `/` is IEEE float32 division (__fdiv_rn), after int -> float;
 //  * comparisons with NaN are false except `<>`;
 //  * a number times a bool is the number or 0, as XLA rewrites it
-//    (select), so NaN * false is 0, not NaN.
-// Built with --fmad=false, so no multiply and add contract into an FMA:
-// the plain PyTorch version gives the same bits.
+//    (select), so NaN * false is 0, not NaN;
+//  * the unaries (jnp's _NUM_UNARY, hstream_tpu/engine/expr.py:70-79):
+//    ROUND is rintf (half to even, as jnp.round), not roundf; SIGN keeps
+//    -0.0 and NaN; SQRT is the correctly rounded __fsqrt_rn; the rest
+//    are CUDA's full-precision float functions (sinf, expf, ...), the
+//    ones PyTorch's own CUDA kernels call, within a few ULP of XLA's.
+// Built with --fmad=false and without --use_fast_math, so no multiply
+// and add contract into an FMA, sinf stays sinf (not __sinf) and
+// subnormals are kept: the plain PyTorch version gives the same bits,
+// or within the stated ULP bound of each unary.
 
 #include <cuda_runtime.h>
 
@@ -90,6 +97,33 @@ expr_kernel(const __grid_constant__ HsExprArgs a) {
             case HS_OP_NEG_F: x = fb(-asf(x)); continue;
             case HS_OP_ABS_I: x = (int)x < 0 ? 0u - x : x; continue;
             case HS_OP_ABS_F: x = fb(fabsf(asf(x))); continue;
+            case HS_OP_CEIL_F: x = fb(ceilf(asf(x))); continue;
+            case HS_OP_FLOOR_F: x = fb(floorf(asf(x))); continue;
+            case HS_OP_ROUND_F: x = fb(rintf(asf(x))); continue;
+            case HS_OP_SIGN_I: x = (uint32_t)(((int)x > 0) - ((int)x < 0));
+                continue;
+            case HS_OP_SIGN_F: {
+                const float v = asf(x);
+                x = v > 0.0f ? fb(1.0f) : v < 0.0f ? fb(-1.0f) : x;
+                continue;
+            }
+            case HS_OP_SQRT_F: x = fb(__fsqrt_rn(asf(x))); continue;
+            case HS_OP_SIN_F: x = fb(sinf(asf(x))); continue;
+            case HS_OP_COS_F: x = fb(cosf(asf(x))); continue;
+            case HS_OP_TAN_F: x = fb(tanf(asf(x))); continue;
+            case HS_OP_ASIN_F: x = fb(asinf(asf(x))); continue;
+            case HS_OP_ACOS_F: x = fb(acosf(asf(x))); continue;
+            case HS_OP_ATAN_F: x = fb(atanf(asf(x))); continue;
+            case HS_OP_SINH_F: x = fb(sinhf(asf(x))); continue;
+            case HS_OP_COSH_F: x = fb(coshf(asf(x))); continue;
+            case HS_OP_TANH_F: x = fb(tanhf(asf(x))); continue;
+            case HS_OP_ASINH_F: x = fb(asinhf(asf(x))); continue;
+            case HS_OP_ACOSH_F: x = fb(acoshf(asf(x))); continue;
+            case HS_OP_ATANH_F: x = fb(atanhf(asf(x))); continue;
+            case HS_OP_LOG_F: x = fb(logf(asf(x))); continue;
+            case HS_OP_LOG2_F: x = fb(log2f(asf(x))); continue;
+            case HS_OP_LOG10_F: x = fb(log10f(asf(x))); continue;
+            case HS_OP_EXP_F: x = fb(expf(asf(x))); continue;
             default: break;
             }
             const uint32_t b = st[--sp];

@@ -69,7 +69,15 @@ enum {
     // a number times a bool: the number where the bool is true, else 0
     // (+0.0), as XLA computes it (select(pred, x, 0)); L: the bool is
     // the left operand
-    HS_OP_SEL_L, HS_OP_SEL_R
+    HS_OP_SEL_L, HS_OP_SEL_R,
+    // jnp's unaries on float32 (an int or bool operand is converted
+    // first, or left alone where jnp keeps its type); ROUND is half to
+    // even, SIGN keeps -0.0 and NaN, SIGN_I is the int32 sign
+    HS_OP_CEIL_F, HS_OP_FLOOR_F, HS_OP_ROUND_F, HS_OP_SIGN_I, HS_OP_SIGN_F,
+    HS_OP_SQRT_F, HS_OP_SIN_F, HS_OP_COS_F, HS_OP_TAN_F, HS_OP_ASIN_F,
+    HS_OP_ACOS_F, HS_OP_ATAN_F, HS_OP_SINH_F, HS_OP_COSH_F, HS_OP_TANH_F,
+    HS_OP_ASINH_F, HS_OP_ACOSH_F, HS_OP_ATANH_F, HS_OP_LOG_F, HS_OP_LOG2_F,
+    HS_OP_LOG10_F, HS_OP_EXP_F
 };
 
 struct HsExprOp {

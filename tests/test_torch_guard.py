@@ -78,9 +78,29 @@ SOURCES = sorted([p for p in PKG.rglob("*.py")] + [REPO / "chip_smoke.py"])
 
 def test_the_source_guard_covers_every_slice():
     """The import guard below reads every module of the port, the SQL
-    front end, the snapshots and the join slice among them."""
+    front end, the snapshots, the join slice and the log substrate
+    (records, proto, decoders, store) among them."""
     names = {str(p.relative_to(REPO)) for p in SOURCES}
-    for want in ("hstream_tpu_torch/sql/ast.py",
+    for want in ("hstream_tpu_torch/common/logger.py",
+                 "hstream_tpu_torch/common/faultinject.py",
+                 "hstream_tpu_torch/common/records.py",
+                 "hstream_tpu_torch/common/idgen.py",
+                 "hstream_tpu_torch/common/colframe.py",
+                 "hstream_tpu_torch/common/columnar.py",
+                 "hstream_tpu_torch/common/jsondec.py",
+                 "hstream_tpu_torch/common/nativebuild.py",
+                 "hstream_tpu_torch/proto/__init__.py",
+                 "hstream_tpu_torch/proto/api_pb2.py",
+                 "hstream_tpu_torch/store/__init__.py",
+                 "hstream_tpu_torch/store/api.py",
+                 "hstream_tpu_torch/store/memstore.py",
+                 "hstream_tpu_torch/store/streams.py",
+                 "hstream_tpu_torch/store/checkpoint.py",
+                 "hstream_tpu_torch/store/build.py",
+                 "hstream_tpu_torch/store/native.py",
+                 "hstream_tpu_torch/store/versioned.py",
+                 "hstream_tpu_torch/store/dedup.py",
+                 "hstream_tpu_torch/sql/ast.py",
                  "hstream_tpu_torch/sql/plans.py",
                  "hstream_tpu_torch/sql/codegen.py",
                  "hstream_tpu_torch/sql/__init__.py",

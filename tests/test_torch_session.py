@@ -54,6 +54,8 @@ def _aggs(names):
             "*", m.Col("v"), m.Lit(2.0))),
         "top": lambda m: m.AggSpec(m.AggKind.TOPK, "top", input=m.Col("v"),
                                    k=3),
+        "rx": lambda m: m.AggSpec(m.AggKind.SUM, "rx", input=m.UnOp(
+            "SQRT", m.Col("v"))),
     }
     return lambda m: [table[n](m) for n in names]
 
@@ -437,10 +439,12 @@ def test_pinned_anchor_span_raises_on_the_card():
 
 @pytest.mark.parametrize("op", ["SQRT", "IFNULL"])
 def test_refused_input_host_engine_on_cpu_raise_on_the_card(op):
-    """A record-mode aggregate input the device compiler refuses (SQRT,
-    not ported: A6b; IFNULL, host-only: A7c) runs on the host
-    engine on device="cpu", with the reference's rows, and raises
-    NotPortedError on the card before any device work."""
+    """A record-mode aggregate input the device compiler refuses (IFNULL,
+    host-only: A7c) runs on the host engine on device="cpu", with the
+    reference's rows, and raises NotPortedError on the card before any
+    device work. SQRT, refused until the expression kernel had the
+    unaries, now compiles for the device: the plain record program runs
+    on the CPU, with the reference's rows."""
     def sx(m):
         inp = (m.UnOp("SQRT", m.Col("v")) if op == "SQRT"
                else m.BinOp("IFNULL", m.Col("v"), m.Lit(7.0)))
@@ -451,14 +455,33 @@ def test_refused_input_host_engine_on_cpu_raise_on_the_card(op):
     rows = [{"k": f"k{i % 3}", "v": float(i)} for i in range(9)]
     ts = [BASE + 100 * i for i in range(9)]
     _, peeks = _feed([h, t], [(rows, ts)])
-    assert t._dev is None and "compile refused" in t._device_refusal
     assert t.device_fallbacks == 0
     _agree(peeks)
+    if op == "SQRT":
+        assert t._dev is not None and t._dev["mode"] == "record"
+        assert t._device_refusal is None
+        return
+    assert t._dev is None and "compile refused" in t._device_refusal
     card = port(sx, "record")
     card.device = torch.device("cuda", 0)
-    with pytest.raises(NotPortedError,
-                       match="A6b" if op == "SQRT" else "A7c"):
+    with pytest.raises(NotPortedError, match="A7c"):
         card.process(rows, ts)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_record_mode_sqrt_input_matches_the_reference(seed):
+    """SUM(SQRT(v)) in record mode, out-of-order and late rows: the
+    port's device path (the plain record program) against the JAX
+    package's device record mode and its host engine."""
+    aggs = _aggs(["c", "rx", "s"])
+    exs = [jax(aggs, "record", device=True), jax(aggs),
+           port(aggs, "record")]
+    outs, peeks = _feed(exs, gen(seed))
+    assert exs[2]._dev is not None and exs[2]._dev["mode"] == "record"
+    assert exs[0]._dev is not None
+    assert exs[2].device_fallbacks == 0 and exs[2].late_drops > 0
+    _agree(outs)
+    _agree(peeks)
 
 
 def test_rebase_shifts_the_arena_with_the_step():

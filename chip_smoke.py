@@ -20,7 +20,10 @@ Phases, each of which asserts (any failure exits non-zero):
    reference takes (NaN, +-inf, +-0, x.5 and -x.5, inputs outside the
    domains of SQRT, the logs, ASIN, ACOS, ACOSH and ATANH, large SIN,
    COS and TAN arguments; CEIL, FLOOR, ROUND, SIGN and SQRT exact, the
-   rest within CARD_ULP), timed on phase 11's programs, and the session
+   rest within CARD_ULP), then phase 11's programs on a batch of its
+   stream against their plain versions (the WHERE mask, ROUND and CEIL
+   bit for bit, the LOG10 and EXP inputs within CARD_ULP) and timed
+   there, and the session
    kernels (the step and the merge over every aggregate
    kind, out-of-order records gap and gap + 1 apart, equal starts,
    evicted and retired arena entries, a non-zero delta, NULLs, NaN,
@@ -1104,8 +1107,11 @@ def check_unaries(dev, results):
     the reference takes (ROUND and SIGN of a bool are refused at
     compile), against the plain version on the card: the exact ones bit
     for bit (a NaN as a NaN), the rest NaN, +-inf and zero where the
-    plain version has them and within CARD_ULP elsewhere; then timed on
-    phase 11's programs over a 2^20-record batch."""
+    plain version has them and within CARD_ULP elsewhere. Then phase
+    11's programs over a 2^20-record batch of phase 11's own stream,
+    against the plain programs on the same tensors: the WHERE mask and
+    the SQRT, ROUND and CEIL programs bit for bit, the LOG10 and EXP
+    programs within CARD_ULP of their outer function; timed there."""
     from hstream_tpu_torch.common.errors import SQLCodegenError
     from hstream_tpu_torch.engine import expr as ex
     from hstream_tpu_torch.engine.kernels import binding as kb
@@ -1152,13 +1158,29 @@ def check_unaries(dev, results):
                 max_abs = max(max_abs, float((g[fin] - w[fin]).abs().max()))
             lim = 0 if op in EXACT_UNARY else CARD_ULP[op]
             assert worst[op] <= lim, f"{what}: {worst[op]} ULP > {lim}"
-    # timed on phase 11's programs over one of its batches
+    # phase 11's programs over a batch of phase 11's stream
     progs = log_programs()
-    rng = np.random.default_rng(43)
-    temp = torch.from_numpy((np.rint(rng.normal(20, 5, BATCH) * 10)
-                             .astype(np.float32) * np.float32(0.1))).to(dev)
+    temp = torch.from_numpy(Batches(LOG_SEED).get(0)[2]).to(dev)
     tcols = {"temp": temp}
+    got = dict(tcols)
     vcopy = torch.ones(BATCH, dtype=torch.bool, device=dev)
+    ex.eval_programs(progs, got, vcopy)
+    torch.cuda.synchronize()
+    outer = {ex.OP_LOG10_F: "LOG10", ex.OP_EXP_F: "EXP"}
+    path_ulp: dict[str, int] = {}
+    for p, name in progs:
+        want = p(tcols)
+        if name is None:
+            assert torch.equal(vcopy, want), "phase 11's WHERE mask"
+            continue
+        g, op = got[name], outer.get(p.ops[-1][0])
+        what = f"phase 11's {name} ({op or 'exact'})"
+        assert g.dtype == want.dtype and bool(torch.isfinite(want).all()) \
+            and bool(torch.isfinite(g).all()), what
+        path_ulp[name] = int(ulp_distance(g, want).max().item())
+        lim = CARD_ULP[op] if op else 0
+        assert path_ulp[name] <= lim, f"{what}: {path_ulp[name]} > {lim}"
+        max_abs = max(max_abs, float((g - want).abs().max()))
     ms, call, src = kernel_ms(lambda: ex.eval_programs(
         progs, dict(tcols), vcopy), 50)
     plain = kernel_ms(lambda: [p(tcols) for p, _ in progs], 20)[0]
@@ -1174,11 +1196,12 @@ def check_unaries(dev, results):
         max_abs_err=max_abs, ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib, call_ms=call, ms_source=src,
         max_ulp=worst, card_ulp=CARD_ULP, programs=len(progs),
-        ops=n_ops)
+        ops=n_ops, path_max_ulp=path_ulp)
     log(f"expression unaries: {len(cases)} programs ({len(refused)} "
         f"refused at compile), largest ULP against the plain version "
         f"{json.dumps(worst)}; phase 11's {len(progs)} programs "
-        f"({n_ops} ops) {ms:.4f} ms device, {call:.4f} ms a call (plain "
+        f"({n_ops} ops) against plain on its stream, largest ULP "
+        f"{json.dumps(path_ulp)}, mask exact; {ms:.4f} ms device, {call:.4f} ms a call (plain "
         f"{plain:.4f}, torch.sqrt {lib:.4f}, bound {b_ms:.4f} by {b_by})")
 
 
@@ -4123,6 +4146,7 @@ LOG_SQL = ("CREATE VIEW sensor_stats AS SELECT device, COUNT(*), "
            "SECOND) GRACE BY INTERVAL 0 SECOND;")
 LOG_AGGS = ("COUNT(*)", "SUM(LOG10(ABS(temp) + 1))", "AVG(EXP(temp / 50))",
             "MAX(ROUND(temp))", "MIN(CEIL(temp))")
+LOG_SEED = 11                # the stream's Batches seed
 LOG_BLOCKS = 16              # columnar records of 2^16 rows per batch
 LOG_BATCHES = 56             # the first window closes at batch 50
 LOG_RESTART_AT = 25
@@ -4439,7 +4463,7 @@ def log_path(dev) -> dict:
     from hstream_tpu_torch.common import jsondec
 
     assert jsondec.load() is not None, "the native JSON decoder is missing"
-    ls = LogStream(seed=11)
+    ls = LogStream(seed=LOG_SEED)
     ref = log_reference(ls)
     with tempfile.TemporaryDirectory(prefix="hstream_log_") as tmp:
         uri = f"file://{tmp}/store"

@@ -18,10 +18,10 @@ _lock = threading.Lock()
 
 
 def build_so(src: str, so: str, *, libs: tuple[str, ...] = (),
-             opt: str = "-O2", force: bool = False) -> str:
+             opt: str = "-O2") -> str:
     """Compile `src` -> `so` if stale; returns the .so path."""
     with _lock:
-        if (not force and os.path.exists(so)
+        if (os.path.exists(so)
                 and os.path.getmtime(so) >= os.path.getmtime(src)):
             return so
         tmp = f"{so}.{os.getpid()}.tmp"

@@ -25,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import math
 import struct
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
@@ -162,6 +162,7 @@ class DeviceProgram:
     types: tuple[str, ...]  # the type each op leaves on top of the stack
     cols: tuple[str, ...]
     dtype: str
+    has_unary: bool = field(default=False, compare=False)  # runs B1b'
 
     def __call__(self, cols: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """The plain PyTorch version: the same ops, one tensor op each."""
@@ -307,7 +308,8 @@ def compile_device(expr: Expr, schema: Schema) -> DeviceProgram:
             f"{MAX_DEPTH}")
     return DeviceProgram(ops=tuple((c, a) for c, a, _ in ops),
                          types=tuple(t for _, _, t in ops),
-                         cols=tuple(cols), dtype=dtype)
+                         cols=tuple(cols), dtype=dtype,
+                         has_unary=any(c >= OP_CEIL_F for c, _, _ in ops))
 
 
 # ---- the plain version of the expression kernel -----------------------------
@@ -451,7 +453,7 @@ def eval_programs(progs: Sequence[tuple[DeviceProgram, str | None]],
         return
     _expr_cuda(progs, cols, valid)
     eval_programs.launches += 1
-    if any(code >= OP_CEIL_F for prog, _ in progs for code, _ in prog.ops):
+    if any(prog.has_unary for prog, _ in progs):
         eval_programs.unary_launches += 1
 
 

@@ -17,7 +17,7 @@ SRC = os.path.join(_DIR, "cpp", "nstore.cpp")
 SO = os.path.join(_DIR, "cpp", "libnstore.so")
 
 
-def build(force: bool = False) -> str:
+def build() -> str:
     """Compile cpp/nstore.cpp -> cpp/libnstore.so if stale; returns the
     .so path."""
-    return build_so(SRC, SO, libs=("z",), force=force)
+    return build_so(SRC, SO, libs=("z",))

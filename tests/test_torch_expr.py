@@ -399,3 +399,22 @@ def test_program_limits_and_the_kernel_wrapper_on_the_cpu():
     np.testing.assert_array_equal(
         cols["__in_a0"].numpy(),
         (COLS["i"].astype(np.int64) * 2).astype(np.int32))
+
+
+@pytest.mark.parametrize("expr,unary", [
+    (TM.UnOp("SQRT", TM.Col("f")), True),
+    (TM.BinOp(">", TM.UnOp("LOG10", TM.UnOp("ABS", TM.Col("f"))),
+              TM.Lit(1.0)), True),
+    (TM.UnOp("CEIL", TM.Col("i")), False),   # an int32 CEIL is no op
+    (TM.UnOp("ABS", TM.Col("f")), False),
+    (TM.UnOp("NEG", TM.Col("i")), False),
+    (TM.BinOp("*", TM.Col("i"), TM.Lit(2)), False),
+], ids=["sqrt", "nested_log10", "ceil_int", "abs", "neg", "binary"])
+def test_has_unary_marks_the_programs_that_run_a_unary(expr, unary):
+    """compile_device sets has_unary once, on the programs whose ops run
+    one of the 21 unaries; eval_programs counts their launches from it.
+    The flag takes no part in a program's equality."""
+    prog = te.compile_device(expr, TSCHEMA)
+    assert prog.has_unary is unary
+    assert prog == te.DeviceProgram(prog.ops, prog.types, prog.cols,
+                                    prog.dtype, has_unary=not unary)

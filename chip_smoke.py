@@ -11,7 +11,11 @@ Phases, each of which asserts (any failure exits non-zero):
 3. kernels vs plain: every kernel against its plain PyTorch version on
    the same inputs on the card, and timed at the main paths' shapes
    beside its plain version, its bound and, where one exists, PyTorch
-   calls computing the same function: wire decode, scatter, fused close
+   calls computing the same function: wire decode, scatter (every
+   lattice the paths step, scatter_specs(), in each mode it can take:
+   block-private, cluster and global; keys below 0 and at K + 5, a batch
+   crossing a window end, the join's inner lattice at K = 2^19 on a
+   match-sized feed), fused close
    (all three modes), rebase, and the changelog query's kernels (the
    expression interpreter over every op and type mix; NULL masks,
    COUNT(col) and quantile bins in the scatter and estimates in the
@@ -27,7 +31,10 @@ Phases, each of which asserts (any failure exits non-zero):
    kernels (the step and the merge over every aggregate
    kind, out-of-order records gap and gap + 1 apart, equal starts,
    evicted and retired arena entries, a non-zero delta, NULLs, NaN,
-   +-inf and +-0.0; the extract with pads, empty histograms and HLL
+   +-inf and +-0.0, keys all in one bucket of the sort or in its low
+   byte only, codes at 2^22 - 1 beside sentinels, starts on both sides
+   of the int32 wrap, fewer entries than one sort tile, no arena slots,
+   no batch records; the extract with pads, empty histograms and HLL
    estimates near .5; the remap with codes at and above the table), and
    the join kernels (the probe + merge-insert and the probe alone at a
    match_cap below and above the total; the fused probe + window step
@@ -119,6 +126,11 @@ Phases, each of which asserts (any failure exits non-zero):
    its error against the plain version and its times), the card line,
    and last {"ok": true, "device": {...}}.
 
+Device times come from torch.profiler over repeated calls, warmed by
+spin kernels it leaves out; a profile whose per-kernel event counts are
+not multiples of the calls is not used, and CUDA events time the calls
+instead (profiled_calls).
+
 Inputs come from fixed seeds with numpy. Tolerances: integer planes,
 slot_start, HLL registers and estimates, quantile bins and estimates,
 top-k planes, MIN/MAX, counts, expression results and every packed close
@@ -201,28 +213,67 @@ def _device_us(event) -> float:
     return v if v is not None else getattr(event, "self_cuda_time_total", 0.0)
 
 
-def profiled(fn):
-    """(fn's result, {device event name: device us}) with fn run under
-    torch.profiler's CUDA activity."""
+def _profile(fn):
+    """(fn's result, {device event name: device us}, {device event name:
+    events recorded}) with fn run under torch.profiler's CUDA activity."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the profiler loses the first few device events of a profile
+        # (seven on an H100, PERF.md): spend them on spin kernels, which
+        # are left out below
+        for _ in range(_WARM_KERNELS):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
         out = fn()
         torch.cuda.synchronize()
-    return out, {e.key: _device_us(e) for e in prof.key_averages()
-                 if _device_us(e) > 0}
+    events = [e for e in prof.key_averages() if "spin_kernel" not in e.key]
+    counts = {e.key: e.count for e in events
+              if getattr(e, "device_type", None) == DeviceType.CUDA}
+    return out, {e.key: _device_us(e) for e in events
+                 if _device_us(e) > 0}, counts
+
+
+_WARM_KERNELS = 32
+
+
+def profiled(fn):
+    """(fn's result, {device event name: device us}) with fn run under
+    torch.profiler's CUDA activity."""
+    out, dev, _counts = _profile(fn)
+    return out, dev
+
+
+def profiled_calls(fn, iters: int, what: str = "") -> dict | None:
+    """{device event name: device us} of `iters` calls of fn, or None
+    when the profiler lost events: one call launches each of its
+    kernels (and copies and fills) a fixed number of times, so each
+    device event must be recorded a multiple of `iters` times; the
+    profile is taken twice before it is given up. The profiler drops
+    events now and then, and a short sum would pass for a fast kernel."""
+    for _attempt in range(2):
+        _, dev, counts = _profile(lambda: [fn() for _ in range(iters)])
+        short = {k: c for k, c in counts.items() if c % iters}
+        if counts and not short:
+            return dev
+    log(f"profiler: events lost over {iters} calls of {what or 'a call'} "
+        f"({len(short)} kernels recorded a count that is not a multiple "
+        f"of {iters}, {len(counts)} kernels in all): not used")
+    return None
 
 
 def kernel_ms(fn, iters: int) -> tuple[float, float, str]:
     """(ms, call_ms, source): the device time per call of fn from
     torch.profiler (the kernels and copies it launches, without the
-    host's gaps between launches; "events" when the profiler records
-    none), and the time per call with CUDA events around many calls,
-    which for a short kernel is the host's launch path."""
+    host's gaps between launches; "events" when the profiler lost or
+    recorded no events, profiled_calls), and the time per call with CUDA
+    events around many calls, which for a short kernel is the host's
+    launch path and is then also the first number."""
     call = cuda_time_ms(fn, iters)
-    _, dev = profiled(lambda: [fn() for _ in range(iters)])
-    total = sum(dev.values())
+    dev = profiled_calls(fn, iters, getattr(fn, "__name__", ""))
+    total = sum(dev.values()) if dev is not None else 0.0
     if total <= 0:
         return call, call, "events"
     return total / 1e3 / iters, call, "profiler"
@@ -312,10 +363,6 @@ def make_spec(cfg: int):
                 AggSpec(AggKind.MAX, "hi", input=Col("temp")))
     return lattice.LatticeSpec(n_keys=1024, window=win, aggs=aggs,
                                track_touched=False)
-
-
-def sum_plane(cfg: int) -> str:
-    return "a1_sum" if cfg == 1 else "a0_avg"
 
 
 # ---- numpy reference (independent of the port) ------------------------------
@@ -487,12 +534,11 @@ def check_decode(dev, results, head):
         f"{ms:.4f} ms (plain {plain:.4f}, bound {b_ms:.4f})")
 
 
-def awkward_inputs(dev, seed: int):
-    """A decoded batch with the hard cases mixed in: records before the
-    epoch (negative ts), late records, invalid rows, keys out of range,
-    NaN, inf and -0.0 inputs, records over three windows."""
+def awkward_inputs(dev, seed: int, n: int = BATCH):
+    """A decoded batch of n records with the hard cases mixed in: records
+    before the epoch (negative ts), late records, invalid rows, keys out
+    of range, NaN, inf and -0.0 inputs, records over three windows."""
     rng = np.random.default_rng(seed)
-    n = BATCH
     key = rng.integers(0, N_KEYS, n).astype(np.int32)
     key[::997] = 1024 + 5
     ts = (200_000 + np.sort(rng.integers(0, 30_000, n))).astype(np.int32)
@@ -514,64 +560,198 @@ def copy_state(state):
     return {k: v.clone() for k, v in state.items()}
 
 
-def sum_bound(spec, cfg, prior, wm, key, ts, valid, cols):
-    """Per SUM/AVG cell: 2*n*2^-24*sum|x| over the cell's addends (the
-    prior value counts as one): the plain step over |x| gives n and
-    sum|x| (in float32, widened by 1e-6 for its own rounding)."""
+def scatter_specs() -> dict:
+    """Every lattice the port's window paths step, by name: configs 1 and
+    2, the changelog query, phase 11's five aggregates, every scatter
+    kind with a NULL mask (K2), and the join's inner lattice at the
+    K = 2^19 that phase 8 grows it to (BASELINE config 5's COUNT(*))."""
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.sql import stream_codegen
+
+    log_node = stream_codegen(LOG_SQL).select.node
+    join_node = join_plan().node
+    return {"config 1": make_spec(1), "config 2": make_spec(2),
+            "changelog": changelog_plan()[2],
+            "log": lattice.LatticeSpec(
+                n_keys=1024, window=log_node.window,
+                aggs=tuple(log_node.aggs), track_touched=False),
+            "sketch kinds": k2_spec(),
+            "join inner": lattice.LatticeSpec(
+                n_keys=1 << 19, window=join_node.window,
+                aggs=tuple(join_node.aggs), track_touched=True)}
+
+
+def scatter_inputs(dev, spec, seed: int, n: int, two_slots: bool = False):
+    """A decoded batch for `spec`: awkward_inputs' hard cases (records
+    before the epoch, late records, invalid rows, NaN, inf and -0.0,
+    records over three windows), keys spread over [0, K) with some
+    at K + 5 and some negative, and each aggregate's input column and a
+    2 % NULL mask; with `two_slots`, the records' times cross one
+    10 s window end instead."""
     from hstream_tpu_torch.engine import lattice
 
-    dev = key.device
-    st = lattice.init_state(spec, dev)
-    lattice.scatter_step_ref(spec, st, wm, key, ts, valid,
-                             {"temp": cols["temp"].abs()})
-    name = sum_plane(cfg)
-    n = st["count"] if cfg == 1 else st["a0_avg_n"]
-    abs_sum = st[name].double() * (1 + 1e-6) + prior[name].double().abs()
-    return 2 * (n.double() + 1) * U * abs_sum
+    _, ts, valid, cols = awkward_inputs(dev, seed, n)
+    rng = np.random.default_rng(seed + 7)
+    k = rng.integers(0, spec.n_keys, n).astype(np.int32)
+    k[::997] = spec.n_keys + 5
+    k[5::1013] = -3
+    key = torch.from_numpy(k).to(dev)
+    if two_slots:
+        ts = torch.from_numpy(
+            (9_900 + np.sort(rng.integers(0, 200, n))).astype(np.int32)
+        ).to(dev)
+    temp = cols["temp"]
+    out = {}
+    for i, name in enumerate(lattice.agg_input_columns(spec)):
+        if name is None:
+            continue
+        out[name] = temp
+        out[f"__null_a{i}"] = torch.from_numpy(rng.random(n) < 0.02).to(dev)
+    return key, ts, valid, out
 
 
-def check_states(spec, cfg, got, want, lim, what) -> float:
-    """Exact on every plane but the SUM/AVG sums, held to `lim`."""
+def scatter_vs_plain(spec, state, wm, key, ts, valid, cols, plan, what):
+    """The scatter kernel in the branch `plan` names and its plain
+    version on the same inputs from `state`, each on its own copy:
+    integer planes, MIN/MAX, HLL, bins, touched and slot_start exact,
+    SUM/AVG within 2*n*2^-24*sum|x| per cell (n the cell's records and
+    the prior value, sum|x| from the plain step over |x|); returns
+    (largest SUM/AVG error, the plain version's state)."""
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine.plan import AggKind
+
+    a, b = copy_state(state), copy_state(state)
+    before = lattice.scatter_step.launches
+    lattice.scatter_step(spec, a, wm, key, ts, valid, cols, plan=plan)
+    assert lattice.scatter_step.launches == before + 1
+    lattice.scatter_step_ref(spec, b, wm, key, ts, valid, cols)
+    absd = lattice.init_state(spec, key.device)
+    lattice.scatter_step_ref(spec, absd, wm, key, ts, valid,
+                             {k: v.abs() if v.dtype == torch.float32 else v
+                              for k, v in cols.items()})
+    torch.cuda.synchronize()
+    sums = {f"a{i}_{g.kind.value}" for i, g in enumerate(spec.aggs)
+            if g.kind in (AggKind.SUM, AggKind.AVG)}
+    n = b["count"].double() + 1
     err = 0.0
-    for k in want:
-        if k == sum_plane(cfg):
-            d = (got[k].double() - want[k].double()).abs()
-            assert bool((d <= lim).all()), f"{what}: {k} beyond the bound"
-            err = max(err, d.max().item())
+    for k in b:
+        if k in sums:
+            lim = 2 * n * U * (absd[k].double() * (1 + 1e-6)
+                               + state[k].double().abs())
+            d = (a[k].double() - b[k].double()).abs()
+            bad = int((d > lim).sum())
+            assert bad == 0, f"{what}: {k} beyond the order bound ({bad})"
+            err = max(err, float(d.max()))
         else:
-            assert torch.equal(got[k], want[k]), f"{what}: {k} differs"
-    return err
+            assert same_bits(a[k], b[k], k), f"{what}: {k} differs"
+    return err, b
+
+
+def scatter_bound(spec, wm, key, ts, valid, cols) -> tuple[float, str]:
+    """The least time for one scatter on the card: per record its key,
+    ts and valid and each aggregate's input (and NULL mask) read once,
+    and per cell the records touch its count and private planes read
+    and written once (HLL registers and quantile bins: one 1-byte or
+    4-byte entry per distinct (cell, register or bin) the batch hits)."""
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine.plan import AggKind
+
+    st = lattice.init_state(spec, key.device)
+    lattice.scatter_step_ref(spec, st, wm, key, ts, valid, cols)
+    cells = st["count"].view(-1) > 0
+    n_cells = int(cells.sum())
+    per_rec, per_cell, extra = 4 + 4 + 1, 4, 0
+    win = spec.window
+    for i, (g, name) in enumerate(zip(spec.aggs,
+                                      lattice.agg_input_columns(spec))):
+        if name is None or g.kind in (AggKind.TOPK, AggKind.TOPK_DISTINCT):
+            continue
+        per_rec += cols[name].element_size() + (
+            1 if f"__null_a{i}" in cols else 0)
+        if g.kind in (AggKind.COUNT, AggKind.SUM, AggKind.MIN, AggKind.MAX):
+            per_cell += 4
+        elif g.kind == AggKind.AVG:
+            per_cell += 8
+        else:
+            plane = st[f"a{i}_{g.kind.value}"].view(st["count"].numel(),
+                                                    -1)
+            extra += int((plane[cells] != 0).sum()) * (
+                1 if g.kind == AggKind.APPROX_COUNT_DISTINCT else 4)
+    if spec.track_touched:
+        per_cell += 1
+    n = key.shape[0]
+    nbytes = n * per_rec + 2 * (n_cells * per_cell + extra)
+    return bound(nbytes, n * spec.windows_per_record * 40
+                 if win is not None else n * 40)
+
+
+# the first design's scatter (one thread per (record, window), every
+# update a global atomic), device ms at these shapes on an H100 80GB HBM3
+# at 700 W (PERF.md §6), printed beside this run's
+SCATTER_RUN_K_MS = {"config 1": 0.0825, "config 2": 0.1311,
+                    "changelog": 0.1657}
 
 
 def check_scatter(dev, results, head):
+    """B1c in both branches on every spec of scatter_specs(): configs 1
+    and 2, the changelog query, phase 11's aggregates and K2 (each
+    block-private with each of its two flushes, per block and per
+    cluster, and forced global, on awkward batches and on a batch that
+    crosses a window end, twice so the second lands on a filled state),
+    and the join's inner lattice at K = 2^19 (global) with a match-sized
+    feed of 2^21 records; then configs 1 and 2 timed at the main path's
+    shapes in both branches beside their bounds, the plain version and
+    per-plane PyTorch calls."""
     from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine.kernels import binding as kb
     from hstream_tpu_torch.engine.sketches import hll_update_indices
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = 0.0
     states = {}
-    for cfg in (1, 2):
-        spec = make_spec(cfg)
-        wm = 205_000           # the window [190 s, 200 s) is late
-        key, ts, valid, cols = awkward_inputs(dev, 20 + cfg)
-        state = lattice.init_state(spec, dev)
-        for rnd in range(2):   # the second round lands on a filled state
-            a, b = copy_state(state), copy_state(state)
-            lattice.scatter_step(spec, a, wm, key, ts, valid, cols)
-            lattice.scatter_step_ref(spec, b, wm, key, ts, valid, cols)
-            torch.cuda.synchronize()
-            lim = sum_bound(spec, cfg, state, wm, key, ts, valid, cols)
-            err = max(err, check_states(spec, cfg, a, b, lim,
-                                        f"scatter config {cfg} round {rnd}"))
-            state = b
-        assert int(state["count"].sum()) > 0
-        states[cfg] = state
-    # time at the main path's shapes: the headline batch, config 1
+    wm = 205_000               # the window [190 s, 200 s) is late
+    branches = {}
+    for si, (name, spec) in enumerate(scatter_specs().items()):
+        n = 2 * BATCH if name == "join inner" else BATCH
+        private = lattice.scatter_plan(spec, n, sms)
+        forced = lattice.scatter_plan(spec, n, sms, private=False)
+        want_mode = (kb.SCATTER_GLOBAL if name == "join inner"
+                     else kb.SCATTER_CLUSTER if spec.windows_per_record > 1
+                     else kb.SCATTER_PRIVATE)
+        assert private.mode == want_mode, (name, private)
+        branches[name] = dict(mode=private.mode, smem=private.smem_bytes,
+                              blocks=private.blocks)
+        plans = [private] if private == forced else [private, forced]
+        if private.mode != kb.SCATTER_GLOBAL:
+            # the other block-private flush, which the spec does not pick
+            plans.append(private._replace(
+                mode=kb.SCATTER_PRIVATE + kb.SCATTER_CLUSTER - private.mode,
+                blocks=8 * max(1, private.blocks // 8)))
+        for pi, plan in enumerate(plans):
+            for two in (False, True):
+                key, ts, valid, cols = scatter_inputs(dev, spec, 20 + si,
+                                                      n, two)
+                state = lattice.init_state(spec, dev)
+                for rnd in range(2):
+                    e, state = scatter_vs_plain(
+                        spec, state, -1 if two else wm, key, ts, valid, cols,
+                        plan,
+                        f"scatter {name} mode {plan.mode} "
+                        f"{'two slots' if two else 'awkward'} round {rnd}")
+                    err = max(err, e)
+                assert int(state["count"].sum()) > 0, name
+                if name in ("config 1", "config 2") and pi == 0 and not two:
+                    states[int(name[-1])] = state
+    # config 1 timed at the main path's shapes: the headline batch
     spec = make_spec(1)
-    st = lattice.init_state(spec, dev)
     _, _, _, (key, ts, valid, cols) = head
     wm = -1
+    st = lattice.init_state(spec, dev)
+    glob = lattice.scatter_plan(spec, BATCH, sms, private=False)
     ms, call, src = kernel_ms(lambda: lattice.scatter_step(
         spec, st, wm, key, ts, valid, cols), 30)
+    ms_g = kernel_ms(lambda: lattice.scatter_step(
+        spec, st, wm, key, ts, valid, cols, plan=glob), 30)[0]
     plain = kernel_ms(lambda: lattice.scatter_step_ref(
         spec, st, wm, key, ts, valid, cols), 3)[0]
     # one PyTorch call per plane on precomputed indices: the library's
@@ -595,6 +775,7 @@ def check_scatter(dev, results, head):
             0, hidx, rank8, "amax")
 
     lib_ms = kernel_ms(library, 30)[0]
+    b_ms, b_by = scatter_bound(spec, wm, key, ts, valid, cols)
     # config 2's lattice on the same records, at its epoch offset (its
     # epoch sits 110 s before the first record): six windows each
     spec2 = make_spec(2)
@@ -602,23 +783,37 @@ def check_scatter(dev, results, head):
     ts2 = ts + 100_000
     lattice.scatter_step(spec2, st2, wm, key, ts2, valid, cols)
     assert int(st2["count"].sum()) == 6 * BATCH
+    glob2 = lattice.scatter_plan(spec2, BATCH, sms, private=False)
     ms2 = kernel_ms(lambda: lattice.scatter_step(
         spec2, st2, wm, key, ts2, valid, cols), 30)[0]
-    slots_hit = int(torch.unique(slot).numel())
-    planes = spec.n_keys * slots_hit * (4 + 4 + 1024)  # count, sum, HLL
-    nbytes = BATCH * (4 + 4 + 1 + 4) + 2 * planes
-    b_ms, b_by = bound(nbytes, BATCH * 40)
+    ms2_g = kernel_ms(lambda: lattice.scatter_step(
+        spec2, st2, wm, key, ts2, valid, cols, plan=glob2), 30)[0]
+    b2_ms, b2_by = scatter_bound(spec2, wm, key, ts2, valid, cols)
+    # the join's inner lattice (global branch) on a match-sized feed
+    specj = scatter_specs()["join inner"]
+    kj, tj, vj, cj = scatter_inputs(dev, specj, 30, 2 * BATCH, True)
+    stj = lattice.init_state(specj, dev)
+    msj = kernel_ms(lambda: lattice.scatter_step(specj, stj, -1, kj, tj, vj,
+                                                 cj), 30)[0]
     results["scatter_aggregate"] = dict(
         route="cuda",
         source="hstream_tpu_torch/engine/kernels/csrc/scatter.cu",
         replaces="hstream_tpu/engine/lattice.py:138",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, call_ms=call, ms_source=src,
-        ms_config2=ms2)
-    log(f"scatter_aggregate: both configs exact, SUM/AVG within the "
-        f"atomic-order bound (max err {err:.3g}); {ms:.4f} ms (plain "
-        f"{plain:.4f}, library {lib_ms:.4f}, bound {b_ms:.4f}); config 2 "
-        f"lattice {ms2:.4f} ms")
+        ms_global=ms_g, ms_config2=ms2, ms_config2_global=ms2_g,
+        bound_ms_config2=b2_ms, bound_by_config2=b2_by,
+        ms_join_inner=msj, branches=branches)
+    old = SCATTER_RUN_K_MS
+    log(f"scatter_aggregate: {len(branches)} specs (branches "
+        f"{json.dumps(branches)}) exact in both branches, SUM/AVG within "
+        f"the order bound (max err {err:.3g}); config 1 {ms:.4f} ms "
+        f"(first design {old['config 1']}, global branch {ms_g:.4f}, plain "
+        f"{plain:.4f}, library {lib_ms:.4f}, bound {b_ms:.4f} by {b_by}); "
+        f"config 2 {ms2:.4f} ms (first design {old['config 2']}, "
+        f"global branch {ms2_g:.4f}, bound {b2_ms:.4f} by {b2_by}); the "
+        f"join's inner "
+        f"lattice (K = 2^19, global) on 2^21 records {msj:.4f} ms")
     return states
 
 
@@ -1522,6 +1717,12 @@ def time_changelog_step(dev, results, chg):
     sc["ms_changelog"] = kernel_ms(
         lambda: lattice.scatter_step(cspec, st, -1, key, ts, valid, cols),
         30)[0]
+    glob = lattice.scatter_plan(
+        cspec, BATCH, torch.cuda.get_device_properties(dev)
+        .multi_processor_count, private=False)
+    sc["ms_changelog_global"] = kernel_ms(
+        lambda: lattice.scatter_step(cspec, st, -1, key, ts, valid, cols,
+                                     plan=glob), 30)[0]
     # its bound: per record four 4-byte columns (key, ts, temp, the
     # computed input) and four 1-byte ones (valid with the WHERE folded
     # in, three NULL masks) read once, and the state the data touches
@@ -1536,6 +1737,11 @@ def time_changelog_step(dev, results, chg):
     sc["bound_ms_changelog"], sc["bound_by_changelog"] = bound(
         BATCH * (4 * 4 + 1 + 3) + 2 * (n_cells * 13 + n_bins * 4),
         BATCH * 40)
+    log(f"scatter_aggregate at the changelog path's shapes: "
+        f"{sc['ms_changelog']:.4f} ms (first design "
+        f"{SCATTER_RUN_K_MS['changelog']}, global branch "
+        f"{sc['ms_changelog_global']:.4f}, bound "
+        f"{sc['bound_ms_changelog']:.4f} by {sc['bound_by_changelog']})")
 
 
 # ---- phase 6: the changelog path (EMIT CHANGES) -----------------------------
@@ -1750,7 +1956,9 @@ PROFILE_BATCHES = 30
 _EVENT_KERNEL = {"decode_kernel": "wire_decode",
                  "delta_fixup_kernel": "wire_decode",
                  "expr_kernel": "expression",
-                 "scatter_kernel": "scatter_aggregate",
+                 "scatter_private": "scatter_aggregate",
+                 "scatter_cluster": "scatter_aggregate",
+                 "scatter_global": "scatter_aggregate",
                  "topk_kernel": "topk_fold",
                  "touched_": "touched_extract", "close_kernel": "close",
                  "Memcpy HtoD": "h2d_copy", "Memcpy DtoH": "d2h_copy"}
@@ -1827,9 +2035,6 @@ def session_batch(dev, spec, layout, seed: int, n: int, n_codes: int,
     """An awkward packed batch: out of order, consecutive records of a
     key exactly gap and gap + 1 apart, equal starts, invalid records,
     NULL masks, NaN, +-inf, +-0.0, int extremes."""
-    from hstream_tpu_torch.engine import session_lattice as sl
-    from hstream_tpu_torch.engine.expr import columns_of
-
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, n_codes, n).astype(np.int64)
     steps = np.array([0, 0, 1, 7, SESS_GAP, SESS_GAP, SESS_GAP + 1,
@@ -1847,7 +2052,17 @@ def session_batch(dev, spec, layout, seed: int, n: int, n_codes: int,
     ts = np.empty(n, np.int64)
     ts[order] = t_lo + csum - base
     perm = rng.permutation(n)                        # out of order
-    codes, ts = codes[perm], ts[perm]
+    return pack_session(dev, spec, layout, rng, codes[perm], ts[perm])
+
+
+def pack_session(dev, spec, layout, rng, codes, ts, valid=None):
+    """A packed batch of the given codes and times, with awkward values
+    (NULL masks, NaN, +-inf, +-0.0, int extremes) and valid flags (2 %
+    invalid unless given)."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.engine.expr import columns_of
+
+    n = len(codes)
     pool = np.array([1.5, -2.0, 0.0, -0.0, np.inf, -np.inf, np.nan, 1e30,
                      -1e30, 3.25, 1e-7, 7e8, 2e9], np.float32)
     v = (rng.normal(40, 25, n)).astype(np.float32)
@@ -1857,7 +2072,8 @@ def session_batch(dev, spec, layout, seed: int, n: int, n_codes: int,
     w[::101] = np.iinfo(np.int32).max
     w[::103] = np.iinfo(np.int32).min
     bcol = rng.random(n) < 0.5
-    valid = rng.random(n) > 0.02
+    drawn = rng.random(n) > 0.02
+    valid = drawn if valid is None else valid
     nv, nw_, nb_ = (rng.random(n) < 0.03 for _ in range(3))
     masks = []
     for a in spec.aggs:
@@ -1869,7 +2085,8 @@ def session_batch(dev, spec, layout, seed: int, n: int, n_codes: int,
         m |= nw_ if "w" in cs else False
         m |= nb_ if "b" in cs else False
         masks.append(m)
-    buf = sl.pack_batch_host(n, n, codes.astype(np.int32), ts, valid,
+    buf = sl.pack_batch_host(n, n, np.asarray(codes).astype(np.int32),
+                             np.asarray(ts).astype(np.int32), valid,
                              {"v": v, "w": w, "b": bcol}, masks, layout)
     return torch.from_numpy(buf).to(dev)
 
@@ -1938,9 +2155,10 @@ def check_session_arenas(spec, got, want, terms, absw, what) -> float:
             d = (a.double() - b.double()).abs()
             lim = 2 * terms.double() * U * absw[k].double() + 1e-30
             bad = int((d > lim).sum())
+            worst = float(d.max()) if d.numel() else 0.0
             assert bad == 0, f"{what}: {k} beyond the order bound " \
-                f"({bad} slots, max err {float(d.max())})"
-            err = max(err, float(d.max()))
+                f"({bad} slots, max err {worst})"
+            err = max(err, worst)
         elif k.endswith(("_min", "_max")):
             assert torch.equal(a, b), f"{what}: {k} differs"
         else:
@@ -2040,6 +2258,16 @@ def check_session_step(dev, results):
     retired = int(((base["code"] < sl.SESSION_SENT_CODE)
                    & (base["t1"] <= close_cut)).sum())
     n_live = int((want["code"] < sl.SESSION_SENT_CODE).sum())
+    edges = []
+    for name, arena_e, packed_e, cut_e, delta_e in session_edge_cases(
+            dev, spec, layout, progs):
+        e, want_e = step_vs_plain(
+            spec, arena_e, packed_e,
+            sl.session_inputs(spec, layout, packed_e, progs), SESS_GAP,
+            cut_e, delta_e, f"session_step ({name})")
+        err = max(err, e)
+        edges.append(f"{name}: {int((want_e['code'] < sl.SESSION_SENT_CODE).sum())}"
+                     f" sessions")
     results["session_step"] = dict(
         route="cuda",
         source="hstream_tpu_torch/engine/kernels/csrc/session_step.cu",
@@ -2048,8 +2276,81 @@ def check_session_step(dev, results):
     log(f"session_step: every aggregate kind, {len(hole)} evicted and "
         f"{retired} retired arena entries, delta {delta}, {n} records "
         f"(out of order, gap/gap+1 apart, equal starts, NULLs, NaN, "
-        f"+-inf, +-0.0) -> {n_live} sessions: exact, SUM/AVG within "
-        f"their bound (max err {err:.3g})")
+        f"+-inf, +-0.0) -> {n_live} sessions; {'; '.join(edges)}: exact, "
+        f"SUM/AVG within their bound (max err {err:.3g})")
+
+
+def session_edge_cases(dev, spec, layout, progs):
+    """(name, arena, packed batch, close_cut, delta) of the sort's and
+    the fold's edge cases: keys all in one bucket (no pass runs) or
+    differing in the low byte only (one pass runs); codes at 2^22 - 1
+    beside sentinels, codes >= 2^22 and negative codes; starts on both
+    sides of the int32 wrap, shifted across it; m below one tile; an
+    arena of no slots; a batch of no records. Arenas come from the plain
+    step over a first batch."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    rng = np.random.default_rng(64)
+    i32 = np.iinfo(np.int32)
+    sent = sl.SESSION_SENT_CODE
+
+    def arena_of(cap, codes, ts):
+        empty = sl.init_session_arena(spec, cap, dev)
+        out = sl.init_session_arena(spec, cap, dev)
+        p = pack_session(dev, spec, layout, rng, codes, ts)
+        sl.session_step_ref(spec, empty, out, p,
+                            sl.session_inputs(spec, layout, p, progs),
+                            SESS_GAP, -(1 << 30), 0)
+        return out
+
+    def one_code(cap, starts):
+        # every slot live under code 5: no sentinel key in the sort
+        arena = arena_of(cap, rng.integers(0, 300, 3000),
+                         rng.integers(0, 30 * SESS_GAP, 3000))
+        arena["code"].fill_(5)
+        arena["t0"].copy_(torch.from_numpy(starts.astype(np.int32)))
+        arena["t1"].copy_(arena["t0"])
+        return arena
+
+    n = 5000
+    ones = np.ones(n, bool)
+    yield ("one bucket", one_code(64, np.full(64, 1000)),
+           pack_session(dev, spec, layout, rng, np.full(n, 5),
+                        np.full(n, 1000), ones), -(1 << 30), 0)
+    yield ("low byte only", one_code(256, 1000 + np.arange(256)),
+           pack_session(dev, spec, layout, rng, np.full(n, 5),
+                        1000 + rng.integers(0, 256, n), ones), -(1 << 30), 0)
+    top = [sent - 1, sent - 2, sent - 3] + list(range(20))
+    arena = arena_of(2048, rng.choice(top, 1500),
+                     rng.integers(0, 200 * SESS_GAP, 1500))
+    arena["code"][::7] = sent
+    codes = rng.choice(top + [sent, sent + 5, -1], n)
+    yield ("codes 2^22 - 1 beside sentinels", arena,
+           pack_session(dev, spec, layout, rng, codes,
+                        rng.integers(0, 250 * SESS_GAP, n)), SESS_GAP, 0)
+    lo, hi = int(i32.min), int(i32.max)
+    wrap_ts = np.where(rng.random(1500) < 0.5,
+                       rng.integers(hi - 6 * SESS_GAP, hi, 1500),
+                       rng.integers(lo, lo + 6 * SESS_GAP, 1500))
+    arena = arena_of(2048, rng.integers(0, 40, 1500), wrap_ts)
+    wrap_b = np.where(rng.random(n) < 0.5,
+                      rng.integers(hi - 8 * SESS_GAP, hi, n),
+                      rng.integers(lo, lo + 8 * SESS_GAP, n))
+    yield ("starts across the int32 wrap", arena,
+           pack_session(dev, spec, layout, rng, rng.integers(0, 40, n),
+                        wrap_b), lo + 2 * SESS_GAP, -3 * SESS_GAP)
+    arena = arena_of(100, rng.integers(0, 30, 80),
+                     rng.integers(0, 10 * SESS_GAP, 80))
+    yield ("m below one tile", arena,
+           pack_session(dev, spec, layout, rng, rng.integers(0, 30, 200),
+                        rng.integers(0, 12 * SESS_GAP, 200)), 0, 7)
+    yield ("cap = 0", sl.init_session_arena(spec, 0, dev),
+           session_batch(dev, spec, layout, 65, 3000, 300, 0), 0, 0)
+    arena = arena_of(4096, rng.integers(0, 300, 3000),
+                     rng.integers(0, 30 * SESS_GAP, 3000))
+    yield ("nb = 0", arena,
+           pack_session(dev, spec, layout, rng, np.zeros(0, np.int64),
+                        np.zeros(0, np.int64)), 5 * SESS_GAP, 11)
 
 
 def check_session_merge(dev, results):
@@ -2068,6 +2369,26 @@ def check_session_merge(dev, results):
     seg = session_seg(dev, spec, 71, nseg, 500, 10 * SESS_GAP)
     err, _want = merge_vs_plain(spec, base, seg, SESS_GAP, close_cut, delta,
                                 "session_merge")
+    # the shared core's edge cases: no arena slots, no segments, m below
+    # one tile, every key in one bucket
+    small = sl.init_session_arena(spec, 64, dev)
+    sl.session_merge_ref(spec, sl.init_session_arena(spec, 64, dev), small,
+                         session_seg(dev, spec, 72, 40, 20, 0), SESS_GAP,
+                         -(1 << 30), 0)
+    one = session_seg(dev, spec, 74, 3000, 1, 0)
+    one["code"].fill_(3)
+    one["t0"].fill_(500)
+    one["t1"].fill_(500)
+    for name, arena_e, seg_e in (
+            ("cap = 0", sl.init_session_arena(spec, 0, dev),
+             session_seg(dev, spec, 73, 3000, 200, 0)),
+            ("no segments", base, session_seg(dev, spec, 75, 0, 1, 0)),
+            ("m below one tile", small,
+             session_seg(dev, spec, 76, 100, 20, 2 * SESS_GAP)),
+            ("one bucket", sl.init_session_arena(spec, 0, dev), one)):
+        e, _w = merge_vs_plain(spec, arena_e, seg_e, SESS_GAP, close_cut,
+                               delta, f"session_merge ({name})")
+        err = max(err, e)
     results["session_merge"] = dict(
         route="cuda",
         source="hstream_tpu_torch/engine/kernels/csrc/session_merge.cu",
@@ -2075,7 +2396,8 @@ def check_session_merge(dev, results):
         max_abs_err=err)
     log(f"session_merge: {nseg} segments (sentinel pads, +-inf and -0.0 "
         f"MIN/MAX) into an arena with evicted and retired entries, delta "
-        f"{delta}: exact, SUM/AVG within their bound (max err {err:.3g})")
+        f"{delta}; no arena slots, no segments, m below one tile, one "
+        f"bucket: exact, SUM/AVG within their bound (max err {err:.3g})")
 
 
 def check_session_extract(dev, results):
@@ -2460,9 +2782,10 @@ def session_path(dev, results) -> dict:
 
 # device events of the session kernels, by stage; the step is the sum of
 # the first six
-_SESSION_EVENTS = {"prep_kernel": "sort", "radix_": "sort",
-                   "scan_": "scan", "init_kernel": "init",
-                   "fold_rows": "fold", "record_scatter": "scatter",
+_SESSION_EVENTS = {"sort_range_kernel": "sort", "sort_keys_kernel": "sort",
+                   "sort_pass_kernel": "sort",
+                   "scan_": "scan", "init_copy_kernel": "init",
+                   "fold_": "fold", "record_scatter": "scatter",
                    "fixup_kernel": "fixup", "extract_kernel": "extract",
                    "remap_kernel": "remap", "Memcpy HtoD": "h2d_copy",
                    "Memcpy DtoH": "d2h_copy"}
@@ -2509,10 +2832,13 @@ def sort_keys(code: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
     return (code.long() << 32) | (start.long() + (1 << 31))
 
 
-def stage_ms(fn, iters: int) -> dict:
+def stage_ms(fn, iters: int) -> dict | None:
     """Device ms per call of fn by stage of the session kernels (their
-    CUDA kernels' names, _SESSION_EVENTS), from torch.profiler."""
-    _, devt = profiled(lambda: [fn() for _ in range(iters)])
+    CUDA kernels' names, _SESSION_EVENTS), from torch.profiler; None when
+    the profiler lost events (profiled_calls)."""
+    devt = profiled_calls(fn, iters, "a session kernel")
+    if devt is None:
+        return None
     out: dict[str, float] = {}
     for name, us in devt.items():
         k = next((v for e, v in _SESSION_EVENTS.items() if e in name),
@@ -3166,7 +3492,8 @@ _JOIN_EVENTS = {"bounds_kernel": "probe", "scan_tiles_kernel": "probe",
                 "ccnt_kernel": "probe", "feed_kernel": "probe",
                 "pack_kernel": "probe", "merge_kernel": "insert",
                 "count_kernel": "evict", "move_kernel": "evict",
-                "scatter_kernel": "scatter", "expr_kernel": "expression",
+                "scatter_private": "scatter", "scatter_cluster": "scatter",
+                "scatter_global": "scatter", "expr_kernel": "expression",
                 "touched_": "touched_extract", "close_kernel": "close",
                 "Memcpy HtoD": "h2d_copy", "Memcpy DtoH": "d2h_copy"}
 
@@ -3386,7 +3713,8 @@ def time_join_kernels(dev, results, captured):
                                   progs, feed, out=out)
 
     ms, call, srcm = kernel_ms(fused, 10)
-    stages = _by_stage(profiled(lambda: [fused() for _ in range(5)])[1], 5)
+    devt = profiled_calls(fused, 5, "the fused join")
+    stages = None if devt is None else _by_stage(devt, 5)
     plain = kernel_ms(lambda: jl.join_probe_insert_step_ref(
         mine, other, batch, n, within, cutoff, match_cap, nm, spec, st,
         wm_rel, ts_off, progs, feed), 2)[0]

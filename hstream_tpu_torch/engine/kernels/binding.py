@@ -21,6 +21,7 @@ ENC_CODES = {"bp": 0, "bpd": 1, "bool1": 2, "dec": 3, "rawf": 4, "rawi": 5}
 (AGG_COUNT_ALL, AGG_SUM, AGG_AVG, AGG_MIN, AGG_MAX, AGG_HLL, AGG_COUNT,
  AGG_QUANT, AGG_TOPK, AGG_TOPK_DISTINCT) = range(10)
 CLOSE_EXTRACT_RESET, CLOSE_EXTRACT, CLOSE_RESET = range(3)  # close modes
+SCATTER_GLOBAL, SCATTER_PRIVATE, SCATTER_CLUSTER = range(3)  # scatter modes
 VTYPES = {torch.float32: 0, torch.int32: 1, torch.bool: 2}
 EXPR_MAX_COLS = 16
 EXPR_MAX_PROGS = MAX_AGGS + 1
@@ -78,6 +79,8 @@ class ScatterArgs(C.Structure):
                 ("q_min", C.c_float), ("q_gamma", C.c_float),
                 ("count", C.c_void_p), ("slot_start", C.c_void_p),
                 ("touched", C.c_void_p), ("locks", C.c_void_p),
+                ("mode", C.c_int32), ("smem_bytes", C.c_int32),
+                ("blocks", C.c_int32),
                 ("n_aggs", C.c_int32), ("a", ScatterAgg * MAX_AGGS)]
 
 

@@ -106,6 +106,13 @@ struct HsExprArgs {
 
 // ---- scatter-aggregate (scatter.cu) and top-k fold (topk.cu) -----------
 
+// scatter modes, chosen on the host from the spec (lattice.scatter_plan):
+// each block folds into private copies of the [K, W] planes in shared
+// memory and flushes them once (CLUSTER: the 8 blocks of a cluster reduce
+// theirs together first), or every update is a global atomic
+enum { HS_SCATTER_GLOBAL = 0, HS_SCATTER_PRIVATE = 1,
+       HS_SCATTER_CLUSTER = 2 };
+
 struct HsScatterAgg {
     int32_t kind;          // HS_AGG_*
     int32_t vtype;         // HS_T_* of the input column
@@ -137,6 +144,9 @@ struct HsScatterArgs {
     int32_t *slot_start;   // [W]
     uint8_t *touched;      // [K, W]
     int32_t *locks;        // top-k: [K, W] zeroed, left zeroed
+    int32_t mode;          // scatter: HS_SCATTER_*
+    int32_t smem_bytes;    // scatter: dynamic shared memory per block
+    int32_t blocks;        // scatter: grid size
     int32_t n_aggs;
     HsScatterAgg a[HS_MAX_AGGS];
 };

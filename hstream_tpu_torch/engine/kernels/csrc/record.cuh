@@ -53,26 +53,35 @@ __device__ __forceinline__ bool record_window(const HsScatterArgs &a, int i,
     return a.valid[i] && in_range;
 }
 
-// aggregate ag's input for record i as float32 (v) and as the 32 bits
-// the HLL hash reads (-0.0 canonicalized to 0.0); false when it does not
-// count (NULL, or a non-finite float)
+// an input from its raw 32 bits (a bool column's byte widened): its
+// float32 value (v), the 32 bits the HLL hash reads (-0.0 canonicalized
+// to 0.0), and whether it counts (not SQL NULL and, for a float32
+// input, finite)
+__device__ __forceinline__ bool input_of(int vtype, uint32_t raw, bool null,
+                                         float &v, uint32_t &bits) {
+    if (vtype == HS_T_F32) {
+        v = __uint_as_float(raw);
+        bits = __float_as_uint(v == 0.0f ? 0.0f : v);
+        return !null && isfinite(v);
+    }
+    if (vtype == HS_T_I32) {
+        v = __int2float_rn((int)raw);
+        bits = raw;
+        return !null;
+    }
+    bits = raw ? 1u : 0u;
+    v = (float)bits;
+    return !null;
+}
+
+// aggregate ag's input for record i (input_of)
 __device__ __forceinline__ bool agg_input(const HsScatterAgg &ag, int i,
                                           float &v, uint32_t &bits) {
-    if (ag.nulls != nullptr && ag.nulls[i]) return false;
-    if (ag.vtype == HS_T_F32) {
-        v = ((const float *)ag.values)[i];
-        bits = __float_as_uint(v == 0.0f ? 0.0f : v);
-        return isfinite(v);
-    }
-    if (ag.vtype == HS_T_I32) {
-        int x = ((const int *)ag.values)[i];
-        v = __int2float_rn(x);
-        bits = (uint32_t)x;
-        return true;
-    }
-    bits = ((const uint8_t *)ag.values)[i] ? 1u : 0u;
-    v = (float)bits;
-    return true;
+    const bool null = ag.nulls != nullptr && ag.nulls[i];
+    const uint32_t raw = ag.vtype == HS_T_BOOL
+                             ? ((const uint8_t *)ag.values)[i]
+                             : ((const uint32_t *)ag.values)[i];
+    return input_of(ag.vtype, raw, null, v, bits);
 }
 
 __device__ __forceinline__ void atomic_min_float(float *addr, float v) {
@@ -87,6 +96,18 @@ __device__ __forceinline__ void atomic_max_float(float *addr, float v) {
         atomicMax((int *)addr, __float_as_int(v));
     else
         atomicMin((unsigned int *)addr, __float_as_uint(v));
+}
+
+// what atomic_min_float / atomic_max_float leave in a word holding `cur`
+// (as bits), for a fold that writes its result with a plain store
+__device__ __forceinline__ uint32_t min_float_bits(uint32_t cur,
+                                                   uint32_t v) {
+    return (int)v >= 0 ? (uint32_t)min((int)cur, (int)v) : max(cur, v);
+}
+
+__device__ __forceinline__ uint32_t max_float_bits(uint32_t cur,
+                                                   uint32_t v) {
+    return (int)v >= 0 ? (uint32_t)max((int)cur, (int)v) : min(cur, v);
 }
 
 // raise one int8 register to `rank` with a CAS on its aligned word

@@ -6,8 +6,10 @@
 // The host reduces the batch's rows into per-segment planes (its
 // gap-chains, so the pre-merge is exact) in the arena's layout.
 //
-// Bound on the H100: bytes: the chain core's sort, scan and fold
-// (session_chain.cuh) over cap + nb entries, then each segment row read
+// Bound on the H100: bytes: the chain core's sort, scan and single write
+// of the fresh arena (session_chain.cuh, shared with the step and
+// redesigned with it: narrowed one-sweep sort, single-fed slots copied
+// with plain stores) over cap + nb entries, then each segment row read
 // once and folded into its slot.
 //
 // Design: the chain core, then one warp per segment row with the row
@@ -23,16 +25,17 @@
 
 extern "C" int hs_session_merge(const HsSessionArgs *args, void *stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (args->mode != HS_SESS_SEGMENT || args->b_t1 == nullptr)
+    if (args->mode != HS_SESS_SEGMENT ||
+        (args->nb > 0 && args->b_t1 == nullptr))
         return (int)cudaErrorInvalidValue;
     hs::sess::Scratch s;
     cudaError_t err = hs::sess::core(*args, s, st);
     if (err != cudaSuccess) return (int)err;
     if (args->nb > 0)
-        hs::sess::fold_rows<true>
+        hs::sess::fold_segments
             <<<hs::sess::blocks_for((int64_t)args->nb * 32,
                                     hs::sess::kFoldBlock),
-               hs::sess::kFoldBlock, 0, st>>>(*args, s.dest);
+               hs::sess::kFoldBlock, 0, st>>>(*args, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return (int)hs::sess::fixup(*args, st);

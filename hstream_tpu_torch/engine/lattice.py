@@ -414,19 +414,71 @@ def _step_args(spec: LatticeSpec, state, watermark: int, key_ids, ts, valid,
     return args
 
 
+# the block-private scatter's shared-memory budget: the H100's 227 KB a
+# block, less 1 KB for the kernel's static shared memory (scatter.cu)
+SCATTER_SMEM_LIMIT = 232_448 - 1024
+_SM_SMEM = 233_472          # shared memory of one SM, 1 KB of it per block
+H100_SMS = 132
+SCATTER_CLUSTER = 8         # blocks a cluster in the cluster mode
+_PRIVATE_KINDS = (AggKind.COUNT, AggKind.SUM, AggKind.AVG, AggKind.MIN,
+                  AggKind.MAX)
+
+
+class ScatterPlan(NamedTuple):
+    mode: int         # kb.SCATTER_PRIVATE, _CLUSTER or _GLOBAL
+    smem_bytes: int   # dynamic shared memory of a block
+    blocks: int       # grid size
+
+
+def scatter_plan(spec: LatticeSpec, cap: int, n_sms: int = H100_SMS,
+                 private: bool = True) -> ScatterPlan:
+    """The scatter kernel's branch for a batch of `cap` records, chosen
+    by the spec's size: block-private when count, the COUNT, SUM, AVG
+    (sum and _n), MIN and MAX planes ([K, W] int32 / float32 each) and
+    slot_start fit in a block's shared memory, with one or two blocks per
+    SM (as many as fit) and at least 2048 records a block; where a record
+    has several windows (HOP), whose panes each fan out to several
+    window cells, in whole clusters of SCATTER_CLUSTER blocks that reduce
+    their planes together before they flush. Else (or with `private`
+    False) every update a global atomic, one thread per four records."""
+    K, W = spec.n_keys, spec.n_slots
+    planes = 1 + sum(2 if a.kind == AggKind.AVG else 1
+                     for a in spec.aggs if a.kind in _PRIVATE_KINDS)
+    smem = 4 * (K * W * planes + W)
+    groups = -(-cap // 4)
+    if private and smem <= SCATTER_SMEM_LIMIT:
+        per_sm = 2 if 2 * (smem + 1024) <= _SM_SMEM else 1
+        blocks = max(1, min(per_sm * n_sms, -(-cap // 2048)))
+        if spec.windows_per_record == 1:
+            return ScatterPlan(kb.SCATTER_PRIVATE, smem, blocks)
+        return ScatterPlan(kb.SCATTER_CLUSTER, smem, SCATTER_CLUSTER * max(
+            1, blocks // SCATTER_CLUSTER))
+    return ScatterPlan(kb.SCATTER_GLOBAL, 4 * W if W <= 1024 else 0,
+                       max(1, -(-groups // 256)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def scatter_step(spec: LatticeSpec, state: dict[str, torch.Tensor],
                  watermark: int, key_ids: torch.Tensor, ts: torch.Tensor,
-                 valid: torch.Tensor,
-                 cols: Mapping[str, torch.Tensor]) -> None:
+                 valid: torch.Tensor, cols: Mapping[str, torch.Tensor],
+                 plan: ScatterPlan | None = None) -> None:
     """Fold one decoded batch into the state (every aggregate but TOPK),
-    in place: the scatter-aggregate kernel on the card, scatter_step_ref
-    on the CPU."""
+    in place: the scatter-aggregate kernel on the card, in the branch
+    `plan` names (by default scatter_plan's), scatter_step_ref on the
+    CPU."""
     if key_ids.device.type == "cpu":
         scatter_step_ref(spec, state, watermark, key_ids, ts, valid, cols)
         return
     aggs = [i for i, a in enumerate(spec.aggs)
             if a.kind != AggKind.COUNT_ALL and a.kind not in _TOPK_KINDS]
     args = _step_args(spec, state, watermark, key_ids, ts, valid, cols, aggs)
+    if plan is None:
+        plan = scatter_plan(spec, args.cap, _sm_count(key_ids.device))
+    args.mode, args.smem_bytes, args.blocks = plan
     kb.check(kb.lib().hs_scatter(ctypes.byref(args), kb.stream_of(ts)),
              "scatter_aggregate")
     scatter_step.launches += 1

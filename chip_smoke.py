@@ -560,11 +560,30 @@ def copy_state(state):
     return {k: v.clone() for k, v in state.items()}
 
 
+def int_bool_spec():
+    """SUM, AVG, MIN, MAX and COUNT over an int32 column and COUNT and SUM
+    over a bool one, each with a NULL mask of its own: the scatter's
+    int32 and byte reads."""
+    from hstream_tpu_torch.engine import AggKind as A, AggSpec
+    from hstream_tpu_torch.engine import TumblingWindow, lattice
+    from hstream_tpu_torch.engine.expr import Col
+
+    x, f = Col("ival"), Col("flag")
+    aggs = (AggSpec(A.COUNT_ALL, "n"), AggSpec(A.SUM, "s", input=x),
+            AggSpec(A.AVG, "a", input=x), AggSpec(A.MIN, "lo", input=x),
+            AggSpec(A.MAX, "hi", input=x), AggSpec(A.COUNT, "c", input=x),
+            AggSpec(A.COUNT, "cf", input=f), AggSpec(A.SUM, "sf", input=f))
+    return lattice.LatticeSpec(n_keys=1024,
+                               window=TumblingWindow(10_000, grace_ms=0),
+                               aggs=aggs, track_touched=True)
+
+
 def scatter_specs() -> dict:
     """Every lattice the port's window paths step, by name: configs 1 and
     2, the changelog query, phase 11's five aggregates, every scatter
-    kind with a NULL mask (K2), and the join's inner lattice at the
-    K = 2^19 that phase 8 grows it to (BASELINE config 5's COUNT(*))."""
+    kind with a NULL mask (K2), int32 and bool inputs, and the join's
+    inner lattice at the K = 2^19 that phase 8 grows it to (BASELINE
+    config 5's COUNT(*))."""
     from hstream_tpu_torch.engine import lattice
     from hstream_tpu_torch.sql import stream_codegen
 
@@ -575,19 +594,30 @@ def scatter_specs() -> dict:
             "log": lattice.LatticeSpec(
                 n_keys=1024, window=log_node.window,
                 aggs=tuple(log_node.aggs), track_touched=False),
-            "sketch kinds": k2_spec(),
+            "sketch kinds": k2_spec(), "int and bool": int_bool_spec(),
             "join inner": lattice.LatticeSpec(
                 n_keys=1 << 19, window=join_node.window,
                 aggs=tuple(join_node.aggs), track_touched=True)}
 
 
-def scatter_inputs(dev, spec, seed: int, n: int, two_slots: bool = False):
+def _odd(t: torch.Tensor) -> torch.Tensor:
+    """`t`'s values one element into a longer buffer: a column whose
+    start is not 16-byte (a byte column's not 4-byte) aligned."""
+    buf = torch.empty(t.shape[0] + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
+def scatter_inputs(dev, spec, seed: int, n: int, two_slots: bool = False,
+                   odd: bool = False):
     """A decoded batch for `spec`: awkward_inputs' hard cases (records
     before the epoch, late records, invalid rows, NaN, inf and -0.0,
     records over three windows), keys spread over [0, K) with some
-    at K + 5 and some negative, and each aggregate's input column and a
-    2 % NULL mask; with `two_slots`, the records' times cross one
-    10 s window end instead."""
+    at K + 5 and some negative, and each aggregate's input column (the
+    float32 `temp`; `ival` int32 with its extremes and values float32
+    rounds; `flag` bool) and a 2 % NULL mask; with `two_slots`, the
+    records' times cross one 10 s window end instead; with `odd`, the
+    input columns and masks start one element into their buffers."""
     from hstream_tpu_torch.engine import lattice
 
     _, ts, valid, cols = awkward_inputs(dev, seed, n)
@@ -600,18 +630,28 @@ def scatter_inputs(dev, spec, seed: int, n: int, two_slots: bool = False):
         ts = torch.from_numpy(
             (9_900 + np.sort(rng.integers(0, 200, n))).astype(np.int32)
         ).to(dev)
+    irng = np.random.default_rng(seed + 11)
+    ival = irng.integers(-50_000, 50_000, n).astype(np.int32)
+    ival[::701] = np.iinfo(np.int32).min
+    ival[1::709] = np.iinfo(np.int32).max
+    ival[2::719] = (1 << 24) + 1
+    ival[3::727] = -(1 << 24) - 3
+    by_name = {"ival": torch.from_numpy(ival).to(dev),
+               "flag": torch.from_numpy(irng.random(n) < 0.5).to(dev)}
     temp = cols["temp"]
     out = {}
     for i, name in enumerate(lattice.agg_input_columns(spec)):
         if name is None:
             continue
-        out[name] = temp
+        out[name] = by_name.get(name, temp)
         out[f"__null_a{i}"] = torch.from_numpy(rng.random(n) < 0.02).to(dev)
+    if odd:
+        out = {k: _odd(v) for k, v in out.items()}
     return key, ts, valid, out
 
 
-def scatter_vs_plain(spec, state, wm, key, ts, valid, cols, plan, what):
-    """The scatter kernel in the branch `plan` names and its plain
+def scatter_vs_plain(spec, state, wm, key, ts, valid, cols, mode, what):
+    """The scatter kernel in the branch `mode` names and its plain
     version on the same inputs from `state`, each on its own copy:
     integer planes, MIN/MAX, HLL, bins, touched and slot_start exact,
     SUM/AVG within 2*n*2^-24*sum|x| per cell (n the cell's records and
@@ -622,13 +662,14 @@ def scatter_vs_plain(spec, state, wm, key, ts, valid, cols, plan, what):
 
     a, b = copy_state(state), copy_state(state)
     before = lattice.scatter_step.launches
-    lattice.scatter_step(spec, a, wm, key, ts, valid, cols, plan=plan)
+    lattice.scatter_step(spec, a, wm, key, ts, valid, cols, mode=mode)
     assert lattice.scatter_step.launches == before + 1
     lattice.scatter_step_ref(spec, b, wm, key, ts, valid, cols)
     absd = lattice.init_state(spec, key.device)
-    lattice.scatter_step_ref(spec, absd, wm, key, ts, valid,
-                             {k: v.abs() if v.dtype == torch.float32 else v
-                              for k, v in cols.items()})
+    lattice.scatter_step_ref(
+        spec, absd, wm, key, ts, valid,
+        {k: v.float().abs() if v.dtype in (torch.float32, torch.int32)
+         else v for k, v in cols.items()})
     torch.cuda.synchronize()
     sums = {f"a{i}_{g.kind.value}" for i, g in enumerate(spec.aggs)
             if g.kind in (AggKind.SUM, AggKind.AVG)}
@@ -649,7 +690,8 @@ def scatter_vs_plain(spec, state, wm, key, ts, valid, cols, plan, what):
 
 def scatter_bound(spec, wm, key, ts, valid, cols) -> tuple[float, str]:
     """The least time for one scatter on the card: per record its key,
-    ts and valid and each aggregate's input (and NULL mask) read once,
+    ts and valid, each input column the aggregates read and each NULL
+    mask read once,
     and per cell the records touch its count and private planes read
     and written once (HLL registers and quantile bins: one 1-byte or
     4-byte entry per distinct (cell, register or bin) the batch hits)."""
@@ -662,12 +704,13 @@ def scatter_bound(spec, wm, key, ts, valid, cols) -> tuple[float, str]:
     n_cells = int(cells.sum())
     per_rec, per_cell, extra = 4 + 4 + 1, 4, 0
     win = spec.window
+    read = set()
     for i, (g, name) in enumerate(zip(spec.aggs,
                                       lattice.agg_input_columns(spec))):
         if name is None or g.kind in (AggKind.TOPK, AggKind.TOPK_DISTINCT):
             continue
-        per_rec += cols[name].element_size() + (
-            1 if f"__null_a{i}" in cols else 0)
+        read.add(name)
+        per_rec += 1 if f"__null_a{i}" in cols else 0
         if g.kind in (AggKind.COUNT, AggKind.SUM, AggKind.MIN, AggKind.MAX):
             per_cell += 4
         elif g.kind == AggKind.AVG:
@@ -677,6 +720,7 @@ def scatter_bound(spec, wm, key, ts, valid, cols) -> tuple[float, str]:
                                                     -1)
             extra += int((plane[cells] != 0).sum()) * (
                 1 if g.kind == AggKind.APPROX_COUNT_DISTINCT else 4)
+    per_rec += sum(cols[name].element_size() for name in read)
     if spec.track_touched:
         per_cell += 1
     n = key.shape[0]
@@ -694,14 +738,16 @@ SCATTER_RUN_K_MS = {"config 1": 0.0825, "config 2": 0.1311,
 
 def check_scatter(dev, results, head):
     """B1c in both branches on every spec of scatter_specs(): configs 1
-    and 2, the changelog query, phase 11's aggregates and K2 (each
-    block-private with each of its two flushes, per block and per
-    cluster, and forced global, on awkward batches and on a batch that
-    crosses a window end, twice so the second lands on a filled state),
-    and the join's inner lattice at K = 2^19 (global) with a match-sized
-    feed of 2^21 records; then configs 1 and 2 timed at the main path's
-    shapes in both branches beside their bounds, the plain version and
-    per-plane PyTorch calls."""
+    and 2, the changelog query, phase 11's aggregates, K2 and the int32
+    and bool inputs (each block-private with each of its two flushes,
+    per block and per cluster, and forced global, on awkward batches and
+    on a batch that crosses a window end, twice so the second lands on a
+    filled state; the int32 and bool inputs also with their columns off
+    the 16-byte loads' alignment), and the join's inner lattice at
+    K = 2^19 (global) with a match-sized feed of 2^21 records; then
+    configs 1 and 2 timed at the main path's shapes in both branches
+    beside their bounds, the plain version and per-plane PyTorch
+    calls."""
     from hstream_tpu_torch.engine import lattice
     from hstream_tpu_torch.engine.kernels import binding as kb
     from hstream_tpu_torch.engine.sketches import hll_update_indices
@@ -713,31 +759,34 @@ def check_scatter(dev, results, head):
     branches = {}
     for si, (name, spec) in enumerate(scatter_specs().items()):
         n = 2 * BATCH if name == "join inner" else BATCH
-        private = lattice.scatter_plan(spec, n, sms)
-        forced = lattice.scatter_plan(spec, n, sms, private=False)
+        plan = lattice.scatter_plan(spec, n, sms)
         want_mode = (kb.SCATTER_GLOBAL if name == "join inner"
                      else kb.SCATTER_CLUSTER if spec.windows_per_record > 1
                      else kb.SCATTER_PRIVATE)
-        assert private.mode == want_mode, (name, private)
-        branches[name] = dict(mode=private.mode, smem=private.smem_bytes,
-                              blocks=private.blocks)
-        plans = [private] if private == forced else [private, forced]
-        if private.mode != kb.SCATTER_GLOBAL:
-            # the other block-private flush, which the spec does not pick
-            plans.append(private._replace(
-                mode=kb.SCATTER_PRIVATE + kb.SCATTER_CLUSTER - private.mode,
-                blocks=8 * max(1, private.blocks // 8)))
-        for pi, plan in enumerate(plans):
-            for two in (False, True):
+        assert plan.mode == want_mode, (name, plan)
+        branches[name] = dict(mode=plan.mode, blocks=plan.blocks,
+                              smem=lattice.scatter_smem_bytes(spec))
+        # its own mode first, then (block-private) the other flush, which
+        # the spec does not pick, and the global branch
+        modes = [plan.mode]
+        if plan.mode != kb.SCATTER_GLOBAL:
+            modes += [kb.SCATTER_PRIVATE + kb.SCATTER_CLUSTER - plan.mode,
+                      kb.SCATTER_GLOBAL]
+        batches = [(False, False), (True, False)]
+        if name == "int and bool":
+            batches.append((False, True))
+        for pi, mode in enumerate(modes):
+            for two, odd in batches:
                 key, ts, valid, cols = scatter_inputs(dev, spec, 20 + si,
-                                                      n, two)
+                                                      n, two, odd)
                 state = lattice.init_state(spec, dev)
                 for rnd in range(2):
                     e, state = scatter_vs_plain(
                         spec, state, -1 if two else wm, key, ts, valid, cols,
-                        plan,
-                        f"scatter {name} mode {plan.mode} "
-                        f"{'two slots' if two else 'awkward'} round {rnd}")
+                        mode,
+                        f"scatter {name} mode {mode} "
+                        f"{'two slots' if two else 'awkward'}"
+                        f"{' unaligned' if odd else ''} round {rnd}")
                     err = max(err, e)
                 assert int(state["count"].sum()) > 0, name
                 if name in ("config 1", "config 2") and pi == 0 and not two:
@@ -747,11 +796,10 @@ def check_scatter(dev, results, head):
     _, _, _, (key, ts, valid, cols) = head
     wm = -1
     st = lattice.init_state(spec, dev)
-    glob = lattice.scatter_plan(spec, BATCH, sms, private=False)
     ms, call, src = kernel_ms(lambda: lattice.scatter_step(
         spec, st, wm, key, ts, valid, cols), 30)
     ms_g = kernel_ms(lambda: lattice.scatter_step(
-        spec, st, wm, key, ts, valid, cols, plan=glob), 30)[0]
+        spec, st, wm, key, ts, valid, cols, mode=kb.SCATTER_GLOBAL), 30)[0]
     plain = kernel_ms(lambda: lattice.scatter_step_ref(
         spec, st, wm, key, ts, valid, cols), 3)[0]
     # one PyTorch call per plane on precomputed indices: the library's
@@ -783,11 +831,11 @@ def check_scatter(dev, results, head):
     ts2 = ts + 100_000
     lattice.scatter_step(spec2, st2, wm, key, ts2, valid, cols)
     assert int(st2["count"].sum()) == 6 * BATCH
-    glob2 = lattice.scatter_plan(spec2, BATCH, sms, private=False)
     ms2 = kernel_ms(lambda: lattice.scatter_step(
         spec2, st2, wm, key, ts2, valid, cols), 30)[0]
     ms2_g = kernel_ms(lambda: lattice.scatter_step(
-        spec2, st2, wm, key, ts2, valid, cols, plan=glob2), 30)[0]
+        spec2, st2, wm, key, ts2, valid, cols, mode=kb.SCATTER_GLOBAL),
+        30)[0]
     b2_ms, b2_by = scatter_bound(spec2, wm, key, ts2, valid, cols)
     # the join's inner lattice (global branch) on a match-sized feed
     specj = scatter_specs()["join inner"]
@@ -1704,6 +1752,7 @@ def time_changelog_step(dev, results, chg):
     quantile bins)."""
     from hstream_tpu_torch.engine import expr as ex
     from hstream_tpu_torch.engine import lattice, transport as tp
+    from hstream_tpu_torch.engine.kernels import binding as kb
 
     cspec, progs, (key, ts, valid, cols), (w, combo, bases) = chg
     results["wire_decode"]["ms_changelog"] = kernel_ms(
@@ -1717,12 +1766,9 @@ def time_changelog_step(dev, results, chg):
     sc["ms_changelog"] = kernel_ms(
         lambda: lattice.scatter_step(cspec, st, -1, key, ts, valid, cols),
         30)[0]
-    glob = lattice.scatter_plan(
-        cspec, BATCH, torch.cuda.get_device_properties(dev)
-        .multi_processor_count, private=False)
     sc["ms_changelog_global"] = kernel_ms(
         lambda: lattice.scatter_step(cspec, st, -1, key, ts, valid, cols,
-                                     plan=glob), 30)[0]
+                                     mode=kb.SCATTER_GLOBAL), 30)[0]
     # its bound: per record four 4-byte columns (key, ts, temp, the
     # computed input) and four 1-byte ones (valid with the WHERE folded
     # in, three NULL masks) read once, and the state the data touches

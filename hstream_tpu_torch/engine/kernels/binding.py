@@ -79,8 +79,7 @@ class ScatterArgs(C.Structure):
                 ("q_min", C.c_float), ("q_gamma", C.c_float),
                 ("count", C.c_void_p), ("slot_start", C.c_void_p),
                 ("touched", C.c_void_p), ("locks", C.c_void_p),
-                ("mode", C.c_int32), ("smem_bytes", C.c_int32),
-                ("blocks", C.c_int32),
+                ("mode", C.c_int32), ("blocks", C.c_int32),
                 ("n_aggs", C.c_int32), ("a", ScatterAgg * MAX_AGGS)]
 
 

@@ -145,7 +145,6 @@ struct HsScatterArgs {
     uint8_t *touched;      // [K, W]
     int32_t *locks;        // top-k: [K, W] zeroed, left zeroed
     int32_t mode;          // scatter: HS_SCATTER_*
-    int32_t smem_bytes;    // scatter: dynamic shared memory per block
     int32_t blocks;        // scatter: grid size
     int32_t n_aggs;
     HsScatterAgg a[HS_MAX_AGGS];

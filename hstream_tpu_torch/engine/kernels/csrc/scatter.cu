@@ -46,16 +46,20 @@
 //    clusters the card holds at once (cudaOccupancyMaxActiveClusters):
 //    config 2's 160 KB blocks ran a second wave at 16 clusters.
 //  * Global (HS_SCATTER_GLOBAL), when the planes do not fit (the join's
-//    inner lattice at K = 2^19): every update a global atomic per
-//    window; slot_start reduced in shared memory first (W <= 1024), one
-//    lane for the records of a warp that share the first lane's latest
-//    window start.
-// All read four records a thread at a time with 16-byte loads of key, ts
-// and the f32 / i32 value columns (4-byte loads of valid, bool columns
-// and NULL masks) when every column is aligned, and derive a record's
-// windows from one division (its latest window and slot; the others
-// step down from it) unless int32 wrap-around is possible, where the
-// reference's per-window arithmetic runs as written (record.cuh).
+//    inner lattice at K = 2^19): the first design, one thread per
+//    (record, window) and every update a global atomic, so that a
+//    record's windows run on separate threads (four records a thread,
+//    tried first, left HOP's six windows x five planes of atomics in
+//    one thread's sequence: config 2 3.5x slower); slot_start reduced in
+//    shared memory first (W <= 1024), one lane for the lanes of a warp
+//    that share a window start.
+// The block-private modes read four records a thread at a time with
+// 16-byte loads of key, ts and the f32 / i32 value columns (4-byte loads
+// of valid, bool columns and NULL masks) when every column is aligned,
+// and derive a record's windows from one division (its latest window
+// and slot; the others step down from it) unless int32 wrap-around is
+// possible, where the reference's per-window arithmetic runs as written
+// (record.cuh).
 // HLL registers (K x W x 2^p bytes) and quantile bins (K x W x bins)
 // stay global in every mode; the HLL keeps its read-first early-out.
 // APPROX_QUANTILE bins a value as the reference does, one float32
@@ -67,8 +71,9 @@
 // across blocks), within the float32 order bound 2*n*2^-24*sum|x| per
 // cell; not run-to-run stable, as before.
 //
-// Bound on the H100 now (config 1 0.029 ms, config 2 0.066, the
-// changelog 0.046 against bounds of 0.005-0.007 by bytes, PERF.md): what
+// Bound on the H100 now (config 1 0.028 ms, config 2 0.065, the
+// changelog 0.049 against bounds of 0.0042, 0.0041 and 0.0063 ms by
+// bytes, PERF.md): what
 // stays per record, one shared-memory atomic per private plane (about
 // one lane-operation a clock on each SM) and, for APPROX_COUNT_DISTINCT
 // and APPROX_QUANTILE, one random L2 access per window; then the flush,
@@ -334,9 +339,9 @@ __device__ void flush_pane(const HsScatterArgs &a, uint32_t *smem,
     }
 }
 
-// kPriv: the block-private branch, with the cluster's blocks reducing
-// their pane cells together (kCl) or each block flushing its own
-template <bool kPriv, bool kCl>
+// the block-private branch, with the cluster's blocks reducing their
+// pane cells together (kCl) or each block flushing its own
+template <bool kCl>
 __device__ __forceinline__ void scatter_body(const HsScatterArgs &a,
                                              int vec) {
     extern __shared__ uint32_t smem[];
@@ -344,54 +349,38 @@ __device__ __forceinline__ void scatter_body(const HsScatterArgs &a,
     __shared__ int s_offn[HS_MAX_AGGS];  // AVG's _n plane
     const int64_t kw = (int64_t)a.n_keys * a.n_slots;
     int *s_count = (int *)smem;
-    // private: each slot's pane start; global: slot_start reduced in
-    // shared memory first (W <= kSmemSlots), else none
-    int *s_pane = (int *)smem + (kPriv ? private_words(a) - a.n_slots : 0);
-    int *s_glob_start =
-        !kPriv && a.n_slots <= kSmemSlots ? (int *)smem : nullptr;
-    if (kPriv) {
-        if (threadIdx.x == 0) {
-            int64_t off = kw;
-            for (int g = 0; g < a.n_aggs; ++g) {
-                const int kind = a.a[g].kind;
-                s_off[g] = private_kind(kind) ? (int)off : -1;
-                off += private_kind(kind) ? kw : 0;
-                s_offn[g] = kind == HS_AGG_AVG ? (int)off : -1;
-                off += kind == HS_AGG_AVG ? kw : 0;
-            }
-        }
-        for (int64_t c = threadIdx.x; c < kw; c += blockDim.x) s_count[c] = 0;
-        __syncthreads();
+    int *s_pane = (int *)smem + private_words(a) - a.n_slots;  // pane starts
+    if (threadIdx.x == 0) {
+        int64_t off = kw;
         for (int g = 0; g < a.n_aggs; ++g) {
-            if (s_off[g] < 0) continue;
-            const uint32_t id = identity_bits(a.a[g].kind);
-            for (int64_t c = threadIdx.x; c < kw; c += blockDim.x)
-                smem[s_off[g] + c] = id;
-            if (s_offn[g] >= 0)
-                for (int64_t c = threadIdx.x; c < kw; c += blockDim.x)
-                    smem[s_offn[g] + c] = 0u;
+            const int kind = a.a[g].kind;
+            s_off[g] = private_kind(kind) ? (int)off : -1;
+            off += private_kind(kind) ? kw : 0;
+            s_offn[g] = kind == HS_AGG_AVG ? (int)off : -1;
+            off += kind == HS_AGG_AVG ? kw : 0;
         }
     }
-    if (kPriv || s_glob_start)
-        for (int w = threadIdx.x; w < a.n_slots; w += blockDim.x)
-            s_pane[w] = HS_EMPTY_START;
+    for (int64_t c = threadIdx.x; c < kw; c += blockDim.x) s_count[c] = 0;
+    __syncthreads();
+    for (int g = 0; g < a.n_aggs; ++g) {
+        if (s_off[g] < 0) continue;
+        const uint32_t id = identity_bits(a.a[g].kind);
+        for (int64_t c = threadIdx.x; c < kw; c += blockDim.x)
+            smem[s_off[g] + c] = id;
+        if (s_offn[g] >= 0)
+            for (int64_t c = threadIdx.x; c < kw; c += blockDim.x)
+                smem[s_offn[g] + c] = 0u;
+    }
+    for (int w = threadIdx.x; w < a.n_slots; w += blockDim.x)
+        s_pane[w] = HS_EMPTY_START;
     __syncthreads();
 
-    // the block's records, four to a thread: a contiguous run per block
-    // (private) or a grid-stride walk (global)
+    // the block's records, four to a thread, a contiguous run per block
     const int64_t groups = ((int64_t)a.cap + 3) / 4;
-    int64_t first, last, stride;
-    if (kPriv) {
-        const int64_t per = (groups + gridDim.x - 1) / gridDim.x;
-        first = (int64_t)blockIdx.x * per + threadIdx.x;
-        last = min(groups, (int64_t)(blockIdx.x + 1) * per);
-        stride = blockDim.x;
-    } else {
-        first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-        last = groups;
-        stride = (int64_t)gridDim.x * blockDim.x;
-    }
-    for (int64_t grp = first; grp < last; grp += stride) {
+    const int64_t per = (groups + gridDim.x - 1) / gridDim.x;
+    const int64_t last = min(groups, (int64_t)(blockIdx.x + 1) * per);
+    for (int64_t grp = (int64_t)blockIdx.x * per + threadIdx.x; grp < last;
+         grp += blockDim.x) {
         const int i0 = (int)(grp * 4);
         const int n = min(4, a.cap - i0);
         int key[4], ts[4], valid[4];
@@ -406,63 +395,35 @@ __device__ __forceinline__ void scatter_body(const HsScatterArgs &a,
             kin[r] = key[r] >= 0 && key[r] < a.n_keys;
             rw[r] = rec_win(a, ts[r]);
         }
-        // private branch: a record whose windows do not wrap adds to its
-        // pane, the cell of its latest window's slot, once the slot's
-        // pane start is its own (s_pane, claimed by the first record of
-        // the block that has it); any other record with a window in range
-        // goes direct, with global atomics per window. 0 none, 1 pane,
-        // 2 direct
+        // a record whose windows do not wrap adds to its pane, the cell
+        // of its latest window's slot, once the slot's pane start is its
+        // own (s_pane, claimed by the first record of the block that has
+        // it); any other record with a window in range goes direct, with
+        // global atomics per window. 0 none, 1 pane, 2 direct
         int how[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-            if (kPriv) {
-                how[r] = 0;
-                if (valid[r]) {
-                    int s = rw[r].slot0, start, slot;
-                    for (int j = 0; j < a.n_per && how[r] == 0; ++j)
-                        if (next_window(a, rw[r], j, s, start, slot))
-                            how[r] = 2;
-                }
-                if (how[r] == 2 && !rw[r].exact) {
-                    int *pp = &s_pane[rw[r].slot0];
-                    int cur = *(volatile int *)pp;
-                    if (cur == HS_EMPTY_START)
-                        cur = atomicCAS(pp, HS_EMPTY_START, rw[r].latest);
-                    if (cur == HS_EMPTY_START || cur == rw[r].latest)
-                        how[r] = 1;
-                }
-                if (how[r] == 1 && kin[r])
-                    atomicAdd(&s_count[pane_cell(a, key[r], rw[r].slot0)],
-                              1);
-                if (how[r] != 2) continue;
-            } else {
-                // slot_start: the records of a warp share their latest
-                // window start (so every window's start and slot) as a
-                // rule, so one lane raises the slots for all that share
-                // the first active lane's; any other record raises its
-                // own
-                const unsigned act = __activemask();
-                const int first = __ffs(act) - 1;
-                const int start0 = __shfl_sync(act, rw[r].latest, first);
-                const bool shared = valid[r] && !rw[r].exact &&
-                                    rw[r].latest == start0;
-                const unsigned peers = __ballot_sync(act, shared);
-                how[r] = !valid[r] ? 0
-                         : !shared || (threadIdx.x & 31) == __ffs(peers) - 1
-                             ? 2
-                             : 3;
-                if (how[r] == 0) continue;
+            how[r] = 0;
+            if (valid[r]) {
+                int s = rw[r].slot0, start, slot;
+                for (int j = 0; j < a.n_per && how[r] == 0; ++j)
+                    if (next_window(a, rw[r], j, s, start, slot)) how[r] = 2;
             }
+            if (how[r] == 2 && !rw[r].exact) {
+                int *pp = &s_pane[rw[r].slot0];
+                int cur = *(volatile int *)pp;
+                if (cur == HS_EMPTY_START)
+                    cur = atomicCAS(pp, HS_EMPTY_START, rw[r].latest);
+                if (cur == HS_EMPTY_START || cur == rw[r].latest) how[r] = 1;
+            }
+            if (how[r] == 1 && kin[r])
+                atomicAdd(&s_count[pane_cell(a, key[r], rw[r].slot0)], 1);
+            if (how[r] != 2) continue;
             int s = rw[r].slot0;
             for (int j = 0; j < a.n_per; ++j) {
                 int start, slot;
                 if (!next_window(a, rw[r], j, s, start, slot)) continue;
-                if (how[r] == 2) {
-                    if (s_glob_start)
-                        atomicMax(&s_glob_start[slot], start);
-                    else
-                        atomicMax(&a.slot_start[slot], start);
-                }
+                atomicMax(&a.slot_start[slot], start);
                 if (!kin[r]) continue;
                 const int64_t cell = (int64_t)key[r] * a.n_slots + slot;
                 atomicAdd(&a.count[cell], 1);
@@ -480,7 +441,7 @@ __device__ __forceinline__ void scatter_body(const HsScatterArgs &a,
             uint32_t bits[4];
             bool ok[4];
             agg_inputs4(ag, i0, n, vec, v, bits, ok);
-            const int off = kPriv ? s_off[g] : -1;
+            const int off = s_off[g];
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
                 if (!(how[r] != 0 && kin[r] && ok[r])) continue;
@@ -519,101 +480,140 @@ __device__ __forceinline__ void scatter_body(const HsScatterArgs &a,
         }
     }
     __syncthreads();
-    if constexpr (!kPriv) {
-        if (s_glob_start)
-            for (int w = threadIdx.x; w < a.n_slots; w += blockDim.x)
-                if (s_glob_start[w] != HS_EMPTY_START)
-                    atomicMax(&a.slot_start[w], s_glob_start[w]);
-        return;
-    }
-    if constexpr (kPriv) {
-        // flush: slot_start from the block's panes; then each pane cell a
-        // record landed in, into the in-range windows of its pane. With
-        // kCl the cluster's blocks first reduce their pane cells over
-        // distributed shared memory, each block one share of the cells
-        for (int ps = threadIdx.x; ps < a.n_slots; ps += blockDim.x) {
-            const RecWin w{s_pane[ps], ps, false};
-            if (w.latest == HS_EMPTY_START) continue;
-            int s = ps;
-            for (int j = 0; j < a.n_per; ++j) {
-                int start, slot;
-                if (next_window(a, w, j, s, start, slot))
-                    atomicMax(&a.slot_start[slot], start);
-            }
+    // flush: slot_start from the block's panes; then each pane cell a
+    // record landed in, into the in-range windows of its pane. With kCl
+    // the cluster's blocks first reduce their pane cells over distributed
+    // shared memory, each block one share of the cells
+    for (int ps = threadIdx.x; ps < a.n_slots; ps += blockDim.x) {
+        const RecWin w{s_pane[ps], ps, false};
+        if (w.latest == HS_EMPTY_START) continue;
+        int s = ps;
+        for (int j = 0; j < a.n_per; ++j) {
+            int start, slot;
+            if (next_window(a, w, j, s, start, slot))
+                atomicMax(&a.slot_start[slot], start);
         }
-        int nb = 1, me = 0;
-        int64_t groups = gridDim.x, group = blockIdx.x;
-        if constexpr (kCl) {
+    }
+    int nb = 1, me = 0;
+    int64_t n_groups = gridDim.x, group = blockIdx.x;
+    if constexpr (kCl) {
+        cg::cluster_group cl = cg::this_cluster();
+        cl.sync();
+        nb = kCluster;  // __cluster_dims__ of scatter_cluster
+        me = (int)cl.block_rank();
+        n_groups = gridDim.x / nb;
+        group = blockIdx.x / nb;
+    }
+    const int64_t lo = kw * me / nb, hi = kw * (me + 1) / nb;
+    // each block (cluster) starts at its own cell of the share, so that
+    // their atomics on one window cell do not arrive together
+    const int64_t share = hi - lo;
+    const int64_t rot = share * group / n_groups;
+    for (int64_t i = threadIdx.x; i < share; i += blockDim.x) {
+        const int64_t c = lo + (i + rot < share ? i + rot : i + rot - share);
+        const int ps = (int)(c / a.n_keys);
+        const int64_t key = c - (int64_t)ps * a.n_keys;
+        if constexpr (!kCl) {
+            if (s_count[c] != 0)
+                flush_pane<false>(a, smem, s_off, s_offn, c, key, ps,
+                                  s_pane[ps], 1u, s_count[c]);
+        } else {
+            // the blocks that hold this pane cell under the first pane
+            // start seen; a block whose pane start differs flushes its own
             cg::cluster_group cl = cg::this_cluster();
-            cl.sync();
-            nb = kCluster;  // __cluster_dims__ of scatter_cluster
-            me = (int)cl.block_rank();
-            groups = gridDim.x / nb;
-            group = blockIdx.x / nb;
-        }
-        const int64_t lo = kw * me / nb, hi = kw * (me + 1) / nb;
-        // each block (cluster) starts at its own cell of the share, so
-        // that their atomics on one window cell do not arrive together
-        const int64_t share = hi - lo;
-        const int64_t rot = share * group / groups;
-        for (int64_t i = threadIdx.x; i < share; i += blockDim.x) {
-            const int64_t c =
-                lo + (i + rot < share ? i + rot : i + rot - share);
-            const int ps = (int)(c / a.n_keys);
-            const int64_t key = c - (int64_t)ps * a.n_keys;
-            if constexpr (!kCl) {
-                if (s_count[c] != 0)
-                    flush_pane<false>(a, smem, s_off, s_offn, c, key, ps,
-                                      s_pane[ps], 1u, s_count[c]);
-            } else {
-                // the blocks that hold this pane cell under the first pane
-                // start seen; a block whose pane start differs flushes its
-                // own
-                cg::cluster_group cl = cg::this_cluster();
-                int cq[kCluster], lq[kCluster];
+            int cq[kCluster], lq[kCluster];
 #pragma unroll
-                for (int q = 0; q < kCluster; ++q) {
-                    cq[q] = cl.map_shared_rank(s_count, q)[c];
-                    lq[q] = cl.map_shared_rank(s_pane, q)[ps];
-                }
-                unsigned same = 0;
-                int start0 = HS_EMPTY_START, cnt = 0;
-#pragma unroll
-                for (int q = 0; q < kCluster; ++q) {
-                    if (cq[q] == 0) continue;
-                    if (start0 == HS_EMPTY_START) start0 = lq[q];
-                    if (lq[q] == start0) {
-                        same |= 1u << q;
-                        cnt += cq[q];
-                    } else {
-                        flush_pane<true>(a, smem, s_off, s_offn, c, key, ps,
-                                         lq[q], 1u << q, cq[q]);
-                    }
-                }
-                if (same != 0u)
-                    flush_pane<true>(a, smem, s_off, s_offn, c, key, ps,
-                                     start0, same, cnt);
+            for (int q = 0; q < kCluster; ++q) {
+                cq[q] = cl.map_shared_rank(s_count, q)[c];
+                lq[q] = cl.map_shared_rank(s_pane, q)[ps];
             }
+            unsigned same = 0;
+            int start0 = HS_EMPTY_START, cnt = 0;
+#pragma unroll
+            for (int q = 0; q < kCluster; ++q) {
+                if (cq[q] == 0) continue;
+                if (start0 == HS_EMPTY_START) start0 = lq[q];
+                if (lq[q] == start0) {
+                    same |= 1u << q;
+                    cnt += cq[q];
+                } else {
+                    flush_pane<true>(a, smem, s_off, s_offn, c, key, ps,
+                                     lq[q], 1u << q, cq[q]);
+                }
+            }
+            if (same != 0u)
+                flush_pane<true>(a, smem, s_off, s_offn, c, key, ps, start0,
+                                 same, cnt);
         }
-        // no block of a cluster leaves while another reads its planes
-        if constexpr (kCl) cg::this_cluster().sync();
     }
+    // no block of a cluster leaves while another reads its planes
+    if constexpr (kCl) cg::this_cluster().sync();
 }
 
 __global__ void __launch_bounds__(kPrivBlock)
 scatter_private(const __grid_constant__ HsScatterArgs a, int vec) {
-    scatter_body<true, false>(a, vec);
+    scatter_body<false>(a, vec);
 }
 
 __global__ void __launch_bounds__(kPrivBlock)
     __cluster_dims__(kCluster, 1, 1)
 scatter_cluster(const __grid_constant__ HsScatterArgs a, int vec) {
-    scatter_body<true, true>(a, vec);
+    scatter_body<true>(a, vec);
 }
 
+// the global branch: one thread per (record, window), every update a
+// global atomic, as the first design; slot_start reduced in shared
+// memory first (W <= kSmemSlots), by one lane for the lanes of a warp
+// that share a window start (a start names its slot). A grid-stride
+// walk whose lanes step together, so the warp votes stay uniform
 __global__ void __launch_bounds__(kGlobalBlock)
-scatter_global(const __grid_constant__ HsScatterArgs a, int vec) {
-    scatter_body<false, false>(a, vec);
+scatter_global(const __grid_constant__ HsScatterArgs a, int smem_start) {
+    extern __shared__ int s_start[];
+    if (smem_start) {
+        for (int w = threadIdx.x; w < a.n_slots; w += kGlobalBlock)
+            s_start[w] = HS_EMPTY_START;
+        __syncthreads();
+    }
+    const int64_t total = (int64_t)a.cap * a.n_per;
+    const int64_t stride = (int64_t)gridDim.x * kGlobalBlock;
+    for (int64_t base = (int64_t)blockIdx.x * kGlobalBlock; base < total;
+         base += stride) {
+        const int64_t tid = base + threadIdx.x;
+        int i = 0, start = 0, slot = 0;
+        bool in = false;
+        if (tid < total) {
+            i = (int)(tid / a.n_per);
+            in = hs::record_window(a, i, (int)(tid % a.n_per), start, slot);
+        }
+        const unsigned peers =
+            __match_any_sync(0xffffffffu, in ? start : HS_EMPTY_START);
+        if (in && (threadIdx.x & 31) == __ffs(peers) - 1) {
+            if (smem_start)
+                atomicMax(&s_start[slot], start);
+            else
+                atomicMax(&a.slot_start[slot], start);
+        }
+        if (!in) continue;
+        const int k = a.key[i];
+        if (k < 0 || k >= a.n_keys) continue;
+        const int64_t cell = (int64_t)k * a.n_slots + slot;
+        atomicAdd(&a.count[cell], 1);
+        if (a.track_touched) a.touched[cell] = 1;
+        for (int g = 0; g < a.n_aggs; ++g) {
+            const HsScatterAgg &ag = a.a[g];
+            float v;
+            uint32_t bits;
+            if (ag.kind == HS_AGG_COUNT_ALL || !hs::agg_input(ag, i, v, bits))
+                continue;
+            fold_global(a, ag, cell, v, bits);
+        }
+    }
+    if (smem_start) {
+        __syncthreads();
+        for (int w = threadIdx.x; w < a.n_slots; w += kGlobalBlock)
+            if (s_start[w] != HS_EMPTY_START)
+                atomicMax(&a.slot_start[w], s_start[w]);
+    }
 }
 
 bool aligned(const void *p, uintptr_t to) {
@@ -627,6 +627,20 @@ extern "C" int hs_scatter(const HsScatterArgs *args, void *stream) {
     if (a.cap == 0) return 0;
     if (a.blocks < 1 || a.n_aggs > HS_MAX_AGGS)
         return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (a.mode == HS_SCATTER_GLOBAL) {
+        const int smem_start = a.n_slots <= kSmemSlots;
+        scatter_global<<<a.blocks, kGlobalBlock,
+                         smem_start ? (size_t)a.n_slots * sizeof(int) : 0,
+                         st>>>(a, smem_start);
+        return (int)cudaGetLastError();
+    }
+    if (a.mode != HS_SCATTER_PRIVATE && a.mode != HS_SCATTER_CLUSTER)
+        return (int)cudaErrorInvalidValue;
+    const bool cl = a.mode == HS_SCATTER_CLUSTER;
+    const int64_t bytes = private_words(a) * 4;
+    if (bytes > kMaxSmem || (cl && a.blocks % kCluster != 0))
+        return (int)cudaErrorInvalidValue;
     // the 16-byte (4-byte for byte columns) loads need aligned columns
     bool vec = aligned(a.key, 16) && aligned(a.ts, 16) && aligned(a.valid, 4);
     for (int g = 0; g < a.n_aggs; ++g) {
@@ -634,51 +648,36 @@ extern "C" int hs_scatter(const HsScatterArgs *args, void *stream) {
         vec = vec && aligned(ag.values, ag.vtype == HS_T_BOOL ? 4 : 16) &&
               (ag.nulls == nullptr || aligned(ag.nulls, 4));
     }
-    cudaStream_t st = (cudaStream_t)stream;
-    if (a.mode == HS_SCATTER_PRIVATE || a.mode == HS_SCATTER_CLUSTER) {
-        const bool cl = a.mode == HS_SCATTER_CLUSTER;
-        const int64_t bytes = private_words(a) * 4;
-        if (bytes != a.smem_bytes || bytes > kMaxSmem ||
-            (cl && a.blocks % kCluster != 0))
-            return (int)cudaErrorInvalidValue;
-        static bool granted[2] = {false, false};
-        if (bytes > 48 * 1024 && !granted[cl]) {  // the default limit
-            cudaError_t err = cudaFuncSetAttribute(
-                cl ? scatter_cluster : scatter_private,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    static bool granted[2] = {false, false};
+    if (bytes > 48 * 1024 && !granted[cl]) {  // the default limit
+        cudaError_t err = cudaFuncSetAttribute(
+            cl ? scatter_cluster : scatter_private,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        if (err != cudaSuccess) return (int)err;
+        granted[cl] = true;
+    }
+    if (cl) {
+        // no more clusters than the card holds at once: a second wave
+        // would wait for the first one's flush
+        static int64_t asked = -1;
+        static int fit = 0;
+        if (bytes != asked) {
+            cudaLaunchConfig_t cfg = {};
+            cfg.gridDim = dim3(kCluster);
+            cfg.blockDim = dim3(kPrivBlock);
+            cfg.dynamicSmemBytes = (size_t)bytes;
+            cudaError_t err =
+                cudaOccupancyMaxActiveClusters(&fit, scatter_cluster, &cfg);
             if (err != cudaSuccess) return (int)err;
-            granted[cl] = true;
+            asked = bytes;
         }
-        if (cl) {
-            // no more clusters than the card holds at once: a second wave
-            // would wait for the first one's flush
-            static int64_t asked = -1;
-            static int fit = 0;
-            if (bytes != asked) {
-                cudaLaunchConfig_t cfg = {};
-                cfg.gridDim = dim3(kCluster);
-                cfg.blockDim = dim3(kPrivBlock);
-                cfg.dynamicSmemBytes = (size_t)bytes;
-                cudaError_t err = cudaOccupancyMaxActiveClusters(
-                    &fit, scatter_cluster, &cfg);
-                if (err != cudaSuccess) return (int)err;
-                asked = bytes;
-            }
-            const int blocks = fit > 0 && fit * kCluster < a.blocks
-                                   ? fit * kCluster
-                                   : a.blocks;
-            scatter_cluster<<<blocks, kPrivBlock, (size_t)bytes, st>>>(
-                a, (int)vec);
-        } else
-            scatter_private<<<a.blocks, kPrivBlock, (size_t)bytes, st>>>(
-                a, (int)vec);
-    } else if (a.mode == HS_SCATTER_GLOBAL) {
-        const size_t bytes =
-            a.n_slots <= kSmemSlots ? (size_t)a.n_slots * sizeof(int) : 0;
-        if ((int64_t)bytes != a.smem_bytes) return (int)cudaErrorInvalidValue;
-        scatter_global<<<a.blocks, kGlobalBlock, bytes, st>>>(a, (int)vec);
+        const int blocks =
+            fit > 0 && fit * kCluster < a.blocks ? fit * kCluster : a.blocks;
+        scatter_cluster<<<blocks, kPrivBlock, (size_t)bytes, st>>>(a,
+                                                                   (int)vec);
     } else {
-        return (int)cudaErrorInvalidValue;
+        scatter_private<<<a.blocks, kPrivBlock, (size_t)bytes, st>>>(
+            a, (int)vec);
     }
     return (int)cudaGetLastError();
 }

@@ -426,35 +426,46 @@ _PRIVATE_KINDS = (AggKind.COUNT, AggKind.SUM, AggKind.AVG, AggKind.MIN,
 
 class ScatterPlan(NamedTuple):
     mode: int         # kb.SCATTER_PRIVATE, _CLUSTER or _GLOBAL
-    smem_bytes: int   # dynamic shared memory of a block
     blocks: int       # grid size
 
 
-def scatter_plan(spec: LatticeSpec, cap: int, n_sms: int = H100_SMS,
-                 private: bool = True) -> ScatterPlan:
-    """The scatter kernel's branch for a batch of `cap` records, chosen
-    by the spec's size: block-private when count, the COUNT, SUM, AVG
-    (sum and _n), MIN and MAX planes ([K, W] int32 / float32 each) and
-    slot_start fit in a block's shared memory, with one or two blocks per
-    SM (as many as fit) and at least 2048 records a block; where a record
-    has several windows (HOP), whose panes each fan out to several
-    window cells, in whole clusters of SCATTER_CLUSTER blocks that reduce
-    their planes together before they flush. Else (or with `private`
-    False) every update a global atomic, one thread per four records."""
-    K, W = spec.n_keys, spec.n_slots
+def scatter_smem_bytes(spec: LatticeSpec) -> int:
+    """A block's shared memory in the block-private branches: count, the
+    COUNT, SUM, AVG (sum and _n), MIN and MAX planes ([K, W] int32 /
+    float32 each) and slot_start [W] (scatter.cu private_words)."""
     planes = 1 + sum(2 if a.kind == AggKind.AVG else 1
                      for a in spec.aggs if a.kind in _PRIVATE_KINDS)
-    smem = 4 * (K * W * planes + W)
-    groups = -(-cap // 4)
-    if private and smem <= SCATTER_SMEM_LIMIT:
-        per_sm = 2 if 2 * (smem + 1024) <= _SM_SMEM else 1
-        blocks = max(1, min(per_sm * n_sms, -(-cap // 2048)))
-        if spec.windows_per_record == 1:
-            return ScatterPlan(kb.SCATTER_PRIVATE, smem, blocks)
-        return ScatterPlan(kb.SCATTER_CLUSTER, smem, SCATTER_CLUSTER * max(
-            1, blocks // SCATTER_CLUSTER))
-    return ScatterPlan(kb.SCATTER_GLOBAL, 4 * W if W <= 1024 else 0,
-                       max(1, -(-groups // 256)))
+    return 4 * (spec.n_keys * spec.n_slots * planes + spec.n_slots)
+
+
+def scatter_plan(spec: LatticeSpec, cap: int, n_sms: int = H100_SMS,
+                 mode: int | None = None) -> ScatterPlan:
+    """The scatter kernel's branch for a batch of `cap` records, chosen
+    by the spec's size: block-private when its planes
+    (scatter_smem_bytes) fit in a block's shared memory, with one or two
+    blocks per SM (as many as fit) and at least 2048 records a block;
+    where a record has several windows (HOP), whose panes each fan out to
+    several window cells, in whole clusters of SCATTER_CLUSTER blocks
+    that reduce their planes together before they flush. Else every
+    update a global atomic, one thread per (record, window). `mode`
+    forces a branch (a block-private one only where the planes fit)."""
+    smem = scatter_smem_bytes(spec)
+    fits = smem <= SCATTER_SMEM_LIMIT
+    if mode is None:
+        mode = (kb.SCATTER_GLOBAL if not fits
+                else kb.SCATTER_PRIVATE if spec.windows_per_record == 1
+                else kb.SCATTER_CLUSTER)
+    if mode == kb.SCATTER_GLOBAL:
+        return ScatterPlan(mode, max(1, -(-cap * spec.windows_per_record
+                                          // 256)))
+    if not fits:
+        raise ValueError(f"scatter: {smem} B of planes exceed a block's "
+                         f"shared memory")
+    per_sm = 2 if 2 * (smem + 1024) <= _SM_SMEM else 1
+    blocks = max(1, min(per_sm * n_sms, -(-cap // 2048)))
+    if mode == kb.SCATTER_CLUSTER:
+        blocks = SCATTER_CLUSTER * max(1, blocks // SCATTER_CLUSTER)
+    return ScatterPlan(mode, blocks)
 
 
 @functools.lru_cache(maxsize=None)
@@ -465,20 +476,18 @@ def _sm_count(device: torch.device) -> int:
 def scatter_step(spec: LatticeSpec, state: dict[str, torch.Tensor],
                  watermark: int, key_ids: torch.Tensor, ts: torch.Tensor,
                  valid: torch.Tensor, cols: Mapping[str, torch.Tensor],
-                 plan: ScatterPlan | None = None) -> None:
+                 mode: int | None = None) -> None:
     """Fold one decoded batch into the state (every aggregate but TOPK),
-    in place: the scatter-aggregate kernel on the card, in the branch
-    `plan` names (by default scatter_plan's), scatter_step_ref on the
-    CPU."""
+    in place: the scatter-aggregate kernel on the card, in scatter_plan's
+    branch (`mode` forces one), scatter_step_ref on the CPU."""
     if key_ids.device.type == "cpu":
         scatter_step_ref(spec, state, watermark, key_ids, ts, valid, cols)
         return
     aggs = [i for i, a in enumerate(spec.aggs)
             if a.kind != AggKind.COUNT_ALL and a.kind not in _TOPK_KINDS]
     args = _step_args(spec, state, watermark, key_ids, ts, valid, cols, aggs)
-    if plan is None:
-        plan = scatter_plan(spec, args.cap, _sm_count(key_ids.device))
-    args.mode, args.smem_bytes, args.blocks = plan
+    args.mode, args.blocks = scatter_plan(
+        spec, args.cap, _sm_count(key_ids.device), mode)
     kb.check(kb.lib().hs_scatter(ctypes.byref(args), kb.stream_of(ts)),
              "scatter_aggregate")
     scatter_step.launches += 1

@@ -21,15 +21,17 @@ PRIVATE, CLUSTER, GLOBAL = (kb.SCATTER_PRIVATE, kb.SCATTER_CLUSTER,
                             kb.SCATTER_GLOBAL)
 
 # every spec the port's window paths step: its branch and the shared
-# memory of a block (4 B per [K, W] cell of count and each COUNT, SUM,
-# AVG (two), MIN and MAX plane, plus slot_start [W])
+# memory of a block in the block-private branches (4 B per [K, W] cell
+# of count and each COUNT, SUM, AVG (two), MIN and MAX plane, plus
+# slot_start [W])
 SPECS = {
     "config 1": (PRIVATE, 4 * (1024 * 3 * 2 + 3)),
     "config 2": (CLUSTER, 4 * (1024 * 8 * 5 + 8)),
     "changelog": (PRIVATE, 4 * (1024 * 3 * 3 + 3)),
     "log": (PRIVATE, 4 * (1024 * 3 * 6 + 3)),
     "sketch kinds": (PRIVATE, 4 * (1024 * 3 * 7 + 3)),
-    "join inner": (GLOBAL, 4 * 3),
+    "int and bool": (PRIVATE, 4 * (1024 * 3 * 9 + 3)),
+    "join inner": (GLOBAL, 4 * ((1 << 19) * 3 * 1 + 3)),
 }
 
 
@@ -43,14 +45,15 @@ def test_every_path_spec_takes_its_branch(specs, name):
     mode, smem = SPECS[name]
     plan = lattice.scatter_plan(specs[name], BATCH)
     assert plan.mode == mode
-    assert plan.smem_bytes == smem
+    assert lattice.scatter_smem_bytes(specs[name]) == smem
     if mode != GLOBAL:
         assert smem <= lattice.SCATTER_SMEM_LIMIT < 227 * 1024
         # clusters where a record's pane fans out to several windows
         assert (mode == CLUSTER) == (specs[name].windows_per_record > 1)
     else:
-        assert 4 * specs[name].n_keys * specs[name].n_slots \
-            > lattice.SCATTER_SMEM_LIMIT
+        assert smem > lattice.SCATTER_SMEM_LIMIT
+        with pytest.raises(ValueError, match="shared memory"):
+            lattice.scatter_plan(specs[name], BATCH, mode=PRIVATE)
 
 
 def test_grid_is_one_or_two_blocks_an_sm_and_2048_records_a_block(specs):
@@ -67,9 +70,11 @@ def test_grid_is_one_or_two_blocks_an_sm_and_2048_records_a_block(specs):
     for cap, blocks in ((1, 8), (16_384, 8), (20_480, 8), (32_768, 16),
                         (1 << 16, 32)):
         assert lattice.scatter_plan(specs["config 2"], cap).blocks == blocks
-    # global: one thread per four records, 256 threads a block
-    assert lattice.scatter_plan(specs["join inner"], 1 << 21).blocks == 2048
+    # global: one thread per (record, window), 256 threads a block
+    assert lattice.scatter_plan(specs["join inner"], 1 << 21).blocks == 8192
     assert lattice.scatter_plan(specs["join inner"], 5).blocks == 1
+    assert lattice.scatter_plan(specs["config 2"], BATCH,
+                                mode=GLOBAL).blocks == 6 * BATCH // 256
 
 
 def _sum_spec(n_keys: int) -> lattice.LatticeSpec:
@@ -89,25 +94,29 @@ def test_a_spec_just_over_the_shared_memory_limit_goes_global(extra_keys,
     K = (limit_words - W) // (2 * W)
     used = 2 * K * W + W
     assert used <= limit_words < used + 2 * W
-    plan = lattice.scatter_plan(_sum_spec(K + extra_keys), BATCH)
-    assert plan.mode == mode
+    spec = _sum_spec(K + extra_keys)
+    assert lattice.scatter_plan(spec, BATCH).mode == mode
+    smem = lattice.scatter_smem_bytes(spec)
     if mode == PRIVATE:
-        assert plan.smem_bytes == 4 * used <= lattice.SCATTER_SMEM_LIMIT
+        assert smem == 4 * used <= lattice.SCATTER_SMEM_LIMIT
+    else:
+        assert smem == 4 * (used + 2 * W) > lattice.SCATTER_SMEM_LIMIT
 
 
 def test_hll_and_quantile_planes_stay_global(specs):
     # K2's HLL registers (3 MiB) and bins are not in shared memory; its
     # count, COUNT, SUM, AVG (two), MIN, MAX are
-    plan = lattice.scatter_plan(specs["sketch kinds"], BATCH)
-    assert plan.mode == PRIVATE
-    assert plan.smem_bytes == 4 * (1024 * 3 * 7 + 3)
+    assert lattice.scatter_plan(specs["sketch kinds"], BATCH).mode == PRIVATE
+    assert lattice.scatter_smem_bytes(specs["sketch kinds"]) \
+        == 4 * (1024 * 3 * 7 + 3)
 
 
 def test_private_false_forces_the_global_branch(specs):
+    # the one override the checks use: `mode`, here the global branch
     for name in SPECS:
-        plan = lattice.scatter_plan(specs[name], BATCH, private=False)
-        W = specs[name].n_slots
-        assert plan == lattice.ScatterPlan(GLOBAL, 4 * W, BATCH // 4 // 256)
+        plan = lattice.scatter_plan(specs[name], BATCH, mode=GLOBAL)
+        per = specs[name].windows_per_record
+        assert plan == lattice.ScatterPlan(GLOBAL, BATCH * per // 256)
 
 
 def _cpu_batch(spec, n: int, seed: int):
@@ -137,9 +146,8 @@ def test_scatter_step_on_cpu_tensors_runs_the_plain_version(specs, forced,
     got = lattice.init_state(spec, "cpu")
     want = lattice.init_state(spec, "cpu")
     before = lattice.scatter_step.launches
-    plan = (lattice.scatter_plan(spec, 4096, private=False) if forced
-            else None)
-    lattice.scatter_step(spec, got, 20_000, key, ts, valid, cols, plan=plan)
+    lattice.scatter_step(spec, got, 20_000, key, ts, valid, cols,
+                         mode=GLOBAL if forced else None)
     assert calls == [spec]
     assert lattice.scatter_step.launches == before
     ref(spec, want, 20_000, key, ts, valid, cols)

@@ -1,0 +1,305 @@
+"""Time a group of kernels of this checkout against the same kernels of
+another checkout (the parent commit's, or any tree with chip_smoke.py),
+on one CUDA card, in one call.
+
+    python3 ab.py scatter|join OTHER_TREE
+
+runs OTHER_TREE, this tree, this tree, OTHER_TREE, each in a process of
+its own that builds its tree's kernels and times the group on the same
+inputs, made from a seed at chip_smoke's path shapes. Prints the card's
+name and power limit, then one line per run: `AB <tree> {name: ms, ...}`.
+
+scatter: `lattice.scatter_step` on configs 1 and 2 and the changelog
+query (2^20 records), CUDA events over 100 back-to-back calls after 10
+warm-up calls, ms a call; a tree whose `scatter_step` takes `mode` runs
+its global branch.
+
+join: the changelog extract (B6) and the join's probe and merge-insert
+(B17):
+  * "touched changelog": lattice.extract_touched on the changelog query's
+    lattice after one headline batch (1024 keys x 3 slots, all touched);
+  * "touched join": the join's inner lattice (K = 2^19, W = 3, COUNT(*)),
+    390,000 of its 1,572,864 cells touched, max_out K * W;
+  * "probe feed": the probe in feed mode (join_lattice._feed_cuda) of a
+    2^20-record batch over 512,000 keys against a 4,194,304-slot store
+    holding 2,097,152 entries, WITHIN 1 s, match_cap 4,194,304 (in a tree
+    whose probe takes a `branch`, also with each branch forced);
+  * "insert": the merge of that batch into a store of the same shape;
+  * "fused call": join_probe_insert_step (probe, the inner step, insert);
+  * "probe only 8b", "probe insert 8b": join_probe_only and
+    join_probe_insert (pack mode) at phase 8b's shapes: a 2^16-record
+    batch over 32,000 keys against a 2^19-slot store of ~12 entries a
+    key, every one within reach, match_cap 2^20 (both also by kernel,
+    the probe with each branch forced).
+Each is the device time a call from torch.profiler over 20 calls (the
+tree's chip_smoke.kernel_ms: its kernels, memsets and copies, without
+the host's gaps; the touched extract's refill of its flags timed alone
+and taken out), then the same by CUDA events around the 20 calls
+(", call"), which for a short kernel is the host's launch path; and the
+fused call's device time by stage (the tree's _by_stage).
+"""
+
+from __future__ import annotations
+
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+# the join group's phase-8 shapes
+CAP = 1 << 22            # store slots a side
+LIVE = 1 << 21           # live entries in the probed store
+BATCH = 1 << 20
+KEYS = 512_000
+SPAN_MS = 4_000          # the stores' time range: ~2.1 M matches
+WITHIN = 1000
+INNER_KEYS = 1 << 19
+TOUCHED = 390_000
+
+
+def _scatter() -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from hstream_tpu_torch.engine import expr as ex, lattice
+    from hstream_tpu_torch.engine.kernels import build as kbuild
+
+    kbuild.build()
+    dev = torch.device("cuda", 0)
+    kw = {}
+    if "mode" in inspect.signature(lattice.scatter_step).parameters:
+        from hstream_tpu_torch.engine.kernels import binding as kb
+        kw = {"mode": kb.SCATTER_GLOBAL}
+
+    def ms(fn, iters=100):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+
+    out = {}
+    _, _, _, (key, ts, valid, cols) = cs.headline_batch(dev, cs.make_spec(1))
+    for cfg, tsv in ((1, ts), (2, ts + 100_000)):
+        spec = cs.make_spec(cfg)
+        st = lattice.init_state(spec, dev)
+        out[f"config {cfg}"] = ms(lambda: lattice.scatter_step(
+            spec, st, -1, key, tsv, valid, cols, **kw))
+    cspec, progs, (key, ts, valid, cols), _ = cs.changelog_batch(dev)
+    cols, valid = dict(cols), valid.clone()
+    ex.eval_programs(progs, cols, valid)
+    st = lattice.init_state(cspec, dev)
+    out["changelog"] = ms(lambda: lattice.scatter_step(
+        cspec, st, -1, key, ts, valid, cols, **kw))
+    return out
+
+
+
+def _inputs(seed: int = 8):
+    """numpy inputs: the probed store, the probing side's store, the
+    batch (rows code, ts, kid, flags), sorted by (code, ts)."""
+    rng = np.random.default_rng(seed)
+
+    def sorted_keys(n):
+        c = rng.integers(0, KEYS, n).astype(np.int32)
+        t = rng.integers(0, SPAN_MS, n).astype(np.int32)
+        o = np.lexsort((t, c))
+        return c[o], t[o]
+
+    def store(n_live):
+        code = np.full(CAP, 1 << 22, np.int32)
+        ts = np.zeros(CAP, np.int32)
+        code[:n_live], ts[:n_live] = sorted_keys(n_live)
+        flags = np.full(CAP, 2, np.int32)
+        return {"code": code, "ts": ts, "flags": flags,
+                "cols": np.zeros((0, CAP), np.int32)}
+
+    batch = np.zeros((4, BATCH), np.int32)
+    batch[0], batch[1] = sorted_keys(BATCH)
+    batch[2] = batch[0] % INNER_KEYS
+    batch[3] = 2
+    return store(LIVE), store(LIVE // 2), batch
+
+
+def _join() -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from hstream_tpu_torch.engine import join_lattice as jl
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine.kernels import binding as kb
+    from hstream_tpu_torch.engine.kernels import build as kbuild
+    from hstream_tpu_torch.engine.plan import AggKind, AggSpec
+    from hstream_tpu_torch.engine.window import TumblingWindow
+
+    kbuild.build()
+    dev = torch.device("cuda", 0)
+
+    def ms(name, fn, less=None):
+        dev_ms, call_ms, _src = cs.kernel_ms(fn, 20)
+        if less is not None:
+            dev_ms, call_ms = dev_ms - less[0], call_ms - less[1]
+        out[name], out[name + ", call"] = dev_ms, call_ms
+
+    def by_kernel(name, fn):   # device ms a call of each event
+        d = cs.profiled_calls(fn, 5, name)
+        out[name + " by kernel"] = (None if d is None else {
+            k: v / 5e3 for k, v in d.items()})
+
+    def touched_ms(name, spec, st, max_out):
+        saved = st["touched"].clone()
+        refill = cs.kernel_ms(lambda: st["touched"].copy_(saved), 20)
+        ms(name, lambda: (st["touched"].copy_(saved),
+                          lattice.extract_touched(spec, st, max_out)),
+           refill[:2])
+        by_kernel(name, lambda: (st["touched"].copy_(saved),
+                                 lattice.extract_touched(spec, st, max_out)))
+
+    out = {}
+    cspec, progs, (key, ts, valid, cols), _ = cs.changelog_batch(dev)
+    cst = lattice.init_state(cspec, dev)
+    lattice.step_decoded(cspec, cst, -1, key, ts, valid.clone(), dict(cols),
+                         progs)
+    touched_ms("touched changelog", cspec, cst,
+               lattice.touched_max_out(cspec, cs.BATCH))
+    del cst
+
+    ispec = lattice.LatticeSpec(
+        n_keys=INNER_KEYS, window=TumblingWindow(10_000, grace_ms=0),
+        aggs=(AggSpec(AggKind.COUNT_ALL, "c"),), track_touched=True)
+    ist = lattice.init_state(ispec, dev)
+    rng = np.random.default_rng(9)
+    cells = ispec.n_keys * ispec.n_slots
+    hit = torch.from_numpy(rng.choice(cells, TOUCHED, replace=False)).to(dev)
+    ist["touched"].view(-1)[hit] = True
+    ist["count"].view(-1)[hit] = torch.from_numpy(
+        rng.integers(1, 9, TOUCHED).astype(np.int32)).to(dev)
+    ist["slot_start"].copy_(torch.arange(3, device=dev,
+                                         dtype=torch.int32) * 10_000)
+    touched_ms("touched join", ispec, ist, cells)
+
+    other, mine, batch = _inputs()
+    other = {k: torch.from_numpy(v).to(dev) for k, v in other.items()}
+    mine = {k: torch.from_numpy(v).to(dev) for k, v in mine.items()}
+    batch = torch.from_numpy(batch).to(dev)
+    feed = ((), (), ())
+    kw = ({"branch": None}
+          if "branch" in inspect.signature(jl._feed_cuda).parameters
+          else {})
+    def probe():
+        jl._feed_cuda(other, batch, BATCH, WITHIN, -(1 << 31), CAP, 0, 0,
+                      feed, **kw)
+
+    ms("probe feed", probe)
+    by_kernel("probe feed", probe)
+    if kw:   # a tree whose probe takes a branch: each one forced
+        for bname in ("window", "whole"):
+            kw["branch"] = getattr(kb, "PROBE_" + bname.upper())
+            ms(f"probe feed, {bname}", probe)
+        kw["branch"] = None
+    dst = jl.empty_join_store(CAP, 0, dev)
+    ms("insert", lambda: jl._insert_cuda(mine, batch, BATCH, 0, dst))
+    ist["touched"].zero_()
+
+    def fused():   # COUNT(*): no programs
+        jl.join_probe_insert_step(mine, other, batch, BATCH, WITHIN,
+                                  -(1 << 31), CAP, 0, ispec, ist, -1, 0, (),
+                                  feed, out=dst)
+
+    ms("fused call", fused)
+    stages = cs.profiled_calls(fused, 5, "the fused join")
+    out["fused call by stage"] = (None if stages is None
+                                  else cs._by_stage(stages, 5))
+    total = jl._feed_cuda(other, batch, BATCH, WITHIN, -(1 << 31), CAP, 0,
+                          0, feed, **kw)[0]
+    out["matches"] = int(total)
+
+    # phase 8b's shapes: a 2^16-record batch over 32,000 keys, a 2^19-
+    # slot store of ~12 entries a key, every entry of a key within reach
+    rng = np.random.default_rng(10)
+
+    def small_store(n_live):
+        code = np.full(1 << 19, 1 << 22, np.int32)
+        ts = np.zeros(1 << 19, np.int32)
+        c = rng.integers(0, 32_000, n_live).astype(np.int32)
+        t = rng.integers(0, 4_000, n_live).astype(np.int32)
+        o = np.lexsort((t, c))
+        code[:n_live], ts[:n_live] = c[o], t[o]
+        return {"code": torch.from_numpy(code).to(dev),
+                "ts": torch.from_numpy(ts).to(dev),
+                "flags": torch.full((1 << 19,), 2, dtype=torch.int32,
+                                    device=dev),
+                "cols": torch.zeros((0, 1 << 19), dtype=torch.int32,
+                                    device=dev)}
+
+    s_other, s_mine = small_store(400_000), small_store(200_000)
+    sb = np.zeros((4, 1 << 16), np.int32)
+    c = rng.integers(0, 32_000, 1 << 16).astype(np.int32)
+    t = rng.integers(0, 4_000, 1 << 16).astype(np.int32)
+    o = np.lexsort((t, c))
+    sb[0], sb[1], sb[2], sb[3] = c[o], t[o], c[o] % 1000, 2
+    sbatch = torch.from_numpy(sb).to(dev)
+    sdst = jl.empty_join_store(1 << 19, 0, dev)
+    def probe_8b():
+        jl.join_probe_only(s_other, sbatch, 1 << 16, 10_000, -(1 << 31),
+                           1 << 20, 0, **kw)
+
+    ms("probe only 8b", probe_8b)
+    by_kernel("probe only 8b", probe_8b)
+    if kw:
+        for bname in ("window", "whole"):
+            kw["branch"] = getattr(kb, "PROBE_" + bname.upper())
+            ms(f"probe only 8b, {bname}", probe_8b)
+        kw["branch"] = None
+    def probe_insert_8b():
+        jl.join_probe_insert(s_mine, s_other, sbatch, 1 << 16, 10_000,
+                             -(1 << 31), 1 << 20, 0, out=sdst)
+
+    ms("probe insert 8b", probe_insert_8b)
+    by_kernel("probe insert 8b", probe_insert_8b)
+    return out
+
+
+GROUPS = {"scatter": _scatter, "join": _join}
+
+
+def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--tree":
+        tree = os.path.abspath(sys.argv[3])
+        sys.path.insert(0, tree)
+        os.chdir(tree)
+        print("AB", json.dumps(GROUPS[sys.argv[2]]()), flush=True)
+        return 0
+    if len(sys.argv) != 3 or sys.argv[1] not in GROUPS:
+        print(__doc__, file=sys.stderr)
+        return 2
+    group = sys.argv[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(sys.argv[2])
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    for tree in (other, here, here, other):
+        run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--tree", group, tree], capture_output=True,
+                             text=True)
+        if run.returncode != 0:
+            print(run.stdout + run.stderr, file=sys.stderr)
+            return run.returncode
+        line = [x for x in run.stdout.splitlines() if x.startswith("AB ")]
+        print(f"AB {tree} {line[-1][3:]}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

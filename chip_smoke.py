@@ -14,14 +14,18 @@ Phases, each of which asserts (any failure exits non-zero):
    calls computing the same function: wire decode, scatter (every
    lattice the paths step, scatter_specs(), in each mode it can take:
    block-private, cluster and global; keys below 0 and at K + 5, a batch
-   crossing a window end, the join's inner lattice at K = 2^19 on a
-   match-sized feed), fused close
+   crossing a window end, subnormal inputs, the join's inner lattice at
+   K = 2^19 on a match-sized feed), fused close
    (all three modes), rebase, and the changelog query's kernels (the
    expression interpreter over every op and type mix; NULL masks,
    COUNT(col) and quantile bins in the scatter and estimates in the
-   close; the top-k fold; the touched extract; the reset-only close),
+   close; the top-k fold; the touched extract in both its modes, one
+   launch and staged, on every aggregate kind and on scalars alone, with
+   n = 0, n = and > max_out, lattices of 4096 and 4097 cells and of
+   several tiles, then again at the join's shape; the reset-only close),
    the expression kernel's 21 unaries on every operand type the
-   reference takes (NaN, +-inf, +-0, x.5 and -x.5, inputs outside the
+   reference takes (NaN, +-inf, +-0, subnormals flushed where the
+   reference flushes them, x.5 and -x.5, inputs outside the
    domains of SQRT, the logs, ASIN, ACOS, ACOSH and ATANH, large SIN,
    COS and TAN arguments; CEIL, FLOOR, ROUND, SIGN and SQRT exact, the
    rest within CARD_ULP), then phase 11's programs on a batch of its
@@ -37,9 +41,13 @@ Phases, each of which asserts (any failure exits non-zero):
    no batch records; the extract with pads, empty histograms and HLL
    estimates near .5; the remap with codes at and above the table), and
    the join kernels (the probe + merge-insert and the probe alone at a
-   match_cap below and above the total; the fused probe + window step
-   over feed sources m, o, both and both_o with null and present bits
-   on both sides, filter-NULL columns and a WHERE; the two-sided
+   match_cap below and above the total, in each probe branch forced:
+   the store window staged in shared memory, searched in global memory,
+   the whole store; a staged window, a skewed key, ts -+ within wrapping
+   int32, records whose matches span several tiles; the fused probe +
+   window step over feed sources m, o, both and both_o with null and
+   present bits on both sides, filter-NULL columns, a WHERE and
+   subnormal columns, in each branch; the two-sided
    eviction with delta 0, > 0 and < 0; equal (code, ts) runs across
    store and batch, sentinels that kept their columns, entries below the
    cutoff, negative times, n = 0; the remap kernel's sentinel flag),
@@ -612,7 +620,7 @@ def scatter_inputs(dev, spec, seed: int, n: int, two_slots: bool = False,
                    odd: bool = False):
     """A decoded batch for `spec`: awkward_inputs' hard cases (records
     before the epoch, late records, invalid rows, NaN, inf and -0.0,
-    records over three windows), keys spread over [0, K) with some
+    records over three windows) and subnormals, keys spread over [0, K) with some
     at K + 5 and some negative, and each aggregate's input column (the
     float32 `temp`; `ival` int32 with its extremes and values float32
     rounds; `flag` bool) and a 2 % NULL mask; with `two_slots`, the
@@ -638,7 +646,9 @@ def scatter_inputs(dev, spec, seed: int, n: int, two_slots: bool = False,
     ival[3::727] = -(1 << 24) - 3
     by_name = {"ival": torch.from_numpy(ival).to(dev),
                "flag": torch.from_numpy(irng.random(n) < 0.5).to(dev)}
-    temp = cols["temp"]
+    temp = cols["temp"].clone()    # with subnormals of both signs
+    for i, v in enumerate((1e-45, -1e-45, 1e-40, -3e-39)):
+        temp[11 + i::1019] = v
     out = {}
     for i, name in enumerate(lattice.agg_input_columns(spec)):
         if name is None:
@@ -1263,7 +1273,19 @@ def check_expr(dev, results, chg):
         for p, name in chunk:
             want = p(cols)
             dtypes.add(p.dtype)
-            assert same_bits(got[name], want), f"expression {k}: {name}"
+            if not same_bits(got[name], want):
+                g, w = got[name], want
+                if g.dtype == torch.float32:
+                    g, w = g.view(torch.int32), w.view(torch.int32)
+                bad = torch.nonzero(g != w).reshape(-1)[:6].tolist()
+                ins = {c: [hex(int(cols[c].view(torch.int32)[q]))
+                           if cols[c].dtype == torch.float32
+                           else int(cols[c][q]) for q in bad]
+                       for c in p.cols}
+                raise AssertionError(
+                    f"expression {k}: {name} differs at {bad}: inputs "
+                    f"{ins}, kernel {[hex(int(g[q])) for q in bad]}, "
+                    f"plain {[hex(int(w[q])) for q in bad]}")
         assert torch.equal(valid, valid0 & where(cols)), "expression: WHERE"
     assert dtypes == {"f32", "i32", "bool"}, dtypes
     # timed on the changelog query's programs and batch
@@ -1310,8 +1332,9 @@ def unary_columns(dev, n: int, seed: int):
     """f: normal(0, 10) with NaN, +-inf, +-0, halves (x.5, -x.5, 20.5,
     -0.5), inputs outside the domains (negatives for SQRT and the logs,
     |x| > 1 for ASIN, ACOS and ATANH, x < 1 for ACOSH, +-1 for ATANH),
-    large arguments (1e4 .. 3.4e38) and values past exp's and sinh's
-    overflow; i: int32 over its range and small; b: bools."""
+    large arguments (1e4 .. 3.4e38), values past exp's and sinh's
+    overflow, subnormals and the smallest normals; i: int32 over its
+    range and small; b: bools."""
     rng = np.random.default_rng(seed)
     f = rng.normal(0, 10, n).astype(np.float32)
     f[::5] = np.rint(f[::5] * 2) / 2             # halves and integers
@@ -1319,7 +1342,11 @@ def unary_columns(dev, n: int, seed: int):
                         1.5, -1.5, 2.5, -2.5, 20.5, -20.5, 1.0, -1.0, 0.99,
                         -0.99, 1.01, -3.0, 0.25, 1e4, -1e4, 1e10, -1e20,
                         1e30, 3.4e38, -3.4e38, 88.0, 89.0, -104.0, 710.0,
-                        16.0, 16.1, 15.9], np.float32)
+                        16.0, 16.1, 15.9,
+                        # subnormals and the smallest normals: flushed
+                        # where XLA flushes them (expr.ftz)
+                        1e-45, -1e-45, 1e-40, -3e-39, 1.1754944e-38,
+                        -1.1754944e-38, 2e-38], np.float32)
     f[: len(special)] = special
     f[len(special)::97] = -np.abs(f[len(special)::97])
     i = rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
@@ -1560,15 +1587,20 @@ def check_sketch_aggs(dev, results):
 
 
 def topk_inputs(dev, seed: int):
-    """Ties, -0.0 / +0.0, NaN and +-inf, cells with fewer records than k."""
+    """Ties, -0.0 / +0.0, subnormals of both signs (ranked as zeros), NaN
+    and +-inf, cells with fewer records than k."""
     rng = np.random.default_rng(seed)
     n = 1 << 18
     pool = np.array([-2.0, -1.0, -0.0, 0.0, 0.5, 1.0, 1.0, 2.0, 3.0, np.nan,
-                     np.inf, -np.inf, 1e30, -1e30], np.float32)
+                     np.inf, -np.inf, 1e30, -1e30, 1e-45, -1e-45, 3e-39,
+                     -3e-39], np.float32)
     v = pool[rng.integers(0, len(pool), n)]
     v[::3] = (rng.normal(0, 2, v[::3].shape[0]) * 4).round() / 4
     key = rng.integers(0, 600, n).astype(np.int32)
     key[::97] = rng.integers(600, 1024, key[::97].shape[0])  # 1-3 records
+    zs = key >= 960             # cells of zeros and subnormals alone
+    v[zs] = np.array([0.0, -0.0, 1e-45, -1e-45, 3e-39, -3e-39],
+                     np.float32)[rng.integers(0, 6, int(zs.sum()))]
     ts = (200_000 + rng.integers(0, 30_000, n)).astype(np.int32)
     valid = rng.integers(0, 30, n) > 0
     cols = {"temp": torch.from_numpy(v).to(dev)}
@@ -1632,53 +1664,132 @@ def check_topk(dev, results, chg):
         replaces="hstream_tpu/engine/lattice.py:258",
         max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib, call_ms=call, ms_source=src)
-    log(f"topk_fold: both variants, k 3 and 1, bit-exact over ties, +-0.0 "
+    log(f"topk_fold: both variants, k 3 and 1, bit-exact over ties, +-0.0, "
+        f"subnormals "
         f"(kept +0.0/-0.0 per plane: {zeros}), NaN, +-inf, short cells; "
         f"{ms:.4f} ms (plain {plain:.4f}, library sort {lib:.4f}, bound "
         f"{b_ms:.4f})")
 
 
-def check_touched(dev, results, k2_state, chg):
-    """K3: nothing touched, everything touched, n = max_out, n > max_out,
-    and lattices of more than one 4096-cell block, packed buffers exact;
-    then timed at the changelog path's shapes."""
+JOIN_TOUCHED = "join (BASELINE 5)"   # the path of B6's second shape
+
+
+def k2_scalar_spec(n_keys: int = 1024, window: bool = True):
+    """k2_spec's scalar aggregates only (COUNT(*), COUNT, SUM, AVG, MIN,
+    MAX): the touched extract's thread-per-column finalize alone;
+    windowless, a lattice of n_keys cells."""
     from hstream_tpu_torch.engine import lattice
 
-    spec = k2_spec()
-    K, W = spec.n_keys, spec.n_slots
+    spec = k2_spec(n_keys)
+    return lattice.LatticeSpec(n_keys=n_keys,
+                               window=spec.window if window else None,
+                               aggs=spec.aggs[:6], track_touched=True)
+
+
+def touched_vs_plain(sp, s0, mo, mode, what):
+    """The touched extract in `mode` and its plain version, each on its
+    own copy of s0: the packed buffer bit for bit, touched cleared, the
+    other planes untouched."""
+    from hstream_tpu_torch.engine import lattice
+
+    a, b = copy_state(s0), copy_state(s0)
+    got = lattice.extract_touched(sp, a, mo, mode=mode)
+    want = lattice.extract_touched_ref(sp, b, mo)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"touched {what}: packed rows differ"
+    assert not bool(a["touched"].any()), f"touched {what}: not cleared"
+    for k in b:
+        assert torch.equal(a[k], b[k]), f"touched {what}: {k}"
+
+
+def touched_bound(spec, state, n: int, mo: int) -> tuple[float, str]:
+    """B6's bound, bytes once: the flags read, the set ones cleared, the
+    touched cells' count and aggregate planes gathered, the buffer
+    written; the sketch estimates' operations beside them."""
+    from hstream_tpu_torch.engine import lattice
+
+    cells = spec.n_keys * spec.n_slots
+    per_cell = sum(int(v.nbytes) // cells for k, v in state.items()
+                   if k not in ("slot_start", "touched"))
+    rows = 3 + lattice.out_rows(spec)
+    sketch = sum(int(state[lattice._plane_name(i, g)].nbytes) // cells
+                 for i, g in enumerate(spec.aggs)
+                 if g.kind.name in ("APPROX_COUNT_DISTINCT", "APPROX_QUANTILE"))
+    return bound(cells + n + n * per_cell + rows * mo * 4, n * 3 * sketch)
+
+
+def check_touched(dev, results, k2_state, chg):
+    """K3: every forced mode (one launch where the lattice fits it, and
+    staged) on k2's every-kind spec (HLL, quantile, TOPK) and on its
+    scalar aggregates alone: as stepped, nothing touched, everything,
+    n = max_out and n > max_out; windowless lattices of exactly 4096
+    and 4097 cells; lattices of more than one 4096-cell tile, and of
+    more than 2^25 cells (over 32 rounds of the look-back); packed
+    buffers exact. Then timed at the changelog path's shapes in both
+    modes (does the single-chunk lattice need a second launch?)."""
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine.kernels import binding as kb
+
     cases = []
-    st = copy_state(k2_state)
-    cases.append(("as stepped", spec, st, K * W))
-    nothing = copy_state(k2_state)
-    nothing["touched"].zero_()
-    cases.append(("nothing", spec, nothing, K * W))
-    every = copy_state(k2_state)
-    every["touched"].fill_(True)
-    cases.append(("everything", spec, every, K * W))
-    n_hit = int(k2_state["touched"].sum())
-    cases.append(("n = max_out", spec, copy_state(k2_state), n_hit))
-    cases.append(("n > max_out", spec, copy_state(k2_state), n_hit // 2))
+    for sp in (k2_spec(), k2_scalar_spec()):
+        st = lattice.init_state(sp, dev)
+        key, ts, valid, cols = k2_inputs(dev, 59)
+        lattice.scatter_step_ref(sp, st, 205_000, key, ts, valid, cols)
+        lattice.topk_step_ref(sp, st, 205_000, key, ts, valid, cols)
+        cells = sp.n_keys * sp.n_slots
+        n_hit = int(st["touched"].sum())
+        tag = f"{len(sp.aggs)} aggs"
+        cases.append((f"{tag}, as stepped", sp, st, cells))
+        nothing = copy_state(st)
+        nothing["touched"].zero_()
+        cases.append((f"{tag}, nothing", sp, nothing, cells))
+        every = copy_state(st)
+        every["touched"].fill_(True)
+        cases.append((f"{tag}, everything", sp, every, cells))
+        cases.append((f"{tag}, n = max_out", sp, st, n_hit))
+        cases.append((f"{tag}, n > max_out", sp, st, n_hit // 2))
+    cases.append(("k2 state", k2_spec(), k2_state, 3072))
+    for k in (4096, 4097):     # windowless: exactly 4096 and 4097 cells
+        sp = k2_scalar_spec(k, window=False)
+        key, ts, valid, cols = k2_inputs(dev, 61)
+        key = torch.remainder(key * 5, k)
+        st = lattice.init_state(sp, dev)
+        lattice.scatter_step_ref(sp, st, -1, key, ts, valid, cols)
+        cases.append((f"{k} cells", sp, st, k))
+        cases.append((f"{k} cells, n > max_out", sp, st, 1000))
     for big in (2048, 6000):
         bspec = k2_spec(big)
         key, ts, valid, cols = k2_inputs(dev, 60 + big, big)
         bst = lattice.init_state(bspec, dev)
         lattice.scatter_step_ref(bspec, bst, 205_000, key, ts, valid, cols)
         lattice.topk_step_ref(bspec, bst, 205_000, key, ts, valid, cols)
-        cases.append((f"K*W = {big * W}", bspec, bst, big * W))
+        cases.append((f"K*W = {big * 3}", bspec, bst, big * 3))
         full = copy_state(bst)
         full["touched"].fill_(True)
-        cases.append((f"K*W = {big * W}, everything", bspec, full, big * W))
+        cases.append((f"K*W = {big * 3}, everything", bspec, full, big * 3))
+    # past 2^25 cells: a tile's look-back reads more than 32 rounds of
+    # status words (256 a round); a quarter of the flags set besides
+    huge = (1 << 25) + 4097
+    hspec = k2_scalar_spec(huge, window=False)
+    key, ts, valid, cols = k2_inputs(dev, 62, huge)
+    hst = lattice.init_state(hspec, dev)
+    lattice.scatter_step_ref(hspec, hst, -1, key, ts, valid, cols)
+    gen = torch.Generator(device=dev).manual_seed(63)
+    hst["touched"] |= torch.rand(hst["touched"].shape, generator=gen,
+                                 device=dev) < 0.25
+    n_huge = int(hst["touched"].sum())
+    cases.append((f"{huge} cells", hspec, hst, n_huge))
+    cases.append((f"{huge} cells, n > max_out", hspec, hst, n_huge // 3))
+    n_runs = 0
     for name, sp, s0, mo in cases:
-        a, b = copy_state(s0), copy_state(s0)
-        got = lattice.extract_touched(sp, a, mo)
-        want = lattice.extract_touched_ref(sp, b, mo)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), f"touched {name}: packed rows differ"
-        assert not bool(a["touched"].any()), f"touched {name}: not cleared"
-        for k in b:
-            assert torch.equal(a[k], b[k]), f"touched {name}: {k}"
+        modes = [kb.TOUCHED_STAGED]
+        if lattice.touched_plan(sp, mo) == kb.TOUCHED_ONE:
+            modes.append(kb.TOUCHED_ONE)
+        for mode in modes:
+            touched_vs_plain(sp, s0, mo, mode, f"{name} (mode {mode})")
+            n_runs += 1
     # timed at the changelog path's shapes: one headline batch touched
-    # one slot of every key
+    # one slot of every key; the single launch and the staged one
     cspec, progs, (key, ts, valid, cols), _ = chg
     cst = lattice.init_state(cspec, dev)
     lattice.step_decoded(cspec, cst, -1, key, ts, valid.clone(), dict(cols),
@@ -1687,29 +1798,39 @@ def check_touched(dev, results, k2_state, chg):
     mo = lattice.touched_max_out(cspec, BATCH)
     refill, refill_call, _ = kernel_ms(
         lambda: cst["touched"].copy_(saved), 50)
-    ms, call, src = kernel_ms(lambda: (cst["touched"].copy_(saved),
-                                       lattice.extract_touched(cspec, cst,
-                                                               mo)), 50)
-    ms, call = ms - refill, call - refill_call
+    by_mode = {}
+    for mode in (kb.TOUCHED_ONE, kb.TOUCHED_STAGED, kb.TOUCHED_ONE):
+        ms, call, src = kernel_ms(lambda: (
+            cst["touched"].copy_(saved),
+            lattice.extract_touched(cspec, cst, mo, mode=mode)), 50)
+        by_mode.setdefault(mode, []).append((ms - refill, call - refill_call,
+                                             src))
+    ms, call, src = by_mode[kb.TOUCHED_ONE][-1]
+    staged_ms = by_mode[kb.TOUCHED_STAGED][0][0]
     plain = kernel_ms(lambda: (cst["touched"].copy_(saved),
                                lattice.extract_touched_ref(cspec, cst, mo)),
                       10)[0] - refill
     lib = kernel_ms(lambda: torch.nonzero(saved), 50)[0]
     n = int(saved.sum())
-    rows = 3 + lattice.out_rows(cspec)
-    per_cell = 4 + 4 + 4 + 4 * cspec.qcfg.n_bins + 2 * TOPK_K * 4
-    b_ms, b_by = bound(2 * cspec.n_keys * cspec.n_slots + n * per_cell
-                       + rows * mo * 4, n * (cspec.qcfg.n_bins * 3 + 40))
+    cst["touched"].copy_(saved)
+    b_ms, b_by = touched_bound(cspec, cst, n, mo)
     results["touched_extract"] = dict(
         route="cuda",
         source="hstream_tpu_torch/engine/kernels/csrc/touched.cu",
         replaces="hstream_tpu/engine/lattice.py:693",
         max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib, call_ms=call, ms_source=src,
-        touched=n, max_out=mo)
-    log(f"touched_extract: {len(cases)} cases bit-exact (n=0, all, n = and "
-        f"> max_out, 2 and 5 blocks); {ms:.4f} ms for {n} cells (plain "
-        f"{plain:.4f}, library nonzero {lib:.4f}, bound {b_ms:.4f})")
+        ms_one_launch=[m for m, _, _ in by_mode[kb.TOUCHED_ONE]],
+        ms_staged=staged_ms, touched=n, max_out=mo,
+        skip_paths=[JOIN_TOUCHED])
+    log(f"touched_extract: {n_runs} runs over {len(cases)} cases bit-exact "
+        f"(both modes; every kind and scalars only; n = 0, all, n = and > "
+        f"max_out; 4096 and 4097 cells; 2 and 5 tiles; {huge} cells); "
+        f"changelog shape "
+        f"{ms:.4f} ms in one launch (again "
+        f"{by_mode[kb.TOUCHED_ONE][0][0]:.4f}), staged {staged_ms:.4f}, "
+        f"for {n} cells (plain {plain:.4f}, library nonzero {lib:.4f}, "
+        f"bound {b_ms:.4f})")
 
 
 def time_reset_close(dev, results, chg):
@@ -2708,24 +2829,29 @@ class _Capture:
 
 @contextlib.contextmanager
 def capturing(store: dict, armed: list, joins: bool = False):
-    """For the block's duration each session wrapper (each join wrapper,
-    with `joins`) is called through a _Capture hook; the wrappers are
-    restored on exit. The remap's and the eviction's first calls are
+    """For the block's duration each session wrapper (each join wrapper
+    and the touched extract, with `joins`) is called through a _Capture
+    hook; the wrappers are restored on exit. The remap's and the eviction's first calls are
     kept whenever they come; the step's and merge's fresh arena not."""
     from hstream_tpu_torch.engine import join_lattice as jl
     from hstream_tpu_torch.engine import session_lattice as sl
 
+    from hstream_tpu_torch.engine import lattice
+
     mod, names, always = ((jl, JOIN_KERNELS, "join_evict") if joins
                           else (sl, SESS_KERNELS, "session_remap"))
-    orig = {n: getattr(mod, n) for n in names}
-    for n, fn in orig.items():
+    hooks = [(mod, n) for n in names]
+    if joins:    # the inner lattice's touched extract (B6 at its shape)
+        hooks.append((lattice, "extract_touched"))
+    orig = {(m, n): getattr(m, n) for m, n in hooks}
+    for (m, n), fn in orig.items():
         drop = (2,) if n in ("session_step", "session_merge") else ()
-        setattr(mod, n, _Capture(n, fn, store, armed, always, drop))
+        setattr(m, n, _Capture(n, fn, store, armed, always, drop))
     try:
         yield
     finally:
-        for n, fn in orig.items():
-            setattr(mod, n, fn)
+        for (m, n), fn in orig.items():
+            setattr(m, n, fn)
 
 
 def session_run(src, n_batches, mode, captured=None):
@@ -3031,10 +3157,13 @@ JOIN_SENT = 1 << 22
 JOIN_WITHIN = 25
 
 
-def join_values(rng, n_cols: int, n: int) -> np.ndarray:
+def join_values(rng, n_cols: int, n: int,
+                subnormals: bool = False) -> np.ndarray:
     """int32 [n_cols, n] column planes of f32 bits: column 0 multiples of
     1/4 (a few NaN and inf), column 1 small integers, column 2 0.0 / 1.0,
-    so every float sum is exact in any order."""
+    so every float sum is exact in any order; with `subnormals`, a sixth
+    of each column subnormals of both signs (their sums are flushed to
+    zero, and exact too)."""
     out = np.zeros((n_cols, n), np.int32)
     for c in range(n_cols):
         if c % 3 == 0:
@@ -3045,12 +3174,16 @@ def join_values(rng, n_cols: int, n: int) -> np.ndarray:
             v = rng.integers(-50, 50, n).astype(np.float32)
         else:
             v = rng.integers(0, 2, n).astype(np.float32)
+        if subnormals:
+            v[::6] = rng.choice(np.array([1e-45, -1e-45, 1e-40, -3e-39],
+                                         np.float32), v[::6].shape[0])
         out[c] = v.view(np.int32)
     return out
 
 
 def join_store(dev, rng, cap: int, n_cols: int, n_live: int,
-               codes: int = 6) -> dict:
+               codes: int = 6, ts_range=(-60, 120),
+               subnormals: bool = False) -> dict:
     """A sorted store on the card: n_live entries over few codes and a
     narrow ts range (equal (code, ts) runs, negative relative times),
     then sentinel slots that keep random flags and columns, as evicted
@@ -3058,27 +3191,28 @@ def join_store(dev, rng, cap: int, n_cols: int, n_live: int,
     code = np.full(cap, JOIN_SENT, np.int32)
     ts = np.zeros(cap, np.int32)
     c = rng.integers(0, codes, n_live)
-    t = rng.integers(-60, 120, n_live)
+    t = rng.integers(*ts_range, n_live, dtype=np.int64)
     o = np.lexsort((t, c))
     code[:n_live], ts[:n_live] = c[o], t[o]
     flags = rng.integers(0, 1 << 28, cap).astype(np.int32)
     return {k: torch.from_numpy(v).to(dev) for k, v in (
         ("code", code), ("ts", ts), ("flags", flags),
-        ("cols", join_values(rng, n_cols, cap)))}
+        ("cols", join_values(rng, n_cols, cap, subnormals)))}
 
 
 def join_batch(dev, rng, bcap: int, n: int, n_cols: int, codes: int = 6,
-               n_keys: int = 8) -> torch.Tensor:
+               n_keys: int = 8, ts_range=(-60, 150),
+               subnormals: bool = False) -> torch.Tensor:
     """A batch sorted by (code, ts), padded with (sentinel, 0)."""
     buf = np.zeros((4 + n_cols, bcap), np.int32)
     c = rng.integers(0, codes, n)
-    t = rng.integers(-60, 150, n)
+    t = rng.integers(*ts_range, n, dtype=np.int64)
     o = np.lexsort((t, c))
     buf[0, :n], buf[1, :n] = c[o], t[o]
     buf[0, n:] = JOIN_SENT
     buf[2, :n] = rng.integers(0, n_keys, n)
     buf[3, :n] = rng.integers(0, 1 << 28, n)
-    buf[4:, :n] = join_values(rng, n_cols, n)
+    buf[4:, :n] = join_values(rng, n_cols, n, subnormals)
     return torch.from_numpy(buf).to(dev)
 
 
@@ -3093,51 +3227,107 @@ JOIN_CASES = [(64, 16, 10, 3, 3, 256, -(1 << 31)),
               (256, 64, 50, 3, 0, 512, 0),           # dead below cutoff
               (256, 64, 0, 0, 3, 64, -10),           # n = 0
               (1 << 16, 5000, 5000, 2, 1, 1 << 20, -30)]
+# the probe plan's branches (join_core.cuh): name -> (cap, live, bcap, n,
+# codes, ts range, within, cutoff, match_cap); "staged" keeps each tile's
+# store window in shared memory, "skew" (one key's run of ~30,000
+# entries) overflows it, "wraps" has ts - within and ts + within wrap
+# int32 (the whole-store branch), "split" records whose ~8,000 matches
+# each span several expansion tiles, "large" a batch over 2^20 records
+# (12,288 tiles: the count scan's look-back reads 96 rounds of 128),
+# "edge" 469 tiles, whose 6144-entry windows fill 48 KB on the H100's
+# 132 SMs (with the kernel's static words, past the default limit)
+JOIN_PLAN_CASES = {
+    "staged": (1 << 18, 200_000, 1 << 16, 60_000, 20_000, (-500, 500), 25,
+               -(1 << 31), 1 << 20),
+    "skew": (1 << 16, 60_000, 1024, 1000, 2, (0, 100_000), 2000, -50,
+             1 << 21),
+    "wraps": (1 << 14, 12_000, 2048, 2000, 50,
+              (-(1 << 31), (1 << 31) - 1), 1 << 30, -(1 << 31), 1 << 20),
+    "split": (1 << 14, 16_000, 128, 100, 1, (0, 1000), 500, -(1 << 31),
+              1 << 20),
+    "large": (1 << 22, 2_000_000, 3 << 20, 3_000_000, 20_000, (0, 5000),
+              25, -(1 << 31), 1 << 23),
+    "edge": (1 << 18, 200_000, 120_000, 120_000, 20_000, (-500, 500), 25,
+             -(1 << 31), 1 << 21),
+}
+PROBE_BRANCH_NAMES = ("auto", "window", "whole")
+
+
+def join_plan_case(dev, name: str, seed: int):
+    cap, live, bcap, n, codes, tsr, within, cutoff, mc = \
+        JOIN_PLAN_CASES[name]
+    rng = np.random.default_rng(seed)
+    other = join_store(dev, rng, cap, 1, live, codes, tsr)
+    mine = join_store(dev, rng, cap, 2, live // 2, codes, tsr)
+    bt = join_batch(dev, rng, bcap, n, 2, codes, ts_range=tsr)
+    return mine, other, bt, n, within, cutoff, mc
 
 
 def check_join_probe(dev, results):
     """B15 (probe in pack mode + merge-insert) and B16 (probe only, at a
-    match_cap below the total and then above it), exact."""
+    match_cap below the total and then above it), exact, in each probe
+    branch forced (kb.PROBE_*); then the plan's hard cases (a staged
+    window, a skewed key, int32 wrap, a record over several tiles, a
+    batch over 2^20 records, a window of 48 KB)."""
     from hstream_tpu_torch.engine import join_lattice as jl
 
+    cases = []
     for i, (cap, bcap, n, nm, no, mc, cutoff) in enumerate(JOIN_CASES):
         rng = np.random.default_rng(100 + i)
         mine = join_store(dev, rng, cap, nm, cap // 3)
         other = join_store(dev, rng, cap, no, cap // 2)
         bt = join_batch(dev, rng, bcap, n, nm)
+        cases.append((f"case {i}", mine, other, bt, n, JOIN_WITHIN, cutoff,
+                      mc))
+    for j, name in enumerate(JOIN_PLAN_CASES):
+        cases.append((name, *join_plan_case(dev, name, 150 + j)))
+    totals = {}
+    for what, mine, other, bt, n, within, cutoff, mc in cases:
+        nm = mine["cols"].shape[0]
+        cap = mine["code"].shape[0]
         want_m, want_p = jl.join_probe_insert_ref(mine, other, bt, n,
-                                                  JOIN_WITHIN, cutoff, mc, nm)
-        before = jl.join_probe_insert.launches
-        got_m, got_p = jl.join_probe_insert(
-            mine, other, bt, n, JOIN_WITHIN, cutoff, mc, nm,
-            out=jl.empty_join_store(cap, nm, dev))
-        torch.cuda.synchronize()
-        assert jl.join_probe_insert.launches == before + 1
-        assert torch.equal(want_p, got_p), f"join probe differs, case {i}"
-        assert stores_equal(want_m, got_m), f"join insert differs, case {i}"
-        assert jl.store_sorted(got_m)
+                                                  within, cutoff, mc, nm)
         total = int(want_p[0, 0])
-        for width in (max(total // 2, 1), max(total, 1) * 2):
-            want = jl.join_probe_ref(other, bt, n, JOIN_WITHIN, cutoff,
-                                     width, nm)
-            got = jl.join_probe_only(other, bt, n, JOIN_WITHIN, cutoff,
-                                     width, nm)
+        totals[what] = total
+        for branch, bname in enumerate(PROBE_BRANCH_NAMES):
+            before = jl.join_probe_insert.launches
+            got_m, got_p = jl.join_probe_insert(
+                mine, other, bt, n, within, cutoff, mc, nm,
+                out=jl.empty_join_store(cap, nm, dev), branch=branch)
             torch.cuda.synchronize()
-            assert torch.equal(want, got), f"join probe-only differs, {i}"
-            assert int(got[0, 0]) == total
+            assert jl.join_probe_insert.launches == before + 1
+            assert torch.equal(want_p, got_p), \
+                f"join probe differs, {what} ({bname})"
+            assert stores_equal(want_m, got_m), \
+                f"join insert differs, {what} ({bname})"
+            assert jl.store_sorted(got_m)
+            for width in (max(total // 2, 1), max(total, 1) * 2):
+                want = jl.join_probe_ref(other, bt, n, within, cutoff,
+                                         width, nm)
+                got = jl.join_probe_only(other, bt, n, within, cutoff,
+                                         width, nm, branch=branch)
+                torch.cuda.synchronize()
+                assert torch.equal(want, got), \
+                    f"join probe-only differs, {what} ({bname})"
+                assert int(got[0, 0]) == total
     src = "hstream_tpu_torch/engine/kernels/csrc/"
     results["join_probe_insert"] = dict(
         route="cuda", source=src + "join_probe.cu",
         sources=[src + "join_core.cuh", src + "join_probe.cu",
                  src + "join_insert.cu"],
-        replaces="hstream_tpu/engine/lattice.py:984", max_abs_err=0.0)
+        replaces="hstream_tpu/engine/lattice.py:984", max_abs_err=0.0,
+        branch_case_totals=totals)
     results["join_probe_only"] = dict(
         route="cuda", source=src + "join_probe.cu",
         replaces="hstream_tpu/engine/lattice.py:1001", max_abs_err=0.0)
-    log("join_probe_insert / join_probe_only: equal (code, ts) runs across "
+    log(f"join_probe_insert / join_probe_only, each probe branch forced "
+        f"({', '.join(PROBE_BRANCH_NAMES)}): equal (code, ts) runs across "
         "store and batch, sentinels that kept flags and columns, dead "
         "entries below the cutoff, negative times, n = 0, a match_cap "
-        "below the total (true total in the header) and above it: exact")
+        "below the total (true total in the header) and above it, a "
+        "staged window, a skewed key, int32 wrap, a record over several "
+        f"tiles, 3 x 2^20 records, a 48 KB window (totals "
+        f"{json.dumps(totals)}): exact")
 
 
 def join_inner(dev, where: bool):
@@ -3184,7 +3374,7 @@ def join_feed(name: str, ex, where: bool):
     return feed, nulls, ((src["a"],) if where else ())
 
 
-def step_vs_plain_join(args: tuple, what: str) -> int:
+def step_vs_plain_join(args: tuple, what: str, branch=None) -> int:
     """One fused join call (join_probe_insert_step's positional `args`)
     with the kernels and with the plain version, each on its own clone of
     the inner state (args[9]) and into its own store: the store, the
@@ -3199,7 +3389,7 @@ def step_vs_plain_join(args: tuple, what: str) -> int:
         st = {k: v.clone() for k, v in state.items()}
         kw = ({"out": jl.empty_join_store(mine["code"].shape[0],
                                           mine["cols"].shape[0],
-                                          batch.device)}
+                                          batch.device), "branch": branch}
               if fn is jl.join_probe_insert_step else {})
         new, total = fn(*args[:9], st, *args[10:], **kw)
         runs.append((new, int(total), st))
@@ -3226,16 +3416,23 @@ def check_join_step(dev, results):
     for i, (cap, bcap, n, mc, cutoff) in enumerate(cases):
         for feed_name in JOIN_FEEDS:
             for where in (False, True):
+                # subnormal columns in case 3 (flushed where the
+                # reference flushes them: the WHERE, SUM, MIN, MAX)
                 rng = np.random.default_rng(200 + i * 4 + where)
+                sub = i == 3
                 ex = join_inner(dev, where)
-                args = (join_store(dev, rng, cap, 3, cap // 3),
-                        join_store(dev, rng, cap, 3, cap // 2),
-                        join_batch(dev, rng, bcap, n, 3), n, JOIN_WITHIN,
-                        cutoff, mc, 3, ex.spec, ex.state, 120, 300,
-                        ex._progs, join_feed(feed_name, ex, where))
-                step_vs_plain_join(args, f"join_probe_step case {i} "
-                                   f"{feed_name} where={where}")
-                n_checked += 1
+                args = (join_store(dev, rng, cap, 3, cap // 3,
+                                   subnormals=sub),
+                        join_store(dev, rng, cap, 3, cap // 2,
+                                   subnormals=sub),
+                        join_batch(dev, rng, bcap, n, 3, subnormals=sub), n,
+                        JOIN_WITHIN, cutoff, mc, 3, ex.spec, ex.state, 120,
+                        300, ex._progs, join_feed(feed_name, ex, where))
+                for branch in (range(3) if where else (None,)):
+                    step_vs_plain_join(
+                        args, f"join_probe_step case {i} {feed_name} "
+                        f"where={where} branch={branch}", branch)
+                    n_checked += 1
     results["join_probe_step"] = dict(
         route="cuda",
         source="hstream_tpu_torch/engine/kernels/csrc/join_probe.cu",
@@ -3244,8 +3441,9 @@ def check_join_step(dev, results):
         replaces="hstream_tpu/engine/lattice.py:1082", max_abs_err=0.0)
     log(f"join_probe_step: {n_checked} fused calls (feed sources m, o, both, "
         "both_o; null and present bits on both sides; filter-NULL and "
-        "WHERE; truncating match_cap; n = 0) against the plain version: "
-        "store and every state plane exact")
+        "WHERE; truncating match_cap; n = 0; subnormal columns; each probe "
+        "branch forced) against the plain version: store and every state "
+        "plane exact")
 
 
 def check_join_evict(dev, results):
@@ -3534,13 +3732,16 @@ def _join_executor(plan, batch: int, dev):
 
 
 # device events of the join path, by stage
-_JOIN_EVENTS = {"bounds_kernel": "probe", "scan_tiles_kernel": "probe",
-                "ccnt_kernel": "probe", "feed_kernel": "probe",
-                "pack_kernel": "probe", "merge_kernel": "insert",
-                "count_kernel": "evict", "move_kernel": "evict",
+_JOIN_EVENTS = {"probe_window_kernel": "probe",
+                "probe_bounds_kernel": "probe",
+                "probe_expand_kernel": "probe", "split_kernel": "insert",
+                "merge_kernel": "insert",
+                "count_kernel": "evict", "scan_tiles_kernel": "evict",
+                "move_kernel": "evict",
                 "scatter_private": "scatter", "scatter_cluster": "scatter",
                 "scatter_global": "scatter", "expr_kernel": "expression",
                 "touched_": "touched_extract", "close_kernel": "close",
+                "Memset": "memset",
                 "Memcpy HtoD": "h2d_copy", "Memcpy DtoH": "d2h_copy"}
 
 
@@ -3740,9 +3941,46 @@ def time_join_kernels(dev, results, captured):
     a PyTorch yardstick."""
     from hstream_tpu_torch.engine import join_lattice as jl
 
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine.kernels import binding as kb
+
     missing = [k for k in ("join_probe_insert_step", "join_evict",
-                           "join_probe_insert") if k not in captured]
+                           "join_probe_insert", "extract_touched")
+               if k not in captured]
     assert not missing, f"the join paths made no call of {missing}"
+
+    # B6 at the join's shape: the inner lattice's extract of phase 8's
+    # last timed batch, on the state it found
+    tspec, tstate, tmo = captured["extract_touched"]
+    assert lattice.touched_plan(tspec, tmo) == kb.TOUCHED_STAGED
+    touched_vs_plain(tspec, tstate, tmo, None, "at the join's shape")
+    saved = tstate["touched"].clone()
+    work = copy_state(tstate)
+    refill, refill_call, _ = kernel_ms(
+        lambda: work["touched"].copy_(saved), 20)
+    ms, call, srcm = kernel_ms(lambda: (
+        work["touched"].copy_(saved),
+        lattice.extract_touched(tspec, work, tmo)), 20)
+    ms, call = ms - refill, call - refill_call
+    plain = kernel_ms(lambda: (
+        work["touched"].copy_(saved),
+        lattice.extract_touched_ref(tspec, work, tmo)), 3)[0] - refill
+    lib = kernel_ms(lambda: torch.nonzero(saved), 20)[0]
+    n = int(saved.sum())
+    b_ms, b_by = touched_bound(tspec, tstate, n, tmo)
+    results["touched_extract_join"] = dict(
+        route="cuda",
+        source="hstream_tpu_torch/engine/kernels/csrc/touched.cu",
+        replaces="hstream_tpu/engine/lattice.py:693", max_abs_err=0.0,
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        call_ms=call, ms_source=srcm, touched=n, max_out=tmo,
+        cells=tspec.n_keys * tspec.n_slots, counter="touched_extract",
+        paths=[JOIN_TOUCHED])
+    log(f"touched_extract at the join's shape (K = {tspec.n_keys}, W = "
+        f"{tspec.n_slots}, {n} touched, max_out {tmo}): exact against "
+        f"plain; {ms:.4f} ms (plain {plain:.4f}, library nonzero "
+        f"{lib:.4f}, bound {b_ms:.4f} by {b_by})")
+    del work, saved
 
     # B17: the fused call of phase 8
     args = captured["join_probe_insert_step"]
@@ -3771,15 +4009,27 @@ def time_join_kernels(dev, results, captured):
         int(batch.nbytes) + 2 * state_bytes
     ops = 2 * n * np.log2(cap) + total * (np.log2(batch.shape[1]) + 1)
     b_ms, b_by = bound(nbytes, ops)
+    # each redesigned kernel's own bound, bytes once: the insert reads
+    # and writes `mine` and reads the batch; the probe reads the batch
+    # and writes the feed columns over match_cap (the store windows it
+    # searches are keys it reads within that budget)
+    feed_plan, nulls_plan, _ = feed
+    feed_bytes = match_cap * (4 + 4 + 1 + len(nulls_plan) + sum(
+        1 if f[1] == "bool" else 4 for f in feed_plan))
+    stage_bounds = {
+        "insert": bound(2 * _store_bytes(mine) + int(batch.nbytes), 0)[0],
+        "probe": bound(int(batch.nbytes) + feed_bytes, 0)[0]}
     results["join_probe_step"].update(
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         call_ms=call, ms_source=srcm, cap=cap, n=n, matches=total,
-        match_cap=match_cap, stages_ms=stages)
+        match_cap=match_cap, stages_ms=stages,
+        stage_bounds_ms=stage_bounds)
     log(f"join_probe_step at the path's shapes (store cap {cap}, {n} "
         f"records, {total} matches, match_cap {match_cap}): kernel and "
         f"plain agree; {ms:.4f} ms (plain {plain:.4f}, torch.searchsorted "
         f"of the {2 * n} bounds {lib:.4f}, bound {b_ms:.4f} by {b_by}; by "
-        f"stage {json.dumps(stages)})")
+        f"stage {json.dumps(stages)}, stage bounds "
+        f"{json.dumps(stage_bounds)})")
     del out, st
 
     # B18: phase 8's first eviction
@@ -5031,7 +5281,12 @@ def main() -> int:
 
     kernels = []
     for name, r in results.items():
-        launches = sum(p["launches"][name] for p in paths)
+        # a result may count another wrapper's launches (its "counter"),
+        # on some paths only ("paths"), or on all but some ("skip_paths")
+        counter = r.get("counter", name)
+        launches = sum(p["launches"][counter] for p in paths
+                       if p["config"] in r.get("paths", (p["config"],))
+                       and p["config"] not in r.get("skip_paths", ()))
         kernels.append({"name": name, "route": r["route"],
                         "source": r["source"], "replaces": r["replaces"],
                         "launches": launches,

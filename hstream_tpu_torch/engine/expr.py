@@ -315,6 +315,22 @@ def compile_device(expr: Expr, schema: Schema) -> DeviceProgram:
 # ---- the plain version of the expression kernel -----------------------------
 
 _M32 = 0xFFFFFFFF
+_FLT_MIN = 2.0 ** -126  # the smallest normal float32
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """float32 subnormals flushed to a zero of their sign, as XLA's CPU
+    backend (and a TPU) flushes the operands and results of float
+    arithmetic, comparisons, min/max and the unaries; other dtypes pass
+    through. The kernels flush the same values (built with --ftz=true;
+    explicitly where a float's bits are read)."""
+    if x.dtype != torch.float32:
+        return x
+    return torch.where(x.abs() < _FLT_MIN, x * 0.0, x)
+
+
+def is_subnormal(x: torch.Tensor) -> torch.Tensor:
+    return (x != 0) & (x.abs() < _FLT_MIN)
 
 
 def _wrap(x: torch.Tensor) -> torch.Tensor:
@@ -339,16 +355,29 @@ def _int_op(code: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _float_op(code: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A float binary op with XLA's CPU subnormal flush: operands and
+    result flushed, but for jnp.remainder's (OP_MOD_F) select, which
+    passes a subnormal remainder (or a dividend smaller than the divisor)
+    through unflushed."""
+    fa, fb = ftz(a), ftz(b)
     if code == OP_ADD_F:
-        return a + b
+        return ftz(fa + fb)
     if code == OP_SUB_F:
-        return a - b
+        return ftz(fa - fb)
     if code == OP_MUL_F:
-        return a * b
+        return ftz(fa * fb)
     if code == OP_DIV_F:
-        return a / b
-    r = torch.fmod(a, b)  # OP_MOD_F, as jnp.remainder
-    return torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
+        return ftz(fa / fb)
+    # OP_MOD_F, as jnp.remainder: XLA's rem on flushed operands, exact
+    # and unflushed (taken in float64, where fmod is exact; a dividend
+    # smaller than the divisor comes back as it is; a NaN as the quiet
+    # NaN, the kernel's too), then the floored correction on flushed
+    # values
+    rem = torch.fmod(fa.double(), fb.double()).float()
+    rem = torch.where(torch.isnan(rem), float("nan"), rem)  # one NaN
+    r = torch.where(fa.abs() < fb.abs(), a, rem)
+    fr = ftz(r)
+    return torch.where((fr != 0) & ((fr < 0) != (fb < 0)), ftz(fr + fb), r)
 
 
 _CMP_FN = {OP_EQ_I: torch.eq, OP_NE_I: torch.ne, OP_LT_I: torch.lt,
@@ -366,16 +395,26 @@ _UNARY_FN = {
     OP_LOG10_F: torch.log10, OP_EXP_F: torch.exp}
 
 
+# XLA's SIN, TAN, ATAN and TANH return a tiny operand as it is, so a
+# subnormal one passes through them unflushed
+_TINY_IDENTITY = frozenset({OP_SIN_F, OP_TAN_F, OP_ATAN_F, OP_TANH_F})
+
+
 def _unary_plain(code: int, x: torch.Tensor) -> torch.Tensor:
+    if code == OP_SIGN_I:
+        return (x > 0).int() - (x < 0).int()
+    fx = ftz(x)
     if code == OP_SQRT_F:
         # in float64, rounded once: correctly rounded, as XLA's and
         # the kernel's sqrt are (PyTorch's vectorized CPU sqrt is not)
-        return x.double().sqrt().float()
-    if code == OP_SIGN_I:
-        return (x > 0).int() - (x < 0).int()
+        return fx.double().sqrt().float()
     if code == OP_SIGN_F:  # jnp.sign: -0.0 stays -0.0, NaN stays NaN
-        return torch.where(x > 0, 1.0, torch.where(x < 0, -1.0, x))
-    return _UNARY_FN[code](x)
+        return torch.where(fx > 0, 1.0, torch.where(fx < 0, -1.0, fx))
+    r = ftz(_UNARY_FN[code](fx))
+    if code == OP_ASIN_F:  # XLA's asin halves x first: flushed below 2^-125
+        return torch.where(fx.abs() < 2 * _FLT_MIN, fx * 0.0, r)
+    return torch.where(is_subnormal(x), x, r) \
+        if code in _TINY_IDENTITY else r
 
 
 def _run_plain(prog: DeviceProgram, cols: Mapping[str, torch.Tensor]
@@ -426,7 +465,7 @@ def _run_plain(prog: DeviceProgram, cols: Mapping[str, torch.Tensor]
         elif code in _CMP_FN:
             st.append(_CMP_FN[code](a, b))
         elif OP_EQ_F <= code <= OP_GE_F:
-            st.append(_CMP_FN[code - (OP_EQ_F - OP_EQ_I)](a, b))
+            st.append(_CMP_FN[code - (OP_EQ_F - OP_EQ_I)](ftz(a), ftz(b)))
         elif code in (OP_ADD_F, OP_SUB_F, OP_MUL_F, OP_DIV_F, OP_MOD_F):
             st.append(_float_op(code, a, b))
         else:

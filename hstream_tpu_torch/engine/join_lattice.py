@@ -32,9 +32,13 @@ and session_lattice.session_remap with `sent_above` for the code remap.
 The plain versions follow the reference's operations: one stable sort
 of a composite key where it sorts (_join_bounds, _join_insert,
 join_evict). The kernels rely on the store and the batch being sorted
-and sort nothing: two binary searches per record, a merge, a stable
-compaction. `insert_merge_ref` and `evict_compact_ref` restate those
-two in plain PyTorch so the tests can hold them against the sorts.
+and sort nothing: the probe searches a store window per tile of sorted
+records and expands the matches by a load-balancing search, the insert
+is a merge path, the eviction a stable compaction (join_core.cuh,
+join_insert.cu; `branch` forces the probe's store search). The tests
+hold numpy models of those plans, and `insert_merge_ref` and
+`evict_compact_ref` (the merge and the compaction in plain PyTorch),
+against the sorts.
 
 Where the reference builds new stores functionally, the card's wrappers
 write into an `out` store the caller passes (the executor ping-pongs
@@ -437,9 +441,13 @@ def _i32(v: int, what: str) -> int:
     return v
 
 
+PROBE_BRANCHES = (kb.PROBE_AUTO, kb.PROBE_WINDOW, kb.PROBE_WHOLE)
+
+
 def _probe_args(other: Store, batch: torch.Tensor, n: int, within: int,
                 cutoff: int, match_cap: int, n_cols_mine: int,
-                mode: int) -> tuple[kb.JoinProbeArgs, torch.Tensor]:
+                mode: int, branch: int | None
+                ) -> tuple[kb.JoinProbeArgs, torch.Tensor]:
     cap = _check_store(other, "join probe")
     bcap = _check_batch(batch, n_cols_mine, n)
     if other["code"].device != batch.device:
@@ -450,22 +458,26 @@ def _probe_args(other: Store, batch: torch.Tensor, n: int, within: int,
     a.cap, a.bcap, a.n = cap, bcap, int(n)
     a.within, a.cutoff = _i32(within, "within"), _i32(cutoff, "cutoff")
     a.match_cap, a.mode = int(match_cap), mode
+    a.branch = kb.PROBE_AUTO if branch is None else branch
+    if a.branch not in PROBE_BRANCHES:
+        raise ValueError(f"join probe: unknown branch {branch}")
     a.n_cols_mine, a.n_cols_other = n_cols_mine, other["cols"].shape[0]
     a.batch = batch.data_ptr()
     a.o_code, a.o_ts, a.o_flags = (kb.ptr(other[k])
                                    for k in ("code", "ts", "flags"))
     a.o_cols = other["cols"].data_ptr()
-    scratch = torch.empty(kb.lib().hs_join_probe_scratch_bytes(bcap),
-                          dtype=torch.uint8, device=batch.device)
+    scratch = torch.empty(
+        kb.lib().hs_join_probe_scratch_bytes(bcap, int(match_cap)),
+        dtype=torch.uint8, device=batch.device)
     a.scratch = scratch.data_ptr()
     return a, scratch
 
 
 def _probe_pack_cuda(other: Store, batch: torch.Tensor, n: int, within: int,
-                     cutoff: int, match_cap: int,
-                     n_cols_mine: int) -> torch.Tensor:
+                     cutoff: int, match_cap: int, n_cols_mine: int,
+                     branch: int | None) -> torch.Tensor:
     a, _scratch = _probe_args(other, batch, n, within, cutoff, match_cap,
-                              n_cols_mine, kb.JOIN_PACK)
+                              n_cols_mine, kb.JOIN_PACK, branch)
     packed = torch.empty((5 + n_cols_mine + other["cols"].shape[0],
                           match_cap), dtype=torch.int32, device=batch.device)
     a.packed = packed.data_ptr()
@@ -492,6 +504,9 @@ def _insert_cuda(mine: Store, batch: torch.Tensor, n: int, n_cols: int,
     a.out_code, a.out_ts, a.out_flags = (kb.ptr(out[k])
                                          for k in ("code", "ts", "flags"))
     a.out_cols = out["cols"].data_ptr()
+    scratch = torch.empty(kb.lib().hs_join_insert_scratch_bytes(cap),
+                          dtype=torch.uint8, device=batch.device)
+    a.scratch = scratch.data_ptr()
     kb.check(kb.lib().hs_join_insert(ctypes.byref(a), kb.stream_of(batch)),
              "join_insert")
     return out
@@ -499,19 +514,20 @@ def _insert_cuda(mine: Store, batch: torch.Tensor, n: int, n_cols: int,
 
 def join_probe_insert(mine: Store, other: Store, batch: torch.Tensor, n: int,
                       within: int, cutoff: int, match_cap: int,
-                      n_cols_mine: int, out: Store | None = None):
+                      n_cols_mine: int, out: Store | None = None,
+                      branch: int | None = None):
     """The match-fetch path's batch (join_probe_insert, lattice.py:984-
     998): probe `other`, insert into `mine`. Returns (mine', packed
-    match buffer). On the card: the probe kernel in pack mode, then the
-    merge-insert kernel writing `out` (mine' is `out`); on the CPU the
-    plain version."""
+    match buffer). On the card: the probe kernels in pack mode (`branch`
+    forces their store search: kb.PROBE_*), then the merge-insert kernel
+    writing `out` (mine' is `out`); on the CPU the plain version."""
     if batch.device.type == "cpu":
         return join_probe_insert_ref(mine, other, batch, n, within, cutoff,
                                      match_cap, n_cols_mine)
     if out is None:
         raise ValueError("join_probe_insert: the card needs an out store")
     packed = _probe_pack_cuda(other, batch, n, within, cutoff, match_cap,
-                              n_cols_mine)
+                              n_cols_mine, branch)
     new = _insert_cuda(mine, batch, n, n_cols_mine, out)
     join_probe_insert.launches += 1
     return new, packed
@@ -521,8 +537,8 @@ join_probe_insert.launches = 0  # wrapper calls that launched the kernels
 
 
 def join_probe_only(other: Store, batch: torch.Tensor, n: int, within: int,
-                    cutoff: int, match_cap: int,
-                    n_cols_mine: int) -> torch.Tensor:
+                    cutoff: int, match_cap: int, n_cols_mine: int,
+                    branch: int | None = None) -> torch.Tensor:
     """The overflow redo (join_probe_only, lattice.py:1001-1013): the
     packed match buffer without an insert. The probe kernel in pack mode
     on the card, join_probe_ref on the CPU."""
@@ -530,7 +546,7 @@ def join_probe_only(other: Store, batch: torch.Tensor, n: int, within: int,
         return join_probe_ref(other, batch, n, within, cutoff, match_cap,
                               n_cols_mine)
     packed = _probe_pack_cuda(other, batch, n, within, cutoff, match_cap,
-                              n_cols_mine)
+                              n_cols_mine, branch)
     join_probe_only.launches += 1
     return packed
 
@@ -550,12 +566,12 @@ def _ref_args(r, what: str) -> tuple[int, int, int]:
 
 def _feed_cuda(other: Store, batch: torch.Tensor, n: int, within: int,
                cutoff: int, match_cap: int, n_cols_mine: int, ts_off: int,
-               feed) -> tuple:
+               feed, branch: int | None) -> tuple:
     """The probe kernel in feed mode: (kid, ts, valid, cols) of width
     match_cap on the card, cols holding the feed columns and masks."""
     feed_plan, nulls_plan, filter_nulls = feed
     a, scratch = _probe_args(other, batch, n, within, cutoff, match_cap,
-                             n_cols_mine, kb.JOIN_FEED)
+                             n_cols_mine, kb.JOIN_FEED, branch)
     dev = batch.device
     kid = torch.empty(match_cap, dtype=torch.int32, device=dev)
     ts = torch.empty(match_cap, dtype=torch.int32, device=dev)
@@ -599,7 +615,8 @@ def join_probe_insert_step(mine: Store, other: Store, batch: torch.Tensor,
                            n: int, within: int, cutoff: int, match_cap: int,
                            n_cols_mine: int, spec, inner_state, wm_rel: int,
                            ts_off: int, progs, feed,
-                           out: Store | None = None):
+                           out: Store | None = None,
+                           branch: int | None = None):
     """The fused batch (join_probe_insert_step, lattice.py:1082-1128):
     probe `other`, step every match into the window state `inner_state`
     (in place) and insert the batch into `mine`, with nothing fetched.
@@ -608,7 +625,8 @@ def join_probe_insert_step(mine: Store, other: Store, batch: torch.Tensor,
     filter_nulls). Returns (mine', total): on the card the probe kernel
     in feed mode, the window step's kernels (lattice.step_decoded) on
     its columns and the merge-insert kernel into `out`, one stream, total
-    a device scalar; on the CPU the plain version."""
+    a device scalar; on the CPU the plain version. `branch` forces the
+    probe's store search (kb.PROBE_*)."""
     if batch.device.type == "cpu":
         return join_probe_insert_step_ref(
             mine, other, batch, n, within, cutoff, match_cap, n_cols_mine,
@@ -618,7 +636,7 @@ def join_probe_insert_step(mine: Store, other: Store, batch: torch.Tensor,
                          "store")
     total, kid, ts, valid, cols = _feed_cuda(
         other, batch, n, within, cutoff, match_cap, n_cols_mine, ts_off,
-        feed)
+        feed, branch)
     lattice.step_decoded(spec, inner_state, int(wm_rel), kid, ts, valid,
                          cols, progs)
     new = _insert_cuda(mine, batch, n, n_cols_mine, out)

@@ -116,13 +116,20 @@ class UnpackArgs(C.Structure):
                 ("null_out", C.c_void_p * MAX_AGGS)]
 
 
+TOUCHED_STAGED, TOUCHED_ONE = range(2)  # touched extract modes
+TOUCHED_ONE_CELLS = 4096
+TOUCHED_ONE_ROWS = 512
+
+
 class TouchedArgs(C.Structure):
     _fields_ = [("n_keys", C.c_int32), ("n_slots", C.c_int32),
                 ("max_out", C.c_int32), ("out_rows", C.c_int32),
+                ("mode", C.c_int32), ("has_sketch", C.c_int32),
                 ("count", C.c_void_p), ("slot_start", C.c_void_p),
                 ("touched", C.c_void_p), ("out", C.c_void_p),
-                ("block_counts", C.c_void_p), ("cells", C.c_void_p),
-                ("f", Finalize)]
+                ("scratch", C.c_void_p), ("cells", C.c_void_p),
+                ("fill", C.c_void_p), ("ticket", C.c_void_p),
+                ("status", C.c_void_p), ("f", Finalize)]
 
 
 SESSION_SENT = 1 << 22
@@ -163,6 +170,7 @@ JOIN_MAX_FEED = 16
 JOIN_MAX_NULLS = 16
 JOIN_MAX_REFS = 64
 JOIN_PACK, JOIN_FEED = range(2)                      # probe modes
+PROBE_AUTO, PROBE_WINDOW, PROBE_WHOLE = range(3)     # probe branches
 JOIN_SRC = {"m": 0, "o": 1, "both": 2, "both_o": 3}  # feed sources
 JOIN_TAG = {"f32": 0, "i32": 1, "bool": 2}           # feed column types
 
@@ -184,6 +192,7 @@ class JoinProbeArgs(C.Structure):
     _fields_ = [("cap", C.c_int32), ("bcap", C.c_int32), ("n", C.c_int32),
                 ("within", C.c_int32), ("cutoff", C.c_int32),
                 ("match_cap", C.c_int32), ("mode", C.c_int32),
+                ("branch", C.c_int32),
                 ("n_cols_mine", C.c_int32), ("n_cols_other", C.c_int32),
                 ("batch", C.c_void_p), ("o_code", C.c_void_p),
                 ("o_ts", C.c_void_p), ("o_flags", C.c_void_p),
@@ -203,7 +212,8 @@ class JoinInsertArgs(C.Structure):
                 ("ts", C.c_void_p), ("flags", C.c_void_p),
                 ("cols", C.c_void_p), ("batch", C.c_void_p),
                 ("out_code", C.c_void_p), ("out_ts", C.c_void_p),
-                ("out_flags", C.c_void_p), ("out_cols", C.c_void_p)]
+                ("out_flags", C.c_void_p), ("out_cols", C.c_void_p),
+                ("scratch", C.c_void_p)]
 
 
 class JoinEvictSide(C.Structure):
@@ -258,12 +268,14 @@ def lib() -> C.CDLL:
             dll.hs_session_remap.restype = C.c_int
             dll.hs_session_scratch_bytes.argtypes = [C.c_int32, C.c_int32]
             dll.hs_session_scratch_bytes.restype = C.c_int64
-            for fn in ("hs_join_probe_scratch_bytes",
+            dll.hs_join_probe_scratch_bytes.argtypes = [C.c_int32] * 2
+            dll.hs_join_probe_scratch_bytes.restype = C.c_int64
+            for fn in ("hs_join_insert_scratch_bytes",
                        "hs_join_evict_scratch_bytes"):
                 getattr(dll, fn).argtypes = [C.c_int32]
                 getattr(dll, fn).restype = C.c_int64
-            dll.hs_touched_blocks.argtypes = [C.c_int32]
-            dll.hs_touched_blocks.restype = C.c_int
+            dll.hs_touched_scratch_bytes.argtypes = [C.c_int32] * 3
+            dll.hs_touched_scratch_bytes.restype = C.c_int64
             dll.hs_error_string.argtypes = [C.c_int]
             dll.hs_error_string.restype = C.c_char_p
             _lib = dll

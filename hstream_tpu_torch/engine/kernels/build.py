@@ -29,13 +29,17 @@ SOURCES = ("decode.cu", "unpack.cu", "expr.cu", "scatter.cu", "topk.cu",
            "close.cu", "touched.cu", "rebase.cu", "session_step.cu",
            "session_merge.cu", "session_extract.cu", "session_remap.cu",
            "join_probe.cu", "join_insert.cu", "join_evict.cu")
-HEADERS = ("hs_kernels.h", "record.cuh", "finalize.cuh",
-           "session_chain.cuh", "join_core.cuh")
+HEADERS = ("hs_kernels.h", "record.cuh", "finalize.cuh", "lookback.cuh",
+           "device.cuh", "session_chain.cuh", "join_core.cuh")
 # sm_90a: Hopper. --fmad=false: no multiply-add contraction anywhere, so
 # the dec decode and the finalize arithmetic round exactly like the
-# plain PyTorch versions.
+# plain PyTorch versions. --ftz=true: float32 subnormal operands and
+# results flush to a zero of their sign, as XLA's CPU backend and a TPU
+# flush them in the reference (the kernels flush explicitly where a
+# float's bits reach an integer path; csrc/record.cuh).
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "--fmad=false", "--ftz=true", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _lock = threading.Lock()
 
@@ -90,9 +94,11 @@ def build() -> Built:
             logs.append(f"== {src}\n{out}")
             if proc.returncode != 0:
                 failed.append(src)
-        if failed:
+        if failed:  # the failed sources' output, each cut to its end
             raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n"
-                               + "\n".join(logs)[-8000:])
+                               + "\n".join(log[-4000:] for src, log
+                                           in zip(SOURCES, logs)
+                                           if src in failed))
         tmp = lib + ".tmp"
         link = subprocess.run([nvcc, "-shared", *objs, "-o", tmp],
                               capture_output=True, text=True)

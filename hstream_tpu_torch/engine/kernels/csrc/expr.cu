@@ -32,13 +32,22 @@
 //    are CUDA's full-precision float functions (sinf, expf, ...), the
 //    ones PyTorch's own CUDA kernels call, within a few ULP of XLA's.
 // Built with --fmad=false and without --use_fast_math, so no multiply
-// and add contract into an FMA, sinf stays sinf (not __sinf) and
-// subnormals are kept: the plain PyTorch version gives the same bits,
-// or within the stated ULP bound of each unary.
+// and add contract into an FMA and sinf stays sinf (not __sinf): the
+// plain PyTorch version gives the same bits, or within the stated ULP
+// bound of each unary. Subnormals flush where XLA's CPU backend flushes
+// them (expr.ftz in the plain version): the operands of the float
+// arithmetic, comparisons and unaries, and their results; NEG and ABS
+// are bit operations there and keep them, as does jnp.remainder's
+// select of an unflushed remainder; SIN, TAN, ATAN and TANH return a
+// subnormal operand as it is, and ASIN flushes below 2^-125. The
+// sources are built with --ftz=true; the flushes here are explicit all
+// the same (by the bits, record.cuh), so they do not depend on how
+// libdevice picks its variants.
 
 #include <cuda_runtime.h>
 
 #include "hs_kernels.h"
+#include "record.cuh"
 
 namespace {
 
@@ -55,11 +64,60 @@ __device__ __forceinline__ uint32_t mod_i(uint32_t xu, uint32_t bu) {
     return (uint32_t)r;
 }
 
+using hs::ftz;
+
+constexpr float kFltMin = 1.17549435e-38f;  // the smallest normal float32
+
+// jnp.remainder as XLA's CPU backend computes it: rem of the flushed
+// operands, exact and unflushed (in double; the conversion back is exact,
+// written without .ftz; a dividend smaller than the divisor comes back as
+// it is), then the floored correction on flushed values
 __device__ __forceinline__ uint32_t mod_f(uint32_t xu, uint32_t bu) {
-    float b = asf(bu);
-    float r = fmodf(asf(xu), b);
-    if (r != 0.0f && ((r < 0.0f) != (b < 0.0f))) r = __fadd_rn(r, b);
+    const float fx = ftz(asf(xu)), fbv = ftz(asf(bu));
+    float r;
+    if (fabsf(fx) < fabsf(fbv)) {
+        r = asf(xu);
+    } else {
+        const double d = fmod((double)fx, (double)fbv);
+        asm("cvt.rn.f32.f64 %0, %1;" : "=f"(r) : "d"(d));
+        if (d != d) r = __uint_as_float(0x7FC00000u);  // NaN: one pattern
+    }
+    const float fr = ftz(r);
+    if (fr != 0.0f && ((fr < 0.0f) != (fbv < 0.0f)))
+        return fb(ftz(__fadd_rn(fr, fbv)));
     return fb(r);
+}
+
+// a transcendental unary: flushed operand and result; SIN, TAN, ATAN and
+// TANH pass a subnormal operand through (XLA returns a tiny x as it is)
+__device__ __forceinline__ uint32_t unary_f(int op, uint32_t xu) {
+    const float x = ftz(asf(xu));
+    float r;
+    switch (op) {
+    case HS_OP_SIN_F: r = sinf(x); break;
+    case HS_OP_COS_F: r = cosf(x); break;
+    case HS_OP_TAN_F: r = tanf(x); break;
+    case HS_OP_ASIN_F:  // XLA's asin halves x first
+        r = fabsf(x) < 2.0f * kFltMin ? __uint_as_float(xu & 0x80000000u)
+                                      : asinf(x);
+        break;
+    case HS_OP_ACOS_F: r = acosf(x); break;
+    case HS_OP_ATAN_F: r = atanf(x); break;
+    case HS_OP_SINH_F: r = sinhf(x); break;
+    case HS_OP_COSH_F: r = coshf(x); break;
+    case HS_OP_TANH_F: r = tanhf(x); break;
+    case HS_OP_ASINH_F: r = asinhf(x); break;
+    case HS_OP_ACOSH_F: r = acoshf(x); break;
+    case HS_OP_ATANH_F: r = atanhf(x); break;
+    case HS_OP_LOG_F: r = logf(x); break;
+    case HS_OP_LOG2_F: r = log2f(x); break;
+    case HS_OP_LOG10_F: r = log10f(x); break;
+    default: r = expf(x); break;  // HS_OP_EXP_F
+    }
+    const bool tiny_identity = op == HS_OP_SIN_F || op == HS_OP_TAN_F ||
+                               op == HS_OP_ATAN_F || op == HS_OP_TANH_F;
+    if (tiny_identity && (xu & 0x7F800000u) == 0u) return xu;
+    return fb(ftz(r));
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -92,52 +150,46 @@ expr_kernel(const __grid_constant__ HsExprArgs a) {
             case HS_OP_NOT_B: x ^= 1u; continue;
             case HS_OP_NOT_I: x = ~x; continue;
             case HS_OP_NEG_I: x = 0u - x; continue;
-            // float negate and abs as PyTorch's CUDA kernels compute
-            // them (-a, fabsf), so a NaN comes out the same
-            case HS_OP_NEG_F: x = fb(-asf(x)); continue;
+            // float negate and abs flip and clear the sign bit, as
+            // XLA and PyTorch's CPU do (a subnormal is kept); a NaN as
+            // PyTorch's CUDA kernels give it (-a, fabsf)
+            case HS_OP_NEG_F:
+                x = isnan(asf(x)) ? fb(-asf(x)) : x ^ 0x80000000u;
+                continue;
             case HS_OP_ABS_I: x = (int)x < 0 ? 0u - x : x; continue;
-            case HS_OP_ABS_F: x = fb(fabsf(asf(x))); continue;
-            case HS_OP_CEIL_F: x = fb(ceilf(asf(x))); continue;
-            case HS_OP_FLOOR_F: x = fb(floorf(asf(x))); continue;
-            case HS_OP_ROUND_F: x = fb(rintf(asf(x))); continue;
+            case HS_OP_ABS_F:
+                x = isnan(asf(x)) ? fb(fabsf(asf(x))) : x & 0x7FFFFFFFu;
+                continue;
+            case HS_OP_CEIL_F: x = fb(ceilf(ftz(asf(x)))); continue;
+            case HS_OP_FLOOR_F: x = fb(floorf(ftz(asf(x)))); continue;
+            case HS_OP_ROUND_F: x = fb(rintf(ftz(asf(x)))); continue;
             case HS_OP_SIGN_I: x = (uint32_t)(((int)x > 0) - ((int)x < 0));
                 continue;
             case HS_OP_SIGN_F: {
-                const float v = asf(x);
-                x = v > 0.0f ? fb(1.0f) : v < 0.0f ? fb(-1.0f) : x;
+                const float v = ftz(asf(x));
+                x = v > 0.0f ? fb(1.0f) : v < 0.0f ? fb(-1.0f) : fb(v);
                 continue;
             }
-            case HS_OP_SQRT_F: x = fb(__fsqrt_rn(asf(x))); continue;
-            case HS_OP_SIN_F: x = fb(sinf(asf(x))); continue;
-            case HS_OP_COS_F: x = fb(cosf(asf(x))); continue;
-            case HS_OP_TAN_F: x = fb(tanf(asf(x))); continue;
-            case HS_OP_ASIN_F: x = fb(asinf(asf(x))); continue;
-            case HS_OP_ACOS_F: x = fb(acosf(asf(x))); continue;
-            case HS_OP_ATAN_F: x = fb(atanf(asf(x))); continue;
-            case HS_OP_SINH_F: x = fb(sinhf(asf(x))); continue;
-            case HS_OP_COSH_F: x = fb(coshf(asf(x))); continue;
-            case HS_OP_TANH_F: x = fb(tanhf(asf(x))); continue;
-            case HS_OP_ASINH_F: x = fb(asinhf(asf(x))); continue;
-            case HS_OP_ACOSH_F: x = fb(acoshf(asf(x))); continue;
-            case HS_OP_ATANH_F: x = fb(atanhf(asf(x))); continue;
-            case HS_OP_LOG_F: x = fb(logf(asf(x))); continue;
-            case HS_OP_LOG2_F: x = fb(log2f(asf(x))); continue;
-            case HS_OP_LOG10_F: x = fb(log10f(asf(x))); continue;
-            case HS_OP_EXP_F: x = fb(expf(asf(x))); continue;
-            default: break;
+            case HS_OP_SQRT_F: x = fb(__fsqrt_rn(ftz(asf(x)))); continue;
+            default:
+                if (op >= HS_OP_SIN_F && op <= HS_OP_EXP_F) {
+                    x = unary_f(op, x);
+                    continue;
+                }
+                break;
             }
             const uint32_t b = st[--sp];
             uint32_t &l = st[sp - 1];
             const int li = (int)l, bi = (int)b;
-            const float lf = asf(l), bf = asf(b);
+            const float lf = ftz(asf(l)), bf = ftz(asf(b));
             switch (op) {
             case HS_OP_ADD_I: l = l + b; break;
-            case HS_OP_ADD_F: l = fb(__fadd_rn(lf, bf)); break;
+            case HS_OP_ADD_F: l = fb(ftz(__fadd_rn(lf, bf))); break;
             case HS_OP_SUB_I: l = l - b; break;
-            case HS_OP_SUB_F: l = fb(__fsub_rn(lf, bf)); break;
+            case HS_OP_SUB_F: l = fb(ftz(__fsub_rn(lf, bf))); break;
             case HS_OP_MUL_I: l = l * b; break;
-            case HS_OP_MUL_F: l = fb(__fmul_rn(lf, bf)); break;
-            case HS_OP_DIV_F: l = fb(__fdiv_rn(lf, bf)); break;
+            case HS_OP_MUL_F: l = fb(ftz(__fmul_rn(lf, bf))); break;
+            case HS_OP_DIV_F: l = fb(ftz(__fdiv_rn(lf, bf))); break;
             case HS_OP_MOD_I: l = mod_i(l, b); break;
             case HS_OP_MOD_F: l = mod_f(l, b); break;
             case HS_OP_OR_B: l = (l | b) != 0u; break;

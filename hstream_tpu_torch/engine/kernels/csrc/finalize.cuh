@@ -20,6 +20,7 @@
 #include <cuda_runtime.h>
 
 #include "hs_kernels.h"
+#include "record.cuh"
 
 namespace hs {
 
@@ -32,7 +33,7 @@ __device__ __forceinline__ float finalize_scalar(const HsCloseAgg &g,
         return __int2float_rn(((const int32_t *)g.plane)[cell]);
     case HS_AGG_AVG: {
         float n = __int2float_rn(g.plane_n[cell]);
-        return __fdiv_rn(((const float *)g.plane)[cell], fmaxf(n, 1.0f));
+        return ftz(__fdiv_rn(((const float *)g.plane)[cell], fmaxf(n, 1.0f)));
     }
     case HS_AGG_MIN:
     case HS_AGG_MAX:
@@ -82,7 +83,17 @@ __device__ inline float quant_warp(const HsFinalize &f,
     const int per = (bins + 31) / 32;
     const int b0 = min(lane * per, bins), b1 = min(b0 + per, bins);
     long long own = 0;
-    for (int b = b0; b < b1; ++b) own += h[b];
+    // 16 loads a round in flight together: a lane's bins are a strided
+    // run, so one at a time each waits out a memory round trip; up to
+    // 16 bins a lane (512 bins) the second pass reads them again from
+    // registers
+    int32_t v[16];
+    for (int c = b0; c < b1; c += 16) {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) v[k] = c + k < b1 ? h[c + k] : 0;
+#pragma unroll
+        for (int k = 0; k < 16; ++k) own += v[k];
+    }
     long long incl = own;
     for (int d = 1; d < 32; d <<= 1) {
         long long t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
@@ -93,9 +104,17 @@ __device__ inline float quant_warp(const HsFinalize &f,
     const float target = __fmul_rn(g.q, fmaxf(__ll2float_rn(total), 1.0f));
     long long cdf = incl - own;
     int below = 0;
-    for (int b = b0; b < b1; ++b) {
-        cdf += h[b];
-        below += __ll2float_rn(cdf) < target;
+    if (per <= 16) {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+            cdf += v[k];  // 0 past b1
+            below += b0 + k < b1 && __ll2float_rn(cdf) < target;
+        }
+    } else {
+        for (int b = b0; b < b1; ++b) {
+            cdf += h[b];
+            below += __ll2float_rn(cdf) < target;
+        }
     }
     for (int d = 16; d > 0; d >>= 1)
         below += __shfl_xor_sync(0xFFFFFFFFu, below, d);
@@ -107,6 +126,27 @@ __device__ inline float quant_warp(const HsFinalize &f,
     return idx == 0 ? 0.0f : mid;
 }
 
+// aggregate g's rows of one cell: its row r at out[r * stride]
+__device__ inline void finalize_agg(const HsFinalize &f, int g,
+                                    int64_t cell, int cnt, int32_t *out,
+                                    int64_t stride, int lane) {
+    const HsCloseAgg &ag = f.a[g];
+    if (ag.kind == HS_AGG_TOPK || ag.kind == HS_AGG_TOPK_DISTINCT) {
+        const int32_t *vals = (const int32_t *)ag.plane + cell * ag.width;
+        for (int j = lane; j < ag.width; j += 32)
+            out[(int64_t)j * stride] = vals[j];
+        return;
+    }
+    float v;
+    if (ag.kind == HS_AGG_HLL)
+        v = hll_warp(f, ag, cell, lane);
+    else if (ag.kind == HS_AGG_QUANT)
+        v = quant_warp(f, ag, cell, lane);
+    else
+        v = finalize_scalar(ag, cell, cnt);
+    if (lane == 0) out[0] = __float_as_int(v);
+}
+
 // every aggregate's rows of one cell: row r of this column at
 // out[r * stride]
 __device__ inline void finalize_cell(const HsFinalize &f, int64_t cell,
@@ -114,23 +154,9 @@ __device__ inline void finalize_cell(const HsFinalize &f, int64_t cell,
                                      int lane) {
     int row = 0;
     for (int g = 0; g < f.n_aggs; ++g) {
-        const HsCloseAgg &ag = f.a[g];
-        if (ag.kind == HS_AGG_TOPK || ag.kind == HS_AGG_TOPK_DISTINCT) {
-            const int32_t *vals =
-                (const int32_t *)ag.plane + cell * ag.width;
-            for (int j = lane; j < ag.width; j += 32)
-                out[(int64_t)(row + j) * stride] = vals[j];
-        } else {
-            float v;
-            if (ag.kind == HS_AGG_HLL)
-                v = hll_warp(f, ag, cell, lane);
-            else if (ag.kind == HS_AGG_QUANT)
-                v = quant_warp(f, ag, cell, lane);
-            else
-                v = finalize_scalar(ag, cell, cnt);
-            if (lane == 0) out[(int64_t)row * stride] = __float_as_int(v);
-        }
-        row += ag.width;
+        finalize_agg(f, g, cell, cnt, out + (int64_t)row * stride, stride,
+                     lane);
+        row += f.a[g].width;
     }
 }
 

@@ -202,18 +202,30 @@ struct HsUnpackArgs {
     uint8_t *null_out[HS_MAX_AGGS];       // [cap] each
 };
 
+// touched extract modes: a scan, a finalize (and a sketch pass), or one
+// launch for a lattice of at most HS_TOUCHED_ONE_CELLS cells and
+// HS_TOUCHED_ONE_ROWS output rows
+enum { HS_TOUCHED_STAGED = 0, HS_TOUCHED_ONE = 1 };
+#define HS_TOUCHED_ONE_CELLS 4096
+#define HS_TOUCHED_ONE_ROWS 512
+
 struct HsTouchedArgs {
     int32_t n_keys;
     int32_t n_slots;
     int32_t max_out;
     int32_t out_rows;      // 3 + sum of the aggregates' widths
+    int32_t mode;          // HS_TOUCHED_*
+    int32_t has_sketch;    // an HLL or quantile aggregate
     int32_t *count;
     int32_t *slot_start;
     uint8_t *touched;      // [K, W], cleared
     int32_t *out;          // [out_rows, max_out]
-    int32_t *block_counts; // [blocks] scratch (more than one block)
-    int32_t *cells;        // [max_out + 1] scratch: the compacted cells,
-                           // then n
+    void *scratch;         // hs_touched_scratch_bytes(n_cells, max_out,
+                           // out_rows) bytes, which hs_touched carves:
+    int32_t *cells;        //   the compacted cells [max_out], then n
+    int32_t *fill;         //   [out_rows]: cell (0, 0) finalized
+    uint32_t *ticket;      //   the scan's tile order
+    uint64_t *status;      //   [tiles] the scan's tile counts
     HsFinalize f;
 };
 
@@ -284,6 +296,10 @@ struct HsSessExtractArgs {
 #define HS_JOIN_MAX_REFS 64            // column references of masks + filter
 
 enum { HS_JOIN_PACK = 0, HS_JOIN_FEED = 1 };            // probe modes
+// probe branches: the store window of a tile of records staged in shared
+// memory where it fits (else searched in global memory); always searched
+// in global memory; always the whole store (join_core.cuh)
+enum { HS_PROBE_AUTO = 0, HS_PROBE_WINDOW = 1, HS_PROBE_WHOLE = 2 };
 enum { HS_JOIN_M = 0, HS_JOIN_O = 1, HS_JOIN_BOTH = 2,  // feed sources
        HS_JOIN_BOTH_O = 3 };
 enum { HS_JOIN_F32 = 0, HS_JOIN_I32 = 1, HS_JOIN_BOOL = 2 };  // feed tags
@@ -318,6 +334,7 @@ struct HsJoinProbeArgs {
     int32_t cutoff;        // entries with ts < cutoff are invisible
     int32_t match_cap;     // match columns written
     int32_t mode;          // HS_JOIN_PACK / HS_JOIN_FEED
+    int32_t branch;        // HS_PROBE_*
     int32_t n_cols_mine;   // probing side's stored columns
     int32_t n_cols_other;  // probed store's stored columns
     const int32_t *batch;  // [4 + n_cols_mine, bcap]: code, ts, kid, flags,
@@ -338,7 +355,7 @@ struct HsJoinProbeArgs {
     int32_t filter_first;  // filter-NULL refs: refs[first .. first + count)
     int32_t filter_count;
     HsJoinRef refs[HS_JOIN_MAX_REFS];
-    void *scratch;         // hs_join_probe_scratch_bytes(bcap) bytes
+    void *scratch;         // hs_join_probe_scratch_bytes(bcap, match_cap)
 };
 
 struct HsJoinInsertArgs {
@@ -355,6 +372,7 @@ struct HsJoinInsertArgs {
     int32_t *out_ts;
     int32_t *out_flags;
     int32_t *out_cols;
+    void *scratch;         // hs_join_insert_scratch_bytes(cap) bytes
 };
 
 struct HsJoinEvictSide {
@@ -387,7 +405,8 @@ int hs_close(const HsCloseArgs *args, void *stream);
 int hs_close_slot(const HsCloseArgs *args, void *stream);
 int hs_unpack(const HsUnpackArgs *args, void *stream);
 int hs_touched(const HsTouchedArgs *args, void *stream);
-int hs_touched_blocks(int32_t n_cells);
+int64_t hs_touched_scratch_bytes(int32_t n_cells, int32_t max_out,
+                                 int32_t out_rows);
 int hs_rebase(int32_t *slot_start, int32_t n_slots, int32_t delta,
               void *stream);
 int64_t hs_session_scratch_bytes(int32_t cap, int32_t nb);
@@ -396,9 +415,10 @@ int hs_session_merge(const HsSessionArgs *args, void *stream);
 int hs_session_extract(const HsSessExtractArgs *args, void *stream);
 int hs_session_remap(int32_t *code, int32_t cap, const int32_t *lut,
                      int32_t lcap, int32_t sent_above, void *stream);
-int64_t hs_join_probe_scratch_bytes(int32_t bcap);
+int64_t hs_join_probe_scratch_bytes(int32_t bcap, int32_t match_cap);
 int64_t hs_join_evict_scratch_bytes(int32_t cap);
 int hs_join_probe(const HsJoinProbeArgs *args, void *stream);
+int64_t hs_join_insert_scratch_bytes(int32_t cap);
 int hs_join_insert(const HsJoinInsertArgs *args, void *stream);
 int hs_join_evict(const HsJoinEvictArgs *args, void *stream);
 const char *hs_error_string(int err);

@@ -24,17 +24,20 @@
 //     (expr.cu, scatter.cu, topk.cu) on these columns: matches never
 //     leave the card.
 //
-// Both modes share join_core.cuh's bounds (two binary searches per
-// record), the tiled scan of the match counts and the per-match binary
-// search of that scan: no sort. Matches come out ordered by batch
+// Both modes share join_core.cuh's probe: the bounds per tile of sorted
+// records against a staged store window, the count scan by a decoupled
+// look-back in the same launch, and the expansion by a load-balancing
+// search, with this file's writers. Matches come out ordered by batch
 // record, then by store order, as the reference's.
 //
 // Bound on the H100: bytes (the batch read once, the match columns
-// written once; the store's search paths mostly hit L2). Launches: the
-// bounds, the tile scan, the count scan, the expansion.
+// written once; the store's search paths are the windows the tiles
+// read). Launches: the tiles' store windows (which also zero the scan's
+// ticket and status words), the bounds and scan, the expansion.
 
 #include <cuda_runtime.h>
 
+#include "device.cuh"
 #include "join_core.cuh"
 
 namespace {
@@ -56,27 +59,25 @@ __device__ __forceinline__ int32_t joined_ts(const HsJoinProbeArgs &a,
     return mvalid ? max(a.batch[a.bcap + rec], a.o_ts[oidx]) : 0;
 }
 
-__global__ void pack_kernel(HsJoinProbeArgs a, const int32_t *lo,
-                            const int32_t *cnt, const int32_t *ccnt,
-                            const int32_t *total_p) {
-    const int32_t j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= a.match_cap) return;
-    const int32_t total = *total_p;
-    int32_t rec, oidx;
-    const bool mv =
-        hsjoin::match_of(a, lo, cnt, ccnt, total, j, &rec, &oidx);
-    const size_t w = (size_t)a.match_cap;
-    int32_t *out = a.packed;
-    out[j] = j == 0 ? total : 0;
-    out[w + j] = mv ? a.batch[2 * a.bcap + rec] : 0;
-    out[2 * w + j] = joined_ts(a, mv, rec, oidx);
-    out[3 * w + j] = mv ? a.batch[3 * a.bcap + rec] : 0;
-    out[4 * w + j] = mv ? a.o_flags[oidx] : 0;
-    for (int32_t c = 0; c < a.n_cols_mine; ++c)
-        out[(5 + c) * w + j] = mv ? mcol(a, c, rec) : 0;
-    for (int32_t c = 0; c < a.n_cols_other; ++c)
-        out[(5 + a.n_cols_mine + c) * w + j] = mv ? ocol(a, c, oidx) : 0;
-}
+// pack mode's writer: match j's columns of the packed buffer
+struct PackEmit {
+    __device__ __forceinline__ void operator()(const HsJoinProbeArgs &a,
+                                               int32_t j, bool mv,
+                                               int32_t rec, int32_t oidx,
+                                               int32_t total) const {
+        const size_t w = (size_t)a.match_cap;
+        int32_t *out = a.packed;
+        out[j] = j == 0 ? total : 0;
+        out[w + j] = mv ? a.batch[2 * a.bcap + rec] : 0;
+        out[2 * w + j] = joined_ts(a, mv, rec, oidx);
+        out[3 * w + j] = mv ? a.batch[3 * a.bcap + rec] : 0;
+        out[4 * w + j] = mv ? a.o_flags[oidx] : 0;
+        for (int32_t c = 0; c < a.n_cols_mine; ++c)
+            out[(5 + c) * w + j] = mv ? mcol(a, c, rec) : 0;
+        for (int32_t c = 0; c < a.n_cols_other; ++c)
+            out[(5 + a.n_cols_mine + c) * w + j] = mv ? ocol(a, c, oidx) : 0;
+    }
+};
 
 // the SQL left side's present bit of a "both" / "both_o" reference
 __device__ __forceinline__ bool left_present(const HsJoinRef &r,
@@ -109,70 +110,92 @@ __device__ __forceinline__ int32_t raw_value(const HsJoinProbeArgs &a,
     return r.src == HS_JOIN_BOTH ? (lp ? mv : ov) : (lp ? ov : mv);
 }
 
-__global__ void feed_kernel(HsJoinProbeArgs a, const int32_t *lo,
-                            const int32_t *cnt, const int32_t *ccnt,
-                            const int32_t *total_p) {
-    const int32_t j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= a.match_cap) return;
-    int32_t rec, oidx;
-    const bool mv =
-        hsjoin::match_of(a, lo, cnt, ccnt, *total_p, j, &rec, &oidx);
-    // the reference gathers flags and columns at the clipped record and
-    // at store entry 0 past the matches, unmasked
-    const int32_t mflags = a.batch[3 * a.bcap + rec];
-    const int32_t oflags = a.o_flags[oidx];
-    a.kid[j] = mv ? a.batch[2 * a.bcap + rec] : 0;
-    a.ts[j] = hsjoin::wrap_add(joined_ts(a, mv, rec, oidx), a.ts_off);
-    bool valid = mv;
-    for (int32_t k = 0; k < a.filter_count; ++k)
-        valid = valid && !null_bit(a.refs[a.filter_first + k], mflags,
-                                   oflags);
-    a.valid[j] = valid ? 1 : 0;
-    for (int32_t f = 0; f < a.n_feed; ++f) {
-        const HsJoinFeedCol &fc = a.feed[f];
-        const int32_t raw = raw_value(a, fc.ref, rec, oidx, mflags, oflags);
-        if (fc.tag == HS_JOIN_BOOL)
-            ((uint8_t *)fc.out)[j] = raw != 0 ? 1 : 0;
-        else
-            ((int32_t *)fc.out)[j] = raw;  // f32 bits or int32
+// feed mode's writer: match j's inner-step inputs
+struct FeedEmit {
+    __device__ __forceinline__ void operator()(const HsJoinProbeArgs &a,
+                                               int32_t j, bool mv,
+                                               int32_t rec, int32_t oidx,
+                                               int32_t) const {
+        // the reference gathers flags and columns at the clipped record
+        // and at store entry 0 past the matches, unmasked; the flags only
+        // where a column, mask or filter reads them
+        const bool flags = a.n_feed + a.n_nulls + a.filter_count > 0;
+        const int32_t mflags = flags ? a.batch[3 * a.bcap + rec] : 0;
+        const int32_t oflags = flags ? a.o_flags[oidx] : 0;
+        a.kid[j] = mv ? a.batch[2 * a.bcap + rec] : 0;
+        a.ts[j] = hsjoin::wrap_add(joined_ts(a, mv, rec, oidx), a.ts_off);
+        bool valid = mv;
+        for (int32_t k = 0; k < a.filter_count; ++k)
+            valid = valid && !null_bit(a.refs[a.filter_first + k], mflags,
+                                       oflags);
+        a.valid[j] = valid ? 1 : 0;
+        for (int32_t f = 0; f < a.n_feed; ++f) {
+            const HsJoinFeedCol &fc = a.feed[f];
+            const int32_t raw =
+                raw_value(a, fc.ref, rec, oidx, mflags, oflags);
+            if (fc.tag == HS_JOIN_BOOL)
+                ((uint8_t *)fc.out)[j] = raw != 0 ? 1 : 0;
+            else
+                ((int32_t *)fc.out)[j] = raw;  // f32 bits or int32
+        }
+        for (int32_t q = 0; q < a.n_nulls; ++q) {
+            const HsJoinNull &nl = a.nulls[q];
+            bool m = false;
+            for (int32_t k = 0; k < nl.count; ++k)
+                m = m || null_bit(a.refs[nl.first + k], mflags, oflags);
+            nl.out[j] = m ? 1 : 0;
+        }
     }
-    for (int32_t q = 0; q < a.n_nulls; ++q) {
-        const HsJoinNull &nl = a.nulls[q];
-        bool m = false;
-        for (int32_t k = 0; k < nl.count; ++k)
-            m = m || null_bit(a.refs[nl.first + k], mflags, oflags);
-        nl.out[j] = m ? 1 : 0;
-    }
-}
+};
 
 }  // namespace
 
-extern "C" int64_t hs_join_probe_scratch_bytes(int32_t bcap) {
-    return (int64_t)(hsjoin::probe_scratch_words(bcap) * sizeof(int32_t));
+extern "C" int64_t hs_join_probe_scratch_bytes(int32_t bcap,
+                                               int32_t match_cap) {
+    return (int64_t)(hsjoin::probe_scratch_words(bcap, match_cap) *
+                     sizeof(int32_t));
 }
 
 extern "C" int hs_join_probe(const HsJoinProbeArgs *args, void *stream) {
-    const HsJoinProbeArgs a = *args;
-    cudaStream_t s = (cudaStream_t)stream;
+    const HsJoinProbeArgs &a = *args;
+    cudaStream_t st = (cudaStream_t)stream;
     if (a.bcap <= 0 || a.cap <= 0 || a.match_cap <= 0 ||
         a.n_cols_mine < 0 || a.n_cols_mine > HS_JOIN_MAX_COLS ||
         a.n_cols_other < 0 || a.n_cols_other > HS_JOIN_MAX_COLS ||
         a.n_feed < 0 || a.n_feed > HS_JOIN_MAX_FEED || a.n_nulls < 0 ||
-        a.n_nulls > HS_JOIN_MAX_NULLS)
+        a.n_nulls > HS_JOIN_MAX_NULLS || a.branch < HS_PROBE_AUTO ||
+        a.branch > HS_PROBE_WHOLE)
         return (int)cudaErrorInvalidValue;
-    const int32_t tiles = (a.bcap + hsjoin::kTile - 1) / hsjoin::kTile;
-    int32_t *lo = (int32_t *)a.scratch;
-    int32_t *cnt = lo + a.bcap;
-    int32_t *ccnt = cnt + a.bcap;
-    int32_t *tsum = ccnt + a.bcap;
-    int32_t *total = tsum + tiles;
-    hsjoin::bounds_kernel<<<tiles, hsjoin::kTile, 0, s>>>(a, lo, cnt, tsum);
-    hsjoin::scan_tiles_kernel<<<1, hsjoin::kTile, 0, s>>>(tsum, tiles, total);
-    hsjoin::ccnt_kernel<<<tiles, hsjoin::kTile, 0, s>>>(a.bcap, cnt, tsum, ccnt);
-    const int32_t blocks = (a.match_cap + 255) / 256;
+    const hsjoin::ProbeScratch s =
+        hsjoin::probe_scratch(a.scratch, a.bcap, a.match_cap);
+    const int32_t tiles = hsjoin::bounds_tiles(a.bcap);
+    hsjoin::probe_window_kernel<<<
+        (tiles + hsjoin::kWindowTiles - 1) / hsjoin::kWindowTiles,
+        64 * hsjoin::kWindowTiles, 0, st>>>(a, s);
+    int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    int sms = 0;
+    err = (int)hs::current_sms(&sms);
+    if (err != 0) return err;
+    const int32_t window = hsjoin::window_cap(tiles, sms);
+    const size_t smem = (size_t)window * sizeof(uint64_t);
+    // the window and the kernel's static words may pass the default
+    // 48 KB together even where the window alone does not
+    static std::atomic<uint64_t> granted{0};
+    err = (int)hs::allow_smem(granted, hsjoin::probe_bounds_kernel,
+                              hsjoin::kWindowMax * (int)sizeof(uint64_t));
+    if (err != 0) return err;
+    hsjoin::probe_bounds_kernel<<<tiles, hsjoin::kBoundsThreads, smem,
+                                  st>>>(a, s, window);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    // the merge tiles cover min(total, match_cap) + n items at most
+    const unsigned merge = (unsigned)s.merge_tiles;
     if (a.mode == HS_JOIN_PACK)
-        pack_kernel<<<blocks, 256, 0, s>>>(a, lo, cnt, ccnt, total);
+        hsjoin::probe_expand_kernel<<<merge, hsjoin::kExpThreads, 0, st>>>(
+            a, s, PackEmit{});
     else
-        feed_kernel<<<blocks, 256, 0, s>>>(a, lo, cnt, ccnt, total);
+        hsjoin::probe_expand_kernel<<<merge, hsjoin::kExpThreads, 0, st>>>(
+            a, s, FeedEmit{});
     return (int)cudaGetLastError();
 }

@@ -17,6 +17,13 @@
 // so an HLL register is raised with a CAS on its aligned 32-bit word;
 // the HLL hash (sketches.py:35-86) and the quantile bin
 // (sketches.py:130-139).
+//
+// Subnormals: XLA's CPU backend (and a TPU) flushes the float32 operands
+// and results of arithmetic, comparisons and min/max to a zero of their
+// sign. The sources are built with --ftz=true, so the card's float
+// instructions flush them too; where a float reaches an integer path (the
+// sign-split MIN/MAX, the HLL hash's bits, a plain store of a fold) the
+// kernels flush it explicitly with ftz / ftz_bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,6 +31,16 @@
 #include "hs_kernels.h"
 
 namespace hs {
+
+// a float32 subnormal as a zero of its sign, by its bits (independent of
+// the compiler's flush mode)
+__device__ __forceinline__ uint32_t ftz_bits(uint32_t u) {
+    return (u & 0x7F800000u) == 0u ? (u & 0x80000000u) : u;
+}
+
+__device__ __forceinline__ float ftz(float x) {
+    return __uint_as_float(ftz_bits(__float_as_uint(x)));
+}
 
 __device__ __forceinline__ int floor_mod(int a, int b) {
     int r = a % b;
@@ -54,14 +71,17 @@ __device__ __forceinline__ bool record_window(const HsScatterArgs &a, int i,
 }
 
 // an input from its raw 32 bits (a bool column's byte widened): its
-// float32 value (v), the 32 bits the HLL hash reads (-0.0 canonicalized
-// to 0.0), and whether it counts (not SQL NULL and, for a float32
-// input, finite)
+// float32 value (v; flushed with `flush`, as every aggregate but TOPK
+// takes it), the 32 bits the HLL hash reads (-0.0 and the subnormals,
+// which compare equal to 0.0 in the reference, as 0.0), and whether it
+// counts (not SQL NULL and, for a float32 input, finite)
 __device__ __forceinline__ bool input_of(int vtype, uint32_t raw, bool null,
-                                         float &v, uint32_t &bits) {
+                                         float &v, uint32_t &bits,
+                                         bool flush = true) {
     if (vtype == HS_T_F32) {
-        v = __uint_as_float(raw);
-        bits = __float_as_uint(v == 0.0f ? 0.0f : v);
+        const uint32_t f = ftz_bits(raw);
+        v = __uint_as_float(flush ? f : raw);
+        bits = (f & 0x7FFFFFFFu) == 0u ? 0u : raw;
         return !null && isfinite(v);
     }
     if (vtype == HS_T_I32) {
@@ -76,12 +96,13 @@ __device__ __forceinline__ bool input_of(int vtype, uint32_t raw, bool null,
 
 // aggregate ag's input for record i (input_of)
 __device__ __forceinline__ bool agg_input(const HsScatterAgg &ag, int i,
-                                          float &v, uint32_t &bits) {
+                                          float &v, uint32_t &bits,
+                                          bool flush = true) {
     const bool null = ag.nulls != nullptr && ag.nulls[i];
     const uint32_t raw = ag.vtype == HS_T_BOOL
                              ? ((const uint8_t *)ag.values)[i]
                              : ((const uint32_t *)ag.values)[i];
-    return input_of(ag.vtype, raw, null, v, bits);
+    return input_of(ag.vtype, raw, null, v, bits, flush);
 }
 
 __device__ __forceinline__ void atomic_min_float(float *addr, float v) {

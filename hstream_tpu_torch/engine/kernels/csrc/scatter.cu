@@ -84,6 +84,7 @@
 
 #include <climits>
 
+#include "device.cuh"
 #include "hs_kernels.h"
 #include "record.cuh"
 
@@ -648,28 +649,34 @@ extern "C" int hs_scatter(const HsScatterArgs *args, void *stream) {
         vec = vec && aligned(ag.values, ag.vtype == HS_T_BOOL ? 4 : 16) &&
               (ag.nulls == nullptr || aligned(ag.nulls, 4));
     }
-    static bool granted[2] = {false, false};
-    if (bytes > 48 * 1024 && !granted[cl]) {  // the default limit
-        cudaError_t err = cudaFuncSetAttribute(
-            cl ? scatter_cluster : scatter_private,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    static std::atomic<uint64_t> granted[2];
+    if (bytes > 48 * 1024) {  // the default limit
+        cudaError_t err =
+            cl ? hs::allow_smem(granted[1], scatter_cluster, kMaxSmem)
+               : hs::allow_smem(granted[0], scatter_private, kMaxSmem);
         if (err != cudaSuccess) return (int)err;
-        granted[cl] = true;
     }
     if (cl) {
         // no more clusters than the card holds at once: a second wave
-        // would wait for the first one's flush
-        static int64_t asked = -1;
-        static int fit = 0;
-        if (bytes != asked) {
+        // would wait for the first one's flush. Per card, the shared
+        // bytes asked (high word) and the clusters that fit (low word).
+        static std::atomic<uint64_t> fits[hs::kMaxDevices];
+        int dev = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return (int)err;
+        const uint64_t seen = dev < hs::kMaxDevices
+            ? fits[dev].load(std::memory_order_relaxed) : 0;
+        int fit = (int)(uint32_t)seen;
+        if (seen >> 32 != (uint64_t)bytes + 1) {
             cudaLaunchConfig_t cfg = {};
             cfg.gridDim = dim3(kCluster);
             cfg.blockDim = dim3(kPrivBlock);
             cfg.dynamicSmemBytes = (size_t)bytes;
-            cudaError_t err =
-                cudaOccupancyMaxActiveClusters(&fit, scatter_cluster, &cfg);
+            err = cudaOccupancyMaxActiveClusters(&fit, scatter_cluster, &cfg);
             if (err != cudaSuccess) return (int)err;
-            asked = bytes;
+            if (dev < hs::kMaxDevices)
+                fits[dev].store(((uint64_t)bytes + 1) << 32 | (uint32_t)fit,
+                                std::memory_order_relaxed);
         }
         const int blocks =
             fit > 0 && fit * kCluster < a.blocks ? fit * kCluster : a.blocks;

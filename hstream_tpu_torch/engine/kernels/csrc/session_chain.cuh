@@ -93,6 +93,7 @@
 #include <algorithm>
 #include <climits>
 
+#include "device.cuh"
 #include "hs_kernels.h"
 #include "record.cuh"
 
@@ -691,9 +692,9 @@ __device__ __forceinline__ uint32_t fold_word(int kind, uint32_t x) {
     case HS_AGG_AVG:
         return __float_as_uint(__fadd_rn(0.0f, __uint_as_float(x)));
     case HS_AGG_MIN:
-        return min_float_bits(0x7F800000u, x);
+        return min_float_bits(0x7F800000u, ftz_bits(x));
     case HS_AGG_MAX:
-        return max_float_bits(0xFF800000u, x);
+        return max_float_bits(0xFF800000u, ftz_bits(x));
     case HS_AGG_HLL:
         return __vmaxs4(x, 0u);  // each register max(r, 0)
     default:  // counts, histogram bins: 0 + x
@@ -833,10 +834,10 @@ __device__ __forceinline__ void fold_row(const HsSessPlane &p,
         break;
     }
     case HS_AGG_MIN:
-        atomic_min_float((float *)p.out + d, ((const float *)src)[row]);
+        atomic_min_float((float *)p.out + d, ftz(((const float *)src)[row]));
         break;
     case HS_AGG_MAX:
-        atomic_max_float((float *)p.out + d, ((const float *)src)[row]);
+        atomic_max_float((float *)p.out + d, ftz(((const float *)src)[row]));
         break;
     default:
         break;
@@ -913,14 +914,10 @@ inline cudaError_t core(const HsSessionArgs &a, Scratch &s,
         a.nb < 0 || m == 0 || m > (int64_t)kCountMask)
         return cudaErrorInvalidValue;
     layout(a.cap, a.nb, (char *)a.scratch, &s);
-    static bool granted = false;
-    if (!granted) {
-        cudaError_t err = cudaFuncSetAttribute(
-            sort_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)kPassSmem);
-        if (err != cudaSuccess) return err;
-        granted = true;
-    }
+    static std::atomic<uint64_t> granted{0};
+    cudaError_t err =
+        hs::allow_smem(granted, sort_pass_kernel, (int)kPassSmem);
+    if (err != cudaSuccess) return err;
     const int tiles = (int)blocks_for(m, kSortTile);
     const int blocks = (int)blocks_for(m, kScanBlock);
     const int parts = (int)std::min<int64_t>(kRangeBlocks,

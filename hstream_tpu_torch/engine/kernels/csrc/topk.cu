@@ -9,12 +9,17 @@
 // gives the same plane. It must equal the reference's bit for bit, since
 // this is selection, not arithmetic:
 //  * order is the total order the reference's sort uses (-0.0 below
-//    +0.0), compared as sortable integers;
-//  * TOPK keeps the k largest values with repeats;
+//    +0.0), compared as sortable integers, of the value flushed as the
+//    reference's compares flush it (a subnormal ranks as the zero of its
+//    sign); among values that rank alike the larger bits come first
+//    (the reference's sort is not stable there: ROADMAP C);
+//  * TOPK keeps the k largest values with repeats, with their own bits;
 //  * TOPK_DISTINCT keeps the k largest distinct values, where "distinct"
-//    is float ==, as the reference's comb[..., 1:] == comb[..., :-1] is:
-//    +0.0 and -0.0 are one value, kept as +0.0 once one +0.0 was seen.
-// NULL and non-finite inputs do not count (record.cuh).
+//    is float == of the flushed values, as the reference's
+//    comb[..., 1:] == comb[..., :-1] is: +0.0, -0.0 and the subnormals
+//    are one value, kept as the first of them in that order.
+// NULL and non-finite inputs do not count (record.cuh). The values are
+// stored unflushed: the reference's TOPK keeps a subnormal's bits.
 //
 // Bound on the H100: bytes of the decoded columns; most records are
 // rejected after one read of their cell's k-th value.
@@ -43,15 +48,21 @@ __device__ __forceinline__ int order_key(float v) {
     return b >= 0 ? b : b ^ 0x7FFFFFFF;
 }
 
+// the fold's order: the flushed value's key, then the bits' own key
+__device__ __forceinline__ long long rank_key(float v) {
+    return (long long)order_key(hs::ftz(v)) * (1ll << 32) +
+           ((uint32_t)order_key(v) ^ 0x80000000u);
+}
+
 __device__ void insert(volatile float *vals, int k, float v, bool distinct) {
-    const int key = order_key(v);
+    const long long key = rank_key(v);
     for (int j = 0; j < k; ++j) {
         const float cur = vals[j];
-        if (distinct && cur == v) {  // the same value: keep the larger bits
-            if (key > order_key(cur)) vals[j] = v;
+        if (distinct && hs::ftz(cur) == hs::ftz(v)) {  // keep the first
+            if (key > rank_key(cur)) vals[j] = v;
             return;
         }
-        if (order_key(cur) < key) {
+        if (rank_key(cur) < key) {
             for (int t = k - 1; t > j; --t) vals[t] = vals[t - 1];
             vals[j] = v;
             return;
@@ -76,10 +87,10 @@ topk_kernel(const __grid_constant__ HsScatterArgs a) {
             continue;
         float v;
         uint32_t bits;
-        if (!hs::agg_input(ag, i, v, bits)) continue;
+        if (!hs::agg_input(ag, i, v, bits, false)) continue;
         const int k = ag.width;
         volatile float *vals = (volatile float *)ag.plane + cell * k;
-        if (order_key(v) <= order_key(vals[k - 1])) continue;
+        if (rank_key(v) <= rank_key(vals[k - 1])) continue;
         bool done = false;
         while (!done) {
             if (atomicCAS(&a.locks[cell], 0, 1) == 0) {

@@ -64,6 +64,7 @@ from hstream_tpu_torch.engine.expr import (
     Expr,
     compile_device,
     eval_programs,
+    ftz,
 )
 from hstream_tpu_torch.engine.kernels import binding as kb
 from hstream_tpu_torch.engine.kernels.binding import (
@@ -338,7 +339,7 @@ def scatter_step_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
         if agg.kind == AggKind.COUNT_ALL or agg.kind in _TOPK_KINDS:
             continue
         v, iok = _agg_values(i, cols[in_cols[i]], cols, rec)
-        c, v = cell[iok], v[iok]
+        c, v = cell[iok], ftz(v[iok])
         plane = state[_plane_name(i, agg)].view(-1)
         ones = torch.ones_like(c, dtype=torch.int32)
         if agg.kind == AggKind.COUNT:
@@ -353,6 +354,9 @@ def scatter_step_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
                              accumulate=True)
         elif agg.kind in (AggKind.SUM, AggKind.AVG):
             plane.index_put_((c,), v.to(torch.float32), accumulate=True)
+            # the sums flushed once here; XLA (and the kernel's atomics)
+            # flush every partial sum
+            plane[c] = ftz(plane[c])
             if agg.kind == AggKind.AVG:
                 state[_plane_name(i, agg) + "_n"].view(-1).index_put_(
                     (c,), ones, accumulate=True)
@@ -508,23 +512,32 @@ def topk_fold(plane: torch.Tensor, cell: torch.Tensor, vals: torch.Tensor,
     """The plain top-k fold: the plane [K, W, k] after adding `vals` at
     the flat cells `cell`. One sort of (cell ascending, value descending)
     over the batch and the stored values, then each cell's first k
-    (TOPK) or first k distinct values (TOPK_DISTINCT; distinct by float
-    ==, keeping the first of a run: +0.0 before -0.0), as
-    _topk_step, lattice.py:258-301 in the reference, gives."""
+    (TOPK) or first k distinct values (TOPK_DISTINCT), as _topk_step,
+    lattice.py:258-301 in the reference, gives. The value is ranked and
+    compared flushed, as the reference's float compares flush it (a
+    subnormal ranks as the zero of its sign; +0.0, -0.0 and the
+    subnormals are one distinct value, kept as the first of them), and
+    stored with its own bits; among values that rank alike the larger
+    bits come first (the reference's unstable sort has no one order
+    there: ROADMAP C)."""
     K, W, k = plane.shape
     dev = plane.device
     cand_cell = torch.cat([cell.long(), torch.arange(
         K * W, device=dev).repeat_interleave(k)])
     cand_val = torch.cat([vals.to(torch.float32), plane.reshape(-1)])
-    desc = (1 << 31) - 1 - _order_key(cand_val)          # in [0, 2^32)
-    order = torch.sort((cand_cell << 32) | desc).indices
+    flushed = ftz(cand_val)
+    order = torch.argsort(-_order_key(cand_val))         # the bits, then
+    desc = (1 << 31) - 1 - _order_key(flushed[order])    # in [0, 2^32)
+    order = order[torch.sort((cand_cell[order] << 32) | desc,
+                             stable=True).indices]
     sc, sv = cand_cell[order], cand_val[order]
     idx = torch.arange(sc.shape[0], device=dev)
     first = torch.ones_like(sc, dtype=torch.bool)
     first[1:] = sc[1:] != sc[:-1]
     if distinct:
+        fv = flushed[order]
         newv = first.clone()
-        newv[1:] |= sv[1:] != sv[:-1]
+        newv[1:] |= fv[1:] != fv[:-1]
         c = torch.cumsum(newv.long(), 0)
         base = torch.cummax(torch.where(first, c - newv.long(), 0), 0).values
         rank = torch.where(newv, c - 1 - base, k)
@@ -807,7 +820,7 @@ def finalize_column(spec: LatticeSpec, cols: Mapping[str, torch.Tensor]
             outs[agg.out_name] = count.to(torch.float32)
         elif agg.kind == AggKind.AVG:
             n = cols[name + "_n"].to(torch.float32)
-            outs[agg.out_name] = cols[name] / torch.clamp(n, min=1.0)
+            outs[agg.out_name] = ftz(cols[name] / torch.clamp(n, min=1.0))
         elif agg.kind == AggKind.APPROX_COUNT_DISTINCT:
             outs[agg.out_name] = hll_estimate(cols[name], spec.hll)
         elif agg.kind == AggKind.APPROX_QUANTILE:
@@ -1174,12 +1187,36 @@ def extract_touched_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
     return packed
 
 
-def _touched_cuda(spec: LatticeSpec, state, max_out: int) -> torch.Tensor:
+def touched_plan(spec: LatticeSpec, max_out: int,
+                 mode: int | None = None) -> int:
+    """The touched extract's mode: one launch (kb.TOUCHED_ONE) for a
+    lattice of at most 4096 cells whose rows fit its shared memory, else
+    the staged scan and finalize (kb.TOUCHED_STAGED). `mode` forces one;
+    forcing the single launch where it does not fit raises ValueError."""
+    fits = (spec.n_keys * spec.n_slots <= kb.TOUCHED_ONE_CELLS
+            and 3 + out_rows(spec) <= kb.TOUCHED_ONE_ROWS)
+    if mode is None:
+        return kb.TOUCHED_ONE if fits else kb.TOUCHED_STAGED
+    if mode == kb.TOUCHED_ONE and not fits:
+        raise ValueError("touched extract: the single launch takes at most "
+                         f"{kb.TOUCHED_ONE_CELLS} cells and "
+                         f"{kb.TOUCHED_ONE_ROWS} rows")
+    if mode not in (kb.TOUCHED_ONE, kb.TOUCHED_STAGED):
+        raise ValueError(f"touched extract: unknown mode {mode}")
+    return mode
+
+
+def _touched_cuda(spec: LatticeSpec, state, max_out: int,
+                  mode: int | None) -> torch.Tensor:
     dev = state["count"].device
     args = kb.TouchedArgs()
     args.n_keys, args.n_slots, args.max_out = \
         spec.n_keys, spec.n_slots, max_out
     args.out_rows = 3 + out_rows(spec)
+    args.mode = touched_plan(spec, max_out, mode)
+    args.has_sketch = any(a.kind in (AggKind.APPROX_COUNT_DISTINCT,
+                                     AggKind.APPROX_QUANTILE)
+                          for a in spec.aggs)
     args.f = _finalize_args(spec, state)
     args.count = kb.ptr(state["count"])
     args.slot_start = kb.ptr(state["slot_start"])
@@ -1187,26 +1224,26 @@ def _touched_cuda(spec: LatticeSpec, state, max_out: int) -> torch.Tensor:
     out = torch.empty((args.out_rows, max_out), dtype=torch.int32,
                       device=dev)
     args.out = out.data_ptr()
-    blocks = kb.lib().hs_touched_blocks(spec.n_keys * spec.n_slots)
-    scratch = torch.empty(max_out + 1 + blocks, dtype=torch.int32,
-                          device=dev)
-    args.cells = scratch.data_ptr()
-    args.block_counts = scratch[max_out + 1:].data_ptr()
+    scratch = torch.empty(kb.lib().hs_touched_scratch_bytes(
+        spec.n_keys * spec.n_slots, max_out, args.out_rows),
+        dtype=torch.uint8, device=dev)
+    args.scratch = scratch.data_ptr()
     kb.check(kb.lib().hs_touched(ctypes.byref(args), kb.stream_of(out)),
              "touched_extract")
     return out
 
 
 def extract_touched(spec: LatticeSpec, state: dict[str, torch.Tensor],
-                    max_out: int) -> torch.Tensor:
+                    max_out: int, mode: int | None = None) -> torch.Tensor:
     """The changelog extract: packed int32 [3 + rows, max_out] of every
     (key, slot) cell touched since the last call, with `touched` cleared,
-    in one wrapper call: the touched-extract kernels on the card (a
-    compaction and a finalize; a count first for a lattice of more than
-    4096 cells), extract_touched_ref on the CPU."""
+    in one wrapper call: the touched-extract kernels on the card (one
+    launch for a lattice of at most 4096 cells; else a one-pass scan and
+    a finalize, and a pass for the HLL and quantile estimates;
+    touched_plan, `mode` forces one), extract_touched_ref on the CPU."""
     if state["count"].device.type == "cpu":
         return extract_touched_ref(spec, state, max_out)
-    out = _touched_cuda(spec, state, max_out)
+    out = _touched_cuda(spec, state, max_out, mode)
     extract_touched.launches += 1
     return out
 

@@ -43,6 +43,7 @@ from hstream_tpu_torch.engine.expr import (
     DeviceProgram,
     compile_device,
     eval_programs,
+    ftz,
 )
 from hstream_tpu_torch.engine.kernels import binding as kb
 from hstream_tpu_torch.engine.lattice import (  # noqa: F401 — the packed
@@ -289,6 +290,15 @@ def _fold_rows(spec: SessionSpec, out, src: Mapping[str, torch.Tensor],
                 out[nm].index_add_(0, d, rows)
 
 
+def _flush_planes(spec: SessionSpec, out) -> None:
+    """The SUM / AVG / MIN / MAX planes flushed of subnormals, as the
+    reference's float adds and min/max flush them (once here, after the
+    fold)."""
+    for _i, name, agg in _owners(spec):
+        if agg.kind in (AggKind.SUM, AggKind.AVG, AggKind.MIN, AggKind.MAX):
+            out[name].copy_(ftz(out[name]))
+
+
 def _empty_fixup(out) -> None:
     empty = out["code"] >= SESSION_SENT_CODE
     out["t0"].masked_fill_(empty, 0)
@@ -332,7 +342,7 @@ def session_step_ref(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
             torch.ones_like(d, dtype=torch.bool)
         if v.dtype == torch.float32:
             ok &= torch.isfinite(v)
-        vf = v.to(torch.float32)[ok]
+        vf = ftz(v.to(torch.float32))[ok]
         dk = d[ok]
         ones = torch.ones_like(dk, dtype=torch.int32)
         if agg.kind == AggKind.COUNT:
@@ -351,6 +361,7 @@ def session_step_ref(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
         else:  # APPROX_QUANTILE
             b = quantile_bin(vf, spec.qcfg).to(torch.int64)
             out[name].view(-1).index_add_(0, dk * spec.qcfg.n_bins + b, ones)
+    _flush_planes(spec, out)
     _empty_fixup(out)
 
 
@@ -372,6 +383,7 @@ def session_merge_ref(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
     ks = db < cap
     _fold_times(out, db[ks], scode[ks], seg["t0"][ks], seg["t1"][ks])
     _fold_rows(spec, out, seg, db[ks], ks)
+    _flush_planes(spec, out)
     _empty_fixup(out)
 
 
@@ -393,7 +405,7 @@ def session_extract_ref(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
             continue
         if agg.kind == AggKind.AVG:
             n = arena[name + "_n"][at].to(torch.float32)
-            v = arena[name][at] / torch.clamp(n, min=1.0)
+            v = ftz(arena[name][at] / torch.clamp(n, min=1.0))
         elif agg.kind in (AggKind.MIN, AggKind.MAX):
             v = arena[name][at]
             none = float("inf") if agg.kind == AggKind.MIN else float("-inf")

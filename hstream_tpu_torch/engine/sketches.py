@@ -40,6 +40,8 @@ from dataclasses import dataclass
 
 import torch
 
+from hstream_tpu_torch.engine.expr import ftz
+
 _M32 = 0xFFFFFFFF
 
 
@@ -63,7 +65,9 @@ def hash_u32(values: torch.Tensor) -> torch.Tensor:
     """Hash a float32/int32/bool column to uint32 (held in int64)."""
     if values.dtype == torch.float32:
         # canonicalize -0.0 == 0.0 before the bitcast (sketches.py:50)
-        values = torch.where(values == 0.0, torch.zeros_like(values), values)
+        # (a comparison: XLA flushes a subnormal, so it hashes as 0.0)
+        values = torch.where(ftz(values) == 0.0, torch.zeros_like(values),
+                             values)
         bits = values.view(torch.int32).to(torch.int64) & _M32
     else:
         bits = values.to(torch.int32).to(torch.int64) & _M32

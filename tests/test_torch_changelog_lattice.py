@@ -79,9 +79,14 @@ def specs(win: str, n_keys: int = K):
     return jspec, tspec
 
 
-def batches(seed: int, n_batches: int = 4):
+SUBNORMALS = np.array([1e-45, -1e-45, 1e-40, -3e-39, 0.0, -0.0, 2.0],
+                      np.float32)
+
+
+def batches(seed: int, n_batches: int = 4, subnormals: bool = False):
     """(key ids, relative ts, valid, columns, per-column NULL masks,
-    watermark) per batch."""
+    watermark) per batch; with `subnormals`, a quarter of temp and a fifth
+    of hum drawn from SUBNORMALS."""
     rng = np.random.default_rng(seed)
     wm, t0 = -1, 60_000
     pool = np.array([-2.0, -0.0, 0.0, 1e-7, 1.0, 1.0, 2.5, 3.0, np.nan,
@@ -99,6 +104,11 @@ def batches(seed: int, n_batches: int = 4):
                 "hum": rng.lognormal(0, 3, n).astype(np.float32),
                 "cnt": rng.integers(-50, 50, n).astype(np.int32),
                 "flag": rng.random(n) < 0.2}
+        if subnormals:
+            for c, part in (("temp", slice(1, None, 4)),
+                            ("hum", slice(2, None, 5))):
+                x = cols[c][part]
+                x[:] = SUBNORMALS[rng.integers(0, len(SUBNORMALS), len(x))]
         nulls = {c: rng.random(n) < 0.08 for c in COLS}
         valid = rng.random(n) < 0.95
         yield key, ts, valid, cols, nulls, wm
@@ -125,7 +135,7 @@ def step_inputs(spec, schema_cols, cols, nulls, valid, where_cols):
     return out, v
 
 
-def run_steps(win: str, seed: int):
+def run_steps(win: str, seed: int, subnormals: bool = False):
     jspec, tspec = specs(win)
     jschema, tschema = _schema(J), _schema(T)
     agg_inputs, _ = jl.compile_agg_inputs(jspec, jschema)
@@ -134,7 +144,8 @@ def run_steps(win: str, seed: int):
     progs = tl.step_programs(tspec, tschema, _where(te))
     jstate = jl.init_state(jspec)
     tstate = tl.init_state(tspec, "cpu")
-    for key, ts, valid, cols, nulls, wm in batches(seed):
+    for key, ts, valid, cols, nulls, wm in batches(seed,
+                                                   subnormals=subnormals):
         c, v = step_inputs(jspec, None, cols, nulls, valid,
                            ("temp", "flag"))
         jstate = jstep(jstate, np.int32(wm), key, ts, v, c)
@@ -145,9 +156,10 @@ def run_steps(win: str, seed: int):
         yield jspec, tspec, jstate, tstate
 
 
-def assert_states(jspec, jstate, tstate):
-    j = {k: np.asarray(v) for k, v in jstate.items()}
-    t = convert.state_to_numpy(tstate)
+def assert_states(jspec, jstate, tstate, skip=()):
+    j = {k: np.asarray(v) for k, v in jstate.items() if k not in skip}
+    t = {k: v for k, v in convert.state_to_numpy(tstate).items()
+         if k not in skip}
     assert j.keys() == t.keys()
     sums = {jl._plane_name(i, a) for i, a in enumerate(jspec.aggs)
             if a.kind in (J.AggKind.SUM, J.AggKind.AVG)}
@@ -213,6 +225,66 @@ def test_plain_step_matches_build_step_fn(win, seed):
     assert int(np.asarray(jstate["a6_approx_quantile"])[..., 0].sum()) > 0
     if win != "global":    # a cell with fewer records than k
         assert bool(np.isneginf(np.asarray(jstate["a8_topk"])).any())
+
+
+@pytest.mark.parametrize("win", list(WINDOWS))
+def test_plain_step_flushes_subnormals_as_build_step_fn(win):
+    """Subnormal inputs (ROADMAP C, fixed in the port): COUNT(col) counts
+    them, SUM / AVG / MIN / MAX and the quantile bin take them as a zero
+    of their sign, exact against the reference (MIN / MAX by value, as
+    above). The TOPK planes keep a subnormal's bits in both and rank it
+    as a zero; which of the values that rank alike a plane keeps is the
+    reference's unstable sort's (ROADMAP C), so they are equal flushed."""
+    topk = {jl._plane_name(i, a) for i, a in enumerate(specs(win)[0].aggs)
+            if a.kind in (J.AggKind.TOPK, J.AggKind.TOPK_DISTINCT)}
+    for jspec, _, jstate, tstate in run_steps(win, 2, subnormals=True):
+        assert_states(jspec, jstate, tstate, skip=topk)
+        for k in topk:
+            want = te.ftz(torch.from_numpy(np.asarray(jstate[k]).copy()))
+            np.testing.assert_array_equal(te.ftz(tstate[k]).numpy(),
+                                          want.numpy(), err_msg=k)
+    for k, v in tstate.items():     # no subnormal left in a plane
+        if v.dtype == torch.float32 and k not in topk:
+            assert not bool(te.is_subnormal(v).any()), k
+
+
+def test_topk_ranks_subnormals_as_zeros_like_the_reference():
+    """The reference's TOPK keeps a subnormal's bits but ranks and
+    de-duplicates it as the zero of its sign (its sort and its == compare
+    flushed values), and so does the port: TOPK_DISTINCT of {0.0, 1e-45}
+    keeps one of them, then -inf. Which one is the reference's unstable
+    sort's (ROADMAP C); the port keeps the larger bits. A lone subnormal
+    is kept alike."""
+    out = {}
+    for m, e, lat in ((J, je, jl), (T, te, tl)):
+        spec = lat.LatticeSpec(
+            n_keys=2, window=None,
+            aggs=(m.AggSpec(m.AggKind.TOPK_DISTINCT, "td", input=e.Col("x"),
+                            k=3),))
+        out[m] = spec
+    x = np.array([0.0, 1e-45, 1e-45, 5.0], np.float32)
+    key = np.array([0, 0, 1, 1], np.int32)
+    ts = np.zeros(4, np.int32)
+    valid = np.ones(4, np.bool_)
+    cols = {"x": x, "__null_a0": np.zeros(4, np.bool_)}
+    jspec, tspec = out[J], out[T]
+    agg_inputs, _ = jl.compile_agg_inputs(jspec, J.Schema.of(
+        x=J.ColumnType.FLOAT))
+    jst = jax.jit(jl.build_step_fn(jspec, agg_inputs))(
+        jl.init_state(jspec), np.int32(-1), key, ts, valid, cols)
+    tst = tl.init_state(tspec, "cpu")
+    tl.step_decoded(tspec, tst, -1, torch.from_numpy(key),
+                    torch.from_numpy(ts), torch.from_numpy(valid),
+                    {k: torch.from_numpy(v) for k, v in cols.items()},
+                    tl.step_programs(tspec, T.Schema.of(
+                        x=T.ColumnType.FLOAT), None))
+    want = np.asarray(jst["a0_topk_distinct"])[:, 0]
+    got = tst["a0_topk_distinct"].numpy()[:, 0]
+    np.testing.assert_array_equal(got[1].view(np.int32),
+                                  want[1].view(np.int32))  # 5.0, 1e-45
+    for row in (want[0], got[0]):
+        assert row[0] in (0.0, np.float32(1e-45)) and np.isneginf(row[1:]).all()
+    assert got[0, 0].view(np.int32) == 1               # the larger bits
 
 
 @pytest.mark.parametrize("win", ["tumble", "hop"])

@@ -270,24 +270,92 @@ def test_float_unaries_within_their_ulp_bound_of_jnp(op, col):
     assert ulp_distance(got[~odd], want[~odd]).max(initial=0) <= ULP[op]
 
 
-@pytest.mark.parametrize("op,x,ref,port", [
-    ("EXP", -100.0, 0.0, 3.783506e-44),
-    ("EXP", -88.0, 0.0, 6.0546014e-39),
-    ("LOG", 1e-45, -np.inf, -103.27893),
-    ("SQRT", 1e-45, 0.0, 3.7433921e-23),
+@pytest.mark.parametrize("op,x,ref", [
+    ("EXP", -100.0, 0.0),
+    ("EXP", -88.0, 0.0),
+    ("LOG", 1e-45, -np.inf),
+    ("SQRT", 1e-45, 0.0),
 ])
-def test_subnormals_flush_in_the_reference_not_in_the_port(op, x, ref,
-                                                           port):
-    """XLA's CPU backend flushes subnormal inputs and results to zero;
-    the port's plain versions and its kernel (no -ftz) keep them
-    (ROADMAP C, float32 subnormals). Pinned on both sides."""
+def test_subnormals_flush_in_the_port_as_in_the_reference(op, x, ref):
+    """XLA's CPU backend flushes subnormal inputs and results to zero, and
+    so does the port: its plain versions through expr.ftz, its kernel by
+    --ftz=true (ROADMAP C, fixed in the port). Once 3.78e-44, 6.05e-39,
+    -103.28 and 3.74e-23 in the port."""
     j = je.compile_device(JM.UnOp(op, JM.Col("x")), JSchema.of(x=JType.FLOAT))
     t = te.compile_device(TM.UnOp(op, TM.Col("x")),
                           Schema.of(x=ColumnType.FLOAT))
     xs = np.array([x], np.float32)
-    assert np.asarray(j({"x": jnp.asarray(xs)}))[0] == np.float32(ref)
-    got = t({"x": torch.from_numpy(xs)}).numpy()[0]
-    assert got == np.float32(port) and got != np.float32(ref)
+    want = np.asarray(j({"x": jnp.asarray(xs)}))
+    got = t({"x": torch.from_numpy(xs)}).numpy()
+    assert want[0] == np.float32(ref)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+# subnormals of both signs, the smallest normals and their neighbours,
+# zeros, ordinary values and the non-finite ones
+EDGE = np.array([1e-45, -1e-45, 1e-40, -1e-40, 3e-39, -3e-39,
+                 1.1754942e-38, -1.1754942e-38, 1.1754944e-38,
+                 -1.1754944e-38, 2.4e-38, 3e-38, 0.0, -0.0, 1.0, -2.5,
+                 3.0, -7.0, 1e-30, np.nan, np.inf, -np.inf], np.float32)
+_XY = JSchema.of(x=JType.FLOAT, y=JType.FLOAT)
+_TXY = Schema.of(x=ColumnType.FLOAT, y=ColumnType.FLOAT)
+
+
+def _run_xy(jx, tx, x, y):
+    want = np.asarray(je.compile_device(jx, _XY)(
+        {"x": jnp.asarray(x), "y": jnp.asarray(y)}))
+    got = te.compile_device(tx, _TXY)(
+        {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}).numpy()
+    assert got.dtype == want.dtype
+    return want, got
+
+
+def _same_bits(want, got, ulp: int = 0):
+    """Bit for bit (NaN as NaN), or within `ulp` where both are finite
+    and non-zero."""
+    if want.dtype != np.float32:
+        return want == got
+    same = (want.view(np.int32) == got.view(np.int32)) | (
+        np.isnan(want) & np.isnan(got))
+    if ulp:
+        fin = np.isfinite(want) & np.isfinite(got) & (want != 0) & (got != 0)
+        same |= fin & (ulp_distance(got, want) <= ulp)
+    return same
+
+
+@pytest.mark.parametrize("op", ["+", "-", "*", "/", "%", "=", "<>", "<",
+                                "<=", ">", ">="])
+def test_binary_float_ops_flush_subnormals_as_jnp(op):
+    """Every pair of EDGE values: the flushed operands and results bit for
+    bit, jnp.remainder's unflushed pass-through of a subnormal remainder
+    included."""
+    x, y = np.repeat(EDGE, len(EDGE)), np.tile(EDGE, len(EDGE))
+    want, got = _run_xy(JM.BinOp(op, JM.Col("x"), JM.Col("y")),
+                        TM.BinOp(op, TM.Col("x"), TM.Col("y")), x, y)
+    bad = ~_same_bits(want, got)
+    assert not bad.any(), list(zip(x[bad], y[bad], want[bad], got[bad]))[:5]
+
+
+def _tiny(seed: int) -> np.ndarray:
+    """Magnitudes from 2^-149 to 2^-100 of both signs, then EDGE."""
+    rng = np.random.default_rng(seed)
+    m = np.float32(2.0) ** rng.uniform(-149, -100, 600).astype(np.float32)
+    return np.concatenate([m * rng.choice([-1, 1], 600),
+                           EDGE]).astype(np.float32)
+
+
+@pytest.mark.parametrize("op", list(ULP) + ["CEIL", "FLOOR", "ROUND",
+                                            "SIGN", "SQRT", "NEG", "ABS"])
+def test_unaries_flush_subnormals_as_jnp(op):
+    """A tiny or subnormal operand of each unary: flushed where XLA
+    flushes it (NEG and ABS are bit operations and keep it; SIN, TAN,
+    ATAN and TANH return it as it is; ASIN flushes below 2^-125), the
+    rest of the results within the unary's ULP bound."""
+    x = _tiny(len(op))
+    want, got = _run_xy(JM.UnOp(op, JM.Col("x")), TM.UnOp(op, TM.Col("x")),
+                        x, x)
+    bad = ~_same_bits(want, got, ULP.get(op, 0))
+    assert not bad.any(), list(zip(x[bad], want[bad], got[bad]))[:5]
 
 
 @pytest.mark.parametrize("name", list(compound(JM)))

@@ -1,7 +1,8 @@
 """Parity of the port's plain sketch functions with hstream_tpu's.
 
 Hash, register index and rank are integer functions and must match
-exactly, for float32 (with -0.0 canonicalized), int32 and bool inputs.
+exactly, for float32 (with -0.0 canonicalized and subnormals hashed as
+0.0, as the reference's jitted step does), int32 and bool inputs.
 The HLL estimate sums the registers' 2^-r terms exactly in the port and
 in float32 in the reference: held to rel 1e-6, in both the
 linear-counting and the harmonic-mean regime.
@@ -15,6 +16,7 @@ held to rel 1e-6, for q = 0, 0.5, 0.99 and 1 and an empty histogram.
 
 from __future__ import annotations
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -38,10 +40,14 @@ def _values(kind: str, rng) -> np.ndarray:
 @pytest.mark.parametrize("p", [4, 10, 14])
 def test_hash_register_and_rank_match(kind, p):
     v = _values(kind, np.random.default_rng(p))
-    jh = np.asarray(js.hash_u32(v))
+    # jitted, as the reference's step runs them: its -0.0 test is then an
+    # XLA comparison, which flushes the subnormal 1e-45 to 0.0 (called
+    # eagerly on a numpy array it is numpy's, which does not)
+    jh = np.asarray(jax.jit(js.hash_u32)(v))
     th = ts.hash_u32(torch.from_numpy(v)).numpy()
     np.testing.assert_array_equal(th, jh.astype(np.int64))
-    jr, jk = js.hll_update_indices(v, js.HLLConfig(p))
+    jr, jk = jax.jit(js.hll_update_indices, static_argnums=1)(
+        v, js.HLLConfig(p))
     tr, tk = ts.hll_update_indices(torch.from_numpy(v), ts.HLLConfig(p))
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))

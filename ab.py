@@ -2,7 +2,7 @@
 another checkout (the parent commit's, or any tree with chip_smoke.py),
 on one CUDA card, in one call.
 
-    python3 ab.py scatter|join OTHER_TREE
+    python3 ab.py scatter|join|decode OTHER_TREE
 
 runs OTHER_TREE, this tree, this tree, OTHER_TREE, each in a process of
 its own that builds its tree's kernels and times the group on the same
@@ -37,6 +37,23 @@ the host's gaps; the touched extract's refill of its flags timed alone
 and taken out), then the same by CUDA events around the 20 calls
 (", call"), which for a short kernel is the host's launch path; and the
 fused call's device time by stage (the tree's _by_stage).
+
+decode: the wire decode (B1a) and the top-k fold (B8), timed as the
+join group's are (device ms and ", call"; " by kernel" splits a call's
+device time by kernel):
+  * "decode headline", "decode changelog": transport.decode_batch of
+    the headline and changelog wires (2^20 records; the changelog's
+    carries __valid and five __null_a{i} streams);
+  * "decode delta 3x": a 3 x 2^20-record headline-like wire (keys,
+    delta-packed ms timestamps, one-decimal temps);
+  * "topk steady": lattice.topk_step on the changelog batch (WHERE
+    applied) after one call, so the planes are full;
+  * "topk fresh": the same on planes refilled to -inf before each call
+    (the first batch of a window), the refill timed alone and taken out;
+  * "ptxas": ptxas's registers, stack frame and spills of the decode,
+    top-k and evict kernels, from the tree's build;
+  * "write floor": PyTorch's fill of the headline decode's four output
+    columns (2^20 records: 13 B each), the time of its writes alone.
 """
 
 from __future__ import annotations
@@ -269,7 +286,93 @@ def _join() -> dict:
     return out
 
 
-GROUPS = {"scatter": _scatter, "join": _join}
+def _decode() -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from hstream_tpu_torch.engine import expr as ex, lattice
+    from hstream_tpu_torch.engine import transport as tp
+    from hstream_tpu_torch.engine.kernels import build as kbuild
+
+    built = kbuild.build()
+    dev = torch.device("cuda", 0)
+    out = {"ptxas": _ptxas(built.log, ("decode.cu", "topk.cu",
+                                       "join_evict.cu"))}
+
+    def ms(name, fn, less=None):
+        dev_ms, call_ms, _src = cs.kernel_ms(fn, 20)
+        if less is not None:
+            dev_ms, call_ms = dev_ms - less[0], call_ms - less[1]
+        out[name], out[name + ", call"] = dev_ms, call_ms
+        d = cs.profiled_calls(fn, 5, name)
+        out[name + " by kernel"] = (None if d is None else {
+            k: v / 5e3 for k, v in d.items()})
+
+    def fill():  # the headline decode's outputs, written by PyTorch
+        for dt in (torch.int32, torch.int32, torch.float32, torch.bool):
+            torch.empty(cs.BATCH, dtype=dt, device=dev).fill_(1)
+
+    ms("write floor", fill)
+    w, combo, bases, _ = cs.headline_batch(dev, cs.make_spec(1))
+    ms("decode headline",
+       lambda: tp.decode_batch(w, combo, cs.BATCH, cs.BATCH, bases))
+    chg = cs.changelog_batch(dev)
+    cw, ccombo, cbases = chg[3]
+    ms("decode changelog",
+       lambda: tp.decode_batch(cw, ccombo, cs.BATCH, cs.BATCH, cbases))
+    big = 3 * cs.BATCH
+    rng = np.random.default_rng(12)
+    kids = rng.integers(0, cs.N_KEYS, big).astype(np.int32)
+    ts = 10_000 + (np.arange(big, dtype=np.int64) * 600) // big
+    temps = (np.rint(rng.normal(20, 5, big) * 10).astype(np.float32)
+             * np.float32(0.1))
+    bcombo, bbases, bwords = tp.BitpackTransport().encode(
+        big, big, kids, ts, {"temp": temps}, (("temp", "f32"),))
+    bw = torch.from_numpy(bwords.view(np.int32)).to(dev)
+    out["delta 3x encodings"] = [(p.name, p.enc, p.bits) for p in bcombo]
+    ms("decode delta 3x", lambda: tp.decode_batch(bw, bcombo, big, big,
+                                                   bbases))
+    del bw
+
+    cspec, progs, (key, ts, valid, cols), _ = chg
+    cols, valid = dict(cols), valid.clone()
+    ex.eval_programs(progs, cols, valid)
+    st = lattice.init_state(cspec, dev)
+    lattice.topk_step(cspec, st, -1, key, ts, valid, cols)
+    ms("topk steady",
+       lambda: lattice.topk_step(cspec, st, -1, key, ts, valid, cols))
+    planes = [k for k in st if k.endswith(("_topk", "_topk_distinct"))]
+    fresh = {k: torch.full_like(st[k], float("-inf")) for k in planes}
+
+    def refill():
+        for k in planes:
+            st[k].copy_(fresh[k])
+
+    less = cs.kernel_ms(refill, 20)[:2]
+    ms("topk fresh", lambda: (refill(), lattice.topk_step(
+        cspec, st, -1, key, ts, valid, cols)), less)
+    out["topk fresh refill"] = less[0]
+    return out
+
+
+def _ptxas(log: str, sources) -> dict:
+    """{source: [ptxas lines]}: each kernel's function properties
+    (stack frame, spills) and registers, from nvcc's -Xptxas -v output
+    ("" when the library was already built)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if line.startswith("== "):
+            cur = line[3:].strip()
+            continue
+        if cur in sources and ("Compiling entry" in line
+                               or "Function properties" in line
+                               or "stack frame" in line
+                               or "registers" in line):
+            out.setdefault(cur, []).append(line.strip())
+    return out
+
+
+GROUPS = {"scatter": _scatter, "join": _join, "decode": _decode}
 
 
 def main() -> int:

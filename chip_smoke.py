@@ -471,6 +471,54 @@ def headline_batch(dev, spec):
                                                 bases)
 
 
+def decode_vs_plain(w, combo, cap: int, n: int, bases, name: str) -> None:
+    """The wire-decode kernel bit for bit against its plain version."""
+    from hstream_tpu_torch.engine import transport as tp
+
+    got = tp.decode_batch(w, combo, cap, n, bases)
+    want = tp.decode_batch_ref(w, combo, cap, n, bases)
+    torch.cuda.synchronize()
+    for g, r in zip(got[:3], want[:3]):
+        assert torch.equal(g, r), f"decode {name}: key/ts/valid differ"
+    assert got[3].keys() == want[3].keys(), name
+    for col in got[3]:
+        g, r = got[3][col], want[3][col]
+        assert g.dtype == r.dtype and torch.equal(
+            g.view(torch.uint8), r.view(torch.uint8)), \
+            f"decode {name}: column {col} differs"
+
+
+def random_wire(dev, rng, combo, cap: int):
+    """(words, bases) of random bits for a combo built by hand: every
+    value of every stream is arbitrary, and a 32-bit delta stream's
+    running sum wraps past 2^32 again and again."""
+    from hstream_tpu_torch.engine import transport as tp
+
+    n_words = sum(p.words(cap) for p in combo)
+    words = rng.integers(-(1 << 31), 1 << 31, n_words).astype(np.int32)
+    bases = [int(b) for b in rng.integers(-(1 << 30), 1 << 30, len(combo))]
+    assert tp.wire_bytes(combo, cap) == 4 * n_words
+    return torch.from_numpy(words).to(dev), bases
+
+
+def wide_combo(delta: bool):
+    """16 streams, the kernel's most: keys, timestamps (delta-packed or
+    not), __valid, and 13 columns over every encoding."""
+    from hstream_tpu_torch.engine.transport import StreamPlan as P
+
+    return (P("__kid", "bp", bits=10),
+            P("__dt", "bpd" if delta else "bp", bits=32 if delta else 20),
+            P("__valid", "bool1"),
+            P("b0", "bp", bits=0), P("b3", "bp", bits=3),
+            P("b5", "bp", bits=5), P("b12", "bp", bits=12),
+            P("b28", "bp", bits=28), P("b32", "bp", bits=32),
+            P("f1", "bool1"), P("f2", "bool1"),
+            P("d10", "dec", scale=10, bits=16),
+            P("d100", "dec", scale=100, bits=24), P("d1", "dec", scale=1,
+                                                   bits=1),
+            P("rf", "rawf"), P("ri", "rawi"))
+
+
 def check_decode(dev, results, head):
     from hstream_tpu_torch.engine import transport as tp
 
@@ -510,20 +558,29 @@ def check_decode(dev, results, head):
             cap, n, kids, t, c, lay, valid=valid)
         encs |= {(p.enc, p.bits) for p in combo}
         w = torch.from_numpy(words.view(np.int32)).to(dev)
-        got = tp.decode_batch(w, combo, cap, n, bases)
-        want = tp.decode_batch_ref(w, combo, cap, n, bases)
-        torch.cuda.synchronize()
-        for g, r in zip(got[:3], want[:3]):
-            assert torch.equal(g, r), f"decode {name}: key/ts/valid differ"
-        assert got[3].keys() == want[3].keys(), name
-        for col in got[3]:
-            g, r = got[3][col], want[3][col]
-            assert g.dtype == r.dtype and torch.equal(
-                g.view(torch.uint8), r.view(torch.uint8)), \
-                f"decode {name}: column {col} differs"
+        decode_vs_plain(w, combo, cap, n, bases, name)
     assert {"bp", "bpd", "bool1", "dec", "rawf", "rawi"} <= \
         {e for e, _ in encs}, encs
     assert {0, 1, 32} <= {b for e, b in encs if e == "bp"}, encs
+    # wires built by hand from random bits: caps that are not a multiple
+    # of the kernel's 1024-value tile (down to a partial group of four),
+    # a 3 x 2^20-record wire whose 32-bit deltas wrap past 2^32 (more
+    # than 32 look-back rounds at any grid), 16 streams, with and
+    # without a delta stream
+    hand = [("16 streams", wide_combo(True), cap, n),
+            ("16 streams, no delta stream", wide_combo(False), cap, n),
+            ("cap off the tile", wide_combo(True), BATCH - 333,
+             BATCH - 400),
+            ("cap 5", wide_combo(True), 5, 3),
+            ("cap 1023", wide_combo(True), 1023, 1023),
+            ("3 x 2^20 wrapping deltas", wide_combo(True)[:4] + (
+                tp.StreamPlan("temp", "dec", scale=10, bits=12),),
+             3 * BATCH, 3 * BATCH - 7)]
+    for name, combo, hcap, hn in hand:
+        w, bases = random_wire(dev, rng, combo, hcap)
+        decode_vs_plain(w, combo, hcap, hn, bases, name)
+        # the scratch is left zeroed: a second launch agrees too
+        decode_vs_plain(w, combo, hcap, hn, bases, name + ", again")
     w, combo, bases, _ = head
     ms, call, src = kernel_ms(lambda: tp.decode_batch(w, combo, BATCH,
                                                       BATCH, bases), 50)
@@ -531,15 +588,21 @@ def check_decode(dev, results, head):
                                                   bases), 5)[0]
     nbytes = w.numel() * 4 + BATCH * (4 + 4 + 1 + 4)
     b_ms, b_by = bound(nbytes, BATCH * len(combo) * 8)
+    plan = tp.decode_plan(BATCH, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     results["wire_decode"] = dict(
         route="cuda",
         source="hstream_tpu_torch/engine/kernels/csrc/decode.cu",
         replaces="hstream_tpu/engine/transport.py:197",
         max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=None, call_ms=call, ms_source=src,
-        wire_bytes_per_event=w.numel() * 4 / BATCH)
-    log(f"wire_decode: {len(cases)} wires bit-exact over {sorted(encs)}; "
-        f"{ms:.4f} ms (plain {plain:.4f}, bound {b_ms:.4f})")
+        wire_bytes_per_event=w.numel() * 4 / BATCH,
+        plan=plan._asdict())
+    log(f"wire_decode: {len(cases) + len(hand)} wires bit-exact over "
+        f"{sorted(encs)} and {len(hand)} hand-built random wires "
+        f"({', '.join(h[0] for h in hand)}); {ms:.4f} ms (plain "
+        f"{plain:.4f}, bound {b_ms:.4f}; grid {plan.blocks} blocks x "
+        f"{plan.tiles} tiles)")
 
 
 def awkward_inputs(dev, seed: int, n: int = BATCH):
@@ -1610,35 +1673,106 @@ def topk_inputs(dev, seed: int):
     return t(key).to(dev), t(ts).to(dev), t(valid).to(dev), cols
 
 
-def check_topk(dev, results, chg):
-    """K4: both variants bit-exact against the plain fold, k = 3 and 1,
-    two rounds; then timed on the changelog batch."""
+def topk_spec(n_keys: int = 1024):
+    """check_topk's lattice: TOPK and TOPK_DISTINCT at k = 3 and 1."""
     from hstream_tpu_torch.engine import AggKind as A, AggSpec
     from hstream_tpu_torch.engine import TumblingWindow, lattice
     from hstream_tpu_torch.engine.expr import Col
 
     x = Col("temp")
-    spec = lattice.LatticeSpec(
-        n_keys=1024, window=TumblingWindow(10_000, grace_ms=0),
+    return lattice.LatticeSpec(
+        n_keys=n_keys, window=TumblingWindow(10_000, grace_ms=0),
         aggs=(AggSpec(A.TOPK, "t3", input=x, k=3),
               AggSpec(A.TOPK_DISTINCT, "d3", input=x, k=3),
               AggSpec(A.TOPK, "t1", input=x, k=1),
               AggSpec(A.TOPK_DISTINCT, "d1", input=x, k=1)))
-    state = lattice.init_state(spec, dev)
-    for rnd in range(2):
-        key, ts, valid, cols = topk_inputs(dev, 50 + rnd)
-        a, b = copy_state(state), copy_state(state)
-        lattice.topk_step(spec, a, 205_000, key, ts, valid, cols)
-        lattice.topk_step_ref(spec, b, 205_000, key, ts, valid, cols)
-        torch.cuda.synchronize()
-        for k in b:
-            assert same_bits(a[k], b[k]), f"topk round {rnd}: {k}"
-        state = b
-    assert bool(torch.isneginf(state["a0_topk"][:, :, 2]).any()), \
-        "no cell with fewer records than k"
-    zeros = {k: (int((v.view(torch.int32) == 0).sum()),
-                 int((v.view(torch.int32) == -(1 << 31)).sum()))
-             for k, v in state.items() if k.startswith("a")}
+
+
+def topk_vs_plain(spec, state, wm, key, ts, valid, cols, what: str,
+                  mode=None) -> dict:
+    """One top-k launch (in `mode`) bit for bit against the plain fold
+    from the same state; returns the plain fold's state."""
+    from hstream_tpu_torch.engine import lattice
+
+    a, b = copy_state(state), copy_state(state)
+    lattice.topk_step(spec, a, wm, key, ts, valid, cols, mode=mode)
+    lattice.topk_step_ref(spec, b, wm, key, ts, valid, cols)
+    torch.cuda.synchronize()
+    for k in b:
+        assert same_bits(a[k], b[k]), f"topk {what}: {k}"
+    return b
+
+
+def topk_edge_batches(dev):
+    """(name, batches, n_keys): every record of a batch in one cell of a
+    fresh plane (every candidate contends for it); two batches over the
+    same cells, the second's values all above the first's, so a later
+    batch raises every k-th value a block read, copied or cached while
+    other blocks merge; and a lattice of 2^16 keys, whose planes exceed a
+    block's shared memory."""
+    rng = np.random.default_rng(53)
+    n = 1 << 18
+    t = torch.from_numpy
+
+    def batch(key, v, ts=None):
+        ts = (200_000 + rng.integers(0, 9_000, n) if ts is None else ts)
+        cols = {"temp": t(v.astype(np.float32)).to(dev)}
+        for i in range(4):
+            cols[f"__null_a{i}"] = t(rng.random(n) < 0.02).to(dev)
+        return (t(key.astype(np.int32)).to(dev),
+                t(ts.astype(np.int32)).to(dev),
+                t(rng.integers(0, 40, n) > 0).to(dev), cols)
+
+    one = np.full(n, 7)
+    ties = (rng.normal(0, 3, n) * 4).round() / 4
+    keys = rng.integers(0, 1024, n)
+    low, high = rng.random(n), 1.0 + rng.random(n)
+    big = rng.integers(0, 1 << 16, n)
+    return [("one cell", [batch(one, ties)], 1024),
+            ("a later batch above the staged k-th",
+             [batch(keys, low), batch(keys, high)], 1024),
+            ("2^16 keys", [batch(big, ties), batch(big, ties + 1)],
+             1 << 16)]
+
+
+def check_topk(dev, results, chg):
+    """K4: both variants bit-exact against the plain fold, k = 3 and 1,
+    two rounds, in both branches (block-private and global); the edge
+    batches (topk_edge_batches); then timed on the changelog batch, in
+    steady state (the planes full) and on fresh planes (the first batch
+    of a window)."""
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine.kernels import binding as kb
+
+    spec = topk_spec()
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert lattice.topk_plan(spec, 1 << 18, n_sms).mode == kb.TOPK_PRIVATE
+    branches = (("private", kb.TOPK_PRIVATE), ("global", kb.TOPK_GLOBAL))
+    zeros = {}
+    for bname, mode in branches:
+        state = lattice.init_state(spec, dev)
+        for rnd in range(2):
+            key, ts, valid, cols = topk_inputs(dev, 50 + rnd)
+            state = topk_vs_plain(spec, state, 205_000, key, ts, valid,
+                                  cols, f"{bname} round {rnd}", mode)
+        assert bool(torch.isneginf(state["a0_topk"][:, :, 2]).any()), \
+            "no cell with fewer records than k"
+        zeros[bname] = {
+            k: (int((v.view(torch.int32) == 0).sum()),
+                int((v.view(torch.int32) == -(1 << 31)).sum()))
+            for k, v in state.items() if k.startswith("a")}
+    edge = []
+    for name, batches, n_keys in topk_edge_batches(dev):
+        espec = topk_spec(n_keys)
+        auto = lattice.topk_plan(espec, 1 << 18, n_sms).mode
+        assert (auto == kb.TOPK_GLOBAL) == (n_keys > 1024), (name, auto)
+        for rname, mode in (("auto", None), ("global", kb.TOPK_GLOBAL)):
+            state = lattice.init_state(espec, dev)
+            for bi, (key, ts, valid, cols) in enumerate(batches):
+                state = topk_vs_plain(espec, state, 205_000, key, ts, valid,
+                                      cols, f"{name}, {rname}, batch {bi}",
+                                      mode)
+        edge.append(name)
     # timed on the changelog batch: steady state, planes already filled
     cspec, progs, (key, ts, valid, cols), _ = chg
     from hstream_tpu_torch.engine import expr as ex
@@ -1646,9 +1780,22 @@ def check_topk(dev, results, chg):
     cols, valid = dict(cols), valid.clone()
     ex.eval_programs(progs, cols, valid)
     st = lattice.init_state(cspec, dev)
-    lattice.topk_step(cspec, st, -1, key, ts, valid, cols)
+    fresh = topk_vs_plain(cspec, st, -1, key, ts, valid, cols,
+                          "changelog batch, fresh planes")
+    st = topk_vs_plain(cspec, fresh, -1, key, ts, valid, cols,
+                       "changelog batch, full planes")
     ms, call, src = kernel_ms(lambda: lattice.topk_step(
         cspec, st, -1, key, ts, valid, cols), 30)
+    planes = [k for k in st if k.endswith(("_topk", "_topk_distinct"))]
+    empty = {k: torch.full_like(st[k], float("-inf")) for k in planes}
+
+    def refill():
+        for k in planes:
+            st[k].copy_(empty[k])
+
+    refill_ms = kernel_ms(refill, 20)[0]
+    ms_fresh = kernel_ms(lambda: (refill(), lattice.topk_step(
+        cspec, st, -1, key, ts, valid, cols)), 20)[0] - refill_ms
     plain = kernel_ms(lambda: lattice.topk_step_ref(
         cspec, st, -1, key, ts, valid, cols), 3)[0]
     cell = key.long() * cspec.n_slots + torch.remainder(
@@ -1658,17 +1805,21 @@ def check_topk(dev, results, chg):
     touched_cells = int(torch.unique(cell).numel())
     nbytes = BATCH * (4 + 4 + 1 + 4 + 2) + 2 * 2 * touched_cells * TOPK_K * 4
     b_ms, b_by = bound(nbytes, BATCH * 2 * 4)
+    plan = lattice.topk_plan(cspec, BATCH, n_sms)
     results["topk_fold"] = dict(
         route="cuda",
         source="hstream_tpu_torch/engine/kernels/csrc/topk.cu",
         replaces="hstream_tpu/engine/lattice.py:258",
         max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib, call_ms=call, ms_source=src)
-    log(f"topk_fold: both variants, k 3 and 1, bit-exact over ties, +-0.0, "
-        f"subnormals "
-        f"(kept +0.0/-0.0 per plane: {zeros}), NaN, +-inf, short cells; "
-        f"{ms:.4f} ms (plain {plain:.4f}, library sort {lib:.4f}, bound "
-        f"{b_ms:.4f})")
+        bound_by=b_by, library_ms=lib, call_ms=call, ms_source=src,
+        ms_fresh=ms_fresh, plan=plan._asdict(),
+        smem_bytes=lattice.topk_smem_bytes(cspec))
+    log(f"topk_fold: both variants, k 3 and 1, bit-exact in both branches "
+        f"over ties, +-0.0, subnormals (kept +0.0/-0.0 per plane: "
+        f"{zeros}), NaN, +-inf, short cells, and {', '.join(edge)}; "
+        f"{ms:.4f} ms in steady state, {ms_fresh:.4f} ms on fresh planes "
+        f"(plain {plain:.4f}, library sort {lib:.4f}, bound {b_ms:.4f}; "
+        f"mode {plan.mode}, {plan.blocks} blocks)")
 
 
 JOIN_TOUCHED = "join (BASELINE 5)"   # the path of B6's second shape
@@ -1876,8 +2027,18 @@ def time_changelog_step(dev, results, chg):
     from hstream_tpu_torch.engine.kernels import binding as kb
 
     cspec, progs, (key, ts, valid, cols), (w, combo, bases) = chg
-    results["wire_decode"]["ms_changelog"] = kernel_ms(
+    dec = results["wire_decode"]
+    dec["ms_changelog"] = kernel_ms(
         lambda: tp.decode_batch(w, combo, BATCH, BATCH, bases), 50)[0]
+    # the decode's bound on this wire: the words read once, and per
+    # record key, ts and temp (4 B each), valid and each NULL mask (1 B)
+    # written once
+    masks = sum(1 for c in cols if c.startswith("__null_a"))
+    dec["bound_ms_changelog"], dec["bound_by_changelog"] = bound(
+        w.numel() * 4 + BATCH * (3 * 4 + 1 + masks), BATCH * len(combo) * 8)
+    log(f"wire_decode at the changelog path's shapes ({len(combo)} "
+        f"streams): {dec['ms_changelog']:.4f} ms (bound "
+        f"{dec['bound_ms_changelog']:.4f} by {dec['bound_by_changelog']})")
     from hstream_tpu_torch.engine.sketches import quantile_bin
 
     cols, valid = dict(cols), valid.clone()
@@ -2121,7 +2282,6 @@ def changelog_path(dev) -> dict:
 PROFILE_BATCHES = 30
 # device events of the changelog path, by the kernel wrapper they serve
 _EVENT_KERNEL = {"decode_kernel": "wire_decode",
-                 "delta_fixup_kernel": "wire_decode",
                  "expr_kernel": "expression",
                  "scatter_private": "scatter_aggregate",
                  "scatter_cluster": "scatter_aggregate",

@@ -22,6 +22,9 @@ ENC_CODES = {"bp": 0, "bpd": 1, "bool1": 2, "dec": 3, "rawf": 4, "rawi": 5}
  AGG_QUANT, AGG_TOPK, AGG_TOPK_DISTINCT) = range(10)
 CLOSE_EXTRACT_RESET, CLOSE_EXTRACT, CLOSE_RESET = range(3)  # close modes
 SCATTER_GLOBAL, SCATTER_PRIVATE, SCATTER_CLUSTER = range(3)  # scatter modes
+TOPK_GLOBAL, TOPK_PRIVATE = range(2)  # top-k modes
+TOPK_PRIVATE_THREADS, TOPK_GLOBAL_THREADS, TOPK_PER = 1024, 256, 4
+DECODE_THREADS, DECODE_PER = 256, 4   # the wire decode's blocks
 VTYPES = {torch.float32: 0, torch.int32: 1, torch.bool: 2}
 EXPR_MAX_COLS = 16
 EXPR_MAX_PROGS = MAX_AGGS + 1
@@ -38,8 +41,10 @@ class DecodeArgs(C.Structure):
     _fields_ = [("words", C.c_void_p), ("cap", C.c_int32),
                 ("n", C.c_int32), ("n_streams", C.c_int32),
                 ("valid_stream", C.c_int32), ("delta_stream", C.c_int32),
-                ("valid_out", C.c_void_p), ("block_sums", C.c_void_p),
-                ("s", Stream * MAX_STREAMS)]
+                ("blocks", C.c_int32), ("tiles", C.c_int32),
+                ("delta_warps", C.c_int32),
+                ("valid_out", C.c_void_p), ("status", C.c_void_p),
+                ("epoch", C.c_uint32), ("s", Stream * MAX_STREAMS)]
 
 
 class ExprOp(C.Structure):
@@ -69,6 +74,10 @@ class ScatterAgg(C.Structure):
                 ("width", C.c_int32)]
 
 
+class Divisor(C.Structure):
+    _fields_ = [("m", C.c_uint32), ("shift", C.c_int32)]
+
+
 class ScatterArgs(C.Structure):
     _fields_ = [("key", C.c_void_p), ("ts", C.c_void_p),
                 ("valid", C.c_void_p), ("cap", C.c_int32),
@@ -79,7 +88,9 @@ class ScatterArgs(C.Structure):
                 ("q_min", C.c_float), ("q_gamma", C.c_float),
                 ("count", C.c_void_p), ("slot_start", C.c_void_p),
                 ("touched", C.c_void_p), ("locks", C.c_void_p),
+                ("bounds", C.c_void_p), ("epoch", C.c_uint32),
                 ("mode", C.c_int32), ("blocks", C.c_int32),
+                ("adv_div", Divisor), ("slot_div", Divisor),
                 ("n_aggs", C.c_int32), ("a", ScatterAgg * MAX_AGGS)]
 
 

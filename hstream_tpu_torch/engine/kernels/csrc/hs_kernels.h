@@ -36,6 +36,11 @@ struct HsStream {
     void *out;          // [cap] int32 / float32 / uint8, NULL = not kept
 };
 
+// the wire decode's blocks: HS_DECODE_THREADS threads, HS_DECODE_PER
+// consecutive values a thread, so tiles of 1024 values
+#define HS_DECODE_THREADS 256
+#define HS_DECODE_PER 4
+
 struct HsDecodeArgs {
     const uint32_t *words;
     int32_t cap;
@@ -43,8 +48,13 @@ struct HsDecodeArgs {
     int32_t n_streams;
     int32_t valid_stream;  // index of the __valid stream, -1 = none
     int32_t delta_stream;  // index of the (single) bpd stream, -1 = none
+    int32_t blocks;        // grid size (transport.decode_plan)
+    int32_t tiles;         // tiles of 1024 values a block
+    int32_t delta_warps;   // bpd: the warps a block gives the delta stream
     uint8_t *valid_out;    // [cap]: row < n and its __valid bit
-    uint32_t *block_sums;  // [cap / 1024 rounded up] scratch for bpd
+    uint64_t *status;      // bpd: [blocks] look-back words, zeroed when
+                           // made; a launch reads its own epoch's only
+    uint32_t epoch;        // bpd: this launch's tag, rising
     HsStream s[HS_MAX_STREAMS];
 };
 
@@ -113,6 +123,22 @@ struct HsExprArgs {
 enum { HS_SCATTER_GLOBAL = 0, HS_SCATTER_PRIVATE = 1,
        HS_SCATTER_CLUSTER = 2 };
 
+// top-k modes (lattice.topk_plan): each block folds into a copy of the
+// [K, W, k] planes in shared memory and merges what changed into the
+// global planes once; or every candidate takes its cell's lock on the
+// global planes
+enum { HS_TOPK_GLOBAL = 0, HS_TOPK_PRIVATE = 1 };
+#define HS_TOPK_PRIVATE_THREADS 1024
+#define HS_TOPK_GLOBAL_THREADS 256
+#define HS_TOPK_PER 4          // records a thread takes at a time
+
+// floor division by d > 0 with a multiplier computed on the host
+// (lattice.divisor, record.cuh hs::fdiv)
+struct HsDivisor {
+    uint32_t m;            // ceil(2^shift / d)
+    int32_t shift;         // 31 + ceil(log2 d)
+};
+
 struct HsScatterAgg {
     int32_t kind;          // HS_AGG_*
     int32_t vtype;         // HS_T_* of the input column
@@ -144,8 +170,13 @@ struct HsScatterArgs {
     int32_t *slot_start;   // [W]
     uint8_t *touched;      // [K, W]
     int32_t *locks;        // top-k: [K, W] zeroed, left zeroed
-    int32_t mode;          // scatter: HS_SCATTER_*
-    int32_t blocks;        // scatter: grid size
+    uint64_t *bounds;      // top-k private: [n_aggs, K, W], zeroed when
+                           // made; a launch reads its own epoch's only
+    uint32_t epoch;        // top-k private: this launch's tag, rising
+    int32_t mode;          // scatter: HS_SCATTER_*; top-k: HS_TOPK_*
+    int32_t blocks;        // grid size
+    HsDivisor adv_div;     // top-k: floor division by advance (> 0)
+    HsDivisor slot_div;    // top-k: by n_slots
     int32_t n_aggs;
     HsScatterAgg a[HS_MAX_AGGS];
 };

@@ -51,6 +51,34 @@ __device__ __forceinline__ int floor_div(int a, int b) {
     return (a - floor_mod(a, b)) / b;
 }
 
+// floor division of a by d > 0 with the host's multiplier (HsDivisor,
+// lattice.divisor): for 0 <= x < 2^31, x / d == (x * m) >> shift with
+// m = ceil(2^shift / d) and shift = 31 + ceil(log2 d) (Granlund and
+// Montgomery 1994, Theorem 4.2; m < 2^32, the product < 2^63); a
+// negative a divides as floor(a / d) == ~(~a / d), ~a = -a - 1 >= 0.
+// Used by the top-k fold (window_slot) in place of floor_div/floor_mod.
+__device__ __forceinline__ int fdiv(int a, const HsDivisor &f) {
+    const uint32_t x = (uint32_t)(a ^ (a >> 31));
+    const uint32_t q = (uint32_t)(((uint64_t)x * f.m) >> f.shift);
+    return a < 0 ? ~(int)q : (int)q;
+}
+
+// window j of a record at t: its slot; false when the window is late or
+// before the epoch (record_window's semantics, with fdiv)
+__device__ __forceinline__ bool window_slot(const HsScatterArgs &a, int t,
+                                            int j, int &slot) {
+    slot = 0;
+    if (a.advance <= 0) return true;
+    // t - floor_mod(t, advance), mod 2^32 as the reference wraps it
+    const unsigned latest = (unsigned)fdiv(t, a.adv_div) * (unsigned)a.advance;
+    const int start = (int)(latest - (unsigned)j * (unsigned)a.advance);
+    const int end = (int)((unsigned)start + (unsigned)a.size_grace);
+    if (end <= a.watermark || start < 0) return false;
+    const int q = fdiv(start, a.adv_div);  // >= 0
+    slot = q - fdiv(q, a.slot_div) * a.n_slots;
+    return true;
+}
+
 // window j of record i: its start and slot; false when the record is
 // invalid or the window is late or before the epoch
 __device__ __forceinline__ bool record_window(const HsScatterArgs &a, int i,

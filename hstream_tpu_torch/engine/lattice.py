@@ -422,7 +422,7 @@ def _step_args(spec: LatticeSpec, state, watermark: int, key_ids, ts, valid,
 # block, less 1 KB for the kernel's static shared memory (scatter.cu)
 SCATTER_SMEM_LIMIT = 232_448 - 1024
 _SM_SMEM = 233_472          # shared memory of one SM, 1 KB of it per block
-H100_SMS = 132
+H100_SMS = transport.H100_SMS
 SCATTER_CLUSTER = 8         # blocks a cluster in the cluster mode
 _PRIVATE_KINDS = (AggKind.COUNT, AggKind.SUM, AggKind.AVG, AggKind.MIN,
                   AggKind.MAX)
@@ -472,11 +472,6 @@ def scatter_plan(spec: LatticeSpec, cap: int, n_sms: int = H100_SMS,
     return ScatterPlan(mode, blocks)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def scatter_step(spec: LatticeSpec, state: dict[str, torch.Tensor],
                  watermark: int, key_ids: torch.Tensor, ts: torch.Tensor,
                  valid: torch.Tensor, cols: Mapping[str, torch.Tensor],
@@ -491,13 +486,26 @@ def scatter_step(spec: LatticeSpec, state: dict[str, torch.Tensor],
             if a.kind != AggKind.COUNT_ALL and a.kind not in _TOPK_KINDS]
     args = _step_args(spec, state, watermark, key_ids, ts, valid, cols, aggs)
     args.mode, args.blocks = scatter_plan(
-        spec, args.cap, _sm_count(key_ids.device), mode)
+        spec, args.cap, transport.sm_count(key_ids.device), mode)
     kb.check(kb.lib().hs_scatter(ctypes.byref(args), kb.stream_of(ts)),
              "scatter_aggregate")
     scatter_step.launches += 1
 
 
 scatter_step.launches = 0  # wrapper calls that launched the kernel
+
+
+@functools.lru_cache(maxsize=None)
+def divisor(d: int) -> tuple[int, int]:
+    """(m, shift) with x // d == (x * m) >> shift for 0 <= x < 2^31, for
+    a divisor 1 <= d < 2^31: shift = 31 + ceil(log2 d), m = ceil(2^shift
+    / d) < 2^32 (Granlund and Montgomery 1994, Theorem 4.2). The top-k
+    kernel divides by the window advance and the slot count so
+    (record.cuh fdiv, which takes a negative x as ~(~x // d))."""
+    if not 1 <= d < 1 << 31:
+        raise ValueError(f"divisor {d} outside [1, 2^31)")
+    shift = 31 + (d - 1).bit_length()
+    return -(-(1 << shift) // d), shift
 
 
 def _order_key(v: torch.Tensor) -> torch.Tensor:
@@ -565,6 +573,51 @@ def topk_step_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
                                     agg.kind == AggKind.TOPK_DISTINCT))
 
 
+# the block-private top-k's shared memory: the H100's 227 KB a block
+TOPK_SMEM_LIMIT = 232_448
+
+
+class TopkPlan(NamedTuple):
+    mode: int         # kb.TOPK_PRIVATE or kb.TOPK_GLOBAL
+    blocks: int       # grid size
+
+
+def topk_smem_bytes(spec: LatticeSpec) -> int:
+    """A block's shared memory in the block-private top-k: per [K, W]
+    cell a lock word, a list entry and, per TOPK / TOPK_DISTINCT
+    aggregate, a mask word, then the list's count; then per aggregate its
+    copy of the k values; each part 16-byte aligned (topk.cu
+    private_words)."""
+    cells = spec.n_keys * spec.n_slots
+    ks = [a.k for a in spec.aggs if a.kind in _TOPK_KINDS]
+    words = -(-(cells * (2 + len(ks)) + 1) // 4) * 4
+    return 4 * (words + sum(-(-cells * k // 4) * 4 for k in ks))
+
+
+def topk_plan(spec: LatticeSpec, cap: int, n_sms: int = H100_SMS,
+              mode: int | None = None) -> TopkPlan:
+    """The top-k kernel's branch for a batch of `cap` records, by the
+    spec's size: block-private when its planes (topk_smem_bytes) fit in
+    a block's shared memory and no k exceeds 32 (a cell's bit mask), one
+    block of TOPK_PRIVATE_THREADS an SM; else global, up to eight blocks
+    of TOPK_GLOBAL_THREADS an SM. A thread takes TOPK_PER records at a
+    time; no grid is larger than the batch needs. `mode` forces a branch
+    (the private one only where the planes fit)."""
+    smem = topk_smem_bytes(spec)
+    fits = smem <= TOPK_SMEM_LIMIT and all(
+        a.k <= 32 for a in spec.aggs if a.kind in _TOPK_KINDS)
+    if mode is None:
+        mode = kb.TOPK_PRIVATE if fits else kb.TOPK_GLOBAL
+    if mode == kb.TOPK_PRIVATE and not fits:
+        raise ValueError(f"top-k: the planes ({smem} B) or a k over 32 do "
+                         f"not fit a block's shared memory and masks")
+    threads, per_sm = ((kb.TOPK_PRIVATE_THREADS, 1)
+                       if mode == kb.TOPK_PRIVATE
+                       else (kb.TOPK_GLOBAL_THREADS, 8))
+    need = -(-cap // (threads * kb.TOPK_PER))
+    return TopkPlan(mode, max(1, min(per_sm * n_sms, need)))
+
+
 _locks: dict[tuple, torch.Tensor] = {}
 _locks_mutex = threading.Lock()
 
@@ -581,12 +634,36 @@ def _cell_locks(device: torch.device, n_cells: int) -> torch.Tensor:
         return t
 
 
+_bounds: dict[tuple, torch.Tensor] = {}
+_epoch = [0]
+
+
+def _topk_bounds(device: torch.device, n: int) -> tuple[torch.Tensor, int]:
+    """(the block-private top-k's bound words, int64 [n] per device and
+    size, zeroed when made; this launch's epoch). Each launch tags its
+    bounds with a new epoch and reads only its own, so the buffer is
+    never cleared; when the 32-bit epoch would wrap, every buffer is
+    zeroed and the count starts again."""
+    with _locks_mutex:
+        _epoch[0] += 1
+        if _epoch[0] >= 1 << 32:
+            _epoch[0] = 1
+            for t in _bounds.values():
+                t.zero_()
+        t = _bounds.get((device, n))
+        if t is None:
+            t = _bounds[(device, n)] = torch.zeros(n, dtype=torch.int64,
+                                                   device=device)
+        return t, _epoch[0]
+
+
 def topk_step(spec: LatticeSpec, state: dict[str, torch.Tensor],
               watermark: int, key_ids: torch.Tensor, ts: torch.Tensor,
-              valid: torch.Tensor,
-              cols: Mapping[str, torch.Tensor]) -> None:
+              valid: torch.Tensor, cols: Mapping[str, torch.Tensor],
+              mode: int | None = None) -> None:
     """Fold one decoded batch into the TOPK / TOPK_DISTINCT planes, in
-    place: the top-k kernel on the card, topk_step_ref on the CPU."""
+    place: the top-k kernel on the card, in topk_plan's branch (`mode`
+    forces one), topk_step_ref on the CPU."""
     aggs = [i for i, a in enumerate(spec.aggs) if a.kind in _TOPK_KINDS]
     if not aggs:
         return
@@ -596,6 +673,15 @@ def topk_step(spec: LatticeSpec, state: dict[str, torch.Tensor],
     args = _step_args(spec, state, watermark, key_ids, ts, valid, cols, aggs)
     args.locks = kb.ptr(_cell_locks(key_ids.device,
                                     spec.n_keys * spec.n_slots))
+    if spec.window is not None:
+        args.adv_div.m, args.adv_div.shift = divisor(spec.window.advance_ms)
+        args.slot_div.m, args.slot_div.shift = divisor(spec.n_slots)
+    args.mode, args.blocks = topk_plan(
+        spec, args.cap, transport.sm_count(key_ids.device), mode)
+    if args.mode == kb.TOPK_PRIVATE:
+        bounds, args.epoch = _topk_bounds(
+            key_ids.device, len(aggs) * spec.n_keys * spec.n_slots)
+        args.bounds = kb.ptr(bounds)
     kb.check(kb.lib().hs_topk(ctypes.byref(args), kb.stream_of(ts)),
              "topk_fold")
     topk_step.launches += 1

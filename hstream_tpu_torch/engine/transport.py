@@ -27,8 +27,10 @@ PyTorch version `decode_batch_ref` for words on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
+import threading
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -192,11 +194,67 @@ def decode_batch_ref(words: torch.Tensor, combo: Combo, cap: int, n,
     return key_ids, ts, valid, streams
 
 
+H100_SMS = 132
+DECODE_TILE = kb.DECODE_THREADS * kb.DECODE_PER  # values a tile
+DECODE_BLOCKS_PER_SM = 4   # resident blocks of 256 threads an SM
+
+
+class DecodePlan(NamedTuple):
+    blocks: int       # grid size
+    tiles: int        # tiles of DECODE_TILE values a block
+    delta_warps: int  # the warps a block gives the delta stream
+
+
+def decode_plan(cap: int, n_sms: int = H100_SMS, columns: int = 2
+                ) -> DecodePlan:
+    """The wire-decode kernel's grid for a batch of `cap` values: at most
+    DECODE_BLOCKS_PER_SM blocks an SM, each taking the same number of
+    whole tiles in a row (the last block fewer), so the grid is one wave
+    and the delta stream's look-back spans at most that many blocks. With
+    a delta stream, its warps (its sum, look-back and scan cost about as
+    much as two or three other columns) are four of a block's eight
+    where the other warps decode at most two columns besides valid,
+    else two."""
+    tiles = max(1, -(-cap // DECODE_TILE))
+    per = -(-tiles // (n_sms * DECODE_BLOCKS_PER_SM))
+    return DecodePlan(-(-tiles // per), per, 4 if columns <= 2 else 2)
+
+
+_status: dict[tuple, list] = {}
+_status_mutex = threading.Lock()
+
+
+def _decode_status(device: torch.device, stream: int, blocks: int
+                   ) -> tuple[torch.Tensor, int]:
+    """(the delta stream's look-back words for launches on one device and
+    stream, int64 [>= blocks], zeroed when made; this launch's epoch).
+    The kernel tags each word with its launch's epoch and reads only its
+    own, so the words are never cleared; when the 32-bit epoch would
+    wrap, the buffer is zeroed and the count starts again."""
+    with _status_mutex:
+        entry = _status.get((device, stream))
+        if entry is None or entry[0].numel() < blocks:
+            entry = _status[(device, stream)] = [
+                torch.zeros(blocks, dtype=torch.int64, device=device), 0]
+        entry[1] += 1
+        if entry[1] >= 1 << 32:
+            entry[0].zero_()
+            entry[1] = 1
+        return entry[0], entry[1]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (the kernels' plans size their grids by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def decode_batch(words: torch.Tensor, combo: Combo, cap: int, n,
                  bases) -> tuple:
     """Decode one wire buffer into device columns: the wire-decode
-    kernel for words on the card, decode_batch_ref for words on the CPU.
-    `bases` are host ints (they ride in the kernel's parameters)."""
+    kernel for words on the card (one launch, decode_plan's grid),
+    decode_batch_ref for words on the CPU. `bases` are host ints (they
+    ride in the kernel's parameters)."""
     if words.device.type == "cpu":
         return decode_batch_ref(words, combo, cap, n, bases)
     if words.dtype != torch.int32 or words.dim() != 1:
@@ -234,13 +292,13 @@ def decode_batch(words: torch.Tensor, combo: Combo, cap: int, n,
         st.out = out.data_ptr()
     valid = torch.empty(cap, dtype=torch.bool, device=dev)
     args.valid_out = valid.data_ptr()
-    block_sums = None
+    args.blocks, args.tiles, args.delta_warps = decode_plan(
+        cap, sm_count(dev), len(streams) - (args.delta_stream >= 0))
+    stream = kb.stream_of(words)
     if args.delta_stream >= 0:
-        block_sums = torch.empty((cap + 1023) // 1024, dtype=torch.int32,
-                                 device=dev)
-        args.block_sums = block_sums.data_ptr()
-    kb.check(kb.lib().hs_decode(ctypes.byref(args), kb.stream_of(words)),
-             "wire_decode")
+        status, args.epoch = _decode_status(dev, stream, args.blocks)
+        args.status = status.data_ptr()
+    kb.check(kb.lib().hs_decode(ctypes.byref(args), stream), "wire_decode")
     decode_batch.launches += 1
     key_ids = streams.pop("__kid")
     ts = streams.pop("__dt")

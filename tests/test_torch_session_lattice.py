@@ -339,7 +339,7 @@ def test_pack_and_unpack_match_reference():
 
 
 _CTYPE_OF = {"int32_t": (ctypes.c_int32,), "int64_t": (ctypes.c_int64,),
-             "float": (ctypes.c_float,)}
+             "uint32_t": (ctypes.c_uint32,), "float": (ctypes.c_float,)}
 
 
 def _macro(expr: str, text: str) -> int:
@@ -382,6 +382,7 @@ def test_binding_structs_mirror_the_header():
     py = {"HsStream": kb.Stream, "HsDecodeArgs": kb.DecodeArgs,
           "HsExprOp": kb.ExprOp, "HsExprProg": kb.ExprProg,
           "HsExprArgs": kb.ExprArgs, "HsScatterAgg": kb.ScatterAgg,
+          "HsDivisor": kb.Divisor,
           "HsScatterArgs": kb.ScatterArgs, "HsCloseAgg": kb.CloseAgg,
           "HsFinalize": kb.Finalize, "HsCloseArgs": kb.CloseArgs,
           "HsTouchedArgs": kb.TouchedArgs, "HsUnpackArgs": kb.UnpackArgs,

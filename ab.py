@@ -2,7 +2,7 @@
 another checkout (the parent commit's, or any tree with chip_smoke.py),
 on one CUDA card, in one call.
 
-    python3 ab.py scatter|join|decode OTHER_TREE
+    python3 ab.py scatter|join|decode|expr OTHER_TREE
 
 runs OTHER_TREE, this tree, this tree, OTHER_TREE, each in a process of
 its own that builds its tree's kernels and times the group on the same
@@ -54,6 +54,24 @@ device time by kernel):
     top-k and evict kernels, from the tree's build;
   * "write floor": PyTorch's fill of the headline decode's four output
     columns (2^20 records: 13 B each), the time of its writes alone.
+
+expr: the expression kernel (B1b, B1b') and the join eviction (B18),
+timed as the join group's are (device ms over 50 calls, ", call" and
+" by kernel"):
+  * "expr changelog": expr.eval_programs on the changelog query's WHERE
+    and SUM input over its 2^20-record batch (chip_smoke.changelog_batch);
+  * "expr unaries": phase 11's five programs (chip_smoke.log_programs:
+    SQRT, ABS, LOG10, EXP, ROUND, CEIL) over a 2^20-record batch of its
+    stream;
+  * "evict": join_lattice.join_evict of two 2^21-slot stores without
+    columns (the slots of phase 8's first eviction), each holding
+    1,900,000 entries over 512,000 keys and 4 s of stream, the cutoff at
+    1 s: a quarter of them dead, scattered among the live ones;
+  * "evict half": the same stores holding 1,100,000 entries each and
+    the cutoff at 0.2 s (~1,045,000 live, as phase 8's first eviction
+    leaves), the dead ones mostly the empty tail;
+  * "ptxas": ptxas's registers, stack frame and spills of expr.cu and
+    join_evict.cu, from the tree's build.
 """
 
 from __future__ import annotations
@@ -75,6 +93,9 @@ SPAN_MS = 4_000          # the stores' time range: ~2.1 M matches
 WITHIN = 1000
 INNER_KEYS = 1 << 19
 TOUCHED = 390_000
+# the expr group's evictions: (entries a side, cutoff ms)
+EVICT_CAP = 1 << 21
+EVICTS = {"evict": (1_900_000, 1000), "evict half": (1_100_000, 200)}
 
 
 def _scatter() -> dict:
@@ -355,6 +376,59 @@ def _decode() -> dict:
     return out
 
 
+def _expr() -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from hstream_tpu_torch.engine import expr as ex
+    from hstream_tpu_torch.engine import join_lattice as jl
+    from hstream_tpu_torch.engine.kernels import build as kbuild
+
+    built = kbuild.build()
+    dev = torch.device("cuda", 0)
+    out = {"ptxas": _ptxas(built.log, ("expr.cu", "join_evict.cu"))}
+
+    def ms(name, fn):
+        dev_ms, call_ms, _src = cs.kernel_ms(fn, 50)
+        out[name], out[name + ", call"] = dev_ms, call_ms
+        d = cs.profiled_calls(fn, 5, name)
+        out[name + " by kernel"] = (None if d is None else {
+            k: v / 5e3 for k, v in d.items()})
+
+    _, progs, (_key, _ts, valid, cols), _ = cs.changelog_batch(dev)
+    valid = valid.clone()
+    ms("expr changelog", lambda: ex.eval_programs(progs, dict(cols), valid))
+    lprogs = cs.log_programs()
+    temp = torch.from_numpy(cs.Batches(cs.LOG_SEED).get(0)[2]).to(dev)
+    lvalid = torch.ones(temp.shape[0], dtype=torch.bool, device=dev)
+    ms("expr unaries", lambda: ex.eval_programs(lprogs, {"temp": temp},
+                                                lvalid))
+
+    rng = np.random.default_rng(13)
+
+    def store(resident):
+        code = np.full(EVICT_CAP, 1 << 22, np.int32)
+        ts = np.zeros(EVICT_CAP, np.int32)
+        c = rng.integers(0, KEYS, resident).astype(np.int32)
+        t = rng.integers(0, SPAN_MS, resident).astype(np.int32)
+        o = np.lexsort((t, c))
+        code[:resident], ts[:resident] = c[o], t[o]
+        flags = rng.integers(0, 1 << 28, EVICT_CAP).astype(np.int32)
+        return {"code": torch.from_numpy(code).to(dev),
+                "ts": torch.from_numpy(ts).to(dev),
+                "flags": torch.from_numpy(flags).to(dev),
+                "cols": torch.zeros((0, EVICT_CAP), dtype=torch.int32,
+                                    device=dev)}
+
+    outs = [jl.empty_join_store(EVICT_CAP, 0, dev) for _ in range(2)]
+    for name, (resident, cutoff) in EVICTS.items():
+        left, right = store(resident), store(resident)
+        ms(name, lambda: jl.join_evict(left, right, cutoff, 0, out=outs))
+        out[name + " live"] = jl.join_evict(left, right, cutoff, 0,
+                                            out=outs)[2].tolist()
+    return out
+
+
 def _ptxas(log: str, sources) -> dict:
     """{source: [ptxas lines]}: each kernel's function properties
     (stack frame, spills) and registers, from nvcc's -Xptxas -v output
@@ -372,7 +446,8 @@ def _ptxas(log: str, sources) -> dict:
     return out
 
 
-GROUPS = {"scatter": _scatter, "join": _join, "decode": _decode}
+GROUPS = {"scatter": _scatter, "join": _join, "decode": _decode,
+          "expr": _expr}
 
 
 def main() -> int:

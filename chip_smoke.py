@@ -17,7 +17,9 @@ Phases, each of which asserts (any failure exits non-zero):
    crossing a window end, subnormal inputs, the join's inner lattice at
    K = 2^19 on a match-sized feed), fused close
    (all three modes), rebase, and the changelog query's kernels (the
-   expression interpreter over every op and type mix; NULL masks,
+   expression interpreter over every op and type mix, programs that
+   spill, batches of 2^16 and 2^16 - 3 records, aligned and one element
+   off; NULL masks,
    COUNT(col) and quantile bins in the scatter and estimates in the
    close; the top-k fold; the touched extract in both its modes, one
    launch and staged, on every aggregate kind and on scalars alone, with
@@ -48,7 +50,9 @@ Phases, each of which asserts (any failure exits non-zero):
    window step over feed sources m, o, both and both_o with null and
    present bits on both sides, filter-NULL columns, a WHERE and
    subnormal columns, in each branch; the two-sided
-   eviction with delta 0, > 0 and < 0; equal (code, ts) runs across
+   eviction with delta 0, > 0 and < 0, stores below one tile, off the
+   tile, over many, every slot live, every entry dead, none resident;
+   equal (code, ts) runs across
    store and batch, sentinels that kept their columns, entries below the
    cutoff, negative times, n = 0; the remap kernel's sentinel flag),
    and the packed transport's unpack (bool, i32 and f32 columns, NULL
@@ -1273,6 +1277,18 @@ def expr_cases():
             B("-", L(-2147483648), i), U("NEG", B("%", i, j)),
             B("AND", B(">", f, g), U("NOT", B("=", i, L(0)))),
             B("/", B("%", f, g), B("-", i, j))]
+    # both sides computed, so the register form spills (expr.lower): a
+    # right-deep chain of products, a balanced tree of 16 leaves that
+    # keeps three slots, a unary of a difference of unaries
+    deep = B("-", f, B("*", g, f))
+    for x, y in ((i, j), (b, g), (f, L(0.5)), (j, c)):
+        deep = B("+", B("*", x, y), deep)
+    leaves = [f, g, i, j, b, c, L(3), L(-2.5)] * 2
+    ops = ["*", "-", "+", "/", "%", "<", "*", "+"]
+    while len(leaves) > 1:
+        leaves = [B(ops[k % len(ops)], leaves[k], leaves[k + 1])
+                  for k in range(0, len(leaves), 2)]
+    out += [deep, leaves[0], U("NEG", B("-", U("ABS", f), U("ABS", g)))]
     return out
 
 
@@ -1308,10 +1324,15 @@ def expr_columns(dev, n: int, seed: int):
 
 def check_expr(dev, results, chg):
     """K1: every op on int/float/bool mixes, int overflow, % with
-    negative operands, division by zero, NaN and +-inf, exact against the
-    plain version; then timed on the changelog query's programs."""
+    negative operands, division by zero, NaN and +-inf, programs that
+    spill (expr.lower), exact against the plain version, on a batch of
+    2^16 records, on one of 2^16 - 3 (not a multiple of the records a
+    thread takes) and on that one with every column and `valid` one
+    element off their allocation (the kernel's scalar path); then timed
+    on the changelog query's programs."""
     from hstream_tpu_torch.common.errors import SQLCodegenError
     from hstream_tpu_torch.engine import expr as ex
+    from hstream_tpu_torch.engine.kernels import binding as kb
     from hstream_tpu_torch.engine.types import ColumnType as CT, Schema
 
     schema = Schema.of(f=CT.FLOAT, g=CT.FLOAT, i=CT.INT, j=CT.INT,
@@ -1322,34 +1343,44 @@ def check_expr(dev, results, chg):
             progs.append(ex.compile_device(e, schema))
         except SQLCodegenError:
             refused += 1
+    slots = max(ex.lower(p).slots for p in progs)
+    assert slots >= 3, slots
     where = ex.compile_device(ex.BinOp("<>", ex.Col("f"), ex.Col("g")),
                               schema)
-    cols = expr_columns(dev, 1 << 16, 31)
-    valid0 = torch.from_numpy(
-        np.random.default_rng(32).integers(0, 9, 1 << 16) > 0).to(dev)
+    full = expr_columns(dev, (1 << 16) + 1, 31)
+    valid_full = torch.from_numpy(np.random.default_rng(32).integers(
+        0, 9, (1 << 16) + 1) > 0).to(dev)
+    odd = (1 << 16) - 3
+    assert odd % kb.EXPR_PER != 0
     dtypes = set()
-    for k in range(0, len(progs), 12):
-        chunk = [(p, f"__e{k + m}") for m, p in enumerate(progs[k:k + 12])]
-        got, valid = dict(cols), valid0.clone()
-        ex.eval_programs(chunk + [(where, None)], got, valid)
-        torch.cuda.synchronize()
-        for p, name in chunk:
-            want = p(cols)
-            dtypes.add(p.dtype)
-            if not same_bits(got[name], want):
-                g, w = got[name], want
-                if g.dtype == torch.float32:
-                    g, w = g.view(torch.int32), w.view(torch.int32)
-                bad = torch.nonzero(g != w).reshape(-1)[:6].tolist()
-                ins = {c: [hex(int(cols[c].view(torch.int32)[q]))
-                           if cols[c].dtype == torch.float32
-                           else int(cols[c][q]) for q in bad]
-                       for c in p.cols}
-                raise AssertionError(
-                    f"expression {k}: {name} differs at {bad}: inputs "
-                    f"{ins}, kernel {[hex(int(g[q])) for q in bad]}, "
-                    f"plain {[hex(int(w[q])) for q in bad]}")
-        assert torch.equal(valid, valid0 & where(cols)), "expression: WHERE"
+    for n, at in ((1 << 16, 0), (odd, 0), (odd, 1)):
+        cols = {k: v[at:at + n] for k, v in full.items()}
+        valid0 = valid_full[at:at + n]
+        for k in range(0, len(progs), 12):
+            chunk = [(p, f"__e{k + m}")
+                     for m, p in enumerate(progs[k:k + 12])]
+            got, valid = dict(cols), valid_full.clone()[at:at + n]
+            ex.eval_programs(chunk + [(where, None)], got, valid)
+            torch.cuda.synchronize()
+            for p, name in chunk:
+                want = p(cols)
+                dtypes.add(p.dtype)
+                if not same_bits(got[name], want):
+                    g, w = got[name], want
+                    if g.dtype == torch.float32:
+                        g, w = g.view(torch.int32), w.view(torch.int32)
+                    bad = torch.nonzero(g != w).reshape(-1)[:6].tolist()
+                    ins = {c: [hex(int(cols[c].view(torch.int32)[q]))
+                               if cols[c].dtype == torch.float32
+                               else int(cols[c][q]) for q in bad]
+                           for c in p.cols}
+                    raise AssertionError(
+                        f"expression {k} (n {n}, offset {at}): {name} "
+                        f"differs at {bad}: inputs {ins}, kernel "
+                        f"{[hex(int(g[q])) for q in bad]}, plain "
+                        f"{[hex(int(w[q])) for q in bad]}")
+            assert torch.equal(valid, valid0 & where(cols)), \
+                f"expression: WHERE (n {n}, offset {at})"
     assert dtypes == {"f32", "i32", "bool"}, dtypes
     # timed on the changelog query's programs and batch
     _, prog_list, (key, ts, valid, ccols), _ = chg
@@ -1366,7 +1397,8 @@ def check_expr(dev, results, chg):
         max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=None, call_ms=call, ms_source=src)
     log(f"expression: {len(progs)} programs bit-exact ({refused} refused "
-        f"at compile); {ms:.4f} ms (plain {plain:.4f}, "
+        f"at compile; up to {slots} spill slots) on 2^16 records, 2^16 - 3 "
+        f"and 2^16 - 3 unaligned; {ms:.4f} ms (plain {plain:.4f}, "
         f"bound {b_ms:.4f})")
 
 
@@ -3606,19 +3638,33 @@ def check_join_step(dev, results):
         "plane exact")
 
 
+# the eviction's checks: (cap, cutoff, delta, live entries left, right);
+# its tiles are kb.JOIN_EVICT_THREADS x JOIN_EVICT_PER = 2048 entries
+EVICT_CASES = [
+    (256, 0, 0, 170, 85), (256, 40, 37, 170, 85), (256, -20, -100, 170, 85),
+    (1 << 16, 30, 0, 43690, 21845), (1 << 16, -(1 << 31), 5, 43690, 21845),
+    (2 * 2048 + 37, 40, 37, 3000, 1500),           # not a multiple of a tile
+    (20 * 2048 + 5, -20, -100, 30000, 9000),       # many tiles
+    (3 * (1 << 20) + 7, 30, 5, 2_500_000, 1_000_000),  # 1537 tiles a side
+    (5000, -(1 << 31), 0, 5000, 5000),             # every slot live
+    (5000, 1 << 20, 0, 4000, 2000),                # every entry dead
+    (5000, 40, 0, 0, 0),                           # none resident
+]
+
+
 def check_join_evict(dev, results):
     """B18: both sides at once, delta 0, > 0 and < 0, dead entries below
-    the cutoff and sentinels that kept their columns; and the remap
-    kernel's sentinel flag (the join's code remap)."""
+    the cutoff and sentinels that kept their columns, stores below one
+    tile, not a multiple of it and over many, every slot live, every entry
+    dead, none resident (EVICT_CASES); and the remap kernel's sentinel
+    flag (the join's code remap)."""
     from hstream_tpu_torch.engine import join_lattice as jl
     from hstream_tpu_torch.engine import session_lattice as sl
 
-    for i, (cap, cutoff, delta) in enumerate(
-            [(256, 0, 0), (256, 40, 37), (256, -20, -100),
-             (1 << 16, 30, 0), (1 << 16, -(1 << 31), 5)]):
+    for i, (cap, cutoff, delta, nl, nr) in enumerate(EVICT_CASES):
         rng = np.random.default_rng(300 + i)
-        left = join_store(dev, rng, cap, 3, 2 * cap // 3)
-        right = join_store(dev, rng, cap, 1, cap // 3)
+        left = join_store(dev, rng, cap, 3, nl)
+        right = join_store(dev, rng, cap, 1, nr)
         wl, wr, wn = jl.join_evict_ref(left, right, cutoff, delta)
         before = jl.join_evict.launches
         gl, gr, gn = jl.join_evict(left, right, cutoff, delta, out=[
@@ -3646,8 +3692,10 @@ def check_join_evict(dev, results):
     torch.cuda.synchronize()
     assert torch.equal(a["code"], b["code"]), "the join remap differs"
     assert int((a["code"] == JOIN_SENT).sum()) == int((code >= 2048).sum())
-    log("join_evict: both sides, delta 0, > 0 and < 0, dead entries and "
-        "sentinels with columns: exact; the remap kernel's sentinel flag "
+    log(f"join_evict: both sides, {len(EVICT_CASES)} stores (delta 0, > 0 "
+        "and < 0, dead entries and sentinels with columns, caps off the "
+        "tile, all live, all dead, none resident): exact; the remap "
+        "kernel's sentinel flag "
         "(codes at and above the table map to the sentinel): exact")
 
 
@@ -4213,12 +4261,14 @@ def time_join_kernels(dev, results, captured):
     lib = kernel_ms(lambda: torch.sort(keys, dim=1, stable=True), 10)[0]
     b_ms, b_by = bound(2 * (_store_bytes(left) + _store_bytes(right)),
                        2 * ecap)
+    resident = [int((st["code"] < JOIN_SENT).sum()) for st in (left, right)]
     results["join_evict"].update(
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         call_ms=call, ms_source=srcm, cap=ecap, cutoff=e_cutoff,
-        delta=delta, live=gn.tolist())
-    log(f"join_evict of the path's two {ecap}-slot stores (live "
-        f"{gn.tolist()}, delta {delta}): exact against plain; {ms:.4f} ms "
+        delta=delta, live=gn.tolist(), resident=resident)
+    log(f"join_evict of the path's two {ecap}-slot stores (resident "
+        f"{resident}, live {gn.tolist()}, delta {delta}): exact against "
+        f"plain; {ms:.4f} ms "
         f"(plain {plain:.4f}, torch.sort of both sides' keys {lib:.4f}, "
         f"bound {b_ms:.4f} by {b_by})")
     del outs, gl, gr, wl, wr

@@ -6,13 +6,15 @@ record (hstream-sql Internal/Codegen.hs:76-250, op enums AST.hs:87-105).
 Here the same AST is evaluated two ways:
 
   * `compile_device(expr, schema)` lowers it into a DeviceProgram, a
-    postfix program over 32-bit stack words that the expression kernel
-    (kernels/csrc/expr.cu) runs per record for WHERE masks and computed
+    postfix program over 32-bit words for WHERE masks and computed
     aggregate inputs, with jnp's type rules resolved at compile time into
     explicit conversions (the reference traces jnp code into its step,
-    expr.py:122-183). `DeviceProgram.__call__` is the plain PyTorch
-    version that runs the same ops; `eval_programs` is the kernel's
-    wrapper;
+    expr.py:122-183); `lower(prog)` turns that into the register form the
+    expression kernel (kernels/csrc/expr.cu) runs: an accumulator a
+    record, each instruction's operand a column, a literal or a spill
+    slot. `DeviceProgram.__call__` is the plain PyTorch version that runs
+    the postfix ops, `run_lowered` the one that runs the register form;
+    `eval_programs` is the kernel's wrapper;
   * `eval_host(expr, row)` and its columnwise twin `eval_host_vec` run on
     the host for HAVING and SELECT projections over emitted aggregate
     rows, which are tiny compared to the ingest stream.
@@ -23,10 +25,11 @@ Here the same AST is evaluated two ways:
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import struct
 from dataclasses import dataclass, field
-from typing import Any, Callable, Mapping, Sequence
+from typing import Any, Callable, Mapping, NamedTuple, Sequence
 
 import torch
 
@@ -417,6 +420,48 @@ def _unary_plain(code: int, x: torch.Tensor) -> torch.Tensor:
         if code in _TINY_IDENTITY else r
 
 
+def _lit_tensor(bits: int, t: str, dev) -> torch.Tensor:
+    lit = torch.tensor(bits, dtype=torch.int32, device=dev)
+    return (lit.view(torch.float32) if t == "f32"
+            else lit != 0 if t == "bool" else lit)
+
+
+def _unary(code: int, x: torch.Tensor) -> torch.Tensor:
+    """A conversion or unary op of the plain versions."""
+    if code >= OP_CEIL_F:
+        return _unary_plain(code, x)
+    if code == OP_B2I:
+        return x.to(torch.int32)
+    if code in (OP_B2F, OP_I2F):
+        return x.to(torch.float32)
+    if code in (OP_NOT_B, OP_NOT_I):
+        return ~x
+    if code == OP_NEG_I:
+        return _wrap(-x.long())
+    if code == OP_NEG_F:
+        return -x
+    if code == OP_ABS_I:
+        return _wrap(x.long().abs())
+    return x.abs()   # OP_ABS_F
+
+
+def _binary(code: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A binary op of the plain versions, a its left operand."""
+    if code == OP_SEL_L:
+        return torch.where(a, b, torch.zeros_like(b))
+    if code == OP_SEL_R:
+        return torch.where(b, a, torch.zeros_like(a))
+    if code in (OP_OR_B, OP_AND_B):
+        return a | b if code == OP_OR_B else a & b
+    if code in _CMP_FN:
+        return _CMP_FN[code](a, b)
+    if OP_EQ_F <= code <= OP_GE_F:
+        return _CMP_FN[code - (OP_EQ_F - OP_EQ_I)](ftz(a), ftz(b))
+    if code in (OP_ADD_F, OP_SUB_F, OP_MUL_F, OP_DIV_F, OP_MOD_F):
+        return _float_op(code, a, b)
+    return _int_op(code, a, b)
+
+
 def _run_plain(prog: DeviceProgram, cols: Mapping[str, torch.Tensor]
                ) -> torch.Tensor:
     ref = cols[prog.cols[0]] if prog.cols else next(iter(cols.values()))
@@ -425,52 +470,145 @@ def _run_plain(prog: DeviceProgram, cols: Mapping[str, torch.Tensor]
     for (code, arg), t in zip(prog.ops, prog.types):
         if code == OP_COL:
             st.append(cols[prog.cols[arg]])
-            continue
-        if code == OP_LIT:
-            lit = torch.tensor(arg, dtype=torch.int32, device=dev)
-            st.append(lit.view(torch.float32) if t == "f32"
-                      else lit != 0 if t == "bool" else lit)
-            continue
-        if code >= OP_CEIL_F:
-            st.append(_unary_plain(code, st.pop()))
-            continue
-        if code in (OP_B2I, OP_B2F, OP_I2F, OP_NOT_B, OP_NOT_I, OP_NEG_I,
-                    OP_NEG_F, OP_ABS_I, OP_ABS_F):
-            x = st.pop()
-            if code == OP_B2I:
-                x = x.to(torch.int32)
-            elif code in (OP_B2F, OP_I2F):
-                x = x.to(torch.float32)
-            elif code == OP_NOT_B:
-                x = ~x
-            elif code == OP_NOT_I:
-                x = ~x
-            elif code == OP_NEG_I:
-                x = _wrap(-x.long())
-            elif code == OP_NEG_F:
-                x = -x
-            elif code == OP_ABS_I:
-                x = _wrap(x.long().abs())
-            else:
-                x = x.abs()
-            st.append(x)
-            continue
-        b, a = st.pop(), st.pop()
-        if code == OP_SEL_L:
-            st.append(torch.where(a, b, torch.zeros_like(b)))
-        elif code == OP_SEL_R:
-            st.append(torch.where(b, a, torch.zeros_like(a)))
-        elif code in (OP_OR_B, OP_AND_B):
-            st.append(a | b if code == OP_OR_B else a & b)
-        elif code in _CMP_FN:
-            st.append(_CMP_FN[code](a, b))
-        elif OP_EQ_F <= code <= OP_GE_F:
-            st.append(_CMP_FN[code - (OP_EQ_F - OP_EQ_I)](ftz(a), ftz(b)))
-        elif code in (OP_ADD_F, OP_SUB_F, OP_MUL_F, OP_DIV_F, OP_MOD_F):
-            st.append(_float_op(code, a, b))
+        elif code == OP_LIT:
+            st.append(_lit_tensor(arg, t, dev))
+        elif code in _BINARY:
+            b = st.pop()
+            st.append(_binary(code, st.pop(), b))
         else:
-            st.append(_int_op(code, a, b))
+            st.append(_unary(code, st.pop()))
     return st[0].expand(n).contiguous()
+
+
+# ---- the register form the kernel runs --------------------------------------
+
+# the register form's own opcodes (HS_OP_LOAD, HS_OP_SPILL) and operand
+# sources (HS_SRC_*), kernels/csrc/hs_kernels.h
+OP_LOAD, OP_SPILL = 60, 61
+SRC_NONE, SRC_COL, SRC_LIT, SRC_SLOT = range(4)
+MAX_SLOTS = MAX_DEPTH - 1
+_CVT = frozenset({OP_B2I, OP_B2F, OP_I2F})
+
+
+class Ins(NamedTuple):
+    """One instruction of the register form: the accumulator takes `op`
+    (OP_LOAD: the operand; OP_SPILL: it goes to slot `arg`; a unary or a
+    conversion in place; a binary with the operand as its right side, or
+    its left with `swap`)."""
+
+    op: int
+    src: int = SRC_NONE   # where the operand comes from
+    arg: int = 0          # column index, literal bits or slot
+    cvt: int = 0          # 0 or OP_B2I / OP_B2F / OP_I2F on the operand
+    swap: bool = False
+    t: str = ""           # the operand's type before cvt
+
+    def word(self) -> int:
+        """The kernel's packed op word (HsExprOp.op)."""
+        return self.op | self.src << 8 | self.cvt << 16 | int(self.swap) << 24
+
+
+class Lowered(NamedTuple):
+    ins: tuple[Ins, ...]
+    slots: int   # spill slots it needs (at most MAX_SLOTS)
+
+
+@functools.lru_cache(maxsize=512)
+def lower(prog: DeviceProgram) -> Lowered:
+    """The postfix program in the register form the kernel runs. A leaf
+    (a column or a literal, with at most one conversion) is an operand
+    in place; a binary op whose sides are both computed runs first the
+    side that needs more slots (Sethi and Ullman's order), keeps it in a
+    spill slot and names it as the operand, so the slots never exceed the
+    postfix stack's depth less one. Every op keeps its operands' order
+    and its arithmetic, so the result is the postfix program's bit for
+    bit."""
+    nodes: list[tuple] = []   # (code, arg, type, children)
+    for (code, arg), t in zip(prog.ops, prog.types):
+        if code in (OP_COL, OP_LIT):
+            nodes.append((code, arg, t, ()))
+        elif code in _BINARY:
+            b = nodes.pop()
+            nodes.append((code, 0, t, (nodes.pop(), b)))
+        else:
+            nodes.append((code, 0, t, (nodes.pop(),)))
+    (root,) = nodes
+
+    def operand(n) -> Ins | None:
+        code, arg, t, kids = n
+        if code in (OP_COL, OP_LIT):
+            return Ins(OP_LOAD, SRC_COL if code == OP_COL else SRC_LIT, arg,
+                       t=t)
+        if code in _CVT and kids[0][0] in (OP_COL, OP_LIT):
+            return operand(kids[0])._replace(cvt=code)
+        return None
+
+    @functools.cache
+    def need(n) -> int:
+        if operand(n) is not None:
+            return 0
+        kids = n[3]
+        if len(kids) == 1:
+            return need(kids[0])
+        l, r = kids
+        if operand(r) is not None:
+            return need(l)
+        if operand(l) is not None:
+            return need(r)
+        first, second = (r, l) if need(r) >= need(l) else (l, r)
+        return max(need(first), 1 + need(second))
+
+    def gen(n, s: int) -> list[Ins]:
+        leaf = operand(n)
+        if leaf is not None:
+            return [leaf]
+        code, _, _, kids = n
+        if len(kids) == 1:
+            return gen(kids[0], s) + [Ins(code)]
+        l, r = kids
+        o = operand(r)
+        if o is not None:
+            return gen(l, s) + [o._replace(op=code)]
+        o = operand(l)
+        if o is not None:
+            return gen(r, s) + [o._replace(op=code, swap=True)]
+        swap = need(r) < need(l)   # the left side first
+        first, second = (l, r) if swap else (r, l)
+        return (gen(first, s) + [Ins(OP_SPILL, arg=s)] + gen(second, s + 1)
+                + [Ins(code, SRC_SLOT, s, swap=swap, t=first[2])])
+
+    ins = tuple(gen(root, 0))
+    return Lowered(ins, max((i.arg + 1 for i in ins if i.op == OP_SPILL),
+                            default=0))
+
+
+def run_lowered(prog: DeviceProgram, cols: Mapping[str, torch.Tensor]
+                ) -> torch.Tensor:
+    """The plain PyTorch version of the register form (`lower(prog)`):
+    an accumulator, operands and spill slots, one tensor op an
+    instruction, as the kernel runs it. Equal to `prog(cols)` bit for
+    bit (tests/test_torch_expr_plan.py)."""
+    ref = cols[prog.cols[0]] if prog.cols else next(iter(cols.values()))
+    dev, n = ref.device, ref.shape[0]
+    low = lower(prog)
+    slots: list[torch.Tensor | None] = [None] * low.slots
+    acc: torch.Tensor | None = None
+    for ins in low.ins:
+        if ins.op == OP_SPILL:
+            slots[ins.arg] = acc
+            continue
+        x = (cols[prog.cols[ins.arg]] if ins.src == SRC_COL
+             else _lit_tensor(ins.arg, ins.t, dev) if ins.src == SRC_LIT
+             else slots[ins.arg] if ins.src == SRC_SLOT else None)
+        if ins.cvt:
+            x = _unary(ins.cvt, x)
+        if ins.op == OP_LOAD:
+            acc = x
+        elif x is None:
+            acc = _unary(ins.op, acc)
+        else:
+            acc = _binary(ins.op, *((x, acc) if ins.swap else (acc, x)))
+    return acc.expand(n).contiguous()
 
 
 def eval_programs(progs: Sequence[tuple[DeviceProgram, str | None]],
@@ -500,50 +638,73 @@ eval_programs.launches = 0  # wrapper calls that launched the kernel
 eval_programs.unary_launches = 0  # of those, launches that ran a unary
 
 
-def _expr_cuda(progs, cols: dict[str, torch.Tensor],
-               valid: torch.Tensor) -> None:
-    n = valid.shape[0]
+class LaunchPlan(NamedTuple):
+    args: bytes     # the HsExprArgs block but its pointers and n
+    cols: tuple[tuple[str, torch.dtype], ...]   # the column table
+    outs: tuple[tuple[int, str, torch.dtype], ...]   # (program, name, dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(progs: tuple[tuple[DeviceProgram, str | None], ...]
+                ) -> LaunchPlan:
+    """The kernel's argument block for a program set, built once: the
+    programs' register forms, packed, with their columns numbered in one
+    table; a launch copies it and fills in n and the pointers."""
     if len(progs) > kb.EXPR_MAX_PROGS:
         raise ValueError(f"more than {kb.EXPR_MAX_PROGS} programs")
     args = kb.ExprArgs()
-    args.n, args.n_progs = n, len(progs)
-    args.valid = kb.ptr(valid)
-    table: list[str] = []
-    outs: dict[str, torch.Tensor] = {}
+    args.n_progs = len(progs)
+    table: list[tuple[str, torch.dtype]] = []
+    outs: list[tuple[int, str, torch.dtype]] = []
     first = 0
     for p, (prog, name) in enumerate(progs):
-        if first + len(prog.ops) > kb.EXPR_MAX_OPS:
-            raise ValueError(f"more than {kb.EXPR_MAX_OPS} ops in a launch")
-        for i, ((code, arg), t) in enumerate(zip(prog.ops, prog.types)):
-            if code == OP_COL:
-                c = prog.cols[arg]
-                if c not in table:
-                    col = cols[c]
-                    if col.dtype != _TORCH[t] or col.shape[0] != n:
-                        raise ValueError(f"expression: column {c} is not "
-                                         f"{t} [{n}]")
+        low = lower(prog)
+        if first + len(low.ins) > kb.EXPR_MAX_OPS:
+            raise ValueError(f"more than {kb.EXPR_MAX_OPS} instructions in "
+                             "a launch")
+        for i, ins in enumerate(low.ins):
+            if ins.src == SRC_COL:
+                entry = (prog.cols[ins.arg], _TORCH[ins.t])
+                if entry not in table:
                     if len(table) == kb.EXPR_MAX_COLS:
                         raise ValueError(
                             f"more than {kb.EXPR_MAX_COLS} columns")
-                    args.cols[len(table)] = kb.ptr(col)
-                    args.col_type[len(table)] = kb.VTYPES[col.dtype]
-                    table.append(c)
-                arg = table.index(c)
-            args.ops[first + i].op, args.ops[first + i].arg = code, arg
+                    args.col_type[len(table)] = kb.VTYPES[entry[1]]
+                    table.append(entry)
+                ins = ins._replace(arg=table.index(entry))
+            args.ops[first + i].op = ins.word()
+            args.ops[first + i].arg = ins.arg
         pr = args.progs[p]
-        pr.first, pr.n_ops = first, len(prog.ops)
+        pr.first, pr.n_ops = first, len(low.ins)
         pr.out_type = kb.VTYPES[_TORCH[prog.dtype]]
         if name is None:
             if prog.dtype != "bool":
                 raise ValueError("a WHERE program must give bool")
             pr.where = 1
         else:
-            out = torch.empty(n, dtype=_TORCH[prog.dtype],
-                              device=valid.device)
-            pr.out = out.data_ptr()
-            outs[name] = out
-        first += len(prog.ops)
+            outs.append((p, name, _TORCH[prog.dtype]))
+        args.n_slots = max(args.n_slots, low.slots)
+        first += len(low.ins)
     args.n_cols = len(table)
+    return LaunchPlan(bytes(args), tuple(table), tuple(outs))
+
+
+def _expr_cuda(progs, cols: dict[str, torch.Tensor],
+               valid: torch.Tensor) -> None:
+    n = valid.shape[0]
+    plan = launch_plan(tuple(progs))
+    args = kb.ExprArgs.from_buffer_copy(plan.args)
+    args.n = n
+    args.valid = kb.ptr(valid)
+    for k, (c, dtype) in enumerate(plan.cols):
+        col = cols[c]
+        if col.dtype != dtype or col.shape[0] != n:
+            raise ValueError(f"expression: column {c} is not {dtype} [{n}]")
+        args.cols[k] = kb.ptr(col)
+    outs = {}
+    for p, name, dtype in plan.outs:
+        outs[name] = torch.empty(n, dtype=dtype, device=valid.device)
+        args.progs[p].out = outs[name].data_ptr()
     kb.check(kb.lib().hs_expr(ctypes.byref(args), kb.stream_of(valid)),
              "expression")
     cols.update(outs)

@@ -34,8 +34,9 @@ of a composite key where it sorts (_join_bounds, _join_insert,
 join_evict). The kernels rely on the store and the batch being sorted
 and sort nothing: the probe searches a store window per tile of sorted
 records and expands the matches by a load-balancing search, the insert
-is a merge path, the eviction a stable compaction (join_core.cuh,
-join_insert.cu; `branch` forces the probe's store search). The tests
+is a merge path, the eviction a one-launch stable compaction (join_core.cuh,
+join_insert.cu, join_evict.cu; `branch` forces the probe's store
+search). The tests
 hold numpy models of those plans, and `insert_merge_ref` and
 `evict_compact_ref` (the merge and the compaction in plain PyTorch),
 against the sorts.

@@ -28,7 +28,8 @@ DECODE_THREADS, DECODE_PER = 256, 4   # the wire decode's blocks
 VTYPES = {torch.float32: 0, torch.int32: 1, torch.bool: 2}
 EXPR_MAX_COLS = 16
 EXPR_MAX_PROGS = MAX_AGGS + 1
-EXPR_MAX_OPS = 256
+EXPR_MAX_OPS = 256   # instructions of a launch
+EXPR_PER = 8         # consecutive records a thread of the expression kernel
 
 
 class Stream(C.Structure):
@@ -59,7 +60,7 @@ class ExprProg(C.Structure):
 
 class ExprArgs(C.Structure):
     _fields_ = [("n", C.c_int32), ("n_cols", C.c_int32),
-                ("n_progs", C.c_int32),
+                ("n_progs", C.c_int32), ("n_slots", C.c_int32),
                 ("col_type", C.c_int32 * EXPR_MAX_COLS),
                 ("cols", C.c_void_p * EXPR_MAX_COLS),
                 ("valid", C.c_void_p),
@@ -233,6 +234,9 @@ class JoinEvictSide(C.Structure):
                 ("cols", C.c_void_p), ("out_code", C.c_void_p),
                 ("out_ts", C.c_void_p), ("out_flags", C.c_void_p),
                 ("out_cols", C.c_void_p)]
+
+
+JOIN_EVICT_THREADS, JOIN_EVICT_PER = 256, 8   # the eviction's tiles
 
 
 class JoinEvictArgs(C.Structure):

@@ -62,11 +62,14 @@ struct HsDecodeArgs {
 
 #define HS_EXPR_MAX_COLS 16
 #define HS_EXPR_MAX_PROGS (HS_MAX_AGGS + 1)
-#define HS_EXPR_MAX_OPS 256     // all programs together
-#define HS_EXPR_MAX_DEPTH 16    // stack slots per program
+#define HS_EXPR_MAX_OPS 256     // instructions of all programs together
+#define HS_EXPR_MAX_DEPTH 16    // postfix stack slots per program
+#define HS_EXPR_MAX_SLOTS (HS_EXPR_MAX_DEPTH - 1)  // spill slots
+#define HS_EXPR_THREADS 128     // the kernel's blocks
+#define HS_EXPR_PER 8           // consecutive records a thread
 
-// opcodes (engine/expr.py OP_*); values on the stack are 32-bit words:
-// float32 bits, int32, or a bool as 0/1
+// opcodes (engine/expr.py OP_*); values are 32-bit words: float32 bits,
+// int32, or a bool as 0/1
 enum {
     HS_OP_COL = 0, HS_OP_LIT, HS_OP_B2I, HS_OP_B2F, HS_OP_I2F,
     HS_OP_ADD_I, HS_OP_ADD_F, HS_OP_SUB_I, HS_OP_SUB_F, HS_OP_MUL_I,
@@ -87,17 +90,28 @@ enum {
     HS_OP_SQRT_F, HS_OP_SIN_F, HS_OP_COS_F, HS_OP_TAN_F, HS_OP_ASIN_F,
     HS_OP_ACOS_F, HS_OP_ATAN_F, HS_OP_SINH_F, HS_OP_COSH_F, HS_OP_TANH_F,
     HS_OP_ASINH_F, HS_OP_ACOSH_F, HS_OP_ATANH_F, HS_OP_LOG_F, HS_OP_LOG2_F,
-    HS_OP_LOG10_F, HS_OP_EXP_F
+    HS_OP_LOG10_F, HS_OP_EXP_F,
+    // the register form's own: the accumulator takes the operand; the
+    // accumulator goes to spill slot `arg`
+    HS_OP_LOAD, HS_OP_SPILL
 };
 
+// where an instruction's operand comes from
+enum { HS_SRC_NONE = 0, HS_SRC_COL = 1, HS_SRC_LIT = 2, HS_SRC_SLOT = 3 };
+
+// one instruction of the register form (engine/expr.py lower): the
+// accumulator a record takes `op` (a unary in place, a binary with the
+// operand as its right side, or as its left with swap); `op` packs
+//   bits 0-7 the opcode, 8-15 HS_SRC_*, 16-23 the operand's conversion
+//   (0, HS_OP_B2I, HS_OP_B2F or HS_OP_I2F), bit 24 swap
 struct HsExprOp {
-    int32_t op;            // HS_OP_*
-    int32_t arg;           // COL: column index; LIT: the value's 32 bits
+    int32_t op;
+    int32_t arg;           // COL: column index; LIT: its 32 bits; SLOT
 };
 
 struct HsExprProg {
-    int32_t first;         // index of its first op in HsExprArgs.ops
-    int32_t n_ops;
+    int32_t first;         // index of its first instruction in ops
+    int32_t n_ops;         // its instructions
     int32_t out_type;      // HS_T_* of the result
     int32_t where;         // 1: AND the result into valid, out unused
     void *out;             // [n] column of out_type
@@ -107,6 +121,8 @@ struct HsExprArgs {
     int32_t n;
     int32_t n_cols;
     int32_t n_progs;
+    int32_t n_slots;       // spill slots the programs need, at most
+                           // HS_EXPR_MAX_SLOTS
     int32_t col_type[HS_EXPR_MAX_COLS];
     const void *cols[HS_EXPR_MAX_COLS];
     uint8_t *valid;        // [n]
@@ -417,6 +433,12 @@ struct HsJoinEvictSide {
     int32_t *out_flags;
     int32_t *out_cols;
 };
+
+// the eviction's tiles (join_evict.cu): HS_JOIN_EVICT_THREADS threads,
+// HS_JOIN_EVICT_PER entries a thread, entry r * THREADS + t of a tile
+// to thread t (a warp's 32 lanes on 32 consecutive entries)
+#define HS_JOIN_EVICT_THREADS 256
+#define HS_JOIN_EVICT_PER 8
 
 struct HsJoinEvictArgs {
     int32_t cap;           // slots of each side

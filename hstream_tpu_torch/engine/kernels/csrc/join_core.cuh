@@ -1,7 +1,7 @@
 // The interval join's shared core: (code, ts) keys and searches, block
 // scans, and the probe that the pack and feed modes of join_probe.cu
 // share; join_insert.cu takes the keys and the warp search, and
-// join_evict.cu the block scans.
+// join_evict.cu the warp scan and the int32 wrap.
 //
 // The probe replaces hstream_tpu/engine/lattice.py:884-936 (_join_bounds
 // and _join_match_arrays), which rank the batch's lower and upper query
@@ -75,8 +75,6 @@ namespace hsjoin {
 
 using hs::look_back;
 
-constexpr int kTile = 1024;  // elements per scan tile = threads per block
-
 __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
     return (int32_t)((uint32_t)a + (uint32_t)b);
 }
@@ -130,30 +128,6 @@ __device__ inline uint32_t block_incl_scan(uint32_t v, uint32_t *smem,
     return x;
 }
 
-namespace {
-
-// exclusive scan, in place, of the tile totals of segment blockIdx.x
-// (tsum + blockIdx.x * ntiles); the segment's grand total goes to
-// total[blockIdx.x]. One block per segment walks its tiles in chunks of
-// blockDim.x with a running carry. (Kernels here have internal linkage:
-// each translation unit that includes the header has its own.)
-__global__ void scan_tiles_kernel(int32_t *tsum, int32_t ntiles,
-                                  int32_t *total) {
-    __shared__ uint32_t smem[32];
-    int32_t *seg = tsum + (size_t)blockIdx.x * ntiles;
-    uint32_t carry = 0;
-    for (int32_t base = 0; base < ntiles; base += blockDim.x) {
-        const int32_t i = base + threadIdx.x;
-        const uint32_t v = i < ntiles ? (uint32_t)seg[i] : 0u;
-        uint32_t tot;
-        const uint32_t x = block_incl_scan(v, smem, &tot);
-        if (i < ntiles) seg[i] = (int32_t)(carry + x - v);
-        carry += tot;
-    }
-    if (threadIdx.x == 0) total[blockIdx.x] = (int32_t)carry;
-}
-
-}  // namespace
 
 
 // the first index in [lo, hi) where pred is false, pred being true on a

@@ -16,9 +16,11 @@ The kernels' plans are modelled in numpy and held against the plain
 probe and insert on small random sorted cases: the probe's bounds per
 tile of records against a store window (staged, in global memory, and
 the whole store where ts -+ within wraps int32), the matches' load-
-balanced expansion, and the merge-path insert; with the kernels' tile
-sizes and with tiles so small that a key's store run and a record's
-matches span several of them.
+balanced expansion, the merge-path insert, and the eviction's tiles
+(live entries after a look-back, dead ones after the side's total),
+the last also against the reference's join_evict; with the kernels'
+tile sizes and with tiles so small that a key's store run and a
+record's matches span several of them.
 
 Inputs are awkward on purpose: equal (code, ts) runs across store and
 batch, dead-but-resident entries below the cutoff, evicted sentinel slots
@@ -38,6 +40,7 @@ import torch
 from hstream_tpu.engine import lattice as JL
 from hstream_tpu_torch.engine import convert
 from hstream_tpu_torch.engine import join_lattice as jl
+from hstream_tpu_torch.engine.kernels import binding as kb
 from torch_parity import JM, TM
 
 SENT = jl.JOIN_SENT_CODE
@@ -221,6 +224,120 @@ def test_evict_matches_the_reference_and_the_compaction(cutoff, delta):
             assert torch.equal(want[k], got[k]), k
         assert_sorted(got)
     assert torch.equal(gn, cn)
+
+
+def _below(lane: int) -> int:
+    return (1 << lane) - 1
+
+
+def evict_model(st, cutoff: int, delta: int, threads: int, per: int):
+    """csrc/join_evict.cu's plan in numpy, one side: tiles of threads x
+    per entries, entry r * threads + t of a tile on thread t. (1) Tile by
+    tile in ticket order: per (round, warp) a ballot of the live lanes
+    (code < SENT and ts >= cutoff), its count scanned round by round; the
+    tile's live prefix summed from its predecessors' counts (the
+    look-back); each live entry placed at that prefix + its (round, warp)
+    scan + the live lanes below it; the ballots and the prefix kept.
+    (2) Once the side's total is known, each tile's dead entries from
+    its kept ballots, placed at the total + the entries before the tile
+    less its live prefix + their own scan + the dead lanes below.
+    Returns the evicted store and the live count."""
+    code, ts = st["code"], st["ts"]
+    cap = code.shape[0]
+    tile_n, warps = threads * per, threads // 32
+    tiles = -(-cap // tile_n)
+    out = {k: np.full_like(v, -7) for k, v in st.items()}
+
+    def rounds(tile):
+        for r in range(per):
+            for w in range(warps):
+                yield r, w, tile * tile_n + r * threads + w * 32
+
+    def popc(x: int) -> int:
+        return bin(x).count("1")
+
+    def place(masks: dict, start: int, tile: int, live: bool):
+        run = 0
+        for r, w, i0 in rounds(tile):
+            m = masks[r, w]
+            for lane in range(32):
+                if not m >> lane & 1:
+                    continue
+                i = i0 + lane
+                pos = start + run + popc(m & _below(lane))
+                if live:
+                    out["code"][pos] = code[i]
+                    out["ts"][pos] = np.int32(
+                        (int(ts[i]) - delta + (1 << 31)) % (1 << 32)
+                        - (1 << 31))
+                else:
+                    out["code"][pos], out["ts"][pos] = SENT, 0
+                out["flags"][pos] = st["flags"][i]
+                out["cols"][:, pos] = st["cols"][:, i]
+            run += popc(m)
+        return run
+
+    counts, kept = {}, {}
+    for tile in range(tiles):   # (1)
+        ballots = {}
+        for r, w, i0 in rounds(tile):
+            ballots[r, w] = sum(
+                1 << lane for lane in range(32)
+                if i0 + lane < cap and code[i0 + lane] < SENT
+                and ts[i0 + lane] >= cutoff)
+        off = sum(counts[k] for k in range(tile))   # the look-back
+        counts[tile] = place(ballots, off, tile, True)
+        kept[tile] = (ballots, off)
+    n_live = sum(counts.values())
+    for tile in range(tiles):   # (2)
+        ballots, off = kept[tile]
+        dead = {(r, w): ((1 << min(max(cap - i0, 0), 32)) - 1)
+                & ~ballots[r, w] for r, w, i0 in rounds(tile)}
+        place(dead, n_live + tile * tile_n - off, tile, False)
+    return out, n_live
+
+
+# name -> (cap, live entries left, right, cutoff): every slot live, every
+# entry dead (all below the cutoff), no entry resident, a store below one
+# tile, not a multiple of the tile, over many tiles
+EVICT_PLANS = {
+    "all live": (3000, 3000, 3000, -(1 << 31)),
+    "all dead": (3000, 2000, 1000, 1 << 20),
+    "none resident": (3000, 0, 0, 40),
+    "below a tile": (100, 60, 30, 40),
+    "not a multiple": (2 * 2048 + 37, 3000, 1500, 40),
+    "many tiles": (9 * 2048 + 5, 12000, 6000, 40),
+}
+
+
+@pytest.mark.parametrize("tiles", ["kernel", "small"])
+@pytest.mark.parametrize("delta", [0, 37, -100])
+@pytest.mark.parametrize("name", list(EVICT_PLANS))
+def test_evict_plan_model_matches_the_reference(name, delta, tiles):
+    """The eviction kernel's tiles (kb.JOIN_EVICT_THREADS x
+    JOIN_EVICT_PER, or 32 x 2 so that small stores span many) give
+    join_evict_ref's stores and live counts and the reference's
+    join_evict(cap, ...) bit for bit."""
+    cap, nl, nr, cutoff = EVICT_PLANS[name]
+    threads, per = ((kb.JOIN_EVICT_THREADS, kb.JOIN_EVICT_PER)
+                    if tiles == "kernel" else (32, 2))
+    rng = np.random.default_rng(cap + nl)
+    left = store_np(rng, cap, 3, nl)
+    right = store_np(rng, cap, 1, nr)
+    wl, wr, wn = JL.join_evict(cap, 3, 1)(to_j(left), to_j(right),
+                                          np.int32(cutoff), np.int32(delta))
+    gl, gr, gn = jl.join_evict_ref(to_t(left), to_t(right), cutoff, delta)
+    for side, (st, want, plain) in enumerate(((left, wl, gl),
+                                              (right, wr, gr))):
+        got, n_live = evict_model(st, cutoff, delta, threads, per)
+        assert n_live == int(np.asarray(wn)[side]) == int(gn[side])
+        for k in ("code", "ts", "flags", "cols"):
+            assert np.array_equal(got[k], np.asarray(want[k])), (side, k)
+            assert np.array_equal(got[k], plain[k].numpy()), (side, k)
+    if name == "all dead":
+        assert int(gn.sum()) == 0
+    if name == "all live":
+        assert int(gn.sum()) == 2 * cap
 
 
 def test_remap_with_the_sentinel_flag_matches_the_reference():

@@ -2,7 +2,7 @@
 another checkout (the parent commit's, or any tree with chip_smoke.py),
 on one CUDA card, in one call.
 
-    python3 ab.py scatter|join|decode|expr OTHER_TREE
+    python3 ab.py scatter|join|decode|expr|close OTHER_TREE
 
 runs OTHER_TREE, this tree, this tree, OTHER_TREE, each in a process of
 its own that builds its tree's kernels and times the group on the same
@@ -72,6 +72,30 @@ timed as the join group's are (device ms over 50 calls, ", call" and
     leaves), the dead ones mostly the empty tail;
   * "ptxas": ptxas's registers, stack frame and spills of expr.cu and
     join_evict.cu, from the tree's build.
+
+close: the window close (close.cu: B2, B3, B5, B9), the session
+extract (B13) and the changelog extract (B6, which shares finalize.cuh's
+estimates), timed as the expr group's are, and two launches whose
+argument blocks grew with the aggregate cap:
+  * "B2 fused close", "B3 extract only": lattice.close_slots of one due
+    slot of config 1's lattice (1024 keys, COUNT(*), SUM, HLL p = 10)
+    after one headline batch, extract and reset / extract only;
+  * "B9 extract_slot", "B9 reset_slot": the per-slot close of that slot;
+  * "B5 reset-only close": lattice.reset_slots of one slot of the
+    changelog query's lattice (2 KiB of quantile bins, two TOPK planes
+    a cell);
+  * "B6 touched changelog", "B6 touched join": lattice.extract_touched
+    at the changelog's and the join's shapes (as the join group), the
+    refill of the flags timed alone and taken out;
+  * "B13 session extract": session_lattice.session_extract of config 4's
+    spec (p50 and p99 on one 512-bin histogram) over an arena of 2^17
+    slots, 6,250 slots named in ascending order (as the session
+    executor's mirror names them) and padded to 8,192;
+  * "scatter config 1": lattice.scatter_step of the headline batch (its
+    planned branch), "session step": session_lattice.session_step of a
+    2^16-record awkward batch into a 2^16-slot arena of every kind;
+  * "ptxas": close.cu's, session_extract.cu's and touched.cu's
+    registers, frames and spills.
 """
 
 from __future__ import annotations
@@ -93,6 +117,9 @@ SPAN_MS = 4_000          # the stores' time range: ~2.1 M matches
 WITHIN = 1000
 INNER_KEYS = 1 << 19
 TOUCHED = 390_000
+# the close group's session extract: arena slots, named slots
+SESS_CAP = 1 << 17
+SESS_LIVE = 6_250
 # the expr group's evictions: (entries a side, cutoff ms)
 EVICT_CAP = 1 << 21
 EVICTS = {"evict": (1_900_000, 1000), "evict half": (1_100_000, 200)}
@@ -429,6 +456,103 @@ def _expr() -> dict:
     return out
 
 
+def _close() -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.engine.kernels import build as kbuild
+    from hstream_tpu_torch.engine.plan import AggKind, AggSpec
+    from hstream_tpu_torch.engine.window import TumblingWindow
+
+    built = kbuild.build()
+    dev = torch.device("cuda", 0)
+    out = {"ptxas": _ptxas(built.log, ("close.cu", "session_extract.cu",
+                                       "touched.cu"))}
+
+    def ms(name, fn, less=None):
+        dev_ms, call_ms, _src = cs.kernel_ms(fn, 50)
+        if less is not None:
+            dev_ms, call_ms = dev_ms - less[0], call_ms - less[1]
+        out[name], out[name + ", call"] = dev_ms, call_ms
+        d = cs.profiled_calls(fn, 5, name)
+        out[name + " by kernel"] = (None if d is None else {
+            k: v / 5e3 for k, v in d.items()})
+
+    # B2, B3: config 1's lattice after one headline batch, one due slot
+    spec = cs.make_spec(1)
+    _, _, _, (key, ts, valid, cols) = cs.headline_batch(dev, spec)
+    st = lattice.init_state(spec, dev)
+    lattice.scatter_step(spec, st, -1, key, ts, valid, cols)
+    slot = int(torch.nonzero(st["count"].sum(0))[0])
+    one = lattice.pad_slots([slot])
+    ms("B2 fused close", lambda: lattice.close_slots(spec, st, one))
+    ms("B3 extract only", lambda: lattice.close_slots(
+        spec, st, one, lattice.CLOSE_EXTRACT))
+    ms("scatter config 1", lambda: lattice.scatter_step(
+        spec, st, -1, key, ts, valid, cols))
+    # B9: the same lattice, one slot
+    st = lattice.init_state(spec, dev)
+    lattice.scatter_step(spec, st, -1, key, ts, valid, cols)
+    ms("B9 extract_slot", lambda: lattice.extract_slot(spec, st, slot))
+    ms("B9 reset_slot", lambda: lattice.reset_slot(spec, st, slot))
+    # B5 and B6 at the changelog's shape: its lattice after one batch
+    cspec, progs, (key, ts, valid, cols), _ = cs.changelog_batch(dev)
+    cst = lattice.init_state(cspec, dev)
+    lattice.step_decoded(cspec, cst, -1, key, ts, valid.clone(), dict(cols),
+                         progs)
+    cslot = int(torch.nonzero(cst["count"].sum(0))[0])
+    saved = cst["touched"].clone()
+    refill = cs.kernel_ms(lambda: cst["touched"].copy_(saved), 20)[:2]
+    mo = lattice.touched_max_out(cspec, cs.BATCH)
+    ms("B6 touched changelog", lambda: (
+        cst["touched"].copy_(saved),
+        lattice.extract_touched(cspec, cst, mo)), refill)
+    ms("B5 reset-only close", lambda: lattice.reset_slots(
+        cspec, cst, lattice.pad_slots([cslot])))
+    # B6 at the join's shape (K = 2^19, COUNT(*)), as the join group
+    ispec = lattice.LatticeSpec(
+        n_keys=INNER_KEYS, window=TumblingWindow(10_000, grace_ms=0),
+        aggs=(AggSpec(AggKind.COUNT_ALL, "c"),), track_touched=True)
+    ist = lattice.init_state(ispec, dev)
+    rng = np.random.default_rng(9)
+    cells = ispec.n_keys * ispec.n_slots
+    hit = torch.from_numpy(rng.choice(cells, TOUCHED, replace=False)).to(dev)
+    ist["touched"].view(-1)[hit] = True
+    ist["count"].view(-1)[hit] = torch.from_numpy(
+        rng.integers(1, 9, TOUCHED).astype(np.int32)).to(dev)
+    ist["slot_start"].copy_(torch.arange(3, device=dev,
+                                         dtype=torch.int32) * 10_000)
+    saved_i = ist["touched"].clone()
+    refill_i = cs.kernel_ms(lambda: ist["touched"].copy_(saved_i), 20)[:2]
+    ms("B6 touched join", lambda: (
+        ist["touched"].copy_(saved_i),
+        lattice.extract_touched(ispec, ist, cells)), refill_i)
+    # B13: config 4's spec (p50 and p99 on one histogram), an arena of
+    # 2^17 slots, 6,250 named slots padded to 8,192
+    sspec = sl.SessionSpec(aggs=tuple(cs.session_plan()[0].aggs))
+    ar = sl.session_plane_np(sspec, SESS_CAP)
+    ar["code"][:] = np.arange(SESS_CAP)
+    for _i, name, _agg in sl._owners(sspec):
+        p = ar[name]
+        hit = rng.random(p.shape) < 0.05
+        p[:] = np.where(hit, rng.integers(1, 9, p.shape), 0)
+    arena = {k: torch.from_numpy(v).to(dev) for k, v in ar.items()}
+    sel = lattice.pad_slots(np.sort(rng.choice(   # ascending, as the
+        SESS_CAP, SESS_LIVE, replace=False)).astype(np.int32))  # mirror's
+    ms("B13 session extract", lambda: sl.session_extract(sspec, arena, sel))
+    # the session step's launch: a batch of the session path's shape
+    spec_all, _schema, layout, sprogs = cs.session_spec_all()
+    sa = sl.init_session_arena(spec_all, 1 << 16, dev)
+    so = sl.init_session_arena(spec_all, 1 << 16, dev)
+    packed = cs.session_batch(dev, spec_all, layout, 60, 1 << 16, 400, 0)
+    inputs = sl.session_inputs(spec_all, layout, packed, sprogs)
+    ms("session step", lambda: sl.session_step(
+        spec_all, sa, so, packed, inputs, cs.SESS_GAP, -(1 << 30), 0))
+    return out
+
+
 def _ptxas(log: str, sources) -> dict:
     """{source: [ptxas lines]}: each kernel's function properties
     (stack frame, spills) and registers, from nvcc's -Xptxas -v output
@@ -447,7 +571,7 @@ def _ptxas(log: str, sources) -> dict:
 
 
 GROUPS = {"scatter": _scatter, "join": _join, "decode": _decode,
-          "expr": _expr}
+          "expr": _expr, "close": _close}
 
 
 def main() -> int:

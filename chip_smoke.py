@@ -16,10 +16,16 @@ Phases, each of which asserts (any failure exits non-zero):
    block-private, cluster and global; keys below 0 and at K + 5, a batch
    crossing a window end, subnormal inputs, the join's inner lattice at
    K = 2^19 on a match-sized feed), fused close
-   (all three modes), rebase, and the changelog query's kernels (the
+   (all three modes; random lattices of every aggregate kind at HLL p
+   of 4, 10 and 14 over 1000 keys, scalars and TOPK over 1003 keys, and
+   8643 slots over 13 keys, with slot vectors of one and of 8,192,
+   pads among them, every mode twice in a row), rebase, and the
+   changelog query's kernels (the
    expression interpreter over every op and type mix, programs that
    spill, batches of 2^16 and 2^16 - 3 records, aligned and one element
-   off; NULL masks,
+   off; program sets past one argument block: 24 programs over 20
+   columns with a WHERE, a program over 80 columns and one of ~500
+   instructions, each cut into pieces; NULL masks,
    COUNT(col) and quantile bins in the scatter and estimates in the
    close; the top-k fold; the touched extract in both its modes, one
    launch and staged, on every aggregate kind and on scalars alone, with
@@ -41,7 +47,9 @@ Phases, each of which asserts (any failure exits non-zero):
    byte only, codes at 2^22 - 1 beside sentinels, starts on both sides
    of the int32 wrap, fewer entries than one sort tile, no arena slots,
    no batch records; the extract with pads, empty histograms and HLL
-   estimates near .5; the remap with codes at and above the table), and
+   estimates near .5, then random arenas of config 4's spec, of every
+   kind at HLL p of 4, 10 and 14 and of nine quantiles sharing one
+   histogram, over slot vectors of one and of 8,192; the remap with codes at and above the table), and
    the join kernels (the probe + merge-insert and the probe alone at a
    match_cap below and above the total, in each probe branch forced:
    the store window staged in shared memory, searched in global memory,
@@ -65,7 +73,11 @@ Phases, each of which asserts (any failure exits non-zero):
    closes, checked against a numpy reference; then close-latency
    samples, the first of which rebases the epoch;
 5. main path, config 2 (BASELINE 2): HOP(60s,10s) AVG/MIN/MAX over 1000
-   keys, the same way;
+   keys, the same way; (5b) a query past the port's old caps, 24
+   aggregates over 20 columns with a WHERE, computed inputs a chain of
+   40 additions, a nest of 20 and a sum of 64 products (two argument
+   blocks of the expression kernel a batch), 10 batches of 2^16 records
+   over 64 keys through IngestPipeline, every closed row against numpy;
 6. the changelog path: SELECT device, COUNT(temp), SUM(temp * 1.8 + 32),
    APPROX_QUANTILE(temp, 0.99), TOPK(temp, 3), TOPK_DISTINCT(temp, 3)
    FROM sensors WHERE temp > 15.0 GROUP BY device, TUMBLE(10s) EMIT
@@ -942,6 +954,114 @@ def check_scatter(dev, results, head):
     return states
 
 
+def random_lattice_state(spec, dev, seed: int) -> dict:
+    """A lattice state with every plane drawn at random within what a
+    step leaves: counts 0 to 40 (a third 0), touched flags, slot starts
+    (some empty), SUM/AVG sums and AVG counts, MIN/MAX values with their
+    +-inf identities and -0.0, COUNT(col) counts, HLL ranks up to 33 - p,
+    sparse histograms (some cells empty, some with large counts) and
+    TOPK values with -inf among them."""
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine.plan import AggKind as A
+
+    rng = np.random.default_rng(seed)
+    st = {k: v.cpu().numpy().copy()
+          for k, v in lattice.init_state(spec, "cpu").items()}
+    shape = st["count"].shape
+    st["count"][:] = np.where(rng.random(shape) < 0.33, 0,
+                              rng.integers(1, 40, shape))
+    st["touched"][:] = rng.random(shape) < 0.5
+    st["slot_start"][:] = np.where(
+        rng.random(spec.n_slots) < 0.2, lattice.EMPTY_START,
+        rng.integers(-(1 << 30), 1 << 30, spec.n_slots))
+    for i, agg in enumerate(spec.aggs):
+        if agg.kind == A.COUNT_ALL:
+            continue
+        p = st[lattice._plane_name(i, agg)]
+        if agg.kind in (A.SUM, A.AVG):
+            p[:] = rng.normal(0, 1e4, p.shape)
+            if agg.kind == A.AVG:
+                n = st[lattice._plane_name(i, agg) + "_n"]
+                n[:] = np.where(rng.random(shape) < 0.2, 0,
+                                rng.integers(1, 40, shape))
+        elif agg.kind in (A.MIN, A.MAX):
+            p[:] = rng.normal(0, 100, p.shape)
+            p[rng.random(p.shape) < 0.2] = np.inf if agg.kind == A.MIN \
+                else -np.inf
+            p[rng.random(p.shape) < 0.05] = -0.0
+        elif agg.kind == A.COUNT:
+            p[:] = rng.integers(0, 40, p.shape)
+        elif agg.kind == A.APPROX_COUNT_DISTINCT:
+            hit = rng.random(p.shape) < rng.random(shape)[..., None]
+            p[:] = np.where(hit, rng.integers(
+                1, spec.hll.max_rank + 1, p.shape), 0)
+        elif agg.kind == A.APPROX_QUANTILE:
+            hit = rng.random(p.shape) < 0.03
+            p[:] = np.where(hit, rng.integers(1, 9, p.shape), 0)
+            p[rng.random(shape) < 0.1] = 0                # empty cells
+            big = rng.random(shape) < 0.02   # totals past 2^24
+            p[big, rng.integers(0, p.shape[-1])] = 1 << 25
+        else:   # TOPK, TOPK_DISTINCT
+            p[:] = -np.sort(-rng.normal(0, 100, p.shape), axis=-1)
+            p[rng.random(p.shape) < 0.3] = -np.inf
+    return {k: torch.from_numpy(v).to(dev) for k, v in st.items()}
+
+
+def close_specs() -> dict:
+    """The close's extra lattices: every aggregate kind (sketch kinds,
+    TOPK, AVG, quantile planes) at HLL p of 4, 10 and 14 and at 100 and
+    1024 quantile bins over 1000 keys (not a multiple of a block's keys),
+    scalars and TOPK alone over 1003 keys (a thread a key), and a 24 h
+    grace (8643 slots) over 13 keys for a slot vector of 8,192."""
+    from hstream_tpu_torch.engine import AggKind as A, AggSpec
+    from hstream_tpu_torch.engine import TumblingWindow, lattice
+    from hstream_tpu_torch.engine.expr import Col
+    from hstream_tpu_torch.engine.sketches import HLLConfig, QuantileConfig
+
+    x = Col("temp")
+    win = TumblingWindow(10_000, grace_ms=30_000)
+    out = {f"every kind, p {p}": lattice.LatticeSpec(
+        n_keys=1000, window=win, aggs=k2_spec().aggs, hll=HLLConfig(p),
+        track_touched=True) for p in (4, 10, 14)}
+    for bins in (100, 1024):   # rounds cut short; rounds read twice
+        out[f"every kind, {bins} bins"] = lattice.LatticeSpec(
+            n_keys=1000, window=win, aggs=k2_spec().aggs,
+            qcfg=QuantileConfig(n_bins=bins), track_touched=True)
+    out["scalars and TOPK"] = lattice.LatticeSpec(
+        n_keys=1003, window=win,
+        aggs=(AggSpec(A.AVG, "a", input=x), AggSpec(A.MIN, "lo", input=x),
+              AggSpec(A.TOPK, "t", input=x, k=5),
+              AggSpec(A.COUNT, "c", input=x)), track_touched=True)
+    out["8192 slots"] = lattice.LatticeSpec(
+        n_keys=13, window=TumblingWindow(10_000, grace_ms=86_400_000),
+        aggs=(AggSpec(A.COUNT_ALL, "n"), AggSpec(A.SUM, "s", input=x),
+              AggSpec(A.APPROX_COUNT_DISTINCT, "u", input=x),
+              AggSpec(A.APPROX_QUANTILE, "q", input=x, quantile=0.5),
+              AggSpec(A.TOPK, "t", input=x, k=3),
+              AggSpec(A.AVG, "a", input=x)), track_touched=True)
+    return out
+
+
+def close_vs_plain(spec, state, slots, mode, what: str) -> None:
+    """One close of `slots` (padded) against the plain extract and reset,
+    packed rows and every plane exact."""
+    from hstream_tpu_torch.engine import lattice
+
+    a, b = copy_state(state), copy_state(state)
+    got = lattice.close_slots(spec, a, slots, mode)
+    st = torch.from_numpy(slots).to(state["count"].device)
+    want = None
+    if mode != lattice.CLOSE_RESET:
+        want = lattice.extract_slots_ref(spec, b, st)
+    if mode != lattice.CLOSE_EXTRACT:
+        lattice.reset_slots_ref(spec, b, st)
+    torch.cuda.synchronize()
+    if want is not None:
+        assert torch.equal(got, want), f"close {what} {mode}: rows"
+    for k in b:
+        assert torch.equal(a[k], b[k]), f"close {what} {mode}: {k}"
+
+
 def check_close(dev, results, states):
     from hstream_tpu_torch.engine import lattice
 
@@ -954,21 +1074,28 @@ def check_close(dev, results, states):
              (2, list(range(8)), lattice.CLOSE_EXTRACT),
              (2, [6, 2], lattice.CLOSE_RESET)]
     for cfg, sl, mode in cases:
-        spec = make_spec(cfg)
-        slots = lattice.pad_slots(sl)
-        a, b = copy_state(states[cfg]), copy_state(states[cfg])
-        got = lattice.close_slots(spec, a, slots, mode)
-        st = torch.from_numpy(slots).to(dev)
-        want = None
-        if mode != lattice.CLOSE_RESET:
-            want = lattice.extract_slots_ref(spec, b, st)
-        if mode != lattice.CLOSE_EXTRACT:
-            lattice.reset_slots_ref(spec, b, st)
-        torch.cuda.synchronize()
-        if want is not None:
-            assert torch.equal(got, want), f"close {cfg} {sl} {mode}: rows"
-        for k in b:
-            assert torch.equal(a[k], b[k]), f"close {cfg} {sl} {mode}: {k}"
+        close_vs_plain(make_spec(cfg), states[cfg], lattice.pad_slots(sl),
+                       mode, f"{cfg} {sl}")
+    # every kind, HLL p 4 / 10 / 14, K off the tile, a thread a key, one
+    # slot and 8,192: each mode, twice in a row (the tile counters of an
+    # extract-and-reset close must be back at 0 for the next)
+    rng = np.random.default_rng(47)
+    extra = 0
+    for name, spec in close_specs().items():
+        state = random_lattice_state(spec, dev, 48 + extra)
+        W = spec.n_slots
+        vecs = [np.array([int(rng.integers(0, W))], np.int32),
+                rng.permutation(W)[:min(W, 8000)].astype(np.int32)]
+        for sl in vecs:
+            slots = lattice.pad_slots(sl)
+            for mode in (lattice.CLOSE_EXTRACT_RESET, lattice.CLOSE_EXTRACT,
+                         lattice.CLOSE_RESET, lattice.CLOSE_EXTRACT_RESET):
+                close_vs_plain(spec, state, slots, mode,
+                               f"{name} P={len(slots)}")
+                extra += 1
+        lanes = {m: lattice.close_plan(spec, m) for m in range(3)}
+        log(f"fused_close {name}: K={spec.n_keys}, W={W}, lanes {lanes}, "
+            f"P 1 and {len(lattice.pad_slots(vecs[1]))}: exact")
     # time at the main path's shapes: one due window of config 1
     spec = make_spec(1)
     st = copy_state(states[1])
@@ -987,7 +1114,7 @@ def check_close(dev, results, states):
     b_ms, b_by = bound(2 * cells + rows * spec.n_keys * 4,
                        spec.n_keys * 1024 * 4)
     # mode 1 alone (the extract-only peek, B3): reads, writes the rows
-    ms1, call1, _ = kernel_ms(lambda: lattice.close_slots(
+    ms1, call1, src1 = kernel_ms(lambda: lattice.close_slots(
         spec, st, slots, lattice.CLOSE_EXTRACT), 50)
     plain1 = kernel_ms(lambda: lattice.extract_slots_ref(
         spec, st, slots_t), 5)[0]
@@ -1002,7 +1129,16 @@ def check_close(dev, results, states):
         extract_only_ms=ms1, extract_only_call_ms=call1,
         extract_only_plain_ms=plain1, extract_only_bound_ms=b1_ms,
         extract_only_bound_by=b1_by)
-    log(f"fused_close: {len(cases)} cases (3 modes) bit-exact; {ms:.4f} ms "
+    # B3, the extract-only close (a peek), in the kernels line of its own:
+    # the same wrapper's counter, launched on no main path
+    results["extract_close"] = dict(
+        route="cuda",
+        source="hstream_tpu_torch/engine/kernels/csrc/close.cu",
+        replaces="hstream_tpu/engine/lattice.py:642", counter="fused_close",
+        paths=(), max_abs_err=err, ms=ms1, plain_ms=plain1, bound_ms=b1_ms,
+        bound_by=b1_by, library_ms=None, call_ms=call1, ms_source=src1)
+    log(f"fused_close: {len(cases) + extra} cases (3 modes) bit-exact; "
+        f"{ms:.4f} ms "
         f"(plain {plain:.4f}, bound {b_ms:.4f}); extract-only {ms1:.4f} ms "
         f"(plain {plain1:.4f}, bound {b1_ms:.5f})")
 
@@ -1168,6 +1304,204 @@ def main_path(cfg: int, dev) -> dict:
                 close_latency_ms=latency,
                 close_latency_ms_median=float(np.median(latency)),
                 transfer_stats=ex.transfer_stats, pipeline_stages=stages)
+
+
+# ---- phase 5b: a query past the old caps --------------------------------------
+
+WIDE_KEYS = 64
+WIDE_BATCH = 1 << 16
+WIDE_BATCHES = 10            # 2 s of stream each: two windows close
+WIDE_MS = 2_000
+WIDE_COLS = tuple(f"c{k}" for k in range(20))
+
+
+def wide_plan():
+    """(node, schema) of a window query the port once refused on the
+    card: 24 aggregates over 20 columns with a WHERE, its computed
+    inputs a chain of 40 additions, a nest of 20 subtractions and a
+    balanced sum of 64 products (their register forms, with the WHERE's
+    and the others', take two argument blocks of the expression
+    kernel); values are integers 0 to 3, so every sum is exact in any
+    order."""
+    from hstream_tpu_torch.engine import (
+        AggKind as A, AggregateNode, AggSpec, ColumnType, FilterNode,
+        Schema, SourceNode, TumblingWindow)
+    from hstream_tpu_torch.engine.expr import BinOp, Col, Lit
+
+    c = [Col(n) for n in WIDE_COLS]
+    chain = c[15]
+    for k in range(40):
+        chain = BinOp("+", chain, c[(16 + k) % 20])
+    nest = c[16]
+    for k in range(20):
+        nest = BinOp("-", c[17 if k % 2 else 16], nest)
+    level = [BinOp("*", c[k % 20], c[(k + 7) % 20]) for k in range(64)]
+    while len(level) > 1:
+        level = [BinOp("+", level[k], level[k + 1])
+                 for k in range(0, len(level), 2)]
+    kinds = (A.SUM, A.MIN, A.MAX, A.AVG, A.COUNT)
+    aggs = [AggSpec(A.COUNT_ALL, "cnt")]
+    aggs += [AggSpec(kinds[k % 5], f"a{k}", input=c[k]) for k in range(15)]
+    aggs += [AggSpec(A.SUM, "chain", input=chain),
+             AggSpec(A.SUM, "nest", input=nest),
+             AggSpec(A.SUM, "prod", input=level[0]),
+             AggSpec(A.APPROX_COUNT_DISTINCT, "dc", input=c[2]),
+             AggSpec(A.APPROX_QUANTILE, "q50", input=c[3], quantile=0.5),
+             AggSpec(A.SUM, "mix", input=BinOp("+", BinOp("*", c[0],
+                                                           Lit(2.0)), c[1])),
+             AggSpec(A.MAX, "dmax", input=BinOp("-", c[4], c[5])),
+             AggSpec(A.MIN, "pmin", input=BinOp("*", c[6], c[7]))]
+    schema = Schema.of(device=ColumnType.STRING,
+                       **{n: ColumnType.FLOAT for n in WIDE_COLS})
+    where = BinOp("AND", BinOp(">", c[19], Lit(0.0)),
+                  BinOp("<", c[18], Lit(3.0)))
+    node = AggregateNode(child=FilterNode(SourceNode("wide", schema), where),
+                         group_keys=[Col("device")],
+                         window=TumblingWindow(10_000, grace_ms=0),
+                         aggs=aggs)
+    return node, schema
+
+
+def _np_eval(e, cols: dict) -> np.ndarray:
+    """numpy float64 of an expression over integer columns (exact)."""
+    from hstream_tpu_torch.engine.expr import BinOp, Col
+
+    if isinstance(e, Col):
+        return cols[e.name].astype(np.float64)
+    if isinstance(e, BinOp):
+        a, b = _np_eval(e.left, cols), _np_eval(e.right, cols)
+        return {"+": a + b, "-": a - b, "*": a * b}[e.op]
+    return np.float64(e.value)
+
+
+def wide_reference(node, batches, qcfg, hll_p: int) -> dict:
+    """{(key, window start): {name: value}} of every window the batches
+    fill, in numpy: exact sums, MIN/MAX, counts, AVG as float32 sum / n,
+    the HLL registers' estimate and the quantile histogram's bin."""
+    from hstream_tpu_torch.engine.plan import AggKind as A
+
+    keys = np.concatenate([b[0] for b in batches]).astype(np.int64)
+    ts = np.concatenate([b[1] for b in batches])
+    cols = {n: np.concatenate([b[2][n] for b in batches])
+            for n in WIDE_COLS}
+    keep = (cols["c19"] > 0) & (cols["c18"] < 3)
+    keys, ts = keys[keep], ts[keep]
+    cols = {n: v[keep] for n, v in cols.items()}
+    start = (ts // 10_000) * 10_000
+    cell = keys * 4096 + (start - BASE_TS) // 10_000
+    uniq, inv = np.unique(cell, return_inverse=True)
+    n = np.bincount(inv)
+    out = {}
+    per = {}
+    for agg in node.aggs:
+        if agg.kind == A.COUNT_ALL:
+            per[agg.out_name] = n.astype(np.float64)
+            continue
+        v = _np_eval(agg.input, cols)
+        if agg.kind in (A.SUM, A.AVG):
+            tot = np.bincount(inv, weights=v)
+            per[agg.out_name] = tot if agg.kind == A.SUM else (
+                tot.astype(np.float32) / n.astype(np.float32))
+        elif agg.kind == A.COUNT:
+            per[agg.out_name] = n.astype(np.float64)
+        elif agg.kind in (A.MIN, A.MAX):
+            m = np.full(len(uniq), np.inf if agg.kind == A.MIN else -np.inf)
+            (np.minimum if agg.kind == A.MIN else np.maximum).at(m, inv, v)
+            per[agg.out_name] = m
+        elif agg.kind == A.APPROX_COUNT_DISTINCT:
+            regs = np.zeros((len(uniq), 1 << hll_p), np.int8)
+            reg, rank = np_hll_indices(v.astype(np.float32), hll_p)
+            np.maximum.at(regs, (inv, reg), rank.astype(np.int8))
+            per[agg.out_name] = regs
+        else:
+            b, edge = np_quantile_bins(v.astype(np.float32), qcfg)
+            assert not edge.any(), "a value at a bin edge"
+            hist = np.zeros((len(uniq), qcfg.n_bins), np.int64)
+            np.add.at(hist, (inv, b), 1)
+            per[agg.out_name] = np_quantile_estimate(
+                hist, agg.quantile, qcfg)[0]
+    for j, c in enumerate(uniq):
+        out[(int(c // 4096), BASE_TS + int(c % 4096) * 10_000)] = {
+            k: v[j] for k, v in per.items()}
+    return out
+
+
+def wide_path(dev) -> dict:
+    """Phase 5b: wide_plan's query through IngestPipeline on the card,
+    10 batches of 2^16 records over 64 keys (2 s of stream each) and a
+    closer; every row of the two closed windows against numpy; per
+    batch one decode, one scatter and the expression's blocks."""
+    from hstream_tpu_torch.engine import IngestPipeline, QueryExecutor
+    from hstream_tpu_torch.engine import expr as ex
+    from hstream_tpu_torch.engine.sketches import hll_estimate
+
+    node, schema = wide_plan()
+    qx = QueryExecutor(node, schema, emit_changes=False,
+                       initial_keys=WIDE_KEYS, batch_capacity=WIDE_BATCH)
+    assert qx.device == dev and len(qx.spec.aggs) == 24
+    for k in range(WIDE_KEYS):
+        qx.key_id_for((f"d{k}",))
+    plan = ex.launch_plan(qx._progs)
+    n_ins = sum(len(ex.lower(p).ins) for b in plan.blocks
+                for p, _ in b.progs)
+    assert len(plan.blocks) >= 2 and n_ins > 256, (len(plan.blocks), n_ins)
+    rng = np.random.default_rng(55)
+    batches = []
+    for b in range(WIDE_BATCHES):
+        kids = rng.integers(0, WIDE_KEYS, WIDE_BATCH).astype(np.int32)
+        ts = BASE_TS + b * WIDE_MS + np.sort(
+            rng.integers(0, WIDE_MS, WIDE_BATCH)).astype(np.int64)
+        cols = {n: rng.integers(0, 4, WIDE_BATCH).astype(np.float32)
+                for n in WIDE_COLS}
+        batches.append((kids, ts, cols))
+    pipe = IngestPipeline(qx, depth=4, workers=2)
+    zero_counts()
+    rows: list = []
+    try:
+        t0 = time.perf_counter()
+        for kids, ts, cols in batches:
+            rows.extend(pipe.submit(kids, ts, cols))
+        closer = (np.zeros(1, np.int32),
+                  np.array([BASE_TS + WIDE_BATCHES * WIDE_MS], np.int64),
+                  {n: np.float32([1.0 if n == "c19" else 0.0])
+                   for n in WIDE_COLS})
+        rows.extend(pipe.submit(*closer))
+        rows.extend(pipe.flush())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pipe.close()
+    counts = launch_counts()
+    steps = WIDE_BATCHES + 1
+    assert counts["wire_decode"] == counts["scatter_aggregate"] == steps, \
+        counts
+    assert counts["expression"] == steps * len(plan.blocks), counts
+    assert counts["fused_close"] == qx.close_stats["close_dispatches"] >= 1
+    ref = wide_reference(node, batches, qx.spec.qcfg, qx.spec.hll.precision)
+    got = {(int(r["device"][1:]), r["winStart"]): r for r in rows}
+    closed = {k for k in ref if k[1] + 10_000 <= BASE_TS
+              + WIDE_BATCHES * WIDE_MS}
+    assert set(got) == closed, (len(got), len(closed))
+    for key in closed:
+        r, w = got[key], ref[key]
+        for name, want in w.items():
+            if name == "dc":
+                regs = torch.from_numpy(want[None, None, :]).to(dev)
+                want = float(torch.round(hll_estimate(regs, qx.spec.hll))
+                             [0, 0])
+            if name == "q50":   # the card's expf against numpy's
+                assert abs(r[name] - float(want)) <= 2e-6 * abs(want), \
+                    (key, name, r[name], want)
+            else:
+                assert float(r[name]) == float(want), \
+                    (key, name, r[name], want)
+    return dict(config="wide (24 aggregates, 20 columns)",
+                events_per_sec=steps * WIDE_BATCH / wall, wall_s=wall,
+                windows_checked=len({k[1] for k in closed}),
+                rows=len(rows), launches=counts,
+                expression_blocks=len(plan.blocks),
+                expression_instructions=n_ins,
+                close_stats=dict(qx.close_stats))
 
 
 # ---- this slice's kernels: the changelog query's ----------------------------
@@ -1400,6 +1734,83 @@ def check_expr(dev, results, chg):
         f"at compile; up to {slots} spill slots) on 2^16 records, 2^16 - 3 "
         f"and 2^16 - 3 unaligned; {ms:.4f} ms (plain {plain:.4f}, "
         f"bound {b_ms:.4f})")
+
+
+def wide_programs():
+    """(columns, programs) past one argument block of the expression
+    kernel: 24 programs over 20 int columns (each a chain over eight of
+    them, ~30 instructions), a program over 80 columns (past a block's
+    column table) and one of ~500 instructions (each cut into pieces
+    by expr.launch_plan), and a WHERE."""
+    from hstream_tpu_torch.engine import expr as ex
+    from hstream_tpu_torch.engine.types import ColumnType as CT, Schema
+
+    names = [f"x{k}" for k in range(20)]
+    extra = [f"y{k}" for k in range(80)]
+    schema = Schema.of(**{c: CT.INT for c in names + extra})
+
+    def total(cols):
+        e = ex.Col(cols[0])
+        for c in cols[1:]:
+            e = ex.BinOp("+", e, ex.Col(c))
+        return e
+
+    progs = []
+    for p in range(24):
+        e = ex.Col(names[p % 20])
+        for k in range(1, 8):
+            c = ex.Col(names[(p + 3 * k) % 20])
+            e = ex.BinOp("-" if k % 3 else "*", ex.BinOp("+", e, c),
+                         ex.Lit(k))
+        progs.append((ex.compile_device(e, schema), f"p{p}"))
+    wide = ex.compile_device(ex.BinOp("*", ex.BinOp(
+        "+", total(extra[:40]), ex.Lit(3)), total(extra[40:])), schema)
+    long = ex.compile_device(ex.BinOp("-", total(names * 25),
+                                      ex.Col(names[0])), schema)
+    where = ex.compile_device(ex.BinOp(">", total(names[5:9]),
+                                       ex.Lit(-200)), schema)
+    return names + extra, tuple(progs), wide, long, where
+
+
+def check_expr_blocks(dev, results):
+    """The expression kernel past one argument block: 24 programs over
+    20 columns with a WHERE (two blocks, launched in turn), a program
+    over 80 columns and one of ~500 instructions (pieces passing
+    temporary columns), each bit-exact against its plain version on
+    2^16 and 2^16 - 3 records."""
+    from hstream_tpu_torch.engine import expr as ex
+
+    names, progs, wide, long, where = wide_programs()
+    rng = np.random.default_rng(41)
+    sets = [progs + ((where, None),), ((wide, "wide"),), ((long, "long"),)]
+    blocks = []
+    for n in (1 << 16, (1 << 16) - 3):
+        cols = {c: torch.from_numpy(rng.integers(-1000, 1000, n)
+                                    .astype(np.int32)).to(dev)
+                for c in names}
+        valid0 = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        for pset in sets:
+            plan = ex.launch_plan(pset)
+            got, valid = dict(cols), valid0.clone()
+            before = ex.eval_programs.launches
+            ex.eval_programs(pset, got, valid)
+            torch.cuda.synchronize()
+            assert ex.eval_programs.launches - before == len(plan.blocks)
+            assert not (set(got) - set(cols)) & plan.temps
+            want_valid = valid0.clone()
+            for prog, name in pset:
+                want = prog(cols)
+                if name is None:
+                    want_valid &= want
+                else:
+                    assert torch.equal(got[name], want), \
+                        f"expression blocks: {name} (n {n}) differs"
+            assert torch.equal(valid, want_valid), "expression blocks: WHERE"
+            blocks.append(len(plan.blocks))
+    results["expression"]["blocks_checked"] = blocks
+    log(f"expression past one argument block: 24 programs over 20 columns "
+        f"and a WHERE, an 80-column and a ~500-instruction program "
+        f"(blocks {blocks[:3]}), bit-exact on 2^16 and 2^16 - 3 records")
 
 
 # CUDA's documented largest error of each single-precision function, in
@@ -2794,6 +3205,24 @@ def check_session_extract(dev, results):
     torch.cuda.synchronize()
     assert (slots < 0).any(), "no pad in the slot vector"
     assert torch.equal(got, want), "session_extract differs"
+    # config 4's spec (p50 and p99 on one histogram), every kind at HLL
+    # p 4, 10 and 14, and nine quantiles on one histogram among 20
+    # aggregates (three passes over it); random arenas of 2^14 slots,
+    # vectors of one slot and of 8,192 (6,250 or 8,000 named, the rest
+    # pads: the slots by value in the launch, or uploaded)
+    cases = 0
+    for name, sp in session_extract_specs().items():
+        arena = random_arena(sp, 1 << 14, dev, 90 + cases)
+        for n_live in (1, 6250, 8000):   # 8000: past the by-value slots
+            sel = pad_slots(rng.choice(1 << 14, n_live, replace=False)
+                            .astype(np.int32))
+            got = sl.session_extract(sp, arena, sel)
+            want = sl.session_extract_ref(sp, arena,
+                                          torch.from_numpy(sel).to(dev))
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), \
+                f"session_extract {name} P={len(sel)} differs"
+            cases += 1
     results["session_extract"] = dict(
         route="cuda",
         source="hstream_tpu_torch/engine/kernels/csrc/session_extract.cu",
@@ -2802,7 +3231,69 @@ def check_session_extract(dev, results):
     log(f"session_extract: {len(pick)} slots + {int((slots < 0).sum())} "
         f"pads, 64 empty histograms, HLL estimates within "
         f"{float(frac[near].max()):.2g} of .5, +-inf MIN/MAX, AVG n = 0: "
-        f"bit-exact")
+        f"bit-exact; {cases} more (config 4, every kind at HLL p 4 / 10 "
+        f"/ 14, nine quantiles on one histogram; P 1 and 8192 with 6250 "
+        f"and 8000 named): bit-exact")
+
+
+def session_extract_specs() -> dict:
+    from hstream_tpu_torch.engine import AggKind as A, AggSpec
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.engine.expr import Col
+    from hstream_tpu_torch.engine.sketches import HLLConfig
+
+    every = session_spec_all()[0]
+    out = {"config 4": sl.SessionSpec(aggs=tuple(session_plan()[0].aggs))}
+    for p in (4, 10, 14):
+        out[f"every kind, p {p}"] = sl.SessionSpec(aggs=every.aggs,
+                                                   hll=HLLConfig(p))
+    v = Col("v")
+    qs = [AggSpec(A.APPROX_QUANTILE, f"q{k}", input=v, quantile=k / 10)
+          for k in range(1, 10)]
+    out["nine quantiles"] = sl.SessionSpec(aggs=tuple(
+        qs[:4] + list(every.aggs[:6]) + qs[4:] + [every.aggs[6]]))
+    return out
+
+
+def random_arena(spec, cap: int, dev, seed: int) -> dict:
+    """An arena of `cap` slots drawn at random: codes (some sentinels),
+    counts, sums, AVG counts (some 0), MIN/MAX with their +-inf
+    identities and -0.0, HLL ranks up to 33 - p, sparse histograms (some
+    empty, some large)."""
+    from hstream_tpu_torch.engine import AggKind as A
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    rng = np.random.default_rng(seed)
+    ar = sl.session_plane_np(spec, cap)
+    ar["code"][:] = rng.integers(0, 1 << 20, cap)
+    ar["code"][rng.random(cap) < 0.05] = sl.SESSION_SENT_CODE
+    ar["t0"][:] = rng.integers(0, 1 << 20, cap)
+    ar["t1"][:] = ar["t0"] + rng.integers(0, 9000, cap)
+    for _i, name, agg in sl._owners(spec):
+        p = ar[name]
+        if agg.kind in (A.COUNT_ALL, A.COUNT):
+            p[:] = rng.integers(0, 50, p.shape)
+        elif agg.kind in (A.SUM, A.AVG):
+            p[:] = rng.normal(0, 100, p.shape)
+            if agg.kind == A.AVG:
+                ar[name + "_n"][:] = np.where(rng.random(cap) < 0.2, 0,
+                                              rng.integers(1, 50, cap))
+        elif agg.kind in (A.MIN, A.MAX):
+            p[:] = rng.normal(0, 100, p.shape)
+            p[rng.random(p.shape) < 0.1] = np.inf if agg.kind == A.MIN \
+                else -np.inf
+            p[rng.random(p.shape) < 0.05] = -0.0
+        elif agg.kind == A.APPROX_COUNT_DISTINCT:
+            hit = rng.random(p.shape) < rng.random(cap)[:, None]
+            p[:] = np.where(hit, rng.integers(
+                1, spec.hll.max_rank + 1, p.shape), 0)
+        else:
+            hit = rng.random(p.shape) < 0.05
+            p[:] = np.where(hit, rng.integers(1, 9, p.shape), 0)
+            p[rng.random(cap) < 0.1] = 0
+            p[rng.random(cap) < 0.02, int(rng.integers(0, p.shape[1]))] = \
+                1 << 25   # totals past 2^24
+    return {k: torch.from_numpy(x).to(dev) for k, x in ar.items()}
 
 
 def check_session_remap(dev, results):
@@ -5368,6 +5859,7 @@ def main() -> int:
     check_rebase(dev, results)
     chg = changelog_batch(dev)
     check_expr(dev, results, chg)
+    check_expr_blocks(dev, results)
     check_unaries(dev, results)
     k2_state = check_sketch_aggs(dev, results)
     check_topk(dev, results, chg)
@@ -5394,6 +5886,15 @@ def main() -> int:
             f"), {r['windows_checked']} windows checked, launches "
             f"{r['launches']}, close_stats {r['close_stats']}, host "
             f"stages {json.dumps(r['pipeline_stages'])} [{card}]")
+
+    r = wide_path(dev)
+    paths.append(r)
+    log(f"wide path (5b): {r['rows']} rows of {r['windows_checked']} "
+        f"windows (24 aggregates over 20 columns, a WHERE) equal numpy; "
+        f"{r['expression_blocks']} expression blocks a batch "
+        f"({r['expression_instructions']} instructions), launches "
+        f"{r['launches']}, close_stats {r['close_stats']}, "
+        f"{r['events_per_sec']:.0f} events/s [{card}]")
 
     r = changelog_path(dev)
     paths.append(r)

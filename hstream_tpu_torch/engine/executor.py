@@ -207,6 +207,7 @@ class QueryExecutor:
         if self._filter_expr is not None:
             needed |= columns_of(self._filter_expr)
         self._needed_cols = sorted(needed)
+        lattice.check_device_caps(encoded_aggs, needed)
 
         self.spec = lattice.LatticeSpec(
             n_keys=initial_keys, window=self.window,

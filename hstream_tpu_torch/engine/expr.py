@@ -128,9 +128,6 @@ def encode_strings(expr: Expr, schema: Schema,
  OP_LOG_F, OP_LOG2_F, OP_LOG10_F, OP_EXP_F) = range(60)
 _BINARY = frozenset(range(OP_ADD_I, OP_GE_F + 1)) | {OP_SEL_L, OP_SEL_R}
 
-MAX_OPS = 64     # per program
-MAX_DEPTH = 16   # stack slots (HS_EXPR_MAX_DEPTH)
-
 _COL_DTYPE = {ColumnType.FLOAT: "f32", ColumnType.INT: "i32",
               ColumnType.BOOL: "bool", ColumnType.STRING: "i32"}
 _TORCH = {"f32": torch.float32, "i32": torch.int32, "bool": torch.bool}
@@ -297,22 +294,19 @@ def compile_device(expr: Expr, schema: Schema) -> DeviceProgram:
         raise SQLCodegenError(f"unknown expr {e!r}")
 
     ops, dtype = build(expr)
-    if len(ops) > MAX_OPS:
-        raise SQLCodegenError(
-            f"expression of {len(ops)} ops exceeds the device's {MAX_OPS}")
-    depth = peak = 0
-    for code, _, _ in ops:
-        depth += 1 if code in (OP_COL, OP_LIT) else \
-            -1 if code in _BINARY else 0
-        peak = max(peak, depth)
-    if peak > MAX_DEPTH:
-        raise SQLCodegenError(
-            f"expression needs {peak} stack slots, the device has "
-            f"{MAX_DEPTH}")
-    return DeviceProgram(ops=tuple((c, a) for c, a, _ in ops),
+    prog = DeviceProgram(ops=tuple((c, a) for c, a, _ in ops),
                          types=tuple(t for _, _, t in ops),
                          cols=tuple(cols), dtype=dtype,
                          has_unary=any(c >= OP_CEIL_F for c, _, _ in ops))
+    # the kernel's one limit on a program: its register form's spill
+    # slots (a tree of 2^(MAX_SLOTS + 2) leaves or more, balanced);
+    # refused here, on every device, where the reference traces it
+    slots = lower(prog).slots
+    if slots > MAX_SLOTS:
+        raise SQLCodegenError(
+            f"expression needs {slots} spill slots, the device has "
+            f"{MAX_SLOTS}")
+    return prog
 
 
 # ---- the plain version of the expression kernel -----------------------------
@@ -486,7 +480,7 @@ def _run_plain(prog: DeviceProgram, cols: Mapping[str, torch.Tensor]
 # sources (HS_SRC_*), kernels/csrc/hs_kernels.h
 OP_LOAD, OP_SPILL = 60, 61
 SRC_NONE, SRC_COL, SRC_LIT, SRC_SLOT = range(4)
-MAX_SLOTS = MAX_DEPTH - 1
+MAX_SLOTS = kb.EXPR_MAX_SLOTS   # spill slots in shared memory
 _CVT = frozenset({OP_B2I, OP_B2F, OP_I2F})
 
 
@@ -510,7 +504,7 @@ class Ins(NamedTuple):
 
 class Lowered(NamedTuple):
     ins: tuple[Ins, ...]
-    slots: int   # spill slots it needs (at most MAX_SLOTS)
+    slots: int   # spill slots it needs (compile_device refuses > MAX_SLOTS)
 
 
 @functools.lru_cache(maxsize=512)
@@ -522,64 +516,77 @@ def lower(prog: DeviceProgram) -> Lowered:
     spill slot and names it as the operand, so the slots never exceed the
     postfix stack's depth less one. Every op keeps its operands' order
     and its arithmetic, so the result is the postfix program's bit for
-    bit."""
-    nodes: list[tuple] = []   # (code, arg, type, children)
-    for (code, arg), t in zip(prog.ops, prog.types):
+    bit. The tree is kept as indices into the postfix ops (children
+    before parents), so a program of any size lowers in time linear in
+    its ops and its depth."""
+    kids: list[tuple[int, ...]] = []
+    stack: list[int] = []
+    for i, (code, _arg) in enumerate(prog.ops):
         if code in (OP_COL, OP_LIT):
-            nodes.append((code, arg, t, ()))
+            kids.append(())
         elif code in _BINARY:
-            b = nodes.pop()
-            nodes.append((code, 0, t, (nodes.pop(), b)))
+            b = stack.pop()
+            kids.append((stack.pop(), b))
         else:
-            nodes.append((code, 0, t, (nodes.pop(),)))
-    (root,) = nodes
+            kids.append((stack.pop(),))
+        stack.append(i)
+    (root,) = stack
 
-    def operand(n) -> Ins | None:
-        code, arg, t, kids = n
+    def leaf(i: int) -> Ins | None:
+        code, arg = prog.ops[i]
         if code in (OP_COL, OP_LIT):
             return Ins(OP_LOAD, SRC_COL if code == OP_COL else SRC_LIT, arg,
-                       t=t)
-        if code in _CVT and kids[0][0] in (OP_COL, OP_LIT):
-            return operand(kids[0])._replace(cvt=code)
+                       t=prog.types[i])
+        if code in _CVT and not kids[kids[i][0]]:
+            return leaf(kids[i][0])._replace(cvt=code)
         return None
 
-    @functools.cache
-    def need(n) -> int:
-        if operand(n) is not None:
-            return 0
-        kids = n[3]
-        if len(kids) == 1:
-            return need(kids[0])
-        l, r = kids
-        if operand(r) is not None:
-            return need(l)
-        if operand(l) is not None:
-            return need(r)
-        first, second = (r, l) if need(r) >= need(l) else (l, r)
-        return max(need(first), 1 + need(second))
+    operand = [leaf(i) for i in range(len(kids))]
+    need = [0] * len(kids)       # spill slots a node needs
+    for i, k in enumerate(kids):  # postfix: children first
+        if operand[i] is not None:
+            continue
+        if len(k) == 1:
+            need[i] = need[k[0]]
+            continue
+        l, r = k
+        if operand[r] is not None:
+            need[i] = need[l]
+        elif operand[l] is not None:
+            need[i] = need[r]
+        else:
+            first, second = (r, l) if need[r] >= need[l] else (l, r)
+            need[i] = max(need[first], 1 + need[second])
 
-    def gen(n, s: int) -> list[Ins]:
-        leaf = operand(n)
-        if leaf is not None:
-            return [leaf]
-        code, _, _, kids = n
-        if len(kids) == 1:
-            return gen(kids[0], s) + [Ins(code)]
-        l, r = kids
-        o = operand(r)
-        if o is not None:
-            return gen(l, s) + [o._replace(op=code)]
-        o = operand(l)
-        if o is not None:
-            return gen(r, s) + [o._replace(op=code, swap=True)]
-        swap = need(r) < need(l)   # the left side first
-        first, second = (l, r) if swap else (r, l)
-        return (gen(first, s) + [Ins(OP_SPILL, arg=s)] + gen(second, s + 1)
-                + [Ins(code, SRC_SLOT, s, swap=swap, t=first[2])])
+    out: list[Ins] = []
 
-    ins = tuple(gen(root, 0))
-    return Lowered(ins, max((i.arg + 1 for i in ins if i.op == OP_SPILL),
-                            default=0))
+    def gen(i: int, s: int) -> None:
+        if operand[i] is not None:
+            out.append(operand[i])
+            return
+        code = prog.ops[i][0]
+        if len(kids[i]) == 1:
+            gen(kids[i][0], s)
+            out.append(Ins(code))
+            return
+        l, r = kids[i]
+        if operand[r] is not None:
+            gen(l, s)
+            out.append(operand[r]._replace(op=code))
+        elif operand[l] is not None:
+            gen(r, s)
+            out.append(operand[l]._replace(op=code, swap=True))
+        else:
+            swap = need[r] < need[l]   # the left side first
+            first, second = (l, r) if swap else (r, l)
+            gen(first, s)
+            out.append(Ins(OP_SPILL, arg=s))
+            gen(second, s + 1)
+            out.append(Ins(code, SRC_SLOT, s, swap=swap,
+                           t=prog.types[first]))
+
+    gen(root, 0)
+    return Lowered(tuple(out), need[root])
 
 
 def run_lowered(prog: DeviceProgram, cols: Mapping[str, torch.Tensor]
@@ -616,7 +623,8 @@ def eval_programs(progs: Sequence[tuple[DeviceProgram, str | None]],
     """Run a step's programs over one decoded batch, in place: a program
     paired with a name adds that computed column to `cols`; the one
     paired with None is the WHERE mask, ANDed into `valid`. The
-    expression kernel on the card, one launch for all programs; the
+    expression kernel on the card, one launch for a program set that
+    fits one argument block (launch_plan), one per block past it; the
     plain versions for a batch on the CPU."""
     if not progs:
         return
@@ -628,47 +636,187 @@ def eval_programs(progs: Sequence[tuple[DeviceProgram, str | None]],
             else:
                 cols[name] = r
         return
-    _expr_cuda(progs, cols, valid)
-    eval_programs.launches += 1
-    if any(prog.has_unary for prog, _ in progs):
-        eval_programs.unary_launches += 1
+    plan = launch_plan(tuple(progs))
+    _expr_cuda(plan, progs, cols, valid)
+    eval_programs.launches += len(plan.blocks)
+    eval_programs.unary_launches += sum(b.unary for b in plan.blocks)
 
 
-eval_programs.launches = 0  # wrapper calls that launched the kernel
+eval_programs.launches = 0  # kernel launches (one a block of the plan)
 eval_programs.unary_launches = 0  # of those, launches that ran a unary
 
 
-class LaunchPlan(NamedTuple):
+class LaunchBlock(NamedTuple):
+    progs: tuple[tuple[DeviceProgram, str | None], ...]   # its pieces
     args: bytes     # the HsExprArgs block but its pointers and n
     cols: tuple[tuple[str, torch.dtype], ...]   # the column table
     outs: tuple[tuple[int, str, torch.dtype], ...]   # (program, name, dtype)
+    unary: bool     # a program of the block runs a unary (B1b')
+
+
+class LaunchPlan(NamedTuple):
+    """A program set's argument blocks, launched in order on one stream.
+    A set within one block's tables (EXPR_MAX_PROGS programs,
+    EXPR_MAX_OPS instructions, EXPR_MAX_COLS columns) is one block, one
+    launch. Past them, programs go into further blocks, and a program
+    past a block by itself is cut into pieces: a subtree runs as a
+    program of its own into a temporary column (`temps`), which the rest
+    reads as an operand. A value crosses a cut as the 32-bit word (or
+    bool byte) the register would hold, so the result is the same bits."""
+
+    blocks: tuple[LaunchBlock, ...]
+    temps: frozenset[str]
+
+
+_TEMP = "__expr_t"   # prefix of the temporary columns between pieces
+
+
+def _fits(n_ins: int, n_cols: int) -> bool:
+    return n_ins <= kb.EXPR_MAX_OPS and n_cols <= kb.EXPR_MAX_COLS
+
+
+def split_program(prog: DeviceProgram, name: str | None, first_temp: int = 0
+                  ) -> list[tuple[DeviceProgram, str | None]]:
+    """`prog` as pieces that each fit one argument block, in the order
+    they must run: each but the last writes a temporary column
+    (`__expr_t{k}`, k from first_temp) that later pieces read; the last
+    is the program's own (named `name`). A program that fits is itself.
+    The cut is greedy from the leaves up: where a node's subtree grows
+    past the block, its largest computed children become pieces."""
+    if _fits(len(lower(prog).ins), len(prog.cols)):
+        return [(prog, name)]
+    # the tree: [code, arg, type, kids, size]; a column's arg is its name
+    nodes: list[list] = []
+    for (code, arg), t in zip(prog.ops, prog.types):
+        if code == OP_COL:
+            nodes.append([code, prog.cols[arg], t, [], None])
+        elif code == OP_LIT:
+            nodes.append([code, arg, t, [], None])
+        elif code in _BINARY:
+            b = nodes.pop()
+            nodes.append([code, arg, t, [nodes.pop(), b], None])
+        else:
+            nodes.append([code, arg, t, [nodes.pop()], None])
+    (root,) = nodes
+    pieces: list[tuple[DeviceProgram, str | None]] = []
+
+    def is_operand(n) -> bool:
+        return not n[3] or (n[0] in _CVT and not n[3][0][3])
+
+    def size(n) -> tuple[int, frozenset]:
+        """(register-form instructions, columns) of n's subtree as it
+        stands, from its children's: lower()'s count, a leaf operand
+        folded into its op, a computed right side spilled."""
+        if is_operand(n):
+            leaf = n[3][0] if n[3] else n
+            return 1, frozenset([leaf[1]] if leaf[0] == OP_COL else [])
+        kids = n[3]
+        cols = frozenset().union(*(k[4][1] for k in kids))
+        if len(kids) == 1:
+            return kids[0][4][0] + 1, cols
+        l, r = kids
+        if is_operand(r):
+            return l[4][0] + 1, cols
+        if is_operand(l):
+            return r[4][0] + 1, cols
+        return l[4][0] + r[4][0] + 2, cols
+
+    def postfix(n, ops, types, cols) -> None:
+        for k in n[3]:
+            postfix(k, ops, types, cols)
+        code, arg, t = n[:3]
+        if code == OP_COL:
+            if arg not in cols:
+                cols.append(arg)
+            arg = cols.index(arg)
+        ops.append((code, arg))
+        types.append(t)
+
+    def program(n) -> DeviceProgram:
+        ops, types, cols = [], [], []
+        postfix(n, ops, types, cols)
+        return DeviceProgram(ops=tuple(ops), types=tuple(types),
+                             cols=tuple(cols), dtype=n[2],
+                             has_unary=any(c >= OP_CEIL_F for c, _ in ops))
+
+    def fit(n) -> None:
+        """Cut n's subtree (children first) until it fits a block."""
+        for k in n[3]:
+            fit(k)
+        n[4] = size(n)
+        while not _fits(n[4][0], len(n[4][1])):
+            k = max((k for k in n[3] if not is_operand(k)),
+                    key=lambda k: k[4][0] + len(k[4][1]))
+            temp = f"{_TEMP}{first_temp + len(pieces)}"
+            pieces.append((program(k), temp))
+            k[:] = [OP_COL, temp, k[2], [], (1, frozenset([temp]))]
+            n[4] = size(n)
+
+    fit(root)
+    return pieces + [(program(root), name)]
 
 
 @functools.lru_cache(maxsize=64)
 def launch_plan(progs: tuple[tuple[DeviceProgram, str | None], ...]
                 ) -> LaunchPlan:
-    """The kernel's argument block for a program set, built once: the
-    programs' register forms, packed, with their columns numbered in one
-    table; a launch copies it and fills in n and the pointers."""
-    if len(progs) > kb.EXPR_MAX_PROGS:
-        raise ValueError(f"more than {kb.EXPR_MAX_PROGS} programs")
+    """The kernel's argument blocks for a program set, built once: the
+    programs' register forms (split_program's pieces past one block),
+    each put into the first block whose tables still take it (first fit,
+    in order) and that comes no earlier than the blocks writing the
+    temporary columns it reads, at the end of that block; each block's
+    columns numbered in one table. The programs are independent (WHERE
+    programs AND into `valid`), so their order across blocks changes no
+    bit. A launch copies a block and fills in n and the pointers."""
+    pieces: list[tuple[DeviceProgram, str | None]] = []
+    for prog, name in progs:
+        if name is None and prog.dtype != "bool":
+            raise ValueError("a WHERE program must give bool")
+        pieces.extend(split_program(prog, name, len(pieces)))
+    temps = frozenset(n for _, n in pieces
+                      if n is not None and n.startswith(_TEMP))
+    packed: list[list] = []        # per block: [pieces, instructions, table]
+    block_of: dict[str, int] = {}  # a temporary column -> its writer's block
+    for prog, name in pieces:
+        n_ins = len(lower(prog).ins)
+        cols = list(dict.fromkeys((prog.cols[i.arg], _TORCH[i.t])
+                                  for i in lower(prog).ins
+                                  if i.src == SRC_COL))
+        first = max((block_of[c] for c, _ in cols if c in block_of),
+                    default=0)
+        for b in range(first, len(packed)):
+            blk, ins, table = packed[b]
+            more = [c for c in cols if c not in table]
+            if len(blk) < kb.EXPR_MAX_PROGS and \
+                    _fits(ins + n_ins, len(table) + len(more)):
+                break
+        else:
+            b = len(packed)
+            packed.append([[], 0, []])
+        blk, ins, table = packed[b]
+        assert _fits(ins + n_ins, len(table)), "a piece larger than a block"
+        blk.append((prog, name))
+        packed[b][1] = ins + n_ins
+        table.extend(c for c in cols if c not in table)
+        if name in temps:
+            block_of[name] = b
+    return LaunchPlan(tuple(_block(blk) for blk, _, _ in packed), temps)
+
+
+def _block(pieces: Sequence[tuple[DeviceProgram, str | None]]
+           ) -> LaunchBlock:
+    """One argument block: the pieces' register forms packed in order,
+    their columns numbered in one table."""
     args = kb.ExprArgs()
-    args.n_progs = len(progs)
+    args.n_progs = len(pieces)
     table: list[tuple[str, torch.dtype]] = []
     outs: list[tuple[int, str, torch.dtype]] = []
     first = 0
-    for p, (prog, name) in enumerate(progs):
+    for p, (prog, name) in enumerate(pieces):
         low = lower(prog)
-        if first + len(low.ins) > kb.EXPR_MAX_OPS:
-            raise ValueError(f"more than {kb.EXPR_MAX_OPS} instructions in "
-                             "a launch")
         for i, ins in enumerate(low.ins):
             if ins.src == SRC_COL:
                 entry = (prog.cols[ins.arg], _TORCH[ins.t])
                 if entry not in table:
-                    if len(table) == kb.EXPR_MAX_COLS:
-                        raise ValueError(
-                            f"more than {kb.EXPR_MAX_COLS} columns")
                     args.col_type[len(table)] = kb.VTYPES[entry[1]]
                     table.append(entry)
                 ins = ins._replace(arg=table.index(entry))
@@ -678,36 +826,36 @@ def launch_plan(progs: tuple[tuple[DeviceProgram, str | None], ...]
         pr.first, pr.n_ops = first, len(low.ins)
         pr.out_type = kb.VTYPES[_TORCH[prog.dtype]]
         if name is None:
-            if prog.dtype != "bool":
-                raise ValueError("a WHERE program must give bool")
             pr.where = 1
         else:
             outs.append((p, name, _TORCH[prog.dtype]))
         args.n_slots = max(args.n_slots, low.slots)
         first += len(low.ins)
     args.n_cols = len(table)
-    return LaunchPlan(bytes(args), tuple(table), tuple(outs))
+    return LaunchBlock(tuple(pieces), bytes(args), tuple(table), tuple(outs),
+                       any(prog.has_unary for prog, _ in pieces))
 
 
-def _expr_cuda(progs, cols: dict[str, torch.Tensor],
+def _expr_cuda(plan: LaunchPlan, progs, cols: dict[str, torch.Tensor],
                valid: torch.Tensor) -> None:
     n = valid.shape[0]
-    plan = launch_plan(tuple(progs))
-    args = kb.ExprArgs.from_buffer_copy(plan.args)
-    args.n = n
-    args.valid = kb.ptr(valid)
-    for k, (c, dtype) in enumerate(plan.cols):
-        col = cols[c]
-        if col.dtype != dtype or col.shape[0] != n:
-            raise ValueError(f"expression: column {c} is not {dtype} [{n}]")
-        args.cols[k] = kb.ptr(col)
-    outs = {}
-    for p, name, dtype in plan.outs:
-        outs[name] = torch.empty(n, dtype=dtype, device=valid.device)
-        args.progs[p].out = outs[name].data_ptr()
-    kb.check(kb.lib().hs_expr(ctypes.byref(args), kb.stream_of(valid)),
-             "expression")
-    cols.update(outs)
+    work = dict(cols)
+    stream = kb.stream_of(valid)
+    for blk in plan.blocks:
+        args = kb.ExprArgs.from_buffer_copy(blk.args)
+        args.n = n
+        args.valid = kb.ptr(valid)
+        for k, (c, dtype) in enumerate(blk.cols):
+            col = work[c]
+            if col.dtype != dtype or col.shape[0] != n:
+                raise ValueError(
+                    f"expression: column {c} is not {dtype} [{n}]")
+            args.cols[k] = kb.ptr(col)
+        for p, name, dtype in blk.outs:
+            work[name] = torch.empty(n, dtype=dtype, device=valid.device)
+            args.progs[p].out = work[name].data_ptr()
+        kb.check(kb.lib().hs_expr(ctypes.byref(args), stream), "expression")
+    cols.update((name, work[name]) for _, name in progs if name is not None)
 
 
 # ---- host interpreter ------------------------------------------------------

@@ -1133,8 +1133,11 @@ class JoinExecutor(_JoinBase):
         """Hashable per-side plans mapping the inner step's needed
         columns (and null masks) onto match sources, for the fused
         probe -> aggregate call. None when the inner executor is not a
-        window lattice (stateless joins keep the match-fetch path)."""
+        window lattice (stateless joins keep the match-fetch path), or
+        when the plans pass the probe's feed tables (JOIN_MAX_FEED
+        columns, JOIN_MAX_NULLS masks, JOIN_MAX_REFS references)."""
         from hstream_tpu_torch.engine.expr import columns_of
+        from hstream_tpu_torch.engine.kernels import binding as kb
         from hstream_tpu_torch.engine.lattice import layout_tag
 
         inner = self._inner
@@ -1170,6 +1173,13 @@ class JoinExecutor(_JoinBase):
             filter_nulls = (tuple(
                 entry(c) for c in sorted(columns_of(inner._filter_expr)))
                 if inner._filter_expr is not None else ())
+            refs = sum(len(r) for _, r in nulls_plan) + len(filter_nulls)
+            if (len(feed) > kb.JOIN_MAX_FEED
+                    or len(nulls_plan) > kb.JOIN_MAX_NULLS
+                    or refs > kb.JOIN_MAX_REFS):
+                # past the probe's feed tables: the match-fetch path
+                # (the inner executor's own step) takes the query
+                return None
             plans[side] = (feed, nulls_plan, filter_nulls)
         return plans
 

@@ -14,8 +14,9 @@ import threading
 
 import torch
 
-MAX_STREAMS = 16
-MAX_AGGS = 16
+MAX_AGGS = 64      # aggregates of one query (HS_MAX_AGGS)
+MAX_COLS = 64      # distinct input columns of one query (HS_MAX_COLS)
+MAX_STREAMS = 3 + MAX_COLS + MAX_AGGS   # key, ts, __valid, columns, NULLs
 
 ENC_CODES = {"bp": 0, "bpd": 1, "bool1": 2, "dec": 3, "rawf": 4, "rawi": 5}
 (AGG_COUNT_ALL, AGG_SUM, AGG_AVG, AGG_MIN, AGG_MAX, AGG_HLL, AGG_COUNT,
@@ -26,9 +27,10 @@ TOPK_GLOBAL, TOPK_PRIVATE = range(2)  # top-k modes
 TOPK_PRIVATE_THREADS, TOPK_GLOBAL_THREADS, TOPK_PER = 1024, 256, 4
 DECODE_THREADS, DECODE_PER = 256, 4   # the wire decode's blocks
 VTYPES = {torch.float32: 0, torch.int32: 1, torch.bool: 2}
-EXPR_MAX_COLS = 16
-EXPR_MAX_PROGS = MAX_AGGS + 1
-EXPR_MAX_OPS = 256   # instructions of a launch
+EXPR_MAX_COLS = MAX_COLS   # one argument block's tables (launch_plan
+EXPR_MAX_PROGS = 17        # splits a program set past them)
+EXPR_MAX_OPS = 256   # instructions of a block
+EXPR_MAX_SLOTS = 15  # spill slots a program may use (shared memory)
 EXPR_PER = 8         # consecutive records a thread of the expression kernel
 
 
@@ -98,7 +100,7 @@ class ScatterArgs(C.Structure):
 class CloseAgg(C.Structure):
     _fields_ = [("kind", C.c_int32), ("width", C.c_int32),
                 ("plane_width", C.c_int32), ("init", C.c_float),
-                ("q", C.c_float), ("plane", C.c_void_p),
+                ("q", C.c_float), ("row", C.c_int32), ("plane", C.c_void_p),
                 ("plane_n", C.c_void_p)]
 
 
@@ -109,10 +111,15 @@ class Finalize(C.Structure):
                 ("a", CloseAgg * MAX_AGGS)]
 
 
+CLOSE_THREADS = 256   # the close kernel's blocks (lattice.close_plan)
+CLOSE_INLINE = 16     # slots a close passes by value in `sel`
+
+
 class CloseArgs(C.Structure):
     _fields_ = [("n_keys", C.c_int32), ("n_slots", C.c_int32),
                 ("n_sel", C.c_int32), ("mode", C.c_int32),
                 ("out_rows", C.c_int32), ("slot", C.c_int32),
+                ("lanes", C.c_int32), ("sel", C.c_int32 * CLOSE_INLINE),
                 ("slots", C.c_void_p), ("count", C.c_void_p),
                 ("slot_start", C.c_void_p), ("touched", C.c_void_p),
                 ("out", C.c_void_p), ("done", C.c_void_p),
@@ -123,8 +130,8 @@ class UnpackArgs(C.Structure):
     _fields_ = [("packed", C.c_void_p), ("cap", C.c_int32),
                 ("n_bool", C.c_int32), ("n_null", C.c_int32),
                 ("valid", C.c_void_p),
-                ("bool_row", C.c_int32 * EXPR_MAX_COLS),
-                ("bool_out", C.c_void_p * EXPR_MAX_COLS),
+                ("bool_row", C.c_int32 * MAX_COLS),
+                ("bool_out", C.c_void_p * MAX_COLS),
                 ("null_out", C.c_void_p * MAX_AGGS)]
 
 
@@ -171,10 +178,14 @@ class SessionArgs(C.Structure):
                 ("p", SessPlane * MAX_AGGS)]
 
 
+SESS_INLINE = 7424   # slots a session extract passes by value
+
+
 class SessExtractArgs(C.Structure):
     _fields_ = [("cap", C.c_int32), ("n_sel", C.c_int32),
-                ("slots", C.c_void_p), ("code", C.c_void_p),
-                ("out", C.c_void_p), ("f", Finalize)]
+                ("n_live", C.c_int32), ("slots", C.c_void_p),
+                ("code", C.c_void_p), ("out", C.c_void_p), ("f", Finalize),
+                ("sel", C.c_int32 * SESS_INLINE)]
 
 
 JOIN_SENT = 1 << 22

@@ -7,8 +7,17 @@
 
 #include <cstdint>
 
-#define HS_MAX_STREAMS 16
-#define HS_MAX_AGGS 16
+// What one query may take on the card, refused at query creation past
+// these on every device (engine/lattice.py check_device_caps): its
+// aggregates, and the distinct input columns its WHERE and aggregate
+// inputs read. A wire batch carries at most key, ts and __valid, a
+// stream a column and a NULL stream an aggregate. The argument blocks
+// that hold these arrays pass 4 KB, which kernel parameters take from
+// CUDA 12.1 on Hopper (up to 32,764 bytes; static_asserts below).
+#define HS_MAX_AGGS 64
+#define HS_MAX_COLS 64
+#define HS_MAX_STREAMS (3 + HS_MAX_COLS + HS_MAX_AGGS)
+#define HS_MAX_PARAM_BYTES 32764
 
 // wire encodings (engine/transport.py ENC_*)
 enum { HS_ENC_BP = 0, HS_ENC_BPD = 1, HS_ENC_BOOL = 2, HS_ENC_DEC = 3,
@@ -60,11 +69,12 @@ struct HsDecodeArgs {
 
 // ---- expression interpreter (expr.cu) ----------------------------------
 
-#define HS_EXPR_MAX_COLS 16
-#define HS_EXPR_MAX_PROGS (HS_MAX_AGGS + 1)
+// one argument block's tables; a program set past them takes further
+// blocks, launched one after another (engine/expr.py launch_plan)
+#define HS_EXPR_MAX_COLS HS_MAX_COLS
+#define HS_EXPR_MAX_PROGS 17
 #define HS_EXPR_MAX_OPS 256     // instructions of all programs together
-#define HS_EXPR_MAX_DEPTH 16    // postfix stack slots per program
-#define HS_EXPR_MAX_SLOTS (HS_EXPR_MAX_DEPTH - 1)  // spill slots
+#define HS_EXPR_MAX_SLOTS 15    // spill slots a program may use
 #define HS_EXPR_THREADS 128     // the kernel's blocks
 #define HS_EXPR_PER 8           // consecutive records a thread
 
@@ -205,6 +215,7 @@ struct HsCloseAgg {
     int32_t plane_width;   // ... and plane values per cell
     float init;            // reset value of the plane
     float q;               // APPROX_QUANTILE: float32(quantile)
+    int32_t row;           // its first row among the aggregates' rows
     void *plane;           // as in HsScatterAgg; NULL for COUNT(*)
     int32_t *plane_n;      // AVG only
 };
@@ -219,6 +230,12 @@ struct HsFinalize {
     HsCloseAgg a[HS_MAX_AGGS];
 };
 
+// the close's lanes a key (lattice.close_plan): a warp where the close
+// finalizes a sketch (the estimates are warp reductions) or resets a
+// wide cell, else one; HS_CLOSE_THREADS / lanes keys a block
+#define HS_CLOSE_THREADS 256
+#define HS_CLOSE_INLINE 16     // slots a close passes by value (no upload)
+
 struct HsCloseArgs {
     int32_t n_keys;
     int32_t n_slots;
@@ -226,13 +243,16 @@ struct HsCloseArgs {
     int32_t mode;          // HS_CLOSE_*
     int32_t out_rows;      // 2 + sum of the aggregates' widths
     int32_t slot;          // hs_close_slot: the one slot (slots unused)
-    const int32_t *slots;  // [P], < 0 = padding
+    int32_t lanes;         // 1 or 32 lanes a key
+    int32_t sel[HS_CLOSE_INLINE];  // the slots when `slots` is NULL
+    const int32_t *slots;  // [P], < 0 = padding; NULL: P <= 16 in `sel`
     int32_t *count;
     int32_t *slot_start;
     uint8_t *touched;
     int32_t *out;          // [P, out_rows, K]; NULL in reset-only mode
                            // (hs_close_slot: [out_rows, K])
-    uint32_t *done;        // [P] zeroed: key tiles finished per slot
+    uint32_t *done;        // [P], zero: key tiles finished per slot of an
+                           // extract-and-reset close, which leaves it zero
     HsFinalize f;
 };
 
@@ -244,9 +264,9 @@ struct HsUnpackArgs {
     int32_t n_bool;         // bool columns to widen
     int32_t n_null;         // NULL masks: bits 1 .. n_null of the flags
     uint8_t *valid;         // [cap]
-    int32_t bool_row[HS_EXPR_MAX_COLS];   // packed row of each bool column
-    uint8_t *bool_out[HS_EXPR_MAX_COLS];  // [cap] each
-    uint8_t *null_out[HS_MAX_AGGS];       // [cap] each
+    int32_t bool_row[HS_MAX_COLS];   // packed row of each bool column
+    uint8_t *bool_out[HS_MAX_COLS];  // [cap] each
+    uint8_t *null_out[HS_MAX_AGGS];  // [cap] each
 };
 
 // touched extract modes: a scan, a finalize (and a sketch pass), or one
@@ -325,13 +345,19 @@ struct HsSessionArgs {
     HsSessPlane p[HS_MAX_AGGS];
 };
 
+// slots a session extract takes by value, in the kernel's parameters
+// (the argument block stays within HS_MAX_PARAM_BYTES)
+#define HS_SESS_INLINE 7424
+
 struct HsSessExtractArgs {
     int32_t cap;
     int32_t n_sel;         // P, the padded slot vector's length
-    const int32_t *slots;  // [P], < 0 = padding
+    int32_t n_live;        // the named prefix; entries past it are pads
+    const int32_t *slots;  // [n_live], < 0 = padding; NULL: in `sel`
     const int32_t *code;   // arena [cap]
     int32_t *out;          // [1 + n_aggs, P]
     HsFinalize f;          // a[g].plane: the arena plane agg g reads
+    int32_t sel[HS_SESS_INLINE];  // the named prefix when `slots` is NULL
 };
 
 // ---- the interval join (join_core.cuh and the three join_*.cu) --------
@@ -448,6 +474,19 @@ struct HsJoinEvictArgs {
     int32_t *n_out;        // [2] live counts
     void *scratch;         // hs_join_evict_scratch_bytes(cap) bytes
 };
+
+// every argument block passed by value fits Hopper's kernel parameters
+static_assert(sizeof(HsDecodeArgs) <= HS_MAX_PARAM_BYTES, "HsDecodeArgs");
+static_assert(sizeof(HsExprArgs) <= HS_MAX_PARAM_BYTES, "HsExprArgs");
+static_assert(sizeof(HsScatterArgs) <= HS_MAX_PARAM_BYTES, "HsScatterArgs");
+static_assert(sizeof(HsCloseArgs) <= HS_MAX_PARAM_BYTES, "HsCloseArgs");
+static_assert(sizeof(HsUnpackArgs) <= HS_MAX_PARAM_BYTES, "HsUnpackArgs");
+static_assert(sizeof(HsTouchedArgs) <= HS_MAX_PARAM_BYTES, "HsTouchedArgs");
+static_assert(sizeof(HsSessionArgs) <= HS_MAX_PARAM_BYTES, "HsSessionArgs");
+static_assert(sizeof(HsSessExtractArgs) <= HS_MAX_PARAM_BYTES,
+              "HsSessExtractArgs");
+static_assert(sizeof(HsJoinProbeArgs) <= HS_MAX_PARAM_BYTES,
+              "HsJoinProbeArgs");
 
 extern "C" {
 int hs_decode(const HsDecodeArgs *args, void *stream);

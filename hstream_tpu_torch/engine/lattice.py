@@ -204,6 +204,21 @@ def null_key(i: int) -> str:
     return f"__null_a{i}"
 
 
+def check_device_caps(aggs: Sequence[AggSpec], columns) -> None:
+    """Refuse, when a query is created and on every device, what one
+    launch's argument blocks cannot hold (kernels/csrc/hs_kernels.h):
+    more than MAX_AGGS aggregates, or more than MAX_COLS distinct input
+    columns read by its WHERE and aggregate inputs (the wire carries a
+    stream each, and one NULL stream an aggregate). The reference traces
+    any number; this refusal is a deliberate difference (ROADMAP C)."""
+    if len(aggs) > kb.MAX_AGGS:
+        raise SQLCodegenError(f"{len(aggs)} aggregates: the device takes "
+                              f"at most {kb.MAX_AGGS} a query")
+    if len(columns) > kb.MAX_COLS:
+        raise SQLCodegenError(f"{len(columns)} input columns: the device "
+                              f"takes at most {kb.MAX_COLS} a query")
+
+
 StepPrograms = tuple[tuple[DeviceProgram, "str | None"], ...]
 
 
@@ -815,9 +830,8 @@ def _unpack_cuda(packed: torch.Tensor, layout: ColLayout, null_keys):
         elif tag == "i32":
             cols[name] = row
         else:
-            if n_bool == kb.EXPR_MAX_COLS:
-                raise ValueError(f"more than {kb.EXPR_MAX_COLS} bool "
-                                 "columns")
+            if n_bool == kb.MAX_COLS:
+                raise ValueError(f"more than {kb.MAX_COLS} bool columns")
             cols[name] = byte_col()
             args.bool_row[n_bool] = 3 + i
             args.bool_out[n_bool] = cols[name].data_ptr()
@@ -976,11 +990,13 @@ def _finalize_args(spec: LatticeSpec, state) -> kb.Finalize:
     q = spec.qcfg
     f.q_min, f.q_gamma, f.q_half_gamma = (q.min_value, q.gamma_log,
                                           0.5 * q.gamma_log)
+    row = 0
     for g, agg in enumerate(spec.aggs):
         a = f.a[g]
         a.kind, a.init = _KERNEL_KIND[agg.kind], init_value(agg)
         a.width, a.plane_width = agg_width(agg), _plane_width(spec, agg)
         a.q = agg.quantile or 0.5
+        a.row, row = row, row + a.width
         if agg.kind != AggKind.COUNT_ALL:
             a.plane = kb.ptr(state[_plane_name(g, agg)])
         if agg.kind == AggKind.AVG:
@@ -1026,10 +1042,51 @@ def reset_slots_ref(spec: LatticeSpec, state: dict[str, torch.Tensor],
     state["slot_start"][rs] = EMPTY_START
 
 
+_SKETCH_KINDS = (AggKind.APPROX_COUNT_DISTINCT, AggKind.APPROX_QUANTILE)
+
+
+def close_cell_bytes(spec: LatticeSpec) -> int:
+    """The bytes one (key, slot) cell holds in the aggregates' planes."""
+    return sum(_plane_width(spec, agg) * (
+        1 if agg.kind == AggKind.APPROX_COUNT_DISTINCT else 4)
+        + (4 if agg.kind == AggKind.AVG else 0)
+        for agg in spec.aggs if agg.kind != AggKind.COUNT_ALL)
+
+
+def close_plan(spec: LatticeSpec, mode: int) -> int:
+    """The close kernel's lanes a key (csrc/close.cu): a warp where it
+    finalizes a sketch (HLL, quantile: the estimates are warp
+    reductions) or resets a cell of 256 bytes or more (16-byte stores
+    over the cell), else one thread a key. A block holds
+    kb.CLOSE_THREADS // lanes keys of one slot."""
+    sketch = any(agg.kind in _SKETCH_KINDS for agg in spec.aggs)
+    if (sketch and mode != CLOSE_RESET) or close_cell_bytes(spec) >= 256:
+        return 32
+    return 1
+
+
+_done_mutex = threading.Lock()
+_done: dict = {}
+
+
+def _close_done(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The per-slot tile counters of the extract-and-reset closes on one
+    device and stream, int32 [>= n], zeroed when made: the last tile of
+    each slot sets its counter back to 0, so they stay zero from launch
+    to launch (no fill before each one)."""
+    with _done_mutex:
+        buf = _done.get((device, stream))
+        if buf is None or buf.numel() < n:
+            buf = _done[(device, stream)] = torch.zeros(
+                max(n, 64), dtype=torch.int32, device=device)
+        return buf
+
+
 def _close_args(spec: LatticeSpec, state, mode: int) -> kb.CloseArgs:
     """The close kernels' arguments but the slots and the output."""
     args = kb.CloseArgs()
     args.n_keys, args.n_slots, args.mode = spec.n_keys, spec.n_slots, mode
+    args.lanes = close_plan(spec, mode)
     args.out_rows = 2 + out_rows(spec)
     args.f = _finalize_args(spec, state)
     args.count = kb.ptr(state["count"])
@@ -1038,25 +1095,30 @@ def _close_args(spec: LatticeSpec, state, mode: int) -> kb.CloseArgs:
     return args
 
 
-def _close_cuda(spec: LatticeSpec, state, slots: torch.Tensor, mode: int
+def _close_cuda(spec: LatticeSpec, state, slots: np.ndarray, mode: int
                 ) -> torch.Tensor | None:
-    K, P = spec.n_keys, slots.shape[0]
+    K, P = spec.n_keys, len(slots)
+    dev = state["count"].device
     args = _close_args(spec, state, mode)
     args.n_sel = P
-    args.slots = kb.ptr(slots)
+    if P <= kb.CLOSE_INLINE:   # by value in the arguments: no upload
+        args.sel[:P] = [int(x) for x in slots]
+    else:
+        slots_t = torch.from_numpy(slots).to(dev)
+        args.slots = kb.ptr(slots_t)
     out = None
     if mode != CLOSE_RESET:
         out = torch.empty((P, args.out_rows, K), dtype=torch.int32,
-                          device=slots.device)
+                          device=dev)
         args.out = out.data_ptr()
-    done = torch.zeros(P, dtype=torch.int32, device=slots.device)
-    args.done = done.data_ptr()
-    kb.check(kb.lib().hs_close(ctypes.byref(args), kb.stream_of(slots)),
-             "fused_close")
+    stream = kb.stream_of(state["count"])
+    if mode == CLOSE_EXTRACT_RESET:
+        args.done = _close_done(dev, stream, P).data_ptr()
+    kb.check(kb.lib().hs_close(ctypes.byref(args), stream), "fused_close")
     return out
 
 
-def _slot_tensor(spec: LatticeSpec, state, slots, mode: int) -> torch.Tensor:
+def _checked_slots(spec: LatticeSpec, slots, mode: int) -> np.ndarray:
     slots = np.asarray(slots, np.int32)
     live = slots[slots >= 0]
     if (live >= spec.n_slots).any():
@@ -1064,7 +1126,7 @@ def _slot_tensor(spec: LatticeSpec, state, slots, mode: int) -> torch.Tensor:
     if mode != CLOSE_EXTRACT and len(np.unique(live)) != len(live):
         raise ValueError("close: a slot named twice would be read after "
                          "its reset")
-    return torch.from_numpy(slots).to(state["count"].device)
+    return slots
 
 
 def close_slots(spec: LatticeSpec, state: dict[str, torch.Tensor],
@@ -1079,13 +1141,14 @@ def close_slots(spec: LatticeSpec, state: dict[str, torch.Tensor],
     if mode == CLOSE_RESET:
         reset_slots(spec, state, slots)
         return None
-    slots_t = _slot_tensor(spec, state, slots, mode)
-    if slots_t.device.type == "cpu":
+    slots = _checked_slots(spec, slots, mode)
+    if state["count"].device.type == "cpu":
+        slots_t = torch.from_numpy(slots)
         packed = extract_slots_ref(spec, state, slots_t)
         if mode != CLOSE_EXTRACT:
             reset_slots_ref(spec, state, slots_t)
         return packed
-    out = _close_cuda(spec, state, slots_t, mode)
+    out = _close_cuda(spec, state, slots, mode)
     close_slots.launches += 1
     return out
 
@@ -1099,11 +1162,11 @@ def reset_slots(spec: LatticeSpec, state: dict[str, torch.Tensor],
     place (build_reset_slots, lattice.py:654-664: an EMIT CHANGES close,
     whose changelog already carried the final values): the close kernel's
     reset-only mode on the card, reset_slots_ref on the CPU."""
-    slots_t = _slot_tensor(spec, state, slots, CLOSE_RESET)
-    if slots_t.device.type == "cpu":
-        reset_slots_ref(spec, state, slots_t)
+    slots = _checked_slots(spec, slots, CLOSE_RESET)
+    if state["count"].device.type == "cpu":
+        reset_slots_ref(spec, state, torch.from_numpy(slots))
         return
-    _close_cuda(spec, state, slots_t, CLOSE_RESET)
+    _close_cuda(spec, state, slots, CLOSE_RESET)
     reset_slots.launches += 1
 
 

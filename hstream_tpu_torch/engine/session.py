@@ -78,7 +78,8 @@ from hstream_tpu_torch.engine.expr import (
     eval_host,
     eval_host_vec,
 )
-from hstream_tpu_torch.engine.lattice import agg_width, pad_slots, stack_pow2
+from hstream_tpu_torch.engine.lattice import (
+    agg_width, check_device_caps, pad_slots, stack_pow2)
 from hstream_tpu_torch.engine.plan import AggKind, AggregateNode, AggSpec
 from hstream_tpu_torch.engine.sketches import HLLConfig, QuantileConfig
 from hstream_tpu_torch.engine.types import (
@@ -308,6 +309,9 @@ class SessionExecutor:
         # key tuple -> list[_Session], kept sorted by start
         self.sessions: dict[tuple, list[_Session]] = {}
         self._filter = QueryExecutor._extract_filter(self)  # same chain walk
+        check_device_caps(self.aggs, set().union(*(
+            columns_of(e) for e in [a.input for a in self.aggs]
+            + [self._filter] if e is not None)))
         # batch key-encoding caches (rebuildable; not snapshot state) —
         # in device mode the codes ARE the arena's sort keys, so the
         # cache bound compacts (order-preserving remap kernel) instead

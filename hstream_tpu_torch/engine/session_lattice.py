@@ -586,15 +586,26 @@ def session_extract(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
     if (slots >= cap).any():
         raise ValueError("session_extract: slot index out of range")
     dev = arena["code"].device
-    slots_t = torch.from_numpy(slots).to(dev)
     if dev.type == "cpu":
-        return session_extract_ref(spec, arena, slots_t)
+        return session_extract_ref(spec, arena, torch.from_numpy(slots))
     if spec.hll.precision < 2 or len(spec.aggs) > kb.MAX_AGGS:
         raise ValueError("session_extract: unsupported spec")
     _check_arena(spec, arena, cap, dev)
     a = kb.SessExtractArgs()
     a.cap, a.n_sel = cap, len(slots)
-    a.slots, a.code = kb.ptr(slots_t), kb.ptr(arena["code"])
+    # the vector up to its last named slot (the kernel takes what lies
+    # past it as pads): by value in the kernel's parameters where it
+    # fits, so nothing is copied before the launch; else uploaded
+    named = np.flatnonzero(slots >= 0)
+    a.n_live = int(named[-1]) + 1 if len(named) else 0
+    if a.n_live <= kb.SESS_INLINE:
+        head = np.ascontiguousarray(slots[:a.n_live])
+        ctypes.memmove(ctypes.addressof(a) + kb.SessExtractArgs.sel.offset,
+                       head.ctypes.data, head.nbytes)
+    else:
+        slots_t = torch.from_numpy(slots[:a.n_live]).to(dev)
+        a.slots = kb.ptr(slots_t)
+    a.code = kb.ptr(arena["code"])
     out = torch.empty((1 + len(spec.aggs), len(slots)), dtype=torch.int32,
                       device=dev)
     a.out = out.data_ptr()
@@ -612,6 +623,7 @@ def session_extract(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
                           else q.n_bins
                           if agg.kind == AggKind.APPROX_QUANTILE else 1)
         fa.q = agg.quantile or 0.5
+        fa.row = g
         fa.plane = kb.ptr(arena[name])
         if agg.kind == AggKind.AVG:
             fa.plane_n = kb.ptr(arena[name + "_n"])

@@ -7,7 +7,8 @@ the postfix plain version and the reference's compile_device
 Cases: every expression of chip_smoke.expr_cases() (each op on every
 int / float / bool mix the device takes, and the ones it refuses), and
 hypothesis-drawn trees, left-deep, right-deep (with computed left sides,
-so they spill) and balanced, up to MAX_DEPTH and MAX_OPS, over columns
+so they spill) and balanced, past the old per-program caps (64 postfix
+ops, 16 stack slots), over columns
 with NaN, +-inf, +-0.0, subnormals, INT_MIN / INT_MAX and zero divisors
 (chip_smoke.expr_columns) and literals among the same.
 
@@ -25,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
-from hypothesis import HealthCheck, assume, given, settings
+from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 import chip_smoke
@@ -179,13 +180,13 @@ class Draw:
 
     def left_deep(self):
         node = self.maybe_un(self.leaf())
-        for _ in range(self.data.draw(st.integers(1, 14))):
+        for _ in range(self.data.draw(st.integers(1, 40))):
             node = self.maybe_un(self.bin(node, self.maybe_un(self.leaf())))
         return node
 
     def right_deep(self):
         node = self.maybe_un(self.leaf())
-        for _ in range(self.data.draw(st.integers(1, 8))):
+        for _ in range(self.data.draw(st.integers(1, 24))):
             left = self.leaf()
             if self.data.draw(st.booleans()):   # a computed left side
                 left = self.bin(left, self.leaf())
@@ -194,7 +195,7 @@ class Draw:
 
     def balanced(self, depth: int | None = None):
         if depth is None:
-            depth = self.data.draw(st.integers(1, 4))
+            depth = self.data.draw(st.integers(1, 6))
         if depth == 0:
             return self.maybe_un(self.leaf())
         return self.maybe_un(self.bin(self.balanced(depth - 1),
@@ -206,11 +207,6 @@ SHAPES = ("left_deep", "right_deep", "balanced")
 
 def drawn(data, shape: str, unaries) -> te.DeviceProgram:
     e, _ = getattr(Draw(data, unaries), shape)()
-    try:
-        te.compile_device(e, TSCHEMA)
-    except SQLCodegenError as err:   # past MAX_OPS or MAX_DEPTH
-        assume("exceeds" not in str(err) and "stack" not in str(err))
-        raise
     return e
 
 
@@ -299,7 +295,8 @@ def test_right_deep_leaves_take_the_swapped_operand():
 
 
 def _decode(plan: te.LaunchPlan) -> kb.ExprArgs:
-    return kb.ExprArgs.from_buffer_copy(plan.args)
+    assert len(plan.blocks) == 1 and not plan.temps
+    return kb.ExprArgs.from_buffer_copy(plan.blocks[0].args)
 
 
 def test_launch_plan_packs_every_program():
@@ -320,12 +317,13 @@ def test_launch_plan_packs_every_program():
     a = _decode(plan)
     assert (a.n, a.n_progs, a.n_slots) == (0, 4, 2)
     # in the order the instructions name them: b * j runs before i
-    assert plan.cols == (("f", torch.float32), ("temp", torch.float32),
-                         ("b", torch.bool), ("j", torch.int32),
-                         ("i", torch.int32))
+    assert plan.blocks[0].cols == (
+        ("f", torch.float32), ("temp", torch.float32), ("b", torch.bool),
+        ("j", torch.int32), ("i", torch.int32))
     assert [a.col_type[k] for k in range(a.n_cols)] == [0, 0, 2, 1, 1]
-    assert plan.outs == ((1, "__in_a1", torch.float32),
-                         (2, "s", torch.float32), (3, "m", torch.int32))
+    assert plan.blocks[0].outs == ((1, "__in_a1", torch.float32),
+                                   (2, "s", torch.float32),
+                                   (3, "m", torch.int32))
     first = 0
     for p, (prog, name) in enumerate(progs):
         low = te.lower(prog)
@@ -335,7 +333,7 @@ def test_launch_plan_packs_every_program():
         assert pr.out_type == kb.VTYPES[te._TORCH[prog.dtype]]
         for k, ins in enumerate(low.ins):
             if ins.src == te.SRC_COL:
-                ins = ins._replace(arg=plan.cols.index(
+                ins = ins._replace(arg=plan.blocks[0].cols.index(
                     (prog.cols[ins.arg], te._TORCH[ins.t])))
             w = a.ops[first + k]
             assert (w.op, w.arg) == (ins.word(), ins.arg)
@@ -353,31 +351,75 @@ def _sum_of(names):
     return e
 
 
+def run_plan(plan: te.LaunchPlan, cols: dict, valid: torch.Tensor) -> dict:
+    """A model of the plan's launches on the CPU: each block's argument
+    bytes hold its pieces' register forms (as
+    test_launch_plan_packs_every_program reads them), and the pieces run
+    in order through run_lowered, a temporary column visible to every
+    later piece; returns the work columns, WHERE ANDed into `valid`."""
+    work = dict(cols)
+    for blk in plan.blocks:
+        a = kb.ExprArgs.from_buffer_copy(blk.args)
+        assert a.n_progs == len(blk.progs) <= kb.EXPR_MAX_PROGS
+        assert a.n_cols == len(blk.cols) <= kb.EXPR_MAX_COLS
+        first = 0
+        for p, (prog, name) in enumerate(blk.progs):
+            low = te.lower(prog)
+            assert (a.progs[p].first, a.progs[p].n_ops, a.progs[p].where) \
+                == (first, len(low.ins), int(name is None))
+            first += len(low.ins)
+            for c in prog.cols:   # a piece reads what ran before it
+                assert c in work, c
+            r = te.run_lowered(prog, work)
+            if name is None:
+                valid &= r
+            else:
+                work[name] = r
+        assert first <= kb.EXPR_MAX_OPS
+    return work
+
+
 @pytest.mark.parametrize("what", ["programs", "instructions", "columns",
                                   "where"])
 def test_launch_plan_refuses_what_the_kernel_does_not_take(what):
+    """The kernel takes every program set: more programs, instructions or
+    columns than one argument block holds go into further blocks (a
+    program past a block alone is cut into pieces), which give the
+    postfix plain versions' bits; only a WHERE that is not bool is
+    refused."""
     one = te.compile_device(te.BinOp("*", te.Col("f"), te.Lit(2.0)),
                             TSCHEMA)
+    cols = dict(TCOLS)
     if what == "programs":
         progs = tuple((one, f"p{k}") for k in range(kb.EXPR_MAX_PROGS + 1))
-        match = "programs"
+        blocks = 2
     elif what == "instructions":
         e = te.Col("f")
         for _ in range(21):   # 64 ops, 43 instructions
             e = te.UnOp("NEG", te.BinOp("+", e, te.Col("g")))
         big = te.compile_device(e, TSCHEMA)
         progs = tuple((big, f"p{k}") for k in range(6))
-        match = "instructions"
+        blocks = 2
     elif what == "columns":
         names = [f"x{k}" for k in range(kb.EXPR_MAX_COLS + 1)]
         schema = Schema.of(**{c: ColumnType.INT for c in names})
+        rng = np.random.default_rng(5)
+        cols = {c: torch.from_numpy(rng.integers(-9, 9, N).astype(np.int32))
+                for c in names}
         progs = ((te.compile_device(_sum_of(names), schema), "s"),)
-        match = "columns"
+        blocks = 2
     else:
-        progs = ((one, None),)
-        match = "WHERE"
-    with pytest.raises(ValueError, match=match):
-        te.launch_plan(progs)
+        with pytest.raises(ValueError, match="WHERE"):
+            te.launch_plan(((one, None),))
+        return
+    plan = te.launch_plan(progs)
+    assert len(plan.blocks) == blocks
+    valid = torch.ones(N, dtype=torch.bool)
+    work = run_plan(plan, cols, valid)
+    assert valid.all()
+    for prog, name in progs:
+        assert torch.equal(work[name].view(torch.int32),
+                           prog(cols).view(torch.int32)), name
 
 
 def test_eval_programs_on_the_cpu_gives_the_register_forms_results():

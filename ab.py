@@ -2,7 +2,7 @@
 another checkout (the parent commit's, or any tree with chip_smoke.py),
 on one CUDA card, in one call.
 
-    python3 ab.py scatter|join|decode|expr|close OTHER_TREE
+    python3 ab.py scatter|join|decode|expr|close|remap OTHER_TREE
 
 runs OTHER_TREE, this tree, this tree, OTHER_TREE, each in a process of
 its own that builds its tree's kernels and times the group on the same
@@ -96,6 +96,25 @@ argument blocks grew with the aggregate cap:
     2^16-record awkward batch into a 2^16-slot arena of every kind;
   * "ptxas": close.cu's, session_extract.cu's and touched.cu's
     registers, frames and spills.
+
+remap: the code remap (B14) and the rebase (B4), timed as the expr
+group's are (device ms over 100 calls, ", call" and " by kernel"):
+  * "B14 session": session_lattice.session_remap of a 2^17-code plane
+    (the session arena's) through a 2^16-entry table, a tenth of the
+    codes the sentinel;
+  * "B14 join 2^21", "B14 join 2^22": the join's code remap
+    (sent_above) of a sorted store plane of 2^21 codes (the live
+    entries a side) and of 2^22 (phase 8's store slots, half of them the
+    sentinel) through a 2^20-entry table; back to back the plane and
+    the table stay in L2, so each also " cold", after a 64 MiB write
+    (the remap kernel's own time in " cold by kernel");
+  * "B4 rebase W=3", "B4 rebase W=8": lattice.rebase of config 1's and
+    config 2's slot_start (3 and 8 slots, one empty);
+  * "empty kernel": an empty kernel of the rebase's shape (one warp) on
+    the same stream, the floor of any launch; a tree without one
+    (before the rebase's redesign) reports None;
+  * "ptxas": session_remap.cu's and rebase.cu's registers, frames and
+    spills.
 """
 
 from __future__ import annotations
@@ -553,6 +572,60 @@ def _close() -> dict:
     return out
 
 
+def _remap() -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.engine.kernels import binding as kb
+    from hstream_tpu_torch.engine.kernels import build as kbuild
+
+    built = kbuild.build()
+    dev = torch.device("cuda", 0)
+    out = {"ptxas": _ptxas(built.log, ("session_remap.cu", "rebase.cu"))}
+
+    def ms(name, fn):
+        dev_ms, call_ms, _src = cs.kernel_ms(fn, 100)
+        out[name], out[name + ", call"] = dev_ms, call_ms
+        d = cs.profiled_calls(fn, 5, name)
+        out[name + " by kernel"] = (None if d is None else {
+            k: v / 5e3 for k, v in d.items()})
+
+    rng = np.random.default_rng(21)
+    sent = 1 << 22
+    code = rng.integers(0, 1 << 16, 1 << 17).astype(np.int32)
+    code[rng.random(1 << 17) < 0.1] = sent
+    arena = {"code": torch.from_numpy(code).to(dev)}
+    lut = torch.from_numpy(rng.permutation(1 << 16).astype(np.int32)).to(dev)
+    ms("B14 session", lambda: sl.session_remap(arena, lut))
+    table = torch.from_numpy(np.cumsum(rng.random(1 << 20) < 0.7)
+                             .astype(np.int32)).to(dev)
+    flush = torch.empty(1 << 24, dtype=torch.int32, device=dev)
+    for name, cap, live in (("B14 join 2^21", 1 << 21, 1 << 21),
+                            ("B14 join 2^22", 1 << 22, 1 << 21)):
+        c = np.full(cap, sent, np.int32)
+        c[:live] = np.sort(rng.integers(0, 1 << 20, live))
+        store = {"code": torch.from_numpy(c).to(dev)}
+        ms(name, lambda: sl.session_remap(store, table, sent_above=True))
+        # cold: a 64 MiB write before each call evicts the plane and the
+        # table from L2 (its time is in " by kernel", apart)
+        ms(name + " cold", lambda: (flush.fill_(1), sl.session_remap(
+            store, table, sent_above=True)))
+    for w in (3, 8):
+        ss = torch.arange(w, dtype=torch.int32, device=dev) * 10_000
+        ss[1] = lattice.EMPTY_START
+        st = {"slot_start": ss}
+        ms(f"B4 rebase W={w}", lambda: lattice.rebase(st, 0))
+    lib = kb.lib()
+    if hasattr(lib, "hs_empty"):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ms("empty kernel", lambda: kb.check(lib.hs_empty(stream), "empty"))
+    else:
+        out["empty kernel"] = None
+    return out
+
+
 def _ptxas(log: str, sources) -> dict:
     """{source: [ptxas lines]}: each kernel's function properties
     (stack frame, spills) and registers, from nvcc's -Xptxas -v output
@@ -571,7 +644,7 @@ def _ptxas(log: str, sources) -> dict:
 
 
 GROUPS = {"scatter": _scatter, "join": _join, "decode": _decode,
-          "expr": _expr, "close": _close}
+          "expr": _expr, "close": _close, "remap": _remap}
 
 
 def main() -> int:

@@ -19,7 +19,9 @@ Phases, each of which asserts (any failure exits non-zero):
    (all three modes; random lattices of every aggregate kind at HLL p
    of 4, 10 and 14 over 1000 keys, scalars and TOPK over 1003 keys, and
    8643 slots over 13 keys, with slot vectors of one and of 8,192,
-   pads among them, every mode twice in a row), rebase, and the
+   pads among them, every mode twice in a row), rebase (at 1-8641
+   slots, timed beside an empty kernel on the same stream, the floor of
+   a launch), and the
    changelog query's kernels (the
    expression interpreter over every op and type mix, programs that
    spill, batches of 2^16 and 2^16 - 3 records, aligned and one element
@@ -49,7 +51,10 @@ Phases, each of which asserts (any failure exits non-zero):
    no batch records; the extract with pads, empty histograms and HLL
    estimates near .5, then random arenas of config 4's spec, of every
    kind at HLL p of 4, 10 and 14 and of nine quantiles sharing one
-   histogram, over slot vectors of one and of 8,192; the remap with codes at and above the table), and
+   histogram, over slot vectors of one and of 8,192; the remap with codes at and above the table,
+   then at the session arena's 2^17 and the join store's 2^21 codes,
+   each with a tail of 3 and on bases 4, 8 and 12 bytes past a 16-byte
+   boundary, with the sentinel flag both ways, timed at 2^21), and
    the join kernels (the probe + merge-insert and the probe alone at a
    match_cap below and above the total, in each probe branch forced:
    the store window staged in shared memory, searched in global memory,
@@ -146,7 +151,22 @@ Phases, each of which asserts (any failure exits non-zero):
    second window's end. Closed rows equal an uninterrupted run's and
    numpy's; append, read and decode seconds, events/s from the log to
    rows and the device busy share are printed;
-12. a {"kernels": [...]} line (each kernel's launches on the main paths,
+12. kernel-family tracing and fault points: config 1 for 16 batches of
+   2^20 records (one 10 s window each) through QueryExecutor, config 4's
+   stream for 8 batches (4 s of stream each) through SessionExecutor and
+   phase 8b's join for 12 batches, with DEVICE_TIME armed at rate 4:
+   the `step`, `close`, `session` and `probe` rings' p50 and p99 (with
+   2-4 samples a ring, the p99 is the ring's max, printed so) beside
+   the profiled kernel times of the same shapes (every sampled step at
+   least the profiled decode plus scatter); a RetraceGuard over the
+   steady batches counts 0; device.dispatch, device.activate,
+   device.fetch and device.session.dispatch fired once each raise and
+   leave the planes byte-equal to a clone, and the rows then equal
+   numpy; a disarmed rerun leaves the sampler empty; what a sample
+   reads around an empty kernel, and a step's host time inside its scope
+   beside its samples with the card idle or kept busy through the
+   host's encode (step_split);
+13. a {"kernels": [...]} line (each kernel's launches on the main paths,
    its error against the plain version and its times), the card line,
    and last {"ok": true, "device": {...}}.
 
@@ -301,6 +321,16 @@ def kernel_ms(fn, iters: int) -> tuple[float, float, str]:
     if total <= 0:
         return call, call, "events"
     return total / 1e3 / iters, call, "profiler"
+
+
+def kernel_only_ms(fn, iters: int, name: str) -> float | None:
+    """Device ms a call of the kernels whose event names hold `name`,
+    from a profile of `iters` calls of fn (which may launch other work,
+    such as a write that evicts L2; its events are left out)."""
+    dev = profiled_calls(fn, iters, name)
+    if dev is None:
+        return None
+    return sum(us for k, us in dev.items() if name in k) / 1e3 / iters
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -1144,7 +1174,11 @@ def check_close(dev, results, states):
 
 
 def check_rebase(dev, results):
+    """B4: exact at the window lattices' slot counts and off the block's
+    64; timed beside an empty kernel launched on the same stream, the
+    floor no launch can beat."""
     from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine.kernels import binding as kb
 
     ss = torch.tensor([lattice.EMPTY_START, 90_000, 30_000,
                        lattice.EMPTY_START, 60_000], dtype=torch.int32,
@@ -1154,8 +1188,34 @@ def check_rebase(dev, results):
     lattice.rebase_ref(b, 30_000)
     torch.cuda.synchronize()
     assert torch.equal(a["slot_start"], b["slot_start"]), "rebase differs"
+    # one warp a block, two slots a lane: slot counts off the block's 64
+    # and off its lanes' 32
+    rng = np.random.default_rng(41)
+    for w in (1, 8, 31, 32, 33, 63, 64, 65, 8641):
+        v = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, w)
+                             .astype(np.int32)).to(dev)
+        v[::3] = lattice.EMPTY_START
+        a, b = {"slot_start": v.clone()}, {"slot_start": v.clone()}
+        lattice.rebase(a, 123_457)
+        lattice.rebase_ref(b, 123_457)
+        torch.cuda.synchronize()
+        assert torch.equal(a["slot_start"], b["slot_start"]), \
+            f"rebase differs at W = {w}"
     st = {"slot_start": ss[:3].clone()}     # W = 3, the headline lattice
+    st8 = {"slot_start": torch.cat([ss, ss[:3]]).clone()}   # W = 8, HOP
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the floor: an empty kernel of the same shape on the same stream,
+    # timed between the rebase's two timings
     ms, call, src = kernel_ms(lambda: lattice.rebase(st, 0), 200)
+    empty_call = cuda_time_ms(lambda: kb.check(kb.lib().hs_empty(stream),
+                                               "empty"), 200)
+    empty = None   # the profiler now and then records none of its events
+    for _ in range(3):
+        empty = kernel_only_ms(lambda: kb.check(
+            kb.lib().hs_empty(stream), "empty"), 200, "empty_kernel")
+        if empty:
+            break
+    ms8 = kernel_ms(lambda: lattice.rebase(st8, 0), 200)[0]
     plain = kernel_ms(lambda: lattice.rebase_ref(st, 0), 200)[0]
     b_ms, b_by = bound(2 * 3 * 4, 3)
     results["rebase"] = dict(
@@ -1163,15 +1223,23 @@ def check_rebase(dev, results):
         source="hstream_tpu_torch/engine/kernels/csrc/rebase.cu",
         replaces="hstream_tpu/engine/lattice.py:1571",
         max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, call_ms=call, ms_source=src)
-    log(f"rebase: exact; {ms:.4f} ms (plain {plain:.4f}, bound "
-        f"{b_ms:.6f})")
+        bound_by=b_by, library_ms=None, call_ms=call, ms_source=src,
+        ms_w8=ms8, empty_kernel_ms=empty, empty_kernel_call_ms=empty_call,
+        over_floor=(ms / empty - 1.0) if empty and src == "profiler"
+        else None)
+    floor = (f"an empty kernel {empty:.5f}, {100 * (ms / empty - 1):+.1f} %"
+             if empty and src == "profiler" else
+             "the profiler lost the empty kernel's or the rebase's events")
+    log(f"rebase: exact at W = 3, 5, 1, 8, 31-33, 63-65, 8641; {ms:.5f} "
+        f"ms at W = 3, {ms8:.5f} at W = 8 ({floor}; plain {plain:.4f}, bound "
+        f"{b_ms:.2e} by {b_by})")
 
 
 # ---- phases 4-5: the main path ----------------------------------------------
 
-def check_rows(cfg, spec, rows, per_key, dev) -> int:
-    """Every emitted row against the numpy reference of its window."""
+def check_rows(cfg, spec, rows, per_key, dev, ref_of=None) -> int:
+    """Every emitted row against the numpy reference of its window
+    (`ref_of(start)`; the main path's batches by default)."""
     from hstream_tpu_torch.engine.sketches import hll_estimate
 
     size = spec.window.size_ms
@@ -1180,7 +1248,8 @@ def check_rows(cfg, spec, rows, per_key, dev) -> int:
         by_win.setdefault(r["winStart"], []).append(r)
     assert len(by_win) >= 2, f"config {cfg}: {len(by_win)} windows closed"
     for start, rs in by_win.items():
-        ref = window_reference(per_key, start, size)
+        ref = (window_reference(per_key, start, size) if ref_of is None
+               else ref_of(start))
         keys = np.array([int(r["device"][1:]) for r in rs])
         assert len(rs) == N_KEYS and len(set(keys)) == N_KEYS, start
         assert all(r["winEnd"] == start + size for r in rs)
@@ -3317,13 +3386,81 @@ def check_session_remap(dev, results):
     sl.session_remap_ref(b, lut_t)
     torch.cuda.synchronize()
     assert torch.equal(a["code"], b["code"]), "session_remap differs"
+    # the session arena's 2^17 and the join store's 2^21, each also with
+    # a tail (a cap off a multiple of four) and on a base 4, 8 and 12
+    # bytes past a 16-byte boundary (a view into a larger plane); the
+    # sentinel flag both ways
+    cases = 0
+    for cap, lcap in ((1 << 17, 1 << 16), (1 << 21, 1 << 20)):
+        for tail in (0, 3):
+            for off in (0, 1, 2, 3):
+                c = cap + tail
+                buf = torch.from_numpy(rng.integers(
+                    0, 2 * lcap, c + off).astype(np.int32)).to(dev)
+                buf[off::9] = lcap
+                buf[off + 1::13] = sl.SESSION_SENT_CODE
+                lut = torch.from_numpy(np.sort(rng.choice(
+                    4 * lcap, lcap, replace=False)).astype(np.int32)).to(dev)
+                for flag in (False, True):
+                    a = {"code": buf[off:].clone() if off == 0
+                         else buf.clone()[off:]}
+                    b = {"code": buf[off:].clone()}
+                    assert a["code"].is_contiguous()
+                    sl.session_remap(a, lut, sent_above=flag)
+                    sl.session_remap_ref(b, lut, sent_above=flag)
+                    torch.cuda.synchronize()
+                    assert torch.equal(a["code"], b["code"]), \
+                        f"session_remap differs: cap {c}, offset {off}, " \
+                        f"sent_above {flag}"
+                    cases += 1
+    # timed at the join store's shape, with the sentinel flag (the
+    # join's code remap); the session arena's shape is timed at the
+    # path's own codes (time_session_kernels)
+    cap, lcap = 1 << 21, 1 << 20
+    code = {"code": torch.from_numpy(np.sort(rng.integers(
+        0, 2 * lcap, cap)).astype(np.int32)).to(dev)}
+    lut = torch.from_numpy(np.cumsum(rng.random(lcap) < 0.7)
+                           .astype(np.int32)).to(dev)
+    probe = {"code": code["code"].clone()}
+    ms, call, src = kernel_ms(
+        lambda: sl.session_remap(probe, lut, sent_above=True), 100)
+    plain = kernel_ms(
+        lambda: sl.session_remap_ref(probe, lut, sent_above=True), 20)[0]
+    c = probe["code"]
+    lib = kernel_ms(lambda: lut[c.clamp(0, lcap - 1).long()], 20)[0]
+    b_ms, b_by = bound(2 * cap * 4 + lcap * 4, cap)
+    # back to back, the 8 MiB plane and its 4 MiB table stay in the 50 MB
+    # L2; the join remaps a store once, after other work: cold, each call
+    # after a 64 MiB write that evicts them (the remap kernel's own
+    # events only), at 2^21 codes and at phase 8's 2^22 store slots
+    # (half of them the sentinel)
+    flush = torch.empty(1 << 24, dtype=torch.int32, device=dev)
+    cold = {}
+    for n_cap in (cap, 2 * cap):
+        c = np.full(n_cap, JOIN_SENT, np.int32)
+        c[:cap] = np.sort(rng.integers(0, 2 * lcap, cap))
+        st = {"code": torch.from_numpy(c).to(dev)}
+        cold[n_cap] = kernel_only_ms(
+            lambda: (flush.fill_(n_cap),
+                     sl.session_remap(st, lut, sent_above=True)),
+            50, "remap_kernel")
     results["session_remap"] = dict(
         route="cuda",
         source="hstream_tpu_torch/engine/kernels/csrc/session_remap.cu",
         replaces="hstream_tpu/engine/lattice.py:1553",
-        max_abs_err=0.0)
-    log("session_remap: codes below, at and above lcap and the sentinel, "
-        "an evicting table: exact")
+        max_abs_err=0.0, ms_join=ms, call_ms_join=call, ms_source_join=src,
+        plain_ms_join=plain, library_ms_join=lib, bound_ms_join=b_ms,
+        bound_by_join=b_by, cap_join=cap, lcap_join=lcap,
+        ms_join_cold=cold[cap], ms_join_store_cold=cold[2 * cap],
+        bound_ms_join_store=bound(2 * 2 * cap * 4 + lcap * 4, 2 * cap)[0])
+    log(f"session_remap: codes below, at and above lcap and the sentinel, "
+        f"an evicting table; {cases} plane cases at 2^17 and 2^21 codes "
+        f"(tails of 0 and 3, bases 0-12 bytes off 16, the sentinel flag "
+        f"both ways): exact; at the join store's {cap} codes "
+        f"(sent_above) {ms:.5f} ms (plain {plain:.4f}, indexing {lib:.4f}, "
+        f"bound {b_ms:.5f} by {b_by}, {100 * b_ms / ms:.0f} % of it; the "
+        f"plane in L2); cold {cold[cap]:.5f} ms, and {cold[2 * cap]:.5f} at "
+        f"phase 8's {2 * cap} store slots")
 
 
 # ---- phase 7: the session path (BASELINE config 4) --------------------------
@@ -5833,6 +5970,371 @@ def log_path(dev) -> dict:
                 uninterrupted_launches=plain["launches"])
 
 
+# ---- phase 12: kernel-family device time, compiles and fault points ---------
+
+TRACE_BATCHES = 16          # config 1, each batch one 10 s window
+TRACE_MS_PER_BATCH = 10_000
+TRACE_RATE = 4              # DEVICE_TIME samples every 4th dispatch
+TRACE_SESS_BATCHES = 8
+TRACE_SESS_STRETCH = 4
+TRACE_DISARMED_BATCHES = 4
+
+
+def _planes_equal(planes: dict, clone: dict) -> bool:
+    """Byte for byte (a view as int8: NaN payloads and -0.0 count)."""
+    return set(planes) == set(clone) and all(
+        torch.equal(v.contiguous().view(torch.int8),
+                    clone[k].contiguous().view(torch.int8))
+        for k, v in planes.items())
+
+
+def _fired(site: str, call, *args) -> str:
+    """Arm `site` to fail its next hit, make the call, require the
+    injected fault to come out of it; returns its message."""
+    from hstream_tpu_torch.common.faultinject import FAULTS, InjectedFault
+
+    FAULTS.arm(site, "fail:1")
+    try:
+        call(*args)
+    except InjectedFault as e:
+        assert e.site == site, (e.site, site)
+        return str(e)
+    finally:
+        FAULTS.disarm()
+    raise AssertionError(f"{site}: the armed fault did not fire")
+
+
+def _ring(family: str) -> dict:
+    from hstream_tpu_torch.stats.devicecost import DEVICE_TIME
+
+    xs = DEVICE_TIME.samples(family)
+    assert xs, f"no {family} sample"
+    srt = sorted(xs)
+    # a ring holds 2-4 samples here: its p99 is its max, and reads so
+    return dict(samples=len(xs), p50=srt[len(srt) // 2], max=srt[-1],
+                min=srt[0], ms=xs)
+
+
+def _trace_batch(src, b: int):
+    """Config 1's batch b re-timed to fill window b: records of the
+    unique batch b mod 8 spread over [b * 10 s, (b + 1) * 10 s)."""
+    kids, _ts, temps = src.get(b)
+    ts = BASE_TS + b * TRACE_MS_PER_BATCH + \
+        src.ts_template * (TRACE_MS_PER_BATCH // STREAM_MS_PER_BATCH)
+    return kids, ts, temps
+
+
+def _trace_executor(dev):
+    from hstream_tpu_torch.engine import (AggregateNode, ColumnType,
+                                          QueryExecutor, Schema, SourceNode)
+    from hstream_tpu_torch.engine.expr import Col
+
+    spec = make_spec(1)
+    schema = Schema.of(device=ColumnType.STRING, temp=ColumnType.FLOAT)
+    node = AggregateNode(child=SourceNode("sensors", schema),
+                         group_keys=[Col("device")], window=spec.window,
+                         aggs=list(spec.aggs))
+    ex = QueryExecutor(node, schema, emit_changes=False, initial_keys=1024,
+                       batch_capacity=BATCH)
+    assert ex.device == dev, ex.device
+    for k in range(N_KEYS):
+        ex.key_id_for((f"d{k}",))
+    return spec, ex
+
+
+def traced_window(dev, results) -> dict:
+    """Config 1 through QueryExecutor.process_columnar for 16 batches of
+    2^20 records, one 10 s window each (a close a batch, deferred),
+    DEVICE_TIME armed at rate 4; a RetraceGuard over the batches after
+    the first four; device.dispatch fired at batch 6 (the batch is sent
+    again), device.activate at batch 9's close and again at the close
+    cycle alone, device.fetch at the final drain. Each fault must raise
+    and leave the planes byte-equal to a clone; the rows equal numpy."""
+    from hstream_tpu_torch.common.tracing import RetraceGuard
+    from hstream_tpu_torch.stats.devicecost import DEVICE_TIME
+
+    spec, ex = _trace_executor(dev)
+    ex.defer_close_decode = True
+    src = Batches(seed=1)
+    per_key = src.per_key()
+    faults = {}
+    DEVICE_TIME.disarm()
+    DEVICE_TIME.reset()
+    DEVICE_TIME.arm(TRACE_RATE)
+    zero_counts()
+    rows: list = []
+    guard = RetraceGuard(name="phase12")
+    try:
+        for b in range(TRACE_BATCHES):
+            if b == 4:
+                guard.__enter__()
+            kids, ts, temps = _trace_batch(src, b)
+            cols = {"temp": temps}
+            if b == 6:
+                clone = copy_state(ex.state)
+                wm, opened = ex.watermark_abs, sorted(ex._open)
+                faults["device.dispatch"] = _fired(
+                    "device.dispatch", ex.process_columnar, kids, ts, cols)
+                torch.cuda.synchronize()
+                assert _planes_equal(ex.state, clone), "device.dispatch"
+                assert (ex.watermark_abs, sorted(ex._open)) == (wm, opened)
+            if b == 9:
+                faults["device.activate (batch)"] = _fired(
+                    "device.activate", ex.process_columnar, kids, ts, cols)
+                clone = copy_state(ex.state)
+                opened = sorted(ex._open)
+                faults["device.activate"] = _fired(
+                    "device.activate", ex.close_due_windows)
+                torch.cuda.synchronize()
+                assert _planes_equal(ex.state, clone), "device.activate"
+                assert sorted(ex._open) == opened
+                rows.extend(ex.close_due_windows())
+                continue
+            rows.extend(ex.process_columnar(kids, ts, cols))
+    finally:
+        guard.__exit__(None, None, None)
+        DEVICE_TIME.disarm()
+    clone = copy_state(ex.state)
+    pending = len(ex._pending_closes)
+    faults["device.fetch"] = _fired("device.fetch", ex.drain_closed)
+    torch.cuda.synchronize()
+    assert _planes_equal(ex.state, clone), "device.fetch"
+    assert len(ex._pending_closes) == pending > 0
+    rows.extend(ex.drain_closed())
+    size = spec.window.size_ms
+    n_windows = check_rows(
+        1, spec, rows, per_key, dev,
+        ref_of=lambda start: per_key[((start - BASE_TS) // size) % N_UNIQUE])
+    counts = launch_counts()
+    st = dict(ex.close_stats)
+    assert counts["wire_decode"] == counts["scatter_aggregate"] == \
+        TRACE_BATCHES, counts
+    assert counts["fused_close"] == st["close_dispatches"] == \
+        st["close_cycles"] == TRACE_BATCHES - 1, (counts, st)
+    assert st["close_fetches"] == 1, st       # one drain, one shape
+    assert guard.count == 0, f"{guard.count} compiles in steady state"
+    state = DEVICE_TIME.state()
+    assert state["counts"] == {"step": TRACE_BATCHES,
+                               "close": TRACE_BATCHES - 1}, state
+    step, close = _ring("step"), _ring("close")
+    assert step["samples"] == TRACE_BATCHES // TRACE_RATE
+    assert close["samples"] == (TRACE_BATCHES - 1) // TRACE_RATE
+    kernels = results["wire_decode"]["ms"] + \
+        results["scatter_aggregate"]["ms"]
+    assert step["min"] >= kernels, (step, kernels)
+    # disarmed: a fresh executor's batches leave the sampler empty
+    DEVICE_TIME.reset()
+    _spec, ex2 = _trace_executor(dev)
+    for b in range(TRACE_DISARMED_BATCHES):
+        kids, ts, temps = _trace_batch(src, b)
+        ex2.process_columnar(kids, ts, {"temp": temps})
+    torch.cuda.synchronize()
+    disarmed = DEVICE_TIME.state()
+    assert disarmed == {"counts": {}, "samples": {}}, disarmed
+    return dict(step=step, close=close, profiled_step_kernels_ms=kernels,
+                profiled_close_ms=results["fused_close"]["ms"],
+                windows_checked=n_windows, rows=len(rows), faults=faults,
+                steady_compiles=guard.count, disarmed_state=disarmed,
+                close_stats=st, launches=counts)
+
+
+def traced_session(dev, results) -> dict:
+    """Config 4's stream for 8 batches (2^20 records each, 4 s of stream
+    a batch, record mode) with DEVICE_TIME armed at rate 4; device.session.dispatch fired at batch
+    4's step (the arena and its mirror byte-equal to a clone, the batch
+    sent again); the sessions against numpy."""
+    from hstream_tpu_torch.common.tracing import RetraceGuard
+    from hstream_tpu_torch.engine import SessionExecutor
+    from hstream_tpu_torch.engine.sketches import QuantileConfig
+    from hstream_tpu_torch.stats.devicecost import DEVICE_TIME
+
+    qcfg = QuantileConfig()
+    src = SessionStream(seed=12, n_batches=TRACE_SESS_BATCHES)
+    # 4 s of stream a batch (the path's 1 s, stretched): sessions close
+    # within the 8 batches
+    src.ts = [BASE_TS + (t - BASE_TS) * TRACE_SESS_STRETCH for t in src.ts]
+    ref = session_reference(src, TRACE_SESS_BATCHES, qcfg)
+    node, schema = session_plan()
+    ex = SessionExecutor(node, schema)
+    ex.defer_close_decode = True
+    ex.device_session_mode = "record"
+    DEVICE_TIME.reset()
+    DEVICE_TIME.arm(TRACE_RATE)
+    zero_counts()
+    rows, fault = [], None
+    guard = RetraceGuard(name="phase12")
+    try:
+        for b in range(TRACE_SESS_BATCHES):
+            ts, cols = src.get(b)
+            if b == 2:
+                guard.__enter__()
+            if b == 4:
+                dev_ = ex._dev
+                clone = copy_state(dev_["arena"])
+                mirror = [dev_[k].copy() for k in
+                          ("mir_code", "mir_t0", "mir_t1", "mir_live")]
+                fault = _fired("device.session.dispatch",
+                               ex.process_columnar, ts, cols)
+                torch.cuda.synchronize()
+                assert _planes_equal(dev_["arena"], clone), \
+                    "device.session.dispatch"
+                assert all(np.array_equal(a, dev_[k]) for a, k in zip(
+                    mirror, ("mir_code", "mir_t0", "mir_t1", "mir_live")))
+            rows.extend(ex.process_columnar(ts, cols))
+        rows.extend(ex.drain_closed())
+        torch.cuda.synchronize()
+    finally:
+        guard.__exit__(None, None, None)
+        DEVICE_TIME.disarm()
+    check = check_session_rows(rows, ref, qcfg)
+    counts = launch_counts()
+    st = dict(ex.session_stats)
+    assert counts["session_step"] == st["step_dispatches"] == \
+        TRACE_SESS_BATCHES, (counts, st)
+    assert guard.count == 0, f"{guard.count} compiles in steady state"
+    ring = _ring("session")
+    assert ring["samples"] == TRACE_SESS_BATCHES // TRACE_RATE
+    return dict(session=ring, profiled_step_ms=results["session_step"]["ms"],
+                close=DEVICE_TIME.percentiles().get("close"), check=check,
+                fault=fault, steady_compiles=guard.count, session_stats=st,
+                launches=counts)
+
+
+def traced_probe(dev, results) -> dict:
+    """Phase 8b's query and shape (2^16-record batches over 32,000 keys)
+    for 4 + 8 batches with DEVICE_TIME armed at rate 4: every probe
+    dispatch after the activation is a "probe" one; the final changes
+    against numpy."""
+    from hstream_tpu_torch.common.tracing import RetraceGuard
+    from hstream_tpu_torch.stats.devicecost import DEVICE_TIME
+
+    src = JoinStream(8, FETCH_BATCH, FETCH_KEYS, with_x=True)
+    ex = _join_executor(join_fetch_plan(), FETCH_BATCH, dev)
+    ex.match_drain_depth = 4
+    log_ = ChangeLog(src.keys)
+    n_batches = FETCH_WARM + FETCH_TIMED
+    DEVICE_TIME.reset()
+    DEVICE_TIME.arm(TRACE_RATE)
+    zero_counts()
+    guard = RetraceGuard(name="phase12")
+    try:
+        for b in range(n_batches):
+            if b == FETCH_WARM:
+                guard.__enter__()
+            ts, cols, side = src.get(b)
+            log_.add(ex.process_columnar(ts, cols, stream=side))
+            if b == 1:
+                ex.coalesce_rows = 1 << 15
+        log_.add(ex.flush_changes())
+        torch.cuda.synchronize()
+    finally:
+        guard.__exit__(None, None, None)
+        DEVICE_TIME.disarm()
+    js = dict(ex.join_stats)
+    counts = launch_counts()
+    check = check_join_changes(
+        log_, join_reference(src, n_batches, 1000, 10_000), with_sum=True)
+    assert js["probe_dispatches"] == counts["join_probe_insert"], \
+        (js, counts)
+    assert guard.count == 0, f"{guard.count} compiles in steady state"
+    assert DEVICE_TIME.state()["counts"]["probe"] == js["probe_dispatches"]
+    ring = _ring("probe")
+    assert ring["samples"] == js["probe_dispatches"] // TRACE_RATE
+    return dict(probe=ring,
+                profiled_probe_ms=results["join_probe_insert"]["ms"],
+                check=check, join_stats=js, steady_compiles=guard.count,
+                launches=counts)
+
+
+def sampler_floor(dev) -> dict:
+    """What a sampled dispatch reads around an empty kernel: 8 samples
+    back to back and 8 each after 20 ms with the card idle (as the
+    paths' dispatches come, after the host's encode), through the same
+    kernel_family / DEVICE_TIME path as the families."""
+    from hstream_tpu_torch.common.tracing import kernel_family
+    from hstream_tpu_torch.engine.kernels import binding as kb
+    from hstream_tpu_torch.stats.devicecost import DEVICE_TIME
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    vals = (torch.zeros(1, device=dev),)
+    out = {}
+    for name, idle_s in (("back to back", 0.0), ("after 20 ms idle", 0.02)):
+        DEVICE_TIME.reset()
+        DEVICE_TIME.arm(1)
+        try:
+            for _ in range(8):
+                torch.cuda.synchronize()
+                time.sleep(idle_s)
+                with kernel_family("floor", ready=lambda: vals):
+                    kb.check(kb.lib().hs_empty(stream), "empty")
+        finally:
+            DEVICE_TIME.disarm()
+        xs = sorted(DEVICE_TIME.samples("floor"))
+        out[name] = dict(p50=xs[len(xs) // 2], max=xs[-1], ms=xs)
+    DEVICE_TIME.reset()
+    return out
+
+
+def step_split(dev) -> dict:
+    """Where a sampled step's time goes, on config 1's phase-12 batches:
+    DEVICE_TIME at rate 2 and a dispatch observer, so every other step is
+    sampled (the device's time between the scope's two events) and the
+    others give the host's time inside the scope, with no wait in it.
+    The batches come in pairs of two kinds: "idle", as phase 12 (the card
+    idle through the host's encode), and "busy", the card kept busy
+    through the encode by a spin kernel, so that the step's kernels are
+    queued before its start event runs and a sample reads them alone."""
+    from hstream_tpu_torch.stats.devicecost import DEVICE_TIME
+
+    _spec, ex = _trace_executor(dev)
+    src = Batches(seed=1)
+    host: list = []
+    ex.dispatch_observer = (lambda fam, sec: host.append(sec * 1e3)
+                            if fam == "step" else None)
+    kinds = []
+    DEVICE_TIME.reset()
+    DEVICE_TIME.arm(2)
+    try:
+        for b in range(4 + 16):      # 4 warm-up batches, then 8 pairs
+            kind = "idle" if b < 4 or (b // 2) % 2 == 0 else "busy"
+            if kind == "busy":
+                torch.cuda._sleep(int(2e8))     # ~0.1 s of spin
+            kids, ts, temps = _trace_batch(src, b)
+            ex.process_columnar(kids, ts, {"temp": temps})
+            torch.cuda.synchronize()
+            kinds.append(kind)
+    finally:
+        DEVICE_TIME.disarm()
+    sampled = DEVICE_TIME.samples("step")   # the 2nd, 4th, ... steps
+    DEVICE_TIME.reset()
+    assert len(host) == len(kinds) and len(sampled) == len(kinds) // 2
+    out = {}
+    for kind in ("idle", "busy"):
+        dev_ms = [sampled[i // 2] for i in range(4, len(kinds))
+                  if i % 2 == 1 and kinds[i] == kind]
+        host_ms = [host[i] for i in range(4, len(kinds))
+                   if i % 2 == 0 and kinds[i] == kind]
+        out[kind] = dict(device_ms=dev_ms, host_ms=host_ms,
+                         device_p50=float(np.median(dev_ms)),
+                         host_p50=float(np.median(host_ms)))
+    return out
+
+
+def traced_path(dev, results) -> dict:
+    """Phase 12: the kernel families' device time (DEVICE_TIME), the
+    steady state's compiles (RetraceGuard) and four fault points, on the
+    window, session and join executors; and the sampler's own floor."""
+    floor = sampler_floor(dev)
+    split = step_split(dev)
+    w = traced_window(dev, results)
+    s = traced_session(dev, results)
+    j = traced_probe(dev, results)
+    launches = {k: w["launches"][k] + s["launches"][k] + j["launches"][k]
+                for k in w["launches"]}
+    return dict(config="12", window=w, session=s, probe=j,
+                launches=launches, sampler_floor=floor, step_split=split)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5988,6 +6490,41 @@ def main() -> int:
         f"(columnar batches {r['columnar_events_per_sec']:.0f}), "
         f"device busy {r['device_busy_share']:.4f} over "
         f"{r['profile_batches']} batches, launches {r['launches']} "
+        f"[{card}]")
+
+    r = traced_path(dev, results)
+    paths.append(r)
+
+    def ring(x):
+        return (f"p50 {x['p50']:.4f} p99 = max of {x['samples']} "
+                f"{x['max']:.4f}")
+
+    log(f"traced path (12): kernel_device_ms step {ring(r['window']['step'])}"
+        f" against the profiled decode + scatter "
+        f"{r['window']['profiled_step_kernels_ms']:.4f}; close "
+        f"{ring(r['window']['close'])} against the fused close "
+        f"{r['window']['profiled_close_ms']:.4f}; session "
+        f"{ring(r['session']['session'])} against the step "
+        f"{r['session']['profiled_step_ms']:.4f}; probe "
+        f"{ring(r['probe']['probe'])} against the probe + insert "
+        f"{r['probe']['profiled_probe_ms']:.4f} (ms; each sample spans the "
+        f"scope on the device's timeline: the host's launch path inside it "
+        f"and the kernels); an empty "
+        f"kernel reads {r['sampler_floor']['back to back']['p50']:.4f} back "
+        f"to back, {r['sampler_floor']['after 20 ms idle']['p50']:.4f} "
+        f"after 20 ms idle (p50); a step's host time inside the scope "
+        f"{r['step_split']['idle']['host_p50']:.4f} (card idle through the "
+        f"encode) and {r['step_split']['busy']['host_p50']:.4f} (kept busy), "
+        f"its samples {r['step_split']['idle']['device_p50']:.4f} and "
+        f"{r['step_split']['busy']['device_p50']:.4f} (p50); disarmed "
+        f"state {json.dumps(r['window']['disarmed_state'])}; steady "
+        f"compiles {r['window']['steady_compiles']} / "
+        f"{r['session']['steady_compiles']} / "
+        f"{r['probe']['steady_compiles']}; faults raised with the planes "
+        f"byte-equal: {sorted(r['window']['faults'])} and "
+        f"device.session.dispatch; {r['window']['windows_checked']} "
+        f"windows, {r['session']['check']['sessions_checked']} sessions, "
+        f"{r['probe']['check']['windows']} join (key, window)s equal numpy "
         f"[{card}]")
 
     kernels = []

@@ -39,6 +39,20 @@ class ServerError(HStreamError):
     pass
 
 
+class ResourceExhausted(ServerError):
+    """Admission refused by flow control (quota or overload shed). The
+    retry-after hint rides the message text (retry_after_ms=N), so any
+    client can back off without a custom status proto."""
+
+    def __init__(self, message: str = "",
+                 retry_after_ms: int | None = None):
+        if retry_after_ms is not None:
+            retry_after_ms = max(1, int(retry_after_ms))
+            message = f"{message} (retry_after_ms={retry_after_ms})"
+        super().__init__(message)
+        self.retry_after_ms = retry_after_ms
+
+
 class InvalidFrame(ServerError):
     """A framed columnar append block failed validation: bad magic or
     version, truncated or overlong body, CRC mismatch, or an embedded

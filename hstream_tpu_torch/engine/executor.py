@@ -55,6 +55,8 @@ import torch
 from hstream_tpu_torch import device as devmod
 from hstream_tpu_torch.common.columnar import ColumnarEmit, extend_rows
 from hstream_tpu_torch.common.errors import SQLCodegenError
+from hstream_tpu_torch.common.faultinject import FAULTS
+from hstream_tpu_torch.common.tracing import kernel_family
 from hstream_tpu_torch.engine import lattice, transport
 from hstream_tpu_torch.engine.expr import (
     BinOp,
@@ -74,6 +76,7 @@ from hstream_tpu_torch.engine.types import (
     canon_key,
 )
 from hstream_tpu_torch.engine.window import FixedWindow, SessionWindow
+from hstream_tpu_torch.stats.devicecost import plane_bytes
 
 REBASE_THRESHOLD = 1 << 30  # re-anchor epoch when relative time passes this
 
@@ -269,6 +272,7 @@ class QueryExecutor:
         # the reference's count of closes degraded to the per-slot path;
         # the port raises instead, so it stays 0
         self.device_fallbacks = 0
+        self.dispatch_observer = None   # callable (family, seconds)
         self._compile()
         # cached reverse key-index columns for vectorized key decode:
         # (len(_key_rev) when built, [object array per group column])
@@ -327,23 +331,41 @@ class QueryExecutor:
         self._extract_touched = fns.extract_touched
 
     def _count_close_kernel(self, fn):
-        """Wrap a close program so each call bumps close_dispatches."""
+        """Wrap a close program so each call bumps close_dispatches and
+        runs under the "close" kernel family (executor.py:339-351 in the
+        reference)."""
 
         def counted(*args):
             self.close_stats["close_dispatches"] += 1
-            return fn(*args)
+            with kernel_family("close", self.dispatch_observer,
+                               ready=self._device_values):
+                return fn(*args)
 
         return counted
 
+    # contract: dispatches<=0 fetches<=0
+    def _device_values(self):
+        """The executor's live device tensors — the device-time
+        sampler's target (a zero-arg late binding, read when a sampled
+        dispatch starts; the port updates the planes in place, so only
+        their device, hence the stream the kernels launch on, matters)."""
+        return self.state
+
+    # contract: dispatches<=0 fetches<=0
     def device_plane_bytes(self) -> dict[str, int]:
-        """Exact per-plane device bytes of the live lattice state."""
-        return {k: int(v.nbytes) for k, v in self.state.items()}
+        """Exact per-plane device bytes of the live lattice state —
+        nbytes metadata reads only, zero launches, zero copies."""
+        return plane_bytes(self.state)
 
     def _run_step(self, n: int, key_ids, ts_rel, cols, nulls,
                   wm_rel: int) -> None:
         """Encode one micro-batch with the wire codec, upload it, and
         launch the step's kernels. The wire is sized to the batch
-        (cap = n): kernels take any size, so nothing pads."""
+        (cap = n): kernels take any size, so nothing pads. A fired
+        device.dispatch fault raises before the encode: the batch has
+        touched no plane and no host store yet."""
+        if FAULTS.active:  # chaos: fail/delay a step dispatch
+            FAULTS.point("device.dispatch")
         combo, bases, words = self._encode(n, key_ids, ts_rel, cols, nulls)
         staged_words, ready = self._device_stage(words)
         self._launch_step(combo, bases, staged_words, ready, n, wm_rel)
@@ -397,8 +419,12 @@ class QueryExecutor:
             cur.wait_event(ready)
             words.record_stream(cur)
         self.read_epoch += 1
-        lattice.step_encoded(self.spec, self.state, int(wm_rel), n, bases,
-                             words, combo, n, self._progs)
+        # scoped after the wait on the upload: a sampled step's event
+        # pair times the kernels, not the copy
+        with kernel_family("step", self.dispatch_observer,
+                           ready=self._device_values):
+            lattice.step_encoded(self.spec, self.state, int(wm_rel), n,
+                                 bases, words, combo, n, self._progs)
 
     # ---- keys --------------------------------------------------------------
 
@@ -607,8 +633,11 @@ class QueryExecutor:
                 "reduce grace or close the stalled window")
         wm_rel = (max(self.watermark_abs - self.epoch, -1)
                   if self.watermark_abs >= 0 else -1)
-        self._note_late(np.asarray(ts_ms, dtype=np.int64))
         self._run_step(n, key_ids, ts_rel64, batch.cols, batch.nulls, wm_rel)
+        # counted once the step launched (it reads the pre-batch
+        # watermark, which the step leaves alone), so a failed dispatch
+        # leaves late_drops as it was
+        self._note_late(np.asarray(ts_ms, dtype=np.int64))
 
         # host window bookkeeping
         if self.window is not None:
@@ -718,8 +747,8 @@ class QueryExecutor:
                 "stream time span exceeds int32 relative range")
         wm_rel = (max(self.watermark_abs - self.epoch, -1)
                   if self.watermark_abs >= 0 else -1)
-        self._note_late(ts_list)
         self._run_step(n, key_ids, ts_rel64, cols, nulls, wm_rel)
+        self._note_late(ts_list)  # after the step, as in _process_batch
 
         if self.window is not None:
             self._track_windows(ts_list, batch_starts)
@@ -880,9 +909,14 @@ class QueryExecutor:
         device->host fetch, however many windows are due. In EMIT CHANGES
         mode the launch only resets and nothing is fetched: the changelog
         already carried the final values. A failed launch raises: there
-        is no automatic degrade to the per-slot close."""
+        is no automatic degrade to the per-slot close. A fired
+        device.activate fault raises before any window is popped, so the
+        due windows stay open and the next call closes them."""
         if not starts:
             return []
+        if FAULTS.active and self._fused_close_ok:
+            # chaos: provoke a fused-close failure
+            FAULTS.point("device.activate")
         ows = [(s, self._open.pop(s).slot) for s in starts]
         self.read_epoch += 1
         self.close_stats["close_cycles"] += 1
@@ -928,9 +962,13 @@ class QueryExecutor:
     def drain_closed(self) -> list[dict[str, Any]]:
         """Decode every deferred window close. Pending close cycles fetch
         in ONE device->host copy per buffer shape (key growth between two
-        closes changes K, and the cycle width changes P)."""
+        closes changes K, and the cycle width changes P). A fired
+        device.fetch fault raises before the fetch: every pending close
+        stays pending for the next drain."""
         if not self._pending_closes:
             return []
+        if FAULTS.active:  # chaos: fail/delay the deferred-close drain
+            FAULTS.point("device.fetch")
         out = None
         by_shape: dict[tuple, list[tuple[list[int], torch.Tensor]]] = {}
         for starts, packed in self._pending_closes:

@@ -34,6 +34,7 @@ from typing import Any, Callable, Mapping, NamedTuple, Sequence
 import torch
 
 from hstream_tpu_torch.common.errors import SQLCodegenError
+from hstream_tpu_torch.common.tracing import note_compile
 from hstream_tpu_torch.engine.kernels import binding as kb
 from hstream_tpu_torch.engine.types import ColumnType, Schema, StringDictionary
 
@@ -518,7 +519,9 @@ def lower(prog: DeviceProgram) -> Lowered:
     and its arithmetic, so the result is the postfix program's bit for
     bit. The tree is kept as indices into the postfix ops (children
     before parents), so a program of any size lowers in time linear in
-    its ops and its depth."""
+    its ops and its depth. A miss counts as one compile
+    (common/tracing.RetraceGuard)."""
+    note_compile()
     kids: list[tuple[int, ...]] = []
     stack: list[int] = []
     for i, (code, _arg) in enumerate(prog.ops):
@@ -766,7 +769,9 @@ def launch_plan(progs: tuple[tuple[DeviceProgram, str | None], ...]
     temporary columns it reads, at the end of that block; each block's
     columns numbered in one table. The programs are independent (WHERE
     programs AND into `valid`), so their order across blocks changes no
-    bit. A launch copies a block and fills in n and the pointers."""
+    bit. A launch copies a block and fills in n and the pointers. A miss
+    counts as one compile (common/tracing.RetraceGuard)."""
+    note_compile()
     pieces: list[tuple[DeviceProgram, str | None]] = []
     for prog, name in progs:
         if name is None and prog.dtype != "bool":

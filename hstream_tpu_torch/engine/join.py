@@ -61,11 +61,14 @@ import torch
 from hstream_tpu_torch import device as devmod
 from hstream_tpu_torch.common.columnar import extend_rows
 from hstream_tpu_torch.common.errors import SQLCodegenError
+from hstream_tpu_torch.common.faultinject import FAULTS
+from hstream_tpu_torch.common.tracing import kernel_family
 from hstream_tpu_torch.engine.expr import BinOp, Col, Expr, eval_host
 from hstream_tpu_torch.engine.plan import AggregateNode
 from hstream_tpu_torch.engine.statestore import LastValueStore
 from hstream_tpu_torch.engine.types import canon_key, round_up_pow2
 from hstream_tpu_torch.engine.window import DEFAULT_GRACE_MS
+from hstream_tpu_torch.stats.devicecost import plane_bytes
 
 _MISS = object()  # row.get sentinel: "field absent", distinct from None
 
@@ -570,6 +573,7 @@ class JoinExecutor(_JoinBase):
         # the reference's count of activations degraded to the host path;
         # the port raises instead, so it stays 0
         self.device_fallbacks = 0
+        self.dispatch_observer = None   # callable (family, seconds)
         # host seconds of the device path's per-batch stages (host clock)
         self.stage_stats = {"key_encode_s": 0.0, "lexsort_s": 0.0,
                             "shadow_s": 0.0, "pack_s": 0.0, "h2d_s": 0.0}
@@ -582,9 +586,23 @@ class JoinExecutor(_JoinBase):
         dev = self._dev
         if dev is not None:
             for side in ("l", "r"):
-                for k, v in dev["stores"][side].items():
-                    out[f"{side}.{k}"] = int(v.nbytes)
+                for k, v in plane_bytes(dev["stores"][side]).items():
+                    out[f"{side}.{k}"] = v
         return out
+
+    # contract: dispatches<=0 fetches<=0
+    def _device_values(self):
+        """Live device tensors of the probe plane — the device-time
+        sampler's target, late-bound (the stores swap with their spares
+        on every probe): both stores and the inner lattice's planes."""
+        dev = self._dev
+        if dev is None:
+            return ()
+        vals = [dev["stores"]["l"], dev["stores"]["r"]]
+        inner_state = getattr(self._inner, "state", None)
+        if inner_state is not None:
+            vals.append(inner_state)
+        return vals
 
     # ---- ingest ------------------------------------------------------------
     #
@@ -1066,7 +1084,10 @@ class JoinExecutor(_JoinBase):
         if fast is None:
             return False
         # the reference degrades a failed activation to the host path
-        # (device_fallbacks); the port lets the failure raise
+        # (device_fallbacks); the port lets the failure raise, before
+        # anything has moved off the host stores
+        if FAULTS.active:  # chaos: provoke an activation failure
+            FAULTS.point("device.activate")
         return self._activate_device(fast)
 
     def _activate_device(self, fast: dict) -> bool:
@@ -1568,9 +1589,11 @@ class JoinExecutor(_JoinBase):
         self.join_stats["probe_dispatches"] += 1
         if dev.get("feed") is not None and self._fuse_ok(bts):
             return self._fused_batch(side, other_side, bt, buf, n, cutoff)
-        new, packed = jl.join_probe_insert(
-            dev["stores"][side], other, bt, n, self.within, cutoff,
-            dev["match_cap"], len(lay), out=self._store_out(side))
+        with kernel_family("probe", self.dispatch_observer,
+                           ready=self._device_values):
+            new, packed = jl.join_probe_insert(
+                dev["stores"][side], other, bt, n, self.within, cutoff,
+                dev["match_cap"], len(lay), out=self._store_out(side))
         self._swap(side, new)
         self._note_insert(side, n)
         # the pending entry keeps (batch, probed store) alive so a
@@ -1644,11 +1667,14 @@ class JoinExecutor(_JoinBase):
                   if inner.watermark_abs >= 0 else -1)
         ts_off = dev["t0"] - inner.epoch
         inner.read_epoch += 1
-        new, _total = jl.join_probe_insert_step(
-            dev["stores"][side], dev["stores"][other_side], bt, n,
-            self.within, cutoff, dev["match_cap"], len(dev["lay"][side]),
-            inner.spec, inner.state, wm_rel, ts_off, inner._progs,
-            dev["feed"][side], out=self._store_out(side))
+        with kernel_family("probe", self.dispatch_observer,
+                           ready=self._device_values):
+            new, _total = jl.join_probe_insert_step(
+                dev["stores"][side], dev["stores"][other_side], bt, n,
+                self.within, cutoff, dev["match_cap"],
+                len(dev["lay"][side]), inner.spec, inner.state, wm_rel,
+                ts_off, inner._progs, dev["feed"][side],
+                out=self._store_out(side))
         self._swap(side, new)
         self._note_insert(side, n)
         self.join_stats["fused_batches"] += 1

@@ -10,7 +10,8 @@ csrc/close.cu            fused close        (lattice.close_slots,
                          per-slot close     (lattice.extract_slot,
                                              lattice.reset_slot)
 csrc/touched.cu          changelog extract  (lattice.extract_touched)
-csrc/rebase.cu           rebase             (lattice.rebase)
+csrc/rebase.cu           rebase             (lattice.rebase), and an empty
+                         kernel (hs_empty), the floor a launch is timed against
 csrc/session_step.cu     session step       (session_lattice.session_step)
 csrc/session_merge.cu    session merge      (session_lattice.session_merge)
 csrc/session_extract.cu  session extract    (session_lattice.session_extract)

@@ -288,6 +288,8 @@ def lib() -> C.CDLL:
             dll.hs_rebase.argtypes = [C.c_void_p, C.c_int32, C.c_int32,
                                       C.c_void_p]
             dll.hs_rebase.restype = C.c_int
+            dll.hs_empty.argtypes = [C.c_void_p]
+            dll.hs_empty.restype = C.c_int
             dll.hs_session_remap.argtypes = [C.c_void_p, C.c_int32,
                                              C.c_void_p, C.c_int32,
                                              C.c_int32, C.c_void_p]

@@ -22,6 +22,8 @@ import threading
 import time
 from typing import NamedTuple
 
+from hstream_tpu_torch.common.tracing import note_compile
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
@@ -42,6 +44,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_noted = False  # the first build() of the process counted as a compile
 
 
 class Built(NamedTuple):
@@ -72,8 +75,14 @@ def _digest() -> str:
 
 
 def build() -> Built:
-    """Compile and link the kernels if needed."""
+    """Compile and link the kernels if needed. The process's first call
+    counts as one compile (common/tracing.RetraceGuard), whether it
+    builds or finds the library built; later calls count nothing."""
+    global _noted
     with _lock:
+        if not _noted:
+            _noted = True
+            note_compile()
         lib = os.path.join(BUILD_DIR, f"libhs_kernels_{_digest()}.so")
         if os.path.exists(lib):
             return Built(lib, 0.0, "")

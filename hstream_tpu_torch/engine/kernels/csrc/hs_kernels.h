@@ -501,6 +501,7 @@ int64_t hs_touched_scratch_bytes(int32_t n_cells, int32_t max_out,
                                  int32_t out_rows);
 int hs_rebase(int32_t *slot_start, int32_t n_slots, int32_t delta,
               void *stream);
+int hs_empty(void *stream);
 int64_t hs_session_scratch_bytes(int32_t cap, int32_t nb);
 int hs_session_step(const HsSessionArgs *args, void *stream);
 int hs_session_merge(const HsSessionArgs *args, void *stream);

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from hstream_tpu_torch.common.errors import SQLCodegenError
+from hstream_tpu_torch.common.tracing import note_compile
 from hstream_tpu_torch.engine import transport
 from hstream_tpu_torch.engine.expr import (
     Col,
@@ -1466,7 +1467,9 @@ def compiled(spec: LatticeSpec, schema, filter_expr: Expr | None,
     """Shared, cached compilation of a query's lattice programs for a
     (spec, schema, filter, layout): executors of the same shape share
     one bundle (compiled, lattice.py:768-803 in the reference). String
-    literals must be pre-encoded (expr.encode_strings)."""
+    literals must be pre-encoded (expr.encode_strings). A miss counts
+    as one compile (common/tracing.RetraceGuard)."""
+    note_compile()
     _agg_inputs, null_keys = compile_agg_inputs(spec, schema)
     progs = step_programs(spec, schema, filter_expr)
 

@@ -69,6 +69,8 @@ import torch
 from hstream_tpu_torch import device as devmod
 from hstream_tpu_torch.common.columnar import ColumnarEmit, extend_rows
 from hstream_tpu_torch.common.errors import NotPortedError, SQLCodegenError
+from hstream_tpu_torch.common.faultinject import FAULTS
+from hstream_tpu_torch.common.tracing import kernel_family
 from hstream_tpu_torch.engine import session_lattice as sl
 from hstream_tpu_torch.engine.executor import _READ_NONCE, QueryExecutor
 from hstream_tpu_torch.engine.expr import (
@@ -91,6 +93,7 @@ from hstream_tpu_torch.engine.types import (
     round_up_pow2,
 )
 from hstream_tpu_torch.engine.window import SessionWindow
+from hstream_tpu_torch.stats.devicecost import plane_bytes
 
 log = logging.getLogger("hstream_tpu_torch.session")
 
@@ -338,6 +341,7 @@ class SessionExecutor:
         # bound on device="cpu"; on the card it raises, as a failed
         # launch does)
         self.device_fallbacks = 0
+        self.dispatch_observer = None   # callable (family, seconds)
         self.epoch: int | None = None   # device relative-time anchor
         self._closed_wm: int = -1       # wm of the last close cycle
         # ingest-path launch accounting: the session device contract is
@@ -987,6 +991,8 @@ class SessionExecutor:
         plan = self._plan_device()
         if plan is None:
             return False  # host-only config: a refusal, not a failure
+        if FAULTS.active:  # chaos: provoke an activation failure
+            FAULTS.point("device.session.activate")
         self._activate_device(plan)  # a failure raises
         return True
 
@@ -1542,13 +1548,13 @@ class SessionExecutor:
         gap = self.window.gap_ms
         grace = self.window.grace_ms
         n = len(codes)
-        self.session_stats["batches"] += 1
+        late = 0  # counted once the step launched (a failed one drops none)
         t_mirror = time.perf_counter()
         if n and self.watermark >= 0 \
                 and int(ts.min()) + gap + grace <= self.watermark:
             keep = self._late_keep_mask(codes, ts)
             if not keep.all():
-                self.late_drops += int(n - keep.sum())
+                late = int(n - keep.sum())
                 idx = np.nonzero(keep)[0]
                 codes = codes[idx]
                 ts = ts[idx]
@@ -1577,19 +1583,24 @@ class SessionExecutor:
                 np.concatenate([dev["mir_code"][live], seg_code]),
                 np.concatenate([dev["mir_t0"][live], seg_t0]),
                 np.concatenate([dev["mir_t1"][live], seg_t1]), gap)
-            self.stage_stats["mirror_s"] += time.perf_counter() - t_mirror
-            if len(mcode) > dev["cap"]:
-                self._grow_arena(len(mcode))
-            if self.epoch is None:
-                self.epoch = int(mt0.min())
+            mirror_s = time.perf_counter() - t_mirror
+            if FAULTS.active:  # chaos: fail/delay a session step; it
+                # raises before the arena grows or the epoch moves
+                FAULTS.point("device.session.dispatch")
+            # the epoch moves, and the stats count, only once the step
+            # has launched: the rebase's shift of the arena's times rides
+            # that launch, so a failed one must leave the old epoch
+            epoch = int(mt0.min()) if self.epoch is None else self.epoch
             # close_cut is compared against PRE-shift arena times in the
             # kernel, so compute it in the OLD epoch before any rebase.
             # In range by construction: |closed_wm - epoch| < the span
             # bound below and 2*gap + grace < 2^30 (activation guard).
             close_cut = -(1 << 30) if self._closed_wm < 0 else \
-                int(self._closed_wm - 2 * gap - grace - self.epoch)
-            delta = self._maybe_rebase_dev(int(mt1.max()), int(mt0.min()))
-            if int(mt1.max()) - self.epoch >= self.REBASE_THRESHOLD:
+                int(self._closed_wm - 2 * gap - grace - epoch)
+            delta = self._rebase_delta(epoch, int(mt1.max()),
+                                       int(mt0.min()))
+            epoch += delta
+            if int(mt1.max()) - epoch >= self.REBASE_THRESHOLD:
                 # the rebase could not reclaim range (an ancient session
                 # pins the anchor): past this bound the kernels' scan
                 # arithmetic and the t0 identity stop covering the
@@ -1602,23 +1613,30 @@ class SessionExecutor:
                         "a session stream span past the device's int32 "
                         "relative-time range while an old session pins "
                         "the epoch", "A7c")
+                self.session_stats["batches"] += 1
                 self._degrade_to_host(
                     "relative stream span reached the device range "
                     "(an old session is still open); host engine "
                     "continues without the int32 bound")
                 return _DEGRADED
+            if len(mcode) > dev["cap"]:
+                self._grow_arena(len(mcode))
             if dev["mode"] == "record":
                 self._dispatch_record_step(codes, ts, feed, close_cut,
-                                           delta)
+                                           epoch, delta)
             else:
                 self._dispatch_segment_merge(
                     feed, order, starts, ends, np.cumsum(brk) - 1,
-                    seg_code, seg_t0, seg_t1, close_cut, delta)
+                    seg_code, seg_t0, seg_t1, close_cut, epoch, delta)
+            self.epoch = epoch
+            self.stage_stats["mirror_s"] += mirror_s
             self.session_stats["step_dispatches"] += 1
             dev["mir_code"] = mcode
             dev["mir_t0"] = mt0
             dev["mir_t1"] = mt1
             dev["mir_live"] = np.ones(len(mcode), np.bool_)
+        self.session_stats["batches"] += 1
+        self.late_drops += late
         return self._advance_and_close_device(pre_max)
 
     @staticmethod
@@ -1666,15 +1684,17 @@ class SessionExecutor:
 
         return pinned.numpy(), upload
 
-    def _dispatch_record_step(self, codes, ts, feed, close_cut, delta):
-        """Record-mode step: pack raw records into one int32 buffer,
+    def _dispatch_record_step(self, codes, ts, feed, close_cut, epoch,
+                              delta):
+        """Record-mode step: pack raw records into one int32 buffer
+        (times relative to `epoch`, the one after the rebase by `delta`),
         upload it, evaluate computed inputs, and run the session step
         kernel into the spare arena; the arenas then swap."""
         dev = self._dev
         _tag, cols, nulls = feed
         n = len(codes)
         t0 = time.perf_counter()
-        ts_rel = (ts - self.epoch).astype(np.int64)
+        ts_rel = (ts - epoch).astype(np.int64)
         null_masks = []
         for refs in dev["null_refs"]:
             m = np.zeros(n, np.bool_)
@@ -1693,16 +1713,20 @@ class SessionExecutor:
         self.stage_stats["pack_s"] += t1 - t0
         self.stage_stats["h2d_s"] += t2 - t1
         self.transfer_stats["h2d_bytes"] += int(host.nbytes)
-        inputs = sl.session_inputs(dev["spec"], dev["layout"], packed,
-                                   dev["progs"])
-        sl.session_step(dev["spec"], dev["arena"], dev["spare"], packed,
-                        inputs, self.window.gap_ms, close_cut, delta)
+        with kernel_family("session", self.dispatch_observer,
+                           ready=self._device_values):
+            inputs = sl.session_inputs(dev["spec"], dev["layout"], packed,
+                                       dev["progs"])
+            sl.session_step(dev["spec"], dev["arena"], dev["spare"],
+                            packed, inputs, self.window.gap_ms, close_cut,
+                            delta)
         self._swap_arenas()
 
     def _dispatch_segment_merge(self, feed, order, starts, ends,
                                 seg_of_row_sorted, seg_code, seg_t0,
-                                seg_t1, close_cut, delta):
-        """Segment-mode merge: reduce the batch's rows into per-segment
+                                seg_t1, close_cut, epoch, delta):
+        """Segment-mode merge (times relative to `epoch`, the one after
+        the rebase by `delta`): reduce the batch's rows into per-segment
         plane contributions with the host path's vectorized machinery
         (reduceat / add.at — exact, segments are gap-chains) and merge
         the segment arena into the session arena on the device."""
@@ -1711,8 +1735,8 @@ class SessionExecutor:
         t0 = time.perf_counter()
         seg = self._segment_planes(vv, order, starts, ends,
                                    seg_of_row_sorted, seg_code,
-                                   seg_t0 - self.epoch,
-                                   seg_t1 - self.epoch)
+                                   seg_t0 - epoch,
+                                   seg_t1 - epoch)
         t1 = time.perf_counter()
         self.transfer_stats["h2d_bytes"] += sum(
             int(v.nbytes) for v in seg.values())
@@ -1720,8 +1744,10 @@ class SessionExecutor:
                  for k, v in seg.items()}
         self.stage_stats["pack_s"] += t1 - t0
         self.stage_stats["h2d_s"] += time.perf_counter() - t1
-        sl.session_merge(dev["spec"], dev["arena"], dev["spare"], seg_t,
-                         self.window.gap_ms, close_cut, delta)
+        with kernel_family("session", self.dispatch_observer,
+                           ready=self._device_values):
+            sl.session_merge(dev["spec"], dev["arena"], dev["spare"], seg_t,
+                             self.window.gap_ms, close_cut, delta)
         self._swap_arenas()
 
     def _segment_planes(self, vv, order, starts, ends, seg_of_row,
@@ -1836,18 +1862,14 @@ class SessionExecutor:
             m[1] = max(m[1], t)
         return keep
 
-    def _maybe_rebase_dev(self, max_ts: int, anchor: int) -> int:
-        """Re-anchor the device epoch when relative time nears int32
-        range; the returned delta rides the next step dispatch (the
-        kernel shifts arena times in the same fused pass)."""
-        if max_ts - self.epoch < self.REBASE_THRESHOLD:
+    def _rebase_delta(self, epoch: int, max_ts: int, anchor: int) -> int:
+        """How far to re-anchor the device epoch when relative time nears
+        int32 range (0: not yet). The caller moves the epoch only once
+        the delta has ridden a step dispatch (the kernel shifts arena
+        times in the same fused pass)."""
+        if max_ts - epoch < self.REBASE_THRESHOLD:
             return 0
-        delta = anchor - self.epoch
-        if delta <= 0:
-            return 0
-        self.epoch += delta
-        return delta
-
+        return max(anchor - epoch, 0)
 
     def _grow_arena(self, need: int) -> None:
         """Double the arena capacity (pow2) — rare; both arenas of the
@@ -1909,15 +1931,15 @@ class SessionExecutor:
         idx = np.nonzero(due)[0]
         if len(idx) == 0:
             return []
+        # launched first: a failed extract leaves every session open
+        packed_dev = self._dispatch_extract(idx)
         self.session_stats["close_cycles"] += 1
+        self.session_stats["close_dispatches"] += 1
         # the mirror rows are snapshotted NOW: the mirror mutates on the
         # next step, the deferred decode must not see that
         codes = dev["mir_code"][idx].copy()
         t0 = dev["mir_t0"][idx].copy()
         t1 = dev["mir_t1"][idx].copy()
-        self.session_stats["close_dispatches"] += 1
-        packed_dev = sl.session_extract(dev["spec"], dev["arena"],
-                                        pad_slots(idx))
         dev["mir_live"][idx] = False
         self._closed_wm = max(self._closed_wm, self.watermark)
         if self.defer_close_decode:
@@ -1929,6 +1951,20 @@ class SessionExecutor:
         packed_host = packed_dev.cpu().numpy()
         self.transfer_stats["d2h_bytes"] += packed_host.nbytes
         return self._decode_close(packed_host, codes, t0, t1)
+
+    def _dispatch_extract(self, idx: np.ndarray) -> torch.Tensor:
+        """One extract launch over the named arena slots (padded to a
+        power of two) under the "close" kernel family; returns the
+        packed buffer on the device (the caller fetches or defers). A
+        fired device.session.dispatch fault raises before the launch
+        (session.py:2100-2141 in the reference)."""
+        dev = self._dev
+        if FAULTS.active:  # chaos: fail/delay a session extract
+            FAULTS.point("device.session.dispatch")
+        with kernel_family("close", self.dispatch_observer,
+                           ready=self._device_values):
+            return sl.session_extract(dev["spec"], dev["arena"],
+                                      pad_slots(idx))
 
     # contract: dispatches<=0 fetches<=1
     def drain_closed(self) -> list[dict[str, Any]]:
@@ -1978,8 +2014,16 @@ class SessionExecutor:
         dev = self._dev
         if dev is None:
             return {}
-        return {k: int(v.nbytes) + int(dev["spare"][k].nbytes)
-                for k, v in dev["arena"].items()}
+        spare = plane_bytes(dev["spare"])
+        return {k: v + spare.get(k, 0)
+                for k, v in plane_bytes(dev["arena"]).items()}
+
+    # contract: dispatches<=0 fetches<=0
+    def _device_values(self):
+        """Late-bound handle for the device-time sampler: the arena's
+        tensors (their device names the stream the kernels launch on)."""
+        dev = self._dev
+        return dev["arena"] if dev is not None else ()
 
     def _decode_close(self, packed: np.ndarray, codes, t0, t1,
                       keys=None):
@@ -2039,9 +2083,8 @@ class SessionExecutor:
         idx = np.nonzero(dev["mir_live"])[0]
         if len(idx) == 0:
             return []
+        packed_dev = self._dispatch_extract(idx)
         self.session_stats["peek_dispatches"] += 1
-        packed_dev = sl.session_extract(dev["spec"], dev["arena"],
-                                        pad_slots(idx))
         return self._decode_close(packed_dev.cpu().numpy(),
                                   dev["mir_code"][idx].copy(),
                                   dev["mir_t0"][idx].copy(),

@@ -1,0 +1,229 @@
+"""The device cost plane, in part: plane bytes and per-dispatch device
+time.
+
+A copy, in part, of hstream_tpu/stats/devicecost.py; the port imports
+nothing of the JAX package. Two of its pieces are here:
+
+* **HBM arena accounting** — `plane_bytes` folds a {name: tensor}
+  mapping into per-plane bytes (`nbytes` is shape metadata: no launch,
+  no copy), which the executors' `device_plane_bytes()` return.
+
+* **Per-dispatch device time** — `DEVICE_TIME` is the deterministic
+  1/N sampler `common.tracing.kernel_family` consults. The reference
+  fences with `jax.block_until_ready` before and after the body
+  (devicecost.py:311-327). Here, on the card, a sampled dispatch
+  records a CUDA event on the stream its kernels launch on (PyTorch's
+  current stream of the tensors' device: the kernels' wrappers launch
+  there, never on the executors' copy streams) before the body and
+  another after it, waits on the second only then, and records the
+  events' elapsed milliseconds. Work already queued on the stream
+  finishes before the first event, so it is not counted; no dispatch
+  that is not sampled waits on anything. On the CPU it takes the wall
+  clock around the body. Disarmed cost is ONE attribute read + one
+  branch, and the disarmed sampler records ZERO state.
+
+  What a sample reads is the span of the dispatch scope on the
+  device's timeline, as the reference's fenced wall time is: the
+  kernels, and the host's launch path between them whenever the card
+  waits on it. It is not the kernels' own device time. While the
+  launch path inside a scope is longer than its kernels (a window step
+  on the H100: ~0.41 ms of host path, ~0.05 ms of kernels), a kernel
+  change barely moves the family's reading; per-kernel device time
+  comes from the profiler (`common.tracing.torch_profiler`).
+
+The rest of the reference module — the compiled-program inventory
+(`PROGRAMS`), `sample_device_gauges` and `query_hbm_bytes`, which are
+bound to `jax._src.compiler` and `jax.local_devices` — waits for the
+server (ROADMAP A5b).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import weakref
+from collections import deque
+from typing import NamedTuple
+
+import torch
+
+# ---- HBM arena accounting ---------------------------------------------------
+
+
+# contract: dispatches<=0 fetches<=0
+def plane_bytes(planes) -> dict[str, int]:
+    """Per-plane device bytes of a {name: tensor} mapping — `nbytes` is
+    shape metadata, so the walk costs zero launches and zero transfers
+    however large the arenas are."""
+    out: dict[str, int] = {}
+    for name, arr in dict(planes).items():
+        nb = getattr(arr, "nbytes", None)
+        if nb:
+            out[str(name)] = int(nb)
+    return out
+
+
+# ---- per-dispatch device time -----------------------------------------------
+
+
+def _device_of(values) -> torch.device | None:
+    """The device of the first tensor in a tensor, mapping or sequence
+    (nested), or None when there is none."""
+    if isinstance(values, torch.Tensor):
+        return values.device
+    if isinstance(values, dict):
+        values = list(values.values())
+    if isinstance(values, (list, tuple)):
+        for v in values:
+            dev = _device_of(v)
+            if dev is not None:
+                return dev
+    return None
+
+
+class Mark(NamedTuple):
+    """The pre-body half of a sampled dispatch: the wall clock, and on
+    the card the start event and the stream it was recorded on."""
+    t0: float
+    start: "torch.cuda.Event | None"
+    stream: "torch.cuda.Stream | None"
+
+
+class DeviceTimeSampler:
+    """Deterministic 1/N device-time sampling for kernel_family scopes.
+
+    `active` is a plain attribute (False while disarmed) — the
+    disarmed hot-path cost inside `kernel_family` is one attribute
+    read + one branch, and the disarmed sampler holds ZERO state (no
+    tick counters, no sample rings). Armed, every Nth dispatch per
+    family is measured (a CUDA event pair on the card, the wall clock
+    on the CPU); the milliseconds land in the bounded per-family rings
+    (bench attribution) and in every registered stats sink's
+    `kernel_device_ms{family}` histogram. A sample spans the dispatch
+    scope on the device's timeline (the host's launch path inside the
+    scope and the kernels), not the kernels alone: see the module's
+    docstring."""
+
+    MAX_SAMPLES = 256
+
+    def __init__(self):
+        self.active = False
+        self.rate = 0
+        self._counts: dict[str, int] = {}
+        self._samples: dict[str, deque] = {}
+        self._sinks: list = []  # weakrefs: torn-down holders must die
+        self._lock = threading.Lock()
+
+    def arm(self, rate: int) -> None:
+        with self._lock:
+            self.rate = max(1, int(rate))
+            self.active = True
+
+    def disarm(self) -> None:
+        with self._lock:
+            self.active = False
+            self.rate = 0
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts.clear()
+            self._samples.clear()
+
+    def add_sink(self, stats) -> None:
+        with self._lock:
+            if not any(ref() is stats for ref in self._sinks):
+                self._sinks.append(weakref.ref(stats))
+
+    # contract: dispatches<=0 fetches<=0
+    def tick(self, family: str) -> bool:
+        """The deterministic sampling decision: true on every Nth
+        dispatch of the family. Only ever called armed."""
+        with self._lock:
+            c = self._counts.get(family, 0) + 1
+            self._counts[family] = c
+            return self.rate > 0 and c % self.rate == 0
+
+    # contract: dispatches<=0 fetches<=0
+    def fence(self, ready) -> Mark:
+        """Mark the start of a sampled dispatch. `ready()` gives the
+        dispatch's live tensors (read now, after any earlier dispatch
+        replaced them); on the card a timing event goes onto the
+        current stream of their device, behind the work queued there."""
+        dev = _device_of(ready())
+        if dev is not None and dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            return Mark(time.perf_counter(), start, stream)
+        return Mark(time.perf_counter(), None, None)
+
+    # contract: dispatches<=0 fetches<=1
+    def measure(self, family: str, mark: Mark) -> None:
+        """Post-body half of a sampled dispatch: on the card, record the
+        end event on the same stream, wait for it and take the pair's
+        elapsed milliseconds; on the CPU, the wall clock since the
+        mark."""
+        if mark.start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(mark.stream)
+            end.synchronize()
+            ms = mark.start.elapsed_time(end)
+        else:
+            ms = (time.perf_counter() - mark.t0) * 1e3
+        self.record(family, ms)
+
+    # contract: dispatches<=0 fetches<=0
+    def record(self, family: str, ms: float) -> None:
+        with self._lock:
+            ring = self._samples.get(family)
+            if ring is None:
+                ring = deque(maxlen=self.MAX_SAMPLES)
+                self._samples[family] = ring
+            ring.append(float(ms))
+            sinks = list(self._sinks)
+        dead = []
+        for ref in sinks:
+            stats = ref()
+            if stats is None:
+                dead.append(ref)
+                continue
+            try:
+                stats.observe("kernel_device_ms", family, float(ms))
+            except Exception:  # noqa: BLE001 — metrics plumbing must
+                pass           # never fail a dispatch
+        if dead:
+            with self._lock:
+                for ref in dead:
+                    if ref in self._sinks:
+                        self._sinks.remove(ref)
+
+    def state(self) -> dict:
+        """Everything the sampler remembers — the disarmed-witness
+        gate asserts this is empty after a disarmed run."""
+        with self._lock:
+            return {"counts": dict(self._counts),
+                    "samples": {k: len(v)
+                                for k, v in self._samples.items()}}
+
+    def samples(self, family: str) -> list[float]:
+        """The family's ring of sampled milliseconds, oldest first."""
+        with self._lock:
+            return list(self._samples.get(family, ()))
+
+    def percentiles(self) -> dict[str, dict[str, float]]:
+        """family -> {count, p50, p99} over the bounded sample rings
+        (the bench's device_time_ms attribution)."""
+        out: dict[str, dict[str, float]] = {}
+        with self._lock:
+            rings = {k: sorted(v) for k, v in self._samples.items() if v}
+        for fam, xs in rings.items():
+            n = len(xs)
+            out[fam] = {
+                "count": n,
+                "p50": round(xs[n // 2], 4),
+                "p99": round(xs[min(n - 1, (n * 99) // 100)], 4),
+            }
+        return out
+
+
+DEVICE_TIME = DeviceTimeSampler()

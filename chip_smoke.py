@@ -166,7 +166,29 @@ Phases, each of which asserts (any failure exits non-zero):
    reads around an empty kernel, and a step's host time inside its scope
    beside its samples with the card idle or kept busy through the
    host's encode (step_split);
-13. a {"kernels": [...]} line (each kernel's launches on the main paths,
+13. the single-node server (bench.py:768's served path): the port's
+   serve("127.0.0.1", 0, "mem://", device_time_sample=4) on the card,
+   driven over loopback through its gRPC stub: stream `sensors`, the
+   headline view (config 1's query as CREATE VIEW, TUMBLING (10 s)
+   GRACE 0) and bench.py:768's push query (COUNT(*), SUM(temp) ... EMIT
+   CHANGES); config 1's stream as framed AppendColumnarStream blocks of
+   2^18 records (client.producer.encode_batch, 500 ms of stream a
+   block), three runs of 64 blocks, each timed from the append to both
+   queries' drained watermark (server_columnar_eps, bench.py's name), a
+   pull query of the view in the quiet after 30 blocks and pulls taken
+   while the rest of the first run is ingested (the extract-only close,
+   B3, on a main path), a profiled window of 12 blocks; every window of
+   the final pull, every pull during ingest over the whole-block prefix
+   its counts name, and every (device, window)'s last change of the push
+   query equal numpy; both executors on the card, no move to a host
+   engine, and the decode, scatter, fused close, extract-only close,
+   reset-only close and touched extract launched; kernel_device_ms p50
+   per family read from /metrics; then a server over a file:// store
+   under a temporary directory stops after 30 blocks with its task
+   detached, a second one over the same store restores the view's
+   snapshot on the card and ingests 18 more: its rows equal numpy and
+   the uninterrupted run's;
+14. a {"kernels": [...]} line (each kernel's launches on the main paths,
    its error against the plain version and its times), the card line,
    and last {"ok": true, "device": {...}}.
 
@@ -208,6 +230,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -383,17 +406,24 @@ def launch_counts() -> dict[str, int]:
     kernel's launches whose programs ran a unary (B1b')."""
     from hstream_tpu_torch.engine import expr
 
+    from hstream_tpu_torch.engine import lattice
+
     out = {name: fn.launches for name, fn in _wrappers().items()}
     out["expression_unaries"] = expr.eval_programs.unary_launches
+    # the close wrapper's extract-only launches (B3, a peek) apart from
+    # its closes (B2)
+    out["extract_close"] = lattice.close_slots.extract_launches
+    out["fused_close"] -= out["extract_close"]
     return out
 
 
 def zero_counts() -> None:
-    from hstream_tpu_torch.engine import expr
+    from hstream_tpu_torch.engine import expr, lattice
 
     for fn in _wrappers().values():
         fn.launches = 0
     expr.eval_programs.unary_launches = 0
+    lattice.close_slots.extract_launches = 0
 
 
 # ---- the two configurations -------------------------------------------------
@@ -1160,12 +1190,13 @@ def check_close(dev, results, states):
         extract_only_plain_ms=plain1, extract_only_bound_ms=b1_ms,
         extract_only_bound_by=b1_by)
     # B3, the extract-only close (a peek), in the kernels line of its own:
-    # the same wrapper's counter, launched on no main path
+    # the close wrapper's extract-only count, launched by the server's pull
+    # queries (phase 13)
     results["extract_close"] = dict(
         route="cuda",
         source="hstream_tpu_torch/engine/kernels/csrc/close.cu",
-        replaces="hstream_tpu/engine/lattice.py:642", counter="fused_close",
-        paths=(), max_abs_err=err, ms=ms1, plain_ms=plain1, bound_ms=b1_ms,
+        replaces="hstream_tpu/engine/lattice.py:642", paths=("server",),
+        max_abs_err=err, ms=ms1, plain_ms=plain1, bound_ms=b1_ms,
         bound_by=b1_by, library_ms=None, call_ms=call1, ms_source=src1)
     log(f"fused_close: {len(cases) + extra} cases (3 modes) bit-exact; "
         f"{ms:.4f} ms "
@@ -6335,6 +6366,452 @@ def traced_path(dev, results) -> dict:
                 launches=launches, sampler_floor=floor, step_split=split)
 
 
+# ---- phase 13: the single-node server (bench.py:768's served path) ----------
+
+SRV_BLOCK = 1 << 18          # bench.py:768's n
+SRV_MS = 500                 # stream ms a block: 20 blocks a 10 s window
+SRV_WIN_BLOCKS = 10_000 // SRV_MS
+SRV_BLOCKS = 64              # a run: past three window ends
+SRV_RUNS = 3
+SRV_PAUSE = 30               # the quiet pull: window 1 ten blocks in
+SRV_PROFILE = 12             # blocks of the profiled window after the runs
+SRV_RESTART_AT = 30          # the restore flow: blocks before the restart
+SRV_RESTART_BLOCKS = 48      # ... and in all
+SRV_DRAIN_S = 300.0
+SRV_VIEW = ("CREATE VIEW headline AS SELECT device, COUNT(*) AS cnt, "
+            "SUM(temp) AS total, APPROX_COUNT_DISTINCT(temp) AS uniq "
+            "FROM sensors GROUP BY device, TUMBLING (INTERVAL 10 SECOND) "
+            "GRACE BY INTERVAL 0 SECOND;")
+SRV_PUSH = ("SELECT device, COUNT(*) AS c, SUM(temp) AS s FROM sensors "
+            "GROUP BY device, TUMBLING (INTERVAL 10 SECOND) "
+            "GRACE BY INTERVAL 0 SECOND EMIT CHANGES;")
+SRV_PUSH_ID = "headline_changes"
+SRV_DEVS = np.array([f"d{k}" for k in range(N_KEYS)])
+
+
+class ServerStream:
+    """Config 1's stream as bench.py:768 sends it: framed blocks of 2^18
+    records (client.producer.encode_batch), device strings d0..d999 and
+    one-decimal temps, N_UNIQUE pre-made (keys, temps) pairs cycled,
+    SRV_MS of stream a block in order, so windows start on block
+    boundaries."""
+
+    def __init__(self, seed: int):
+        rng = np.random.default_rng(seed)
+        self.kids = [rng.integers(0, N_KEYS, SRV_BLOCK).astype(np.int32)
+                     for _ in range(N_UNIQUE)]
+        self.temps = [(np.rint(rng.normal(20.0, 5.0, SRV_BLOCK) * 10)
+                       .astype(np.float32) * np.float32(0.1))
+                      for _ in range(N_UNIQUE)]
+        self.ts_template = (np.arange(SRV_BLOCK, dtype=np.int64)
+                            * SRV_MS) // SRV_BLOCK
+        self.per = []
+        for k, t in zip(self.kids, self.temps):
+            t64 = t.astype(np.float64)
+            regs = np.zeros(N_KEYS * 1024, np.int8)
+            reg, rank = np_hll_indices(t)
+            np.maximum.at(regs, k.astype(np.int64) * 1024 + reg,
+                          rank.astype(np.int8))
+            self.per.append(dict(
+                count=np.bincount(k, minlength=N_KEYS),
+                sum=np.bincount(k, weights=t64, minlength=N_KEYS),
+                abs=np.bincount(k, weights=np.abs(t64), minlength=N_KEYS),
+                regs=regs.reshape(N_KEYS, 1024)))
+
+    def ts(self, b: int) -> np.ndarray:
+        return BASE_TS + b * SRV_MS + self.ts_template
+
+    def last_ts(self, b: int) -> int:
+        return int(BASE_TS + b * SRV_MS + self.ts_template[-1])
+
+    def frame(self, b: int) -> bytes:
+        from hstream_tpu_torch.client.producer import encode_batch
+
+        j = b % N_UNIQUE
+        return encode_batch(self.ts(b), {"device": SRV_DEVS[self.kids[j]],
+                                         "temp": self.temps[j]})
+
+    def window(self, w: int, blocks: int) -> dict:
+        """Aggregates of window w over its first `blocks` blocks."""
+        lo = w * SRV_WIN_BLOCKS
+        parts = [self.per[b % N_UNIQUE] for b in range(lo, lo + blocks)]
+        return {k: (sum(p[k] for p in parts) if k != "regs" else
+                    np.maximum.reduce([p[k] for p in parts]))
+                for k in ("count", "sum", "abs", "regs")}
+
+
+def _window_of(start: int) -> int:
+    w, rem = divmod(start - BASE_TS, 10_000)
+    assert rem == 0 and w >= 0, start
+    return w
+
+
+def check_server_window(rows, ref, dev, what: str, cnt="cnt", total="total",
+                        uniq="uniq") -> None:
+    """One window's rows (every key once) against numpy: counts and HLL
+    estimates exact, SUM within the summation-order bound."""
+    from hstream_tpu_torch.engine.sketches import hll_estimate
+
+    keys = np.array([int(r["device"][1:]) for r in rows])
+    assert len(rows) == N_KEYS == len(set(keys.tolist())), \
+        f"{what}: {len(rows)} rows"
+    n = ref["count"][keys]
+    got = np.array([r[cnt] for r in rows])
+    assert (got == n).all(), f"{what}: counts differ"
+    lim = 2 * n * U * ref["abs"][keys]
+    got_sum = np.array([r[total] for r in rows], np.float64)
+    assert (np.abs(got_sum - ref["sum"][keys]) <= lim).all(), \
+        f"{what}: SUM beyond the bound"
+    if uniq is not None:
+        regs = torch.from_numpy(ref["regs"][keys][:, None, :]).to(dev)
+        est = hll_estimate(regs, make_spec(1).hll)[:, 0].cpu().numpy()
+        got_u = np.array([r[uniq] for r in rows])
+        assert (got_u == np.rint(est)).all(), f"{what}: HLL estimate differs"
+
+
+def check_pull(rows, src, dev, blocks: int, what: str,
+               prefix: bool = False) -> dict:
+    """A pull query's rows: every window through block `blocks` (closed
+    or live) against numpy. With `prefix`, the pull was taken while the
+    stream was being ingested: each window must equal numpy over a
+    whole-block prefix of its records, which its total count names."""
+    by_win: dict[int, list] = {}
+    for r in rows:
+        by_win.setdefault(_window_of(r["winStart"]), []).append(r)
+    seen = {}
+    for w, rs in sorted(by_win.items()):
+        total = sum(r["cnt"] for r in rs)
+        have, rem = divmod(total, SRV_BLOCK)
+        assert rem == 0, f"{what}: window {w} holds {total} records"
+        full = min(SRV_WIN_BLOCKS, blocks - w * SRV_WIN_BLOCKS)
+        assert have == full or (prefix and 0 < have <= full), \
+            f"{what}: window {w} has {have} blocks, the stream {full}"
+        check_server_window(rs, src.window(w, have), dev,
+                            f"{what} window {w}")
+        seen[w] = have
+    if not prefix:
+        want = -(-blocks // SRV_WIN_BLOCKS)
+        assert sorted(seen) == list(range(want)), (what, sorted(seen))
+    return seen
+
+
+def _srv_task(ctx, qid: str):
+    """The query's task once attached to its source."""
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        task = ctx.running_queries.get(qid)
+        if task is not None and task.attached.wait(0.05):
+            return task
+    raise AssertionError(f"server: query {qid} never attached")
+
+
+def _srv_drained(tasks, ts_target: int) -> None:
+    """Every task's executor stepped up to ts_target (bench.py:768's
+    drain_to: the watermark), then the card finished."""
+    deadline = time.monotonic() + SRV_DRAIN_S
+    pause = threading.Event()
+    while time.monotonic() < deadline:
+        if all(t.executor is not None
+               and t.executor.watermark_abs >= ts_target for t in tasks):
+            torch.cuda.synchronize()
+            return
+        assert all(t.error is None for t in tasks), \
+            [t.error for t in tasks]
+        pause.wait(0.002)
+    raise AssertionError(f"server: not drained to {ts_target} in "
+                         f"{SRV_DRAIN_S} s")
+
+
+def _srv_pull(stub, pb, records) -> list:
+    resp = stub.ExecuteQuery(pb.CommandQuery(
+        stmt_text="SELECT * FROM headline;"))
+    return [records.struct_to_dict(s) for s in resp.result_set]
+
+
+def _push_finals(ctx) -> dict:
+    """(device, winStart) -> the last change the push query sank into its
+    stream, read back from the store (columnar records)."""
+    from hstream_tpu_torch.common import columnar, records
+    from hstream_tpu_torch.store.api import DataBatch
+    from hstream_tpu_torch.store.streams import StreamType
+
+    logid = ctx.streams.get_logid(SRV_PUSH_ID, StreamType.TEMP)
+    reader = ctx.store.new_reader()
+    reader.start_reading(logid)
+    reader.set_timeout(0)
+    out: dict = {}
+    while True:
+        got = reader.read(1024)
+        if not got:
+            break
+        for b in got:
+            if not isinstance(b, DataBatch):
+                continue
+            for p in b.payloads:
+                body = records.peek_columnar_payload(p)
+                if body is None:
+                    r = records.record_to_dict(records.parse_record(p))
+                    out[(r["device"], r["winStart"])] = r
+                    continue
+                for r in columnar.payload_rows(bytes(body)):
+                    out[(r["device"], r["winStart"])] = r
+    reader.stop_reading(logid)
+    return out
+
+
+def check_push(ctx, src, dev, blocks: int) -> int:
+    """Every (device, window)'s last change against numpy, once the
+    changes of the last block reached the sink stream."""
+    last_w = (blocks - 1) // SRV_WIN_BLOCKS
+    last_n = blocks - last_w * SRV_WIN_BLOCKS
+    want = last_n * SRV_BLOCK
+    deadline = time.monotonic() + SRV_DRAIN_S
+    pause = threading.Event()
+    while True:
+        finals = _push_finals(ctx)
+        got = sum(r["c"] for (d, ws), r in finals.items()
+                  if _window_of(ws) == last_w)
+        if got == want:
+            break
+        assert time.monotonic() < deadline, \
+            f"push query: {got} of {want} records in its last window"
+        pause.wait(0.05)
+    by_win: dict[int, list] = {}
+    for (_d, ws), r in finals.items():
+        by_win.setdefault(_window_of(ws), []).append(r)
+    assert sorted(by_win) == list(range(last_w + 1)), sorted(by_win)
+    for w, rs in by_win.items():
+        have = SRV_WIN_BLOCKS if w < last_w else last_n
+        check_server_window(rs, src.window(w, have), dev,
+                            f"push query window {w}", cnt="c", total="s",
+                            uniq=None)
+    return len(finals)
+
+
+def _metrics_p50(text: str, metric: str) -> dict:
+    """{label: p50} of a histogram in a Prometheus exposition, the
+    bucket-interpolated estimate StatsHolder's Histogram gives."""
+    import re
+
+    pat = re.compile(r'^hstream_%s_bucket\{(\w+)="([^"]*)",le="([^"]+)"\} '
+                     r'(\S+)$' % metric)
+    buckets: dict[str, list] = {}
+    for ln in text.splitlines():
+        m = pat.match(ln)
+        if m:
+            le = float("inf") if m.group(3) == "+Inf" else float(m.group(3))
+            buckets.setdefault(m.group(2), []).append((le, float(m.group(4))))
+    out = {}
+    for label, bs in buckets.items():
+        bs.sort()
+        total = bs[-1][1]
+        if total <= 0:
+            continue
+        rank, prev_c, prev_le = total / 2, 0.0, 0.0
+        for le, c in bs:
+            if c >= rank:
+                if le == float("inf"):
+                    out[label] = prev_le
+                else:
+                    frac = (rank - prev_c) / (c - prev_c) if c > prev_c \
+                        else 1.0
+                    out[label] = prev_le + (le - prev_le) * frac
+                break
+            prev_c, prev_le = c, le
+    return out
+
+
+def server_path(dev, results) -> dict:
+    """Phase 13: the port's gRPC server on the card, driven over loopback
+    through its stub: the headline view, a pull query of it in the quiet
+    and during ingest (B3), bench.py:768's push query; runs of framed
+    AppendColumnarStream blocks timed from the append to the drained
+    watermark; the rows against numpy; then a restart over a file://
+    store that restores the view's snapshot on the card."""
+    import urllib.request
+
+    import grpc
+
+    from hstream_tpu_torch.client.producer import ColumnarProducer
+    from hstream_tpu_torch.common import records
+    from hstream_tpu_torch.proto import api_pb2 as pb
+    from hstream_tpu_torch.proto.rpc import HStreamApiStub
+    from hstream_tpu_torch.server.main import serve
+
+    src = ServerStream(seed=13)
+    n_blocks = SRV_RUNS * SRV_BLOCKS
+    t0 = time.perf_counter()
+    frames = [src.frame(b) for b in range(n_blocks + SRV_PROFILE)]
+    encode_s = time.perf_counter() - t0
+    server, ctx = serve("127.0.0.1", 0, "mem://", device_time_sample=4,
+                        metrics_port=0)
+    opts = [("grpc.max_receive_message_length", 64 << 20),
+            ("grpc.max_send_message_length", 64 << 20)]
+    ch = grpc.insecure_channel(f"127.0.0.1:{ctx.port}", options=opts)
+    stub = HStreamApiStub(ch)
+    try:
+        assert ctx.device == dev, ctx.device
+        stub.CreateStream(pb.Stream(stream_name="sensors"))
+        stub.ExecuteQuery(pb.CommandQuery(stmt_text=SRV_VIEW))
+        stub.CreateQuery(pb.CreateQueryRequest(query_text=SRV_PUSH,
+                                               id=SRV_PUSH_ID))
+        tasks = [_srv_task(ctx, "view-headline"), _srv_task(ctx, SRV_PUSH_ID)]
+        producer = ColumnarProducer(ch, "sensors")
+        zero_counts()
+        runs, pulls = [], []
+        # run 1: SRV_PAUSE blocks, a pull in the quiet, then the rest of
+        # the run with pulls taken while it is ingested
+        t0 = time.perf_counter()
+        resp = producer.append_stream_frames(iter(frames[:SRV_PAUSE]))
+        assert resp.rows == SRV_PAUSE * SRV_BLOCK, resp.rows
+        _srv_drained(tasks, src.last_ts(SRV_PAUSE - 1))
+        first_s = time.perf_counter() - t0
+        assert all(t.executor.device == dev for t in tasks), \
+            [t.executor.device for t in tasks]
+        launches0 = launch_counts()
+        quiet = check_pull(_srv_pull(stub, pb, records), src, dev, SRV_PAUSE,
+                           "the quiet pull")
+        assert launch_counts()["extract_close"] > \
+            launches0["extract_close"], "the pull launched no B3"
+        stop = threading.Event()
+
+        def puller():
+            while not stop.is_set():
+                pulls.append(_srv_pull(stub, pb, records))
+
+        th = threading.Thread(target=puller, daemon=True)
+        t0 = time.perf_counter()
+        th.start()
+        resp = producer.append_stream_frames(iter(frames[SRV_PAUSE:
+                                                         SRV_BLOCKS]))
+        _srv_drained(tasks, src.last_ts(SRV_BLOCKS - 1))
+        wall = first_s + time.perf_counter() - t0
+        stop.set()
+        th.join(60)
+        runs.append(SRV_BLOCKS * SRV_BLOCK / wall)
+        for r in range(1, SRV_RUNS):
+            lo = r * SRV_BLOCKS
+            t0 = time.perf_counter()
+            resp = producer.append_stream_frames(iter(
+                frames[lo:lo + SRV_BLOCKS]))
+            _srv_drained(tasks, src.last_ts(lo + SRV_BLOCKS - 1))
+            runs.append(SRV_BLOCKS * SRV_BLOCK / (time.perf_counter() - t0))
+            assert resp.rows == SRV_BLOCKS * SRV_BLOCK
+        counts = launch_counts()
+        # a profiled window of SRV_PROFILE more blocks: the card's busy
+        # share while the server ingests
+        def window():
+            t0 = time.perf_counter()
+            producer.append_stream_frames(iter(frames[n_blocks:]))
+            _srv_drained(tasks, src.last_ts(n_blocks + SRV_PROFILE - 1))
+            return time.perf_counter() - t0
+
+        prof_wall, devt = profiled(window)
+        n_blocks += SRV_PROFILE
+        busy = sum(devt.values()) / 1e6 / prof_wall
+        during = [check_pull(p, src, dev, n_blocks, "a pull during ingest",
+                             prefix=True) for p in pulls]
+        final = check_pull(_srv_pull(stub, pb, records), src, dev, n_blocks,
+                           "the final pull")
+        finals = check_push(ctx, src, dev, n_blocks)
+        for t in tasks:
+            assert t.engine_total("device_fallbacks") == 0, t.info.query_id
+            assert t.executor.device == dev
+        for name in ("wire_decode", "scatter_aggregate", "fused_close",
+                     "extract_close", "reset_close", "touched_extract"):
+            assert counts[name] > 0, (name, counts)
+        assert counts["expression"] == counts["topk_fold"] == 0, counts
+        assert all(counts[k] == 0 for k in counts
+                   if k.startswith(("session", "join"))), counts
+        url = f"http://127.0.0.1:{ctx.metrics_httpd.server_port}/metrics"
+        with urllib.request.urlopen(url, timeout=30) as r:
+            text = r.read().decode()
+        device_p50 = _metrics_p50(text, "kernel_device_ms")
+        assert device_p50.get("step") and device_p50.get("close"), \
+            device_p50
+        view_rows = {(r["device"], r["winStart"]): r
+                     for r in _srv_pull(stub, pb, records)}
+    finally:
+        ch.close()
+        server.stop(grace=1)
+        ctx.shutdown()
+    restart = server_restore_path(dev, src, frames, view_rows)
+    return dict(config="server", launches=counts,
+                server_columnar_eps=float(np.median(runs)),
+                server_columnar_eps_runs=runs, encode_s=encode_s,
+                blocks=n_blocks, quiet_pull=quiet,
+                pulls_during_ingest=len(pulls),
+                pull_blocks_seen=[sorted(d.items()) for d in during[:4]],
+                final_windows=len(final), push_finals=finals,
+                kernel_device_ms_p50=device_p50,
+                profile=dict(blocks=SRV_PROFILE, wall_s=prof_wall,
+                             device_busy_share=busy),
+                restart=restart)
+
+
+def server_restore_path(dev, src, frames, uninterrupted) -> dict:
+    """A server over a file:// store under a temporary directory ingests
+    SRV_RESTART_AT blocks into the headline view and stops with its task
+    detached (a final snapshot); a second server over the same store
+    restores the view on the card and ingests the rest. Its rows equal
+    the uninterrupted run's (the first server's) and numpy."""
+    import tempfile
+
+    import grpc
+
+    from hstream_tpu_torch.client.producer import ColumnarProducer
+    from hstream_tpu_torch.common import records
+    from hstream_tpu_torch.proto import api_pb2 as pb
+    from hstream_tpu_torch.proto.rpc import HStreamApiStub
+    from hstream_tpu_torch.server.main import serve
+
+    with tempfile.TemporaryDirectory() as d:
+        uri = "file://" + d
+        out = {}
+        for step, (lo, hi) in enumerate(((0, SRV_RESTART_AT),
+                                         (SRV_RESTART_AT,
+                                          SRV_RESTART_BLOCKS))):
+            t0 = time.perf_counter()
+            server, ctx = serve("127.0.0.1", 0, uri)
+            ch = grpc.insecure_channel(f"127.0.0.1:{ctx.port}")
+            stub = HStreamApiStub(ch)
+            try:
+                if step == 0:
+                    stub.CreateStream(pb.Stream(stream_name="sensors"))
+                    stub.ExecuteQuery(pb.CommandQuery(stmt_text=SRV_VIEW))
+                task = _srv_task(ctx, "view-headline")
+                if step == 1:
+                    # resumed from the snapshot: built on the card
+                    assert task.executor is not None and \
+                        task.executor.device == dev, task.executor
+                    out["boot_s"] = time.perf_counter() - t0
+                producer = ColumnarProducer(ch, "sensors")
+                producer.append_stream_frames(iter(frames[lo:hi]))
+                _srv_drained([task], src.last_ts(hi - 1))
+                rows = _srv_pull(stub, pb, records)
+            finally:
+                ch.close()
+                server.stop(grace=1)
+                ctx.shutdown()   # detaches the task: a final snapshot
+        seen = check_pull(rows, src, dev, SRV_RESTART_BLOCKS,
+                          "the restored view")
+    same = 0
+    for r in rows:
+        w = _window_of(r["winStart"])
+        if (w + 1) * SRV_WIN_BLOCKS > SRV_RESTART_BLOCKS:
+            continue    # still open here, closed in the other run
+        u = uninterrupted[(r["device"], r["winStart"])]
+        assert (r["cnt"], r["uniq"]) == (u["cnt"], u["uniq"]), (r, u)
+        ref = src.window(w, SRV_WIN_BLOCKS)
+        k = int(r["device"][1:])
+        lim = 4 * ref["count"][k] * U * ref["abs"][k]
+        assert abs(r["total"] - u["total"]) <= lim, (r, u)
+        same += 1
+    assert same == N_KEYS * (SRV_RESTART_BLOCKS // SRV_WIN_BLOCKS), same
+    out.update(windows=sorted(seen.items()), rows_equal_uninterrupted=same)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6526,6 +7003,26 @@ def main() -> int:
         f"windows, {r['session']['check']['sessions_checked']} sessions, "
         f"{r['probe']['check']['windows']} join (key, window)s equal numpy "
         f"[{card}]")
+
+    r = server_path(dev, results)
+    paths.append(r)
+    log(f"server path (13): server_columnar_eps median "
+        f"{r['server_columnar_eps']:.0f} events/s, runs "
+        f"{[round(x) for x in r['server_columnar_eps_runs']]} ({SRV_RUNS} "
+        f"runs of {SRV_BLOCKS} framed AppendColumnarStream blocks of 2^18 "
+        f"records, from the append to the drained watermark of the view "
+        f"and the push query; frames encoded beforehand in "
+        f"{r['encode_s']:.1f} s); the quiet pull's windows "
+        f"{r['quiet_pull']}, {r['pulls_during_ingest']} pulls during ingest "
+        f"each equal numpy over a whole-block prefix (first: "
+        f"{r['pull_blocks_seen']}), {r['final_windows']} windows of the "
+        f"final pull and {r['push_finals']} push-query finals equal numpy; "
+        f"kernel_device_ms p50 from /metrics "
+        f"{json.dumps({k: round(v, 4) for k, v in r['kernel_device_ms_p50'].items()})}"
+        f"; device busy {r['profile']['device_busy_share']:.4f} over "
+        f"{SRV_PROFILE} blocks ({r['profile']['wall_s']:.3f} s); launches "
+        f"{r['launches']}; restart over file:// {json.dumps(r['restart'])}"
+        f" [{card}]")
 
     kernels = []
     for name, r in results.items():

@@ -1,7 +1,10 @@
 """Client helpers of the port.
 
-Only the retry policy (`client/retry.py`, a copy of
-hstream_tpu/client/retry.py) is here so far: the flow-control tests
-that need no server use it. The SQL shell and the framed-append
-producer come with the server (ROADMAP A5b).
+The retry policy (`client/retry.py`) and the framed-append producer
+(`client/producer.py`, `ColumnarProducer` and `encode_batch`), copies of
+the reference's, are here. The SQL shell (the rest of
+hstream_tpu/client/__init__.py and its `__main__`) waits for ROADMAP
+A5c.
 """
+
+from hstream_tpu_torch.client.producer import ColumnarProducer  # noqa: F401

@@ -26,8 +26,7 @@ and old decoders interoperate unchanged.
 """
 
 # A copy of hstream_tpu/common/columnar.py; the port imports nothing of the JAX
-# package. The sink-side encoders (ColumnarEmit.to_payload, rows_to_payload,
-# payload_rows) are ported with the server's sinks (ROADMAP A5b).
+# package.
 
 from __future__ import annotations
 
@@ -252,6 +251,23 @@ def to_rows(ts: np.ndarray, cols: dict,
     return rows
 
 
+def payload_rows(payload: bytes) -> list[dict[str, Any]] | None:
+    """Rows from a RAW record payload when it carries a columnar batch;
+    None when it is not columnar or is malformed (callers skip it, like
+    any other unrecognized RAW record). The one shared expansion for
+    every columnar-record consumer (push-query streaming, connectors,
+    gateway)."""
+    if not is_columnar(payload):
+        return None
+    try:
+        ts, cols, nulls = decode_columnar_nulls(payload)
+    except Exception:  # noqa: BLE001 — malformed payloads are skipped
+        return None
+    # drop_null: a masked cell is a field the producer never sent, so
+    # the row shape matches the per-record decode path
+    return to_rows(ts, cols, nulls, drop_null=True)
+
+
 class ColumnarEmit(Sequence):
     """A batch of emitted aggregate rows kept COLUMNAR until the wire.
 
@@ -259,7 +275,7 @@ class ColumnarEmit(Sequence):
     carries the result as named columns (numpy arrays, or object arrays
     for strings / TOPK lists) instead of N per-row dicts. Consumers that
     can stay columnar (the stream sink's columnar record, the native
-    codec) read `.cols` directly; everything else sees
+    codec) read `.cols` / `to_payload()` directly; everything else sees
     a lazy Sequence of per-row dicts identical to the legacy list shape
     (len / bool / iterate / index / extend-into-a-list all work), so the
     row materialization happens at most once, at the first row-shaped
@@ -309,6 +325,27 @@ class ColumnarEmit(Sequence):
         return (f"ColumnarEmit(n={self.n}, "
                 f"cols={list(self.cols)})")
 
+    def to_payload(self, ts_ms: int) -> bytes | None:
+        """ONE columnar wire record for the whole batch, straight from
+        the columns (no per-row dicts); None when a column is not
+        wire-encodable (TOPK lists, mixed/None values) — the caller
+        falls back to per-row records."""
+        if self.n == 0:
+            return None
+        wire: dict[str, np.ndarray] = {}
+        for name, v in self.cols.items():
+            arr = np.asarray(v) if not isinstance(v, np.ndarray) else v
+            if arr.dtype.kind == "O":
+                if not all(isinstance(x, str) for x in arr.tolist()):
+                    return None  # None / lists -> per-row records
+            elif arr.dtype.kind == "f":
+                arr = arr.astype(np.float64, copy=False)
+            elif arr.dtype.kind not in ("i", "u", "b", "U", "S"):
+                return None
+            wire[name] = arr
+        ts = np.full(self.n, int(ts_ms), np.int64)
+        return encode_columnar(ts, wire, float_kind="f64")
+
 
 def extend_rows(acc, rows):
     """Accumulate emitted row batches across pipeline stages while
@@ -324,3 +361,59 @@ def extend_rows(acc, rows):
         acc = list(acc)
     acc.extend(rows)
     return acc
+
+
+def rows_to_payload(rows: list[Mapping[str, Any]],
+                    ts_ms: int) -> bytes | None:
+    """One columnar payload for a homogeneous batch of flat scalar rows
+    (the steady-state changelog / window-close output), or None when the
+    rows are not uniformly shaped (heterogeneous keys, NULLs, list
+    values like TOPK) — the caller falls back to per-row records.
+
+    Emitting the sink batch as ONE columnar record instead of N protobuf
+    Structs keeps the server's emit stage off the per-row Python path
+    (the reference serializes one protobuf per sunk record,
+    HStore.hs:152-163). A ColumnarEmit batch encodes straight from its
+    columns — no per-row dicts at all."""
+    if isinstance(rows, ColumnarEmit):
+        return rows.to_payload(ts_ms)
+    if not rows:
+        return None
+    names = list(rows[0])
+    nlen = len(names)
+    if any(len(r) != nlen for r in rows):
+        return None
+    cols: dict[str, Any] = {}
+    try:
+        for c in names:
+            vals = [r[c] for r in rows]
+            v0 = vals[0]
+            if isinstance(v0, bool):
+                if not all(isinstance(v, bool) for v in vals):
+                    return None
+                cols[c] = np.asarray(vals, np.bool_)
+            elif isinstance(v0, int):
+                if not all(type(v) is int for v in vals):
+                    # ints mixed with floats -> f64 keeps exactness of
+                    # both (i64 would truncate, f32 would round counts)
+                    if not all(isinstance(v, (int, float))
+                               and not isinstance(v, bool) for v in vals):
+                        return None
+                    cols[c] = np.asarray(vals, np.float64)
+                else:
+                    cols[c] = np.asarray(vals, np.int64)
+            elif isinstance(v0, float):
+                if not all(isinstance(v, (int, float))
+                           and not isinstance(v, bool) for v in vals):
+                    return None
+                cols[c] = np.asarray(vals, np.float64)
+            elif isinstance(v0, str):
+                if not all(isinstance(v, str) for v in vals):
+                    return None
+                cols[c] = np.asarray(vals, object)
+            else:
+                return None  # None / lists / nested -> per-row records
+    except (KeyError, OverflowError):
+        return None
+    ts = np.full(len(rows), ts_ms, np.int64)
+    return encode_columnar(ts, cols, float_kind="f64")

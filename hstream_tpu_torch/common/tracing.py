@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import os
 import threading
 import time
@@ -48,6 +49,8 @@ import zlib
 from collections import defaultdict, deque, OrderedDict
 
 from hstream_tpu_torch.stats.devicecost import DEVICE_TIME as _DEVICE_TIME
+from hstream_tpu_torch.stats.devicecost import PROGRAMS as _PROGRAMS
+from hstream_tpu_torch.stats.devicecost import shape_key as _shape_key
 
 
 class QueryTracer:
@@ -429,6 +432,25 @@ def note_compile() -> None:
             for ent in dead:
                 if ent in _stats_sinks:
                     _stats_sinks.remove(ent)
+
+
+def compile_site(name: str):
+    """Decorator of a program factory (under its lru_cache): each call
+    that reaches it — a cache miss — counts one compile (note_compile)
+    and lands one row in the compiled-program inventory
+    (stats.devicecost.PROGRAMS) under `name`, keyed by the arguments,
+    with the body's host milliseconds."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            note_compile()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _PROGRAMS.record(name, _shape_key(args, kwargs),
+                             (time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+    return deco
 
 
 def install_recompile_counter(stats, stream: str = "_process") -> None:

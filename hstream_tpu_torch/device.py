@@ -28,3 +28,33 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def handoff(tensors) -> "torch.cuda.Event | None":
+    """Mark the end of this thread's work on `tensors` for a consumer on
+    another thread: an event recorded on the current stream of their
+    card (None when none of them is on a card). The consumer passes it
+    to `receive` before it reads them."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            mark = torch.cuda.Event()
+            mark.record(torch.cuda.current_stream(t.device))
+            return mark
+    return None
+
+
+def receive(mark, tensors) -> None:
+    """The consumer's side of `handoff`: its current stream waits on the
+    producer's event, and the caching allocator learns that the tensors
+    are used on that stream (so it does not hand their memory out while
+    the consumer's reads are queued)."""
+    if mark is None:
+        return
+    waiting = set()
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            cur = torch.cuda.current_stream(t.device)
+            if cur not in waiting:
+                cur.wait_event(mark)
+                waiting.add(cur)
+            t.record_stream(cur)

@@ -1011,20 +1011,25 @@ class QueryExecutor:
         batch = self._pending_changes
         self._pending_changes = [keep]
         if self.async_change_drain:
+            # the extracts were made on this thread's stream; the drain
+            # thread's fetch waits on their event (device.handoff)
+            mark = devmod.handoff([buf for _, buf in batch])
             self._drain_futs.append(
-                _change_drain_pool().submit(self._drain_job, batch))
+                _change_drain_pool().submit(self._drain_job, batch, mark))
             out = extend_rows(out, self._collect_drained(block=False))
         else:
             out = extend_rows(out, self._decode_pending(batch))
         return out if out is not None else []
 
-    def _drain_job(self, batch: list) -> "ColumnarEmit | list":
+    def _drain_job(self, batch: list, mark=None) -> "ColumnarEmit | list":
         """One async drain unit (drain-pool thread). Reads only
         append-only or immutable executor state: _key_rev only grows,
         spec.aggs never changes, and no kernel writes the packed
-        extracts after they were made."""
+        extracts after they were made. `mark` is the producer's event
+        (device.handoff), waited on before the fetch."""
         t0 = time.perf_counter()
         try:
+            devmod.receive(mark, [buf for _, buf in batch])
             return self._decode_pending(batch)
         finally:
             with self._stats_lock:

@@ -34,7 +34,7 @@ from typing import Any, Callable, Mapping, NamedTuple, Sequence
 import torch
 
 from hstream_tpu_torch.common.errors import SQLCodegenError
-from hstream_tpu_torch.common.tracing import note_compile
+from hstream_tpu_torch.common.tracing import compile_site
 from hstream_tpu_torch.engine.kernels import binding as kb
 from hstream_tpu_torch.engine.types import ColumnType, Schema, StringDictionary
 
@@ -509,6 +509,7 @@ class Lowered(NamedTuple):
 
 
 @functools.lru_cache(maxsize=512)
+@compile_site("expr.lower")
 def lower(prog: DeviceProgram) -> Lowered:
     """The postfix program in the register form the kernel runs. A leaf
     (a column or a literal, with at most one conversion) is an operand
@@ -520,8 +521,8 @@ def lower(prog: DeviceProgram) -> Lowered:
     bit. The tree is kept as indices into the postfix ops (children
     before parents), so a program of any size lowers in time linear in
     its ops and its depth. A miss counts as one compile
-    (common/tracing.RetraceGuard)."""
-    note_compile()
+    (common/tracing.RetraceGuard) and one row of the compiled-program
+    inventory."""
     kids: list[tuple[int, ...]] = []
     stack: list[int] = []
     for i, (code, _arg) in enumerate(prog.ops):
@@ -760,6 +761,7 @@ def split_program(prog: DeviceProgram, name: str | None, first_temp: int = 0
 
 
 @functools.lru_cache(maxsize=64)
+@compile_site("expr.launch_plan")
 def launch_plan(progs: tuple[tuple[DeviceProgram, str | None], ...]
                 ) -> LaunchPlan:
     """The kernel's argument blocks for a program set, built once: the
@@ -770,8 +772,8 @@ def launch_plan(progs: tuple[tuple[DeviceProgram, str | None], ...]
     columns numbered in one table. The programs are independent (WHERE
     programs AND into `valid`), so their order across blocks changes no
     bit. A launch copies a block and fills in n and the pointers. A miss
-    counts as one compile (common/tracing.RetraceGuard)."""
-    note_compile()
+    counts as one compile (common/tracing.RetraceGuard) and one row of
+    the compiled-program inventory."""
     pieces: list[tuple[DeviceProgram, str | None]] = []
     for prog, name in progs:
         if name is None and prog.dtype != "bool":

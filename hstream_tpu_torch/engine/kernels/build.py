@@ -23,6 +23,7 @@ import time
 from typing import NamedTuple
 
 from hstream_tpu_torch.common.tracing import note_compile
+from hstream_tpu_torch.stats.devicecost import PROGRAMS
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
@@ -77,41 +78,55 @@ def _digest() -> str:
 def build() -> Built:
     """Compile and link the kernels if needed. The process's first call
     counts as one compile (common/tracing.RetraceGuard), whether it
-    builds or finds the library built; later calls count nothing."""
+    builds or finds the library built, and lands one row in the
+    compiled-program inventory (stats.devicecost.PROGRAMS, keyed by the
+    sources' digest); later calls count nothing."""
     global _noted
     with _lock:
-        if not _noted:
+        first = not _noted
+        if first:
             _noted = True
             note_compile()
-        lib = os.path.join(BUILD_DIR, f"libhs_kernels_{_digest()}.so")
-        if os.path.exists(lib):
-            return Built(lib, 0.0, "")
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        nvcc = nvcc_path()
         t0 = time.perf_counter()
-        objs, procs = [], []
-        for src in SOURCES:
-            obj = os.path.join(BUILD_DIR, src + ".o")
-            objs.append(obj)
-            procs.append(subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, src),
-                 "-o", obj],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs, failed = [], []
-        for src, proc in zip(SOURCES, procs):
-            out, _ = proc.communicate()
-            logs.append(f"== {src}\n{out}")
-            if proc.returncode != 0:
-                failed.append(src)
-        if failed:  # the failed sources' output, each cut to its end
-            raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n"
-                               + "\n".join(log[-4000:] for src, log
-                                           in zip(SOURCES, logs)
-                                           if src in failed))
-        tmp = lib + ".tmp"
-        link = subprocess.run([nvcc, "-shared", *objs, "-o", tmp],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stderr[-4000:]}")
-        os.replace(tmp, lib)
-        return Built(lib, time.perf_counter() - t0, "\n".join(logs))
+        digest = _digest()
+        built = _build_locked(digest)
+        if first:
+            PROGRAMS.record("kernels.build", f"hs_kernels:{digest}",
+                            (time.perf_counter() - t0) * 1e3)
+        return built
+
+
+def _build_locked(digest: str) -> Built:
+    """The library of this digest: found, or compiled and linked."""
+    lib = os.path.join(BUILD_DIR, f"libhs_kernels_{digest}.so")
+    if os.path.exists(lib):
+        return Built(lib, 0.0, "")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = os.path.join(BUILD_DIR, src + ".o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, src),
+             "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {src}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src)
+    if failed:  # the failed sources' output, each cut to its end
+        raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n"
+                           + "\n".join(log[-4000:] for src, log
+                                       in zip(SOURCES, logs)
+                                       if src in failed))
+    tmp = lib + ".tmp"
+    link = subprocess.run([nvcc, "-shared", *objs, "-o", tmp],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return Built(lib, time.perf_counter() - t0, "\n".join(logs))

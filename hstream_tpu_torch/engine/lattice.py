@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from hstream_tpu_torch.common.errors import SQLCodegenError
-from hstream_tpu_torch.common.tracing import note_compile
+from hstream_tpu_torch.common.tracing import compile_site
 from hstream_tpu_torch.engine import transport
 from hstream_tpu_torch.engine.expr import (
     Col,
@@ -1151,10 +1151,13 @@ def close_slots(spec: LatticeSpec, state: dict[str, torch.Tensor],
         return packed
     out = _close_cuda(spec, state, slots, mode)
     close_slots.launches += 1
+    if mode == CLOSE_EXTRACT:
+        close_slots.extract_launches += 1
     return out
 
 
 close_slots.launches = 0  # wrapper calls that launched the kernel
+close_slots.extract_launches = 0  # of those, extract-only ones (peek, B3)
 
 
 def reset_slots(spec: LatticeSpec, state: dict[str, torch.Tensor],
@@ -1462,14 +1465,15 @@ class CompiledLattice(NamedTuple):
 
 
 @functools.lru_cache(maxsize=512)
+@compile_site("lattice.compiled")
 def compiled(spec: LatticeSpec, schema, filter_expr: Expr | None,
              max_out: int, layout: ColLayout) -> CompiledLattice:
     """Shared, cached compilation of a query's lattice programs for a
     (spec, schema, filter, layout): executors of the same shape share
     one bundle (compiled, lattice.py:768-803 in the reference). String
     literals must be pre-encoded (expr.encode_strings). A miss counts
-    as one compile (common/tracing.RetraceGuard)."""
-    note_compile()
+    as one compile (common/tracing.RetraceGuard) and one row of the
+    compiled-program inventory."""
     _agg_inputs, null_keys = compile_agg_inputs(spec, schema)
     progs = step_programs(spec, schema, filter_expr)
 

@@ -1,12 +1,30 @@
-"""The device cost plane, in part: plane bytes and per-dispatch device
-time.
+"""The device cost plane.
 
-A copy, in part, of hstream_tpu/stats/devicecost.py; the port imports
-nothing of the JAX package. Two of its pieces are here:
+A copy of hstream_tpu/stats/devicecost.py; the port imports nothing of
+the JAX package. Its three pieces:
 
 * **HBM arena accounting** — `plane_bytes` folds a {name: tensor}
   mapping into per-plane bytes (`nbytes` is shape metadata: no launch,
-  no copy), which the executors' `device_plane_bytes()` return.
+  no copy), which the executors' `device_plane_bytes()` return;
+  `sample_device_gauges` folds them per query and per plane into the
+  `device_hbm_bytes` / `device_arena_bytes` gauges at scrape time, plus
+  a process total cross-checked against the caching allocator's own
+  count (`torch.cuda.memory_allocated`, where the reference reads the
+  backend's `memory_stats()`). On the CPU the backend gauge is absent,
+  as the reference's is on a backend without memory stats.
+
+* **Compiled-program inventory** — `PROGRAMS` keeps one row per
+  distinct program the port compiles. The reference wraps jax's compile
+  funnel; the port's compiles are its own and all report through
+  `common.tracing.note_compile`: the kernel library's build or load
+  (`engine/kernels/build.py`, once a process) and a miss of the program
+  factories `lattice.compiled`, `expr.lower` and `expr.launch_plan`.
+  A row keeps the reference's fields: the kernel family (the
+  dispatching thread's `kernel_family` scope — factories run
+  synchronously inside the triggering call), the shape key (crc32 of
+  the factory's arguments, which carry every shape), the factory's
+  name, compile count and milliseconds. `flops` and `bytes_accessed`
+  stay None: nothing here has XLA's cost analysis.
 
 * **Per-dispatch device time** — `DEVICE_TIME` is the deterministic
   1/N sampler `common.tracing.kernel_family` consults. The reference
@@ -30,11 +48,6 @@ nothing of the JAX package. Two of its pieces are here:
   on the H100: ~0.41 ms of host path, ~0.05 ms of kernels), a kernel
   change barely moves the family's reading; per-kernel device time
   comes from the profiler (`common.tracing.torch_profiler`).
-
-The rest of the reference module — the compiled-program inventory
-(`PROGRAMS`), `sample_device_gauges` and `query_hbm_bytes`, which are
-bound to `jax._src.compiler` and `jax.local_devices` — waits for the
-server (ROADMAP A5b).
 """
 
 from __future__ import annotations
@@ -42,7 +55,8 @@ from __future__ import annotations
 import threading
 import time
 import weakref
-from collections import deque
+import zlib
+from collections import OrderedDict, deque
 from typing import NamedTuple
 
 import torch
@@ -61,6 +75,159 @@ def plane_bytes(planes) -> dict[str, int]:
         if nb:
             out[str(name)] = int(nb)
     return out
+
+
+def backend_hbm_bytes(device=None) -> int | None:
+    """Bytes the caching allocator holds in tensors on the card
+    (`torch.cuda.memory_allocated`), or None where there is none to
+    read: a CPU device, a process with no card, or one that has not
+    touched the card yet (a scrape never starts a CUDA context). The
+    cross-check axis for the per-plane fold: the two agree up to the
+    tensors outside the arenas (staging buffers, kernel scratch)."""
+    try:
+        if device is not None and torch.device(device).type != "cuda":
+            return None
+        if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+            return None
+        return int(torch.cuda.memory_allocated(device)) or None
+    except Exception:  # noqa: BLE001 — accounting must never throw
+        return None
+
+
+def sample_device_gauges(ctx) -> None:
+    """Scrape-time fold of every live query's arena bytes into the
+    device gauges (called from prometheus.sample_gauges under the
+    scrape lock). Cost is O(live planes) attribute reads — zero device
+    work — and stale per-query series are swept like every other
+    query-labeled gauge."""
+    stats = ctx.stats
+    tasks = dict(getattr(ctx, "running_queries", {}))
+    live: set[tuple[str, str]] = set()
+    total = 0
+    for qid, task in tasks.items():
+        fn = getattr(task, "device_plane_bytes", None)
+        if fn is None:
+            continue
+        try:
+            planes = fn()
+        except Exception:  # noqa: BLE001 — a task tearing down mid-
+            continue       # scrape must not fail the scrape
+        q_total = 0
+        for plane, nb in sorted(planes.items()):
+            key = f"{qid}/{plane}"
+            stats.gauge_set("device_arena_bytes", key, nb)
+            live.add(("device_arena_bytes", key))
+            q_total += nb
+        stats.gauge_set("device_hbm_bytes", qid, q_total)
+        live.add(("device_hbm_bytes", qid))
+        total += q_total
+    from hstream_tpu_torch.stats.prometheus import _drop_stale
+
+    _drop_stale(stats, ("device_arena_bytes", "device_hbm_bytes"), live)
+    stats.gauge_set("device_hbm_total_bytes", "", total)
+    backend = backend_hbm_bytes(getattr(ctx, "device", None))
+    if backend is not None:
+        stats.gauge_set("device_hbm_backend_bytes", "", backend)
+
+
+def query_hbm_bytes(ctx, qid: str) -> dict:
+    """{total, planes} for one query — the flight recorder's HBM page
+    and the admin surface's per-query answer."""
+    task = dict(getattr(ctx, "running_queries", {})).get(qid)
+    fn = getattr(task, "device_plane_bytes", None) if task else None
+    if fn is None:
+        return {"total": 0, "planes": {}}
+    try:
+        planes = {k: int(v) for k, v in sorted(fn().items())}
+    except Exception:  # noqa: BLE001
+        return {"total": 0, "planes": {}}
+    return {"total": sum(planes.values()), "planes": planes}
+
+
+# ---- compiled-program inventory ---------------------------------------------
+
+
+def shape_key(*parts) -> str:
+    """crc32 of a compile's arguments (their repr carries every shape,
+    dtype and literal): two compiles of equal arguments share a key."""
+    return f"{zlib.crc32(repr(parts).encode()):08x}"
+
+
+class ProgramInventory:
+    """Process-wide catalog of every program the port compiled, keyed
+    by shape key — two compiles of the same arguments share one row; a
+    new shape is a new row. Bounded LRU: past MAX_ROWS the oldest row
+    folds into the `evicted` count rather than growing without bound.
+
+    Rows are kept once `install()` ran (the server's context calls it),
+    as the reference keeps them once its compile-funnel wrapper is in
+    place. The port has no funnel to wrap: `common.tracing.note_compile`
+    reports every compile to `record`, so `install` cannot fail."""
+
+    MAX_ROWS = 512
+
+    def __init__(self):
+        self._rows: "OrderedDict[str, dict]" = OrderedDict()
+        self._lock = threading.Lock()
+        self._installed = False
+        self.evicted = 0
+
+    def install(self) -> bool:
+        """Start keeping rows (idempotent). Always True."""
+        with self._lock:
+            self._installed = True
+            return True
+
+    def record(self, name: str, key: str, compile_ms: float) -> None:
+        """One compile of program `name` with shape key `key`, which
+        took `compile_ms` on the host (the factory's body; the kernel
+        library's nvcc build or load)."""
+        if not self._installed:
+            return
+        from hstream_tpu_torch.common.tracing import current_kernel_family
+
+        family = current_kernel_family()
+        now_ms = time.time() * 1e3
+        with self._lock:
+            row = self._rows.get(key)
+            if row is None:
+                while len(self._rows) >= self.MAX_ROWS:
+                    self._rows.popitem(last=False)
+                    self.evicted += 1
+                row = {"shape_key": key, "name": name or "?",
+                       "family": family or "", "compiles": 0,
+                       "compile_ms": 0.0, "flops": None,
+                       "bytes_accessed": None,
+                       "first_unix_ms": round(now_ms, 1)}
+                self._rows[key] = row
+            else:
+                self._rows.move_to_end(key)
+            row["compiles"] += 1
+            row["compile_ms"] = round(row["compile_ms"] + compile_ms, 3)
+            if family:
+                row["family"] = family
+            row["last_unix_ms"] = round(now_ms, 1)
+
+    def rows(self) -> list[dict]:
+        """Newest-compiled last (the LRU order), each row a plain
+        JSON-ready dict."""
+        with self._lock:
+            return [dict(r) for r in self._rows.values()]
+
+    def summary(self) -> dict:
+        with self._lock:
+            rows = list(self._rows.values())
+            return {
+                "programs": len(rows),
+                "evicted": self.evicted,
+                "installed": self._installed,
+                "total_compile_ms": round(
+                    sum(r["compile_ms"] for r in rows), 3),
+                "total_compiles": sum(r["compiles"] for r in rows),
+            }
+
+
+PROGRAMS = ProgramInventory()
 
 
 # ---- per-dispatch device time -----------------------------------------------

@@ -632,9 +632,9 @@ def _bump_boot_epoch(pkg, config) -> int:
 
 def test_boot_epoch_increments_across_boots_of_either_package(tmp_path):
     """The server case (one boot epoch per boot of a store directory)
-    without the server, which is not ported yet (ROADMAP A5b): the
-    server's CAS over the versioned config store, the store reopened by
-    each package in turn."""
+    without booting a server: the CAS each server context runs at boot
+    over the versioned config store, the store reopened by each package
+    in turn."""
     root = str(tmp_path / "st")
     for expected, pkg in zip((1, 2, 3, 4), (REF, PORT, REF, PORT)):
         store = pkg.native.NativeLogStore(root)

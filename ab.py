@@ -2,7 +2,7 @@
 another checkout (the parent commit's, or any tree with chip_smoke.py),
 on one CUDA card, in one call.
 
-    python3 ab.py scatter|join|decode|expr|close|remap|unpack OTHER_TREE
+    python3 ab.py scatter|join|decode|expr|close|remap|unpack|session OTHER_TREE
 
 runs OTHER_TREE, this tree, this tree, OTHER_TREE, each in a process of
 its own that builds its tree's kernels and times the group on the same
@@ -20,7 +20,7 @@ join: the changelog extract (B6) and the join's probe and merge-insert
     lattice after one headline batch (1024 keys x 3 slots, all touched);
   * "touched join": the join's inner lattice (K = 2^19, W = 3, COUNT(*)),
     390,000 of its 1,572,864 cells touched, max_out K * W;
-  * "probe feed": the probe in feed mode (join_lattice._feed_cuda) of a
+  * "probe feed": the probe in feed mode (join_lattice.feed_cuda) of a
     2^20-record batch over 512,000 keys against a 4,194,304-slot store
     holding 2,097,152 entries, WITHIN 1 s, match_cap 4,194,304 (in a tree
     whose probe takes a `branch`, also with each branch forced);
@@ -126,6 +126,20 @@ unpack: the packed batch's unpack (B10) and its sharded block form
     1's 2^19-record block of that batch with two key shards' columns, in
     a tree that has it (else None);
   * "ptxas": unpack.cu's registers, frames and spills.
+
+session: the session step (B11) and merge (B12) at config 4's shapes,
+timed as the remap group's are (device ms over 10 calls, ", call" and
+" by kernel"):
+  * "B11 session step": session_lattice.session_step of a 2^20-record
+    batch (codes over 100,000 users, a second of times, |normal(50, 20)|
+    latencies) into config 4's arena (p50 and p99 on one 512-bin
+    histogram) of 2^17 slots, 40 % of them live (chip_smoke.random_arena
+    with the rest made sentinels);
+  * "B12 session merge": session_lattice.session_merge of 181,072
+    segments (chip_smoke.session_seg: phase 7's segment count) into that
+    arena;
+  * "ptxas": session_step.cu's and session_merge.cu's registers, frames
+    and spills.
 """
 
 from __future__ import annotations
@@ -287,12 +301,16 @@ def _join() -> dict:
     mine = {k: torch.from_numpy(v).to(dev) for k, v in mine.items()}
     batch = torch.from_numpy(batch).to(dev)
     feed = ((), (), ())
+    # the launch helpers' names: feed_cuda / insert_cuda, or the older
+    # _feed_cuda / _insert_cuda of a tree before the sharded join
+    feed_cuda = getattr(jl, "feed_cuda", None) or jl._feed_cuda
+    insert_cuda = getattr(jl, "insert_cuda", None) or jl._insert_cuda
     kw = ({"branch": None}
-          if "branch" in inspect.signature(jl._feed_cuda).parameters
+          if "branch" in inspect.signature(feed_cuda).parameters
           else {})
     def probe():
-        jl._feed_cuda(other, batch, BATCH, WITHIN, -(1 << 31), CAP, 0, 0,
-                      feed, **kw)
+        feed_cuda(other, batch, BATCH, WITHIN, -(1 << 31), CAP, 0, 0,
+                  feed, **kw)
 
     ms("probe feed", probe)
     by_kernel("probe feed", probe)
@@ -302,7 +320,7 @@ def _join() -> dict:
             ms(f"probe feed, {bname}", probe)
         kw["branch"] = None
     dst = jl.empty_join_store(CAP, 0, dev)
-    ms("insert", lambda: jl._insert_cuda(mine, batch, BATCH, 0, dst))
+    ms("insert", lambda: insert_cuda(mine, batch, BATCH, 0, dst))
     ist["touched"].zero_()
 
     def fused():   # COUNT(*): no programs
@@ -314,8 +332,8 @@ def _join() -> dict:
     stages = cs.profiled_calls(fused, 5, "the fused join")
     out["fused call by stage"] = (None if stages is None
                                   else cs._by_stage(stages, 5))
-    total = jl._feed_cuda(other, batch, BATCH, WITHIN, -(1 << 31), CAP, 0,
-                          0, feed, **kw)[0]
+    total = feed_cuda(other, batch, BATCH, WITHIN, -(1 << 31), CAP, 0,
+                      0, feed, **kw)[0]
     out["matches"] = int(total)
 
     # phase 8b's shapes: a 2^16-record batch over 32,000 keys, a 2^19-
@@ -669,6 +687,48 @@ def _unpack() -> dict:
     return out
 
 
+def _session() -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.engine.kernels import build as kbuild
+
+    built = kbuild.build()
+    dev = torch.device("cuda", 0)
+    out = {"ptxas": _ptxas(built.log, ("session_step.cu",
+                                       "session_merge.cu"))}
+
+    def ms(name, fn):
+        dev_ms, call_ms, _src = cs.kernel_ms(fn, 10)
+        out[name], out[name + ", call"] = dev_ms, call_ms
+        d = cs.profiled_calls(fn, 3, name)
+        out[name + " by kernel"] = (None if d is None else {
+            k: v / 3e3 for k, v in d.items()})
+
+    node, _schema = cs.session_plan()
+    spec = sl.SessionSpec(aggs=tuple(node.aggs))
+    layout = (("lat", "f32"),)
+    rng = np.random.default_rng(23)
+    arena = cs.random_arena(spec, SESS_CAP, dev, 24)
+    dead = torch.from_numpy(rng.random(SESS_CAP) < 0.6).to(dev)
+    arena["code"][dead] = sl.SESSION_SENT_CODE
+    n = BATCH
+    packed = torch.from_numpy(sl.pack_batch_host(
+        n, n, rng.integers(0, 100_000, n).astype(np.int32),
+        rng.integers(0, 1000, n), None,
+        {"lat": np.abs(rng.normal(50, 20, n)).astype(np.float32)},
+        [None, None], layout)).to(dev)
+    inputs = sl.session_inputs(spec, layout, packed)
+    spare = sl.init_session_arena(spec, SESS_CAP, dev)
+    ms("B11 session step", lambda: sl.session_step(
+        spec, arena, spare, packed, inputs, 5000, -(1 << 30), 0))
+    seg = cs.session_seg(dev, spec, 25, 181_072, 100_000, 0)
+    ms("B12 session merge", lambda: sl.session_merge(
+        spec, arena, spare, seg, 5000, -(1 << 30), 0))
+    return out
+
+
 def _ptxas(log: str, sources) -> dict:
     """{source: [ptxas lines]}: each kernel's function properties
     (stack frame, spills) and registers, from nvcc's -Xptxas -v output
@@ -688,7 +748,7 @@ def _ptxas(log: str, sources) -> dict:
 
 GROUPS = {"scatter": _scatter, "join": _join, "decode": _decode,
           "expr": _expr, "close": _close, "remap": _remap,
-          "unpack": _unpack}
+          "unpack": _unpack, "session": _session}
 
 
 def main() -> int:

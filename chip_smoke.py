@@ -107,7 +107,7 @@ Phases, each of which asserts (any failure exits non-zero):
 8. the join path, BASELINE config 5 (bench.py:453-567): SELECT l.k,
    COUNT(*) FROM l INNER JOIN r WITHIN (1 s) ON l.k = r.k GROUP BY l.k,
    TUMBLING (10 s) EMIT CHANGES through JoinExecutor.process_columnar
-   with bench.py's knobs, 14 warm-up and 20 timed batches of 2^20
+   with bench.py's knobs, 14 warm-up and 12 timed batches of 2^20
    records over 512,000 keys (sides alternating, 500 ms of stream each);
    every final change per (key, window) against a numpy count of the
    pairs, the launch contract (one fused probe wrapper call per device
@@ -193,7 +193,7 @@ Phases, each of which asserts (any failure exits non-zero):
    the merged close (modes 0, 1 and 2 and per slot), the merged
    changelog extract and the snapshot merge against their plain
    versions, exact; 14a configs 1 and 2 through ShardedQueryExecutor,
-   32 batches of 2^20 records (2^19 a data shard, 1 s of stream each)
+   24 batches of 2^20 records (2^19 a data shard, 1 s of stream each)
    and a closer: every closed row equals numpy and the single-card
    QueryExecutor's, one merged close launch and one fetch a cycle;
    14b bench.py:768's push query on the mesh, every (key, window)'s last
@@ -203,7 +203,28 @@ Phases, each of which asserts (any failure exits non-zero):
    the mesh restored onto one card and that one's restored onto a mesh,
    both equal numpy. events/s of four shards on one card are printed as
    a diagnostic;
-15. a {"kernels": [...]} line (each kernel's launches on the main paths,
+15. the key-sharded session arena and join stores on the one card
+   (B19c, B19b): in phase 3, the sharded session step and merge with
+   the ownership test (every aggregate kind), the extract over four slot
+   lists, the remap through one residue-preserving table, the sharded
+   probe + insert, probe-only, fused step into a (2, 2) inner lattice,
+   the routing kernel and the eviction against their plain versions;
+   15a config 4 at phase 7's widths (phase 7's stream, 100,000 user
+   slots, 2^20 records a batch) through SessionExecutor on
+   make_mesh(1, 4), 16 record batches (the key-cache bound lowered, so
+   residue-preserving compactions run) and 12 segment batches, every
+   closed session equal numpy and phase 7's single-card rows; 15b config
+   5 at phase 8's widths on make_mesh(2, 2), 12 batches (10 past
+   activation, fused, with evictions), every final change equal numpy
+   and phase 8's single-card finals after as many batches; 15c phase
+   8b's query and size on the mesh, one overflow provoked so the
+   probe-only redispatch runs, every final change equal numpy; 15d
+   serve(mesh_shape="2x2") serving a session view over 16 framed
+   blocks, its closed sessions equal numpy, then its snapshot restored
+   onto one card and back onto a mesh, each resuming equal to numpy.
+   Each new kernel is then held against its plain version at its
+   path's shapes and timed; events/s are printed as a diagnostic;
+16. a {"kernels": [...]} line (each kernel's launches on the main paths,
    its error against the plain version and its times), the card line,
    and last {"ok": true, "device": {...}}.
 
@@ -420,7 +441,16 @@ def _wrappers() -> dict:
             "merged_close": pl.close_merged,
             "merged_close_slot": pl.close_slot_merged,
             "merged_touched": pl.touched_merged,
-            "shard_merge": pl.merge_partials}
+            "shard_merge": pl.merge_partials,
+            "sharded_session_step": pl.sharded_session_step,
+            "sharded_session_merge": pl.sharded_session_merge,
+            "sharded_session_extract": pl.sharded_session_extract,
+            "sharded_session_remap": pl.sharded_session_remap,
+            "sharded_join_probe_insert": pl.sharded_join_probe_insert,
+            "sharded_join_probe_only": pl.sharded_join_probe_only,
+            "sharded_join_probe_step": pl.sharded_join_probe_insert_step,
+            "sharded_join_evict": pl.sharded_join_evict,
+            "join_route": pl.join_route}
 
 
 def launch_counts() -> dict[str, int]:
@@ -3667,6 +3697,8 @@ def _clone(x):
         return {k: _clone(v) for k, v in x.items()}
     if isinstance(x, tuple):
         return tuple(_clone(v) for v in x)
+    if isinstance(x, list):    # key shards' arenas or stores, ShardedState
+        return type(x)(_clone(v) for v in x)
     return x
 
 
@@ -3802,6 +3834,7 @@ def session_path(dev, results) -> dict:
     for k in ("wire_decode", "scatter_aggregate", "fused_close"):
         assert counts[k] == 0, counts
     check = check_session_rows(rows, ref, qcfg)
+    SINGLE_CARD["session"] = session_tuples(rows)   # phase 15a's reference
     arena_bytes = sum(ex.device_plane_bytes().values())
     stages = dict(ex.stage_stats)
     # the same stream's first 12 batches in segment mode
@@ -4398,7 +4431,7 @@ JOIN_FETCH_SQL = ("SELECT l.k, COUNT(*) AS c, SUM(l.x) AS s FROM l INNER "
 JOIN_BATCH = 1 << 20
 JOIN_KEYS = 512_000          # bench.py's 8192 records / 4000 keys, scaled
 JOIN_WARM = 14               # bench.py's warm-up and timed batches
-JOIN_TIMED = 20
+JOIN_TIMED = 12               # bench.py times 20; cut for the time limit
 JOIN_PROFILE = 8
 JOIN_FRESH = 4
 JOIN_MS_PER_BATCH = 500
@@ -4626,7 +4659,8 @@ def _join_executor(plan, batch: int, dev):
 _JOIN_EVENTS = {"probe_window_kernel": "probe",
                 "probe_bounds_kernel": "probe",
                 "probe_expand_kernel": "probe", "split_kernel": "insert",
-                "merge_kernel": "insert",
+                "merge_kernel": "insert", "own_count_kernel": "insert",
+                "own_compact_kernel": "insert", "route_kernel": "route",
                 "count_kernel": "evict", "scan_tiles_kernel": "evict",
                 "move_kernel": "evict",
                 "scatter_private": "scatter", "scatter_cluster": "scatter",
@@ -4645,7 +4679,7 @@ def _by_stage(devt: dict, batches: int) -> dict:
 
 
 def join_path(dev, results, captured) -> dict:
-    """BASELINE config 5 at full width: 14 warm-up and 20 timed batches of
+    """BASELINE config 5 at full width: 14 warm-up and 12 timed batches of
     2^20 records over 512,000 keys (bench.py's knobs), every final change
     per (key, window) against numpy; then freshness samples and a
     profiled window of 8 batches. events/s and change rows/s take the
@@ -4668,6 +4702,11 @@ def join_path(dev, results, captured) -> dict:
                 host_batches_s.append(time.perf_counter() - t0)
             if b == 1:
                 ex.coalesce_rows = 1 << 15
+            if b == P15_JOIN_BATCHES - 1:
+                # the finals after phase 15b's batches, its single-card
+                # reference (a flush: the warm-up's cadence only)
+                log_.add(ex.flush_changes())
+                SINGLE_CARD["join"] = log_.final()
         log_.add(ex.flush_changes())
         torch.cuda.synchronize()
         assert ex._dev is not None, "the device path did not activate"
@@ -6839,7 +6878,7 @@ def server_restore_path(dev, src, frames, uninterrupted) -> dict:
 # ---- phase 14: the sharded window lattice, four shards on one card ----------
 
 SH_MESH = (2, 2)             # (data, key): every shard on the one card
-SH_BATCHES = 32              # 2^20-record batches, 2^19 a data shard
+SH_BATCHES = 24              # 2^20-record batches, 2^19 a data shard
 SH_MS = 1000                 # stream ms a batch: 10 s windows close
 SH_PUSH_BATCHES = 16
 SH_SRV_BLOCKS = 16           # phase 13's framed blocks of 2^18 records
@@ -7371,6 +7410,1102 @@ def sharded_server_path(dev) -> dict:
                 snapshot_bytes=len(blob))
 
 
+# ---- phase 15: the key-sharded session arena and join stores ----------------
+
+P15_SHARDS = 4               # 15a: make_mesh(1, 4), four key shards
+P15_JOIN_MESH = (2, 2)       # 15b, 15c: the fused step's data routing runs
+P15_SESS_BATCHES = 16        # 15a record mode, phase 7's stream and widths
+P15_SEG_BATCHES = 12         # 15a segment mode: past the first closes
+P15_KEY_CACHE = 110_000      # 15a: the key-cache bound, compactions mid-run
+P15_JOIN_BATCHES = 12        # 15b: 10 device batches past activation
+P15_SRV_BLOCKS = 16          # 15d: framed blocks of 2^18 session records
+P15_SRV_USERS = 20_000
+P15_KERNELS = ("sharded_session_step", "sharded_session_merge",
+               "sharded_session_extract", "sharded_session_remap",
+               "sharded_join_probe_insert", "sharded_join_probe_only",
+               "sharded_join_probe_insert_step", "sharded_join_evict",
+               "join_route")
+P15_SESSION_PATHS = ("sharded session", "sharded session server")
+P15_JOIN_PATHS = ("sharded join", "sharded fetch")
+
+# phase 7's rows and phase 8's finals, the single-card executors'
+# references for 15a and 15b (computed again where those phases did not
+# run first)
+SINGLE_CARD: dict = {}
+
+
+def session_tuples(rows) -> set:
+    """Closed sessions as (user, winStart, winEnd, p50 bits, p99 bits)."""
+    return {(r["user"], int(r["winStart"]), int(r["winEnd"]),
+             float(np.float32(r["p50"])), float(np.float32(r["p99"])))
+            for r in rows}
+
+
+@contextlib.contextmanager
+def capturing_sharded(store: dict, armed: list):
+    """As `capturing`, for the key-sharded wrappers of parallel/lattice.py
+    (their callers look them up in the module at each call); a fresh
+    output (the step's and merge's arenas, the stores `outs`) is not
+    kept. The remap's and the eviction's first calls are kept whenever
+    they come, and so is the probe-only redispatch's."""
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    orig = {n: getattr(pl, n) for n in P15_KERNELS}
+    for n, fn in orig.items():
+        drop = (2,) if n in ("sharded_session_step",
+                             "sharded_session_merge") else ()
+        always = n if n in ("sharded_session_remap", "sharded_join_evict",
+                            "sharded_join_probe_only") else ""
+        setattr(pl, n, _Capture(n, fn, store, armed, always, drop))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(pl, n, fn)
+
+
+def _owned_packed(packed, S: int, s: int):
+    """The packed batch as key shard s of S sees it: the valid bit of the
+    records other shards own cleared (the reference's routing)."""
+    p = packed.clone()
+    own = torch.remainder(packed[0], S) == s
+    p[2] = torch.where(own, packed[2], packed[2] & ~1)
+    return p
+
+
+def _owned_seg(seg, S: int, s: int):
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    out = dict(seg)
+    own = (torch.remainder(seg["code"], S) == s) & \
+        (seg["code"] < sl.SESSION_SENT_CODE)
+    out["code"] = torch.where(own, seg["code"], sl.SESSION_SENT_CODE)
+    return out
+
+
+def sharded_step_vs_plain(spec, arenas, packed, inputs, gap, close_cut,
+                          delta, what) -> float:
+    """The sharded step's kernels (one launch a shard, the ownership test
+    inside) against its plain version, each into fresh arenas; every
+    shard held as check_session_arenas holds one arena. Returns the
+    largest SUM/AVG error."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    S, cap = len(arenas), arenas[0]["code"].shape[0]
+
+    def fresh():
+        return [sl.init_session_arena(spec, cap, a["code"].device)
+                for a in arenas]
+
+    got, want = fresh(), fresh()
+    before = pl.sharded_session_step.launches
+    pl.sharded_session_step(spec, arenas, got, packed, inputs, gap,
+                            close_cut, delta)
+    assert pl.sharded_session_step.launches == before + 1
+    pl.sharded_session_step_ref(spec, arenas, want, packed, inputs, gap,
+                                close_cut, delta)
+    ains = tuple(None if x is None else
+                 (x.abs() if x.dtype == torch.float32 else x)
+                 for x in inputs)
+    err = 0.0
+    for s in range(S):
+        ps = _owned_packed(packed, S, s)
+        absw = sl.init_session_arena(spec, cap, packed.device)
+        sl.session_step_ref(spec, _abs_planes(spec, arenas[s]), absw, ps,
+                            ains, gap, close_cut, delta)
+        acode, at0, at1 = sl._retired(arenas[s], close_cut, delta)
+        bcode = torch.where((ps[2] & 1) != 0, ps[0].long(),
+                            sl.SESSION_SENT_CODE)
+        ts = ps[1].long()
+        dest = sl.chain_slots(torch.cat([acode, bcode]),
+                              torch.cat([at0, ts]), torch.cat([at1, ts]),
+                              gap, cap)
+        torch.cuda.synchronize()
+        err = max(err, check_session_arenas(spec, got[s], want[s],
+                                            _terms(dest, cap), absw,
+                                            f"{what}, shard {s}"))
+        del absw
+    return err
+
+
+def sharded_merge_vs_plain(spec, arenas, seg, gap, close_cut, delta,
+                           what) -> float:
+    """As sharded_step_vs_plain, for the segment-mode merge."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    S, cap = len(arenas), arenas[0]["code"].shape[0]
+
+    def fresh():
+        return [sl.init_session_arena(spec, cap, a["code"].device)
+                for a in arenas]
+
+    got, want = fresh(), fresh()
+    before = pl.sharded_session_merge.launches
+    pl.sharded_session_merge(spec, arenas, got, seg, gap, close_cut, delta)
+    assert pl.sharded_session_merge.launches == before + 1
+    pl.sharded_session_merge_ref(spec, arenas, want, seg, gap, close_cut,
+                                 delta)
+    err = 0.0
+    for s in range(S):
+        ss = _owned_seg(seg, S, s)
+        absw = sl.init_session_arena(spec, cap, seg["code"].device)
+        sl.session_merge_ref(spec, _abs_planes(spec, arenas[s]), absw,
+                             _abs_planes(spec, ss), gap, close_cut, delta)
+        acode, at0, at1 = sl._retired(arenas[s], close_cut, delta)
+        dest = sl.chain_slots(torch.cat([acode, ss["code"].long()]),
+                              torch.cat([at0, ss["t0"].long()]),
+                              torch.cat([at1, ss["t1"].long()]), gap, cap)
+        torch.cuda.synchronize()
+        err = max(err, check_session_arenas(spec, got[s], want[s],
+                                            _terms(dest, cap), absw,
+                                            f"{what}, shard {s}"))
+    return err
+
+
+def _residue_lut(codes: np.ndarray, S: int, lcap: int, rng) -> np.ndarray:
+    """A residue-preserving compaction table over `codes` (the
+    executors'): live codes renumbered rank * S + residue within their
+    class, a third of them dead (the sentinel)."""
+    lut = np.full(lcap, 1 << 22, np.int32)
+    live = np.unique(codes)
+    live = live[rng.random(len(live)) < 0.67]
+    for s in range(S):
+        m = live[live % S == s]
+        lut[m] = np.arange(len(m)) * S + s
+    return lut
+
+
+def check_sharded_session(dev, results):
+    """B19c against its plain versions on the card, four key shards on it:
+    the step (every aggregate kind, NULL masks, invalid records, retired
+    and evicted entries, a delta) and the merge with the ownership test,
+    the extract over per-shard slot lists of different lengths (one shard
+    none) and the remap through one residue-preserving table; codes,
+    times, integer planes, histograms and registers exact, SUM/AVG within
+    the order bound, the extract and remap bit-exact."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.parallel import lattice as pl
+    from hstream_tpu_torch.parallel import make_mesh
+
+    spec, _schema, layout, progs = session_spec_all()
+    S, cap = P15_SHARDS, 1 << 13
+    ssl = pl.ShardedSessionLattice(make_mesh(1, S), spec)
+    first = session_batch(dev, spec, layout, 150, 1 << 14, 3000, 0)
+    arenas = ssl.init_arena(cap)
+    pl.sharded_session_step_ref(
+        spec, ssl.init_arena(cap), arenas, first,
+        sl.session_inputs(spec, layout, first, progs), SESS_GAP,
+        -(1 << 30), 0)
+    for s, a in enumerate(arenas):
+        live = torch.nonzero(a["code"] < sl.SESSION_SENT_CODE).flatten()
+        assert len(live) > 100 and bool(
+            (a["code"][live] % S == s).all()), s
+        a["code"][live[::9]] = sl.SESSION_SENT_CODE   # evicted entries
+    t1 = torch.cat([a["t1"][a["code"] < sl.SESSION_SENT_CODE]
+                    for a in arenas])
+    close_cut = int(t1.median())
+    second = session_batch(dev, spec, layout, 151, 1 << 14, 3000,
+                           3 * SESS_GAP)
+    err = sharded_step_vs_plain(
+        spec, arenas, second, sl.session_inputs(spec, layout, second, progs),
+        SESS_GAP, close_cut, 37, "sharded_session_step")
+    seg = session_seg(dev, spec, 152, 1 << 12, 3000, 2 * SESS_GAP)
+    err_m = sharded_merge_vs_plain(spec, arenas, seg, SESS_GAP, close_cut,
+                                   11, "sharded_session_merge")
+    rng = np.random.default_rng(153)
+    pcap = 2048
+    slots = np.full((S, pcap), -1, np.int32)
+    for s, n in enumerate((1500, 0, pcap, 7)):
+        slots[s, :n] = rng.permutation(cap)[:n]
+    got = pl.sharded_session_extract(spec, arenas, slots)
+    want = pl.sharded_session_extract_ref(spec, arenas, slots)
+    torch.cuda.synchronize()
+    assert got.shape == (S, 1 + len(spec.aggs), pcap)
+    assert torch.equal(got, want), "sharded_session_extract differs"
+    lut = torch.from_numpy(_residue_lut(np.arange(3000), S, 4096, rng)
+                           ).to(dev)
+    a = [{"code": x["code"].clone()} for x in arenas]
+    b = [{"code": x["code"].clone()} for x in arenas]
+    pl.sharded_session_remap(a, lut)
+    for x in b:
+        sl.session_remap_ref(x, lut)
+    torch.cuda.synchronize()
+    for s in range(S):
+        assert torch.equal(a[s]["code"], b[s]["code"]), \
+            f"sharded_session_remap differs, shard {s}"
+        c = a[s]["code"]
+        assert bool((c[c < sl.SESSION_SENT_CODE] % S == s).all())
+    src = "hstream_tpu_torch/engine/kernels/csrc/"
+    for name, file, line, e in (
+            ("sharded_session_step", "session_step.cu", 669, err),
+            ("sharded_session_merge", "session_merge.cu", 690, err_m),
+            ("sharded_session_extract", "session_extract.cu", 716, 0.0),
+            ("sharded_session_remap", "session_remap.cu", 730, 0.0)):
+        results[name] = dict(
+            route="cuda", source=src + file,
+            replaces=f"hstream_tpu/parallel/lattice.py:{line}",
+            paths=P15_SESSION_PATHS, max_abs_err=e)
+    log(f"sharded session (B19c), {S} key shards: step and merge with "
+        f"the ownership test against the plain versions (every kind; SUM/"
+        f"AVG max err {err:.3g} / {err_m:.3g}, within the order bound; the "
+        f"rest exact), the extract over {S} slot lists (1500, 0, {pcap}, 7 "
+        f"named) and the remap through one residue-preserving table: "
+        f"bit-exact")
+
+
+def _shard_store(dev, rng, cap, n_cols, n_live, S, s):
+    """A sorted store of key shard s: join_store's codes c * S + s."""
+    st = join_store(dev, rng, cap, n_cols, n_live)
+    live = st["code"] < JOIN_SENT
+    st["code"] = torch.where(live, st["code"] * S + s, st["code"])
+    return st
+
+
+def sharded_join_inner(dev, where: bool, mesh):
+    """join_inner's query, sharded on `mesh`."""
+    from hstream_tpu_torch.parallel import ShardedQueryExecutor
+
+    single = join_inner(dev, where)
+    return ShardedQueryExecutor(single.node, single.schema, mesh=mesh,
+                                initial_keys=8)
+
+
+def sharded_fused_vs_plain(args, what) -> int:
+    """One fused sharded call (sharded_join_probe_insert_step's positional
+    `args`) with the kernels and with the plain version, each on its own
+    clone of the inner partials (args[9]) and into its own stores: the
+    stores, the per-shard totals and every partial's planes exact (the
+    inputs sum exactly in any order). Returns the match total."""
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    mine, state = args[0], args[9]
+    runs = []
+    for fn in (pl.sharded_join_probe_insert_step,
+               pl.sharded_join_probe_insert_step_ref):
+        st = _clone(state)
+        kw = ({"outs": [jl_empty(x) for x in mine]}
+              if fn is pl.sharded_join_probe_insert_step else {})
+        new, totals = fn(*args[:9], st, *args[10:], **kw)
+        runs.append((new, totals.cpu(), st))
+    torch.cuda.synchronize()
+    (gm, gt, gs), (wm, wt, ws) = runs
+    assert torch.equal(gt, wt), f"{what}: totals differ {gt} {wt}"
+    for s, (g, w) in enumerate(zip(gm, wm)):
+        assert stores_equal(w, g), f"{what}: shard {s}'s insert differs"
+    for d in range(ws.n_data):
+        for k in range(ws.n_key):
+            for name, v in ws[d][k].items():
+                assert torch.equal(gs[d][k][name], v), \
+                    f"{what}: partial ({d}, {k}) {name} differs"
+    return int(wt.sum())
+
+
+def jl_empty(st):
+    from hstream_tpu_torch.engine import join_lattice as jl
+
+    return jl.empty_join_store(st["code"].shape[0], st["cols"].shape[0],
+                               st["code"].device)
+
+
+def check_sharded_join(dev, results):
+    """B19b against its plain versions on the card: the probe + insert
+    and the probe-only with the ownership test over four key shards (the
+    match buffers in the reference's [rows, 4 * match_cap] layout, a
+    truncating match_cap, n = 0, negative times); the fused step into a
+    (2, 2) inner lattice (both feed layouts, with and without a WHERE;
+    the routing kernel on its own too); the eviction of every shard with
+    live counts [4, 2]. Everything exact."""
+    from hstream_tpu_torch.parallel import lattice as pl
+    from hstream_tpu_torch.parallel import make_mesh
+
+    S = P15_SHARDS
+    n_pi = 0
+    for i, (cap, bcap, n, nm, no, mc, cutoff) in enumerate(
+            [(256, 64, 50, 3, 3, 512, -(1 << 31)),
+             (256, 64, 64, 3, 3, 8, -30),           # truncated shards
+             (256, 64, 0, 0, 3, 64, 0),             # n = 0
+             (1 << 16, 5000, 5000, 2, 1, 1 << 16, -30)]):
+        rng = np.random.default_rng(400 + i)
+        mines = [_shard_store(dev, rng, cap, nm, cap // 3, S, s)
+                 for s in range(S)]
+        others = [_shard_store(dev, rng, cap, no, cap // 2, S, s)
+                  for s in range(S)]
+        batch = join_batch(dev, rng, bcap, n, nm, codes=6 * S)
+        before = pl.sharded_join_probe_insert.launches
+        new, packed = pl.sharded_join_probe_insert(
+            mines, others, batch, n, JOIN_WITHIN, cutoff, mc, nm,
+            outs=[jl_empty(x) for x in mines])
+        assert pl.sharded_join_probe_insert.launches == before + 1
+        want_new = pl.sharded_join_insert_ref(mines, batch, n, nm)
+        want_pk = pl.sharded_join_probe_ref(others, batch, n, JOIN_WITHIN,
+                                            cutoff, mc, nm)
+        only = pl.sharded_join_probe_only(others, batch, n, JOIN_WITHIN,
+                                          cutoff, 2 * mc, nm)
+        want_only = pl.sharded_join_probe_ref(others, batch, n, JOIN_WITHIN,
+                                              cutoff, 2 * mc, nm)
+        torch.cuda.synchronize()
+        assert packed.shape == (5 + nm + no, S * mc)
+        assert torch.equal(packed, want_pk), f"sharded probe case {i}"
+        assert torch.equal(only, want_only), f"sharded probe-only case {i}"
+        for s in range(S):
+            assert stores_equal(want_new[s], new[s]), \
+                f"sharded insert case {i} shard {s}"
+        n_pi += 1
+    mesh = make_mesh(*P15_JOIN_MESH)
+    n_fused = 0
+    for feed_name in JOIN_FEEDS:
+        for where in (False, True):
+            rng = np.random.default_rng(410 + where)
+            inner = sharded_join_inner(dev, where, mesh)
+            K = mesh.shape["key"]
+            cap, bcap, n, mc = 1 << 12, 1000, 1000, 1 << 14
+            args = ([_shard_store(dev, rng, cap, 3, cap // 3, K, s)
+                     for s in range(K)],
+                    [_shard_store(dev, rng, cap, 3, cap // 2, K, s)
+                     for s in range(K)],
+                    join_batch(dev, rng, bcap, n, 3, codes=6 * K), n,
+                    JOIN_WITHIN, -30, mc, 3, inner._sharded.local_spec,
+                    inner.state, 120, 300, inner._sharded._progs,
+                    join_feed(feed_name, inner, where))
+            total = sharded_fused_vs_plain(
+                args, f"sharded_join_probe_step {feed_name} where={where}")
+            assert total > 0
+            n_fused += 1
+    rng = np.random.default_rng(420)
+    kid = torch.from_numpy(rng.integers(-5, 1 << 20, 5000).astype(np.int32)
+                           ).to(dev)
+    valid = torch.from_numpy(rng.random(5000) < 0.7).to(dev)
+    got = pl.join_route(kid, valid, 2, 2, 1 << 18)
+    want = pl.join_route_ref(kid, valid, 2, 2, 1 << 18)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), "join_route"
+    n_ev = 0
+    for i, (cap, cutoff, delta, nl, nr) in enumerate(EVICT_CASES[:7]):
+        rng = np.random.default_rng(430 + i)
+        lefts = [_shard_store(dev, rng, cap, 3, nl, S, s) for s in range(S)]
+        rights = [_shard_store(dev, rng, cap, 1, nr, S, s) for s in range(S)]
+        wl, wr, wn = pl.sharded_join_evict_ref(lefts, rights, cutoff, delta)
+        gl, gr, gn = pl.sharded_join_evict(
+            lefts, rights, cutoff, delta,
+            outs=([jl_empty(x) for x in lefts], [jl_empty(x) for x in rights]))
+        torch.cuda.synchronize()
+        assert gn.shape == (S, 2) and torch.equal(gn, wn), \
+            f"sharded evict counts, case {i}"
+        for s in range(S):
+            assert stores_equal(wl[s], gl[s]) and stores_equal(wr[s], gr[s]),\
+                f"sharded evict case {i} shard {s}"
+        n_ev += 1
+    src = "hstream_tpu_torch/engine/kernels/csrc/"
+    for name, file, line in (
+            ("sharded_join_probe_insert", "join_probe.cu", 394),
+            ("sharded_join_probe_only", "join_probe.cu", 420),
+            ("sharded_join_probe_step", "join_probe.cu", 470),
+            ("sharded_join_evict", "join_evict.cu", 441),
+            ("join_route", "join_route.cu", 495)):
+        results[name] = dict(
+            route="cuda", source=src + file,
+            replaces=f"hstream_tpu/parallel/lattice.py:{line}",
+            paths=P15_JOIN_PATHS, max_abs_err=0.0)
+    results["sharded_join_probe_insert"]["sources"] = [
+        "join_probe.cu (pack mode)", "join_insert.cu"]
+    results["sharded_join_probe_step"]["sources"] = [
+        "join_probe.cu (feed mode)", "expr.cu", "join_route.cu",
+        "scatter.cu", "join_insert.cu"]
+    log(f"sharded join (B19b), {S} key shards: {n_pi} probe + insert and "
+        f"probe-only cases (a truncating match_cap, n = 0), {n_fused} fused "
+        f"steps into a (2, 2) inner lattice (both feeds, WHERE or not), the "
+        f"routing kernel and {n_ev} evictions against the plain versions: "
+        f"match buffers, stores, totals, counts and partials exact")
+
+
+def _same_rows_single(kind: str, rows, wm: int, n: int, mode: str) -> int:
+    """15a's closed sessions against the single-card executor's: phase
+    7's rows (the same stream), those closed by this run's watermark."""
+    gap = SESS_GAP
+    ref = SINGLE_CARD.get("session")
+    if ref is None:        # phase 7 did not run first
+        from hstream_tpu_torch.engine import SessionExecutor
+
+        node, schema = session_plan()
+        ex = SessionExecutor(node, schema)
+        ex.device_session_mode = mode
+        src = SessionStream(seed=11, n_batches=n)
+        out = []
+        for b in range(n):
+            out.extend(ex.process_columnar(*src.get(b)))
+        out.extend(ex.drain_closed())
+        ref = session_tuples(out)
+    want = {r for r in ref if r[2] - gap + 2 * gap <= wm}
+    got = session_tuples(rows)
+    assert got == want, (kind, len(got), len(want),
+                         sorted(got ^ want)[:4])
+    return len(got)
+
+
+def sharded_session_path(dev, results) -> dict:
+    """15a: config 4 at phase 7's widths (100,000 user slots, 2^20 records
+    a batch, 1 s a batch, the same stream) through SessionExecutor on
+    make_mesh(1, 4), four key shards on the card: P15_SESS_BATCHES in
+    record mode (the key cache bound lowered, so the residue-preserving
+    compaction runs mid-run) and P15_SEG_BATCHES in segment mode; every
+    closed session against numpy and the single-card executor's."""
+    from hstream_tpu_torch.engine import SessionExecutor
+    from hstream_tpu_torch.engine.sketches import QuantileConfig
+    from hstream_tpu_torch.parallel import make_mesh
+
+    qcfg = QuantileConfig()
+    src = SessionStream(seed=11, n_batches=P15_SESS_BATCHES)
+    ref = session_reference(src, P15_SESS_BATCHES, qcfg)
+    ref_seg = session_reference(src, P15_SEG_BATCHES, qcfg)
+    mesh = make_mesh(1, P15_SHARDS)
+    assert {str(d) for d in mesh.devices.flat} == {str(dev)}, mesh
+    captured: dict = {}
+
+    def run(mode: str, n: int):
+        node, schema = session_plan()
+        ex = SessionExecutor(node, schema, mesh=mesh)
+        ex.defer_close_decode = True
+        ex.device_session_mode = mode
+        ex._KEY_CACHE_MAX = P15_KEY_CACHE
+        rows: list = []
+        armed = [False]
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with capturing_sharded(captured, armed):
+            for b in range(n):
+                armed[0] = b >= n - 3
+                rows.extend(ex.process_columnar(*src.get(b)))
+                if (b + 1) % SESS_DRAIN_EVERY == 0 or b == n - 1:
+                    rows.extend(ex.drain_closed())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return ex, rows, wall, launch_counts()
+
+    ex, rows, wall, counts = run("record", P15_SESS_BATCHES)
+    st = dict(ex.session_stats)
+    assert ex.device_fallbacks == 0 and ex._dev["ssl"].n_shards == P15_SHARDS
+    assert counts["sharded_session_step"] == st["step_dispatches"] == \
+        P15_SESS_BATCHES, (counts, st)
+    assert counts["sharded_session_extract"] == st["close_dispatches"] \
+        >= 2, (counts, st)
+    assert counts["sharded_session_remap"] == st["remap_dispatches"] >= 1, \
+        (counts, st)
+    assert counts["session_step"] == counts["session_extract"] == \
+        counts["session_remap"] == 0, counts
+    assert ex.sharded_dispatches == P15_SESS_BATCHES + \
+        st["close_dispatches"] + st["remap_dispatches"]
+    check = check_session_rows(rows, ref, qcfg)
+    same = _same_rows_single("record", rows, ref["wm"], P15_SESS_BATCHES,
+                             "record")
+    exs, rows_s, wall_s, counts_s = run("segment", P15_SEG_BATCHES)
+    assert counts_s["sharded_session_merge"] == P15_SEG_BATCHES, counts_s
+    assert counts_s["sharded_session_step"] == 0, counts_s
+    check_s = check_session_rows(rows_s, ref_seg, qcfg)
+    same_s = _same_rows_single("segment", rows_s, ref_seg["wm"],
+                               P15_SESS_BATCHES, "segment")
+    launches = {k: counts[k] + counts_s[k] for k in counts}
+    time_sharded_session(dev, results, captured)
+    return dict(config="sharded session", launches=launches,
+                events_per_sec=P15_SESS_BATCHES * BATCH / wall, wall_s=wall,
+                rows=len(rows), check=check, rows_equal_single_card=same,
+                session_stats=st, arena_bytes=sum(
+                    ex.device_plane_bytes().values()),
+                host_stage_s=dict(ex.stage_stats),
+                segment=dict(events_per_sec=P15_SEG_BATCHES * BATCH / wall_s,
+                             rows=len(rows_s), check=check_s,
+                             rows_equal_single_card=same_s,
+                             session_stats=dict(exs.session_stats)))
+
+
+def time_sharded_session(dev, results, captured):
+    """Each B19c kernel on 15a's own inputs (one call of each, kept by the
+    run), held against its plain version on them and timed beside it,
+    with its bound and a PyTorch yardstick."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    missing = [k for k in P15_KERNELS[:4] if k not in captured]
+    assert not missing, f"15a made no call of {missing}"
+    spec, arenas, _, packed, inputs, gap, cc, delta = \
+        captured["sharded_session_step"]
+    S, cap, nb = len(arenas), arenas[0]["code"].shape[0], packed.shape[1]
+    err = sharded_step_vs_plain(spec, arenas, packed, inputs, gap, cc, delta,
+                                "sharded_session_step at 15a's shapes")
+    outs = [sl.init_session_arena(spec, cap, dev) for _ in range(S)]
+    ms, call, srcm = kernel_ms(lambda: pl.sharded_session_step(
+        spec, arenas, outs, packed, inputs, gap, cc, delta), 10)
+    plain = kernel_ms(lambda: pl.sharded_session_step_ref(
+        spec, arenas, outs, packed, inputs, gap, cc, delta), 1)[0]
+    keys = [torch.cat([sort_keys(a["code"], a["t0"]),
+                       sort_keys(packed[0], packed[1])]) for a in arenas]
+    lib = kernel_ms(lambda: [torch.sort(k) for k in keys], 5)[0]
+    b_ms, b_by = bound(2 * sum(_arena_bytes(a) for a in arenas)
+                       + int(packed.nbytes), S * (cap + nb))
+    results["sharded_session_step"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        call_ms=call, ms_source=srcm, cap=cap, nb=nb, shards=S,
+        max_abs_err=max(err, results["sharded_session_step"]["max_abs_err"]))
+    log(f"sharded_session_step at 15a's {S} x {cap} slots and {nb} records: "
+        f"kernels and plain agree (SUM/AVG max err {err:.3g}); {ms:.4f} ms "
+        f"(plain {plain:.4f}, {S} torch.sort {lib:.4f}, bound {b_ms:.4f} by "
+        f"{b_by})")
+    del outs, keys
+
+    spec, arenas, _, seg, gap, cc, delta = captured["sharded_session_merge"]
+    cap, ns = arenas[0]["code"].shape[0], seg["code"].shape[0]
+    err = sharded_merge_vs_plain(spec, arenas, seg, gap, cc, delta,
+                                 "sharded_session_merge at 15a's shapes")
+    outs = [sl.init_session_arena(spec, cap, dev) for _ in range(S)]
+    ms, call, srcm = kernel_ms(lambda: pl.sharded_session_merge(
+        spec, arenas, outs, seg, gap, cc, delta), 10)
+    plain = kernel_ms(lambda: pl.sharded_session_merge_ref(
+        spec, arenas, outs, seg, gap, cc, delta), 1)[0]
+    keys = [torch.cat([sort_keys(a["code"], a["t0"]),
+                       sort_keys(seg["code"], seg["t0"])]) for a in arenas]
+    lib = kernel_ms(lambda: [torch.sort(k) for k in keys], 5)[0]
+    b_ms, b_by = bound(2 * sum(_arena_bytes(a) for a in arenas)
+                       + _arena_bytes(seg), S * (cap + ns))
+    results["sharded_session_merge"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        call_ms=call, ms_source=srcm, cap=cap, nseg=ns, shards=S,
+        max_abs_err=max(err, results["sharded_session_merge"]["max_abs_err"]))
+    log(f"sharded_session_merge at 15a's {S} x {cap} slots and {ns} "
+        f"segments: kernels and plain agree (SUM/AVG max err {err:.3g}); "
+        f"{ms:.4f} ms (plain {plain:.4f}, {S} torch.sort {lib:.4f}, bound "
+        f"{b_ms:.4f} by {b_by})")
+    del outs, keys
+
+    spec, arenas, slots = captured["sharded_session_extract"]
+    got = pl.sharded_session_extract(spec, arenas, slots)
+    want = pl.sharded_session_extract_ref(spec, arenas, slots)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "sharded_session_extract at 15a's shapes"
+    ms, call, srcm = kernel_ms(lambda: pl.sharded_session_extract(
+        spec, arenas, slots), 30)
+    plain = kernel_ms(lambda: pl.sharded_session_extract_ref(
+        spec, arenas, slots), 3)[0]
+    n_sel = int((slots >= 0).sum())
+    per_slot = _arena_bytes(arenas[0]) // arenas[0]["code"].shape[0]
+    b_ms, b_by = bound(n_sel * per_slot + slots.nbytes + got.nbytes,
+                       n_sel * 2 * spec.qcfg.n_bins)
+    results["sharded_session_extract"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, call_ms=call, ms_source=srcm, slots=n_sel,
+        padded=list(slots.shape))
+    log(f"sharded_session_extract of 15a's {n_sel} closing slots "
+        f"({list(slots.shape)} with pads): bit-exact against plain; "
+        f"{ms:.4f} ms (plain {plain:.4f}, bound {b_ms:.5f} by {b_by})")
+
+    arenas, lut = captured["sharded_session_remap"]
+    codes = [{"code": a["code"].clone()} for a in arenas]
+    want = [{"code": a["code"].clone()} for a in arenas]
+    pl.sharded_session_remap(codes, lut)
+    for w in want:
+        sl.session_remap_ref(w, lut)
+    torch.cuda.synchronize()
+    assert all(torch.equal(c["code"], w["code"])
+               for c, w in zip(codes, want)), \
+        "sharded_session_remap at 15a's shapes"
+    ms, call, srcm = kernel_ms(lambda: pl.sharded_session_remap(codes, lut),
+                               50)
+    plain = kernel_ms(lambda: [sl.session_remap_ref(c, lut)
+                               for c in codes], 10)[0]
+    lcap = lut.shape[0]
+    lib = kernel_ms(lambda: [lut[c["code"].clamp(0, lcap - 1).long()]
+                             for c in codes], 10)[0]
+    rcap = codes[0]["code"].shape[0]
+    b_ms, b_by = bound(3 * len(codes) * rcap * 4, len(codes) * rcap)
+    results["sharded_session_remap"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        call_ms=call, ms_source=srcm, cap=rcap, lcap=lcap)
+    log(f"sharded_session_remap of 15a's {len(codes)} x {rcap} codes "
+        f"through its {lcap}-entry table: exact against plain; {ms:.4f} ms "
+        f"(plain {plain:.4f}, indexing {lib:.4f}, bound {b_ms:.6f})")
+
+
+def _join_mesh_executor(plan, batch: int, mesh):
+    from hstream_tpu_torch.engine import JoinExecutor
+    from hstream_tpu_torch.sql import make_executor
+
+    ex = make_executor(plan, sample_rows=[{"k": "k0", "x": 1.0}],
+                       batch_capacity=4 * batch, mesh=mesh)
+    assert isinstance(ex, JoinExecutor) and ex.mesh is mesh
+    ex.defer_change_decode = True     # bench.py's knobs, as phase 8
+    ex.change_drain_depth = 8
+    ex.async_change_drain = True
+    return ex
+
+
+def sharded_join_path(dev, captured) -> dict:
+    """15b: config 5 at phase 8's widths (2^20 records a batch over
+    512,000 keys, phase 8's stream) through JoinExecutor on
+    make_mesh(2, 2): both stores key-sharded over two key shards, the
+    fused step into the (2, 2) inner lattice (its data-shard routing),
+    P15_JOIN_BATCHES batches; every final change against numpy and
+    against the single-card executor's after as many batches."""
+    from hstream_tpu_torch.parallel import ShardedQueryExecutor, make_mesh
+
+    src = JoinStream(5, JOIN_BATCH, JOIN_KEYS, with_x=False)
+    mesh = make_mesh(*P15_JOIN_MESH)
+    ex = _join_mesh_executor(join_plan(), JOIN_BATCH, mesh)
+    log_ = ChangeLog(src.keys)
+    armed = [False]
+    zero_counts()
+    call_s = []
+    with capturing_sharded(captured, armed):
+        for b in range(P15_JOIN_BATCHES):
+            armed[0] = b == P15_JOIN_BATCHES - 1
+            ts, cols, side = src.get(b)
+            t0 = time.perf_counter()
+            log_.add(ex.process_columnar(ts, cols, stream=side))
+            call_s.append(time.perf_counter() - t0)
+            if b == 1:
+                ex.coalesce_rows = 1 << 15
+        log_.add(ex.flush_changes())
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    js = dict(ex.join_stats)
+    assert ex._dev is not None and ex._dev["sjl"].n_shards == 2
+    assert isinstance(ex._inner, ShardedQueryExecutor)
+    assert js["probe_batches"] >= 8 and js["fused_batches"] >= 1, js
+    assert js["evict_dispatches"] >= 1, js
+    assert counts["sharded_join_probe_step"] == js["fused_batches"] == \
+        counts["join_route"], (counts, js)
+    assert counts["sharded_join_probe_insert"] == js["probe_batches"] - \
+        js["fused_batches"], (counts, js)
+    assert counts["sharded_join_evict"] == js["evict_dispatches"], \
+        (counts, js)
+    assert counts["join_probe_step"] == counts["join_evict"] == \
+        counts["join_probe_insert"] == 0, counts
+    if js["fused_batches"] < js["probe_batches"]:
+        log(f"sharded join path: {js['probe_batches'] - js['fused_batches']}"
+            f" device batches refused by _fuse_ok (the match-fetch path)")
+    check = check_join_changes(
+        log_, join_reference(src, P15_JOIN_BATCHES, 10_000, 1000),
+        with_sum=False)
+    single = SINGLE_CARD.get("join")
+    if single is None:        # phase 8 did not run first
+        one = _join_executor(join_plan(), JOIN_BATCH, dev)
+        slog = ChangeLog(src.keys)
+        for b in range(P15_JOIN_BATCHES):
+            ts, cols, side = src.get(b)
+            slog.add(one.process_columnar(ts, cols, stream=side))
+            if b == 1:
+                one.coalesce_rows = 1 << 15
+        slog.add(one.flush_changes())
+        single = slog.final()
+    got = log_.final()
+    assert all(np.array_equal(g, w) for g, w in zip(got[:3], single[:3])), \
+        "15b's finals differ from the single-card executor's"
+    device_s = sum(call_s[b] for b in range(P15_JOIN_BATCHES)
+                   if b >= P15_JOIN_BATCHES - js["probe_batches"])
+    return dict(config="sharded join", launches=counts, join_stats=js,
+                check=check, finals_equal_single_card=len(got[0]),
+                events_per_sec=js["probe_batches"] * JOIN_BATCH / device_s,
+                device_batches_s=device_s, host_batches_s=sum(call_s)
+                - device_s, store_cap=ex._dev["cap"],
+                match_cap=ex._dev["match_cap"],
+                sharded_dispatches=ex.sharded_dispatches,
+                stage_s=dict(ex.stage_stats),
+                device_plane_bytes=sum(ex.device_plane_bytes().values()))
+
+
+def _fetch_batches(ex, src, log_, armed, n_batches: int) -> None:
+    for b in range(n_batches):
+        armed[0] = b == n_batches - 1
+        ts, cols, side = src.get(b)
+        if b == FETCH_WARM + 1:
+            # one batch whose match width the shadow does not size: a
+            # buffer of 64 columns a shard overflows, and the drain
+            # re-probes wider (probe_only)
+            ex._dev["match_cap"] = 64
+            other = "r" if side == "l" else "l"
+            shadow = ex._dev["shadow"][other]
+            shadow.probe = lambda *a: None
+            log_.add(ex.process_columnar(ts, cols, stream=side))
+            del shadow.probe
+        else:
+            log_.add(ex.process_columnar(ts, cols, stream=side))
+        if b == 1:
+            ex.coalesce_rows = 1 << 15
+    log_.add(ex.flush_changes())
+
+
+def sharded_fetch_path(dev, captured) -> dict:
+    """15c: phase 8b's query and size (2^16 records over 32,000 keys,
+    FETCH_WARM + FETCH_TIMED batches, match buffers fetched four at a
+    time) on make_mesh(2, 2): the sharded probe + insert, the buffers in
+    the reference's layout decoded by unpack_matches, and one overflow
+    provoked (the host shadow's sizing skipped for one batch, the match
+    width cut to 64) so the probe-only redispatch runs; every final
+    change against numpy."""
+    from hstream_tpu_torch.parallel import make_mesh
+
+    src = JoinStream(7, FETCH_BATCH, FETCH_KEYS, with_x=True)
+    ex = _join_mesh_executor(join_fetch_plan(), FETCH_BATCH,
+                             make_mesh(*P15_JOIN_MESH))
+    ex.match_drain_depth = 4
+    log_ = ChangeLog(src.keys)
+    zero_counts()
+    n_batches = FETCH_WARM + FETCH_TIMED
+    armed = [False]
+    t0 = time.perf_counter()
+    with capturing_sharded(captured, armed):
+        _fetch_batches(ex, src, log_, armed, n_batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    js = dict(ex.join_stats)
+    counts = launch_counts()
+    assert ex._dev["sjl"].n_shards == 2, ex._dev
+    assert js["fused_batches"] == 0 and js["match_redispatches"] >= 1, js
+    assert counts["sharded_join_probe_insert"] == js["probe_dispatches"], \
+        (counts, js)
+    assert counts["sharded_join_probe_only"] == js["match_redispatches"], \
+        (counts, js)
+    check = check_join_changes(
+        log_, join_reference(src, n_batches, 1000, 10_000), with_sum=True)
+    return dict(config="sharded fetch", launches=counts, join_stats=js,
+                check=check, events_per_sec=n_batches * FETCH_BATCH / wall,
+                wall_s=wall, match_cap=ex._dev["match_cap"])
+
+
+P15_SRV_VIEW = ("CREATE VIEW sess AS SELECT user, COUNT(*) AS c, "
+                "APPROX_QUANTILE(lat, 0.5) AS p50 FROM clicks GROUP BY user, "
+                "SESSION (INTERVAL 5 SECOND) GRACE BY INTERVAL 0 SECOND;")
+
+
+def sharded_session_server_path(dev) -> dict:
+    """15d: serve(mesh_shape="2x2") serving a session view (config 4's
+    query with COUNT(*)) over P15_SRV_BLOCKS framed blocks of 2^18 records
+    (P15_SRV_USERS users, 1 s a block); the view's closed sessions
+    against numpy; then the view's snapshot taken on the mesh restored
+    onto one card and back onto a mesh, each fed the rest of the stream,
+    its rows against numpy."""
+    import grpc
+
+    from hstream_tpu_torch.client.producer import (ColumnarProducer,
+                                                   encode_batch)
+    from hstream_tpu_torch.common import records
+    from hstream_tpu_torch.engine.snapshot import (restore_executor,
+                                                   snapshot_executor)
+    from hstream_tpu_torch.engine.sketches import QuantileConfig
+    from hstream_tpu_torch.parallel import make_mesh
+    from hstream_tpu_torch.proto import api_pb2 as pb
+    from hstream_tpu_torch.proto.rpc import HStreamApiStub
+    from hstream_tpu_torch.server.main import serve
+
+    n = SRV_BLOCK
+    rng = np.random.default_rng(15)
+    users = np.array([f"u{i:06d}" for i in range(P15_SRV_USERS)])
+    blocks = []
+    for b in range(P15_SRV_BLOCKS + 8):
+        # a user is on for 2 s of every 8 (off longer than the 5 s gap):
+        # sessions close as the stream moves
+        on = np.nonzero((np.arange(P15_SRV_USERS) + b) % 8 < 2)[0]
+        u = on[rng.integers(0, len(on), n)]
+        ts = BASE_TS + 1000 * b + np.sort(rng.integers(0, 1000, n))
+        lat = np.abs(rng.normal(50, 20, n)).astype(np.float32)
+        blocks.append((u, ts.astype(np.int64), lat))
+    frames = [encode_batch(ts, {"user": users[u], "lat": lat})
+              for u, ts, lat in blocks]
+    qcfg = QuantileConfig()
+
+    def reference(k: int) -> dict:
+        """(user, t0) -> (t1, count, p50 bucket) of the sessions closed by
+        the first k blocks."""
+        u = np.concatenate([x[0] for x in blocks[:k]]).astype(np.int64)
+        t = np.concatenate([x[1] for x in blocks[:k]])
+        lat = np.concatenate([x[2] for x in blocks[:k]])
+        wm = int(t.max())
+        o = np.lexsort((t, u))
+        u, t, lat = u[o], t[o], lat[o]
+        brk = np.ones(len(u), bool)
+        brk[1:] = (u[1:] != u[:-1]) | (t[1:] - t[:-1] > SESS_GAP)
+        starts = np.nonzero(brk)[0]
+        ends = np.append(starts[1:], len(u)) - 1
+        sid = np.cumsum(brk) - 1
+        bins, _edge = np_quantile_bins(lat, qcfg)
+        srt = np.lexsort((bins, sid))
+        cnt = ends - starts + 1
+        kk = np.maximum(np.ceil((np.float32(0.5) * cnt.astype(np.float32))
+                                .astype(np.float64)).astype(np.int64), 1)
+        b50 = bins[srt][starts + kk - 1]
+        out = {}
+        for i in np.nonzero(t[ends] + 2 * SESS_GAP <= wm)[0]:
+            out[(users[u[starts[i]]], int(t[starts[i]]))] = (
+                int(t[ends[i]]), int(cnt[i]), int(b50[i]))
+        return out
+
+    mids = np_quantile_estimate(np.eye(qcfg.n_bins, dtype=np.int64), 1.0,
+                                qcfg)[0]
+
+    def check(rows, k: int, what: str) -> int:
+        """The closed sessions among `rows` (t1 + 2 gap at or below the
+        watermark of the first k blocks; a peek's open sessions are past
+        it) against numpy's."""
+        want = reference(k)
+        wm = max(int(x[1].max()) for x in blocks[:k])
+        got = {(r["user"], int(r["winStart"])): r for r in rows
+               if int(r["winEnd"]) + SESS_GAP <= wm}
+        assert set(got) == set(want), (what, len(got), len(want))
+        for key, (t1, c, b50) in want.items():
+            r = got[key]
+            assert int(r["winEnd"]) == t1 + SESS_GAP and r["c"] == c, \
+                (what, key, r, t1, c)
+            assert abs(np.searchsorted(mids, np.float32(r["p50"])) - b50) \
+                <= 1, (what, key, r["p50"], b50)
+        return len(want)
+
+    server, ctx = serve("127.0.0.1", 0, "mem://", mesh_shape="2x2")
+    opts = [("grpc.max_receive_message_length", 64 << 20),
+            ("grpc.max_send_message_length", 64 << 20)]
+    ch = grpc.insecure_channel(f"127.0.0.1:{ctx.port}", options=opts)
+    stub = HStreamApiStub(ch)
+    try:
+        assert ctx.mesh.shape == {"data": 2, "key": 2}, ctx.mesh
+        stub.CreateStream(pb.Stream(stream_name="clicks"))
+        stub.ExecuteQuery(pb.CommandQuery(stmt_text=P15_SRV_VIEW))
+        task = _srv_task(ctx, "view-sess")
+        zero_counts()
+        t0 = time.perf_counter()
+        resp = ColumnarProducer(ch, "clicks").append_stream_frames(
+            iter(frames[:P15_SRV_BLOCKS]))
+        assert resp.rows == P15_SRV_BLOCKS * n, resp.rows
+        target = int(blocks[P15_SRV_BLOCKS - 1][1].max())
+        deadline = time.monotonic() + SRV_DRAIN_S
+        while task.executor is None or task.executor.watermark < target:
+            assert task.error is None, task.error
+            assert time.monotonic() < deadline, "15d: not drained"
+            time.sleep(0.002)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ex = task.executor
+        assert ex._dev is not None and ex._dev["ssl"].n_shards == 2, \
+            ex._device_refusal
+        assert task.mesh_shards() == 2 and ex.sharded_dispatches > 0
+        step = "sharded_session_" + ("step" if ex._dev["mode"] == "record"
+                                     else "merge")
+        deadline = time.monotonic() + 60
+        while True:
+            out = stub.ExecuteQuery(pb.CommandQuery(
+                stmt_text="SELECT * FROM sess;"))
+            rows = [records.struct_to_dict(s) for s in out.result_set]
+            try:
+                served = check(rows, P15_SRV_BLOCKS, "the mesh's pull")
+                break
+            except AssertionError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.2)
+        counts = launch_counts()
+        with task.state_lock:
+            ex.drain_closed()
+            blob = snapshot_executor(ex)
+        rest = blocks[P15_SRV_BLOCKS:]
+
+        def resume(ex2, what):
+            rows2 = []
+            for u, ts, lat in rest:
+                rows2.extend(ex2.process_columnar(
+                    ts, {"user": users[u], "lat": lat}))
+            rows2.extend(ex2.drain_closed())
+            want = reference(P15_SRV_BLOCKS + len(rest))
+            done = reference(P15_SRV_BLOCKS)
+            new = {k: v for k, v in want.items() if k not in done}
+            got = [r for r in rows2 if (r["user"], int(r["winStart"]))
+                   in new]
+            assert len(got) == len(new), (what, len(got), len(new))
+            for r in got:
+                t1, c, b50 = new[(r["user"], int(r["winStart"]))]
+                assert r["c"] == c and int(r["winEnd"]) == t1 + SESS_GAP, \
+                    (what, r)
+            return len(got)
+
+        one, _ = restore_executor(task.plan, blob, device=dev)
+        assert one.mesh is None
+        back, _ = restore_executor(task.plan, snapshot_executor(one),
+                                   mesh=make_mesh(*P15_JOIN_MESH))
+        n_one = resume(one, "mesh snapshot on one card")
+        n_back = resume(back, "one-card snapshot on the mesh")
+        assert back._dev is not None and back._dev["ssl"].n_shards == 2
+    finally:
+        ch.close()
+        server.stop(grace=1)
+        ctx.shutdown()
+    for name in (step, "sharded_session_extract"):
+        assert counts[name] > 0, (name, counts)
+    assert counts["session_step"] == counts["session_merge"] == 0, counts
+    return dict(config="sharded session server", launches=counts,
+                events_per_sec=P15_SRV_BLOCKS * n / wall, wall_s=wall,
+                sessions_served=served, snapshot_bytes=len(blob),
+                resumed_one_card=n_one, resumed_mesh=n_back)
+
+
+def time_sharded_join(dev, results, captured):
+    """Each B19b kernel on 15b's and 15c's own inputs (one call of each,
+    kept by the runs: 15b's last fused step, its routing and first
+    eviction, 15c's last probe + insert and its redispatch), held against
+    its plain version on them and timed beside it, with its bound and a
+    PyTorch yardstick."""
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    missing = [k for k in P15_KERNELS[4:] if k not in captured]
+    assert not missing, f"15b and 15c made no call of {missing}"
+    args = captured["sharded_join_probe_insert_step"]
+    (mines, others, batch, n, within, cutoff, mc, nm, spec, state, wm_rel,
+     ts_off, progs, feed) = args
+    total = sharded_fused_vs_plain(args, "sharded_join_probe_step at 15b's "
+                                   "shapes")
+    outs = [jl_empty(x) for x in mines]
+    st = _clone(state)
+    ms, call, srcm = kernel_ms(lambda: pl.sharded_join_probe_insert_step(
+        mines, others, batch, n, within, cutoff, mc, nm, spec, st, wm_rel,
+        ts_off, progs, feed, outs=outs), 10)
+    devt = profiled_calls(lambda: pl.sharded_join_probe_insert_step(
+        mines, others, batch, n, within, cutoff, mc, nm, spec, st, wm_rel,
+        ts_off, progs, feed, outs=outs), 5, "the sharded fused join")
+    stages = None if devt is None else _by_stage(devt, 5)
+    plain = kernel_ms(lambda: pl.sharded_join_probe_insert_step_ref(
+        mines, others, batch, n, within, cutoff, mc, nm, spec, st, wm_rel,
+        ts_off, progs, feed), 1)[0]
+    keys = [_query_keys(o, batch, n, within) for o in others]
+    lib = kernel_ms(lambda: [torch.searchsorted(sk, qk) for sk, qk in keys],
+                    10)[0]
+    S, cap = len(mines), mines[0]["code"].shape[0]
+    state_bytes = sum(int(v.nbytes) for row in state for p in row
+                      for v in p.values())
+    nbytes = 2 * sum(_store_bytes(x) for x in mines) + sum(
+        _store_bytes(x) for x in others) + int(batch.nbytes) \
+        + 2 * state_bytes
+    ops = S * 2 * n * np.log2(cap) + total * (np.log2(batch.shape[1]) + 1)
+    b_ms, b_by = bound(nbytes, ops)
+    results["sharded_join_probe_step"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        call_ms=call, ms_source=srcm, shards=S, cap=cap, n=n,
+        matches=total, match_cap=mc, stages_ms=stages)
+    log(f"sharded_join_probe_step at 15b's shapes ({S} shards of {cap} "
+        f"slots, {n} records, {total} matches, match_cap {mc} a shard): "
+        f"kernels and plain agree; {ms:.4f} ms (plain {plain:.4f}, {S} "
+        f"torch.searchsorted {lib:.4f}, bound {b_ms:.4f} by {b_by}; by "
+        f"stage {json.dumps(stages)})")
+    del outs, st
+
+    kid, valid, n_data, n_key, kl = captured["join_route"]
+    got = pl.join_route(kid, valid, n_data, n_key, kl)
+    want = pl.join_route_ref(kid, valid, n_data, n_key, kl)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+        "join_route at 15b's shapes"
+    ms, call, srcm = kernel_ms(lambda: pl.join_route(
+        kid, valid, n_data, n_key, kl), 50)
+    plain = kernel_ms(lambda: pl.join_route_ref(
+        kid, valid, n_data, n_key, kl), 10)[0]
+    m = kid.shape[0]
+    b_ms, b_by = bound(m * (4 + 1 + 4 * n_key + n_data), m * (n_key + n_data))
+    results["join_route"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, call_ms=call, ms_source=srcm, entries=m,
+        n_data=n_data, n_key=n_key, counter="join_route")
+    log(f"join_route of 15b's {m}-entry feed to {n_data} x {n_key} "
+        f"partials: exact against plain; {ms:.4f} ms (plain {plain:.4f}, "
+        f"bound {b_ms:.5f} by {b_by})")
+
+    lefts, rights, e_cutoff, delta = captured["sharded_join_evict"]
+    outs = ([jl_empty(x) for x in lefts], [jl_empty(x) for x in rights])
+    gl, gr, gn = pl.sharded_join_evict(lefts, rights, e_cutoff, delta,
+                                       outs=outs)
+    wl, wr, wn = pl.sharded_join_evict_ref(lefts, rights, e_cutoff, delta)
+    torch.cuda.synchronize()
+    assert torch.equal(gn, wn) and all(
+        stores_equal(a, b) for a, b in zip(wl + wr, gl + gr)), \
+        "sharded_join_evict at 15b's shapes"
+    ms, call, srcm = kernel_ms(lambda: pl.sharded_join_evict(
+        lefts, rights, e_cutoff, delta, outs=outs), 10)
+    plain = kernel_ms(lambda: pl.sharded_join_evict_ref(
+        lefts, rights, e_cutoff, delta), 2)[0]
+    skeys = torch.stack([(x["code"].long() << 32) | (x["ts"].long()
+                                                     + (1 << 31))
+                         for x in lefts + rights])
+    lib = kernel_ms(lambda: torch.sort(skeys, dim=1, stable=True), 10)[0]
+    ecap = lefts[0]["code"].shape[0]
+    b_ms, b_by = bound(2 * sum(_store_bytes(x) for x in lefts + rights),
+                       2 * len(lefts) * ecap)
+    results["sharded_join_evict"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        call_ms=call, ms_source=srcm, shards=len(lefts), cap=ecap,
+        live=gn.tolist())
+    log(f"sharded_join_evict of 15b's {len(lefts)} x 2 stores of {ecap} "
+        f"slots (live {gn.tolist()}): exact against plain; {ms:.4f} ms "
+        f"(plain {plain:.4f}, torch.sort of every side's keys {lib:.4f}, "
+        f"bound {b_ms:.4f} by {b_by})")
+    del outs, gl, gr, wl, wr
+
+    (mines, others, batch, n, within, cutoff, mc,
+     nm) = captured["sharded_join_probe_insert"]
+    outs = [jl_empty(x) for x in mines]
+    got_m, got_p = pl.sharded_join_probe_insert(
+        mines, others, batch, n, within, cutoff, mc, nm, outs=outs)
+    want_m = pl.sharded_join_insert_ref(mines, batch, n, nm)
+    want_p = pl.sharded_join_probe_ref(others, batch, n, within, cutoff,
+                                       mc, nm)
+    torch.cuda.synchronize()
+    assert torch.equal(got_p, want_p) and all(
+        stores_equal(a, b) for a, b in zip(got_m, want_m)), \
+        "sharded_join_probe_insert at 15c's shapes"
+    S = len(mines)
+    total = sum(int(want_p[0, s * mc]) for s in range(S))
+    ms, call, srcm = kernel_ms(lambda: pl.sharded_join_probe_insert(
+        mines, others, batch, n, within, cutoff, mc, nm, outs=outs), 10)
+    plain = kernel_ms(lambda: (
+        pl.sharded_join_insert_ref(mines, batch, n, nm),
+        pl.sharded_join_probe_ref(others, batch, n, within, cutoff, mc,
+                                  nm)), 2)[0]
+    keys = [_query_keys(o, batch, n, within) for o in others]
+    lib = kernel_ms(lambda: [torch.searchsorted(sk, qk) for sk, qk in keys],
+                    10)[0]
+    cap = mines[0]["code"].shape[0]
+    nbytes = 2 * sum(_store_bytes(x) for x in mines) + sum(
+        _store_bytes(x) for x in others) + int(batch.nbytes) \
+        + int(want_p.nbytes)
+    b_ms, b_by = bound(nbytes, S * 2 * n * np.log2(cap)
+                       + total * np.log2(batch.shape[1]))
+    results["sharded_join_probe_insert"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        call_ms=call, ms_source=srcm, shards=S, cap=cap, n=n, matches=total,
+        match_cap=mc)
+    log(f"sharded_join_probe_insert at 15c's shapes ({S} shards of {cap} "
+        f"slots, {n} records, {total} matches, match_cap {mc} a shard): "
+        f"exact against plain; {ms:.4f} ms (plain {plain:.4f}, {S} "
+        f"torch.searchsorted {lib:.4f}, bound {b_ms:.4f} by {b_by})")
+    others, batch, n, within, cutoff, mc, nm = \
+        captured["sharded_join_probe_only"]
+    got = pl.sharded_join_probe_only(others, batch, n, within, cutoff, mc,
+                                     nm)
+    want = pl.sharded_join_probe_ref(others, batch, n, within, cutoff, mc,
+                                     nm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "sharded_join_probe_only at 15c's shapes"
+    ms, call, srcm = kernel_ms(lambda: pl.sharded_join_probe_only(
+        others, batch, n, within, cutoff, mc, nm), 10)
+    plain = kernel_ms(lambda: pl.sharded_join_probe_ref(
+        others, batch, n, within, cutoff, mc, nm), 2)[0]
+    total = sum(int(want[0, s * mc]) for s in range(S))
+    b_ms, b_by = bound(sum(_store_bytes(x) for x in others)
+                       + int(batch.nbytes) + int(want.nbytes),
+                       S * 2 * n * np.log2(others[0]["code"].shape[0])
+                       + total * np.log2(batch.shape[1]))
+    results["sharded_join_probe_only"].update(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        call_ms=call, ms_source=srcm, shards=S, n=n, matches=total,
+        match_cap=mc)
+    log(f"sharded_join_probe_only of 15c's redispatch ({total} matches, "
+        f"match_cap {mc} a shard): exact against plain; {ms:.4f} ms (plain "
+        f"{plain:.4f}, bound {b_ms:.4f} by {b_by})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7414,6 +8549,8 @@ def main() -> int:
     check_unpack(dev, results)
     check_slot_close(dev, results, states, chg)
     check_sharded(dev, results)
+    check_sharded_session(dev, results)
+    check_sharded_join(dev, results)
 
     for cfg in (1, 2):
         r = main_path(cfg, dev)
@@ -7609,6 +8746,47 @@ def main() -> int:
         f"{r['push_finals']} push finals equal numpy; a mesh snapshot of "
         f"{r['snapshot_bytes']} bytes restored onto one card and back onto "
         f"a mesh, both equal numpy; launches {r['launches']} [{card}]")
+
+    r = sharded_session_path(dev, results)
+    paths.append(r)
+    log(f"sharded session path (15a): {r['events_per_sec']:.0f} events/s "
+        f"with four key shards on one card (make_mesh(1, 4); a diagnostic, "
+        f"not comparable to one shard a card) over {P15_SESS_BATCHES} x "
+        f"2^20 records, {r['rows']} sessions checked "
+        f"{json.dumps(r['check'])}, {r['rows_equal_single_card']} equal to "
+        f"the single-card executor's, session_stats {r['session_stats']}, "
+        f"arena bytes {r['arena_bytes']}; segment mode "
+        f"{r['segment']['events_per_sec']:.0f} events/s over "
+        f"{P15_SEG_BATCHES} batches, {r['segment']['rows']} sessions "
+        f"checked ({r['segment']['rows_equal_single_card']} equal to the "
+        f"single-card executor's); launches {r['launches']} [{card}]")
+    p15_captured: dict = {}
+    r = sharded_join_path(dev, p15_captured)
+    paths.append(r)
+    log(f"sharded join path (15b): {r['events_per_sec']:.0f} events/s over "
+        f"{r['join_stats']['probe_batches']} device batches of 2^20 records "
+        f"on make_mesh(2, 2) (four shards on one card, a diagnostic; the "
+        f"two host-join batches before activation {r['host_batches_s']:.1f}"
+        f" s), {r['check']['windows']} (key, window) finals equal numpy and "
+        f"the single-card executor's, join_stats {r['join_stats']}, store "
+        f"cap {r['store_cap']} a shard, launches {r['launches']} [{card}]")
+    r = sharded_fetch_path(dev, p15_captured)
+    paths.append(r)
+    log(f"sharded match-fetch path (15c): {r['events_per_sec']:.0f} "
+        f"events/s, join_stats {r['join_stats']}, check "
+        f"{json.dumps(r['check'])}, launches {r['launches']} [{card}]")
+    time_sharded_join(dev, results, p15_captured)
+    del p15_captured
+    r = sharded_session_server_path(dev)
+    paths.append(r)
+    log(f"sharded session server (15d): serve(mesh_shape='2x2') ingested "
+        f"{P15_SRV_BLOCKS} x 2^18 framed records at "
+        f"{r['events_per_sec']:.0f} events/s (a diagnostic), "
+        f"{r['sessions_served']} closed sessions of the pull equal numpy; a "
+        f"{r['snapshot_bytes']}-byte mesh snapshot restored onto one card "
+        f"and back onto a mesh, each resuming with {r['resumed_one_card']} "
+        f"/ {r['resumed_mesh']} sessions equal numpy; launches "
+        f"{r['launches']} [{card}]")
 
     kernels = []
     for name, r in results.items():

@@ -94,9 +94,11 @@ def session_state(src) -> dict:
         return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
             else np.asarray(v)
 
+    arena = dev["arena"]
+    if isinstance(arena, list):   # key shards: the reference's [S, cap]
+        arena = {k: np.stack([host(a[k]) for a in arena]) for k in arena[0]}
     return {
-        "arena": {k: np.array(host(v), copy=True)
-                  for k, v in dev["arena"].items()},
+        "arena": {k: np.array(host(v), copy=True) for k, v in arena.items()},
         "mir_code": np.array(dev["mir_code"], np.int64),
         "mir_t0": np.array(dev["mir_t0"], np.int64),
         "mir_t1": np.array(dev["mir_t1"], np.int64),
@@ -174,6 +176,17 @@ def _host(v) -> np.ndarray:
     return np.array(v, copy=True)
 
 
+def _lattice_host(state) -> dict:
+    """A window lattice's planes as numpy; a mesh's partials (the port's
+    ShardedState) in the reference's layout: [D, K, ...] a keyed plane
+    (the key shards concatenated), slot_start [D, W]."""
+    if isinstance(state, dict):
+        return {k: _host(v) for k, v in state.items()}
+    return {k: np.stack([np.concatenate([_host(p[k]) for p in row])
+                         if k != "slot_start" else _host(row[0][k])
+                         for row in state]) for k in state[0][0]}
+
+
 def join_state(src) -> dict:
     """The position of a device-mode JoinExecutor (the JAX package's or
     the port's) as numpy and Python values. Staged matches, deferred
@@ -191,7 +204,9 @@ def join_state(src) -> dict:
         shadows[side] = {"code": np.array(sh.code, np.int64),
                          "ts": np.array(sh.ts, np.int64), "t0": sh.t0}
     return {
-        "stores": {side: {k: _host(v) for k, v in st.items()}
+        "stores": {side: ({k: np.stack([_host(x[k]) for x in st])
+                           for k in st[0]} if isinstance(st, list)
+                          else {k: _host(v) for k, v in st.items()})
                    for side, st in dev["stores"].items()},
         "lay": {side: [tuple(e) for e in dev["lay"][side]]
                 for side in ("l", "r")},
@@ -205,7 +220,7 @@ def join_state(src) -> dict:
         "fields": {side: sorted(f) for side, f in src._fields.items()},
         "join_stats": dict(src.join_stats),
         "inner": {
-            "state": {k: _host(v) for k, v in inner.state.items()},
+            "state": _lattice_host(inner.state),
             "schema": [(name, t.name) for name, t in inner.schema.fields],
             "strings": {name: [d.decode(i) for i in range(len(d))]
                         for name, d in inner.dicts.items()},

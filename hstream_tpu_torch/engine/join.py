@@ -43,9 +43,12 @@ Differences from the reference, each deliberate:
   * Each side keeps two stores on the card and the kernels write the
     other one (ping-pong); a store that a deferred match buffer may
     still re-probe is not reused (see `_store_out`).
-  * A mesh with one key shard takes the single-card stores and a
-    sharded inner aggregate (match-fetch path); key-sharded stores
-    (ShardedJoinLattice) raise NotPortedError (ROADMAP A11b, B19b).
+  * A mesh whose key axis has more than one shard key-shards both side
+    stores (parallel/lattice.py ShardedJoinLattice: shard s owns the
+    codes with code mod n_shards == s) and the inner aggregate; a
+    sharded join fuses only into a sharded inner lattice. A mesh with one
+    key shard takes the single-card stores and a sharded inner aggregate
+    (match-fetch path), as in the reference.
   * Left out, as the session port left them: the fault-injection point and the
     `kernel_family` dispatch observers (A5); `_host_store_view` and
     snapshots (A3).
@@ -62,7 +65,7 @@ import torch
 
 from hstream_tpu_torch import device as devmod
 from hstream_tpu_torch.common.columnar import extend_rows
-from hstream_tpu_torch.common.errors import NotPortedError, SQLCodegenError
+from hstream_tpu_torch.common.errors import SQLCodegenError
 from hstream_tpu_torch.common.faultinject import FAULTS
 from hstream_tpu_torch.common.tracing import kernel_family
 from hstream_tpu_torch.engine.expr import BinOp, Col, Expr, eval_host
@@ -154,16 +157,16 @@ class _JoinBase:
                  device: str | torch.device | None = None, mesh=None):
         join = plan.join
         self.plan = plan
-        # a mesh whose key axis has >1 shards would key-shard both side
-        # stores (the reference's ShardedJoinLattice, not ported yet);
-        # with one key shard the stores stay single-card and the inner
+        # a mesh whose key axis has >1 shards key-shards both side stores
+        # (code mod n_shards owns the entry) and the inner aggregate; with
+        # one key shard the stores stay single-card and the inner
         # aggregate goes sharded through make_executor(mesh=), as in the
         # reference (join.py:221, :1172)
-        if mesh is not None and mesh.shape["key"] > 1:
-            raise NotPortedError(
-                f"key-sharded join stores (mesh key axis "
-                f"{mesh.shape['key']})", "A11b, B19b")
         self.mesh = mesh
+        # launches of the key-sharded stores' programs (probe, fused step,
+        # evict); the query task mirrors deltas into the
+        # sharded_dispatches stat family
+        self._sharded_dispatches = 0
         # the card unless the caller asks for the CPU (the inner executor
         # and the device stores live there)
         self.device = devmod.resolve(device)
@@ -239,9 +242,10 @@ class _JoinBase:
 
     @property
     def sharded_dispatches(self) -> int:
-        """The sharded dispatches of the inner aggregate (the join's own
-        stores stay single-card)."""
-        return int(getattr(self._inner, "sharded_dispatches", 0) or 0)
+        """Sharded launches: the join's key-sharded stores' and the inner
+        aggregate's own (step, extract)."""
+        return self._sharded_dispatches + int(getattr(
+            self._inner, "sharded_dispatches", 0) or 0)
 
     def _inner_process(self, joined, jts):
         if self._inner is None:
@@ -494,14 +498,21 @@ class _FlatIntervalStore:
             self.comp = self.comp[keep]
             self.rows = self.rows[keep]
 
-    def remap_codes(self, new_of_old: np.ndarray) -> None:
-        """Apply a code compaction; a dense remap preserves sorted order
-        (the reference's shard-class-preserving re-sort goes with the
-        sharded mirror, ROADMAP A11)."""
+    def remap_codes(self, new_of_old: np.ndarray,
+                    resort: bool = False) -> None:
+        """Apply a code compaction. A dense remap preserves sorted order;
+        a shard-class-preserving remap (key-sharded device stores) does
+        not, so ``resort`` re-sorts by the new composite."""
         self.code = new_of_old[self.code]
         if self.t0 is None:
             return
         self.comp = self.code * self.SPAN + (self.ts - self.t0)
+        if resort and len(self.comp):
+            order = np.argsort(self.comp, kind="stable")
+            self.code = self.code[order]
+            self.ts = self.ts[order]
+            self.comp = self.comp[order]
+            self.rows = self.rows[order]
 
     @property
     def by_key(self) -> dict:
@@ -605,8 +616,10 @@ class JoinExecutor(_JoinBase):
         dev = self._dev
         if dev is not None:
             for side in ("l", "r"):
-                for k, v in plane_bytes(dev["stores"][side]).items():
-                    out[f"{side}.{k}"] = v
+                st = dev["stores"][side]
+                for shard in (st if isinstance(st, list) else [st]):
+                    for k, v in plane_bytes(shard).items():
+                        out[f"{side}.{k}"] = out.get(f"{side}.{k}", 0) + v
         return out
 
     # contract: dispatches<=0 fetches<=0
@@ -795,37 +808,59 @@ class JoinExecutor(_JoinBase):
 
     def _compact_codes(self) -> None:
         """Code-space compaction: keep only codes still live in either
-        store (retention bounds them), reassign codes densely in sorted
-        order (store order is preserved), remap stores + shadows + lut +
-        dict. The device path fetches both sides' code planes in one
-        stacked transfer (they share cap) and remaps them on the device."""
+        store (retention bounds them), reassign codes, remap stores +
+        shadows + lut + dict. The device path fetches both sides' code
+        planes in one stacked transfer (they share cap) and remaps them
+        on the device.
+
+        Single-card remaps densely in sorted order (store order is
+        preserved). Key-sharded stores must keep every code's shard, so
+        the remap there keeps residues (new = rank within class *
+        n_shards + class): each shard's order survives the remap, but
+        the global (code, ts) order does not, so the host shadows
+        re-sort, and the code space keeps holes where the classes are
+        unbalanced."""
         from hstream_tpu_torch.engine import join_lattice as jl
 
+        sjl = self._dev.get("sjl") if self._dev is not None else None
         parts = [self._stores["l"].code, self._stores["r"].code]
         if self._dev is not None:
             self._refresh_counts()
             if self._dev["n"]["l"] or self._dev["n"]["r"]:
-                codes = torch.stack(
-                    [self._dev["stores"]["l"]["code"],
-                     self._dev["stores"]["r"]["code"]]).cpu().numpy()
+                st = self._dev["stores"]
+                planes = ([st["l"]["code"], st["r"]["code"]] if sjl is None
+                          else [x["code"] for x in st["l"] + st["r"]])
+                # key shards on other cards are copied to shard 0's first
+                codes = torch.stack([p.to(planes[0].device)
+                                     for p in planes]).cpu().numpy()
                 # eviction is lazy: dead-but-resident entries past the
                 # live prefix must stay mapped too, so take every
                 # non-sentinel slot
                 parts.append(np.unique(
                     codes[codes < jl.JOIN_SENT_CODE]).astype(np.int64))
         live = np.union1d(parts[0], np.concatenate(parts[1:]))
-        new_codes = np.arange(len(live), dtype=np.int64)
+        if sjl is not None:
+            cls = live % sjl.n_shards
+            new_codes = np.empty(len(live), np.int64)
+            for s in range(sjl.n_shards):
+                msk = cls == s
+                new_codes[msk] = (np.arange(int(msk.sum()), dtype=np.int64)
+                                  * sjl.n_shards + s)
+        else:
+            new_codes = np.arange(len(live), dtype=np.int64)
         new_of_old = np.full(len(self._jcode_rev), -1, np.int64)
         new_of_old[live] = new_codes
+        resort = sjl is not None
         for st in self._stores.values():
-            st.remap_codes(new_of_old)
+            st.remap_codes(new_of_old, resort=resort)
         if self._dev is not None:
             for st in self._dev["shadow"].values():
                 # the shadows size every match buffer: leaving them on
                 # the old code space would corrupt probe totals
-                st.remap_codes(new_of_old)
+                st.remap_codes(new_of_old, resort=resort)
             self._remap_device_codes(new_of_old)
-        new_rev: list = [None] * len(live)
+        new_rev: list = [None] * (int(new_codes.max()) + 1 if len(live)
+                                  else 0)
         for nc, oc in zip(new_codes.tolist(), live.tolist()):
             new_rev[nc] = self._jcode_rev[oc]
         self._jcode.clear()
@@ -1133,9 +1168,18 @@ class JoinExecutor(_JoinBase):
         if self.watermark >= 0:
             cands.append(self.watermark)
         t0 = (min(cands) - self.retention_ms) if cands else None
+        sjl = None
+        if self.mesh is not None and self.mesh.shape["key"] > 1:
+            from hstream_tpu_torch.parallel.lattice import ShardedJoinLattice
+
+            # per-shard capacity keeps the single-card formula: the worst
+            # key distribution lands every entry on one shard, so this
+            # trades memory (n_shards x) for never growing on skew
+            sjl = ShardedJoinLattice(self.mesh, len(lay["l"]), len(lay["r"]))
         self._dev = {
             "lay": lay,
             "cap": cap,
+            "sjl": sjl,
             "t0": t0,
             "n": {"l": 0, "r": 0},
             # match buffers start small and stick at the pow2 the
@@ -1143,7 +1187,8 @@ class JoinExecutor(_JoinBase):
             # sizes them EXACTLY per batch, so they never overflow)
             "match_cap": 4096,
             "evict_cutoff": -(1 << 62),
-            "stores": {s: jl.init_join_store(cap, len(lay[s]), self.device)
+            "stores": {s: (sjl.init_store(s, cap) if sjl is not None else
+                           jl.init_join_store(cap, len(lay[s]), self.device))
                        for s in ("l", "r")},
             # the other store of each side, which the kernels write
             # (None: allocate one when needed, _store_out)
@@ -1184,10 +1229,11 @@ class JoinExecutor(_JoinBase):
         if (getattr(inner, "spec", None) is None
                 or not hasattr(inner, "_null_specs")):
             return None
-        if getattr(inner, "_sharded", None) is not None:
-            # single-card stores fuse only into a single-card lattice; a
-            # sharded inner aggregate takes the match-fetch path, as in
-            # the reference (join.py:1233-1237)
+        if ((self._dev.get("sjl") is not None)
+                != (getattr(inner, "_sharded", None) is not None)):
+            # a sharded join fuses only into a sharded inner lattice and
+            # single-card stores only into a single-card one; a mismatch
+            # takes the match-fetch path (join.py:1233-1237)
             return None
         lay_idx = {s: {name: j for j, (name, _c)
                        in enumerate(self._dev["lay"][s])}
@@ -1253,6 +1299,28 @@ class JoinExecutor(_JoinBase):
         flags, vals = self._encode_join_cols(
             lay, [st.rows[i] for i in range(n)])
         cap = dev["cap"]
+        sjl = dev.get("sjl")
+        if sjl is not None:
+            # each entry into its owning shard's store; each residue class
+            # of a (code, ts)-sorted sequence is itself sorted, so a
+            # shard's order needs no sort
+            ns = sjl.n_shards
+            scode = np.full((ns, cap), jl.JOIN_SENT_CODE, np.int32)
+            sts = np.zeros((ns, cap), np.int32)
+            sfl = np.zeros((ns, cap), np.int32)
+            scv = np.zeros((ns, len(lay), cap), np.int32)
+            cls = (st.code % ns).astype(np.int64)
+            for s in range(ns):
+                m = np.nonzero(cls == s)[0]
+                k = len(m)
+                scode[s, :k] = st.code[m].astype(np.int32)
+                sts[s, :k] = (st.ts[m] - dev["t0"]).astype(np.int32)
+                sfl[s, :k] = flags[m]
+                scv[s, :, :k] = vals[:, m]
+            dev["stores"][side] = sjl.put_store(
+                {"code": scode, "ts": sts, "flags": sfl, "cols": scv})
+            dev["n"][side] = n
+            return
         code = np.full(cap, jl.JOIN_SENT_CODE, np.int32)
         code[:n] = st.code.astype(np.int32)
         ts = np.zeros(cap, np.int32)
@@ -1517,6 +1585,11 @@ class JoinExecutor(_JoinBase):
             return None
         dev = self._dev
         out, dev["spare"][side] = dev["spare"][side], None
+        sjl = dev.get("sjl")
+        if sjl is not None:
+            if out is None or out[0]["code"].shape[0] != dev["cap"]:
+                out = sjl.empty_store(side, dev["cap"])
+            return out
         if out is None or out["code"].shape[0] != dev["cap"]:
             out = jl.empty_join_store(dev["cap"], len(dev["lay"][side]),
                                       self.device)
@@ -1577,7 +1650,18 @@ class JoinExecutor(_JoinBase):
         if cutoff_abs is not None:
             lo_ts = np.maximum(lo_ts, cutoff_abs)
         pr = shadow_o.probe(codes, lo_ts, bts + self.within)
-        total = 0 if pr is None else int((pr[1] - pr[0]).sum())
+        sjl = dev.get("sjl")
+        if pr is None:
+            total = 0
+        elif sjl is not None:
+            # the match buffer is PER SHARD: sized to the worst shard's
+            # total (each shard packs its own segment)
+            total = int(np.bincount(
+                (codes % sjl.n_shards).astype(np.int64),
+                weights=(pr[1] - pr[0]).astype(np.float64),
+                minlength=sjl.n_shards).max())
+        else:
+            total = int((pr[1] - pr[0]).sum())
         dev["shadow"][side].insert_sorted(codes, bts,
                                           np.empty(n, object))
         if cutoff_abs is not None and cutoff_abs > 0:
@@ -1615,9 +1699,16 @@ class JoinExecutor(_JoinBase):
             return self._fused_batch(side, other_side, bt, buf, n, cutoff)
         with kernel_family("probe", self.dispatch_observer,
                            ready=self._device_values):
-            new, packed = jl.join_probe_insert(
-                dev["stores"][side], other, bt, n, self.within, cutoff,
-                dev["match_cap"], len(lay), out=self._store_out(side))
+            if sjl is not None:
+                new, packed = sjl.probe_insert(
+                    side, dev["stores"][side], other, bt, n, self.within,
+                    cutoff, match_cap=dev["match_cap"],
+                    out=self._store_out(side))
+                self._sharded_dispatches += 1
+            else:
+                new, packed = jl.join_probe_insert(
+                    dev["stores"][side], other, bt, n, self.within, cutoff,
+                    dev["match_cap"], len(lay), out=self._store_out(side))
         self._swap(side, new)
         self._note_insert(side, n)
         # the pending entry keeps (batch, probed store) alive so a
@@ -1691,14 +1782,25 @@ class JoinExecutor(_JoinBase):
                   if inner.watermark_abs >= 0 else -1)
         ts_off = dev["t0"] - inner.epoch
         inner.read_epoch += 1
+        sjl = dev.get("sjl")
         with kernel_family("probe", self.dispatch_observer,
                            ready=self._device_values):
-            new, _total = jl.join_probe_insert_step(
-                dev["stores"][side], dev["stores"][other_side], bt, n,
-                self.within, cutoff, dev["match_cap"],
-                len(dev["lay"][side]), inner.spec, inner.state, wm_rel,
-                ts_off, inner._progs, dev["feed"][side],
-                out=self._store_out(side))
+            if sjl is not None:
+                feed, nulls_plan, filter_nulls = dev["feed"][side]
+                new, inner.state, _total = sjl.probe_insert_step(
+                    side, inner._sharded, dev["stores"][side],
+                    dev["stores"][other_side], bt, n, self.within, cutoff,
+                    inner.state, wm_rel, ts_off, feed_plan=feed,
+                    nulls_plan=nulls_plan, filter_nulls=filter_nulls,
+                    match_cap=dev["match_cap"], out=self._store_out(side))
+                self._sharded_dispatches += 1
+            else:
+                new, _total = jl.join_probe_insert_step(
+                    dev["stores"][side], dev["stores"][other_side], bt, n,
+                    self.within, cutoff, dev["match_cap"],
+                    len(dev["lay"][side]), inner.spec, inner.state, wm_rel,
+                    ts_off, inner._progs, dev["feed"][side],
+                    out=self._store_out(side))
         self._swap(side, new)
         self._note_insert(side, n)
         self.join_stats["fused_batches"] += 1
@@ -1754,10 +1856,19 @@ class JoinExecutor(_JoinBase):
             # preserve submission order across shape groups
             host = [groups[id(ent)] for ent in pending]
         out = None
+        sjl = self._dev.get("sjl")
         for hbuf, side, t0, buf, n, other, cutoff in host:
             nm = len(self._dev["lay"][side])
-            total = int(hbuf[0, 0])
-            if total > hbuf.shape[1]:
+            if sjl is not None:
+                # per-shard headers sit at column s * match_cap; any
+                # shard's truncation forces the whole buffer's redo
+                width = hbuf.shape[1] // sjl.n_shards
+                total = max(int(hbuf[0, s * width])
+                            for s in range(sjl.n_shards))
+            else:
+                total = int(hbuf[0, 0])
+                width = hbuf.shape[1]
+            if total > width:
                 hbuf = self._reprobe_wider(side, buf, n, other, cutoff,
                                            total)
             out = extend_rows(out, self._decode_matches(side, t0, hbuf,
@@ -1776,6 +1887,11 @@ class JoinExecutor(_JoinBase):
         dev["match_cap"] = max(dev["match_cap"], match_cap)
         self.join_stats["match_redispatches"] += 1
         self.join_stats["probe_fetches"] += 1
+        sjl = dev.get("sjl")
+        if sjl is not None:
+            self._sharded_dispatches += 1
+            return sjl.probe_only(side, other, buf, n, self.within, cutoff,
+                                  match_cap).cpu().numpy()
         return jl.join_probe_only(other, buf, n, self.within, cutoff,
                                   match_cap,
                                   len(dev["lay"][side])).cpu().numpy()
@@ -1789,8 +1905,13 @@ class JoinExecutor(_JoinBase):
         from hstream_tpu_torch.engine import join_lattice as jl
         from hstream_tpu_torch.engine.types import ColumnType
 
-        total, kid, jts, mflags, oflags, mcols, ocols = \
-            jl.unpack_join_matches(hbuf, nm)
+        sjl = self._dev.get("sjl") if self._dev is not None else None
+        if sjl is not None:
+            total, kid, jts, mflags, oflags, mcols, ocols = \
+                sjl.unpack_matches(hbuf, side)
+        else:
+            total, kid, jts, mflags, oflags, mcols, ocols = \
+                jl.unpack_join_matches(hbuf, nm)
         m = len(kid)
         if m == 0:
             return []
@@ -1892,9 +2013,16 @@ class JoinExecutor(_JoinBase):
         cutoff_rel = max(cutoff_abs - dev["t0"], 0)
         out = ([self._store_out("l"), self._store_out("r")]
                if self.device.type != "cpu" else None)
-        left, right, narr = jl.join_evict(
-            dev["stores"]["l"], dev["stores"]["r"],
-            min(cutoff_rel, (1 << 31) - 1), delta, out=out)
+        sjl = dev.get("sjl")
+        if sjl is not None:
+            left, right, narr = sjl.evict(
+                dev["stores"]["l"], dev["stores"]["r"],
+                min(cutoff_rel, (1 << 31) - 1), delta, out=out)
+            self._sharded_dispatches += 1
+        else:
+            left, right, narr = jl.join_evict(
+                dev["stores"]["l"], dev["stores"]["r"],
+                min(cutoff_rel, (1 << 31) - 1), delta, out=out)
         self._swap("l", left)
         self._swap("r", right)
         # the deferred count snapshot reflects the store AT THIS call;
@@ -1924,6 +2052,8 @@ class JoinExecutor(_JoinBase):
         if pend is not None:
             narr, since = pend
             n = narr.cpu().numpy()
+            if n.ndim == 2:       # key shards: [n_shards, 2]
+                n = n.sum(axis=0)
             dev["n"] = {"l": int(n[0]) + since["l"],
                         "r": int(n[1]) + since["r"]}
 
@@ -1934,13 +2064,17 @@ class JoinExecutor(_JoinBase):
 
         dev = self._dev
         extra = new_cap - dev["cap"]
+
+        def grown(st):
+            pad = jl.init_join_store(extra, st["cols"].shape[0],
+                                     st["code"].device)
+            return {k: torch.cat([st[k], pad[k]], dim=-1).contiguous()
+                    for k in st}
+
         for s in ("l", "r"):
             st = dev["stores"][s]
-            pad = jl.init_join_store(extra, st["cols"].shape[0],
-                                     self.device)
-            dev["stores"][s] = {
-                k: torch.cat([st[k], pad[k]], dim=-1).contiguous()
-                for k in st}
+            dev["stores"][s] = ([grown(x) for x in st]
+                                if isinstance(st, list) else grown(st))
             dev["spare"][s] = None
         dev["cap"] = new_cap
         self.join_stats["store_grows"] += 1
@@ -1955,7 +2089,10 @@ class JoinExecutor(_JoinBase):
 
         lut = torch.from_numpy(new_of_old.astype(np.int32)).to(self.device)
         for s in ("l", "r"):
-            sl.session_remap(self._dev["stores"][s], lut, sent_above=True)
+            st = self._dev["stores"][s]
+            for shard in (st if isinstance(st, list) else [st]):
+                sl.session_remap(shard, lut.to(shard["code"].device),
+                                 sent_above=True)
 
     def _host_store_view(self) -> dict[str, "_FlatIntervalStore"]:
         """The two side stores as host _FlatIntervalStores (snapshot
@@ -1967,6 +2104,7 @@ class JoinExecutor(_JoinBase):
         can emit on the fast path."""
         if self._dev is None:
             return self._stores
+        from hstream_tpu_torch.engine import join_lattice as jl
         from hstream_tpu_torch.engine.types import ColumnType
 
         self._refresh_counts()
@@ -1978,8 +2116,26 @@ class JoinExecutor(_JoinBase):
             st = _FlatIntervalStore(self._jcode_rev)
             n = self._dev["n"][side]
             if n:
-                arrs = {k: v.cpu().numpy()
-                        for k, v in self._dev["stores"][side].items()}
+                stores = self._dev["stores"][side]
+                if self._dev.get("sjl") is not None:
+                    # the per-shard stores flattened into one (code, ts)-
+                    # sorted sequence: the live entries are each shard's
+                    # non-sentinel slots, the shards interleave in code
+                    # order
+                    code = np.stack([x["code"].cpu().numpy()
+                                     for x in stores])
+                    shard, slot = np.nonzero(code < jl.JOIN_SENT_CODE)
+                    fl = {k: np.stack([x[k].cpu().numpy() for x in stores])
+                          [shard, slot] for k in ("code", "ts", "flags")}
+                    cols = np.stack([x["cols"].cpu().numpy()
+                                     for x in stores])
+                    order = np.lexsort((fl["ts"], fl["code"]))
+                    arrs = {k: v[order] for k, v in fl.items()}
+                    arrs["cols"] = cols.transpose(1, 0, 2)[
+                        :, shard, slot][:, order]
+                    n = len(order)
+                else:
+                    arrs = {k: v.cpu().numpy() for k, v in stores.items()}
                 if cutoff is not None:
                     keep = (arrs["ts"][:n].astype(np.int64)
                             + self._dev["t0"]) >= cutoff

@@ -145,16 +145,40 @@ def _batch_valid(batch: torch.Tensor, n: int) -> torch.Tensor:
             & (batch[0] < JOIN_SENT_CODE))
 
 
+def owned_mask(codes: torch.Tensor, shard: tuple[int, int]) -> torch.Tensor:
+    """Which codes a key shard of a mesh owns: code mod n_shards == shard,
+    the floor modulo of the reference's jnp % (parallel/lattice.py:394)."""
+    n_shards, s = shard
+    return torch.remainder(codes, n_shards) == s
+
+
+def owned_batch(batch: torch.Tensor, n: int, shard: tuple[int, int]
+                ) -> tuple[torch.Tensor, int]:
+    """The batch's valid records that a key shard owns, in order, and
+    their count: the run the insert kernel merges for a key shard
+    (csrc/join_insert.cu). Unowned records are left out, where the
+    reference keeps them as dead (sentinel, ts) entries that the store's
+    first `cap` places take only for a ts below the store sentinels' 0;
+    the executor's rebase keeps every batch ts >= 0."""
+    keep = _batch_valid(batch, n) & owned_mask(batch[0], shard)
+    sub = batch[:, keep].contiguous()
+    return sub, sub.shape[1]
+
+
 def _join_match_arrays(other: Store, batch: torch.Tensor, n: int,
-                       within: int, cutoff: int, match_cap: int):
+                       within: int, cutoff: int, match_cap: int,
+                       owned: torch.Tensor | None = None):
     """The probe core: expand the per-record [lower, upper) spans into
     padded match index arrays. Returns (total, rec, oidx, mvalid, jts):
-    rec indexes the batch, oidx the probed store."""
+    rec indexes the batch, oidx the probed store. `owned` (bool [bcap] or
+    None) masks the records a key shard of a mesh probes."""
     cap = other["code"].shape[0]
     bcap = batch.shape[1]
     dev = batch.device
     bcode, bts = batch[0], batch[1]
     bvalid = _batch_valid(batch, n)
+    if owned is not None:
+        bvalid = bvalid & owned
     qcode = torch.where(bvalid, bcode, JOIN_SENT_CODE)
     b64 = bts.to(torch.int64)
     lo_i, hi_i = _join_bounds(
@@ -175,13 +199,13 @@ def _join_match_arrays(other: Store, batch: torch.Tensor, n: int,
 
 
 def join_probe_ref(other: Store, batch: torch.Tensor, n: int, within: int,
-                   cutoff: int, match_cap: int,
-                   n_cols_mine: int) -> torch.Tensor:
+                   cutoff: int, match_cap: int, n_cols_mine: int,
+                   owned: torch.Tensor | None = None) -> torch.Tensor:
     """Plain probe (_join_probe, lattice.py:939-959): the packed match
     buffer. `cutoff` hides store entries past retention (the device
-    store evicts lazily)."""
+    store evicts lazily); `owned` as in _join_match_arrays."""
     total, rec, oidx, mvalid, jts = _join_match_arrays(
-        other, batch, n, within, cutoff, match_cap)
+        other, batch, n, within, cutoff, match_cap, owned)
     zero = torch.zeros((), dtype=torch.int32, device=batch.device)
     header = torch.zeros(match_cap, dtype=torch.int32, device=batch.device)
     header[0] = total
@@ -256,13 +280,15 @@ def join_probe_insert_ref(mine: Store, other: Store, batch: torch.Tensor,
 
 def _join_match_feed(other: Store, batch: torch.Tensor, n: int,
                      within: int, cutoff: int, match_cap: int,
-                     feed_plan, nulls_plan, filter_nulls):
+                     feed_plan, nulls_plan, filter_nulls,
+                     owned: torch.Tensor | None = None):
     """Probe + inner feed (_join_match_feed, lattice.py:1016-1079): every
     inner-step column resolved straight from the match sources. Returns
     (total, kid, jts, valid, cols); `cols` holds the __null_a{i} masks,
-    `valid` has filter-NULL records masked out."""
+    `valid` has filter-NULL records masked out; `owned` as in
+    _join_match_arrays."""
     total, rec, oidx, mvalid, jts = _join_match_arrays(
-        other, batch, n, within, cutoff, match_cap)
+        other, batch, n, within, cutoff, match_cap, owned)
     mflags = batch[3][rec]
     oflags = other["flags"][oidx]
     zero = torch.zeros(match_cap, dtype=torch.int32, device=batch.device)
@@ -447,7 +473,8 @@ PROBE_BRANCHES = (kb.PROBE_AUTO, kb.PROBE_WINDOW, kb.PROBE_WHOLE)
 
 def _probe_args(other: Store, batch: torch.Tensor, n: int, within: int,
                 cutoff: int, match_cap: int, n_cols_mine: int,
-                mode: int, branch: int | None
+                mode: int, branch: int | None,
+                shard: tuple[int, int] = (1, 0)
                 ) -> tuple[kb.JoinProbeArgs, torch.Tensor]:
     cap = _check_store(other, "join probe")
     bcap = _check_batch(batch, n_cols_mine, n)
@@ -463,6 +490,7 @@ def _probe_args(other: Store, batch: torch.Tensor, n: int, within: int,
     if a.branch not in PROBE_BRANCHES:
         raise ValueError(f"join probe: unknown branch {branch}")
     a.n_cols_mine, a.n_cols_other = n_cols_mine, other["cols"].shape[0]
+    a.n_shards, a.shard = shard
     a.batch = batch.data_ptr()
     a.o_code, a.o_ts, a.o_flags = (kb.ptr(other[k])
                                    for k in ("code", "ts", "flags"))
@@ -474,21 +502,32 @@ def _probe_args(other: Store, batch: torch.Tensor, n: int, within: int,
     return a, scratch
 
 
-def _probe_pack_cuda(other: Store, batch: torch.Tensor, n: int, within: int,
-                     cutoff: int, match_cap: int, n_cols_mine: int,
-                     branch: int | None) -> torch.Tensor:
+def probe_pack_cuda(other: Store, batch: torch.Tensor, n: int, within: int,
+                    cutoff: int, match_cap: int, n_cols_mine: int,
+                    branch: int | None, shard: tuple[int, int] = (1, 0),
+                    packed: torch.Tensor | None = None) -> torch.Tensor:
+    """The probe kernel's launch in pack mode; `shard` = (n_shards, shard)
+    probes only the records a key shard of a mesh owns, and `packed` (a
+    column slice of a wider buffer) receives the match buffer."""
     a, _scratch = _probe_args(other, batch, n, within, cutoff, match_cap,
-                              n_cols_mine, kb.JOIN_PACK, branch)
-    packed = torch.empty((5 + n_cols_mine + other["cols"].shape[0],
-                          match_cap), dtype=torch.int32, device=batch.device)
-    a.packed = packed.data_ptr()
+                              n_cols_mine, kb.JOIN_PACK, branch, shard)
+    rows = 5 + n_cols_mine + other["cols"].shape[0]
+    if packed is None:
+        packed = torch.empty((rows, match_cap), dtype=torch.int32,
+                             device=batch.device)
+    elif packed.shape != (rows, match_cap) or packed.stride(1) != 1:
+        raise ValueError("join probe: the match buffer slice differs in "
+                         "shape")
+    a.packed, a.pitch = packed.data_ptr(), packed.stride(0)
     kb.check(kb.lib().hs_join_probe(ctypes.byref(a), kb.stream_of(batch)),
              "join_probe")
     return packed
 
 
-def _insert_cuda(mine: Store, batch: torch.Tensor, n: int, n_cols: int,
-                 out: Store) -> Store:
+def insert_cuda(mine: Store, batch: torch.Tensor, n: int, n_cols: int,
+                out: Store, shard: tuple[int, int] = (1, 0)) -> Store:
+    """The insert kernel's launch into `out`; `shard` = (n_shards, shard)
+    inserts only the records a key shard of a mesh owns."""
     cap = _check_store(mine, "join insert")
     if _check_store(out, "join insert output") != cap or \
             out["cols"].shape[0] != mine["cols"].shape[0] or \
@@ -499,13 +538,15 @@ def _insert_cuda(mine: Store, batch: torch.Tensor, n: int, n_cols: int,
     a = kb.JoinInsertArgs()
     a.cap, a.bcap, a.n, a.n_cols = cap, _check_batch(batch, n_cols, n), \
         int(n), n_cols
+    a.n_shards, a.shard = shard
     a.code, a.ts, a.flags = (kb.ptr(mine[k]) for k in ("code", "ts", "flags"))
     a.cols = mine["cols"].data_ptr()
     a.batch = batch.data_ptr()
     a.out_code, a.out_ts, a.out_flags = (kb.ptr(out[k])
                                          for k in ("code", "ts", "flags"))
     a.out_cols = out["cols"].data_ptr()
-    scratch = torch.empty(kb.lib().hs_join_insert_scratch_bytes(cap),
+    scratch = torch.empty(kb.lib().hs_join_insert_scratch_bytes(cap,
+                                                                a.bcap),
                           dtype=torch.uint8, device=batch.device)
     a.scratch = scratch.data_ptr()
     kb.check(kb.lib().hs_join_insert(ctypes.byref(a), kb.stream_of(batch)),
@@ -527,9 +568,9 @@ def join_probe_insert(mine: Store, other: Store, batch: torch.Tensor, n: int,
                                      match_cap, n_cols_mine)
     if out is None:
         raise ValueError("join_probe_insert: the card needs an out store")
-    packed = _probe_pack_cuda(other, batch, n, within, cutoff, match_cap,
+    packed = probe_pack_cuda(other, batch, n, within, cutoff, match_cap,
                               n_cols_mine, branch)
-    new = _insert_cuda(mine, batch, n, n_cols_mine, out)
+    new = insert_cuda(mine, batch, n, n_cols_mine, out)
     join_probe_insert.launches += 1
     return new, packed
 
@@ -546,7 +587,7 @@ def join_probe_only(other: Store, batch: torch.Tensor, n: int, within: int,
     if batch.device.type == "cpu":
         return join_probe_ref(other, batch, n, within, cutoff, match_cap,
                               n_cols_mine)
-    packed = _probe_pack_cuda(other, batch, n, within, cutoff, match_cap,
+    packed = probe_pack_cuda(other, batch, n, within, cutoff, match_cap,
                               n_cols_mine, branch)
     join_probe_only.launches += 1
     return packed
@@ -565,18 +606,35 @@ def _ref_args(r, what: str) -> tuple[int, int, int]:
     return kb.JOIN_SRC[src], int(jm), int(jo)
 
 
-def _feed_cuda(other: Store, batch: torch.Tensor, n: int, within: int,
-               cutoff: int, match_cap: int, n_cols_mine: int, ts_off: int,
-               feed, branch: int | None) -> tuple:
-    """The probe kernel in feed mode: (kid, ts, valid, cols) of width
-    match_cap on the card, cols holding the feed columns and masks."""
+def _feed_tag(tag: str) -> torch.dtype:
+    return {"f32": torch.float32, "bool": torch.bool, "i32": torch.int32}[tag]
+
+
+def feed_cuda(other: Store, batch: torch.Tensor, n: int, within: int,
+              cutoff: int, match_cap: int, n_cols_mine: int, ts_off: int,
+              feed, branch: int | None, shard: tuple[int, int] = (1, 0),
+              dest: tuple | None = None) -> tuple:
+    """The probe kernel in feed mode: (total, kid, ts, valid, cols) of
+    width match_cap on the card, cols holding the feed columns and masks.
+    `shard` = (n_shards, shard) probes only a key shard's records; `dest`
+    = (kid, ts, valid, cols, at) writes into entries [at, at + match_cap)
+    of wider columns (a mesh's concatenated feed)."""
     feed_plan, nulls_plan, filter_nulls = feed
     a, scratch = _probe_args(other, batch, n, within, cutoff, match_cap,
-                             n_cols_mine, kb.JOIN_FEED, branch)
+                             n_cols_mine, kb.JOIN_FEED, branch, shard)
     dev = batch.device
-    kid = torch.empty(match_cap, dtype=torch.int32, device=dev)
-    ts = torch.empty(match_cap, dtype=torch.int32, device=dev)
-    valid = torch.empty(match_cap, dtype=torch.bool, device=dev)
+
+    if dest is None:
+        kid, ts, valid = (torch.empty(match_cap, dtype=t, device=dev)
+                          for t in (torch.int32, torch.int32, torch.bool))
+    else:
+        at = dest[4]
+        kid, ts, valid = (x[at:at + match_cap] for x in dest[:3])
+
+    def column(name: str, dtype: torch.dtype) -> torch.Tensor:
+        if dest is None:
+            return torch.empty(match_cap, dtype=dtype, device=dev)
+        return dest[3][name][at:at + match_cap]
     a.ts_off = _i32(ts_off, "ts_off")
     a.kid, a.ts, a.valid = kid.data_ptr(), ts.data_ptr(), valid.data_ptr()
     if len(feed_plan) > kb.JOIN_MAX_FEED or \
@@ -584,9 +642,7 @@ def _feed_cuda(other: Store, batch: torch.Tensor, n: int, within: int,
         raise ValueError("join feed: too many columns or masks")
     cols: dict[str, torch.Tensor] = {}
     for f, (name, tag, src, jm, jo) in enumerate(feed_plan):
-        t = torch.empty(match_cap, device=dev, dtype={
-            "f32": torch.float32, "bool": torch.bool,
-            "i32": torch.int32}[tag])
+        t = column(name, _feed_tag(tag))
         fc = a.feed[f]
         fc.ref.src, fc.ref.jm, fc.ref.jo = _ref_args((src, jm, jo), name)
         fc.tag, fc.out = kb.JOIN_TAG[tag], t.data_ptr()
@@ -594,7 +650,7 @@ def _feed_cuda(other: Store, batch: torch.Tensor, n: int, within: int,
     a.n_feed = len(feed_plan)
     refs: list[tuple[int, int, int]] = []
     for q, (key, rs) in enumerate(nulls_plan):
-        t = torch.empty(match_cap, dtype=torch.bool, device=dev)
+        t = column(key, torch.bool)
         nl = a.nulls[q]
         nl.first, nl.count, nl.out = len(refs), len(rs), t.data_ptr()
         refs.extend(_ref_args(r, key) for r in rs)
@@ -635,12 +691,12 @@ def join_probe_insert_step(mine: Store, other: Store, batch: torch.Tensor,
     if out is None:
         raise ValueError("join_probe_insert_step: the card needs an out "
                          "store")
-    total, kid, ts, valid, cols = _feed_cuda(
+    total, kid, ts, valid, cols = feed_cuda(
         other, batch, n, within, cutoff, match_cap, n_cols_mine, ts_off,
         feed, branch)
     lattice.step_decoded(spec, inner_state, int(wm_rel), kid, ts, valid,
                          cols, progs)
-    new = _insert_cuda(mine, batch, n, n_cols_mine, out)
+    new = insert_cuda(mine, batch, n, n_cols_mine, out)
     join_probe_insert_step.launches += 1
     return new, total
 
@@ -658,6 +714,17 @@ def join_evict(left: Store, right: Store, cutoff: int, delta: int,
         return join_evict_ref(left, right, cutoff, delta)
     if out is None:
         raise ValueError("join_evict: the card needs an out pair")
+    n_out = evict_cuda(left, right, cutoff, delta, out)
+    join_evict.launches += 1
+    return out[0], out[1], n_out
+
+
+def evict_cuda(left: Store, right: Store, cutoff: int, delta: int,
+               out: Sequence[Store],
+               n_out: torch.Tensor | None = None) -> torch.Tensor:
+    """The eviction kernel's launch into the `out` pair; returns the live
+    counts int32 [2] on the stores' device (written into `n_out`, a
+    contiguous [2] tensor there, where given)."""
     cap = _check_store(left, "join evict")
     a = kb.JoinEvictArgs()
     a.cap = cap
@@ -678,14 +745,18 @@ def join_evict(left: Store, right: Store, cutoff: int, delta: int,
             kb.ptr(o[k]) for k in ("code", "ts", "flags"))
         side.out_cols = o["cols"].data_ptr()
     dev = left["code"].device
-    n_out = torch.empty(2, dtype=torch.int32, device=dev)
+    if n_out is None:
+        n_out = torch.empty(2, dtype=torch.int32, device=dev)
+    elif (n_out.shape != (2,) or n_out.dtype != torch.int32
+          or not n_out.is_contiguous() or n_out.device != dev):
+        raise ValueError("join evict: n_out is not a contiguous int32 [2] "
+                         "tensor on the stores' card")
     scratch = torch.empty(kb.lib().hs_join_evict_scratch_bytes(cap),
                           dtype=torch.uint8, device=dev)
     a.n_out, a.scratch = n_out.data_ptr(), scratch.data_ptr()
     kb.check(kb.lib().hs_join_evict(ctypes.byref(a), kb.stream_of(n_out)),
              "join_evict")
-    join_evict.launches += 1
-    return out[0], out[1], n_out
+    return n_out
 
 
 join_evict.launches = 0  # wrapper calls that launched the kernels

@@ -200,7 +200,8 @@ class SessPlane(C.Structure):
 class SessionArgs(C.Structure):
     _fields_ = [("cap", C.c_int32), ("nb", C.c_int32), ("mode", C.c_int32),
                 ("gap", C.c_int32), ("close_cut", C.c_int32),
-                ("delta", C.c_int32), ("hll_p", C.c_int32),
+                ("delta", C.c_int32), ("n_shards", C.c_int32),
+                ("shard", C.c_int32), ("hll_p", C.c_int32),
                 ("q_min", C.c_float), ("q_gamma", C.c_float),
                 ("code", C.c_void_p), ("t0", C.c_void_p),
                 ("t1", C.c_void_p), ("b_code", C.c_void_p),
@@ -250,10 +251,11 @@ class JoinProbeArgs(C.Structure):
                 ("match_cap", C.c_int32), ("mode", C.c_int32),
                 ("branch", C.c_int32),
                 ("n_cols_mine", C.c_int32), ("n_cols_other", C.c_int32),
+                ("n_shards", C.c_int32), ("shard", C.c_int32),
                 ("batch", C.c_void_p), ("o_code", C.c_void_p),
                 ("o_ts", C.c_void_p), ("o_flags", C.c_void_p),
                 ("o_cols", C.c_void_p), ("packed", C.c_void_p),
-                ("ts_off", C.c_int32), ("kid", C.c_void_p),
+                ("pitch", C.c_int32), ("ts_off", C.c_int32), ("kid", C.c_void_p),
                 ("ts", C.c_void_p), ("valid", C.c_void_p),
                 ("n_feed", C.c_int32),
                 ("feed", JoinFeedCol * JOIN_MAX_FEED),
@@ -264,12 +266,20 @@ class JoinProbeArgs(C.Structure):
 
 class JoinInsertArgs(C.Structure):
     _fields_ = [("cap", C.c_int32), ("bcap", C.c_int32), ("n", C.c_int32),
-                ("n_cols", C.c_int32), ("code", C.c_void_p),
+                ("n_cols", C.c_int32), ("n_shards", C.c_int32),
+                ("shard", C.c_int32), ("code", C.c_void_p),
                 ("ts", C.c_void_p), ("flags", C.c_void_p),
                 ("cols", C.c_void_p), ("batch", C.c_void_p),
                 ("out_code", C.c_void_p), ("out_ts", C.c_void_p),
                 ("out_flags", C.c_void_p), ("out_cols", C.c_void_p),
                 ("scratch", C.c_void_p)]
+
+
+class JoinRouteArgs(C.Structure):
+    _fields_ = [("m", C.c_int32), ("n_data", C.c_int32),
+                ("n_key", C.c_int32), ("local_keys", C.c_int32),
+                ("kid", C.c_void_p), ("valid", C.c_void_p),
+                ("keys", C.c_void_p), ("valid_out", C.c_void_p)]
 
 
 class JoinEvictSide(C.Structure):
@@ -316,6 +326,7 @@ def lib() -> C.CDLL:
                              ("hs_join_probe", [C.POINTER(JoinProbeArgs)]),
                              ("hs_join_insert", [C.POINTER(JoinInsertArgs)]),
                              ("hs_join_evict", [C.POINTER(JoinEvictArgs)]),
+                             ("hs_join_route", [C.POINTER(JoinRouteArgs)]),
                              ("hs_close_merged",
                               [C.POINTER(MergedCloseArgs)]),
                              ("hs_close_slot_merged",
@@ -338,10 +349,10 @@ def lib() -> C.CDLL:
             dll.hs_session_scratch_bytes.restype = C.c_int64
             dll.hs_join_probe_scratch_bytes.argtypes = [C.c_int32] * 2
             dll.hs_join_probe_scratch_bytes.restype = C.c_int64
-            for fn in ("hs_join_insert_scratch_bytes",
-                       "hs_join_evict_scratch_bytes"):
-                getattr(dll, fn).argtypes = [C.c_int32]
-                getattr(dll, fn).restype = C.c_int64
+            dll.hs_join_insert_scratch_bytes.argtypes = [C.c_int32] * 2
+            dll.hs_join_insert_scratch_bytes.restype = C.c_int64
+            dll.hs_join_evict_scratch_bytes.argtypes = [C.c_int32]
+            dll.hs_join_evict_scratch_bytes.restype = C.c_int64
             dll.hs_touched_scratch_bytes.argtypes = [C.c_int32] * 3
             dll.hs_touched_scratch_bytes.restype = C.c_int64
             dll.hs_touched_merged_scratch_bytes.argtypes = [C.c_int32] * 4

@@ -386,6 +386,8 @@ struct HsSessionArgs {
     int32_t gap;           // ms
     int32_t close_cut;     // retire arena entries with t1 <= close_cut
     int32_t delta;         // then shift live arena times by -delta
+    int32_t n_shards;      // a mesh's key shards: above 1, a batch entry
+    int32_t shard;         // counts only where code mod n_shards == shard
     int32_t hll_p;
     float q_min;           // float32(min_value)
     float q_gamma;         // float32(gamma_log)
@@ -469,6 +471,8 @@ struct HsJoinProbeArgs {
     int32_t branch;        // HS_PROBE_*
     int32_t n_cols_mine;   // probing side's stored columns
     int32_t n_cols_other;  // probed store's stored columns
+    int32_t n_shards;      // a mesh's key shards: above 1, only records
+    int32_t shard;         // with code mod n_shards == shard probe
     const int32_t *batch;  // [4 + n_cols_mine, bcap]: code, ts, kid, flags,
                            // cols; sorted by (code, ts)
     const int32_t *o_code; // probed store [cap], sorted by (code, ts)
@@ -476,6 +480,8 @@ struct HsJoinProbeArgs {
     const int32_t *o_flags;
     const int32_t *o_cols; // [n_cols_other, cap]
     int32_t *packed;       // pack: [5 + n_cols_mine + n_cols_other, match_cap]
+    int32_t pitch;         // pack: packed's row pitch (>= match_cap: a key
+                           // shard's columns of a mesh's wider buffer)
     int32_t ts_off;        // feed: added to the joined ts (int32 wrap)
     int32_t *kid;          // feed: [match_cap]
     int32_t *ts;
@@ -495,6 +501,8 @@ struct HsJoinInsertArgs {
     int32_t bcap;
     int32_t n;
     int32_t n_cols;
+    int32_t n_shards;      // a mesh's key shards: above 1, only records
+    int32_t shard;         // with code mod n_shards == shard are inserted
     const int32_t *code;   // the store [cap], sorted by (code, ts)
     const int32_t *ts;
     const int32_t *flags;
@@ -504,7 +512,22 @@ struct HsJoinInsertArgs {
     int32_t *out_ts;
     int32_t *out_flags;
     int32_t *out_cols;
-    void *scratch;         // hs_join_insert_scratch_bytes(cap) bytes
+    void *scratch;         // hs_join_insert_scratch_bytes(cap, bcap) bytes
+};
+
+// the fused sharded join step's routing (join_route.cu): the key shards'
+// match feeds, concatenated, to every partial (d, k) of the inner
+// lattice: key column k shifted by -k * local_keys, valid row d kept
+// only for feed entries i with i mod n_data == d
+struct HsJoinRouteArgs {
+    int32_t m;             // feed entries (n_shards * match_cap)
+    int32_t n_data;        // the inner lattice's data shards
+    int32_t n_key;         // its key shards
+    int32_t local_keys;    // Kl, the keys of one key shard
+    const int32_t *kid;    // [m] inner key ids
+    const uint8_t *valid;  // [m]
+    int32_t *keys;         // [n_key, m]
+    uint8_t *valid_out;    // [n_data, m]
 };
 
 struct HsJoinEvictSide {
@@ -582,8 +605,9 @@ int hs_session_remap(int32_t *code, int32_t cap, const int32_t *lut,
 int64_t hs_join_probe_scratch_bytes(int32_t bcap, int32_t match_cap);
 int64_t hs_join_evict_scratch_bytes(int32_t cap);
 int hs_join_probe(const HsJoinProbeArgs *args, void *stream);
-int64_t hs_join_insert_scratch_bytes(int32_t cap);
+int64_t hs_join_insert_scratch_bytes(int32_t cap, int32_t bcap);
 int hs_join_insert(const HsJoinInsertArgs *args, void *stream);
 int hs_join_evict(const HsJoinEvictArgs *args, void *stream);
+int hs_join_route(const HsJoinRouteArgs *args, void *stream);
 const char *hs_error_string(int err);
 }

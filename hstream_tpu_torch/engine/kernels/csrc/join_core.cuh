@@ -97,6 +97,14 @@ __device__ __forceinline__ int32_t batch_code(const int32_t *bcode,
     return (j < n && c < HS_JOIN_SENT) ? c : HS_JOIN_SENT;
 }
 
+// a mesh's ownership test: code mod n_shards (floor mod, as the
+// reference's jnp %) == shard
+__device__ __forceinline__ bool owned(int32_t code, int32_t n_shards,
+                                      int32_t shard) {
+    const int32_t r = code % n_shards;
+    return (r < 0 ? r + n_shards : r) == shard;
+}
+
 __device__ __forceinline__ uint32_t warp_incl_scan(uint32_t v) {
     const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -330,6 +338,10 @@ probe_window_kernel(const __grid_constant__ HsJoinProbeArgs a,
     if ((threadIdx.x & 31) == 0) s.window[2 * t + upper] = end;
 }
 
+// kOwn (a key shard of a mesh, n_shards > 1): records whose code another
+// shard owns count no matches, as the reference's owned mask clears their
+// bvalid (parallel/lattice.py:394-439)
+template <bool kOwn>
 __global__ void __launch_bounds__(kBoundsThreads)
 probe_bounds_kernel(const __grid_constant__ HsJoinProbeArgs a,
                     ProbeScratch s, int32_t window_cap) {
@@ -359,7 +371,8 @@ probe_bounds_kernel(const __grid_constant__ HsJoinProbeArgs a,
         const int32_t j = j0 + k;
         qc[k] = j < a.bcap ? a.batch[j] : HS_JOIN_SENT;
         const int32_t t = j < a.bcap ? a.batch[a.bcap + j] : 0;
-        valid[k] = j < a.n && qc[k] < HS_JOIN_SENT;
+        valid[k] = j < a.n && qc[k] < HS_JOIN_SENT &&
+                   (!kOwn || owned(qc[k], a.n_shards, a.shard));
         any |= valid[k];
         const int64_t lw = (int64_t)t - a.within, hw = (int64_t)t + a.within;
         wraps |= valid[k] && (lw < INT_MIN || lw > INT_MAX ||

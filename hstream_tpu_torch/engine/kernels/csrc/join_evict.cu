@@ -5,7 +5,9 @@
 // (int32 wrap; delta 0 outside a rebase, < 0 for a rebase down); a dead
 // entry becomes (sentinel, 0); one stable 2-key sort of (code, ts)
 // reorders flags and columns to match; the live counts come back as
-// int32 [2].
+// int32 [2]. Key-sharded stores (hstream_tpu/parallel/lattice.py:441-467)
+// launch it once a shard, each writing its row of live counts [n_shards,
+// 2] (parallel/lattice.py).
 //
 // That sort is a stable compaction here, for two reasons:
 //   * the live entries are a subsequence of a store sorted by (code, ts),

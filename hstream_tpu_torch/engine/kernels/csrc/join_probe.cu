@@ -9,7 +9,9 @@
 //     exceed match_cap; the host then re-probes wider), row 1 the inner
 //     key id, row 2 the joined ts = max of the pair, rows 3/4 both
 //     sides' flags, then the probing side's and the stored side's
-//     columns; columns past min(total, match_cap) are zero.
+//     columns; columns past min(total, match_cap) are zero. Its rows lie
+//     `pitch` apart: a key shard of a mesh writes its columns of the
+//     mesh's [rows, n_shards * match_cap] buffer (parallel/lattice.py).
 //   * feed (HS_JOIN_FEED): _join_match_feed (:1016-1079), the probe half
 //     of join_probe_insert_step (:1082-1128). The inner window step's
 //     inputs written straight into scratch columns of width match_cap:
@@ -23,6 +25,14 @@
 //     valid bit is clear). The wrapper then runs the window step
 //     (expr.cu, scatter.cu, topk.cu) on these columns: matches never
 //     leave the card.
+//
+// A key shard of a mesh (n_shards > 1; hstream_tpu/parallel/lattice.py
+// :394-439 probe_insert / probe_only, :470-528 probe_insert_step) probes
+// only the records it owns (code mod n_shards == shard): the bounds
+// kernel's `true` branch counts no match for the others, as the
+// reference's owned mask clears their bvalid; shard s's feed goes to
+// entries [s * match_cap, ...) of one feed (the reference's all_gather).
+// One shard takes the `false` branch, today's code.
 //
 // Both modes share join_core.cuh's probe: the bounds per tile of sorted
 // records against a staged store window, the count scan by a decoupled
@@ -65,7 +75,7 @@ struct PackEmit {
                                                int32_t j, bool mv,
                                                int32_t rec, int32_t oidx,
                                                int32_t total) const {
-        const size_t w = (size_t)a.match_cap;
+        const size_t w = (size_t)a.pitch;
         int32_t *out = a.packed;
         out[j] = j == 0 ? total : 0;
         out[w + j] = mv ? a.batch[2 * a.bcap + rec] : 0;
@@ -163,8 +173,11 @@ extern "C" int hs_join_probe(const HsJoinProbeArgs *args, void *stream) {
         a.n_cols_mine < 0 || a.n_cols_mine > HS_JOIN_MAX_COLS ||
         a.n_cols_other < 0 || a.n_cols_other > HS_JOIN_MAX_COLS ||
         a.n_feed < 0 || a.n_feed > HS_JOIN_MAX_FEED || a.n_nulls < 0 ||
-        a.n_nulls > HS_JOIN_MAX_NULLS || a.branch < HS_PROBE_AUTO ||
-        a.branch > HS_PROBE_WHOLE)
+        a.n_nulls > HS_JOIN_MAX_NULLS ||
+        (a.mode == HS_JOIN_PACK && a.pitch < a.match_cap) ||
+        a.branch < HS_PROBE_AUTO ||
+        a.branch > HS_PROBE_WHOLE ||
+        (a.n_shards > 1 && (a.shard < 0 || a.shard >= a.n_shards)))
         return (int)cudaErrorInvalidValue;
     const hsjoin::ProbeScratch s =
         hsjoin::probe_scratch(a.scratch, a.bcap, a.match_cap);
@@ -181,12 +194,24 @@ extern "C" int hs_join_probe(const HsJoinProbeArgs *args, void *stream) {
     const size_t smem = (size_t)window * sizeof(uint64_t);
     // the window and the kernel's static words may pass the default
     // 48 KB together even where the window alone does not
-    static std::atomic<uint64_t> granted{0};
-    err = (int)hs::allow_smem(granted, hsjoin::probe_bounds_kernel,
-                              hsjoin::kWindowMax * (int)sizeof(uint64_t));
-    if (err != 0) return err;
-    hsjoin::probe_bounds_kernel<<<tiles, hsjoin::kBoundsThreads, smem,
-                                  st>>>(a, s, window);
+    const int max_smem = hsjoin::kWindowMax * (int)sizeof(uint64_t);
+    if (a.n_shards > 1) {  // a key shard of a mesh: the ownership test
+        static std::atomic<uint64_t> granted_own{0};
+        err = (int)hs::allow_smem(granted_own,
+                                  hsjoin::probe_bounds_kernel<true>,
+                                  max_smem);
+        if (err != 0) return err;
+        hsjoin::probe_bounds_kernel<true>
+            <<<tiles, hsjoin::kBoundsThreads, smem, st>>>(a, s, window);
+    } else {
+        static std::atomic<uint64_t> granted{0};
+        err = (int)hs::allow_smem(granted,
+                                  hsjoin::probe_bounds_kernel<false>,
+                                  max_smem);
+        if (err != 0) return err;
+        hsjoin::probe_bounds_kernel<false>
+            <<<tiles, hsjoin::kBoundsThreads, smem, st>>>(a, s, window);
+    }
     err = (int)cudaGetLastError();
     if (err != 0) return err;
     // the merge tiles cover min(total, match_cap) + n items at most

@@ -210,7 +210,14 @@ inline int64_t layout(int32_t cap, int32_t nb, char *base, Scratch *s) {
     return off;
 }
 
-// entry i's code (the sentinel where it is not live), start and end
+// entry i's code (the sentinel where it is not live), start and end.
+// kOwn (a key shard of a mesh, n_shards > 1): a batch entry whose code
+// another shard owns (floor mod, as the reference's) is the sentinel, as
+// the reference's cleared valid bit (record mode) or rewritten segment
+// code (segment mode) makes it; the arena's own rows are all owned. The
+// sort's two key kernels are the only readers that need it: a sentinel's
+// slot is cap, which every later stage skips.
+template <bool kOwn = false>
 __device__ __forceinline__ void entry(const HsSessionArgs &a, int i, int &c,
                                       int &s, int &e) {
     if (i < a.cap) {
@@ -224,7 +231,8 @@ __device__ __forceinline__ void entry(const HsSessionArgs &a, int i, int &c,
         const int j = i - a.cap;
         const int code = a.b_code[j];
         const bool ok = code >= 0 && code < HS_SESSION_SENT &&
-                        (a.b_flags == nullptr || (a.b_flags[j] & 1));
+                        (a.b_flags == nullptr || (a.b_flags[j] & 1)) &&
+                        (!kOwn || floor_mod(code, a.n_shards) == a.shard);
         c = ok ? code : HS_SESSION_SENT;
         s = a.b_t0[j];
         e = a.b_t1[j];
@@ -328,6 +336,7 @@ __device__ __forceinline__ unsigned match_digit(int d) {
     return m;
 }
 
+template <bool kOwn>
 __global__ void __launch_bounds__(256)
 sort_range_kernel(const __grid_constant__ HsSessionArgs a, Scratch s,
                   int m) {
@@ -340,7 +349,7 @@ sort_range_kernel(const __grid_constant__ HsSessionArgs a, Scratch s,
     int4 r = no_range();
     for (int64_t i = i0; i < m; i += step) {
         int c, st, e;
-        entry(a, (int)i, c, st, e);
+        entry<kOwn>(a, (int)i, c, st, e);
         if (c < HS_SESSION_SENT) {
             r.x = max(r.x, c);
             r.y = min(r.y, st);
@@ -363,6 +372,7 @@ __device__ __forceinline__ unsigned long long make_key(int c, int st,
            (unsigned long long)((uint32_t)st - (uint32_t)k.min_start);
 }
 
+template <bool kOwn>
 __global__ void __launch_bounds__(kKeysThreads)
 sort_keys_kernel(const __grid_constant__ HsSessionArgs a, Scratch s, int m,
                  int n_parts) {
@@ -401,7 +411,7 @@ sort_keys_kernel(const __grid_constant__ HsSessionArgs a, Scratch s, int m,
         unsigned long long key = 0ull;
         if (in) {
             int c, st, e;
-            entry(a, (int)i, c, st, e);
+            entry<kOwn>(a, (int)i, c, st, e);
             key = make_key(c, st, k);
             s.keys[0][i] = key;
             s.idx[0][i] = (uint32_t)i;
@@ -911,7 +921,8 @@ inline cudaError_t core(const HsSessionArgs &a, Scratch &s,
                         cudaStream_t st) {
     const int64_t m = (int64_t)a.cap + a.nb;
     if (a.scratch == nullptr || a.n_planes > HS_MAX_AGGS || a.cap < 0 ||
-        a.nb < 0 || m == 0 || m > (int64_t)kCountMask)
+        a.nb < 0 || m == 0 || m > (int64_t)kCountMask ||
+        (a.n_shards > 1 && (a.shard < 0 || a.shard >= a.n_shards)))
         return cudaErrorInvalidValue;
     layout(a.cap, a.nb, (char *)a.scratch, &s);
     static std::atomic<uint64_t> granted{0};
@@ -922,8 +933,15 @@ inline cudaError_t core(const HsSessionArgs &a, Scratch &s,
     const int blocks = (int)blocks_for(m, kScanBlock);
     const int parts = (int)std::min<int64_t>(kRangeBlocks,
                                              blocks_for(m, 256 * 2));
-    sort_range_kernel<<<parts, 256, 0, st>>>(a, s, (int)m);
-    sort_keys_kernel<<<tiles, kKeysThreads, 0, st>>>(a, s, (int)m, parts);
+    if (a.n_shards > 1) {  // a key shard of a mesh: the ownership test
+        sort_range_kernel<true><<<parts, 256, 0, st>>>(a, s, (int)m);
+        sort_keys_kernel<true><<<tiles, kKeysThreads, 0, st>>>(a, s, (int)m,
+                                                              parts);
+    } else {
+        sort_range_kernel<false><<<parts, 256, 0, st>>>(a, s, (int)m);
+        sort_keys_kernel<false><<<tiles, kKeysThreads, 0, st>>>(a, s, (int)m,
+                                                               parts);
+    }
     for (int pass = 0; pass < kSortPasses; ++pass)
         sort_pass_kernel<<<tiles, kSortThreads, kPassSmem, st>>>(
             s, (int)m, pass, tiles);

@@ -3,7 +3,9 @@
 //
 // Replaces hstream_tpu/engine/lattice.py:1504-1550 session_extract_kernel.
 // Slots < 0 pad the vector to a power of two and extract zeros (row 0:
-// the sentinel code).
+// the sentinel code). A mesh's key-sharded arena (hstream_tpu/parallel/
+// lattice.py:716-728) launches it once a shard, each into its row of an
+// [n_shards, 1 + n_aggs, P] buffer (parallel/lattice.py).
 //
 // Bound on the H100: bytes: each named slot's planes read once (a 512-bin
 // histogram is 2 KiB, an HLL register set 1 KiB), the buffer written once.

@@ -6,6 +6,12 @@
 // The host reduces the batch's rows into per-segment planes (its
 // gap-chains, so the pre-merge is exact) in the arena's layout.
 //
+// A key shard of a mesh (n_shards > 1; hstream_tpu/parallel/lattice.py
+// :690-714 ShardedSessionLattice._build_merge) merges only the segments
+// it owns, the others keyed as the sentinel in the chain core (as the
+// reference rewrites their codes), so their slot is cap and the fold
+// skips them.
+//
 // Bound on the H100: bytes: the chain core's sort, scan and single write
 // of the fresh arena (session_chain.cuh, shared with the step and
 // redesigned with it: narrowed one-sweep sort, single-fed slots copied

@@ -5,7 +5,9 @@
 // code < lcap ? lut[clip(code, 0, lcap - 1)] : code, so codes at or
 // above lcap (the sentinel among them) pass through, and the arena stays
 // sorted by (code, t0). The host maps the codes of keys without a live
-// session to the sentinel, so the remap also evicts.
+// session to the sentinel, so the remap also evicts. A mesh's key-sharded
+// arena (hstream_tpu/parallel/lattice.py:730-743) launches it once a
+// shard through one residue-preserving table.
 //
 // With sent_above set it is also the interval join's code remap
 // (hstream_tpu/engine/join.py:2092-2108 _remap_device_codes, eager jnp

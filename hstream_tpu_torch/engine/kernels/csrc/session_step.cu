@@ -17,6 +17,13 @@
 // narrowed keys in one sweep per digit that varies and writes the fresh
 // arena once (session_chain.cuh); the record scatter below is unchanged.
 //
+// A key shard of a mesh (n_shards > 1; hstream_tpu/parallel/lattice.py
+// :669-688 ShardedSessionLattice._build_step) folds only the records it
+// owns: the chain core's key kernels treat the others as the sentinel
+// (session_chain.cuh, entry<true>), as the reference's cleared valid bit
+// does, so their slot is cap and the scatter below skips them. With one
+// shard the launch takes the template's false branch, today's code.
+//
 // Bound on the H100 now: bytes, the fresh arena written once and the live
 // old rows read once; then one thread per record: per aggregate one
 // input read and one atomic (a CAS loop for an HLL register).

@@ -48,10 +48,15 @@ that lies on the card to the host engine:
   raises NotPortedError on the card; on device="cpu" the host engine
   serves the query as in the reference.
 
-Not ported: the key-sharded arena of a mesh (ROADMAP A11), fault
-injection and kernel-family observers (A5), snapshots (A3). The batch
-and segment buffers are sized to the batch (the reference's sticky pow2
-capacities bounded XLA recompiles).
+With a mesh whose key axis has more than one shard, the arena is key-
+sharded (parallel/lattice.py ShardedSessionLattice, session.py:1090 in
+the reference): key shard s holds the chains of the codes with code mod
+n_shards == s in mirror order; every batch goes to every shard, whose
+kernels drop what other shards own; the code compaction keeps residues
+(dead mirror rows keep theirs as negative codes); an extract takes
+per-shard slot lists and its buffer is flattened back into mirror order.
+The batch and segment buffers are sized to the batch (the reference's
+sticky pow2 capacities bounded XLA recompiles).
 """
 
 from __future__ import annotations
@@ -300,15 +305,14 @@ class SessionExecutor:
                  mesh=None):
         if not isinstance(node.window, SessionWindow):
             raise SQLCodegenError("SessionExecutor needs a SessionWindow")
-        # a mesh whose key axis has >1 shards would key-shard the session
-        # arena (the reference's ShardedSessionLattice, not ported yet);
-        # a mesh with one key shard keeps the single-card kernels, as in
-        # the reference (session.py:1090)
-        if mesh is not None and mesh.shape["key"] > 1:
-            raise NotPortedError(
-                f"a key-sharded session arena (mesh key axis "
-                f"{mesh.shape['key']})", "A11b, B19c")
+        # a mesh whose key axis has >1 shards key-shards the session arena
+        # (parallel/lattice.py ShardedSessionLattice: chain merge is
+        # key-local, so every device op stays per shard); a mesh with one
+        # key shard keeps the single-card kernels (session.py:1090)
         self.mesh = mesh
+        # launches of the key-sharded arena's programs; the query task
+        # mirrors deltas into the sharded_dispatches stat family
+        self.sharded_dispatches = 0
         self.device = devmod.resolve(device)
         self.node = node
         self.schema = schema
@@ -1095,28 +1099,54 @@ class SessionExecutor:
         mir_code, mir_t0, mir_t1 = (mir_code[order], mir_t0[order],
                                     mir_t1[order])
         epoch = int(mir_t0.min()) if n else None
+        ssl = None
+        if self.mesh is not None and self.mesh.shape["key"] > 1:
+            from hstream_tpu_torch.parallel.lattice import \
+                ShardedSessionLattice
+            ssl = ShardedSessionLattice(self.mesh, spec)
         arena_np = sl.session_plane_np(spec, cap)
+        if ssl is not None:
+            # per-shard planes: each key shard holds its residue class
+            # (code mod n_shards) in mirror order. The per-shard cap keeps
+            # the single-card formula: memory spent on skew tolerance.
+            arena_np = {k: np.broadcast_to(
+                v[None], (ssl.n_shards,) + v.shape).copy()
+                for k, v in arena_np.items()}
+            cls = (mir_code % ssl.n_shards).astype(np.int64)
+            slot = np.empty(n, np.int64)
+            for sh in range(ssl.n_shards):
+                m = cls == sh
+                slot[m] = np.arange(int(m.sum()))
+
+        def dst(j):
+            return (cls[j], slot[j]) if ssl is not None else j
+
         if n:
-            arena_np["code"][:n] = mir_code.astype(np.int32)
-            arena_np["t0"][:n] = (mir_t0 - epoch).astype(np.int32)
-            arena_np["t1"][:n] = (mir_t1 - epoch).astype(np.int32)
+            if ssl is not None:
+                arena_np["code"][cls, slot] = mir_code.astype(np.int32)
+                arena_np["t0"][cls, slot] = (mir_t0 - epoch).astype(np.int32)
+                arena_np["t1"][cls, slot] = (mir_t1 - epoch).astype(np.int32)
+            else:
+                arena_np["code"][:n] = mir_code.astype(np.int32)
+                arena_np["t0"][:n] = (mir_t0 - epoch).astype(np.int32)
+                arena_np["t1"][:n] = (mir_t1 - epoch).astype(np.int32)
             for name, a in zip(sl.session_plane_names(spec), spec.aggs):
                 for j, (_code, s) in enumerate(
                         (entries[o] for o in order.tolist())):
                     acc = s.accs[a.out_name]
                     if a.kind == AggKind.AVG:
-                        arena_np[name][j] = np.float32(acc[0])
-                        arena_np[name + "_n"][j] = acc[1]
+                        arena_np[name][dst(j)] = np.float32(acc[0])
+                        arena_np[name + "_n"][dst(j)] = acc[1]
                     elif a.kind == AggKind.APPROX_COUNT_DISTINCT:
-                        arena_np[name][j] = acc
+                        arena_np[name][dst(j)] = acc
                     elif a.kind == AggKind.APPROX_QUANTILE:
                         if int(np.max(acc, initial=0)) >= (1 << 31):
                             raise SQLCodegenError(
                                 "session histogram count exceeds int32 "
                                 "at device activation")
-                        arena_np[name][j] = acc.astype(np.int32)
+                        arena_np[name][dst(j)] = acc.astype(np.int32)
                     else:
-                        arena_np[name][j] = np.float32(acc) \
+                        arena_np[name][dst(j)] = np.float32(acc) \
                             if arena_np[name].dtype == np.float32 else acc
         self._dev = {
             "spec": spec,
@@ -1125,10 +1155,13 @@ class SessionExecutor:
             "mode": plan["mode"],
             "progs": plan["progs"],
             "cap": cap,
-            "arena": {k: torch.from_numpy(v).to(self.device)
-                      for k, v in arena_np.items()},
+            "ssl": ssl,
+            "arena": (ssl.put_arena(arena_np) if ssl is not None else
+                      {k: torch.from_numpy(v).to(self.device)
+                       for k, v in arena_np.items()}),
             # the other arena of the ping-pong: each step writes it
-            "spare": sl.init_session_arena(spec, cap, self.device),
+            "spare": (ssl.init_arena(cap) if ssl is not None else
+                      sl.init_session_arena(spec, cap, self.device)),
             "mir_code": mir_code,
             "mir_t0": mir_t0,
             "mir_t1": mir_t1,
@@ -1169,7 +1202,15 @@ class SessionExecutor:
         move to the host engine): one fetch per plane, then per-live-slot
         acc decode into the reference accumulator formats."""
         dev = self._dev
-        host = {k: v.cpu().numpy() for k, v in dev["arena"].items()}
+        if dev.get("ssl") is not None:
+            # every mirror row's value out of its shard's plane: the
+            # gathered view indexes by mirror row, as the single-card
+            # arena does
+            cls, slot = self._shard_slots()
+            host = {k: np.stack([a[k].cpu().numpy() for a in dev["arena"]])
+                    [cls, slot] for k in dev["arena"][0]}
+        else:
+            host = {k: v.cpu().numpy() for k, v in dev["arena"].items()}
         spec = dev["spec"]
         sessions: dict[tuple, list[_Session]] = {}
         for slot in np.nonzero(dev["mir_live"])[0].tolist():
@@ -1194,6 +1235,23 @@ class SessionExecutor:
                 start=int(dev["mir_t0"][slot]),
                 end=int(dev["mir_t1"][slot]), accs=accs))
         return sessions
+
+    def _shard_slots(self) -> tuple[np.ndarray, np.ndarray]:
+        """(key shard, per-shard arena slot) of every mirror row: each
+        shard's arena holds exactly its residue class's chains in mirror
+        order, so a row's slot is its rank within its class. Dead rows
+        (mir_live False) still occupy arena slots until the next step
+        retires them, so the ranks run over ALL rows; a dead row's code
+        after a compaction is negative with its class kept (numpy's floor
+        modulo)."""
+        dev = self._dev
+        ns = dev["ssl"].n_shards
+        cls = (dev["mir_code"] % ns).astype(np.int64)
+        slot = np.empty(len(cls), np.int64)
+        for s in range(ns):
+            m = cls == s
+            slot[m] = np.arange(int(m.sum()))
+        return cls, slot
 
     def _process_rows_device(self, rows, ts_ms):
         """Row-shaped ingest onto the device path: host filter eval,
@@ -1629,8 +1687,15 @@ class SessionExecutor:
                     "(an old session is still open); host engine "
                     "continues without the int32 bound")
                 return _DEGRADED
-            if len(mcode) > dev["cap"]:
-                self._grow_arena(len(mcode))
+            need = len(mcode)
+            ssl = dev.get("ssl")
+            if ssl is not None:
+                # per-shard cap: size to the fullest residue class
+                need = int(np.bincount(
+                    (mcode % ssl.n_shards).astype(np.int64),
+                    minlength=ssl.n_shards).max())
+            if need > dev["cap"]:
+                self._grow_arena(need)
             if dev["mode"] == "record":
                 self._dispatch_record_step(codes, ts, feed, close_cut,
                                            epoch, delta)
@@ -1727,9 +1792,17 @@ class SessionExecutor:
                            ready=self._device_values):
             inputs = sl.session_inputs(dev["spec"], dev["layout"], packed,
                                        dev["progs"])
-            sl.session_step(dev["spec"], dev["arena"], dev["spare"],
-                            packed, inputs, self.window.gap_ms, close_cut,
-                            delta)
+            ssl = dev.get("ssl")
+            if ssl is not None:
+                # the batch goes to every key shard; the kernels drop the
+                # records other shards own
+                ssl.step(dev["arena"], dev["spare"], packed, inputs,
+                         self.window.gap_ms, close_cut, delta)
+                self.sharded_dispatches += 1
+            else:
+                sl.session_step(dev["spec"], dev["arena"], dev["spare"],
+                                packed, inputs, self.window.gap_ms,
+                                close_cut, delta)
         self._swap_arenas()
 
     def _dispatch_segment_merge(self, feed, order, starts, ends,
@@ -1756,8 +1829,16 @@ class SessionExecutor:
         self.stage_stats["h2d_s"] += time.perf_counter() - t1
         with kernel_family("session", self.dispatch_observer,
                            ready=self._device_values):
-            sl.session_merge(dev["spec"], dev["arena"], dev["spare"], seg_t,
-                             self.window.gap_ms, close_cut, delta)
+            ssl = dev.get("ssl")
+            if ssl is not None:
+                # the segments go to every key shard; the kernels drop
+                # the segments other shards own
+                ssl.merge(dev["arena"], dev["spare"], seg_t,
+                          self.window.gap_ms, close_cut, delta)
+                self.sharded_dispatches += 1
+            else:
+                sl.session_merge(dev["spec"], dev["arena"], dev["spare"],
+                                 seg_t, self.window.gap_ms, close_cut, delta)
         self._swap_arenas()
 
     def _segment_planes(self, vv, order, starts, ends, seg_of_row,
@@ -1886,10 +1967,15 @@ class SessionExecutor:
         ping-pong grow, the old slots keep their values."""
         dev = self._dev
         new_cap = round_up_pow2(need, lo=dev["cap"] * 2)
-        dev["arena"] = sl.grow_session_arena(dev["spec"], dev["arena"],
-                                             new_cap)
-        dev["spare"] = sl.init_session_arena(dev["spec"], new_cap,
-                                             self.device)
+        ssl = dev.get("ssl")
+        if ssl is not None:
+            dev["arena"] = ssl.grow_arena(dev["arena"], new_cap)
+            dev["spare"] = ssl.init_arena(new_cap)
+        else:
+            dev["arena"] = sl.grow_session_arena(dev["spec"], dev["arena"],
+                                                 new_cap)
+            dev["spare"] = sl.init_session_arena(dev["spec"], new_cap,
+                                                 self.device)
         dev["cap"] = new_cap
         self.session_stats["grows"] += 1
 
@@ -1909,16 +1995,45 @@ class SessionExecutor:
         live_codes = np.unique(dev["mir_code"][live]).astype(np.int64)
         lcap = round_up_pow2(max(len(self._code_rev), 1), lo=256)
         lut = np.full(lcap, sl.SESSION_SENT_CODE, np.int32)
-        new_of = np.arange(len(live_codes), dtype=np.int64)
+        ssl = dev.get("ssl")
+        if ssl is not None:
+            # residue-class-preserving compaction (new mod n_shards ==
+            # old mod n_shards): entries never change owner shard, and
+            # within a shard the map keeps order, so every shard's arena
+            # stays (code, t0)-sorted without a sort
+            ns = ssl.n_shards
+            new_of = np.empty(len(live_codes), np.int64)
+            for s in range(ns):
+                m = (live_codes % ns) == s
+                new_of[m] = np.arange(int(m.sum()), dtype=np.int64) * ns + s
+        else:
+            new_of = np.arange(len(live_codes), dtype=np.int64)
         lut[live_codes] = new_of.astype(np.int32)
-        sl.session_remap(dev["arena"], torch.from_numpy(lut).to(self.device))
+        lut_t = torch.from_numpy(lut).to(self.device)
+        if ssl is not None:
+            ssl.remap(dev["arena"], lut_t)
+            self.sharded_dispatches += 1
+        else:
+            sl.session_remap(dev["arena"], lut_t)
         self.session_stats["remap_dispatches"] += 1
         new_code = np.full(len(dev["mir_code"]), -1, np.int64)
         pos = np.searchsorted(live_codes, dev["mir_code"][live])
         new_code[live] = new_of[pos]
+        if ssl is not None:
+            # dead mirror rows still occupy arena slots: keep their shard
+            # residue (negative = poison; numpy's floor modulo keeps the
+            # class) so the per-shard slot ranks stay aligned
+            new_code[~live] = dev["mir_code"][~live] % ns - ns
         dev["mir_code"] = new_code
-        self._code_rev = [self._code_rev[c] for c in live_codes.tolist()]
-        self._code_of = {k: i for i, k in enumerate(self._code_rev)}
+        # sharded new codes are class-strided, so the reverse index may
+        # carry holes (None); only live codes ever decode through it
+        top = int(new_of.max()) + 1 if len(live_codes) else 0
+        new_rev: list = [None] * top
+        for c, nc in zip(live_codes.tolist(), new_of.tolist()):
+            new_rev[nc] = self._code_rev[c]
+        self._code_rev = new_rev
+        self._code_of = {k: i for i, k in enumerate(new_rev)
+                         if k is not None}
         self._raw_memo = {}
         self._code_cols_cache = (-1, [])
 
@@ -1971,6 +2086,23 @@ class SessionExecutor:
         dev = self._dev
         if FAULTS.active:  # chaos: fail/delay a session extract
             FAULTS.point("device.session.dispatch")
+        ssl = dev.get("ssl")
+        if ssl is not None:
+            # per-shard slot lists [n_shards, pcap] (-1 pads), each
+            # shard's in the order its rows appear in idx: the order
+            # _flatten_sharded_extract reassembles by
+            cls, slot = self._shard_slots()
+            sel = cls[idx]
+            per = np.bincount(sel, minlength=ssl.n_shards)
+            pcap = round_up_pow2(max(int(per.max()), 1), lo=1)
+            slots = np.full((ssl.n_shards, pcap), -1, np.int32)
+            for s in range(ssl.n_shards):
+                v = slot[idx[sel == s]]
+                slots[s, :len(v)] = v
+            self.sharded_dispatches += 1
+            with kernel_family("close", self.dispatch_observer,
+                               ready=self._device_values):
+                return ssl.extract(dev["arena"], slots)
         with kernel_family("close", self.dispatch_observer,
                            ready=self._device_values):
             return sl.session_extract(dev["spec"], dev["arena"],
@@ -2024,9 +2156,13 @@ class SessionExecutor:
         dev = self._dev
         if dev is None:
             return {}
-        spare = plane_bytes(dev["spare"])
-        return {k: v + spare.get(k, 0)
-                for k, v in plane_bytes(dev["arena"]).items()}
+        out: dict[str, int] = {}
+        arenas = ((dev["arena"], dev["spare"]) if dev.get("ssl") is None
+                  else (*dev["arena"], *dev["spare"]))
+        for arena in arenas:
+            for k, v in plane_bytes(arena).items():
+                out[k] = out.get(k, 0) + v
+        return out
 
     # contract: dispatches<=0 fetches<=0
     def _device_values(self):
@@ -2035,9 +2171,28 @@ class SessionExecutor:
         dev = self._dev
         return dev["arena"] if dev is not None else ()
 
+    @staticmethod
+    def _flatten_sharded_extract(packed: np.ndarray,
+                                 codes: np.ndarray) -> np.ndarray:
+        """Sharded extract buffer [n_shards, 1 + n_aggs, pcap] -> the
+        single-card [1 + n_aggs, k] layout: row r of the close's codes
+        snapshot sits at (its shard, its rank among the snapshot's rows
+        of that shard), the order _dispatch_extract built the per-shard
+        slot lists in. Deferred buffers too: the codes snapshot predates
+        any compaction, and the remap keeps residues."""
+        ns = packed.shape[0]
+        cls = (codes % ns).astype(np.int64)
+        rank = np.empty(len(codes), np.int64)
+        for s in range(ns):
+            m = cls == s
+            rank[m] = np.arange(int(m.sum()))
+        return np.ascontiguousarray(packed[cls, :, rank].T)
+
     def _decode_close(self, packed: np.ndarray, codes, t0, t1,
                       keys=None):
         k = len(codes)
+        if packed.ndim == 3:  # sharded extract: [n_shards, rows, pcap]
+            packed = self._flatten_sharded_extract(packed, codes)
         if not np.array_equal(packed[0, :k], codes):
             raise AssertionError(
                 "session mirror diverged from device arena codes")
@@ -2080,7 +2235,8 @@ class SessionExecutor:
             for g in range(len(self.group_cols)):
                 arr = np.empty(version, object)
                 for i, key in enumerate(self._code_rev):
-                    arr[i] = key[g]
+                    if key is not None:  # sharded-compaction hole
+                        arr[i] = key[g]
                 out.append(arr)
             self._code_cols_cache = (version, out)
         return self._code_cols_cache[1]

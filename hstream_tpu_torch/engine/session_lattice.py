@@ -472,7 +472,8 @@ def _check_arena(spec: SessionSpec, arena, cap: int, device) -> None:
 
 
 def _session_args(spec: SessionSpec, arena, out, nb: int, mode: int,
-                  gap: int, close_cut: int, delta: int) -> kb.SessionArgs:
+                  gap: int, close_cut: int, delta: int,
+                  shard: tuple[int, int] = (1, 0)) -> kb.SessionArgs:
     cap = arena["code"].shape[0]
     dev = arena["code"].device
     _check_arena(spec, arena, cap, dev)
@@ -483,6 +484,7 @@ def _session_args(spec: SessionSpec, arena, out, nb: int, mode: int,
     a = kb.SessionArgs()
     a.cap, a.nb, a.mode = cap, nb, mode
     a.gap, a.close_cut, a.delta = int(gap), int(close_cut), int(delta)
+    a.n_shards, a.shard = shard
     a.hll_p = spec.hll.precision
     a.q_min, a.q_gamma = spec.qcfg.min_value, spec.qcfg.gamma_log
     a.code, a.t0, a.t1 = (kb.ptr(arena[k]) for k in ("code", "t0", "t1"))
@@ -522,12 +524,22 @@ def session_step(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
         session_step_ref(spec, arena, out, packed, inputs, gap, close_cut,
                          delta)
         return
+    step_cuda(spec, arena, out, packed, inputs, gap, close_cut, delta)
+    session_step.launches += 1
+
+
+def step_cuda(spec: SessionSpec, arena, out, packed: torch.Tensor, inputs,
+              gap: int, close_cut: int, delta: int,
+              shard: tuple[int, int] = (1, 0)) -> None:
+    """The session step kernel's launch; `shard` = (n_shards, shard) makes
+    it fold only the records a key shard of a mesh owns (code mod
+    n_shards == shard; parallel/lattice.py ShardedSessionLattice)."""
     if packed.dtype != torch.int32 or packed.dim() != 2 \
             or packed.shape[0] < 3:
         raise ValueError("session_step: packed must be int32 [3 + cols, B]")
     nb = packed.shape[1]
     a = _session_args(spec, arena, out, nb, kb.SESS_RECORD, gap, close_cut,
-                      delta)
+                      delta, shard)
     a.b_code, a.b_t0, a.b_t1, a.b_flags = (kb.ptr(packed[0]),
                                            kb.ptr(packed[1]),
                                            kb.ptr(packed[1]),
@@ -542,7 +554,6 @@ def session_step(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
         a.p[q].vtype, a.p[q].values = kb.VTYPES[v.dtype], kb.ptr(v)
         a.p[q].null_bit = bits[i]
     _launch_session("hs_session_step", a, packed.device)
-    session_step.launches += 1
 
 
 session_step.launches = 0  # wrapper calls that launched the kernels
@@ -559,9 +570,17 @@ def session_merge(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
     if seg["code"].device.type == "cpu":
         session_merge_ref(spec, arena, out, seg, gap, close_cut, delta)
         return
+    merge_cuda(spec, arena, out, seg, gap, close_cut, delta)
+    session_merge.launches += 1
+
+
+def merge_cuda(spec: SessionSpec, arena, out, seg, gap: int, close_cut: int,
+               delta: int, shard: tuple[int, int] = (1, 0)) -> None:
+    """The session merge kernel's launch; `shard` as in step_cuda (the
+    segments another key shard owns are dropped)."""
     ns = seg["code"].shape[0]
     a = _session_args(spec, arena, out, ns, kb.SESS_SEGMENT, gap, close_cut,
-                      delta)
+                      delta, shard)
     _check_arena(spec, seg, ns, arena["code"].device)
     a.b_code, a.b_t0, a.b_t1 = (kb.ptr(seg[k]) for k in ("code", "t0", "t1"))
     for q, (_i, name, agg) in enumerate(_owners(spec)):
@@ -569,7 +588,6 @@ def session_merge(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
         if agg.kind == AggKind.AVG:
             a.p[q].seg_n = kb.ptr(seg[name + "_n"])
     _launch_session("hs_session_merge", a, seg["code"].device)
-    session_merge.launches += 1
 
 
 session_merge.launches = 0  # wrapper calls that launched the kernels
@@ -588,6 +606,19 @@ def session_extract(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
     dev = arena["code"].device
     if dev.type == "cpu":
         return session_extract_ref(spec, arena, torch.from_numpy(slots))
+    out = extract_cuda(spec, arena, slots)
+    session_extract.launches += 1
+    return out
+
+
+def extract_cuda(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
+                 slots: np.ndarray, out: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """The session extract kernel's launch over the checked host vector
+    `slots` (int32, < cap), into `out` (contiguous int32 [1 + n_aggs, P]
+    on the arena's card) where given."""
+    cap = arena["code"].shape[0]
+    dev = arena["code"].device
     if spec.hll.precision < 2 or len(spec.aggs) > kb.MAX_AGGS:
         raise ValueError("session_extract: unsupported spec")
     _check_arena(spec, arena, cap, dev)
@@ -606,8 +637,13 @@ def session_extract(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
         slots_t = torch.from_numpy(slots[:a.n_live]).to(dev)
         a.slots = kb.ptr(slots_t)
     a.code = kb.ptr(arena["code"])
-    out = torch.empty((1 + len(spec.aggs), len(slots)), dtype=torch.int32,
-                      device=dev)
+    shape = (1 + len(spec.aggs), len(slots))
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+    elif (tuple(out.shape) != shape or out.dtype != torch.int32
+          or not out.is_contiguous() or out.device != dev):
+        raise ValueError("session_extract: out is not a contiguous int32 "
+                         f"{list(shape)} tensor on the arena's card")
     a.out = out.data_ptr()
     f = a.f
     m = spec.hll.m
@@ -630,7 +666,6 @@ def session_extract(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
     f.n_aggs = len(spec.aggs)
     kb.check(kb.lib().hs_session_extract(ctypes.byref(a), kb.stream_of(out)),
              "session_extract")
-    session_extract.launches += 1
     return out
 
 
@@ -650,11 +685,18 @@ def session_remap(arena: dict[str, torch.Tensor], lut: torch.Tensor,
     if code.device.type == "cpu":
         session_remap_ref(arena, lut, sent_above)
         return
+    remap_cuda(arena, lut, sent_above)
+    session_remap.launches += 1
+
+
+def remap_cuda(arena: dict[str, torch.Tensor], lut: torch.Tensor,
+               sent_above: bool = False) -> None:
+    """The remap kernel's launch over the arena's codes, in place."""
+    code = arena["code"]
     kb.check(kb.lib().hs_session_remap(kb.ptr(code), code.shape[0],
                                        kb.ptr(lut), lut.shape[0],
                                        int(sent_above), kb.stream_of(code)),
              "session_remap")
-    session_remap.launches += 1
 
 
 session_remap.launches = 0  # wrapper calls that launched the kernel

@@ -1,12 +1,16 @@
-"""Sharded execution: the window lattice over a (data, key) mesh (the port
-of hstream_tpu/parallel).
+"""Sharded execution over a (data, key) mesh (the port of
+hstream_tpu/parallel): the window lattice, the session arena and the
+interval join's stores.
 
 A `Mesh` is a [n_data, n_key] grid of torch devices with the axis names
 ("data", "key"). Every shard (d, k) holds a partial lattice of the key
 range k owns on its device; the step runs with no merge, and the merges
 run at the drain points (close, changelog, peek, snapshot) in the merged
-kernels (parallel/lattice.py). The design is single-controller, as the
-reference's is: one process drives every shard.
+kernels (parallel/lattice.py). A session arena and a join's stores shard
+on the key axis alone: key shard k owns the codes with code mod n_key ==
+k and keeps them on the device of shard (0, k). The design is
+single-controller, as the reference's is: one process drives every
+shard.
 
 Shards wrap round the devices when there are fewer devices than shards
 (`make_mesh(2, 2)` on one card puts all four shards on it, and the CPU
@@ -71,9 +75,14 @@ def make_mesh(n_data: int | None = None, n_key: int = 1,
     return Mesh(grid)
 
 
-from hstream_tpu_torch.parallel.lattice import ShardedLattice  # noqa: E402
+from hstream_tpu_torch.parallel.lattice import (  # noqa: E402
+    ShardedJoinLattice,
+    ShardedLattice,
+    ShardedSessionLattice,
+)
 from hstream_tpu_torch.parallel.executor import (  # noqa: E402
     ShardedQueryExecutor,
 )
 
-__all__ = ["Mesh", "ShardedLattice", "ShardedQueryExecutor", "make_mesh"]
+__all__ = ["Mesh", "ShardedJoinLattice", "ShardedLattice",
+           "ShardedQueryExecutor", "ShardedSessionLattice", "make_mesh"]

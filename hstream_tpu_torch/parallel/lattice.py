@@ -1,6 +1,8 @@
 """The window lattice sharded over a (data, key) mesh (the port of
 hstream_tpu/parallel/lattice.py:85-327, ShardedLattice, and of the
-snapshot's _merge_partials, engine/snapshot.py:258).
+snapshot's _merge_partials, engine/snapshot.py:258), and the key-sharded
+session arena and interval-join stores (:617-784 ShardedSessionLattice,
+:340-615 ShardedJoinLattice; their own sections below).
 
 Every shard (d, k) holds a partial lattice of the Kl = K / n_key keys
 that key shard k owns, [Kl, W, ...] a plane, on its mesh device; the
@@ -43,7 +45,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from hstream_tpu_torch.engine import join_lattice as jl
 from hstream_tpu_torch.engine import lattice
+from hstream_tpu_torch.engine import session_lattice as sl
 from hstream_tpu_torch.engine.expr import eval_programs, ftz
 from hstream_tpu_torch.engine.kernels import binding as kb
 from hstream_tpu_torch.engine.kernels.binding import (
@@ -738,3 +742,646 @@ class ShardedLattice:
 
     def extract_touched(self, state: ShardedState):
         return state, touched_merged(self.local_spec, state, self.max_out)
+
+
+# ---- the key-sharded session arena (B19c) -------------------------------------
+#
+# The reference's ShardedSessionLattice (parallel/lattice.py:617-784): a
+# session never spans keys, so each key shard keeps its own (code, t0)-
+# sorted arena of the codes with code mod n_shards == shard, on the card
+# of its data-0 shard (data replicas compute the same arena in the
+# reference; the port keeps one). Every micro-batch goes to every shard
+# and the ownership test runs inside the session kernels
+# (csrc/session_chain.cuh, kOwn): an unowned record is the sentinel
+# (record mode, the reference's cleared valid bit) and so is an unowned
+# segment (segment mode, the rewritten code). No collective anywhere:
+# step, merge, extract and remap are per shard, one launch each.
+
+Arenas = list[dict[str, torch.Tensor]]
+
+
+def key_shard_devices(mesh) -> list[torch.device]:
+    """The card of each key shard's data-0 shard, where its session arena
+    or join stores live."""
+    return [mesh.devices[0, k] for k in range(mesh.shape["key"])]
+
+
+def _on_device(x: torch.Tensor, dev: torch.device,
+               cache: dict | None = None) -> torch.Tensor:
+    """`x` on `dev`; with a `cache` (held by the caller, with `x` alive for
+    as long) copied once per device."""
+    if x.device == dev:
+        return x
+    if cache is None:
+        return x.to(dev)
+    key = (id(x), dev)
+    if key not in cache:
+        cache[key] = x.to(dev)
+    return cache[key]
+
+
+def sharded_session_step_ref(spec, arenas: Arenas, outs: Arenas,
+                             packed: torch.Tensor, inputs, gap: int,
+                             close_cut: int, delta: int) -> None:
+    """Plain sharded record-mode step (parallel/lattice.py:669-688): each
+    shard's step with the valid bit (flags bit 0) of the records other
+    shards own cleared."""
+    S = len(arenas)
+    for s in range(S):
+        p = packed.clone()
+        own = torch.remainder(packed[0], S) == s
+        p[2] = torch.where(own, packed[2], packed[2] & ~1)
+        sl.session_step_ref(spec, arenas[s], outs[s], p, inputs, gap,
+                            close_cut, delta)
+
+
+def sharded_session_step(spec, arenas: Arenas, outs: Arenas,
+                         packed: torch.Tensor, inputs, gap: int,
+                         close_cut: int, delta: int) -> None:
+    """One record-mode micro-batch on every key shard: shard s folds its
+    arena and the records it owns into outs[s]. The session step kernel
+    with the ownership test (n_shards, s) once a shard on the card,
+    sharded_session_step_ref on the CPU."""
+    if packed.device.type == "cpu":
+        sharded_session_step_ref(spec, arenas, outs, packed, inputs, gap,
+                                 close_cut, delta)
+        return
+    S = len(arenas)
+    cache: dict = {}
+    for s in range(S):
+        dev = arenas[s]["code"].device
+        with on(dev):
+            ins = tuple(None if v is None else _on_device(v, dev, cache)
+                        for v in inputs)
+            sl.step_cuda(spec, arenas[s], outs[s],
+                         _on_device(packed, dev, cache), ins, gap,
+                         close_cut, delta, (S, s))
+    sharded_session_step.launches += 1
+
+
+sharded_session_step.launches = 0  # wrapper calls that launched the kernels
+
+
+def sharded_session_merge_ref(spec, arenas: Arenas, outs: Arenas, seg,
+                              gap: int, close_cut: int, delta: int) -> None:
+    """Plain sharded segment-mode merge (parallel/lattice.py:690-714):
+    each shard's merge with the segment codes other shards own rewritten
+    to the sentinel."""
+    S = len(arenas)
+    code = seg["code"]
+    for s in range(S):
+        own = (torch.remainder(code, S) == s) & (code < sl.SESSION_SENT_CODE)
+        sg = dict(seg)
+        sg["code"] = torch.where(own, code, sl.SESSION_SENT_CODE)
+        sl.session_merge_ref(spec, arenas[s], outs[s], sg, gap, close_cut,
+                             delta)
+
+
+def sharded_session_merge(spec, arenas: Arenas, outs: Arenas, seg, gap: int,
+                          close_cut: int, delta: int) -> None:
+    """One segment-mode micro-batch on every key shard: the session merge
+    kernel with the ownership test once a shard on the card,
+    sharded_session_merge_ref on the CPU."""
+    if seg["code"].device.type == "cpu":
+        sharded_session_merge_ref(spec, arenas, outs, seg, gap, close_cut,
+                                  delta)
+        return
+    S = len(arenas)
+    cache: dict = {}
+    for s in range(S):
+        dev = arenas[s]["code"].device
+        with on(dev):
+            sg = {k: _on_device(v, dev, cache) for k, v in seg.items()}
+            sl.merge_cuda(spec, arenas[s], outs[s], sg, gap, close_cut,
+                          delta, (S, s))
+    sharded_session_merge.launches += 1
+
+
+sharded_session_merge.launches = 0  # wrapper calls that launched the kernels
+
+
+def sharded_session_extract_ref(spec, arenas: Arenas,
+                                slots: np.ndarray) -> torch.Tensor:
+    """Plain sharded extract (parallel/lattice.py:716-728): shard s's
+    slot list slots[s] finalized -> [n_shards, 1 + n_aggs, pcap]."""
+    return torch.stack([
+        sl.session_extract_ref(spec, a, torch.from_numpy(
+            np.ascontiguousarray(slots[s])).to(a["code"].device))
+        for s, a in enumerate(arenas)])
+
+
+def sharded_session_extract(spec, arenas: Arenas, slots) -> torch.Tensor:
+    """Finalized rows of the per-shard slot lists `slots` (host int32
+    [n_shards, pcap], < 0 = padding) -> int32 [n_shards, 1 + n_aggs,
+    pcap] on shard 0's card, read-only: the session extract kernel once a
+    shard, each writing its row of the buffer (a shard on another card
+    writes its own, copied in); sharded_session_extract_ref on the CPU."""
+    slots = np.asarray(slots, np.int32)
+    if slots.ndim != 2 or slots.shape[0] != len(arenas):
+        raise ValueError("sharded session extract: slots must be "
+                         "[n_shards, pcap]")
+    cap = arenas[0]["code"].shape[0]
+    if (slots >= cap).any():
+        raise ValueError("sharded session extract: slot index out of range")
+    dev0 = arenas[0]["code"].device
+    if dev0.type == "cpu":
+        return sharded_session_extract_ref(spec, arenas, slots)
+    out = torch.empty((len(arenas), 1 + len(spec.aggs), slots.shape[1]),
+                      dtype=torch.int32, device=dev0)
+    for s, a in enumerate(arenas):
+        dev = a["code"].device
+        with on(dev):
+            if dev == dev0:
+                sl.extract_cuda(spec, a, slots[s], out=out[s])
+            else:
+                out[s] = sl.extract_cuda(spec, a, slots[s]).to(dev0)
+    sharded_session_extract.launches += 1
+    return out
+
+
+sharded_session_extract.launches = 0  # wrapper calls that launched them
+
+
+def sharded_session_remap(arenas: Arenas, lut: torch.Tensor) -> None:
+    """Every shard's arena codes remapped through the one table `lut`
+    (int32 [lcap]), in place (parallel/lattice.py:730-743): the remap
+    kernel once a shard on the card, session_remap_ref on the CPU. The
+    table must keep residues (new mod n_shards == old), so no entry
+    changes owner."""
+    if lut.dtype != torch.int32:
+        raise ValueError("sharded session remap: lut must be int32")
+    if arenas[0]["code"].device.type == "cpu":
+        for a in arenas:
+            sl.session_remap_ref(a, lut.to(a["code"].device))
+        return
+    cache: dict = {}
+    for a in arenas:
+        dev = a["code"].device
+        with on(dev):
+            sl.remap_cuda(a, _on_device(lut, dev, cache))
+    sharded_session_remap.launches += 1
+
+
+sharded_session_remap.launches = 0  # wrapper calls that launched them
+
+
+class ShardedSessionLattice:
+    """The session arena of one query, key-sharded over a mesh's key axis
+    (the reference's ShardedSessionLattice, parallel/lattice.py:617-784):
+    an arena is a list of per-shard plane dicts, arena[s] on key shard
+    s's card. Capacities are PER SHARD. The port's programs write a fresh
+    arena the caller passes (the executor's ping-pong), where the
+    reference returned a new one."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.n_shards = mesh.shape["key"]
+        self.spec = spec
+        self.devices = key_shard_devices(mesh)
+
+    def init_arena(self, cap: int) -> Arenas:
+        """Per-shard empty arenas."""
+        return [sl.init_session_arena(self.spec, cap, d)
+                for d in self.devices]
+
+    def put_arena(self, host: Mapping[str, np.ndarray]) -> Arenas:
+        """Host planes [n_shards, cap, ...] -> per-shard arenas."""
+        return [{k: torch.from_numpy(np.ascontiguousarray(v[s])).to(d)
+                 for k, v in host.items()}
+                for s, d in enumerate(self.devices)]
+
+    def grow_arena(self, arena: Arenas, new_cap: int) -> Arenas:
+        """Every shard's arena copied into a wider one (identities past
+        the old capacity), as session_lattice.grow_session_arena."""
+        return [sl.grow_session_arena(self.spec, a, new_cap) for a in arena]
+
+    def step(self, arena: Arenas, out: Arenas, packed: torch.Tensor, inputs,
+             gap: int, close_cut: int, delta: int) -> Arenas:
+        """Record-mode micro-batch into `out`: out, no fetch."""
+        sharded_session_step(self.spec, arena, out, packed, inputs, gap,
+                             close_cut, delta)
+        return out
+
+    def merge(self, arena: Arenas, out: Arenas, seg, gap: int,
+              close_cut: int, delta: int) -> Arenas:
+        """Segment-mode micro-batch into `out`: out, no fetch."""
+        sharded_session_merge(self.spec, arena, out, seg, gap, close_cut,
+                              delta)
+        return out
+
+    def extract(self, arena: Arenas, slots) -> torch.Tensor:
+        """Finalized rows for per-shard slot lists [n_shards, pcap] (-1
+        pads) -> [n_shards, 1 + n_aggs, pcap]."""
+        return sharded_session_extract(self.spec, arena, slots)
+
+    def remap(self, arena: Arenas, lut: torch.Tensor) -> Arenas:
+        """Rewrite every shard's codes through one residue-preserving
+        table (compaction), in place."""
+        sharded_session_remap(arena, lut)
+        return arena
+
+
+# ---- the key-sharded interval join (B19b) -------------------------------------
+#
+# The reference's ShardedJoinLattice (parallel/lattice.py:340-615): key
+# shard s owns the join-key codes with code mod n_shards == s and holds
+# its own slice of both side stores, on the card of its data-0 shard.
+# Every batch goes to every shard and the ownership test runs inside the
+# probe and insert kernels (csrc/join_core.cuh, csrc/join_insert.cu):
+# shard s probes and inserts only the records it owns. Shard s's match
+# buffer lands in columns [s * match_cap, (s + 1) * match_cap) of one
+# [rows, n_shards * match_cap] buffer (the reference's layout, its header
+# at column s * match_cap); in the fused step its match feed lands at
+# entries [s * match_cap, ...) of one feed, so the reference's
+# all_gather over the key axis is addressing, and the routing kernel
+# (csrc/join_route.cu) hands each partial (d, k) of the inner lattice its
+# keys and valid mask. The eviction runs once a shard.
+
+Stores = list[dict[str, torch.Tensor]]
+
+
+def sharded_join_probe_ref(others: Stores, batch: torch.Tensor, n: int,
+                           within: int, cutoff: int, match_cap: int,
+                           n_cols_mine: int) -> torch.Tensor:
+    """Plain sharded probe (parallel/lattice.py:420-439): each shard's
+    match buffer over the records it owns, concatenated along the
+    columns -> [rows, n_shards * match_cap]."""
+    S = len(others)
+    return torch.cat([
+        jl.join_probe_ref(o, batch, n, within, cutoff, match_cap,
+                          n_cols_mine, owned=jl.owned_mask(batch[0], (S, s)))
+        for s, o in enumerate(others)], dim=1)
+
+
+def sharded_join_insert_ref(mines: Stores, batch: torch.Tensor, n: int,
+                            n_cols: int) -> Stores:
+    """Plain sharded insert: each shard's store merged with the records
+    it owns (join_lattice.owned_batch)."""
+    S = len(mines)
+    return [jl.join_insert_ref(m, *jl.owned_batch(batch, n, (S, s)), n_cols)
+            for s, m in enumerate(mines)]
+
+
+def _probe_all(others: Stores, batch: torch.Tensor, n: int, within: int,
+               cutoff: int, match_cap: int, n_cols_mine: int, branch,
+               cache: dict) -> torch.Tensor:
+    """The probe kernel in pack mode once a shard, each writing its
+    columns of the mesh's buffer on shard 0's card."""
+    S = len(others)
+    dev0 = others[0]["code"].device
+    rows = 5 + n_cols_mine + others[0]["cols"].shape[0]
+    packed = torch.empty((rows, S * match_cap), dtype=torch.int32,
+                         device=dev0)
+    for s, o in enumerate(others):
+        dev = o["code"].device
+        seg = packed[:, s * match_cap:(s + 1) * match_cap]
+        with on(dev):
+            b = _on_device(batch, dev, cache)
+            if dev == dev0:
+                jl.probe_pack_cuda(o, b, n, within, cutoff, match_cap,
+                                   n_cols_mine, branch, (S, s), seg)
+            else:
+                seg.copy_(jl.probe_pack_cuda(o, b, n, within, cutoff,
+                                             match_cap, n_cols_mine, branch,
+                                             (S, s)).to(dev0))
+    return packed
+
+
+def _insert_all(mines: Stores, batch: torch.Tensor, n: int, n_cols: int,
+                outs: Stores, cache: dict) -> Stores:
+    S = len(mines)
+    for s, m in enumerate(mines):
+        dev = m["code"].device
+        with on(dev):
+            jl.insert_cuda(m, _on_device(batch, dev, cache), n, n_cols,
+                           outs[s], (S, s))
+    return outs
+
+
+def sharded_join_probe_insert(mines: Stores, others: Stores,
+                              batch: torch.Tensor, n: int, within: int,
+                              cutoff: int, match_cap: int, n_cols_mine: int,
+                              outs: Stores | None = None, branch=None):
+    """The match-fetch path's batch on every key shard (probe_insert,
+    parallel/lattice.py:394-418): (mines', packed [rows, n_shards *
+    match_cap]). On the card the probe kernel in pack mode and the insert
+    kernel, each with the ownership test, once a shard, the inserts
+    writing `outs`; on the CPU the plain versions."""
+    if batch.device.type == "cpu":
+        return (sharded_join_insert_ref(mines, batch, n, n_cols_mine),
+                sharded_join_probe_ref(others, batch, n, within, cutoff,
+                                       match_cap, n_cols_mine))
+    if outs is None:
+        raise ValueError("sharded join probe: the card needs out stores")
+    cache: dict = {}
+    packed = _probe_all(others, batch, n, within, cutoff, match_cap,
+                        n_cols_mine, branch, cache)
+    new = _insert_all(mines, batch, n, n_cols_mine, outs, cache)
+    sharded_join_probe_insert.launches += 1
+    return new, packed
+
+
+sharded_join_probe_insert.launches = 0  # wrapper calls that launched them
+
+
+def sharded_join_probe_only(others: Stores, batch: torch.Tensor, n: int,
+                            within: int, cutoff: int, match_cap: int,
+                            n_cols_mine: int, branch=None) -> torch.Tensor:
+    """The overflow redo on every key shard (probe_only,
+    parallel/lattice.py:420-439): the probe kernel in pack mode with the
+    ownership test once a shard, sharded_join_probe_ref on the CPU."""
+    if batch.device.type == "cpu":
+        return sharded_join_probe_ref(others, batch, n, within, cutoff,
+                                      match_cap, n_cols_mine)
+    packed = _probe_all(others, batch, n, within, cutoff, match_cap,
+                        n_cols_mine, branch, {})
+    sharded_join_probe_only.launches += 1
+    return packed
+
+
+sharded_join_probe_only.launches = 0  # wrapper calls that launched them
+
+
+def join_route_ref(kid: torch.Tensor, valid: torch.Tensor, n_data: int,
+                   n_key: int, local_keys: int):
+    """Plain routing of a concatenated match feed to the inner lattice's
+    partials (parallel/lattice.py:505-515): (keys int32 [n_key, m], key
+    column k = kid - k * local_keys, valid bool [n_data, m], row d the
+    entries i with i mod n_data == d)."""
+    m = kid.shape[0]
+    k64 = kid.to(torch.int64)
+    keys = torch.stack([jl._wrap32(k64 - k * local_keys)
+                        for k in range(n_key)])
+    mine = torch.arange(m, device=kid.device) % n_data
+    return keys, torch.stack([valid & (mine == d) for d in range(n_data)])
+
+
+def join_route(kid: torch.Tensor, valid: torch.Tensor, n_data: int,
+               n_key: int, local_keys: int):
+    """The routing kernel (csrc/join_route.cu) on the card, join_route_ref
+    on the CPU: (keys [n_key, m], valid [n_data, m])."""
+    m = kid.shape[0]
+    if (kid.dtype != torch.int32 or valid.dtype != torch.bool
+            or valid.shape != (m,) or kid.dim() != 1
+            or not kid.is_contiguous() or not valid.is_contiguous()
+            or kid.device != valid.device):
+        raise ValueError("join route: kid int32 [m] and valid bool [m], "
+                         "contiguous on one device")
+    if kid.device.type == "cpu":
+        return join_route_ref(kid, valid, n_data, n_key, local_keys)
+    keys = torch.empty((n_key, m), dtype=torch.int32, device=kid.device)
+    vd = torch.empty((n_data, m), dtype=torch.bool, device=kid.device)
+    a = kb.JoinRouteArgs()
+    a.m, a.n_data, a.n_key, a.local_keys = m, n_data, n_key, local_keys
+    a.kid, a.valid = kid.data_ptr(), valid.data_ptr()
+    a.keys, a.valid_out = keys.data_ptr(), vd.data_ptr()
+    kb.check(kb.lib().hs_join_route(ctypes.byref(a), kb.stream_of(kid)),
+             "join_route")
+    join_route.launches += 1
+    return keys, vd
+
+
+join_route.launches = 0  # wrapper calls that launched the kernel
+
+
+def _feed_columns(feed, m: int, dev: torch.device) -> dict:
+    feed_plan, nulls_plan, _filter = feed
+    cols = {name: torch.empty(m, dtype=jl._feed_tag(tag), device=dev)
+            for name, tag, *_ref in feed_plan}
+    cols.update({key: torch.empty(m, dtype=torch.bool, device=dev)
+                 for key, _refs in nulls_plan})
+    return cols
+
+
+def sharded_join_probe_insert_step_ref(mines: Stores, others: Stores,
+                                       batch: torch.Tensor, n: int,
+                                       within: int, cutoff: int,
+                                       match_cap: int, n_cols_mine: int,
+                                       spec, inner_state: ShardedState,
+                                       wm_rel: int, ts_off: int, progs,
+                                       feed):
+    """Plain fused sharded step (parallel/lattice.py:470-528): every
+    shard's match feed over the records it owns, concatenated; the inner
+    step's programs over it; each partial (d, k) of the inner lattice
+    scattered with its routed keys and valid mask (in place); then each
+    shard's insert. Returns (mines', per-shard totals int32 [n_shards])."""
+    S = len(others)
+    parts = [jl._join_match_feed(o, batch, n, within, cutoff, match_cap,
+                                 *feed, owned=jl.owned_mask(batch[0], (S, s)))
+             for s, o in enumerate(others)]
+    totals = torch.tensor([p[0] for p in parts], dtype=torch.int32,
+                          device=batch.device)
+    kid = torch.cat([p[1] for p in parts])
+    ts = jl._wrap32(torch.cat([p[2] for p in parts]).to(torch.int64)
+                    + ts_off)
+    valid = torch.cat([p[3] for p in parts])
+    cols = {k: torch.cat([p[4][k] for p in parts]) for k in parts[0][4]}
+    for prog, name in progs:
+        r = prog(cols)
+        if name is None:
+            valid = valid & r
+        else:
+            cols[name] = r
+    keys, vd = join_route_ref(kid, valid, inner_state.n_data,
+                              inner_state.n_key, spec.n_keys)
+    for d in range(inner_state.n_data):
+        for k in range(inner_state.n_key):
+            lattice.scatter_step_ref(spec, inner_state[d][k], int(wm_rel),
+                                     keys[k], ts, vd[d], cols)
+    return sharded_join_insert_ref(mines, batch, n, n_cols_mine), totals
+
+
+def sharded_join_probe_insert_step(mines: Stores, others: Stores,
+                                   batch: torch.Tensor, n: int, within: int,
+                                   cutoff: int, match_cap: int,
+                                   n_cols_mine: int, spec,
+                                   inner_state: ShardedState, wm_rel: int,
+                                   ts_off: int, progs, feed,
+                                   outs: Stores | None = None, branch=None):
+    """The fused batch on every key shard (probe_insert_step,
+    parallel/lattice.py:470-528): each shard's probe in feed mode with the
+    ownership test writes its segment of one feed, the inner step's
+    programs run over it once, the routing kernel gives each partial its
+    keys and valid mask, the scatter folds each partial, and each shard's
+    insert writes `outs`; nothing is fetched. `spec` is the inner
+    lattice's local spec, `progs` its step programs. Returns (mines',
+    per-shard match totals int32 [n_shards] on shard 0's card). The plain
+    version on the CPU."""
+    if batch.device.type == "cpu":
+        return sharded_join_probe_insert_step_ref(
+            mines, others, batch, n, within, cutoff, match_cap, n_cols_mine,
+            spec, inner_state, wm_rel, ts_off, progs, feed)
+    if outs is None:
+        raise ValueError("sharded join step: the card needs out stores")
+    S = len(others)
+    dev0 = others[0]["code"].device
+    m = S * match_cap
+    kid = torch.empty(m, dtype=torch.int32, device=dev0)
+    ts = torch.empty(m, dtype=torch.int32, device=dev0)
+    valid = torch.empty(m, dtype=torch.bool, device=dev0)
+    cols = _feed_columns(feed, m, dev0)
+    totals = torch.empty(S, dtype=torch.int32, device=dev0)
+    cache: dict = {}
+    for s, o in enumerate(others):
+        dev = o["code"].device
+        at = s * match_cap
+        with on(dev):
+            b = _on_device(batch, dev, cache)
+            if dev == dev0:
+                total, *_ = jl.feed_cuda(o, b, n, within, cutoff, match_cap,
+                                         n_cols_mine, ts_off, feed, branch,
+                                         (S, s), (kid, ts, valid, cols, at))
+            else:
+                total, k_, t_, v_, c_ = jl.feed_cuda(
+                    o, b, n, within, cutoff, match_cap, n_cols_mine, ts_off,
+                    feed, branch, (S, s))
+                for full, part in [(kid, k_), (ts, t_), (valid, v_)] + [
+                        (cols[c], c_[c]) for c in cols]:
+                    full[at:at + match_cap] = part.to(dev0)
+            totals[s:s + 1] = total.to(dev0)
+    with on(dev0):
+        eval_programs(progs, cols, valid)
+        keys, vd = join_route(kid, valid, inner_state.n_data,
+                              inner_state.n_key, spec.n_keys)
+    for d in range(inner_state.n_data):
+        for k in range(inner_state.n_key):
+            part = inner_state[d][k]
+            pdev = _device(part)
+            with on(pdev):
+                lattice.scatter_step(
+                    spec, part, int(wm_rel), _on_device(keys[k], pdev),
+                    _on_device(ts, pdev), _on_device(vd[d], pdev),
+                    {c: _on_device(v, pdev) for c, v in cols.items()})
+    new = _insert_all(mines, batch, n, n_cols_mine, outs, cache)
+    sharded_join_probe_insert_step.launches += 1
+    return new, totals
+
+
+sharded_join_probe_insert_step.launches = 0  # wrapper calls that launched
+
+
+def sharded_join_evict_ref(lefts: Stores, rights: Stores, cutoff: int,
+                           delta: int):
+    """Plain sharded eviction (parallel/lattice.py:441-467): each shard's
+    two-sided eviction -> (lefts', rights', live counts int32
+    [n_shards, 2])."""
+    res = [jl.join_evict_ref(lt, rt, cutoff, delta)
+           for lt, rt in zip(lefts, rights)]
+    return ([r[0] for r in res], [r[1] for r in res],
+            torch.stack([r[2].to(lefts[0]["code"].device) for r in res]))
+
+
+def sharded_join_evict(lefts: Stores, rights: Stores, cutoff: int, delta: int,
+                       outs: tuple[Stores, Stores] | None = None):
+    """Eviction + epoch rebase of every key shard's two sides: (lefts',
+    rights', live counts int32 [n_shards, 2] on shard 0's card, not
+    fetched). The eviction kernel once a shard into the `outs` pair of
+    store lists on the card, sharded_join_evict_ref on the CPU."""
+    if lefts[0]["code"].device.type == "cpu":
+        return sharded_join_evict_ref(lefts, rights, cutoff, delta)
+    if outs is None:
+        raise ValueError("sharded join evict: the card needs an out pair")
+    dev0 = lefts[0]["code"].device
+    counts = torch.empty((len(lefts), 2), dtype=torch.int32, device=dev0)
+    for s, (lt, rt) in enumerate(zip(lefts, rights)):
+        dev = lt["code"].device
+        with on(dev):
+            pair = (outs[0][s], outs[1][s])
+            if dev == dev0:
+                jl.evict_cuda(lt, rt, cutoff, delta, pair, n_out=counts[s])
+            else:
+                counts[s] = jl.evict_cuda(lt, rt, cutoff, delta,
+                                          pair).to(dev0)
+    sharded_join_evict.launches += 1
+    return outs[0], outs[1], counts
+
+
+sharded_join_evict.launches = 0  # wrapper calls that launched the kernels
+
+
+class ShardedJoinLattice:
+    """Both sides of one interval join, key-sharded over a mesh's key axis
+    (the reference's ShardedJoinLattice, parallel/lattice.py:340-615): a
+    side is a list of per-shard stores, store[s] on key shard s's card.
+    Capacities are PER SHARD. The port's programs write the stores the
+    caller passes (`out`, the executor's ping-pong; None on the CPU,
+    where the plain versions return new ones)."""
+
+    def __init__(self, mesh, n_cols_l: int, n_cols_r: int):
+        self.mesh = mesh
+        self.n_shards = mesh.shape["key"]
+        self.n_cols = {"l": n_cols_l, "r": n_cols_r}
+        self.devices = key_shard_devices(mesh)
+
+    def init_store(self, side: str, cap: int) -> Stores:
+        """Per-shard empty stores."""
+        return [jl.init_join_store(cap, self.n_cols[side], d)
+                for d in self.devices]
+
+    def empty_store(self, side: str, cap: int) -> Stores:
+        """Per-shard uninitialized stores, for the kernels to write."""
+        return [jl.empty_join_store(cap, self.n_cols[side], d)
+                for d in self.devices]
+
+    def put_store(self, host: Mapping[str, np.ndarray]) -> Stores:
+        """Host planes [n_shards, cap] ([n_shards, n_cols, cap] for cols)
+        -> per-shard stores."""
+        return [{k: torch.from_numpy(np.ascontiguousarray(v[s])).to(d)
+                 for k, v in host.items()}
+                for s, d in enumerate(self.devices)]
+
+    def probe_insert(self, side: str, mine: Stores, other: Stores,
+                     batch: torch.Tensor, n: int, within: int, cutoff: int,
+                     match_cap: int, out: Stores | None = None):
+        return sharded_join_probe_insert(mine, other, batch, n, within,
+                                         cutoff, match_cap,
+                                         self.n_cols[side], outs=out)
+
+    def probe_only(self, side: str, other: Stores, batch: torch.Tensor,
+                   n: int, within: int, cutoff: int,
+                   match_cap: int) -> torch.Tensor:
+        return sharded_join_probe_only(other, batch, n, within, cutoff,
+                                       match_cap, self.n_cols[side])
+
+    def probe_insert_step(self, side: str, inner: ShardedLattice,
+                          mine: Stores, other: Stores, batch: torch.Tensor,
+                          n: int, within: int, cutoff: int,
+                          inner_state: ShardedState, wm_rel: int,
+                          ts_off: int, *, feed_plan, nulls_plan,
+                          filter_nulls, match_cap: int,
+                          out: Stores | None = None):
+        """Fused probe + insert + inner scatter, nothing fetched; returns
+        (mine', inner_state (updated in place), per-shard totals).
+        `inner` is the query's ShardedLattice on the same mesh."""
+        new, totals = sharded_join_probe_insert_step(
+            mine, other, batch, n, within, cutoff, match_cap,
+            self.n_cols[side],
+            inner.local_spec, inner_state, wm_rel, ts_off, inner._progs,
+            (feed_plan, nulls_plan, filter_nulls), outs=out)
+        return new, inner_state, totals
+
+    def evict(self, left: Stores, right: Stores, cutoff: int, delta: int,
+              out: tuple[Stores, Stores] | None = None):
+        return sharded_join_evict(left, right, cutoff, delta, outs=out)
+
+    def unpack_matches(self, packed: np.ndarray, side: str):
+        """Flatten the shard-concatenated match buffer into host arrays in
+        shard order: (total, kid, jts_rel, my_flags, other_flags, my_cols,
+        other_cols), the sharded twin of join_lattice.unpack_join_matches;
+        `total` sums the per-shard headers."""
+        nm = self.n_cols[side]
+        match_cap = packed.shape[1] // self.n_shards
+        parts = []
+        total = 0
+        for s in range(self.n_shards):
+            seg = packed[:, s * match_cap:(s + 1) * match_cap]
+            t, kid, jts, mf, of, mc, oc = jl.unpack_join_matches(seg, nm)
+            total += t
+            parts.append((kid, jts, mf, of, mc, oc))
+        return (total,
+                np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]),
+                np.concatenate([p[2] for p in parts]),
+                np.concatenate([p[3] for p in parts]),
+                np.concatenate([p[4] for p in parts], axis=1),
+                np.concatenate([p[5] for p in parts], axis=1))

@@ -14,9 +14,10 @@ expressions become host-side row operations.
 The port's executors run on the card unless `device="cpu"` is passed,
 which selects the plain PyTorch versions of the kernels. With a `mesh`
 (hstream_tpu_torch.parallel.make_mesh) a windowed aggregate runs sharded
-on the mesh's devices; a session or join over a mesh whose key axis has
-more than one shard raises NotPortedError (ROADMAP A11b). EXPLAIN has no
-PACK line until the placer's packing is ported (A9).
+on the mesh's devices, and so do a session window (its arena key-sharded)
+and an interval join (both side stores key-sharded, the inner aggregate
+sharded with them). EXPLAIN has no PACK line until the placer's packing
+is ported (A9).
 """
 
 from __future__ import annotations
@@ -468,7 +469,8 @@ def make_executor(plan: plans.SelectPlan, sample_rows=None, *,
     `sample_rows` refine schema inference (bind_schema). With `mesh`, the
     aggregation lattice is sharded over it (hstream_tpu_torch.parallel;
     the mesh's devices hold the shards, whatever `device` says), but for
-    TOPK, whose planes have no elementwise merge."""
+    TOPK, whose planes have no elementwise merge; a session window's arena
+    and an interval join's stores key-shard over a key axis above one."""
     if plan.join is not None:
         from hstream_tpu_torch.engine.join import (JoinExecutor,
                                                    TableJoinExecutor)

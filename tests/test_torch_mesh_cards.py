@@ -1,5 +1,7 @@
-"""The port's sharded window lattice on a mesh that spans two CUDA cards,
-against the same mesh wrapped onto one card.
+"""The port's sharded window lattice, key-sharded session arena and
+key-sharded join stores on a mesh that spans two CUDA cards, against the
+same mesh wrapped onto one card. The session and join cases are set out
+in their own section below; this part is about the window lattice.
 
 Where a key shard's partials lie on other cards than its data shard 0's
 partial, the merged kernels read copies made on a side stream of that
@@ -205,3 +207,265 @@ def check_against_one_card(across, one, cards, emit_changes):
         and after[3] > launches[3]
     if emit_changes:
         assert after[1] > launches[1]
+
+
+# ---- the key-sharded session arena and join stores across two cards ------
+#
+# A key shard's session arena or join stores live on the card of its
+# data-0 shard (parallel/lattice.py key_shard_devices). Where those cards
+# differ, every batch, segment and slot list is copied to each shard's
+# card, a shard off shard 0's card writes its extract rows, match buffer
+# columns, match feed segment and live counts on its own card and they
+# are copied in, and in the join's fused step the routed feed is copied
+# to each inner partial's card. "(1, 2)" and "(2, 2) key split" put the
+# two key shards on cards 0 and 1; "(2, 2) data split" keeps both on
+# card 0 with every data-1 partial of the join's inner aggregate on card
+# 1. Values are integers, so every SUM is exact in any order and the
+# rows, stores and snapshots must equal the one-card mesh's exactly.
+
+KEY_SPLIT = {"(1, 2)": ((1, 2), (0, 1)),
+             "(2, 2) key split": ((2, 2), (0, 1, 1, 0))}
+JOIN_LAYOUTS = dict(KEY_SPLIT, **{"(2, 2) data split": ((2, 2), (0, 0, 1, 1))})
+SESSION_NAMES = ("c", "sv", "mn", "mx")
+JOIN_SQL = {
+    # one tumble covers the join's span, so every batch fuses
+    "fused": ("SELECT l.k, COUNT(*) AS c, SUM(l.x) AS s FROM l INNER JOIN "
+              "r WITHIN (INTERVAL 10 SECOND) ON l.k = r.k GROUP BY l.k, "
+              "TUMBLING (INTERVAL 10 SECOND) GRACE BY INTERVAL 0 SECOND "
+              "EMIT CHANGES;"),
+    # WITHIN 10 s over TUMBLE(1 s) spans more windows than the inner
+    # lattice's slots: every batch takes the match-fetch path
+    "fetch": ("SELECT l.k, COUNT(*) AS c, SUM(l.x) AS s FROM l INNER JOIN "
+              "r WITHIN (INTERVAL 10 SECOND) ON l.k = r.k GROUP BY l.k, "
+              "TUMBLING (INTERVAL 1 SECOND) GRACE BY INTERVAL 4 SECOND "
+              "EMIT CHANGES;"),
+}
+
+
+def _two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the copies between cards")
+
+
+def _meshes(layouts, name):
+    """(the mesh across cards 0 and 1, the same mesh on card 0)."""
+    (n_data, n_key), order = layouts[name]
+    cards = [torch.device("cuda", i) for i in order]
+    return (make_mesh(n_data, n_key, devices=cards),
+            make_mesh(n_data, n_key, devices=[cards[0]]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["record", "segment"])
+@pytest.mark.parametrize("layout", sorted(KEY_SPLIT))
+def test_sessions_across_two_cards_match_one_card(layout, mode):
+    _two_cards()
+    check_sessions_against_one_card(*_meshes(KEY_SPLIT, layout), mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(JOIN_SQL))
+@pytest.mark.parametrize("layout", sorted(JOIN_LAYOUTS))
+def test_joins_across_two_cards_match_one_card(layout, path):
+    _two_cards()
+    check_joins_against_one_card(*_meshes(JOIN_LAYOUTS, layout), path)
+
+
+def _session_node():
+    schema = T.Schema.of(k=T.ColumnType.STRING, v=T.ColumnType.FLOAT)
+    v = Col("v")
+    aggs = [T.AggSpec(T.AggKind.COUNT_ALL, "c"),
+            T.AggSpec(T.AggKind.SUM, "sv", input=v),
+            T.AggSpec(T.AggKind.MIN, "mn", input=v),
+            T.AggSpec(T.AggKind.MAX, "mx", input=v)]
+    node = T.AggregateNode(
+        child=T.SourceNode("s", schema), group_keys=[Col("k")],
+        window=T.SessionWindow(800, grace_ms=400), aggs=aggs)
+    return node, schema
+
+
+def _session_batches(n_batches=14, per=250, seed=11):
+    """A rotating key population (the executor's code compaction runs
+    mid-run) with a late tail, integer values."""
+    rng = np.random.default_rng(seed)
+    out, t = [], BASE
+    for b in range(n_batches):
+        ks = rng.integers(b * 37, b * 37 + 90, per)
+        ts = t + rng.integers(0, 3000, per)
+        late = rng.random(per) < 0.1
+        ts = np.where(late, ts - rng.integers(3000, 15_000, per), ts)
+        rows = [{"k": f"u{int(k)}", "v": float(v)}
+                for k, v in zip(ks, rng.integers(0, 1000, per))]
+        out.append((rows, ts.tolist()))
+        t += 2000
+    return out
+
+
+def _session_rows(out):
+    rows = [] if out is None else (out if isinstance(out, list)
+                                   else out.rows())
+    return sorted((r["k"], int(r["winStart"]), int(r["winEnd"]))
+                  + tuple(float(r[n]) for n in SESSION_NAMES) for r in rows)
+
+
+def check_sessions_against_one_card(across, one, mode):
+    """Drive a key-sharded SessionExecutor on each mesh with the same
+    batches (a code compaction included) and hold closed rows, peeks and
+    a snapshot's restores onto one card and onto the mesh across cards
+    against the one-card mesh's."""
+    from hstream_tpu_torch.engine import SessionExecutor
+    counters = (pl.sharded_session_step if mode == "record"
+                else pl.sharded_session_merge,
+                pl.sharded_session_extract, pl.sharded_session_remap)
+    before = [c.launches for c in counters]
+    node, schema = _session_node()
+    execs = []
+    for m in (across, one):
+        ex = SessionExecutor(node, schema, device=m.devices[0, 0], mesh=m)
+        ex.device_session_mode = mode
+        ex._KEY_CACHE_MAX = 128              # code compaction mid-run
+        execs.append(ex)
+    data = _session_batches()
+    cut = 11
+    n_rows = 0
+    for i in range(cut):
+        got, want = (_session_rows(ex.process(*data[i])) for ex in execs)
+        assert got == want, i
+        n_rows += len(want)
+        if i % 4 == 3:
+            assert _session_rows(execs[0].peek()) == \
+                _session_rows(execs[1].peek())
+    assert n_rows > 0
+    ex = execs[0]
+    assert ex.device_fallbacks == 0 and ex._dev["ssl"] is not None, \
+        ex._device_refusal
+    assert ex.session_stats["remap_dispatches"] > 0, "no remap ran"
+    for s, arena in enumerate(ex._dev["arena"]):
+        assert arena["code"].device == across.devices[0, s]
+    # a snapshot across cards restores onto one card and onto the mesh
+    # across cards; both continue as the one-card mesh does
+    blob = tsnap.snapshot_executor(ex)
+    plan = SimpleNamespace(node=node)
+    restored = [tsnap.restore_executor(plan, blob,
+                                       device=across.devices[0, 0])[0],
+                tsnap.restore_executor(plan, blob, mesh=across,
+                                       device=across.devices[0, 0])[0]]
+    for r in restored:
+        r.device_session_mode = mode
+    for i in range(cut, len(data)):
+        want = _session_rows(execs[1].process(*data[i]))
+        for r in restored:
+            assert _session_rows(r.process(*data[i])) == want, i
+    want = _session_rows(execs[1].peek())
+    assert want
+    for r in restored:
+        assert _session_rows(r.peek()) == want
+    assert restored[1]._dev["ssl"] is not None
+    if across.devices[0, 0].type != "cpu":
+        assert all(c.launches > b for c, b in zip(counters, before)), \
+            [(c.__name__, b, c.launches) for c, b in zip(counters, before)]
+
+
+def _join_batches(n_batches=18, per=400, seed=3):
+    """Alternating sides over a rotating key population (code churn), a
+    span past retention (eviction), out of order within each batch,
+    integer x."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(n_batches):
+        lo = b * 23
+        rows = [{"k": f"k{int(i)}", "x": float(v)}
+                for i, v in zip(rng.integers(lo, lo + 120, per),
+                                rng.integers(-3, 6, per))]
+        ts = BASE + b * 900 + rng.integers(0, 1400, per).astype(np.int64)
+        out.append((rows, ts.tolist(), "l" if b % 2 else "r"))
+    return out
+
+
+def _settled(rows):
+    """Last change per (key, winStart)."""
+    return {(r["l.k"], r["winStart"]): (r["c"], r["s"]) for r in rows}
+
+
+def _store_views(ex):
+    """Each side's per-shard stores as numpy, after a flush."""
+    from hstream_tpu_torch.engine import convert
+    st = convert.join_state(ex)
+    return st["stores"], st["n"], st["cap"]
+
+
+def check_joins_against_one_card(across, one, path):
+    """Drive a key-sharded JoinExecutor on each mesh with the same batches
+    (store growth, eviction and two code compactions included) and hold
+    the settled changes, each shard's stores and a snapshot's restores
+    onto one card and onto the mesh across cards against the one-card
+    mesh's."""
+    from hstream_tpu_torch.sql import stream_codegen
+    from hstream_tpu_torch.sql.codegen import make_executor
+    counters = ((pl.sharded_join_probe_insert_step, pl.join_route)
+                if path == "fused" else (pl.sharded_join_probe_insert,))
+    counters += (pl.sharded_join_evict,)
+    before = [c.launches for c in counters]
+    sql = JOIN_SQL[path]
+    sample = [{"k": "k0", "x": 1.0}]
+
+    def make(mesh, **kw):
+        ex = make_executor(stream_codegen(sql), sample_rows=sample,
+                           mesh=mesh, device=across.devices[0, 0], **kw)
+        ex.DEVICE_STORE_CAPACITY = 256       # grows mid-run
+        return ex
+
+    execs = [make(across), make(one)]
+    data = _join_batches()
+    cut = 12
+    outs = [[], []]
+    for i, (rows, ts, side) in enumerate(data[:cut]):
+        for ex, out in zip(execs, outs):
+            out.extend(ex.process(rows, ts, stream=side))
+            if i in (5, 10) and ex._dev is not None:
+                ex._compact_codes()
+    for ex, out in zip(execs, outs):
+        out.extend(ex.flush_changes())
+    assert outs[0] and _settled(outs[0]) == _settled(outs[1])
+    ex = execs[0]
+    js = ex.join_stats
+    assert ex.device_fallbacks == 0 and ex._dev["sjl"] is not None
+    assert js["evict_dispatches"] > 0 and js["store_grows"] > 0, js
+    if path == "fused":
+        assert js["fused_batches"] > 0, js
+    else:
+        assert js["fused_batches"] == 0 and js["probe_fetches"] > 0, js
+    for side in ("l", "r"):
+        for s, st in enumerate(ex._dev["stores"][side]):
+            assert st["code"].device == across.devices[0, s]
+    inner = ex._inner.state
+    for d in range(inner.n_data):
+        for k in range(inner.n_key):
+            assert inner[d][k]["count"].device == across.devices[d, k]
+    got, want = _store_views(execs[0]), _store_views(execs[1])
+    assert got[1:] == want[1:]
+    for side in ("l", "r"):
+        for name, plane in want[0][side].items():
+            assert np.array_equal(got[0][side][name], plane), (side, name)
+    # a snapshot across cards restores onto one card and onto the mesh
+    # across cards; both continue as the one-card mesh does
+    blob = tsnap.snapshot_executor(ex)
+    restored = [tsnap.restore_executor(stream_codegen(sql), blob,
+                                       device=across.devices[0, 0])[0],
+                tsnap.restore_executor(stream_codegen(sql), blob,
+                                       mesh=across,
+                                       device=across.devices[0, 0])[0]]
+    tails = [[], [], []]
+    for rows, ts, side in data[cut:]:
+        for r, out in zip([execs[1]] + restored, tails):
+            out.extend(r.process(rows, ts, stream=side))
+    for r, out in zip([execs[1]] + restored, tails):
+        out.extend(r.flush_changes())
+    assert tails[0]
+    want = _settled(outs[1] + tails[0])
+    for out in tails[1:]:
+        assert _settled(outs[0] + out) == want
+    assert restored[1]._dev["sjl"] is not None
+    if across.devices[0, 0].type != "cpu":
+        assert all(c.launches > b for c, b in zip(counters, before)), \
+            [(c.__name__, b, c.launches) for c, b in zip(counters, before)]

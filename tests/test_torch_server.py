@@ -321,13 +321,12 @@ def test_the_mesh_flag_builds_a_mesh_over_the_servers_devices():
         {"data": 3, "key": 1}
 
 
-def test_context_with_a_mesh_raises():
-    """The context keeps its mesh (windowed aggregates go sharded); what
-    the port still refuses on it, with a key axis past one, is a
-    key-sharded session arena (B19c) and key-sharded join stores (B19b),
-    the next slice (ROADMAP A11b)."""
-    from hstream_tpu_torch.common.errors import NotPortedError
-    from hstream_tpu_torch.parallel import make_mesh
+def test_context_with_a_mesh_builds_sharded_sessions_and_joins():
+    """The context keeps its mesh, and on it a session window and an
+    interval join build key-sharded (B19c, B19b): the session's arena and
+    the join's stores split over the mesh's two key shards once their
+    device paths activate."""
+    from hstream_tpu_torch.parallel import ShardedQueryExecutor, make_mesh
     from hstream_tpu_torch.server.context import ServerContext
     from hstream_tpu_torch.sql import make_executor, stream_codegen
     from hstream_tpu_torch.store import open_store
@@ -336,16 +335,24 @@ def test_context_with_a_mesh_raises():
     ctx = ServerContext(open_store("mem://"), mesh=mesh, device="cpu")
     try:
         assert ctx.mesh is mesh
-        for sql, item in (
-                ("SELECT k, COUNT(*) AS c FROM s GROUP BY k, SESSION "
-                 "(INTERVAL 5 SECOND) EMIT CHANGES;", "B19c"),
-                ("SELECT COUNT(*) AS c FROM s INNER JOIN t WITHIN "
-                 "(INTERVAL 5 SECOND) ON s.k = t.k GROUP BY s.k, "
-                 "TUMBLING (INTERVAL 10 SECOND) EMIT CHANGES;", "B19b")):
-            with pytest.raises(NotPortedError) as ei:
-                make_executor(stream_codegen(sql), mesh=ctx.mesh,
-                              device="cpu")
-            assert item in ei.value.item and "A11b" in str(ei.value)
+        sx = make_executor(stream_codegen(
+            "CREATE VIEW sv AS SELECT k, COUNT(*) AS c FROM s GROUP BY k, "
+            "SESSION (INTERVAL 5 SECOND);").select, mesh=ctx.mesh,
+            sample_rows=[{"k": "a"}], device="cpu")
+        sx.process([{"k": f"k{i % 4}"} for i in range(12)],
+                   [1_700_000_000_000 + i for i in range(12)])
+        assert sx._dev["ssl"].n_shards == 2
+        jx = make_executor(stream_codegen(
+            "SELECT COUNT(*) AS c FROM s INNER JOIN t WITHIN "
+            "(INTERVAL 5 SECOND) ON s.k = t.k GROUP BY s.k, "
+            "TUMBLING (INTERVAL 10 SECOND) EMIT CHANGES;"), mesh=ctx.mesh,
+            sample_rows=[{"k": "a"}], device="cpu")
+        for b in range(4):
+            jx.process([{"k": f"k{i % 3}"} for i in range(6)],
+                       [1_700_000_000_000 + 100 * b + i for i in range(6)],
+                       stream="s" if b % 2 else "t")
+        assert jx._dev["sjl"].n_shards == 2
+        assert isinstance(jx._inner, ShardedQueryExecutor)
     finally:
         ctx.shutdown()
 

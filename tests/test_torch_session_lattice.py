@@ -393,7 +393,8 @@ def test_binding_structs_mirror_the_header():
           "HsJoinNull": kb.JoinNull, "HsJoinProbeArgs": kb.JoinProbeArgs,
           "HsJoinInsertArgs": kb.JoinInsertArgs,
           "HsJoinEvictSide": kb.JoinEvictSide,
-          "HsJoinEvictArgs": kb.JoinEvictArgs, "HsParts": kb.Parts,
+          "HsJoinEvictArgs": kb.JoinEvictArgs,
+          "HsJoinRouteArgs": kb.JoinRouteArgs, "HsParts": kb.Parts,
           "HsMergedCloseArgs": kb.MergedCloseArgs,
           "HsMergedTouchedArgs": kb.MergedTouchedArgs,
           "HsShardMergeArgs": kb.ShardMergeArgs}

@@ -243,10 +243,15 @@ def test_explain_mesh_line_counts_the_cards(monkeypatch):
     assert "MESH: shardable over 4 chips" in tsql.stream_codegen(sql).text
 
 
-def test_make_executor_refuses_a_mesh():
-    """A windowed aggregate builds sharded on a mesh now; what a mesh
-    with a key axis past one still refuses is a session (B19c, the next
-    slice, ROADMAP A11b)."""
+def test_make_executor_shards_on_a_mesh():
+    """On a mesh with a key axis past one, a windowed aggregate builds a
+    ShardedQueryExecutor, a session window a SessionExecutor whose arena
+    key-shards once its device path activates (B19c), and an interval
+    join a JoinExecutor whose stores key-shard and whose inner aggregate
+    goes sharded (B19b); a mesh of one key shard keeps the session's
+    single-card kernels."""
+    from hstream_tpu_torch.engine.join import JoinExecutor
+    from hstream_tpu_torch.engine.session import SessionExecutor
     from hstream_tpu_torch.parallel import ShardedQueryExecutor, make_mesh
 
     mesh = make_mesh(2, 2, devices=["cpu"])
@@ -254,11 +259,32 @@ def test_make_executor_refuses_a_mesh():
     ex = tcg.make_executor(plan, mesh=mesh, initial_keys=8, device="cpu")
     assert isinstance(ex, ShardedQueryExecutor)
     session = tsql.stream_codegen(
-        "SELECT k, COUNT(*) AS c FROM s GROUP BY k, SESSION "
-        "(INTERVAL 5 SECOND) EMIT CHANGES;")
-    with pytest.raises(NotPortedError, match="B19c"):
-        tcg.make_executor(session, mesh=mesh, device="cpu")
+        "CREATE VIEW sv AS SELECT k, COUNT(*) AS c FROM s GROUP BY k, "
+        "SESSION (INTERVAL 5 SECOND);").select
+    sx = tcg.make_executor(session, mesh=mesh,
+                           sample_rows=[{"k": "a"}], device="cpu")
+    assert isinstance(sx, SessionExecutor) and sx.mesh is mesh
+    sx.process([{"k": f"k{i % 5}"} for i in range(20)],
+               [BASE + 10 * i for i in range(20)])
+    assert sx._dev is not None and sx._dev["ssl"].n_shards == 2
+    assert sx.sharded_dispatches == 1
+    join = tsql.stream_codegen(
+        "SELECT s.k, COUNT(*) AS c FROM s INNER JOIN t WITHIN "
+        "(INTERVAL 5 SECOND) ON s.k = t.k GROUP BY s.k, "
+        "TUMBLING (INTERVAL 10 SECOND) EMIT CHANGES;")
+    jx = tcg.make_executor(join, mesh=mesh, sample_rows=[{"k": "a"}],
+                           device="cpu")
+    assert isinstance(jx, JoinExecutor) and jx.mesh is mesh
+    for b in range(4):
+        jx.process([{"k": f"k{i % 3}"} for i in range(6)],
+                   [BASE + 100 * b + i for i in range(6)],
+                   stream="s" if b % 2 else "t")
+    assert jx._dev is not None and jx._dev["sjl"].n_shards == 2
+    assert isinstance(jx._inner, ShardedQueryExecutor)
+    assert jx.sharded_dispatches > 0
     # a mesh of one key shard keeps the session's single-card kernels
     one = tcg.make_executor(session, mesh=make_mesh(2, 1, devices=["cpu"]),
-                            device="cpu")
+                            sample_rows=[{"k": "a"}], device="cpu")
+    one.process([{"k": "a"}], [BASE])
     assert type(one).__name__ == "SessionExecutor"
+    assert one._dev is not None and one._dev["ssl"] is None

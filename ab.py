@@ -138,12 +138,19 @@ timed as the remap group's are (device ms over 10 calls, ", call" and
   * "B12 session merge": session_lattice.session_merge of 181,072
     segments (chip_smoke.session_seg: phase 7's segment count) into that
     arena;
+  * "B19c sharded step", "B19c sharded merge": parallel.lattice's
+    sharded_session_step and sharded_session_merge at phase 15a's shapes
+    (this checkout's chip_smoke.p15_inputs, so both trees get the same
+    inputs): four key shards of 2^15 slots on the card (make_mesh(1, 4)),
+    each 40 % live with codes it owns, a 2^20-record batch over 100,000
+    users, and 50,000 segments;
   * "ptxas": session_step.cu's and session_merge.cu's registers, frames
     and spills.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import inspect
 import json
 import os
@@ -726,6 +733,23 @@ def _session() -> dict:
     seg = cs.session_seg(dev, spec, 25, 181_072, 100_000, 0)
     ms("B12 session merge", lambda: sl.session_merge(
         spec, arena, spare, seg, 5000, -(1 << 30), 0))
+    del arena, spare, seg
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    # 15a's inputs from this checkout's chip_smoke, over the timed tree's
+    # package
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chip_smoke.py")
+    mod = importlib.util.spec_from_file_location("chip_smoke_ab", path)
+    here = importlib.util.module_from_spec(mod)
+    mod.loader.exec_module(here)
+    spec4, arenas, packed4, inputs4, seg4 = here.p15_inputs(dev)
+    outs = [sl.init_session_arena(spec4, a["code"].shape[0], dev)
+            for a in arenas]
+    ms("B19c sharded step", lambda: pl.sharded_session_step(
+        spec4, arenas, outs, packed4, inputs4, 5000, -(1 << 30), 0))
+    ms("B19c sharded merge", lambda: pl.sharded_session_merge(
+        spec4, arenas, outs, seg4, 5000, -(1 << 30), 0))
     return out
 
 

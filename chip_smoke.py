@@ -204,8 +204,9 @@ Phases, each of which asserts (any failure exits non-zero):
    both equal numpy. events/s of four shards on one card are printed as
    a diagnostic;
 15. the key-sharded session arena and join stores on the one card
-   (B19c, B19b): in phase 3, the sharded session step and merge with
-   the ownership test (every aggregate kind), the extract over four slot
+   (B19c, B19b): in phase 3, the sharded session step and merge over
+   one table of the card's key shards and over split tables (every
+   aggregate kind), timed at 15a's shapes, the extract over four slot
    lists, the remap through one residue-preserving table, the sharded
    probe + insert, probe-only, fused step into a (2, 2) inner lattice,
    the routing kernel and the eviction against their plain versions;
@@ -224,9 +225,10 @@ Phases, each of which asserts (any failure exits non-zero):
    onto one card and back onto a mesh, each resuming equal to numpy.
    Each new kernel is then held against its plain version at its
    path's shapes and timed; events/s are printed as a diagnostic;
-16. a {"kernels": [...]} line (each kernel's launches on the main paths,
-   its error against the plain version and its times), the card line,
-   and last {"ok": true, "device": {...}}.
+16. a "phase wall s {...}" line (each phase's wall seconds, also logged
+   as each phase ends), a {"kernels": [...]} line (each kernel's
+   launches on the main paths, its error against the plain version and
+   its times), the card line, and last {"ok": true, "device": {...}}.
 
 Device times come from torch.profiler over repeated calls, warmed by
 spin kernels it leaves out; a profile whose per-kernel event counts are
@@ -3863,7 +3865,7 @@ def session_path(dev, results) -> dict:
 # device events of the session kernels, by stage; the step is the sum of
 # the first six
 _SESSION_EVENTS = {"sort_range_kernel": "sort", "sort_keys_kernel": "sort",
-                   "sort_pass_kernel": "sort",
+                   "group_keys_kernel": "sort", "sort_pass_kernel": "sort",
                    "scan_": "scan", "init_copy_kernel": "init",
                    "fold_": "fold", "record_scatter": "scatter",
                    "fixup_kernel": "fixup", "extract_kernel": "extract",
@@ -7484,11 +7486,13 @@ def _owned_seg(seg, S: int, s: int):
 
 
 def sharded_step_vs_plain(spec, arenas, packed, inputs, gap, close_cut,
-                          delta, what) -> float:
-    """The sharded step's kernels (one launch a shard, the ownership test
-    inside) against its plain version, each into fresh arenas; every
-    shard held as check_session_arenas holds one arena. Returns the
-    largest SUM/AVG error."""
+                          delta, what, tables=None) -> float:
+    """The sharded step's kernels (one launch sequence over a table of
+    the shards on the card; with `tables`, one over each of those lists
+    of shards, as a card whose table splits takes them) against its
+    plain version, each into fresh arenas; every shard held as
+    check_session_arenas holds one arena. Returns the largest SUM/AVG
+    error."""
     from hstream_tpu_torch.engine import session_lattice as sl
     from hstream_tpu_torch.parallel import lattice as pl
 
@@ -7499,10 +7503,16 @@ def sharded_step_vs_plain(spec, arenas, packed, inputs, gap, close_cut,
                 for a in arenas]
 
     got, want = fresh(), fresh()
-    before = pl.sharded_session_step.launches
-    pl.sharded_session_step(spec, arenas, got, packed, inputs, gap,
-                            close_cut, delta)
-    assert pl.sharded_session_step.launches == before + 1
+    if tables is None:
+        before = pl.sharded_session_step.launches
+        pl.sharded_session_step(spec, arenas, got, packed, inputs, gap,
+                                close_cut, delta)
+        assert pl.sharded_session_step.launches == before + 1
+    else:
+        assert sorted(sum(tables, [])) == list(range(S)), tables
+        for shards in tables:
+            sl.step_group_cuda(spec, arenas, got, shards, S, packed, inputs,
+                               gap, close_cut, delta)
     pl.sharded_session_step_ref(spec, arenas, want, packed, inputs, gap,
                                 close_cut, delta)
     ains = tuple(None if x is None else
@@ -7530,7 +7540,7 @@ def sharded_step_vs_plain(spec, arenas, packed, inputs, gap, close_cut,
 
 
 def sharded_merge_vs_plain(spec, arenas, seg, gap, close_cut, delta,
-                           what) -> float:
+                           what, tables=None) -> float:
     """As sharded_step_vs_plain, for the segment-mode merge."""
     from hstream_tpu_torch.engine import session_lattice as sl
     from hstream_tpu_torch.parallel import lattice as pl
@@ -7542,9 +7552,16 @@ def sharded_merge_vs_plain(spec, arenas, seg, gap, close_cut, delta,
                 for a in arenas]
 
     got, want = fresh(), fresh()
-    before = pl.sharded_session_merge.launches
-    pl.sharded_session_merge(spec, arenas, got, seg, gap, close_cut, delta)
-    assert pl.sharded_session_merge.launches == before + 1
+    if tables is None:
+        before = pl.sharded_session_merge.launches
+        pl.sharded_session_merge(spec, arenas, got, seg, gap, close_cut,
+                                 delta)
+        assert pl.sharded_session_merge.launches == before + 1
+    else:
+        assert sorted(sum(tables, [])) == list(range(S)), tables
+        for shards in tables:
+            sl.merge_group_cuda(spec, arenas, got, shards, S, seg, gap,
+                                close_cut, delta)
     pl.sharded_session_merge_ref(spec, arenas, want, seg, gap, close_cut,
                                  delta)
     err = 0.0
@@ -7580,8 +7597,10 @@ def _residue_lut(codes: np.ndarray, S: int, lcap: int, rng) -> np.ndarray:
 def check_sharded_session(dev, results):
     """B19c against its plain versions on the card, four key shards on it:
     the step (every aggregate kind, NULL masks, invalid records, retired
-    and evicted entries, a delta) and the merge with the ownership test,
-    the extract over per-shard slot lists of different lengths (one shard
+    and evicted entries, a delta) and the merge, each over one table of
+    the card's shards and over tables of some of them (a split table:
+    the records of the others are dropped), then timed at 15a's shapes
+    (time_p15_shapes); the extract over per-shard slot lists of different lengths (one shard
     none) and the remap through one residue-preserving table; codes,
     times, integer planes, histograms and registers exact, SUM/AVG within
     the order bound, the extract and remap bit-exact."""
@@ -7608,12 +7627,23 @@ def check_sharded_session(dev, results):
     close_cut = int(t1.median())
     second = session_batch(dev, spec, layout, 151, 1 << 14, 3000,
                            3 * SESS_GAP)
-    err = sharded_step_vs_plain(
-        spec, arenas, second, sl.session_inputs(spec, layout, second, progs),
-        SESS_GAP, close_cut, 37, "sharded_session_step")
+    second_in = sl.session_inputs(spec, layout, second, progs)
+    err = sharded_step_vs_plain(spec, arenas, second, second_in, SESS_GAP,
+                                close_cut, 37, "sharded_session_step")
     seg = session_seg(dev, spec, 152, 1 << 12, 3000, 2 * SESS_GAP)
     err_m = sharded_merge_vs_plain(spec, arenas, seg, SESS_GAP, close_cut,
                                    11, "sharded_session_merge")
+    # tables of some of the card's shards (a table split past the
+    # parameters, or a mesh over several cards): each drops the records
+    # of the shards outside it
+    for tables in ([[0, 2], [1, 3]], [[3], [0, 1, 2]]):
+        what = f"tables {tables}"
+        err = max(err, sharded_step_vs_plain(
+            spec, arenas, second, second_in, SESS_GAP, close_cut, 37,
+            f"sharded_session_step, {what}", tables))
+        err_m = max(err_m, sharded_merge_vs_plain(
+            spec, arenas, seg, SESS_GAP, close_cut, 11,
+            f"sharded_session_merge, {what}", tables))
     rng = np.random.default_rng(153)
     pcap = 2048
     slots = np.full((S, pcap), -1, np.int32)
@@ -7647,12 +7677,71 @@ def check_sharded_session(dev, results):
             route="cuda", source=src + file,
             replaces=f"hstream_tpu/parallel/lattice.py:{line}",
             paths=P15_SESSION_PATHS, max_abs_err=e)
-    log(f"sharded session (B19c), {S} key shards: step and merge with "
-        f"the ownership test against the plain versions (every kind; SUM/"
-        f"AVG max err {err:.3g} / {err_m:.3g}, within the order bound; the "
-        f"rest exact), the extract over {S} slot lists (1500, 0, {pcap}, 7 "
-        f"named) and the remap through one residue-preserving table: "
-        f"bit-exact")
+    log(f"sharded session (B19c), {S} key shards: step and merge over one "
+        f"table of the card's shards and over split tables against the "
+        f"plain versions (every kind; SUM/AVG max err {err:.3g} / "
+        f"{err_m:.3g}, within the order bound; the rest exact), the extract "
+        f"over {S} slot lists (1500, 0, {pcap}, 7 named) and the remap "
+        f"through one residue-preserving table: bit-exact")
+    time_p15_shapes(dev, results)
+
+
+def p15_inputs(dev, seed: int = 23, cap: int = 1 << 15, n: int = 1 << 20,
+               nseg: int = 50_000):
+    """15a's shapes for the sharded session step and merge alone (also
+    `ab.py session`): config 4's spec, P15_SHARDS key shards of 2^15 slots
+    on the card (each a random_arena with codes that shard owns, 60 %
+    of its slots the sentinel), a 2^20-record batch over 100,000 users
+    (a second of times, |normal(50, 20)| latencies) and 50,000
+    segments."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    node, _schema = session_plan()
+    spec = sl.SessionSpec(aggs=tuple(node.aggs))
+    layout = (("lat", "f32"),)
+    rng = np.random.default_rng(seed)
+    S = P15_SHARDS
+    arenas = []
+    for s in range(S):
+        a = random_arena(spec, cap, dev, seed + 1 + s)
+        code = rng.integers(0, SESS_USERS // S, cap) * S + s
+        code[rng.random(cap) < 0.6] = sl.SESSION_SENT_CODE
+        a["code"].copy_(torch.from_numpy(code.astype(np.int32)))
+        arenas.append(a)
+    packed = torch.from_numpy(sl.pack_batch_host(
+        n, n, rng.integers(0, SESS_USERS, n).astype(np.int32),
+        rng.integers(0, 1000, n), None,
+        {"lat": np.abs(rng.normal(50, 20, n)).astype(np.float32)},
+        [None, None], layout)).to(dev)
+    inputs = sl.session_inputs(spec, layout, packed)
+    seg = session_seg(dev, spec, seed + 9, nseg, SESS_USERS, 0)
+    return spec, arenas, packed, inputs, seg
+
+
+def time_p15_shapes(dev, results):
+    """The sharded step and merge at 15a's shapes (p15_inputs) profiled
+    early in the process, where the profiler keeps every event (late in
+    the run it has dropped some, PERF.md runs FF and FI): the kernels
+    line takes these device times where phase 15's own profile does not
+    hold."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    spec, arenas, packed, inputs, seg = p15_inputs(dev)
+    cap = arenas[0]["code"].shape[0]
+    outs = [sl.init_session_arena(spec, cap, dev) for _ in arenas]
+    for name, fn in (
+            ("sharded_session_step", lambda: pl.sharded_session_step(
+                spec, arenas, outs, packed, inputs, 5000, -(1 << 30), 0)),
+            ("sharded_session_merge", lambda: pl.sharded_session_merge(
+                spec, arenas, outs, seg, 5000, -(1 << 30), 0))):
+        ms, call, src = kernel_ms(fn, 10)
+        results[name]["early"] = dict(ms=ms, call_ms=call, ms_source=src,
+                                      stages=stage_ms(fn, 3))
+        log(f"{name} at 15a's shapes (phase 3): {ms:.4f} ms device "
+            f"({src}), {call:.4f} ms a call; by stage "
+            f"{json.dumps(results[name]['early']['stages'])}")
+    del outs, arenas, packed, inputs, seg
 
 
 def _shard_store(dev, rng, cap, n_cols, n_live, S, s):
@@ -7920,6 +8009,17 @@ def sharded_session_path(dev, results) -> dict:
                              session_stats=dict(exs.session_stats)))
 
 
+def _early_if_lost(results, name, timed):
+    """(ms, call_ms, source) of phase 15's kernel_ms, or, where its
+    profile lost events ("events": ms is then the call time), the device
+    ms that phase 3 profiled at 15a's shapes (time_p15_shapes)."""
+    ms, call, src = timed
+    early = results[name].get("early", {})
+    if src == "events" and early.get("ms_source") == "profiler":
+        return early["ms"], call, "profiler, phase 3 at 15a's shapes"
+    return ms, call, src
+
+
 def time_sharded_session(dev, results, captured):
     """Each B19c kernel on 15a's own inputs (one call of each, kept by the
     run), held against its plain version on them and timed beside it,
@@ -7935,8 +8035,10 @@ def time_sharded_session(dev, results, captured):
     err = sharded_step_vs_plain(spec, arenas, packed, inputs, gap, cc, delta,
                                 "sharded_session_step at 15a's shapes")
     outs = [sl.init_session_arena(spec, cap, dev) for _ in range(S)]
-    ms, call, srcm = kernel_ms(lambda: pl.sharded_session_step(
-        spec, arenas, outs, packed, inputs, gap, cc, delta), 10)
+    ms, call, srcm = _early_if_lost(results, "sharded_session_step",
+                                    kernel_ms(lambda: pl.sharded_session_step(
+                                        spec, arenas, outs, packed, inputs,
+                                        gap, cc, delta), 10))
     plain = kernel_ms(lambda: pl.sharded_session_step_ref(
         spec, arenas, outs, packed, inputs, gap, cc, delta), 1)[0]
     keys = [torch.cat([sort_keys(a["code"], a["t0"]),
@@ -7959,8 +8061,10 @@ def time_sharded_session(dev, results, captured):
     err = sharded_merge_vs_plain(spec, arenas, seg, gap, cc, delta,
                                  "sharded_session_merge at 15a's shapes")
     outs = [sl.init_session_arena(spec, cap, dev) for _ in range(S)]
-    ms, call, srcm = kernel_ms(lambda: pl.sharded_session_merge(
-        spec, arenas, outs, seg, gap, cc, delta), 10)
+    ms, call, srcm = _early_if_lost(results, "sharded_session_merge",
+                                    kernel_ms(lambda: pl.sharded_session_merge(
+                                        spec, arenas, outs, seg, gap, cc,
+                                        delta), 10))
     plain = kernel_ms(lambda: pl.sharded_session_merge_ref(
         spec, arenas, outs, seg, gap, cc, delta), 1)[0]
     keys = [torch.cat([sort_keys(a["code"], a["t0"]),
@@ -8506,7 +8610,21 @@ def time_sharded_join(dev, results, captured):
         f"{plain:.4f}, bound {b_ms:.4f} by {b_by})")
 
 
+PHASE_S: dict[str, float] = {}   # each phase's wall seconds, in order
+_PHASE_T0 = [0.0]
+
+
+def phase_done(name: str) -> None:
+    """Close a phase: its wall seconds since the last phase closed (or
+    the start), logged on a line of their own and kept in PHASE_S."""
+    now = time.perf_counter()
+    PHASE_S[name] = now - _PHASE_T0[0]
+    _PHASE_T0[0] = now
+    log(f"phase {name}: {PHASE_S[name]:.1f} s wall")
+
+
 def main() -> int:
+    _PHASE_T0[0] = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -8522,6 +8640,7 @@ def main() -> int:
     for line in built.log.splitlines():
         if "registers" in line or line.startswith("=="):
             log("  " + line.strip())
+    phase_done("1-2 card and build")
 
     results: dict[str, dict] = {}
     paths = []
@@ -8551,6 +8670,7 @@ def main() -> int:
     check_sharded(dev, results)
     check_sharded_session(dev, results)
     check_sharded_join(dev, results)
+    phase_done("3 kernel checks")
 
     for cfg in (1, 2):
         r = main_path(cfg, dev)
@@ -8562,6 +8682,7 @@ def main() -> int:
             f"), {r['windows_checked']} windows checked, launches "
             f"{r['launches']}, close_stats {r['close_stats']}, host "
             f"stages {json.dumps(r['pipeline_stages'])} [{card}]")
+    phase_done("4-5 configs 1 and 2")
 
     r = wide_path(dev)
     paths.append(r)
@@ -8571,6 +8692,7 @@ def main() -> int:
         f"({r['expression_instructions']} instructions), launches "
         f"{r['launches']}, close_stats {r['close_stats']}, "
         f"{r['events_per_sec']:.0f} events/s [{card}]")
+    phase_done("5b wide")
 
     r = changelog_path(dev)
     paths.append(r)
@@ -8589,6 +8711,7 @@ def main() -> int:
         f"{sum(per_batch.values()):.4f}), host stages "
         f"{json.dumps(r['pipeline_stages'])}; profiled window "
         f"{json.dumps(r['profile'])} [{card}]")
+    phase_done("6 changelog")
 
     r = session_path(dev, results)
     paths.append(r)
@@ -8605,6 +8728,7 @@ def main() -> int:
         f"{r['segment']['events_per_sec']:.0f} events/s over "
         f"{SESS_SEG_BATCHES} batches, {r['segment']['rows']} sessions "
         f"checked, launches {r['segment']['launches']} [{card}]")
+    phase_done("7 session")
 
     captured: dict = {}
     r = join_path(dev, results, captured)
@@ -8622,6 +8746,7 @@ def main() -> int:
         f"{r['store_cap']}, match_cap {r['match_cap']}, device bytes "
         f"{r['device_plane_bytes']}; profiled window "
         f"{json.dumps(r['profile'])} [{card}]")
+    phase_done("8 join")
     r = join_fetch_path(dev, results, captured)
     paths.append(r)
     log(f"join match-fetch path (8b): {r['events_per_sec']:.0f} events/s "
@@ -8629,6 +8754,7 @@ def main() -> int:
         f"{r['join_stats']}, check {json.dumps(r['check'])}, stage s "
         f"{json.dumps(r['stage_s'])} [{card}]")
     time_join_kernels(dev, results, captured)
+    phase_done("8b match-fetch and the join kernels' timing")
 
     r = compiled_path(dev)
     paths.append(r)
@@ -8636,21 +8762,25 @@ def main() -> int:
         f"over {MAIN_BATCHES} packed x 2^20 records, {r['windows_checked']} "
         f"windows checked by the per-slot close, launches {r['launches']} "
         f"[{card}]")
+    phase_done("9a CompiledLattice")
     r = per_slot_path(dev)
     paths.append(r)
     log(f"per-slot close path (9b): {r['events_per_sec']:.0f} events/s, "
         f"{r['windows_closed']} windows closed, {r['windows_checked']} "
         f"checked, close_stats {r['close_stats']} [{card}]")
+    phase_done("9b per-slot close")
     r = snapshot_path(dev)
     paths.append(r)
     log(f"snapshot path (10a-b): {r['rows_after_restore']} changelog rows "
         f"after the restore equal the uninterrupted run's, "
         f"{r['windows_checked']} windows' finals checked; snapshot "
         f"{json.dumps(r['snapshot'])} [{card}]")
+    phase_done("10a-b snapshot")
     r = snapshot_side_paths(dev)
     paths.append(r)
     log(f"session + join snapshots (10c): session {json.dumps(r['session'])}"
         f"; join {json.dumps(r['join'])} [{card}]")
+    phase_done("10c session and join snapshots")
     r = log_path(dev)
     paths.append(r)
     log(f"durable log path (11): {r['rows']} closed rows in {r['windows']} "
@@ -8665,6 +8795,7 @@ def main() -> int:
         f"device busy {r['device_busy_share']:.4f} over "
         f"{r['profile_batches']} batches, launches {r['launches']} "
         f"[{card}]")
+    phase_done("11 durable log")
 
     r = traced_path(dev, results)
     paths.append(r)
@@ -8700,6 +8831,7 @@ def main() -> int:
         f"windows, {r['session']['check']['sessions_checked']} sessions, "
         f"{r['probe']['check']['windows']} join (key, window)s equal numpy "
         f"[{card}]")
+    phase_done("12 traced")
 
     r = server_path(dev, results)
     paths.append(r)
@@ -8720,6 +8852,7 @@ def main() -> int:
         f"{SRV_PROFILE} blocks ({r['profile']['wall_s']:.3f} s); launches "
         f"{r['launches']}; restart over file:// {json.dumps(r['restart'])}"
         f" [{card}]")
+    phase_done("13 server")
 
     for cfg in (1, 2):
         r = sharded_path(cfg, dev)
@@ -8746,6 +8879,7 @@ def main() -> int:
         f"{r['push_finals']} push finals equal numpy; a mesh snapshot of "
         f"{r['snapshot_bytes']} bytes restored onto one card and back onto "
         f"a mesh, both equal numpy; launches {r['launches']} [{card}]")
+    phase_done("14 sharded lattice")
 
     r = sharded_session_path(dev, results)
     paths.append(r)
@@ -8760,6 +8894,7 @@ def main() -> int:
         f"{P15_SEG_BATCHES} batches, {r['segment']['rows']} sessions "
         f"checked ({r['segment']['rows_equal_single_card']} equal to the "
         f"single-card executor's); launches {r['launches']} [{card}]")
+    phase_done("15a sharded session")
     p15_captured: dict = {}
     r = sharded_join_path(dev, p15_captured)
     paths.append(r)
@@ -8777,6 +8912,7 @@ def main() -> int:
         f"{json.dumps(r['check'])}, launches {r['launches']} [{card}]")
     time_sharded_join(dev, results, p15_captured)
     del p15_captured
+    phase_done("15b-c sharded join")
     r = sharded_session_server_path(dev)
     paths.append(r)
     log(f"sharded session server (15d): serve(mesh_shape='2x2') ingested "
@@ -8787,6 +8923,7 @@ def main() -> int:
         f"and back onto a mesh, each resuming with {r['resumed_one_card']} "
         f"/ {r['resumed_mesh']} sessions equal numpy; launches "
         f"{r['launches']} [{card}]")
+    phase_done("15d sharded session server")
 
     kernels = []
     for name, r in results.items():
@@ -8807,9 +8944,11 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "build_s": built.seconds,
-                   "ptxas": built.log,
+                   "ptxas": built.log, "phase_s": PHASE_S,
                    "kernels": results, "main_paths": paths}, f, indent=1,
                   default=str)
+    print("phase wall s " + json.dumps(
+        {k: round(v, 1) for k, v in PHASE_S.items()}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

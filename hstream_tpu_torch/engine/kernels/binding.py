@@ -200,8 +200,7 @@ class SessPlane(C.Structure):
 class SessionArgs(C.Structure):
     _fields_ = [("cap", C.c_int32), ("nb", C.c_int32), ("mode", C.c_int32),
                 ("gap", C.c_int32), ("close_cut", C.c_int32),
-                ("delta", C.c_int32), ("n_shards", C.c_int32),
-                ("shard", C.c_int32), ("hll_p", C.c_int32),
+                ("delta", C.c_int32), ("hll_p", C.c_int32),
                 ("q_min", C.c_float), ("q_gamma", C.c_float),
                 ("code", C.c_void_p), ("t0", C.c_void_p),
                 ("t1", C.c_void_p), ("b_code", C.c_void_p),
@@ -210,6 +209,45 @@ class SessionArgs(C.Structure):
                 ("out_t0", C.c_void_p), ("out_t1", C.c_void_p),
                 ("scratch", C.c_void_p), ("n_planes", C.c_int32),
                 ("p", SessPlane * MAX_AGGS)]
+
+
+# a table of key shards a launch (HsSessGroupArgs): the mesh's key shards,
+# the shards a launch and their plane pointer sets
+SESS_MAX_SHARDS, SESS_GROUP, SESS_GROUP_PTRS = 64, 16, 903
+
+
+class SessDesc(C.Structure):
+    _fields_ = [("kind", C.c_int32), ("width", C.c_int32),
+                ("vtype", C.c_int32), ("null_bit", C.c_int32),
+                ("values", C.c_void_p), ("seg", C.c_void_p),
+                ("seg_n", C.c_void_p)]
+
+
+class SessShard(C.Structure):
+    _fields_ = [("code", C.c_void_p), ("t0", C.c_void_p),
+                ("t1", C.c_void_p), ("out_code", C.c_void_p),
+                ("out_t0", C.c_void_p), ("out_t1", C.c_void_p)]
+
+
+class SessPlanePtrs(C.Structure):
+    _fields_ = [("src", C.c_void_p), ("src_n", C.c_void_p),
+                ("out", C.c_void_p), ("out_n", C.c_void_p)]
+
+
+class SessGroupArgs(C.Structure):
+    _fields_ = [("cap", C.c_int32), ("nb", C.c_int32), ("mode", C.c_int32),
+                ("gap", C.c_int32), ("close_cut", C.c_int32),
+                ("delta", C.c_int32), ("n_shards", C.c_int32),
+                ("n_group", C.c_int32), ("qbits", C.c_int32),
+                ("hll_p", C.c_int32), ("q_min", C.c_float),
+                ("q_gamma", C.c_float), ("b_code", C.c_void_p),
+                ("b_t0", C.c_void_p), ("b_t1", C.c_void_p),
+                ("b_flags", C.c_void_p), ("scratch", C.c_void_p),
+                ("n_planes", C.c_int32),
+                ("pos", C.c_int32 * SESS_MAX_SHARDS),
+                ("d", SessDesc * MAX_AGGS),
+                ("sh", SessShard * SESS_GROUP),
+                ("pp", SessPlanePtrs * SESS_GROUP_PTRS)]
 
 
 SESS_INLINE = 7424   # slots a session extract passes by value
@@ -321,6 +359,10 @@ def lib() -> C.CDLL:
                              ("hs_touched", [C.POINTER(TouchedArgs)]),
                              ("hs_session_step", [C.POINTER(SessionArgs)]),
                              ("hs_session_merge", [C.POINTER(SessionArgs)]),
+                             ("hs_session_step_group",
+                              [C.POINTER(SessGroupArgs)]),
+                             ("hs_session_merge_group",
+                              [C.POINTER(SessGroupArgs)]),
                              ("hs_session_extract",
                               [C.POINTER(SessExtractArgs)]),
                              ("hs_join_probe", [C.POINTER(JoinProbeArgs)]),
@@ -347,6 +389,8 @@ def lib() -> C.CDLL:
             dll.hs_session_remap.restype = C.c_int
             dll.hs_session_scratch_bytes.argtypes = [C.c_int32, C.c_int32]
             dll.hs_session_scratch_bytes.restype = C.c_int64
+            dll.hs_session_group_scratch_bytes.argtypes = [C.c_int32] * 3
+            dll.hs_session_group_scratch_bytes.restype = C.c_int64
             dll.hs_join_probe_scratch_bytes.argtypes = [C.c_int32] * 2
             dll.hs_join_probe_scratch_bytes.restype = C.c_int64
             dll.hs_join_insert_scratch_bytes.argtypes = [C.c_int32] * 2

@@ -386,8 +386,6 @@ struct HsSessionArgs {
     int32_t gap;           // ms
     int32_t close_cut;     // retire arena entries with t1 <= close_cut
     int32_t delta;         // then shift live arena times by -delta
-    int32_t n_shards;      // a mesh's key shards: above 1, a batch entry
-    int32_t shard;         // counts only where code mod n_shards == shard
     int32_t hll_p;
     float q_min;           // float32(min_value)
     float q_gamma;         // float32(gamma_log)
@@ -404,6 +402,74 @@ struct HsSessionArgs {
     void *scratch;         // hs_session_scratch_bytes(cap, nb) bytes
     int32_t n_planes;
     HsSessPlane p[HS_MAX_AGGS];
+};
+
+// ---- the key-sharded session step and merge: one launch sequence over a
+// table of the key shards whose arenas lie on one card (session_chain.cuh
+// core_group). The planes' descriptions are the query's, shared by every
+// shard; each shard adds its arenas' pointers. A table of G shards and P
+// planes holds G * P plane pointers, at most HS_SESS_GROUP_PTRS: a query
+// of 64 planes (aggregates) takes 14 shards a launch, one of up to 56
+// planes HS_SESS_GROUP (16); the host launches more shards in groups. The
+// kernels take the scratch's pointers beside the table (session_chain.cuh
+// checks that both fit).
+
+#define HS_SESS_MAX_SHARDS 64      // key shards of a mesh (the owner table)
+#define HS_SESS_GROUP 16           // key shards a launch
+#define HS_SESS_GROUP_PTRS 903     // plane pointer sets a launch
+
+// one plane as every key shard holds it
+struct HsSessDesc {
+    int32_t kind;          // HS_AGG_*
+    int32_t width;         // values per slot
+    int32_t vtype;         // record mode: HS_T_* of `values`
+    int32_t null_bit;      // record mode: flag bit of its NULL mask, 0 none
+    const void *values;    // record mode: the input column [nb]
+    const void *seg;       // segment mode: the segments' plane [nb, width]
+    const int32_t *seg_n;  // segment mode, AVG
+};
+
+// one key shard's arenas: the old [cap] and the fresh [cap]
+struct HsSessShard {
+    const int32_t *code;
+    const int32_t *t0;
+    const int32_t *t1;
+    int32_t *out_code;
+    int32_t *out_t0;
+    int32_t *out_t1;
+};
+
+// one plane of one key shard
+struct HsSessPlanePtrs {
+    const void *src;       // old arena [cap, width]
+    const int32_t *src_n;  // AVG: the old arena's _n plane, else NULL
+    void *out;             // fresh arena [cap, width]
+    int32_t *out_n;        // AVG
+};
+
+struct HsSessGroupArgs {
+    int32_t cap;           // slots of each shard's arena
+    int32_t nb;            // batch records (record mode) or segments
+    int32_t mode;          // HS_SESS_*
+    int32_t gap;
+    int32_t close_cut;
+    int32_t delta;
+    int32_t n_shards;      // S, the mesh's key shards
+    int32_t n_group;       // G, the shards of this table
+    int32_t qbits;         // bits of code div S in the sort's code
+    int32_t hll_p;
+    float q_min;
+    float q_gamma;
+    const int32_t *b_code; // as HsSessionArgs
+    const int32_t *b_t0;
+    const int32_t *b_t1;
+    const int32_t *b_flags;
+    void *scratch;         // hs_session_group_scratch_bytes(G, cap, nb)
+    int32_t n_planes;
+    int32_t pos[HS_SESS_MAX_SHARDS];  // shard s's place in the table, -1
+    HsSessDesc d[HS_MAX_AGGS];
+    HsSessShard sh[HS_SESS_GROUP];
+    HsSessPlanePtrs pp[HS_SESS_GROUP_PTRS];  // [g * n_planes + q]
 };
 
 // slots a session extract takes by value, in the kernel's parameters
@@ -565,6 +631,8 @@ static_assert(sizeof(HsCloseArgs) <= HS_MAX_PARAM_BYTES, "HsCloseArgs");
 static_assert(sizeof(HsUnpackArgs) <= HS_MAX_PARAM_BYTES, "HsUnpackArgs");
 static_assert(sizeof(HsTouchedArgs) <= HS_MAX_PARAM_BYTES, "HsTouchedArgs");
 static_assert(sizeof(HsSessionArgs) <= HS_MAX_PARAM_BYTES, "HsSessionArgs");
+static_assert(sizeof(HsSessGroupArgs) <= HS_MAX_PARAM_BYTES,
+              "HsSessGroupArgs");
 static_assert(sizeof(HsSessExtractArgs) <= HS_MAX_PARAM_BYTES,
               "HsSessExtractArgs");
 static_assert(sizeof(HsJoinProbeArgs) <= HS_MAX_PARAM_BYTES,
@@ -599,6 +667,10 @@ int hs_empty(void *stream);
 int64_t hs_session_scratch_bytes(int32_t cap, int32_t nb);
 int hs_session_step(const HsSessionArgs *args, void *stream);
 int hs_session_merge(const HsSessionArgs *args, void *stream);
+int64_t hs_session_group_scratch_bytes(int32_t n_group, int32_t cap,
+                                       int32_t nb);
+int hs_session_step_group(const HsSessGroupArgs *args, void *stream);
+int hs_session_merge_group(const HsSessGroupArgs *args, void *stream);
 int hs_session_extract(const HsSessExtractArgs *args, void *stream);
 int hs_session_remap(int32_t *code, int32_t cap, const int32_t *lut,
                      int32_t lcap, int32_t sent_above, void *stream);

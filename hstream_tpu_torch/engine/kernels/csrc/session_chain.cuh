@@ -86,6 +86,42 @@
 // against 0.685, PERF.md) the sort takes 0.17 ms (torch.sort of the same
 // keys 0.18): ~24 µs a pass that runs (the tiles' look-back) and 0.044 ms
 // for the keys and their histograms (~4.6 M shared-memory increments).
+//
+// The key shards of a mesh (core_group; hstream_tpu/parallel/lattice.py
+// :669-714 ShardedSessionLattice._build_step / _build_merge). What bounded
+// the first sharded design (4 shards of 2^15 slots, 2^20 records: step
+// 1.029 ms, merge 0.744, PERF.md): one launch sequence a shard, each over
+// its arena AND the whole batch, the records another shard owns keyed as
+// the sentinel, so each record was keyed, sorted by all seven passes,
+// scanned and visited once a shard (4.33 M keys sorted where one sort of
+// the 1.18 M entries would do), in ~17 launches a shard. Now one sequence
+// a card covers a table of the shards whose arenas lie there
+// (HsSessGroupArgs):
+//  * the entries are the table's arenas, shard by shard (row i of shard
+//    i / cap), then the batch once; an entry's shard is code mod S;
+//  * the sort code of an owned entry is (g << qbits) | code div S, g the
+//    shard's place in the table: a bijection of the code within a table,
+//    below 2^23, so a key still fits 55 bits; a shard's chains are then
+//    contiguous and in its own (code, start) order, a chain never spans
+//    a code change, and a shard's slot is its chain id less the chains
+//    of the shards before it (counted by scan_breaks at each shard's last
+//    entry in a scan block); a chain at or past cap within its shard is
+//    dropped, as the per-shard launch dropped it;
+//  * group_keys_kernel writes only the live entries' keys (an arena row
+//    alive after the retire, a valid record or segment that a shard of
+//    the table owns), compacted through one counter of live entries that
+//    stays on the card: the launches are sized for all entries and the
+//    blocks past the live count return, with no host sync;
+//  * dest stays a shard's local slot (cap = dropped): init_copy, the
+//    folds and the record scatter find the shard's planes from an arena
+//    row's index or a record's code.
+// A table takes at most HS_SESS_GROUP shards and HS_SESS_GROUP_PTRS plane
+// pointers by value (hs_kernels.h: 14 shards of a 64-aggregate query);
+// the host launches more in groups. At the shapes above the step now
+// takes 0.544 ms and the merge 0.433 (PERF.md, GD): one sort of the live
+// entries (~0.24 ms with its keys and passes) and the arena write (init
+// ~0.15) lead. A single arena keeps core(), whose kernels take the
+// templates' false branches.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -143,6 +179,7 @@ struct Meta {
     int32_t min_start;  // the live entries' smallest start
     int32_t sent;       // code' of the sentinel: largest live code + 1
     int32_t final_buf;  // 0 / 1: keys[final_buf] and idx[final_buf]
+    int32_t npos;       // a table's key: its 8-bit digit positions
 };
 
 // where the scratch buffer's parts lie
@@ -158,24 +195,34 @@ struct Scratch {
     uint32_t *ghist;    // [kSortPasses, 256]      } zeroed by
     uint32_t *status;   // [kSortPasses, tiles, 256] } sort_range_kernel,
     uint32_t *tilectr;  // [kSortPasses]           } one span
-    int32_t *feeds;     // [cap] old rows per slot }
+    int32_t *feeds;     // [rows] old rows per slot }
+    int32_t *chains;    // [n_group] a table's     } zeroed too
+    uint32_t *nlive;    // a table's live entries  }
     Run *agg;           // [scan blocks]
     int32_t *aggn;      // [scan blocks]
     int64_t zero_words; // 4-byte words from ghist to the end of feeds
 };
 
+// a table's kernels take it, the scratch and two ints by value
+static_assert(sizeof(HsSessGroupArgs) + sizeof(Scratch) + 16 <=
+                  HS_MAX_PARAM_BYTES,
+              "a table launch's parameters");
+
 inline int64_t align256(int64_t b) { return (b + 255) & ~(int64_t)255; }
 
-inline int64_t layout(int32_t cap, int32_t nb, char *base, Scratch *s) {
-    const int64_t m = (int64_t)cap + nb;
+// rows: the arena rows (cap, or a table's n_group * cap); n_group 0 for
+// one arena
+inline int64_t layout(int64_t rows, int32_t nb, int32_t n_group, char *base,
+                      Scratch *s) {
+    const int64_t m = rows + nb;
     const int64_t tiles = (m + kSortTile - 1) / kSortTile;
     const int64_t blocks = (m + kScanBlock - 1) / kScanBlock;
-    constexpr int kParts = 14;
+    constexpr int kParts = 15;
     const int64_t sizes[kParts] = {
         m * 8, m * 8, m * 4, m * 4, m * 4, m * 4, m * 4, m * 4,
         kRangeBlocks * 16, (int64_t)sizeof(Meta),
         kSortPasses * kDigits * 4, kSortPasses * tiles * kDigits * 4,
-        kSortPasses * 4, (int64_t)cap * 4};
+        kSortPasses * 4, rows * 4, n_group > 0 ? (n_group + 1) * 4 : 0};
     int64_t off = 0;
     int64_t at[kParts + 2];
     for (int i = 0; i < kParts; ++i) {
@@ -203,6 +250,8 @@ inline int64_t layout(int32_t cap, int32_t nb, char *base, Scratch *s) {
         s->status = (uint32_t *)p(11);
         s->tilectr = (uint32_t *)p(12);
         s->feeds = (int32_t *)p(13);
+        s->chains = (int32_t *)p(14);
+        s->nlive = (uint32_t *)(s->chains + n_group);
         s->agg = (Run *)p(kParts);
         s->aggn = (int32_t *)p(kParts + 1);
         s->zero_words = (zero_end - at[10]) / 4;
@@ -210,14 +259,7 @@ inline int64_t layout(int32_t cap, int32_t nb, char *base, Scratch *s) {
     return off;
 }
 
-// entry i's code (the sentinel where it is not live), start and end.
-// kOwn (a key shard of a mesh, n_shards > 1): a batch entry whose code
-// another shard owns (floor mod, as the reference's) is the sentinel, as
-// the reference's cleared valid bit (record mode) or rewritten segment
-// code (segment mode) makes it; the arena's own rows are all owned. The
-// sort's two key kernels are the only readers that need it: a sentinel's
-// slot is cap, which every later stage skips.
-template <bool kOwn = false>
+// entry i's code (the sentinel where it is not live), start and end
 __device__ __forceinline__ void entry(const HsSessionArgs &a, int i, int &c,
                                       int &s, int &e) {
     if (i < a.cap) {
@@ -231,12 +273,55 @@ __device__ __forceinline__ void entry(const HsSessionArgs &a, int i, int &c,
         const int j = i - a.cap;
         const int code = a.b_code[j];
         const bool ok = code >= 0 && code < HS_SESSION_SENT &&
-                        (a.b_flags == nullptr || (a.b_flags[j] & 1)) &&
-                        (!kOwn || floor_mod(code, a.n_shards) == a.shard);
+                        (a.b_flags == nullptr || (a.b_flags[j] & 1));
         c = ok ? code : HS_SESSION_SENT;
         s = a.b_t0[j];
         e = a.b_t1[j];
     }
+}
+
+// the sort's range kernel reads an entry through one of these: whether
+// it is live, and then its sort code, start and end
+__device__ __forceinline__ bool live_entry(const HsSessionArgs &a, int i,
+                                           int &c, int &s, int &e) {
+    entry(a, i, c, s, e);
+    return c < HS_SESSION_SENT;
+}
+
+// the table place of a live batch entry's shard (-1: another table's)
+__device__ __forceinline__ int group_of(const HsSessGroupArgs &a, int code) {
+    return a.pos[code % a.n_shards];
+}
+
+// a table's entry i: the arenas' rows (row r of shard g at g * cap + r),
+// then the batch; live as entry() has it and, for a batch entry, owned
+// by a shard of the table. c is the sort code (g << qbits) | code div S
+// (codes are >= 0 here, so / and % are the floor's)
+__device__ __forceinline__ bool live_entry(const HsSessGroupArgs &a, int i,
+                                           int &c, int &s, int &e) {
+    const int rows = a.n_group * a.cap;
+    if (i < rows) {
+        const int g = i / a.cap, r = i - g * a.cap;
+        const HsSessShard &h = a.sh[g];
+        const int code = h.code[r];
+        if (code < 0 || code >= HS_SESSION_SENT || h.t1[r] <= a.close_cut)
+            return false;
+        c = (g << a.qbits) | (code / a.n_shards);
+        s = wrap_sub(h.t0[r], a.delta);
+        e = wrap_sub(h.t1[r], a.delta);
+        return true;
+    }
+    const int j = i - rows;
+    const int code = a.b_code[j];
+    if (code < 0 || code >= HS_SESSION_SENT ||
+        (a.b_flags != nullptr && !(a.b_flags[j] & 1)))
+        return false;
+    const int g = group_of(a, code);
+    if (g < 0) return false;
+    c = (g << a.qbits) | (code / a.n_shards);
+    s = a.b_t0[j];
+    e = a.b_t1[j];
+    return true;
 }
 
 // inclusive block-wide sum scan (blockDim.x a multiple of 32); `total`
@@ -336,10 +421,9 @@ __device__ __forceinline__ unsigned match_digit(int d) {
     return m;
 }
 
-template <bool kOwn>
+template <class A>
 __global__ void __launch_bounds__(256)
-sort_range_kernel(const __grid_constant__ HsSessionArgs a, Scratch s,
-                  int m) {
+sort_range_kernel(const __grid_constant__ A a, Scratch s, int m) {
     __shared__ int4 warp_part[8];  // 256 threads
     const int64_t step = (int64_t)gridDim.x * blockDim.x;
     const int64_t i0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -349,8 +433,7 @@ sort_range_kernel(const __grid_constant__ HsSessionArgs a, Scratch s,
     int4 r = no_range();
     for (int64_t i = i0; i < m; i += step) {
         int c, st, e;
-        entry<kOwn>(a, (int)i, c, st, e);
-        if (c < HS_SESSION_SENT) {
+        if (live_entry(a, (int)i, c, st, e)) {
             r.x = max(r.x, c);
             r.y = min(r.y, st);
             r.z = max(r.z, st);
@@ -372,7 +455,6 @@ __device__ __forceinline__ unsigned long long make_key(int c, int st,
            (unsigned long long)((uint32_t)st - (uint32_t)k.min_start);
 }
 
-template <bool kOwn>
 __global__ void __launch_bounds__(kKeysThreads)
 sort_keys_kernel(const __grid_constant__ HsSessionArgs a, Scratch s, int m,
                  int n_parts) {
@@ -395,6 +477,7 @@ sort_keys_kernel(const __grid_constant__ HsSessionArgs a, Scratch s, int m,
     k.final_buf = 0;
     const int width = bit_width((uint32_t)k.sent) + k.sbits;
     const int npos = (width + 7) / 8;
+    k.npos = npos;
     if (blockIdx.x == 0) {
         if (threadIdx.x == 0) *s.meta = k;
         // the positions past the key width: all m keys in bucket 0
@@ -411,7 +494,7 @@ sort_keys_kernel(const __grid_constant__ HsSessionArgs a, Scratch s, int m,
         unsigned long long key = 0ull;
         if (in) {
             int c, st, e;
-            entry<kOwn>(a, (int)i, c, st, e);
+            entry(a, (int)i, c, st, e);
             key = make_key(c, st, k);
             s.keys[0][i] = key;
             s.idx[0][i] = (uint32_t)i;
@@ -427,6 +510,110 @@ sort_keys_kernel(const __grid_constant__ HsSessionArgs a, Scratch s, int m,
     __syncthreads();
     // each block starts at its own bin, so that the blocks' atomics on
     // one bin do not arrive together
+    const int nd = npos * kDigits;
+    const int rot = nd > 0 ? (int)((blockIdx.x * 131ll) % nd) : 0;
+    for (int i = threadIdx.x; i < nd; i += kKeysThreads) {
+        const int d = i + rot < nd ? i + rot : i + rot - nd;
+        const uint32_t c = (&cnt[0][0])[d];
+        if (c != 0u) atomicAdd(&s.ghist[d], c);
+    }
+}
+
+// a table's keys (core_group): as sort_keys_kernel, but only the live
+// entries are keyed, compacted to the front of keys[0] / idx[0] (a block
+// takes its place by one atomic on the live count, each warp's live lanes
+// of an item write consecutive places; the order among a sort's input
+// keys does not matter), a dead entry's slot is set to cap here, and the
+// key is (sort code << sbits) | (start - min start): no sentinel, so its
+// width is that of the largest live sort code
+__global__ void __launch_bounds__(kKeysThreads)
+group_keys_kernel(const __grid_constant__ HsSessGroupArgs a, Scratch s,
+                  int m, int n_parts) {
+    constexpr int kItems = kSortTile / kKeysThreads;
+    __shared__ int4 warp_part[kKeysThreads / 32];
+    __shared__ uint32_t cnt[kSortPasses][kDigits];
+    __shared__ uint32_t warp_tot[32];
+    __shared__ uint32_t at0;
+    const int lane = threadIdx.x & 31;
+    int4 r = no_range();
+    for (int p = threadIdx.x; p < n_parts; p += kKeysThreads) {
+        const int4 o = s.part[p];
+        r.x = max(r.x, o.x);
+        r.y = min(r.y, o.y);
+        r.z = max(r.z, o.z);
+    }
+    r = block_range(r, warp_part);
+    Meta k;
+    k.sent = 0;  // no sentinel key
+    k.min_start = r.x < 0 ? 0 : r.y;
+    k.sbits = r.x < 0 ? 0 : bit_width((uint32_t)r.z - (uint32_t)r.y);
+    k.final_buf = 0;
+    const int width = r.x < 0 ? 0 : bit_width((uint32_t)r.x) + k.sbits;
+    const int npos = (width + 7) / 8;
+    k.npos = npos;
+    if (blockIdx.x == 0 && threadIdx.x == 0) *s.meta = k;
+    for (int d = threadIdx.x; d < kSortPasses * kDigits; d += kKeysThreads)
+        (&cnt[0][0])[d] = 0u;
+    const int64_t base = (int64_t)blockIdx.x * kSortTile;
+    unsigned long long key[kItems];
+    bool live[kItems];
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+        const int64_t i = base + it * kKeysThreads + threadIdx.x;
+        int c = 0, st = 0, e = 0;
+        live[it] = i < m && live_entry(a, (int)i, c, st, e);
+        key[it] = 0ull;
+        if (live[it]) {
+            key[it] = ((unsigned long long)(uint32_t)c << k.sbits) |
+                      (unsigned long long)((uint32_t)st -
+                                           (uint32_t)k.min_start);
+            s.end[i] = e;
+        } else if (i < m) {
+            s.dest[i] = a.cap;
+        }
+    }
+    const int warp = threadIdx.x >> 5;
+    unsigned bal[kItems];
+    uint32_t n_warp = 0;
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+        bal[it] = __ballot_sync(kFull, live[it]);
+        n_warp += (uint32_t)__popc(bal[it]);
+    }
+    if (lane == 0) warp_tot[warp] = n_warp;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        uint32_t t = 0;
+        for (int w = 0; w < kKeysThreads / 32; ++w) {
+            const uint32_t c = warp_tot[w];
+            warp_tot[w] = t;
+            t += c;
+        }
+        at0 = t > 0u ? atomicAdd(s.nlive, t) : 0u;
+    }
+    __syncthreads();
+    uint32_t at = at0 + warp_tot[warp];
+    const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+        if (live[it]) {
+            const uint32_t p = at + (uint32_t)__popc(bal[it] & lt);
+            s.keys[0][p] = key[it];
+            s.idx[0][p] = (uint32_t)(base + it * kKeysThreads + threadIdx.x);
+        }
+        at += (uint32_t)__popc(bal[it]);
+    }
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+        for (int p = 0; p < npos; ++p) {
+            const int d =
+                live[it] ? (int)((key[it] >> (8 * p)) & 0xFF) : kDigits;
+            const unsigned peers = match_digit(d);
+            if (live[it] && lane == __ffs(peers) - 1)
+                atomicAdd(&cnt[p][d], (uint32_t)__popc(peers));
+        }
+    }
+    __syncthreads();
     const int nd = npos * kDigits;
     const int rot = nd > 0 ? (int)((blockIdx.x * 131ll) % nd) : 0;
     for (int i = threadIdx.x; i < nd; i += kKeysThreads) {
@@ -456,7 +643,11 @@ struct PassSmem {
 
 constexpr size_t kPassSmem = sizeof(PassSmem);
 
-// one stable pass of the LSD sort over digit position `pass`
+// one stable pass of the LSD sort over digit position `pass`. kLive (a
+// table, core_group): the keys are the live count's, read from the card;
+// `m` and `tiles` are the launch's bound, the positions past the key's
+// npos hold one bucket, and a block whose tile is past the count returns
+template <bool kLive>
 __global__ void __launch_bounds__(kSortThreads, 3)
 sort_pass_kernel(Scratch s, int m, int pass, int tiles) {
     static_assert(kSortThreads == kDigits, "one digit per thread");
@@ -464,11 +655,17 @@ sort_pass_kernel(Scratch s, int m, int pass, int tiles) {
     PassSmem &sh = *(PassSmem *)smem_raw;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const uint32_t *hist = s.ghist + pass * kDigits;
+    int npos = kSortPasses;
+    if constexpr (kLive) {
+        m = (int)*s.nlive;
+        npos = s.meta->npos;
+    }
     // which buffer holds the keys: one flip per earlier pass that ran
     int src = 0;
     bool run = false;
     for (int q = 0; q <= pass; ++q) {
-        const bool one = __syncthreads_or(s.ghist[q * kDigits + tid] ==
+        const bool one = (kLive && q >= npos) ||
+                         __syncthreads_or(s.ghist[q * kDigits + tid] ==
                                           (uint32_t)m);
         if (q < pass)
             src ^= one ? 0 : 1;
@@ -493,6 +690,7 @@ sort_pass_kernel(Scratch s, int m, int pass, int tiles) {
     __syncthreads();
     const int tile = sh.tile;
     const int64_t tbase = (int64_t)tile * kSortTile;
+    if (kLive && tbase >= m) return;
     const int64_t wbase = tbase + (int64_t)warp * 32 * kSortItems;
     const unsigned lt = (1u << lane) - 1u;
     // each key with its rank in the warp's 512 entries in bits 55..63
@@ -613,9 +811,22 @@ __device__ __forceinline__ Run run_at(const unsigned long long *keys,
     return Run{nr, end[idx[p]]};
 }
 
+// a table's scans (kLive) run over its live count, read from the card;
+// the blocks past it return
+template <bool kLive>
+__device__ __forceinline__ bool past_live(const Scratch &s, int &m) {
+    if constexpr (kLive) {
+        m = (int)*s.nlive;
+        return (int64_t)blockIdx.x * kScanBlock >= m;
+    }
+    return false;
+}
+
+template <bool kLive>
 __global__ void __launch_bounds__(kScanBlock)
 scan_runs(Scratch s, int m) {
     __shared__ Run warp_tot[32];
+    if (past_live<kLive>(s, m)) return;
     const Meta k = *s.meta;
     const int64_t p = (int64_t)blockIdx.x * kScanBlock + threadIdx.x;
     Run tot;
@@ -625,9 +836,11 @@ scan_runs(Scratch s, int m) {
     if (threadIdx.x == 0) s.agg[blockIdx.x] = tot;
 }
 
+template <bool kLive>
 __global__ void __launch_bounds__(kScanBlock)
 scan_runmax(Scratch s, int m) {
     __shared__ Run warp_tot[32];
+    if (past_live<kLive>(s, m)) return;
     const Meta k = *s.meta;
     Run carry{0, INT_MIN};
     for (int base = 0; base < (int)blockIdx.x; base += kScanBlock) {
@@ -645,9 +858,15 @@ scan_runmax(Scratch s, int m) {
     if (p < m) s.runmax[p] = comb(carry, incl).m;
 }
 
+// kGroup (a table): the breaks of each shard are counted into chains[g]:
+// the entry ending a shard's run in the block adds the block's inclusive
+// count there, and takes it from the next shard's if that starts in the
+// block (a shard's first entry is a break: its code changes)
+template <bool kGroup>
 __global__ void __launch_bounds__(kScanBlock)
-scan_breaks(Scratch s, int m, int gap) {
+scan_breaks(Scratch s, int m, int gap, int qbits) {
     __shared__ int32_t warp_tot[32];
+    if (past_live<kGroup>(s, m)) return;
     const Meta k = *s.meta;
     const unsigned long long *keys = s.keys[k.final_buf];
     const int64_t p = (int64_t)blockIdx.x * kScanBlock + threadIdx.x;
@@ -661,13 +880,41 @@ scan_breaks(Scratch s, int m, int gap) {
     const int32_t incl = block_scan_add<int32_t>(brk, warp_tot, tot);
     if (p < m) s.nbrk[p] = incl;
     if (threadIdx.x == 0) s.aggn[blockIdx.x] = tot;
+    if constexpr (kGroup) {
+        const int64_t last =
+            min((int64_t)(blockIdx.x + 1) * kScanBlock, (int64_t)m) - 1;
+        if (p <= last) {
+            const int g = code_of(keys[p], k) >> qbits;
+            const int gn = p < last ? code_of(keys[p + 1], k) >> qbits : g;
+            if (p == last || gn != g) {
+                atomicAdd(&s.chains[g], incl);
+                if (gn != g) atomicAdd(&s.chains[gn], -incl);
+            }
+        }
+    }
 }
 
-// each entry's slot; each slot counts the old arena rows it receives
+// each entry's slot; each slot counts the old arena rows it receives.
+// kGroup (a table of n_group shards, all entries live): the slot is the
+// chain id less the chains of the shards before the entry's, cap past
+// the shard's cap; feeds are the shard's (rows g * cap on)
+template <bool kGroup>
 __global__ void __launch_bounds__(kScanBlock)
-scan_dest(Scratch s, int m, int cap) {
+scan_dest(Scratch s, int m, int cap, int qbits, int n_group) {
     __shared__ int32_t warp_tot[32];
+    __shared__ int32_t first[HS_SESS_GROUP];
+    if (past_live<kGroup>(s, m)) return;
     const Meta k = *s.meta;
+    if constexpr (kGroup) {
+        if (threadIdx.x == 0) {
+            int32_t n = 0;
+            for (int g = 0; g < n_group; ++g) {
+                first[g] = n;
+                n += s.chains[g];
+            }
+        }
+        __syncthreads();
+    }
     int32_t carry = 0;
     for (int base = 0; base < (int)blockIdx.x; base += kScanBlock) {
         const int j = base + threadIdx.x;
@@ -678,11 +925,20 @@ scan_dest(Scratch s, int m, int cap) {
     }
     const int64_t p = (int64_t)blockIdx.x * kScanBlock + threadIdx.x;
     if (p < m) {
-        const bool live = code_of(s.keys[k.final_buf][p], k) < k.sent;
         const uint32_t i = s.idx[k.final_buf][p];
-        const int32_t d = live ? carry + s.nbrk[p] - 1 : cap;
-        s.dest[i] = d;
-        if (d < cap && (int)i < cap) atomicAdd(&s.feeds[d], 1);
+        if constexpr (kGroup) {
+            const int g = code_of(s.keys[k.final_buf][p], k) >> qbits;
+            const int32_t c = carry + s.nbrk[p] - 1 - first[g];
+            const int32_t d = c < cap ? c : cap;
+            s.dest[i] = d;
+            if (d < cap && (int64_t)i < (int64_t)n_group * cap)
+                atomicAdd(&s.feeds[(int64_t)g * cap + d], 1);
+        } else {
+            const bool live = code_of(s.keys[k.final_buf][p], k) < k.sent;
+            const int32_t d = live ? carry + s.nbrk[p] - 1 : cap;
+            s.dest[i] = d;
+            if (d < cap && (int)i < cap) atomicAdd(&s.feeds[d], 1);
+        }
     }
 }
 
@@ -712,15 +968,35 @@ __device__ __forceinline__ uint32_t fold_word(int kind, uint32_t x) {
     }
 }
 
+// a table's plane q of shard g, with the fields of HsSessPlane that the
+// fresh arena's writers read
+struct PlaneView {
+    int32_t kind;
+    int32_t width;
+    const void *src;
+    const int32_t *src_n;
+    void *out;
+    int32_t *out_n;
+};
+
+__device__ __forceinline__ PlaneView view(const HsSessGroupArgs &a, int g,
+                                          int q) {
+    const HsSessPlanePtrs &p = a.pp[g * a.n_planes + q];
+    return PlaneView{a.d[q].kind, a.d[q].width, p.src, p.src_n, p.out,
+                     p.out_n};
+}
+
 // words of one row of plane p (an HLL row is width bytes)
-__device__ __forceinline__ int row_words(const HsSessPlane &p) {
+template <class P>
+__device__ __forceinline__ int row_words(const P &p) {
     return p.kind == HS_AGG_HLL ? p.width >> 2 : p.width;
 }
 
 // one warp: slot `row` gets its identities (init) and/or old row `row`
 // is copied into slot d (copy); lanes stride the row's words, four at a
 // time where the row is 16-byte aligned
-__device__ __forceinline__ void plane_row(const HsSessPlane &p, int64_t row,
+template <class P>
+__device__ __forceinline__ void plane_row(const P &p, int64_t row,
                                           bool init, int64_t d, bool copy,
                                           int lane) {
     const int words = row_words(p);
@@ -795,7 +1071,8 @@ init_copy_kernel(const __grid_constant__ HsSessionArgs a, Scratch s) {
 }
 
 // fold row `row` of a plane (the old arena's or the segments') into slot d
-__device__ __forceinline__ void fold_row(const HsSessPlane &p,
+template <class P>
+__device__ __forceinline__ void fold_row(const P &p,
                                          const void *src,
                                          const int32_t *src_n, int64_t row,
                                          int64_t d, int lane) {
@@ -911,6 +1188,106 @@ __global__ void fixup_kernel(int32_t *code, int32_t *t0, int32_t *t1,
     }
 }
 
+// ---- 4 for a table: row r of shard g is entry g * cap + r ---------------
+
+// init_copy_kernel over every shard's slots; an old row is copied into
+// the fresh arena of its own shard. At most 64 registers (four blocks an
+// SM): the table's pointers cost registers that init_copy_kernel reads
+// from its parameters, and at 66 the copy ran 8 % slower (PERF.md, GD)
+__global__ void __launch_bounds__(kFoldBlock, 4)
+group_init_copy_kernel(const __grid_constant__ HsSessGroupArgs a,
+                       Scratch s) {
+    const int64_t row =
+        ((int64_t)blockIdx.x * kFoldBlock + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (row >= (int64_t)a.n_group * a.cap) return;
+    const int g = (int)(row / a.cap);
+    const int64_t r = row - (int64_t)g * a.cap;
+    const int32_t *feeds = s.feeds + (int64_t)g * a.cap;
+    const bool init = feeds[r] != 1;
+    const int64_t d = s.dest[row];
+    const bool copy = d < a.cap && feeds[d] == 1;
+    const HsSessShard &h = a.sh[g];
+    if (lane == 0) {
+        if (init) {
+            h.out_code[r] = HS_SESSION_SENT;
+            h.out_t0[r] = INT_MAX;
+            h.out_t1[r] = HS_SESSION_NEG;
+        }
+        if (copy) {
+            h.out_code[d] = h.code[r];
+            h.out_t0[d] = wrap_sub(h.t0[r], a.delta);
+            h.out_t1[d] = max(wrap_sub(h.t1[r], a.delta), HS_SESSION_NEG);
+        }
+    }
+    if (!init && !copy) return;
+    for (int q = 0; q < a.n_planes; ++q)
+        plane_row(view(a, g, q), r, init, d, copy, lane);
+}
+
+// fold_shared_rows over every shard's old rows
+__global__ void __launch_bounds__(kFoldBlock)
+group_fold_shared_rows(const __grid_constant__ HsSessGroupArgs a,
+                       Scratch s) {
+    const int64_t rows = (int64_t)a.n_group * a.cap;
+    const int64_t row = (int64_t)blockIdx.x * kFoldBlock + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int64_t d = row < rows ? s.dest[row] : a.cap;
+    unsigned todo = __ballot_sync(
+        kFull, d < a.cap && s.feeds[row - row % a.cap + d] > 1);
+    while (todo) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int64_t rr = __shfl_sync(kFull, row, src);
+        const int64_t dr = __shfl_sync(kFull, d, src);
+        const int g = (int)(rr / a.cap);
+        const int64_t r = rr - (int64_t)g * a.cap;
+        const HsSessShard &h = a.sh[g];
+        if (lane == 0) {
+            atomicMin(h.out_code + dr, h.code[r]);
+            atomicMin(h.out_t0 + dr, wrap_sub(h.t0[r], a.delta));
+            atomicMax(h.out_t1 + dr, wrap_sub(h.t1[r], a.delta));
+        }
+        for (int q = 0; q < a.n_planes; ++q) {
+            const PlaneView p = view(a, g, q);
+            fold_row(p, p.src, p.src_n, r, dr, lane);
+        }
+    }
+}
+
+// fold_segments for a table: a segment folds into its shard's arena
+__global__ void __launch_bounds__(kFoldBlock)
+group_fold_segments(const __grid_constant__ HsSessGroupArgs a, Scratch s) {
+    const int64_t row =
+        ((int64_t)blockIdx.x * kFoldBlock + threadIdx.x) >> 5;
+    if (row >= a.nb) return;
+    const int64_t d = s.dest[(int64_t)a.n_group * a.cap + row];
+    if (d >= a.cap) return;
+    const int lane = threadIdx.x & 31;
+    const int code = a.b_code[row];
+    const int g = group_of(a, code);
+    const HsSessShard &h = a.sh[g];
+    if (lane == 0) {
+        atomicMin(h.out_code + d, code);
+        atomicMin(h.out_t0 + d, a.b_t0[row]);
+        atomicMax(h.out_t1 + d, a.b_t1[row]);
+    }
+    for (int q = 0; q < a.n_planes; ++q)
+        fold_row(view(a, g, q), a.d[q].seg, a.d[q].seg_n, row, d, lane);
+}
+
+__global__ void group_fixup_kernel(const __grid_constant__ HsSessGroupArgs a) {
+    const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (row >= (int64_t)a.n_group * a.cap) return;
+    const int g = (int)(row / a.cap);
+    const int64_t r = row - (int64_t)g * a.cap;
+    const HsSessShard &h = a.sh[g];
+    if (h.out_code[r] >= HS_SESSION_SENT) {
+        h.out_t0[r] = 0;
+        h.out_t1[r] = 0;
+    }
+}
+
 inline unsigned blocks_for(int64_t n, int per) {
     return (unsigned)((n + per - 1) / per);
 }
@@ -921,34 +1298,26 @@ inline cudaError_t core(const HsSessionArgs &a, Scratch &s,
                         cudaStream_t st) {
     const int64_t m = (int64_t)a.cap + a.nb;
     if (a.scratch == nullptr || a.n_planes > HS_MAX_AGGS || a.cap < 0 ||
-        a.nb < 0 || m == 0 || m > (int64_t)kCountMask ||
-        (a.n_shards > 1 && (a.shard < 0 || a.shard >= a.n_shards)))
+        a.nb < 0 || m == 0 || m > (int64_t)kCountMask)
         return cudaErrorInvalidValue;
-    layout(a.cap, a.nb, (char *)a.scratch, &s);
+    layout(a.cap, a.nb, 0, (char *)a.scratch, &s);
     static std::atomic<uint64_t> granted{0};
     cudaError_t err =
-        hs::allow_smem(granted, sort_pass_kernel, (int)kPassSmem);
+        hs::allow_smem(granted, sort_pass_kernel<false>, (int)kPassSmem);
     if (err != cudaSuccess) return err;
     const int tiles = (int)blocks_for(m, kSortTile);
     const int blocks = (int)blocks_for(m, kScanBlock);
     const int parts = (int)std::min<int64_t>(kRangeBlocks,
                                              blocks_for(m, 256 * 2));
-    if (a.n_shards > 1) {  // a key shard of a mesh: the ownership test
-        sort_range_kernel<true><<<parts, 256, 0, st>>>(a, s, (int)m);
-        sort_keys_kernel<true><<<tiles, kKeysThreads, 0, st>>>(a, s, (int)m,
-                                                              parts);
-    } else {
-        sort_range_kernel<false><<<parts, 256, 0, st>>>(a, s, (int)m);
-        sort_keys_kernel<false><<<tiles, kKeysThreads, 0, st>>>(a, s, (int)m,
-                                                               parts);
-    }
+    sort_range_kernel<<<parts, 256, 0, st>>>(a, s, (int)m);
+    sort_keys_kernel<<<tiles, kKeysThreads, 0, st>>>(a, s, (int)m, parts);
     for (int pass = 0; pass < kSortPasses; ++pass)
-        sort_pass_kernel<<<tiles, kSortThreads, kPassSmem, st>>>(
+        sort_pass_kernel<false><<<tiles, kSortThreads, kPassSmem, st>>>(
             s, (int)m, pass, tiles);
-    scan_runs<<<blocks, kScanBlock, 0, st>>>(s, (int)m);
-    scan_runmax<<<blocks, kScanBlock, 0, st>>>(s, (int)m);
-    scan_breaks<<<blocks, kScanBlock, 0, st>>>(s, (int)m, a.gap);
-    scan_dest<<<blocks, kScanBlock, 0, st>>>(s, (int)m, a.cap);
+    scan_runs<false><<<blocks, kScanBlock, 0, st>>>(s, (int)m);
+    scan_runmax<false><<<blocks, kScanBlock, 0, st>>>(s, (int)m);
+    scan_breaks<false><<<blocks, kScanBlock, 0, st>>>(s, (int)m, a.gap, 0);
+    scan_dest<false><<<blocks, kScanBlock, 0, st>>>(s, (int)m, a.cap, 0, 0);
     if (a.cap > 0) {
         const unsigned rows = blocks_for((int64_t)a.cap * 32, kFoldBlock);
         init_copy_kernel<<<rows, kFoldBlock, 0, st>>>(a, s);
@@ -962,6 +1331,78 @@ inline cudaError_t fixup(const HsSessionArgs &a, cudaStream_t st) {
     if (a.cap > 0)
         fixup_kernel<<<blocks_for(a.cap, 256), 256, 0, st>>>(
             a.out_code, a.out_t0, a.out_t1, a.cap);
+    return cudaGetLastError();
+}
+
+// bits of code div S for codes below 2^22 (the sort code's low part)
+inline int qbits_for(int n_shards) {
+    int b = 0;
+    for (int q = (HS_SESSION_SENT - 1) / n_shards; q > 0; q >>= 1) ++b;
+    return b;
+}
+
+// a table's arguments as the kernels index them: the shard count within
+// the owner table, the table within its arrays, every place named once
+inline bool group_ok(const HsSessGroupArgs &a) {
+    if (a.scratch == nullptr || a.n_planes < 0 ||
+        a.n_planes > HS_MAX_AGGS || a.cap < 0 || a.nb < 0 ||
+        a.n_shards < 1 || a.n_shards > HS_SESS_MAX_SHARDS ||
+        a.n_group < 1 || a.n_group > HS_SESS_GROUP ||
+        a.n_group > a.n_shards ||
+        a.n_group * a.n_planes > HS_SESS_GROUP_PTRS ||
+        a.qbits != qbits_for(a.n_shards))
+        return false;
+    unsigned named = 0;  // a bit a table place
+    for (int sh = 0; sh < a.n_shards; ++sh) {
+        const int g = a.pos[sh];
+        if (g < -1 || g >= a.n_group || (g >= 0 && ((named >> g) & 1u)))
+            return false;
+        if (g >= 0) named |= 1u << g;
+    }
+    return named == (1u << a.n_group) - 1u;
+}
+
+// stages 1-3 and the fresh arenas' single write for a table of key shards
+// (the header's note); the caller adds its batch and then group_fixup()
+inline cudaError_t core_group(const HsSessGroupArgs &a, Scratch &s,
+                              cudaStream_t st) {
+    const int64_t rows = (int64_t)a.n_group * a.cap;
+    const int64_t m = rows + a.nb;
+    if (!group_ok(a) || m == 0 || m > (int64_t)kCountMask)
+        return cudaErrorInvalidValue;
+    layout(rows, a.nb, a.n_group, (char *)a.scratch, &s);
+    static std::atomic<uint64_t> granted{0};
+    cudaError_t err =
+        hs::allow_smem(granted, sort_pass_kernel<true>, (int)kPassSmem);
+    if (err != cudaSuccess) return err;
+    const int tiles = (int)blocks_for(m, kSortTile);
+    const int blocks = (int)blocks_for(m, kScanBlock);
+    const int parts = (int)std::min<int64_t>(kRangeBlocks,
+                                             blocks_for(m, 256 * 2));
+    sort_range_kernel<<<parts, 256, 0, st>>>(a, s, (int)m);
+    group_keys_kernel<<<tiles, kKeysThreads, 0, st>>>(a, s, (int)m, parts);
+    for (int pass = 0; pass < kSortPasses; ++pass)
+        sort_pass_kernel<true><<<tiles, kSortThreads, kPassSmem, st>>>(
+            s, (int)m, pass, tiles);
+    scan_runs<true><<<blocks, kScanBlock, 0, st>>>(s, (int)m);
+    scan_runmax<true><<<blocks, kScanBlock, 0, st>>>(s, (int)m);
+    scan_breaks<true><<<blocks, kScanBlock, 0, st>>>(s, (int)m, a.gap,
+                                                     a.qbits);
+    scan_dest<true><<<blocks, kScanBlock, 0, st>>>(s, (int)m, a.cap, a.qbits,
+                                                   a.n_group);
+    if (rows > 0) {
+        group_init_copy_kernel<<<blocks_for(rows * 32, kFoldBlock),
+                                 kFoldBlock, 0, st>>>(a, s);
+        group_fold_shared_rows<<<blocks_for(rows, kFoldBlock), kFoldBlock,
+                                 0, st>>>(a, s);
+    }
+    return cudaGetLastError();
+}
+
+inline cudaError_t group_fixup(const HsSessGroupArgs &a, cudaStream_t st) {
+    const int64_t rows = (int64_t)a.n_group * a.cap;
+    if (rows > 0)
+        group_fixup_kernel<<<blocks_for(rows, 256), 256, 0, st>>>(a);
     return cudaGetLastError();
 }
 

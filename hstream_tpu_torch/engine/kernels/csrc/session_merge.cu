@@ -6,11 +6,16 @@
 // The host reduces the batch's rows into per-segment planes (its
 // gap-chains, so the pre-merge is exact) in the arena's layout.
 //
-// A key shard of a mesh (n_shards > 1; hstream_tpu/parallel/lattice.py
-// :690-714 ShardedSessionLattice._build_merge) merges only the segments
-// it owns, the others keyed as the sentinel in the chain core (as the
-// reference rewrites their codes), so their slot is cap and the fold
-// skips them.
+// The key shards of a mesh (hstream_tpu/parallel/lattice.py:690-714
+// ShardedSessionLattice._build_merge; hs_session_merge_group): each shard
+// merges only the segments it owns, as the reference's rewritten codes
+// make it. What bounded the first sharded design (0.744 ms for 4 shards of
+// 2^15 slots and 50,000 segments): a launch sequence of ~17 launches a
+// shard, each keying, sorting and scanning every segment, so the merge was
+// bound by its launches. Now one sequence a card covers a table of the
+// shards whose arenas lie there (session_chain.cuh core_group): a segment
+// is sorted once if a shard of the table owns it, dropped before the sort
+// otherwise, and group_fold_segments folds it into its own shard's arena.
 //
 // Bound on the H100: bytes: the chain core's sort, scan and single write
 // of the fresh arena (session_chain.cuh, shared with the step and
@@ -45,4 +50,23 @@ extern "C" int hs_session_merge(const HsSessionArgs *args, void *stream) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return (int)hs::sess::fixup(*args, st);
+}
+
+extern "C" int hs_session_merge_group(const HsSessGroupArgs *args,
+                                      void *stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (args->mode != HS_SESS_SEGMENT ||
+        (args->nb > 0 && args->b_t1 == nullptr))
+        return (int)cudaErrorInvalidValue;
+    hs::sess::Scratch s;
+    cudaError_t err = hs::sess::core_group(*args, s, st);
+    if (err != cudaSuccess) return (int)err;
+    if (args->nb > 0)
+        hs::sess::group_fold_segments
+            <<<hs::sess::blocks_for((int64_t)args->nb * 32,
+                                    hs::sess::kFoldBlock),
+               hs::sess::kFoldBlock, 0, st>>>(*args, s);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)hs::sess::group_fixup(*args, st);
 }

@@ -109,6 +109,12 @@ def _owners(spec: SessionSpec) -> list[tuple[int, str, AggSpec]]:
     return out
 
 
+def n_planes(spec: SessionSpec) -> int:
+    """Planes of the arena besides code, t0, t1 (AVG's _n rides with its
+    plane): the kernels' plane count."""
+    return len(_owners(spec))
+
+
 def session_plane_np(spec: SessionSpec, cap: int) -> dict[str, np.ndarray]:
     """Empty arena planes on the host (numpy), identities in every slot."""
     arena: dict[str, np.ndarray] = {
@@ -471,9 +477,14 @@ def _check_arena(spec: SessionSpec, arena, cap: int, device) -> None:
                              f"{list(w.shape[1:])}] tensor on {device}")
 
 
+def _plane_width(spec: SessionSpec, agg) -> int:
+    return (spec.hll.m if agg.kind == AggKind.APPROX_COUNT_DISTINCT
+            else spec.qcfg.n_bins
+            if agg.kind == AggKind.APPROX_QUANTILE else 1)
+
+
 def _session_args(spec: SessionSpec, arena, out, nb: int, mode: int,
-                  gap: int, close_cut: int, delta: int,
-                  shard: tuple[int, int] = (1, 0)) -> kb.SessionArgs:
+                  gap: int, close_cut: int, delta: int) -> kb.SessionArgs:
     cap = arena["code"].shape[0]
     dev = arena["code"].device
     _check_arena(spec, arena, cap, dev)
@@ -484,7 +495,6 @@ def _session_args(spec: SessionSpec, arena, out, nb: int, mode: int,
     a = kb.SessionArgs()
     a.cap, a.nb, a.mode = cap, nb, mode
     a.gap, a.close_cut, a.delta = int(gap), int(close_cut), int(delta)
-    a.n_shards, a.shard = shard
     a.hll_p = spec.hll.precision
     a.q_min, a.q_gamma = spec.qcfg.min_value, spec.qcfg.gamma_log
     a.code, a.t0, a.t1 = (kb.ptr(arena[k]) for k in ("code", "t0", "t1"))
@@ -493,9 +503,7 @@ def _session_args(spec: SessionSpec, arena, out, nb: int, mode: int,
     for q, (_i, name, agg) in enumerate(owners):
         p = a.p[q]
         p.kind = _KERNEL_KIND[agg.kind]
-        p.width = (spec.hll.m if agg.kind == AggKind.APPROX_COUNT_DISTINCT
-                   else spec.qcfg.n_bins
-                   if agg.kind == AggKind.APPROX_QUANTILE else 1)
+        p.width = _plane_width(spec, agg)
         p.src, p.out = kb.ptr(arena[name]), kb.ptr(out[name])
         if agg.kind == AggKind.AVG:
             p.src_n, p.out_n = (kb.ptr(arena[name + "_n"]),
@@ -510,6 +518,90 @@ def _launch_session(fn: str, a: kb.SessionArgs, dev) -> None:
                           dtype=torch.uint8, device=dev)
     a.scratch = scratch.data_ptr()
     kb.check(getattr(lib, fn)(ctypes.byref(a), kb.stream_of(scratch)), fn)
+
+
+def session_qbits(n_shards: int) -> int:
+    """Bits of code div n_shards for every code below 2^22: the low part
+    of a table launch's sort code (g << qbits) | code div n_shards."""
+    return ((kb.SESSION_SENT - 1) // n_shards).bit_length()
+
+
+def _group_args(spec: SessionSpec, arenas, outs, shards: list[int],
+                n_shards: int, nb: int, mode: int, gap: int, close_cut: int,
+                delta: int) -> kb.SessGroupArgs:
+    """The argument block of one launch over a table of key shards:
+    arenas[s] / outs[s] for each s in `shards` (of an n_shards mesh, all
+    on one card, each [cap] slots), the planes' descriptions once."""
+    owners = _owners(spec)
+    g_n = len(shards)
+    if not (1 <= g_n <= kb.SESS_GROUP and n_shards <= kb.SESS_MAX_SHARDS
+            and g_n * len(owners) <= kb.SESS_GROUP_PTRS):
+        raise ValueError(f"a table of {g_n} of {n_shards} key shards and "
+                         f"{len(owners)} planes does not fit a launch")
+    cap = arenas[shards[0]]["code"].shape[0]
+    dev = arenas[shards[0]]["code"].device
+    for s in shards:
+        _check_arena(spec, arenas[s], cap, dev)
+        _check_arena(spec, outs[s], cap, dev)
+    a = kb.SessGroupArgs()
+    a.cap, a.nb, a.mode = cap, nb, mode
+    a.gap, a.close_cut, a.delta = int(gap), int(close_cut), int(delta)
+    a.n_shards, a.n_group, a.qbits = n_shards, g_n, session_qbits(n_shards)
+    a.hll_p = spec.hll.precision
+    a.q_min, a.q_gamma = spec.qcfg.min_value, spec.qcfg.gamma_log
+    a.pos[:] = [-1] * kb.SESS_MAX_SHARDS
+    for q, (_i, _name, agg) in enumerate(owners):
+        a.d[q].kind = _KERNEL_KIND[agg.kind]
+        a.d[q].width = _plane_width(spec, agg)
+    for g, s in enumerate(shards):
+        a.pos[s] = g
+        h, arena, out = a.sh[g], arenas[s], outs[s]
+        h.code, h.t0, h.t1 = (kb.ptr(arena[k]) for k in ("code", "t0", "t1"))
+        h.out_code, h.out_t0, h.out_t1 = (kb.ptr(out[k])
+                                          for k in ("code", "t0", "t1"))
+        for q, (_i, name, agg) in enumerate(owners):
+            pp = a.pp[g * len(owners) + q]
+            pp.src, pp.out = kb.ptr(arena[name]), kb.ptr(out[name])
+            if agg.kind == AggKind.AVG:
+                pp.src_n, pp.out_n = (kb.ptr(arena[name + "_n"]),
+                                      kb.ptr(out[name + "_n"]))
+    a.n_planes = len(owners)
+    return a
+
+
+def _launch_group(fn: str, a: kb.SessGroupArgs, dev) -> None:
+    lib = kb.lib()
+    scratch = torch.empty(
+        lib.hs_session_group_scratch_bytes(a.n_group, a.cap, a.nb),
+        dtype=torch.uint8, device=dev)
+    a.scratch = scratch.data_ptr()
+    kb.check(getattr(lib, fn)(ctypes.byref(a), kb.stream_of(scratch)), fn)
+
+
+def _record_inputs(spec: SessionSpec, inputs, nb: int):
+    """(plane, HS_T_* type, pointer, NULL flag bit) of each aggregate
+    with an input, checked as the step kernels take them."""
+    bits = _null_bits(spec)
+    for q, (i, _name, agg) in enumerate(_owners(spec)):
+        if agg.kind == AggKind.COUNT_ALL:
+            continue
+        v = inputs[i]
+        if v is None or v.dtype not in kb.VTYPES or v.shape != (nb,):
+            raise ValueError(f"session_step: bad input for aggregate {i}")
+        yield q, kb.VTYPES[v.dtype], kb.ptr(v), bits[i]
+
+
+def _check_packed(packed: torch.Tensor) -> None:
+    if packed.dtype != torch.int32 or packed.dim() != 2 \
+            or packed.shape[0] < 3:
+        raise ValueError("session_step: packed must be int32 [3 + cols, B]")
+
+
+def _record_ptrs(packed: torch.Tensor) -> tuple[int, int, int, int]:
+    """The packed batch's rows as a record-mode entry's code, start, end
+    (a record is [ts, ts]) and flags."""
+    return (kb.ptr(packed[0]), kb.ptr(packed[1]), kb.ptr(packed[1]),
+            kb.ptr(packed[2]))
 
 
 def session_step(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
@@ -529,31 +621,33 @@ def session_step(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
 
 
 def step_cuda(spec: SessionSpec, arena, out, packed: torch.Tensor, inputs,
-              gap: int, close_cut: int, delta: int,
-              shard: tuple[int, int] = (1, 0)) -> None:
-    """The session step kernel's launch; `shard` = (n_shards, shard) makes
-    it fold only the records a key shard of a mesh owns (code mod
-    n_shards == shard; parallel/lattice.py ShardedSessionLattice)."""
-    if packed.dtype != torch.int32 or packed.dim() != 2 \
-            or packed.shape[0] < 3:
-        raise ValueError("session_step: packed must be int32 [3 + cols, B]")
+              gap: int, close_cut: int, delta: int) -> None:
+    """The session step kernel's launch."""
+    _check_packed(packed)
     nb = packed.shape[1]
     a = _session_args(spec, arena, out, nb, kb.SESS_RECORD, gap, close_cut,
-                      delta, shard)
-    a.b_code, a.b_t0, a.b_t1, a.b_flags = (kb.ptr(packed[0]),
-                                           kb.ptr(packed[1]),
-                                           kb.ptr(packed[1]),
-                                           kb.ptr(packed[2]))
-    bits = _null_bits(spec)
-    for q, (i, _name, agg) in enumerate(_owners(spec)):
-        if agg.kind == AggKind.COUNT_ALL:
-            continue
-        v = inputs[i]
-        if v is None or v.dtype not in kb.VTYPES or v.shape != (nb,):
-            raise ValueError(f"session_step: bad input for aggregate {i}")
-        a.p[q].vtype, a.p[q].values = kb.VTYPES[v.dtype], kb.ptr(v)
-        a.p[q].null_bit = bits[i]
+                      delta)
+    a.b_code, a.b_t0, a.b_t1, a.b_flags = _record_ptrs(packed)
+    for q, vtype, ptr, bit in _record_inputs(spec, inputs, nb):
+        a.p[q].vtype, a.p[q].values, a.p[q].null_bit = vtype, ptr, bit
     _launch_session("hs_session_step", a, packed.device)
+
+
+def step_group_cuda(spec: SessionSpec, arenas, outs, shards: list[int],
+                    n_shards: int, packed: torch.Tensor, inputs, gap: int,
+                    close_cut: int, delta: int) -> None:
+    """The session step kernels' launch over a table of key shards of an
+    n_shards mesh (parallel/lattice.py sharded_session_step): shard s in
+    `shards` folds arenas[s] and the records it owns (code mod n_shards
+    == s) into outs[s]; the batch and inputs on the table's card."""
+    _check_packed(packed)
+    nb = packed.shape[1]
+    a = _group_args(spec, arenas, outs, shards, n_shards, nb,
+                    kb.SESS_RECORD, gap, close_cut, delta)
+    a.b_code, a.b_t0, a.b_t1, a.b_flags = _record_ptrs(packed)
+    for q, vtype, ptr, bit in _record_inputs(spec, inputs, nb):
+        a.d[q].vtype, a.d[q].values, a.d[q].null_bit = vtype, ptr, bit
+    _launch_group("hs_session_step_group", a, packed.device)
 
 
 session_step.launches = 0  # wrapper calls that launched the kernels
@@ -575,12 +669,11 @@ def session_merge(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
 
 
 def merge_cuda(spec: SessionSpec, arena, out, seg, gap: int, close_cut: int,
-               delta: int, shard: tuple[int, int] = (1, 0)) -> None:
-    """The session merge kernel's launch; `shard` as in step_cuda (the
-    segments another key shard owns are dropped)."""
+               delta: int) -> None:
+    """The session merge kernel's launch."""
     ns = seg["code"].shape[0]
     a = _session_args(spec, arena, out, ns, kb.SESS_SEGMENT, gap, close_cut,
-                      delta, shard)
+                      delta)
     _check_arena(spec, seg, ns, arena["code"].device)
     a.b_code, a.b_t0, a.b_t1 = (kb.ptr(seg[k]) for k in ("code", "t0", "t1"))
     for q, (_i, name, agg) in enumerate(_owners(spec)):
@@ -588,6 +681,23 @@ def merge_cuda(spec: SessionSpec, arena, out, seg, gap: int, close_cut: int,
         if agg.kind == AggKind.AVG:
             a.p[q].seg_n = kb.ptr(seg[name + "_n"])
     _launch_session("hs_session_merge", a, seg["code"].device)
+
+
+def merge_group_cuda(spec: SessionSpec, arenas, outs, shards: list[int],
+                     n_shards: int, seg, gap: int, close_cut: int,
+                     delta: int) -> None:
+    """The session merge kernels' launch over a table of key shards, as
+    step_group_cuda (the segments another shard owns are dropped)."""
+    ns = seg["code"].shape[0]
+    a = _group_args(spec, arenas, outs, shards, n_shards, ns,
+                    kb.SESS_SEGMENT, gap, close_cut, delta)
+    _check_arena(spec, seg, ns, arenas[shards[0]]["code"].device)
+    a.b_code, a.b_t0, a.b_t1 = (kb.ptr(seg[k]) for k in ("code", "t0", "t1"))
+    for q, (_i, name, agg) in enumerate(_owners(spec)):
+        a.d[q].seg = kb.ptr(seg[name])
+        if agg.kind == AggKind.AVG:
+            a.d[q].seg_n = kb.ptr(seg[name + "_n"])
+    _launch_group("hs_session_merge_group", a, seg["code"].device)
 
 
 session_merge.launches = 0  # wrapper calls that launched the kernels

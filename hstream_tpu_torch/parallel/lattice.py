@@ -750,12 +750,16 @@ class ShardedLattice:
 # session never spans keys, so each key shard keeps its own (code, t0)-
 # sorted arena of the codes with code mod n_shards == shard, on the card
 # of its data-0 shard (data replicas compute the same arena in the
-# reference; the port keeps one). Every micro-batch goes to every shard
-# and the ownership test runs inside the session kernels
-# (csrc/session_chain.cuh, kOwn): an unowned record is the sentinel
-# (record mode, the reference's cleared valid bit) and so is an unowned
-# segment (segment mode, the rewritten code). No collective anywhere:
-# step, merge, extract and remap are per shard, one launch each.
+# reference; the port keeps one). The step and merge launch once a card
+# over a table of the shards whose arenas lie there (csrc/session_chain.cuh
+# core_group): each record of the batch is keyed once on the card, sorted
+# once where a shard of the table owns it (the others, as the reference's
+# cleared valid bit or rewritten segment code makes them, are dropped
+# before the sort), and folded into its own shard's arena; a table past
+# what one launch takes by value splits (session_groups). An arena holds
+# only codes its shard owns (put_arena places them so, steps fold only
+# owned records, remaps keep residues). No collective anywhere; extract
+# and remap launch once a shard.
 
 Arenas = list[dict[str, torch.Tensor]]
 
@@ -780,6 +784,75 @@ def _on_device(x: torch.Tensor, dev: torch.device,
     return cache[key]
 
 
+def session_groups(devices: list[torch.device],
+                   n_planes: int) -> list[tuple[torch.device, list[int]]]:
+    """The launches of a sharded session step or merge: (card, key shards)
+    for the shards whose arenas lie on each card (devices[s] is shard s's),
+    in shard order, one table a card, cut where it would pass what one
+    launch takes by value (kb.SESS_GROUP shards, kb.SESS_GROUP_PTRS
+    plane pointer sets: 14 shards of a 64-plane query)."""
+    per = min(kb.SESS_GROUP, kb.SESS_GROUP_PTRS // max(n_planes, 1))
+    by_card: dict = {}
+    for s, d in enumerate(devices):
+        by_card.setdefault(d, []).append(s)
+    return [(d, ks[i:i + per]) for d, ks in by_card.items()
+            for i in range(0, len(ks), per)]
+
+
+def sharded_chain_slots_ref(code: torch.Tensor, start: torch.Tensor,
+                            end: torch.Tensor, shards: list[int],
+                            n_shards: int, cap: int, gap: int
+                            ) -> torch.Tensor:
+    """The chain assignment of one table launch (csrc/session_chain.cuh
+    core_group) in plain PyTorch: the tests hold it against the
+    reference's per-shard _session_chain_slots; nothing on the card's
+    path calls it. The entries are the table's arenas, shard by shard
+    (`cap` rows each, their times already retired and shifted), then the
+    batch; an entry is live where 0 <= code < 2^22 (the caller makes dead
+    rows and invalid records the sentinel). A batch entry belongs to shard
+    code mod n_shards and is dropped unless that shard is in `shards`;
+    every entry kept is keyed once by ((g << qbits) | code div n_shards,
+    start), g its shard's place in `shards`, and sorted once; a chain's
+    slot is its chain id less the chains of the shards before it, cap
+    (dropped) from its shard's cap on. Returns each entry's slot. Equal
+    keys are taken in the order of their ends, as the reference's sort
+    takes them; the kernel's sort takes them in any order, which gives
+    the same chains unless a running end lies within `gap` of 2^31
+    (ROADMAP C)."""
+    code, start, end = code.long(), start.long(), end.long()
+    m, n_group = code.shape[0], len(shards)
+    rows = n_group * cap
+    i = torch.arange(m)
+    pos = torch.full((n_shards,), -1, dtype=torch.long)
+    pos[torch.tensor(shards, dtype=torch.long)] = torch.arange(n_group)
+    live = (code >= 0) & (code < sl.SESSION_SENT_CODE)
+    g = torch.where(i < rows, i // max(cap, 1),
+                    pos[torch.remainder(code, n_shards)])
+    keep = torch.nonzero(live & (g >= 0)).flatten()
+    sort_code = (g << sl.session_qbits(n_shards)) | (code // n_shards)
+    order = keep[torch.argsort(end[keep], stable=True)]
+    order = order[torch.argsort(start[order], stable=True)]
+    order = order[torch.argsort(sort_code[order], stable=True)]
+    sc, st, en, gs = sort_code[order], start[order], end[order], g[order]
+    newrun = torch.ones_like(sc, dtype=torch.bool)
+    newrun[1:] = sc[1:] != sc[:-1]
+    # the running max of end within each code's run: runs ascend, so one
+    # cummax over (run << 33) + end + 2^31 resets at each run
+    run = torch.cumsum(newrun.long(), 0) - 1
+    off = (run << 33) + (1 << 31)
+    runmax = torch.cummax(en + off, 0).values - off
+    prev = torch.roll(runmax, 1) + gap
+    prev = torch.remainder(prev + (1 << 31), 1 << 32) - (1 << 31)
+    brk = newrun | (st > prev)
+    cid = torch.cumsum(brk.long(), 0) - 1
+    chains = torch.bincount(gs[brk], minlength=n_group)
+    first = torch.cumsum(chains, 0) - chains
+    local = cid - first[gs]
+    dest = torch.full((m,), cap, dtype=torch.long)
+    dest[order] = torch.where(local < cap, local, torch.full_like(local, cap))
+    return dest
+
+
 def sharded_session_step_ref(spec, arenas: Arenas, outs: Arenas,
                              packed: torch.Tensor, inputs, gap: int,
                              close_cut: int, delta: int) -> None:
@@ -799,23 +872,24 @@ def sharded_session_step(spec, arenas: Arenas, outs: Arenas,
                          packed: torch.Tensor, inputs, gap: int,
                          close_cut: int, delta: int) -> None:
     """One record-mode micro-batch on every key shard: shard s folds its
-    arena and the records it owns into outs[s]. The session step kernel
-    with the ownership test (n_shards, s) once a shard on the card,
-    sharded_session_step_ref on the CPU."""
+    arena and the records it owns into outs[s]. On the card the session
+    step kernels once a card over a table of its shards (session_groups),
+    the batch copied to each card once; sharded_session_step_ref on the
+    CPU."""
     if packed.device.type == "cpu":
         sharded_session_step_ref(spec, arenas, outs, packed, inputs, gap,
                                  close_cut, delta)
         return
     S = len(arenas)
     cache: dict = {}
-    for s in range(S):
-        dev = arenas[s]["code"].device
+    for dev, shards in session_groups([a["code"].device for a in arenas],
+                                      sl.n_planes(spec)):
         with on(dev):
             ins = tuple(None if v is None else _on_device(v, dev, cache)
                         for v in inputs)
-            sl.step_cuda(spec, arenas[s], outs[s],
-                         _on_device(packed, dev, cache), ins, gap,
-                         close_cut, delta, (S, s))
+            sl.step_group_cuda(spec, arenas, outs, shards, S,
+                               _on_device(packed, dev, cache), ins, gap,
+                               close_cut, delta)
     sharded_session_step.launches += 1
 
 
@@ -840,20 +914,20 @@ def sharded_session_merge_ref(spec, arenas: Arenas, outs: Arenas, seg,
 def sharded_session_merge(spec, arenas: Arenas, outs: Arenas, seg, gap: int,
                           close_cut: int, delta: int) -> None:
     """One segment-mode micro-batch on every key shard: the session merge
-    kernel with the ownership test once a shard on the card,
-    sharded_session_merge_ref on the CPU."""
+    kernels once a card over a table of its shards on the card (as
+    sharded_session_step), sharded_session_merge_ref on the CPU."""
     if seg["code"].device.type == "cpu":
         sharded_session_merge_ref(spec, arenas, outs, seg, gap, close_cut,
                                   delta)
         return
     S = len(arenas)
     cache: dict = {}
-    for s in range(S):
-        dev = arenas[s]["code"].device
+    for dev, shards in session_groups([a["code"].device for a in arenas],
+                                      sl.n_planes(spec)):
         with on(dev):
             sg = {k: _on_device(v, dev, cache) for k, v in seg.items()}
-            sl.merge_cuda(spec, arenas[s], outs[s], sg, gap, close_cut,
-                          delta, (S, s))
+            sl.merge_group_cuda(spec, arenas, outs, shards, S, sg, gap,
+                                close_cut, delta)
     sharded_session_merge.launches += 1
 
 

@@ -388,6 +388,9 @@ def test_binding_structs_mirror_the_header():
           "HsTouchedArgs": kb.TouchedArgs, "HsUnpackArgs": kb.UnpackArgs,
           "HsSessPlane": kb.SessPlane,
           "HsSessionArgs": kb.SessionArgs,
+          "HsSessDesc": kb.SessDesc, "HsSessShard": kb.SessShard,
+          "HsSessPlanePtrs": kb.SessPlanePtrs,
+          "HsSessGroupArgs": kb.SessGroupArgs,
           "HsSessExtractArgs": kb.SessExtractArgs,
           "HsJoinRef": kb.JoinRef, "HsJoinFeedCol": kb.JoinFeedCol,
           "HsJoinNull": kb.JoinNull, "HsJoinProbeArgs": kb.JoinProbeArgs,

@@ -30,7 +30,12 @@ join: the changelog extract (B6) and the join's probe and merge-insert
     join_probe_insert (pack mode) at phase 8b's shapes: a 2^16-record
     batch over 32,000 keys against a 2^19-slot store of ~12 entries a
     key, every one within reach, match_cap 2^20 (both also by kernel,
-    the probe with each branch forced).
+    the probe with each branch forced);
+  * "B19b sharded step", "B19b sharded probe insert", "B19b sharded
+    probe only": the key-sharded join's fused step at 15b's shapes and
+    its probe + insert and probe-only at 15c's (this checkout's
+    chip_smoke.p15_join_inputs: two key shards on the card), each also
+    by kernel, the step by stage.
 Each is the device time a call from torch.profiler over 20 calls (the
 tree's chip_smoke.kernel_ms: its kernels, memsets and copies, without
 the host's gaps; the touched extract's refill of its flags timed alone
@@ -386,7 +391,58 @@ def _join() -> dict:
 
     ms("probe insert 8b", probe_insert_8b)
     by_kernel("probe insert 8b", probe_insert_8b)
+    del s_other, s_mine, sbatch, sdst, other, mine, batch, dst, ist
+
+    # B19b at 15b's and 15c's shapes: this checkout's
+    # chip_smoke.p15_join_inputs, loaded by path, over the timed tree's
+    # package (both trees time the same inputs)
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    j = _here_chip_smoke().p15_join_inputs(dev)
+    step = j["step"]
+    outs = [jl.empty_join_store(x["code"].shape[0], x["cols"].shape[0],
+                                dev) for x in step[0]]
+    state = cs._clone(step[9])
+
+    def sharded_step():
+        pl.sharded_join_probe_insert_step(*step[:9], state, *step[10:],
+                                          outs=outs)
+
+    ms("B19b sharded step", sharded_step)
+    by_kernel("B19b sharded step", sharded_step)
+    stages = cs.profiled_calls(sharded_step, 5, "B19b sharded step")
+    out["B19b sharded step by stage"] = (None if stages is None
+                                         else cs._by_stage(stages, 5))
+    del outs, state, step
+    mines, others, batch, n, within, cutoff, mc, nm = j["probe"]
+    outs = [jl.empty_join_store(x["code"].shape[0], x["cols"].shape[0],
+                                dev) for x in mines]
+
+    def sharded_probe_insert():
+        pl.sharded_join_probe_insert(mines, others, batch, n, within,
+                                     cutoff, mc, nm, outs=outs)
+
+    ms("B19b sharded probe insert", sharded_probe_insert)
+    by_kernel("B19b sharded probe insert", sharded_probe_insert)
+    only = j["probe_only"]
+
+    def sharded_probe_only():
+        pl.sharded_join_probe_only(*only)
+
+    ms("B19b sharded probe only", sharded_probe_only)
+    by_kernel("B19b sharded probe only", sharded_probe_only)
     return out
+
+
+def _here_chip_smoke():
+    """This checkout's chip_smoke.py, loaded by path (the timed tree's
+    package underneath), so both trees time the same inputs."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chip_smoke.py")
+    mod = importlib.util.spec_from_file_location("chip_smoke_ab", path)
+    here = importlib.util.module_from_spec(mod)
+    mod.loader.exec_module(here)
+    return here
 
 
 def _decode() -> dict:
@@ -738,12 +794,8 @@ def _session() -> dict:
 
     # 15a's inputs from this checkout's chip_smoke, over the timed tree's
     # package
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "chip_smoke.py")
-    mod = importlib.util.spec_from_file_location("chip_smoke_ab", path)
-    here = importlib.util.module_from_spec(mod)
-    mod.loader.exec_module(here)
-    spec4, arenas, packed4, inputs4, seg4 = here.p15_inputs(dev)
+    spec4, arenas, packed4, inputs4, seg4 = _here_chip_smoke().p15_inputs(
+        dev)
     outs = [sl.init_session_arena(spec4, a["code"].shape[0], dev)
             for a in arenas]
     ms("B19c sharded step", lambda: pl.sharded_session_step(

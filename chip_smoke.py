@@ -208,8 +208,8 @@ Phases, each of which asserts (any failure exits non-zero):
    one table of the card's key shards and over split tables (every
    aggregate kind), timed at 15a's shapes, the extract over four slot
    lists, the remap through one residue-preserving table, the sharded
-   probe + insert, probe-only, fused step into a (2, 2) inner lattice,
-   the routing kernel and the eviction against their plain versions;
+   probe + insert, probe-only, fused step into (D, K) inner lattices,
+   the table scatter and the eviction against their plain versions;
    15a config 4 at phase 7's widths (phase 7's stream, 100,000 user
    slots, 2^20 records a batch) through SessionExecutor on
    make_mesh(1, 4), 16 record batches (the key-cache bound lowered, so
@@ -452,7 +452,7 @@ def _wrappers() -> dict:
             "sharded_join_probe_only": pl.sharded_join_probe_only,
             "sharded_join_probe_step": pl.sharded_join_probe_insert_step,
             "sharded_join_evict": pl.sharded_join_evict,
-            "join_route": pl.join_route}
+            "sharded_join_scatter": pl.scatter_table_cuda}
 
 
 def launch_counts() -> dict[str, int]:
@@ -3277,6 +3277,42 @@ def session_edge_cases(dev, spec, layout, progs):
     yield ("nb = 0", arena,
            pack_session(dev, spec, layout, rng, np.zeros(0, np.int64),
                         np.zeros(0, np.int64)), 5 * SESS_GAP, 11)
+    arena, codes, ts = tie_wrap(spec, 4096, dev, rng, 40, n)
+    yield ("ties at the int32 wrap", arena,
+           pack_session(dev, spec, layout, rng, codes, ts), -(1 << 30), 0)
+
+
+def tie_wrap_times(rng, m: int):
+    """(starts, ends) int64 of m entries near the int32 wrap: starts from
+    a few values within 2 gaps of 2^31 - 1 (so equal starts are common),
+    ends at, a little past, or a gap past their start, wrapped as int32
+    (a running end + gap then wraps in the break test)."""
+    hi = int(np.iinfo(np.int32).max)
+    starts = hi - rng.choice(np.arange(60, 2 * SESS_GAP, 97), m)
+    ends = starts + rng.choice([0, 0, 40, SESS_GAP // 2, SESS_GAP + 7], m)
+    return starts, ((ends + 2**31) % 2**32) - 2**31
+
+
+def tie_wrap(spec, cap: int, dev, rng, n_codes: int, n: int, S: int = 1,
+             s: int = 0):
+    """An arena (codes of shard s of S) whose live rows sit at the int32
+    wrap with equal starts (tie_wrap_times), and a batch's codes and
+    times repeating those starts: equal (code, start) entries whose
+    order decides the chains (the reference takes them by end)."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    arena = random_arena(spec, cap, dev, int(rng.integers(1 << 30)))
+    live = cap // 2
+    code = np.full(cap, sl.SESSION_SENT_CODE, np.int64)
+    code[:live] = rng.integers(0, n_codes, live) * S + s
+    t0, t1 = tie_wrap_times(rng, live)
+    for k, v in (("code", code), ("t0", np.r_[t0, np.zeros(cap - live)]),
+                 ("t1", np.r_[t1, np.zeros(cap - live)])):
+        arena[k].copy_(torch.from_numpy(v.astype(np.int32)))
+    codes = rng.integers(0, n_codes * S, n)
+    ts = np.where(rng.random(n) < 0.5, rng.choice(t0, n),
+                  tie_wrap_times(rng, n)[0])
+    return arena, codes, ts
 
 
 def check_session_merge(dev, results):
@@ -3305,15 +3341,20 @@ def check_session_merge(dev, results):
     one["code"].fill_(3)
     one["t0"].fill_(500)
     one["t1"].fill_(500)
-    for name, arena_e, seg_e in (
+    tie_arena, tie_seg = tie_wrap_seg(spec, 4096, 3000, dev, 77)
+    for name, arena_e, seg_e, cut_e, delta_e in (
             ("cap = 0", sl.init_session_arena(spec, 0, dev),
-             session_seg(dev, spec, 73, 3000, 200, 0)),
-            ("no segments", base, session_seg(dev, spec, 75, 0, 1, 0)),
+             session_seg(dev, spec, 73, 3000, 200, 0), close_cut, delta),
+            ("no segments", base, session_seg(dev, spec, 75, 0, 1, 0),
+             close_cut, delta),
             ("m below one tile", small,
-             session_seg(dev, spec, 76, 100, 20, 2 * SESS_GAP)),
-            ("one bucket", sl.init_session_arena(spec, 0, dev), one)):
-        e, _w = merge_vs_plain(spec, arena_e, seg_e, SESS_GAP, close_cut,
-                               delta, f"session_merge ({name})")
+             session_seg(dev, spec, 76, 100, 20, 2 * SESS_GAP), close_cut,
+             delta),
+            ("one bucket", sl.init_session_arena(spec, 0, dev), one,
+             close_cut, delta),
+            ("ties at the int32 wrap", tie_arena, tie_seg, -(1 << 30), 0)):
+        e, _w = merge_vs_plain(spec, arena_e, seg_e, SESS_GAP, cut_e,
+                               delta_e, f"session_merge ({name})")
         err = max(err, e)
     results["session_merge"] = dict(
         route="cuda",
@@ -3323,7 +3364,24 @@ def check_session_merge(dev, results):
     log(f"session_merge: {nseg} segments (sentinel pads, +-inf and -0.0 "
         f"MIN/MAX) into an arena with evicted and retired entries, delta "
         f"{delta}; no arena slots, no segments, m below one tile, one "
-        f"bucket: exact, SUM/AVG within their bound (max err {err:.3g})")
+        f"bucket, ties at the int32 wrap: exact, SUM/AVG within their "
+        f"bound (max err {err:.3g})")
+
+
+def tie_wrap_seg(spec, cap: int, nseg: int, dev, seed: int, S: int = 1,
+                 s: int = 0, n_codes: int = 40):
+    """tie_wrap's arena and segments at the same starts (tie_wrap_times):
+    a segment-mode batch of equal (code, start) entries at the wrap."""
+    rng = np.random.default_rng(seed)
+    arena, _codes, _ts = tie_wrap(spec, cap, dev, rng, n_codes, 0, S, s)
+    seg = session_seg(dev, spec, seed + 1, nseg, n_codes * S, 0)
+    t0 = arena["t0"][:cap // 2].cpu().numpy().astype(np.int64)
+    st = np.where(rng.random(nseg) < 0.5, rng.choice(t0, nseg),
+                  tie_wrap_times(rng, nseg)[0])
+    en = st + rng.choice([0, 40, SESS_GAP + 7], nseg)
+    for k, v in (("t0", st), ("t1", ((en + 2**31) % 2**32) - 2**31)):
+        seg[k].copy_(torch.from_numpy(v.astype(np.int32)))
+    return arena, seg
 
 
 def check_session_extract(dev, results):
@@ -4658,11 +4716,10 @@ def _join_executor(plan, batch: int, dev):
 
 
 # device events of the join path, by stage
-_JOIN_EVENTS = {"probe_window_kernel": "probe",
+_JOIN_EVENTS = {"group_": "compaction", "probe_window_kernel": "probe",
                 "probe_bounds_kernel": "probe",
                 "probe_expand_kernel": "probe", "split_kernel": "insert",
-                "merge_kernel": "insert", "own_count_kernel": "insert",
-                "own_compact_kernel": "insert", "route_kernel": "route",
+                "merge_kernel": "insert", "scatter_table": "scatter",
                 "count_kernel": "evict", "scan_tiles_kernel": "evict",
                 "move_kernel": "evict",
                 "scatter_private": "scatter", "scatter_cluster": "scatter",
@@ -7426,7 +7483,7 @@ P15_KERNELS = ("sharded_session_step", "sharded_session_merge",
                "sharded_session_extract", "sharded_session_remap",
                "sharded_join_probe_insert", "sharded_join_probe_only",
                "sharded_join_probe_insert_step", "sharded_join_evict",
-               "join_route")
+               "scatter_table_cuda")
 P15_SESSION_PATHS = ("sharded session", "sharded session server")
 P15_JOIN_PATHS = ("sharded join", "sharded fetch")
 
@@ -7644,6 +7701,29 @@ def check_sharded_session(dev, results):
         err_m = max(err_m, sharded_merge_vs_plain(
             spec, arenas, seg, SESS_GAP, close_cut, 11,
             f"sharded_session_merge, {what}", tables))
+    # equal (code, start) entries at the int32 wrap, where their order
+    # decides the chains: one table and a split one
+    rng = np.random.default_rng(154)
+    tcap, tn = 1 << 11, 1 << 12
+    ties = [tie_wrap(spec, tcap, dev, rng, 40, 0, S, s)[0]
+            for s in range(S)]
+    tcodes = rng.integers(0, 40 * S, tn)
+    t0s = torch.cat([a["t0"][:tcap // 2] for a in ties]).cpu().numpy()
+    tts = np.where(rng.random(tn) < 0.5, rng.choice(t0s, tn),
+                   tie_wrap_times(rng, tn)[0])
+    tpacked = pack_session(dev, spec, layout, rng, tcodes, tts)
+    tin = sl.session_inputs(spec, layout, tpacked, progs)
+    tseg = {k: torch.cat([tie_wrap_seg(spec, tcap, 500, dev, 155 + s, S,
+                                       s)[1][k] for s in range(S)])
+            for k in seg}
+    for tables in (None, [[0, 2], [1, 3]]):
+        what = f"ties at the int32 wrap, tables {tables or 'one'}"
+        err = max(err, sharded_step_vs_plain(
+            spec, ties, tpacked, tin, SESS_GAP, -(1 << 30), 0,
+            f"sharded_session_step, {what}", tables))
+        err_m = max(err_m, sharded_merge_vs_plain(
+            spec, ties, tseg, SESS_GAP, -(1 << 30), 0,
+            f"sharded_session_merge, {what}", tables))
     rng = np.random.default_rng(153)
     pcap = 2048
     slots = np.full((S, pcap), -1, np.int32)
@@ -7678,7 +7758,8 @@ def check_sharded_session(dev, results):
             replaces=f"hstream_tpu/parallel/lattice.py:{line}",
             paths=P15_SESSION_PATHS, max_abs_err=e)
     log(f"sharded session (B19c), {S} key shards: step and merge over one "
-        f"table of the card's shards and over split tables against the "
+        f"table of the card's shards and over split tables (also with ties "
+        f"at the int32 wrap) against the "
         f"plain versions (every kind; SUM/AVG max err {err:.3g} / "
         f"{err_m:.3g}, within the order bound; the rest exact), the extract "
         f"over {S} slot lists (1500, 0, {pcap}, 7 named) and the remap "
@@ -7718,6 +7799,81 @@ def p15_inputs(dev, seed: int = 23, cap: int = 1 << 15, n: int = 1 << 20,
     return spec, arenas, packed, inputs, seg
 
 
+def p15_join_inputs(dev, seed: int = 31) -> dict:
+    """15b's and 15c's shapes for the sharded join's kernels alone (also
+    `ab.py join`), over P15_JOIN_MESH's two key shards:
+      * "step": sharded_join_probe_insert_step's arguments: 2^22-slot
+        stores a shard (the probed side 2^20 live entries, the probing
+        side half that, over JOIN_KEYS keys and 4 s of stream), a
+        2^20-record batch over the same keys and span, WITHIN 1 s,
+        match_cap 2^21 a shard (~2.1 M matches), into a (2, 2) inner
+        lattice of 2^19 keys (COUNT(*) by key, TUMBLE(10 s));
+      * "probe": sharded_join_probe_insert's arguments at phase 8b's
+        widths: 2^19-slot stores a shard (~12 entries a key over 32,000
+        keys), a 2^16-record batch, WITHIN 10 s, match_cap 2^20 a shard;
+      * "probe_only": sharded_join_probe_only's, the same batch and
+        probed stores with match_cap 2^19 a shard (an overflow's redo at
+        the batch's own width)."""
+    from hstream_tpu_torch.engine import (AggKind, AggregateNode, AggSpec,
+                                          ColumnType, Schema, SourceNode,
+                                          TumblingWindow)
+    from hstream_tpu_torch.engine.expr import Col
+    from hstream_tpu_torch.parallel import ShardedQueryExecutor, make_mesh
+
+    rng = np.random.default_rng(seed)
+    S = P15_JOIN_MESH[1]
+
+    def keyed(n, keys, span):
+        c = rng.integers(0, keys, n).astype(np.int64)
+        t = rng.integers(0, span, n).astype(np.int64)
+        o = np.lexsort((t, c))
+        return c[o], t[o]
+
+    def stores(cap, n_live, keys, span):
+        out = []
+        for s in range(S):
+            c, t = keyed(n_live, keys // S, span)
+            code = np.full(cap, JOIN_SENT, np.int32)
+            ts = np.zeros(cap, np.int32)
+            code[:n_live], ts[:n_live] = c * S + s, t
+            out.append({"code": torch.from_numpy(code).to(dev),
+                        "ts": torch.from_numpy(ts).to(dev),
+                        "flags": torch.full((cap,), 2, dtype=torch.int32,
+                                            device=dev),
+                        "cols": torch.zeros((0, cap), dtype=torch.int32,
+                                            device=dev)})
+        return out
+
+    def batch(n, keys, span, inner_keys):
+        b = np.zeros((4, n), np.int32)
+        b[0], b[1] = keyed(n, keys, span)
+        b[2], b[3] = b[0] % inner_keys, 2
+        return torch.from_numpy(b).to(dev)
+
+    schema = Schema.of(k=ColumnType.STRING)
+    node = AggregateNode(child=SourceNode("s", schema),
+                         group_keys=[Col("k")],
+                         window=TumblingWindow(10_000, grace_ms=0),
+                         aggs=[AggSpec(AggKind.COUNT_ALL, "c")])
+    inner = ShardedQueryExecutor(node, schema,
+                                 mesh=make_mesh(*P15_JOIN_MESH,
+                                                devices=[dev]),
+                                 initial_keys=1 << 19)
+    n = 1 << 20
+    step = (stores(1 << 22, 1 << 19, JOIN_KEYS, 4000),
+            stores(1 << 22, 1 << 20, JOIN_KEYS, 4000),
+            batch(n, JOIN_KEYS, 4000, 1 << 19), n, 1000, -(1 << 31),
+            1 << 21, 0, inner._sharded.local_spec, inner.state, -1, 0,
+            inner._sharded._progs, ((), (), ()))
+    n = 1 << 16
+    probe = (stores(1 << 19, 100_000, 32_000, 4000),
+             stores(1 << 19, 200_000, 32_000, 4000),
+             batch(n, 32_000, 4000, 1000), n, 10_000, -(1 << 31), 1 << 20,
+             0)
+    return {"step": step, "probe": probe,
+            "probe_only": probe[1:6] + (1 << 19, 0)}
+
+
 def time_p15_shapes(dev, results):
     """The sharded step and merge at 15a's shapes (p15_inputs) profiled
     early in the process, where the profiler keeps every event (late in
@@ -7752,21 +7908,69 @@ def _shard_store(dev, rng, cap, n_cols, n_live, S, s):
     return st
 
 
-def sharded_join_inner(dev, where: bool, mesh):
-    """join_inner's query, sharded on `mesh`."""
+def sharded_join_inner(dev, where: bool, mesh, keys: int = 8):
+    """join_inner's query, sharded on `mesh` (`keys` divisible by its key
+    shards)."""
     from hstream_tpu_torch.parallel import ShardedQueryExecutor
 
     single = join_inner(dev, where)
     return ShardedQueryExecutor(single.node, single.schema, mesh=mesh,
-                                initial_keys=8)
+                                initial_keys=keys)
 
 
-def sharded_fused_vs_plain(args, what) -> int:
+# the tables of S key shards on one card that check_sharded_join drives:
+# one table, and tables split as a mesh over several cards (or past the
+# parameters) splits them
+JOIN_TABLES = {1: [None], 2: [None, [[1], [0]]], 3: [None, [[0, 2], [1]]],
+               4: [None, [[0, 2], [1, 3]]]}
+
+
+@contextlib.contextmanager
+def join_tables(tables):
+    """The sharded join's wrappers launched over `tables` (lists of the
+    key shards, whose stores all lie on one card), as join_groups splits
+    the shards of a mesh over several cards; join_groups' own tables
+    where `tables` is None."""
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    if tables is None:
+        yield
+        return
+    groups = pl.join_groups
+    pl.join_groups = lambda devices: [(devices[ks[0]], list(ks))
+                                      for ks in tables]
+    try:
+        yield
+    finally:
+        pl.join_groups = groups
+
+
+def table_launches():
+    """The table launches' counters: (grouping, probe, insert, scatter)."""
+    from hstream_tpu_torch.engine import join_lattice as jl
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    return (jl.group_cuda.launches, jl.probe_table_cuda.launches,
+            jl.insert_table_cuda.launches, pl.scatter_table_cuda.launches)
+
+
+def assert_one_sequence_a_card(before, tables, probe: bool, insert: bool,
+                               scatter: bool, what: str) -> None:
+    """One launch sequence a table (one a card unless split): a grouping,
+    a probe and an insert each, one scatter for the card's partials."""
+    n = len(tables) if tables else 1
+    want = (before[0] + n, before[1] + (n if probe else 0),
+            before[2] + (n if insert else 0), before[3] + int(scatter))
+    assert table_launches() == want, (what, before, table_launches(), want)
+
+
+def sharded_fused_vs_plain(args, what, tables=None) -> int:
     """One fused sharded call (sharded_join_probe_insert_step's positional
-    `args`) with the kernels and with the plain version, each on its own
-    clone of the inner partials (args[9]) and into its own stores: the
-    stores, the per-shard totals and every partial's planes exact (the
-    inputs sum exactly in any order). Returns the match total."""
+    `args`) with the kernels (one launch sequence a table: `tables`, or
+    one over the card's shards) and with the plain version, each on its
+    own clone of the inner partials (args[9]) and into its own stores:
+    the stores, the per-shard totals and every partial's planes exact
+    (the inputs sum exactly in any order). Returns the match total."""
     from hstream_tpu_torch.parallel import lattice as pl
 
     mine, state = args[0], args[9]
@@ -7776,7 +7980,12 @@ def sharded_fused_vs_plain(args, what) -> int:
         st = _clone(state)
         kw = ({"outs": [jl_empty(x) for x in mine]}
               if fn is pl.sharded_join_probe_insert_step else {})
-        new, totals = fn(*args[:9], st, *args[10:], **kw)
+        before = table_launches()
+        with join_tables(tables):
+            new, totals = fn(*args[:9], st, *args[10:], **kw)
+        if fn is pl.sharded_join_probe_insert_step:
+            assert_one_sequence_a_card(before, tables, True, True, True,
+                                       what)
         runs.append((new, totals.cpu(), st))
     torch.cuda.synchronize()
     (gm, gt, gs), (wm, wt, ws) = runs
@@ -7798,78 +8007,145 @@ def jl_empty(st):
                                st["code"].device)
 
 
-def check_sharded_join(dev, results):
-    """B19b against its plain versions on the card: the probe + insert
-    and the probe-only with the ownership test over four key shards (the
-    match buffers in the reference's [rows, 4 * match_cap] layout, a
-    truncating match_cap, n = 0, negative times); the fused step into a
-    (2, 2) inner lattice (both feed layouts, with and without a WHERE;
-    the routing kernel on its own too); the eviction of every shard with
-    live counts [4, 2]. Everything exact."""
+def sharded_probe_vs_plain(mines, others, batch, n, mc, nm, cutoff, tables,
+                           what) -> None:
+    """The table probe + insert and probe-only (one launch sequence a
+    table) against the reference's plan in plain PyTorch (each shard's
+    owned mask over the whole batch): match buffers and stores exact."""
     from hstream_tpu_torch.parallel import lattice as pl
-    from hstream_tpu_torch.parallel import make_mesh
 
-    S = P15_SHARDS
-    n_pi = 0
-    for i, (cap, bcap, n, nm, no, mc, cutoff) in enumerate(
-            [(256, 64, 50, 3, 3, 512, -(1 << 31)),
-             (256, 64, 64, 3, 3, 8, -30),           # truncated shards
-             (256, 64, 0, 0, 3, 64, 0),             # n = 0
-             (1 << 16, 5000, 5000, 2, 1, 1 << 16, -30)]):
-        rng = np.random.default_rng(400 + i)
-        mines = [_shard_store(dev, rng, cap, nm, cap // 3, S, s)
-                 for s in range(S)]
-        others = [_shard_store(dev, rng, cap, no, cap // 2, S, s)
-                  for s in range(S)]
-        batch = join_batch(dev, rng, bcap, n, nm, codes=6 * S)
-        before = pl.sharded_join_probe_insert.launches
+    S = len(mines)
+    before, calls = table_launches(), pl.sharded_join_probe_insert.launches
+    with join_tables(tables):
         new, packed = pl.sharded_join_probe_insert(
             mines, others, batch, n, JOIN_WITHIN, cutoff, mc, nm,
             outs=[jl_empty(x) for x in mines])
-        assert pl.sharded_join_probe_insert.launches == before + 1
-        want_new = pl.sharded_join_insert_ref(mines, batch, n, nm)
-        want_pk = pl.sharded_join_probe_ref(others, batch, n, JOIN_WITHIN,
-                                            cutoff, mc, nm)
+    assert pl.sharded_join_probe_insert.launches == calls + 1
+    assert_one_sequence_a_card(before, tables, True, True, False, what)
+    want_new = pl.sharded_join_insert_ref(mines, batch, n, nm)
+    want_pk = pl.sharded_join_probe_ref(others, batch, n, JOIN_WITHIN,
+                                        cutoff, mc, nm)
+    before = table_launches()
+    with join_tables(tables):
         only = pl.sharded_join_probe_only(others, batch, n, JOIN_WITHIN,
                                           cutoff, 2 * mc, nm)
-        want_only = pl.sharded_join_probe_ref(others, batch, n, JOIN_WITHIN,
-                                              cutoff, 2 * mc, nm)
-        torch.cuda.synchronize()
-        assert packed.shape == (5 + nm + no, S * mc)
-        assert torch.equal(packed, want_pk), f"sharded probe case {i}"
-        assert torch.equal(only, want_only), f"sharded probe-only case {i}"
-        for s in range(S):
-            assert stores_equal(want_new[s], new[s]), \
-                f"sharded insert case {i} shard {s}"
-        n_pi += 1
-    mesh = make_mesh(*P15_JOIN_MESH)
-    n_fused = 0
-    for feed_name in JOIN_FEEDS:
-        for where in (False, True):
-            rng = np.random.default_rng(410 + where)
-            inner = sharded_join_inner(dev, where, mesh)
-            K = mesh.shape["key"]
-            cap, bcap, n, mc = 1 << 12, 1000, 1000, 1 << 14
-            args = ([_shard_store(dev, rng, cap, 3, cap // 3, K, s)
-                     for s in range(K)],
-                    [_shard_store(dev, rng, cap, 3, cap // 2, K, s)
-                     for s in range(K)],
-                    join_batch(dev, rng, bcap, n, 3, codes=6 * K), n,
-                    JOIN_WITHIN, -30, mc, 3, inner._sharded.local_spec,
-                    inner.state, 120, 300, inner._sharded._progs,
-                    join_feed(feed_name, inner, where))
-            total = sharded_fused_vs_plain(
-                args, f"sharded_join_probe_step {feed_name} where={where}")
-            assert total > 0
-            n_fused += 1
-    rng = np.random.default_rng(420)
-    kid = torch.from_numpy(rng.integers(-5, 1 << 20, 5000).astype(np.int32)
-                           ).to(dev)
-    valid = torch.from_numpy(rng.random(5000) < 0.7).to(dev)
-    got = pl.join_route(kid, valid, 2, 2, 1 << 18)
-    want = pl.join_route_ref(kid, valid, 2, 2, 1 << 18)
+    assert_one_sequence_a_card(before, tables, True, False, False, what)
+    want_only = pl.sharded_join_probe_ref(others, batch, n, JOIN_WITHIN,
+                                          cutoff, 2 * mc, nm)
     torch.cuda.synchronize()
-    assert all(torch.equal(g, w) for g, w in zip(got, want)), "join_route"
+    assert packed.shape == want_pk.shape == (packed.shape[0], S * mc)
+    assert torch.equal(packed, want_pk), f"sharded probe {what}"
+    assert torch.equal(only, want_only), f"sharded probe-only {what}"
+    for s in range(S):
+        assert stores_equal(want_new[s], new[s]), \
+            f"sharded insert {what} shard {s}"
+
+
+def check_sharded_join(dev, results):
+    """B19b against its plain versions on the card (the reference's plan:
+    every shard over the whole batch with its owned mask), one launch
+    sequence a table asserted through the table counters: the probe +
+    insert and the probe-only over S = 1-4 key shards in one table and
+    in split tables (the match buffers in the reference's [rows, S *
+    match_cap] layout, a truncating match_cap, n = 0, negative times, a
+    shard without records); the fused step into inner lattices on
+    (D, K) meshes (both feed layouts, with and without a WHERE, one
+    table and split ones, the split tables driven through join_tables);
+    the table scatter alone over split tables of partials and over a
+    (2, 40) mesh's 80 partials in scatter_groups' tables; the eviction of
+    every shard with live counts [4, 2]. Everything exact."""
+    from hstream_tpu_torch.parallel import lattice as pl
+    from hstream_tpu_torch.parallel import make_mesh
+
+    n_pi = 0
+    for S, tab_list in JOIN_TABLES.items():
+        for i, (cap, bcap, n, nm, no, mc, cutoff) in enumerate(
+                [(256, 64, 50, 3, 3, 512, -(1 << 31)),
+                 (256, 64, 64, 3, 3, 8, -30),           # truncated shards
+                 (256, 64, 0, 0, 3, 64, 0),             # n = 0
+                 (1 << 16, 5000, 5000, 2, 1, 1 << 16, -30)]):
+            rng = np.random.default_rng(400 + 10 * S + i)
+            mines = [_shard_store(dev, rng, cap, nm, cap // 3, S, s)
+                     for s in range(S)]
+            others = [_shard_store(dev, rng, cap, no, cap // 2, S, s)
+                      for s in range(S)]
+            batch = join_batch(dev, rng, bcap, n, nm, codes=6 * S)
+            if i == 1 and S > 1:   # shard 1 owns no record
+                code = batch[0]
+                batch[0] = torch.where((code < JOIN_SENT)
+                                       & (code % S == 1), code - 1, code)
+                batch = batch[:, torch.from_numpy(np.lexsort((
+                    batch[1].cpu().numpy(),
+                    batch[0].cpu().numpy()))).to(dev)].contiguous()
+            for tables in tab_list:
+                sharded_probe_vs_plain(mines, others, batch, n, mc, nm,
+                                       cutoff, tables,
+                                       f"S = {S} case {i} tables {tables}")
+                n_pi += 1
+    n_fused = 0
+    for (D, K), keys, tab_list in (((2, 2), 8, [None, [[1], [0]]]),
+                                   ((1, 3), 12, [None, [[0, 2], [1]]]),
+                                   ((1, 4), 8, [None, [[0, 2], [1, 3]]]),
+                                   ((2, 1), 8, [None])):
+        mesh = make_mesh(D, K)
+        for feed_name in JOIN_FEEDS:
+            for where in (False, True):
+                rng = np.random.default_rng(410 + where + 3 * K)
+                inner = sharded_join_inner(dev, where, mesh, keys)
+                cap, bcap, n, mc = 1 << 12, 1000, 1000, 1 << 14
+                args = ([_shard_store(dev, rng, cap, 3, cap // 3, K, s)
+                         for s in range(K)],
+                        [_shard_store(dev, rng, cap, 3, cap // 2, K, s)
+                         for s in range(K)],
+                        join_batch(dev, rng, bcap, n, 3, codes=6 * K), n,
+                        JOIN_WITHIN, -30, mc, 3, inner._sharded.local_spec,
+                        inner.state, 120, 300, inner._sharded._progs,
+                        join_feed(feed_name, inner, where))
+                for tables in tab_list:
+                    total = sharded_fused_vs_plain(
+                        args, f"sharded_join_probe_step ({D}, {K}) "
+                        f"{feed_name} where={where} tables {tables}",
+                        tables)
+                    assert total > 0
+                    n_fused += 1
+    # the table scatter alone: every entry routed by i mod n_data and kid
+    # div Kl, split tables of partials, keys outside every key shard; a
+    # (2, 40) mesh past one table's place span in scatter_groups' tables
+    for (D, K), keys in (((2, 2), 8), ((2, 40), 80)):
+        inner = sharded_join_inner(dev, False, make_mesh(D, K), keys)
+        spec = inner._sharded.local_spec
+        rng = np.random.default_rng(420 + (K > 2))
+        m = 5000
+        kid = torch.from_numpy(rng.integers(-5, K * spec.n_keys + 5, m)
+                               .astype(np.int32)).to(dev)
+        ts = torch.from_numpy(rng.integers(0, 500, m)
+                              .astype(np.int32)).to(dev)
+        valid = torch.from_numpy(rng.random(m) < 0.7).to(dev)
+        cols = {c: torch.from_numpy((rng.integers(-40, 40, m) / 4)
+                                    .astype(np.float32)).to(dev)
+                for c in ("a", "b", "c")}
+        tab_list = ([[(0, 0), (0, 1), (1, 0), (1, 1)]],
+                    [[(1, 1), (0, 0)], [(0, 1)], [(1, 0)]]) if K == 2 else \
+            ([ps for _d, ps in pl.scatter_groups(
+                inner.state, len(pl._scatter_aggs(spec)))],)
+        for tables in tab_list:
+            got, want = _clone(inner.state), _clone(inner.state)
+            before = pl.scatter_table_cuda.launches
+            for parts in tables:
+                pl.scatter_table_cuda(spec, got, parts, 120, kid, ts, valid,
+                                      cols)
+                pl.scatter_table_ref(spec, want, parts, 120, kid, ts, valid,
+                                     cols)
+            assert pl.scatter_table_cuda.launches == before + len(tables)
+            torch.cuda.synchronize()
+            for d in range(D):
+                for k in range(K):
+                    for name, v in want[d][k].items():
+                        assert torch.equal(got[d][k][name], v), \
+                            f"scatter_table ({D}, {K}) {tables} ({d}, {k}) " \
+                            f"{name}"
+            assert int(want[D - 1][K - 1]["count"].sum()) > 0
+    S = P15_SHARDS
     n_ev = 0
     for i, (cap, cutoff, delta, nl, nr) in enumerate(EVICT_CASES[:7]):
         rng = np.random.default_rng(430 + i)
@@ -7892,21 +8168,28 @@ def check_sharded_join(dev, results):
             ("sharded_join_probe_only", "join_probe.cu", 420),
             ("sharded_join_probe_step", "join_probe.cu", 470),
             ("sharded_join_evict", "join_evict.cu", 441),
-            ("join_route", "join_route.cu", 495)):
+            ("sharded_join_scatter", "scatter.cu", 495)):
         results[name] = dict(
             route="cuda", source=src + file,
             replaces=f"hstream_tpu/parallel/lattice.py:{line}",
             paths=P15_JOIN_PATHS, max_abs_err=0.0)
     results["sharded_join_probe_insert"]["sources"] = [
-        "join_probe.cu (pack mode)", "join_insert.cu"]
+        "join_group.cu", "join_probe.cu (table, pack mode)",
+        "join_insert.cu (table)"]
+    results["sharded_join_probe_only"]["sources"] = [
+        "join_group.cu", "join_probe.cu (table, pack mode)"]
     results["sharded_join_probe_step"]["sources"] = [
-        "join_probe.cu (feed mode)", "expr.cu", "join_route.cu",
-        "scatter.cu", "join_insert.cu"]
-    log(f"sharded join (B19b), {S} key shards: {n_pi} probe + insert and "
-        f"probe-only cases (a truncating match_cap, n = 0), {n_fused} fused "
-        f"steps into a (2, 2) inner lattice (both feeds, WHERE or not), the "
-        f"routing kernel and {n_ev} evictions against the plain versions: "
-        f"match buffers, stores, totals, counts and partials exact")
+        "join_group.cu", "join_probe.cu (table, feed mode)", "expr.cu",
+        "scatter.cu (table)", "join_insert.cu (table)"]
+    log(f"sharded join (B19b), 1-4 key shards in one table and in split "
+        f"tables: {n_pi} probe + insert and probe-only cases (a truncating "
+        f"match_cap, n = 0, a shard without records), {n_fused} fused "
+        f"steps into inner lattices on (2, 2), (1, 3), (1, 4) and (2, 1) "
+        f"meshes (both feeds, WHERE or not), the table scatter over split "
+        f"tables of partials and over a (2, 40) mesh's 80 partials in "
+        f"scatter_groups' tables, and {n_ev} evictions against the plain "
+        f"versions: match buffers, stores, totals, counts and partials "
+        f"exact; one launch sequence a table")
 
 
 def _same_rows_single(kind: str, rows, wm: int, n: int, mode: str) -> int:
@@ -8177,7 +8460,7 @@ def sharded_join_path(dev, captured) -> dict:
     assert js["probe_batches"] >= 8 and js["fused_batches"] >= 1, js
     assert js["evict_dispatches"] >= 1, js
     assert counts["sharded_join_probe_step"] == js["fused_batches"] == \
-        counts["join_route"], (counts, js)
+        counts["sharded_join_scatter"], (counts, js)
     assert counts["sharded_join_probe_insert"] == js["probe_batches"] - \
         js["fused_batches"], (counts, js)
     assert counts["sharded_join_evict"] == js["evict_dispatches"], \
@@ -8448,12 +8731,19 @@ def sharded_session_server_path(dev) -> dict:
                 resumed_one_card=n_one, resumed_mesh=n_back)
 
 
+def _valid_records(batch: torch.Tensor, n: int) -> int:
+    """The batch's valid records (below the sentinel within n): each is
+    probed once, in its own shard's store."""
+    return int((batch[0, :n] < JOIN_SENT).sum())
+
+
 def time_sharded_join(dev, results, captured):
     """Each B19b kernel on 15b's and 15c's own inputs (one call of each,
-    kept by the runs: 15b's last fused step, its routing and first
+    kept by the runs: 15b's last fused step, its table scatter and first
     eviction, 15c's last probe + insert and its redispatch), held against
     its plain version on them and timed beside it, with its bound and a
-    PyTorch yardstick."""
+    PyTorch yardstick. The bounds count each valid record's two searches
+    once (in its own shard's store), as the table launches do."""
     from hstream_tpu_torch.parallel import lattice as pl
 
     missing = [k for k in P15_KERNELS[4:] if k not in captured]
@@ -8484,7 +8774,8 @@ def time_sharded_join(dev, results, captured):
     nbytes = 2 * sum(_store_bytes(x) for x in mines) + sum(
         _store_bytes(x) for x in others) + int(batch.nbytes) \
         + 2 * state_bytes
-    ops = S * 2 * n * np.log2(cap) + total * (np.log2(batch.shape[1]) + 1)
+    ops = 2 * _valid_records(batch, n) * np.log2(cap) \
+        + total * (np.log2(batch.shape[1]) + 1)
     b_ms, b_by = bound(nbytes, ops)
     results["sharded_join_probe_step"].update(
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
@@ -8497,25 +8788,37 @@ def time_sharded_join(dev, results, captured):
         f"stage {json.dumps(stages)})")
     del outs, st
 
-    kid, valid, n_data, n_key, kl = captured["join_route"]
-    got = pl.join_route(kid, valid, n_data, n_key, kl)
-    want = pl.join_route_ref(kid, valid, n_data, n_key, kl)
+    (sspec, sstate, parts, swm, kid, sts, valid,
+     scols) = captured["scatter_table_cuda"]
+    got, want = _clone(sstate), _clone(sstate)
+    pl.scatter_table_cuda(sspec, got, parts, swm, kid, sts, valid, scols)
+    pl.scatter_table_ref(sspec, want, parts, swm, kid, sts, valid, scols)
     torch.cuda.synchronize()
-    assert all(torch.equal(g, w) for g, w in zip(got, want)), \
-        "join_route at 15b's shapes"
-    ms, call, srcm = kernel_ms(lambda: pl.join_route(
-        kid, valid, n_data, n_key, kl), 50)
-    plain = kernel_ms(lambda: pl.join_route_ref(
-        kid, valid, n_data, n_key, kl), 10)[0]
+    for d, k in parts:
+        for name, v in want[d][k].items():
+            assert torch.equal(got[d][k][name], v), \
+                f"scatter_table at 15b's shapes: ({d}, {k}) {name}"
+    del got, want
+    st = _clone(sstate)
+    ms, call, srcm = kernel_ms(lambda: pl.scatter_table_cuda(
+        sspec, st, parts, swm, kid, sts, valid, scols), 20)
+    plain = kernel_ms(lambda: pl.scatter_table_ref(
+        sspec, st, parts, swm, kid, sts, valid, scols), 2)[0]
     m = kid.shape[0]
-    b_ms, b_by = bound(m * (4 + 1 + 4 * n_key + n_data), m * (n_key + n_data))
-    results["join_route"].update(
+    part_bytes = sum(int(v.nbytes) for d, k in parts
+                     for v in sstate[d][k].values())
+    feed_bytes = int(kid.nbytes + sts.nbytes + valid.nbytes) + sum(
+        int(v.nbytes) for v in scols.values())
+    b_ms, b_by = bound(feed_bytes + 2 * part_bytes,
+                       m * sspec.windows_per_record * (2 + len(sspec.aggs)))
+    results["sharded_join_scatter"].update(
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, call_ms=call, ms_source=srcm, entries=m,
-        n_data=n_data, n_key=n_key, counter="join_route")
-    log(f"join_route of 15b's {m}-entry feed to {n_data} x {n_key} "
-        f"partials: exact against plain; {ms:.4f} ms (plain {plain:.4f}, "
-        f"bound {b_ms:.5f} by {b_by})")
+        partials=len(parts))
+    log(f"sharded_join_scatter of 15b's {m}-entry feed into {len(parts)} "
+        f"partials (one table): exact against plain; {ms:.4f} ms (plain "
+        f"{plain:.4f}, bound {b_ms:.5f} by {b_by})")
+    del st
 
     lefts, rights, e_cutoff, delta = captured["sharded_join_evict"]
     outs = ([jl_empty(x) for x in lefts], [jl_empty(x) for x in rights])
@@ -8563,6 +8866,10 @@ def time_sharded_join(dev, results, captured):
     total = sum(int(want_p[0, s * mc]) for s in range(S))
     ms, call, srcm = kernel_ms(lambda: pl.sharded_join_probe_insert(
         mines, others, batch, n, within, cutoff, mc, nm, outs=outs), 10)
+    devt = profiled_calls(lambda: pl.sharded_join_probe_insert(
+        mines, others, batch, n, within, cutoff, mc, nm, outs=outs), 5,
+        "the sharded probe + insert")
+    stages = None if devt is None else _by_stage(devt, 5)
     plain = kernel_ms(lambda: (
         pl.sharded_join_insert_ref(mines, batch, n, nm),
         pl.sharded_join_probe_ref(others, batch, n, within, cutoff, mc,
@@ -8574,16 +8881,17 @@ def time_sharded_join(dev, results, captured):
     nbytes = 2 * sum(_store_bytes(x) for x in mines) + sum(
         _store_bytes(x) for x in others) + int(batch.nbytes) \
         + int(want_p.nbytes)
-    b_ms, b_by = bound(nbytes, S * 2 * n * np.log2(cap)
+    b_ms, b_by = bound(nbytes, 2 * _valid_records(batch, n) * np.log2(cap)
                        + total * np.log2(batch.shape[1]))
     results["sharded_join_probe_insert"].update(
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
         call_ms=call, ms_source=srcm, shards=S, cap=cap, n=n, matches=total,
-        match_cap=mc)
+        match_cap=mc, stages_ms=stages)
     log(f"sharded_join_probe_insert at 15c's shapes ({S} shards of {cap} "
         f"slots, {n} records, {total} matches, match_cap {mc} a shard): "
         f"exact against plain; {ms:.4f} ms (plain {plain:.4f}, {S} "
-        f"torch.searchsorted {lib:.4f}, bound {b_ms:.4f} by {b_by})")
+        f"torch.searchsorted {lib:.4f}, bound {b_ms:.4f} by {b_by}; by "
+        f"stage {json.dumps(stages)})")
     others, batch, n, within, cutoff, mc, nm = \
         captured["sharded_join_probe_only"]
     got = pl.sharded_join_probe_only(others, batch, n, within, cutoff, mc,
@@ -8599,7 +8907,8 @@ def time_sharded_join(dev, results, captured):
     total = sum(int(want[0, s * mc]) for s in range(S))
     b_ms, b_by = bound(sum(_store_bytes(x) for x in others)
                        + int(batch.nbytes) + int(want.nbytes),
-                       S * 2 * n * np.log2(others[0]["code"].shape[0])
+                       2 * _valid_records(batch, n)
+                       * np.log2(others[0]["code"].shape[0])
                        + total * np.log2(batch.shape[1]))
     results["sharded_join_probe_only"].update(
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,

@@ -167,18 +167,31 @@ def owned_batch(batch: torch.Tensor, n: int, shard: tuple[int, int]
 
 def _join_match_arrays(other: Store, batch: torch.Tensor, n: int,
                        within: int, cutoff: int, match_cap: int,
-                       owned: torch.Tensor | None = None):
+                       owned: torch.Tensor | None = None,
+                       records: torch.Tensor | None = None):
     """The probe core: expand the per-record [lower, upper) spans into
     padded match index arrays. Returns (total, rec, oidx, mvalid, jts):
     rec indexes the batch, oidx the probed store. `owned` (bool [bcap] or
-    None) masks the records a key shard of a mesh probes."""
+    None) masks the records a key shard of a mesh probes; `records` (the
+    batch indices of valid records, in order) probes only those, as a
+    table launch reads a shard's group of its grouping (group_ref).
+    Past the matches rec is the batch's last record either way."""
     cap = other["code"].shape[0]
     bcap = batch.shape[1]
     dev = batch.device
-    bcode, bts = batch[0], batch[1]
-    bvalid = _batch_valid(batch, n)
-    if owned is not None:
-        bvalid = bvalid & owned
+    if records is not None:
+        records = records.long()
+        bcode, bts = batch[0][records], batch[1][records]
+        bvalid = torch.ones_like(records, dtype=torch.bool)
+    else:
+        bcode, bts = batch[0], batch[1]
+        bvalid = _batch_valid(batch, n)
+        if owned is not None:
+            bvalid = bvalid & owned
+    j = torch.arange(match_cap, dtype=torch.int32, device=dev)
+    if bcode.shape[0] == 0:   # an empty group
+        zero = torch.zeros(match_cap, dtype=torch.long, device=dev)
+        return 0, zero + (bcap - 1), zero, j < 0, zero.to(torch.int32)
     qcode = torch.where(bvalid, bcode, JOIN_SENT_CODE)
     b64 = bts.to(torch.int64)
     lo_i, hi_i = _join_bounds(
@@ -188,24 +201,27 @@ def _join_match_arrays(other: Store, batch: torch.Tensor, n: int,
     cnt = torch.where(bvalid, torch.clamp(hi_i - lo_i, min=0), 0)
     ccnt = torch.cumsum(cnt, 0, dtype=torch.int32)
     total = int(ccnt[-1])
-    j = torch.arange(match_cap, dtype=torch.int32, device=dev)
-    rec = torch.clamp(torch.searchsorted(ccnt, j, right=True), 0,
-                      bcap - 1)
+    r = torch.clamp(torch.searchsorted(ccnt, j, right=True), 0,
+                    bcode.shape[0] - 1)
     mvalid = j < min(total, match_cap)
-    oidx = lo_i[rec] + (j - (ccnt[rec] - cnt[rec]))
+    oidx = lo_i[r] + (j - (ccnt[r] - cnt[r]))
     oidx = torch.where(mvalid, torch.clamp(oidx, 0, cap - 1), 0).long()
-    jts = torch.where(mvalid, torch.maximum(bts[rec], other["ts"][oidx]), 0)
+    rec = r if records is None else torch.where(mvalid, records[r], bcap - 1)
+    jts = torch.where(mvalid, torch.maximum(batch[1][rec],
+                                            other["ts"][oidx]), 0)
     return total, rec, oidx, mvalid, jts
 
 
 def join_probe_ref(other: Store, batch: torch.Tensor, n: int, within: int,
                    cutoff: int, match_cap: int, n_cols_mine: int,
-                   owned: torch.Tensor | None = None) -> torch.Tensor:
+                   owned: torch.Tensor | None = None,
+                   records: torch.Tensor | None = None) -> torch.Tensor:
     """Plain probe (_join_probe, lattice.py:939-959): the packed match
     buffer. `cutoff` hides store entries past retention (the device
-    store evicts lazily); `owned` as in _join_match_arrays."""
+    store evicts lazily); `owned` and `records` as in
+    _join_match_arrays."""
     total, rec, oidx, mvalid, jts = _join_match_arrays(
-        other, batch, n, within, cutoff, match_cap, owned)
+        other, batch, n, within, cutoff, match_cap, owned, records)
     zero = torch.zeros((), dtype=torch.int32, device=batch.device)
     header = torch.zeros(match_cap, dtype=torch.int32, device=batch.device)
     header[0] = total
@@ -281,14 +297,15 @@ def join_probe_insert_ref(mine: Store, other: Store, batch: torch.Tensor,
 def _join_match_feed(other: Store, batch: torch.Tensor, n: int,
                      within: int, cutoff: int, match_cap: int,
                      feed_plan, nulls_plan, filter_nulls,
-                     owned: torch.Tensor | None = None):
+                     owned: torch.Tensor | None = None,
+                     records: torch.Tensor | None = None):
     """Probe + inner feed (_join_match_feed, lattice.py:1016-1079): every
     inner-step column resolved straight from the match sources. Returns
     (total, kid, jts, valid, cols); `cols` holds the __null_a{i} masks,
-    `valid` has filter-NULL records masked out; `owned` as in
-    _join_match_arrays."""
+    `valid` has filter-NULL records masked out; `owned` and `records` as
+    in _join_match_arrays."""
     total, rec, oidx, mvalid, jts = _join_match_arrays(
-        other, batch, n, within, cutoff, match_cap, owned)
+        other, batch, n, within, cutoff, match_cap, owned, records)
     mflags = batch[3][rec]
     oflags = other["flags"][oidx]
     zero = torch.zeros(match_cap, dtype=torch.int32, device=batch.device)
@@ -471,32 +488,39 @@ def _i32(v: int, what: str) -> int:
 PROBE_BRANCHES = (kb.PROBE_AUTO, kb.PROBE_WINDOW, kb.PROBE_WHOLE)
 
 
-def _probe_args(other: Store, batch: torch.Tensor, n: int, within: int,
-                cutoff: int, match_cap: int, n_cols_mine: int,
-                mode: int, branch: int | None,
-                shard: tuple[int, int] = (1, 0)
-                ) -> tuple[kb.JoinProbeArgs, torch.Tensor]:
-    cap = _check_store(other, "join probe")
-    bcap = _check_batch(batch, n_cols_mine, n)
-    if other["code"].device != batch.device:
-        raise ValueError("join probe: batch and store on different cards")
+def _probe_base(cap: int, n_cols_other: int, batch: torch.Tensor, n: int,
+                within: int, cutoff: int, match_cap: int, n_cols_mine: int,
+                mode: int, branch: int | None) -> kb.JoinProbeArgs:
+    """The probe's arguments but its store and scratch."""
+    _check_batch(batch, n_cols_mine, n)
     if match_cap < 1:
         raise ValueError("join probe: match_cap must be >= 1")
     a = kb.JoinProbeArgs()
-    a.cap, a.bcap, a.n = cap, bcap, int(n)
+    a.cap, a.bcap, a.n = cap, batch.shape[1], int(n)
     a.within, a.cutoff = _i32(within, "within"), _i32(cutoff, "cutoff")
     a.match_cap, a.mode = int(match_cap), mode
     a.branch = kb.PROBE_AUTO if branch is None else branch
     if a.branch not in PROBE_BRANCHES:
         raise ValueError(f"join probe: unknown branch {branch}")
-    a.n_cols_mine, a.n_cols_other = n_cols_mine, other["cols"].shape[0]
-    a.n_shards, a.shard = shard
+    a.n_cols_mine, a.n_cols_other = n_cols_mine, n_cols_other
     a.batch = batch.data_ptr()
+    return a
+
+
+def _probe_args(other: Store, batch: torch.Tensor, n: int, within: int,
+                cutoff: int, match_cap: int, n_cols_mine: int,
+                mode: int, branch: int | None
+                ) -> tuple[kb.JoinProbeArgs, torch.Tensor]:
+    cap = _check_store(other, "join probe")
+    if other["code"].device != batch.device:
+        raise ValueError("join probe: batch and store on different cards")
+    a = _probe_base(cap, other["cols"].shape[0], batch, n, within, cutoff,
+                    match_cap, n_cols_mine, mode, branch)
     a.o_code, a.o_ts, a.o_flags = (kb.ptr(other[k])
                                    for k in ("code", "ts", "flags"))
     a.o_cols = other["cols"].data_ptr()
     scratch = torch.empty(
-        kb.lib().hs_join_probe_scratch_bytes(bcap, int(match_cap)),
+        kb.lib().hs_join_probe_scratch_bytes(a.bcap, int(match_cap)),
         dtype=torch.uint8, device=batch.device)
     a.scratch = scratch.data_ptr()
     return a, scratch
@@ -504,30 +528,30 @@ def _probe_args(other: Store, batch: torch.Tensor, n: int, within: int,
 
 def probe_pack_cuda(other: Store, batch: torch.Tensor, n: int, within: int,
                     cutoff: int, match_cap: int, n_cols_mine: int,
-                    branch: int | None, shard: tuple[int, int] = (1, 0),
-                    packed: torch.Tensor | None = None) -> torch.Tensor:
-    """The probe kernel's launch in pack mode; `shard` = (n_shards, shard)
-    probes only the records a key shard of a mesh owns, and `packed` (a
-    column slice of a wider buffer) receives the match buffer."""
+                    branch: int | None) -> torch.Tensor:
+    """The probe kernel's launch in pack mode: the match buffer."""
     a, _scratch = _probe_args(other, batch, n, within, cutoff, match_cap,
-                              n_cols_mine, kb.JOIN_PACK, branch, shard)
+                              n_cols_mine, kb.JOIN_PACK, branch)
     rows = 5 + n_cols_mine + other["cols"].shape[0]
-    if packed is None:
-        packed = torch.empty((rows, match_cap), dtype=torch.int32,
-                             device=batch.device)
-    elif packed.shape != (rows, match_cap) or packed.stride(1) != 1:
-        raise ValueError("join probe: the match buffer slice differs in "
-                         "shape")
-    a.packed, a.pitch = packed.data_ptr(), packed.stride(0)
+    packed = torch.empty((rows, match_cap), dtype=torch.int32,
+                         device=batch.device)
+    a.packed, a.pitch = packed.data_ptr(), match_cap
     kb.check(kb.lib().hs_join_probe(ctypes.byref(a), kb.stream_of(batch)),
              "join_probe")
     return packed
 
 
-def insert_cuda(mine: Store, batch: torch.Tensor, n: int, n_cols: int,
-                out: Store, shard: tuple[int, int] = (1, 0)) -> Store:
-    """The insert kernel's launch into `out`; `shard` = (n_shards, shard)
-    inserts only the records a key shard of a mesh owns."""
+def _insert_base(cap: int, batch: torch.Tensor, n: int,
+                 n_cols: int) -> kb.JoinInsertArgs:
+    """The insert's arguments but its stores and scratch."""
+    a = kb.JoinInsertArgs()
+    a.cap, a.bcap, a.n, a.n_cols = cap, _check_batch(batch, n_cols, n), \
+        int(n), n_cols
+    a.batch = batch.data_ptr()
+    return a
+
+
+def _check_insert_pair(mine: Store, out: Store, n_cols: int) -> int:
     cap = _check_store(mine, "join insert")
     if _check_store(out, "join insert output") != cap or \
             out["cols"].shape[0] != mine["cols"].shape[0] or \
@@ -535,17 +559,19 @@ def insert_cuda(mine: Store, batch: torch.Tensor, n: int, n_cols: int,
         raise ValueError("join insert: the output store differs in shape")
     if _aliases(out, mine):
         raise ValueError("join insert: the output store aliases the input")
-    a = kb.JoinInsertArgs()
-    a.cap, a.bcap, a.n, a.n_cols = cap, _check_batch(batch, n_cols, n), \
-        int(n), n_cols
-    a.n_shards, a.shard = shard
+    return cap
+
+
+def insert_cuda(mine: Store, batch: torch.Tensor, n: int, n_cols: int,
+                out: Store) -> Store:
+    """The insert kernel's launch into `out`."""
+    a = _insert_base(_check_insert_pair(mine, out, n_cols), batch, n, n_cols)
     a.code, a.ts, a.flags = (kb.ptr(mine[k]) for k in ("code", "ts", "flags"))
     a.cols = mine["cols"].data_ptr()
-    a.batch = batch.data_ptr()
     a.out_code, a.out_ts, a.out_flags = (kb.ptr(out[k])
                                          for k in ("code", "ts", "flags"))
     a.out_cols = out["cols"].data_ptr()
-    scratch = torch.empty(kb.lib().hs_join_insert_scratch_bytes(cap,
+    scratch = torch.empty(kb.lib().hs_join_insert_scratch_bytes(a.cap,
                                                                 a.bcap),
                           dtype=torch.uint8, device=batch.device)
     a.scratch = scratch.data_ptr()
@@ -610,33 +636,10 @@ def _feed_tag(tag: str) -> torch.dtype:
     return {"f32": torch.float32, "bool": torch.bool, "i32": torch.int32}[tag]
 
 
-def feed_cuda(other: Store, batch: torch.Tensor, n: int, within: int,
-              cutoff: int, match_cap: int, n_cols_mine: int, ts_off: int,
-              feed, branch: int | None, shard: tuple[int, int] = (1, 0),
-              dest: tuple | None = None) -> tuple:
-    """The probe kernel in feed mode: (total, kid, ts, valid, cols) of
-    width match_cap on the card, cols holding the feed columns and masks.
-    `shard` = (n_shards, shard) probes only a key shard's records; `dest`
-    = (kid, ts, valid, cols, at) writes into entries [at, at + match_cap)
-    of wider columns (a mesh's concatenated feed)."""
+def _feed_args(a: kb.JoinProbeArgs, feed, column) -> dict:
+    """The feed mode's column plan in `a`, each column's output from
+    column(name, dtype); returns the columns."""
     feed_plan, nulls_plan, filter_nulls = feed
-    a, scratch = _probe_args(other, batch, n, within, cutoff, match_cap,
-                             n_cols_mine, kb.JOIN_FEED, branch, shard)
-    dev = batch.device
-
-    if dest is None:
-        kid, ts, valid = (torch.empty(match_cap, dtype=t, device=dev)
-                          for t in (torch.int32, torch.int32, torch.bool))
-    else:
-        at = dest[4]
-        kid, ts, valid = (x[at:at + match_cap] for x in dest[:3])
-
-    def column(name: str, dtype: torch.dtype) -> torch.Tensor:
-        if dest is None:
-            return torch.empty(match_cap, dtype=dtype, device=dev)
-        return dest[3][name][at:at + match_cap]
-    a.ts_off = _i32(ts_off, "ts_off")
-    a.kid, a.ts, a.valid = kid.data_ptr(), ts.data_ptr(), valid.data_ptr()
     if len(feed_plan) > kb.JOIN_MAX_FEED or \
             len(nulls_plan) > kb.JOIN_MAX_NULLS:
         raise ValueError("join feed: too many columns or masks")
@@ -662,6 +665,24 @@ def feed_cuda(other: Store, batch: torch.Tensor, n: int, within: int,
         raise ValueError("join feed: too many column references")
     for i, (s, jm, jo) in enumerate(refs):
         a.refs[i].src, a.refs[i].jm, a.refs[i].jo = s, jm, jo
+    return cols
+
+
+def feed_cuda(other: Store, batch: torch.Tensor, n: int, within: int,
+              cutoff: int, match_cap: int, n_cols_mine: int, ts_off: int,
+              feed, branch: int | None) -> tuple:
+    """The probe kernel in feed mode: (total, kid, ts, valid, cols) of
+    width match_cap on the card, cols holding the feed columns and
+    masks."""
+    a, scratch = _probe_args(other, batch, n, within, cutoff, match_cap,
+                             n_cols_mine, kb.JOIN_FEED, branch)
+    dev = batch.device
+    kid, ts, valid = (torch.empty(match_cap, dtype=t, device=dev)
+                      for t in (torch.int32, torch.int32, torch.bool))
+    a.ts_off = _i32(ts_off, "ts_off")
+    a.kid, a.ts, a.valid = kid.data_ptr(), ts.data_ptr(), valid.data_ptr()
+    cols = _feed_args(a, feed, lambda name, dtype: torch.empty(
+        match_cap, dtype=dtype, device=dev))
     kb.check(kb.lib().hs_join_probe(ctypes.byref(a), kb.stream_of(batch)),
              "join_probe_feed")
     total = scratch.view(torch.int32)[-1]
@@ -760,3 +781,194 @@ def evict_cuda(left: Store, right: Store, cutoff: int, delta: int,
 
 
 join_evict.launches = 0  # wrapper calls that launched the kernels
+
+
+# ---- the key-sharded join's table launches ----------------------------------
+#
+# The key shards of a mesh whose stores lie on one card probe and insert
+# in one launch sequence over a table of their stores (csrc/join_group.cu,
+# the table entries of join_probe.cu and join_insert.cu): the batch's
+# valid records are grouped once by the table place of their owner (code
+# mod n_shards), and the probe and the insert read each shard's records
+# through that grouping. parallel/lattice.py plans the tables, a card
+# each, and holds the plain versions.
+
+JOIN_GROUP_TILE = kb.JOIN_GROUP_TILE
+
+
+def group_ref(batch: torch.Tensor, n: int, shards: Sequence[int],
+              n_shards: int) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The grouping csrc/join_group.cu writes, in plain PyTorch: (idx
+    int64 [bcap + G * JOIN_GROUP_TILE], place -> batch index, -1 on the
+    places past a group's records; base int64 [G + 1], each group's
+    first place, a multiple of JOIN_GROUP_TILE, then the end; count int64
+    [G]). Group g holds the valid records that shard shards[g] owns, in
+    batch order; the records of shards outside the table are dropped."""
+    bcap, G = batch.shape[1], len(shards)
+    dev = batch.device
+    valid = _batch_valid(batch, n)
+    owner = torch.remainder(batch[0].to(torch.int64), n_shards)
+    idx = torch.full((bcap + G * JOIN_GROUP_TILE,), -1, dtype=torch.int64,
+                     device=dev)
+    base = torch.zeros(G + 1, dtype=torch.int64)
+    count = torch.zeros(G, dtype=torch.int64)
+    at = 0
+    for g, s in enumerate(shards):
+        rec = torch.nonzero(valid & (owner == s)).flatten()
+        base[g], count[g] = at, rec.shape[0]
+        idx[at:at + rec.shape[0]] = rec
+        at += -(-rec.shape[0] // JOIN_GROUP_TILE) * JOIN_GROUP_TILE
+    base[G] = at
+    return idx, base, count
+
+
+def group_records(grouping, g: int) -> torch.Tensor:
+    """Group g's batch indices from group_ref's grouping."""
+    idx, base, count = grouping
+    return idx[int(base[g]):int(base[g]) + int(count[g])]
+
+
+def group_cuda(batch: torch.Tensor, n: int, shards: Sequence[int],
+               n_shards: int) -> torch.Tensor:
+    """The grouping kernel's launch for one table: the int32 grouping
+    buffer on the batch's card, which probe_table_cuda and
+    insert_table_cuda read."""
+    _check_batch(batch, batch.shape[0] - 4, n)
+    if not 1 <= len(shards) <= kb.JOIN_GROUP or \
+            n_shards > kb.JOIN_MAX_SHARDS:
+        raise ValueError(f"join grouping: a table of {len(shards)} of "
+                         f"{n_shards} shards does not fit a launch")
+    a = kb.JoinGroupArgs()
+    a.bcap, a.n, a.n_shards, a.n_group = batch.shape[1], int(n), n_shards, \
+        len(shards)
+    for s in range(kb.JOIN_MAX_SHARDS):
+        a.pos[s] = -1
+    for g, s in enumerate(shards):
+        a.pos[s] = g
+    grouping = torch.empty(
+        kb.lib().hs_join_group_bytes(a.bcap, a.n_group) // 4,
+        dtype=torch.int32, device=batch.device)
+    a.batch, a.grouping = batch.data_ptr(), grouping.data_ptr()
+    kb.check(kb.lib().hs_join_group(ctypes.byref(a), kb.stream_of(batch)),
+             "join_group")
+    group_cuda.launches += 1
+    return grouping
+
+
+group_cuda.launches = 0  # launches of the grouping kernel
+
+
+def _table_args(stores: Sequence[Store], shards: Sequence[int],
+                grouping: torch.Tensor, outs: Sequence[Store] | None = None,
+                at: Sequence[int] | None = None,
+                totals: torch.Tensor | None = None) -> kb.JoinTable:
+    """A table launch's argument: shard shards[g]'s store (and out store)
+    in place g, its first match column or feed entry at[g]."""
+    if not 1 <= len(shards) <= kb.JOIN_GROUP:
+        raise ValueError(f"a join table of {len(shards)} shards does not "
+                         f"fit a launch ({kb.JOIN_GROUP} at most)")
+    t = kb.JoinTable()
+    t.n_group = len(shards)
+    t.grouping = grouping.data_ptr()
+    t.totals = None if totals is None else totals.data_ptr()
+    for g, s in enumerate(shards):
+        h, st = t.sh[g], stores[s]
+        h.code, h.ts, h.flags = (kb.ptr(st[k]) for k in ("code", "ts",
+                                                         "flags"))
+        h.cols = st["cols"].data_ptr()
+        if outs is not None:
+            o = outs[s]
+            h.out_code, h.out_ts, h.out_flags = (
+                kb.ptr(o[k]) for k in ("code", "ts", "flags"))
+            h.out_cols = o["cols"].data_ptr()
+        if at is not None:
+            h.at = int(at[g])
+    return t
+
+
+def _table_cap(stores: Sequence[Store], shards: Sequence[int],
+               dev: torch.device, what: str) -> int:
+    """The table's stores' common slot count, each on `dev`."""
+    caps = {_check_store(stores[s], what) for s in shards}
+    if len(caps) != 1 or any(stores[s]["code"].device != dev
+                             for s in shards) or len(
+            {stores[s]["cols"].shape[0] for s in shards}) != 1:
+        raise ValueError(f"{what}: a table's stores differ in shape or card")
+    return caps.pop()
+
+
+def probe_table_cuda(others: Sequence[Store], shards: Sequence[int],
+                     grouping: torch.Tensor, batch: torch.Tensor, n: int,
+                     within: int, cutoff: int, match_cap: int,
+                     n_cols_mine: int, branch: int | None,
+                     at: Sequence[int], packed: torch.Tensor | None = None,
+                     feed=None, dest: tuple | None = None,
+                     totals: torch.Tensor | None = None) -> None:
+    """The table probe's launches over the stores others[s] of `shards`
+    (grouped by group_cuda): pack mode into `packed` (shard shards[g]'s
+    match buffer at columns at[g] ...), or with `feed` = (plan, ts_off)
+    feed mode into dest = (kid, ts, valid, cols) from entry at[g] on,
+    each shard's total into totals[at[g] // match_cap]."""
+    cap = _table_cap(others, shards, batch.device, "join probe table")
+    n_other = others[shards[0]]["cols"].shape[0]
+    if any(x % match_cap or x < 0 for x in at) or len(at) != len(shards):
+        raise ValueError("join probe table: every shard's first column "
+                         "must be a multiple of match_cap")
+    a = _probe_base(cap, n_other, batch, n, within, cutoff, match_cap,
+                    n_cols_mine, kb.JOIN_PACK if feed is None
+                    else kb.JOIN_FEED, branch)
+    width = max(at) + match_cap
+    if feed is None:
+        rows = 5 + n_cols_mine + n_other
+        if packed.shape[0] != rows or packed.shape[1] < width or \
+                not packed.is_contiguous() or packed.dtype != torch.int32:
+            raise ValueError("join probe table: the match buffer differs "
+                             "in shape")
+        a.packed, a.pitch = packed.data_ptr(), packed.shape[1]
+    else:
+        plan, ts_off = feed
+        kid, ts, valid, cols = dest
+        if any(x.shape[0] < width for x in (kid, ts, valid)) or \
+                any(v.shape[0] < width for v in cols.values()):
+            raise ValueError("join probe table: the feed is too short")
+        a.ts_off = _i32(ts_off, "ts_off")
+        a.kid, a.ts, a.valid = kid.data_ptr(), ts.data_ptr(), \
+            valid.data_ptr()
+        _feed_args(a, plan, lambda name, dtype: cols[name])
+    if totals is not None and totals.shape[0] < width // match_cap:
+        raise ValueError("join probe table: the totals are too short")
+    t = _table_args(others, shards, grouping, at=at, totals=totals)
+    scratch = torch.empty(kb.lib().hs_join_probe_table_scratch_bytes(
+        a.bcap, int(match_cap), t.n_group), dtype=torch.uint8,
+        device=batch.device)
+    a.scratch = scratch.data_ptr()
+    kb.check(kb.lib().hs_join_probe_table(ctypes.byref(a), ctypes.byref(t),
+                                          kb.stream_of(batch)),
+             "join_probe_table")
+    probe_table_cuda.launches += 1
+
+
+probe_table_cuda.launches = 0  # launches of the table probe's kernels
+
+
+def insert_table_cuda(mines: Sequence[Store], outs: Sequence[Store],
+                      shards: Sequence[int], grouping: torch.Tensor,
+                      batch: torch.Tensor, n: int, n_cols: int) -> None:
+    """The table insert's launches: mines[s] merged with shard s's group
+    of the grouping into outs[s], for every s in `shards`."""
+    cap = _table_cap(mines, shards, batch.device, "join insert table")
+    for s in shards:
+        _check_insert_pair(mines[s], outs[s], n_cols)
+    a = _insert_base(cap, batch, n, n_cols)
+    t = _table_args(mines, shards, grouping, outs=outs)
+    scratch = torch.empty(kb.lib().hs_join_insert_table_scratch_bytes(
+        cap, t.n_group), dtype=torch.uint8, device=batch.device)
+    a.scratch = scratch.data_ptr()
+    kb.check(kb.lib().hs_join_insert_table(ctypes.byref(a), ctypes.byref(t),
+                                           kb.stream_of(batch)),
+             "join_insert_table")
+    insert_table_cuda.launches += 1
+
+
+insert_table_cuda.launches = 0  # launches of the table insert's kernels

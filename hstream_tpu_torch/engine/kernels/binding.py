@@ -97,6 +97,30 @@ class ScatterArgs(C.Structure):
                 ("n_aggs", C.c_int32), ("a", ScatterAgg * MAX_AGGS)]
 
 
+# the key-sharded join's scatter over a table of partials (scatter.cu
+# hs_scatter_table)
+SCATTER_TABLE, SCATTER_TABLE_PTRS, SCATTER_PLACES = 16, 1024, 64
+
+
+class ScatterPart(C.Structure):
+    _fields_ = [("count", C.c_void_p), ("slot_start", C.c_void_p),
+                ("touched", C.c_void_p)]
+
+
+class ScatterPlanes(C.Structure):
+    _fields_ = [("plane", C.c_void_p), ("plane_n", C.c_void_p)]
+
+
+class ScatterTable(C.Structure):
+    _fields_ = [("n_data", C.c_int32), ("n_key", C.c_int32),
+                ("n_parts", C.c_int32), ("q0", C.c_int32),
+                ("n_q", C.c_int32), ("data_div", Divisor),
+                ("key_div", Divisor),
+                ("place", C.c_int32 * SCATTER_PLACES),
+                ("p", ScatterPart * SCATTER_TABLE),
+                ("pp", ScatterPlanes * SCATTER_TABLE_PTRS)]
+
+
 class CloseAgg(C.Structure):
     _fields_ = [("kind", C.c_int32), ("width", C.c_int32),
                 ("plane_width", C.c_int32), ("init", C.c_float),
@@ -289,7 +313,6 @@ class JoinProbeArgs(C.Structure):
                 ("match_cap", C.c_int32), ("mode", C.c_int32),
                 ("branch", C.c_int32),
                 ("n_cols_mine", C.c_int32), ("n_cols_other", C.c_int32),
-                ("n_shards", C.c_int32), ("shard", C.c_int32),
                 ("batch", C.c_void_p), ("o_code", C.c_void_p),
                 ("o_ts", C.c_void_p), ("o_flags", C.c_void_p),
                 ("o_cols", C.c_void_p), ("packed", C.c_void_p),
@@ -304,8 +327,7 @@ class JoinProbeArgs(C.Structure):
 
 class JoinInsertArgs(C.Structure):
     _fields_ = [("cap", C.c_int32), ("bcap", C.c_int32), ("n", C.c_int32),
-                ("n_cols", C.c_int32), ("n_shards", C.c_int32),
-                ("shard", C.c_int32), ("code", C.c_void_p),
+                ("n_cols", C.c_int32), ("code", C.c_void_p),
                 ("ts", C.c_void_p), ("flags", C.c_void_p),
                 ("cols", C.c_void_p), ("batch", C.c_void_p),
                 ("out_code", C.c_void_p), ("out_ts", C.c_void_p),
@@ -313,11 +335,30 @@ class JoinInsertArgs(C.Structure):
                 ("scratch", C.c_void_p)]
 
 
-class JoinRouteArgs(C.Structure):
-    _fields_ = [("m", C.c_int32), ("n_data", C.c_int32),
-                ("n_key", C.c_int32), ("local_keys", C.c_int32),
-                ("kid", C.c_void_p), ("valid", C.c_void_p),
-                ("keys", C.c_void_p), ("valid_out", C.c_void_p)]
+# the key-sharded join's table launches (join_group.cu, the table entries
+# of join_probe.cu and join_insert.cu)
+JOIN_MAX_SHARDS, JOIN_GROUP, JOIN_GROUP_TILE = 64, 16, 256
+
+
+class JoinGroupArgs(C.Structure):
+    _fields_ = [("bcap", C.c_int32), ("n", C.c_int32),
+                ("n_shards", C.c_int32), ("n_group", C.c_int32),
+                ("pos", C.c_int32 * JOIN_MAX_SHARDS),
+                ("batch", C.c_void_p), ("grouping", C.c_void_p)]
+
+
+class JoinTableShard(C.Structure):
+    _fields_ = [("code", C.c_void_p), ("ts", C.c_void_p),
+                ("flags", C.c_void_p), ("cols", C.c_void_p),
+                ("out_code", C.c_void_p), ("out_ts", C.c_void_p),
+                ("out_flags", C.c_void_p), ("out_cols", C.c_void_p),
+                ("at", C.c_int32)]
+
+
+class JoinTable(C.Structure):
+    _fields_ = [("n_group", C.c_int32), ("grouping", C.c_void_p),
+                ("totals", C.c_void_p),
+                ("sh", JoinTableShard * JOIN_GROUP)]
 
 
 class JoinEvictSide(C.Structure):
@@ -368,7 +409,16 @@ def lib() -> C.CDLL:
                              ("hs_join_probe", [C.POINTER(JoinProbeArgs)]),
                              ("hs_join_insert", [C.POINTER(JoinInsertArgs)]),
                              ("hs_join_evict", [C.POINTER(JoinEvictArgs)]),
-                             ("hs_join_route", [C.POINTER(JoinRouteArgs)]),
+                             ("hs_join_group", [C.POINTER(JoinGroupArgs)]),
+                             ("hs_join_probe_table",
+                              [C.POINTER(JoinProbeArgs),
+                               C.POINTER(JoinTable)]),
+                             ("hs_join_insert_table",
+                              [C.POINTER(JoinInsertArgs),
+                               C.POINTER(JoinTable)]),
+                             ("hs_scatter_table",
+                              [C.POINTER(ScatterArgs),
+                               C.POINTER(ScatterTable)]),
                              ("hs_close_merged",
                               [C.POINTER(MergedCloseArgs)]),
                              ("hs_close_slot_merged",
@@ -395,6 +445,12 @@ def lib() -> C.CDLL:
             dll.hs_join_probe_scratch_bytes.restype = C.c_int64
             dll.hs_join_insert_scratch_bytes.argtypes = [C.c_int32] * 2
             dll.hs_join_insert_scratch_bytes.restype = C.c_int64
+            dll.hs_join_group_bytes.argtypes = [C.c_int32] * 2
+            dll.hs_join_group_bytes.restype = C.c_int64
+            dll.hs_join_probe_table_scratch_bytes.argtypes = [C.c_int32] * 3
+            dll.hs_join_probe_table_scratch_bytes.restype = C.c_int64
+            dll.hs_join_insert_table_scratch_bytes.argtypes = [C.c_int32] * 2
+            dll.hs_join_insert_table_scratch_bytes.restype = C.c_int64
             dll.hs_join_evict_scratch_bytes.argtypes = [C.c_int32]
             dll.hs_join_evict_scratch_bytes.restype = C.c_int64
             dll.hs_touched_scratch_bytes.argtypes = [C.c_int32] * 3

@@ -32,7 +32,7 @@ SOURCES = ("decode.cu", "unpack.cu", "expr.cu", "scatter.cu", "topk.cu",
            "close.cu", "touched.cu", "rebase.cu", "session_step.cu",
            "session_merge.cu", "session_extract.cu", "session_remap.cu",
            "join_probe.cu", "join_insert.cu", "join_evict.cu",
-           "join_route.cu", "shard_merge.cu")
+           "join_group.cu", "shard_merge.cu")
 HEADERS = ("hs_kernels.h", "record.cuh", "finalize.cuh", "lookback.cuh",
            "device.cuh", "session_chain.cuh", "join_core.cuh", "merge.cuh")
 # sm_90a: Hopper. --fmad=false: no multiply-add contraction anywhere, so

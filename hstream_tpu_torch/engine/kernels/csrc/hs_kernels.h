@@ -207,6 +207,44 @@ struct HsScatterArgs {
     HsScatterAgg a[HS_MAX_AGGS];
 };
 
+// the key-sharded join's fused step: the scatter over a table of the
+// inner lattice's partials on one card (scatter.cu hs_scatter_table).
+// Feed entry i belongs to data shard i mod n_data: its windows' slots
+// open in every partial (d, k) of that data shard on the card, and its
+// cell folds into partial (d, key div Kl) at local key key - k * Kl
+// (HsScatterArgs.n_keys is Kl, its key and plane pointers the feed's and
+// unused). A table takes at most HS_SCATTER_TABLE partials and
+// HS_SCATTER_TABLE_PTRS plane pointer sets, and its place table covers
+// at most HS_SCATTER_PLACES consecutive partials q = d * n_key + k of the
+// mesh; the host launches more in groups, so a mesh of any size runs.
+#define HS_SCATTER_TABLE 16          // partials a launch
+#define HS_SCATTER_TABLE_PTRS 1024   // plane pointer sets a launch
+#define HS_SCATTER_PLACES 64         // the place table's span of the mesh
+
+struct HsScatterPart {
+    int32_t *count;        // [Kl, W]
+    int32_t *slot_start;   // [W]
+    uint8_t *touched;      // [Kl, W]
+};
+
+struct HsScatterPlanes {
+    void *plane;           // as HsScatterAgg's
+    int32_t *plane_n;
+};
+
+struct HsScatterTable {
+    int32_t n_data;        // the inner mesh's data shards
+    int32_t n_key;         // its key shards
+    int32_t n_parts;       // the partials of this table
+    int32_t q0;            // the first partial q = d * n_key + k placed ...
+    int32_t n_q;           // ... and the span of the place table
+    HsDivisor data_div;    // floor division by n_data
+    HsDivisor key_div;     // by Kl (HsScatterArgs.n_keys)
+    int32_t place[HS_SCATTER_PLACES];  // partial q0 + j's place, -1: none
+    HsScatterPart p[HS_SCATTER_TABLE];
+    HsScatterPlanes pp[HS_SCATTER_TABLE_PTRS];  // [place * n_aggs + g]
+};
+
 // ---- finalize (close.cu, touched.cu) -----------------------------------
 
 struct HsCloseAgg {
@@ -537,8 +575,6 @@ struct HsJoinProbeArgs {
     int32_t branch;        // HS_PROBE_*
     int32_t n_cols_mine;   // probing side's stored columns
     int32_t n_cols_other;  // probed store's stored columns
-    int32_t n_shards;      // a mesh's key shards: above 1, only records
-    int32_t shard;         // with code mod n_shards == shard probe
     const int32_t *batch;  // [4 + n_cols_mine, bcap]: code, ts, kid, flags,
                            // cols; sorted by (code, ts)
     const int32_t *o_code; // probed store [cap], sorted by (code, ts)
@@ -567,8 +603,6 @@ struct HsJoinInsertArgs {
     int32_t bcap;
     int32_t n;
     int32_t n_cols;
-    int32_t n_shards;      // a mesh's key shards: above 1, only records
-    int32_t shard;         // with code mod n_shards == shard are inserted
     const int32_t *code;   // the store [cap], sorted by (code, ts)
     const int32_t *ts;
     const int32_t *flags;
@@ -581,19 +615,52 @@ struct HsJoinInsertArgs {
     void *scratch;         // hs_join_insert_scratch_bytes(cap, bcap) bytes
 };
 
-// the fused sharded join step's routing (join_route.cu): the key shards'
-// match feeds, concatenated, to every partial (d, k) of the inner
-// lattice: key column k shifted by -k * local_keys, valid row d kept
-// only for feed entries i with i mod n_data == d
-struct HsJoinRouteArgs {
-    int32_t m;             // feed entries (n_shards * match_cap)
-    int32_t n_data;        // the inner lattice's data shards
-    int32_t n_key;         // its key shards
-    int32_t local_keys;    // Kl, the keys of one key shard
-    const int32_t *kid;    // [m] inner key ids
-    const uint8_t *valid;  // [m]
-    int32_t *keys;         // [n_key, m]
-    uint8_t *valid_out;    // [n_data, m]
+// ---- the key-sharded join: one launch sequence a card over a table of
+// the key shards whose stores lie there (join_group.cu, the table entries
+// of join_probe.cu and join_insert.cu). The batch's valid records are
+// grouped once by the table place of their owner (code mod n_shards,
+// the floor's), each group in batch order and starting at a multiple of
+// HS_JOIN_GROUP_TILE places; the probe and the insert read their records
+// through the grouping. A table takes at most HS_JOIN_GROUP shards; the
+// host launches more in groups.
+
+#define HS_JOIN_MAX_SHARDS 64      // key shards of a mesh (the owner table)
+#define HS_JOIN_GROUP 16           // key shards a launch
+#define HS_JOIN_GROUP_TILE 256     // a group's first place is a multiple
+
+struct HsJoinGroupArgs {
+    int32_t bcap;          // batch columns
+    int32_t n;             // records (the rest is padding)
+    int32_t n_shards;      // S, the mesh's key shards
+    int32_t n_group;       // G, the shards of this table
+    int32_t pos[HS_JOIN_MAX_SHARDS];  // shard s's place in the table, -1
+    const int32_t *batch;  // row 0: the codes
+    int32_t *grouping;     // hs_join_group_bytes(bcap, G): the places'
+                           // batch indices, each group's first place and
+                           // count, the blocks' counts
+};
+
+// one key shard of a table: its store (the probe's other side, or the
+// insert's own side and the store it writes)
+struct HsJoinTableShard {
+    const int32_t *code;   // [cap], sorted by (code, ts)
+    const int32_t *ts;
+    const int32_t *flags;
+    const int32_t *cols;   // [n_cols, cap]
+    int32_t *out_code;     // insert: the other store [cap]
+    int32_t *out_ts;
+    int32_t *out_flags;
+    int32_t *out_cols;
+    int32_t at;            // probe: the first match column (pack) or feed
+                           // entry of its matches, a multiple of match_cap
+};
+
+struct HsJoinTable {
+    int32_t n_group;       // G
+    const int32_t *grouping;  // written by hs_join_group for this table
+    int32_t *totals;       // probe: shard g's match total at [at /
+                           // match_cap], or NULL
+    HsJoinTableShard sh[HS_JOIN_GROUP];
 };
 
 struct HsJoinEvictSide {
@@ -627,6 +694,11 @@ struct HsJoinEvictArgs {
 static_assert(sizeof(HsDecodeArgs) <= HS_MAX_PARAM_BYTES, "HsDecodeArgs");
 static_assert(sizeof(HsExprArgs) <= HS_MAX_PARAM_BYTES, "HsExprArgs");
 static_assert(sizeof(HsScatterArgs) <= HS_MAX_PARAM_BYTES, "HsScatterArgs");
+static_assert(sizeof(HsScatterArgs) + sizeof(HsScatterTable) + 16 <=
+                  HS_MAX_PARAM_BYTES,
+              "HsScatterTable");
+static_assert(sizeof(HsJoinGroupArgs) <= HS_MAX_PARAM_BYTES,
+              "HsJoinGroupArgs");
 static_assert(sizeof(HsCloseArgs) <= HS_MAX_PARAM_BYTES, "HsCloseArgs");
 static_assert(sizeof(HsUnpackArgs) <= HS_MAX_PARAM_BYTES, "HsUnpackArgs");
 static_assert(sizeof(HsTouchedArgs) <= HS_MAX_PARAM_BYTES, "HsTouchedArgs");
@@ -635,7 +707,8 @@ static_assert(sizeof(HsSessGroupArgs) <= HS_MAX_PARAM_BYTES,
               "HsSessGroupArgs");
 static_assert(sizeof(HsSessExtractArgs) <= HS_MAX_PARAM_BYTES,
               "HsSessExtractArgs");
-static_assert(sizeof(HsJoinProbeArgs) <= HS_MAX_PARAM_BYTES,
+static_assert(sizeof(HsJoinProbeArgs) + sizeof(HsJoinTable) + 256 <=
+                  HS_MAX_PARAM_BYTES,
               "HsJoinProbeArgs");
 static_assert(sizeof(HsMergedCloseArgs) <= HS_MAX_PARAM_BYTES,
               "HsMergedCloseArgs");
@@ -680,6 +753,16 @@ int hs_join_probe(const HsJoinProbeArgs *args, void *stream);
 int64_t hs_join_insert_scratch_bytes(int32_t cap, int32_t bcap);
 int hs_join_insert(const HsJoinInsertArgs *args, void *stream);
 int hs_join_evict(const HsJoinEvictArgs *args, void *stream);
-int hs_join_route(const HsJoinRouteArgs *args, void *stream);
+int64_t hs_join_group_bytes(int32_t bcap, int32_t n_group);
+int hs_join_group(const HsJoinGroupArgs *args, void *stream);
+int64_t hs_join_probe_table_scratch_bytes(int32_t bcap, int32_t match_cap,
+                                          int32_t n_group);
+int hs_join_probe_table(const HsJoinProbeArgs *args,
+                        const HsJoinTable *table, void *stream);
+int64_t hs_join_insert_table_scratch_bytes(int32_t cap, int32_t n_group);
+int hs_join_insert_table(const HsJoinInsertArgs *args,
+                         const HsJoinTable *table, void *stream);
+int hs_scatter_table(const HsScatterArgs *args, const HsScatterTable *table,
+                     void *stream);
 const char *hs_error_string(int err);
 }

@@ -67,6 +67,7 @@
 
 #include <algorithm>
 #include <climits>
+#include <type_traits>
 
 #include "hs_kernels.h"
 #include "lookback.cuh"
@@ -74,6 +75,90 @@
 namespace hsjoin {
 
 using hs::look_back;
+
+// ---- the table of a card's key shards (a mesh; HsJoinTable) --------------
+//
+// What held the first sharded design back (parallel/lattice.py
+// ShardedJoinLattice): every kernel ran once a key shard, each reading
+// the whole batch with the ownership test inside, so at S
+// shards a record was searched S times (its matches counted 0 but in
+// one), the insert compacted the owned records once a shard (two more
+// launches, each reading the batch), and the routing and the scatter
+// read the whole feed once a partial. Now one launch sequence a card
+// covers a table of the shards whose stores lie there: hs_join_group
+// sorts the valid records by the table place of their owner once (a
+// counting sort, each group in batch order, its first place a multiple
+// of kGroupTile so that no tile of records spans two stores), and the
+// probe and the insert read their records through that grouping: a
+// probe tile searches only its own shard's store, the scan of the match
+// counts restarts at each group's first tile, and the insert's blocks
+// take the output tiles of every shard's store.
+
+constexpr int kGroupTile = HS_JOIN_GROUP_TILE;
+constexpr int kGroupThreads = 1024;
+constexpr int kGroupItems = 4;   // records a thread of hs_join_group
+constexpr int kGroupBlock = kGroupThreads * kGroupItems;
+
+// where a grouping's parts lie in its buffer (HsJoinGroupArgs.grouping).
+// Each place holds its record's batch index and its key, so that the
+// searches and the merge read the keys of a group contiguously and only
+// the gathers of flags and columns go through the index
+struct Grouping {
+    int32_t *idx;     // [bcap + G * kGroupTile]: place -> batch index
+    int32_t *code;    // [bcap + G * kGroupTile]: the record's code
+    int32_t *ts;      // [bcap + G * kGroupTile]: its ts
+    int32_t *base;    // [G + 1]: each group's first place, then the end
+    int32_t *count;   // [G]: each group's records
+    int32_t *blocks;  // [blocks, G]: each block's records of each group
+};
+
+inline int32_t group_blocks(int32_t bcap) {
+    return (bcap + kGroupBlock - 1) / kGroupBlock;
+}
+
+__host__ __device__ inline int64_t group_places(int32_t bcap, int32_t g) {
+    return (int64_t)bcap + (int64_t)g * kGroupTile;
+}
+
+__host__ __device__ inline Grouping grouping(int32_t *p, int32_t bcap,
+                                             int32_t g) {
+    const int64_t places = group_places(bcap, g);
+    Grouping r;
+    r.idx = p;
+    r.code = p + places;
+    r.ts = p + 2 * places;
+    r.base = p + 3 * places;
+    r.count = r.base + g + 1;
+    r.blocks = r.count + g;
+    return r;
+}
+
+inline int64_t grouping_words(int32_t bcap, int32_t g) {
+    return 3 * group_places(bcap, g) + 2 * (int64_t)g + 1 +
+           (int64_t)group_blocks(bcap) * g;
+}
+
+// a single store's launch takes this in the table's place
+struct NoTable {};
+template <bool kT>
+using TableArg = std::conditional_t<kT, HsJoinTable, NoTable>;
+
+// a store as the kernels read it
+struct StoreView {
+    const int32_t *code;
+    const int32_t *ts;
+    const int32_t *flags;
+    const int32_t *cols;
+};
+
+// group g of a table: the group whose places hold `pos` (its first
+// place at or before pos, the next one's after it)
+__device__ __forceinline__ int group_at(const HsJoinTable &t,
+                                        const int32_t *base, int64_t pos) {
+    int g = 0;
+    while (g + 1 < t.n_group && base[g + 1] <= pos) ++g;
+    return g;
+}
 
 __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
     return (int32_t)((uint32_t)a + (uint32_t)b);
@@ -95,14 +180,6 @@ __device__ __forceinline__ int32_t batch_code(const int32_t *bcode,
                                               int32_t j, int32_t n) {
     const int32_t c = bcode[j];
     return (j < n && c < HS_JOIN_SENT) ? c : HS_JOIN_SENT;
-}
-
-// a mesh's ownership test: code mod n_shards (floor mod, as the
-// reference's jnp %) == shard
-__device__ __forceinline__ bool owned(int32_t code, int32_t n_shards,
-                                      int32_t shard) {
-    const int32_t r = code % n_shards;
-    return (r < 0 ? r + n_shards : r) == shard;
 }
 
 __device__ __forceinline__ uint32_t warp_incl_scan(uint32_t v) {
@@ -188,22 +265,26 @@ constexpr int kExpThreads = 256;
 constexpr int kExpPer = 8;
 constexpr int kExpTile = kExpThreads * kExpPer;  // 2048 merged items
 
-// the probe's scratch, carved out of HsJoinProbeArgs.scratch
+// the probe's scratch, carved out of HsJoinProbeArgs.scratch. Its
+// record places are the batch's (one store), or a table's grouping's
+// bcap + G * kGroupTile places
 struct ProbeScratch {
-    int32_t *lo;                  // [bcap]
-    int32_t *cnt;                 // [bcap]
-    int32_t *ccnt;                // [bcap] inclusive scan of cnt
+    int32_t *lo;                  // [places]
+    int32_t *cnt;                 // [places]
+    int32_t *ccnt;                // [places] inclusive scan of cnt (a
+                                  // table: within each group)
     uint32_t *ticket;             // the bounds tiles' order
     uint64_t *status;             // [tiles] look-back words
     int32_t *window;              // [2 * tiles]: each tile's store window
-    int32_t *split;               // [merge tiles + 1]: the first record
-                                  // whose end is at or past t * kExpTile
+    int32_t *split;               // [G, merge tiles + 1]: the first
+                                  // record whose end is at or past t *
+                                  // kExpTile, a group's own
     int32_t merge_tiles;          // expansion tiles at most
-    int32_t *total;               // the match total (the last word)
+    int32_t *total;               // [G] the match totals (the last words)
 };
 
-__host__ __device__ inline int32_t bounds_tiles(int32_t bcap) {
-    return (bcap + kBoundsTile - 1) / kBoundsTile;
+__host__ __device__ inline int32_t bounds_tiles(int64_t places) {
+    return (int32_t)((places + kBoundsTile - 1) / kBoundsTile);
 }
 
 // the expansion's tiles at most: min(total, match_cap) + n <= match_cap
@@ -213,26 +294,32 @@ inline int32_t merge_tiles(int32_t bcap, int32_t match_cap) {
 }
 
 // words: lo, cnt, ccnt, the ticket, padding to 8 bytes, the status
-// words, the windows, the splits, then the total
-inline size_t probe_scratch_words(int32_t bcap, int32_t match_cap) {
-    const size_t head = 3 * (size_t)bcap + 1;
-    return ((head + 1) & ~(size_t)1) + 4 * (size_t)bounds_tiles(bcap) +
-           (size_t)merge_tiles(bcap, match_cap) + 1 + 1;
+// words, the windows, the splits, then the totals (n_group 0: one store)
+inline size_t probe_scratch_words(int32_t bcap, int32_t match_cap,
+                                  int32_t n_group = 0) {
+    const int64_t places = n_group ? group_places(bcap, n_group) : bcap;
+    const int32_t g = n_group ? n_group : 1;
+    const size_t head = 3 * (size_t)places + 1;
+    return ((head + 1) & ~(size_t)1) + 4 * (size_t)bounds_tiles(places) +
+           (size_t)g * (merge_tiles(bcap, match_cap) + 1) + g;
 }
 
-inline ProbeScratch probe_scratch(void *p, int32_t bcap, int32_t match_cap) {
+inline ProbeScratch probe_scratch(void *p, int32_t bcap, int32_t match_cap,
+                                  int32_t n_group = 0) {
+    const int64_t places = n_group ? group_places(bcap, n_group) : bcap;
     int32_t *w = (int32_t *)p;
     ProbeScratch s;
     s.lo = w;
-    s.cnt = w + bcap;
-    s.ccnt = w + 2 * (size_t)bcap;
-    s.ticket = (uint32_t *)(w + 3 * (size_t)bcap);
-    const size_t head = 3 * (size_t)bcap + 1;
+    s.cnt = w + places;
+    s.ccnt = w + 2 * (size_t)places;
+    s.ticket = (uint32_t *)(w + 3 * (size_t)places);
+    const size_t head = 3 * (size_t)places + 1;
     s.status = (uint64_t *)(w + ((head + 1) & ~(size_t)1));
-    s.window = (int32_t *)(s.status + bounds_tiles(bcap));
-    s.split = s.window + 2 * (size_t)bounds_tiles(bcap);
+    s.window = (int32_t *)(s.status + bounds_tiles(places));
+    s.split = s.window + 2 * (size_t)bounds_tiles(places);
     s.merge_tiles = merge_tiles(bcap, match_cap);
-    s.total = w + probe_scratch_words(bcap, match_cap) - 1;
+    s.total = w + probe_scratch_words(bcap, match_cap, n_group) -
+              (n_group ? n_group : 1);
     return s;
 }
 
@@ -311,39 +398,109 @@ __device__ __forceinline__ int32_t tile_end(const HsJoinProbeArgs &a,
     return -1;
 }
 
+// where a launch's tile t lies: its group (0 for one store), the group's
+// first place and the end of its records, and the store it searches
+struct TileOf {
+    int g;
+    int32_t base;  // the group's first place (0 for one store)
+    int32_t end;   // its records' end (one store: the batch's bcap)
+    StoreView o;
+};
+
+template <bool kT>
+__device__ __forceinline__ TileOf tile_of(const HsJoinProbeArgs &a,
+                                          const TableArg<kT> &tb,
+                                          const Grouping &gr, int64_t pos) {
+    if constexpr (kT) {
+        const int g = group_at(tb, gr.base, pos);
+        const HsJoinTableShard &h = tb.sh[g];
+        return TileOf{g, gr.base[g], gr.base[g] + gr.count[g],
+                      StoreView{h.code, h.ts, h.flags, h.cols}};
+    } else {
+        return TileOf{0, 0, a.bcap,
+                      StoreView{a.o_code, a.o_ts, a.o_flags, a.o_cols}};
+    }
+}
+
+// the tiles of record places the launch holds: a table's, its groups'
+template <bool kT>
+__device__ __forceinline__ int32_t live_tiles(const HsJoinProbeArgs &a,
+                                              const TableArg<kT> &tb,
+                                              const Grouping &gr) {
+    if constexpr (kT) return gr.base[tb.n_group] / kBoundsTile;
+    else return bounds_tiles(a.bcap);
+}
+
+template <bool kT>
+__device__ __forceinline__ Grouping grouping_of(const HsJoinProbeArgs &a,
+                                                const TableArg<kT> &tb) {
+    if constexpr (kT)
+        return grouping((int32_t *)tb.grouping, a.bcap, tb.n_group);
+    else
+        return Grouping{nullptr, nullptr, nullptr, nullptr, nullptr,
+                        nullptr};
+}
+
 // each tile's store window, before the bounds: warp 2k of a block the
 // entries before tile t's first valid record's lower key, warp 2k + 1
 // those up to its last one's upper key (32 probes a step, all tiles at
 // once); [0, 0) for a tile without a valid record. It also zeroes the
-// bounds kernel's ticket and each tile's look-back status word.
+// bounds kernel's ticket and each tile's look-back status word, and (a
+// table) the totals of the groups without a record.
+template <bool kT>
 __global__ void __launch_bounds__(64 * kWindowTiles)
 probe_window_kernel(const __grid_constant__ HsJoinProbeArgs a,
+                    const __grid_constant__ TableArg<kT> tb,
                     ProbeScratch s) {
     const int w = threadIdx.x >> 5;
     const int32_t t = blockIdx.x * kWindowTiles + (w >> 1);
-    if (t >= bounds_tiles(a.bcap)) return;
+    const Grouping gr = grouping_of<kT>(a, tb);
+    if constexpr (kT) {
+        if (blockIdx.x == 0) {
+            if (threadIdx.x == 0) *s.ticket = 0u;
+            const int g = threadIdx.x;
+            if (g < tb.n_group && gr.count[g] == 0) {
+                s.total[g] = 0;
+                if (tb.totals != nullptr)
+                    tb.totals[tb.sh[g].at / a.match_cap] = 0;
+            }
+        }
+    }
+    if (t >= live_tiles<kT>(a, tb, gr)) return;
     const bool upper = w & 1;
-    if (threadIdx.x == 0 && blockIdx.x == 0) *s.ticket = 0u;
+    if constexpr (!kT)
+        if (threadIdx.x == 0 && blockIdx.x == 0) *s.ticket = 0u;
     if (!upper && (threadIdx.x & 31) == 0) s.status[t] = 0ull;
-    const int32_t j = tile_end(a, t, upper);
+    const TileOf to = tile_of<kT>(a, tb, gr, (int64_t)t * kBoundsTile);
+    int32_t j;
+    const int32_t *code = a.batch, *tss = a.batch + a.bcap;
+    if constexpr (kT) {  // a table's places hold valid records only
+        j = upper ? min(t * kBoundsTile + kBoundsTile, to.end) - 1
+                  : t * kBoundsTile;
+        code = gr.code;
+        tss = gr.ts;
+    } else {
+        j = tile_end(a, t, upper);
+    }
     int32_t end = 0;
     if (j >= 0) {
-        const int32_t qc = a.batch[j], ts = a.batch[a.bcap + j];
+        const int32_t qc = code[j], ts = tss[j];
         const int32_t qt = upper ? wrap_add(ts, a.within)
                                  : max(wrap_sub(ts, a.within), a.cutoff);
         end = (int32_t)warp_partition(0, a.cap, [&](int64_t i) {
-            return key_before(a.o_code[i], a.o_ts[i], qc, qt, upper);
+            return key_before(to.o.code[i], to.o.ts[i], qc, qt, upper);
         });
     }
     if ((threadIdx.x & 31) == 0) s.window[2 * t + upper] = end;
 }
 
-// kOwn (a key shard of a mesh, n_shards > 1): records whose code another
-// shard owns count no matches, as the reference's owned mask clears their
-// bvalid (parallel/lattice.py:394-439)
-template <bool kOwn>
+// the bounds and the count scan of a tile of record places (one store:
+// the batch's records; a table: a group's records, its scan restarting at
+// the group's first tile)
+template <bool kT>
 __global__ void __launch_bounds__(kBoundsThreads)
 probe_bounds_kernel(const __grid_constant__ HsJoinProbeArgs a,
+                    const __grid_constant__ TableArg<kT> tb,
                     ProbeScratch s, int32_t window_cap) {
     extern __shared__ uint64_t s_key[];  // [window_cap] the window's keys
     __shared__ uint32_t s_scan[32];
@@ -352,6 +509,10 @@ probe_bounds_kernel(const __grid_constant__ HsJoinProbeArgs a,
     if (threadIdx.x == 0) s_tile = (int)atomicAdd(s.ticket, 1u);
     __syncthreads();
     const int tile = s_tile;
+    const Grouping gr = grouping_of<kT>(a, tb);
+    if constexpr (kT)
+        if (tile >= live_tiles<kT>(a, tb, gr)) return;
+    const TileOf to = tile_of<kT>(a, tb, gr, (int64_t)tile * kBoundsTile);
     const int32_t j0 = tile * kBoundsTile + threadIdx.x * kBoundsPer;
     // the window first, so its staging overlaps the records' loads (it
     // is not used where a key wraps)
@@ -361,7 +522,7 @@ probe_bounds_kernel(const __grid_constant__ HsJoinProbeArgs a,
     if (fits) {
 #pragma unroll 4
         for (int32_t i = threadIdx.x; i < w1 - w0; i += kBoundsThreads)
-            s_key[i] = key64(a.o_code[w0 + i], a.o_ts[w0 + i]);
+            s_key[i] = key64(to.o.code[w0 + i], to.o.ts[w0 + i]);
     }
     int32_t qc[kBoundsPer], lts[kBoundsPer], hts[kBoundsPer];
     bool valid[kBoundsPer];
@@ -369,10 +530,16 @@ probe_bounds_kernel(const __grid_constant__ HsJoinProbeArgs a,
 #pragma unroll
     for (int k = 0; k < kBoundsPer; ++k) {
         const int32_t j = j0 + k;
-        qc[k] = j < a.bcap ? a.batch[j] : HS_JOIN_SENT;
-        const int32_t t = j < a.bcap ? a.batch[a.bcap + j] : 0;
-        valid[k] = j < a.n && qc[k] < HS_JOIN_SENT &&
-                   (!kOwn || owned(qc[k], a.n_shards, a.shard));
+        int32_t t;
+        if constexpr (kT) {
+            valid[k] = j < to.end;
+            qc[k] = valid[k] ? gr.code[j] : HS_JOIN_SENT;
+            t = valid[k] ? gr.ts[j] : 0;
+        } else {
+            qc[k] = j < a.bcap ? a.batch[j] : HS_JOIN_SENT;
+            t = j < a.bcap ? a.batch[a.bcap + j] : 0;
+            valid[k] = j < a.n && qc[k] < HS_JOIN_SENT;
+        }
         any |= valid[k];
         const int64_t lw = (int64_t)t - a.within, hw = (int64_t)t + a.within;
         wraps |= valid[k] && (lw < INT_MIN || lw > INT_MAX ||
@@ -394,6 +561,8 @@ probe_bounds_kernel(const __grid_constant__ HsJoinProbeArgs a,
     bool first_rec = true;
     int32_t cnt[kBoundsPer];
     uint32_t mine = 0;
+    int32_t places = a.bcap;
+    if constexpr (kT) places = gr.base[tb.n_group];
 #pragma unroll
     for (int k = 0; k < kBoundsPer; ++k) {
         int32_t l = 0;
@@ -401,9 +570,9 @@ probe_bounds_kernel(const __grid_constant__ HsJoinProbeArgs a,
         if (valid[k]) {
             int32_t h;
             if (whole) {
-                l = count_in(a.o_code, a.o_ts, 0, a.cap, qc[k], lts[k],
+                l = count_in(to.o.code, to.o.ts, 0, a.cap, qc[k], lts[k],
                              false);
-                h = count_in(a.o_code, a.o_ts, 0, a.cap, qc[k], hts[k],
+                h = count_in(to.o.code, to.o.ts, 0, a.cap, qc[k], hts[k],
                              true);
             } else if (staged) {
                 // keys below (qc, lts), and below (qc, hts) + 1
@@ -417,14 +586,14 @@ probe_bounds_kernel(const __grid_constant__ HsJoinProbeArgs a,
                 h = wl + hi_at;
             } else {
                 lo_at = first_rec
-                    ? count_in(a.o_code, a.o_ts, lo_at, end, qc[k], lts[k],
+                    ? count_in(to.o.code, to.o.ts, lo_at, end, qc[k], lts[k],
                                false)
-                    : count_from(a.o_code, a.o_ts, lo_at, end, qc[k],
+                    : count_from(to.o.code, to.o.ts, lo_at, end, qc[k],
                                  lts[k], false);
                 hi_at = first_rec
-                    ? count_in(a.o_code, a.o_ts, hi_at, end, qc[k], hts[k],
+                    ? count_in(to.o.code, to.o.ts, hi_at, end, qc[k], hts[k],
                                true)
-                    : count_from(a.o_code, a.o_ts, hi_at, end, qc[k],
+                    : count_from(to.o.code, to.o.ts, hi_at, end, qc[k],
                                  hts[k], true);
                 l = lo_at;
                 h = hi_at;
@@ -432,7 +601,7 @@ probe_bounds_kernel(const __grid_constant__ HsJoinProbeArgs a,
             first_rec = false;
             cnt[k] = max(h - l, 0);
         }
-        if (j0 + k < a.bcap) {
+        if (j0 + k < places) {
             s.lo[j0 + k] = l;
             s.cnt[j0 + k] = cnt[k];
         }
@@ -440,71 +609,98 @@ probe_bounds_kernel(const __grid_constant__ HsJoinProbeArgs a,
     }
     uint32_t tot;
     const uint32_t incl = block_incl_scan(mine, s_scan, &tot);
-    const long long off = look_back(s.status, tile, tot, s_look);
+    const long long off =
+        look_back(s.status, tile, tot, s_look, to.base / kBoundsTile);
     uint32_t run = (uint32_t)off + incl - mine;
     // the expansion's splits: record j ends at e = j + ccnt[j] of the
     // merged sequence (record ends and matches), so it is the first
     // record ending at or past every tile boundary in (e - 1 - cnt, e]
-    const int64_t nrec = min(a.n, a.bcap);
+    // (j, and the splits, a group's own)
+    const int64_t nrec = kT ? (int64_t)(to.end - to.base)
+                            : (int64_t)min(a.n, a.bcap);
+    int32_t *split = s.split + (int64_t)to.g * (s.merge_tiles + 1);
 #pragma unroll
     for (int k = 0; k < kBoundsPer; ++k) {
         run += (uint32_t)cnt[k];
-        const int32_t j = j0 + k;
-        if (j < a.bcap) s.ccnt[j] = (int32_t)run;
+        const int32_t j = j0 + k - to.base;
+        if (j0 + k < places) s.ccnt[j0 + k] = (int32_t)run;
         if (j < nrec) {
             const int64_t e = j + (int64_t)run, ep = e - 1 - cnt[k];
             for (int64_t t = ep < 0 ? 0 : ep / kExpTile + 1;
                  t <= e / kExpTile && t <= s.merge_tiles; ++t)
-                s.split[t] = j;
+                split[t] = j;
         }
     }
-    if (tile == (int)gridDim.x - 1) {  // the boundaries past record n
+    const bool group_last = kT ? tile == (to.end - 1) / kBoundsTile
+                               : tile == (int)gridDim.x - 1;
+    if (group_last) {  // the boundaries past record n
         const int64_t total = off + tot;
-        if (threadIdx.x == 0) *s.total = (int32_t)total;
+        if (threadIdx.x == 0) {
+            s.total[to.g] = (int32_t)total;
+            if constexpr (kT)
+                if (tb.totals != nullptr)
+                    tb.totals[tb.sh[to.g].at / a.match_cap] = (int32_t)total;
+        }
         const int64_t e = nrec - 1 + total;
         for (int64_t t = (e < 0 ? 0 : e / kExpTile + 1) + threadIdx.x;
              t <= s.merge_tiles; t += kBoundsThreads)
-            s.split[t] = (int32_t)nrec;
+            split[t] = (int32_t)nrec;
     }
 }
 
 // the matches: tile b of the merged sequence (record ends, matches),
 // after the block's share of the positions past the matches (the
 // reference's clip), which every block writes first, a grid's stride
-// apart. Emit is the mode's writer: emit(a, j, matched, record, store
-// entry, total).
-template <class Emit>
+// apart. A table's group is blockIdx.y: its records, its splits, its
+// matches from its first column (entry) on. Emit is the mode's writer:
+// emit(a, store, first column, j, matched, record, store entry, total).
+template <bool kT, class Emit>
 __global__ void __launch_bounds__(kExpThreads)
 probe_expand_kernel(const __grid_constant__ HsJoinProbeArgs a,
+                    const __grid_constant__ TableArg<kT> tb,
                     ProbeScratch s, Emit emit) {
     __shared__ int32_t s_end[kExpTile];
     __shared__ int32_t s_rec[kExpTile];
-    const int32_t total = *s.total;
+    const int g = kT ? (int)blockIdx.y : 0;
+    const Grouping gr = grouping_of<kT>(a, tb);
+    StoreView o{a.o_code, a.o_ts, a.o_flags, a.o_cols};
+    int64_t at = 0;
+    int32_t base = 0;
+    int64_t nrec = min(a.n, a.bcap);
+    if constexpr (kT) {
+        const HsJoinTableShard &h = tb.sh[g];
+        o = StoreView{h.code, h.ts, h.flags, h.cols};
+        at = h.at;
+        base = gr.base[g];
+        nrec = gr.count[g];
+    }
+    const int32_t total = s.total[g];
     const int64_t mc = min((int64_t)total, (int64_t)a.match_cap);
     for (int64_t p = mc + (int64_t)blockIdx.x * kExpThreads + threadIdx.x;
          p < a.match_cap; p += (int64_t)gridDim.x * kExpThreads)
-        emit(a, (int32_t)p, false, a.bcap - 1, 0, total);
+        emit(a, o, at, (int32_t)p, false, a.bcap - 1, 0, total);
     // the records past n (padding) hold no match: the merged sequence
     // stops at record n's end
-    const int64_t nrec = min(a.n, a.bcap);
     const int64_t len = mc + nrec;
     const int64_t d0 = (int64_t)blockIdx.x * kExpTile;
     if (d0 >= len) return;
     const int64_t d1 = min(d0 + kExpTile, len);
+    const int32_t *split = s.split + (int64_t)g * (s.merge_tiles + 1);
+    const int32_t *ccnt = s.ccnt + base;
     // record ends before diagonal d: the first record ending at or past
     // d (the bounds kernel's split), at least d - mc (the matches stop at
     // mc) and at most min(d, nrec)
-    auto ends_before = [&](int64_t d, int64_t split) {
-        return min(max(split, d - mc), min(d, nrec));
+    auto ends_before = [&](int64_t d, int64_t sp) {
+        return min(max(sp, d - mc), min(d, nrec));
     };
-    const int64_t r0 = ends_before(d0, s.split[blockIdx.x]);
+    const int64_t r0 = ends_before(d0, split[blockIdx.x]);
     const int64_t r1 = d1 == len ? nrec
-                                 : ends_before(d1, s.split[blockIdx.x + 1]);
+                                 : ends_before(d1, split[blockIdx.x + 1]);
     const int64_t m0 = d0 - r0, m1 = d1 - r1;
     const int na = (int)(r1 - r0), nb = (int)(m1 - m0);
     if (nb == 0) return;  // record ends only
     for (int i = threadIdx.x; i < na; i += kExpThreads)
-        s_end[i] = s.ccnt[r0 + i];
+        s_end[i] = ccnt[r0 + i];
     __syncthreads();
     const int dd = threadIdx.x * kExpPer;
     if (dd < na + nb) {
@@ -527,9 +723,12 @@ probe_expand_kernel(const __grid_constant__ HsJoinProbeArgs a,
     __syncthreads();
     for (int m = threadIdx.x; m < nb; m += kExpThreads) {
         const int32_t r = s_rec[m];
-        const int32_t o = s.lo[r] + (int32_t)(m0 + m - (s.ccnt[r] - s.cnt[r]));
-        emit(a, (int32_t)(m0 + m), true, r, min(max(o, 0), a.cap - 1),
-             total);
+        const int32_t p = base + r;
+        const int32_t o_i =
+            s.lo[p] + (int32_t)(m0 + m - (s.ccnt[p] - s.cnt[p]));
+        const int32_t rec = kT ? gr.idx[p] : r;
+        emit(a, o, at, (int32_t)(m0 + m), true, rec,
+             min(max(o_i, 0), a.cap - 1), total);
     }
 }
 

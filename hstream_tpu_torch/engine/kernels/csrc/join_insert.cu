@@ -31,18 +31,19 @@
 // through shared memory, and consecutive threads write consecutive
 // places of code, ts, flags and every column.
 //
-// A key shard of a mesh (n_shards > 1) inserts only the records it owns
-// (code mod n_shards == shard; hstream_tpu/parallel/lattice.py:394-439
-// and :470-528, _join_insert with `owned`). Its batch run is then the
-// owned records, a subsequence of the sorted batch and so sorted: two
-// launches compact their indices (a count per block of 1024 records,
-// then each block's prefix from the counts before it and a block scan)
-// and the merge reads the batch through them, the places past the owned
-// count keyed (sentinel, INT_MAX), after every store sentinel. Where the
-// reference keeps an unowned record as a dead (sentinel, ts) entry, this
-// drops it: the two stores agree on every live entry, and on every entry
-// where the batch's times are >= 0, as the join executor's rebase keeps
-// them. The template's false branch is the single-card merge as before.
+// The key shards of a mesh whose stores lie on one card insert in one
+// launch sequence over the table of their stores (hs_join_insert_table;
+// hstream_tpu/parallel/lattice.py:394-439 and :470-528, _join_insert
+// with `owned`): a shard's batch run is its group of the batch's
+// grouping (join_group.cu: the valid records it owns, in batch order, so
+// sorted), the places past its count keyed (sentinel, INT_MAX), after
+// every store sentinel; one split launch finds every tile boundary of
+// every shard's store, and the merge's blocks take the output tiles of
+// every shard's store. Where the reference keeps an unowned record as a
+// dead (sentinel, ts) entry, this drops it: the two stores agree on
+// every live entry, and on every entry where the batch's times are >= 0,
+// as the join executor's rebase keeps them. The templates' false branch
+// is the single-card merge as before.
 
 #include <cuda_runtime.h>
 
@@ -50,11 +51,12 @@
 
 namespace {
 
+using hsjoin::TableArg;
+
 constexpr int kThreads = 256;
 constexpr int kPer = 8;
 constexpr int kTile = kThreads * kPer;  // output places a block
 constexpr int32_t kFromBatch = 1 << 30;  // a source index from the batch
-constexpr int kOwnBlock = 1024;          // records a compaction block
 
 // store entry i goes before batch entry j: the store first on equal keys
 __device__ __forceinline__ bool store_first(int32_t sc, int32_t st,
@@ -62,123 +64,102 @@ __device__ __forceinline__ bool store_first(int32_t sc, int32_t st,
     return hsjoin::key_before(sc, st, bc, bt, true);
 }
 
-// the batch run the merge reads: the whole batch (single card), or the
-// owned records through their compacted indices (a key shard)
-template <bool kOwn>
-struct BatchRun {
-    const int32_t *code, *ts;
-    const int32_t *idx;  // kOwn: the owned records' columns, in order
-    int32_t n;           // records in the run (kOwn: owned ones)
+// one shard's merge: its store, the store it writes, and its batch run:
+// the whole batch (single card), or its group of the grouping (a table)
+template <bool kT>
+struct Shard {
+    const int32_t *code, *ts, *flags, *cols;
+    int32_t *out_code, *out_ts, *out_flags, *out_cols;
+    const int32_t *bcode, *bts;  // the run's keys: the batch's, or the
+                                 // group's own (kT)
+    const int32_t *idx;  // kT: the group's records' batch indices
+    int32_t n;           // records in the run
 
-    __device__ __forceinline__ BatchRun(const HsJoinInsertArgs &a,
-                                        const int32_t *own) {
-        code = a.batch;
-        ts = a.batch + a.bcap;
-        idx = own;
-        n = kOwn ? own[a.bcap] : a.n;
+    __device__ __forceinline__ Shard(const HsJoinInsertArgs &a,
+                                     const TableArg<kT> &tb, int g) {
+        if constexpr (kT) {
+            const HsJoinTableShard &h = tb.sh[g];
+            code = h.code, ts = h.ts, flags = h.flags, cols = h.cols;
+            out_code = h.out_code, out_ts = h.out_ts;
+            out_flags = h.out_flags, out_cols = h.out_cols;
+            const hsjoin::Grouping gr = hsjoin::grouping(
+                (int32_t *)tb.grouping, a.bcap, tb.n_group);
+            idx = gr.idx + gr.base[g];
+            bcode = gr.code + gr.base[g];
+            bts = gr.ts + gr.base[g];
+            n = gr.count[g];
+        } else {
+            bcode = a.batch;
+            bts = a.batch + a.bcap;
+            code = a.code, ts = a.ts, flags = a.flags, cols = a.cols;
+            out_code = a.out_code, out_ts = a.out_ts;
+            out_flags = a.out_flags, out_cols = a.out_cols;
+            idx = nullptr;
+            n = a.n;
+        }
     }
     __device__ __forceinline__ int32_t key_code(int32_t x) const {
-        if (!kOwn) return hsjoin::batch_code(code, x, n);
-        return x < n ? code[idx[x]] : HS_JOIN_SENT;
+        if (!kT) return hsjoin::batch_code(bcode, x, n);
+        return x < n ? bcode[x] : HS_JOIN_SENT;
     }
     __device__ __forceinline__ int32_t key_ts(int32_t x) const {
-        if (!kOwn) return ts[x];
-        return x < n ? ts[idx[x]] : INT_MAX;
+        if (!kT) return bts[x];
+        return x < n ? bts[x] : INT_MAX;
     }
     __device__ __forceinline__ int32_t column(int32_t x) const {
-        return kOwn ? idx[x] : x;
+        return kT ? idx[x] : x;
     }
 };
 
-__device__ __forceinline__ bool owns(const HsJoinInsertArgs &a, int32_t j) {
-    if (j >= a.n) return false;
-    const int32_t c = a.batch[j];
-    return c < HS_JOIN_SENT && hsjoin::owned(c, a.n_shards, a.shard);
-}
-
-// owned records of each block of kOwnBlock
-__global__ void __launch_bounds__(kOwnBlock)
-own_count_kernel(const __grid_constant__ HsJoinInsertArgs a,
-                 int32_t *counts) {
-    const int32_t j = blockIdx.x * kOwnBlock + threadIdx.x;
-    const int c = __syncthreads_count(owns(a, j));
-    if (threadIdx.x == 0) counts[blockIdx.x] = c;
-}
-
-// the owned records' indices in order: own[0 .. n_owned), and n_owned at
-// own[bcap]; a block's first place is the sum of the counts before it
-__global__ void __launch_bounds__(kOwnBlock)
-own_compact_kernel(const __grid_constant__ HsJoinInsertArgs a,
-                   const int32_t *counts, int32_t *own) {
-    __shared__ int32_t s_warp[kOwnBlock / 32];
-    __shared__ int32_t s_base;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    int32_t part = 0;
-    for (int32_t b = threadIdx.x; b < (int32_t)blockIdx.x; b += kOwnBlock)
-        part += counts[b];
-    for (int d = 16; d > 0; d >>= 1)
-        part += __shfl_down_sync(0xFFFFFFFFu, part, d);
-    if (lane == 0) s_warp[warp] = part;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        int32_t t = 0;
-        for (int w = 0; w < kOwnBlock / 32; ++w) t += s_warp[w];
-        s_base = t;
-    }
-    __syncthreads();
-    const int32_t j = blockIdx.x * kOwnBlock + threadIdx.x;
-    const bool o = owns(a, j);
-    const unsigned m = __ballot_sync(0xFFFFFFFFu, o);
-    if (lane == 0) s_warp[warp] = __popc(m);
-    __syncthreads();
-    int32_t before = s_base;
-    for (int w = 0; w < warp; ++w) before += s_warp[w];
-    if (o) own[before + __popc(m & ((1u << lane) - 1u))] = j;
-    if (blockIdx.x == gridDim.x - 1 && threadIdx.x == kOwnBlock - 1) {
-        int32_t total = s_base;
-        for (int w = 0; w < kOwnBlock / 32; ++w) total += s_warp[w];
-        own[a.bcap] = total;
-    }
-}
-
 // store entries among the first min(t * kTile, cap) places, for every
-// tile boundary t at once, a warp each: i with store[i] before batch[d -
-// 1 - i] (32 probes a step)
-template <bool kOwn>
+// tile boundary t of every shard at once (bounds a shard), a warp each:
+// i with store[i] before batch[d - 1 - i] (32 probes a step)
+template <bool kT>
 __global__ void __launch_bounds__(kThreads)
-split_kernel(const __grid_constant__ HsJoinInsertArgs a, int64_t *split,
-             int32_t bounds, const int32_t *own) {
-    const int32_t t = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-    if (t >= bounds) return;
-    const BatchRun<kOwn> b(a, own);
+split_kernel(const __grid_constant__ HsJoinInsertArgs a,
+             const __grid_constant__ TableArg<kT> tb, int64_t *split,
+             int32_t bounds, int32_t n_group) {
+    const int32_t w = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+    if (w >= bounds * n_group) return;
+    const int g = w / bounds;
+    const int32_t t = w - g * bounds;
+    const Shard<kT> b(a, tb, g);
     const int64_t d = min((int64_t)t * kTile, (int64_t)a.cap);
+    // a table's run past its group is after every store entry, so at
+    // most its n records precede place d
+    const int64_t run = kT ? (int64_t)b.n : (int64_t)a.bcap;
     const int64_t i = hsjoin::warp_partition(
-        max((int64_t)0, d - a.bcap), min(d, (int64_t)a.cap),
+        max((int64_t)0, d - run), min(d, (int64_t)a.cap),
         [&](int64_t x) {
             const int32_t j = (int32_t)(d - 1 - x);
-            return store_first(a.code[x], a.ts[x], b.key_code(j),
+            return store_first(b.code[x], b.ts[x], b.key_code(j),
                                b.key_ts(j));
         });
-    if ((threadIdx.x & 31) == 0) split[t] = i;
+    if ((threadIdx.x & 31) == 0) split[w] = i;
 }
 
-template <bool kOwn>
+// block b merges output tile b mod tiles of shard b div tiles
+template <bool kT>
 __global__ void __launch_bounds__(kThreads)
 merge_kernel(const __grid_constant__ HsJoinInsertArgs a,
-             const int64_t *split, const int32_t *own) {
+             const __grid_constant__ TableArg<kT> tb, const int64_t *split,
+             int32_t tiles) {
     __shared__ int32_t s_acode[kTile], s_ats[kTile];
     __shared__ int32_t s_bcode[kTile], s_bts[kTile];
     __shared__ int32_t s_src[kTile];
-    const BatchRun<kOwn> b(a, own);
-    const int64_t d0 = (int64_t)blockIdx.x * kTile;
+    const int g = (int)(blockIdx.x / tiles);
+    const int32_t tile = blockIdx.x - g * tiles;
+    const Shard<kT> b(a, tb, g);
+    split += (int64_t)g * (tiles + 1);
+    const int64_t d0 = (int64_t)tile * kTile;
     const int64_t d1 = min(d0 + kTile, (int64_t)a.cap);
-    const int64_t i0 = split[blockIdx.x], i1 = split[blockIdx.x + 1];
+    const int64_t i0 = split[tile], i1 = split[tile + 1];
     const int64_t j0 = d0 - i0;
     const int na = (int)(i1 - i0), nb = (int)((d1 - i1) - j0);
 #pragma unroll 4
     for (int k = threadIdx.x; k < na; k += kThreads) {
-        s_acode[k] = a.code[i0 + k];
-        s_ats[k] = a.ts[i0 + k];
+        s_acode[k] = b.code[i0 + k];
+        s_ats[k] = b.ts[i0 + k];
     }
 #pragma unroll 4
     for (int k = threadIdx.x; k < nb; k += kThreads) {
@@ -214,63 +195,76 @@ merge_kernel(const __grid_constant__ HsJoinInsertArgs a,
         const int k = src & (kFromBatch - 1);
         if (from_b) {
             const int64_t j = b.column((int32_t)(j0 + k));
-            a.out_code[pos] = s_bcode[k];
-            a.out_ts[pos] = s_bts[k];
-            a.out_flags[pos] = a.batch[3 * (size_t)a.bcap + j];
+            b.out_code[pos] = s_bcode[k];
+            b.out_ts[pos] = s_bts[k];
+            b.out_flags[pos] = a.batch[3 * (size_t)a.bcap + j];
             for (int32_t c = 0; c < a.n_cols; ++c)
-                a.out_cols[(size_t)c * a.cap + pos] =
+                b.out_cols[(size_t)c * a.cap + pos] =
                     a.batch[(4 + (size_t)c) * a.bcap + j];
         } else {
             const int64_t i = i0 + k;
-            a.out_code[pos] = s_acode[k];
-            a.out_ts[pos] = s_ats[k];
-            a.out_flags[pos] = a.flags[i];
+            b.out_code[pos] = s_acode[k];
+            b.out_ts[pos] = s_ats[k];
+            b.out_flags[pos] = b.flags[i];
             for (int32_t c = 0; c < a.n_cols; ++c)
-                a.out_cols[(size_t)c * a.cap + pos] =
-                    a.cols[(size_t)c * a.cap + i];
+                b.out_cols[(size_t)c * a.cap + pos] =
+                    b.cols[(size_t)c * a.cap + i];
         }
     }
 }
 
+bool insert_args_ok(const HsJoinInsertArgs &a) {
+    return !(a.cap <= 0 || a.bcap < 0 || a.n_cols < 0 ||
+             a.n_cols > HS_JOIN_MAX_COLS || a.n < 0 || a.n > a.bcap);
+}
+
+template <bool kT>
+int insert_launch(const HsJoinInsertArgs &a, const TableArg<kT> &tb,
+                  int n_group, cudaStream_t st) {
+    const int32_t tiles = (a.cap + kTile - 1) / kTile;
+    int64_t *split = (int64_t *)a.scratch;
+    const int64_t warps = (int64_t)(tiles + 1) * n_group;
+    const unsigned split_blocks =
+        (unsigned)((warps + kThreads / 32 - 1) / (kThreads / 32));
+    split_kernel<kT><<<split_blocks, kThreads, 0, st>>>(a, tb, split,
+                                                        tiles + 1, n_group);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    merge_kernel<kT><<<(unsigned)tiles * n_group, kThreads, 0, st>>>(
+        a, tb, split, tiles);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// the merge's splits, then (a key shard) the compaction's block counts
-// and the owned indices with their count
+// the merge's splits (a table: each shard's)
 extern "C" int64_t hs_join_insert_scratch_bytes(int32_t cap, int32_t bcap) {
-    const int64_t blocks = ((int64_t)bcap + kOwnBlock - 1) / kOwnBlock;
-    return ((int64_t)(cap + kTile - 1) / kTile + 1) * (int64_t)sizeof(int64_t)
-           + (blocks + (int64_t)bcap + 1) * (int64_t)sizeof(int32_t);
+    (void)bcap;
+    return ((int64_t)(cap + kTile - 1) / kTile + 1) * (int64_t)sizeof(int64_t);
+}
+
+extern "C" int64_t hs_join_insert_table_scratch_bytes(int32_t cap,
+                                                      int32_t n_group) {
+    return (int64_t)n_group * hs_join_insert_scratch_bytes(cap, 0);
 }
 
 extern "C" int hs_join_insert(const HsJoinInsertArgs *args, void *stream) {
     const HsJoinInsertArgs &a = *args;
-    if (a.cap <= 0 || a.bcap < 0 || a.n_cols < 0 ||
-        a.n_cols > HS_JOIN_MAX_COLS || a.n < 0 || a.n > a.bcap ||
-        (a.n_shards > 1 && (a.shard < 0 || a.shard >= a.n_shards)))
+    if (!insert_args_ok(a)) return (int)cudaErrorInvalidValue;
+    return insert_launch<false>(a, hsjoin::NoTable{}, 1,
+                                (cudaStream_t)stream);
+}
+
+// the table's insert: the caller grouped the batch for this table
+// (hs_join_group); a.code ... a.out_cols are not read, the table's
+// shards' stores are
+extern "C" int hs_join_insert_table(const HsJoinInsertArgs *args,
+                                    const HsJoinTable *table,
+                                    void *stream) {
+    const HsJoinInsertArgs &a = *args;
+    const HsJoinTable &t = *table;
+    if (!insert_args_ok(a) || t.n_group < 1 || t.n_group > HS_JOIN_GROUP ||
+        t.grouping == nullptr)
         return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    const int32_t tiles = (a.cap + kTile - 1) / kTile;
-    int64_t *split = (int64_t *)a.scratch;
-    const unsigned split_blocks =
-        (tiles + 1 + kThreads / 32 - 1) / (kThreads / 32);
-    int err;
-    if (a.n_shards > 1 && a.bcap > 0) {  // a key shard: its records only
-        const int32_t blocks = (a.bcap + kOwnBlock - 1) / kOwnBlock;
-        int32_t *counts = (int32_t *)(split + tiles + 1);
-        int32_t *own = counts + blocks;
-        own_count_kernel<<<blocks, kOwnBlock, 0, st>>>(a, counts);
-        own_compact_kernel<<<blocks, kOwnBlock, 0, st>>>(a, counts, own);
-        split_kernel<true><<<split_blocks, kThreads, 0, st>>>(
-            a, split, tiles + 1, own);
-        err = (int)cudaGetLastError();
-        if (err != 0) return err;
-        merge_kernel<true><<<tiles, kThreads, 0, st>>>(a, split, own);
-        return (int)cudaGetLastError();
-    }
-    split_kernel<false><<<split_blocks, kThreads, 0, st>>>(
-        a, split, tiles + 1, nullptr);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    merge_kernel<false><<<tiles, kThreads, 0, st>>>(a, split, nullptr);
-    return (int)cudaGetLastError();
+    return insert_launch<true>(a, t, t.n_group, (cudaStream_t)stream);
 }

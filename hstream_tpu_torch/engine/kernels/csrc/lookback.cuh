@@ -18,20 +18,22 @@ constexpr unsigned long long kVal = (1ull << 62) - 1;
 
 // the exclusive prefix of tile `tile`, every thread of the block calling
 // (blockDim.x a multiple of 32; s: 32 words of shared memory): publish
-// the tile's count, then sum every predecessor's, blockDim.x status
+// the tile's count, then sum every predecessor's from tile `first` on (a
+// segmented scan's segment starts there), blockDim.x status
 // words a round with their loads in flight together, waiting only on
 // counts not yet published. No chain of inclusive prefixes: the tiles
 // of a wave finish at about the same time. The rounds go 32 at a time,
 // so each has a bit of its own in the mask of those still to wait on.
 __device__ inline long long look_back(uint64_t *status64, int tile,
-                                      long long count, long long *s) {
+                                      long long count, long long *s,
+                                      int first = 0) {
     unsigned long long *status = (unsigned long long *)status64;
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
     const int step = blockDim.x;
     if (t == 0)
         atomicExch(&status[tile], kAgg | (unsigned long long)count);
     long long v = 0;
-    for (int c = t; c < tile; c += 32 * step) {
+    for (int c = first + t; c < tile; c += 32 * step) {
         const int c1 = min(tile, c + 32 * step);
         unsigned pending = 0;  // rounds whose count was not yet published
 #pragma unroll 4

@@ -71,6 +71,10 @@
 // across blocks), within the float32 order bound 2*n*2^-24*sum|x| per
 // cell; not run-to-run stable, as before.
 //
+// The key-sharded join's fused step scatters its feed into a table of
+// partials with its own kernel (scatter_table, below); the single-card
+// kernels are unchanged.
+//
 // Bound on the H100 now (config 1 0.028 ms, config 2 0.065, the
 // changelog 0.049 against bounds of 0.0042, 0.0041 and 0.0063 ms by
 // bytes, PERF.md): what
@@ -617,6 +621,101 @@ scatter_global(const __grid_constant__ HsScatterArgs a, int smem_start) {
     }
 }
 
+// The key-sharded join's fused step (hstream_tpu/parallel/lattice.py
+// :470-528 join_step_local after the gather: the routing of the gathered
+// match feed to partial (d, k), kid - k * Kl and valid & (i mod n_data ==
+// d), then the scatter of each partial). What bounded the first sharded
+// design: a routing pass writing n_key key columns and n_data valid
+// columns over the whole feed, then one scatter a partial, each reading
+// the whole feed (at the join cell's (2, 2) mesh, four reads of 2^22
+// entries for one of them). Here one launch a card over the table of the
+// partials there (HsScatterTable): each (entry, window) of the feed read
+// once, as scatter_global's first design (the inner lattice's planes do
+// not fit a block at the join's widths); entry i's data shard is i mod
+// n_data, its window's slot opens in every partial of that data shard on
+// the card (the reference's slot_valid: also where the key lies in
+// another key shard), and its cell folds into partial (d, key div Kl) at
+// local key key - k * Kl, where that partial is on the card. slot_start
+// is reduced a data shard at a time in shared memory first, then raised
+// in each of its partials. A partial q = d * n_key + k is found at
+// place[q - q0] (at most HS_SCATTER_PLACES consecutive ones a table).
+__global__ void __launch_bounds__(kGlobalBlock)
+scatter_table(const __grid_constant__ HsScatterArgs a,
+              const __grid_constant__ HsScatterTable t, int smem_start) {
+    extern __shared__ int s_start[];  // [n_data, W] where smem_start
+    const int W = a.n_slots;
+    const int nd = t.n_data;
+    if (smem_start) {
+        for (int w = threadIdx.x; w < nd * W; w += kGlobalBlock)
+            s_start[w] = HS_EMPTY_START;
+        __syncthreads();
+    }
+    const int64_t total = (int64_t)a.cap * a.n_per;
+    const int64_t stride = (int64_t)gridDim.x * kGlobalBlock;
+    for (int64_t base = (int64_t)blockIdx.x * kGlobalBlock; base < total;
+         base += stride) {
+        const int64_t tid = base + threadIdx.x;
+        int i = 0, start = 0, slot = 0, d = 0;
+        bool in = false;
+        if (tid < total) {
+            i = (int)(tid / a.n_per);
+            d = i - hs::fdiv(i, t.data_div) * nd;
+            in = hs::record_window(a, i, (int)(tid % a.n_per), start, slot);
+        }
+        const unsigned long long sk =
+            in ? ((unsigned long long)d << 32) | (uint32_t)start
+               : ~0ull;
+        const unsigned peers = __match_any_sync(0xffffffffu, sk);
+        if (in && (threadIdx.x & 31) == __ffs(peers) - 1) {
+            if (smem_start) {
+                atomicMax(&s_start[d * W + slot], start);
+            } else {
+                const int q = d * t.n_key - t.q0;
+                for (int k = max(0, -q); k < min(t.n_key, t.n_q - q); ++k) {
+                    const int pl = t.place[q + k];
+                    if (pl >= 0) atomicMax(&t.p[pl].slot_start[slot], start);
+                }
+            }
+        }
+        if (!in) continue;
+        const int key = a.key[i];
+        if (key < 0) continue;
+        const int k = hs::fdiv(key, t.key_div);
+        if (k >= t.n_key) continue;
+        const int q = d * t.n_key + k - t.q0;
+        if (q < 0 || q >= t.n_q) continue;
+        const int pl = t.place[q];
+        if (pl < 0) continue;
+        const HsScatterPart &part = t.p[pl];
+        const int64_t cell = (int64_t)(key - k * a.n_keys) * W + slot;
+        atomicAdd(&part.count[cell], 1);
+        if (a.track_touched) part.touched[cell] = 1;
+        for (int g = 0; g < a.n_aggs; ++g) {
+            HsScatterAgg ag = a.a[g];
+            float v;
+            uint32_t bits;
+            if (ag.kind == HS_AGG_COUNT_ALL || !hs::agg_input(ag, i, v, bits))
+                continue;
+            const HsScatterPlanes &pp = t.pp[pl * a.n_aggs + g];
+            ag.plane = pp.plane;
+            ag.plane_n = pp.plane_n;
+            fold_global(a, ag, cell, v, bits);
+        }
+    }
+    if (smem_start) {
+        __syncthreads();
+        for (int w = threadIdx.x; w < nd * W; w += kGlobalBlock) {
+            if (s_start[w] == HS_EMPTY_START) continue;
+            const int q = (w / W) * t.n_key - t.q0;
+            for (int k = max(0, -q); k < min(t.n_key, t.n_q - q); ++k) {
+                const int pl = t.place[q + k];
+                if (pl >= 0)
+                    atomicMax(&t.p[pl].slot_start[w % W], s_start[w]);
+            }
+        }
+    }
+}
+
 bool aligned(const void *p, uintptr_t to) {
     return ((uintptr_t)p & (to - 1)) == 0;
 }
@@ -686,5 +785,31 @@ extern "C" int hs_scatter(const HsScatterArgs *args, void *stream) {
         scatter_private<<<a.blocks, kPrivBlock, (size_t)bytes, st>>>(
             a, (int)vec);
     }
+    return (int)cudaGetLastError();
+}
+
+// the fused sharded join step's scatter over a table of partials
+// (scatter_table): `a` as hs_scatter's global branch over the feed,
+// with n_keys the partials' local keys
+extern "C" int hs_scatter_table(const HsScatterArgs *args,
+                                const HsScatterTable *table, void *stream) {
+    const HsScatterArgs &a = *args;
+    const HsScatterTable &t = *table;
+    if (a.cap == 0) return 0;
+    if (a.blocks < 1 || a.n_aggs < 0 || a.n_aggs > HS_MAX_AGGS ||
+        a.n_keys < 1 || t.n_data < 1 || t.n_key < 1 || t.n_parts < 1 ||
+        t.n_parts > HS_SCATTER_TABLE ||
+        t.n_parts * a.n_aggs > HS_SCATTER_TABLE_PTRS || t.q0 < 0 ||
+        t.n_q < 1 || t.n_q > HS_SCATTER_PLACES ||
+        (int64_t)t.q0 + t.n_q > (int64_t)t.n_data * t.n_key)
+        return (int)cudaErrorInvalidValue;
+    for (int q = 0; q < t.n_q; ++q)
+        if (t.place[q] < -1 || t.place[q] >= t.n_parts)
+            return (int)cudaErrorInvalidValue;
+    const int64_t words = (int64_t)t.n_data * a.n_slots;
+    const int smem_start = words <= 12 * 1024;  // within the default 48 KB
+    scatter_table<<<a.blocks, kGlobalBlock,
+                    smem_start ? (size_t)words * sizeof(int) : 0,
+                    (cudaStream_t)stream>>>(a, t, smem_start);
     return (int)cudaGetLastError();
 }

@@ -54,9 +54,16 @@
 //      its warp rides in the key's unused top 9 bits, so three blocks fit
 //      an SM and a pass over config 4's 288 tiles runs in one wave.
 //      2 + 7 launches instead of 22, and the keys are read once a pass.
-//    The order among equal (code, start) does not matter: of a run of
-//    equal starts only the first can break a chain (the others start at
-//    or before the running end), and the chain's end is their max.
+//    The reference sorts by (code, start, end); the keys hold (code,
+//    start). The order among equal (code, start) does not matter while
+//    every end is at or past its start and end + gap stays within int32:
+//    of a run of equal starts only the first can break a chain (the
+//    others start at or before the running end), and the chain's end is
+//    their max. Where an entry breaks that (an end within `gap` of
+//    2^31 - 1, where the break test's running end + gap wraps), the keys
+//    kernels set a flag on the card and sort_ties_kernel puts each run of
+//    equal keys in order of (end, index) before the scans; with the flag
+//    clear it returns at once (one launch, no host sync).
 // 2. the segmented running max of `end` over the sorted entries, reset
 //    at each code change: a block scan of (flag, max) pairs with the
 //    reference's combine (fa | fb, fb ? mb : max(ma, mb)), which is
@@ -194,7 +201,8 @@ struct Scratch {
     Meta *meta;
     uint32_t *ghist;    // [kSortPasses, 256]      } zeroed by
     uint32_t *status;   // [kSortPasses, tiles, 256] } sort_range_kernel,
-    uint32_t *tilectr;  // [kSortPasses]           } one span
+    uint32_t *tilectr;  // [kSortPasses], then the  } one span
+                        // tie flag (tie_flag)     }
     int32_t *feeds;     // [rows] old rows per slot }
     int32_t *chains;    // [n_group] a table's     } zeroed too
     uint32_t *nlive;    // a table's live entries  }
@@ -222,7 +230,7 @@ inline int64_t layout(int64_t rows, int32_t nb, int32_t n_group, char *base,
         m * 8, m * 8, m * 4, m * 4, m * 4, m * 4, m * 4, m * 4,
         kRangeBlocks * 16, (int64_t)sizeof(Meta),
         kSortPasses * kDigits * 4, kSortPasses * tiles * kDigits * 4,
-        kSortPasses * 4, rows * 4, n_group > 0 ? (n_group + 1) * 4 : 0};
+        (kSortPasses + 1) * 4, rows * 4, n_group > 0 ? (n_group + 1) * 4 : 0};
     int64_t off = 0;
     int64_t at[kParts + 2];
     for (int i = 0; i < kParts; ++i) {
@@ -408,6 +416,21 @@ __device__ __forceinline__ int4 no_range() {
 
 // ---- 1. the narrowed keys and the one-sweep radix sort ----------------
 
+// the tie flag: set by the keys kernels where a live entry could make the
+// order of equal (code, start) entries matter (sort_ties_kernel)
+__device__ __forceinline__ uint32_t *tie_flag(const Scratch &s) {
+    return s.tilectr + kSortPasses;
+}
+
+// an entry for which the order among equal (code, start) can change the
+// chains: its end before its start, or its end + gap past int32 (the
+// running end it sets then wraps in the break test); with neither on any
+// live entry, every entry of a run of equal (code, start) joins the
+// chain of the run's first, whatever their order (sort_ties_kernel)
+__device__ __forceinline__ bool tie_risk(int st, int e, int gap) {
+    return gap < 0 || e < st || (long long)e + gap > (long long)INT_MAX;
+}
+
 // the lanes of the warp whose digit d (0..255, or kDigits for a lane
 // with no entry) equals this lane's: nine ballots, one a bit, which is
 // cheaper than __match_any_sync
@@ -495,6 +518,8 @@ sort_keys_kernel(const __grid_constant__ HsSessionArgs a, Scratch s, int m,
         if (in) {
             int c, st, e;
             entry(a, (int)i, c, st, e);
+            if (c < HS_SESSION_SENT && tie_risk(st, e, a.gap))
+                atomicOr(tie_flag(s), 1u);
             key = make_key(c, st, k);
             s.keys[0][i] = key;
             s.idx[0][i] = (uint32_t)i;
@@ -564,6 +589,7 @@ group_keys_kernel(const __grid_constant__ HsSessGroupArgs a, Scratch s,
         live[it] = i < m && live_entry(a, (int)i, c, st, e);
         key[it] = 0ull;
         if (live[it]) {
+            if (tie_risk(st, e, a.gap)) atomicOr(tie_flag(s), 1u);
             key[it] = ((unsigned long long)(uint32_t)c << k.sbits) |
                       (unsigned long long)((uint32_t)st -
                                            (uint32_t)k.min_start);
@@ -784,6 +810,125 @@ sort_pass_kernel(Scratch s, int m, int pass, int tiles) {
         const uint32_t pos = sh.gofs[d] + (uint32_t)j;
         kout[pos] = k;
         vout[pos] = sh.idx[j];
+    }
+}
+
+// ---- 1b. equal (code, start) entries in the reference's order -----------
+
+constexpr int kTieThreads = 256;
+constexpr int kTieShort = 16;  // a run this short: one thread sorts it
+
+// the sort value of sorted entry p: its end (signed order), then its
+// index, as one unsigned 64-bit number
+__device__ __forceinline__ unsigned long long tie_value(const Scratch &s,
+                                                        uint32_t i) {
+    return ((unsigned long long)((uint32_t)s.end[i] ^ 0x80000000u) << 32) |
+           i;
+}
+
+// The reference sorts by (code, start, end) (lax.sort, num_keys=3; the
+// index breaks the remaining ties, as its CPU sort keeps them), the
+// radix sort by (code, start) only. When the keys kernels set the tie
+// flag, each run of equal keys is put in order of (end, index) here,
+// before the scans: the block of the tile where a run starts takes it,
+// a short run by one thread (insertion sort), a longer one by the block
+// (a bitonic network over the run's values in the keys buffer the sort
+// left free, sorted in place, with the positions past the run taken as
+// +infinity, so they never move). With the flag clear (every entry of a
+// run joins its first's chain: tie_risk), every block returns at once.
+template <bool kLive>
+__global__ void __launch_bounds__(kTieThreads)
+sort_ties_kernel(Scratch s, int m) {
+    __shared__ int s_run[kSortTile];   // runs that start in the tile
+    __shared__ int s_long[kSortTile / (kTieShort + 1) + 1];
+    __shared__ int s_n, s_nlong, s_end;
+    if (*tie_flag(s) == 0u) return;
+    if constexpr (kLive) m = (int)*s.nlive;
+    const int64_t t0 = (int64_t)blockIdx.x * kSortTile;
+    if (t0 >= m) return;
+    const int t1 = (int)min((int64_t)m, t0 + kSortTile);
+    const Meta k = *s.meta;
+    const unsigned long long *keys = s.keys[k.final_buf];
+    uint32_t *idx = s.idx[k.final_buf];
+    unsigned long long *val = s.keys[k.final_buf ^ 1];
+    if (threadIdx.x == 0) s_n = s_nlong = 0;
+    __syncthreads();
+    // (one arena's sentinels are one run, dropped whatever its order)
+    for (int p = (int)t0 + threadIdx.x; p < t1; p += kTieThreads)
+        if (p + 1 < m && keys[p + 1] == keys[p] &&
+            (p == 0 || keys[p - 1] != keys[p]) &&
+            (kLive || (int)(keys[p] >> k.sbits) < k.sent))
+            s_run[atomicAdd(&s_n, 1)] = p;
+    __syncthreads();
+    const int n_runs = s_n;
+    for (int r = threadIdx.x; r < n_runs; r += kTieThreads) {
+        const int p0 = s_run[r];
+        int p1 = p0 + 1;
+        while (p1 < m && p1 - p0 <= kTieShort && keys[p1] == keys[p0]) ++p1;
+        if (p1 - p0 > kTieShort) {
+            s_long[atomicAdd(&s_nlong, 1)] = p0;
+            continue;
+        }
+        for (int a = p0 + 1; a < p1; ++a) {  // insertion sort
+            const uint32_t x = idx[a];
+            const unsigned long long vx = tie_value(s, x);
+            int b = a;
+            while (b > p0 && tie_value(s, idx[b - 1]) > vx) {
+                idx[b] = idx[b - 1];
+                --b;
+            }
+            idx[b] = x;
+        }
+    }
+    __syncthreads();
+    const int n_long = s_nlong;
+    for (int r = 0; r < n_long; ++r) {
+        const int p0 = s_long[r];
+        if (threadIdx.x == 0) s_end = m;
+        __syncthreads();
+        // the run's end: the first key past p0 that differs
+        for (int base = p0 + 1; base < m; base += kTieThreads) {
+            const int p = base + threadIdx.x;
+            if (p < m && keys[p] != keys[p0]) atomicMin(&s_end, p);
+            __syncthreads();
+            if (s_end < m) break;
+            __syncthreads();
+        }
+        const int n = s_end - p0;
+        unsigned long long *v = val + p0;
+        for (int q = threadIdx.x; q < n; q += kTieThreads)
+            v[q] = tie_value(s, idx[p0 + q]);
+        int pw = 1;
+        while (pw < n) pw <<= 1;
+        __syncthreads();
+        for (int kk = 2; kk <= pw; kk <<= 1) {
+            const int h = kk >> 1;
+            for (int q = threadIdx.x; q < pw / 2; q += kTieThreads) {
+                const int i = (q / h) * kk + (q % h);
+                const int j = i ^ (kk - 1);
+                if (j < n && v[i] > v[j]) {
+                    const unsigned long long x = v[i];
+                    v[i] = v[j];
+                    v[j] = x;
+                }
+            }
+            __syncthreads();
+            for (int d = kk >> 2; d >= 1; d >>= 1) {
+                for (int q = threadIdx.x; q < pw / 2; q += kTieThreads) {
+                    const int i = (q / d) * 2 * d + (q % d);
+                    const int j = i + d;
+                    if (j < n && v[i] > v[j]) {
+                        const unsigned long long x = v[i];
+                        v[i] = v[j];
+                        v[j] = x;
+                    }
+                }
+                __syncthreads();
+            }
+        }
+        for (int q = threadIdx.x; q < n; q += kTieThreads)
+            idx[p0 + q] = (uint32_t)v[q];
+        __syncthreads();
     }
 }
 
@@ -1314,6 +1459,7 @@ inline cudaError_t core(const HsSessionArgs &a, Scratch &s,
     for (int pass = 0; pass < kSortPasses; ++pass)
         sort_pass_kernel<false><<<tiles, kSortThreads, kPassSmem, st>>>(
             s, (int)m, pass, tiles);
+    sort_ties_kernel<false><<<tiles, kTieThreads, 0, st>>>(s, (int)m);
     scan_runs<false><<<blocks, kScanBlock, 0, st>>>(s, (int)m);
     scan_runmax<false><<<blocks, kScanBlock, 0, st>>>(s, (int)m);
     scan_breaks<false><<<blocks, kScanBlock, 0, st>>>(s, (int)m, a.gap, 0);
@@ -1384,6 +1530,7 @@ inline cudaError_t core_group(const HsSessGroupArgs &a, Scratch &s,
     for (int pass = 0; pass < kSortPasses; ++pass)
         sort_pass_kernel<true><<<tiles, kSortThreads, kPassSmem, st>>>(
             s, (int)m, pass, tiles);
+    sort_ties_kernel<true><<<tiles, kTieThreads, 0, st>>>(s, (int)m);
     scan_runs<true><<<blocks, kScanBlock, 0, st>>>(s, (int)m);
     scan_runmax<true><<<blocks, kScanBlock, 0, st>>>(s, (int)m);
     scan_breaks<true><<<blocks, kScanBlock, 0, st>>>(s, (int)m, a.gap,

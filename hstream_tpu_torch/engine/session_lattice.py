@@ -221,14 +221,18 @@ def chain_slots(code: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
     """The plain sort + segmented scan (_session_chain_slots,
     lattice.py:1298-1324): per entry, the slot of its chain in the fresh
     arena, or cap for a sentinel. Codes outside [0, 2^22) count as the
-    sentinel, as in the kernel."""
+    sentinel, as in the kernel. The entries sort by (code, start, end),
+    as the reference's lax.sort(num_keys=3), equal ones in their order:
+    where a running end lies within `gap` of 2^31 - 1, the order of equal
+    (code, start) entries decides the chains."""
     code = code.to(torch.int64)
     code = torch.where((code >= 0) & (code < SESSION_SENT_CODE), code,
                        SESSION_SENT_CODE)
     start = start.to(torch.int64)
     end = end.to(torch.int64)
     key = (code << 32) | (start + (1 << 31))
-    order = torch.sort(key, stable=True).indices
+    order = torch.sort(end, stable=True).indices
+    order = order[torch.sort(key[order], stable=True).indices]
     sc, ss, se = code[order], start[order], end[order]
     m = sc.shape[0]
     newrun = torch.ones(m, dtype=torch.bool, device=sc.device)

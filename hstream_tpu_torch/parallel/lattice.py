@@ -1060,31 +1060,66 @@ class ShardedSessionLattice:
 # The reference's ShardedJoinLattice (parallel/lattice.py:340-615): key
 # shard s owns the join-key codes with code mod n_shards == s and holds
 # its own slice of both side stores, on the card of its data-0 shard.
-# Every batch goes to every shard and the ownership test runs inside the
-# probe and insert kernels (csrc/join_core.cuh, csrc/join_insert.cu):
-# shard s probes and inserts only the records it owns. Shard s's match
-# buffer lands in columns [s * match_cap, (s + 1) * match_cap) of one
-# [rows, n_shards * match_cap] buffer (the reference's layout, its header
-# at column s * match_cap); in the fused step its match feed lands at
-# entries [s * match_cap, ...) of one feed, so the reference's
-# all_gather over the key axis is addressing, and the routing kernel
-# (csrc/join_route.cu) hands each partial (d, k) of the inner lattice its
-# keys and valid mask. The eviction runs once a shard.
+# Every batch goes to every card once. The probe and the insert run one
+# launch sequence a card over a table of the shards whose stores lie
+# there (join_groups): the batch's valid records are grouped once by
+# owner (csrc/join_group.cu) and each shard's group is probed against
+# its store and merged into it (the table entries of csrc/join_probe.cu
+# and csrc/join_insert.cu). Shard s's match buffer lands in columns
+# [s * match_cap, (s + 1) * match_cap) of one [rows, n_shards *
+# match_cap] buffer on shard 0's card (the reference's layout, its
+# header at column s * match_cap); in the fused step its match feed
+# lands at entries [s * match_cap, ...) of one feed, so the reference's
+# all_gather over the key axis is addressing, and one scatter a card
+# over the table of the inner lattice's partials there (scatter.cu
+# hs_scatter_table) routes and folds every entry. The eviction runs once
+# a shard.
 
 Stores = list[dict[str, torch.Tensor]]
+Tables = list[tuple[torch.device, list[int]]]
+
+
+def join_groups(devices: list[torch.device]) -> Tables:
+    """The table launches of a sharded join's probe and insert: (card,
+    key shards) for the shards whose stores lie on each card (devices[s]
+    is shard s's), in shard order, one table a card, cut where it would
+    pass what one launch takes (kb.JOIN_GROUP shards)."""
+    by_card: dict = {}
+    for s, d in enumerate(devices):
+        by_card.setdefault(d, []).append(s)
+    return [(d, ks[i:i + kb.JOIN_GROUP]) for d, ks in by_card.items()
+            for i in range(0, len(ks), kb.JOIN_GROUP)]
 
 
 def sharded_join_probe_ref(others: Stores, batch: torch.Tensor, n: int,
                            within: int, cutoff: int, match_cap: int,
                            n_cols_mine: int) -> torch.Tensor:
-    """Plain sharded probe (parallel/lattice.py:420-439): each shard's
-    match buffer over the records it owns, concatenated along the
+    """Plain sharded probe as the reference plans it (parallel/
+    lattice.py:420-439): each shard's match buffer over the records it
+    owns (its owned mask over the whole batch), concatenated along the
     columns -> [rows, n_shards * match_cap]."""
     S = len(others)
     return torch.cat([
         jl.join_probe_ref(o, batch, n, within, cutoff, match_cap,
                           n_cols_mine, owned=jl.owned_mask(batch[0], (S, s)))
         for s, o in enumerate(others)], dim=1)
+
+
+def sharded_join_probe_table_ref(others: Stores, batch: torch.Tensor, n: int,
+                                 within: int, cutoff: int, match_cap: int,
+                                 n_cols_mine: int) -> torch.Tensor:
+    """Plain sharded probe as the table launches compute it: each table's
+    grouping (join_lattice.group_ref), each shard probing only its
+    group's records, its buffer at columns [s * match_cap, ...)."""
+    S = len(others)
+    parts = [None] * S
+    for _dev, ks in join_groups([x["code"].device for x in others]):
+        grouping = jl.group_ref(batch, n, ks, S)
+        for g, s in enumerate(ks):
+            parts[s] = jl.join_probe_ref(
+                others[s], batch, n, within, cutoff, match_cap, n_cols_mine,
+                records=jl.group_records(grouping, g))
+    return torch.cat(parts, dim=1)
 
 
 def sharded_join_insert_ref(mines: Stores, batch: torch.Tensor, n: int,
@@ -1096,40 +1131,43 @@ def sharded_join_insert_ref(mines: Stores, batch: torch.Tensor, n: int,
             for s, m in enumerate(mines)]
 
 
-def _probe_all(others: Stores, batch: torch.Tensor, n: int, within: int,
-               cutoff: int, match_cap: int, n_cols_mine: int, branch,
-               cache: dict) -> torch.Tensor:
-    """The probe kernel in pack mode once a shard, each writing its
-    columns of the mesh's buffer on shard 0's card."""
+def _probe_tables(others: Stores, batch: torch.Tensor, n: int, within: int,
+                  cutoff: int, match_cap: int, n_cols_mine: int, branch,
+                  mines: Stores | None = None,
+                  outs: Stores | None = None) -> torch.Tensor:
+    """The table probe in pack mode once a card (each table's grouping
+    shared with its insert, when `mines` are given), into the mesh's
+    buffer on shard 0's card; a card's other than shard 0's writes its
+    shards' columns of its own buffer, copied in."""
     S = len(others)
     dev0 = others[0]["code"].device
     rows = 5 + n_cols_mine + others[0]["cols"].shape[0]
     packed = torch.empty((rows, S * match_cap), dtype=torch.int32,
                          device=dev0)
-    for s, o in enumerate(others):
-        dev = o["code"].device
-        seg = packed[:, s * match_cap:(s + 1) * match_cap]
+    cache: dict = {}
+    for dev, ks in join_groups([x["code"].device for x in others]):
         with on(dev):
             b = _on_device(batch, dev, cache)
+            grouping = jl.group_cuda(b, n, ks, S)
             if dev == dev0:
-                jl.probe_pack_cuda(o, b, n, within, cutoff, match_cap,
-                                   n_cols_mine, branch, (S, s), seg)
+                jl.probe_table_cuda(others, ks, grouping, b, n, within,
+                                    cutoff, match_cap, n_cols_mine, branch,
+                                    [s * match_cap for s in ks],
+                                    packed=packed)
             else:
-                seg.copy_(jl.probe_pack_cuda(o, b, n, within, cutoff,
-                                             match_cap, n_cols_mine, branch,
-                                             (S, s)).to(dev0))
+                local = torch.empty((rows, len(ks) * match_cap),
+                                    dtype=torch.int32, device=dev)
+                jl.probe_table_cuda(others, ks, grouping, b, n, within,
+                                    cutoff, match_cap, n_cols_mine, branch,
+                                    [g * match_cap for g in range(len(ks))],
+                                    packed=local)
+                for g, s in enumerate(ks):
+                    packed[:, s * match_cap:(s + 1) * match_cap] = local[
+                        :, g * match_cap:(g + 1) * match_cap].to(dev0)
+            if mines is not None:
+                jl.insert_table_cuda(mines, outs, ks, grouping, b, n,
+                                     n_cols_mine)
     return packed
-
-
-def _insert_all(mines: Stores, batch: torch.Tensor, n: int, n_cols: int,
-                outs: Stores, cache: dict) -> Stores:
-    S = len(mines)
-    for s, m in enumerate(mines):
-        dev = m["code"].device
-        with on(dev):
-            jl.insert_cuda(m, _on_device(batch, dev, cache), n, n_cols,
-                           outs[s], (S, s))
-    return outs
 
 
 def sharded_join_probe_insert(mines: Stores, others: Stores,
@@ -1138,21 +1176,19 @@ def sharded_join_probe_insert(mines: Stores, others: Stores,
                               outs: Stores | None = None, branch=None):
     """The match-fetch path's batch on every key shard (probe_insert,
     parallel/lattice.py:394-418): (mines', packed [rows, n_shards *
-    match_cap]). On the card the probe kernel in pack mode and the insert
-    kernel, each with the ownership test, once a shard, the inserts
-    writing `outs`; on the CPU the plain versions."""
+    match_cap]). On the card one launch sequence a card over the table
+    of its shards (join_groups): the grouping, the probe in pack mode and
+    the insert writing `outs`; on the CPU the tables' plain versions."""
     if batch.device.type == "cpu":
         return (sharded_join_insert_ref(mines, batch, n, n_cols_mine),
-                sharded_join_probe_ref(others, batch, n, within, cutoff,
-                                       match_cap, n_cols_mine))
+                sharded_join_probe_table_ref(others, batch, n, within,
+                                             cutoff, match_cap, n_cols_mine))
     if outs is None:
         raise ValueError("sharded join probe: the card needs out stores")
-    cache: dict = {}
-    packed = _probe_all(others, batch, n, within, cutoff, match_cap,
-                        n_cols_mine, branch, cache)
-    new = _insert_all(mines, batch, n, n_cols_mine, outs, cache)
+    packed = _probe_tables(others, batch, n, within, cutoff, match_cap,
+                           n_cols_mine, branch, mines, outs)
     sharded_join_probe_insert.launches += 1
-    return new, packed
+    return outs, packed
 
 
 sharded_join_probe_insert.launches = 0  # wrapper calls that launched them
@@ -1162,13 +1198,13 @@ def sharded_join_probe_only(others: Stores, batch: torch.Tensor, n: int,
                             within: int, cutoff: int, match_cap: int,
                             n_cols_mine: int, branch=None) -> torch.Tensor:
     """The overflow redo on every key shard (probe_only,
-    parallel/lattice.py:420-439): the probe kernel in pack mode with the
-    ownership test once a shard, sharded_join_probe_ref on the CPU."""
+    parallel/lattice.py:420-439): the grouping and the table probe in
+    pack mode once a card, the tables' plain version on the CPU."""
     if batch.device.type == "cpu":
-        return sharded_join_probe_ref(others, batch, n, within, cutoff,
-                                      match_cap, n_cols_mine)
-    packed = _probe_all(others, batch, n, within, cutoff, match_cap,
-                        n_cols_mine, branch, {})
+        return sharded_join_probe_table_ref(others, batch, n, within,
+                                            cutoff, match_cap, n_cols_mine)
+    packed = _probe_tables(others, batch, n, within, cutoff, match_cap,
+                           n_cols_mine, branch)
     sharded_join_probe_only.launches += 1
     return packed
 
@@ -1179,8 +1215,9 @@ sharded_join_probe_only.launches = 0  # wrapper calls that launched them
 def join_route_ref(kid: torch.Tensor, valid: torch.Tensor, n_data: int,
                    n_key: int, local_keys: int):
     """Plain routing of a concatenated match feed to the inner lattice's
-    partials (parallel/lattice.py:505-515): (keys int32 [n_key, m], key
-    column k = kid - k * local_keys, valid bool [n_data, m], row d the
+    partials (parallel/lattice.py:505-515), which the table scatter
+    (scatter_table) does as it reads each entry: (keys int32 [n_key, m],
+    key column k = kid - k * local_keys, valid bool [n_data, m], row d the
     entries i with i mod n_data == d)."""
     m = kid.shape[0]
     k64 = kid.to(torch.int64)
@@ -1190,32 +1227,103 @@ def join_route_ref(kid: torch.Tensor, valid: torch.Tensor, n_data: int,
     return keys, torch.stack([valid & (mine == d) for d in range(n_data)])
 
 
-def join_route(kid: torch.Tensor, valid: torch.Tensor, n_data: int,
-               n_key: int, local_keys: int):
-    """The routing kernel (csrc/join_route.cu) on the card, join_route_ref
-    on the CPU: (keys [n_key, m], valid [n_data, m])."""
-    m = kid.shape[0]
-    if (kid.dtype != torch.int32 or valid.dtype != torch.bool
-            or valid.shape != (m,) or kid.dim() != 1
-            or not kid.is_contiguous() or not valid.is_contiguous()
-            or kid.device != valid.device):
-        raise ValueError("join route: kid int32 [m] and valid bool [m], "
-                         "contiguous on one device")
-    if kid.device.type == "cpu":
-        return join_route_ref(kid, valid, n_data, n_key, local_keys)
-    keys = torch.empty((n_key, m), dtype=torch.int32, device=kid.device)
-    vd = torch.empty((n_data, m), dtype=torch.bool, device=kid.device)
-    a = kb.JoinRouteArgs()
-    a.m, a.n_data, a.n_key, a.local_keys = m, n_data, n_key, local_keys
-    a.kid, a.valid = kid.data_ptr(), valid.data_ptr()
-    a.keys, a.valid_out = keys.data_ptr(), vd.data_ptr()
-    kb.check(kb.lib().hs_join_route(ctypes.byref(a), kb.stream_of(kid)),
-             "join_route")
-    join_route.launches += 1
-    return keys, vd
+def scatter_groups(state: ShardedState, n_aggs: int
+                   ) -> list[tuple[torch.device, list[tuple[int, int]]]]:
+    """The table launches of the fused step's scatter: (card, partials
+    (d, k)) for the inner lattice's partials on each card, in (d, k)
+    order, cut where they would pass what one launch takes
+    (kb.SCATTER_TABLE partials, kb.SCATTER_TABLE_PTRS plane pointer
+    sets, kb.SCATTER_PLACES consecutive partials of the mesh)."""
+    per = min(kb.SCATTER_TABLE, kb.SCATTER_TABLE_PTRS // max(n_aggs, 1))
+    K = state.n_key
+    by_card: dict = {}
+    for d in range(state.n_data):
+        for k in range(K):
+            by_card.setdefault(_device(state[d][k]), []).append((d, k))
+    out: list = []
+    for dev, ps in by_card.items():
+        for d, k in ps:
+            cur = out[-1][1] if out and out[-1][0] == dev else None
+            if cur is None or len(cur) == per or \
+                    (d - cur[0][0]) * K + k - cur[0][1] >= kb.SCATTER_PLACES:
+                out.append((dev, []))
+            out[-1][1].append((d, k))
+    return out
 
 
-join_route.launches = 0  # wrapper calls that launched the kernel
+def scatter_table_ref(spec: LatticeSpec, state: ShardedState, parts,
+                      wm_rel: int, kid: torch.Tensor, ts: torch.Tensor,
+                      valid: torch.Tensor, cols) -> None:
+    """Plain table scatter (the fused step's middle, parallel/
+    lattice.py:505-518): the feed routed (join_route_ref) and scattered
+    into each partial (d, k) of `parts`, in place."""
+    keys, vd = join_route_ref(kid, valid, state.n_data, state.n_key,
+                              spec.n_keys)
+    for d, k in parts:
+        lattice.scatter_step_ref(spec, state[d][k], int(wm_rel), keys[k],
+                                 ts, vd[d], cols)
+
+
+def _scatter_aggs(spec: LatticeSpec) -> list[int]:
+    return [i for i, a in enumerate(spec.aggs)
+            if a.kind != AggKind.COUNT_ALL and a.kind not in
+            lattice._TOPK_KINDS]
+
+
+def _scatter_table_args(spec: LatticeSpec, state: ShardedState, parts,
+                        aggs: list[int]) -> kb.ScatterTable:
+    """A table scatter's partials: partial parts[p]'s planes in place p,
+    each partial q = d * n_key + k of the mesh from the table's first,
+    q0, named by its place at place[q - q0] (-1: another table's)."""
+    qs = [d * state.n_key + k for d, k in parts]
+    if not 1 <= len(parts) <= kb.SCATTER_TABLE or \
+            len(parts) * len(aggs) > kb.SCATTER_TABLE_PTRS or \
+            max(qs) - min(qs) >= kb.SCATTER_PLACES:
+        raise ValueError(f"a scatter table of {len(parts)} partials does "
+                         f"not fit a launch")
+    t = kb.ScatterTable()
+    t.n_data, t.n_key, t.n_parts = state.n_data, state.n_key, len(parts)
+    t.q0, t.n_q = min(qs), max(qs) - min(qs) + 1
+    t.data_div.m, t.data_div.shift = lattice.divisor(state.n_data)
+    t.key_div.m, t.key_div.shift = lattice.divisor(spec.n_keys)
+    for q in range(kb.SCATTER_PLACES):
+        t.place[q] = -1
+    for p, (d, k) in enumerate(parts):
+        t.place[qs[p] - t.q0] = p
+        part = state[d][k]
+        t.p[p].count = kb.ptr(part["count"])
+        t.p[p].slot_start = kb.ptr(part["slot_start"])
+        t.p[p].touched = kb.ptr(part["touched"])
+        for g, i in enumerate(aggs):
+            agg = spec.aggs[i]
+            name = lattice._plane_name(i, agg)
+            pp = t.pp[p * len(aggs) + g]
+            pp.plane = kb.ptr(part[name])
+            if agg.kind == AggKind.AVG:
+                pp.plane_n = kb.ptr(part[name + "_n"])
+    return t
+
+
+def scatter_table_cuda(spec: LatticeSpec, state: ShardedState, parts,
+                       wm_rel: int, kid: torch.Tensor, ts: torch.Tensor,
+                       valid: torch.Tensor, cols) -> None:
+    """The table scatter's launch over the partials `parts` (on the feed's
+    card): every (entry, window) of the feed read once, routed and folded
+    in place (csrc/scatter.cu hs_scatter_table)."""
+    aggs = _scatter_aggs(spec)
+    d0, k0 = parts[0]
+    args = lattice._step_args(spec, state[d0][k0], int(wm_rel), kid, ts,
+                              valid, cols, aggs)
+    args.mode = kb.SCATTER_GLOBAL
+    args.blocks = max(1, -(-args.cap * spec.windows_per_record // 256))
+    t = _scatter_table_args(spec, state, parts, aggs)
+    kb.check(kb.lib().hs_scatter_table(ctypes.byref(args), ctypes.byref(t),
+                                       kb.stream_of(ts)),
+             "scatter_table")
+    scatter_table_cuda.launches += 1
+
+
+scatter_table_cuda.launches = 0  # launches of the table scatter
 
 
 def _feed_columns(feed, m: int, dev: torch.device) -> dict:
@@ -1227,6 +1335,20 @@ def _feed_columns(feed, m: int, dev: torch.device) -> dict:
     return cols
 
 
+def _step_inner(spec, inner_state: ShardedState, wm_rel: int, kid, ts,
+                valid, cols, progs, scatter) -> None:
+    """The fused step's middle: the inner step's programs once over the
+    whole feed, then `scatter` once a table of partials a card (the feed
+    copied to each card once)."""
+    eval_programs(progs, cols, valid)
+    for dev, parts in scatter_groups(inner_state, len(_scatter_aggs(spec))):
+        with on(dev):
+            scatter(spec, inner_state, parts, int(wm_rel),
+                    _on_device(kid, dev), _on_device(ts, dev),
+                    _on_device(valid, dev),
+                    {c: _on_device(v, dev) for c, v in cols.items()})
+
+
 def sharded_join_probe_insert_step_ref(mines: Stores, others: Stores,
                                        batch: torch.Tensor, n: int,
                                        within: int, cutoff: int,
@@ -1234,11 +1356,12 @@ def sharded_join_probe_insert_step_ref(mines: Stores, others: Stores,
                                        spec, inner_state: ShardedState,
                                        wm_rel: int, ts_off: int, progs,
                                        feed):
-    """Plain fused sharded step (parallel/lattice.py:470-528): every
-    shard's match feed over the records it owns, concatenated; the inner
-    step's programs over it; each partial (d, k) of the inner lattice
-    scattered with its routed keys and valid mask (in place); then each
-    shard's insert. Returns (mines', per-shard totals int32 [n_shards])."""
+    """Plain fused sharded step as the reference plans it (parallel/
+    lattice.py:470-528): every shard's match feed over the records it
+    owns, concatenated; the inner step's programs over it; each partial
+    (d, k) of the inner lattice scattered with its routed keys and valid
+    mask (in place); then each shard's insert. Returns (mines', per-shard
+    totals int32 [n_shards])."""
     S = len(others)
     parts = [jl._join_match_feed(o, batch, n, within, cutoff, match_cap,
                                  *feed, owned=jl.owned_mask(batch[0], (S, s)))
@@ -1265,6 +1388,35 @@ def sharded_join_probe_insert_step_ref(mines: Stores, others: Stores,
     return sharded_join_insert_ref(mines, batch, n, n_cols_mine), totals
 
 
+def sharded_join_probe_insert_step_table_ref(
+        mines: Stores, others: Stores, batch: torch.Tensor, n: int,
+        within: int, cutoff: int, match_cap: int, n_cols_mine: int, spec,
+        inner_state: ShardedState, wm_rel: int, ts_off: int, progs, feed):
+    """Plain fused sharded step as the table launches compute it: each
+    table's grouping, each shard's feed over its group's records at
+    entries [s * match_cap, ...), the programs once, the table scatter
+    (scatter_table_ref) a table of partials, then each shard's insert
+    of the records it owns (the group's records, in order)."""
+    S = len(others)
+    parts = [None] * S
+    for _dev, ks in join_groups([x["code"].device for x in others]):
+        grouping = jl.group_ref(batch, n, ks, S)
+        for g, s in enumerate(ks):
+            parts[s] = jl._join_match_feed(
+                others[s], batch, n, within, cutoff, match_cap, *feed,
+                records=jl.group_records(grouping, g))
+    totals = torch.tensor([p[0] for p in parts], dtype=torch.int32,
+                          device=batch.device)
+    kid = torch.cat([p[1] for p in parts])
+    ts = jl._wrap32(torch.cat([p[2] for p in parts]).to(torch.int64)
+                    + ts_off)
+    valid = torch.cat([p[3] for p in parts])
+    cols = {k: torch.cat([p[4][k] for p in parts]) for k in parts[0][4]}
+    _step_inner(spec, inner_state, wm_rel, kid, ts, valid, cols, progs,
+                scatter_table_ref)
+    return sharded_join_insert_ref(mines, batch, n, n_cols_mine), totals
+
+
 def sharded_join_probe_insert_step(mines: Stores, others: Stores,
                                    batch: torch.Tensor, n: int, within: int,
                                    cutoff: int, match_cap: int,
@@ -1273,16 +1425,16 @@ def sharded_join_probe_insert_step(mines: Stores, others: Stores,
                                    ts_off: int, progs, feed,
                                    outs: Stores | None = None, branch=None):
     """The fused batch on every key shard (probe_insert_step,
-    parallel/lattice.py:470-528): each shard's probe in feed mode with the
-    ownership test writes its segment of one feed, the inner step's
-    programs run over it once, the routing kernel gives each partial its
-    keys and valid mask, the scatter folds each partial, and each shard's
+    parallel/lattice.py:470-528): a card's grouping and table probe in
+    feed mode write its shards' segments of one feed (join_groups), the
+    inner step's programs run over it once, the table scatter routes and
+    folds it into the partials (one launch a card), and each card's table
     insert writes `outs`; nothing is fetched. `spec` is the inner
     lattice's local spec, `progs` its step programs. Returns (mines',
-    per-shard match totals int32 [n_shards] on shard 0's card). The plain
-    version on the CPU."""
+    per-shard match totals int32 [n_shards] on shard 0's card). The
+    tables' plain version on the CPU."""
     if batch.device.type == "cpu":
-        return sharded_join_probe_insert_step_ref(
+        return sharded_join_probe_insert_step_table_ref(
             mines, others, batch, n, within, cutoff, match_cap, n_cols_mine,
             spec, inner_state, wm_rel, ts_off, progs, feed)
     if outs is None:
@@ -1296,39 +1448,44 @@ def sharded_join_probe_insert_step(mines: Stores, others: Stores,
     cols = _feed_columns(feed, m, dev0)
     totals = torch.empty(S, dtype=torch.int32, device=dev0)
     cache: dict = {}
-    for s, o in enumerate(others):
-        dev = o["code"].device
-        at = s * match_cap
+    for dev, ks in join_groups([x["code"].device for x in others]):
         with on(dev):
             b = _on_device(batch, dev, cache)
+            grouping = jl.group_cuda(b, n, ks, S)
             if dev == dev0:
-                total, *_ = jl.feed_cuda(o, b, n, within, cutoff, match_cap,
-                                         n_cols_mine, ts_off, feed, branch,
-                                         (S, s), (kid, ts, valid, cols, at))
+                jl.probe_table_cuda(others, ks, grouping, b, n, within,
+                                    cutoff, match_cap, n_cols_mine, branch,
+                                    [s * match_cap for s in ks],
+                                    feed=(feed, ts_off),
+                                    dest=(kid, ts, valid, cols),
+                                    totals=totals)
             else:
-                total, k_, t_, v_, c_ = jl.feed_cuda(
-                    o, b, n, within, cutoff, match_cap, n_cols_mine, ts_off,
-                    feed, branch, (S, s))
-                for full, part in [(kid, k_), (ts, t_), (valid, v_)] + [
-                        (cols[c], c_[c]) for c in cols]:
-                    full[at:at + match_cap] = part.to(dev0)
-            totals[s:s + 1] = total.to(dev0)
+                lm = len(ks) * match_cap
+                dest = (torch.empty(lm, dtype=torch.int32, device=dev),
+                        torch.empty(lm, dtype=torch.int32, device=dev),
+                        torch.empty(lm, dtype=torch.bool, device=dev),
+                        _feed_columns(feed, lm, dev))
+                tot = torch.empty(len(ks), dtype=torch.int32, device=dev)
+                jl.probe_table_cuda(others, ks, grouping, b, n, within,
+                                    cutoff, match_cap, n_cols_mine, branch,
+                                    [g * match_cap for g in range(len(ks))],
+                                    feed=(feed, ts_off), dest=dest,
+                                    totals=tot)
+                for g, s in enumerate(ks):
+                    at, lat = s * match_cap, g * match_cap
+                    for full, part in [(kid, dest[0]), (ts, dest[1]),
+                                       (valid, dest[2])] + [
+                            (cols[c], dest[3][c]) for c in cols]:
+                        full[at:at + match_cap] = \
+                            part[lat:lat + match_cap].to(dev0)
+                    totals[s:s + 1] = tot[g:g + 1].to(dev0)
+            jl.insert_table_cuda(mines, outs, ks, grouping, b, n,
+                                 n_cols_mine)
     with on(dev0):
-        eval_programs(progs, cols, valid)
-        keys, vd = join_route(kid, valid, inner_state.n_data,
-                              inner_state.n_key, spec.n_keys)
-    for d in range(inner_state.n_data):
-        for k in range(inner_state.n_key):
-            part = inner_state[d][k]
-            pdev = _device(part)
-            with on(pdev):
-                lattice.scatter_step(
-                    spec, part, int(wm_rel), _on_device(keys[k], pdev),
-                    _on_device(ts, pdev), _on_device(vd[d], pdev),
-                    {c: _on_device(v, pdev) for c, v in cols.items()})
-    new = _insert_all(mines, batch, n, n_cols_mine, outs, cache)
+        _step_inner(spec, inner_state, wm_rel, kid, ts, valid, cols, progs,
+                    scatter_table_cuda)
     sharded_join_probe_insert_step.launches += 1
-    return new, totals
+    return outs, totals
 
 
 sharded_join_probe_insert_step.launches = 0  # wrapper calls that launched

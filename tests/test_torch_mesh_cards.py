@@ -40,6 +40,7 @@ import pytest
 import torch
 
 import hstream_tpu_torch.engine as T
+from hstream_tpu_torch.engine import join_lattice as jl
 from hstream_tpu_torch.engine import snapshot as tsnap
 from hstream_tpu_torch.engine.expr import Col
 from hstream_tpu_torch.engine.kernels.binding import (
@@ -402,9 +403,10 @@ def check_joins_against_one_card(across, one, path):
     mesh's."""
     from hstream_tpu_torch.sql import stream_codegen
     from hstream_tpu_torch.sql.codegen import make_executor
-    counters = ((pl.sharded_join_probe_insert_step, pl.join_route)
+    counters = ((pl.sharded_join_probe_insert_step, pl.scatter_table_cuda)
                 if path == "fused" else (pl.sharded_join_probe_insert,))
-    counters += (pl.sharded_join_evict,)
+    counters += (pl.sharded_join_evict, jl.group_cuda, jl.probe_table_cuda,
+                 jl.insert_table_cuda)
     before = [c.launches for c in counters]
     sql = JOIN_SQL[path]
     sample = [{"k": "k0", "x": 1.0}]

@@ -397,7 +397,11 @@ def test_binding_structs_mirror_the_header():
           "HsJoinInsertArgs": kb.JoinInsertArgs,
           "HsJoinEvictSide": kb.JoinEvictSide,
           "HsJoinEvictArgs": kb.JoinEvictArgs,
-          "HsJoinRouteArgs": kb.JoinRouteArgs, "HsParts": kb.Parts,
+          "HsJoinGroupArgs": kb.JoinGroupArgs,
+          "HsJoinTableShard": kb.JoinTableShard,
+          "HsJoinTable": kb.JoinTable, "HsScatterPart": kb.ScatterPart,
+          "HsScatterPlanes": kb.ScatterPlanes,
+          "HsScatterTable": kb.ScatterTable, "HsParts": kb.Parts,
           "HsMergedCloseArgs": kb.MergedCloseArgs,
           "HsMergedTouchedArgs": kb.MergedTouchedArgs,
           "HsShardMergeArgs": kb.ShardMergeArgs}

@@ -225,3 +225,138 @@ def test_group_args_name_each_shards_planes(monkeypatch):
                        kb.SESS_RECORD, GAP, 0, 0)
     sl._group_args(many, ar, ar, list(range(14)), 15, 0, kb.SESS_RECORD,
                    GAP, 0, 0)
+
+
+# ---- ties of (code, start) at the int32 wrap ------------------------------
+#
+# The reference sorts the chain entries by (code, start, end). Where a
+# running end lies within the gap of 2^31 - 1, its end + gap wraps in the
+# break test, and which of two entries with equal (code, start) comes
+# first decides the chains. The plain chain assignment, and with it the
+# single-card step and merge, take equal (code, start) by end as the
+# reference does, in either input order.
+
+T_WRAP = 2**31 - 101
+# (code, start, end) of the entries; "three": the chains [0, 0, 1]
+TIES = {
+    "three": ([5, 5, 5], [T_WRAP - 200, T_WRAP - 200, T_WRAP - 60],
+              [T_WRAP - 10, T_WRAP - 190, T_WRAP - 60]),
+}
+
+
+def _tie_case(name: str):
+    """(code, start, end) int32 arrays: TIES[name], or for "many" a
+    random table near the wrap with runs of equal (code, start), ends
+    before their starts (wrapped) and ends whose + gap wraps."""
+    if name in TIES:
+        return tuple(np.array(x, np.int64).astype(np.int32)
+                     for x in TIES[name])
+    rng = np.random.default_rng(17)
+    m = 120
+    code = rng.integers(0, 4, m).astype(np.int32)
+    start = _wrap32(T_WRAP + rng.integers(-30, -5, m) * 10)
+    end = _wrap32(start.astype(np.int64)
+                  + rng.choice([0, 0, 10, 140, 190, 400], m))
+    return code, start, end
+
+
+def _ordered(x, order: str):
+    return x[::-1].copy() if order == "reversed" else x
+
+
+@pytest.mark.parametrize("order", ["given", "reversed"])
+@pytest.mark.parametrize("case", ["three", "many"])
+def test_tied_starts_at_the_wrap_take_the_references_chains(case, order):
+    """chain_slots against the reference's _session_chain_slots."""
+    code, start, end = (_ordered(x, order) for x in _tie_case(case))
+    want = np.asarray(JL._session_chain_slots(
+        jnp.asarray(code), jnp.asarray(start), jnp.asarray(end),
+        np.int32(GAP), len(code)))
+    got = sl.chain_slots(torch.from_numpy(code), torch.from_numpy(start),
+                         torch.from_numpy(end), GAP, len(code)).numpy()
+    np.testing.assert_array_equal(got, want)
+    if case == "three":
+        assert list(got) == ([0, 0, 1] if order == "given" else [1, 0, 0])
+    else:   # equal (code, start) do meet, and the wrap changes chains
+        key = code.astype(np.int64) << 32 | (start.astype(np.int64)
+                                             + 2**31)
+        assert len(np.unique(key)) < len(key)
+        assert (end.astype(np.int64) + GAP > 2**31 - 1).any()
+
+
+def _tie_arena(code, start, end, rng):
+    """The reference's arena holding the entries in its first slots, with
+    integral plane values (so every sum is exact)."""
+    from test_torch_session_lattice import CAP, JSPEC
+
+    a = JL.session_plane_np(JSPEC, CAP)
+    n = len(code)
+    a["code"][:n], a["t0"][:n], a["t1"][:n] = code, start, end
+    for name, agg in zip(JL.session_plane_names(JSPEC), JSPEC.aggs):
+        p = a[name]
+        if p.dtype == np.int8 or p.ndim > 1:
+            p[:n] = rng.integers(0, 3, p[:n].shape)
+        else:
+            p[:n] = rng.integers(1, 9, n)
+            if name + "_n" in a:
+                a[name + "_n"][:n] = rng.integers(1, 9, n)
+    return a
+
+
+@pytest.mark.parametrize("order", ["given", "reversed"])
+@pytest.mark.parametrize("case", ["three", "many"])
+@pytest.mark.parametrize("program", ["step", "merge"])
+def test_tied_starts_at_the_wrap_in_the_step_and_merge(program, case,
+                                                       order):
+    """The single-card session step (B11) and merge (B12), plain on the
+    CPU, against the reference's session_step_kernel and
+    session_merge_kernel: the tied entries are arena rows, and the batch
+    repeats their starts (records) or the entries themselves
+    (segments)."""
+    import test_torch_session_lattice as tsl
+
+    rng = np.random.default_rng(len(case) + 3 * len(order))
+    code, start, end = (_ordered(x, order) for x in _tie_case(case))
+    arena = _tie_arena(code, start, end, rng)
+    close_cut = -(1 << 30)
+    if program == "step":
+        n = len(code)
+        ts = start.astype(np.int64)
+        masks = [rng.random(n) < 0.1 for a in tsl._aggs(tsl.TM)
+                 if a.input is not None]
+        packed = JL.pack_batch_host(
+            n, n, code, ts, np.ones(n, bool),
+            {"v": rng.integers(-9, 9, n).astype(np.float32),
+             "w": rng.integers(-9, 9, n).astype(np.int32),
+             "b": rng.random(n) < 0.5}, masks, tsl.LAYOUT)
+        step = JL.session_step_kernel(tsl.JSPEC, tsl.JSCHEMA, tsl.LAYOUT,
+                                      tsl.CAP, n)
+        want = {k: np.array(v) for k, v in step(
+            {k: jnp.asarray(v) for k, v in arena.items()},
+            jnp.asarray(packed), np.int32(GAP), np.int32(close_cut),
+            np.int32(0)).items()}
+        out = sl.init_session_arena(TSPEC, tsl.CAP, "cpu")
+        p = torch.from_numpy(packed.copy())
+        sl.session_step(TSPEC, {k: torch.from_numpy(v.copy())
+                                for k, v in arena.items()}, out, p,
+                        sl.session_inputs(TSPEC, tsl.LAYOUT, p,
+                                          sl.session_programs(
+                                              TSPEC, tsl.TSCHEMA)),
+                        GAP, close_cut, 0)
+        got = {k: v.numpy() for k, v in out.items()}
+    else:
+        seg = _tie_arena(code, start, end, rng)
+        seg = {k: v[:len(code)].copy() for k, v in seg.items()}
+        merge = JL.session_merge_kernel(tsl.JSPEC, tsl.CAP, len(code))
+        want = {k: np.asarray(v) for k, v in merge(
+            {k: jnp.asarray(v) for k, v in arena.items()},
+            {k: jnp.asarray(v) for k, v in seg.items()}, np.int32(GAP),
+            np.int32(close_cut), np.int32(0)).items()}
+        out = sl.init_session_arena(TSPEC, tsl.CAP, "cpu")
+        sl.session_merge(TSPEC, {k: torch.from_numpy(v.copy())
+                                 for k, v in arena.items()}, out,
+                         {k: torch.from_numpy(v) for k, v in seg.items()},
+                         GAP, close_cut, 0)
+        got = {k: v.numpy() for k, v in out.items()}
+    tsl._assert_arenas(got, want, True)
+    assert (want["code"] < SENT).sum() > 1

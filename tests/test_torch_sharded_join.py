@@ -402,15 +402,15 @@ def test_fused_step_matches_the_reference(meshes, feed_name, where,
 
 
 def test_route_matches_the_reference_routing():
-    """The routing kernel's plain version: key column k = kid - k * Kl
-    (int32 wrap), valid row d = valid & (i mod n_data == d)."""
+    """The plain model of the routing the table scatter does as it reads
+    each feed entry: key column k = kid - k * Kl (int32 wrap), valid row
+    d = valid & (i mod n_data == d)."""
     rng = np.random.default_rng(4)
     m = 300
     kid = torch.from_numpy(rng.integers(-5, 40, m).astype(np.int32))
     kid[0] = (1 << 31) - 1
     valid = torch.from_numpy(rng.random(m) < 0.7)
-    keys, vd = pl.join_route(kid, valid, 3, 4, 10)
-    assert pl.join_route.launches == 0      # the plain one on the CPU
+    keys, vd = pl.join_route_ref(kid, valid, 3, 4, 10)
     i = np.arange(m)
     for k in range(4):
         want = (kid.numpy().astype(np.int64) - 10 * k).astype(np.int32)

@@ -2,7 +2,8 @@
 another checkout (the parent commit's, or any tree with chip_smoke.py),
 on one CUDA card, in one call.
 
-    python3 ab.py scatter|join|decode|expr|close|remap|unpack|session OTHER_TREE
+    python3 ab.py scatter|join|decode|expr|close|remap|unpack|session|sharded \
+        OTHER_TREE
 
 runs OTHER_TREE, this tree, this tree, OTHER_TREE, each in a process of
 its own that builds its tree's kernels and times the group on the same
@@ -151,6 +152,27 @@ timed as the remap group's are (device ms over 10 calls, ", call" and
     users, and 50,000 segments;
   * "ptxas": session_step.cu's and session_merge.cu's registers, frames
     and spills.
+
+sharded: the merged changelog extract (B19a) and the key-sharded session
+extract (B19c), timed as the close group's are (device ms over 50 calls,
+", call" and " by kernel"), on this checkout's chip_smoke inputs so both
+trees time the same ones:
+  * "B19a merged touched push": parallel.lattice.touched_merged at the
+    push query's shape (SH_MESH's four partials of 512 keys x 3 slots,
+    one window's cells touched), the re-touch of the flags timed alone
+    and taken out;
+  * "B6 touched push": the single-card extract (lattice.extract_touched,
+    its one launch) of the push query over 1024 keys x 3 slots, the same
+    window's cells touched: the yardstick of the merged one launch;
+  * "B19a merged touched 15b": the same at 15b's shape
+    (chip_smoke.p15_touched_inputs: the join's inner lattice, K = 2^19 on
+    the (2, 2) mesh, 390,000 cells touched), the refill of the flags
+    timed alone and taken out;
+  * "B19c sharded extract": parallel.lattice.sharded_session_extract at
+    15a's inputs (chip_smoke.p15_inputs' four arenas of 2^15 slots, 6,250
+    named slots in [4, 8192], p15_extract_slots);
+  * "ptxas": touched.cu's and session_extract.cu's registers, frames and
+    spills.
 """
 
 from __future__ import annotations
@@ -805,6 +827,74 @@ def _session() -> dict:
     return out
 
 
+def _sharded() -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine.kernels import build as kbuild
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    built = kbuild.build()
+    dev = torch.device("cuda", 0)
+    here = _here_chip_smoke()
+    out = {"ptxas": _ptxas(built.log, ("touched.cu", "session_extract.cu"))}
+
+    def ms(name, fn, less=(0.0, 0.0)):
+        dev_ms, call_ms, _src = cs.kernel_ms(fn, 50)
+        out[name], out[name + ", call"] = dev_ms - less[0], call_ms - less[1]
+        d = cs.profiled_calls(fn, 5, name)
+        out[name + " by kernel"] = (None if d is None else {
+            k: v / 5e3 for k, v in d.items()})
+
+    # B19a at the push query's shape: the (2, 2) mesh's partials of
+    # 512 keys, one window's cells touched (a second's 2^20 batch)
+    spec = here.push_spec(512)
+    st = here.random_sharded_state(spec, dev, 600)
+    mo = spec.n_keys * spec.n_slots
+
+    def retouch():
+        for row in st:
+            for p in row:
+                p["touched"][:, 0] = True
+
+    for row in st:
+        for p in row:
+            p["touched"].zero_()
+    less = cs.kernel_ms(retouch, 50)[:2]
+    ms("B19a merged touched push", lambda: (retouch(), pl.touched_merged(
+        spec, st, mo)), less)
+    # the single-card extract (B6's one launch) of the same query over
+    # the whole lattice (1024 keys), the same window's cells touched
+    one = lattice.init_state(here.push_spec(1024), dev)
+
+    def retouch_one():
+        one["touched"][:, 0] = True
+
+    less = cs.kernel_ms(retouch_one, 50)[:2]
+    ms("B6 touched push", lambda: (retouch_one(), lattice.extract_touched(
+        here.push_spec(1024), one, 1024 * spec.n_slots)), less)
+    # B19a at 15b's shape (this checkout's p15_touched_inputs)
+    jspec, jst, jmo = here.p15_touched_inputs(dev)
+    saved = [[p["touched"].clone() for p in row] for row in jst]
+
+    def refill():
+        for row, srow in zip(jst, saved):
+            for p, s in zip(row, srow):
+                p["touched"].copy_(s)
+
+    less = cs.kernel_ms(refill, 20)[:2]
+    ms("B19a merged touched 15b", lambda: (refill(), pl.touched_merged(
+        jspec, jst, jmo)), less)
+    del jst, saved
+    # B19c at 15a's inputs (this checkout's p15_inputs and slot lists)
+    spec4, arenas, _packed, _inputs, _seg = here.p15_inputs(dev)
+    slots = here.p15_extract_slots(arenas)
+    ms("B19c sharded extract", lambda: pl.sharded_session_extract(
+        spec4, arenas, slots))
+    return out
+
+
 def _ptxas(log: str, sources) -> dict:
     """{source: [ptxas lines]}: each kernel's function properties
     (stack frame, spills) and registers, from nvcc's -Xptxas -v output
@@ -824,7 +914,7 @@ def _ptxas(log: str, sources) -> dict:
 
 GROUPS = {"scatter": _scatter, "join": _join, "decode": _decode,
           "expr": _expr, "close": _close, "remap": _remap,
-          "unpack": _unpack, "session": _session}
+          "unpack": _unpack, "session": _session, "sharded": _sharded}
 
 
 def main() -> int:

@@ -192,7 +192,12 @@ Phases, each of which asserts (any failure exits non-zero):
    mesh, hstream_tpu_torch.parallel): in phase 3, the block unpack,
    the merged close (modes 0, 1 and 2 and per slot), the merged
    changelog extract and the snapshot merge against their plain
-   versions, exact; 14a configs 1 and 2 through ShardedQueryExecutor,
+   versions, exact; the merged extract also on meshes (2, 2), (1, 4),
+   (4, 1) and (2, 3) in its one launch and staged (max_out cuts, fill
+   columns, a key shard touched nowhere, every kind a mesh takes), and
+   with the merged close on (2, 16) and (1, 24), which pass the 16
+   partials one launch reads and run as two launches; 14a configs 1 and
+   2 through ShardedQueryExecutor,
    24 batches of 2^20 records (2^19 a data shard, 1 s of stream each)
    and a closer: every closed row equals numpy and the single-card
    QueryExecutor's, one merged close launch and one fetch a cycle;
@@ -207,7 +212,8 @@ Phases, each of which asserts (any failure exits non-zero):
    (B19c, B19b): in phase 3, the sharded session step and merge over
    one table of the card's key shards and over split tables (every
    aggregate kind), timed at 15a's shapes, the extract over four slot
-   lists, the remap through one residue-preserving table, the sharded
+   lists (one table and split ones, the named prefixes by value and
+   uploaded), the remap through one residue-preserving table, the sharded
    probe + insert, probe-only, fused step into (D, K) inner lattices,
    the table scatter and the eviction against their plain versions;
    15a config 4 at phase 7's widths (phase 7's stream, 100,000 user
@@ -224,7 +230,9 @@ Phases, each of which asserts (any failure exits non-zero):
    blocks, its closed sessions equal numpy, then its snapshot restored
    onto one card and back onto a mesh, each resuming equal to numpy.
    Each new kernel is then held against its plain version at its
-   path's shapes and timed; events/s are printed as a diagnostic;
+   path's shapes and timed (the merged changelog extract also at 15b's
+   inner lattice, captured at its last batch); events/s are printed as
+   a diagnostic;
 16. a "phase wall s {...}" line (each phase's wall seconds, also logged
    as each phase ends), a {"kernels": [...]} line (each kernel's
    launches on the main paths, its error against the plain version and
@@ -232,8 +240,10 @@ Phases, each of which asserts (any failure exits non-zero):
 
 Device times come from torch.profiler over repeated calls, warmed by
 spin kernels it leaves out; a profile whose per-kernel event counts are
-not multiples of the calls is not used, and CUDA events time the calls
-instead (profiled_calls).
+not multiples of the calls, or that lacks a kernel the call must
+launch (the rows of phase 15 and of this port's newest kernels name
+theirs), is not used, and CUDA events time the calls instead
+(profiled_calls).
 
 Inputs come from fixed seeds with numpy. Tolerances: integer planes,
 slot_start, HLL registers and estimates, quantile bins and estimates,
@@ -352,47 +362,60 @@ def profiled(fn):
     return out, dev
 
 
-def profiled_calls(fn, iters: int, what: str = "") -> dict | None:
+def profiled_calls(fn, iters: int, what: str = "",
+                   expect: tuple = ()) -> dict | None:
     """{device event name: device us} of `iters` calls of fn, or None
     when the profiler lost events: one call launches each of its
     kernels (and copies and fills) a fixed number of times, so each
-    device event must be recorded a multiple of `iters` times; the
-    profile is taken twice before it is given up. The profiler drops
-    events now and then, and a short sum would pass for a fast kernel."""
+    device event must be recorded a multiple of `iters` times, and each
+    name in `expect` (a part of a device event's name: the kernels the
+    call must launch) must be among them, since a kernel dropped whole
+    leaves no count to test; the profile is taken twice before it is
+    given up. The profiler drops events now and then, and a short sum
+    would pass for a fast kernel."""
     for _attempt in range(2):
         _, dev, counts = _profile(lambda: [fn() for _ in range(iters)])
         short = {k: c for k, c in counts.items() if c % iters}
-        if counts and not short:
+        missing = [e for e in expect if not any(e in k for k in counts)]
+        if counts and not short and not missing:
             return dev
     log(f"profiler: events lost over {iters} calls of {what or 'a call'} "
         f"({len(short)} kernels recorded a count that is not a multiple "
-        f"of {iters}, {len(counts)} kernels in all): not used")
+        f"of {iters}, {len(counts)} kernels in all; expected but missing: "
+        f"{missing}): not used")
     return None
 
 
-def kernel_ms(fn, iters: int) -> tuple[float, float, str]:
+def kernel_ms(fn, iters: int, expect: tuple = ()) -> tuple[float, float,
+                                                           str]:
     """(ms, call_ms, source): the device time per call of fn from
     torch.profiler (the kernels and copies it launches, without the
-    host's gaps between launches; "events" when the profiler lost or
-    recorded no events, profiled_calls), and the time per call with CUDA
-    events around many calls, which for a short kernel is the host's
-    launch path and is then also the first number."""
+    host's gaps between launches; "events" when the profiler lost,
+    recorded no or missed an `expect`ed event, profiled_calls), and the
+    time per call with CUDA events around many calls, which for a short
+    kernel is the host's launch path and is then also the first
+    number."""
     call = cuda_time_ms(fn, iters)
-    dev = profiled_calls(fn, iters, getattr(fn, "__name__", ""))
+    dev = profiled_calls(fn, iters, getattr(fn, "__name__", ""), expect)
     total = sum(dev.values()) if dev is not None else 0.0
     if total <= 0:
         return call, call, "events"
     return total / 1e3 / iters, call, "profiler"
 
 
-def kernel_only_ms(fn, iters: int, name: str) -> float | None:
-    """Device ms a call of the kernels whose event names hold `name`,
-    from a profile of `iters` calls of fn (which may launch other work,
-    such as a write that evicts L2; its events are left out)."""
-    dev = profiled_calls(fn, iters, name)
+def kernel_only_ms(fn, iters: int, name, expect: tuple = ()
+                   ) -> float | None:
+    """Device ms a call of the kernels whose event names hold `name` (a
+    string, or a tuple of them: any), from a profile of `iters` calls of
+    fn (which may launch other work, such as a write that evicts L2; its
+    events are left out); None where the profile lost events or missed
+    one of `expect`."""
+    names = (name,) if isinstance(name, str) else tuple(name)
+    dev = profiled_calls(fn, iters, names[0], expect)
     if dev is None:
         return None
-    return sum(us for k, us in dev.items() if name in k) / 1e3 / iters
+    return sum(us for k, us in dev.items()
+               if any(n in k for n in names)) / 1e3 / iters
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -6981,13 +7004,109 @@ def push_spec(n_keys: int = 1024):
               AggSpec(A.SUM, "s", input=Col("temp"))), track_touched=True)
 
 
-def random_sharded_state(spec, dev, seed: int):
-    """SH_MESH's partials, each random_lattice_state's."""
+def random_sharded_state(spec, dev, seed: int, mesh=SH_MESH):
+    """The partials of a (data, key) mesh on the card, each
+    random_lattice_state's."""
     from hstream_tpu_torch.parallel.lattice import ShardedState
 
-    D, nk = SH_MESH
+    D, nk = mesh
     return ShardedState([random_lattice_state(spec, dev, seed + d * nk + k)
                          for k in range(nk)] for d in range(D))
+
+
+# the merged changelog extract's meshes in phase 3 (every shard on the
+# card), and those past the 16 partials one merged launch reads, which
+# merged_groups cuts into two launches
+MERGED_MESHES = ((2, 2), (1, 4), (4, 1), (2, 3))
+CUT_MESHES = ((2, 16), (1, 24))
+
+
+def touched_specs() -> dict:
+    """The merged changelog extract's lattices: the push query (scalars)
+    and every kind a mesh takes (sketches), each with a key shard's
+    cells within one block's scan (the one launch: 1,536 and 3,000) and
+    past it (staged: 4,200)."""
+    sp = sharded_specs()
+    return {"push": sp["push"], "every kind": sp["every kind"],
+            "push staged": replace(sp["push"], n_keys=1400),
+            "every kind staged": replace(sp["every kind"], n_keys=700)}
+
+
+def merged_touched_vs_plain(spec, state, mo: int, what: str) -> int:
+    """The merged changelog extract against its plain version, each on
+    its own copy of the partials: the buffers and every partial's planes
+    (the flags cleared) exact. Returns the touched count."""
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    a, b = copy_sharded(state), copy_sharded(state)
+    got = pl.touched_merged(spec, a, mo)
+    want = pl.touched_merged_ref(spec, b, mo)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"merged_touched {what}"
+    assert sharded_equal(a, b), f"merged_touched {what}: partials"
+    return int(want[:, 0, 0].max())
+
+
+def check_merged_meshes(dev) -> tuple[int, int]:
+    """The merged changelog extract on MERGED_MESHES over touched_specs
+    (one launch and staged), the last key shard touched nowhere, max_out
+    at every cell, a fifth of them (below the touched count) and three
+    short of them (not a multiple of four: scalar stores), exact against
+    its plain version; then on CUT_MESHES (two launches on the card) the
+    extract and the merged close (modes 0, 1 and 2, per slot) of the push
+    query and of every kind at 16 keys a shard. Returns the (touched,
+    close) cases."""
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    rng = np.random.default_rng(145)
+    n_touched = n_close = 0
+    for mi, mesh in enumerate(MERGED_MESHES + CUT_MESHES):
+        cut = mesh in CUT_MESHES
+        specs = ({k: replace(v, n_keys=16) for k, v in
+                  touched_specs().items() if "staged" not in k}
+                 if cut else touched_specs())
+        for si, (name, spec) in enumerate(specs.items()):
+            state = random_sharded_state(spec, dev, 800 + 40 * mi + si, mesh)
+            assert len(pl.merged_groups(state)) == (2 if cut else 1), mesh
+            if mesh[1] > 1:
+                for row in state:
+                    row[-1]["touched"].zero_()
+            cells = spec.n_keys * spec.n_slots
+            for mo in (cells, cells // 5, cells - 3):
+                most = merged_touched_vs_plain(spec, state, mo,
+                                               f"{mesh} {name} max_out {mo}")
+                assert most > mo or mo != cells // 5, (mesh, name, most)
+                n_touched += 1
+            if not cut:
+                continue
+            W = spec.n_slots
+            slots = lattice.pad_slots(rng.permutation(W)[:3]
+                                      .astype(np.int32))
+            for mode in (lattice.CLOSE_EXTRACT_RESET, lattice.CLOSE_EXTRACT,
+                         lattice.CLOSE_RESET):
+                a, b = copy_sharded(state), copy_sharded(state)
+                got = pl.close_merged(spec, a, slots, mode)
+                want = pl.close_merged_ref(spec, b, slots, mode)
+                torch.cuda.synchronize()
+                if want is not None:
+                    assert torch.equal(got, want), \
+                        f"merged_close {mesh} {name} {mode}: rows"
+                assert sharded_equal(a, b), f"merged_close {mesh} {name}"
+                n_close += 1
+            for mode in (lattice.CLOSE_EXTRACT, lattice.CLOSE_RESET):
+                slot = int(rng.integers(0, W))
+                a, b = copy_sharded(state), copy_sharded(state)
+                got = pl.close_slot_merged(spec, a, slot, mode)
+                want = pl.close_slot_merged_ref(spec, b, slot, mode)
+                torch.cuda.synchronize()
+                if want is not None:
+                    assert torch.equal(got, want), \
+                        f"merged slot {mesh} {name}"
+                assert sharded_equal(a, b), f"merged slot {mesh} {name}"
+                n_close += 1
+            del state
+    return n_touched, n_close
 
 
 def copy_sharded(state):
@@ -7020,11 +7139,15 @@ def check_sharded(dev, results):
     data shards' 2^19-record blocks of config 1's 2^20 batch; the merged
     close (B19a-close) in modes 0, 1 and 2 (twice, the tile counters back
     at 0) and per slot, on configs 1 and 2, the push query and every kind
-    a mesh takes; the merged changelog extract (B19a-touched), also with
-    max_out below the touched count; the snapshot merge (B19d). Then each
+    a mesh takes, and past 16 partials on the card (CUT_MESHES); the
+    merged changelog extract (B19a-touched), also with max_out below the
+    touched count, on MERGED_MESHES and CUT_MESHES in both its launch
+    forms (check_merged_meshes); the snapshot merge (B19d). Then each
     timed at its main path's shape: config 1 and the push query over
-    SH_MESH's four partials."""
+    SH_MESH's four partials (the extract beside an empty kernel, the
+    floor of a launch)."""
     from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.engine.kernels import binding as kb
     from hstream_tpu_torch.parallel import lattice as pl
 
     rng = np.random.default_rng(141)
@@ -7136,12 +7259,7 @@ def check_sharded(dev, results):
             n_close += 1
         if spec.track_touched:
             for mo in (spec.n_keys * W, max(1, spec.n_keys * W // 5)):
-                a, b = copy_sharded(state), copy_sharded(state)
-                got = pl.touched_merged(spec, a, mo)
-                want = pl.touched_merged_ref(spec, b, mo)
-                torch.cuda.synchronize()
-                assert torch.equal(got, want), f"merged_touched {name} {mo}"
-                assert sharded_equal(a, b), f"merged_touched {name} {mo}"
+                merged_touched_vs_plain(spec, state, mo, f"{name} {mo}")
                 n_touched += 1
         got = pl.merge_partials(spec, state)
         want = pl.merge_partials_ref(spec, state)
@@ -7149,6 +7267,9 @@ def check_sharded(dev, results):
         for k in want:
             assert torch.equal(got[k], want[k]), f"shard_merge {name}: {k}"
         n_merge += 1
+    mesh_touched, mesh_close = check_merged_meshes(dev)
+    n_touched += mesh_touched
+    n_close += mesh_close
     # the merged close timed at config 1's shape: one due slot of the
     # four partials (K = 1024 in all), extract and reset; the extract-only
     # close of a pull apart
@@ -7177,7 +7298,8 @@ def check_sharded(dev, results):
         library_what="torch.stack + sum/amin/amax of the slot column, "
                      "the merge alone",
         extract_only_ms=ms1, extract_only_call_ms=call1)
-    log(f"merged_close: {n_close} cases (modes 0/1/2, per slot) exact; "
+    log(f"merged_close: {n_close} cases (modes 0/1/2, per slot; "
+        f"{list(CUT_MESHES)} in two launches) exact; "
         f"{ms:.4f} ms a config-1 slot over {D * nk} partials (plain "
         f"{plain:.4f}, the merge alone in torch.stack + sum/amin/amax "
         f"{lib:.4f}, bound {b_ms:.5f}); extract only {ms1:.4f} ms")
@@ -7199,13 +7321,20 @@ def check_sharded(dev, results):
                 p["touched"][:, 0] = True
         return pl.touched_merged(spec, st, mo)
 
-    ms, call, src = kernel_ms(touched_again, 50)
-    fill_ms = kernel_only_ms(touched_again, 20, "fill")   # the re-touch
-    if fill_ms is not None:
-        ms -= fill_ms
+    # the extract's kernels alone (the re-touch's fill left out), one
+    # launch at this shape
+    call = cuda_time_ms(touched_again, 50)
+    ms = kernel_only_ms(touched_again, 50, ("merged_", "Memset"),
+                        expect=("merged_one_kernel",))
+    src = "profiler" if ms is not None else "events"
+    ms = call if ms is None else ms
     plain = kernel_ms(lambda: pl.touched_merged_ref(spec, st, mo), 5)[0]
     lib = kernel_ms(lambda: stacked_merge(
         st, lattice.plane_merge_kinds(spec), lambda v: v), 20)[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    floor = kernel_only_ms(lambda: kb.check(kb.lib().hs_empty(stream),
+                                            "empty"), 50, "empty",
+                           expect=("empty",))
     rows = 3 + len(spec.aggs)
     b_ms, b_by = bound(2 * D * nk * spec.n_keys * W + D * nk * n_t * 8
                        + nk * rows * mo * 4, 0)
@@ -7215,11 +7344,14 @@ def check_sharded(dev, results):
         replaces="hstream_tpu/parallel/lattice.py:297", paths=SH_PATHS,
         max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib, call_ms=call, ms_source=src,
+        launch_floor_ms=floor,
         library_what="torch.stack + sum/amax of the planes, the merge "
                      "alone")
-    log(f"merged_touched: {n_touched} cases exact; {ms:.4f} ms at the "
-        f"push query's shape (plain {plain:.4f}, the merge alone in "
-        f"torch.stack + sum/amax {lib:.4f}, bound {b_ms:.5f})")
+    log(f"merged_touched: {n_touched} cases exact (meshes "
+        f"{list(MERGED_MESHES + CUT_MESHES)}, one launch and staged); "
+        f"{ms:.4f} ms at the push query's shape ({src}; plain {plain:.4f}, "
+        f"the merge alone in torch.stack + sum/amax {lib:.4f}, bound "
+        f"{b_ms:.5f}, an empty kernel {floor})")
     # the snapshot merge of config 1's four partials, every plane
     spec = specs["config 1"]
     st = random_sharded_state(spec, dev, 700)
@@ -7237,7 +7369,8 @@ def check_sharded(dev, results):
         max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib, call_ms=call, ms_source=src)
     log(f"shard_merge: {n_merge} lattices exact; {ms:.4f} ms a config-1 "
-        f"capture of {len(st[0][0])} planes (plain {plain:.4f}, "
+        f"capture (one wrapper call) of {len(st[0][0])} planes (plain "
+        f"{plain:.4f}, "
         f"torch.stack + sum/amin/amax {lib:.4f}, bound {b_ms:.5f})")
 
 
@@ -7484,8 +7617,32 @@ P15_KERNELS = ("sharded_session_step", "sharded_session_merge",
                "sharded_join_probe_insert", "sharded_join_probe_only",
                "sharded_join_probe_insert_step", "sharded_join_evict",
                "scatter_table_cuda")
+# the wrappers capturing_sharded keeps a call of: the P15 kernels, and
+# the merged changelog extract at 15b's inner lattice (B19a's second
+# shape)
+P15_CAPTURED = P15_KERNELS + ("touched_merged",)
 P15_SESSION_PATHS = ("sharded session", "sharded session server")
 P15_JOIN_PATHS = ("sharded join", "sharded fetch")
+
+# the device events each phase-15 kernel's call must record (parts of
+# their names): a profile that lacks one lost that kernel whole, and is
+# not used (profiled_calls)
+_PROBE = ("group_count_kernel", "group_scatter_kernel", "probe_window_kernel",
+          "probe_bounds_kernel", "probe_expand_kernel")
+P15_EVENTS = {
+    "step": ("group_keys_kernel", "scan_dest", "group_init_copy_kernel",
+             "group_record_scatter"),
+    "merge": ("group_keys_kernel", "scan_dest", "group_init_copy_kernel",
+              "group_fold_segments"),
+    "extract": ("extract_table_kernel",),
+    "remap": ("remap_kernel",),
+    "join step": _PROBE + ("split_kernel", "merge_kernel", "scatter_table"),
+    "scatter": ("scatter_table",),
+    "evict": ("evict_kernel",),
+    "probe insert": _PROBE + ("split_kernel", "merge_kernel"),
+    "probe only": _PROBE,
+    "touched": ("merged_touched_scan_kernel", "merged_finalize_kernel",
+                "Memset")}
 
 # phase 7's rows and phase 8's finals, the single-card executors'
 # references for 15a and 15b (computed again where those phases did not
@@ -7509,7 +7666,7 @@ def capturing_sharded(store: dict, armed: list):
     they come, and so is the probe-only redispatch's."""
     from hstream_tpu_torch.parallel import lattice as pl
 
-    orig = {n: getattr(pl, n) for n in P15_KERNELS}
+    orig = {n: getattr(pl, n) for n in P15_CAPTURED}
     for n, fn in orig.items():
         drop = (2,) if n in ("sharded_session_step",
                              "sharded_session_merge") else ()
@@ -7657,11 +7814,14 @@ def check_sharded_session(dev, results):
     and evicted entries, a delta) and the merge, each over one table of
     the card's shards and over tables of some of them (a split table:
     the records of the others are dropped), then timed at 15a's shapes
-    (time_p15_shapes); the extract over per-shard slot lists of different lengths (one shard
-    none) and the remap through one residue-preserving table; codes,
-    times, integer planes, histograms and registers exact, SUM/AVG within
-    the order bound, the extract and remap bit-exact."""
+    (time_p15_shapes); the extract over per-shard slot lists of different
+    lengths (one shard none, a pad inside a prefix), over one table and
+    split ones, its prefixes by value in the launch and uploaded; the
+    remap through one residue-preserving table; codes, times, integer
+    planes, histograms and registers exact, SUM/AVG within the order
+    bound, the extract and remap bit-exact."""
     from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.engine.kernels import binding as kb
     from hstream_tpu_torch.parallel import lattice as pl
     from hstream_tpu_torch.parallel import make_mesh
 
@@ -7725,15 +7885,26 @@ def check_sharded_session(dev, results):
             spec, ties, tseg, SESS_GAP, -(1 << 30), 0,
             f"sharded_session_merge, {what}", tables))
     rng = np.random.default_rng(153)
-    pcap = 2048
-    slots = np.full((S, pcap), -1, np.int32)
-    for s, n in enumerate((1500, 0, pcap, 7)):
-        slots[s, :n] = rng.permutation(cap)[:n]
-    got = pl.sharded_session_extract(spec, arenas, slots)
-    want = pl.sharded_session_extract_ref(spec, arenas, slots)
-    torch.cuda.synchronize()
-    assert got.shape == (S, 1 + len(spec.aggs), pcap)
-    assert torch.equal(got, want), "sharded_session_extract differs"
+    branches = set()
+    for pcap, named in ((2048, (1500, 0, 2048, 7)),
+                        (8192, (8192, 0, 100, 5000))):
+        slots = np.full((S, pcap), -1, np.int32)
+        for s, n in enumerate(named):
+            slots[s, :n] = rng.permutation(cap)[:n]
+        slots[0, 3] = -1                   # a pad inside a named prefix
+        for tables in (None, [[0, 2], [1, 3]], [[3], [0, 1, 2]]):
+            for ks in tables or [list(range(S))]:
+                n_live, _sel0, cat = pl.extract_plan(slots, ks)
+                branches.add(4 * len(ks) * len(spec.aggs) + len(cat)
+                             <= kb.SESS_XT_WORDS)
+            with join_tables(tables, "extract_tables"):
+                got = pl.sharded_session_extract(spec, arenas, slots)
+            want = pl.sharded_session_extract_ref(spec, arenas, slots)
+            torch.cuda.synchronize()
+            assert got.shape == (S, 1 + len(spec.aggs), pcap)
+            assert torch.equal(got, want), \
+                f"sharded_session_extract differs ({named}, {tables})"
+    assert branches == {True, False}, branches   # inline and uploaded
     lut = torch.from_numpy(_residue_lut(np.arange(3000), S, 4096, rng)
                            ).to(dev)
     a = [{"code": x["code"].clone()} for x in arenas]
@@ -7762,8 +7933,10 @@ def check_sharded_session(dev, results):
         f"at the int32 wrap) against the "
         f"plain versions (every kind; SUM/AVG max err {err:.3g} / "
         f"{err_m:.3g}, within the order bound; the rest exact), the extract "
-        f"over {S} slot lists (1500, 0, {pcap}, 7 named) and the remap "
-        f"through one residue-preserving table: bit-exact")
+        f"over {S} slot lists (1500, 0, 2048, 7 and 8192, 0, 100, 5000 "
+        f"named; one table and split ones, the prefixes by value and "
+        f"uploaded) and the remap through one residue-preserving table: "
+        f"bit-exact")
     time_p15_shapes(dev, results)
 
 
@@ -7874,6 +8047,62 @@ def p15_join_inputs(dev, seed: int = 31) -> dict:
             "probe_only": probe[1:6] + (1 << 19, 0)}
 
 
+def p15_touched_inputs(dev, seed: int = 33, touched: int = 390_000):
+    """The merged changelog extract at 15b's shape for `ab.py sharded`:
+    the join's inner lattice (COUNT(*) by key, TUMBLE(10 s), K = 2^19)
+    on P15_JOIN_MESH, `touched` of its cells (the join's ~390,000 live
+    columns, run CJ) touched in data shard 0's partial, 1's or both,
+    their counts 1 to 8; max_out Kl * W, as ShardedQueryExecutor sizes
+    it. Returns (local spec, state, max_out)."""
+    from hstream_tpu_torch.engine import (AggKind, AggSpec, TumblingWindow,
+                                          lattice)
+    from hstream_tpu_torch.parallel.lattice import ShardedState
+
+    D, nk = P15_JOIN_MESH
+    spec = lattice.LatticeSpec(
+        n_keys=(1 << 19) // nk, window=TumblingWindow(10_000, grace_ms=0),
+        aggs=(AggSpec(AggKind.COUNT_ALL, "c"),), track_touched=True)
+    cells = spec.n_keys * spec.n_slots
+    rng = np.random.default_rng(seed)
+    hit = rng.choice(nk * cells, touched, replace=False)
+    side = rng.integers(0, D + 1, touched)      # D: every data shard
+    state = ShardedState()
+    for d in range(D):
+        row = []
+        for k in range(nk):
+            part = lattice.init_state(spec, dev)
+            mine = hit[((side == d) | (side == D)) & (hit // cells == k)] \
+                % cells
+            flat = torch.from_numpy(mine).to(dev)
+            part["touched"].view(-1)[flat] = True
+            part["count"].view(-1)[flat] = torch.from_numpy(
+                rng.integers(1, 9, len(mine)).astype(np.int32)).to(dev)
+            part["slot_start"].copy_(torch.arange(
+                spec.n_slots, device=dev, dtype=torch.int32) * 10_000)
+            row.append(part)
+        state.append(row)
+    return spec, state, cells
+
+
+def p15_extract_slots(arenas, seed: int = 34, named: int = 6250,
+                      pcap: int = 8192) -> np.ndarray:
+    """15a's closing slot lists for `ab.py sharded`: `named` slots over
+    the shards (as 15a's close cycles name them, run FC), each shard's
+    among its live entries in ascending order (the mirror's), padded to
+    [n_shards, pcap]."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    rng = np.random.default_rng(seed)
+    S = len(arenas)
+    slots = np.full((S, pcap), -1, np.int32)
+    for s, a in enumerate(arenas):
+        live = torch.nonzero(a["code"] < sl.SESSION_SENT_CODE).flatten()
+        n = named // S + (s < named % S)
+        slots[s, :n] = np.sort(rng.choice(live.cpu().numpy(), n,
+                                          replace=False))
+    return slots
+
+
 def time_p15_shapes(dev, results):
     """The sharded step and merge at 15a's shapes (p15_inputs) profiled
     early in the process, where the profiler keeps every event (late in
@@ -7886,12 +8115,14 @@ def time_p15_shapes(dev, results):
     spec, arenas, packed, inputs, seg = p15_inputs(dev)
     cap = arenas[0]["code"].shape[0]
     outs = [sl.init_session_arena(spec, cap, dev) for _ in arenas]
-    for name, fn in (
+    for name, fn, events in (
             ("sharded_session_step", lambda: pl.sharded_session_step(
-                spec, arenas, outs, packed, inputs, 5000, -(1 << 30), 0)),
+                spec, arenas, outs, packed, inputs, 5000, -(1 << 30), 0),
+             P15_EVENTS["step"]),
             ("sharded_session_merge", lambda: pl.sharded_session_merge(
-                spec, arenas, outs, seg, 5000, -(1 << 30), 0))):
-        ms, call, src = kernel_ms(fn, 10)
+                spec, arenas, outs, seg, 5000, -(1 << 30), 0),
+             P15_EVENTS["merge"])):
+        ms, call, src = kernel_ms(fn, 10, expect=events)
         results[name]["early"] = dict(ms=ms, call_ms=call, ms_source=src,
                                       stages=stage_ms(fn, 3))
         log(f"{name} at 15a's shapes (phase 3): {ms:.4f} ms device "
@@ -7926,23 +8157,24 @@ JOIN_TABLES = {1: [None], 2: [None, [[1], [0]]], 3: [None, [[0, 2], [1]]],
 
 
 @contextlib.contextmanager
-def join_tables(tables):
-    """The sharded join's wrappers launched over `tables` (lists of the
-    key shards, whose stores all lie on one card), as join_groups splits
-    the shards of a mesh over several cards; join_groups' own tables
-    where `tables` is None."""
+def join_tables(tables, which: str = "join_groups"):
+    """For the block's duration parallel.lattice's `which` (join_groups,
+    or extract_tables) gives `tables` (lists of shard indices, each on
+    the first's card), as a table split past the parameters or a mesh
+    over several cards splits the shards; its own tables where `tables`
+    is None."""
     from hstream_tpu_torch.parallel import lattice as pl
 
     if tables is None:
         yield
         return
-    groups = pl.join_groups
-    pl.join_groups = lambda devices: [(devices[ks[0]], list(ks))
-                                      for ks in tables]
+    groups = getattr(pl, which)
+    setattr(pl, which, lambda devices: [(devices[ks[0]], list(ks))
+                                        for ks in tables])
     try:
         yield
     finally:
-        pl.join_groups = groups
+        setattr(pl, which, groups)
 
 
 def table_launches():
@@ -8321,7 +8553,8 @@ def time_sharded_session(dev, results, captured):
     ms, call, srcm = _early_if_lost(results, "sharded_session_step",
                                     kernel_ms(lambda: pl.sharded_session_step(
                                         spec, arenas, outs, packed, inputs,
-                                        gap, cc, delta), 10))
+                                        gap, cc, delta), 10,
+                                        expect=P15_EVENTS["step"]))
     plain = kernel_ms(lambda: pl.sharded_session_step_ref(
         spec, arenas, outs, packed, inputs, gap, cc, delta), 1)[0]
     keys = [torch.cat([sort_keys(a["code"], a["t0"]),
@@ -8347,7 +8580,8 @@ def time_sharded_session(dev, results, captured):
     ms, call, srcm = _early_if_lost(results, "sharded_session_merge",
                                     kernel_ms(lambda: pl.sharded_session_merge(
                                         spec, arenas, outs, seg, gap, cc,
-                                        delta), 10))
+                                        delta), 10,
+                                        expect=P15_EVENTS["merge"]))
     plain = kernel_ms(lambda: pl.sharded_session_merge_ref(
         spec, arenas, outs, seg, gap, cc, delta), 1)[0]
     keys = [torch.cat([sort_keys(a["code"], a["t0"]),
@@ -8371,7 +8605,7 @@ def time_sharded_session(dev, results, captured):
     torch.cuda.synchronize()
     assert torch.equal(got, want), "sharded_session_extract at 15a's shapes"
     ms, call, srcm = kernel_ms(lambda: pl.sharded_session_extract(
-        spec, arenas, slots), 30)
+        spec, arenas, slots), 30, expect=P15_EVENTS["extract"])
     plain = kernel_ms(lambda: pl.sharded_session_extract_ref(
         spec, arenas, slots), 3)[0]
     n_sel = int((slots >= 0).sum())
@@ -8384,7 +8618,8 @@ def time_sharded_session(dev, results, captured):
         padded=list(slots.shape))
     log(f"sharded_session_extract of 15a's {n_sel} closing slots "
         f"({list(slots.shape)} with pads): bit-exact against plain; "
-        f"{ms:.4f} ms (plain {plain:.4f}, bound {b_ms:.5f} by {b_by})")
+        f"{ms:.4f} ms ({srcm}; a call {call:.4f}; plain {plain:.4f}, bound "
+        f"{b_ms:.5f} by {b_by})")
 
     arenas, lut = captured["sharded_session_remap"]
     codes = [{"code": a["code"].clone()} for a in arenas]
@@ -8397,7 +8632,7 @@ def time_sharded_session(dev, results, captured):
                for c, w in zip(codes, want)), \
         "sharded_session_remap at 15a's shapes"
     ms, call, srcm = kernel_ms(lambda: pl.sharded_session_remap(codes, lut),
-                               50)
+                               50, expect=P15_EVENTS["remap"])
     plain = kernel_ms(lambda: [sl.session_remap_ref(c, lut)
                                for c in codes], 10)[0]
     lcap = lut.shape[0]
@@ -8737,6 +8972,63 @@ def _valid_records(batch: torch.Tensor, n: int) -> int:
     return int((batch[0, :n] < JOIN_SENT).sum())
 
 
+def time_touched_15b(results, args) -> None:
+    """B19a's merged changelog extract on 15b's own inputs (the join's
+    inner lattice on the (2, 2) mesh, K = 2^19, at its last batch): held
+    against its plain version, then timed with its flags refilled before
+    each call (the refill left out)."""
+    from hstream_tpu_torch.engine import lattice
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    spec, state, mo = args
+    most = merged_touched_vs_plain(spec, state, mo, "at 15b's inputs")
+    st = _clone(state)
+    saved = [[p["touched"].clone() for p in row] for row in st]
+
+    def refill():
+        for row, srow in zip(st, saved):
+            for p, s in zip(row, srow):
+                p["touched"].copy_(s)
+
+    def again():
+        refill()
+        return pl.touched_merged(spec, st, mo)
+
+    n_t = int(again()[:, 0, 0].sum())
+    call = cuda_time_ms(again, 20) - cuda_time_ms(refill, 20)
+    ms = kernel_only_ms(again, 20, ("merged_", "Memset"),
+                        expect=P15_EVENTS["touched"])
+    src = "profiler" if ms is not None else "events"
+    ms = call if ms is None else ms
+    plain = kernel_ms(lambda: (refill(), pl.touched_merged_ref(spec, st,
+                                                                mo)), 2)[0]
+    kinds = lattice.plane_merge_kinds(spec)
+    lib = kernel_ms(lambda: stacked_merge(st, kinds, lambda v: v), 5)[0]
+    D, nk = st.n_data, st.n_key
+    cells = spec.n_keys * spec.n_slots
+    per_cell = sum(int(v[0, 0].nbytes) for k, v in st[0][0].items()
+                   if k not in ("touched", "slot_start"))
+    rows = 3 + lattice.out_rows(spec)
+    b_ms, b_by = bound(2 * D * nk * cells + D * n_t * per_cell
+                       + nk * rows * mo * 4, 0)
+    results["merged_touched_join"] = dict(
+        route="cuda",
+        source="hstream_tpu_torch/engine/kernels/csrc/touched.cu",
+        replaces="hstream_tpu/parallel/lattice.py:297",
+        paths=("sharded join",), counter="merged_touched", max_abs_err=0.0,
+        ms=ms, plain_ms=plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib, call_ms=call,
+        ms_source=src, touched=n_t, max_out=mo, mesh=[D, nk],
+        local_keys=spec.n_keys,
+        library_what="torch.stack + sum/amax of the planes, the merge "
+                     "alone")
+    log(f"merged_touched at 15b's inputs ((2, 2) mesh, {nk} x {cells} cells, "
+        f"{n_t} touched, max_out {mo}, the busiest shard {most}): exact "
+        f"against plain; {ms:.4f} ms ({src}; a call {call:.4f}; plain "
+        f"{plain:.4f}, torch.stack + sum/amax {lib:.4f}, bound {b_ms:.5f} "
+        f"by {b_by}: {ms / b_ms:.2f}x)")
+
+
 def time_sharded_join(dev, results, captured):
     """Each B19b kernel on 15b's and 15c's own inputs (one call of each,
     kept by the runs: 15b's last fused step, its table scatter and first
@@ -8746,8 +9038,9 @@ def time_sharded_join(dev, results, captured):
     once (in its own shard's store), as the table launches do."""
     from hstream_tpu_torch.parallel import lattice as pl
 
-    missing = [k for k in P15_KERNELS[4:] if k not in captured]
+    missing = [k for k in P15_CAPTURED[4:] if k not in captured]
     assert not missing, f"15b and 15c made no call of {missing}"
+    time_touched_15b(results, captured["touched_merged"])
     args = captured["sharded_join_probe_insert_step"]
     (mines, others, batch, n, within, cutoff, mc, nm, spec, state, wm_rel,
      ts_off, progs, feed) = args
@@ -8757,10 +9050,11 @@ def time_sharded_join(dev, results, captured):
     st = _clone(state)
     ms, call, srcm = kernel_ms(lambda: pl.sharded_join_probe_insert_step(
         mines, others, batch, n, within, cutoff, mc, nm, spec, st, wm_rel,
-        ts_off, progs, feed, outs=outs), 10)
+        ts_off, progs, feed, outs=outs), 10, expect=P15_EVENTS["join step"])
     devt = profiled_calls(lambda: pl.sharded_join_probe_insert_step(
         mines, others, batch, n, within, cutoff, mc, nm, spec, st, wm_rel,
-        ts_off, progs, feed, outs=outs), 5, "the sharded fused join")
+        ts_off, progs, feed, outs=outs), 5, "the sharded fused join",
+        P15_EVENTS["join step"])
     stages = None if devt is None else _by_stage(devt, 5)
     plain = kernel_ms(lambda: pl.sharded_join_probe_insert_step_ref(
         mines, others, batch, n, within, cutoff, mc, nm, spec, st, wm_rel,
@@ -8801,7 +9095,8 @@ def time_sharded_join(dev, results, captured):
     del got, want
     st = _clone(sstate)
     ms, call, srcm = kernel_ms(lambda: pl.scatter_table_cuda(
-        sspec, st, parts, swm, kid, sts, valid, scols), 20)
+        sspec, st, parts, swm, kid, sts, valid, scols), 20,
+        expect=P15_EVENTS["scatter"])
     plain = kernel_ms(lambda: pl.scatter_table_ref(
         sspec, st, parts, swm, kid, sts, valid, scols), 2)[0]
     m = kid.shape[0]
@@ -8830,7 +9125,8 @@ def time_sharded_join(dev, results, captured):
         stores_equal(a, b) for a, b in zip(wl + wr, gl + gr)), \
         "sharded_join_evict at 15b's shapes"
     ms, call, srcm = kernel_ms(lambda: pl.sharded_join_evict(
-        lefts, rights, e_cutoff, delta, outs=outs), 10)
+        lefts, rights, e_cutoff, delta, outs=outs), 10,
+        expect=P15_EVENTS["evict"])
     plain = kernel_ms(lambda: pl.sharded_join_evict_ref(
         lefts, rights, e_cutoff, delta), 2)[0]
     skeys = torch.stack([(x["code"].long() << 32) | (x["ts"].long()
@@ -8865,10 +9161,11 @@ def time_sharded_join(dev, results, captured):
     S = len(mines)
     total = sum(int(want_p[0, s * mc]) for s in range(S))
     ms, call, srcm = kernel_ms(lambda: pl.sharded_join_probe_insert(
-        mines, others, batch, n, within, cutoff, mc, nm, outs=outs), 10)
+        mines, others, batch, n, within, cutoff, mc, nm, outs=outs), 10,
+        expect=P15_EVENTS["probe insert"])
     devt = profiled_calls(lambda: pl.sharded_join_probe_insert(
         mines, others, batch, n, within, cutoff, mc, nm, outs=outs), 5,
-        "the sharded probe + insert")
+        "the sharded probe + insert", P15_EVENTS["probe insert"])
     stages = None if devt is None else _by_stage(devt, 5)
     plain = kernel_ms(lambda: (
         pl.sharded_join_insert_ref(mines, batch, n, nm),
@@ -8901,7 +9198,8 @@ def time_sharded_join(dev, results, captured):
     torch.cuda.synchronize()
     assert torch.equal(got, want), "sharded_join_probe_only at 15c's shapes"
     ms, call, srcm = kernel_ms(lambda: pl.sharded_join_probe_only(
-        others, batch, n, within, cutoff, mc, nm), 10)
+        others, batch, n, within, cutoff, mc, nm), 10,
+        expect=P15_EVENTS["probe only"])
     plain = kernel_ms(lambda: pl.sharded_join_probe_ref(
         others, batch, n, within, cutoff, mc, nm), 2)[0]
     total = sum(int(want[0, s * mc]) for s in range(S))

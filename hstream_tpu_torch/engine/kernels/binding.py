@@ -284,6 +284,27 @@ class SessExtractArgs(C.Structure):
                 ("sel", C.c_int32 * SESS_INLINE)]
 
 
+# the key-sharded extract's table (HsSessExtractTable): shards a table,
+# pieces (grid rows) a table, its 32-bit words (4 a shard's aggregate of
+# plane pointers, then the inline slot prefixes)
+SESS_XT_SHARDS, SESS_XT_PIECES, SESS_XT_WORDS = 16, 32, 7218
+
+
+class SessXtPiece(C.Structure):
+    _fields_ = [("code", C.c_void_p), ("out", C.c_void_p),
+                ("place", C.c_int32), ("n_live", C.c_int32),
+                ("sel0", C.c_int32), ("j0", C.c_int32),
+                ("n_warps", C.c_int32)]
+
+
+class SessExtractTable(C.Structure):
+    _fields_ = [("cap", C.c_int32), ("n_sel", C.c_int32),
+                ("n_group", C.c_int32), ("n_pieces", C.c_int32),
+                ("slots", C.c_void_p), ("f", Finalize),
+                ("pc", SessXtPiece * SESS_XT_PIECES),
+                ("words", C.c_int32 * SESS_XT_WORDS)]
+
+
 JOIN_SENT = 1 << 22
 JOIN_MAX_FEED = 16
 JOIN_MAX_NULLS = 16
@@ -406,6 +427,8 @@ def lib() -> C.CDLL:
                               [C.POINTER(SessGroupArgs)]),
                              ("hs_session_extract",
                               [C.POINTER(SessExtractArgs)]),
+                             ("hs_session_extract_table",
+                              [C.POINTER(SessExtractTable)]),
                              ("hs_join_probe", [C.POINTER(JoinProbeArgs)]),
                              ("hs_join_insert", [C.POINTER(JoinInsertArgs)]),
                              ("hs_join_evict", [C.POINTER(JoinEvictArgs)]),

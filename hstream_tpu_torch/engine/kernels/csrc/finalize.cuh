@@ -67,15 +67,14 @@ __device__ __forceinline__ void hll_word(uint32_t x, int big_r,
     }
 }
 
-// HyperLogLog estimate of int8 registers [m]; the result on every lane.
-// Lanes read 16 bytes at a time, neighbouring lanes neighbouring
+// HyperLogLog estimate of int8 registers regs [m]; the result on every
+// lane. Lanes read 16 bytes at a time, neighbouring lanes neighbouring
 // vectors (a warp-wide load is 512 contiguous bytes), four loads in
 // flight a lane; fewer than 16 registers (p < 4) are read as words.
-__device__ inline float hll_warp(const HsFinalize &f, const HsCloseAgg &g,
-                                 int64_t cell, int lane) {
+__device__ inline float hll_regs(const HsFinalize &f, const uint8_t *regs,
+                                 int lane) {
     const int m = 1 << f.hll_p;
     const int big_r = 33 - f.hll_p;
-    const uint8_t *regs = (const uint8_t *)g.plane + cell * m;
     unsigned long long sum = 0;
     int zeros = 0;
     if (m >= 16) {
@@ -113,6 +112,14 @@ __device__ inline float hll_warp(const HsFinalize &f, const HsCloseAgg &g,
         fm, fmaxf(__int2float_rn(zeros), 1.0f))));
     bool use_lin = raw <= 2.5f * fm && zeros > 0;
     return use_lin ? lin : raw;
+}
+
+// the HyperLogLog estimate of aggregate g's cell
+__device__ __forceinline__ float hll_warp(const HsFinalize &f,
+                                          const HsCloseAgg &g, int64_t cell,
+                                          int lane) {
+    return hll_regs(f, (const uint8_t *)g.plane + cell * (1 << f.hll_p),
+                    lane);
 }
 
 // a histogram's rounds of 128 bins: lane l holds bins 128 i + 4 l .. +3

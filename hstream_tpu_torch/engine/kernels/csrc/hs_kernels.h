@@ -369,9 +369,11 @@ struct HsMergedCloseArgs {
 };
 
 // the changelog extract over D partials (hs_touched_merged): t.n_keys is
-// local_keys, t.out [n_key, out_rows, max_out], t.scratch
-// hs_touched_merged_scratch_bytes(n_cells, max_out, out_rows, n_key)
-// bytes
+// local_keys, t.out [n_key, out_rows, max_out]. t.mode HS_TOUCHED_ONE
+// (a key shard's cells within HS_TOUCHED_ONE_CELLS, out_rows within
+// HS_TOUCHED_ONE_ROWS): one launch, t.ticket the caller's [n_key] words,
+// zero before the launch and left zero by it; HS_TOUCHED_STAGED: t.scratch
+// hs_touched_merged_scratch_bytes(n_cells, max_out, out_rows, n_key) bytes
 struct HsMergedTouchedArgs {
     HsTouchedArgs t;
     HsParts parts;
@@ -523,6 +525,45 @@ struct HsSessExtractArgs {
     int32_t *out;          // [1 + n_aggs, P]
     HsFinalize f;          // a[g].plane: the arena plane agg g reads
     int32_t sel[HS_SESS_INLINE];  // the named prefix when `slots` is NULL
+};
+
+// the key-sharded extract (hs_session_extract_table): one launch over a
+// table of the key shards whose arenas lie on one card, each shard's
+// named prefix of its slot list read into its row [1 + n_aggs, P]. A
+// shard's warps are a warp an entry of its prefix, then a warp each 32
+// pad columns; the table's warps are cut into at most HS_SESS_XT_PIECES
+// pieces of nearly equal length, a grid row a piece, so a table whose
+// named slots all fall in one shard still fills the card. The words hold
+// each shard's plane pointers, then (where `slots` is NULL) the prefixes
+// concatenated; a table of G shards and A aggregates takes 4 G A words of
+// pointers, so 16 shards of 64 aggregates fit.
+#define HS_SESS_XT_SHARDS 16       // key shards a table
+#define HS_SESS_XT_PIECES 32       // pieces (grid rows) a table
+#define HS_SESS_XT_WORDS 7218      // the table's words (32-bit)
+
+struct HsSessXtPiece {
+    const int32_t *code;   // its shard's arena codes [cap]
+    int32_t *out;          // its shard's row [1 + n_aggs, n_sel]
+    int32_t place;         // its shard's place in the table
+    int32_t n_live;        // its shard's named prefix
+    int32_t sel0;          // the prefix's first entry in `slots`, or in
+                           // words where `slots` is NULL
+    int32_t j0;            // its first warp among its shard's
+    int32_t n_warps;       // its warps
+};
+
+struct HsSessExtractTable {
+    int32_t cap;
+    int32_t n_sel;         // P, every shard's padded length
+    int32_t n_group;       // G, the shards of the table
+    int32_t n_pieces;      // the grid's rows
+    const int32_t *slots;  // the prefixes concatenated, uploaded; NULL:
+                           // in words after the pointers
+    HsFinalize f;          // the aggregates (a[g].plane: shard 0's)
+    HsSessXtPiece pc[HS_SESS_XT_PIECES];
+    int32_t words[HS_SESS_XT_WORDS];  // 64-bit plane, plane_n of shard g's
+                                      // aggregate a at word 4 (g A + a),
+                                      // then the inline prefixes
 };
 
 // ---- the interval join (join_core.cuh and the three join_*.cu) --------
@@ -710,6 +751,8 @@ static_assert(sizeof(HsSessExtractArgs) <= HS_MAX_PARAM_BYTES,
 static_assert(sizeof(HsJoinProbeArgs) + sizeof(HsJoinTable) + 256 <=
                   HS_MAX_PARAM_BYTES,
               "HsJoinProbeArgs");
+static_assert(sizeof(HsSessExtractTable) <= HS_MAX_PARAM_BYTES,
+              "HsSessExtractTable");
 static_assert(sizeof(HsMergedCloseArgs) <= HS_MAX_PARAM_BYTES,
               "HsMergedCloseArgs");
 static_assert(sizeof(HsMergedTouchedArgs) <= HS_MAX_PARAM_BYTES,
@@ -745,6 +788,7 @@ int64_t hs_session_group_scratch_bytes(int32_t n_group, int32_t cap,
 int hs_session_step_group(const HsSessGroupArgs *args, void *stream);
 int hs_session_merge_group(const HsSessGroupArgs *args, void *stream);
 int hs_session_extract(const HsSessExtractArgs *args, void *stream);
+int hs_session_extract_table(const HsSessExtractTable *table, void *stream);
 int hs_session_remap(int32_t *code, int32_t cap, const int32_t *lut,
                      int32_t lcap, int32_t sent_above, void *stream);
 int64_t hs_join_probe_scratch_bytes(int32_t bcap, int32_t match_cap);

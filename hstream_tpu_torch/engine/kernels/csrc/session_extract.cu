@@ -1,11 +1,12 @@
 // Session extract: finalize the arena slots a close cycle (or a peek)
 // names into one int32 buffer [1 + n_aggs, P], fetched in one copy.
 //
-// Replaces hstream_tpu/engine/lattice.py:1504-1550 session_extract_kernel.
-// Slots < 0 pad the vector to a power of two and extract zeros (row 0:
-// the sentinel code). A mesh's key-sharded arena (hstream_tpu/parallel/
-// lattice.py:716-728) launches it once a shard, each into its row of an
-// [n_shards, 1 + n_aggs, P] buffer (parallel/lattice.py).
+// Replaces hstream_tpu/engine/lattice.py:1504-1550 session_extract_kernel
+// (hs_session_extract) and, for a mesh's key-sharded arena,
+// hstream_tpu/parallel/lattice.py:716-728 ShardedSessionLattice.extract
+// (hs_session_extract_table: [n_shards, 1 + n_aggs, P]). Slots < 0 pad
+// the vector to a power of two and extract zeros (row 0: the sentinel
+// code).
 //
 // Bound on the H100: bytes: each named slot's planes read once (a 512-bin
 // histogram is 2 KiB, an HLL register set 1 KiB), the buffer written once.
@@ -17,7 +18,10 @@
 // histogram on its own, so the shared one was read twice; a lane read
 // 16 consecutive bins, so a warp-wide load touched 32 sectors 64 bytes
 // apart and a histogram took 16 such loads; and each aggregate waited
-// out its own chain of loads.
+// out its own chain of loads. The key-sharded extract first launched
+// the single-card kernel once a shard: four launches' floors, four
+// argument blocks built, and a warp for every pad (at phase 15a's
+// inputs ~26,500 pad warps beside 6,250 named slots).
 //
 // Design: a warp a slot, eight slots a block. The slot vector comes up
 // to its last named slot only (n_live; the pads that round it up to a
@@ -36,8 +40,23 @@
 // bucket's midpoint), a MIN of +inf or a MAX of -inf gives 0.0, HLL is
 // rint(estimate) as int32, AVG is sum / max(n, 1) in float32, counts are
 // int32, floats are bitcast.
+//
+// The table (key-sharded): one launch a card over the shards whose
+// arenas lie there (HsSessExtractTable: each shard's plane pointers, its
+// row, its named prefix; the prefixes concatenated by value where they
+// fit beside the pointers, else uploaded once). A shard's warps are a
+// warp per entry of its prefix, the same body as above, then a warp per
+// 32 pad columns, a lane a column, each row one 128-byte store. The
+// host cuts the table's warps into up to 32 pieces of nearly equal
+// length, a grid row a piece (its fields read at the block's index):
+// on an H100 a warp that first looked its shard up cost 0.5-1.9 µs a
+// call, and a grid row a shard launched ~2,300 blocks that exit at once
+// where all of a cycle's named slots fall in one shard, as 15a's do. The
+// single-card kernel keeps its loop (extract_slot over its own planes).
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "finalize.cuh"
 #include "hs_kernels.h"
@@ -51,22 +70,47 @@ __device__ __forceinline__ bool sketch_kind(int kind) {
     return kind == HS_AGG_HLL || kind == HS_AGG_QUANT;
 }
 
+// the planes a slot's rows are read from: the launch's finalize table
+// (one arena), or a table shard's pointer words
+struct OwnPlanes {
+    const HsFinalize &f;
+    __device__ __forceinline__ const void *plane(int g) const {
+        return f.a[g].plane;
+    }
+    __device__ __forceinline__ const int32_t *plane_n(int g) const {
+        return f.a[g].plane_n;
+    }
+};
+
+struct ShardPlanes {
+    const unsigned long long *p;   // plane, plane_n of each aggregate
+    __device__ __forceinline__ const void *plane(int g) const {
+        return (const void *)p[2 * g];
+    }
+    __device__ __forceinline__ const int32_t *plane_n(int g) const {
+        return (const int32_t *)p[2 * g + 1];
+    }
+};
+
 // row r's words: r = 0 the slot's code, else aggregate r - 1's plane
 // word (w) and AVG's count (n); nothing for a sketch
-__device__ __forceinline__ void load_row(const HsSessExtractArgs &a,
-                                         int slot, int r, bool active,
-                                         uint32_t &w, int32_t &n) {
+template <class Planes>
+__device__ __forceinline__ void load_row(const HsFinalize &f,
+                                         const Planes &pl,
+                                         const int32_t *code, int slot,
+                                         int r, bool active, uint32_t &w,
+                                         int32_t &n) {
     w = 0u;
     n = 0;
     if (!active) return;
     if (r == 0) {
-        w = (uint32_t)a.code[slot];
+        w = (uint32_t)code[slot];
         return;
     }
-    const HsCloseAgg &ag = a.f.a[r - 1];
+    const HsCloseAgg &ag = f.a[r - 1];
     if (sketch_kind(ag.kind)) return;
-    w = ((const uint32_t *)ag.plane)[slot];
-    if (ag.kind == HS_AGG_AVG) n = ag.plane_n[slot];
+    w = ((const uint32_t *)pl.plane(r - 1))[slot];
+    if (ag.kind == HS_AGG_AVG) n = pl.plane_n(r - 1)[slot];
 }
 
 // row r (> 0) of a scalar aggregate from its words, by the session's rules
@@ -112,18 +156,19 @@ __device__ __forceinline__ void answer(const HsFinalize &f,
 
 // the quantiles that read the histogram of aggregate g (the first of
 // them): each from one read of it, up to kMaxQ at a time
-__device__ __forceinline__ void quantiles(const HsSessExtractArgs &a, int g,
-                                          int slot, int32_t *out,
-                                          int64_t stride, int lane) {
-    const HsFinalize &f = a.f;
-    const void *plane = f.a[g].plane;
+template <class Planes>
+__device__ __forceinline__ void quantiles(const HsFinalize &f,
+                                          const Planes &pl, int g, int slot,
+                                          int32_t *out, int64_t stride,
+                                          int lane) {
+    const void *plane = pl.plane(g);
     const int bins = f.a[g].plane_width;
     const int32_t *h = (const int32_t *)plane + (int64_t)slot * bins;
     for (int h0 = g; h0 < f.n_aggs;) {
         int who[kMaxQ] = {0, 0, 0, 0};
         int nq = 0, next = f.n_aggs;
         for (int j = h0; j < f.n_aggs; ++j) {
-            if (f.a[j].kind != HS_AGG_QUANT || f.a[j].plane != plane)
+            if (f.a[j].kind != HS_AGG_QUANT || pl.plane(j) != plane)
                 continue;
             if (nq == kMaxQ) {
                 next = j;
@@ -144,17 +189,14 @@ __device__ __forceinline__ void quantiles(const HsSessExtractArgs &a, int g,
     }
 }
 
-__global__ void __launch_bounds__(kBlock)
-extract_kernel(const __grid_constant__ HsSessExtractArgs a) {
-    const int64_t p = ((int64_t)blockIdx.x * kBlock + threadIdx.x) >> 5;
-    const int lane = threadIdx.x & 31;
-    if (p >= a.n_sel) return;  // warp-uniform: one slot per warp
-    const HsFinalize &f = a.f;
-    const int slot = p >= a.n_live ? -1
-                     : a.slots != nullptr ? a.slots[p] : a.sel[p];
+// one slot's rows (its column of out, rows `stride` apart), by a warp
+template <class Planes>
+__device__ __forceinline__ void extract_slot(const HsFinalize &f,
+                                             const Planes &pl,
+                                             const int32_t *code, int slot,
+                                             int32_t *out, int64_t stride,
+                                             int lane) {
     const int rows = 1 + f.n_aggs;
-    const int64_t stride = a.n_sel;
-    int32_t *out = a.out + p;
     if (slot < 0) {  // a pad: the sentinel code and zeros
         for (int r = lane; r < rows; r += 32)
             out[(int64_t)r * stride] = r == 0 ? HS_SESSION_SENT : 0;
@@ -162,11 +204,13 @@ extract_kernel(const __grid_constant__ HsSessExtractArgs a) {
     }
     uint32_t w;
     int32_t n;
-    load_row(a, slot, lane, lane < rows, w, n);
+    load_row(f, pl, code, slot, lane, lane < rows, w, n);
     for (int g = 0; g < f.n_aggs; ++g) {
         const HsCloseAgg &ag = f.a[g];
         if (ag.kind == HS_AGG_HLL) {
-            const float est = hs::hll_warp(f, ag, slot, lane);
+            const float est = hs::hll_regs(
+                f, (const uint8_t *)pl.plane(g) +
+                       (int64_t)slot * (1 << f.hll_p), lane);
             if (lane == 0)
                 out[(int64_t)(1 + g) * stride] = (int32_t)rintf(est);
             continue;
@@ -174,17 +218,54 @@ extract_kernel(const __grid_constant__ HsSessExtractArgs a) {
         if (ag.kind != HS_AGG_QUANT) continue;
         bool first = true;  // the first quantile of its histogram
         for (int j = 0; j < g && first; ++j)
-            first = f.a[j].kind != HS_AGG_QUANT || f.a[j].plane != ag.plane;
-        if (first) quantiles(a, g, slot, out, stride, lane);
+            first = f.a[j].kind != HS_AGG_QUANT || pl.plane(j) != pl.plane(g);
+        if (first) quantiles(f, pl, g, slot, out, stride, lane);
     }
     for (int r = lane; r < rows; r += 32) {
-        if (r >= 32) load_row(a, slot, r, true, w, n);
+        if (r >= 32) load_row(f, pl, code, slot, r, true, w, n);
         if (r == 0) {
             out[0] = (int32_t)w;
         } else if (!sketch_kind(f.a[r - 1].kind)) {
             out[(int64_t)r * stride] = row_value(f.a[r - 1], w, n);
         }
     }
+}
+
+__global__ void __launch_bounds__(kBlock)
+extract_kernel(const __grid_constant__ HsSessExtractArgs a) {
+    const int64_t p = ((int64_t)blockIdx.x * kBlock + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (p >= a.n_sel) return;  // warp-uniform: one slot per warp
+    const int slot = p >= a.n_live ? -1
+                     : a.slots != nullptr ? a.slots[p] : a.sel[p];
+    extract_slot(a.f, OwnPlanes{a.f}, a.code, slot, a.out + p, a.n_sel,
+                 lane);
+}
+
+// the table: grid row r is piece r, its warp w its shard's warp j0 + w:
+// an entry of the shard's prefix (j < n_live) or 32 of its pad columns;
+// the piece's fields read at the block's index, so no warp looks its
+// shard up before its loads
+__global__ void __launch_bounds__(kBlock)
+extract_table_kernel(const __grid_constant__ HsSessExtractTable t) {
+    const HsSessXtPiece &pc = t.pc[blockIdx.y];
+    const int w = (int)(((int64_t)blockIdx.x * kBlock + threadIdx.x) >> 5);
+    if (w >= pc.n_warps) return;  // warp-uniform
+    const int j = pc.j0 + w;
+    const int lane = threadIdx.x & 31;
+    const int64_t stride = t.n_sel;
+    if (j >= pc.n_live) {  // pad columns, a lane each
+        const int64_t p = pc.n_live + (int64_t)(j - pc.n_live) * 32 + lane;
+        if (p < stride)
+            for (int r = 0; r <= t.f.n_aggs; ++r)
+                pc.out[r * stride + p] = r == 0 ? HS_SESSION_SENT : 0;
+        return;
+    }
+    const int32_t *sel = t.slots != nullptr ? t.slots : t.words;
+    const ShardPlanes pl{(const unsigned long long *)t.words +
+                         2 * pc.place * t.f.n_aggs};
+    extract_slot(t.f, pl, pc.code, sel[pc.sel0 + j], pc.out + j, stride,
+                 lane);
 }
 
 }  // namespace
@@ -199,5 +280,32 @@ extern "C" int hs_session_extract(const HsSessExtractArgs *args,
     const int64_t threads = (int64_t)args->n_sel * 32;
     extract_kernel<<<(unsigned)((threads + kBlock - 1) / kBlock), kBlock, 0,
                      (cudaStream_t)stream>>>(*args);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int hs_session_extract_table(const HsSessExtractTable *t,
+                                        void *stream) {
+    if (t->n_sel == 0 || t->n_pieces == 0) return 0;
+    if (t->n_group < 1 || t->n_group > HS_SESS_XT_SHARDS ||
+        t->n_pieces < 0 || t->n_pieces > HS_SESS_XT_PIECES ||
+        t->f.n_aggs > HS_MAX_AGGS ||
+        4 * t->n_group * t->f.n_aggs > HS_SESS_XT_WORDS)
+        return (int)cudaErrorInvalidValue;
+    int warps = 0;   // the longest piece's
+    for (int r = 0; r < t->n_pieces; ++r) {
+        const HsSessXtPiece &pc = t->pc[r];
+        const int live = std::min(pc.j0 + pc.n_warps, pc.n_live);
+        if (pc.place < 0 || pc.place >= t->n_group || pc.n_live < 0 ||
+            pc.n_live > t->n_sel || pc.j0 < 0 || pc.n_warps < 0 ||
+            pc.j0 + pc.n_warps >
+                pc.n_live + (t->n_sel - pc.n_live + 31) / 32 ||
+            (t->slots == nullptr && live > pc.j0 &&
+             pc.sel0 + live > HS_SESS_XT_WORDS))
+            return (int)cudaErrorInvalidValue;
+        warps = std::max(warps, pc.n_warps);
+    }
+    const dim3 grid((unsigned)((warps * 32 + kBlock - 1) / kBlock),
+                    (unsigned)t->n_pieces);
+    extract_table_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(*t);
     return (int)cudaGetLastError();
 }

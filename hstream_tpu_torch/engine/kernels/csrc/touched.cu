@@ -53,18 +53,44 @@
 //
 // hs_touched_merged is the sharded lattice's changelog extract
 // (hstream_tpu/parallel/lattice.py:297-326 touched_local) over the D
-// partials of every key shard on the card: one buffer [out_rows,
-// max_out] a key shard, stacked. A cell is touched when it is in any
-// partial (the max over the data axis); the scan compacts each key
-// shard's cells on its own (the tiles take their turns from one
-// ticket, key shard by key shard, and look back over their own shard's
-// status words), clears the flags in every partial, and tile 0 of each
-// shard finalizes its merged cell (0, 0), the fill. Then a warp a
-// column writes the rows: the count, the global key id (local + s *
-// Kl; the fill's is s * Kl, as the reference's nonzero fill plus the
-// shard's offset), the merged slot start (0 past n) and the merged
-// cell's finalized aggregates (merge.cuh). A simple kernel: a warp a
-// column, for every row.
+// partials of the key shards of one launch: one buffer [out_rows,
+// max_out] a key shard, stacked, as the reference's (key ids global:
+// local + s * Kl; the fill's s * Kl, its slot start 0; merged SUMs added
+// in data-shard order, d = 0 first). A cell is touched when it is in any
+// partial (the OR over the data axis); the flags are cleared in every
+// partial.
+//
+// Bound on the H100: bytes, as B6's, each value merged over D partials
+// as it is read. At the push query's shape (Kl = 512, W = 3: 1,536 cells
+// a key shard) the buffer is ~64 KB, far below a launch's floor, so the
+// launches are the cost; at the join's inner lattice (K = 2^19 over two
+// key shards, 786,432 columns a shard, ~390,000 touched) the buffer.
+//
+// What held the first design back: a memset, a scan and a
+// finalize at every shape (three launches' floors where 64 KB moved), and
+// a finalize that gave each output column a warp: a scalar aggregate
+// written by one lane, 4-byte stores strided by max_out, the fill
+// columns likewise (1.57 M warps a call at the join's shape).
+//
+// Design (each block first stages its key shard's plane pointers in
+// shared memory, and loads a value's D partials together):
+//  * one launch (HS_TOUCHED_ONE: Kl * W <= 4096 cells, B6's bound): a
+//    block per 64 columns of a key shard at the push query's two
+//    aggregates (8 where sketches are finalized) ORs and compacts the
+//    shard's flags in shared memory and takes a ticket (a per-card word
+//    that the launch leaves zero), its warps take (row group, 32
+//    columns) tasks, a lane a column (a task of four columns a thread
+//    put a block's row groups in one warp, whose lanes then ran three
+//    code paths one after another: 9.0 µs against 3.7 on an H100), and
+//    the block with the shard's last ticket clears the flags: no memset;
+//  * staged (a key shard past 4096 cells): the first design's look-back
+//    scan (memset of its status words, tile 0 finalizing the fill), then
+//    B6's finalize shape, a thread per four columns and a row at a time,
+//    each value merged as it is read, 16-byte stores (4-byte ones where
+//    max_out is not a multiple of 4), the fill copied by the same
+//    threads; a warp a touched column only for the HLL and quantile rows,
+//    merged in shared memory (merge.cuh merge_sketch).
+// The single-card kernels above keep their code.
 
 #include <cuda_runtime.h>
 
@@ -379,8 +405,8 @@ int64_t status_word(int32_t max_out, int32_t out_rows) {
 
 // ---- the changelog extract over D partials -----------------------------
 
-// a key shard's words at the head of the scratch: cells [max_out], n,
-// then the fill [out_rows]
+// a key shard's words at the head of the staged scratch: cells
+// [max_out], n, then the fill [out_rows]
 __host__ __device__ __forceinline__ int64_t shard_words(int32_t max_out,
                                                         int32_t out_rows) {
     return (int64_t)max_out + 1 + out_rows;
@@ -393,6 +419,328 @@ __host__ __device__ __forceinline__ int64_t merged_status_word(
     return (n_key * shard_words(max_out, out_rows) + 1 + 1) & ~1ll;
 }
 
+// the one launch's columns a block: 8 where its warps finalize sketches
+// (a quantile estimate is a few memory round trips long); else 32 for
+// each of its warps that one row group (the count, key and start, or an
+// aggregate) leaves, so its warps take every row group of its columns in
+// one round
+__host__ __device__ __forceinline__ int merged_one_cols(
+    const HsTouchedArgs &a) {
+    if (a.has_sketch) return 8;
+    const int per = (kThreads / 32) / (a.f.n_aggs + 1);
+    return 32 * (per > 1 ? per : 1);
+}
+
+// key shard s's partials' plane pointers, staged in shared memory at a
+// block's start (read from the parameters once, all at a time, while
+// the block loads its flags: a run-time index into the 19.5 KB table of
+// the parameters is a constant-cache miss, and the merges would wait
+// them out one after another): tab[d * np + i], plane i < np = 3 +
+// 2 n_aggs
+struct Tab {
+    const void *const *p;
+    int n_data, np;
+    __device__ __forceinline__ const void *plane(int d, int i) const {
+        return p[d * np + i];
+    }
+};
+
+__host__ __device__ __forceinline__ int tab_bytes(int n_data, int n_aggs) {
+    return (n_data * (3 + 2 * n_aggs) * (int)sizeof(void *) + 15) & ~15;
+}
+
+__device__ __forceinline__ Tab stage_tab(const HsParts &P, int s, int n_aggs,
+                                         void *smem) {
+    const void **tab = (const void **)smem;
+    const int np = 3 + 2 * n_aggs;
+    for (int i = threadIdx.x; i < P.n_data * np; i += blockDim.x) {
+        const int d = i / np;
+        tab[i] = hs::part_plane(P, s, d, i - d * np);
+    }
+    return Tab{tab, P.n_data, np};
+}
+
+// merge.cuh's merges over a staged table, each partial's value loaded
+// before any is combined (the loads in flight together), the float sums
+// added in data-shard order, d = 0 first. Kept apart from merge.cuh's
+// (which read the parameters' table): merge.cuh's made templates over
+// both tables took the one launch from 3.65 to 4.00 µs on an H100
+__device__ __forceinline__ int tab_count(const Tab &t, int64_t cell) {
+    int c = 0;
+#pragma unroll 4
+    for (int d = 0; d < t.n_data; ++d)
+        c += ((const int32_t *)t.plane(d, HS_PART_COUNT))[cell];
+    return c;
+}
+
+__device__ __forceinline__ int tab_start(const Tab &t, int slot) {
+    int v = HS_EMPTY_START;
+#pragma unroll 4
+    for (int d = 0; d < t.n_data; ++d)
+        v = max(v, ((const int32_t *)t.plane(d, HS_PART_SLOT_START))[slot]);
+    return v;
+}
+
+// aggregate g's (a scalar: not HLL, quantile or TOPK) row of the shard's
+// merged cell `cell`, its count merged where the kind reads it
+__device__ __forceinline__ int32_t tab_scalar(const Tab &t,
+                                              const HsCloseAgg &ag, int g,
+                                              int64_t cell) {
+    const int kind = ag.kind;
+    const bool counted = kind == HS_AGG_COUNT_ALL || kind == HS_AGG_MIN ||
+                         kind == HS_AGG_MAX;
+    const int cnt = counted ? tab_count(t, cell) : 0;
+    const int pi = hs::agg_plane(g);
+    uint32_t w = 0u;
+    int32_t n = 0;
+    if (kind == HS_AGG_COUNT) {
+#pragma unroll 4
+        for (int d = 0; d < t.n_data; ++d)
+            w += ((const uint32_t *)t.plane(d, pi))[cell];
+    } else if (kind != HS_AGG_COUNT_ALL) {
+        float v = ((const float *)t.plane(0, pi))[cell];
+#pragma unroll 4
+        for (int d = 1; d < t.n_data; ++d) {
+            const float x = ((const float *)t.plane(d, pi))[cell];
+            v = kind == HS_AGG_MIN   ? fminf(v, x)
+                : kind == HS_AGG_MAX ? fmaxf(v, x)
+                                     : __fadd_rn(v, x);
+        }
+        w = __float_as_uint(v);
+        if (kind == HS_AGG_AVG)
+#pragma unroll 4
+            for (int d = 0; d < t.n_data; ++d)
+                n += ((const int32_t *)t.plane(d, pi + 1))[cell];
+    }
+    return __float_as_int(hs::finalize_loaded(kind, w, n, cnt));
+}
+
+// aggregate g's sketch row (HLL or quantile) of the shard's merged cell,
+// by one warp: the partials' cells merged into `buf` first (the bytewise
+// max of HLL ranks, the sum of bins, as merge.cuh merge_sketch); the
+// row's bits on every lane
+__device__ __forceinline__ int32_t tab_sketch(const HsFinalize &f,
+                                              const Tab &t, int g,
+                                              int64_t cell, void *buf,
+                                              int lane) {
+    const HsCloseAgg &ag = f.a[g];
+    const int pi = hs::agg_plane(g);
+    const bool hll = ag.kind == HS_AGG_HLL;
+    const int words = hll ? ag.plane_width >> 2 : ag.plane_width;
+    for (int w = lane; w < words; w += 32) {
+        uint32_t v = 0u;
+        for (int d = 0; d < t.n_data; ++d) {
+            const uint32_t x =
+                ((const uint32_t *)t.plane(d, pi))[cell * words + w];
+            v = hll ? __vmaxu4(v, x) : v + x;
+        }
+        ((uint32_t *)buf)[w] = v;
+    }
+    __syncwarp();
+    HsCloseAgg m = ag;
+    m.plane = buf;
+    const float est = hll ? hs::hll_warp(f, m, 0, lane)
+                          : hs::quant_warp(f, m, 0, lane);
+    __syncwarp();   // the buffer is read before the next merge
+    return __float_as_int(est);
+}
+
+// columns c0 .. c0 + 3 of key shard s's rows of aggregate g (g = -1:
+// rows 0 to 2), but the sketch rows of touched columns (a warp's each):
+// four values a row, each merged over the D partials as it is read, one
+// 16-byte store where aligned. `cells` the shard's compacted cells (>=
+// nv: the fill), `fill` its merged cell (0, 0)'s rows (the staged
+// scan's)
+__device__ __forceinline__ void merged_cols(const HsMergedTouchedArgs &m,
+                                            const Tab &tab, int s,
+                                            const int32_t *cells, int n,
+                                            const int32_t *fill, int64_t c0,
+                                            int g) {
+    const HsTouchedArgs &a = m.t;
+    const int64_t mo = a.max_out;
+    const int nv = (int)min((int64_t)n, mo);
+    const bool vec = (mo & 3) == 0 && c0 + kCols <= mo;
+    int32_t *out = a.out + (int64_t)s * a.out_rows * mo;
+    int cell[kCols];
+    bool hit[kCols];   // a prefix of the four: the touched columns
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) {
+        const int64_t c = c0 + q;
+        hit[q] = c < nv;
+        cell[q] = hit[q] ? cells[c] : 0;
+    }
+    auto store = [&](int row, const int32_t (&v)[kCols]) {
+        int32_t *o = out + (int64_t)row * mo + c0;
+        if (vec) {
+            *(int4 *)o = make_int4(v[0], v[1], v[2], v[3]);
+        } else {
+            for (int q = 0; q < kCols && c0 + q < mo; ++q) o[q] = v[q];
+        }
+    };
+    int32_t v[kCols];
+    if (g < 0) {
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) v[q] = c0 + q == 0 ? n : 0;
+        store(0, v);
+#pragma unroll
+        for (int q = 0; q < kCols; ++q)
+            v[q] = (hit[q] ? cell[q] / a.n_slots : 0) +
+                   s * m.parts.local_keys;
+        store(1, v);
+#pragma unroll
+        for (int q = 0; q < kCols; ++q)
+            v[q] = hit[q] ? tab_start(tab, cell[q] % a.n_slots) : 0;
+        store(2, v);
+        return;
+    }
+    const HsCloseAgg &ag = a.f.a[g];
+    const int row = 3 + ag.row;
+    if (hs::is_sketch_kind(ag.kind)) {   // the fill columns only
+        if (hit[kCols - 1]) return;
+        int32_t *o = out + (int64_t)row * mo + c0;
+        const int32_t x = fill[row];
+        if (vec && !hit[0]) {
+            *(int4 *)o = make_int4(x, x, x, x);
+        } else {
+            for (int q = 0; q < kCols && c0 + q < mo; ++q)
+                if (!hit[q]) o[q] = x;
+        }
+        return;
+    }
+    const int32_t x = fill[row];
+#pragma unroll
+    for (int q = 0; q < kCols; ++q)
+        v[q] = hit[q] ? tab_scalar(tab, ag, g, cell[q]) : x;
+    store(row, v);
+}
+
+// column c of key shard s's rows of aggregate g (g = -1: rows 0 to 2),
+// by one lane (the one launch: a warp's lanes on 32 neighbouring
+// columns, each row one 128-byte store), but the sketch rows of touched
+// columns (a warp's each); a fill column's scalars are cell 0's
+__device__ __forceinline__ void merged_col(const HsMergedTouchedArgs &m,
+                                           const Tab &tab, int s,
+                                           const int32_t *cells, int n,
+                                           const int32_t *fill, int64_t c,
+                                           int g) {
+    const HsTouchedArgs &a = m.t;
+    const int64_t mo = a.max_out;
+    const bool hit = c < min((int64_t)n, mo);
+    const int cell = hit ? cells[c] : 0;
+    int32_t *o = a.out + (int64_t)s * a.out_rows * mo + c;
+    if (g < 0) {
+        o[0] = c == 0 ? n : 0;
+        o[mo] = (hit ? cell / a.n_slots : 0) + s * m.parts.local_keys;
+        o[2 * mo] = hit ? tab_start(tab, cell % a.n_slots) : 0;
+        return;
+    }
+    const HsCloseAgg &ag = a.f.a[g];
+    const int64_t row = 3 + ag.row;
+    if (!hs::is_sketch_kind(ag.kind))
+        o[row * mo] = tab_scalar(tab, ag, g, cell);
+    else if (!hit)
+        o[row * mo] = fill[row];
+}
+
+// Kl * W <= 4096 cells a key shard, in one launch: a block per
+// merged_one_cols columns of key shard blockIdx.y. Each block stages the
+// shard's plane pointers in shared memory while it ORs the shard's flags
+// over its partials (a 16-byte load a partial a thread), compacts them
+// in shared memory and takes its ticket (the flags read); where the
+// query has sketches its warps merge and finalize the fill's and its
+// touched columns' sketch rows; its warps then take (row group, 32
+// columns) tasks, a lane a column, so no warp runs two row groups' code
+// one after the other. The block that took the shard's last ticket
+// clears the shard's flags in every partial and sets the ticket back to
+// 0, so no memset precedes a launch.
+constexpr int kOneSmemMax = 232448 - 24 * 1024;   // dynamic, past the
+                                                  // static arrays
+
+__global__ void __launch_bounds__(kThreads)
+merged_one_kernel(const __grid_constant__ HsMergedTouchedArgs m) {
+    __shared__ int32_t s_cells[kChunk];
+    __shared__ int32_t s_fill[HS_TOUCHED_ONE_ROWS];
+    __shared__ int s_scan[32];
+    __shared__ bool s_last;
+    extern __shared__ __align__(16) unsigned char s_buf[];
+    const HsTouchedArgs &a = m.t;
+    const HsParts &P = m.parts;
+    const int s = blockIdx.y;
+    const int n_aggs = a.f.n_aggs;
+    const Tab tab = stage_tab(P, s, n_aggs, s_buf);
+    const int n_cells = a.n_keys * a.n_slots;
+    const int64_t base = (int64_t)threadIdx.x * kPer;
+    unsigned mask = 0u;
+    if (base < n_cells)
+        for (int d = 0; d < P.n_data; ++d) {
+            bool whole;
+            mask |= load_flags(
+                (const uint8_t *)hs::part_plane(P, s, d, HS_PART_TOUCHED),
+                base, n_cells, whole);
+        }
+    int n;
+    int pos = block_excl_scan(__popc(mask), s_scan, &n);
+    // this block's flags are read: its ticket, answered under the tasks
+    unsigned ticket = 0u;
+    if (threadIdx.x == 0) ticket = atomicAdd(a.ticket + s, 1u);
+    for (unsigned r = mask; r != 0; r &= r - 1, ++pos)
+        s_cells[pos] = (int32_t)(base + __ffs(r) - 1);
+    __syncthreads();
+    const int cols = merged_one_cols(a);
+    const int64_t lo = (int64_t)blockIdx.x * cols;
+    const int64_t hi = min(lo + cols, (int64_t)a.max_out);
+    const int64_t nv = min((int64_t)n, (int64_t)a.max_out);
+    if (a.has_sketch) {
+        const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+        void *buf = s_buf + tab_bytes(P.n_data, n_aggs) +
+                    warp * hs::sketch_buf_bytes(a.f);
+        const int fills = hi > nv ? n_aggs : 0;   // fill columns here
+        const int64_t hits = max(min(hi, nv) - lo, (int64_t)0);
+        int32_t *out = a.out + (int64_t)s * a.out_rows * a.max_out;
+        for (int64_t task = warp; task < fills + hits * n_aggs;
+             task += kThreads / 32) {
+            const bool filling = task < fills;
+            const int64_t k = filling ? task : task - fills;
+            const int g = (int)(filling ? k : k % n_aggs);
+            if (!hs::is_sketch_kind(a.f.a[g].kind)) continue;
+            const int64_t col = filling ? 0 : lo + k / n_aggs;
+            const int32_t v = tab_sketch(a.f, tab, g,
+                                         filling ? 0 : s_cells[col], buf,
+                                         lane);
+            const int row = 3 + a.f.a[g].row;
+            if (lane == 0) {
+                if (filling) s_fill[row] = v;
+                else out[(int64_t)row * a.max_out + col] = v;
+            }
+        }
+        __syncthreads();
+    }
+    const int lane = threadIdx.x & 31;
+    const int chunks = (cols + 31) / 32;
+    for (int task = threadIdx.x >> 5; task < (n_aggs + 1) * chunks;
+         task += kThreads / 32) {
+        const int64_t c = lo + (int64_t)(task % chunks) * 32 + lane;
+        if (c < hi)
+            merged_col(m, tab, s, s_cells, n, s_fill, c, task / chunks - 1);
+    }
+    if (threadIdx.x == 0) s_last = ticket == gridDim.x - 1;
+    __syncthreads();
+    if (!s_last) return;
+    if (base < n_cells)
+        for (int d = 0; d < P.n_data; ++d) {
+            uint8_t *f = (uint8_t *)hs::part_plane(P, s, d, HS_PART_TOUCHED);
+            const bool whole = base + kPer <= n_cells &&
+                               ((uintptr_t)(f + base) & 15) == 0;
+            clear_flags(f, base, n_cells, mask, whole);
+        }
+    if (threadIdx.x == 0) a.ticket[s] = 0u;
+}
+
+// staged (a key shard past 4096 cells): the scan compacts each key
+// shard's cells on its own (its tiles take turns from one ticket, key
+// shard by key shard, and look back over their own shard's status
+// words), clears the flags in every partial, and tile 0 of each shard
+// finalizes its merged cell (0, 0), the fill
 __global__ void __launch_bounds__(kThreads)
 merged_touched_scan_kernel(const __grid_constant__ HsMergedTouchedArgs m) {
     __shared__ int s_scan[32];
@@ -440,45 +788,49 @@ merged_touched_scan_kernel(const __grid_constant__ HsMergedTouchedArgs m) {
                                      threadIdx.x & 31, s_buf);
 }
 
+// staged: a thread per four columns of key shard blockIdx.y, a row at a
+// time (merged_cols), the fill from the scan's
 __global__ void __launch_bounds__(kThreads)
-merged_touched_finalize_kernel(
-    const __grid_constant__ HsMergedTouchedArgs m) {
+merged_finalize_kernel(const __grid_constant__ HsMergedTouchedArgs m) {
     extern __shared__ __align__(16) unsigned char s_buf[];
     const HsTouchedArgs &a = m.t;
-    const HsParts &P = m.parts;
+    const int s = blockIdx.y;
+    const Tab tab = stage_tab(m.parts, s, a.f.n_aggs, s_buf);
+    __syncthreads();
+    const int64_t c0 =
+        ((int64_t)blockIdx.x * kThreads + threadIdx.x) * kCols;
+    if (c0 >= a.max_out) return;
+    const int32_t *cells = a.cells + s * shard_words(a.max_out, a.out_rows);
+    const int n = cells[a.max_out];
+    for (int g = -1; g < a.f.n_aggs; ++g)
+        merged_cols(m, tab, s, cells, n, cells + a.max_out + 1, c0, g);
+}
+
+// staged, queries with sketches: a warp per touched column of key shard
+// blockIdx.y, each sketch aggregate merged in its warp's buffer of
+// shared memory and estimated
+__global__ void __launch_bounds__(kThreads)
+merged_sketch_kernel(const __grid_constant__ HsMergedTouchedArgs m) {
+    extern __shared__ __align__(16) unsigned char s_buf[];
+    const HsTouchedArgs &a = m.t;
+    const int s = blockIdx.y;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    void *buf = s_buf + warp * hs::sketch_buf_bytes(a.f);
-    const int64_t mo = a.max_out;
+    const Tab tab = stage_tab(m.parts, s, a.f.n_aggs, s_buf);
+    __syncthreads();
+    void *buf = s_buf + tab_bytes(m.parts.n_data, a.f.n_aggs) +
+                warp * hs::sketch_buf_bytes(a.f);
+    const int32_t *cells = a.cells + s * shard_words(a.max_out, a.out_rows);
+    const int nv = min(cells[a.max_out], a.max_out);
+    int32_t *out = a.out + (int64_t)s * a.out_rows * a.max_out;
     const int64_t warps = (int64_t)gridDim.x * (kThreads / 32);
-    for (int64_t w = (int64_t)blockIdx.x * (kThreads / 32) + warp;
-         w < P.n_key * mo; w += warps) {
-        const int s = (int)(w / mo);
-        const int64_t c = w - s * mo;
-        const int32_t *cells = a.cells + s * shard_words(a.max_out,
-                                                         a.out_rows);
-        const int n = cells[mo];
-        const int64_t nv = min((int64_t)n, mo);
-        int32_t *out = a.out + (int64_t)s * a.out_rows * mo + c;
-        if (c < nv) {
-            const int cell = cells[c];
-            const int kl = cell / a.n_slots;
-            if (lane == 0) {
-                out[0] = c == 0 ? n : 0;
-                out[mo] = kl + s * P.local_keys;
-                out[2 * mo] = hs::merged_start(P, s, cell - kl * a.n_slots);
-            }
-            hs::merged_finalize_cell<32>(a.f, P, s, cell,
-                                         hs::merged_count(P, s, cell),
-                                         out + 3 * mo, mo, lane, buf);
-        } else {
-            const int32_t *fill = cells + mo + 1;
-            for (int r = lane; r < a.out_rows; r += 32)
-                out[r * mo] = r == 0   ? (c == 0 ? n : 0)
-                              : r == 1 ? s * P.local_keys
-                              : r == 2 ? 0
-                                       : fill[r];
+    for (int64_t col = (int64_t)blockIdx.x * (kThreads / 32) + warp;
+         col < nv; col += warps)
+        for (int g = 0; g < a.f.n_aggs; ++g) {
+            if (!hs::is_sketch_kind(a.f.a[g].kind)) continue;
+            const int32_t v = tab_sketch(a.f, tab, g, cells[col], buf, lane);
+            if (lane == 0)
+                out[(int64_t)(3 + a.f.a[g].row) * a.max_out + col] = v;
         }
-    }
 }
 
 }  // namespace
@@ -494,7 +846,7 @@ extern "C" int64_t hs_touched_merged_scratch_bytes(int32_t n_cells,
 
 extern "C" int hs_touched_merged(const HsMergedTouchedArgs *args,
                                  void *stream) {
-    static std::atomic<uint64_t> smem_done{0};
+    static std::atomic<uint64_t> one_smem{0}, sketch_smem{0};
     HsMergedTouchedArgs m = *args;
     HsTouchedArgs &a = m.t;
     const HsParts &P = m.parts;
@@ -504,40 +856,66 @@ extern "C" int hs_touched_merged(const HsMergedTouchedArgs *args,
         (int64_t)P.n_data * P.n_key > HS_MAX_PARTS ||
         a.f.n_aggs > HS_MAX_AGGS)
         return (int)cudaErrorInvalidValue;
-    for (int g = 0; g < a.f.n_aggs; ++g)
-        if (a.f.a[g].kind == HS_AGG_TOPK ||
-            a.f.a[g].kind == HS_AGG_TOPK_DISTINCT)
+    a.has_sketch = 0;
+    for (int g = 0; g < a.f.n_aggs; ++g) {
+        const int kind = a.f.a[g].kind;
+        if (kind == HS_AGG_TOPK || kind == HS_AGG_TOPK_DISTINCT)
             return (int)cudaErrorInvalidValue;  // no elementwise merge
-    const int buf = hs::sketch_buf_bytes(a.f);
-    const int smem = (kThreads / 32) * buf;
-    if (smem > 232448) return (int)cudaErrorInvalidValue;
+        a.has_sketch |= hs::is_sketch_kind(kind) ? 1 : 0;
+    }
+    // dynamic shared memory: the staged plane table, then (with
+    // sketches) a merge buffer a warp
+    const int tab = tab_bytes(P.n_data, a.f.n_aggs);
+    const int smem = tab + (a.has_sketch ? (kThreads / 32) *
+                                               hs::sketch_buf_bytes(a.f)
+                                         : 0);
+    cudaStream_t st = (cudaStream_t)stream;
+    cudaError_t err;
+    if (a.mode == HS_TOUCHED_ONE) {
+        if (n_cells > kChunk || a.out_rows > HS_TOUCHED_ONE_ROWS ||
+            a.ticket == nullptr || smem > kOneSmemMax)
+            return (int)cudaErrorInvalidValue;
+        if (smem > 24 * 1024) {
+            err = hs::allow_smem(one_smem, merged_one_kernel, kOneSmemMax);
+            if (err != cudaSuccess) return (int)err;
+        }
+        const dim3 grid(blocks_of(a.max_out, merged_one_cols(a)), P.n_key);
+        merged_one_kernel<<<grid, kThreads, smem, st>>>(m);
+        return (int)cudaGetLastError();
+    }
+    if (a.mode != HS_TOUCHED_STAGED || smem > 232448)
+        return (int)cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
-        cudaError_t err = hs::allow_smem(
-            smem_done, merged_touched_finalize_kernel, 232448);
+        err = hs::allow_smem(sketch_smem, merged_sketch_kernel, 232448);
         if (err != cudaSuccess) return (int)err;
     }
     int32_t *w = (int32_t *)a.scratch;
     a.cells = w;
     a.fill = nullptr;  // each shard's fill follows its cells
-    const int64_t st = merged_status_word(a.max_out, a.out_rows, P.n_key);
+    const int64_t sw = merged_status_word(a.max_out, a.out_rows, P.n_key);
     a.ticket = (uint32_t *)(w + P.n_key * shard_words(a.max_out,
                                                       a.out_rows));
-    a.status = (uint64_t *)(w + st);
+    a.status = (uint64_t *)(w + sw);
     const int tiles = blocks_of(n_cells, kChunk);
-    cudaStream_t s = (cudaStream_t)stream;
-    int err = (int)cudaMemsetAsync(
+    int e = (int)cudaMemsetAsync(
         a.ticket, 0,
         (size_t)((char *)(a.status + (int64_t)P.n_key * tiles) -
                  (char *)a.ticket),
-        s);
-    if (err != 0) return err;
-    merged_touched_scan_kernel<<<P.n_key * tiles, kThreads, buf, s>>>(m);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    const int64_t warps = (int64_t)P.n_key * a.max_out;
-    const int blocks = (int)std::min<int64_t>(
-        (warps + kThreads / 32 - 1) / (kThreads / 32), 132 * 16);
-    merged_touched_finalize_kernel<<<blocks, kThreads, smem, s>>>(m);
+        st);
+    if (e != 0) return e;
+    merged_touched_scan_kernel<<<P.n_key * tiles, kThreads,
+                                 hs::sketch_buf_bytes(a.f), st>>>(m);
+    e = (int)cudaGetLastError();
+    if (e != 0) return e;
+    merged_finalize_kernel<<<dim3(blocks_of(a.max_out, kThreads * kCols),
+                                  P.n_key),
+                             kThreads, tab, st>>>(m);
+    e = (int)cudaGetLastError();
+    if (e != 0 || !a.has_sketch) return e;
+    merged_sketch_kernel<<<dim3(std::min(blocks_of(a.max_out, kThreads / 32),
+                                         kSketchBlocks),
+                                P.n_key),
+                           kThreads, smem, st>>>(m);
     return (int)cudaGetLastError();
 }
 

@@ -1071,10 +1071,12 @@ _done: dict = {}
 
 
 def _close_done(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """The per-slot tile counters of the extract-and-reset closes on one
-    device and stream, int32 [>= n], zeroed when made: the last tile of
-    each slot sets its counter back to 0, so they stay zero from launch
-    to launch (no fill before each one)."""
+    """Self-clearing counters on one device and stream, int32 [>= n],
+    zeroed when made: the per-slot tile counters of the extract-and-reset
+    closes, and the merged changelog extract's per-key-shard tickets
+    (parallel/lattice.py). The launch that counts last sets each counter
+    back to 0, so they stay zero from launch to launch (no fill before
+    each one; launches on one stream run one after another)."""
     with _done_mutex:
         buf = _done.get((device, stream))
         if buf is None or buf.numel() < n:

@@ -725,6 +725,30 @@ def session_extract(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
     return out
 
 
+def extract_finalize(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
+                     f: kb.Finalize) -> None:
+    """The extract kernels' finalize table `f` for `spec`: each
+    aggregate's kind, widths and quantile, and its plane in `arena`."""
+    m = spec.hll.m
+    f.hll_p, f.hll_am2 = spec.hll.precision, _alpha(m) * m * m
+    q = spec.qcfg
+    f.q_min, f.q_gamma, f.q_half_gamma = (q.min_value, q.gamma_log,
+                                          0.5 * q.gamma_log)
+    for g, (name, agg) in enumerate(zip(session_plane_names(spec),
+                                        spec.aggs)):
+        fa = f.a[g]
+        fa.kind, fa.width = _KERNEL_KIND[agg.kind], 1
+        fa.plane_width = (m if agg.kind == AggKind.APPROX_COUNT_DISTINCT
+                          else q.n_bins
+                          if agg.kind == AggKind.APPROX_QUANTILE else 1)
+        fa.q = agg.quantile or 0.5
+        fa.row = g
+        fa.plane = kb.ptr(arena[name])
+        if agg.kind == AggKind.AVG:
+            fa.plane_n = kb.ptr(arena[name + "_n"])
+    f.n_aggs = len(spec.aggs)
+
+
 def extract_cuda(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
                  slots: np.ndarray, out: torch.Tensor | None = None
                  ) -> torch.Tensor:
@@ -759,25 +783,7 @@ def extract_cuda(spec: SessionSpec, arena: Mapping[str, torch.Tensor],
         raise ValueError("session_extract: out is not a contiguous int32 "
                          f"{list(shape)} tensor on the arena's card")
     a.out = out.data_ptr()
-    f = a.f
-    m = spec.hll.m
-    f.hll_p, f.hll_am2 = spec.hll.precision, _alpha(m) * m * m
-    q = spec.qcfg
-    f.q_min, f.q_gamma, f.q_half_gamma = (q.min_value, q.gamma_log,
-                                          0.5 * q.gamma_log)
-    for g, (name, agg) in enumerate(zip(session_plane_names(spec),
-                                        spec.aggs)):
-        fa = f.a[g]
-        fa.kind, fa.width = _KERNEL_KIND[agg.kind], 1
-        fa.plane_width = (m if agg.kind == AggKind.APPROX_COUNT_DISTINCT
-                          else q.n_bins
-                          if agg.kind == AggKind.APPROX_QUANTILE else 1)
-        fa.q = agg.quantile or 0.5
-        fa.row = g
-        fa.plane = kb.ptr(arena[name])
-        if agg.kind == AggKind.AVG:
-            fa.plane_n = kb.ptr(arena[name + "_n"])
-    f.n_aggs = len(spec.aggs)
+    extract_finalize(spec, arena, a.f)
     kb.check(kb.lib().hs_session_extract(ctypes.byref(a), kb.stream_of(out)),
              "session_extract")
     return out

@@ -29,7 +29,8 @@ and the scatter, expression and rebase kernels of engine/lattice.py run
 per shard as they are. Each wrapper launches its kernel when the planes
 lie on the card and counts the launch, and runs the plain PyTorch version
 beside it only when they lie on the CPU. One launch of a merged kernel
-covers every key shard whose data-0 partial is on one card; where a key
+covers the key shards whose data-0 partial is on one card, up to the
+16 partials a launch reads (merged_groups cuts past them); where a key
 shard's partials lie on other cards, they are copied to its data-0 card
 first (a copy on a side stream, behind an event) and the reset copies
 copied back. Every launch for a card runs with that card current (the
@@ -287,13 +288,30 @@ def _put_back(back) -> None:
             v.copy_(cp[k], non_blocking=True)
 
 
-def _launch_groups(state: ShardedState):
-    """[(device, [key shard ...])]: the key shards whose data-0 partial
-    lies on each device, in key order."""
-    groups: dict = {}
-    for k in range(state.n_key):
-        groups.setdefault(_device(state[0][k]), []).append(k)
-    return list(groups.items())
+def _by_card(devices: list[torch.device], per: int
+             ) -> list[tuple[torch.device, list[int]]]:
+    """(card, shards) for the shards on each card (devices[s] is shard
+    s's), in shard order, cut into launches of at most `per` shards."""
+    by_card: dict = {}
+    for s, d in enumerate(devices):
+        by_card.setdefault(d, []).append(s)
+    return [(d, ks[i:i + per]) for d, ks in by_card.items()
+            for i in range(0, len(ks), per)]
+
+
+def merged_groups(state: ShardedState
+                  ) -> list[tuple[torch.device, list[int]]]:
+    """The launches of a merged close or changelog extract: (card, key
+    shards) for the key shards whose data-0 partial lies on each card, in
+    key order, cut so that a launch reads at most kb.MAX_PARTS partials
+    (floor(16 / D) key shards of D data shards each; key shards and
+    their flags are independent, so the cut changes no output)."""
+    D = state.n_data
+    if D > kb.MAX_PARTS:
+        raise ValueError(f"a key shard of {D} data shards passes the "
+                         f"{kb.MAX_PARTS} partials one merged launch reads")
+    return _by_card([_device(state[0][k]) for k in range(state.n_key)],
+                    kb.MAX_PARTS // D)
 
 
 def _key_cols(ks: list[int], Kl: int) -> list[tuple]:
@@ -354,7 +372,7 @@ def _merged_close_args(spec: LatticeSpec, by_key: list[list[dict]],
 def _close_merged_cuda(spec: LatticeSpec, state: ShardedState,
                        slots: np.ndarray, mode: int) -> torch.Tensor | None:
     P, Kl = len(slots), spec.n_keys
-    groups = _launch_groups(state)
+    groups = merged_groups(state)
     out = None
     if mode != CLOSE_RESET:
         out = torch.empty((P, 2 + lattice.out_rows(spec), Kl * state.n_key),
@@ -446,7 +464,7 @@ def close_slot_merged(spec: LatticeSpec, state: ShardedState, slot,
         return close_slot_merged_ref(spec, state, slot, mode)
     out = None
     Kl = spec.n_keys
-    groups = _launch_groups(state)
+    groups = merged_groups(state)
     if mode == CLOSE_EXTRACT:
         out = torch.empty((2 + lattice.out_rows(spec), Kl * state.n_key),
                           dtype=torch.int32, device=groups[0][0])
@@ -500,20 +518,51 @@ def touched_merged_ref(spec: LatticeSpec, state: ShardedState,
     return torch.stack(bufs)
 
 
+def _place_touched(out: torch.Tensor, buf: torch.Tensor, ks: list[int],
+                   Kl: int) -> None:
+    """A launch's buffers [len(ks), rows, max_out] (launch-local key ids:
+    key shard j of the launch from j * Kl) into out[k], ids made
+    global."""
+    for j, k in enumerate(ks):
+        b = buf[j].clone()
+        b[1] += (k - j) * Kl
+        out[k] = b.to(out.device)
+
+
+def touched_merged_launches_ref(spec: LatticeSpec, state: ShardedState,
+                                max_out: int) -> torch.Tensor:
+    """Plain model of touched_merged's launches: each launch of
+    merged_groups computes its key shards' buffers as touched_merged_ref
+    does over them alone (launch-local key ids), placed as the wrapper
+    places them. The tests hold it against the reference; nothing on the
+    card's path calls it."""
+    out = torch.empty((state.n_key, 3 + lattice.out_rows(spec), max_out),
+                      dtype=torch.int32)
+    for _dev, ks in merged_groups(state):
+        sub = ShardedState([[row[k] for k in ks] for row in state])
+        _place_touched(out, touched_merged_ref(spec, sub, max_out), ks,
+                       spec.n_keys)
+    return out
+
+
 def touched_merged(spec: LatticeSpec, state: ShardedState,
                    max_out: int) -> torch.Tensor:
     """The merged changelog extract: every (key, slot) cell touched in any
     partial since the last call, finalized from the merged cell, packed
     one buffer a key shard [n_key, 3+rows, max_out] with global key ids,
     and `touched` cleared in every partial: one call of hs_touched_merged
-    a card (a scan, then a finalize), touched_merged_ref on the CPU."""
+    a launch of merged_groups (one kernel where a key shard's cells fit
+    one block, lattice.touched_plan of the local spec; else a scan, a
+    finalize and, with sketches, their pass), touched_merged_ref on the
+    CPU."""
     if _device(state[0][0]).type == "cpu":
         return touched_merged_ref(spec, state, max_out)
+    groups = merged_groups(state)
     rows = 3 + lattice.out_rows(spec)
-    groups = _launch_groups(state)
     out = torch.empty((state.n_key, rows, max_out), dtype=torch.int32,
                       device=groups[0][0])
     n_cells = spec.n_keys * spec.n_slots
+    mode = lattice.touched_plan(spec, max_out)
     for dev, ks in groups:
         with on(dev):
             by_key, back = [], []
@@ -524,24 +573,26 @@ def touched_merged(spec: LatticeSpec, state: ShardedState,
             m = kb.MergedTouchedArgs()
             t = m.t
             t.n_keys, t.n_slots = spec.n_keys, spec.n_slots
-            t.max_out, t.out_rows = max_out, rows
+            t.max_out, t.out_rows, t.mode = max_out, rows, mode
             t.f = lattice._finalize_args(spec, by_key[0][0])
             m.parts = _parts_args(spec, by_key)
             dst = out if len(groups) == 1 else torch.empty(
                 (len(ks), rows, max_out), dtype=torch.int32, device=dev)
             t.out = dst.data_ptr()
-            scratch = torch.empty(kb.lib().hs_touched_merged_scratch_bytes(
-                n_cells, max_out, rows, len(ks)), dtype=torch.uint8,
-                device=dev)
-            t.scratch = scratch.data_ptr()
-            kb.check(kb.lib().hs_touched_merged(
-                ctypes.byref(m), torch.cuda.current_stream(dev).cuda_stream),
-                "merged_touched")
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if mode == kb.TOUCHED_ONE:
+                t.ticket = lattice._close_done(dev, stream,
+                                               len(ks)).data_ptr()
+            else:
+                scratch = torch.empty(
+                    kb.lib().hs_touched_merged_scratch_bytes(
+                        n_cells, max_out, rows, len(ks)),
+                    dtype=torch.uint8, device=dev)
+                t.scratch = scratch.data_ptr()
+            kb.check(kb.lib().hs_touched_merged(ctypes.byref(m), stream),
+                     "merged_touched")
             if dst is not out:
-                for j, k in enumerate(ks):
-                    buf = dst[j].clone()
-                    buf[1] += (k - j) * spec.n_keys   # launch-local key ids
-                    out[k] = buf.to(out.device)
+                _place_touched(out, dst, ks, spec.n_keys)
             _put_back(back)
     touched_merged.launches += 1
     return out
@@ -615,11 +666,11 @@ def merge_partials(spec: LatticeSpec, state: ShardedState
             out[name] = _merge_plane_cuda(
                 kinds[name],
                 [[p[name] for p in state.key_shard(k)] for k in ks], dev)
-            merge_partials.launches += 1
+    merge_partials.launches += 1
     return out
 
 
-merge_partials.launches = 0  # kernel launches (one a plane)
+merge_partials.launches = 0  # wrapper calls that launched the kernel
 
 
 def scatter_state(spec: LatticeSpec, mesh, canonical: Mapping[str, np.ndarray]
@@ -758,8 +809,10 @@ class ShardedLattice:
 # before the sort), and folded into its own shard's arena; a table past
 # what one launch takes by value splits (session_groups). An arena holds
 # only codes its shard owns (put_arena places them so, steps fold only
-# owned records, remaps keep residues). No collective anywhere; extract
-# and remap launch once a shard.
+# owned records, remaps keep residues). No collective anywhere. The
+# extract launches once a card over a table of its shards too
+# (csrc/session_extract.cu hs_session_extract_table); the remap once a
+# shard.
 
 Arenas = list[dict[str, torch.Tensor]]
 
@@ -791,12 +844,8 @@ def session_groups(devices: list[torch.device],
     in shard order, one table a card, cut where it would pass what one
     launch takes by value (kb.SESS_GROUP shards, kb.SESS_GROUP_PTRS
     plane pointer sets: 14 shards of a 64-plane query)."""
-    per = min(kb.SESS_GROUP, kb.SESS_GROUP_PTRS // max(n_planes, 1))
-    by_card: dict = {}
-    for s, d in enumerate(devices):
-        by_card.setdefault(d, []).append(s)
-    return [(d, ks[i:i + per]) for d, ks in by_card.items()
-            for i in range(0, len(ks), per)]
+    return _by_card(devices, min(kb.SESS_GROUP,
+                                 kb.SESS_GROUP_PTRS // max(n_planes, 1)))
 
 
 def sharded_chain_slots_ref(code: torch.Tensor, start: torch.Tensor,
@@ -944,12 +993,123 @@ def sharded_session_extract_ref(spec, arenas: Arenas,
         for s, a in enumerate(arenas)])
 
 
+def extract_tables(devices: list[torch.device]) -> Tables:
+    """The table launches of a sharded session extract: (card, key
+    shards) for the shards whose arenas lie on each card (devices[s] is
+    shard s's), one table a card, cut past kb.SESS_XT_SHARDS shards."""
+    return _by_card(devices, kb.SESS_XT_SHARDS)
+
+
+def extract_plan(slots: np.ndarray, shards: list[int]
+                 ) -> tuple[list[int], list[int], np.ndarray]:
+    """A table's slot lists (host int32 [n_shards, pcap], < 0 = padding):
+    each shard's named prefix (up to its last named slot), the prefix's
+    first entry in the table's list, and the prefixes concatenated."""
+    n_live = []
+    for s in shards:
+        named = np.flatnonzero(slots[s] >= 0)
+        n_live.append(int(named[-1]) + 1 if len(named) else 0)
+    sel0 = np.concatenate([[0], np.cumsum(n_live)[:-1]]).astype(int)
+    cat = np.concatenate([slots[s, :n] for s, n in zip(shards, n_live)]
+                         + [np.zeros(0, np.int32)]).astype(np.int32)
+    return n_live, [int(x) for x in sel0], cat
+
+
+def extract_pieces(n_live: list[int], P: int
+                   ) -> list[tuple[int, int, int]]:
+    """A table's grid rows: (place of the shard, first warp, warps) pieces
+    of the shards' warps (a warp an entry of the named prefix, then one
+    each 32 pad columns), each at most ceil(total / (32 - G)) long, so at
+    most kb.SESS_XT_PIECES of them however the named slots fall among the
+    shards."""
+    warps = [n + -(-(P - n) // 32) for n in n_live]
+    per = max(1, -(-sum(warps) // (kb.SESS_XT_PIECES - len(warps))))
+    return [(g, j0, min(per, w - j0)) for g, w in enumerate(warps)
+            for j0 in range(0, w, per)]
+
+
+def sharded_session_extract_table_ref(spec, arenas: Arenas,
+                                      slots: np.ndarray) -> torch.Tensor:
+    """Plain sharded extract as the table launches compute it: each
+    table's prefixes concatenated (extract_plan) and its warps cut into
+    pieces (extract_pieces), each piece's columns (an entry of its shard's
+    prefix a warp, then 32 pad columns a warp) gathered into its shard's
+    slot vector, every column once; the shards' rows from those. The tests
+    hold it against the reference; nothing on the card's path calls it."""
+    P = slots.shape[1]
+    out: list = [None] * len(arenas)
+    for _dev, shards in extract_tables([a["code"].device for a in arenas]):
+        n_live, sel0, cat = extract_plan(slots, shards)
+        vecs = [np.full(P, -2, np.int32) for _ in shards]
+        for g, j0, nw in extract_pieces(n_live, P):
+            for j in range(j0, j0 + nw):
+                if j < n_live[g]:
+                    vecs[g][j] = cat[sel0[g] + j]
+                else:
+                    c = n_live[g] + (j - n_live[g]) * 32
+                    vecs[g][c:c + 32] = -1
+        for g, s in enumerate(shards):
+            if (vecs[g] == -2).any():
+                raise AssertionError("extract pieces leave columns out")
+            out[s] = sl.session_extract_ref(
+                spec, arenas[s], torch.from_numpy(vecs[g]).to(
+                    arenas[s]["code"].device))
+    return torch.stack(out)
+
+
+def _extract_table_args(spec, arenas: Arenas, shards: list[int],
+                        slots: np.ndarray, rows: list[torch.Tensor]):
+    """The table launch's argument block over `shards` (their arenas on
+    one card), shard shards[g] writing rows[g] ([1 + n_aggs, P]), and the
+    tensors it reads that must outlive the launch (the uploaded
+    prefixes, where they do not fit beside the pointers)."""
+    G, A, P = len(shards), len(spec.aggs), slots.shape[1]
+    if not 1 <= G <= kb.SESS_XT_SHARDS or A > kb.MAX_AGGS:
+        raise ValueError(f"an extract table of {G} shards does not fit a "
+                         f"launch")
+    cap = arenas[shards[0]]["code"].shape[0]
+    dev = arenas[shards[0]]["code"].device
+    t = kb.SessExtractTable()
+    t.cap, t.n_sel, t.n_group = cap, P, G
+    sl.extract_finalize(spec, arenas[shards[0]], t.f)
+    n_live, sel0, cat = extract_plan(slots, shards)
+    base = kb.SessExtractTable.words.offset
+    words = (ctypes.c_uint64 * (2 * G * A)).from_address(
+        ctypes.addressof(t) + base)
+    names = sl.session_plane_names(spec)
+    for g, s in enumerate(shards):
+        a = arenas[s]
+        sl._check_arena(spec, a, cap, dev)
+        for i, (name, agg) in enumerate(zip(names, spec.aggs)):
+            words[2 * (g * A + i)] = kb.ptr(a[name])
+            if agg.kind == AggKind.AVG:
+                words[2 * (g * A + i) + 1] = kb.ptr(a[name + "_n"])
+    keep = []
+    inline = 4 * G * A + len(cat) <= kb.SESS_XT_WORDS
+    if inline:   # the prefixes in the words, after the pointers
+        ctypes.memmove(ctypes.addressof(t) + base + 16 * G * A,
+                       cat.ctypes.data, cat.nbytes)
+    else:
+        keep.append(torch.from_numpy(cat).to(dev))
+        t.slots = kb.ptr(keep[-1])
+    pieces = extract_pieces(n_live, P)
+    t.n_pieces = len(pieces)
+    for r, (g, j0, nw) in enumerate(pieces):
+        pc = t.pc[r]
+        pc.code = kb.ptr(arenas[shards[g]]["code"])
+        pc.out = kb.ptr(rows[g])
+        pc.place, pc.n_live, pc.j0, pc.n_warps = g, n_live[g], j0, nw
+        pc.sel0 = sel0[g] + (4 * G * A if inline else 0)
+    return t, keep
+
+
 def sharded_session_extract(spec, arenas: Arenas, slots) -> torch.Tensor:
     """Finalized rows of the per-shard slot lists `slots` (host int32
     [n_shards, pcap], < 0 = padding) -> int32 [n_shards, 1 + n_aggs,
-    pcap] on shard 0's card, read-only: the session extract kernel once a
-    shard, each writing its row of the buffer (a shard on another card
-    writes its own, copied in); sharded_session_extract_ref on the CPU."""
+    pcap] on shard 0's card, read-only: the session extract's table
+    kernel once a card over the shards whose arenas lie there
+    (extract_tables; a shard on another card writes its row there, copied
+    in); sharded_session_extract_ref on the CPU."""
     slots = np.asarray(slots, np.int32)
     if slots.ndim != 2 or slots.shape[0] != len(arenas):
         raise ValueError("sharded session extract: slots must be "
@@ -960,15 +1120,23 @@ def sharded_session_extract(spec, arenas: Arenas, slots) -> torch.Tensor:
     dev0 = arenas[0]["code"].device
     if dev0.type == "cpu":
         return sharded_session_extract_ref(spec, arenas, slots)
-    out = torch.empty((len(arenas), 1 + len(spec.aggs), slots.shape[1]),
-                      dtype=torch.int32, device=dev0)
-    for s, a in enumerate(arenas):
-        dev = a["code"].device
+    if spec.hll.precision < 2:
+        raise ValueError("sharded session extract: unsupported spec")
+    shape = (1 + len(spec.aggs), slots.shape[1])
+    out = torch.empty((len(arenas),) + shape, dtype=torch.int32,
+                      device=dev0)
+    for dev, shards in extract_tables([a["code"].device for a in arenas]):
         with on(dev):
-            if dev == dev0:
-                sl.extract_cuda(spec, a, slots[s], out=out[s])
-            else:
-                out[s] = sl.extract_cuda(spec, a, slots[s]).to(dev0)
+            dst = out if dev == dev0 else torch.empty(
+                (len(shards),) + shape, dtype=torch.int32, device=dev)
+            rows = [dst[s] if dst is out else dst[g]
+                    for g, s in enumerate(shards)]
+            t, _keep = _extract_table_args(spec, arenas, shards, slots, rows)
+            kb.check(kb.lib().hs_session_extract_table(
+                ctypes.byref(t), kb.stream_of(dst)), "sharded_session_extract")
+            if dst is not out:
+                for g, s in enumerate(shards):
+                    out[s] = dst[g].to(dev0)
     sharded_session_extract.launches += 1
     return out
 
@@ -1084,11 +1252,7 @@ def join_groups(devices: list[torch.device]) -> Tables:
     key shards) for the shards whose stores lie on each card (devices[s]
     is shard s's), in shard order, one table a card, cut where it would
     pass what one launch takes (kb.JOIN_GROUP shards)."""
-    by_card: dict = {}
-    for s, d in enumerate(devices):
-        by_card.setdefault(d, []).append(s)
-    return [(d, ks[i:i + kb.JOIN_GROUP]) for d, ks in by_card.items()
-            for i in range(0, len(ks), kb.JOIN_GROUP)]
+    return _by_card(devices, kb.JOIN_GROUP)
 
 
 def sharded_join_probe_ref(others: Stores, batch: torch.Tensor, n: int,

@@ -392,6 +392,8 @@ def test_binding_structs_mirror_the_header():
           "HsSessPlanePtrs": kb.SessPlanePtrs,
           "HsSessGroupArgs": kb.SessGroupArgs,
           "HsSessExtractArgs": kb.SessExtractArgs,
+          "HsSessXtPiece": kb.SessXtPiece,
+          "HsSessExtractTable": kb.SessExtractTable,
           "HsJoinRef": kb.JoinRef, "HsJoinFeedCol": kb.JoinFeedCol,
           "HsJoinNull": kb.JoinNull, "HsJoinProbeArgs": kb.JoinProbeArgs,
           "HsJoinInsertArgs": kb.JoinInsertArgs,

@@ -32,6 +32,7 @@ from hstream_tpu.engine.snapshot import snapshot_executor as jsnapshot
 from hstream_tpu.parallel.lattice import ShardedSessionLattice as JSSL
 from hstream_tpu_torch.engine import SessionExecutor
 from hstream_tpu_torch.engine import session_lattice as sl
+from hstream_tpu_torch.engine.kernels import binding as kb
 from hstream_tpu_torch.engine.snapshot import restore_executor, \
     snapshot_executor
 from hstream_tpu_torch.parallel import lattice as pl
@@ -419,6 +420,158 @@ def test_lattice_extract_matches_reference(meshes, shard_arenas):
                                        w.view(np.float32), rtol=1e-6)
         else:
             assert np.array_equal(g, w), r
+
+
+def _extract_slots(seed: int, named, pcap: int) -> np.ndarray:
+    """Per-shard slot lists padded to pcap: shard s names named[s]
+    slots, one of them (where it names three or more) a pad inside the
+    prefix."""
+    rng = np.random.default_rng(seed)
+    slots = np.full((S, pcap), -1, np.int32)
+    for s, n in enumerate(named):
+        slots[s, :n] = rng.permutation(CAP)[:n]
+        if n >= 3:
+            slots[s, 1] = -1
+    return slots
+
+
+@pytest.mark.parametrize("tables", [None, [[0, 2], [1, 3]],
+                                    [[3], [0, 1, 2]]],
+                         ids=["one", "pairs", "three"])
+def test_extract_tables_match_reference(meshes, shard_arenas, monkeypatch,
+                                        tables):
+    """The table launches' plain model (each table's prefixes
+    concatenated, each shard's row from its own) against the reference's
+    extract, over one table of the card's shards and split tables; rows
+    as test_lattice_extract_matches_reference holds them, and equal to
+    the plain per-shard version exactly."""
+    if tables is not None:
+        monkeypatch.setattr(pl, "extract_tables", lambda devices: [
+            (devices[ks[0]], ks) for ks in tables])
+    slots = _extract_slots(6, (40, 0, 64, 7), 64)
+    j = _jssl(meshes)
+    want = np.asarray(j.extract(j.put_arena(shard_arenas),
+                                jnp.asarray(slots)))
+    arenas = _port_arena(shard_arenas)
+    got = pl.sharded_session_extract_table_ref(TSPEC, arenas, slots)
+    assert torch.equal(got, pl.sharded_session_extract_ref(TSPEC, arenas,
+                                                           slots))
+    got = got.numpy()
+    for r, agg in enumerate((None,) + TSPEC.aggs):
+        g, w = got[:, r], want[:, r]
+        if agg is not None and agg.kind == TM.AggKind.APPROX_QUANTILE:
+            np.testing.assert_allclose(g.view(np.float32),
+                                       w.view(np.float32), rtol=4e-6)
+        elif agg is not None and agg.kind in (TM.AggKind.SUM,
+                                              TM.AggKind.AVG):
+            np.testing.assert_allclose(g.view(np.float32),
+                                       w.view(np.float32), rtol=1e-6)
+        else:
+            assert np.array_equal(g, w), r
+
+
+def test_extract_plan_prefixes():
+    """Each shard's named prefix ends at its last named slot (interior
+    pads kept, an empty list 0), the prefixes concatenated in table
+    order."""
+    slots = _extract_slots(7, (5, 0, 64, 3), 64)
+    slots[0, 4] = -1                      # a pad ending the prefix
+    n_live, sel0, cat = pl.extract_plan(slots, [2, 0, 1, 3])
+    assert n_live == [64, 4, 0, 3]
+    assert sel0 == [0, 64, 68, 68]
+    assert np.array_equal(cat, np.concatenate(
+        [slots[2], slots[0, :4], slots[3, :3]]))
+    n_live, sel0, cat = pl.extract_plan(slots, [1])
+    assert (n_live, sel0, cat.shape) == ([0], [0], (0,))
+
+
+@pytest.mark.parametrize("pcap,named", [(64, (40, 0, 64, 7)),
+                                        (4096, (4096, 0, 2000, 1500))],
+                         ids=["inline", "uploaded"])
+def test_extract_table_args(monkeypatch, pcap, named):
+    """The table a launch takes, built over CPU tensors (the binding's
+    pointer check, which wants CUDA tensors, replaced by data_ptr): each
+    shard's aggregates' plane pointers in the words, then the prefixes
+    there or uploaded where they do not fit beside the pointers; each
+    piece (a grid row) its shard's arena, row, place and prefix, its
+    warps as extract_pieces cuts them; a table past 16 shards refused."""
+    import ctypes
+
+    monkeypatch.setattr(kb, "ptr", lambda t: t.data_ptr())
+    cap = 4096
+    arenas = [sl.init_session_arena(TSPEC, cap, "cpu") for _ in range(S)]
+    rng = np.random.default_rng(8)
+    slots = np.full((S, pcap), -1, np.int32)
+    for s, n in enumerate(named):
+        slots[s, :n] = rng.permutation(cap)[:n]
+    shards = [3, 0, 2]
+    out = torch.zeros((S, 1 + len(TSPEC.aggs), pcap), dtype=torch.int32)
+    rows = [out[s] for s in shards]
+    t, keep = pl._extract_table_args(TSPEC, arenas, shards, slots, rows)
+    A = len(TSPEC.aggs)
+    n_live, sel0, cat = pl.extract_plan(slots, shards)
+    assert (t.cap, t.n_sel, t.n_group) == (cap, pcap, 3)
+    A = len(TSPEC.aggs)
+    inline = 4 * 3 * A + len(cat) <= kb.SESS_XT_WORDS
+    pieces = pl.extract_pieces(n_live, pcap)
+    assert t.n_pieces == len(pieces) <= kb.SESS_XT_PIECES
+    for r, (g, j0, nw) in enumerate(pieces):
+        pc, s = t.pc[r], shards[g]
+        assert pc.code == arenas[s]["code"].data_ptr()
+        assert pc.out == out[s].data_ptr()
+        assert (pc.place, pc.n_live, pc.j0, pc.n_warps) == \
+            (g, n_live[g], j0, nw)
+        assert pc.sel0 == sel0[g] + (4 * 3 * A if inline else 0)
+    words = np.ctypeslib.as_array(t.words)
+    ptrs = words[:4 * 3 * A].view(np.uint64)
+    names = sl.session_plane_names(TSPEC)
+    for g, s in enumerate(shards):
+        for i, (name, agg) in enumerate(zip(names, TSPEC.aggs)):
+            assert ptrs[2 * (g * A + i)] == arenas[s][name].data_ptr()
+            want_n = (arenas[s][name + "_n"].data_ptr()
+                      if agg.kind == TM.AggKind.AVG else 0)
+            assert ptrs[2 * (g * A + i) + 1] == want_n
+    assert inline == (pcap == 64)
+    if inline:
+        assert not t.slots and not keep
+        assert np.array_equal(words[4 * 3 * A:4 * 3 * A + len(cat)], cat)
+    else:
+        assert t.slots == keep[0].data_ptr()
+        assert np.array_equal(keep[0].numpy(), cat)
+    assert ctypes.sizeof(t) <= 32764
+    many = [sl.init_session_arena(TSPEC, 8, "cpu") for _ in range(17)]
+    with pytest.raises(ValueError, match="does not fit a launch"):
+        pl._extract_table_args(TSPEC, many, list(range(17)),
+                               np.full((17, 8), -1, np.int32),
+                               [torch.zeros((1 + A, 8), dtype=torch.int32)]
+                               * 17)
+
+
+@pytest.mark.parametrize("n_live,P", [
+    ((0, 0, 6250, 0), 8192), ((1563, 1563, 1562, 1562), 8192),
+    ((0,), 64), ((7, 0, 64, 40), 64), ((0,) * 16, 1 << 13),
+    (tuple(range(0, 1600, 100)), 2048), ((0, 0), 0)])
+def test_extract_pieces_cover_every_warp_in_even_rows(n_live, P):
+    """The table's grid rows: each shard's warps (an entry of its prefix
+    each, then one each 32 pad columns) once, in order, in at most 32
+    pieces none longer than ceil(total / (32 - G)), however the named
+    slots fall among the shards."""
+    warps = [n + -(-(P - n) // 32) for n in n_live]
+    pieces = pl.extract_pieces(list(n_live), P)
+    assert len(pieces) <= kb.SESS_XT_PIECES
+    per = -(-sum(warps) // (kb.SESS_XT_PIECES - len(warps)))
+    for g, w in enumerate(warps):
+        mine = [(j0, nw) for gg, j0, nw in pieces if gg == g]
+        assert [j0 for j0, _ in mine] == list(range(0, w, max(per, 1)))
+        assert sum(nw for _, nw in mine) == w
+        assert all(0 < nw <= per for _, nw in mine)
+
+
+def test_extract_tables_cut_past_16_shards():
+    a, b = torch.device("cpu", 0), torch.device("cpu", 1)
+    assert pl.extract_tables([a] * 20) == [(a, list(range(16))),
+                                           (a, [16, 17, 18, 19])]
+    assert pl.extract_tables([a, b, a]) == [(a, [0, 2]), (b, [1])]
 
 
 def test_lattice_remap_and_growth_match_reference(meshes, shard_arenas):

@@ -153,10 +153,20 @@ timed as the remap group's are (device ms over 10 calls, ", call" and
   * "ptxas": session_step.cu's and session_merge.cu's registers, frames
     and spills.
 
-sharded: the merged changelog extract (B19a) and the key-sharded session
-extract (B19c), timed as the close group's are (device ms over 50 calls,
-", call" and " by kernel"), on this checkout's chip_smoke inputs so both
-trees time the same ones:
+sharded: the merged close and changelog extract (B19a), the snapshot
+merge (B19d) and the key-sharded session extract (B19c), timed as the
+close group's are (device ms over 50 calls, ", call" and " by kernel"),
+on this checkout's chip_smoke inputs so both trees time the same ones:
+  * "B19a merged close", "B19a merged close extract only":
+    parallel.lattice.close_merged of one due slot of config 1's lattice
+    over SH_MESH's four partials (512 keys each: K = 1024, COUNT(*), SUM,
+    HLL p = 10; chip_smoke.random_sharded_state), extract and reset /
+    extract only;
+  * "B19d snapshot merge": parallel.lattice.merge_partials of config 1's
+    capture over the same four partials (its five planes), and "B19d
+    snapshot merge 2x16" of config 1's lattice on make_mesh(2, 16) (64
+    keys a key shard, 32 partials on the card; a tree that cannot merge
+    it records its error);
   * "B19a merged touched push": parallel.lattice.touched_merged at the
     push query's shape (SH_MESH's four partials of 512 keys x 3 slots,
     one window's cells touched), the re-touch of the flags timed alone
@@ -171,8 +181,8 @@ trees time the same ones:
   * "B19c sharded extract": parallel.lattice.sharded_session_extract at
     15a's inputs (chip_smoke.p15_inputs' four arenas of 2^15 slots, 6,250
     named slots in [4, 8192], p15_extract_slots);
-  * "ptxas": touched.cu's and session_extract.cu's registers, frames and
-    spills.
+  * "ptxas": close.cu's, shard_merge.cu's, touched.cu's and
+    session_extract.cu's registers, frames and spills.
 """
 
 from __future__ import annotations
@@ -838,7 +848,8 @@ def _sharded() -> dict:
     built = kbuild.build()
     dev = torch.device("cuda", 0)
     here = _here_chip_smoke()
-    out = {"ptxas": _ptxas(built.log, ("touched.cu", "session_extract.cu"))}
+    out = {"ptxas": _ptxas(built.log, ("close.cu", "shard_merge.cu",
+                                       "touched.cu", "session_extract.cu"))}
 
     def ms(name, fn, less=(0.0, 0.0)):
         dev_ms, call_ms, _src = cs.kernel_ms(fn, 50)
@@ -846,6 +857,24 @@ def _sharded() -> dict:
         d = cs.profiled_calls(fn, 5, name)
         out[name + " by kernel"] = (None if d is None else {
             k: v / 5e3 for k, v in d.items()})
+
+    # B19a's merged close and B19d at config 1's shape: SH_MESH's four
+    # partials of 512 keys, one due slot
+    c1 = here.sharded_specs()["config 1"]
+    st = here.random_sharded_state(c1, dev, 500)
+    slot = lattice.pad_slots([0])
+    ms("B19a merged close", lambda: pl.close_merged(c1, st, slot))
+    ms("B19a merged close extract only", lambda: pl.close_merged(
+        c1, st, slot, lattice.CLOSE_EXTRACT))
+    st = here.random_sharded_state(c1, dev, 700)
+    ms("B19d snapshot merge", lambda: pl.merge_partials(c1, st))
+    c16 = here.replace(c1, n_keys=64)
+    st = here.random_sharded_state(c16, dev, 710, (2, 16))
+    try:
+        ms("B19d snapshot merge 2x16", lambda: pl.merge_partials(c16, st))
+    except (IndexError, RuntimeError, ValueError) as e:
+        out["B19d snapshot merge 2x16"] = f"{type(e).__name__}: {e}"
+    del st
 
     # B19a at the push query's shape: the (2, 2) mesh's partials of
     # 512 keys, one window's cells touched (a second's 2^20 batch)

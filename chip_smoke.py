@@ -280,6 +280,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from dataclasses import replace
 
 import numpy as np
@@ -6964,7 +6965,8 @@ SH_BATCHES = 24              # 2^20-record batches, 2^19 a data shard
 SH_MS = 1000                 # stream ms a batch: 10 s windows close
 SH_PUSH_BATCHES = 16
 SH_SRV_BLOCKS = 16           # phase 13's framed blocks of 2^18 records
-SH_PATHS = ("sharded 1", "sharded 2", "sharded push", "sharded server")
+SH_PATHS = ("sharded 1", "sharded 2", "sharded push", "sharded server",
+            "sharded 1x24")
 
 
 def sharded_specs() -> dict:
@@ -7015,10 +7017,10 @@ def random_sharded_state(spec, dev, seed: int, mesh=SH_MESH):
 
 
 # the merged changelog extract's meshes in phase 3 (every shard on the
-# card), and those past the 16 partials one merged launch reads, which
-# merged_groups cuts into two launches
+# card), and those past 16 partials (a card's key shards or a key
+# shard's data shards), each still one merged launch on the card
 MERGED_MESHES = ((2, 2), (1, 4), (4, 1), (2, 3))
-CUT_MESHES = ((2, 16), (1, 24))
+BIG_MESHES = ((2, 16), (1, 24), (17, 2), (32, 1))
 
 
 def touched_specs() -> dict:
@@ -7047,38 +7049,66 @@ def merged_touched_vs_plain(spec, state, mo: int, what: str) -> int:
     return int(want[:, 0, 0].max())
 
 
-def check_merged_meshes(dev) -> tuple[int, int]:
+def small_sketches(spec):
+    """`spec` with HLL p = 4 and 32 quantile bins: a staged lattice of up
+    to 32 partials a few MB in all."""
+    from hstream_tpu_torch.engine.sketches import HLLConfig, QuantileConfig
+
+    return replace(spec, hll=HLLConfig(precision=4),
+                   qcfg=QuantileConfig(n_bins=32))
+
+
+def one_launch(fn, *args):
+    """fn(*args) (a merged wrapper), asserted to launch its kernel once on
+    the card (parallel.lattice.CARD_LAUNCHES); returns its result."""
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    before = pl.CARD_LAUNCHES[fn.__name__]
+    out = fn(*args)
+    assert pl.CARD_LAUNCHES[fn.__name__] == before + 1, \
+        (fn.__name__, pl.CARD_LAUNCHES[fn.__name__] - before)
+    return out
+
+
+def check_merged_meshes(dev) -> tuple[int, int, int]:
     """The merged changelog extract on MERGED_MESHES over touched_specs
     (one launch and staged), the last key shard touched nowhere, max_out
     at every cell, a fifth of them (below the touched count) and three
     short of them (not a multiple of four: scalar stores), exact against
-    its plain version; then on CUT_MESHES (two launches on the card) the
-    extract and the merged close (modes 0, 1 and 2, per slot) of the push
-    query and of every kind at 16 keys a shard. Returns the (touched,
-    close) cases."""
+    its plain version; then on BIG_MESHES (past 16 partials, one launch
+    on the card, asserted) the extract in both forms (the push query and
+    every kind at 16 keys a shard, and staged at touched_specs' sizes
+    with small sketches),
+    and the merged close (modes 0, 1 and 2, per slot) and the snapshot
+    merge of the 16-key lattices. Returns the (touched, close, merge)
+    cases."""
     from hstream_tpu_torch.engine import lattice
     from hstream_tpu_torch.parallel import lattice as pl
 
     rng = np.random.default_rng(145)
-    n_touched = n_close = 0
-    for mi, mesh in enumerate(MERGED_MESHES + CUT_MESHES):
-        cut = mesh in CUT_MESHES
-        specs = ({k: replace(v, n_keys=16) for k, v in
-                  touched_specs().items() if "staged" not in k}
-                 if cut else touched_specs())
+    n_touched = n_close = n_merge = 0
+    for mi, mesh in enumerate(MERGED_MESHES + BIG_MESHES):
+        big = mesh in BIG_MESHES
+        specs = ({k: small_sketches(v) if "staged" in k
+                  else replace(v, n_keys=16)
+                  for k, v in touched_specs().items()}
+                 if big else touched_specs())
         for si, (name, spec) in enumerate(specs.items()):
             state = random_sharded_state(spec, dev, 800 + 40 * mi + si, mesh)
-            assert len(pl.merged_groups(state)) == (2 if cut else 1), mesh
+            assert len(pl.merged_groups(state)) == 1, mesh
             if mesh[1] > 1:
                 for row in state:
                     row[-1]["touched"].zero_()
             cells = spec.n_keys * spec.n_slots
             for mo in (cells, cells // 5, cells - 3):
+                before = pl.CARD_LAUNCHES["touched_merged"]
                 most = merged_touched_vs_plain(spec, state, mo,
                                                f"{mesh} {name} max_out {mo}")
+                assert pl.CARD_LAUNCHES["touched_merged"] == before + 1, \
+                    mesh
                 assert most > mo or mo != cells // 5, (mesh, name, most)
                 n_touched += 1
-            if not cut:
+            if not big or "staged" in name:
                 continue
             W = spec.n_slots
             slots = lattice.pad_slots(rng.permutation(W)[:3]
@@ -7086,7 +7116,7 @@ def check_merged_meshes(dev) -> tuple[int, int]:
             for mode in (lattice.CLOSE_EXTRACT_RESET, lattice.CLOSE_EXTRACT,
                          lattice.CLOSE_RESET):
                 a, b = copy_sharded(state), copy_sharded(state)
-                got = pl.close_merged(spec, a, slots, mode)
+                got = one_launch(pl.close_merged, spec, a, slots, mode)
                 want = pl.close_merged_ref(spec, b, slots, mode)
                 torch.cuda.synchronize()
                 if want is not None:
@@ -7097,7 +7127,7 @@ def check_merged_meshes(dev) -> tuple[int, int]:
             for mode in (lattice.CLOSE_EXTRACT, lattice.CLOSE_RESET):
                 slot = int(rng.integers(0, W))
                 a, b = copy_sharded(state), copy_sharded(state)
-                got = pl.close_slot_merged(spec, a, slot, mode)
+                got = one_launch(pl.close_slot_merged, spec, a, slot, mode)
                 want = pl.close_slot_merged_ref(spec, b, slot, mode)
                 torch.cuda.synchronize()
                 if want is not None:
@@ -7105,8 +7135,16 @@ def check_merged_meshes(dev) -> tuple[int, int]:
                         f"merged slot {mesh} {name}"
                 assert sharded_equal(a, b), f"merged slot {mesh} {name}"
                 n_close += 1
+            got = one_launch(pl.merge_partials, spec, state)
+            want = pl.merge_partials_ref(spec, state)
+            torch.cuda.synchronize()
+            assert list(got) == list(want), (mesh, name)
+            for k in want:
+                assert torch.equal(got[k], want[k]), \
+                    f"shard_merge {mesh} {name}: {k}"
+            n_merge += 1
             del state
-    return n_touched, n_close
+    return n_touched, n_close, n_merge
 
 
 def copy_sharded(state):
@@ -7139,13 +7177,14 @@ def check_sharded(dev, results):
     data shards' 2^19-record blocks of config 1's 2^20 batch; the merged
     close (B19a-close) in modes 0, 1 and 2 (twice, the tile counters back
     at 0) and per slot, on configs 1 and 2, the push query and every kind
-    a mesh takes, and past 16 partials on the card (CUT_MESHES); the
-    merged changelog extract (B19a-touched), also with max_out below the
-    touched count, on MERGED_MESHES and CUT_MESHES in both its launch
-    forms (check_merged_meshes); the snapshot merge (B19d). Then each
-    timed at its main path's shape: config 1 and the push query over
-    SH_MESH's four partials (the extract beside an empty kernel, the
-    floor of a launch)."""
+    a mesh takes, and past 16 partials on the card (BIG_MESHES, one
+    launch); the merged changelog extract (B19a-touched), also with
+    max_out below the touched count, on MERGED_MESHES and BIG_MESHES in
+    both its launch forms (check_merged_meshes); the snapshot merge
+    (B19d), on BIG_MESHES too. Then each timed at its main path's shape
+    beside an empty kernel (the floor of a launch): config 1 and the push
+    query over SH_MESH's four partials, and config 1's capture of
+    make_mesh(2, 16) on the card."""
     from hstream_tpu_torch.engine import lattice
     from hstream_tpu_torch.engine.kernels import binding as kb
     from hstream_tpu_torch.parallel import lattice as pl
@@ -7267,9 +7306,14 @@ def check_sharded(dev, results):
         for k in want:
             assert torch.equal(got[k], want[k]), f"shard_merge {name}: {k}"
         n_merge += 1
-    mesh_touched, mesh_close = check_merged_meshes(dev)
+    mesh_touched, mesh_close, mesh_merge = check_merged_meshes(dev)
     n_touched += mesh_touched
     n_close += mesh_close
+    n_merge += mesh_merge
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    floor = kernel_only_ms(lambda: kb.check(kb.lib().hs_empty(stream),
+                                            "empty"), 50, "empty",
+                           expect=("empty",))
     # the merged close timed at config 1's shape: one due slot of the
     # four partials (K = 1024 in all), extract and reset; the extract-only
     # close of a pull apart
@@ -7297,12 +7341,14 @@ def check_sharded(dev, results):
         bound_by=b_by, library_ms=lib, call_ms=call, ms_source=src,
         library_what="torch.stack + sum/amin/amax of the slot column, "
                      "the merge alone",
-        extract_only_ms=ms1, extract_only_call_ms=call1)
+        extract_only_ms=ms1, extract_only_call_ms=call1,
+        launch_floor_ms=floor)
     log(f"merged_close: {n_close} cases (modes 0/1/2, per slot; "
-        f"{list(CUT_MESHES)} in two launches) exact; "
+        f"{list(BIG_MESHES)} in one launch) exact; "
         f"{ms:.4f} ms a config-1 slot over {D * nk} partials (plain "
         f"{plain:.4f}, the merge alone in torch.stack + sum/amin/amax "
-        f"{lib:.4f}, bound {b_ms:.5f}); extract only {ms1:.4f} ms")
+        f"{lib:.4f}, bound {b_ms:.5f}, an empty kernel {floor}); extract "
+        f"only {ms1:.4f} ms")
     # the merged changelog extract at the push query's shape: its flags
     # as one 2^20 batch of one second leaves them (one window's cells)
     spec = specs["push"]
@@ -7331,10 +7377,6 @@ def check_sharded(dev, results):
     plain = kernel_ms(lambda: pl.touched_merged_ref(spec, st, mo), 5)[0]
     lib = kernel_ms(lambda: stacked_merge(
         st, lattice.plane_merge_kinds(spec), lambda v: v), 20)[0]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    floor = kernel_only_ms(lambda: kb.check(kb.lib().hs_empty(stream),
-                                            "empty"), 50, "empty",
-                           expect=("empty",))
     rows = 3 + len(spec.aggs)
     b_ms, b_by = bound(2 * D * nk * spec.n_keys * W + D * nk * n_t * 8
                        + nk * rows * mo * 4, 0)
@@ -7348,30 +7390,49 @@ def check_sharded(dev, results):
         library_what="torch.stack + sum/amax of the planes, the merge "
                      "alone")
     log(f"merged_touched: {n_touched} cases exact (meshes "
-        f"{list(MERGED_MESHES + CUT_MESHES)}, one launch and staged); "
+        f"{list(MERGED_MESHES + BIG_MESHES)}, one launch and staged); "
         f"{ms:.4f} ms at the push query's shape ({src}; plain {plain:.4f}, "
         f"the merge alone in torch.stack + sum/amax {lib:.4f}, bound "
         f"{b_ms:.5f}, an empty kernel {floor})")
-    # the snapshot merge of config 1's four partials, every plane
+    # the snapshot merge of config 1's four partials, every plane, in one
+    # launch; then config 1's lattice (K = 1024) over make_mesh(2, 16)'s
+    # 32 partials on the card
     spec = specs["config 1"]
     st = random_sharded_state(spec, dev, 700)
     kinds = lattice.plane_merge_kinds(spec)
-    ms, call, src = kernel_ms(lambda: pl.merge_partials(spec, st), 20)
+    ms, call, src = kernel_ms(lambda: pl.merge_partials(spec, st), 20,
+                              expect=("shard_merge_kernel",))
     plain = kernel_ms(lambda: pl.merge_partials_ref(spec, st), 5)[0]
 
     lib = kernel_ms(lambda: stacked_merge(st, kinds, lambda v: v), 20)[0]
-    part = sum(v.nbytes for v in st[0][0].values())
-    b_ms, b_by = bound(D * nk * part + nk * part, 0)
+    planes = len(st[0][0])
+    # each partial's planes read once, the canonical ones written once;
+    # slot_start of key shard 0's partials alone
+    moved = (D + 1) * (nk * sum(v.nbytes for v in st[0][0].values())
+                       - (nk - 1) * spec.n_slots * 4)
+    b_ms, b_by = bound(moved, 0)
+    del st
+    spec16 = replace(spec, n_keys=64)
+    st = random_sharded_state(spec16, dev, 710, (2, 16))
+    ms16, call16, _src = kernel_ms(lambda: pl.merge_partials(spec16, st),
+                                   20, expect=("shard_merge_kernel",))
+    b16 = bound(3 * (16 * sum(v.nbytes for v in st[0][0].values())
+                     - 15 * spec.n_slots * 4), 0)[0]
+    del st
     results["shard_merge"] = dict(
         route="cuda",
         source="hstream_tpu_torch/engine/kernels/csrc/shard_merge.cu",
         replaces="hstream_tpu/engine/snapshot.py:258", paths=SH_PATHS,
         max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib, call_ms=call, ms_source=src)
-    log(f"shard_merge: {n_merge} lattices exact; {ms:.4f} ms a config-1 "
-        f"capture (one wrapper call) of {len(st[0][0])} planes (plain "
-        f"{plain:.4f}, "
-        f"torch.stack + sum/amin/amax {lib:.4f}, bound {b_ms:.5f})")
+        bound_by=b_by, library_ms=lib, call_ms=call, ms_source=src,
+        launch_floor_ms=floor, ms_2x16=ms16, call_ms_2x16=call16,
+        bound_ms_2x16=b16)
+    log(f"shard_merge: {n_merge} lattices exact ({list(BIG_MESHES)} in "
+        f"one launch); {ms:.4f} ms a config-1 capture (one launch) of "
+        f"{planes} planes (plain {plain:.4f}, "
+        f"torch.stack + sum/amin/amax {lib:.4f}, bound {b_ms:.5f}, an empty "
+        f"kernel {floor}); make_mesh(2, 16)'s capture {ms16:.4f} ms "
+        f"(bound {b16:.5f})")
 
 
 def _sharded_node(spec):
@@ -7385,17 +7446,21 @@ def _sharded_node(spec):
                          aggs=list(spec.aggs)), schema
 
 
-def _same_rows(cfg, rows, single, per_key, size) -> int:
+def _same_rows(cfg, rows, single, per_key, size, ms=SH_MS,
+               batches=SH_BATCHES) -> int:
     """The mesh's rows against the single-card executor's: keys, counts,
     HLL estimates, MIN and MAX exact, sums and averages within twice the
-    summation-order bound of each against numpy."""
+    summation-order bound of each against numpy (batches of `ms`)."""
     ref = {(r["device"], r["winStart"]): r for r in single}
     assert len(ref) == len(rows), (len(ref), len(rows))
+    windows: dict = {}
     for r in rows:
         o = ref[(r["device"], r["winStart"])]
         k = int(r["device"][1:])
-        w = window_reference(per_key, r["winStart"], size, SH_MS,
-                             SH_BATCHES)
+        w = windows.get(r["winStart"])
+        if w is None:
+            w = windows[r["winStart"]] = window_reference(
+                per_key, r["winStart"], size, ms, batches)
         n = w["count"][k]
         lim = 4 * n * U * w["abs"][k]
         if cfg == 1:
@@ -7477,6 +7542,91 @@ def sharded_path(cfg: int, dev) -> dict:
                 windows_checked=n_windows, rows_equal_single_card=same,
                 close_stats=stats, transfer_stats=ex.transfer_stats,
                 device_plane_bytes=ex.device_plane_bytes())
+
+
+WIDE_MESH = (1, 24)           # 24 key shards on the card: two unpacks
+WIDE_MESH_BATCHES = 6         # 2^20-record batches of WIDE_MESH_MS
+WIDE_MESH_MS = 4_000          # two windows close mid-run
+WIDE_MESH_CAPTURE = 4         # batches before the capture
+
+
+def sharded_wide_path(dev) -> dict:
+    """14d: config 1 through ShardedQueryExecutor on make_mesh(1, 24)
+    (past 16 partials on one card; K = 1536, 64 keys a key shard),
+    WIDE_MESH_BATCHES x 2^20 records, then a closer: every row equal the
+    single-card QueryExecutor's on the same batches, one merged close
+    launch a close cycle; after WIDE_MESH_CAPTURE batches a snapshot of
+    the mesh (one snapshot merge launch) restored onto one card, whose
+    rows on the remaining batches equal the single-card executor's too."""
+    from hstream_tpu_torch.engine import QueryExecutor
+    from hstream_tpu_torch.engine import snapshot as snap
+    from hstream_tpu_torch.parallel import ShardedQueryExecutor, make_mesh
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    cfg = 1
+    spec = make_spec(cfg)
+    node, schema = _sharded_node(spec)
+    mesh = make_mesh(*WIDE_MESH)
+    ex = ShardedQueryExecutor(node, schema, mesh=mesh, emit_changes=False,
+                              initial_keys=64 * WIDE_MESH[1],
+                              batch_capacity=BATCH)
+    single = QueryExecutor(node, schema, emit_changes=False,
+                           initial_keys=1024, batch_capacity=BATCH)
+    for k in range(N_KEYS):
+        ex.key_id_for((f"d{k}",))
+        single.key_id_for((f"d{k}",))
+    src = Batches(seed=150, ms=WIDE_MESH_MS)
+    per_key = src.per_key()
+    adv = spec.window.advance_ms
+    last = int(src.get(WIDE_MESH_BATCHES - 1)[1].max())
+    n = 4096
+    closer = (np.arange(n, dtype=np.int32) % N_KEYS,
+              np.full(n, (last // adv + 1) * adv + 1, np.int64),
+              {"temp": np.full(n, np.float32(21.5))})
+    batches = [src.get(b) for b in range(WIDE_MESH_BATCHES)]
+    batches = [(k, t, {"temp": x}) for k, t, x in batches] + [closer]
+    zero_counts()
+    card = pl.CARD_LAUNCHES["close_merged"]
+    rows, srows, rrows = [], [], []
+    restored = None
+    t0 = time.perf_counter()
+    for b, batch in enumerate(batches):
+        if b == WIDE_MESH_CAPTURE:
+            merges = pl.CARD_LAUNCHES["merge_partials"]
+            blob = snap.snapshot_executor(ex)
+            assert pl.CARD_LAUNCHES["merge_partials"] == merges + 1
+            restored, _extra = snap.restore_executor(
+                types.SimpleNamespace(node=node), blob, device=dev)
+            assert not hasattr(restored, "_sharded")
+        rows.extend(ex.process_columnar(*batch))
+        srows.extend(out := single.process_columnar(*batch))
+        if restored is not None:
+            rrows.extend(restored.process_columnar(*batch))
+        else:
+            rrows.extend(out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = dict(ex.close_stats)
+    assert stats["close_cycles"] == stats["close_dispatches"] == \
+        stats["close_fetches"] >= 3, stats
+    assert pl.CARD_LAUNCHES["close_merged"] - card == \
+        stats["close_dispatches"], stats
+    steps = len(batches)
+    assert counts["sharded_step"] == 2 * steps, counts    # 16 + 8 keys
+    assert counts["merged_close"] == stats["close_dispatches"], counts
+    assert counts["shard_merge"] == 1, counts
+    size = spec.window.size_ms
+    same = _same_rows(cfg, rows, srows, per_key, size, WIDE_MESH_MS,
+                      WIDE_MESH_BATCHES)
+    after = _same_rows(cfg, rrows, srows, per_key, size, WIDE_MESH_MS,
+                       WIDE_MESH_BATCHES)
+    assert same == after == len(srows) > 0, (same, after, len(srows))
+    return dict(config="sharded 1x24", launches=counts,
+                events_per_sec=WIDE_MESH_BATCHES * BATCH / wall,
+                wall_s=wall, rows_equal_single_card=same,
+                restored_rows_equal=after, blob_bytes=len(blob),
+                close_stats=stats)
 
 
 def sharded_push_path(dev) -> dict:
@@ -9486,6 +9636,15 @@ def main() -> int:
         f"{r['push_finals']} push finals equal numpy; a mesh snapshot of "
         f"{r['snapshot_bytes']} bytes restored onto one card and back onto "
         f"a mesh, both equal numpy; launches {r['launches']} [{card}]")
+    r = sharded_wide_path(dev)
+    paths.append(r)
+    log(f"sharded path past 16 partials (14d): config 1 on make_mesh(1, 24)"
+        f" (24 key shards on one card) over {WIDE_MESH_BATCHES} x 2^20 "
+        f"records, {r['rows_equal_single_card']} rows equal the single-card"
+        f" executor's, a {r['blob_bytes']}-byte capture after "
+        f"{WIDE_MESH_CAPTURE} batches restored onto one card with "
+        f"{r['restored_rows_equal']} rows equal, close_stats "
+        f"{r['close_stats']}, launches {r['launches']} [{card}]")
     phase_done("14 sharded lattice")
 
     r = sharded_session_path(dev, results)

@@ -150,9 +150,8 @@ class CloseArgs(C.Structure):
                 ("f", Finalize)]
 
 
-MAX_PARTS = 16      # partials of one merged launch (HS_MAX_PARTS)
-PART_PLANES = 3 + 2 * MAX_AGGS  # a partial's plane slots (HS_PART_PLANES)
-PART_COUNT, PART_SLOT_START, PART_TOUCHED = range(3)
+UNPACK_KEYS = 16    # key columns of one block unpack (HS_UNPACK_KEYS)
+PART_COUNT, PART_SLOT_START, PART_TOUCHED = range(3)  # partial table planes
 
 
 class UnpackArgs(C.Structure):
@@ -163,7 +162,8 @@ class UnpackArgs(C.Structure):
                 ("bool_out", C.c_void_p * MAX_COLS),
                 ("null_out", C.c_void_p * MAX_AGGS),
                 ("pitch", C.c_int64), ("n_key_out", C.c_int32),
-                ("key_sub", C.c_int32 * MAX_PARTS), ("key_out", C.c_void_p)]
+                ("key_sub", C.c_int32 * UNPACK_KEYS),
+                ("key_out", C.c_void_p)]
 
 
 TOUCHED_STAGED, TOUCHED_ONE = range(2)  # touched extract modes
@@ -184,8 +184,8 @@ class TouchedArgs(C.Structure):
 
 class Parts(C.Structure):
     _fields_ = [("n_data", C.c_int32), ("n_key", C.c_int32),
-                ("local_keys", C.c_int32),
-                ("p", C.c_void_p * (MAX_PARTS * PART_PLANES))]
+                ("local_keys", C.c_int32), ("n_planes", C.c_int32),
+                ("tab", C.c_void_p)]
 
 
 class MergedCloseArgs(C.Structure):
@@ -197,15 +197,27 @@ class MergedTouchedArgs(C.Structure):
 
 
 MERGE_SUM, MERGE_MIN, MERGE_MAX = range(3)   # shard_merge kinds
-MERGE_DTYPES = {torch.int32: 0, torch.float32: 1, torch.int8: 2,
-                torch.bool: 3}
+MERGE_I32, MERGE_F32, MERGE_I8, MERGE_U8 = range(4)   # their types
+MERGE_DTYPES = {torch.int32: MERGE_I32, torch.float32: MERGE_F32,
+                torch.int8: MERGE_I8, torch.bool: MERGE_U8}
+
+
+MERGE_THREADS, MERGE_PER = 256, 2   # the snapshot merge's blocks
+MERGE_CHUNKS = MERGE_THREADS * MERGE_PER   # 16-byte chunks a block
+MERGE_PLANES = 3 + 2 * MAX_AGGS     # a partial's planes at most
+
+
+class MergeSeg(C.Structure):
+    _fields_ = [("bytes", C.c_int64), ("out_off", C.c_int64),
+                ("block0", C.c_int32), ("plane", C.c_int32),
+                ("shard", C.c_int32), ("kind", C.c_int32),
+                ("dtype", C.c_int32), ("vec", C.c_int32)]
 
 
 class ShardMergeArgs(C.Structure):
-    _fields_ = [("n", C.c_int64), ("n_data", C.c_int32),
-                ("n_key", C.c_int32), ("kind", C.c_int32),
-                ("dtype", C.c_int32), ("src", C.c_void_p * MAX_PARTS),
-                ("out", C.c_void_p)]
+    _fields_ = [("n_seg", C.c_int32), ("n_blocks", C.c_int32),
+                ("seg", C.c_void_p), ("block_seg", C.c_void_p),
+                ("parts", Parts), ("out", C.c_void_p * MERGE_PLANES)]
 
 
 SESSION_SENT = 1 << 22

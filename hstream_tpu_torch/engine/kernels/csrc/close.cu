@@ -61,16 +61,42 @@
 // hs_close_merged / hs_close_slot_merged: the same close over the
 // sharded lattice's D partials of every key shard on the card
 // (hstream_tpu/parallel/lattice.py:192-293 extract_slot, reset_slot,
-// extract_reset_slots, extract_slots, reset_slots), one launch a close
-// cycle. The partials' planes come by value in a table (HsParts); a
-// global key k belongs to key shard k / Kl, and its cell is read as the
-// merge of the D partials' cells (merge.cuh), finalized into the same
-// packed rows (key columns in global key order, as the reference's
-// P(None, None, key) out-spec concatenates them), and reset in every
-// partial. slot_start is the max over the partials, reset in each of
-// them by the slot's last tile. Bound: bytes, D times the single-card
-// close's reads and resets; a sketch cell is merged by its warp into
-// shared memory before the estimate reads it.
+// extract_reset_slots, extract_slots, reset_slots), one launch a card
+// and close cycle, for any number of data and key shards. A global key
+// k belongs to key shard k / Kl; its cell is the merge of the D
+// partials' cells (SUM and AVG added in data-shard order, d = 0 first,
+// MIN and MAX by fminf / fmaxf, counts as int32, HLL registers by their
+// max), finalized into the same packed rows (key columns in global key
+// order, as the reference's P(None, None, key) out-spec concatenates
+// them), and reset in every partial. slot_start is the max over a key
+// shard's partials, reset in each of them by the shard's last tile of
+// the slot. Bound:
+// bytes, D times the single-card close's reads and resets; at config
+// 1's slot (K = 1024 over two key shards, D = 2) ~4.3 MB, below a
+// launch and a few dependent loads.
+//
+// What held the first design back: the partials' plane pointers came
+// by value in a 19.5 KB table of at most 16 partials, read at run-time
+// indices (constant-cache misses); a key read its D counts and then its
+// D slot starts one after another, merged 1 KiB of HLL registers into
+// shared memory with 4-byte loads before the estimate read it back,
+// read its scalar aggregates by one lane only after that, and reset the
+// partials one after another.
+//
+// Design: B2's close_key over D partials. The partials' plane pointers
+// are a table on the card (HsParts.tab, uploaded by the host when they
+// change); a block's keys are of one key shard, whose row of the table
+// the block stages in shared memory once. A key's lanes issue every
+// load of a row group at once (each row's word in the D partials,
+// kMergeD = 2 partials at a time, the counts and AVG's counts beside
+// them), the HLL estimate's 16-byte loads of the partials' registers
+// beside those (the bytewise max taken in registers, hll_merged: nothing
+// goes through shared memory; quantile bins are summed into the warp's
+// buffer), then merge, finalize and write the rows. A word or vector of
+// the cell is read by one lane only (the count by all), so a lane resets
+// what it read in every partial as soon as it has merged it (the HLL
+// registers before their estimate's reductions, with 16-byte stores);
+// count and touched follow one __syncwarp.
 
 #include <cuda_runtime.h>
 
@@ -277,126 +303,323 @@ int launch(const HsCloseArgs &a, unsigned slots, void *stream) {
 
 // ---- the close over D partials --------------------------------------
 
-// one cell's reset in every data shard's partial of key shard s
-template <int kLanes>
-__device__ __forceinline__ void merged_reset_cell(const HsFinalize &f,
-                                                  const HsParts &P, int s,
-                                                  int64_t cell, int lane) {
-    for (int d = 0; d < P.n_data; ++d) {
-        if (lane == 0) {
-            ((int32_t *)hs::part_plane(P, s, d, HS_PART_COUNT))[cell] = 0;
-            ((uint8_t *)hs::part_plane(P, s, d, HS_PART_TOUCHED))[cell] = 0;
+// kStart: row 1's slot_start, merged by max (rows of aggregates merge by
+// their kind)
+constexpr int kStart = -1;
+
+// what row r of the cell reads and how its D words merge: the plane
+// (-1: none; row 0's count and the sketches are read apart), the merge
+// kind, the word's index in the plane and the plane's identity
+__device__ __forceinline__ void row_plan(const HsFinalize &f, int r,
+                                         int slot, int64_t cell,
+                                         bool active, int &pi, int &kind,
+                                         int64_t &idx, uint32_t &fill) {
+    pi = -1;
+    kind = HS_AGG_COUNT_ALL;
+    idx = cell;
+    fill = 0u;
+    if (!active || r == 0) return;
+    if (r == 1) {
+        pi = HS_PART_SLOT_START;
+        kind = kStart;
+        idx = slot;
+        return;
+    }
+    const int g = row_agg(f, r - 2);
+    kind = f.a[g].kind;
+    if (kind != HS_AGG_COUNT_ALL && !sketch_kind(kind))
+        pi = hs::agg_plane(g);
+    if (kind != HS_AGG_COUNT) fill = __float_as_uint(f.a[g].init);
+}
+
+// partial d's word x merged into acc (d = 0: the first): slot_start by
+// max, COUNT(col) by a wrapping add, float32 sums added in data-shard
+// order, MIN and MAX by fminf / fmaxf
+__device__ __forceinline__ uint32_t merge_word(int kind, uint32_t acc,
+                                               uint32_t x, int d) {
+    if (d == 0) return x;
+    if (kind == kStart) return (uint32_t)max((int32_t)acc, (int32_t)x);
+    if (kind == HS_AGG_COUNT) return acc + x;
+    const float a = __uint_as_float(acc), v = __uint_as_float(x);
+    return __float_as_uint(kind == HS_AGG_MIN   ? fminf(a, v)
+                           : kind == HS_AGG_MAX ? fmaxf(a, v)
+                                                : __fadd_rn(a, v));
+}
+
+// the sketch rows of the merged cell, by the whole warp: HLL from its
+// registers' 16-byte loads (hll_merged, no shared memory), quantiles
+// from their bins summed into the warp's buffer
+__device__ __forceinline__ void merged_estimates(const HsFinalize &f,
+                                                 const hs::Tab &t,
+                                                 int64_t cell, int32_t *out,
+                                                 int K, int k, int lane,
+                                                 void *buf, bool reset) {
+    for (int g = 0; g < f.n_aggs; ++g) {
+        const HsCloseAgg &ag = f.a[g];
+        if (!sketch_kind(ag.kind)) continue;
+        float v;
+        if (ag.kind == HS_AGG_HLL) {
+            v = hs::hll_merged(f, t, hs::agg_plane(g), cell, lane, reset);
+        } else {
+            hs::merge_bins(t, hs::agg_plane(g), ag.plane_width, cell, buf,
+                           lane, reset);
+            HsCloseAgg b = ag;
+            b.plane = buf;
+            v = hs::quant_warp(f, b, 0, lane);
+            __syncwarp();   // the buffer is read before the next merge
         }
-        for (int g = 0; g < f.n_aggs; ++g) {
-            const HsCloseAgg &ag = f.a[g];
-            if (ag.kind == HS_AGG_COUNT_ALL) continue;
-            const int pi = hs::agg_plane(g);
-            if (ag.kind == HS_AGG_AVG && lane == 0)
-                ((int32_t *)hs::part_plane(P, s, d, pi + 1))[cell] = 0;
-            const int words = ag.kind == HS_AGG_HLL ? ag.plane_width >> 2
-                                                    : ag.plane_width;
-            const uint32_t fill = (ag.kind == HS_AGG_COUNT ||
-                                   sketch_kind(ag.kind))
-                ? 0u : __float_as_uint(ag.init);
-            fill_words<kLanes>(
-                (uint32_t *)hs::part_plane(P, s, d, pi) + cell * words,
-                words, fill, lane);
-        }
+        if (lane == 0) out[(int64_t)(2 + ag.row) * K + k] = __float_as_int(v);
     }
 }
 
-__device__ __forceinline__ void reset_starts(const HsParts &P, int slot) {
-    for (int s = 0; s < P.n_key; ++s)
-        for (int d = 0; d < P.n_data; ++d)
-            ((int32_t *)hs::part_plane(P, s, d, HS_PART_SLOT_START))[slot] =
-                HS_EMPTY_START;
+// the cell's reset in every data shard's partial of the staged key
+// shard: the scalar words a partial a lane, the wide cells (HLL
+// registers, quantile bins) by the key's lanes with 16-byte stores; or
+// (!all: an extracting close, whose lanes reset the planes' words as
+// they read them) count and touched alone
+template <int kLanes>
+__device__ __forceinline__ void merged_reset(const HsFinalize &f,
+                                             const hs::Tab &t, int64_t cell,
+                                             int lane, bool all) {
+    for (int d = lane; d < t.n_data; d += kLanes) {
+        ((int32_t *)t.plane(d, HS_PART_COUNT))[cell] = 0;
+        ((uint8_t *)t.plane(d, HS_PART_TOUCHED))[cell] = 0;
+        if (!all) continue;
+        for (int g = 0; g < f.n_aggs; ++g) {
+            const HsCloseAgg &ag = f.a[g];
+            if (ag.kind == HS_AGG_COUNT_ALL || sketch_kind(ag.kind))
+                continue;
+            const int pi = hs::agg_plane(g);
+            ((uint32_t *)t.plane(d, pi))[cell] =
+                ag.kind == HS_AGG_COUNT ? 0u : __float_as_uint(ag.init);
+            if (ag.kind == HS_AGG_AVG)
+                ((int32_t *)t.plane(d, pi + 1))[cell] = 0;
+        }
+    }
+    for (int g = 0; all && g < f.n_aggs; ++g) {
+        const HsCloseAgg &ag = f.a[g];
+        if (!sketch_kind(ag.kind)) continue;
+        const int words = ag.kind == HS_AGG_HLL ? ag.plane_width >> 2
+                                                : ag.plane_width;
+        for (int d = 0; d < t.n_data; ++d)
+            fill_words<kLanes>((uint32_t *)t.plane(d, hs::agg_plane(g)) +
+                                   cell * words,
+                               words, 0u, lane);
+    }
 }
 
+// key k (global; its cell `cell` in the staged key shard) of `slot` by
+// its kLanes lanes, close_key's order over D partials: every load of a
+// row group (each row's word in kMergeD partials at a time, the counts,
+// AVG's counts) issued before any is used, the sketch estimates' loads
+// beside them, the rows merged, finalized and written; in an extracting
+// close each lane resets the words it read once merged, and count and
+// touched after one __syncwarp (merged_reset's !all)
 template <int kLanes>
-__global__ void __launch_bounds__(kBlock)
+__device__ __forceinline__ void merged_close_key(const HsCloseArgs &a,
+                                                 const hs::Tab &t, int slot,
+                                                 int64_t cell, int32_t *out,
+                                                 int k, int lane,
+                                                 bool extract, bool reset,
+                                                 void *buf) {
+    // rows a lane loads at once: a warp's lanes hold a row each (a
+    // warp a key: the rows of up to 30 aggregates in one round), a key's
+    // one thread four (its registers beside the D partials' words)
+    constexpr int kG = kLanes == 32 ? 1 : kGroup;
+    const HsFinalize &f = a.f;
+    const int K = a.n_keys, rows = a.out_rows, D = t.n_data;
+    if (extract) {
+        const int mine = rows > lane ? (rows - lane + kLanes - 1) / kLanes
+                                     : 0;
+        int cnt = 0;
+        for (int i0 = 0; i0 < max(mine, 1); i0 += kG) {
+            int pi[kG], kind[kG];
+            int64_t idx[kG];
+            uint32_t w[kG], fill[kG];
+            int32_t n[kG];
+#pragma unroll
+            for (int u = 0; u < kG; ++u) {
+                row_plan(f, lane + kLanes * (i0 + u), slot, cell,
+                         i0 + u < mine, pi[u], kind[u], idx[u], fill[u]);
+                w[u] = 0u;
+                n[u] = 0;
+            }
+            for (int d0 = 0; d0 < D; d0 += hs::kMergeD) {
+                uint32_t c[hs::kMergeD], x[kG][hs::kMergeD];
+                int32_t nx[kG][hs::kMergeD];
+#pragma unroll
+                for (int j = 0; j < hs::kMergeD; ++j) {
+                    const bool on = d0 + j < D;
+                    c[j] = on && i0 == 0
+                        ? ((const uint32_t *)t.plane(d0 + j,
+                                                     HS_PART_COUNT))[cell]
+                        : 0u;
+#pragma unroll
+                    for (int u = 0; u < kG; ++u) {
+                        x[u][j] = on && pi[u] >= 0
+                            ? ((const uint32_t *)t.plane(d0 + j, pi[u]))
+                                  [idx[u]]
+                            : 0u;
+                        nx[u][j] = on && kind[u] == HS_AGG_AVG
+                            ? ((const int32_t *)t.plane(d0 + j, pi[u] + 1))
+                                  [cell]
+                            : 0;
+                    }
+                }
+                if (kLanes == 32 && i0 == 0 && d0 == 0)
+                    // every lane: the estimates are warp reductions, their
+                    // loads overlap the rows' loads above
+                    merged_estimates(f, t, cell, out, K, k, lane, buf,
+                                     reset);
+#pragma unroll
+                for (int j = 0; j < hs::kMergeD; ++j) {
+                    if (d0 + j >= D) break;
+                    cnt += (int)c[j];
+#pragma unroll
+                    for (int u = 0; u < kG; ++u) {
+                        w[u] = merge_word(kind[u], w[u], x[u][j], d0 + j);
+                        n[u] += nx[u][j];
+                        // the row's words are this lane's alone: reset
+                        // once read (slot_start by the shard's last tile)
+                        if (!reset || pi[u] < 0 || kind[u] == kStart)
+                            continue;
+                        ((uint32_t *)t.plane(d0 + j, pi[u]))[idx[u]] =
+                            fill[u];
+                        if (kind[u] == HS_AGG_AVG)
+                            ((int32_t *)t.plane(d0 + j, pi[u] + 1))[cell] =
+                                0;
+                    }
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < kG; ++u) {
+                const int r = lane + kLanes * (i0 + u);
+                int32_t v;
+                if (i0 + u < mine &&
+                    row_value(f, r, w[u], n[u], cnt, (int32_t)w[u], v))
+                    out[(int64_t)r * K + k] = v;
+            }
+        }
+        if (kLanes > 1) __syncwarp();  // every read of the cell precedes
+                                       // its reset
+    }
+    if (reset) merged_reset<kLanes>(f, t, cell, lane, !extract);
+}
+
+// slot_start[slot] of every partial of the staged key shard
+__device__ __forceinline__ void reset_starts(const hs::Tab &t, int slot) {
+    for (int d = 0; d < t.n_data; ++d)
+        ((int32_t *)t.plane(d, HS_PART_SLOT_START))[slot] = HS_EMPTY_START;
+}
+
+// the widest quantile cell's bytes, a multiple of 16 (a warp's buffer)
+__host__ __device__ inline int quant_buf_bytes(const HsFinalize &f) {
+    int most = 0;
+    for (int g = 0; g < f.n_aggs; ++g)
+        if (f.a[g].kind == HS_AGG_QUANT && 4 * f.a[g].plane_width > most)
+            most = 4 * f.a[g].plane_width;
+    return (most + 15) & ~15;
+}
+
+// blocks of one key shard's key tiles, the grid (n_key x tiles, P): a
+// block stages its key shard's plane pointers in shared memory, then
+// closes its keys as close_kernel does. slot_start of a key shard's
+// partials is read by that shard's tiles alone, so its last tile (a
+// counter a slot and key shard) resets them, or in a reset-only close
+// its first
+template <int kLanes>
+__global__ void __launch_bounds__(kBlock, 1)
 merged_close_kernel(const __grid_constant__ HsMergedCloseArgs m) {
     extern __shared__ __align__(16) unsigned char s_buf[];
     constexpr int kKeys = kBlock / kLanes;
     const HsCloseArgs &a = m.c;
     const HsParts &P = m.parts;
+    const int tiles = (P.local_keys + kKeys - 1) / kKeys;
+    const int s = blockIdx.x / tiles;
+    const int kl = (blockIdx.x - s * tiles) * kKeys + threadIdx.x / kLanes;
     const int p = blockIdx.y;
     const int slot = a.slots != nullptr ? a.slots[p] : a.sel[p];
     const bool extract = a.mode != HS_CLOSE_RESET;
     const bool reset = a.mode != HS_CLOSE_EXTRACT;
     const int K = a.n_keys, rows = a.out_rows;
     const int lane = kLanes == 1 ? 0 : threadIdx.x % kLanes;
-    const int k = blockIdx.x * kKeys + threadIdx.x / kLanes;
+    const int k = s * P.local_keys + kl;
+    const bool live = kl < P.local_keys;
     int32_t *out = extract ? a.out + (int64_t)p * rows * K : nullptr;
     if (slot < 0) {  // padding: zero rows, nothing reset
-        if (extract && k < K)
+        if (extract && live)
             for (int r = lane; r < rows; r += kLanes)
                 out[(int64_t)r * K + k] = 0;
         return;
     }
-    if (k < K) {
-        const int s = k / P.local_keys;
-        const int64_t cell =
-            (int64_t)(k - s * P.local_keys) * a.n_slots + slot;
-        if (extract) {
-            void *buf = s_buf + (threadIdx.x >> 5) *
-                                    hs::sketch_buf_bytes(a.f);
-            const int cnt = hs::merged_count(P, s, cell);
-            if (lane == 0) {
-                out[k] = cnt;
-                out[(int64_t)K + k] = hs::merged_start(P, s, slot);
-            }
-            hs::merged_finalize_cell<kLanes>(a.f, P, s, cell, cnt,
-                                             out + 2 * (int64_t)K + k, K,
-                                             lane, buf);
-            if (kLanes > 1) __syncwarp();  // every read precedes the reset
-        }
-        if (reset) merged_reset_cell<kLanes>(a.f, P, s, cell, lane);
-    }
+    const hs::Tab t = hs::stage_tab(P, s, s_buf);
+    __syncthreads();
+    void *buf = s_buf + hs::tab_bytes(P) +
+                (threadIdx.x >> 5) * quant_buf_bytes(a.f);
+    if (live)
+        merged_close_key<kLanes>(
+            a, t, slot, (int64_t)kl * a.n_slots + slot, out, k, lane,
+            extract, reset, buf);
     if (!reset) return;
     if (!extract) {  // nothing read slot_start: the first tile resets it
-        if (blockIdx.x == 0 && threadIdx.x == 0) reset_starts(P, slot);
+        if (blockIdx.x == s * tiles && threadIdx.x == 0)
+            reset_starts(t, slot);
         return;
     }
     __syncthreads();  // the block's reads of slot_start precede its count
     if (threadIdx.x == 0) {
         __threadfence();
-        const unsigned prev = atomicAdd(&a.done[p], 1u);
-        if (prev == gridDim.x - 1) {  // the slot's last tile
-            reset_starts(P, slot);
-            a.done[p] = 0u;
+        uint32_t *done = a.done + (int64_t)p * P.n_key + s;
+        if (atomicAdd(done, 1u) == (unsigned)tiles - 1) {  // the shard's
+            reset_starts(t, slot);                         // last tile
+            *done = 0u;
         }
     }
 }
 
 bool valid_parts(const HsMergedCloseArgs &m) {
     const HsParts &P = m.parts;
-    return P.n_data >= 1 && P.n_key >= 1 && P.local_keys >= 1 &&
-           (int64_t)P.n_data * P.n_key <= HS_MAX_PARTS &&
-           (int64_t)P.n_key * P.local_keys == m.c.n_keys &&
-           m.c.f.n_aggs <= HS_MAX_AGGS && valid_args(m.c);
+    const HsFinalize &f = m.c.f;
+    if (P.n_data < 1 || P.n_key < 1 || P.local_keys < 1 ||
+        P.tab == nullptr || f.n_aggs > HS_MAX_AGGS ||
+        P.n_planes != 3 + 2 * f.n_aggs ||
+        (int64_t)P.n_key * P.local_keys != m.c.n_keys || !valid_args(m.c))
+        return false;
+    for (int g = 0; g < f.n_aggs; ++g)   // TOPK: no elementwise merge
+        if (f.a[g].kind == HS_AGG_TOPK || f.a[g].kind == HS_AGG_TOPK_DISTINCT)
+            return false;
+    return true;
 }
 
 int launch_merged(const HsMergedCloseArgs &m, unsigned slots,
                   void *stream) {
-    static std::atomic<uint64_t> smem_done{0};
+    static std::atomic<uint64_t> smem32{0}, smem1{0};
     const HsCloseArgs &a = m.c;
     const int keys = kBlock / a.lanes;
-    int64_t tiles = ((int64_t)a.n_keys + keys - 1) / keys;
-    if (tiles < 1) tiles = 1;
+    const int64_t tiles =
+        (int64_t)m.parts.n_key *
+        (((int64_t)m.parts.local_keys + keys - 1) / keys);
+    if (tiles > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)tiles, slots);
+    const int smem = hs::tab_bytes(m.parts) +
+        (a.lanes == 32 && a.mode != HS_CLOSE_RESET
+             ? (kBlock / 32) * quant_buf_bytes(a.f) : 0);
+    if (smem > 232448) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     if (a.lanes == 32) {
-        const int smem = a.mode != HS_CLOSE_RESET
-            ? (kBlock / 32) * hs::sketch_buf_bytes(a.f) : 0;
-        if (smem > 232448) return (int)cudaErrorInvalidValue;
         if (smem > 48 * 1024) {
             const cudaError_t err =
-                hs::allow_smem(smem_done, merged_close_kernel<32>, 232448);
+                hs::allow_smem(smem32, merged_close_kernel<32>, 232448);
             if (err != cudaSuccess) return (int)err;
         }
         merged_close_kernel<32><<<grid, kBlock, smem, s>>>(m);
     } else {
-        merged_close_kernel<1><<<grid, kBlock, 0, s>>>(m);
+        if (smem > 48 * 1024) {
+            const cudaError_t err =
+                hs::allow_smem(smem1, merged_close_kernel<1>, 232448);
+            if (err != cudaSuccess) return (int)err;
+        }
+        merged_close_kernel<1><<<grid, kBlock, smem, s>>>(m);
     }
     return (int)cudaGetLastError();
 }

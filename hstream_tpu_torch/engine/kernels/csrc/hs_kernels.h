@@ -296,14 +296,10 @@ struct HsCloseArgs {
 
 // ---- packed-transport unpack (unpack.cu) --------------------------------
 
-// the sharded lattice (parallel/lattice.py): the partials one merged
-// launch reads, data shards times the key shards on the card, and each
-// partial's planes, by index: count, slot_start, touched, then aggregate
-// g's plane at 3 + 2g and AVG's count at 4 + 2g
-#define HS_MAX_PARTS 16
-#define HS_PART_PLANES (3 + 2 * HS_MAX_AGGS)
-#define HS_PART_TABLE (HS_MAX_PARTS * HS_PART_PLANES)
-enum { HS_PART_COUNT = 0, HS_PART_SLOT_START = 1, HS_PART_TOUCHED = 2 };
+// the sharded step's block unpack: the key columns one launch writes,
+// one a key shard on the card (parallel/lattice.py cuts a card's key
+// shards into launches of at most this many)
+#define HS_UNPACK_KEYS 16
 
 struct HsUnpackArgs {
     const int32_t *packed;  // record 0 of [3 + n_cols, pitch]: key, ts,
@@ -318,7 +314,7 @@ struct HsUnpackArgs {
     int64_t pitch;          // words from a row to the next; 0: cap
     int32_t n_key_out;      // sharded step: key columns to write, one a
                             // key shard, 0 = none
-    int32_t key_sub[HS_MAX_PARTS];   // column j holds key - key_sub[j]
+    int32_t key_sub[HS_UNPACK_KEYS];  // column j holds key - key_sub[j]
     int32_t *key_out;       // [n_key_out, cap]
 };
 
@@ -351,18 +347,28 @@ struct HsTouchedArgs {
 
 // ---- the sharded window lattice (close.cu, touched.cu, shard_merge.cu) --
 
-// the partials of a merged launch: key shard s's data shard d at
-// p[(s * n_data + d) * HS_PART_PLANES + plane]
+// the partials of a merged launch: a table on the card, built and
+// uploaded by the host (parallel/lattice.py part_table, again only where
+// a pointer changed), of every partial's planes by index: count,
+// slot_start, touched, then aggregate g's plane at 3 + 2g and AVG's
+// count at 4 + 2g (n_planes = 3 + 2 * n_aggs); key shard s's data shard
+// d's plane i at tab[(s * n_data + d) * n_planes + i]. Any number of
+// data and key shards.
+enum { HS_PART_COUNT = 0, HS_PART_SLOT_START = 1, HS_PART_TOUCHED = 2 };
+
 struct HsParts {
     int32_t n_data;        // D
     int32_t n_key;         // key shards the launch covers
     int32_t local_keys;    // Kl, the keys of one key shard
-    void *p[HS_PART_TABLE];
+    int32_t n_planes;      // 3 + 2 * n_aggs
+    const uint64_t *tab;   // [n_key * n_data * n_planes] plane addresses,
+                           // on the card
 };
 
 // the close over D partials (hs_close_merged, hs_close_slot_merged):
 // c.n_keys is n_key * local_keys, c's own plane pointers and f's are
-// unused (the planes come from `parts`); c.out [P, out_rows, n_keys]
+// unused (the planes come from `parts`); c.out [P, out_rows, n_keys];
+// c.done [P * n_key] counters, slot p's key shard s at p * n_key + s
 struct HsMergedCloseArgs {
     HsCloseArgs c;
     HsParts parts;
@@ -379,20 +385,41 @@ struct HsMergedTouchedArgs {
     HsParts parts;
 };
 
-// snapshot merge (shard_merge.cu): out[s * n + i] = the merge of
-// src[s * n_data + d][i] over d
+// snapshot merge (shard_merge.cu): one launch a capture over a table of
+// segments on the card, one a (plane, key shard) that the capture holds
+// and slot_start as one of key shard 0. Segment j merges plane `plane` of
+// key shard `shard`'s D partials (their pointers from the partial table,
+// `parts`) into out[plane] + out_off; blocks [block0, next segment's
+// block0) take its 16-byte chunks, HS_MERGE_CHUNKS a block. The table is
+// built and uploaded by the host (parallel/lattice.py merge_segments),
+// again only where a pointer or a size changed.
 enum { HS_MERGE_SUM = 0, HS_MERGE_MIN = 1, HS_MERGE_MAX = 2 };
 enum { HS_MERGE_I32 = 0, HS_MERGE_F32 = 1, HS_MERGE_I8 = 2,
        HS_MERGE_U8 = 3 };
+#define HS_MERGE_THREADS 256
+#define HS_MERGE_PER 2          // 16-byte chunks a thread
+#define HS_MERGE_CHUNKS (HS_MERGE_THREADS * HS_MERGE_PER)
+#define HS_MERGE_PLANES (3 + 2 * HS_MAX_AGGS)
 
-struct HsShardMergeArgs {
-    int64_t n;             // elements of one partial
-    int32_t n_data;
-    int32_t n_key;
+struct HsMergeSeg {
+    int64_t bytes;         // the segment's bytes (elements x their size)
+    int64_t out_off;       // its first byte in out[plane]
+    int32_t block0;        // its first block
+    int32_t plane;         // the partial table's plane index
+    int32_t shard;         // the key shard whose D partials it merges
     int32_t kind;          // HS_MERGE_SUM / MIN / MAX (bool: MAX = any)
     int32_t dtype;         // HS_MERGE_*
-    const void *src[HS_MAX_PARTS];
-    void *out;             // [n_key * n]
+    int32_t vec;           // 1: every source and out + out_off 16-byte
+                           // aligned (16-byte chunks), 0: element by element
+};
+
+struct HsShardMergeArgs {
+    int32_t n_seg;
+    int32_t n_blocks;      // the grid
+    const HsMergeSeg *seg; // [n_seg] on the card
+    const int32_t *block_seg;  // [n_blocks]: each block's segment
+    HsParts parts;         // the partial table (local_keys unused)
+    void *out[HS_MERGE_PLANES];  // the canonical planes, by plane index
 };
 
 // ---- session windows (session_chain.cuh and the four session_*.cu) -----

@@ -431,41 +431,12 @@ __host__ __device__ __forceinline__ int merged_one_cols(
     return 32 * (per > 1 ? per : 1);
 }
 
-// key shard s's partials' plane pointers, staged in shared memory at a
-// block's start (read from the parameters once, all at a time, while
-// the block loads its flags: a run-time index into the 19.5 KB table of
-// the parameters is a constant-cache miss, and the merges would wait
-// them out one after another): tab[d * np + i], plane i < np = 3 +
-// 2 n_aggs
-struct Tab {
-    const void *const *p;
-    int n_data, np;
-    __device__ __forceinline__ const void *plane(int d, int i) const {
-        return p[d * np + i];
-    }
-};
-
-__host__ __device__ __forceinline__ int tab_bytes(int n_data, int n_aggs) {
-    return (n_data * (3 + 2 * n_aggs) * (int)sizeof(void *) + 15) & ~15;
-}
-
-__device__ __forceinline__ Tab stage_tab(const HsParts &P, int s, int n_aggs,
-                                         void *smem) {
-    const void **tab = (const void **)smem;
-    const int np = 3 + 2 * n_aggs;
-    for (int i = threadIdx.x; i < P.n_data * np; i += blockDim.x) {
-        const int d = i / np;
-        tab[i] = hs::part_plane(P, s, d, i - d * np);
-    }
-    return Tab{tab, P.n_data, np};
-}
-
 // merge.cuh's merges over a staged table, each partial's value loaded
 // before any is combined (the loads in flight together), the float sums
 // added in data-shard order, d = 0 first. Kept apart from merge.cuh's
-// (which read the parameters' table): merge.cuh's made templates over
+// (which read the table at each use): merge.cuh's made templates over
 // both tables took the one launch from 3.65 to 4.00 µs on an H100
-__device__ __forceinline__ int tab_count(const Tab &t, int64_t cell) {
+__device__ __forceinline__ int tab_count(const hs::Tab &t, int64_t cell) {
     int c = 0;
 #pragma unroll 4
     for (int d = 0; d < t.n_data; ++d)
@@ -473,7 +444,7 @@ __device__ __forceinline__ int tab_count(const Tab &t, int64_t cell) {
     return c;
 }
 
-__device__ __forceinline__ int tab_start(const Tab &t, int slot) {
+__device__ __forceinline__ int tab_start(const hs::Tab &t, int slot) {
     int v = HS_EMPTY_START;
 #pragma unroll 4
     for (int d = 0; d < t.n_data; ++d)
@@ -483,7 +454,7 @@ __device__ __forceinline__ int tab_start(const Tab &t, int slot) {
 
 // aggregate g's (a scalar: not HLL, quantile or TOPK) row of the shard's
 // merged cell `cell`, its count merged where the kind reads it
-__device__ __forceinline__ int32_t tab_scalar(const Tab &t,
+__device__ __forceinline__ int32_t tab_scalar(const hs::Tab &t,
                                               const HsCloseAgg &ag, int g,
                                               int64_t cell) {
     const int kind = ag.kind;
@@ -520,7 +491,7 @@ __device__ __forceinline__ int32_t tab_scalar(const Tab &t,
 // max of HLL ranks, the sum of bins, as merge.cuh merge_sketch); the
 // row's bits on every lane
 __device__ __forceinline__ int32_t tab_sketch(const HsFinalize &f,
-                                              const Tab &t, int g,
+                                              const hs::Tab &t, int g,
                                               int64_t cell, void *buf,
                                               int lane) {
     const HsCloseAgg &ag = f.a[g];
@@ -552,7 +523,7 @@ __device__ __forceinline__ int32_t tab_sketch(const HsFinalize &f,
 // nv: the fill), `fill` its merged cell (0, 0)'s rows (the staged
 // scan's)
 __device__ __forceinline__ void merged_cols(const HsMergedTouchedArgs &m,
-                                            const Tab &tab, int s,
+                                            const hs::Tab &tab, int s,
                                             const int32_t *cells, int n,
                                             const int32_t *fill, int64_t c0,
                                             int g) {
@@ -619,7 +590,7 @@ __device__ __forceinline__ void merged_cols(const HsMergedTouchedArgs &m,
 // columns, each row one 128-byte store), but the sketch rows of touched
 // columns (a warp's each); a fill column's scalars are cell 0's
 __device__ __forceinline__ void merged_col(const HsMergedTouchedArgs &m,
-                                           const Tab &tab, int s,
+                                           const hs::Tab &tab, int s,
                                            const int32_t *cells, int n,
                                            const int32_t *fill, int64_t c,
                                            int g) {
@@ -652,11 +623,13 @@ __device__ __forceinline__ void merged_col(const HsMergedTouchedArgs &m,
 // columns) tasks, a lane a column, so no warp runs two row groups' code
 // one after the other. The block that took the shard's last ticket
 // clears the shard's flags in every partial and sets the ticket back to
-// 0, so no memset precedes a launch.
+// 0, so no memset precedes a launch. One block an SM is enough for its
+// registers: ptxas's own target left it 0.15 µs slower on an H100 once
+// its flags' pointers came from the partial table.
 constexpr int kOneSmemMax = 232448 - 24 * 1024;   // dynamic, past the
                                                   // static arrays
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 merged_one_kernel(const __grid_constant__ HsMergedTouchedArgs m) {
     __shared__ int32_t s_cells[kChunk];
     __shared__ int32_t s_fill[HS_TOUCHED_ONE_ROWS];
@@ -667,7 +640,7 @@ merged_one_kernel(const __grid_constant__ HsMergedTouchedArgs m) {
     const HsParts &P = m.parts;
     const int s = blockIdx.y;
     const int n_aggs = a.f.n_aggs;
-    const Tab tab = stage_tab(P, s, n_aggs, s_buf);
+    const hs::Tab tab = hs::stage_tab(P, s, s_buf);
     const int n_cells = a.n_keys * a.n_slots;
     const int64_t base = (int64_t)threadIdx.x * kPer;
     unsigned mask = 0u;
@@ -692,7 +665,7 @@ merged_one_kernel(const __grid_constant__ HsMergedTouchedArgs m) {
     const int64_t nv = min((int64_t)n, (int64_t)a.max_out);
     if (a.has_sketch) {
         const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-        void *buf = s_buf + tab_bytes(P.n_data, n_aggs) +
+        void *buf = s_buf + hs::tab_bytes(P) +
                     warp * hs::sketch_buf_bytes(a.f);
         const int fills = hi > nv ? n_aggs : 0;   // fill columns here
         const int64_t hits = max(min(hi, nv) - lo, (int64_t)0);
@@ -795,7 +768,7 @@ merged_finalize_kernel(const __grid_constant__ HsMergedTouchedArgs m) {
     extern __shared__ __align__(16) unsigned char s_buf[];
     const HsTouchedArgs &a = m.t;
     const int s = blockIdx.y;
-    const Tab tab = stage_tab(m.parts, s, a.f.n_aggs, s_buf);
+    const hs::Tab tab = hs::stage_tab(m.parts, s, s_buf);
     __syncthreads();
     const int64_t c0 =
         ((int64_t)blockIdx.x * kThreads + threadIdx.x) * kCols;
@@ -815,9 +788,9 @@ merged_sketch_kernel(const __grid_constant__ HsMergedTouchedArgs m) {
     const HsTouchedArgs &a = m.t;
     const int s = blockIdx.y;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const Tab tab = stage_tab(m.parts, s, a.f.n_aggs, s_buf);
+    const hs::Tab tab = hs::stage_tab(m.parts, s, s_buf);
     __syncthreads();
-    void *buf = s_buf + tab_bytes(m.parts.n_data, a.f.n_aggs) +
+    void *buf = s_buf + hs::tab_bytes(m.parts) +
                 warp * hs::sketch_buf_bytes(a.f);
     const int32_t *cells = a.cells + s * shard_words(a.max_out, a.out_rows);
     const int nv = min(cells[a.max_out], a.max_out);
@@ -853,8 +826,8 @@ extern "C" int hs_touched_merged(const HsMergedTouchedArgs *args,
     const int n_cells = a.n_keys * a.n_slots;
     if (n_cells <= 0 || a.max_out <= 0) return 0;
     if (P.n_data < 1 || P.n_key < 1 || P.local_keys != a.n_keys ||
-        (int64_t)P.n_data * P.n_key > HS_MAX_PARTS ||
-        a.f.n_aggs > HS_MAX_AGGS)
+        P.tab == nullptr || a.f.n_aggs > HS_MAX_AGGS ||
+        P.n_planes != 3 + 2 * a.f.n_aggs || P.n_key > 65535)
         return (int)cudaErrorInvalidValue;
     a.has_sketch = 0;
     for (int g = 0; g < a.f.n_aggs; ++g) {
@@ -865,7 +838,7 @@ extern "C" int hs_touched_merged(const HsMergedTouchedArgs *args,
     }
     // dynamic shared memory: the staged plane table, then (with
     // sketches) a merge buffer a warp
-    const int tab = tab_bytes(P.n_data, a.f.n_aggs);
+    const int tab = hs::tab_bytes(P);
     const int smem = tab + (a.has_sketch ? (kThreads / 32) *
                                                hs::sketch_buf_bytes(a.f)
                                          : 0);

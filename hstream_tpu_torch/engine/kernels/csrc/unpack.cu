@@ -64,7 +64,7 @@ unpack_kernel(const __grid_constant__ HsUnpackArgs a) {
 
 extern "C" int hs_unpack(const HsUnpackArgs *args, void *stream) {
     if (args->cap == 0) return 0;
-    if (args->n_key_out < 0 || args->n_key_out > HS_MAX_PARTS ||
+    if (args->n_key_out < 0 || args->n_key_out > HS_UNPACK_KEYS ||
         (args->n_key_out > 0 && args->key_out == nullptr) ||
         (args->pitch > 0 && args->pitch < args->cap))
         return (int)cudaErrorInvalidValue;

@@ -29,18 +29,21 @@ and the scatter, expression and rebase kernels of engine/lattice.py run
 per shard as they are. Each wrapper launches its kernel when the planes
 lie on the card and counts the launch, and runs the plain PyTorch version
 beside it only when they lie on the CPU. One launch of a merged kernel
-covers the key shards whose data-0 partial is on one card, up to the
-16 partials a launch reads (merged_groups cuts past them); where a key
-shard's partials lie on other cards, they are copied to its data-0 card
-first (a copy on a side stream, behind an event) and the reset copies
-copied back. Every launch for a card runs with that card current (the
-CUDA runtime launches a kernel only on a stream of the current device).
+covers every key shard whose data-0 partial is on one card, whatever the
+number of partials: the kernels read the partials' plane pointers from a
+table on the card (part_table), uploaded again only when a pointer
+changed. Where a key shard's partials lie on other cards, they are
+copied to its data-0 card first (a copy on a side stream, behind an
+event) and the reset copies copied back. Every launch for a card runs
+with that card current (the CUDA runtime launches a kernel only on a
+stream of the current device).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+from collections import OrderedDict
 from typing import Mapping
 
 import numpy as np
@@ -200,11 +203,14 @@ def unpack_block(packed: torch.Tensor, lo: int, count: int, layout,
                          "[3 + n_cols, B] buffer")
     if not (0 <= lo and 0 < count and lo + count <= packed.shape[1]):
         raise ValueError("unpack_block: block out of range")
-    if not 0 < len(key_subs) <= kb.MAX_PARTS:
-        raise ValueError(f"unpack_block: 1 to {kb.MAX_PARTS} key shards")
+    if not key_subs:
+        raise ValueError("unpack_block: no key shard")
     if packed.device.type == "cpu":
         return unpack_block_ref(packed, lo, count, layout, null_keys,
                                 key_subs)
+    if len(key_subs) > kb.UNPACK_KEYS:
+        raise ValueError(f"unpack_block: at most {kb.UNPACK_KEYS} key "
+                         "columns a launch")
     out = _unpack_block_cuda(packed, lo, count, layout, null_keys, key_subs)
     unpack_block.launches += 1
     return out
@@ -214,6 +220,12 @@ unpack_block.launches = 0  # wrapper calls that launched the kernel
 
 
 # ---- the partial table of the merged kernels --------------------------------
+
+# the merged kernels' launches by wrapper, one a card a call (the
+# wrappers' .launches count calls)
+CARD_LAUNCHES = {"close_merged": 0, "close_slot_merged": 0,
+                 "touched_merged": 0, "merge_partials": 0}
+
 
 
 def _plane_slots(spec: LatticeSpec) -> list[tuple[int, str]]:
@@ -230,22 +242,96 @@ def _plane_slots(spec: LatticeSpec) -> list[tuple[int, str]]:
     return out
 
 
-def _parts_args(spec: LatticeSpec, by_key: list[list[dict]]) -> kb.Parts:
-    """The partial table of one launch: key shard s's data shard d at
-    entry s * D + d (csrc/hs_kernels.h HsParts)."""
-    parts = kb.Parts()
-    D = len(by_key[0])
-    if D * len(by_key) > kb.MAX_PARTS:
-        raise ValueError(f"a merged launch reads at most {kb.MAX_PARTS} "
-                         "partials")
-    parts.n_data, parts.n_key, parts.local_keys = D, len(by_key), spec.n_keys
+def part_planes(spec: LatticeSpec) -> int:
+    """A partial's entries in the partial table: count, slot_start,
+    touched, then two an aggregate (its plane, AVG's count)."""
+    return 3 + 2 * len(spec.aggs)
+
+
+def _addr(t: torch.Tensor) -> int:
+    if not t.is_contiguous():
+        raise ValueError("a partial's planes must be contiguous")
+    return t.data_ptr()
+
+
+def part_table_key(spec: LatticeSpec, by_key: list[list[dict]]
+                   ) -> tuple[int, ...]:
+    """The partial table of one launch (csrc/hs_kernels.h HsParts), as
+    the planes' addresses: key shard s's data shard d's plane i at entry
+    (s * D + d) * part_planes(spec) + i, 0 where the query has no such
+    plane (COUNT(*)'s, a non-AVG's count)."""
+    D, n_planes = len(by_key[0]), part_planes(spec)
     slots = _plane_slots(spec)
+    out = [0] * (len(by_key) * D * n_planes)
     for s, partials in enumerate(by_key):
         for d, part in enumerate(partials):
-            base = (s * D + d) * kb.PART_PLANES
+            base = (s * D + d) * n_planes
             for i, name in slots:
-                parts.p[base + i] = kb.ptr(part[name])
-    return parts
+                out[base + i] = _addr(part[name])
+    return tuple(out)
+
+
+_TABLES_KEPT = 32      # uploads kept a card, the least recently used go
+_part_tables: dict = {}
+
+
+def _upload(host: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A host buffer on `dev`: a blocking copy (PyTorch synchronizes a
+    pageable upload), so any stream may read it at once."""
+    return host if dev.type == "cpu" else host.to(dev)
+
+
+def _cached(tables: dict, dev: torch.device, key, build):
+    """tables[dev][key], made by build() where it is missing; a card
+    keeps the _TABLES_KEPT most recently used."""
+    mine = tables.setdefault(dev, OrderedDict())
+    got = mine.get(key)
+    if got is None:
+        got = mine[key] = build()
+        if len(mine) > _TABLES_KEPT:
+            mine.popitem(last=False)
+    else:
+        mine.move_to_end(key)
+    return got
+
+
+def part_table(spec: LatticeSpec, by_key: list[list[dict]],
+               dev: torch.device, key: tuple[int, ...] | None = None
+               ) -> torch.Tensor:
+    """The partial table of one launch on `dev` (int64 addresses,
+    part_table_key's), uploaded only where it is not cached on that card
+    already: the cache is keyed by the addresses, which steps, closes and
+    extracts keep (they update the planes in place), and a restore, a key
+    growth or a copy from another card changes. A table holds addresses
+    only, so one whose key matches is right. part_table.uploads counts
+    the uploads."""
+    if key is None:
+        key = part_table_key(spec, by_key)
+
+    def build():
+        part_table.uploads += 1
+        words = [w - (1 << 64) if w >= 1 << 63 else w for w in key]
+        return _upload(torch.tensor(words, dtype=torch.int64), dev)
+
+    return _cached(_part_tables, dev, key, build)
+
+
+part_table.uploads = 0
+
+
+def _parts_args(spec: LatticeSpec, by_key: list[list[dict]],
+                dev: torch.device, key: tuple[int, ...] | None = None
+                ) -> tuple[kb.Parts, torch.Tensor]:
+    """The partial table's argument block of one launch on `dev` and the
+    table (held by the caller until the launch is queued)."""
+    tab = part_table(spec, by_key, dev, key)
+    if tab.is_cuda:  # a table made on another stream stays until this
+        tab.record_stream(torch.cuda.current_stream(dev))  # one's done
+    parts = kb.Parts()
+    parts.n_data, parts.n_key = len(by_key[0]), len(by_key)
+    parts.local_keys, parts.n_planes = spec.n_keys, part_planes(spec)
+    parts.tab = tab.data_ptr()
+    return parts, tab
 
 
 _side_streams: dict = {}
@@ -288,30 +374,25 @@ def _put_back(back) -> None:
             v.copy_(cp[k], non_blocking=True)
 
 
-def _by_card(devices: list[torch.device], per: int
+def _by_card(devices: list, per: int | None = None
              ) -> list[tuple[torch.device, list[int]]]:
     """(card, shards) for the shards on each card (devices[s] is shard
-    s's), in shard order, cut into launches of at most `per` shards."""
+    s's), in shard order, cut into launches of at most `per` shards
+    (None: one launch a card)."""
     by_card: dict = {}
     for s, d in enumerate(devices):
         by_card.setdefault(d, []).append(s)
-    return [(d, ks[i:i + per]) for d, ks in by_card.items()
-            for i in range(0, len(ks), per)]
+    return [(d, ks[i:i + (per or len(ks))]) for d, ks in by_card.items()
+            for i in range(0, len(ks), per or len(ks))]
 
 
 def merged_groups(state: ShardedState
                   ) -> list[tuple[torch.device, list[int]]]:
     """The launches of a merged close or changelog extract: (card, key
     shards) for the key shards whose data-0 partial lies on each card, in
-    key order, cut so that a launch reads at most kb.MAX_PARTS partials
-    (floor(16 / D) key shards of D data shards each; key shards and
-    their flags are independent, so the cut changes no output)."""
-    D = state.n_data
-    if D > kb.MAX_PARTS:
-        raise ValueError(f"a key shard of {D} data shards passes the "
-                         f"{kb.MAX_PARTS} partials one merged launch reads")
-    return _by_card([_device(state[0][k]) for k in range(state.n_key)],
-                    kb.MAX_PARTS // D)
+    key order, one launch a card whatever the number of partials (the
+    kernels read them through the partial table on the card)."""
+    return _by_card([_device(state[0][k]) for k in range(state.n_key)])
 
 
 def _key_cols(ks: list[int], Kl: int) -> list[tuple]:
@@ -359,14 +440,17 @@ def close_merged_ref(spec: LatticeSpec, state: ShardedState,
 
 
 def _merged_close_args(spec: LatticeSpec, by_key: list[list[dict]],
-                       mode: int) -> kb.MergedCloseArgs:
+                       mode: int, dev: torch.device
+                       ) -> tuple[kb.MergedCloseArgs, torch.Tensor]:
+    """The merged close's argument block and the partial table it
+    points at."""
     m = kb.MergedCloseArgs()
     # the single-card argument block of data shard 0's first partial:
     # its sizes, modes and finalize table (its pointers are unused)
     m.c = lattice._close_args(spec, by_key[0][0], mode)
     m.c.n_keys = spec.n_keys * len(by_key)
-    m.parts = _parts_args(spec, by_key)
-    return m
+    m.parts, tab = _parts_args(spec, by_key, dev)
+    return m, tab
 
 
 def _close_merged_cuda(spec: LatticeSpec, state: ShardedState,
@@ -384,9 +468,9 @@ def _close_merged_cuda(spec: LatticeSpec, state: ShardedState,
                 parts, b = _gather(state.key_shard(k), dev)
                 by_key.append(parts)
                 back.extend(b)
-            m = _merged_close_args(spec, by_key, mode)
+            m, tab = _merged_close_args(spec, by_key, mode, dev)
             m.c.n_sel = P
-            keep = []
+            keep = [tab]
             if P <= kb.CLOSE_INLINE:
                 m.c.sel[:P] = [int(x) for x in slots]
             else:
@@ -401,9 +485,11 @@ def _close_merged_cuda(spec: LatticeSpec, state: ShardedState,
                 m.c.out = dst.data_ptr()
             stream = torch.cuda.current_stream(dev).cuda_stream
             if mode == CLOSE_EXTRACT_RESET:
-                m.c.done = lattice._close_done(dev, stream, P).data_ptr()
+                m.c.done = lattice._close_done(dev, stream,
+                                               P * len(ks)).data_ptr()
             kb.check(kb.lib().hs_close_merged(ctypes.byref(m), stream),
                      "merged_close")
+            CARD_LAUNCHES["close_merged"] += 1
             if dst is not out:
                 for g, j in _key_cols(ks, Kl):
                     out[:, :, g] = dst[:, :, j].to(out.device)
@@ -475,7 +561,7 @@ def close_slot_merged(spec: LatticeSpec, state: ShardedState, slot,
                 parts, b = _gather(state.key_shard(k), dev)
                 by_key.append(parts)
                 back.extend(b)
-            m = _merged_close_args(spec, by_key, mode)
+            m, _tab = _merged_close_args(spec, by_key, mode, dev)
             m.c.n_sel, m.c.slot = 1, slot
             dst = out
             if out is not None and len(groups) > 1:
@@ -486,6 +572,7 @@ def close_slot_merged(spec: LatticeSpec, state: ShardedState, slot,
             kb.check(kb.lib().hs_close_slot_merged(
                 ctypes.byref(m), torch.cuda.current_stream(dev).cuda_stream),
                 "merged_close_slot")
+            CARD_LAUNCHES["close_slot_merged"] += 1
             if dst is not out:
                 for g, j in _key_cols(ks, Kl):
                     out[:, g] = dst[:, j].to(out.device)
@@ -575,7 +662,7 @@ def touched_merged(spec: LatticeSpec, state: ShardedState,
             t.n_keys, t.n_slots = spec.n_keys, spec.n_slots
             t.max_out, t.out_rows, t.mode = max_out, rows, mode
             t.f = lattice._finalize_args(spec, by_key[0][0])
-            m.parts = _parts_args(spec, by_key)
+            m.parts, _tab = _parts_args(spec, by_key, dev)
             dst = out if len(groups) == 1 else torch.empty(
                 (len(ks), rows, max_out), dtype=torch.int32, device=dev)
             t.out = dst.data_ptr()
@@ -591,6 +678,7 @@ def touched_merged(spec: LatticeSpec, state: ShardedState,
                 t.scratch = scratch.data_ptr()
             kb.check(kb.lib().hs_touched_merged(ctypes.byref(m), stream),
                      "merged_touched")
+            CARD_LAUNCHES["touched_merged"] += 1
             if dst is not out:
                 _place_touched(out, dst, ks, spec.n_keys)
             _put_back(back)
@@ -625,49 +713,153 @@ def merge_partials_ref(spec: LatticeSpec, state: ShardedState
 
 _MERGE_KIND = {"sum": kb.MERGE_SUM, "min": kb.MERGE_MIN,
                "max": kb.MERGE_MAX}
+# the merges the kernel takes a type, those of the lattice's planes
+# (lattice.plane_merge_kinds): counts and bins add, slot_start, HLL
+# registers and the flags take the max, float32 accumulators any
+_MERGES = {kb.MERGE_I32: (kb.MERGE_SUM, kb.MERGE_MAX),
+           kb.MERGE_F32: (kb.MERGE_SUM, kb.MERGE_MIN, kb.MERGE_MAX),
+           kb.MERGE_I8: (kb.MERGE_MAX,), kb.MERGE_U8: (kb.MERGE_MAX,)}
+_merge_tables: dict = {}
 
 
-def _merge_plane_cuda(kind: str, by_key: list[list[torch.Tensor]],
-                      dev: torch.device) -> torch.Tensor:
-    first = by_key[0][0]
-    a = kb.ShardMergeArgs()
-    a.n, a.n_data, a.n_key = first.numel(), len(by_key[0]), len(by_key)
-    a.kind, a.dtype = _MERGE_KIND[kind], kb.MERGE_DTYPES[first.dtype]
-    keep = []
-    for s, xs in enumerate(by_key):
-        for d, x in enumerate(xs):
-            if x.device != dev:
-                x = x.to(dev)
-                keep.append(x)
-            a.src[s * a.n_data + d] = kb.ptr(x)
-    out = torch.empty((first.shape[0] * len(by_key),) + tuple(first.shape[1:]),
-                      dtype=first.dtype, device=dev)
-    a.out = out.data_ptr()
-    kb.check(kb.lib().hs_shard_merge(ctypes.byref(a), kb.stream_of(out)),
-             "shard_merge")
+def merge_plan(spec: LatticeSpec, by_key: list[list[dict]]
+               ) -> list[kb.MergeSeg]:
+    """The snapshot merge's segments (csrc/hs_kernels.h HsMergeSeg), one
+    a (plane, key shard) in the order of the partials' planes and of the
+    key shards, slot_start one of key shard 0: key shard s's part of a
+    plane at out_off s * its bytes in the canonical plane, its blocks
+    after the segments' before it, one a HS_MERGE_CHUNKS 16-byte chunks;
+    16-byte chunks where every source and the output
+    offset are 16-byte aligned (the output plane is)."""
+    kinds = plane_merge_kinds(spec)
+    index = {name: i for i, name in _plane_slots(spec)}
+    segs, block = [], 0
+    for name in by_key[0][0]:
+        dtype = kb.MERGE_DTYPES[by_key[0][0][name].dtype]
+        kind = _MERGE_KIND[kinds[name]]
+        if kind not in _MERGES[dtype]:
+            raise ValueError(f"plane {name}: no {kinds[name]} merge of "
+                             f"{by_key[0][0][name].dtype}")
+        for s in [0] if name == "slot_start" else range(len(by_key)):
+            x = by_key[s][0][name]
+            nbytes = x.numel() * x.element_size()
+            if nbytes == 0:
+                continue
+            off = s * nbytes
+            vec = off % 16 == 0 and all(
+                _addr(p[name]) % 16 == 0 for p in by_key[s])
+            segs.append(kb.MergeSeg(nbytes, off, block, index[name], s,
+                                    kind, dtype, int(vec)))
+            block += _merge_blocks(nbytes)
+    return segs
+
+
+def _merge_blocks(nbytes: int) -> int:
+    """A segment's blocks: one a HS_MERGE_CHUNKS 16-byte chunks."""
+    chunks = -(-nbytes // 16)
+    return -(-chunks // kb.MERGE_CHUNKS)
+
+
+def _segment_blocks(segs: list[kb.MergeSeg]) -> list[int]:
+    """Each block's segment (segment j's blocks from its block0 on)."""
+    return [j for j, sg in enumerate(segs)
+            for _ in range(_merge_blocks(sg.bytes))]
+
+
+def merge_segments(spec: LatticeSpec, by_key: list[list[dict]],
+                   dev: torch.device, key: tuple[int, ...]
+                   ) -> tuple[torch.Tensor, int, int]:
+    """The snapshot merge's segment table on `dev`: (the buffer, whose
+    first n_seg * sizeof(HsMergeSeg) bytes are the segments and the rest
+    each block's segment as int32, n_seg, n_blocks). Cached a card and
+    uploaded only where the partial table's key (the planes' addresses,
+    `key`) or a plane's size changed; merge_segments.uploads counts the
+    uploads."""
+    sizes = tuple((name, tuple(v.shape), v.dtype)
+                  for name, v in by_key[0][0].items())
+
+    def build():
+        merge_segments.uploads += 1
+        segs = merge_plan(spec, by_key)
+        blocks = _segment_blocks(segs)
+        raw = bytes((kb.MergeSeg * len(segs))(*segs)) + \
+            np.asarray(blocks, np.int32).tobytes()
+        host = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+        return _upload(host, dev), len(segs), len(blocks)
+
+    return _cached(_merge_tables, dev, (key, sizes), build)
+
+
+merge_segments.uploads = 0
+
+
+def merge_plan_ref(spec: LatticeSpec, state: ShardedState
+                   ) -> dict[str, torch.Tensor]:
+    """Plain model of the snapshot merge's launch: merge_plan's segments
+    and _segment_blocks' blocks run on the partials' bytes as the kernel
+    runs them (a block's 16-byte chunks of its segment), into the
+    canonical planes. The tests hold it against merge_partials_ref;
+    nothing on the card's path calls it."""
+    kinds = plane_merge_kinds(spec)
+    by_key = [state.key_shard(k) for k in range(state.n_key)]
+    segs = merge_plan(spec, by_key)
+    names = {i: name for i, name in _plane_slots(spec)}
+    out = {name: torch.empty(
+        (v.shape[0] if name == "slot_start" else v.shape[0] * state.n_key,)
+        + tuple(v.shape[1:]), dtype=v.dtype)
+        for name, v in state[0][0].items()}
+    blocks = _segment_blocks(segs)
+    for b, j in enumerate(blocks):
+        sg = segs[j]
+        name = names[sg.plane]
+        lo = (b - sg.block0) * kb.MERGE_CHUNKS * 16
+        hi = min(lo + kb.MERGE_CHUNKS * 16, sg.bytes)
+        if lo >= hi:
+            continue
+        size = state[0][0][name].element_size()
+        xs = [p[name].reshape(-1)[lo // size:hi // size]
+              for p in by_key[sg.shard]]
+        dst = out[name].reshape(-1)
+        first = sg.out_off // size
+        dst[first + lo // size:first + hi // size] = merge_planes(
+            kinds[name], xs)
     return out
 
 
 def merge_partials(spec: LatticeSpec, state: ShardedState
                    ) -> dict[str, torch.Tensor]:
     """The canonical single-card lattice of a sharded state, each plane's
-    partials merged by its monoid (one shard_merge launch a plane, on
-    shard (0, 0)'s card; merge_partials_ref on the CPU). The snapshot's
-    blob holds it, so a capture restores onto one card or any mesh."""
+    partials merged by its monoid: one shard_merge launch a capture on
+    shard (0, 0)'s card over merge_segments' table (key shards on other
+    cards copied there first); merge_partials_ref on the CPU. The
+    snapshot's blob holds it, so a capture restores onto one card or any
+    mesh."""
     _refuse_topk(spec)
     dev = _device(state[0][0])
     if dev.type == "cpu":
         return merge_partials_ref(spec, state)
-    kinds = plane_merge_kinds(spec)
-    out = {}
+    n_key = state.n_key
     with on(dev):
-        for name in state[0][0]:
-            ks = [0] if name == "slot_start" else range(state.n_key)
-            out[name] = _merge_plane_cuda(
-                kinds[name],
-                [[p[name] for p in state.key_shard(k)] for k in ks], dev)
+        by_key = [_gather(state.key_shard(k), dev)[0] for k in range(n_key)]
+        key = part_table_key(spec, by_key)
+        a = kb.ShardMergeArgs()
+        a.parts, _tab = _parts_args(spec, by_key, dev, key)
+        segs, a.n_seg, a.n_blocks = merge_segments(spec, by_key, dev, key)
+        segs.record_stream(torch.cuda.current_stream(dev))
+        a.seg = segs.data_ptr()
+        a.block_seg = a.seg + a.n_seg * ctypes.sizeof(kb.MergeSeg)
+        out = {}
+        for i, name in _plane_slots(spec):
+            v = by_key[0][0][name]
+            out[name] = torch.empty(
+                (v.shape[0] if name == "slot_start" else v.shape[0] * n_key,)
+                + tuple(v.shape[1:]), dtype=v.dtype, device=dev)
+            a.out[i] = out[name].data_ptr()
+        kb.check(kb.lib().hs_shard_merge(ctypes.byref(a), kb.stream_of(
+            out["count"])), "shard_merge")
     merge_partials.launches += 1
-    return out
+    CARD_LAUNCHES["merge_partials"] += 1
+    return {name: out[name] for name in state[0][0]}
 
 
 merge_partials.launches = 0  # wrapper calls that launched the kernel
@@ -729,13 +921,12 @@ class ShardedLattice:
         self._progs = lattice.step_programs(self.local_spec, schema,
                                             filter_expr)
         self.devices = mesh.devices
-        # per data shard: [(device, [key shard ...])] for the step
-        self._step_groups = []
-        for d in range(self.n_data):
-            groups: dict = {}
-            for k in range(self.n_key):
-                groups.setdefault(mesh.devices[d, k], []).append(k)
-            self._step_groups.append(list(groups.items()))
+        # per data shard: [(device, [key shard ...])] for the step, a
+        # card's key shards cut into block unpacks of at most
+        # kb.UNPACK_KEYS key columns
+        self._step_groups = [
+            _by_card([mesh.devices[d, k] for k in range(self.n_key)],
+                     kb.UNPACK_KEYS) for d in range(self.n_data)]
 
     def init_state(self) -> ShardedState:
         """Every partial at the merge identities (a merge of D copies of

@@ -1,8 +1,8 @@
 """The sharded lattice's merged launches (hstream_tpu_torch.parallel) on
 the CPU: the merged changelog extract's plain version and its launch
 plan against the reference's touched_local (hstream_tpu/parallel/
-lattice.py ShardedLattice.extract_touched), and the cut of a card's key
-shards into launches of at most 16 partials.
+lattice.py ShardedLattice.extract_touched), and the merged launches'
+plan: one launch a card at any number of partials.
 
 The reference runs on conftest's 8 virtual CPU devices over meshes
 (2, 2), (1, 4), (4, 1) and (2, 3); the port on the same shapes with
@@ -207,42 +207,61 @@ def _cpu_state(mesh, devices=("cpu",)):
 
 
 @pytest.mark.parametrize("mesh,sizes", [
-    ((2, 2), [2]), ((4, 4), [4]), ((2, 16), [8, 8]), ((1, 24), [16, 8]),
-    ((3, 7), [5, 2]), ((16, 1), [1]), ((2, 40), [8, 8, 8, 8, 8])])
+    ((2, 2), [2]), ((4, 4), [4]), ((2, 16), [16]), ((1, 24), [24]),
+    ((3, 7), [7]), ((16, 1), [1]), ((2, 40), [40])])
 def test_merged_groups_cut_a_card_at_16_partials(mesh, sizes):
-    """Every key shard in one launch, in key order; a launch reads at
-    most 16 partials (floor(16 / D) key shards)."""
+    """No cut past 16 partials any more (the name is the old limit's):
+    every key shard of a card in one launch, in key order, whatever the
+    number of partials, which the kernels read through the partial table
+    on the card."""
     groups = pl.merged_groups(_cpu_state(mesh))
     assert [len(ks) for _d, ks in groups] == sizes
     assert sum((ks for _d, ks in groups), []) == list(range(mesh[1]))
-    assert all(len(ks) * mesh[0] <= kb.MAX_PARTS for _d, ks in groups)
 
 
 def test_merged_groups_one_card_each_launch():
-    """A mesh wrapped over two cards: each launch's key shards on one
-    card (their data-0 partials'), each card's cut on its own."""
+    """A mesh wrapped over two cards: one launch a card, each with the
+    key shards whose data-0 partials lie on it."""
     a, b = torch.device("cpu", 0), torch.device("cpu", 1)
     groups = pl.merged_groups(_cpu_state((2, 20), devices=(a, b)))
-    assert groups == [(a, list(range(0, 16, 2))), (a, [16, 18]),
-                      (b, list(range(1, 17, 2))), (b, [17, 19])]
+    assert groups == [(a, list(range(0, 20, 2))),
+                      (b, list(range(1, 20, 2)))]
 
 
-def test_a_key_shard_past_16_partials_is_refused():
-    with pytest.raises(ValueError, match="17 data shards passes the 16"):
-        pl.merged_groups(_cpu_state((17, 2)))
+@pytest.mark.parametrize("mesh", [(17, 2), (32, 1)],
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+def test_a_key_shard_past_16_partials_is_refused(mesh):
+    """No longer refused (the name is the old limit's): a key shard of 17
+    or 32 data shards runs in one launch, and the launches' model of the
+    merged changelog extract and the snapshot merge's segment plan equal
+    the plain versions exactly."""
+    D, nk = mesh
+    tspec = _spec(TM, tl, 4)
+    host = _random_state(_spec(JM, JL, 4 * nk), D, seed=3 * D + nk)
+    assert pl.merged_groups(_to_port(host, nk)) == \
+        [(torch.device("cpu"), list(range(nk)))]
+    want = pl.touched_merged_ref(tspec, _to_port(host, nk), 12)
+    got = pl.touched_merged_launches_ref(tspec, _to_port(host, nk), 12)
+    assert torch.equal(got, want)
+    state = _to_port(host, nk)
+    want = pl.merge_partials_ref(tspec, state)
+    got = pl.merge_plan_ref(tspec, state)
+    assert list(got) == list(want)
+    for name, v in want.items():
+        assert torch.equal(got[name], v), name
 
 
 @pytest.mark.parametrize("mesh", [(2, 16), (1, 24)],
                          ids=lambda m: f"{m[0]}x{m[1]}")
 def test_the_cut_plan_places_every_key_shard(mesh):
-    """Past 16 partials the launches' buffers (launch-local key ids)
+    """Past 16 partials, one launch: its buffers (launch-local key ids)
     placed as the wrapper places them equal the plain version over the
     whole mesh, exactly; every partial's flags cleared."""
     D, nk = mesh
     tspec = _spec(TM, tl, 4)
     host = _random_state(_spec(JM, JL, 4 * nk), D, seed=D + nk)
     state = _to_port(host, nk)
-    assert len(pl.merged_groups(state)) == 2
+    assert len(pl.merged_groups(state)) == 1
     want = pl.touched_merged_ref(tspec, _to_port(host, nk), 12)
     got = pl.touched_merged_launches_ref(tspec, state, 12)
     assert torch.equal(got, want)

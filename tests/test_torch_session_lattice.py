@@ -406,7 +406,7 @@ def test_binding_structs_mirror_the_header():
           "HsScatterTable": kb.ScatterTable, "HsParts": kb.Parts,
           "HsMergedCloseArgs": kb.MergedCloseArgs,
           "HsMergedTouchedArgs": kb.MergedTouchedArgs,
-          "HsShardMergeArgs": kb.ShardMergeArgs}
+          "HsMergeSeg": kb.MergeSeg, "HsShardMergeArgs": kb.ShardMergeArgs}
     assert set(structs) == set(py)
     for cname, fields in structs.items():
         cls = py[cname]

@@ -114,6 +114,10 @@ group's are (device ms over 100 calls, ", call" and " by kernel"):
     sentinel) through a 2^20-entry table; back to back the plane and
     the table stay in L2, so each also " cold", after a 64 MiB write
     (the remap kernel's own time in " cold by kernel");
+  * "B19c sharded remap": parallel.lattice.sharded_session_remap of
+    15a's four code planes of 2^15 (this checkout's
+    chip_smoke.p15_inputs) through a residue-preserving table of 2^17
+    entries (one table launch; the earlier form launched once a shard);
   * "B4 rebase W=3", "B4 rebase W=8": lattice.rebase of config 1's and
     config 2's slot_start (3 and 8 slots, one empty);
   * "empty kernel": an empty kernel of the rebase's shape (one warp) on
@@ -736,6 +740,16 @@ def _remap() -> dict:
         # table from L2 (its time is in " by kernel", apart)
         ms(name + " cold", lambda: (flush.fill_(1), sl.session_remap(
             store, table, sent_above=True)))
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    here = _here_chip_smoke()
+    arenas = here.p15_inputs(dev)[1]
+    planes = [{"code": a["code"]} for a in arenas]
+    codes = torch.cat([p["code"] for p in planes]).cpu().numpy()
+    lut4 = torch.from_numpy(here._residue_lut(
+        codes[codes < 1 << 17], len(planes), 1 << 17, rng)).to(dev)
+    ms("B19c sharded remap", lambda: pl.sharded_session_remap(planes, lut4))
+    del arenas
     for w in (3, 8):
         ss = torch.arange(w, dtype=torch.int32, device=dev) * 10_000
         ss[1] = lattice.EMPTY_START

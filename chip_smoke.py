@@ -1270,12 +1270,13 @@ def check_close(dev, results, states):
         extract_only_plain_ms=plain1, extract_only_bound_ms=b1_ms,
         extract_only_bound_by=b1_by)
     # B3, the extract-only close (a peek), in the kernels line of its own:
-    # the close wrapper's extract-only count, launched by the server's pull
-    # queries (phase 13)
+    # the close wrapper's extract-only count, launched by the servers' pull
+    # queries (phases 13 and 16)
     results["extract_close"] = dict(
         route="cuda",
         source="hstream_tpu_torch/engine/kernels/csrc/close.cu",
-        replaces="hstream_tpu/engine/lattice.py:642", paths=("server",),
+        replaces="hstream_tpu/engine/lattice.py:642",
+        paths=("server", "replicated"),
         max_abs_err=err, ms=ms1, plain_ms=plain1, bound_ms=b1_ms,
         bound_by=b1_by, library_ms=None, call_ms=call1, ms_source=src1)
     log(f"fused_close: {len(cases) + extra} cases (3 modes) bit-exact; "
@@ -3951,7 +3952,7 @@ _SESSION_EVENTS = {"sort_range_kernel": "sort", "sort_keys_kernel": "sort",
                    "scan_": "scan", "init_copy_kernel": "init",
                    "fold_": "fold", "record_scatter": "scatter",
                    "fixup_kernel": "fixup", "extract_kernel": "extract",
-                   "remap_kernel": "remap", "Memcpy HtoD": "h2d_copy",
+                   "remap_": "remap", "Memcpy HtoD": "h2d_copy",
                    "Memcpy DtoH": "d2h_copy"}
 _STEP_STAGES = ("sort", "scan", "init", "fold", "scatter", "fixup")
 
@@ -6521,6 +6522,7 @@ SRV_BLOCKS = 64              # a run: past three window ends
 SRV_RUNS = 3
 SRV_PAUSE = 30               # the quiet pull: window 1 ten blocks in
 SRV_PROFILE = 12             # blocks of the profiled window after the runs
+SRV_ACKS = 12                # blocks a call each after it: ack latency
 SRV_RESTART_AT = 30          # the restore flow: blocks before the restart
 SRV_RESTART_BLOCKS = 48      # ... and in all
 SRV_DRAIN_S = 300.0
@@ -6787,7 +6789,8 @@ def server_path(dev, results) -> dict:
     src = ServerStream(seed=13)
     n_blocks = SRV_RUNS * SRV_BLOCKS
     t0 = time.perf_counter()
-    frames = [src.frame(b) for b in range(n_blocks + SRV_PROFILE)]
+    frames = [src.frame(b)
+              for b in range(n_blocks + SRV_PROFILE + SRV_ACKS)]
     encode_s = time.perf_counter() - t0
     server, ctx = serve("127.0.0.1", 0, "mem://", device_time_sample=4,
                         metrics_port=0)
@@ -6848,13 +6851,23 @@ def server_path(dev, results) -> dict:
         # share while the server ingests
         def window():
             t0 = time.perf_counter()
-            producer.append_stream_frames(iter(frames[n_blocks:]))
+            producer.append_stream_frames(iter(
+                frames[n_blocks:n_blocks + SRV_PROFILE]))
             _srv_drained(tasks, src.last_ts(n_blocks + SRV_PROFILE - 1))
             return time.perf_counter() - t0
 
         prof_wall, devt = profiled(window)
         n_blocks += SRV_PROFILE
         busy = sum(devt.values()) / 1e6 / prof_wall
+        # ack latency a block without replication (phase 16 has it with):
+        # SRV_ACKS more blocks, each a call of its own
+        acks = []
+        for b in range(n_blocks, n_blocks + SRV_ACKS):
+            t0 = time.perf_counter()
+            producer.append_stream_frames(iter([frames[b]]))
+            acks.append((time.perf_counter() - t0) * 1e3)
+        n_blocks += SRV_ACKS
+        _srv_drained(tasks, src.last_ts(n_blocks - 1))
         during = [check_pull(p, src, dev, n_blocks, "a pull during ingest",
                              prefix=True) for p in pulls]
         final = check_pull(_srv_pull(stub, pb, records), src, dev, n_blocks,
@@ -6892,6 +6905,8 @@ def server_path(dev, results) -> dict:
                 kernel_device_ms_p50=device_p50,
                 profile=dict(blocks=SRV_PROFILE, wall_s=prof_wall,
                              device_busy_share=busy),
+                ack_ms=acks, ack_ms_p50=float(np.percentile(acks, 50)),
+                ack_ms_p99=float(np.percentile(acks, 99)),
                 restart=restart)
 
 
@@ -7785,7 +7800,7 @@ P15_EVENTS = {
     "merge": ("group_keys_kernel", "scan_dest", "group_init_copy_kernel",
               "group_fold_segments"),
     "extract": ("extract_table_kernel",),
-    "remap": ("remap_kernel",),
+    "remap": ("remap_table_kernel",),
     "join step": _PROBE + ("split_kernel", "merge_kernel", "scatter_table"),
     "scatter": ("scatter_table",),
     "evict": ("evict_kernel",),
@@ -8057,17 +8072,9 @@ def check_sharded_session(dev, results):
     assert branches == {True, False}, branches   # inline and uploaded
     lut = torch.from_numpy(_residue_lut(np.arange(3000), S, 4096, rng)
                            ).to(dev)
-    a = [{"code": x["code"].clone()} for x in arenas]
-    b = [{"code": x["code"].clone()} for x in arenas]
-    pl.sharded_session_remap(a, lut)
-    for x in b:
-        sl.session_remap_ref(x, lut)
-    torch.cuda.synchronize()
-    for s in range(S):
-        assert torch.equal(a[s]["code"], b[s]["code"]), \
-            f"sharded_session_remap differs, shard {s}"
-        c = a[s]["code"]
-        assert bool((c[c < sl.SESSION_SENT_CODE] % S == s).all())
+    remap_vs_plain([{"code": x["code"]} for x in arenas], lut,
+                   f"{S} key shards")
+    n_remap = 1 + check_remap_table(dev, rng)
     src = "hstream_tpu_torch/engine/kernels/csrc/"
     for name, file, line, e in (
             ("sharded_session_step", "session_step.cu", 669, err),
@@ -8085,9 +8092,68 @@ def check_sharded_session(dev, results):
         f"{err_m:.3g}, within the order bound; the rest exact), the extract "
         f"over {S} slot lists (1500, 0, 2048, 7 and 8192, 0, 100, 5000 "
         f"named; one table and split ones, the prefixes by value and "
-        f"uploaded) and the remap through one residue-preserving table: "
+        f"uploaded) and the remap through one residue-preserving table "
+        f"({n_remap} cases, one launch each, {REMAP_SHARDS} key shards on "
+        f"the card, planes at every offset of a 16-byte boundary): "
         f"bit-exact")
     time_p15_shapes(dev, results)
+
+
+# key shards on one card of the remap's table launch in phase 3: 15a's,
+# and past 16 (a table passed by value would have capped them at 16)
+REMAP_SHARDS = (P15_SHARDS, 17, 24)
+
+
+def remap_vs_plain(arenas, lut, what: str) -> None:
+    """sharded_session_remap over clones of the arenas' code planes, one
+    launch on the card (asserted), against session_remap_ref a shard:
+    bit-exact, and no live code leaves its shard's residue."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+    from hstream_tpu_torch.parallel import lattice as pl
+
+    S = len(arenas)
+    got = [{"code": x["code"].clone()} for x in arenas]
+    want = [{"code": x["code"].clone()} for x in arenas]
+    one_launch(pl.sharded_session_remap, got, lut)
+    for x in want:
+        sl.session_remap_ref(x, lut)
+    torch.cuda.synchronize()
+    for s in range(S):
+        assert torch.equal(got[s]["code"], want[s]["code"]), \
+            f"sharded_session_remap differs, {what}, shard {s}"
+        c = got[s]["code"]
+        assert bool((c[c < sl.SESSION_SENT_CODE] % S == s).all()), (what, s)
+
+
+def check_remap_table(dev, rng) -> int:
+    """The remap's table launch at 17 and 24 key shards on the card (past
+    16), over planes of their own and over slices of one buffer at 0-3
+    codes past a 16-byte boundary (heads of 3-0 codes, caps off four),
+    codes below, at and above the table and the sentinel. Returns the
+    cases."""
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    cases = 0
+    for S in REMAP_SHARDS[1:]:
+        cap, lcap = 3001, 2048
+        codes = rng.integers(0, (lcap + 300) // S, (S, cap)) * S \
+            + np.arange(S)[:, None]
+        codes[rng.random((S, cap)) < 0.1] = sl.SESSION_SENT_CODE
+        lut = torch.from_numpy(_residue_lut(codes[codes < lcap], S, lcap,
+                                            rng)).to(dev)
+        own = [{"code": torch.from_numpy(c.astype(np.int32)).to(dev)}
+               for c in codes]
+        pitch = (cap + 7) // 4 * 4
+        buf = torch.zeros(S * pitch + 4, dtype=torch.int32, device=dev)
+        sliced = []
+        for s in range(S):
+            at = s * pitch + s % 4
+            buf[at:at + cap] = own[s]["code"]
+            sliced.append({"code": buf[at:at + cap]})
+        for arenas, what in ((own, "own planes"), (sliced, "sliced")):
+            remap_vs_plain(arenas, lut, f"{S} key shards, {what}")
+            cases += 1
+    return cases
 
 
 def p15_inputs(dev, seed: int = 23, cap: int = 1 << 15, n: int = 1 << 20,
@@ -8278,6 +8344,22 @@ def time_p15_shapes(dev, results):
         log(f"{name} at 15a's shapes (phase 3): {ms:.4f} ms device "
             f"({src}), {call:.4f} ms a call; by stage "
             f"{json.dumps(results[name]['early']['stages'])}")
+    # the remap's table launch over 15a's four code planes, through a
+    # residue-preserving table as long as 15a's key cache bound
+    S = len(arenas)
+    codes = torch.cat([a["code"] for a in arenas]).cpu().numpy()
+    lcap = 1 << (P15_KEY_CACHE - 1).bit_length()
+    lut = torch.from_numpy(_residue_lut(codes[codes < lcap], S, lcap,
+                                        np.random.default_rng(157))).to(dev)
+    planes = [{"code": a["code"].clone()} for a in arenas]
+    remap_vs_plain(planes, lut, "15a's shapes")
+    ms, call, src = kernel_ms(lambda: pl.sharded_session_remap(planes, lut),
+                              50, expect=P15_EVENTS["remap"])
+    results["sharded_session_remap"]["early"] = dict(
+        ms=ms, call_ms=call, ms_source=src, cap=cap, lcap=lcap)
+    log(f"sharded_session_remap at 15a's shapes (phase 3): {S} x {cap} "
+        f"codes through {lcap} entries, one launch: {ms:.4f} ms device "
+        f"({src}), {call:.4f} ms a call")
     del outs, arenas, packed, inputs, seg
 
 
@@ -8781,8 +8863,10 @@ def time_sharded_session(dev, results, captured):
     assert all(torch.equal(c["code"], w["code"])
                for c, w in zip(codes, want)), \
         "sharded_session_remap at 15a's shapes"
-    ms, call, srcm = kernel_ms(lambda: pl.sharded_session_remap(codes, lut),
-                               50, expect=P15_EVENTS["remap"])
+    ms, call, srcm = _early_if_lost(
+        results, "sharded_session_remap",
+        kernel_ms(lambda: pl.sharded_session_remap(codes, lut), 50,
+                  expect=P15_EVENTS["remap"]))
     plain = kernel_ms(lambda: [sl.session_remap_ref(c, lut)
                                for c in codes], 10)[0]
     lcap = lut.shape[0]
@@ -9367,6 +9451,366 @@ def time_sharded_join(dev, results, captured):
         f"{plain:.4f}, bound {b_ms:.4f} by {b_by})")
 
 
+# ---- phase 16: the replicated server, failed over -----------------------------
+#
+# HStreamDB's durable stream: replication factor 3 over three nodes (the
+# LogDevice-backed --replicate-factor of upstream hstream/app/server.hs,
+# which hstream_tpu/server/main.py:195-199 cites). Two followers
+# (store/replica.py serve_follower) over file:// stores of their own and
+# the leader serve(replicate=..., replication_factor=3) on the card; the
+# headline view and config 1's stream as phase 13 sends it, a block a
+# call; a JSON block and a pull through the HTTP gateway; a sqlite sink
+# connector on the stream of the view's rows; `admin replicas` and
+# `admin status`; then the leader stops, the most caught-up follower is
+# promoted (promote_best, as `admin promote replicas=` does), a server
+# boots over its store (serve(store=...)) with the other follower and
+# the old leader's store as its followers, restores the view's snapshot
+# on the card and ingests the rest.
+
+P16_BLOCKS = 10              # framed blocks of 2^18 before the failover,
+                             # and again after: window 0 whole
+P16_ROWS = ("CREATE STREAM headline_rows AS SELECT device, COUNT(*) AS cnt, "
+            "SUM(temp) AS total, APPROX_COUNT_DISTINCT(temp) AS uniq "
+            "FROM sensors GROUP BY device, TUMBLING (INTERVAL 10 SECOND) "
+            "GRACE BY INTERVAL 0 SECOND;")
+P16_SINK = "headline_sink"
+_CLOSER_GAP = 20_000         # ms from the last block to the closer
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def replica_logs(store) -> dict:
+    """{logid: [(lsn, sha256 of the batch's payloads)]} of every data log
+    of a store (the replication op-log left out): what a replica holds of
+    every acknowledged append."""
+    import hashlib
+
+    from hstream_tpu_torch.store.api import DataBatch
+    from hstream_tpu_torch.store.replica import OPLOG_ID
+
+    out = {}
+    for logid in sorted(store.list_logs()):
+        if logid == OPLOG_ID:
+            continue
+        tail = store.tail_lsn(logid)
+        rows = []
+        if tail:
+            reader = store.new_reader()
+            reader.set_timeout(0)
+            reader.start_reading(logid, 1, tail)
+            while True:
+                got = reader.read(256)
+                if not got:
+                    break
+                rows += [(b.lsn, hashlib.sha256(b"".join(
+                    len(p).to_bytes(8, "little") + bytes(p)
+                    for p in b.payloads)).hexdigest())
+                    for b in got if isinstance(b, DataBatch)]
+            reader.stop_reading(logid)
+        out[logid] = rows
+    return out
+
+
+def same_replicas(stores: dict, what: str) -> int:
+    """Every store holds the same data logs, batch for batch at the same
+    LSNs with the same bytes. Returns the batches."""
+    logs = {name: replica_logs(st) for name, st in stores.items()}
+    first = next(iter(logs))
+    for name, got in logs.items():
+        assert got == logs[first], f"{what}: replica {name} differs " \
+            f"from {first}"
+    return sum(len(v) for v in logs[first].values())
+
+
+def _cli(main, port: int, *argv) -> str:
+    """The port's admin CLI against a server: its printed text."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(["--port", str(port), *argv])
+    assert rc == 0, (argv, out.getvalue())
+    return out.getvalue()
+
+
+def _sink_rows(path) -> list:
+    import sqlite3
+
+    conn = sqlite3.connect(path)
+    try:
+        return conn.execute("SELECT device, cnt, total, uniq, winStart "
+                            "FROM t ORDER BY winStart, device").fetchall()
+    finally:
+        conn.close()
+
+
+def _closer(src, b: int) -> bytes:
+    """One record a window past block b's: it closes every window
+    before it."""
+    from hstream_tpu_torch.client.producer import encode_batch
+
+    ts = src.last_ts(b) + _CLOSER_GAP
+    return encode_batch(np.array([ts], np.int64),
+                        {"device": SRV_DEVS[:1],
+                         "temp": np.array([20.0], np.float32)})
+
+
+def replicated_path(dev) -> dict:
+    """Phase 16 (above): acked appends on all three replicas at the same
+    LSNs with the same bytes, no degraded ack, the view's rows over the
+    whole stream equal numpy's across the failover, the sink's rows the
+    view's; ack latency a block, events/s and the failover's seconds."""
+    import tempfile
+    import urllib.request
+
+    import grpc
+
+    from hstream_tpu_torch.admin import main as admin_main
+    from hstream_tpu_torch.client.producer import ColumnarProducer
+    from hstream_tpu_torch.common import records
+    from hstream_tpu_torch.http_gateway import serve_gateway
+    from hstream_tpu_torch.proto import api_pb2 as pb
+    from hstream_tpu_torch.proto.rpc import HStreamApiStub
+    from hstream_tpu_torch.server.main import serve
+    from hstream_tpu_torch.store import open_store
+    from hstream_tpu_torch.store import replica
+
+    src = ServerStream(seed=16)
+    n = 2 * P16_BLOCKS
+    frames = [src.frame(b) for b in range(n)]
+    opts = [("grpc.max_receive_message_length", 64 << 20),
+            ("grpc.max_send_message_length", 64 << 20)]
+    out: dict = {"config": "replicated"}
+    acks: list = []
+    ingest_s = [0.0]
+
+    def feed(stub_ch, tasks, lo, hi):
+        producer = ColumnarProducer(stub_ch, "sensors")
+        t0 = time.perf_counter()
+        for b in range(lo, hi):
+            t = time.perf_counter()
+            resp = producer.append_stream_frames(iter([frames[b]]))
+            acks.append((time.perf_counter() - t) * 1e3)
+            assert resp.rows == SRV_BLOCK, resp.rows
+        _srv_drained(tasks, src.last_ts(hi - 1))
+        ingest_s[0] += time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as d:
+        fstores = {name: open_store(f"file://{d}/{name}")
+                   for name in ("f1", "f2")}
+        faddr = {name: f"127.0.0.1:{_free_port()}" for name in fstores}
+        followers = {name: replica.serve_follower(
+            st, faddr[name], node_id=name) for name, st in fstores.items()}
+        sink_db = os.path.join(d, "sink.db")
+        import sqlite3
+
+        conn = sqlite3.connect(sink_db)
+        conn.execute("CREATE TABLE t (device TEXT, cnt INTEGER, total REAL, "
+                     "uniq INTEGER, winStart INTEGER, winEnd INTEGER)")
+        conn.commit()
+        conn.close()
+        server, ctx = serve("127.0.0.1", 0, f"file://{d}/leader",
+                            replicate=",".join(faddr.values()),
+                            replication_factor=3)
+        ch = grpc.insecure_channel(f"127.0.0.1:{ctx.port}", options=opts)
+        stub = HStreamApiStub(ch)
+        httpd = gw = None
+        stopped = False
+        try:
+            assert ctx.device == dev, ctx.device
+            assert isinstance(ctx.store, replica.ReplicatedStore)
+            stub.CreateStream(pb.Stream(stream_name="sensors",
+                                        replication_factor=3))
+            stub.ExecuteQuery(pb.CommandQuery(stmt_text=SRV_VIEW))
+            stub.ExecuteQuery(pb.CommandQuery(stmt_text=P16_ROWS))
+            rows_qid = next(q.id for q in stub.ListQueries(
+                pb.ListQueriesRequest()).queries
+                if "headline_rows" in q.query_text)
+            stub.ExecuteQuery(pb.CommandQuery(
+                stmt_text=f"CREATE SINK CONNECTOR {P16_SINK} WITH (type = "
+                          f"'sqlite', stream = 'headline_rows', path = "
+                          f"'{sink_db}', table = 't');"))
+            tasks = [_srv_task(ctx, "view-headline"),
+                     _srv_task(ctx, rows_qid)]
+            zero_counts()
+            feed(ch, tasks, 0, P16_BLOCKS)
+            assert all(t.executor.device == dev for t in tasks)
+            # the HTTP gateway: a JSON block and a pull of the view
+            httpd, gw = serve_gateway(f"127.0.0.1:{ctx.port}", port=0)
+            base = f"http://127.0.0.1:{httpd.server_port}"
+
+            def http(method, path, body=None):
+                data = json.dumps(body).encode() if body is not None \
+                    else None
+                req = urllib.request.Request(base + path, data=data,
+                                             method=method)
+                if data:
+                    req.add_header("Content-Type", "application/json")
+                with urllib.request.urlopen(req, timeout=60) as resp:
+                    return resp.status, json.loads(resp.read())
+
+            assert http("POST", "/streams", {"name": "probe"})[0] == 201
+            code, got = http("POST", "/streams/probe/append", {"records": [
+                {"device": f"p{i}", "temp": 20.5 + i,
+                 "__time_ms": BASE_TS + i} for i in range(16)]})
+            assert code == 200 and len(got["record_ids"]) == 16, got
+            code, gw_rows = http("GET", "/views/headline")
+            grpc_rows = _srv_pull(stub, pb, records)
+
+            def key(r):
+                return (r["winStart"], r["device"])
+
+            assert code == 200 and sorted(gw_rows, key=key) == \
+                sorted(grpc_rows, key=key), "gateway pull differs"
+            check_pull(grpc_rows, src, dev, P16_BLOCKS, "the leader's pull")
+            replicas_text = _cli(admin_main, ctx.port, "replicas")
+            status_text = _cli(admin_main, ctx.port, "status")
+            fol = ctx.store.follower_status()
+            assert all(f["alive"] and f["behind"] == 0 for f in fol), fol
+            assert ctx.store.degraded_appends == 0 and \
+                ctx.store.last_ack_status == "replicated", \
+                (ctx.store.degraded_appends, ctx.store.last_ack_status)
+            out["leader_oplog_seq"] = ctx.store.oplog_seq
+            counts_a = launch_counts()
+        finally:
+            if httpd is not None:
+                httpd.shutdown()
+                gw.close()
+            ch.close()
+            server.stop(grace=1)
+            ctx.shutdown()   # detaches the tasks: their final snapshots
+            stopped = True
+        assert stopped
+        assert "leader-status" in replicas_text and \
+            replicas_text.count("| leader ") == 2, replicas_text
+        assert "Running" in status_text, status_text
+        # the old leader's store, closed with its server: every acked
+        # append on the three replicas
+        old = open_store(f"file://{d}/leader")
+        out["batches_at_failover"] = same_replicas(
+            {"leader": old, **fstores}, "at the failover")
+        # failover: promote the most caught-up follower (admin promote
+        # replicas=), boot a server over its store, the other follower
+        # and the old leader's store its followers
+        new_port = _free_port()
+        t_fail = time.perf_counter()
+        res = replica.promote_best(list(faddr.values()),
+                                   leader_addr=f"127.0.0.1:{new_port}",
+                                   promoted_by="chip_smoke")
+        assert res["ok"] and res["epoch"] == 1 and not res["unreachable"], \
+            res
+        name = next(k for k, a in faddr.items() if a == res["target"])
+        other = next(k for k in faddr if k != name)
+        srv_p, svc_p = followers.pop(name)
+        srv_p.stop(grace=1).wait(10)
+        svc_p.close()
+        old_addr = f"127.0.0.1:{_free_port()}"
+        followers["old"] = replica.serve_follower(old, old_addr,
+                                                  node_id="old-leader")
+        server2, ctx2 = serve("127.0.0.1", new_port, store=fstores[name],
+                              replicate=f"{faddr[other]},{old_addr}",
+                              replication_factor=3)
+        ch2 = grpc.insecure_channel(f"127.0.0.1:{new_port}", options=opts)
+        stub2 = HStreamApiStub(ch2)
+        try:
+            assert ctx2.store.epoch == 1, ctx2.store.epoch
+            tasks2 = [_srv_task(ctx2, "view-headline"),
+                      _srv_task(ctx2, rows_qid)]
+            for t in tasks2:   # resumed from their snapshots, on the card
+                assert t.executor is not None and \
+                    t.executor.device == dev, t.executor
+            first = check_pull(_srv_pull(stub2, pb, records), src, dev,
+                               P16_BLOCKS, "the promoted server's pull")
+            out["failover_s"] = time.perf_counter() - t_fail
+            stub2.RestartConnector(pb.RestartConnectorRequest(id=P16_SINK))
+            feed(ch2, tasks2, P16_BLOCKS, n)
+            ColumnarProducer(ch2, "sensors").append_stream_frames(
+                iter([_closer(src, n - 1)]))
+            _srv_drained(tasks2, _CLOSER_GAP + src.last_ts(n - 1))
+            view = _srv_pull(stub2, pb, records)
+            closed = [r for r in view if _window_of(r["winStart"]) == 0]
+            check_server_window(closed, src.window(0, n), dev,
+                                "the view's window 0 across the failover")
+            tail = [r for r in view if _window_of(r["winStart"]) > 0]
+            assert [(r["device"], r["cnt"]) for r in tail] == \
+                [(SRV_DEVS[0], 1)], tail
+            sink = poll_sink(sink_db, N_KEYS)
+            by_dev = {r["device"]: r for r in closed}
+            for dv, cnt, total, uniq, ws in sink:
+                r = by_dev[dv]
+                assert (cnt, uniq, ws) == (r["cnt"], r["uniq"],
+                                           r["winStart"]), (dv, r)
+            check_server_window([dict(device=s[0], cnt=s[1], total=s[2],
+                                      uniq=s[3]) for s in sink],
+                                src.window(0, n), dev, "the sink's rows")
+            assert ctx2.store.degraded_appends == 0 and \
+                ctx2.store.last_ack_status == "replicated", \
+                (ctx2.store.degraded_appends, ctx2.store.last_ack_status)
+            fol = poll_caught_up(ctx2.store)
+            counts_b = launch_counts()
+        finally:
+            ch2.close()
+            server2.stop(grace=1)
+            ctx2.shutdown()
+        for srv, svc in followers.values():
+            srv.stop(grace=1)
+            svc.close()
+        promoted = open_store(f"file://{d}/{name}")
+        out["batches_at_end"] = same_replicas(
+            {"promoted": promoted, other: fstores[other], "old leader": old},
+            "at the end")
+        for st in (promoted, fstores[other], old):
+            st.close()
+    # B1a, B1c and B3 on both servers, B2 at the closer
+    for k in ("wire_decode", "scatter_aggregate", "extract_close"):
+        assert counts_b[k] > counts_a[k] > 0, (k, counts_a, counts_b)
+    assert counts_b["fused_close"] > 0, counts_b
+    ack = np.asarray(acks)
+    out.update(launches=counts_b, blocks=n, events=n * SRV_BLOCK,
+               events_per_sec=n * SRV_BLOCK / ingest_s[0],
+               ack_ms=acks, ack_ms_p50=float(np.percentile(ack, 50)),
+               ack_ms_p99=float(np.percentile(ack, 99)),
+               promoted=res, followers_after=fol, sink_rows=len(sink),
+               first_pull_windows=sorted(first.items()))
+    return out
+
+
+def poll_sink(path, n: int) -> list:
+    """The sink table's rows once it holds n (the connector writes
+    behind the stream query)."""
+    deadline = time.monotonic() + SRV_DRAIN_S
+    pause = threading.Event()
+    while True:
+        rows = _sink_rows(path)
+        if len(rows) >= n:
+            assert len(rows) == n, f"the sink holds {len(rows)} rows"
+            return rows
+        assert time.monotonic() < deadline, f"the sink holds {len(rows)}"
+        pause.wait(0.05)
+
+
+def poll_caught_up(store) -> list:
+    """The leader's follower status once every follower acked its op-log
+    (the acks the appends waited for are a quorum of them)."""
+    deadline = time.monotonic() + 60
+    pause = threading.Event()
+    while True:
+        fol = store.follower_status()
+        if all(f["alive"] and f["behind"] == 0 for f in fol):
+            return fol
+        assert time.monotonic() < deadline, fol
+        pause.wait(0.05)
+
+
 PHASE_S: dict[str, float] = {}   # each phase's wall seconds, in order
 _PHASE_T0 = [0.0]
 
@@ -9590,7 +10034,7 @@ def main() -> int:
         f"[{card}]")
     phase_done("12 traced")
 
-    r = server_path(dev, results)
+    r = srv13 = server_path(dev, results)
     paths.append(r)
     log(f"server path (13): server_columnar_eps median "
         f"{r['server_columnar_eps']:.0f} events/s, runs "
@@ -9606,7 +10050,9 @@ def main() -> int:
         f"kernel_device_ms p50 from /metrics "
         f"{json.dumps({k: round(v, 4) for k, v in r['kernel_device_ms_p50'].items()})}"
         f"; device busy {r['profile']['device_busy_share']:.4f} over "
-        f"{SRV_PROFILE} blocks ({r['profile']['wall_s']:.3f} s); launches "
+        f"{SRV_PROFILE} blocks ({r['profile']['wall_s']:.3f} s); ack "
+        f"latency a block (a call each, {SRV_ACKS}) p50 "
+        f"{r['ack_ms_p50']:.2f} ms, p99 {r['ack_ms_p99']:.2f}; launches "
         f"{r['launches']}; restart over file:// {json.dumps(r['restart'])}"
         f" [{card}]")
     phase_done("13 server")
@@ -9690,6 +10136,24 @@ def main() -> int:
         f"/ {r['resumed_mesh']} sessions equal numpy; launches "
         f"{r['launches']} [{card}]")
     phase_done("15d sharded session server")
+
+    r = replicated_path(dev)
+    paths.append(r)
+    log(f"replicated server (16): serve(replicate=2 followers, "
+        f"replication_factor=3) over file:// stores, {r['blocks']} framed "
+        f"blocks of 2^18 (half before the failover, half after) at "
+        f"{r['events_per_sec']:.0f} events/s; ack latency a block p50 "
+        f"{r['ack_ms_p50']:.2f} ms, p99 {r['ack_ms_p99']:.2f} ms (phase 13 "
+        f"without replication: p50 {srv13['ack_ms_p50']:.2f}, p99 "
+        f"{srv13['ack_ms_p99']:.2f}); {r['batches_at_failover']} data "
+        f"batches on all three replicas at the failover, "
+        f"{r['batches_at_end']} at the end, same LSNs and bytes, no "
+        f"degraded ack; failover {r['failover_s']:.3f} s from the "
+        f"promotion ({json.dumps(r['promoted'])}) to the first served pull "
+        f"(the view's snapshot restored on the card); the view's window 0 "
+        f"across the failover and the sink's {r['sink_rows']} rows equal "
+        f"numpy; launches {r['launches']} [{card}]")
+    phase_done("16 replicated server")
 
     kernels = []
     for name, r in results.items():

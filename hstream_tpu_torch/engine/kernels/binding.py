@@ -296,6 +296,10 @@ class SessExtractArgs(C.Structure):
                 ("sel", C.c_int32 * SESS_INLINE)]
 
 
+# the key-sharded remap's table on the card: a row of REMAP_WORDS int64
+# words a shard (HS_REMAP_*)
+REMAP_ADDR, REMAP_CAP, REMAP_HEAD, REMAP_Q0, REMAP_WORDS = range(5)
+
 # the key-sharded extract's table (HsSessExtractTable): shards a table,
 # pieces (grid rows) a table, its 32-bit words (4 a shard's aggregate of
 # plane pointers, then the inline slot prefixes)
@@ -472,6 +476,10 @@ def lib() -> C.CDLL:
                                              C.c_void_p, C.c_int32,
                                              C.c_int32, C.c_void_p]
             dll.hs_session_remap.restype = C.c_int
+            dll.hs_session_remap_table.argtypes = [C.c_void_p, C.c_int32,
+                                                   C.c_void_p, C.c_int32,
+                                                   C.c_int64, C.c_void_p]
+            dll.hs_session_remap_table.restype = C.c_int
             dll.hs_session_scratch_bytes.argtypes = [C.c_int32, C.c_int32]
             dll.hs_session_scratch_bytes.restype = C.c_int64
             dll.hs_session_group_scratch_bytes.argtypes = [C.c_int32] * 3

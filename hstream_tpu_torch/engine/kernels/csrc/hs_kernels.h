@@ -818,6 +818,15 @@ int hs_session_extract(const HsSessExtractArgs *args, void *stream);
 int hs_session_extract_table(const HsSessExtractTable *table, void *stream);
 int hs_session_remap(int32_t *code, int32_t cap, const int32_t *lut,
                      int32_t lcap, int32_t sent_above, void *stream);
+// the key-sharded remap's table on the card: a row of HS_REMAP_WORDS
+// int64 words a shard
+#define HS_REMAP_ADDR 0                // the code plane's address
+#define HS_REMAP_CAP 1                 // its codes
+#define HS_REMAP_HEAD 2                // codes before its first 16-byte boundary
+#define HS_REMAP_Q0 3                  // its first quad in the flat space
+#define HS_REMAP_WORDS 4
+int hs_session_remap_table(const int64_t *tab, int32_t n, const int32_t *lut,
+                           int32_t lcap, int64_t total, void *stream);
 int64_t hs_join_probe_scratch_bytes(int32_t bcap, int32_t match_cap);
 int64_t hs_join_evict_scratch_bytes(int32_t cap);
 int hs_join_probe(const HsJoinProbeArgs *args, void *stream);

@@ -224,7 +224,8 @@ unpack_block.launches = 0  # wrapper calls that launched the kernel
 # the merged kernels' launches by wrapper, one a card a call (the
 # wrappers' .launches count calls)
 CARD_LAUNCHES = {"close_merged": 0, "close_slot_merged": 0,
-                 "touched_merged": 0, "merge_partials": 0}
+                 "touched_merged": 0, "merge_partials": 0,
+                 "sharded_session_remap": 0}
 
 
 
@@ -1335,12 +1336,72 @@ def sharded_session_extract(spec, arenas: Arenas, slots) -> torch.Tensor:
 sharded_session_extract.launches = 0  # wrapper calls that launched them
 
 
+def remap_rows(codes: list[torch.Tensor]) -> tuple[list[int], int]:
+    """The remap table of one card's code planes (int32, contiguous):
+    kb.REMAP_WORDS words a plane (its address, cap, head: the codes before
+    its first 16-byte boundary, and its first quad in one flat space of
+    every plane's quads), and the quads in all. The kernel's plain model
+    is remap_table_ref."""
+    words, q0 = [], 0
+    for c in codes:
+        addr, cap = kb.ptr(c), c.shape[0]
+        head = min((16 - addr % 16) % 16 // 4, cap)
+        words += [addr, cap, head, q0]
+        q0 += (cap - head) // 4
+    return words, q0
+
+
+_remap_tables: dict = {}
+
+
+def remap_table(codes: list[torch.Tensor], dev: torch.device
+                ) -> tuple[torch.Tensor, int]:
+    """The remap table of `codes` (planes on `dev`) on that card, uploaded
+    only where it is not cached there already (keyed by the planes'
+    addresses and caps, as part_table's), and its quads in all.
+    remap_table.uploads counts the uploads."""
+    words, total = remap_rows(codes)
+
+    def build():
+        remap_table.uploads += 1
+        w = [x - (1 << 64) if x >= 1 << 63 else x for x in words]
+        return _upload(torch.tensor(w, dtype=torch.int64), dev)
+
+    return _cached(_remap_tables, dev, tuple(words), build), total
+
+
+remap_table.uploads = 0
+
+
+def remap_table_ref(words: list[int], total: int, codes: list[torch.Tensor],
+                    lut: torch.Tensor) -> None:
+    """Plain model of the table kernel's index space (tests only), in
+    place: flat quad q goes to the last row whose first quad is <= q,
+    codes head + 4 (q - first) on; a row's head codes and those past its
+    quads singly; every code once, through session_remap_ref's rule."""
+    W = kb.REMAP_WORDS
+    q0 = np.asarray(words[kb.REMAP_Q0::W] + [total], np.int64)
+    owner = np.searchsorted(q0, np.arange(total), side="right") - 1
+    for s, c in enumerate(codes):
+        head, cap = words[s * W + kb.REMAP_HEAD], words[s * W + kb.REMAP_CAP]
+        at = head + 4 * (np.flatnonzero(owner == s) - q0[s])
+        quads = (at[:, None] + np.arange(4)).ravel()
+        scalar = np.r_[0:head, head + 4 * int(q0[s + 1] - q0[s]):cap]
+        idx = torch.from_numpy(np.concatenate([quads, scalar]))
+        if len(idx) != cap or len(torch.unique(idx)) != cap:
+            raise AssertionError(f"remap table: row {s} misses codes")
+        sub = {"code": c[idx]}
+        sl.session_remap_ref(sub, lut)
+        c[idx] = sub["code"]
+
+
 def sharded_session_remap(arenas: Arenas, lut: torch.Tensor) -> None:
     """Every shard's arena codes remapped through the one table `lut`
-    (int32 [lcap]), in place (parallel/lattice.py:730-743): the remap
-    kernel once a shard on the card, session_remap_ref on the CPU. The
-    table must keep residues (new mod n_shards == old), so no entry
-    changes owner."""
+    (int32 [lcap]), in place (parallel/lattice.py:730-743): one table
+    launch a card over the code planes of the shards there (remap_table;
+    csrc/session_remap.cu hs_session_remap_table), session_remap_ref a
+    shard on the CPU. The table must keep residues (new mod n_shards ==
+    old), so no entry changes owner."""
     if lut.dtype != torch.int32:
         raise ValueError("sharded session remap: lut must be int32")
     if arenas[0]["code"].device.type == "cpu":
@@ -1348,10 +1409,16 @@ def sharded_session_remap(arenas: Arenas, lut: torch.Tensor) -> None:
             sl.session_remap_ref(a, lut.to(a["code"].device))
         return
     cache: dict = {}
-    for a in arenas:
-        dev = a["code"].device
+    for dev, shards in _by_card([a["code"].device for a in arenas]):
         with on(dev):
-            sl.remap_cuda(a, _on_device(lut, dev, cache))
+            codes = [arenas[s]["code"] for s in shards]
+            tab, total = remap_table(codes, dev)
+            tab.record_stream(torch.cuda.current_stream(dev))
+            lut_d = _on_device(lut, dev, cache)
+            kb.check(kb.lib().hs_session_remap_table(
+                tab.data_ptr(), len(codes), kb.ptr(lut_d), lut_d.shape[0],
+                total, kb.stream_of(codes[0])), "sharded_session_remap")
+            CARD_LAUNCHES["sharded_session_remap"] += 1
     sharded_session_remap.launches += 1
 
 

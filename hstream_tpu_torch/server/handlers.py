@@ -27,7 +27,6 @@ from hstream_tpu_torch.common import colframe, columnar
 from hstream_tpu_torch.common import records as rec
 from hstream_tpu_torch.common.errors import (
     HStreamError,
-    NotPortedError,
     QueryNotFound,
     ServerError,
     SQLValidateError,
@@ -76,10 +75,6 @@ log = get_logger("server")
 VIRTUAL_TABLES = frozenset({
     "__streams__", "__queries__", "__subscriptions__", "__views__",
     "__connectors__", "__stats__"})
-
-
-def _connectors_not_ported() -> None:
-    raise NotPortedError("sink connectors (CREATE SINK CONNECTOR)", "A5c")
 
 
 def _abort_hstream(context, e: HStreamError) -> None:
@@ -1167,7 +1162,8 @@ class HStreamApiServicer:
             #   promote replicas=A,B,...   leader-death path — pick the
             #     most-caught-up reachable replica (highest
             #     (epoch, applied_seq, node_id)) and promote it
-            # the replica group (store/replica) waits for ROADMAP A5c
+            from hstream_tpu_torch.store import replica as _replica
+
             target = args.get("target") or None
             addrs = [a.strip()
                      for a in str(args.get("replicas") or "").split(",")
@@ -1182,9 +1178,9 @@ class HStreamApiServicer:
                         "the replica group directly")
                 out = promote(target, leader_addr=hint)
             elif addrs:
-                raise NotPortedError(
-                    "promoting a store replica (promote replicas=)",
-                    "A5c")
+                out = _replica.promote_best(
+                    addrs, leader_addr=hint,
+                    promoted_by=scheduler.node_name(ctx))
             else:
                 raise ServerError(
                     "promote needs target=ADDR or replicas=A,B,...")
@@ -1863,9 +1859,6 @@ class HStreamApiServicer:
                 return ctx.persistence.get_connector(cid)
             except HStreamError:
                 pass
-        # refused before anything is persisted: no connector record is
-        # left behind for a boot to resume
-        _connectors_not_ported()
         info = ConnectorInfo(connector_id=cid, sql=sql,
                              created_time_ms=now_ms(),
                              status=TaskStatus.CREATED)
@@ -1874,9 +1867,21 @@ class HStreamApiServicer:
         return info
 
     def _start_connector_task(self, info: ConnectorInfo, plan) -> None:
-        # the reference builds a ConnectorTask over connectors.make_sink
-        # here; the connectors wait for ROADMAP A5c
-        _connectors_not_ported()
+        # deferred import: connectors imports server.persistence, so a
+        # module-level import here would close an import cycle for
+        # anyone importing hstream_tpu_torch.connectors first
+        from hstream_tpu_torch.connectors import ConnectorTask, make_sink
+
+        ctx = self.ctx
+        options = plan.options
+        source = options.get("STREAM")
+        if not source:
+            raise ServerError(
+                "connector options need STREAM (the source stream)")
+        sink = make_sink(ctx, options)
+        task = ConnectorTask(ctx, info.connector_id, source, sink)
+        ctx.running_connectors[info.connector_id] = task
+        task.start()
 
     def _terminate_connector(self, cid: str) -> None:
         ctx = self.ctx

@@ -9,8 +9,11 @@ The port's server runs its queries on the card unless `--device cpu`
 (`serve(..., device="cpu")`) is given; with no card it refuses to
 start. `--mesh DxK` shards windowed aggregate queries over a (data,
 key) mesh of the server's devices, the shards wrapping round them (on
-one card, all of them on it). `--replicate` (the replicated store,
-ROADMAP A5c) is not ported and raises NotPortedError.
+one card, all of them on it). `--replicate ADDR,ADDR` makes the server
+the leader of a replicated store (store/replica.py): every store
+mutation goes to the followers (`python -m
+hstream_tpu_torch.store.replica`) before it is acknowledged, while the
+queries run on the card as without it.
 """
 
 # A copy of hstream_tpu/server/main.py; the port imports nothing of the JAX
@@ -25,7 +28,6 @@ from concurrent import futures
 
 import grpc
 
-from hstream_tpu_torch.common.errors import NotPortedError
 from hstream_tpu_torch.common.logger import get_logger
 from hstream_tpu_torch.device import resolve as resolve_device
 from hstream_tpu_torch.proto.rpc import add_hstream_api_to_server
@@ -95,11 +97,12 @@ def serve(host: str = "127.0.0.1", port: int = 6570,
     `mesh_shape` ("DxK", e.g. "4x2") shards eligible aggregate queries
     over a (data, key) mesh of the server's devices (SURVEY §2.3; the
     port: windowed aggregates, a join's inner aggregate over a mesh of
-    one key shard). `replicate`
-    (comma-separated follower replica addresses) would make this server
-    the store LEADER, replicating every store mutation to those
-    follower nodes; `replication_factor` and `replica_ack_timeout_ms`
-    tune it; it is the reference's and not ported yet.
+    one key shard). `replicate` (comma-separated follower replica
+    addresses) makes this server the store LEADER: every store mutation
+    replicates to those follower nodes (run with ``python -m
+    hstream_tpu_torch.store.replica``). `replica_ack_timeout_ms` bounds
+    the follower-ack wait per append (expiry journals
+    `replica_ack_timeout` and degrades honestly).
     `store` (an already-open LogStore) overrides `store_uri` — the
     failover path: promote a follower, then boot a server OVER its
     (promoted) store; the epoch persisted in store meta carries the
@@ -107,16 +110,20 @@ def serve(host: str = "127.0.0.1", port: int = 6570,
 
     `device` is where every query runs: the card when None (no card
     raises DeviceUnavailable before anything is opened), "cpu" for the
-    plain PyTorch versions of the kernels. `replicate` raises
-    NotPortedError (ROADMAP A5c)."""
+    plain PyTorch versions of the kernels."""
     device = resolve_device(device)
     mesh = _build_mesh(mesh_shape, device) if mesh_shape else None
-    if replicate:
-        raise NotPortedError(
-            f"the replicated store (--replicate {replicate})", "A5c")
     if store is None:
         store = open_store(store_uri, sync_interval_ms=sync_interval_ms,
                            segment_bytes=segment_bytes)
+    if replicate:
+        from hstream_tpu_torch.store.replica import ReplicatedStore
+
+        store = ReplicatedStore(
+            store, [a.strip() for a in replicate.split(",") if a.strip()],
+            replication_factor=replication_factor,
+            ack_timeout_s=(replica_ack_timeout_ms / 1000.0
+                           if replica_ack_timeout_ms else None))
     ctx = ServerContext(store, host=host, port=port, mesh=mesh,
                         pipeline_depth=pipeline_depth,
                         encode_workers=encode_workers,

@@ -114,8 +114,50 @@ def test_the_source_guard_covers_every_slice():
                  "hstream_tpu_torch/engine/session.py",
                  "hstream_tpu_torch/parallel/__init__.py",
                  "hstream_tpu_torch/parallel/lattice.py",
-                 "hstream_tpu_torch/parallel/executor.py", "chip_smoke.py"):
+                 "hstream_tpu_torch/parallel/executor.py",
+                 "hstream_tpu_torch/store/replica.py",
+                 "hstream_tpu_torch/connectors/__init__.py",
+                 "hstream_tpu_torch/admin/__init__.py",
+                 "hstream_tpu_torch/admin/__main__.py",
+                 "hstream_tpu_torch/http_gateway/__init__.py",
+                 "hstream_tpu_torch/http_gateway/__main__.py",
+                 "hstream_tpu_torch/client/__init__.py",
+                 "hstream_tpu_torch/client/__main__.py", "chip_smoke.py"):
         assert want in names, want
+
+
+ENTRY_POINTS = ["hstream_tpu_torch.store.replica", "hstream_tpu_torch.admin",
+                "hstream_tpu_torch.http_gateway", "hstream_tpu_torch.client",
+                "hstream_tpu_torch.server.main"]
+
+
+@pytest.mark.parametrize("module", ENTRY_POINTS)
+def test_entry_point_help_runs_with_jax_blocked(module):
+    """`python -m <module> --help` where importing jax or hstream_tpu
+    fails: the operator entry points need neither."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['hstream_tpu'] = None\n"
+            f"sys.argv = [{module!r}, '--help']\n"
+            f"runpy.run_module({module!r}, run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "usage:" in out.stdout, out.stdout
+
+
+def test_no_not_ported_error_names_a5c():
+    """The operator surfaces and replication (ROADMAP A5c) are ported: no
+    module of the port raises NotPortedError naming that item."""
+    for path in PKG.rglob("*.py"):
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, "id", "") == "NotPortedError"):
+                args = [a.value for a in node.args
+                        if isinstance(a, ast.Constant)]
+                assert "A5c" not in args, path
 
 
 @pytest.mark.parametrize("path", SOURCES,

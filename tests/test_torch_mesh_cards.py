@@ -272,6 +272,39 @@ def test_joins_across_two_cards_match_one_card(layout, path):
     check_joins_against_one_card(*_meshes(JOIN_LAYOUTS, layout), path)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_key", [2, 17])
+def test_remap_table_one_launch_a_card(n_key):
+    """The key-sharded remap over shards alternating between cards 0 and
+    1: one table launch a card, each card's planes remapped exactly as
+    session_remap_ref remaps them a shard."""
+    _two_cards()
+    from hstream_tpu_torch.engine import session_lattice as sl
+
+    rng = np.random.default_rng(17 + n_key)
+    cap, lcap = 1001, 512
+    cards = [torch.device("cuda", s % 2) for s in range(n_key)]
+    codes = rng.integers(0, lcap // n_key + 20, (n_key, cap)) * n_key \
+        + np.arange(n_key)[:, None]
+    codes[rng.random((n_key, cap)) < 0.1] = sl.SESSION_SENT_CODE
+    lut = np.full(lcap, sl.SESSION_SENT_CODE, np.int32)
+    live = np.unique(codes[codes < lcap])
+    for s in range(n_key):
+        m = live[live % n_key == s]
+        lut[m] = np.arange(len(m)) * n_key + s
+    got = [{"code": torch.from_numpy(c.astype(np.int32)).to(d)}
+           for c, d in zip(codes, cards)]
+    want = [{"code": torch.from_numpy(c.astype(np.int32))} for c in codes]
+    before = pl.CARD_LAUNCHES["sharded_session_remap"]
+    pl.sharded_session_remap(got, torch.from_numpy(lut).to(cards[0]))
+    assert pl.CARD_LAUNCHES["sharded_session_remap"] == before + 2
+    for w in want:
+        sl.session_remap_ref(w, torch.from_numpy(lut))
+    for s in range(n_key):
+        torch.cuda.synchronize(cards[s])
+        assert torch.equal(got[s]["code"].cpu(), want[s]["code"]), s
+
+
 def _session_node():
     schema = T.Schema.of(k=T.ColumnType.STRING, v=T.ColumnType.FLOAT)
     v = Col("v")

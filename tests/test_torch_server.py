@@ -1,8 +1,8 @@
 """The port's gRPC server against the reference's: tests/test_server.py's
 cases, each request sent to both servers (the JAX package's and the
 port's, on the CPU) through each package's own stub, the answers
-compared; and the port's guards (no card, the mesh, the replicated
-store, sink connectors)."""
+compared; and the port's guards (no card, the mesh), the replicated
+store's flags and sink connectors."""
 
 import threading
 
@@ -296,13 +296,32 @@ def test_serve_without_a_card_raises_device_unavailable():
     (["--replicate", "127.0.0.1:1"], "A5c"),
 ])
 def test_unported_server_flags_raise(flags, item):
-    from hstream_tpu_torch.common.errors import NotPortedError
+    """The flags that raised NotPortedError naming their ROADMAP item
+    until it was ported now configure the server: `--replicate` (A5c)
+    boots a store leader over the named follower (none listens here, so
+    its appends are acked degraded, as in the reference)."""
     from hstream_tpu_torch.server import main
+    from hstream_tpu_torch.store.replica import ReplicatedStore
 
-    with pytest.raises(NotPortedError) as ei:
-        main.main(["--device", "cpu", "--host", "127.0.0.1", "--port", "0",
-                   *flags])
-    assert ei.value.item == item and f"ROADMAP {item}" in str(ei.value)
+    assert item == "A5c"
+    cfg = main._parse_args(["--device", "cpu", *flags,
+                            "--replication-factor", "3",
+                            "--replica-ack-timeout-ms", "700"])
+    assert (cfg["replicate"], cfg["replication_factor"],
+            cfg["replica_ack_timeout_ms"]) == ("127.0.0.1:1", 3, 700)
+    server, ctx = main.serve("127.0.0.1", 0, "mem://", device="cpu",
+                             replicate=cfg["replicate"],
+                             replication_factor=cfg["replication_factor"],
+                             replica_ack_timeout_ms=700)
+    try:
+        assert isinstance(ctx.store, ReplicatedStore)
+        assert ctx.store.replication_factor == 3
+        assert ctx.store.ack_timeout_s == 0.7
+        assert [f["addr"] for f in ctx.store.follower_status()] == \
+            ["127.0.0.1:1"]
+    finally:
+        server.stop(grace=1)
+        ctx.shutdown()
 
 
 def test_the_mesh_flag_builds_a_mesh_over_the_servers_devices():
@@ -358,34 +377,43 @@ def test_context_with_a_mesh_builds_sharded_sessions_and_joins():
 
 
 def test_sink_connectors_raise_not_ported(pair, tmp_path):
-    """The reference creates the connector; the port refuses with a
-    status a client reads (UNIMPLEMENTED, naming A5c) and persists
-    nothing."""
-    ref, port = pair.sides
-    db = tmp_path / "sink.db"
-    stmt = (f"CREATE SINK CONNECTOR sc1 WITH (type = 'sqlite', "
-            f"stream = 'csrc', path = '{db}', table = 't');")
-    for s in pair.sides:
-        s.stub.CreateStream(s.pb.Stream(stream_name="csrc"))
+    """Sink connectors, refused with NotPortedError (A5c) until they were
+    ported: both servers create the connector through SQL and through
+    CreateSinkConnector, list it, and write the stream's rows to their
+    own sqlite table alike."""
     import sqlite3
 
-    conn = sqlite3.connect(db)
-    conn.execute("CREATE TABLE t (a INTEGER, b TEXT)")
-    conn.commit()
-    conn.close()
-    ref.sql(stmt)
-    assert any(c.id == "sc1" for c in ref.stub.ListConnectors(
-        ref.pb.ListConnectorsRequest()).connectors)
-    ref.stub.DeleteConnector(ref.pb.DeleteConnectorRequest(id="sc1"))
-    for call in (lambda: port.sql(stmt),
-                 lambda: port.stub.CreateSinkConnector(
-                     port.pb.CreateSinkConnectorRequest(id="sc1", config=stmt))):
-        with pytest.raises(grpc.RpcError) as ei:
-            call()
-        assert ei.value.code() == grpc.StatusCode.UNIMPLEMENTED
-        assert "ROADMAP A5c" in ei.value.details()
-    assert not list(port.stub.ListConnectors(
-        port.pb.ListConnectorsRequest()).connectors)
+    def run(s):
+        db = tmp_path / f"{s.m.root}.db"
+        conn = sqlite3.connect(db)
+        conn.execute("CREATE TABLE t (a INTEGER, b TEXT)")
+        conn.commit()
+        conn.close()
+        s.stub.CreateStream(s.pb.Stream(stream_name="csrc"))
+        stmt = (f"CREATE SINK CONNECTOR sc1 WITH (type = 'sqlite', "
+                f"stream = 'csrc', path = '{db}', table = 't');")
+        s.sql(stmt)
+        s.append("csrc", [{"a": 1, "b": "x"}], [BASE])
+
+        def rows():
+            conn = sqlite3.connect(db)
+            try:
+                return conn.execute("SELECT a, b FROM t").fetchall()
+            finally:
+                conn.close()
+
+        got = poll(rows, lambda r: len(r) == 1, 20.0,
+                   f"{s.m.root}: the sink's table")
+        listed = [c.id for c in s.stub.ListConnectors(
+            s.pb.ListConnectorsRequest()).connectors]
+        s.stub.DeleteConnector(s.pb.DeleteConnectorRequest(id="sc1"))
+        made = s.stub.CreateSinkConnector(s.pb.CreateSinkConnectorRequest(
+            id="sc2", config=stmt.replace("sc1", "sc2")))
+        s.stub.DeleteConnector(s.pb.DeleteConnectorRequest(id="sc2"))
+        return got, listed, made.id
+
+    ref, port = pair.each(run)
+    assert ref == port == ([(1, "x")], ["sc1"], "sc2")
 
 
 def test_every_query_runs_on_the_contexts_device():

@@ -601,3 +601,93 @@ def test_lattice_remap_and_growth_match_reference(meshes, shard_arenas):
     _assert_sharded(_host(grown), grown_want, exact_sums=True)
     init_want = _host(j.init_arena(CAP))
     _assert_sharded(_host(t.init_arena(CAP)), init_want, exact_sums=True)
+
+
+# ---- the remap's table launch (one a card) -----------------------------------
+
+REMAP_MESHES = [(1, 2), (1, 4), (1, 17), (2, 2)]
+
+
+def _remap_case(S: int, cap: int, lcap: int, seed: int):
+    """[S, cap] codes (shard s's residue s) below, at and above lcap and
+    the sentinel, and a residue-preserving table (dead codes to the
+    sentinel)."""
+    rng = np.random.default_rng(seed)
+    codes = np.empty((S, cap), np.int32)
+    for s in range(S):
+        c = rng.integers(0, (lcap + 40) // S, cap) * S + s
+        c[rng.random(cap) < 0.1] = JL.SESSION_SENT_CODE
+        at = lcap + (s - lcap) % S        # the first code at or past lcap
+        c[: 2] = at, at + S
+        codes[s] = c
+    lut = np.full(lcap, JL.SESSION_SENT_CODE, np.int32)
+    live = np.arange(lcap)
+    keep = rng.random(lcap) < 0.7
+    for s in range(S):
+        m = keep & (live % S == s)
+        lut[live[m]] = np.arange(int(m.sum())) * S + s
+    return codes, lut
+
+
+@pytest.mark.parametrize("shape", REMAP_MESHES)
+def test_sharded_remap_table_matches_reference(shape, monkeypatch):
+    """The key-sharded remap on a mesh on the CPU (the wrapper's plain
+    path) and the table kernel's plain model over every shard's code
+    plane (heads of 0-3 codes, caps off four) against the reference's
+    ShardedSessionLattice.remap; a mesh past the 8 virtual devices
+    against its shard_map body, the remap kernel a shard."""
+    n_data, S = shape
+    cap, lcap = 203, 96
+    codes, lut = _remap_case(S, cap, lcap, 40 + S)
+    if n_data * S <= len(jax.devices()):
+        mesh = Mesh(np.array(jax.devices()[:n_data * S]).reshape(n_data, S),
+                    ("data", "key"))
+        j = JSSL(mesh, "key", JSPEC, JSCHEMA, LAYOUT)
+        host = _host(j.init_arena(cap))
+        host["code"] = codes
+        want = _host(j.remap(j.put_arena(host), jnp.asarray(lut)))["code"]
+    else:
+        fn = JL.session_remap_kernel(cap, lcap)
+        want = np.stack([np.asarray(fn({"code": jnp.asarray(c)},
+                                       jnp.asarray(lut))["code"])
+                         for c in codes])
+    assert (want == JL.SESSION_SENT_CODE).any() and (want >= lcap).any()
+    for s in range(S):
+        live = want[s][want[s] < JL.SESSION_SENT_CODE]
+        assert (live % S == s).all()
+    ssl = pl.ShardedSessionLattice(make_mesh(n_data, S, devices=["cpu"]),
+                                   TSPEC)
+    arena = [{"code": torch.from_numpy(c.copy())} for c in codes]
+    assert ssl.remap(arena, torch.from_numpy(lut)) is arena
+    assert np.array_equal(np.stack([a["code"].numpy() for a in arena]), want)
+    # the table's rows over planes at every offset of a 16-byte boundary
+    monkeypatch.setattr(kb, "ptr", lambda t: t.data_ptr())
+    pitch = (cap + 7) // 4 * 4             # a multiple of 16 bytes
+    buf = torch.zeros(S * pitch + 4, dtype=torch.int32)
+    base = -buf.data_ptr() % 16 // 4
+    planes = []
+    for s in range(S):
+        at = base + s * pitch + s % 4
+        planes.append(buf[at:at + cap])
+        planes[-1].copy_(torch.from_numpy(codes[s]))
+    words, total = pl.remap_rows(planes)
+    heads = words[kb.REMAP_HEAD::kb.REMAP_WORDS]
+    assert set(heads) == {(4 - s % 4) % 4 for s in range(S)}
+    assert total == sum((cap - h) // 4 for h in heads)
+    pl.remap_table_ref(words, total, planes, torch.from_numpy(lut))
+    assert np.array_equal(np.stack([p.numpy() for p in planes]), want)
+
+
+def test_remap_table_cached_by_addresses(monkeypatch):
+    """One table a card, uploaded once for the same planes and again for
+    another plane or cap."""
+    monkeypatch.setattr(kb, "ptr", lambda t: t.data_ptr())
+    cpu = torch.device("cpu")
+    planes = [torch.zeros(100, dtype=torch.int32) for _ in range(3)]
+    before = pl.remap_table.uploads
+    t1, n1 = pl.remap_table(planes, cpu)
+    t2, n2 = pl.remap_table(planes, cpu)
+    assert t1 is t2 and n1 == n2 and pl.remap_table.uploads == before + 1
+    assert t1.shape == (3 * kb.REMAP_WORDS,)
+    pl.remap_table(planes[:2] + [torch.zeros(7, dtype=torch.int32)], cpu)
+    assert pl.remap_table.uploads == before + 2

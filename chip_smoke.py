@@ -233,7 +233,30 @@ Phases, each of which asserts (any failure exits non-zero):
    path's shapes and timed (the merged changelog extract also at 15b's
    inner lattice, captured at its last batch); events/s are printed as
    a diagnostic;
-16. a "phase wall s {...}" line (each phase's wall seconds, also logged
+16. the replicated server, failed over (its section below says how);
+17. the cluster layer on the card (hstream_tpu_torch/placer): 17a
+   serve(pack_queries=True) with three push queries of one signature at
+   config 1's width sharing one pack group's executor and a fourth that
+   packing refuses (a WHERE, EXPLAIN's PACK line naming the filter) as a
+   standalone task, over 24 framed blocks of 2^16 records (1 s of stream
+   each) and a closer, then one member terminated and 4 more blocks and
+   a closer: one group of three members in the pool and the admin placer
+   verb, its executor and planes on the card with no move to a host
+   engine, RetraceGuard 0 over members 2 and 3 attaching and streaming,
+   ceil(members x n / 4096) decode and scatter launches a feed of n
+   records (on every feed before the refused query's task starts
+   stepping beside the group), and every member's and the refused
+   query's last change of each (device, window) equal numpy; the three
+   queries unpacked on a server of their own are a diagnostic (their
+   rows against numpy, events/s and launches a block); 17b three armed
+   nodes over one shared store (placer tick 100 ms, a 2000 ms heartbeat
+   lease), one push query placed by the placer, 12 blocks of 2^16 with
+   the owner killed crash-style after block 6: exactly one survivor
+   adopts on the lapsed lease, never two owners at any 10 ms sample, it
+   resumes from the snapshot on the card, no self-fence, and the sink's
+   last changes equal numpy; the seconds from the kill to the adoption
+   and to the adopter's first row are printed;
+18. a "phase wall s {...}" line (each phase's wall seconds, also logged
    as each phase ends), a {"kernels": [...]} line (each kernel's
    launches on the main paths, its error against the plain version and
    its times), the card line, and last {"ok": true, "device": {...}}.
@@ -6596,12 +6619,13 @@ def _window_of(start: int) -> int:
 
 def check_server_window(rows, ref, dev, what: str, cnt="cnt", total="total",
                         uniq="uniq") -> None:
-    """One window's rows (every key once) against numpy: counts and HLL
-    estimates exact, SUM within the summation-order bound."""
+    """One window's rows (every key with records once) against numpy:
+    counts and HLL estimates exact, SUM within the summation-order
+    bound."""
     from hstream_tpu_torch.engine.sketches import hll_estimate
 
     keys = np.array([int(r["device"][1:]) for r in rows])
-    assert len(rows) == N_KEYS == len(set(keys.tolist())), \
+    assert sorted(keys.tolist()) == np.nonzero(ref["count"])[0].tolist(), \
         f"{what}: {len(rows)} rows"
     n = ref["count"][keys]
     got = np.array([r[cnt] for r in rows])
@@ -6676,14 +6700,16 @@ def _srv_pull(stub, pb, records) -> list:
     return [records.struct_to_dict(s) for s in resp.result_set]
 
 
-def _push_finals(ctx) -> dict:
-    """(device, winStart) -> the last change the push query sank into its
-    stream, read back from the store (columnar records)."""
+def _push_finals(ctx, stream: str = SRV_PUSH_ID, temp: bool = True) -> dict:
+    """(device, winStart) -> the last change a push query sank into its
+    stream (the temporary stream of phase 13's push query by default),
+    read back from the store (columnar records)."""
     from hstream_tpu_torch.common import columnar, records
     from hstream_tpu_torch.store.api import DataBatch
     from hstream_tpu_torch.store.streams import StreamType
 
-    logid = ctx.streams.get_logid(SRV_PUSH_ID, StreamType.TEMP)
+    logid = ctx.streams.get_logid(
+        stream, StreamType.TEMP if temp else StreamType.STREAM)
     reader = ctx.store.new_reader()
     reader.start_reading(logid)
     reader.set_timeout(0)
@@ -9784,6 +9810,580 @@ def replicated_path(dev) -> dict:
     return out
 
 
+# ---- phase 17: packed push queries and placer adoption on the card ----------
+#
+# The cluster layer (hstream_tpu_torch/placer). 17a: serve(pack_queries=True)
+# on the card, three push queries of one signature at config 1's width
+# (bench.py:60-119: 1000 devices, one-decimal temps; COUNT, SUM and
+# APPROX_COUNT_DISTINCT) sharing one pack group's executor, and a fourth
+# that packing refuses (a WHERE) as a standalone task; framed blocks a
+# call, one member terminated mid-stream; then the same three queries
+# unpacked on a server of their own, a diagnostic. 17b: three armed nodes
+# over one shared store (tests/test_chaos.py's placer cluster), one push
+# query placed by the placer, its owner killed crash-style mid-stream, a
+# survivor adopting it and resuming from its snapshot on the card.
+
+P17_BLOCK = 1 << 16          # records a block (phase 13 sends 2^18): the
+                             # pack runner makes three row dicts a record
+P17_MS = 1000                # stream ms a block
+P17_WARM = 4                 # blocks member 1 ingests alone
+P17_BLOCKS = 24              # blocks before the termination: windows 0-2
+P17_AFTER = 4                # blocks after it, in window 3
+P17_CAP = 4096               # the pack group's batch_capacity (packing.py)
+P17_WARM_KEYS = 3200         # other devices in member 1's warm-up: the
+                             # group's key span reaches its 8192 rung
+                             # before members 2 and 3 add 2000 keys, as
+                             # tests/test_packing.py warms its span
+P17_KEYS = N_KEYS + P17_WARM_KEYS
+P17_DEVS = np.array([f"d{k}" for k in range(P17_KEYS)])
+P17_LEASE_MS = 2000          # 17b's heartbeat lease (ROADMAP C)
+P17B_BLOCKS = 12             # 17b's blocks: windows 0 and 1
+P17B_KILL_AT = 6             # ... the owner is killed after this many
+P17_SELECT = ("SELECT device, COUNT(*) AS c{i}, SUM(temp) AS s{i}, "
+              "APPROX_COUNT_DISTINCT(temp) AS d{i} FROM sensors{where} "
+              "GROUP BY device, TUMBLING (INTERVAL 10 SECOND) "
+              "GRACE BY INTERVAL 0 SECOND EMIT CHANGES;")
+P17_WHERE = " WHERE temp > 15.0"
+
+
+def p17_query(i, where: str = "") -> str:
+    return f"CREATE STREAM pk{i} AS " + P17_SELECT.format(i=i, where=where)
+
+
+class PackStream:
+    """Config 1's stream in framed blocks of P17_BLOCK records, P17_MS of
+    stream a block from a given start, N_UNIQUE pre-made (keys, temps)
+    pairs cycled, one-record closers (d0, 20.0) and a warm-up block of
+    P17_WARM_KEYS other devices, one record each, in the second after its
+    start. An item is ("block", pair, start ms), ("closer", 0, ms) or
+    ("warm", 0, ms), ms from BASE_TS."""
+
+    def __init__(self, seed: int):
+        rng = np.random.default_rng(seed)
+        self.kids = [rng.integers(0, N_KEYS, P17_BLOCK).astype(np.int32)
+                     for _ in range(N_UNIQUE)]
+        self.temps = [(np.rint(rng.normal(20.0, 5.0, P17_BLOCK) * 10)
+                       .astype(np.float32) * np.float32(0.1))
+                      for _ in range(N_UNIQUE)]
+        self.ts_template = (np.arange(P17_BLOCK, dtype=np.int64)
+                            * P17_MS) // P17_BLOCK
+        self.warm_temps = (np.rint(rng.normal(20.0, 5.0, P17_WARM_KEYS)
+                                   * 10).astype(np.float32)
+                           * np.float32(0.1))
+        self._aggs: dict = {}
+
+    @staticmethod
+    def warm(ms: int) -> tuple:
+        return ("warm", 0, ms)
+
+    @staticmethod
+    def block(b: int, start_ms: int) -> tuple:
+        return ("block", b % N_UNIQUE, start_ms)
+
+    @staticmethod
+    def closer(ms: int) -> tuple:
+        return ("closer", 0, ms)
+
+    def columns(self, item):
+        kind, j, ms = item
+        if kind == "closer":
+            return (np.array([BASE_TS + ms], np.int64),
+                    np.zeros(1, np.int32), np.array([20.0], np.float32))
+        if kind == "warm":
+            n = P17_WARM_KEYS
+            return (BASE_TS + ms + np.arange(n, dtype=np.int64) * P17_MS // n,
+                    N_KEYS + np.arange(n, dtype=np.int32), self.warm_temps)
+        return BASE_TS + ms + self.ts_template, self.kids[j], self.temps[j]
+
+    def frame(self, item) -> bytes:
+        from hstream_tpu_torch.client.producer import encode_batch
+
+        ts, k, v = self.columns(item)
+        return encode_batch(ts, {"device": P17_DEVS[k], "temp": v})
+
+    def last_ts(self, item) -> int:
+        return int(self.columns(item)[0][-1])
+
+    def aggregates(self, item, where: bool) -> dict:
+        """One item's count, SUM, SUM|x| and HLL registers by key."""
+        key = (item[0], item[1], where)
+        if key not in self._aggs:
+            _ts, k, t = self.columns(item)
+            if where:
+                keep = t > np.float32(15.0)
+                k, t = k[keep], t[keep]
+            t64 = t.astype(np.float64)
+            regs = np.zeros(P17_KEYS * 1024, np.int8)
+            reg, rank = np_hll_indices(t)
+            np.maximum.at(regs, k.astype(np.int64) * 1024 + reg,
+                          rank.astype(np.int8))
+            self._aggs[key] = dict(
+                count=np.bincount(k, minlength=P17_KEYS),
+                sum=np.bincount(k, weights=t64, minlength=P17_KEYS),
+                abs=np.bincount(k, weights=np.abs(t64), minlength=P17_KEYS),
+                regs=regs.reshape(P17_KEYS, 1024))
+        return self._aggs[key]
+
+    def reference(self, items, where: bool = False) -> dict:
+        """window -> the aggregates of `items` in it."""
+        out: dict = {}
+        for it in items:
+            a = self.aggregates(it, where)
+            w = it[2] // 10_000
+            o = out.get(w)
+            if o is None:
+                out[w] = {k: v.copy() for k, v in a.items()}
+                continue
+            for k in ("count", "sum", "abs"):
+                o[k] = o[k] + a[k]
+            o["regs"] = np.maximum(o["regs"], a["regs"])
+        return out
+
+
+def check_member(finals: dict, ref: dict, dev, what: str, i) -> int:
+    """A push query's last change of every (device, window) against numpy
+    (check_server_window a window)."""
+    by_win: dict[int, list] = {}
+    for (_d, ws), r in finals.items():
+        by_win.setdefault(_window_of(ws), []).append(r)
+    want = sorted(w for w, a in ref.items() if a["count"].any())
+    assert sorted(by_win) == want, (what, sorted(by_win), want)
+    for w, rows in by_win.items():
+        check_server_window(rows, ref[w], dev, f"{what} window {w}",
+                            cnt=f"c{i}", total=f"s{i}", uniq=f"d{i}")
+    return len(finals)
+
+
+def member_finals(ctx, stream: str, ref: dict, i) -> dict:
+    """The sink stream's last changes once their counts add up to the
+    reference's records (the sink is written behind the step)."""
+    want = int(sum(a["count"].sum() for a in ref.values()))
+    deadline = time.monotonic() + SRV_DRAIN_S
+    pause = threading.Event()
+    while True:
+        finals = _push_finals(ctx, stream, temp=False)
+        got = sum(r[f"c{i}"] for r in finals.values())
+        if got == want:
+            return finals
+        assert time.monotonic() < deadline, \
+            f"{stream}: {got} of {want} records in its last changes"
+        pause.wait(0.05)
+
+
+def append_retrying(producer, frame: bytes):
+    """One framed block, sent again after the server's retry_after_ms
+    while flow control sheds it (the producer's side of back-pressure)."""
+    import re
+
+    import grpc
+
+    deadline = time.monotonic() + SRV_DRAIN_S
+    while True:
+        try:
+            return producer.append_stream_frames(iter([frame]))
+        except grpc.RpcError as e:
+            if e.code() != grpc.StatusCode.RESOURCE_EXHAUSTED or \
+                    time.monotonic() > deadline:
+                raise
+            m = re.search(r"retry_after_ms=(\d+)", e.details() or "")
+            time.sleep(int(m.group(1)) / 1e3 if m else 0.1)
+
+
+def _query_ids(stub, pb) -> dict:
+    """sink stream -> query id, of every query on the server."""
+    out = {}
+    for q in stub.ListQueries(pb.ListQueriesRequest()).queries:
+        out[q.query_text.split()[2]] = q.id
+    return out
+
+
+def packed_path(dev) -> tuple[dict, dict]:
+    """Phase 17a (above): the pack group's one executor on the card, its
+    launches a feed, RetraceGuard over the later members, every member's
+    and the refused query's last changes against numpy; then the three
+    queries unpacked (a diagnostic)."""
+    import grpc
+
+    from hstream_tpu_torch.client.producer import ColumnarProducer
+    from hstream_tpu_torch.common import records
+    from hstream_tpu_torch.common.tracing import RetraceGuard
+    from hstream_tpu_torch.placer.packing import PackMemberTask
+    from hstream_tpu_torch.proto import api_pb2 as pb
+    from hstream_tpu_torch.proto.rpc import HStreamApiStub
+    from hstream_tpu_torch.server.main import serve
+    from hstream_tpu_torch.server.tasks import QueryTask
+
+    src = PackStream(seed=17)
+    pre = [src.block(b, b * P17_MS) for b in range(P17_BLOCKS)]
+    c1 = src.closer(30_000)             # closes windows 0-2
+    post = [src.block(b, 30_000 + (b - P17_BLOCKS) * P17_MS)
+            for b in range(P17_BLOCKS, P17_BLOCKS + P17_AFTER)]
+    c2 = src.closer(40_000)             # closes window 3
+    # the warm-up block after block 0: a standalone task sizes its batch
+    # to the first block it reads (server/tasks.py)
+    every = pre[:1] + [src.warm(0)] + pre[1:] + [c1] + post + [c2]
+    frames = {it: src.frame(it) for it in every}
+    opts = [("grpc.max_receive_message_length", 64 << 20),
+            ("grpc.max_send_message_length", 64 << 20)]
+    steps = ("wire_decode", "scatter_aggregate", "touched_extract",
+             "reset_close")
+
+    def send(producer, items):
+        for it in items:
+            resp = append_retrying(producer, frames[it])
+            assert resp.rows == len(src.columns(it)[0]), resp.rows
+
+    out = {"config": "packed"}
+    server, ctx = serve("127.0.0.1", 0, "mem://", pack_queries=True)
+    ch = grpc.insecure_channel(f"127.0.0.1:{ctx.port}", options=opts)
+    stub = HStreamApiStub(ch)
+    try:
+        assert ctx.device == dev, ctx.device
+        stub.CreateStream(pb.Stream(stream_name="sensors"))
+        zero_counts()
+        stub.ExecuteQuery(pb.CommandQuery(stmt_text=p17_query(0)))
+        q0 = _query_ids(stub, pb)["pk0"]
+        g = ctx.pack_pool.member_of(q0)
+        assert g is not None, "the first query was not packed"
+        feeds: list[dict] = []
+        errors: list = []
+        shared = [False]   # True once another task steps beside the group
+        fed = g.feed
+
+        def counted_feed(rows, ts_ms, lsn=None):
+            m = sum(1 for x in list(g.members.values())
+                    if lsn is None or lsn > x.attach_lsn)
+            exclusive = not shared[0]
+            before = launch_counts()
+            try:
+                fed(rows, ts_ms, lsn=lsn)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+                raise
+            after = launch_counts()
+            feeds.append(dict(n=len(rows), members=m, ts=max(ts_ms),
+                              exclusive=exclusive and not shared[0],
+                              launches={k: after[k] - before[k]
+                                        for k in steps}))
+
+        g.feed = counted_feed
+
+        def wait_fed(item):
+            target = src.last_ts(item)
+            deadline = time.monotonic() + SRV_DRAIN_S
+            pause = threading.Event()
+            while not (feeds and feeds[-1]["ts"] >= target):
+                assert not errors, errors
+                assert time.monotonic() < deadline, \
+                    f"the pack group was not fed to {target}"
+                pause.wait(0.002)
+
+        producer = ColumnarProducer(ch, "sensors")
+        stage = {}
+        t0 = time.perf_counter()
+        send(producer, every[:1 + P17_WARM])
+        wait_fed(pre[P17_WARM - 1])
+        stage["warm"] = time.perf_counter() - t0
+        with RetraceGuard() as guard:
+            for i in (1, 2):
+                stub.ExecuteQuery(pb.CommandQuery(stmt_text=p17_query(i)))
+            t0 = time.perf_counter()
+            send(producer, pre[P17_WARM:])
+            wait_fed(pre[-1])
+            torch.cuda.synchronize()
+            pack_wall = time.perf_counter() - t0
+            send(producer, [c1])
+            wait_fed(c1)
+        assert guard.count == 0, \
+            f"members 2 and 3 compiled {guard.count} programs"
+        ids = _query_ids(stub, pb)
+        members = [ids[f"pk{i}"] for i in range(3)]
+        # the refused query: a standalone task that reads the stream from
+        # its start beside the group from here on
+        shared[0] = True
+        t0 = time.perf_counter()
+        text = stub.ExecuteQuery(pb.CommandQuery(
+            stmt_text="EXPLAIN " + P17_SELECT.format(i="f", where=P17_WHERE)))
+        explain = records.struct_to_dict(text.result_set[0])["explain"]
+        assert "PACK: unpackable — filter:" in explain, explain
+        stub.ExecuteQuery(pb.CommandQuery(stmt_text=p17_query("f",
+                                                              P17_WHERE)))
+        qf = _query_ids(stub, pb)["pkf"]
+        tf = _srv_task(ctx, qf)
+        assert isinstance(tf, QueryTask) and not getattr(tf, "packed", False)
+        _srv_drained([tf], src.last_ts(c1))
+        stage["refused backlog"] = time.perf_counter() - t0
+        packs = ctx.pack_pool.status()
+        assert len(packs) == 1 and packs[0]["members"] == sorted(members), \
+            packs
+        admin = json.loads(stub.SendAdminCommand(pb.AdminCommandRequest(
+            command="placer", args=records.dict_to_struct({}))).result)
+        assert [sorted(p["members"]) for p in admin["packs"]] == \
+            [sorted(members)], admin["packs"]
+        assert all(isinstance(ctx.running_queries[q], PackMemberTask)
+                   for q in members)
+        stub.TerminateQueries(pb.TerminateQueriesRequest(
+            query_ids=[members[1]]))
+        poll_until(lambda: ctx.pack_pool.status()[0]["members"]
+             == sorted([members[0], members[2]]), "the termination")
+        t0 = time.perf_counter()
+        send(producer, post + [c2])
+        wait_fed(c2)
+        _srv_drained([tf], src.last_ts(c2))
+        stage["after the termination"] = time.perf_counter() - t0
+        counts = launch_counts()
+        ex = g.executor
+        assert ex.device == dev and all(
+            t.device == dev for t in ex.state.values()), "a plane left the card"
+        assert ex.device_fallbacks == 0 and tf.executor.device == dev
+        assert tf.engine_total("device_fallbacks") == 0
+        # each feed: one executor's chunks over the tagged rows
+        checked = [f for f in feeds if f["exclusive"]]
+        for f in checked:
+            want = -(-f["members"] * f["n"] // P17_CAP)
+            assert f["launches"]["wire_decode"] == want and \
+                f["launches"]["scatter_aggregate"] == want, (f, want)
+        three = [f for f in checked if f["members"] == 3
+                 and f["n"] == P17_BLOCK]
+        assert three, "no feed of a whole block to three members"
+        for name in steps + ("expression",):
+            assert counts[name] > 0, (name, counts)
+        t0 = time.perf_counter()
+        refs = {0: every, 1: pre[P17_WARM:] + [c1],
+                2: pre[P17_WARM:] + [c1] + post + [c2]}
+        rows = {}
+        for i, items in refs.items():
+            ref = src.reference(items)
+            rows[f"pk{i}"] = check_member(
+                member_finals(ctx, f"pk{i}", ref, i), ref, dev,
+                f"packed member pk{i}", i)
+        ref = src.reference(every, where=True)
+        rows["pkf"] = check_member(member_finals(ctx, "pkf", ref, "f"), ref,
+                                   dev, "the refused query", "f")
+        pk0_finals = _push_finals(ctx, "pk0", temp=False)
+        stage["checks"] = time.perf_counter() - t0
+        stage["packed segment"] = pack_wall
+        out.update(stage_s=stage, 
+            launches=counts, rows=rows, explain_pack=explain.splitlines()[-1],
+            feeds=len(feeds), feeds_checked=len(checked),
+            step_launches_three_members=three[0]["launches"],
+            events_per_sec=(P17_BLOCKS - P17_WARM) * P17_BLOCK / pack_wall,
+            group=g.status())
+    finally:
+        ch.close()
+        server.stop(grace=1)
+        ctx.shutdown()
+
+    # the same three queries unpacked, over the same blocks (a diagnostic)
+    un = {"config": "unpacked"}
+    t_un = time.perf_counter()
+    server, ctx = serve("127.0.0.1", 0, "mem://")
+    ch = grpc.insecure_channel(f"127.0.0.1:{ctx.port}", options=opts)
+    stub = HStreamApiStub(ch)
+    try:
+        stub.CreateStream(pb.Stream(stream_name="sensors"))
+        zero_counts()
+        for i in range(3):
+            stub.ExecuteQuery(pb.CommandQuery(stmt_text=p17_query(i)))
+        ids = _query_ids(stub, pb)
+        tasks = [_srv_task(ctx, ids[f"pk{i}"]) for i in range(3)]
+        producer = ColumnarProducer(ch, "sensors")
+        send(producer, every[:1 + P17_WARM])
+        _srv_drained(tasks, src.last_ts(pre[P17_WARM - 1]))
+        t0 = time.perf_counter()
+        send(producer, pre[P17_WARM:])
+        _srv_drained(tasks, src.last_ts(pre[-1]))
+        wall = time.perf_counter() - t0
+        send(producer, [c1] + post + [c2])
+        _srv_drained(tasks, src.last_ts(c2))
+        un["launches"] = launch_counts()
+        ref = src.reference(every)
+        equal = {}
+        for i in range(3):
+            try:
+                check_member(member_finals(ctx, f"pk{i}", ref, i), ref, dev,
+                             f"unpacked pk{i}", i)
+                equal[f"pk{i}"] = True
+            except AssertionError as e:
+                equal[f"pk{i}"] = str(e)[:200]
+        got = _push_finals(ctx, "pk0", temp=False)
+        equal["pk0 packed"] = all(
+            got.get(k, {}).get("c0") == r["c0"]
+            and got.get(k, {}).get("d0") == r["d0"]
+            for k, r in pk0_finals.items()) and len(got) == len(pk0_finals)
+        un.update(rows_equal=equal, wall_s=time.perf_counter() - t_un,
+                  events_per_sec=(P17_BLOCKS - P17_WARM) * P17_BLOCK / wall,
+                  scatter_launches_a_block=un["launches"]["scatter_aggregate"]
+                  / len(every))
+    finally:
+        ch.close()
+        server.stop(grace=1)
+        ctx.shutdown()
+    return out, un
+
+
+def poll_until(cond, what: str, timeout: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout
+    pause = threading.Event()
+    while not cond():
+        assert time.monotonic() < deadline, f"{what}: not within {timeout} s"
+        pause.wait(0.02)
+
+
+def _node_kill(server, ctx) -> None:
+    """Crash-style death (tests/test_chaos.py:1428): no record cleanup,
+    the node's scheduler records just stop heartbeating."""
+    ctx.placer.stop()
+    ctx.supervisor.shutdown()
+    server.stop(grace=0)
+    for task in list(ctx.running_queries.values()):
+        with contextlib.suppress(Exception):
+            task.stop(detach=True)
+    ctx.running_queries.clear()
+    ctx.load_reporter.stop()
+
+
+def placer_path(dev) -> dict:
+    """Phase 17b (above): exactly one survivor adopts, no two owners at
+    any sampled instant, the adopter restores the snapshot on the card,
+    and the sink's last changes equal numpy."""
+    import grpc
+
+    from hstream_tpu_torch.client.producer import ColumnarProducer
+    from hstream_tpu_torch.proto import api_pb2 as pb
+    from hstream_tpu_torch.proto.rpc import HStreamApiStub
+    from hstream_tpu_torch.server.main import serve
+    from hstream_tpu_torch.store import open_store
+    from hstream_tpu_torch.store.api import LSN_MIN
+
+    src = PackStream(seed=171)
+    items = [src.block(b, b * P17_MS) for b in range(P17B_BLOCKS)]
+    items.append(src.closer(20_000))    # closes window 1
+    frames = [src.frame(it) for it in items]
+    store = open_store("mem://")
+    nodes, ticks, channels = [], {}, []
+    dead: set[int] = set()
+    out = {"config": "placer"}
+    try:
+        for i in range(3):
+            server, ctx = serve(
+                "127.0.0.1", 0, store=store, owns_store=False,
+                placer_interval_ms=100, heartbeat_lease_ms=P17_LEASE_MS,
+                snapshot_interval_ms=60, load_report_interval_ms=300)
+            nodes.append((server, ctx))
+            ticks[i] = []
+            tick = ctx.placer.tick
+
+            def timed(tick=tick, i=i):
+                t0 = time.perf_counter()
+                tick()
+                ticks[i].append(time.perf_counter() - t0)
+
+            ctx.placer.tick = timed
+            assert ctx.device == dev, ctx.device
+
+        def stub_of(ctx):
+            ch = grpc.insecure_channel(f"127.0.0.1:{ctx.port}")
+            channels.append(ch)
+            return ch, HStreamApiStub(ch)
+
+        c0 = nodes[0][1]
+        ch0, stub0 = stub_of(c0)
+        stub0.CreateStream(pb.Stream(stream_name="sensors"))
+        poll_until(lambda: len(c0.placer.scores()) == 3, "three published nodes")
+        zero_counts()
+        stub0.ExecuteQuery(pb.CommandQuery(stmt_text=p17_query("a")))
+        qid = c0.persistence.get_queries()[0].query_id
+
+        def owners():
+            return [i for i, (_s, c) in enumerate(nodes)
+                    if i not in dead and qid in c.running_queries]
+
+        poll_until(lambda: len(owners()) == 1, "the placed query's owner")
+        place = next(d for _s, c in nodes
+                     for d in c.placer.status()["decisions"]
+                     if d["action"] == "place")
+        samples, stop = [], threading.Event()
+
+        def sampler():
+            while not stop.is_set():
+                samples.append(tuple(owners()))
+                stop.wait(0.01)
+
+        th = threading.Thread(target=sampler, daemon=True)
+        th.start()
+        producer = ColumnarProducer(ch0, "sensors")
+        for f in frames[:P17B_KILL_AT]:
+            append_retrying(producer, f)
+        owner = owners()[0]
+        _srv_drained([_srv_task(nodes[owner][1], qid)],
+                     src.last_ts(items[P17B_KILL_AT - 1]))
+        sink = c0.streams.get_logid("pka")
+
+        def adopts(i):
+            return [d for d in nodes[i][1].placer.status()["decisions"]
+                    if d["action"] == "adopt"]
+
+        before = {i: len(adopts(i)) for i in range(3)}
+        _node_kill(*nodes[owner])
+        dead.add(owner)
+        t_kill = time.perf_counter()
+        tail_at_kill = store.tail_lsn(sink)
+        survivor = next(c for i, (_s, c) in enumerate(nodes)
+                        if i not in dead)
+        _chs, stub_s = stub_of(survivor)
+        producer = ColumnarProducer(_chs, "sensors")
+        for f in frames[P17B_KILL_AT:]:
+            append_retrying(producer, f)
+        poll_until(lambda: owners(), "an adoption", timeout=120)
+        adopt_s = time.perf_counter() - t_kill
+        poll_until(lambda: store.tail_lsn(sink) > tail_at_kill,
+             "the adopter's first row", timeout=120)
+        first_row_s = time.perf_counter() - t_kill
+        adopter = owners()[0]
+        task = _srv_task(nodes[adopter][1], qid)
+        _srv_drained([task], src.last_ts(items[-1]))
+        assert task.executor.device == dev, task.executor.device
+        assert min(task.attached_lsns.values()) > LSN_MIN, \
+            f"the adopter did not resume from a snapshot: {task.attached_lsns}"
+        ref = src.reference(items)
+        rows = check_member(member_finals(nodes[adopter][1], "pka", ref, "a"),
+                            ref, dev, "the adopted query", "a")
+        stop.set()
+        th.join(10)
+        counts = launch_counts()
+        double = [s for s in samples if len(s) > 1]
+        assert not double, f"two owners at {len(double)} samples"
+        survivors = [i for i in range(3) if i not in dead]
+        adopted = [d for i in survivors for d in adopts(i)[before[i]:]]
+        assert len(adopted) == 1 and adopted[0]["query"] == qid \
+            and adopted[0]["reason"] == "lease_lapsed", adopted
+        fences = [d for i in survivors
+                  for d in nodes[i][1].placer.status()["decisions"]
+                  if d["action"] == "self_fence"]
+        assert not fences, fences
+        for name in ("wire_decode", "scatter_aggregate", "touched_extract",
+                     "reset_close"):
+            assert counts[name] > 0, (name, counts)
+        out.update(launches=counts, rows=rows, owner=owner, adopter=adopter,
+                   placed=dict(target=place["target"],
+                               reason=place["reason"]),
+                   adopt_s=adopt_s, first_row_s=first_row_s,
+                   samples=len(samples), resumed_from=task.attached_lsns,
+                   tick_ms_max={i: round(max(v, default=0) * 1e3, 3)
+                                for i, v in ticks.items()})
+    finally:
+        for ch in channels:
+            ch.close()
+        for i, (server, ctx) in enumerate(nodes):
+            if i in dead:
+                continue
+            server.stop(grace=0.1)
+            ctx.shutdown()
+        store.close()
+    return out
+
+
 def poll_sink(path, n: int) -> list:
     """The sink table's rows once it holds n (the connector writes
     behind the stream query)."""
@@ -10154,6 +10754,41 @@ def main() -> int:
         f"across the failover and the sink's {r['sink_rows']} rows equal "
         f"numpy; launches {r['launches']} [{card}]")
     phase_done("16 replicated server")
+
+    r, un = packed_path(dev)
+    paths += [r, un]
+    log(f"packed queries (17a): serve(pack_queries=True), one pack group "
+        f"{json.dumps(r['group'])} on the card, a refused query as a "
+        f"standalone task ({r['explain_pack']}); {P17_BLOCKS} + "
+        f"{P17_AFTER} framed blocks of 2^16 records (cut from phase 13's "
+        f"2^18: the pack runner makes a row dict of every record for "
+        f"each member) and two closers, a member terminated after block "
+        f"{P17_BLOCKS}; RetraceGuard 0 over members 2 and 3; "
+        f"{r['feeds_checked']} of {r['feeds']} feeds held to "
+        f"ceil(members x n / {P17_CAP}) step launches (three members, a "
+        f"block: {json.dumps(r['step_launches_three_members'])}); last "
+        f"changes equal numpy {json.dumps(r['rows'])}; packed "
+        f"{r['events_per_sec']:.0f} events/s against unpacked "
+        f"{un['events_per_sec']:.0f} over blocks {P17_WARM}-"
+        f"{P17_BLOCKS - 1} with three queries; unpacked scatter launches "
+        f"a block {un['scatter_launches_a_block']:.2f}, rows equal "
+        f"{json.dumps(un['rows_equal'])}; stage s "
+        f"{json.dumps({k: round(v, 2) for k, v in r['stage_s'].items()})}"
+        f", unpacked run {un['wall_s']:.2f} s; launches packed {r['launches']}"
+        f", unpacked {un['launches']} [{card}]")
+    r = placer_path(dev)
+    paths.append(r)
+    log(f"placer adoption (17b): three armed nodes over one store (lease "
+        f"{P17_LEASE_MS} ms, tick 100 ms), placed {json.dumps(r['placed'])}"
+        f", owner {r['owner']} killed after block {P17B_KILL_AT} of "
+        f"{P17B_BLOCKS} (2^16 records each); node {r['adopter']} adopted "
+        f"{r['adopt_s']:.3f} s after the kill, its first row "
+        f"{r['first_row_s']:.3f} s after it, resumed from a snapshot on "
+        f"the card at {json.dumps(r['resumed_from'])}; no two owners over "
+        f"{r['samples']} samples; {r['rows']} last changes equal numpy; "
+        f"placer tick ms max {json.dumps(r['tick_ms_max'])}; launches "
+        f"{r['launches']} [{card}]")
+    phase_done("17 packed queries and placer adoption")
 
     kernels = []
     for name, r in results.items():

@@ -299,7 +299,8 @@ class PackGroup:
 
                 self.executor = make_executor(
                     self.plan, sample_rows=tagged,
-                    batch_capacity=self.batch_capacity)
+                    batch_capacity=self.batch_capacity,
+                    device=self.ctx.device)
             out = self.executor.process(tagged, ts_tagged)
             self.batches += 1
             self.rows_in += len(tagged)

@@ -431,6 +431,21 @@ def explain_text(plan: plans.Plan) -> str:
                          "(data x key) when --mesh is set")
         else:
             lines.append(f"MESH: single-chip — {reason}")
+        # co-compile packing eligibility: the typed refusal reason says
+        # why a query did not share a lattice (lazy import: placer pulls
+        # scheduler, which pulls codegen back)
+        from hstream_tpu_torch.placer.packing import (
+            PackRefusal,
+            pack_signature,
+            signature_text,
+        )
+
+        sig = pack_signature(plan)
+        if isinstance(sig, PackRefusal):
+            lines.append(f"PACK: unpackable — {sig.code}: {sig.detail}")
+        else:
+            lines.append("PACK: packable with --pack-queries — "
+                         f"{signature_text(sig)}")
         return "\n".join(lines)
     if isinstance(plan, plans.CreateBySelectPlan):
         return (f"CREATE STREAM {plan.stream} AS\n"

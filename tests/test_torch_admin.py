@@ -234,8 +234,7 @@ def test_virtual_table_names_are_reserved(pair):
 
 
 def test_explain_notes_mesh_exclusion(pair):
-    """The MESH line of three plans (the port's EXPLAIN has no PACK
-    line, ROADMAP A9)."""
+    """The MESH and PACK lines of three plans."""
     def run(s):
         for n in ("l1", "r1"):
             s.stub.CreateStream(s.pb.Stream(stream_name=n))
@@ -249,12 +248,16 @@ def test_explain_notes_mesh_exclusion(pair):
                     "TUMBLING (INTERVAL 10 SECOND) EMIT CHANGES;"):
             text = s.sql(sql)[0]["explain"]
             out.append([re.sub(r"over \d+ chips", "over <n> chips", ln)
-                        for ln in text.splitlines() if ln.startswith("MESH")])
+                        for ln in text.splitlines()
+                        if ln.startswith(("MESH", "PACK"))])
         return out
 
     out = same(pair, run)
     assert out[0][0].startswith("MESH: shardable")
     assert out[1][0].startswith("MESH: single-chip")
+    assert [o[1].split(" — ")[0] for o in out] == [
+        "PACK: unpackable", "PACK: packable with --pack-queries",
+        "PACK: packable with --pack-queries"]
 
 
 def test_append_compression_knob():

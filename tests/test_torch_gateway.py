@@ -15,9 +15,8 @@ nature are masked, and only those, each by name (`MASKED`):
     is JAX's, the port's is PyTorch's);
   * the server address the shell and the gateway follow after a leader
     hint (each stack's own).
-The EXPLAIN text of the port has no PACK line (the placer's co-compile
-packing, ROADMAP A9): the shell's EXPLAIN is compared without it, and
-its MESH line without the count of devices (the reference's test process
+The shell's EXPLAIN is compared whole, its PACK line included, and its
+MESH line without the count of devices (the reference's test process
 sees 8 virtual JAX devices, the port one CPU device).
 """
 
@@ -145,8 +144,8 @@ def test_repl_scripted_session(stacks):
 
 
 def test_repl_explain(stacks):
-    """EXPLAIN through the shell: the plan's lines equal, the port's
-    without the PACK line."""
+    """EXPLAIN through the shell: the plan's lines equal, the PACK line
+    included."""
     def plan_lines(s):
         text = shell(s, ["CREATE STREAM shell_x;",
                          "EXPLAIN SELECT COUNT(*) FROM shell_x GROUP BY "
@@ -154,10 +153,11 @@ def test_repl_explain(stacks):
         lines = [ln.strip(" |") for ln in text.splitlines()
                  if not ln.startswith("+")]
         return [re.sub(r"over \d+ chips", "over <n> chips", ln)
-                for ln in lines if ln and not ln.startswith("PACK:")]
+                for ln in lines if ln]
 
     ref, port = each(stacks, plan_lines)
     assert ref == port and any("AGGREGATE" in ln for ln in port)
+    assert any(ln.startswith("PACK: unpackable") for ln in port)
 
 
 def test_repl_ddl_routing_and_pull_query(stacks):

@@ -64,11 +64,12 @@ def test_execute_query_ddl_insert_show_explain(pair):
     ref, port = pair.each(run)
     assert port[:3] == ref[:3]
     assert "AGGREGATE" in port[3]
-    # the port's EXPLAIN has no PACK line yet (ROADMAP C), and the MESH
-    # line counts each package's own devices: the other lines agree
+    # the MESH line counts each package's own devices: the other lines,
+    # the PACK line among them, agree
     plan = lambda t: [ln for ln in t.splitlines()  # noqa: E731
-                      if not ln.startswith(("PACK", "MESH"))]
+                      if not ln.startswith("MESH")]
     assert plan(port[3]) == plan(ref[3])
+    assert plan(port[3])[-1].startswith("PACK: unpackable — unwindowed:")
 
 
 def test_push_query_end_to_end(pair):

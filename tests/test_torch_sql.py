@@ -4,8 +4,8 @@ text through both packages' parse -> refine -> codegen.
 Every case of tests/test_sql.py and tests/test_validate.py: plans are
 compared field by field (torch_parity.plan_tuple turns either package's
 plan dataclasses into plain tuples), errors by class name and message,
-EXPLAIN line for line except the PACK line (the placer's packing is not
-ported yet, ROADMAP C), and the end-to-end cases run the lowered plans
+EXPLAIN line for line (the MESH line's device count left out), and the
+end-to-end cases run the lowered plans
 through both packages' executors (the port's on device="cpu") and
 compare every emitted row (floats rel 1e-6, torch_parity).
 """
@@ -137,13 +137,13 @@ def _same_error(j, t):
 
 
 def _explain_lines(text: str) -> list[str]:
-    """EXPLAIN's lines without the PACK line, the MESH line's device count
-    left out: the reference counts jax.device_count() (8 virtual CPU
-    devices under the test suite), the port the cards (1 here)."""
+    """EXPLAIN's lines, the MESH line's device count left out: the
+    reference counts jax.device_count() (8 virtual CPU devices under the
+    test suite), the port the cards (1 here)."""
     import re
 
     return [re.sub(r"over \d+ chips", "over N chips", ln)
-            for ln in text.splitlines() if not ln.startswith("PACK:")]
+            for ln in text.splitlines()]
 
 
 def _same_plan(j, t):
@@ -152,7 +152,9 @@ def _same_plan(j, t):
     if isinstance(j, jsql.plans.ExplainPlan):
         assert plan_tuple(t.inner) == plan_tuple(j.inner)
         assert _explain_lines(t.text) == _explain_lines(j.text)
-        assert not any(ln.startswith("PACK:") for ln in t.text.splitlines())
+        pack = [[ln for ln in x.text.splitlines() if ln.startswith("PACK:")]
+                for x in (j, t)]
+        assert pack[1] == pack[0]
     else:
         assert plan_tuple(t) == plan_tuple(j)
 
@@ -168,6 +170,8 @@ def test_plans_match(sql):
 
 @pytest.mark.parametrize("sql", PLAN_SQL + GOOD, ids=lambda s: s[:48])
 def test_explain_matches_but_for_the_pack_line(sql):
+    """EXPLAIN's whole text, the PACK line included (the name is the one
+    the test had while the port lacked that line)."""
     j, t = _both("stream_codegen", "EXPLAIN " + sql)
     if isinstance(j, Exception):
         _same_error(j, t)

@@ -2367,6 +2367,8 @@ def topk_edge_batches(dev):
         for i in range(4):
             cols[f"__null_a{i}"] = t(rng.random(n) < 0.02).to(dev)
         return (t(key.astype(np.int32)).to(dev),
+                # synthetic relative times, below 2^18 + 9,000
+                # analyze: ok overflow-narrowing — small synthetic times
                 t(ts.astype(np.int32)).to(dev),
                 t(rng.integers(0, 40, n) > 0).to(dev), cols)
 
@@ -3060,6 +3062,9 @@ def pack_session(dev, spec, layout, rng, codes, ts, valid=None):
         m |= nb_ if "b" in cs else False
         masks.append(m)
     buf = sl.pack_batch_host(n, n, np.asarray(codes).astype(np.int32),
+                             # the callers' times are int32 values (the
+                             # wrap cases sit at int32's two ends)
+                             # analyze: ok overflow-narrowing — test data
                              np.asarray(ts).astype(np.int32), valid,
                              {"v": v, "w": w, "b": bcol}, masks, layout)
     return torch.from_numpy(buf).to(dev)
@@ -3282,6 +3287,8 @@ def session_edge_cases(dev, spec, layout, progs):
         arena = arena_of(cap, rng.integers(0, 300, 3000),
                          rng.integers(0, 30 * SESS_GAP, 3000))
         arena["code"].fill_(5)
+        # the callers' starts are below 1,256
+        # analyze: ok overflow-narrowing — test data
         arena["t0"].copy_(torch.from_numpy(starts.astype(np.int32)))
         arena["t1"].copy_(arena["t0"])
         return arena
@@ -6466,6 +6473,8 @@ def sampler_floor(dev) -> dict:
             for _ in range(8):
                 torch.cuda.synchronize()
                 time.sleep(idle_s)
+                # a family of this measurement alone: no series renders it
+                # analyze: ok registry-stage — the sampler floor's probe
                 with kernel_family("floor", ready=lambda: vals):
                     kb.check(kb.lib().hs_empty(stream), "empty")
         finally:

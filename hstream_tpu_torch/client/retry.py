@@ -77,6 +77,8 @@ NON_RETRYABLE_CODES = frozenset({
     grpc.StatusCode.INTERNAL,
     grpc.StatusCode.ABORTED,
     grpc.StatusCode.UNAVAILABLE,
+    # the port's NotPortedError: the same call fails the same way
+    grpc.StatusCode.UNIMPLEMENTED,
 })
 # Statuses retryable ONLY when the error carries a leader hint (the
 # NOT_LEADER contract): the refusal is issued before any work, and the

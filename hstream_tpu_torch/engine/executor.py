@@ -357,6 +357,11 @@ class QueryExecutor:
         nbytes metadata reads only, zero launches, zero copies."""
         return plane_bytes(self.state)
 
+    # the reference's step launch plus the port's staging wait: the
+    # pinned upload on the copy stream may wait on the oldest upload
+    # still in flight (_device_stage), where the reference's device_put
+    # waits on nothing
+    # contract: dispatches<=1 fetches<=1
     def _run_step(self, n: int, key_ids, ts_rel, cols, nulls,
                   wm_rel: int) -> None:
         """Encode one micro-batch with the wire codec, upload it, and
@@ -409,6 +414,7 @@ class QueryExecutor:
                 valid = ~fm
         return valid, null_streams
 
+    # contract: dispatches<=1 fetches<=0 inline
     def _launch_step(self, combo, bases, words, ready, n: int,
                      wm_rel: int) -> None:
         if ready is not None:
@@ -762,6 +768,10 @@ class QueryExecutor:
 
     # ---- pipelined ingest (stage on one thread, step on another) ----------
 
+    # The port's staging differs from the reference's device_put: its one
+    # fetch is the wait on the oldest in-flight upload of the pinned
+    # ring (a copy-stream event, on the encode worker), never a kernel.
+    # contract: dispatches<=0 fetches<=1 inline
     def _device_stage(self, words: np.ndarray):
         """H2D staging of one wire buffer -> (device int32 tensor, CUDA
         event | None). On the card: a pinned host copy, then an async
@@ -795,11 +805,15 @@ class QueryExecutor:
                     time.perf_counter() - t0
         return dev, ready
 
+    # the port's staging may wait once on the oldest upload still in
+    # flight (_device_stage); the reference's device_put waits on nothing
+    # contract: dispatches<=0 fetches<=1
     def stage_columnar(self, key_ids, ts_ms, cols, nulls=None
                        ) -> StagedBatch | None:
         """Encode and upload one micro-batch ahead of its step — safe to
         run on an encode worker while the main thread launches earlier
-        batches' steps. Launches no kernel and fetches nothing. Rare
+        batches' steps. Launches no kernel and fetches nothing; its one
+        wait is on an earlier upload when the pinned ring is full. Rare
         control flow (epoch rebase, int32 overflow, gap splits) falls
         back to the synchronous path inside process_staged()."""
         key_ids = np.asarray(key_ids, dtype=np.int32)
@@ -849,6 +863,7 @@ class QueryExecutor:
             self._no_close.clear()
             self._touched_this_call.clear()
 
+    # contract: dispatches<=1 fetches<=0
     def _process_staged(self, staged: StagedBatch) -> list[dict[str, Any]]:
         ts_list = staged.ts_ms
         batch_starts = None
@@ -907,6 +922,7 @@ class QueryExecutor:
             return projected
         return row
 
+    # contract: dispatches<=1 fetches<=1
     def _close_windows(self, starts: list[int]) -> list[dict[str, Any]]:
         """Pop + close every window in `starts` with ONE fused close
         launch (extract + finalize + reset) and, unless deferred, ONE
@@ -954,6 +970,9 @@ class QueryExecutor:
         out = None
         for s, slot in ows:
             if not self.emit_changes:
+                # the per-slot fallback (a caller turned the fused close
+                # off); one fetch per window is its price
+                # analyze: ok dispatch-sync — reference close fallback
                 packed = self._extract_slot(self.state, slot).cpu().numpy()
                 self.close_stats["close_fetches"] += 1
                 self.transfer_stats["d2h_bytes"] += packed.nbytes
@@ -963,6 +982,7 @@ class QueryExecutor:
             self._no_close.discard(s)
         return out if out is not None else []
 
+    # contract: dispatches<=0 fetches<=1
     def drain_closed(self) -> list[dict[str, Any]]:
         """Decode every deferred window close. Pending close cycles fetch
         in ONE device->host copy per buffer shape (key growth between two
@@ -994,6 +1014,7 @@ class QueryExecutor:
 
     # ---- the changelog (EMIT CHANGES) --------------------------------------
 
+    # contract: dispatches<=1 fetches<=1
     def _drain_changes(self) -> "ColumnarEmit | list[dict[str, Any]]":
         """One changelog extract of this batch's touched (key, window)
         pairs (one launch). Decoded now, or kept on the device when
@@ -1063,6 +1084,7 @@ class QueryExecutor:
         """True when deferred change extracts still hold rows."""
         return bool(self._pending_changes or self._drain_futs)
 
+    # contract: dispatches<=0 fetches<=1
     def _decode_pending(self, pending: list
                         ) -> "ColumnarEmit | list[dict[str, Any]]":
         """Decode deferred change extracts, fetching them in ONE
@@ -1201,6 +1223,7 @@ class QueryExecutor:
 
     # ---- pull queries (materialized views) ---------------------------------
 
+    # contract: dispatches<=0 fetches<=0
     def read_version(self) -> tuple:
         """Exact version of the peek-visible aggregate: equal tuples
         guarantee peek() would return the same rows (the read cache's
@@ -1209,6 +1232,7 @@ class QueryExecutor:
         return ("agg", self._read_nonce, self.read_epoch,
                 self.close_stats["close_cycles"], self.watermark_abs)
 
+    # contract: dispatches<=0 fetches<=0
     def live_min_win_end(self) -> int | None:
         """Smallest winEnd any live (open OR due-but-unclosed) window
         could emit, or None when no live window exists. Lets a reader
@@ -1218,6 +1242,7 @@ class QueryExecutor:
             return None
         return min(self._open) + self.window.size_ms
 
+    # contract: dispatches<=1 fetches<=1
     def peek(self) -> list[dict[str, Any]]:
         """Current (open-window) aggregate rows without resetting state:
         ONE extract-only close launch + ONE fetch covers every open
@@ -1233,6 +1258,7 @@ class QueryExecutor:
         packed = self._extract_slots(self.state, slots).cpu().numpy()
         return self._decode_extract_batch(packed, starts)
 
+    # contract: dispatches<=0 fetches<=1
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -327,6 +327,7 @@ class _JoinBase:
     def peek(self) -> list[dict[str, Any]]:
         return [] if self._inner is None else self._inner.peek()
 
+    # contract: dispatches<=0 fetches<=0
     def read_version(self) -> tuple | None:
         """Read-cache validity key: peek() serves the inner
         aggregate's state, so the version IS the inner's — prefixed
@@ -338,6 +339,7 @@ class _JoinBase:
         fn = getattr(inner, "read_version", None)
         return None if fn is None else fn()
 
+    # contract: dispatches<=0 fetches<=0
     def live_min_win_end(self) -> int | None:
         """Smallest live winEnd of the inner aggregate (the read
         plane's closed-only fast path); None = no live window could emit one."""
@@ -350,11 +352,13 @@ class _JoinBase:
             return []
         return self._inner.close_due_windows()
 
+    # contract: dispatches<=0 fetches<=1
     def block_until_ready(self) -> None:
         if self._inner is not None and hasattr(self._inner,
                                                "block_until_ready"):
             self._inner.block_until_ready()
 
+    # contract: dispatches<=0 fetches<=0
     def device_plane_bytes(self) -> dict[str, int]:
         """Device bytes of the inner aggregate's planes, "agg."-
         prefixed (JoinExecutor extends this with its device stores),
@@ -608,6 +612,7 @@ class JoinExecutor(_JoinBase):
         self.stage_stats = {"key_encode_s": 0.0, "lexsort_s": 0.0,
                             "shadow_s": 0.0, "pack_s": 0.0, "h2d_s": 0.0}
 
+    # contract: dispatches<=0 fetches<=0
     def device_plane_bytes(self) -> dict[str, int]:
         """Exact per-plane device bytes: both sides' interval stores
         ("l."/"r."-prefixed) plus the inner aggregate's lattice planes
@@ -806,6 +811,7 @@ class JoinExecutor(_JoinBase):
                 out[i] = -1 if k is None else code_of(k)
         return out
 
+    # contract: dispatches<=0 fetches<=1
     def _compact_codes(self) -> None:
         """Code-space compaction: keep only codes still live in either
         store (retention bounds them), reassign codes, remap stores +
@@ -1473,6 +1479,9 @@ class JoinExecutor(_JoinBase):
                 combined = combined * len(uniq) + inv
             u, uinv = np.unique(combined, return_inverse=True)
             lut = np.empty(len(u), np.int64)
+            # each column's distinct values as Python scalars (what
+            # .item() gives an element; an object column's are as stored)
+            py_vals = [uniq.tolist() for uniq in col_vals]
             for i, cu in enumerate(u.tolist()):
                 idxs = []
                 for uniq in reversed(col_vals[1:]):
@@ -1480,10 +1489,7 @@ class JoinExecutor(_JoinBase):
                     cu //= len(uniq)
                 idxs.append(cu)
                 idxs.reverse()
-                key = tuple(col_vals[k][i2].item()
-                            if hasattr(col_vals[k][i2], "item")
-                            else col_vals[k][i2]
-                            for k, i2 in enumerate(idxs))
+                key = tuple(py_vals[k][i2] for k, i2 in enumerate(idxs))
                 lut[i] = code_of(canon_key(key))
             out = lut[uinv]
         if null_any.any():
@@ -1605,6 +1611,7 @@ class JoinExecutor(_JoinBase):
                 p[5] is old for p in self._pending_matches):
             dev["spare"][side] = old
 
+    # contract: dispatches<=1 fetches<=0
     def _device_batch(self, side, codes, bts, flags, vals
                       ) -> list[dict[str, Any]]:
         """One micro-batch on the device path: pack, upload, ONE probe
@@ -1759,6 +1766,7 @@ class JoinExecutor(_JoinBase):
         return True
 
 
+    # contract: dispatches<=1 fetches<=0
     def _fused_batch(self, side, other_side, bt, buf, n, cutoff
                      ) -> list[dict[str, Any]]:
         """The fused call: probe, step every matched pair into the inner
@@ -1824,6 +1832,7 @@ class JoinExecutor(_JoinBase):
             inner._no_close.clear()
             inner._touched_this_call.clear()
 
+    # contract: dispatches<=0 fetches<=1
     def _drain_matches(self) -> list[dict[str, Any]]:
         """Fetch + decode every pending match buffer: buffers of one
         shape stack into ONE device->host transfer (fetch count, not
@@ -1875,6 +1884,7 @@ class JoinExecutor(_JoinBase):
                                                         nm))
         return out if out is not None else []
 
+    # contract: dispatches<=1 fetches<=1
     def _reprobe_wider(self, side, buf, n, other, cutoff,
                        total) -> np.ndarray:
         """Match-overflow redo: probe-only at the next pow2 width (the
@@ -2001,6 +2011,7 @@ class JoinExecutor(_JoinBase):
         self._dispatch_evict(cutoff_abs, 0)
 
 
+    # contract: dispatches<=1 fetches<=0
     def _dispatch_evict(self, cutoff_abs: int, delta: int) -> None:
         """One two-sided eviction (+ rebase) call. The live counts stay
         a DEVICE value (dev["pending_n"]) so the hot loop never blocks on
@@ -2044,6 +2055,7 @@ class JoinExecutor(_JoinBase):
             pend[1][side] += n
 
 
+    # contract: dispatches<=0 fetches<=1
     def _refresh_counts(self) -> None:
         """Force the deferred post-eviction live counts (2-int fetch),
         re-adding inserts made after the eviction."""
@@ -2117,25 +2129,30 @@ class JoinExecutor(_JoinBase):
             n = self._dev["n"][side]
             if n:
                 stores = self._dev["stores"][side]
-                if self._dev.get("sjl") is not None:
+                sharded = self._dev.get("sjl") is not None
+                # snapshot serialization, off the hot loop; the sides
+                # differ in column layout (and key shards may sit on
+                # several cards), so their fetches cannot stack.
+                # analyze: ok dispatch-sync — rare, host-driven
+                host = [{k: v.cpu().numpy() for k, v in x.items()}
+                        for x in (stores if sharded else [stores])]
+                if sharded:
                     # the per-shard stores flattened into one (code, ts)-
                     # sorted sequence: the live entries are each shard's
                     # non-sentinel slots, the shards interleave in code
                     # order
-                    code = np.stack([x["code"].cpu().numpy()
-                                     for x in stores])
+                    code = np.stack([x["code"] for x in host])
                     shard, slot = np.nonzero(code < jl.JOIN_SENT_CODE)
-                    fl = {k: np.stack([x[k].cpu().numpy() for x in stores])
-                          [shard, slot] for k in ("code", "ts", "flags")}
-                    cols = np.stack([x["cols"].cpu().numpy()
-                                     for x in stores])
+                    fl = {k: np.stack([x[k] for x in host])[shard, slot]
+                          for k in ("code", "ts", "flags")}
+                    cols = np.stack([x["cols"] for x in host])
                     order = np.lexsort((fl["ts"], fl["code"]))
                     arrs = {k: v[order] for k, v in fl.items()}
                     arrs["cols"] = cols.transpose(1, 0, 2)[
                         :, shard, slot][:, order]
                     n = len(order)
                 else:
-                    arrs = {k: v.cpu().numpy() for k, v in stores.items()}
+                    arrs = host[0]
                 if cutoff is not None:
                     keep = (arrs["ts"][:n].astype(np.int64)
                             + self._dev["t0"]) >= cutoff

@@ -1606,12 +1606,17 @@ class SessionExecutor:
         return out if out else []
 
 
-    # contract: dispatches<=1 fetches<=0
+    # the reference's one step launch, plus the port's two differences:
+    # a plan with computed inputs launches the expression kernel ahead
+    # of the step, and the pinned upload may wait on an earlier one
+    # contract: dispatches<=2 fetches<=1
     def _process_device(self, codes, ts, feed, pre_max):
         """One device micro-batch: mirror-side late walk + segmentation
-        + chain merge (numpy), then ONE step (or merge) wrapper call and
-        NO fetch — the session ingest contract. Closes ride
-        _close_due_device (their own one-launch-one-fetch budget)."""
+        + chain merge (numpy), then ONE step (or merge) wrapper call —
+        behind the computed inputs' expression launch, if the plan has
+        any — and no fetch but the staging ring's wait: the session
+        ingest contract. Closes ride _close_due_device (their own
+        one-launch-one-fetch budget)."""
         dev = self._dev
         gap = self.window.gap_ms
         grace = self.window.grace_ms
@@ -1731,34 +1736,41 @@ class SessionExecutor:
         dev = self._dev
         dev["arena"], dev["spare"] = dev["spare"], dev["arena"]
 
-    def _stage_packed(self, shape: tuple[int, int]):
-        """(host int32 array to pack into, its upload): on the card a
-        pinned buffer, uploaded by `upload()` on the side stream with an
-        event the current stream waits on; at most _UPLOAD_SLOTS staging
-        buffers stay referenced. On the CPU the array is the tensor's."""
+    def _stage_packed(self, shape: tuple[int, int]) -> torch.Tensor:
+        """The host int32 tensor to pack a batch into: pinned on the
+        card, where _upload_packed copies it up on the side stream; on
+        the CPU the tensor is the batch itself."""
+        return torch.empty(shape, dtype=torch.int32,
+                           pin_memory=self._copy_stream is not None)
+
+    # its one fetch: the wait on the oldest upload past the ring (a
+    # copy-stream event, never a kernel)
+    # contract: dispatches<=0 fetches<=1 inline
+    def _upload_packed(self, pinned: torch.Tensor) -> torch.Tensor:
+        """Upload a staged batch on the side stream with an event the
+        current stream waits on; at most _UPLOAD_SLOTS staging buffers
+        stay referenced."""
         if self._copy_stream is None:
-            host = torch.empty(shape, dtype=torch.int32)
-            return host.numpy(), lambda: host
-        pinned = torch.empty(shape, dtype=torch.int32, pin_memory=True)
+            return pinned
+        with torch.cuda.stream(self._copy_stream):
+            dev = torch.empty(pinned.shape, dtype=torch.int32,
+                              device=self.device)
+            dev.copy_(pinned, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        torch.cuda.current_stream(self.device).wait_event(ready)
+        # the step reads `dev` on the current stream: tell the
+        # caching allocator, so the buffer is not reused early
+        dev.record_stream(torch.cuda.current_stream(self.device))
+        # one append a call keeps the ring at most one past its slots
+        self._upload_ring.append((ready, pinned))
+        if len(self._upload_ring) > _UPLOAD_SLOTS:
+            self._upload_ring.popleft()[0].synchronize()
+        return dev
 
-        def upload() -> torch.Tensor:
-            with torch.cuda.stream(self._copy_stream):
-                dev = torch.empty(shape, dtype=torch.int32,
-                                  device=self.device)
-                dev.copy_(pinned, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(self._copy_stream)
-            torch.cuda.current_stream(self.device).wait_event(ready)
-            # the step reads `dev` on the current stream: tell the
-            # caching allocator, so the buffer is not reused early
-            dev.record_stream(torch.cuda.current_stream(self.device))
-            self._upload_ring.append((ready, pinned))
-            while len(self._upload_ring) > _UPLOAD_SLOTS:
-                self._upload_ring.popleft()[0].synchronize()
-            return dev
-
-        return pinned.numpy(), upload
-
+    # a plan with computed inputs launches the expression kernel ahead of
+    # the step; the batch's upload may wait on an earlier one
+    # contract: dispatches<=2 fetches<=1 inline
     def _dispatch_record_step(self, codes, ts, feed, close_cut, epoch,
                               delta):
         """Record-mode step: pack raw records into one int32 buffer
@@ -1779,11 +1791,12 @@ class SessionExecutor:
                     if nm is not None:
                         m |= np.asarray(nm, np.bool_)[:n]
             null_masks.append(m if m.any() else None)
-        host, upload = self._stage_packed((3 + len(dev["layout"]), n))
+        staged = self._stage_packed((3 + len(dev["layout"]), n))
+        host = staged.numpy()
         sl.pack_batch_host(n, n, codes.astype(np.int32), ts_rel, None,
                            cols, null_masks, dev["layout"], out=host)
         t1 = time.perf_counter()
-        packed = upload()
+        packed = self._upload_packed(staged)
         t2 = time.perf_counter()
         self.stage_stats["pack_s"] += t1 - t0
         self.stage_stats["h2d_s"] += t2 - t1
@@ -1805,6 +1818,7 @@ class SessionExecutor:
                                 close_cut, delta)
         self._swap_arenas()
 
+    # contract: dispatches<=1 fetches<=0 inline
     def _dispatch_segment_merge(self, feed, order, starts, ends,
                                 seg_of_row_sorted, seg_code, seg_t0,
                                 seg_t1, close_cut, epoch, delta):
@@ -1873,16 +1887,17 @@ class SessionExecutor:
                 sorted_cache[id(vals)] = hit
             vs, okv = hit
             if a.kind == AggKind.COUNT:
-                plane = np.add.reduceat(okv.astype(np.int64),
-                                        starts).astype(np.int32)
+                # a segment's count of one batch's records fits int32:
+                # sum in it (`starts` are row offsets, not times)
+                plane = np.add.reduceat(okv, starts, dtype=np.int32)
             elif a.kind == AggKind.SUM:
                 plane = np.add.reduceat(np.where(okv, vs, 0.0),
                                         starts).astype(np.float32)
             elif a.kind == AggKind.AVG:
                 plane = np.add.reduceat(np.where(okv, vs, 0.0),
                                         starts).astype(np.float32)
-                seg[name + "_n"] = np.add.reduceat(
-                    okv.astype(np.int64), starts).astype(np.int32)
+                seg[name + "_n"] = np.add.reduceat(okv, starts,
+                                                   dtype=np.int32)
             elif a.kind == AggKind.MIN:
                 plane = np.minimum.reduceat(
                     np.where(okv, vs, np.inf), starts).astype(np.float32)
@@ -2077,6 +2092,7 @@ class SessionExecutor:
         self.transfer_stats["d2h_bytes"] += packed_host.nbytes
         return self._decode_close(packed_host, codes, t0, t1)
 
+    # contract: dispatches<=1 fetches<=0 inline
     def _dispatch_extract(self, idx: np.ndarray) -> torch.Tensor:
         """One extract launch over the named arena slots (padded to a
         power of two) under the "close" kernel family; returns the

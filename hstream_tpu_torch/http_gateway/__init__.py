@@ -76,6 +76,8 @@ _STATUS = {
     grpc.StatusCode.ABORTED: 409,
     grpc.StatusCode.INTERNAL: 500,
     grpc.StatusCode.UNAVAILABLE: 503,
+    # the port's NotPortedError: a feature the port does not serve yet
+    grpc.StatusCode.UNIMPLEMENTED: 501,
 }
 
 

@@ -125,6 +125,10 @@ class ShardedQueryExecutor(QueryExecutor):
                     for k in range(nk):
                         parts[k][name] = row[k][name]
                     continue
+                # key growth re-shards through the host: one fetch per
+                # plane and shard is unavoidable (the reference's rare
+                # re-shard path carries the same waiver)
+                # analyze: ok dispatch-sync — rare re-shard path by design
                 full = torch.cat([p[name].cpu() for p in row])
                 fill = (float("inf") if kinds.get(name) == "min"
                         else float("-inf") if kinds.get(name) == "max"
@@ -188,9 +192,11 @@ class ShardedQueryExecutor(QueryExecutor):
         valid, null_streams = self._null_valid_streams(n, nulls)
         null_masks = [null_streams.get(nk) for nk, _ in self._null_specs]
         cap = self._step_cap(n)
-        # both callers narrow ts_rel only after their own span check
         packed = lattice.pack_batch_host(
-            cap, n, key_ids, np.asarray(ts_rel, dtype=np.int32), valid,
+            cap, n, key_ids,
+            # both callers narrow ts_rel only after their own span check
+            # analyze: ok overflow-narrowing — caller-guarded narrow
+            np.asarray(ts_rel, dtype=np.int32), valid,
             cols, null_masks, self._layout)
         self.transfer_stats["h2d_bytes"] += int(packed.nbytes)
         self.read_epoch += 1
@@ -216,4 +222,8 @@ class ShardedQueryExecutor(QueryExecutor):
     def block_until_ready(self) -> None:
         for dev in {d for d in self._mesh.devices.flat}:
             if dev.type == "cuda":
+                # a caller's fence over the mesh (join.py calls it; the
+                # ingest path never does): one synchronize a card, as the
+                # reference's block_until_ready waits on every shard
+                # analyze: ok dispatch-sync — a fence over the mesh's cards
                 torch.cuda.synchronize(dev)

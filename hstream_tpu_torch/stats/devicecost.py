@@ -181,14 +181,16 @@ class ProgramInventory:
     def record(self, name: str, key: str, compile_ms: float) -> None:
         """One compile of program `name` with shape key `key`, which
         took `compile_ms` on the host (the factory's body; the kernel
-        library's nvcc build or load)."""
-        if not self._installed:
-            return
+        library's nvcc build or load). Before install() it keeps
+        nothing; the flag is read under the lock install() writes it
+        under."""
         from hstream_tpu_torch.common.tracing import current_kernel_family
 
         family = current_kernel_family()
         now_ms = time.time() * 1e3
         with self._lock:
+            if not self._installed:
+                return
             row = self._rows.get(key)
             if row is None:
                 while len(self._rows) >= self.MAX_ROWS:
@@ -310,6 +312,9 @@ class DeviceTimeSampler:
             self._counts[family] = c
             return self.rate > 0 and c % self.rate == 0
 
+    # The reference's fence blocks until the queued work is done
+    # (fetches<=1); the port's records a timing event behind that work
+    # instead, so the sample's one wait is measure's.
     # contract: dispatches<=0 fetches<=0
     def fence(self, ready) -> Mark:
         """Mark the start of a sampled dispatch. `ready()` gives the

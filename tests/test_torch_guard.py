@@ -49,21 +49,24 @@ SCHEMA = Schema.of(device=ColumnType.STRING, temp=ColumnType.FLOAT)
 
 
 def _forbidden(name: str) -> bool:
-    return (name == "jax" or name.startswith("jax.")
-            or name == "hstream_tpu" or name.startswith("hstream_tpu."))
+    """jax, the JAX package, and the repo's top-level `tools` package
+    (the reference's checkers, which import the JAX package)."""
+    return any(name == top or name.startswith(top + ".")
+               for top in ("jax", "hstream_tpu", "tools"))
 
 
 def test_port_imports_with_jax_blocked_and_loads_no_jax_package_module():
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['tools'] = None\n"
         "import hstream_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    hstream_tpu_torch.__path__, 'hstream_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(n for n in sys.modules if n == 'hstream_tpu'\n"
-        "             or n.startswith('hstream_tpu.'))\n"
+        "             or n.startswith(('hstream_tpu.', 'tools.')))\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -122,22 +125,35 @@ def test_the_source_guard_covers_every_slice():
                  "hstream_tpu_torch/http_gateway/__init__.py",
                  "hstream_tpu_torch/http_gateway/__main__.py",
                  "hstream_tpu_torch/client/__init__.py",
-                 "hstream_tpu_torch/client/__main__.py", "chip_smoke.py"):
+                 "hstream_tpu_torch/client/__main__.py",
+                 "hstream_tpu_torch/tools/analyze/__init__.py",
+                 "hstream_tpu_torch/tools/analyze/__main__.py",
+                 "hstream_tpu_torch/tools/analyze/passes/dispatch.py",
+                 "hstream_tpu_torch/tools/protocheck/__init__.py",
+                 "hstream_tpu_torch/tools/protocheck/__main__.py",
+                 "hstream_tpu_torch/tools/protocheck/model.py",
+                 "hstream_tpu_torch/tools/protocheck/mutants.py",
+                 "hstream_tpu_torch/tools/protocheck/replica_model.py",
+                 "chip_smoke.py"):
         assert want in names, want
 
 
 ENTRY_POINTS = ["hstream_tpu_torch.store.replica", "hstream_tpu_torch.admin",
                 "hstream_tpu_torch.http_gateway", "hstream_tpu_torch.client",
-                "hstream_tpu_torch.server.main"]
+                "hstream_tpu_torch.server.main",
+                "hstream_tpu_torch.tools.analyze",
+                "hstream_tpu_torch.tools.protocheck"]
 
 
 @pytest.mark.parametrize("module", ENTRY_POINTS)
 def test_entry_point_help_runs_with_jax_blocked(module):
-    """`python -m <module> --help` where importing jax or hstream_tpu
-    fails: the operator entry points need neither."""
+    """`python -m <module> --help` where importing jax, hstream_tpu or
+    the top-level tools fails: the operator entry points and the port's
+    checkers need none of them."""
     code = ("import runpy, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['hstream_tpu'] = None\n"
+            "sys.modules['tools'] = None\n"
             f"sys.argv = [{module!r}, '--help']\n"
             f"runpy.run_module({module!r}, run_name='__main__')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
